@@ -1,0 +1,26 @@
+"""h2o-danube-1.8b [dense]: llama+mistral mix with sliding-window attention.
+
+24L d_model=2560 32H (GQA kv=8) d_ff=6912 vocab=32000 [arXiv:2401.16818; hf]
+"""
+
+import dataclasses
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="h2o-danube-1.8b",
+    family="dense",
+    num_layers=24,
+    d_model=2560,
+    num_heads=32,
+    num_kv_heads=8,
+    d_ff=6912,
+    vocab_size=32000,
+    window=4096,  # Mistral-style SWA => sub-quadratic: long_500k runs
+)
+
+
+def smoke_config() -> ModelConfig:
+    return dataclasses.replace(
+        CONFIG, num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+        d_ff=128, vocab_size=256, window=16, param_dtype="float32")

@@ -148,3 +148,9 @@ try:
     import hypothesis  # noqa: F401
 except ImportError:
     _install_hypothesis_stub()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (skipped from inside the test "
+        "when torch.cuda.is_available() is false)")

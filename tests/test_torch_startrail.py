@@ -1,0 +1,110 @@
+"""repro_torch's StarTrail forward on a ThreadMesh vs the JAX reference.
+
+Every rank of a ``ThreadMesh(c, r)`` (P = c*c*r threads in this process)
+runs ``core.startrail.startrail_attention`` on its shard; the shards are put
+back in sequence order and held against ``repro.kernels.ref.mha_reference``
+over the whole sequence. Inputs are made with numpy from a seed and handed
+to both packages. Tolerance 2e-4, the JAX package's own attention dist
+check (``repro/testing/dist_checks.py``). ``combine_decode_partials`` is
+held against the JAX ``combine_pair`` folded over the shards.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import combine as jax_combine
+from repro.kernels import ref as jax_ref
+from repro_torch.core import startrail as st
+from repro_torch.core.combine import NEG_INF
+from repro_torch.dist.comm import ThreadMesh
+from repro_torch.kernels import flash_attention
+
+TOL = 2e-4
+N, B, HQ, HKV, D, WINDOW = 64, 2, 4, 2, 16, 24
+
+
+def _inputs(seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, N, HQ, D)).astype(np.float32)
+    k = rng.normal(size=(B, N, HKV, D)).astype(np.float32)
+    v = rng.normal(size=(B, N, HKV, D)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("impl", ["ref", "cuda"])
+@pytest.mark.parametrize("scheme", ["contiguous", "zigzag"])
+@pytest.mark.parametrize("c,r", [(1, 4), (2, 1), (2, 2)])
+def test_startrail_thread_mesh_matches_mha_reference(c, r, scheme, impl):
+    q, k, v = _inputs()
+    mesh = ThreadMesh(c, r)
+    p = mesh.size
+    cfg = st.StarTrailConfig(seq_len=N, seq_scheme=scheme, causal=True,
+                             window=WINDOW, block_impl=impl,
+                             block_skip=scheme == "contiguous")
+
+    def rank_fn(comm):
+        g, j, t = (comm.axis_index(a) for a in cfg.axes)
+        rank = (g * r + j) * c + t
+        pos = st.shard_positions(rank, N, p, scheme).numpy()
+        o = st.startrail_attention(
+            torch.from_numpy(q[:, pos]), torch.from_numpy(k[:, pos]),
+            torch.from_numpy(v[:, pos]), cfg, comm)
+        return pos, o
+
+    flash_attention.reset_launches()
+    out = np.zeros_like(q)
+    for pos, o in mesh.run(rank_fn, timeout=120):
+        out[:, pos] = o.numpy()
+    # CPU tensors take the plain versions: no kernel launch is counted
+    assert flash_attention.LAUNCHES == {"B1": 0, "B2": 0}
+    want = jax_ref.mha_reference(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), causal=True, window=WINDOW)
+    np.testing.assert_allclose(out, np.asarray(want), atol=TOL, rtol=TOL)
+
+
+def test_thread_mesh_rank_fault_fails_fast():
+    mesh = ThreadMesh(1, 4)
+
+    def rank_fn(comm):
+        if comm.axis_index("sp_ring") == 2:
+            raise ValueError("rank 2 fault")
+        return comm.psum(torch.ones(1), ("sp_ring",))
+
+    with pytest.raises(ValueError, match="rank 2 fault"):
+        mesh.run(rank_fn, timeout=30)
+
+
+def test_combine_decode_partials_dead_shards():
+    rng = np.random.default_rng(3)
+    P, Bd, H = 4, 3, 4
+    o = rng.normal(size=(P, Bd, 1, H, D)).astype(np.float32)
+    lse = rng.normal(size=(P, Bd, H, 1)).astype(np.float32)
+    # row 0: shards 1 and 3 saw no key; row 2: no shard saw any key
+    for s, b in ((1, 0), (3, 0), (0, 2), (1, 2), (2, 2), (3, 2)):
+        lse[s, b] = NEG_INF
+        o[s, b] = 0.0
+
+    def rank_fn(comm):
+        rank = comm.axis_index("sp_ring")
+        return st.combine_partials_with_lse(
+            torch.from_numpy(o[rank]), torch.from_numpy(lse[rank]), comm,
+            ("sp_grp", "sp_ring", "sp_team"))
+
+    res = ThreadMesh(1, P).run(rank_fn, timeout=30)
+    o_j, lse_j = jnp.asarray(o[0]), jnp.asarray(lse[0])
+    for s in range(1, P):
+        o_j, lse_j = jax_combine.combine_pair(o_j, lse_j, jnp.asarray(o[s]),
+                                              jnp.asarray(lse[s]))
+    for o_t, lse_t in res:               # every rank holds the full merge
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=TOL,
+                                   rtol=TOL)
+        live = np.asarray(lse_j) > NEG_INF / 2
+        np.testing.assert_allclose(lse_t.numpy()[live],
+                                   np.asarray(lse_j)[live], atol=TOL,
+                                   rtol=TOL)
+        assert (lse_t.numpy()[~live] == np.float32(NEG_INF)).all()
+    assert (res[0][0].numpy()[2] == 0.0).all()
+    assert jax.devices()[0].platform == "cpu"
