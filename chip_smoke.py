@@ -9,14 +9,18 @@ Phases, each printing one JSON line (``{"phase": ...}``):
   2. build    nvcc of ``src/repro_torch/csrc/*.cu`` for sm_90a: seconds and
               the ``-Xptxas -v`` register / shared-memory / spill summary
   3. kernels  each CUDA kernel against its plain PyTorch version on the card
-              at the serving slice's shapes, and timed (CUDA events, median
-              of 20 bursts after warm-up) beside the plain version, a
-              PyTorch library call where one computes the same function,
-              and the card's bound for the work
-  4. ring     the StarTrail forward on a ThreadMesh(c=2, r=2): P = 8 ranks
-              as threads on the one card, N = 2048 tokens of 32q/8kv heads
-              of 80, bf16, causal + window, the merge kernel B2 in every
-              ring step; held against plain full attention of the sequence
+              (B1, B2, B3 at the 1024-token shapes, B2 and B3 again at the
+              training shape, seq 4096, B4 at a decode step), and timed (CUDA events, median of bursts after warm-up)
+              beside the plain version, a PyTorch library call where one
+              computes the same function, and the card's bound for the work:
+              B1, B2 and B4 at the serving shapes, B3 (and B2 again) at the
+              training shape, seq 4096
+  4. ring     StarTrail on a ThreadMesh(c=2, r=2): P = 8 ranks as threads
+              on the one card, N = 2048 tokens of 32q/8kv heads of 80,
+              bf16, causal + window; each rank runs the forward (B2 in
+              every ring step) and then the backward (B3 in every ring
+              step) explicitly; o and the gradients are held against plain
+              full attention of the sequence and its autograd gradients
   5. engine   the serving engine at the full width of h2o-danube-1.8b
               (24 layers, seeded random bf16 weights): 8 greedy requests,
               prompts staggered over 64-1024 tokens, 32 new tokens each.
@@ -30,18 +34,27 @@ Phases, each printing one JSON line (``{"phase": ...}``):
   8. profile  ``torch.profiler`` over the engine with 4 slots of 1024-token
               prompts: one prefill plus decode step, then 8 decode steps;
               host and device ms per step, device idle share, top kernels
+  9. train    the full-width model trains through ``train.trainer.train``
+              with a plan from ``make_plan(c=1)``: seq 4096, batch 1, bf16,
+              AdamW (f32 moments, lr 1e-3, no warmup), 6 steps on one
+              repeated ``SyntheticLM`` batch. Each step runs, per layer,
+              one StarTrail ring step forward (B2) and backward (B3); the
+              loss must be finite and fall
+ 10. train_check  one loss and gradient of the same model at seq 1024
+              under the CUDA kernels against the plain versions
+ 11. train_profile  ``torch.profiler`` over one full-width train step
 
-The paths are phases 4, 5 and 7: the launch counters are set to 0 just
+The paths are phases 4, 5, 7 and 9: the launch counters are set to 0 just
 before each and read just after, and each must launch exactly the kernels
-it runs (B2 in the ring; B2 and B4 in the engine; B1 in the local prefill).
-Comparison, timing and profiling launches are not counted. The kernels
-line's ``launches`` is each kernel's count on the serving path that runs
-it (the engine for B2 and B4, the local prefill for B1);
-``launches_by_path`` gives every path's counts. The last three lines are
-the card's ``nvidia-smi`` name and power limit, the kernels' JSON line and
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
-the last line; so does a machine without a CUDA card, or a directory
-without the rest of the repository.
+it runs (B2 and B3 in the ring; B2 and B4 in the engine; B1 in the local
+prefill; B2 and B3 in the train loop). Comparison, timing and profiling
+launches are not counted. The kernels line's ``launches`` is each kernel's
+count on the path that runs it (the engine for B2 and B4, the local
+prefill for B1, the train loop for B3); ``launches_by_path`` gives every
+path's counts. The last three lines are the card's ``nvidia-smi`` name and
+power limit, the kernels' JSON line and ``{"ok": true, "device": {...}}``.
+Any failed check exits non-zero before the last line; so does a machine
+without a CUDA card, or a directory without the rest of the repository.
 """
 
 import json
@@ -58,14 +71,18 @@ HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 1e-4}       # see phase_kernels
 NEG_INF = -1e30
+BWD_TOL = 3e-4                                   # see phase_kernels
 REPLACES = {
     "B1": "src/repro/kernels/flash_attention.py:125",
     "B2": "src/repro/kernels/flash_attention.py:148",
+    "B3": "src/repro/kernels/flash_attention.py:440",
     "B4": "src/repro/kernels/paged_decode.py:48",
 }
 SOURCES = {"B1": "src/repro_torch/csrc/flash_fwd.cu",
            "B2": "src/repro_torch/csrc/flash_fwd.cu",
+           "B3": "src/repro_torch/csrc/flash_bwd.cu",
            "B4": "src/repro_torch/csrc/paged_decode.cu"}
+ARCH = "h2o-danube-1.8b"
 
 
 class CheckFailed(Exception):
@@ -182,6 +199,81 @@ def visible_pairs(pos_q, pos_k, window):
                              window=window).sum())
 
 
+def bwd_cases():
+    """B3 inputs at the 1024-token shape: q (1,Sq,32,80), k/v (1,1024,8,80)."""
+    import torch
+
+    S = 1024
+    ar = torch.arange(S, dtype=torch.int32)
+    return {
+        # name: (pos_q, pos_k, window)
+        "causal_w4096": (ar, ar, 4096),
+        "window256": (ar, ar, 256),
+        "dead_block": (ar, ar + 64, 4096),   # query rows 0..63 see no key
+        "zigzag": (_zigzag(1, 2 * S, 2), _zigzag(0, 2 * S, 2), 4096),
+        "ragged_sq1000": (ar[:1000], ar, 4096),
+    }
+
+
+def bwd_inputs(pos_q, pos_k, window, dtype, dev, seed=0):
+    """q, k, v, do in ``dtype`` and the global lse and delta of full
+    attention over the block (delta from o rounded to q's dtype, as
+    ``core.startrail.startrail_backward`` computes it)."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sq, sk = pos_q.numel(), pos_k.numel()
+    q = torch.randn((1, sq, 32, 80), generator=g, device=dev).to(dtype)
+    k = torch.randn((1, sk, 8, 80), generator=g, device=dev).to(dtype)
+    v = torch.randn((1, sk, 8, 80), generator=g, device=dev).to(dtype)
+    do = torch.randn((1, sq, 32, 80), generator=g, device=dev).to(dtype)
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, pos_q, pos_k,
+                                          window=window)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         o.to(dtype).float()).contiguous()
+    return q, k, v, do, lse, delta
+
+
+def grad_err(got, want, lse, tol):
+    """(largest |g - g_ref| over dq, dk, dv, whether every value is within
+    ``tol`` absolute plus ``tol`` relative and every dead row's dq is
+    exactly 0, the number of dead rows)."""
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    within = all(bool(((a - b).abs() <= tol + tol * b.abs()).all())
+                 for a, b in zip(got, want))
+    dead = (lse <= NEG_INF / 2).transpose(1, 2)      # (B, Sq, H)
+    return err, within and bool((got[0][dead] == 0).all()), int(dead.sum())
+
+
+def bwd_work(q, k, pairs):
+    """(bytes, flops) of B3: q, k, v, do, lse, delta and the positions in
+    once, dq, dk, dv out in f32; 10*D FLOPs per visible pair and query head
+    (the recomputed scores, dp, dq, dk, dv)."""
+    _, sq, hq, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
+        + 2 * hq * sq * 4 + (sq + sk) * 4 + (q.numel() + 2 * k.numel()) * 4
+    return nbytes, 10 * d * hq * pairs
+
+
+def sdpa_bwd_ms(q, k, v, do):
+    """The autograd backward alone of ``scaled_dot_product_attention``
+    (causal, GQA) on the same inputs: the library yardstick of B3."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True),
+                   reps=10, inner=2)
+
+
 def paged_cases():
     # name: (sp, rank, window, cache_len per row (row 3 inactive))
     return {
@@ -251,7 +343,7 @@ def phase_kernels(dev):
 
     rows = {n: {"name": n, "route": "cuda", "source": SOURCES[n],
                 "replaces": REPLACES[n], "max_abs_err": 0.0}
-            for n in ("B1", "B2", "B4")}
+            for n in ("B1", "B2", "B3", "B4")}
     checked = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
@@ -272,6 +364,23 @@ def phase_kernels(dev):
                 rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
                                                 err)
                 checked.append(f"{name}/{case}/{dname}")
+        for case, (pq, pk, window) in bwd_cases().items():
+            pq, pk = pq.to(dev), pk.to(dev)
+            args = bwd_inputs(pq, pk, window, dtype, dev)
+            got = fa.flash_attention_bwd(*args, pq, pk, window=window)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_bwd_plain(*args, pq, pk, window=window)
+            err, ok, n_dead = grad_err(got, want, args[4], BWD_TOL)
+            check(ok, f"B3 {case} {dname}: max err {err} (tol {BWD_TOL}) "
+                      f"or a dead row's dq not exactly 0")
+            if case == "dead_block":
+                check(n_dead >= 64 * 32, f"B3 dead_block: {n_dead} dead")
+            again = fa.flash_attention_bwd(*args, pq, pk, window=window)
+            check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                  f"B3 {case} {dname}: two runs differ (no atomics: they "
+                  f"must give the same bits)")
+            rows["B3"]["max_abs_err"] = max(rows["B3"]["max_abs_err"], err)
+            checked.append(f"B3/{case}/{dname}")
     for case, (sp, rank, window, cls) in paged_cases().items():
         q, pk_, pv_, table, cl = paged_inputs(dev, sp, cls)
         kw = dict(sp=sp, page_size=16, window=window)
@@ -326,19 +435,86 @@ def phase_kernels(dev):
         plain_ms=time_ms(lambda: pd.paged_decode_attention_plain(
             qd, pk_, pv_, table, cl, rank, **kw)),
         library_ms=None, work=(nb, nf, "bfloat16"))
+    # the training shape: seq 4096, bf16, causal (window 4096 is inert)
+    g = torch.Generator(device=dev).manual_seed(3)
+    S = TRAIN_SEQ
+    q = torch.randn((1, S, 32, 80), generator=g, device=dev).bfloat16()
+    k = torch.randn((1, S, 8, 80), generator=g, device=dev).bfloat16()
+    v = torch.randn((1, S, 8, 80), generator=g, device=dev).bfloat16()
+    do = torch.randn((1, S, 32, 80), generator=g, device=dev).bfloat16()
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, pos, pos, window=4096)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         o.bfloat16().float()).contiguous()
+    o_acc = torch.zeros((1, S, 32, 80), device=dev)
+    lse_acc = torch.full((1, 32, S), NEG_INF, device=dev)
+    pairs = visible_pairs(pos, pos, 4096)
+    bargs = (q, k, v, do, lse, delta, pos, pos)
+    # both kernels against their plain versions at the shape the train step
+    # launches them at, before they are timed there
+    got = fa.flash_attention_bwd(*bargs, window=4096)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(*bargs, window=4096)
+    b3_err, ok, _ = grad_err(got, want, lse, BWD_TOL)
+    check(ok, f"B3 train_seq{S} bfloat16: max err {b3_err} (tol {BWD_TOL})")
+    rows["B3"]["max_abs_err"] = max(rows["B3"]["max_abs_err"], b3_err)
+    checked.append(f"B3/train_seq{S}/bfloat16")
+    del got, want
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, pos, pos, o_acc, lse_acc,
+                                      window=4096)
+    torch.cuda.synchronize()
+    o2_p, lse2_p = fa.flash_attention_fwd_plain(q, k, v, pos, pos, o_acc,
+                                                lse_acc, window=4096)
+    b2_err, ok, _ = partial_err(o2, lse2, o2_p, lse2_p, TOL["bfloat16"])
+    check(ok, f"B2 train_seq{S} bfloat16: max err {b2_err} (tol "
+              f"{TOL['bfloat16']}) or a dead row not exact")
+    rows["B2"]["max_abs_err"] = max(rows["B2"]["max_abs_err"], b2_err)
+    checked.append(f"B2/train_seq{S}/bfloat16")
+    del o2, lse2, o2_p, lse2_p
+    try:
+        lib_ms = sdpa_bwd_ms(q, k, v, do)
+    except RuntimeError as e:      # no SDPA backend for these inputs
+        lib_ms = None
+        emit("kernels_note", library_B3=f"SDPA backward refused: {e}")
+    timing["B3"] = dict(
+        ms=time_ms(lambda: fa.flash_attention_bwd(*bargs, window=4096),
+                   reps=10, inner=2),
+        plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(
+            *bargs, window=4096), reps=5, inner=2),
+        library_ms=lib_ms, work=(*bwd_work(q, k, pairs), "bfloat16"))
+    fwd_io = sum(t.numel() * t.element_size() for t in (q, k, v, pos, pos)) \
+        + 2 * (o_acc.numel() + lse_acc.numel()) * 4
+    b2_4096 = dict(
+        ms=time_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, pos, pos, o_acc, lse_acc, window=4096), reps=10,
+            inner=2),
+        plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(
+            q, k, v, pos, pos, o_acc, lse_acc, window=4096), reps=5,
+            inner=2),
+        max_abs_err=b2_err)
+    b2_4096["bound_ms"], b2_4096["bound_by"] = bound(
+        fwd_io, 4 * 80 * 32 * pairs, "bfloat16")
     for name, t in timing.items():
         b_ms, b_by = bound(*t.pop("work"))
-        rows[name].update(t, bound_ms=b_ms, bound_by=b_by, tol=TOL)
+        rows[name].update(t, bound_ms=b_ms, bound_by=b_by,
+                          tol=BWD_TOL if name == "B3" else TOL)
     emit("kernels", checked=len(checked),
-         tolerances="f32 inputs 2e-5 (the JAX kernel tests' own); bf16 "
-                    "inputs, upcast to f32 in both versions, 1e-4; dead "
+         tolerances="forward: f32 inputs 2e-5 (the JAX kernel tests' own); "
+                    "bf16 inputs, upcast to f32 in both versions, 1e-4; "
+                    "B3: 3e-4 (the JAX test_bwd_matches_ref bound); dead "
                     "rows exact",
          timing_shapes={"B1/B2": "q (1,1024,32,80) bf16, causal, window "
-                                 "4096", "B4": "q (4,1,32,80) bf16, pool "
-                                               "(512,16,8,80), W 64, ~1K "
-                                               "context"},
+                                 "4096",
+                        "B3, B2_seq4096": "q (1,4096,32,80), k/v "
+                                          "(1,4096,8,80) bf16, causal, "
+                                          "window 4096",
+                        "B4": "q (4,1,32,80) bf16, pool (512,16,8,80), W "
+                              "64, ~1K context"},
          library={"B1": "scaled_dot_product_attention, o only, kv heads "
-                        "repeated beforehand"},
+                        "repeated beforehand",
+                  "B3": "autograd backward of scaled_dot_product_attention"
+                        "(is_causal, enable_gqa), timed alone"},
+         B2_seq4096=b2_4096, B3_seq4096_max_abs_err=b3_err,
          **{n: {k: r[k] for k in ("ms", "plain_ms", "library_ms",
                                    "bound_ms", "bound_by", "max_abs_err")}
             for n, r in rows.items()})
@@ -346,8 +522,16 @@ def phase_kernels(dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the StarTrail forward on a P = 8 ThreadMesh on the one card
+# phase 4: StarTrail forward and backward on a P = 8 ThreadMesh on the card
 # ---------------------------------------------------------------------------
+
+# The ring's gradients against autograd of plain attention in f32 from the
+# same bf16 inputs. Both see the bf16 inputs exactly; the ring also rounds o
+# to bf16 before delta = rowsum(do * o) (as the model's backward does), which
+# moves ds by up to a bf16 ulp of delta (2^-8 relative), so allow 1e-2 of
+# each gradient's largest magnitude.
+RING_GRAD_TOL = 1e-2
+
 
 def phase_ring(dev):
     import torch
@@ -363,6 +547,7 @@ def phase_ring(dev):
     q = torch.randn((1, N, 32, 80), generator=g, device=dev).bfloat16()
     k = torch.randn((1, N, 8, 80), generator=g, device=dev).bfloat16()
     v = torch.randn((1, N, 8, 80), generator=g, device=dev).bfloat16()
+    do = torch.randn((1, N, 32, 80), generator=g, device=dev).bfloat16()
     cfg = st.StarTrailConfig(seq_len=N, seq_scheme="zigzag", causal=True,
                              window=window, block_impl="cuda")
 
@@ -370,9 +555,12 @@ def phase_ring(dev):
         gi, ji, ti = (comm.axis_index(a) for a in cfg.axes)
         rank = (gi * r + ji) * c + ti
         pos = st.shard_positions(rank, N, p, "zigzag").to(dev)
-        return pos, st.startrail_attention(q[:, pos].contiguous(),
-                                           k[:, pos].contiguous(),
-                                           v[:, pos].contiguous(), cfg, comm)
+        o, res = st.startrail_forward(q[:, pos].contiguous(),
+                                      k[:, pos].contiguous(),
+                                      v[:, pos].contiguous(), cfg, comm)
+        grads = st.startrail_backward(res, o, do[:, pos].contiguous(), cfg,
+                                      comm)
+        return pos, o, grads
 
     counts = reset_counts()
     t0 = time.perf_counter()
@@ -381,8 +569,11 @@ def phase_ring(dev):
     seconds = time.perf_counter() - t0
     launches = read_counts(counts)
     out = torch.empty_like(q)
-    for pos, o in res:
+    grads = [torch.empty(t.shape, device=dev) for t in (q, k, v)]
+    for pos, o, gs in res:
         out[:, pos] = o
+        for full, gr in zip(grads, gs):
+            full[:, pos] = gr
     want = ref.mha_reference(q, k, v, causal=True, window=window)
     # both outputs are rounded to bf16 once: allow a bf16 ulp (2^-7
     # relative) twice over, plus 1e-3 absolute near zero
@@ -390,12 +581,24 @@ def phase_ring(dev):
     lim = 1e-3 + (want.float().abs() / 64)
     err = float(diff.max())
     check(bool((diff <= lim).all()), f"ring: max err {err} beyond bf16 tol")
-    check(launches == {"B1": 0, "B2": p * r, "B4": 0},
-          f"ring launches {launches}: want B2 {p * r} (every ring step of "
-          f"every rank) and nothing else")
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    o_ref = ref.mha_reference(*leaves, causal=True, window=window)
+    want_g = torch.autograd.grad(o_ref, leaves, do.float())
+    del o_ref, leaves
+    grad_err = {}
+    for name, a, b in zip(("dq", "dk", "dv"), grads, want_g):
+        grad_err[name] = float((a - b).abs().max() / b.abs().max())
+        check(bool(torch.isfinite(a).all())
+              and grad_err[name] <= RING_GRAD_TOL,
+              f"ring {name}: max err / max |ref| {grad_err[name]} beyond "
+              f"{RING_GRAD_TOL}")
+    check(launches == {"B1": 0, "B2": p * r, "B3": p * r, "B4": 0},
+          f"ring launches {launches}: want B2 {p * r} and B3 {p * r} (every "
+          f"ring step of every rank) and nothing else")
     emit("ring", c=c, r=r, P=p, N=N, window=window, dtype="bfloat16",
-         max_abs_err=err, tol="1e-3 + |ref|/64", launches=launches,
-         seconds=seconds)
+         max_abs_err=err, tol="1e-3 + |ref|/64",
+         grad_err_over_max=grad_err, grad_tol=RING_GRAD_TOL,
+         launches=launches, seconds=seconds)
     return launches
 
 
@@ -428,7 +631,7 @@ def phase_engine(dev, smi):
     from repro_torch.models.factory import build_model
     from repro_torch.plan import make_serve_plan
 
-    cfg = registry.get("h2o-danube-1.8b")
+    cfg = registry.get(ARCH)
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
@@ -463,7 +666,8 @@ def phase_engine(dev, smi):
     L = cfg.num_layers
     # one card: C = R = 1, so each layer's StarTrail forward is one ring
     # step through B2 (merging into the empty accumulator)
-    want = {"B1": 0, "B2": L * m.prefills, "B4": L * m.decode_steps}
+    want = {"B1": 0, "B2": L * m.prefills, "B3": 0,
+            "B4": L * m.decode_steps}
     check(launches == want, f"engine launches {launches}: want {want} "
           f"({m.prefills} prefills, {m.decode_steps} decode steps)")
     emit("engine", model=cfg.name, params=model.param_count(),
@@ -548,7 +752,7 @@ def phase_local(engine, prompt, startrail_route):
     torch.cuda.synchronize()
     launches = read_counts(counts)
     L = engine.cfg.num_layers
-    check(launches == {"B1": L, "B2": 0, "B4": 0},
+    check(launches == {"B1": L, "B2": 0, "B3": 0, "B4": 0},
           f"local prefill launches {launches}: want B1 {L} and nothing else")
     errs = compare(got, startrail_route, "local vs StarTrail prefill")
     emit("local", prompt_len=len(prompt), launches=launches, err=errs,
@@ -622,6 +826,190 @@ def phase_profile(engine, smi, prompt_len=1024, decode_steps=8):
     engine.run()
 
 
+def serving_phases(dev, smi):
+    """Phases 5-8 on one engine; returns the engine's and the local
+    prefill's launch counts (the engine and its model are freed after)."""
+    engine, prompt, engine_launches = phase_engine(dev, smi)
+    startrail_route = phase_engine_check(engine, prompt)
+    local_launches = phase_local(engine, prompt, startrail_route)
+    phase_profile(engine, smi)
+    return engine_launches, local_launches
+
+
+# ---------------------------------------------------------------------------
+# phases 9-11: training at the full width
+# ---------------------------------------------------------------------------
+
+TRAIN_SEQ, TRAIN_STEPS = 4096, 6
+TRAIN_RECKONED_BYTES = 40e9   # bf16 params + grads, f32 moments, activations
+
+
+class RepeatBatch:
+    """A data source that serves one batch at every step: a loss that falls
+    over a few steps shows the model learns (memorises) it."""
+
+    def __init__(self, source):
+        self.batch = source.get_batch(0)
+
+    def get_batch(self, step):
+        return self.batch
+
+
+def _train_shape(seq):
+    from repro_torch.configs.base import ShapeConfig
+
+    return ShapeConfig(f"train_{seq // 1024}k_b1", seq, 1, "train")
+
+
+def phase_train(dev, smi):
+    import math
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.plan import make_plan
+    from repro_torch.train import trainer
+
+    cfg = registry.get(ARCH)
+    shape = _train_shape(TRAIN_SEQ)
+    plan = make_plan(cfg, shape, arch=ARCH, c=1)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0,
+                             state_dtype=cfg.opt_dtype)
+    data = RepeatBatch(SyntheticLM(cfg, shape, seed=0,
+                                   seq_scheme=plan.seq_scheme,
+                                   sp_size=plan.sp_size))
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train_metrics.jsonl")
+        counts = reset_counts()
+        t0 = time.perf_counter()
+        trainer.train(model, plan, adam, trainer.TrainerConfig(
+            num_steps=TRAIN_STEPS, log_every=TRAIN_STEPS, metrics_path=path),
+            data_source=data, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(counts)
+        with open(path) as f:
+            recs = [json.loads(line) for line in f]
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in recs]
+    check(len(recs) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"train losses {losses}: want {TRAIN_STEPS} finite")
+    check(losses[-1] < losses[0],
+          f"train loss did not fall over one repeated batch: {losses}")
+    L = cfg.num_layers
+    want = {"B1": 0, "B2": L * TRAIN_STEPS, "B3": L * TRAIN_STEPS, "B4": 0}
+    check(launches == want, f"train launches {launches}: want {want} (one "
+          f"ring step forward and backward per layer and step)")
+    step_ms = [1e3 * r["step_s"] for r in recs]
+    # step_s of step i is its dispatch plus the wait on step i-1; from the
+    # third step on it is the steady device step
+    steady = statistics.median(step_ms[2:])
+    emit("train", model=cfg.name, params=model.param_count(),
+         weights="seeded random bf16", init_s=init_s,
+         shape={"seq_len": shape.seq_len, "batch": shape.global_batch},
+         plan={"P_sp": plan.sp_size, "C": plan.c, "R": plan.r,
+               "seq_scheme": plan.seq_scheme, "block_impl": plan.block_impl,
+               "remat": plan.remat},
+         adamw={"lr": adam.learning_rate, "warmup": adam.warmup_steps,
+                "state_dtype": adam.state_dtype},
+         losses=losses, grad_norm=[r["grad_norm"] for r in recs],
+         step_ms=step_ms, steady_step_ms=steady,
+         tokens_per_s=shape.seq_len * shape.global_batch / (steady / 1e3),
+         wall_s=wall, max_memory_allocated=peak,
+         reckoned_bytes=TRAIN_RECKONED_BYTES, launches=launches, card=smi)
+    return model, launches
+
+
+# The CUDA kernels against the plain versions through a whole model at seq
+# 1024: bf16 activations round differently once the attention sums are
+# taken in another order, and a flip travels down the 24 layers, so each
+# gradient leaf is held to 5e-2 relative in the L2 norm and the loss to
+# 2e-3 relative. These catch a wrong kernel on the training path; the
+# kernels' own precision is held to 3e-4 in phase 3.
+TRAIN_CHECK_TOL = {"loss_rel": 2e-3, "grad_rel_l2": 5e-2}
+
+
+def phase_train_check(model, dev):
+    import math
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import step as train_step
+
+    shape = _train_shape(1024)
+    batch = train_step.to_device(
+        SyntheticLM(model.cfg, shape, seed=1).get_batch(0), dev)
+    out = {}
+    for impl in ("cuda", "ref"):
+        vg_fn, _ = train_step.build_value_and_grad_fn(
+            model, RunConfig(block_impl=impl), shape)
+        out[impl] = vg_fn(batch)
+    (loss_c, g_c), (loss_r, g_r) = out["cuda"], out["ref"]
+    loss_rel = abs(float(loss_c) - float(loss_r)) / abs(float(loss_r))
+    names = [n for n, _ in model.named_parameters()]
+    rel = {n: float((a.float() - b.float()).norm() / b.float().norm())
+           for n, a, b in zip(names, g_c, g_r)}
+    worst = max(rel, key=rel.get)
+    check(all(math.isfinite(x) for x in rel.values())
+          and loss_rel <= TRAIN_CHECK_TOL["loss_rel"]
+          and rel[worst] <= TRAIN_CHECK_TOL["grad_rel_l2"],
+          f"train_check: loss rel {loss_rel}, worst grad leaf {worst} rel "
+          f"L2 {rel[worst]}, beyond {TRAIN_CHECK_TOL}")
+    emit("train_check", seq_len=shape.seq_len, batch=1,
+         loss={"cuda": float(loss_c), "ref": float(loss_r)},
+         loss_rel=loss_rel, loss_rel_tol=TRAIN_CHECK_TOL["loss_rel"],
+         grad_rel_l2_worst={"leaf": worst, "value": rel[worst]},
+         grad_rel_l2_median=statistics.median(rel.values()),
+         grad_rel_l2_tol=TRAIN_CHECK_TOL["grad_rel_l2"], leaves=len(rel))
+
+
+def phase_train_profile(model, dev, smi):
+    """Where a train step's time goes: ``torch.profiler`` over one
+    full-width step (the card is warm from phase 9)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.plan import make_plan
+    from repro_torch.train import step as train_step
+
+    shape = _train_shape(TRAIN_SEQ)
+    plan = make_plan(model.cfg, shape, arch=ARCH, c=1)
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0)
+    step_fn, sh = plan.build_train_step(model, adam)
+    opt = adamw.init_state(sh["params"], adam)
+    batch = train_step.to_device(
+        SyntheticLM(model.cfg, shape, seed=0).get_batch(0), dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    emit("train_profile", seq_len=shape.seq_len, batch=1, card=smi,
+         **_profile_window(prof, 1, wall, top=15))
+
+
+def free_device():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -651,14 +1039,19 @@ def main():
         emit("build", seconds=info["seconds"], built=info["built"],
              ptxas=info["ptxas"])
         rows = phase_kernels(dev)
+        free_device()
         by_path = {"ring": phase_ring(dev)}
-        engine, prompt, by_path["engine"] = phase_engine(dev, smi)
-        startrail_route = phase_engine_check(engine, prompt)
-        by_path["local"] = phase_local(engine, prompt, startrail_route)
-        phase_profile(engine, smi)
-        serving = {"B1": "local", "B2": "engine", "B4": "engine"}
+        by_path["engine"], by_path["local"] = serving_phases(dev, smi)
+        free_device()
+        model, by_path["train"] = phase_train(dev, smi)
+        free_device()
+        phase_train_check(model, dev)
+        free_device()
+        phase_train_profile(model, dev, smi)
+        paths = {"B1": "local", "B2": "engine", "B3": "train",
+                 "B4": "engine"}
         for name, row in rows.items():
-            row["launches"] = by_path[serving[name]][name]
+            row["launches"] = by_path[paths[name]][name]
             row["launches_by_path"] = {k: v[name] for k, v in by_path.items()}
             check(row["launches"] > 0, f"{name} never launched on its path")
     except CheckFailed as e:

@@ -1,8 +1,7 @@
-"""Config system: model architecture.
+"""Config system: model architecture, run shapes, parallelism + training.
 
-The port's own copy of the model half of ``repro.configs.base`` (the JAX
-package's module is jax-free, but the port imports nothing of ``repro``);
-the shape and run configs join when the training slice needs them. Every ported
+The port's own copy of ``repro.configs.base`` (the JAX package's module is
+jax-free, but the port imports nothing of ``repro``). Every ported
 architecture gets a ``src/repro_torch/configs/<id>.py`` exporting ``CONFIG``
 (exact published sizes) and ``smoke_config()`` (reduced same-family config
 for CPU tests). ``registry.get(name)`` resolves both.
@@ -87,3 +86,47 @@ class ModelConfig:
             # Jamba: attention on one of every `attn_every` layers
             return "attn" if (i % self.attn_every) == (self.attn_every // 2) else "mamba"
         return "attn"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str            # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str            # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    """Parallelism + training hyper-config for one run, normally produced by
+    ``repro_torch.plan.ExecutionPlan.run_config()``.
+
+    The JAX fields this port does not read yet are left out: the sharding
+    rules (parameters are stored whole), ``unroll_scans`` (no XLA cost
+    analysis), ``pipeline_scan`` / ``comm_chunks`` (they reorder or split
+    ring transfers without changing a value; ROADMAP.md §A) and the
+    optimizer scalars, which live in ``optim.adamw.AdamWConfig``.
+    """
+    c: int = 1                           # StarTrail attention-parallel size
+    # 'startrail' | 'ring' (C=1 startrail); 'ulysses' is not ported
+    attention_scheme: str = "startrail"
+    # gradient-accumulation microbatches per optimizer step (train only)
+    microbatches: int = 1
+    seq_scheme: str = "zigzag"
+    block_impl: str = "cuda"             # ring-step block kernel: 'ref'|'cuda'
+    kernel_impl: str = "cuda"            # serving decode kernel: 'ref'|'cuda'
+    block_skip: bool = False
+    multi_pod: bool = False
+    # 'none' is the only policy ported ('attn_out' / 'full' recompute
+    # changes no value; ROADMAP.md §A)
+    remat: str = "none"
+    # cross-pod gradient compression ('none'; 'int8' is not ported)
+    grad_compression: str = "none"

@@ -15,8 +15,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
 }
 
-# architectures of the JAX reference not yet ported (ROADMAP.md §A item 8
-# ports the remaining model families)
+# architectures of the JAX reference not yet ported (ROADMAP.md §A,
+# "Remaining model families", ports them)
 _UNPORTED = (
     "minitron-8b", "deepseek-7b", "stablelm-3b", "paligemma-3b",
     "seamless-m4t-large-v2", "llama4-maverick-400b-a17b",

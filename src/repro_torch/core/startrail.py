@@ -1,6 +1,6 @@
-"""StarTrail concentric-ring sequence-parallel attention, forward only.
+"""StarTrail concentric-ring sequence-parallel attention, with its backward.
 
-Port of ``repro.core.startrail`` (lines 114-131, 238-325, 481-527). The SP
+Port of ``repro.core.startrail`` (lines 114-131, 238-449, 481-527). The SP
 dimension P is factored onto the axes ``(sp_grp = C, sp_ring = R,
 sp_team = C)``, P = C^2 * R, and exact full-sequence attention of a
 sequence sharded over them is computed per rank as:
@@ -14,15 +14,24 @@ sequence sharded over them is computed per rank as:
      ppermute of K/V along ``sp_ring``
   4. log-sum-exp combine across ``sp_team`` plus reduce-scatter
 
-Collectives go through a ``dist.comm`` communicator (``SingleComm`` at
-P = 1, where they are identities; ``ThreadMesh`` for P > 1 in one process).
-Masks come from global token positions computed from the rank coordinates.
+The backward is the paper's two-loop scheme: the placement-ordered K/V and
+their gradients stay resident, while the (Q, dO, delta, lse, dQ) pack
+circulates the ring through ``dispatch.block_bwd`` (the B3 kernel on
+'cuda'); then the inverse placement permute and team reduce-scatters.
 
-Differences from the JAX module: there is no backward (training is a later
-slice); the ring runs as a Python loop in issue-after-compute order (the
-JAX ``pipeline``/``comm_chunks`` knobs reorder or split transfers without
-changing values and have no counterpart yet); and the last step does not
-rotate K/V back into placement order, which only the backward reuses.
+``startrail_forward`` and ``startrail_backward`` are the plain per-rank
+functions; ``StarTrailAttention`` is the ``torch.autograd.Function`` over
+them, and ``startrail_attention`` applies it. Collectives go through a
+``dist.comm`` communicator (``SingleComm`` at P = 1, where they are
+identities; ``ThreadMesh`` for P > 1 in one process). Masks come from global
+token positions computed from the rank coordinates.
+
+Differences from the JAX module: the ring runs as a Python loop in
+compute-then-transfer order (the JAX ``pipeline``/``comm_chunks`` knobs
+reorder or split transfers without changing values and are not ported);
+the forward's last step does not rotate K/V back into placement order,
+so the residuals keep the placement-ordered K/V from before the loop; and
+the circulating pack's team index is computed from the step, not sent.
 """
 
 from __future__ import annotations
@@ -64,12 +73,22 @@ class StarTrailConfig:
 
 def shard_positions(sp_rank: int, seq_len: int, sp_size: int, scheme: str,
                     device=None) -> torch.Tensor:
-    """Global positions of SP shard ``sp_rank`` -> (S_local,) int32."""
+    """Global positions of SP shard ``sp_rank`` -> (S_local,) int32.
+
+    'contiguous' gives shard p the p-th of P equal slices. 'zigzag' (the
+    causal load balance of StarTrail/WallFacer §3.5) splits the sequence
+    into 2P chunks and gives shard p chunks p and 2P-1-p, so every shard
+    owns one early and one late chunk."""
     s_local = seq_len // sp_size
     if scheme == "contiguous":
+        if seq_len % sp_size:
+            raise ValueError(f"seq_len={seq_len} % sp_size={sp_size} != 0")
         return sp_rank * s_local + torch.arange(s_local, dtype=torch.int32,
                                                 device=device)
     if scheme == "zigzag":
+        if seq_len % (2 * sp_size):
+            raise ValueError(f"seq_len={seq_len} must be divisible by "
+                             f"2*sp_size={2 * sp_size}")
         ch = seq_len // (2 * sp_size)
         ar = torch.arange(ch, dtype=torch.int32, device=device)
         return torch.cat([sp_rank * ch + ar,
@@ -103,16 +122,11 @@ def fully_masked(cfg: StarTrailConfig, pos_q, pos_k) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# the per-rank forward
+# the per-rank forward and backward
 # ---------------------------------------------------------------------------
 
-def startrail_attention(q, k, v, cfg: StarTrailConfig, comm) -> torch.Tensor:
-    """Exact full-sequence attention for sequence-sharded q, k, v.
-
-    Per rank: q (B, S, Hq, D); k, v (B, S, Hkv, D), S = N / P with the
-    rank's tokens laid out by ``cfg.seq_scheme``. Returns o (B, S, Hq, D)
-    in q's dtype.
-    """
+def _coords(cfg: StarTrailConfig, comm):
+    """(c, r, p, topology, (g, j, t)) of this rank."""
     g_ax, r_ax, t_ax = cfg.axes
     c = comm.axis_size(t_ax)
     r = comm.axis_size(r_ax)
@@ -122,7 +136,16 @@ def startrail_attention(q, k, v, cfg: StarTrailConfig, comm) -> torch.Tensor:
             f"axis size {c} (both are the paper's C)")
     p = c * c * r
     tp = topo_lib.StarTrailTopology(sp_size=p, c=c)
-    gi, ji, ti = (comm.axis_index(a) for a in cfg.axes)
+    return c, r, p, tp, tuple(comm.axis_index(a) for a in cfg.axes)
+
+
+def startrail_forward(q, k, v, cfg: StarTrailConfig, comm):
+    """The per-rank forward: q (B, S, Hq, D); k, v (B, S, Hkv, D), S = N / P
+    with the rank's tokens laid out by ``cfg.seq_scheme``. Returns
+    ``(o, res)``: o (B, S, Hq, D) in q's dtype and the residuals
+    ``res = (q_team, k0, v0, lse_glob)`` the backward needs."""
+    c, r, p, tp, (gi, ji, ti) = _coords(cfg, comm)
+    t_ax = cfg.axes[2]
     B, S, Hq, D = q.shape
     dev = q.device
 
@@ -133,8 +156,8 @@ def startrail_attention(q, k, v, cfg: StarTrailConfig, comm) -> torch.Tensor:
 
     # 2. initial K/V placement (paper Alg. 2)
     perm = tp.init_placement_permutation()
-    k_cur = comm.ppermute(k_team, cfg.axes, perm)
-    v_cur = comm.ppermute(v_team, cfg.axes, perm)
+    k0 = comm.ppermute(k_team, cfg.axes, perm)
+    v0 = comm.ppermute(v_team, cfg.axes, perm)
 
     # positions on the host (for the skip decision), once on the device
     own_team = gi * r + ji
@@ -146,6 +169,7 @@ def startrail_attention(q, k, v, cfg: StarTrailConfig, comm) -> torch.Tensor:
     o_acc = torch.zeros((B, c * S, Hq, D), dtype=torch.float32, device=dev)
     lse_acc = torch.full((B, Hq, c * S), NEG_INF, dtype=torch.float32,
                          device=dev)
+    k_cur, v_cur = k0, v0
     for s in range(r):
         kv_team = ((ji + s) % r) * c + ti
         pos_k_h = team_positions(kv_team, c, cfg.seq_len, p, cfg.seq_scheme)
@@ -170,7 +194,95 @@ def startrail_attention(q, k, v, cfg: StarTrailConfig, comm) -> torch.Tensor:
     w = torch.where(dead, 0.0, w)
     o_scaled = o_acc * w.transpose(1, 2)[..., None]
     o_local = comm.psum_scatter(o_scaled, t_ax, 1)
-    return o_local.to(q.dtype)
+    return o_local.to(q.dtype), (q_team, k0, v0, lse_glob)
+
+
+def startrail_backward(res, o, do, cfg: StarTrailConfig, comm):
+    """The per-rank backward (paper: two loops; the Q pack circulates, the
+    K/V gradients stay resident). ``res`` and ``o`` (in q's dtype) come
+    from ``startrail_forward``; ``do`` is the gradient of o. Returns
+    (dq, dk, dv) in f32 with the shapes of the rank's q, k, v."""
+    q_team, k0, v0, lse_glob = res
+    c, r, p, tp, (gi, ji, ti) = _coords(cfg, comm)
+    t_ax = cfg.axes[2]
+    B, CS, Hq, D = q_team.shape
+    Hkv = k0.shape[2]
+    dev = q_team.device
+
+    do = do.contiguous()
+    delta_local = torch.einsum("bshd,bshd->bhs", do.float(), o.float())
+    do_team = comm.all_gather(do, t_ax, 1)
+    delta_team = comm.all_gather(delta_local.contiguous(), t_ax, 2)
+
+    # K/V (and their positions) stay resident on this rank
+    kv_team_idx = ji * c + ti
+    pos_k = team_positions(kv_team_idx, c, cfg.seq_len, p,
+                           cfg.seq_scheme)
+    pos_k_d = pos_k.to(dev)
+    ring_perm = tp.ring_permutation()
+
+    pack = dict(q=q_team, do=do_team, delta=delta_team, lse=lse_glob)
+    dq = torch.zeros((B, CS, Hq, D), dtype=torch.float32, device=dev)
+    dk_acc = torch.zeros((B, CS, Hkv, D), dtype=torch.float32, device=dev)
+    dv_acc = torch.zeros((B, CS, Hkv, D), dtype=torch.float32, device=dev)
+    for s in range(r):
+        # after s ring permutes this rank holds the pack of ring slot j + s
+        team = gi * r + (ji + s) % r
+        pos_q = team_positions(team, c, cfg.seq_len, p, cfg.seq_scheme)
+        if not (cfg.block_skip and fully_masked(cfg, pos_q, pos_k)):
+            dq_c, dk_c, dv_c = kernels.block_bwd(
+                pack["q"], k0, v0, pack["do"], pack["lse"], pack["delta"],
+                pos_q.to(dev), pos_k_d, causal=cfg.causal,
+                window=cfg.window, scale=cfg.scale,
+                prefix_len=cfg.prefix_len, impl=cfg.block_impl)
+            dq = dq + dq_c
+            dk_acc = dk_acc + dk_c
+            dv_acc = dv_acc + dv_c
+        # dq makes the full tour home; the inputs are not needed after
+        # the last step
+        dq = comm.ppermute(dq, cfg.axes, ring_perm)
+        if s < r - 1:
+            pack = {n: comm.ppermute(a, cfg.axes, ring_perm)
+                    for n, a in pack.items()}
+
+    dq_local = comm.psum_scatter(dq, t_ax, 1)
+    inv = tp.inverse_placement_permutation()
+    dk_team = comm.ppermute(dk_acc, cfg.axes, inv)
+    dv_team = comm.ppermute(dv_acc, cfg.axes, inv)
+    dk_local = comm.psum_scatter(dk_team, t_ax, 1)
+    dv_local = comm.psum_scatter(dv_team, t_ax, 1)
+    return dq_local, dk_local, dv_local
+
+
+class StarTrailAttention(torch.autograd.Function):
+    """``startrail_forward`` with ``startrail_backward`` as its gradient
+    (the JAX ``custom_vjp``). The residuals are kept only when an input
+    needs a gradient, so the serving path (under ``torch.no_grad``, with
+    frozen parameters) keeps none. The gradients come back in the input
+    dtypes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cfg, comm):
+        o, res = startrail_forward(q, k, v, cfg, comm)
+        if any(ctx.needs_input_grad[:3]):
+            ctx.save_for_backward(*res, o)
+            ctx.cfg, ctx.comm = cfg, comm
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q_team, k0, v0, lse_glob, o = ctx.saved_tensors
+        dq, dk, dv = startrail_backward((q_team, k0, v0, lse_glob), o, do,
+                                        ctx.cfg, ctx.comm)
+        return (dq.to(q_team.dtype), dk.to(k0.dtype), dv.to(v0.dtype),
+                None, None)
+
+
+def startrail_attention(q, k, v, cfg: StarTrailConfig, comm) -> torch.Tensor:
+    """Exact full-sequence attention for sequence-sharded q, k, v, and
+    differentiable: ``StarTrailAttention.apply``. Per rank: q (B, S, Hq, D);
+    k, v (B, S, Hkv, D). Returns o (B, S, Hq, D) in q's dtype."""
+    return StarTrailAttention.apply(q, k, v, cfg, comm)
 
 
 # ---------------------------------------------------------------------------

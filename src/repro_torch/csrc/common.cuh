@@ -4,6 +4,8 @@
 // every product and reduction runs in f32, as in the JAX package's kernels.
 #pragma once
 
+#include <climits>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -13,6 +15,57 @@ namespace repro_torch {
 // finite stand-in for -inf (core/combine.py): keeps every merge NaN-free
 constexpr float NEG_INF = -1e30f;
 constexpr float DEAD = NEG_INF / 2.0f;
+
+// The mask of the JAX kernels: _mask_tile for one (query, key) pair and
+// _tile_live for a tile (causal / sliding window / prefix-LM).
+struct Mask {
+  int causal, has_window, window, has_prefix, prefix_len;
+
+  __device__ inline bool visible(int pq, int pk) const {
+    bool m = true;
+    if (causal) {
+      bool cm = pk <= pq;
+      if (has_prefix) cm |= pk < prefix_len;
+      m &= cm;
+    }
+    if (has_window) {
+      bool wm = (pq - pk) < window;
+      if (!causal) wm &= (pk - pq) < window;
+      if (has_prefix) wm |= pk < prefix_len;
+      m &= wm;
+    }
+    return m;
+  }
+
+  // does a tile whose positions span [qmin, qmax] x [kmin, kmax] have any
+  // visible pair? (min/max because zigzag positions are not sorted)
+  __device__ inline bool live(int qmin, int qmax, int kmin, int kmax) const {
+    bool l = true;
+    if (causal) l &= kmin <= qmax;
+    if (has_window) {
+      l &= (qmin - kmax) < window;
+      if (!causal) l &= (kmin - qmax) < window;
+    }
+    if (has_prefix) l |= kmin < prefix_len;
+    return l;
+  }
+};
+
+// [min, max] of pos[0..n) over one warp (every lane gets the result)
+__device__ inline void warp_range(const int* pos, int n, int lane, int& lo,
+                                  int& hi) {
+  lo = INT_MAX;
+  hi = INT_MIN;
+  for (int i = lane; i < n; i += 32) {
+    lo = min(lo, pos[i]);
+    hi = max(hi, pos[i]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+  }
+}
 
 template <typename T>
 struct Vec16;

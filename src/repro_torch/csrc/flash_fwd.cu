@@ -33,8 +33,6 @@
 // Products run on the CUDA cores in f32, not on the tensor cores, so the
 // kernel is far from the operations bound; wgmma/TMA tiles are later work.
 
-#include <climits>
-
 #include "common.cuh"
 
 namespace repro_torch {
@@ -58,34 +56,9 @@ struct FwdArgs {
   float* o;
   float* lse;
   int B, Sq, Sk, Hq, Hkv;
-  int causal, has_window, window, has_prefix, prefix_len;
+  Mask mask;
   float scale;
 };
-
-__device__ inline bool visible(const FwdArgs& a, int pq, int pk) {
-  // _mask_tile for one element (causal / window / prefix-LM)
-  bool m = true;
-  if (a.causal) {
-    bool cm = pk <= pq;
-    if (a.has_prefix) cm |= pk < a.prefix_len;
-    m &= cm;
-  }
-  if (a.has_window) {
-    bool wm = (pq - pk) < a.window;
-    if (!a.causal) wm &= (pk - pq) < a.window;
-    if (a.has_prefix) wm |= pk < a.prefix_len;
-    m &= wm;
-  }
-  return m;
-}
-
-__device__ inline void warp_minmax(int& lo, int& hi) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-  }
-}
 
 template <typename T, int D, bool MERGE>
 __global__ void __launch_bounds__(NT)
@@ -118,12 +91,8 @@ flash_fwd_kernel(FwdArgs a) {
   if (tid < BQ) sPosQ[tid] = tid < nq ? a.pos_q[q0 + tid] : 0;
   __syncthreads();
   if (tid < 32) {
-    int lo = INT_MAX, hi = INT_MIN;
-    for (int i = tid; i < nq; i += 32) {
-      lo = min(lo, sPosQ[i]);
-      hi = max(hi, sPosQ[i]);
-    }
-    warp_minmax(lo, hi);
+    int lo, hi;
+    warp_range(sPosQ, nq, tid, lo, hi);
     if (tid == 0) { sQmin = lo; sQmax = hi; }
   }
 
@@ -142,22 +111,9 @@ flash_fwd_kernel(FwdArgs a) {
     __syncthreads();
     if (tid < 32) {
       // _tile_live over this tile's valid keys
-      int lo = INT_MAX, hi = INT_MIN;
-      for (int i = tid; i < nk; i += 32) {
-        lo = min(lo, sPosK[i]);
-        hi = max(hi, sPosK[i]);
-      }
-      warp_minmax(lo, hi);
-      if (tid == 0) {
-        bool live = true;
-        if (a.causal) live &= lo <= sQmax;
-        if (a.has_window) {
-          live &= (sQmin - hi) < a.window;
-          if (!a.causal) live &= (lo - sQmax) < a.window;
-        }
-        if (a.has_prefix) live |= lo < a.prefix_len;
-        sLive = live;
-      }
+      int lo, hi;
+      warp_range(sPosK, nk, tid, lo, hi);
+      if (tid == 0) sLive = a.mask.live(sQmin, sQmax, lo, hi);
     }
     __syncthreads();
     if (!sLive) continue;  // uniform across the CTA
@@ -181,7 +137,7 @@ flash_fwd_kernel(FwdArgs a) {
 #pragma unroll
     for (int i = 0; i < COLS; ++i) {
       const int c = cg + TPR * i;
-      mk[i] = c < nk && visible(a, pq, sPosK[c]);
+      mk[i] = c < nk && a.mask.visible(pq, sPosK[c]);
       s[i] = mk[i] ? s[i] * a.scale : NEG_INF;
       mx = fmaxf(mx, s[i]);
     }
@@ -290,7 +246,8 @@ extern "C" int repro_flash_fwd(
     float scale, void* stream) {
   using namespace repro_torch;
   FwdArgs a{q, k, v, pos_q, pos_k, o_acc, lse_acc, o, lse, B, Sq, Sk, Hq,
-            Hkv, causal, has_window, window, has_prefix, prefix_len, scale};
+            Hkv, Mask{causal, has_window, window, has_prefix, prefix_len},
+            scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool merge = o_acc != nullptr;
   cudaError_t err;

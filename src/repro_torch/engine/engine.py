@@ -369,14 +369,19 @@ class Engine:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA card; there is no silent CPU fallback."""
+    """``None`` means the CUDA card; there is no silent CPU fallback. A CUDA
+    device comes back with its index (``cuda`` -> ``cuda:0``), the form a
+    tensor's ``.device`` reports, so the two compare equal."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "repro_torch runs on a CUDA card by default and none is "
                 "available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 def build_engine(arch: str, *, smoke: bool = True, c: Optional[int] = 1,

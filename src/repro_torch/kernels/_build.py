@@ -36,6 +36,7 @@ _F = ctypes.c_float
 # argtypes of every C entry: each pointer and the stream as c_void_p
 SIGNATURES = {
     "repro_flash_fwd": [_VP] * 9 + [_I] * 12 + [_F, _VP],
+    "repro_flash_bwd": [_VP] * 11 + [_I] * 12 + [_F, _VP],
     "repro_paged_decode": [_VP] * 7 + [_I] * 11 + [_F, _I, _VP],
 }
 

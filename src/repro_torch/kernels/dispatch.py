@@ -5,23 +5,26 @@ Every attention call site in ``core/``, ``serve/`` and ``models/`` goes
 through this module. One ``impl`` knob selects the backend:
 
   'ref'   plain PyTorch (``kernels.ref``) on any device
-  'cuda'  the hand-written kernels: ``flash_attention_fwd`` (B1/B2) and
-          ``paged_decode_attention`` (B4). On CUDA tensors they launch the
-          kernel or raise; on CPU tensors they run their plain version.
+  'cuda'  the hand-written kernels: ``flash_attention_fwd`` (B1/B2),
+          ``flash_attention_bwd`` (B3) and ``paged_decode_attention`` (B4).
+          On CUDA tensors they launch the kernel or raise; on CPU tensors
+          they run their plain version.
 
 Entry points:
     block_fwd / block_fwd_merge  one (Q block x K/V block) pair of a ring
                                  step; the merge form folds the block into
                                  the running (o_acc, lse_acc), fused into
                                  the B2 epilogue on 'cuda'
+    block_bwd                    the flash backward of one block pair (B3)
     prefill                      full masked attention (o only, q's dtype)
     decode                       per-shard partial (o, lse) of M queries vs
                                  a dense cache slice
     paged_decode                 per-shard partial (o, lse) straight off a
                                  page-table-indexed pool
 
-Batched (B, S) positions need the ragged kernel B5, which is not ported
-(ROADMAP §B): 'cuda' raises on CUDA tensors there; 'ref' serves them.
+Batched (B, S) positions need the ragged kernels B5 (forward) and B7
+(backward), which are not ported (ROADMAP §B): 'cuda' raises on CUDA
+tensors there; 'ref' serves them.
 """
 
 from __future__ import annotations
@@ -53,12 +56,19 @@ def _batched(*pos) -> bool:
     return any(p.dim() > 1 for p in pos)
 
 
+_RAGGED = {
+    "block_fwd": "the ragged prefill kernel B5 "
+                 "(repro/kernels/ragged_prefill.py)",
+    "block_bwd": "the ragged backward kernel B7 (repro/kernels/"
+                 "flash_attention.py:_flash_attention_bwd_ragged)",
+}
+
+
 def _no_ragged_kernel(q, entry: str) -> None:
     if q.is_cuda:
         raise NotImplementedError(
             f"dispatch.{entry}(impl='cuda') with batched (B, S) positions "
-            "needs the ragged prefill kernel B5 "
-            "(repro/kernels/ragged_prefill.py), not ported yet: ROADMAP §B")
+            f"needs {_RAGGED[entry]}, not ported yet: ROADMAP §B")
 
 
 def block_fwd(q, k, v, pos_q, pos_k, *, causal=True, window=None, scale=None,
@@ -87,6 +97,21 @@ def block_fwd_merge(q, k, v, o_acc, lse_acc, pos_q, pos_k, *, causal=True,
                            window=window, scale=scale, prefix_len=prefix_len,
                            impl=impl)
     return combine_pair(o_acc, lse_acc, o_s, lse_s)
+
+
+def block_bwd(q, k, v, do, lse, delta, pos_q, pos_k, *, causal=True,
+              window=None, scale=None, prefix_len=None, impl="ref"):
+    """Flash backward for one block pair -> (dq, dk, dv) in float32, from
+    the global ``lse`` and ``delta = rowsum(do * o)``."""
+    if impl == "cuda":
+        if not _batched(pos_q, pos_k):
+            return _flash.flash_attention_bwd(
+                q, k, v, do, lse, delta, pos_q, pos_k, causal=causal,
+                window=window, scale=scale, prefix_len=prefix_len)
+        _no_ragged_kernel(q, "block_bwd")
+    return _ref.block_attention_bwd(
+        q, k, v, do, lse, delta, pos_q, pos_k, causal=causal, window=window,
+        scale=scale, prefix_len=prefix_len)
 
 
 def prefill(q, k, v, pos_q, pos_k, *, causal=True, window=None, scale=None,

@@ -1,8 +1,8 @@
-"""Plain PyTorch reference (oracle) for block flash attention, forward only.
+"""Plain PyTorch reference (oracle) for block flash attention.
 
-Port of ``repro.kernels.ref`` (lines 32-146 and 212). These functions are
-the semantic ground truth for the CUDA kernels in ``csrc/flash_fwd.cu`` and
-``csrc/paged_decode.cu`` and run on any device.
+Port of ``repro.kernels.ref`` (lines 32-212). These functions are the
+semantic ground truth for the CUDA kernels in ``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu`` and ``csrc/paged_decode.cu`` and run on any device.
 
 Conventions (the JAX package's layouts, kept at every public function):
   q        : (B, Sq, Hq, D)
@@ -109,6 +109,63 @@ def block_attention_merge(q, k, v, o_acc, lse_acc, pos_q, pos_k, *,
                                  window=window, scale=scale,
                                  prefix_len=prefix_len)
     return combine_pair(o_acc, lse_acc, o_s, lse_s)
+
+
+def block_attention_bwd(q, k, v, do, lse, delta, pos_q, pos_k, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None,
+                        prefix_len: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-attention backward for one (Q block x K/V block) pair.
+
+    Uses the *global* lse (over the full key set) and
+    delta_i = sum_d do_i * o_final_i, so each pair's contribution is the
+    exact partial derivative of full softmax attention:
+
+        p_ij = exp(s_ij - lse_i)            (true attention probabilities)
+        dv_j = sum_i p_ij do_i
+        ds_ij = p_ij (do_i . v_j - delta_i)
+        dq_i = scale * sum_j ds_ij k_j ;  dk_j = scale * sum_i ds_ij q_i
+
+    Shapes: do (B,Sq,Hq,D); lse, delta (B,Hq,Sq). Returns (dq, dk, dv) in
+    float32 with the shapes of q, k, v. Rows with lse = NEG_INF (no visible
+    key) give p = 0: dq = 0 there and nothing into dk, dv.
+    """
+    B, Sq, Hq, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+
+    qf = q.float().reshape(B, Sq, Hkv, G, D)
+    kf = k.float()
+    vf = v.float()
+    dof = do.float().reshape(B, Sq, Hkv, G, D)
+    lsef = lse.float().reshape(B, Hkv, G, Sq)
+    deltaf = delta.float().reshape(B, Hkv, G, Sq)
+
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * scale
+    mask = make_mask(pos_q, pos_k, causal=causal, window=window,
+                     prefix_len=prefix_len)
+    if mask is not None:
+        # mask BEFORE the exp: masked raw scores can exceed lse (which only
+        # covers unmasked entries), and exp would overflow to inf -> NaN
+        mask = mask[None, None, None] if mask.dim() == 2 \
+            else mask[:, None, None]
+        s = torch.where(mask, s, NEG_INF)
+    dead = lsef <= NEG_INF / 2
+    lse_safe = torch.where(dead, 0.0, lsef)
+    p = torch.exp(s - lse_safe[..., None])
+    p = torch.where(dead[..., None], 0.0, p)
+
+    # (B, Hkv, G, Sq, Sk)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (dp - deltaf[..., None]) * scale
+
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(B, Sq, Hq, D)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    return dq, dk, dv
 
 
 def mha_reference(q, k, v, *, positions=None, causal: bool = True,

@@ -126,7 +126,7 @@ def mlp_block(rt, p, x, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# vocab-parallel embedding (Megatron-style over the SP axes)
+# vocab-parallel embedding + logits/loss (Megatron-style over the SP axes)
 # ---------------------------------------------------------------------------
 
 def padded_vocab(cfg: ModelConfig, multiple: int = 32) -> int:
@@ -172,3 +172,48 @@ def embed(rt, p, tokens, cfg: ModelConfig, *,
     tokens_all = rt.all_gather_model(tokens, axis=1)
     return rt.psum_scatter_model(
         _vocab_shard_lookup(rt, table, tokens_all), axis=1)
+
+
+def lm_head_logits_and_loss(rt, p, x, labels, cfg: ModelConfig, mask=None):
+    """Vocab-parallel cross-entropy (the JAX spmd form). x: (B, S_local, D);
+    labels (B, S_local); mask (B, S_local) or None.
+
+    Sequence and vocab are split over the same SP axes, so the loss runs
+    over the P gathered shards' activations in turn: this rank computes its
+    vocab slice's logits for one shard, and a psum combines the logsumexp
+    and gold terms. Full logits are never held (B x S_local x V/P at a
+    time). Returns the mean loss over the (masked) tokens.
+    """
+    table, lo = vocab_slice(rt, rt.dense(p.table))
+    v_local = table.shape[0]
+    tf32 = table.float()
+    x_all = rt.all_gather_sp_stack(x)                 # (P, B, S_l, D)
+    lab_all = rt.all_gather_sp_stack(labels)          # (P, B, S_l)
+    if mask is not None:
+        mask_all = rt.all_gather_sp_stack(mask)
+    else:
+        mask_all = torch.ones(lab_all.shape, dtype=torch.float32,
+                              device=x.device)
+    row_valid = (lo + torch.arange(v_local, device=x.device)) \
+        < cfg.vocab_size
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    denom = torch.zeros((), dtype=torch.float32, device=x.device)
+    for xi, li, mi in zip(x_all, lab_all, mask_all):
+        logits = torch.einsum("bsd,vd->bsv", xi.float(), tf32)
+        logits = torch.where(row_valid, logits, -1e30)  # padded vocab rows
+        # the logsumexp shift is gradient-invariant: detach it before the
+        # pmax, as the JAX stop_gradient does
+        m = rt.comm.pmax(logits.amax(dim=-1).detach(), rt.sp_axes)
+        se = rt.comm.psum(torch.exp(logits - m[..., None]).sum(dim=-1),
+                          rt.sp_axes)
+        logz = m + torch.log(se)
+        ids = li.long() - lo
+        in_range = (ids >= 0) & (ids < v_local)
+        ids = ids.clamp(0, v_local - 1)
+        gold_loc = logits.gather(-1, ids[..., None])[..., 0]
+        gold = rt.comm.psum(gold_loc * in_range.float(), rt.sp_axes)
+        losses = (logz - gold) * mi
+        total = total + losses.sum()
+        denom = denom + mi.sum()
+    # total/denom are identical on every SP rank; reduce over batch axes only
+    return rt.psum_batch(total) / rt.psum_batch(denom)

@@ -8,11 +8,14 @@ JAX parameter tree (numpy arrays, as ``np.asarray`` of
 ``repro.models.factory.Model.init``) across: the leading period dimension
 of ``tree["stack"]`` is un-stacked into per-layer modules and every leaf
 keeps its einsum layout, so both packages compute the same products.
+``to_jax_layout(named, cfg)`` is its inverse: per-layer tensors keyed by
+their ``named_parameters`` names (parameters, or their gradients) are
+restacked into the JAX tree, so tests compare the two leaf by leaf.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -25,7 +28,8 @@ from repro_torch.models import spec, transformer
 class Model(nn.Module):
     """Decoder LM parameters: ``embed.table``, ``layers[i].mixer`` (wq, wk,
     wv, wo, norm), ``layers[i].mlp`` (w1, w3, w2, norm), ``final_norm``,
-    ``lm_head.table``. The forward passes live in ``serve.step``."""
+    ``lm_head.table``. The serving forward passes live in ``serve.step``;
+    the training loss is ``loss``."""
 
     def __init__(self, cfg: ModelConfig, make):
         super().__init__()
@@ -44,6 +48,11 @@ class Model(nn.Module):
 
     def param_count(self) -> int:
         return spec.count_params(self)
+
+    def loss(self, rt, batch, *, remat: str = "none"):
+        """The training loss of ``batch`` ({tokens, labels}, this rank's
+        slice) under the runtime ``rt``."""
+        return transformer.lm_loss(rt, self, batch, self.cfg, remat=remat)
 
 
 def build_model(cfg: ModelConfig, device="cpu", seed: int = 0) -> Model:
@@ -95,3 +104,40 @@ def from_jax_params(tree, cfg: ModelConfig, device="cpu") -> Model:
     with torch.no_grad():
         fill(model, flat, None)
     return model
+
+
+def to_jax_layout(named: Mapping[str, torch.Tensor], cfg: ModelConfig
+                  ) -> Dict:
+    """The JAX parameter tree (nested dicts of f32 numpy arrays) holding
+    ``named``, a map from the port's parameter names (``layers.3.mixer.wq``,
+    as ``Model.named_parameters`` gives them) to tensors of those shapes:
+    the per-layer leaves are stacked along the JAX stack's leading period
+    dimension. The inverse of ``from_jax_params``."""
+    pat = transformer.layer_pattern(cfg)
+    tree: Dict = {}
+    layers: Dict[int, Dict] = {}
+    for name, t in named.items():
+        arr = t.detach().float().cpu().numpy()
+        parts = name.split(".")
+        if parts[0] == "layers":
+            node = layers.setdefault(int(parts[1]), {})
+            parts = parts[2:]
+        else:
+            node = tree
+        for key in parts[:-1]:
+            node = node.setdefault(key, {})
+        node[parts[-1]] = arr
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{len(layers)} layers named, config has "
+                         f"{cfg.num_layers}")
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack(trees)
+
+    tree["stack"] = {
+        f"sub{i}": stack([layers[j] for j in range(i, cfg.num_layers,
+                                                   len(pat))])
+        for i in range(len(pat))}
+    return tree

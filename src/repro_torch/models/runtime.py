@@ -9,9 +9,14 @@ one process. Parameters are stored whole: there is no FSDP sharding, so
 themselves (``blocks.vocab_slice``, ``blocks.mlp_block``).
 
 ``attention`` runs StarTrail (``attention_impl='startrail'``, the ring
-kernel B2 on 'cuda'), or, with ``attention_impl='local'``, the JAX local
-mode's single-device attention: one ``dispatch.prefill`` over the rank's
-own tokens (kernel B1 on 'cuda'), exact only at P = 1.
+kernels B2 forward and B3 backward on 'cuda'), or, with
+``attention_impl='local'``, the JAX local mode's single-device attention:
+one ``dispatch.prefill`` over the rank's own tokens (kernel B1 on 'cuda'),
+exact only at P = 1.
+
+There is one data-parallel replica (``batch_axes = ()``): ``psum_batch``
+is the identity until the multi-process communicator carries a data axis
+(ROADMAP.md, the main path).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ class Runtime:
     attention_impl: str = "startrail"   # 'startrail' | 'local'
     kernel_impl: str = "cuda"      # paged-decode kernel: 'ref' | 'cuda'
     device: torch.device = torch.device("cpu")
+    batch_axes: Tuple[str, ...] = ()
 
     # ---- axis info -----------------------------------------------------
     @property
@@ -83,6 +89,21 @@ class Runtime:
         for a in (t, r, g):  # inverse order so tiling matches scatter
             x = self.comm.all_gather(x, a, axis)
         return x
+
+    def psum_batch(self, x):
+        """Sum over the data-parallel axes: the identity with none."""
+        if self.batch_axes:
+            return self.comm.psum(x, self.batch_axes)
+        return x
+
+    def all_gather_sp_stack(self, x):
+        """Gather per-rank values into a leading SP dim (P, ...), in linear
+        rank order."""
+        g, r, t = self.sp_axes
+        y = x[None]
+        for a in (t, r, g):
+            y = self.comm.all_gather(y, a, 0)
+        return y
 
     # ---- attention -------------------------------------------------------
     def attention(self, q, k, v, *, causal=None, window=None,

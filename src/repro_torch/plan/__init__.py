@@ -1,5 +1,6 @@
-"""repro_torch.plan — the serving ExecutionPlan (``plan.plan``)."""
+"""repro_torch.plan — the ExecutionPlan of a training or serving run
+(``plan.plan``)."""
 
-from repro_torch.plan.plan import ExecutionPlan, make_serve_plan
+from repro_torch.plan.plan import ExecutionPlan, make_plan, make_serve_plan
 
-__all__ = ["ExecutionPlan", "make_serve_plan"]
+__all__ = ["ExecutionPlan", "make_plan", "make_serve_plan"]

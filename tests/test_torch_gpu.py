@@ -8,9 +8,10 @@ the card with ``python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 
 The case tables and input builders are shared with
 ``tests/test_torch_kernels.py``, which holds the plain versions against the
-JAX Pallas kernels on the CPU. Tolerances: 2e-5 for f32 inputs (the JAX
-kernel tests' own), 1e-4 for bf16 inputs upcast to f32 in both versions
-(only the summation order differs); dead rows exact.
+JAX Pallas kernels on the CPU. Tolerances: forward 2e-5 for f32 inputs (the
+JAX kernel tests' own), 1e-4 for bf16 inputs upcast to f32 in both versions
+(only the summation order differs); backward (B3) 3e-4, the JAX
+``test_bwd_matches_ref`` bound; dead rows exact.
 """
 
 import numpy as np
@@ -95,6 +96,52 @@ def _paged_inputs(B, Hq, Hkv, D, ps, W, sp, seed=0):
     cl[-1] = 0
     return q, pool_k, pool_v, tbl, cl
 
+
+BWD_TOL = 3e-4
+
+BWD_CASES = {
+    # B, Sq, Sk, Hq, Hkv, D, causal, window, positions, blk
+    "mha_causal_d16": (2, 64, 64, 2, 2, 16, True, None, "arange", 32),
+    "gqa4_window_d80": (1, 64, 64, 8, 2, 80, True, 24, "arange", 32),
+    "gqa4_full_d16": (1, 64, 64, 8, 2, 16, False, None, "arange", 32),
+    "dead_rows": (1, 64, 64, 4, 1, 16, True, None, "future", 32),
+    "zigzag_gqa4": (1, 64, 64, 8, 2, 80, True, 40, "zigzag", 32),
+    "sq_ne_sk": (1, 64, 128, 8, 2, 16, True, None, "offset", 32),
+}
+
+
+def _bwd_inputs(B, Sq, Sk, Hq, Hkv, D, causal, window, kind, seed=0):
+    """q, k, v, do, positions, and the *global* lse and delta =
+    rowsum(do * o) of full attention over the block pair (from the plain
+    forward), all numpy f32 / int32."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)
+    k = rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32)
+    do = rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)
+    if kind == "zigzag":
+        pos_q, pos_k = _zigzag(1, 2 * Sq, 2), _zigzag(0, 2 * Sk, 2)
+    else:
+        pos_q = np.arange(Sq, dtype=np.int32)
+        # "future": the first half of the query rows see no key at all;
+        # "offset": Sk > Sq keys straddle the queries
+        pos_k = np.arange(Sk, dtype=np.int32) + {
+            "arange": 0, "future": Sq // 2, "offset": (Sq - Sk) // 2}[kind]
+    o, lse = flash_attention.flash_attention_fwd_plain(
+        _t(q), _t(k), _t(v), _t(pos_q), _t(pos_k), causal=causal,
+        window=window)
+    delta = np.einsum("bshd,bshd->bhs", do, o.numpy())
+    return (q, k, v, do, lse.numpy(), delta.astype(np.float32),
+            pos_q.astype(np.int32), pos_k.astype(np.int32))
+
+
+def _assert_grads(got, want, lse, tol=BWD_TOL):
+    """dq, dk, dv within ``tol``; rows with a dead lse give dq = 0 exactly."""
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), atol=tol,
+                                   rtol=tol, err_msg=name)
+    dead = np.swapaxes(np.asarray(lse) <= NEG_INF / 2, 1, 2)  # (B, Sq, Hq)
+    assert (np.asarray(got[0])[dead] == 0.0).all()
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +238,59 @@ def test_attention_route_launches_its_kernel(cuda_device, attention_impl):
     o = rt.attention(q, k, v, window=window)
     torch.cuda.synchronize()
     local = attention_impl == "local"
-    assert flash_attention.LAUNCHES == {"B1": int(local), "B2": int(not local)}
+    assert flash_attention.LAUNCHES == {"B1": int(local), "B2": int(not local),
+                                        "B3": 0}
     want = ref.mha_reference(q, k, v, causal=True, window=window)
     np.testing.assert_allclose(o.cpu().numpy(), want.cpu().numpy(),
                                atol=TOL, rtol=TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_bwd_kernel_matches_plain(cuda_device, case, dtype):
+    B, Sq, Sk, Hq, Hkv, D, causal, window, kind, _ = BWD_CASES[case]
+    if D not in flash_attention.HEAD_DIMS:
+        D = 32
+    if kind != "zigzag":
+        # a ragged edge: Sq, Sk not multiples of the 64-row tile
+        Sq, Sk = Sq + 13, Sk + 13
+    arrs = _bwd_inputs(B, Sq, Sk, Hq, Hkv, D, causal, window, kind)
+    dt = getattr(torch, dtype)
+    args = [_t(x).to(cuda_device, dt) for x in arrs[:4]] + \
+        [_t(x).to(cuda_device) for x in arrs[4:]]
+    kw = dict(causal=causal, window=window)
+    before = flash_attention.LAUNCHES["B3"]
+    got = flash_attention.flash_attention_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES["B3"] == before + 1
+    want = flash_attention.flash_attention_bwd_plain(*args, **kw)
+    _assert_grads([g.cpu().numpy() for g in got],
+                  [w.cpu().numpy() for w in want], arrs[4])
+    again = flash_attention.flash_attention_bwd(*args, **kw)
+    for a, b in zip(got, again):           # no atomics: the same bits
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_startrail_backward_launches_b3(cuda_device):
+    """At P = 1 the autograd backward of ``StarTrailAttention`` is one ring
+    step through B3 per call, and equals the explicit functions."""
+    from repro_torch.dist.comm import SingleComm
+
+    S, window = 77, 24
+    q, k, v, _, _ = _fwd_inputs(1, S, 8, 2, 80, "arange")
+    do = torch.randn((1, S, 8, 80), device=cuda_device)
+    q, k, v = (_t(x).to(cuda_device).requires_grad_() for x in (q, k, v))
+    cfg = st_torch.StarTrailConfig(seq_len=S, seq_scheme="contiguous",
+                                   window=window, block_impl="cuda")
+    flash_attention.reset_launches()
+    o = st_torch.startrail_attention(q, k, v, cfg, SingleComm())
+    dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == {"B1": 0, "B2": 1, "B3": 1}
+    with torch.no_grad():
+        o2, res = st_torch.startrail_forward(q, k, v, cfg, SingleComm())
+        want = st_torch.startrail_backward(res, o2, do, cfg, SingleComm())
+    for a, b in zip((dq, dk, dv), want):
+        assert torch.equal(a, b)

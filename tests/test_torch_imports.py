@@ -4,8 +4,9 @@
   ``repro_torch`` imports.
 * No file under ``src/repro_torch/`` (nor ``chip_smoke.py``) has an
   ``import jax`` / ``from jax`` / ``import repro`` / ``from repro.`` line.
-* ``build_engine()`` with no device, in a process without CUDA, raises
-  instead of running on the CPU.
+* ``build_engine()`` with no device, and ``python -m
+  repro_torch.launch.train`` without ``--device``, in a process without
+  CUDA, raise instead of running on the CPU.
 """
 
 import os
@@ -39,11 +40,15 @@ def test_every_module_imports_without_jax():
         "    repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
-        "assert 'repro_torch.engine.engine' in names, names\n"
+        "for n in ('repro_torch.engine.engine', 'repro_torch.train.trainer',\n"
+        "          'repro_torch.train.step', 'repro_torch.optim.adamw',\n"
+        "          'repro_torch.data.pipeline', 'repro_torch.launch.train',\n"
+        "          'repro_torch.dist.elastic'):\n"
+        "    assert n in names, (n, names)\n"
         "print(len(names))\n")
     res = _run(code)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 20
+    assert int(res.stdout.split()[-1]) >= 28
 
 
 def test_no_jax_or_repro_import_lines():
@@ -66,3 +71,15 @@ def test_build_engine_without_cuda_raises():
     res = _run(code, CUDA_VISIBLE_DEVICES="")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "raised"
+
+
+def test_launch_train_without_device_raises_without_cuda():
+    full = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "h2o-danube-1.8b", "--smoke", "--steps", "1"], env=full,
+        capture_output=True, text=True, timeout=240)
+    assert res.returncode != 0
+    assert "RuntimeError" in res.stderr and "CUDA" in res.stderr, res.stderr
+    assert "[trainer]" not in res.stdout

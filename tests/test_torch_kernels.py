@@ -1,12 +1,14 @@
 """repro_torch kernel modules vs the JAX Pallas kernels (interpret mode).
 
-The port's ``flash_attention_fwd`` (B1, and B2 with a running accumulator)
-and ``paged_decode_attention`` (B4) run their plain PyTorch versions on CPU
-tensors; they are held against ``repro.kernels.flash_attention`` and
-``repro.kernels.paged_decode`` run with ``interpret=True``, as
-``tests/test_kernels.py`` runs them. Inputs are made with numpy from a seed
-and handed to both packages. Tolerance 2e-5 in f32 (the JAX kernel tests'
-own); dead rows (no visible key) must be exact: o = 0, lse = -1e30.
+The port's ``flash_attention_fwd`` (B1, and B2 with a running accumulator),
+``flash_attention_bwd`` (B3) and ``paged_decode_attention`` (B4) run their
+plain PyTorch versions on CPU tensors; they are held against
+``repro.kernels.flash_attention`` and ``repro.kernels.paged_decode`` run
+with ``interpret=True``, as ``tests/test_kernels.py`` runs them. Inputs are
+made with numpy from a seed and handed to both packages. Tolerance 2e-5 in
+f32 for the forward kernels (the JAX kernel tests' own) and 3e-4 for the
+backward (``test_bwd_matches_ref``'s); dead rows (no visible key) must be
+exact: o = 0, lse = -1e30, dq = 0.
 
 The CUDA kernels are held against these plain versions on the card in
 ``tests/test_torch_gpu.py``, which shares this file's case tables.
@@ -22,8 +24,10 @@ from repro.kernels import flash_attention as jax_flash
 from repro.kernels import paged_decode as jax_paged
 from repro_torch.core.combine import NEG_INF
 from repro_torch.kernels import flash_attention, paged_decode
-from test_torch_gpu import (FWD_CASES, PAGED_CASES, _assert_partials,
+from test_torch_gpu import (BWD_CASES, FWD_CASES, PAGED_CASES,
+                            _assert_grads, _assert_partials, _bwd_inputs,
                             _fwd_inputs, _paged_inputs, _t)
+
 
 @pytest.mark.parametrize("merge", [False, True], ids=["B1", "B2"])
 @pytest.mark.parametrize("case", sorted(FWD_CASES))
@@ -49,8 +53,24 @@ def test_flash_fwd_plain_matches_jax(case, merge):
         _t(q), _t(k), _t(v), _t(pos_q), _t(pos_k),
         *(_t(acc[n]) for n in acc), causal=causal, window=window)
     # CPU tensors run the plain version: no kernel launch is counted
-    assert flash_attention.LAUNCHES == {"B1": 0, "B2": 0}
+    assert flash_attention.LAUNCHES == {"B1": 0, "B2": 0, "B3": 0}
     _assert_partials(o_t.numpy(), lse_t.numpy(), o_j, lse_j)
+
+
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_bwd_plain_matches_jax(case):
+    B, Sq, Sk, Hq, Hkv, D, causal, window, kind, blk = BWD_CASES[case]
+    arrs = _bwd_inputs(B, Sq, Sk, Hq, Hkv, D, causal, window, kind)
+    want = jax_flash.flash_attention_bwd(
+        *(jnp.asarray(x) for x in arrs), causal=causal, window=window,
+        block_q=blk, block_k=blk, interpret=True)
+    flash_attention.reset_launches()
+    got = flash_attention.flash_attention_bwd(*(_t(x) for x in arrs),
+                                              causal=causal, window=window)
+    assert flash_attention.LAUNCHES == {"B1": 0, "B2": 0, "B3": 0}
+    if kind == "future":
+        assert (arrs[4] <= NEG_INF / 2).any()      # there are dead rows
+    _assert_grads([g.numpy() for g in got], want, arrs[4])
 
 
 @pytest.mark.parametrize("case", sorted(PAGED_CASES))

@@ -1,12 +1,20 @@
-"""repro_torch's StarTrail forward on a ThreadMesh vs the JAX reference.
+"""repro_torch's StarTrail forward and backward on a ThreadMesh vs the JAX
+reference.
 
 Every rank of a ``ThreadMesh(c, r)`` (P = c*c*r threads in this process)
-runs ``core.startrail.startrail_attention`` on its shard; the shards are put
-back in sequence order and held against ``repro.kernels.ref.mha_reference``
-over the whole sequence. Inputs are made with numpy from a seed and handed
-to both packages. Tolerance 2e-4, the JAX package's own attention dist
-check (``repro/testing/dist_checks.py``). ``combine_decode_partials`` is
-held against the JAX ``combine_pair`` folded over the shards.
+runs ``core.startrail.startrail_attention`` (or ``startrail_forward`` then
+``startrail_backward``) on its shard; the shards are put back in sequence
+order and held against ``repro.kernels.ref.mha_reference`` over the whole
+sequence, and the gradients against ``jax.grad`` of its loss
+``sum(o * do)``, as ``repro/testing/dist_checks.py:check_attention`` does.
+Inputs are made with numpy from a seed and handed to both packages.
+Tolerance 2e-4, that dist check's own. ``combine_decode_partials`` is held
+against the JAX ``combine_pair`` folded over the shards.
+
+The P > 1 backward is called explicitly per rank: autograd runs the
+backward of CUDA tensors on one worker thread per device, which would
+serialise the ranks' collectives on a card; at P = 1 the autograd
+``StarTrailAttention`` equals the explicit functions.
 """
 
 import jax
@@ -19,7 +27,7 @@ from repro.core import combine as jax_combine
 from repro.kernels import ref as jax_ref
 from repro_torch.core import startrail as st
 from repro_torch.core.combine import NEG_INF
-from repro_torch.dist.comm import ThreadMesh
+from repro_torch.dist.comm import SingleComm, ThreadMesh
 from repro_torch.kernels import flash_attention
 
 TOL = 2e-4
@@ -32,6 +40,44 @@ def _inputs(seed=0):
     k = rng.normal(size=(B, N, HKV, D)).astype(np.float32)
     v = rng.normal(size=(B, N, HKV, D)).astype(np.float32)
     return q, k, v
+
+
+def _jax_grads(q, k, v, do):
+    """o and jax.grad of sum(o * do) of the JAX full-attention reference."""
+    def loss(q, k, v):
+        o = jax_ref.mha_reference(q, k, v, causal=True, window=WINDOW)
+        return (o * do).sum()
+
+    args = tuple(jnp.asarray(x) for x in (q, k, v))
+    o = jax_ref.mha_reference(*args, causal=True, window=WINDOW)
+    return np.asarray(o), [np.asarray(g) for g in
+                           jax.grad(loss, argnums=(0, 1, 2))(*args)]
+
+
+def _ring_fwd_bwd(c, r, scheme, block_skip, q, k, v, do):
+    """Every rank's explicit forward + backward, put back in sequence order:
+    (o, [dq, dk, dv]) as numpy."""
+    mesh = ThreadMesh(c, r)
+    p = mesh.size
+    cfg = st.StarTrailConfig(seq_len=N, seq_scheme=scheme, causal=True,
+                             window=WINDOW, block_impl="cuda",
+                             block_skip=block_skip)
+
+    def rank_fn(comm):
+        g, j, t = (comm.axis_index(a) for a in cfg.axes)
+        pos = st.shard_positions((g * r + j) * c + t, N, p, scheme).numpy()
+        shard = [torch.from_numpy(np.ascontiguousarray(x[:, pos]))
+                 for x in (q, k, v, do)]
+        o, res = st.startrail_forward(*shard[:3], cfg, comm)
+        return pos, o, st.startrail_backward(res, o, shard[3], cfg, comm)
+
+    out = np.zeros_like(q)
+    grads = [np.zeros_like(x) for x in (q, k, v)]
+    for pos, o, gs in mesh.run(rank_fn, timeout=120):
+        out[:, pos] = o.numpy()
+        for full, gr in zip(grads, gs):
+            full[:, pos] = gr.numpy()
+    return out, grads
 
 
 @pytest.mark.parametrize("impl", ["ref", "cuda"])
@@ -59,10 +105,63 @@ def test_startrail_thread_mesh_matches_mha_reference(c, r, scheme, impl):
     for pos, o in mesh.run(rank_fn, timeout=120):
         out[:, pos] = o.numpy()
     # CPU tensors take the plain versions: no kernel launch is counted
-    assert flash_attention.LAUNCHES == {"B1": 0, "B2": 0}
+    assert flash_attention.LAUNCHES == {"B1": 0, "B2": 0, "B3": 0}
     want = jax_ref.mha_reference(jnp.asarray(q), jnp.asarray(k),
                                  jnp.asarray(v), causal=True, window=WINDOW)
     np.testing.assert_allclose(out, np.asarray(want), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("scheme", ["contiguous", "zigzag"])
+@pytest.mark.parametrize("c,r", [(1, 4), (2, 1), (2, 2)])
+def test_startrail_backward_matches_jax_grad(c, r, scheme):
+    q, k, v = _inputs()
+    do = np.random.default_rng(1).normal(size=q.shape).astype(np.float32)
+    o_want, g_want = _jax_grads(q, k, v, do)
+    flash_attention.reset_launches()
+    out, grads = _ring_fwd_bwd(c, r, scheme, False, q, k, v, do)
+    assert flash_attention.LAUNCHES == {"B1": 0, "B2": 0, "B3": 0}
+    np.testing.assert_allclose(out, o_want, atol=TOL, rtol=TOL)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, g_want):
+        np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL,
+                                   err_msg=name)
+
+
+def test_block_skip_gives_the_same_gradients():
+    """``block_skip`` drops fully masked ring steps (the contiguous layout
+    with a window has some) without changing a value: the JAX
+    ``bwd_skip_equiv`` dist check."""
+    q, k, v = _inputs(2)
+    do = np.random.default_rng(3).normal(size=q.shape).astype(np.float32)
+    cfg = st.StarTrailConfig(seq_len=N, seq_scheme="contiguous",
+                             window=WINDOW)
+    pos = [st.shard_positions(i, N, 4, "contiguous") for i in range(4)]
+    assert st.fully_masked(cfg, pos[0], pos[3])        # causal: all future
+    assert st.fully_masked(cfg, pos[3], pos[0])        # out of the window
+    off = _ring_fwd_bwd(1, 4, "contiguous", False, q, k, v, do)
+    on = _ring_fwd_bwd(1, 4, "contiguous", True, q, k, v, do)
+    np.testing.assert_array_equal(on[0], off[0])
+    for a, b in zip(on[1], off[1]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_autograd_at_p1_equals_explicit_functions():
+    q, k, v = (torch.from_numpy(x) for x in _inputs(4))
+    do = torch.from_numpy(np.random.default_rng(5).normal(
+        size=q.shape).astype(np.float32))
+    cfg = st.StarTrailConfig(seq_len=N, seq_scheme="zigzag", causal=True,
+                             window=WINDOW, block_impl="cuda")
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    o = st.startrail_attention(*leaves, cfg, SingleComm())
+    got = torch.autograd.grad(o, leaves, do)
+    o2, res = st.startrail_forward(q, k, v, cfg, SingleComm())
+    want = st.startrail_backward(res, o2, do, cfg, SingleComm())
+    assert torch.equal(o.detach(), o2)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    # no input needs a gradient: the forward keeps no residual
+    with torch.no_grad():
+        o3 = st.startrail_attention(q, k, v, cfg, SingleComm())
+    assert o3.grad_fn is None and torch.equal(o3, o2)
 
 
 def test_thread_mesh_rank_fault_fails_fast():
