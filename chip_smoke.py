@@ -10,11 +10,13 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               the ``-Xptxas -v`` register / shared-memory / spill summary
   3. kernels  each CUDA kernel against its plain PyTorch version on the card
               (B1, B2, B3 at the 1024-token shapes, B2 and B3 again at the
-              training shape, seq 4096, B4 at a decode step), and timed (CUDA events, median of bursts after warm-up)
-              beside the plain version, a PyTorch library call where one
-              computes the same function, and the card's bound for the work:
-              B1, B2 and B4 at the serving shapes, B3 (and B2 again) at the
-              training shape, seq 4096
+              training shape, seq 4096, B4 at a decode step, B5 on ragged
+              rows and the legacy decode shape, B6 on a 256-query chunk
+              after cached prefixes), and timed (CUDA events, median of
+              bursts after warm-up) beside the plain version, a PyTorch
+              library call where one computes the same function, and the
+              card's bound for the work: B1, B2, B4, B5 and B6 at the
+              serving shapes, B3 (and B2 again) at the training shape
   4. ring     StarTrail on a ThreadMesh(c=2, r=2): P = 8 ranks as threads
               on the one card, N = 2048 tokens of 32q/8kv heads of 80,
               bf16, causal + window; each rank runs the forward (B2 in
@@ -34,6 +36,20 @@ Phases, each printing one JSON line (``{"phase": ...}``):
   8. profile  ``torch.profiler`` over the engine with 4 slots of 1024-token
               prompts: one prefill plus decode step, then 8 decode steps;
               host and device ms per step, device idle share, top kernels
+  8a. prefix  the engine with the prefix cache and 256-token prefill
+              chunks: 8 greedy requests sharing a 1024-token prefix, each
+              with its own 64-512-token suffix, 32 new tokens each. A
+              prompt's first chunk runs B2 per layer; every later chunk and
+              every prefix hit runs B6 (the cached pages) and B1 (the
+              chunk itself) per layer. Each request's first token and
+              next-token hidden state are held against a monolithic prefill
+              of its prompt; then TTFT of one request alone with the prefix
+              cached and without the cache
+  8b. legacy  the static-batch path (``launch.serve.legacy_generate``): 4
+              prompts of 1024 tokens prefilled as one batch (B2 per layer),
+              then 31 decode steps against the contiguous cache, B5 per
+              layer and step; the first decode step's hidden state and
+              token are held against the engine's
   9. train    the full-width model trains through ``train.trainer.train``
               with a plan from ``make_plan(c=1)``: seq 4096, batch 1, bf16,
               AdamW (f32 moments, lr 1e-3, no warmup), 6 steps on one
@@ -44,15 +60,17 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               under the CUDA kernels against the plain versions
  11. train_profile  ``torch.profiler`` over one full-width train step
 
-The paths are phases 4, 5, 7 and 9: the launch counters are set to 0 just
-before each and read just after, and each must launch exactly the kernels
-it runs (B2 and B3 in the ring; B2 and B4 in the engine; B1 in the local
-prefill; B2 and B3 in the train loop). Comparison, timing and profiling
-launches are not counted. The kernels line's ``launches`` is each kernel's
-count on the path that runs it (the engine for B2 and B4, the local
-prefill for B1, the train loop for B3); ``launches_by_path`` gives every
-path's counts. The last three lines are the card's ``nvidia-smi`` name and
-power limit, the kernels' JSON line and ``{"ok": true, "device": {...}}``.
+The paths are phases 4, 5, 7, 8a, 8b and 9: the launch counters are set to
+0 just before each and read just after, and each must launch exactly the
+kernels it runs (B2 and B3 in the ring; B2 and B4 in the engine; B1 in the
+local prefill; B1, B2, B4 and B6 in the prefix phase; B2 and B5 in the
+legacy phase; B2 and B3 in the train loop). Comparison, timing and
+profiling launches are not counted. The kernels line's ``launches`` is each
+kernel's count on the path that runs it (the engine for B2 and B4, the
+local prefill for B1, the train loop for B3, the legacy phase for B5, the
+prefix phase for B6); ``launches_by_path`` gives every path's counts. The
+last three lines are the card's ``nvidia-smi`` name and power limit, the
+kernels' JSON line and ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the last line; so does a machine
 without a CUDA card, or a directory without the rest of the repository.
 """
@@ -77,11 +95,16 @@ REPLACES = {
     "B2": "src/repro/kernels/flash_attention.py:148",
     "B3": "src/repro/kernels/flash_attention.py:440",
     "B4": "src/repro/kernels/paged_decode.py:48",
+    "B5": "src/repro/kernels/ragged_prefill.py:48",
+    "B6": "src/repro/kernels/paged_prefill.py:56",
 }
 SOURCES = {"B1": "src/repro_torch/csrc/flash_fwd.cu",
            "B2": "src/repro_torch/csrc/flash_fwd.cu",
            "B3": "src/repro_torch/csrc/flash_bwd.cu",
-           "B4": "src/repro_torch/csrc/paged_decode.cu"}
+           "B4": "src/repro_torch/csrc/paged_decode.cu",
+           "B5": "src/repro_torch/csrc/ragged_prefill.cu",
+           "B6": "src/repro_torch/csrc/paged_prefill.cu"}
+KERNELS = tuple(SOURCES)
 ARCH = "h2o-danube-1.8b"
 
 
@@ -334,16 +357,126 @@ def paged_work(table, cache_len, sp, rank, window, ps=16, hkv=8, d=80,
     return kv + io, 4 * d * hq * vis
 
 
+def ragged_cases():
+    # name: (Sq, Sk, window, per-row lengths or cache lengths, kind)
+    return {
+        # prefill rows of 256, 130, 0 (sees no key) and 77 keys
+        "ragged_rows": (256, 256, 4096, [256, 130, 0, 77], "lengths"),
+        # the legacy decode shape: one query per row at its cache length
+        "decode_sq1": (1, 1056, 4096, [1024, 1030, 1041, 1055], "decode"),
+        "decode_window256": (1, 1056, 256, [1024, 700, 300, 5], "decode"),
+    }
+
+
+def ragged_inputs(dev, dtype, sq, sk, rows, kind, seed=0):
+    """q (B,Sq,32,80), k/v (B,Sk,8,80) and per-row positions: validity is
+    positional, an unseen key sits past every query."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = len(rows)
+    q = torch.randn((b, sq, 32, 80), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, sk, 8, 80), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, sk, 8, 80), generator=g, device=dev).to(dtype)
+    ak = torch.arange(sk, dtype=torch.int32, device=dev)[None]
+    r = torch.tensor(rows, dtype=torch.int32, device=dev)[:, None]
+    if kind == "lengths":
+        pos_q = torch.arange(sq, dtype=torch.int32, device=dev)[None]
+        pos_q = pos_q.expand(b, sq)
+        pos_k = torch.where(ak < r, ak, sq + sk)
+    else:
+        pos_q = r
+        pos_k = torch.where(ak <= r, ak, r + 1)
+    return (q, k, v), pos_q.contiguous(), pos_k.contiguous()
+
+
+def ragged_work(q, k, pos_q, pos_k, window):
+    """(bytes, flops) of B5 on these inputs: q, the keys some query sees
+    (K and V), the positions in once, o and lse out in f32; 4*D FLOPs per
+    visible pair and query head."""
+    from repro_torch.kernels import ref
+
+    mask = ref.make_mask(pos_q, pos_k, causal=True, window=window)
+    b, sq, hq, d = q.shape
+    keys = int(mask.any(dim=1).sum())
+    nbytes = q.numel() * q.element_size() \
+        + 2 * keys * k.shape[2] * d * k.element_size() \
+        + (pos_q.numel() + pos_k.numel()) * 4 + b * sq * hq * d * 4 \
+        + b * hq * sq * 4
+    return nbytes, 4 * d * hq * int(mask.sum())
+
+
+def paged_prefill_cases():
+    # name: (cached_len per row, window, unallocated table entries of row 0)
+    return {
+        # row 0's last cached page is half filled; row 1 has nothing cached
+        "partial_page_and_empty": ([1000, 0], 4096, []),
+        "unallocated": ([1024], 4096, [5, 40]),
+        # queries 1024..1279 in a window of 256: the later ones see no key
+        "window_slid": ([1024], 256, []),
+        "prefix_1024": ([1024], 4096, []),     # the prefix phase's shape
+    }
+
+
+def paged_prefill_inputs(dev, dtype, cached, holes, sq=256, seed=0):
+    """q (B,256,32,80); pool (512,16,8,80); table (B,128): distinct pages
+    for the blocks of each row's prefix and suffix, -1 past them and at
+    ``holes`` in row 0."""
+    import numpy as np
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b = len(cached)
+    q = torch.randn((b, sq, 32, 80), generator=g, device=dev).to(dtype)
+    pool_k = torch.randn((512, 16, 8, 80), generator=g, device=dev).to(dtype)
+    pool_v = torch.randn((512, 16, 8, 80), generator=g, device=dev).to(dtype)
+    perm = np.random.default_rng(seed).permutation(512)
+    table = np.full((b, 128), -1, np.int32)
+    used = 0
+    for row, cl in enumerate(cached):
+        blocks = -(-(cl + sq) // 16)
+        table[row, :blocks] = perm[used:used + blocks]
+        used += blocks
+    table[0, holes] = -1
+    return (q, pool_k, pool_v, torch.from_numpy(table).to(dev),
+            torch.tensor(cached, dtype=torch.int32, device=dev))
+
+
+def paged_prefill_work(table, cached, sq, window, ps=16, hkv=8, d=80,
+                       hq=32):
+    """(bytes, flops) this data needs: q in, the K and V of the pages some
+    query sees, the table and lengths, o and lse out in f32; 4*D FLOPs per
+    visible (query, key) pair and query head."""
+    pages = pairs = 0
+    for b, cl in enumerate(cached):
+        for w in range(table.shape[1]):
+            base = w * ps
+            if table[b, w] < 0 or base >= cl:
+                continue
+            # query i (position cl + i) sees key p iff cl + i - p < window
+            n = sum(min(sq, max(0, window - cl + p))
+                    for p in range(base, min(base + ps, cl)))
+            pages += n > 0
+            pairs += n
+    rows = len(cached)
+    io = (rows * sq * hq * d * 2 + table.size * 4 + rows * 4
+          + rows * sq * hq * d * 4 + rows * hq * sq * 4)
+    return 2 * pages * ps * hkv * d * 2 + io, 4 * d * hq * pairs
+
+
 def phase_kernels(dev):
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import ragged_prefill as rp
+    from repro_torch.kernels import ref
 
     rows = {n: {"name": n, "route": "cuda", "source": SOURCES[n],
                 "replaces": REPLACES[n], "max_abs_err": 0.0}
-            for n in ("B1", "B2", "B3", "B4")}
+            for n in KERNELS}
     checked = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
@@ -394,6 +527,37 @@ def phase_kernels(dev):
             check(bool((lse[3] == NEG_INF).all()), f"B4 {case}: inactive")
         rows["B4"]["max_abs_err"] = max(rows["B4"]["max_abs_err"], err)
         checked.append(f"B4/{case}/bfloat16")
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for case, (sq, sk, window, rws, kind) in ragged_cases().items():
+            (q, k, v), pq, pk = ragged_inputs(dev, dtype, sq, sk, rws, kind)
+            o, lse = rp.ragged_prefill_fwd(q, k, v, pq, pk, window=window)
+            torch.cuda.synchronize()
+            o_p, lse_p = rp.ragged_prefill_fwd_plain(q, k, v, pq, pk,
+                                                     window=window)
+            err, ok, n_dead = partial_err(o, lse, o_p, lse_p, TOL[dname])
+            check(ok, f"B5 {case} {dname}: max err {err} (tol {TOL[dname]})"
+                      f" or a dead row not exact")
+            if kind == "lengths":
+                check(n_dead >= sq * 32, f"B5 {case}: {n_dead} dead rows")
+            rows["B5"]["max_abs_err"] = max(rows["B5"]["max_abs_err"], err)
+            checked.append(f"B5/{case}/{dname}")
+        for case, (cached, window, holes) in paged_prefill_cases().items():
+            args = paged_prefill_inputs(dev, dtype, cached, holes)
+            kw = dict(sp=1, page_size=16, window=window)
+            o, lse = pp.paged_prefill_attention(*args, 0, **kw)
+            torch.cuda.synchronize()
+            o_p, lse_p = pp.paged_prefill_attention_plain(*args, 0, **kw)
+            err, ok, n_dead = partial_err(o, lse, o_p, lse_p, TOL[dname])
+            check(ok, f"B6 {case} {dname}: max err {err} (tol {TOL[dname]})"
+                      f" or a dead row not exact")
+            if 0 in cached:
+                check(bool((lse[cached.index(0)] == NEG_INF).all()),
+                      f"B6 {case}: the row with nothing cached is not dead")
+            if case == "window_slid":
+                check(0 < n_dead < lse.numel(), f"B6 {case}: {n_dead} dead")
+            rows["B6"]["max_abs_err"] = max(rows["B6"]["max_abs_err"], err)
+            checked.append(f"B6/{case}/{dname}")
 
     # timing at the engine's shapes: a 1024-token prefill (bf16, causal,
     # window 4096) and a 4-slot decode step at ~1K context
@@ -435,6 +599,33 @@ def phase_kernels(dev):
         plain_ms=time_ms(lambda: pd.paged_decode_attention_plain(
             qd, pk_, pv_, table, cl, rank, **kw)),
         library_ms=None, work=(nb, nf, "bfloat16"))
+    # B5 at the legacy path's first decode step: 4 rows at cache length
+    # 1024 against the capacity-sized cache (1024 prompt + 32 new tokens)
+    (q5, k5, v5), pq5, pk5 = ragged_inputs(dev, torch.bfloat16, 1, 1056,
+                                           [1024] * 4, "decode")
+    mask5 = ref.make_mask(pq5, pk5, causal=True, window=4096)[:, None]
+    qt5 = q5.transpose(1, 2)
+    kt5, vt5 = (t.transpose(1, 2).repeat_interleave(4, dim=1)
+                for t in (k5, v5))
+    timing["B5"] = dict(
+        ms=time_ms(lambda: rp.ragged_prefill_fwd(q5, k5, v5, pq5, pk5,
+                                                 window=4096)),
+        plain_ms=time_ms(lambda: rp.ragged_prefill_fwd_plain(
+            q5, k5, v5, pq5, pk5, window=4096)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt5, kt5, vt5, attn_mask=mask5)),
+        work=(*ragged_work(q5, k5, pq5, pk5, 4096), "bfloat16"))
+    # B6 at the prefix phase's shape: a 256-query chunk after a 1024-token
+    # cached prefix
+    args6 = paged_prefill_inputs(dev, torch.bfloat16, [1024], [])
+    kw6 = dict(sp=1, page_size=16, window=4096)
+    timing["B6"] = dict(
+        ms=time_ms(lambda: pp.paged_prefill_attention(*args6, 0, **kw6)),
+        plain_ms=time_ms(lambda: pp.paged_prefill_attention_plain(
+            *args6, 0, **kw6)),
+        library_ms=None,
+        work=(*paged_prefill_work(args6[3].cpu().numpy(), [1024], 256,
+                                  4096), "bfloat16"))
     # the training shape: seq 4096, bf16, causal (window 4096 is inert)
     g = torch.Generator(device=dev).manual_seed(3)
     S = TRAIN_SEQ
@@ -509,9 +700,16 @@ def phase_kernels(dev):
                                           "(1,4096,8,80) bf16, causal, "
                                           "window 4096",
                         "B4": "q (4,1,32,80) bf16, pool (512,16,8,80), W "
-                              "64, ~1K context"},
+                              "64, ~1K context",
+                        "B5": "q (4,1,32,80), k/v (4,1056,8,80) bf16, "
+                              "cache length 1024 per row",
+                        "B6": "q (1,256,32,80) bf16, pool (512,16,8,80), "
+                              "W 128, cached_len 1024"},
          library={"B1": "scaled_dot_product_attention, o only, kv heads "
                         "repeated beforehand",
+                  "B5": "scaled_dot_product_attention with the boolean "
+                        "mask of the positions, kv heads repeated "
+                        "beforehand",
                   "B3": "autograd backward of scaled_dot_product_attention"
                         "(is_causal, enable_gqa), timed alone"},
          B2_seq4096=b2_4096, B3_seq4096_max_abs_err=b3_err,
@@ -592,7 +790,7 @@ def phase_ring(dev):
               and grad_err[name] <= RING_GRAD_TOL,
               f"ring {name}: max err / max |ref| {grad_err[name]} beyond "
               f"{RING_GRAD_TOL}")
-    check(launches == {"B1": 0, "B2": p * r, "B3": p * r, "B4": 0},
+    check(launches == launches_of(B2=p * r, B3=p * r),
           f"ring launches {launches}: want B2 {p * r} and B3 {p * r} (every "
           f"ring step of every rank) and nothing else")
     emit("ring", c=c, r=r, P=p, N=N, window=window, dtype="bfloat16",
@@ -609,10 +807,13 @@ def phase_ring(dev):
 def reset_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import ragged_prefill as rp
 
-    fa.reset_launches()
-    pd.reset_launches()
-    return (fa.LAUNCHES, pd.LAUNCHES)
+    mods = (fa, pd, rp, pp)
+    for m in mods:
+        m.reset_launches()
+    return tuple(m.LAUNCHES for m in mods)
 
 
 def read_counts(counts):
@@ -620,6 +821,11 @@ def read_counts(counts):
     for c in counts:
         out.update(c)
     return dict(out)
+
+
+def launches_of(**counts):
+    """The launch counts of a path that runs only the kernels named."""
+    return {n: counts.get(n, 0) for n in KERNELS}
 
 
 def phase_engine(dev, smi):
@@ -666,8 +872,7 @@ def phase_engine(dev, smi):
     L = cfg.num_layers
     # one card: C = R = 1, so each layer's StarTrail forward is one ring
     # step through B2 (merging into the empty accumulator)
-    want = {"B1": 0, "B2": L * m.prefills, "B3": 0,
-            "B4": L * m.decode_steps}
+    want = launches_of(B2=L * m.prefills, B4=L * m.decode_steps)
     check(launches == want, f"engine launches {launches}: want {want} "
           f"({m.prefills} prefills, {m.decode_steps} decode steps)")
     emit("engine", model=cfg.name, params=model.param_count(),
@@ -685,15 +890,20 @@ def phase_engine(dev, smi):
 
 def next_token(engine, prompt, rt=None):
     """(hidden state, logits) of ``prompt``'s next token, both f32."""
+    last, _ = engine.prefill_hidden(prompt, rt=rt)
+    return last.float(), _logits(engine, last)
+
+
+def _logits(engine, hidden):
+    """The (1, V) f32 logits of a (1, 1, D) next-token hidden state."""
     import torch
 
     from repro_torch.engine import sampling
 
-    last, _ = engine.prefill_hidden(prompt, rt=rt)
     with torch.no_grad():
-        logits, _ = sampling.shard_logits(engine.rt, engine.model.head, last,
-                                          engine.cfg)
-    return last.float(), logits
+        logits, _ = sampling.shard_logits(engine.rt, engine.model.head,
+                                          hidden, engine.cfg)
+    return logits
 
 
 def compare(got, want, what):
@@ -752,7 +962,7 @@ def phase_local(engine, prompt, startrail_route):
     torch.cuda.synchronize()
     launches = read_counts(counts)
     L = engine.cfg.num_layers
-    check(launches == {"B1": L, "B2": 0, "B3": 0, "B4": 0},
+    check(launches == launches_of(B1=L),
           f"local prefill launches {launches}: want B1 {L} and nothing else")
     errs = compare(got, startrail_route, "local vs StarTrail prefill")
     emit("local", prompt_len=len(prompt), launches=launches, err=errs,
@@ -826,14 +1036,205 @@ def phase_profile(engine, smi, prompt_len=1024, decode_steps=8):
     engine.run()
 
 
+PREFIX_LEN, PREFIX_CHUNK = 1024, 256
+PREFIX_SUFFIXES = [64, 128, 192, 256, 320, 384, 448, 512]
+
+
+def _prefix_engine(model, prefix_cache):
+    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.plan import make_serve_plan
+
+    plan = make_serve_plan(model.cfg, arch=ARCH, c=1, decode_batch=4,
+                           page_size=16, max_len=2048,
+                           prefix_cache=prefix_cache)
+    return Engine(model, plan, EngineConfig(pages_per_shard=512,
+                                            prefill_chunk=PREFIX_CHUNK))
+
+
+def _alone_ttft(engine, prompts):
+    """TTFT of each prompt served alone (one new token) in ``engine``."""
+    from repro_torch.engine import Request
+
+    out = []
+    for prompt in prompts:
+        uid = f"alone{len(engine.ttft_s)}"
+        check(engine.add_request(Request(uid, prompt, 1)) is None,
+              f"{uid} rejected")
+        engine.run()
+        out.append(engine.ttft_s[uid])
+    return out
+
+
+def phase_prefix(model, smi, reps=3):
+    """The engine with the prefix cache and chunked prefill at full width:
+    8 greedy requests sharing a 1024-token prefix, each with its own suffix.
+    Requests that arrive once the prefix is registered prefill only their
+    suffix (B6 for the cached pages, B1 for the suffix itself); every
+    request's first token and next-token hidden state are held against a
+    monolithic prefill of its prompt. Then TTFT of one request alone, with
+    the prefix cached and without the cache (no claim)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.engine import Request
+
+    cfg = model.cfg
+    engine = _prefix_engine(model, prefix_cache=True)
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, cfg.vocab_size, PREFIX_LEN).tolist()
+    reqs = [Request(f"pre{i}", shared
+                    + rng.integers(0, cfg.vocab_size, n).tolist(), 32)
+            for i, n in enumerate(PREFIX_SUFFIXES)]
+    hidden = {}
+    engine.on_prefill = lambda uid, h: hidden.__setitem__(uid,
+                                                          h.float().clone())
+    counts = reset_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        check(engine.add_request(r) is None, f"{r.uid} rejected")
+    out = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counts)
+    engine.on_prefill = None
+    m = engine.metrics
+    stats = m.to_dict()
+    ttft_run = {r.uid: engine.ttft_s[r.uid] for r in reqs}
+    cached = {r.uid: engine.scheduler.finished[r.uid].cached_len
+              for r in reqs}
+    for r in reqs:
+        toks = out.get(r.uid, [])
+        check(len(toks) == 32 and all(0 <= t < cfg.vocab_size for t in toks),
+              f"{r.uid}: {len(toks)} tokens, want 32 in-vocab")
+    check(m.prefill_tokens_cached > 0 and launches["B6"] > 0,
+          f"prefix: {m.prefill_tokens_cached} cached tokens, B6 launched "
+          f"{launches['B6']} times")
+    L = cfg.num_layers
+    cold = sum(1 for c in cached.values() if c == 0)
+    want = launches_of(B1=L * (m.prefill_chunks - cold), B2=L * cold,
+                       B4=L * m.decode_steps,
+                       B6=L * (m.prefill_chunks - cold))
+    check(launches == want, f"prefix launches {launches}: want {want} "
+          f"({cold} leading chunks of {m.prefill_chunks}, "
+          f"{m.decode_steps} decode steps)")
+    errs = {}
+    for r in reqs:
+        want_h = next_token(engine, r.tokens)
+        got = (hidden[r.uid], _logits(engine, hidden[r.uid]))
+        errs[r.uid] = compare(got, want_h, f"prefix {r.uid} vs monolithic")
+        check(out[r.uid][0] == int(want_h[1].argmax()),
+              f"prefix {r.uid}: first token {out[r.uid][0]} is not the "
+              f"monolithic prefill's argmax {int(want_h[1].argmax())}")
+    ttft = {}
+    for name, pc in (("cached", True), ("uncached", False)):
+        eng = engine if pc else _prefix_engine(model, prefix_cache=False)
+        ttft[name] = {}
+        for n in (64, 256, 512):
+            prompts = [shared + rng.integers(0, cfg.vocab_size, n).tolist()
+                       for _ in range(reps)]
+            ttft[name][n] = statistics.median(_alone_ttft(eng, prompts))
+        del eng
+    emit("prefix", model=cfg.name, prefix_len=PREFIX_LEN,
+         prefill_chunk=PREFIX_CHUNK, suffix_lens=PREFIX_SUFFIXES,
+         new_tokens=32, launches=launches, cached_len=cached,
+         **{k: stats[k] for k in (
+             "prefill_tokens_cached", "prefill_tokens_computed",
+             "prefill_chunks", "prefills", "decode_steps",
+             "prefix_hit_rate", "prefill_wall_s", "decode_wall_s")},
+         ttft_s=ttft_run,
+         alone_ttft_median_s={"suffix_tokens": [64, 256, 512], **ttft},
+         err_vs_monolithic=errs, tol=ENGINE_TOL, wall_s=wall, card=smi)
+    return launches
+
+
+LEGACY_BATCH, LEGACY_PROMPT, LEGACY_GEN = 4, 1024, 32
+
+
+def phase_legacy(engine, smi):
+    """The static-batch path (``launch.serve.legacy_generate``) at full
+    width: 4 prompts of 1024 tokens, 32 greedy tokens, B5 once per layer
+    and decode step. Its first decode step's hidden state and token are
+    held against the engine's prefill of the prompt and first token."""
+    import numpy as np
+    import torch
+
+    from repro_torch.engine import Request
+    from repro_torch.launch.serve import legacy_generate, legacy_start
+
+    model, cfg = engine.model, engine.cfg
+    dev = model.device
+    B, S, G = LEGACY_BATCH, LEGACY_PROMPT, LEGACY_GEN
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (B, S))).to(dev)
+    plan = engine.plan
+    counts = reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = legacy_generate(model, plan, tokens, G)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counts)
+    check(tuple(out.shape) == (B, G)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"legacy tokens {tuple(out.shape)}: want ({B}, {G}) in-vocab")
+    L = cfg.num_layers
+    want = launches_of(B2=L, B5=L * (G - 1))
+    check(launches == want, f"legacy launches {launches}: want {want} (one "
+          f"batched prefill, B5 once per layer in each of {G - 1} decode "
+          f"steps)")
+    # the first decode step's hidden state, by the same steps
+    tok0, cache, decode = legacy_start(model, plan, tokens, G)
+    h1 = decode(cache, tok0.long(), torch.full((B,), S, dtype=torch.int32,
+                                              device=dev),
+                return_hidden=True)
+    # host ms of 8 further decode steps, each ending in its tokens on the
+    # host (the legacy loop keeps them on the card until the end)
+    tok = tok0.long()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(8):
+        tok = decode(cache, tok, torch.full((B,), S + 1 + i,
+                                            dtype=torch.int32,
+                                            device=dev)).long()
+        tok.cpu()
+    step_ms = 1e3 * (time.perf_counter() - t1) / 8
+    del cache
+    # the engine: the same prompts, two tokens each
+    engine.reset()
+    for b in range(B):
+        engine.add_request(Request(f"leg{b}", tokens[b].tolist(), 2))
+    eng_out = engine.run()
+    errs, same = {}, True
+    for b in range(B):
+        uid = f"leg{b}"
+        check(eng_out[uid][0] == int(out[b, 0]),
+              f"legacy row {b}: prefill token {int(out[b, 0])} != the "
+              f"engine's {eng_out[uid][0]}")
+        want_h = next_token(engine, tokens[b].tolist() + [eng_out[uid][0]])
+        got = (h1[b:b + 1].float(), _logits(engine, h1[b:b + 1]))
+        errs[uid] = compare(got, want_h, f"legacy row {b} decode step")
+        same &= int(got[1].argmax()) == int(want_h[1].argmax()) \
+            == eng_out[uid][1] == int(out[b, 1])
+    check(same, "legacy first decode tokens differ from the engine's")
+    emit("legacy", model=cfg.name, batch=B, prompt_len=S, new_tokens=G,
+         launches=launches, wall_s=wall, tokens_per_s=B * G / wall,
+         decode_step_ms=step_ms, err_vs_engine=errs, tol=ENGINE_TOL,
+         card=smi)
+    return launches
+
+
 def serving_phases(dev, smi):
-    """Phases 5-8 on one engine; returns the engine's and the local
-    prefill's launch counts (the engine and its model are freed after)."""
+    """The serving phases on one model; returns the launch counts of the
+    engine, the local prefill, the prefix phase and the legacy phase (the
+    engines and the model are freed after)."""
     engine, prompt, engine_launches = phase_engine(dev, smi)
     startrail_route = phase_engine_check(engine, prompt)
     local_launches = phase_local(engine, prompt, startrail_route)
     phase_profile(engine, smi)
-    return engine_launches, local_launches
+    prefix_launches = phase_prefix(engine.model, smi)
+    legacy_launches = phase_legacy(engine, smi)
+    return engine_launches, local_launches, prefix_launches, legacy_launches
 
 
 # ---------------------------------------------------------------------------
@@ -906,7 +1307,7 @@ def phase_train(dev, smi):
     check(losses[-1] < losses[0],
           f"train loss did not fall over one repeated batch: {losses}")
     L = cfg.num_layers
-    want = {"B1": 0, "B2": L * TRAIN_STEPS, "B3": L * TRAIN_STEPS, "B4": 0}
+    want = launches_of(B2=L * TRAIN_STEPS, B3=L * TRAIN_STEPS)
     check(launches == want, f"train launches {launches}: want {want} (one "
           f"ring step forward and backward per layer and step)")
     step_ms = [1e3 * r["step_s"] for r in recs]
@@ -1041,7 +1442,8 @@ def main():
         rows = phase_kernels(dev)
         free_device()
         by_path = {"ring": phase_ring(dev)}
-        by_path["engine"], by_path["local"] = serving_phases(dev, smi)
+        (by_path["engine"], by_path["local"], by_path["prefix"],
+         by_path["legacy"]) = serving_phases(dev, smi)
         free_device()
         model, by_path["train"] = phase_train(dev, smi)
         free_device()
@@ -1049,7 +1451,7 @@ def main():
         free_device()
         phase_train_profile(model, dev, smi)
         paths = {"B1": "local", "B2": "engine", "B3": "train",
-                 "B4": "engine"}
+                 "B4": "engine", "B5": "legacy", "B6": "prefix"}
         for name, row in rows.items():
             row["launches"] = by_path[paths[name]][name]
             row["launches_by_path"] = {k: v[name] for k, v in by_path.items()}

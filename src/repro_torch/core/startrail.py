@@ -1,6 +1,6 @@
 """StarTrail concentric-ring sequence-parallel attention, with its backward.
 
-Port of ``repro.core.startrail`` (lines 114-131, 238-449, 481-527). The SP
+Port of ``repro.core.startrail`` (lines 114-131, 238-449, 481-531). The SP
 dimension P is factored onto the axes ``(sp_grp = C, sp_ring = R,
 sp_team = C)``, P = C^2 * R, and exact full-sequence attention of a
 sequence sharded over them is computed per rank as:
@@ -308,3 +308,21 @@ def combine_partials_with_lse(o, lse, comm, axes):
     o = comm.psum(o * w.transpose(1, 2)[..., None], axes)
     lse_c = torch.where(dead, NEG_INF, m_safe + torch.log(se_safe))
     return o, lse_c
+
+
+def decode_attention(q_new, k_cache, v_cache, pos_q, pos_k,
+                     cfg: StarTrailConfig, comm):
+    """Per-shard decode attention against this shard's contiguous cache
+    slice, merged over the SP axes: q_new (B, M, Hq, D) replicated over SP;
+    k_cache / v_cache (B, S_local, Hkv, D); pos_q (M,) or (B, M), pos_k
+    (S_local,) or (B, S_local). Returns (B, M, Hq, D) in q's dtype.
+
+    Validity is positional: callers push the positions of unfilled slots
+    past the query (``cache_len + 1``) so the causal mask removes them.
+    Batched positions run kernel B5 under ``block_impl='cuda'``.
+    """
+    o, lse = kernels.decode(q_new, k_cache, v_cache, pos_q, pos_k,
+                            causal=cfg.causal, window=cfg.window,
+                            scale=cfg.scale, impl=cfg.block_impl)
+    return combine_decode_partials(o, lse, comm,
+                                   tuple(cfg.axes)).to(q_new.dtype)

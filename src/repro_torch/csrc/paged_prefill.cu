@@ -1,0 +1,225 @@
+// Paged suffix-prefill attention (B6): a block of suffix queries against the
+// cached prefix in this SP shard's page-table-indexed slice of the pool.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/paged_prefill.py:
+// paged_prefill_attention -> _kernel. Row b's query i sits at global
+// position cached_len[b] + i. Page w of row b covers the global positions
+// [(w*sp + rank)*page_size, ... + page_size) (the round-robin layout of
+// engine/paged_cache.py). A page is skipped, with the Pallas kernel's
+// scalar tests, when it is unallocated (table < 0), when it starts at or
+// past cached_len (suffix pages being written by this very prefill), or,
+// with a window, when its newest key is already out of the window of the
+// tile's oldest query. A key at position p is visible iff p < cached_len
+// (strict: the suffix scores itself through the dense B1 partial) and, with
+// a window, pos_q - p < window; causality against the suffix queries is
+// then automatic. Rows with no visible key (every row at cached_len = 0, all
+// rows of a window that slid past the prefix) finalise to o = 0 and
+// lse = -1e30 exactly, so combine_pair with the suffix partial stays exact.
+// Layouts: q (B,Sq,Hq,D); pool_k/pool_v (pages_loc,page_size,Hkv,D); table
+// (B,W) int32, -1 = unallocated; cached_len (B,) int32; o (B,Sq,Hq,D) f32;
+// lse (B,Hq,Sq) f32.
+//
+// Bound on an H100: at the engine's shapes (a 256-query chunk of 32 heads of
+// 80 against a 1024-token prefix, bf16) the ~2.7 GFLOP (4*D per visible
+// pair and query head) at the bf16 peak take ~2.7 us and the ~6.6 MB moved
+// (q and the live pages in, o and lse out in f32) ~2 us: bound by
+// operations, nearly balanced.
+//
+// Design, simple first: B1's shape and its online-softmax tile update
+// (flash_fwd.cuh: one CTA of 256 threads per (b, query head, 64-row query
+// tile), four threads per query row, f32 tiles in shared memory with a D+1
+// stride, f32 products on the CUDA cores), with the K loop walking the
+// row's page table: each 64-key tile is 64/page_size consecutive table
+// entries. The CTA reads the entries itself, never dereferences -1, and
+// loads each live page's rows straight from the pool (16-byte loads; no
+// dense gather). A dead page's rows are zero-filled and masked, and a tile
+// with no live page is skipped whole. As in B1, the G query heads of a kv
+// group each read the pages, and the products are not on the tensor cores:
+// both are later work.
+
+#include "flash_fwd.cuh"
+
+namespace repro_torch {
+namespace {
+
+struct PrefillArgs {
+  const void* q;
+  const void* pool_k;
+  const void* pool_v;
+  const int* table;
+  const int* cached_len;
+  float* o;
+  float* lse;
+  int B, Sq, Hq, Hkv, pages_loc, page_size, W, sp, rank;
+  int has_window, window;
+  float scale;
+};
+
+// Stage BK key rows of one kv head: row r of the tile is slot r % ps of the
+// tile's page r / ps; rows of a dead page (sPage < 0) are zero-filled.
+template <typename T, int D>
+__device__ inline void load_page_rows(float* dst, int ld, const T* pool,
+                                      const int* sPage, int ps, int Hkv,
+                                      int kvh, int tid) {
+  constexpr int VEC = Vec16<T>::N;
+  constexpr int CPR = D / VEC;  // 16-byte chunks per row
+  for (int e = tid; e < BK * CPR; e += NT) {
+    const int r = e / CPR;
+    const int c = e - r * CPR;
+    const int page = sPage[r / ps];
+    float vals[VEC];
+    if (page >= 0) {
+      const size_t row = ((size_t)page * ps + r % ps) * Hkv + kvh;
+      const uint4 raw =
+          *reinterpret_cast<const uint4*>(pool + row * D + c * VEC);
+      Vec16<T>::unpack(raw, vals);
+    } else {
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) vals[u] = 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) dst[r * ld + c * VEC + u] = vals[u];
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT)
+paged_prefill_kernel(PrefillArgs a) {
+  constexpr int LD = D + 1;                     // padded smem row stride
+  constexpr int DPT = (D + TPR - 1) / TPR;      // output columns per thread
+  extern __shared__ float smem[];
+  float* sQ = smem;                             // BQ x LD
+  float* sK = sQ + BQ * LD;                     // BK x LD
+  float* sV = sK + BK * LD;                     // BK x LD
+  float* sP = sV + BK * LD;                     // BQ x LDP
+  int* sPosK = reinterpret_cast<int*>(sP + BQ * LDP);  // BK; -1 = invalid
+  int* sPage = sPosK + BK;                      // pages of the tile; -1 = dead
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (a.Hq / a.Hkv);
+  const int nq = min(BQ, a.Sq - q0);
+  const int row = tid / TPR;
+  const int cg = tid % TPR;
+  const int ps = a.page_size;
+  const int ppt = BK / ps;                      // pages per tile
+  const int cl = a.cached_len[b];
+  const int pq = cl + q0 + row;                 // this row's position
+  const int* table = a.table + (size_t)b * a.W;
+
+  const T* q = static_cast<const T*>(a.q);
+  const T* pk = static_cast<const T*>(a.pool_k);
+  const T* pv = static_cast<const T*>(a.pool_v);
+  load_rows<T, D>(sQ, LD, q + ((size_t)(b * a.Sq + q0) * a.Hq + h) * D,
+                  (size_t)a.Hq * D, nq, BQ, tid, NT);
+
+  float m_i = NEG_INF, l_i = 0.0f;
+  float acc[DPT];
+#pragma unroll
+  for (int j = 0; j < DPT; ++j) acc[j] = 0.0f;
+
+  const int n_t = (a.W + ppt - 1) / ppt;
+  for (int t = 0; t < n_t; ++t) {
+    __syncthreads();  // the previous tile's smem reads are done
+    if (tid < ppt) {
+      // the Pallas kernel's pl.when test for page w
+      const int w = t * ppt + tid;
+      int page = -1;
+      if (w < a.W) {
+        const int entry = table[w];
+        const int base = (w * a.sp + a.rank) * ps;
+        bool live = entry >= 0 && entry < a.pages_loc && base < cl;
+        // the oldest query of the tile sits at cl + q0
+        if (a.has_window) live &= (cl + q0 - (base + ps - 1)) < a.window;
+        page = live ? entry : -1;
+      }
+      sPage[tid] = page;
+    }
+    __syncthreads();
+    bool any = false;
+    for (int i = 0; i < ppt; ++i) any |= sPage[i] >= 0;
+    if (!any) continue;  // uniform: every thread read the same entries
+    if (tid < BK) {
+      const int w = t * ppt + tid / ps;
+      const int pos = (w * a.sp + a.rank) * ps + tid % ps;
+      sPosK[tid] = sPage[tid / ps] >= 0 && pos < cl ? pos : -1;
+    }
+    load_page_rows<T, D>(sK, LD, pk, sPage, ps, a.Hkv, kvh, tid);
+    load_page_rows<T, D>(sV, LD, pv, sPage, ps, a.Hkv, kvh, tid);
+    __syncthreads();
+
+    tile_update<D>(sQ, sK, sV, sP, row, cg, a.scale,
+                   [&](int c) {
+                     const int pos = sPosK[c];
+                     return pos >= 0 &&
+                            (!a.has_window || (pq - pos) < a.window);
+                   },
+                   m_i, l_i, acc);
+  }
+
+  if (row >= nq) return;
+  const bool dead = m_i <= DEAD;
+  const float l_safe = l_i == 0.0f ? 1.0f : l_i;
+  const size_t o_row = ((size_t)(b * a.Sq + q0 + row) * a.Hq + h) * D;
+#pragma unroll
+  for (int j = 0; j < DPT; ++j) {
+    const int d = cg + TPR * j;
+    if (d < D) a.o[o_row + d] = acc[j] / l_safe;
+  }
+  if (cg == 0)
+    a.lse[((size_t)b * a.Hq + h) * a.Sq + q0 + row] =
+        dead ? NEG_INF : m_i + logf(l_safe);
+}
+
+template <typename T, int D>
+cudaError_t launch(const PrefillArgs& a, cudaStream_t stream) {
+  constexpr int LD = D + 1;
+  const size_t smem =
+      sizeof(float) * ((size_t)BQ * LD + 2 * (size_t)BK * LD + BQ * LDP) +
+      sizeof(int) * 2 * BK;
+  auto kern = paged_prefill_kernel<T, D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Sq + BQ - 1) / BQ, a.Hq, a.B);
+  kern<<<grid, NT, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_d(const PrefillArgs& a, int D, cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch<T, 32>(a, stream);
+    case 64: return launch<T, 64>(a, stream);
+    case 80: return launch<T, 80>(a, stream);
+    case 128: return launch<T, 128>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+}  // namespace repro_torch
+
+// C entry for ctypes. dtype: 0 = float32, 1 = bfloat16 (q and the pools
+// share it). page_size must divide 64. Returns the cudaError_t of the
+// launch.
+extern "C" int repro_paged_prefill(
+    const void* q, const void* pool_k, const void* pool_v, const int* table,
+    const int* cached_len, float* o, float* lse, int B, int Sq, int Hq,
+    int Hkv, int D, int pages_loc, int page_size, int W, int sp, int rank,
+    int has_window, int window, float scale, int dtype, void* stream) {
+  using namespace repro_torch;
+  if (Hq % Hkv || page_size < 1 || BK % page_size)
+    return (int)cudaErrorInvalidValue;
+  PrefillArgs a{q, pool_k, pool_v, table, cached_len, o, lse, B, Sq, Hq,
+                Hkv, pages_loc, page_size, W, sp, rank, has_window, window,
+                scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 1) err = launch_d<__nv_bfloat16>(a, D, st);
+  else if (dtype == 0) err = launch_d<float>(a, D, st);
+  else err = cudaErrorInvalidValue;
+  return (int)err;
+}

@@ -9,28 +9,41 @@ The engine owns three kinds of state:
   * **host** — the ``Scheduler`` (slots, page free lists, page table, FIFO
     queue);
 
-``step()`` is one driver iteration: admit queued requests into free slots
-(each admission = one prefill + paged insert + first greedy token), then
-one decode step for every active slot, then evict finished requests.
-Outputs are identical to serving each request alone: attention, MLP and
-sampling are row-independent and page content is per slot.
+``step()`` is one driver iteration: advance every in-flight chunked
+prefill by one chunk, admit queued requests into free slots (each
+admission runs its first chunk, the whole prompt when chunking is off),
+then one decode step for every slot whose prefill has completed, then
+evict finished requests. Outputs are identical to serving each request
+alone: attention, MLP and sampling are row-independent and page content is
+per slot.
+
+A prompt's leading chunk runs the full-forward prefill and inserts its K/V
+into the slot's pages; every later chunk, and the uncached suffix of a
+prefix-cache hit (``plan.prefix_cache``: ``gateway.prefix_cache`` shares
+the hit pages), runs the *suffix* prefill (``serve.step.lm_prefill_paged``)
+that reads the pages already written in place. The prompt's full blocks are
+offered to the prefix cache after its last chunk.
 
 This slice serves greedy requests on one rank (``SingleComm``, P = 1).
 What it does not port raises ``NotImplementedError`` naming the ROADMAP
-item: temperature sampling, chunked prefill, the prefix cache, the host
-tier, disaggregated handoff and preemption, and P > 1 across cards.
+item: temperature sampling, the host tier, disaggregated handoff and
+preemption, and P > 1 across cards.
 
-Prompts are prefilled at their own length: the JAX engine pads them to
-power-of-two buckets for its jit caches, but eager PyTorch compiles
+Prompts and chunks are prefilled at their own length: the JAX engine pads
+them to power-of-two buckets for its jit caches, but eager PyTorch compiles
 nothing and the kernels mask ragged edges. So ``prefill_compiles`` /
-``decode_compiles`` keep their names in ``EngineMetrics`` and stay 0.
+``decode_compiles`` keep their names in ``EngineMetrics`` and stay 0. The
+chunk size keeps the JAX rule: ``prefill_chunk`` rounded up to a
+power-of-two multiple of ``lcm(P_sp, page_size)``, so chunk boundaries are
+page-aligned.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,7 +52,7 @@ from repro_torch.core.startrail import StarTrailConfig
 from repro_torch.dist.comm import SingleComm
 from repro_torch.engine import paged_cache, sampling
 from repro_torch.engine.scheduler import (Rejection, Request, Scheduler,
-                                          SlotState)
+                                          SlotState, bucket_pow2)
 from repro_torch.models.factory import Model
 from repro_torch.models.runtime import Runtime
 
@@ -56,7 +69,7 @@ class EngineConfig:
     pages_per_shard: int = 128  # pool capacity per SP shard
     max_len: int = 512          # max prompt_len + max_new_tokens
     max_steps: int = 100_000    # runaway guard for run()
-    prefill_chunk: int = 0      # > 0 (chunked prefill) is not ported
+    prefill_chunk: int = 0      # > 0: prefill prompts in chunks
     host_tier_bytes: int = 0    # > 0 (pinned-host KV tier) is not ported
 
 
@@ -115,7 +128,9 @@ class EngineMetrics:
                                  if self.pages_total else 0.0)
         d["tokens_per_s"] = (self.tokens_out / self.wall_s
                              if self.wall_s > 0 else 0.0)
-        d["prefix_hit_rate"] = 0.0
+        prompt = self.prefill_tokens_computed + self.prefill_tokens_cached
+        d["prefix_hit_rate"] = (self.prefill_tokens_cached / prompt
+                                if prompt else 0.0)
         return d
 
     def observe_ttft(self, seconds: float) -> None:
@@ -140,8 +155,11 @@ class Engine:
     """Continuous-batching serving engine (add_request / step / collect).
 
     ``plan`` (``plan.make_serve_plan``) supplies the decode slot count, the
-    page size, the capacity and the kernel knobs; ``model`` the parameters
-    and the device.
+    page size, the capacity, the prefix cache and the kernel knobs;
+    ``model`` the parameters and the device. ``on_prefill``, when set, is
+    called with ``(uid, hidden)`` as each prompt's prefill completes, where
+    ``hidden`` is the (1, 1, D) next-token hidden state its first token is
+    sampled from.
     """
 
     def __init__(self, model: Model, plan,
@@ -157,10 +175,6 @@ class Engine:
         if plan.sp_size != 1:
             raise _unported(f"SP degree {plan.sp_size} across cards (the "
                             "multi-process NCCL/gloo communicator)")
-        if plan.prefix_cache:
-            raise _unported("the prefix cache (repro.gateway)")
-        if eng.prefill_chunk > 0:
-            raise _unported("chunked prefill (prefill_chunk > 0)")
         if eng.host_tier_bytes > 0 or plan.host_tier_bytes > 0:
             raise _unported("the pinned-host KV tier (host_tier_bytes > 0)")
         eng = dataclasses.replace(eng, max_slots=plan.decode_batch,
@@ -177,6 +191,11 @@ class Engine:
             kernel_impl=plan.kernel_impl, device=self.device)
         self.pools = paged_cache.init_pools(cfg, eng.pages_per_shard,
                                             eng.page_size, self.device)
+        base = math.lcm(self.sp, eng.page_size)
+        self._chunk = (bucket_pow2(max(eng.prefill_chunk, base), base)
+                       if eng.prefill_chunk > 0 else 0)
+        self._prefilling: List[SlotState] = []
+        self.on_prefill: Optional[Callable[[str, torch.Tensor], None]] = None
         self.metrics = EngineMetrics(pages_total=self.sp
                                      * eng.pages_per_shard)
         self._arrival: Dict[str, float] = {}
@@ -185,10 +204,20 @@ class Engine:
         self.scheduler = self._new_scheduler()
 
     def _new_scheduler(self) -> Scheduler:
-        return Scheduler(max_slots=self.eng.max_slots,
-                         page_size=self.eng.page_size, sp=self.sp,
-                         pages_per_shard=self.eng.pages_per_shard,
-                         max_len=self.eng.max_len)
+        sched = Scheduler(max_slots=self.eng.max_slots,
+                          page_size=self.eng.page_size, sp=self.sp,
+                          pages_per_shard=self.eng.pages_per_shard,
+                          max_len=self.eng.max_len)
+        if self.plan.prefix_cache:
+            from repro_torch.gateway.prefix_cache import PrefixCache
+
+            sched.prefix_cache = PrefixCache(
+                sched.pool, page_size=self.eng.page_size, sp=self.sp)
+        return sched
+
+    @property
+    def prefix_cache(self):
+        return self.scheduler.prefix_cache
 
     # ---- request lifecycle ---------------------------------------------
     def add_request(self, req: Request) -> Optional[Rejection]:
@@ -221,10 +250,12 @@ class Engine:
                 for uid, st in self.scheduler.finished.items()}
 
     def reset(self) -> None:
-        """Drop all requests and zero the pools."""
+        """Drop all requests and cache contents (the prefix cache too) and
+        zero the pools."""
         for t in self.pools.values():
             t.zero_()
         self.scheduler = self._new_scheduler()
+        self._prefilling = []
         self._arrival.clear()
         self._last_emit.clear()
         self.ttft_s.clear()
@@ -249,25 +280,74 @@ class Engine:
                 rt, self.model, self._tensor([tokens], torch.int64), self.cfg,
                 return_hidden=True)
 
-    def _prefill(self, st: SlotState) -> int:
-        """Prefill the whole prompt of ``st``, insert its K/V into the slot's
-        pages and return the first greedy token."""
+    def _advance_prefill(self, st: SlotState) -> Optional[torch.Tensor]:
+        """Run one prefill chunk of ``st`` (the whole remaining prompt when
+        chunking is off). Returns the next-token hidden state (1, 1, D) when
+        the prompt completes, else None.
+
+        A leading chunk (``prefill_pos == 0``) runs the full-forward prefill
+        and inserts its K/V into the slot's pages; every later chunk is a
+        suffix prefill with ``cached_len = prefill_pos``, reading the pages
+        earlier chunks (or the prefix cache) populated in place.
+        """
+        from repro_torch.serve import step as serve_step
+
         t0 = time.monotonic()
         req = st.req
-        last, (k_stack, v_stack) = self.prefill_hidden(req.tokens)
+        start = st.prefill_pos
+        end = req.prompt_len if not self._chunk \
+            else min(start + self._chunk, req.prompt_len)
+        table_row = self.scheduler.table[st.slot]
         with torch.no_grad():
-            paged_cache.insert_prompt(
-                self.rt, self.pools, k_stack, v_stack,
-                self.scheduler.table[st.slot], req.prompt_len,
-                self.eng.page_size)
-            tok = sampling.greedy(self.rt, self.model.head, last, self.cfg)
-        tok = int(tok[0, 0].item())
+            if start:
+                last = serve_step.lm_prefill_paged(
+                    self.rt, self.model,
+                    self._tensor([req.tokens[start:end]], torch.int64),
+                    self.cfg, prompt_len=end, cached_len=start,
+                    pools=self.pools, table_row=table_row,
+                    page_size=self.eng.page_size)
+            else:
+                last, (k_stack, v_stack) = self.prefill_hidden(
+                    req.tokens[:end])
+                paged_cache.insert_prompt(self.rt, self.pools, k_stack,
+                                          v_stack, table_row,
+                                          self.eng.page_size)
+        st.prefill_pos = end
         m = self.metrics
-        st.prefill_pos = req.prompt_len
-        m.prefill_tokens_computed += req.prompt_len
+        m.prefill_tokens_computed += end - start
         m.prefill_chunks += 1
         m.prefill_wall_s += time.monotonic() - t0
-        return tok
+        return last if end == req.prompt_len else None
+
+    def _complete_prefill(self, st: SlotState, last: torch.Tensor,
+                          emitted: List[Tuple[str, int]]) -> None:
+        """Sample the first token from ``last``, offer the prompt's full
+        blocks to the prefix cache and start the slot's decode."""
+        t0 = time.monotonic()
+        m = self.metrics
+        with torch.no_grad():
+            tok = int(sampling.greedy(self.rt, self.model.head, last,
+                                      self.cfg)[0, 0].item())
+        m.prefill_wall_s += time.monotonic() - t0
+        if self.on_prefill is not None:
+            self.on_prefill(st.req.uid, last)
+        self._prefilling.remove(st)
+        self.scheduler.register_prefix(st)
+        m.prefill_tokens_cached += st.cached_len
+        st.cache_len = st.req.prompt_len
+        st.out.append(tok)
+        st.first_token_step = m.steps
+        emitted.append((st.req.uid, tok))
+        m.prefills += 1
+        m.tokens_out += 1
+        now = time.monotonic()
+        arrived = self._arrival.get(st.req.uid)
+        if arrived is not None:
+            m.observe_ttft(now - arrived)
+            self.ttft_s[st.req.uid] = now - arrived
+        self._last_emit[st.req.uid] = now
+        if st.done:
+            self._finish_request(st)
 
     def _decode(self, active: List[SlotState]) -> np.ndarray:
         from repro_torch.serve import step as serve_step
@@ -297,33 +377,36 @@ class Engine:
 
     # ---- driver ---------------------------------------------------------
     def step(self) -> List[Tuple[str, int]]:
-        """One driver iteration: admit (prefill each admission), then one
-        decode step for every decoding slot. Returns the (uid, token) pairs
-        emitted this step."""
+        """One driver iteration: advance in-flight chunked prefills (one
+        chunk each), admit (one chunk for each admission), then one decode
+        step for every slot whose prefill has completed. Returns the
+        (uid, token) pairs emitted this step."""
         t0 = time.monotonic()
         emitted: List[Tuple[str, int]] = []
         m = self.metrics
+        # chunked prefills admitted on earlier steps go before this step's
+        # admissions (FIFO progress)
+        for st in list(self._prefilling):
+            last = self._advance_prefill(st)
+            if last is not None:
+                self._complete_prefill(st, last, emitted)
         while True:
+            # one at a time: each admission registers its prompt blocks
+            # before the next is matched, so a burst sharing a prefix hits
+            # the cache (a chunked prompt registers after its last chunk)
             batch = self.scheduler.admit(m.steps, limit=1)
             if not batch:
                 break
             st = batch[0]
-            tok = self._prefill(st)
-            st.cache_len = st.req.prompt_len
-            st.out.append(tok)
-            st.first_token_step = m.steps
-            emitted.append((st.req.uid, tok))
-            m.prefills += 1
-            m.tokens_out += 1
-            now = time.monotonic()
-            arrived = self._arrival.get(st.req.uid)
-            if arrived is not None:
-                m.observe_ttft(now - arrived)
-                self.ttft_s[st.req.uid] = now - arrived
-            self._last_emit[st.req.uid] = now
-            if st.done:
-                self._finish_request(st)
+            self._prefilling.append(st)
+            last = self._advance_prefill(st)
+            if last is not None:
+                self._complete_prefill(st, last, emitted)
+        if self.prefix_cache is not None:
+            m.prefix_evictions = self.prefix_cache.evicted_pages
 
+        # decode: slots whose prefill has completed (a mid-chunk slot holds
+        # pages but has no token stream yet)
         active = [st for st in self.scheduler.active()
                   if st.cache_len > 0 and not st.done]
         if active:

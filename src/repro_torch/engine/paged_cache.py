@@ -14,11 +14,12 @@ lives on SP rank ``b % P_sp`` as that rank's ``b // P_sp``-th block. The
 page table ``(max_slots, P_sp, W)`` int32 holds local page ids, -1 for
 unallocated. Validity is encoded through positions, as everywhere else.
 
-The JAX package's helpers are pure functions; here ``write_token`` and
-``insert_prompt`` **update the pools in place**. The per-token write targets
-are computed once per decode step on the host, where the scheduler keeps
-the table and the lengths (``PagedTables.write_targets``), so the per-layer
-writes are plain index_put calls and never wait on the device.
+The JAX package's helpers are pure functions; here ``write_token``,
+``insert_prompt`` and ``write_blocks`` **update the pools in place**. The
+write targets are computed on the host, where the scheduler keeps the table
+and the lengths (``PagedTables.write_targets`` once per decode step,
+``block_targets`` once per prefill), so the per-layer writes are plain
+index calls and never wait on the device.
 """
 
 from __future__ import annotations
@@ -37,9 +38,11 @@ class PagePool:
     """Host-side, ref-counted page free lists (one per SP shard).
 
     Every physical page carries a reference count: 1 for each live sequence
-    whose page table points at it (plus 1 for a prefix cache, once that is
-    ported). Pages return to the free list only when the count reaches zero,
-    and an over-release is a loud error instead of silent cache corruption.
+    whose page table points at it, plus 1 when the prefix cache
+    (``gateway.prefix_cache``) retains it. Pages return to the free list only
+    when the count reaches zero, so a shared prefix page outlives any single
+    request, and an over-release is a loud error instead of silent cache
+    corruption.
     """
 
     def __init__(self, sp: int, pages_per_shard: int):
@@ -62,6 +65,12 @@ class PagePool:
         assert self.refs[shard, page] == 0, "free-list page had live refs"
         self.refs[shard, page] = 1
         return page
+
+    def incref(self, shard: int, page: int) -> None:
+        if self.refs[shard, page] <= 0:
+            raise ValueError(
+                f"incref of free page ({shard}, {page}): stale reference")
+        self.refs[shard, page] += 1
 
     def decref(self, shard: int, page: int) -> bool:
         """Drop one reference; returns True when the page was freed."""
@@ -166,42 +175,65 @@ def write_token(rt, cache: Dict[str, torch.Tensor], k_new, v_new,
     cache["v"][page, off] = v_new[rows, 0].to(cache["v"].dtype)
 
 
+def block_targets(rt, table_row: np.ndarray, start: int, n_tokens: int,
+                  page_size: int):
+    """(blocks, pages) of the K/V blocks this rank stores when ``n_tokens``
+    prompt tokens from position ``start`` (a multiple of ``page_size``) are
+    written, as device int64 tensors: block g of them (positions
+    ``start + g*page_size ..``) is global block ``start // page_size + g``,
+    owned round-robin, stored in the table's page of that block."""
+    rank, sp, ps = rt.sp_rank(), rt.sp_size(), page_size
+    if start % ps:
+        raise ValueError(f"start={start} is not a multiple of "
+                         f"page_size={ps}")
+    tbl = table_row[rank]                                # (W,)
+    W = tbl.shape[0]
+    gidx = np.arange(-(-n_tokens // ps))
+    gglob = start // ps + gidx
+    j = gglob // sp
+    page = tbl[np.clip(j, 0, W - 1)]
+    mine = (gglob % sp == rank) & (j < W) & (page >= 0)
+    return tuple(torch.from_numpy(a.astype(np.int64)).to(rt.device)
+                 for a in (np.nonzero(mine)[0], page[mine]))
+
+
+def write_blocks(pools: Dict[str, torch.Tensor], k, v, targets) -> None:
+    """Scatter K/V by whole blocks into this rank's pages, **in place**.
+
+    pools: {'k','v'} (..., pages_loc, page_size, Hkv, hd); k / v:
+    (..., S, Hkv, hd) post-RoPE, with the pools' leading dims; targets:
+    ``block_targets``. A partial last block is zero-padded: the padding is
+    unreadable (its positions exceed every cache_len) until decode
+    overwrites it.
+    """
+    blocks, pages = targets
+    ps = pools["k"].shape[-3]
+    S = k.shape[-3]
+    G = -(-S // ps)
+    for name, t in (("k", k), ("v", v)):
+        if G * ps != S:
+            t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, G * ps - S))
+        t = t.reshape(*t.shape[:-3], G, ps, *t.shape[-2:])
+        dst = pools[name]
+        dst.index_copy_(dst.dim() - 4, pages,
+                        t.index_select(t.dim() - 4, blocks).to(dst.dtype))
+
+
 def insert_prompt(rt, pools: Dict[str, torch.Tensor], k_stack, v_stack,
-                  table_row: np.ndarray, prompt_len: int,
-                  page_size: int) -> None:
+                  table_row: np.ndarray, page_size: int) -> None:
     """Scatter a prefilled sequence's K/V into this rank's pool pages,
     **in place**.
 
     pools: {'k','v'} this rank's pools (L, pages_loc, ps, Hkv, hd).
     k_stack / v_stack: (L, 1, S_loc, Hkv, hd), the prefill cache of one
-      sequence, SP-sharded contiguously (post-RoPE).
+      sequence of ``S_loc * P_sp`` prompt tokens, SP-sharded contiguously
+      (post-RoPE).
     table_row: (P_sp, W) host int32, the slot's page-table row.
-    prompt_len: real prompt length; blocks past it are never written. A
-      partial last block is zero-padded; the padding is written but
-      unreadable: its positions exceed every cache_len until decode
-      overwrites them.
 
     Pages are owned round-robin, so one all-gather over the SP axes
     re-materialises the prompt before each rank scatters its own blocks.
     """
-    rank, sp, ps = rt.sp_rank(), rt.sp_size(), page_size
     kg = rt.all_gather_model(k_stack, axis=2)[:, 0]      # (L, S, Hkv, hd)
     vg = rt.all_gather_model(v_stack, axis=2)[:, 0]
-    n_l, S = kg.shape[0], kg.shape[1]
-    G = -(-S // ps)
-    if G * ps != S:
-        kg = torch.nn.functional.pad(kg, (0, 0, 0, 0, 0, G * ps - S))
-        vg = torch.nn.functional.pad(vg, (0, 0, 0, 0, 0, G * ps - S))
-    kb = kg.reshape(n_l, G, ps, *kg.shape[2:])
-    vb = vg.reshape(n_l, G, ps, *vg.shape[2:])
-    tbl = table_row[rank]                                # (W,)
-    W = tbl.shape[0]
-    gidx = np.arange(G)
-    j = gidx // sp
-    page = tbl[np.clip(j, 0, W - 1)]
-    mine = (gidx % sp == rank) & (gidx * ps < prompt_len) & (j < W) \
-        & (page >= 0)
-    sel = torch.from_numpy(np.nonzero(mine)[0]).to(kb.device)
-    dst = torch.from_numpy(page[mine].astype(np.int64)).to(kb.device)
-    pools["k"][:, dst] = kb[:, sel].to(pools["k"].dtype)
-    pools["v"][:, dst] = vb[:, sel].to(pools["v"].dtype)
+    write_blocks(pools, kg, vg,
+                 block_targets(rt, table_row, 0, kg.shape[1], page_size))

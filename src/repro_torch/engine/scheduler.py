@@ -4,8 +4,9 @@ to the round-robin SP page layout of ``engine.paged_cache``).
 
 All state here is host-side numpy/python; the device sees only the page
 *table* and per-slot scalars the engine assembles each step. This is the
-port's copy of ``repro.engine.scheduler``; the prefix-cache and host-tier
-hooks stay unset until ``repro.gateway`` and the KV connector are ported.
+port's copy of ``repro.engine.scheduler``; the engine sets the prefix-cache
+hook (``repro_torch.gateway.prefix_cache``) when its plan asks for it, and
+the host-tier hook stays unset until the KV connector is ported.
 
 Policy
 ------
@@ -21,7 +22,7 @@ Policy
   within one page, keeping per-device decode compute flat in ``P_sp``.
 * **Ref-counted pages / prefix reuse**: every page lifecycle event goes
   through ``paged_cache.PagePool`` (never a raw free-list append). With a
-  ``repro.gateway.prefix_cache.PrefixCache`` attached, admission matches
+  ``gateway.prefix_cache.PrefixCache`` attached, admission matches
   the request's full prompt blocks against the block-hash trie, *shares*
   the hit pages (incref, no copy), and reserves fresh pages only for the
   uncached suffix — ``SlotState.cached_len`` tells the engine how many
@@ -137,7 +138,7 @@ class Scheduler:
         self.queue: Deque[Request] = collections.deque()
         self.slots: List[Optional[SlotState]] = [None] * max_slots
         self.pool = PagePool(sp, pages_per_shard)
-        # optional repro.gateway.prefix_cache.PrefixCache sharing this pool
+        # optional gateway.prefix_cache.PrefixCache sharing this pool
         self.prefix_cache = prefix_cache
         # optional repro.engine.kv_connector.KVConnector: admission probes
         # its committed host tier for blocks past the device-trie match

@@ -6,7 +6,8 @@ through this module. One ``impl`` knob selects the backend:
 
   'ref'   plain PyTorch (``kernels.ref``) on any device
   'cuda'  the hand-written kernels: ``flash_attention_fwd`` (B1/B2),
-          ``flash_attention_bwd`` (B3) and ``paged_decode_attention`` (B4).
+          ``flash_attention_bwd`` (B3), ``paged_decode_attention`` (B4),
+          ``ragged_prefill_fwd`` (B5) and ``paged_prefill_attention`` (B6).
           On CUDA tensors they launch the kernel or raise; on CPU tensors
           they run their plain version.
 
@@ -14,17 +15,21 @@ Entry points:
     block_fwd / block_fwd_merge  one (Q block x K/V block) pair of a ring
                                  step; the merge form folds the block into
                                  the running (o_acc, lse_acc), fused into
-                                 the B2 epilogue on 'cuda'
+                                 the B2 epilogue on 'cuda'. Batched (B, S)
+                                 positions run B5 on 'cuda'
     block_bwd                    the flash backward of one block pair (B3)
     prefill                      full masked attention (o only, q's dtype)
     decode                       per-shard partial (o, lse) of M queries vs
                                  a dense cache slice
     paged_decode                 per-shard partial (o, lse) straight off a
                                  page-table-indexed pool
+    paged_prefill                suffix queries vs the cached-prefix pages
+                                 (the prefix-cached / chunked prefill
+                                 partial), straight off the pool on 'cuda'
 
-Batched (B, S) positions need the ragged kernels B5 (forward) and B7
-(backward), which are not ported (ROADMAP §B): 'cuda' raises on CUDA
-tensors there; 'ref' serves them.
+The backward with batched (B, S) positions needs the ragged backward
+kernel B7, which is not ported (ROADMAP §B): 'cuda' raises on CUDA tensors
+there; 'ref' serves it.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ import torch
 from repro_torch.core.combine import combine_pair
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode as _paged
+from repro_torch.kernels import paged_prefill as _paged_pre
+from repro_torch.kernels import ragged_prefill as _ragged
 from repro_torch.kernels import ref as _ref
 
 IMPLS = ("ref", "cuda")
@@ -57,8 +64,6 @@ def _batched(*pos) -> bool:
 
 
 _RAGGED = {
-    "block_fwd": "the ragged prefill kernel B5 "
-                 "(repro/kernels/ragged_prefill.py)",
     "block_bwd": "the ragged backward kernel B7 (repro/kernels/"
                  "flash_attention.py:_flash_attention_bwd_ragged)",
 }
@@ -79,7 +84,9 @@ def block_fwd(q, k, v, pos_q, pos_k, *, causal=True, window=None, scale=None,
             return _flash.flash_attention_fwd(
                 q, k, v, pos_q, pos_k, causal=causal, window=window,
                 scale=scale, prefix_len=prefix_len)
-        _no_ragged_kernel(q, "block_fwd")
+        return _ragged.ragged_prefill_fwd(
+            q, k, v, pos_q, pos_k, causal=causal, window=window, scale=scale,
+            prefix_len=prefix_len)
     return _ref.block_attention(q, k, v, pos_q, pos_k, causal=causal,
                                 window=window, scale=scale,
                                 prefix_len=prefix_len)
@@ -88,7 +95,8 @@ def block_fwd(q, k, v, pos_q, pos_k, *, causal=True, window=None, scale=None,
 def block_fwd_merge(q, k, v, o_acc, lse_acc, pos_q, pos_k, *, causal=True,
                     window=None, scale=None, prefix_len=None, impl="ref"):
     """One ring step: ``combine_pair(o_acc, lse_acc, *block_fwd(...))``,
-    the combine fused into the B2 kernel epilogue on 'cuda'."""
+    the combine fused into the B2 kernel epilogue on 'cuda' (batched
+    positions: B5, then the explicit combine)."""
     if impl == "cuda" and not _batched(pos_q, pos_k):
         return _flash.flash_attention_fwd(
             q, k, v, pos_q, pos_k, o_acc=o_acc, lse_acc=lse_acc,
@@ -143,4 +151,23 @@ def paged_decode(q, pool_k, pool_v, table, cache_len, rank: int, *, sp: int,
             page_size=page_size, window=window, scale=scale)
     return _paged.paged_decode_attention_plain(
         q, pool_k, pool_v, table, cache_len, rank, sp=sp,
+        page_size=page_size, window=window, scale=scale)
+
+
+def paged_prefill(q, pool_k, pool_v, table, cached_len, rank, *, sp: int,
+                  page_size: int, window=None, scale=None, impl="ref"):
+    """Suffix queries vs this shard's cached-prefix pages -> partial
+    (o, lse): row b's query i sits at ``cached_len[b] + i`` and sees the
+    keys at positions ``< cached_len[b]`` (strict: the suffix scores itself
+    through ``block_fwd``).
+
+    'cuda' runs B6 (``kernels/paged_prefill.py``); 'ref' gathers the pages
+    into a dense view and masks positionally.
+    """
+    if impl == "cuda":
+        return _paged_pre.paged_prefill_attention(
+            q, pool_k, pool_v, table, cached_len, rank, sp=sp,
+            page_size=page_size, window=window, scale=scale)
+    return _paged_pre.paged_prefill_attention_plain(
+        q, pool_k, pool_v, table, cached_len, rank, sp=sp,
         page_size=page_size, window=window, scale=scale)

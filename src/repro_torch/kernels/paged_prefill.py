@@ -1,0 +1,107 @@
+"""Paged suffix-prefill attention, B6 (``repro.kernels.paged_prefill``): a
+block of suffix queries against this SP shard's page-table-indexed pool,
+the cached-prefix partial of a prefix-cached or chunked prefill.
+
+``paged_prefill_attention`` launches ``csrc/paged_prefill.cu`` on CUDA
+tensors and runs the plain PyTorch version
+(``paged_prefill_attention_plain``: gather the table's pages densely,
+encode validity in positions, and reuse the ``ref.block_attention``
+oracle, as the JAX ``dispatch.paged_prefill(impl='ref')`` does) on CPU
+tensors. There is no fallback: a CUDA tensor the kernel does not take
+raises. ``LAUNCHES`` counts the launches.
+
+q (B,Sq,Hq,D), row b's query i at global position ``cached_len[b] + i``;
+pool_k/pool_v (pages_loc,page_size,Hkv,D); table (B,W) int32 (-1 =
+unallocated); cached_len (B,) int32; rank is this shard's SP rank. Page
+``w`` covers positions ``[(w*sp + rank)*page_size, ...)``; a key is
+visible iff its position is ``< cached_len`` (and inside the window).
+Returns partial (o (B,Sq,Hq,D), lse (B,Hq,Sq)) in f32; a row with no
+visible key gives o = 0 and lse = -1e30 exactly.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, _check
+
+LAUNCHES: Dict[str, int] = {"B6": 0}
+TILE_KEYS = 64          # the kernel's key tile: page_size must divide it
+
+
+def reset_launches() -> None:
+    LAUNCHES["B6"] = 0
+
+
+def paged_prefill_attention_plain(q, pool_k, pool_v, table, cached_len,
+                                  rank, *, sp: int, page_size: int,
+                                  window: Optional[int] = None,
+                                  scale: Optional[float] = None):
+    """Dense gather of the table's pages + ``ref.block_attention``; slots
+    that are unallocated or at/past ``cached_len`` get position
+    ``cached_len + Sq``, past every query, so the causal mask drops them."""
+    pages_loc = pool_k.shape[0]
+    B, W = table.shape
+    Sq = q.shape[1]
+    dev = q.device
+    safe = table.long().clamp(0, pages_loc - 1)
+    k_r = pool_k[safe].reshape(B, W * page_size, *pool_k.shape[2:])
+    v_r = pool_v[safe].reshape(B, W * page_size, *pool_v.shape[2:])
+    pos = ((torch.arange(W, dtype=torch.int32, device=dev) * sp + int(rank))
+           * page_size)[:, None] \
+        + torch.arange(page_size, dtype=torch.int32, device=dev)[None]
+    pos = pos.reshape(W * page_size)
+    cl = cached_len.to(torch.int32)
+    valid = torch.repeat_interleave(table >= 0, page_size, dim=1)
+    valid = valid & (pos[None] < cl[:, None])
+    pos_k = torch.where(valid, pos[None], (cl + Sq)[:, None])
+    pos_q = cl[:, None] + torch.arange(Sq, dtype=torch.int32, device=dev)[None]
+    return ref.block_attention(q, k_r.to(q.dtype), v_r.to(q.dtype), pos_q,
+                               pos_k, causal=True, window=window, scale=scale)
+
+
+def paged_prefill_attention(q, pool_k, pool_v, table, cached_len, rank: int,
+                            *, sp: int, page_size: int,
+                            window: Optional[int] = None,
+                            scale: Optional[float] = None):
+    """Per-shard suffix-vs-prefix paged attention -> partial (o, lse)."""
+    B, Sq, Hq, D = q.shape
+    pages_loc, ps, Hkv, _ = pool_k.shape
+    if ps != page_size:
+        raise ValueError(f"pool page size {ps} != page_size {page_size}")
+    if not q.is_cuda:
+        return paged_prefill_attention_plain(
+            q, pool_k, pool_v, table, cached_len, rank, sp=sp,
+            page_size=page_size, window=window, scale=scale)
+    from repro_torch.kernels import _build
+
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in the kernel's {HEAD_DIMS}")
+    if Hq % Hkv or page_size < 1 or TILE_KEYS % page_size:
+        raise ValueError(f"kernel takes Hq % Hkv == 0 and a page_size that "
+                         f"divides {TILE_KEYS}, got Hq={Hq} Hkv={Hkv} "
+                         f"page_size={page_size}")
+    W = table.shape[1]
+    dev = q.device
+    _check("q", q, (B, Sq, Hq, D), DTYPES, dev)
+    _check("pool_k", pool_k, (pages_loc, ps, Hkv, D), (q.dtype,), dev)
+    _check("pool_v", pool_v, (pages_loc, ps, Hkv, D), (q.dtype,), dev)
+    _check("table", table, (B, W), (torch.int32,), dev)
+    _check("cached_len", cached_len, (B,), (torch.int32,), dev)
+    o = torch.empty((B, Sq, Hq, D), dtype=torch.float32, device=dev)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    lib = _build.library()
+    err = lib.repro_paged_prefill(
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), table.data_ptr(),
+        cached_len.data_ptr(), o.data_ptr(), lse.data_ptr(), B, Sq, Hq, Hkv,
+        D, pages_loc, page_size, W, int(sp), int(rank),
+        int(window is not None), int(window or 0), float(scale),
+        DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "paged_prefill")
+    LAUNCHES["B6"] += 1
+    return o, lse

@@ -1,21 +1,94 @@
-"""Serving driver on top of ``repro_torch.engine`` (engine mode of
-``repro.launch.serve``): a mixed workload of ``--requests`` greedy requests
-with staggered prompt lengths and budgets, served by continuous batching
-over the paged KV cache; prints per-request generations and the engine
-metrics.
+"""Serving driver on top of ``repro_torch.engine`` (engine and ``--legacy``
+modes of ``repro.launch.serve``).
+
+Engine mode serves a mixed workload of ``--requests`` greedy requests with
+staggered prompt lengths and budgets by continuous batching over the paged
+KV cache, and prints per-request generations and the engine metrics.
+``--prefill-chunk N`` prefills prompts in page-aligned chunks of about N
+tokens; ``--prefix-cache`` shares a ``--system-prompt-len``-token prefix
+over every request and turns the block-hash prefix cache on, so later
+requests prefill only their uncached suffix.
+
+``--legacy`` is the static-batch greedy path: one batch of ``--batch``
+random prompts of ``--prompt-len`` tokens, prefilled at the prompt length,
+the cache expanded to capacity, then ``--gen - 1`` decode steps against the
+contiguous cache (kernel B5 once per layer and step on the card).
 
 Runs on the CUDA card by default (``--device cuda``), and raises if there is
 none; ``--device cpu`` runs the plain PyTorch versions of the kernels:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
       --smoke --device cpu --requests 8 --prompt-len 16 --gen 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
+      --smoke --device cpu --prefix-cache --prefill-chunk 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
+      --smoke --device cpu --legacy
 
 The full-width model (drop ``--smoke``) draws seeded random weights on the
-card. The JAX driver's other modes (``--legacy``, ``--replicas``,
-``--prefix-cache``, ``--roles``, ``--http``) are not ported yet and raise.
+card. The JAX driver's other modes (``--replicas``, ``--roles``,
+``--http``) are not ported yet and raise.
 """
 
 import argparse
+
+
+def legacy_start(model, plan, tokens, gen: int):
+    """The static-batch path up to its first decode step, on one card (the
+    JAX ``_legacy_main``'s steps at SP degree 1): prefill ``tokens``
+    (B, prompt_len) at their own length and copy the cache into one of
+    capacity ``prompt_len + gen``. Returns ``(first tokens (B, 1), cache,
+    decode)``, ``decode`` the step of ``serve.step.build_decode_step``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.serve import kv_cache, step as serve_step
+
+    B, prompt_len = tokens.shape
+    capacity = prompt_len + gen
+    run_cfg = plan.run_config()
+    prefill = serve_step.build_prefill_step(
+        model, run_cfg, ShapeConfig("serve", prompt_len, B, "prefill"))
+    tok, cache_p = prefill(tokens)
+    cache = kv_cache.init_cache(model.cfg, B, capacity, model.device)
+    for name in ("k", "v"):
+        cache[name][:, :, :prompt_len] = cache_p[name]
+    decode = serve_step.build_decode_step(
+        model, run_cfg, ShapeConfig("serve", capacity, B, "decode"))
+    return tok, cache, decode
+
+
+def legacy_generate(model, plan, tokens, gen: int):
+    """Static-batch greedy generation: ``legacy_start``, then ``gen - 1``
+    decode steps, each at the batch's true cache length. Returns the
+    (B, gen) generated tokens, int64."""
+    import torch
+
+    B, prompt_len = tokens.shape
+    tok, cache, decode = legacy_start(model, plan, tokens, gen)
+    generated = [tok]
+    for i in range(gen - 1):
+        cache_len = torch.full((B,), prompt_len + i, dtype=torch.int32,
+                               device=model.device)
+        tok = decode(cache, tok.long(), cache_len)
+        generated.append(tok)
+    return torch.cat(generated, dim=1).long()
+
+
+def _legacy_main(args, plan, cfg, device):
+    import numpy as np
+    import torch
+
+    from repro_torch.engine.engine import resolve_device
+    from repro_torch.models.factory import build_model
+
+    device = resolve_device(device)
+    model = build_model(cfg, device=device, seed=args.seed)
+    rng = np.random.default_rng(args.seed + 1)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (args.batch, args.prompt_len))).to(device)
+    out = legacy_generate(model, plan, tokens, args.gen)
+    print(f"[serve --legacy] prompt {tuple(tokens.shape)} -> generated "
+          f"{tuple(out.shape)}:")
+    print(out.cpu().numpy())
+    return out
 
 
 def _engine_main(args, plan, cfg, device):
@@ -32,13 +105,16 @@ def _engine_main(args, plan, cfg, device):
                                  prefill_chunk=args.prefill_chunk))
     rng = np.random.default_rng(args.seed)
     vocab = engine.cfg.vocab_size
+    shared = (rng.integers(0, vocab, args.system_prompt_len).tolist()
+              if args.prefix_cache else [])
     reqs = []
     for i in range(args.requests):
         # staggered mixed workload: prompts and budgets vary per request
         plen = max(1, args.prompt_len // 2 + (i * 3) % (args.prompt_len + 1))
         gen = max(1, args.gen // 2 + i % (args.gen + 1))
         reqs.append(Request(
-            uid=f"req{i}", tokens=rng.integers(0, vocab, plen).tolist(),
+            uid=f"req{i}",
+            tokens=shared + rng.integers(0, vocab, plen).tolist(),
             max_new_tokens=gen, temperature=args.temperature,
             seed=args.seed + i))
     for r in reqs:
@@ -62,33 +138,39 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--kernel", default=None, choices=["ref", "cuda"],
-                    help="paged-decode and ring-block kernels (default "
-                         "cuda; on CPU tensors it runs the plain versions)")
+                    help="attention kernels (default cuda; on CPU tensors "
+                         "it runs the plain versions)")
+    ap.add_argument("--legacy", action="store_true",
+                    help="static-batch greedy decode instead of the engine")
+    ap.add_argument("--batch", type=int, default=2, help="legacy batch size")
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=8)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--page-size", type=int, default=8)
     ap.add_argument("--pages-per-shard", type=int, default=128)
-    ap.add_argument("--prefill-chunk", type=int, default=0)
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="prefill prompts in chunks of about this many "
+                         "tokens (0: whole prompts)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share a system prompt over the requests and "
+                         "reuse its cached pages")
+    ap.add_argument("--system-prompt-len", type=int, default=32,
+                    help="tokens of the shared prefix under --prefix-cache")
     ap.add_argument("--max-len", type=int, default=512)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     # the JAX driver's other modes, rejected until they are ported
-    ap.add_argument("--legacy", action="store_true")
     ap.add_argument("--replicas", type=int, default=1)
-    ap.add_argument("--prefix-cache", action="store_true")
     ap.add_argument("--roles", default=None)
     ap.add_argument("--http", action="store_true")
     args = ap.parse_args(argv)
-    for flag, on in (("--legacy", args.legacy),
-                     ("--replicas", args.replicas > 1),
-                     ("--prefix-cache", args.prefix_cache),
+    for flag, on in (("--replicas", args.replicas > 1),
                      ("--roles", bool(args.roles)), ("--http", args.http)):
         if on:
             raise NotImplementedError(
                 f"repro_torch.launch.serve {flag} is not ported yet "
-                "(ROADMAP.md §A); engine mode only")
+                "(ROADMAP.md §A); engine and --legacy modes only")
 
     from repro_torch.configs import registry
     from repro_torch.plan import make_serve_plan
@@ -99,11 +181,14 @@ def main(argv=None):
         cfg, arch=args.arch, c=1,
         decode_batch=args.max_slots, page_size=args.page_size,
         max_len=args.max_len, kernel_impl=args.kernel,
-        block_impl=args.kernel)
+        block_impl=args.kernel, prefix_cache=args.prefix_cache)
     print(f"[serve] plan: P_sp={plan.sp_size} C={plan.c} R={plan.r} "
           f"kernel={plan.kernel_impl} block={plan.block_impl} "
           f"slots={plan.decode_batch} page={plan.page_size} "
-          f"capacity={plan.seq_len} device={args.device}")
+          f"capacity={plan.seq_len} prefix_cache={plan.prefix_cache} "
+          f"device={args.device}")
+    if args.legacy:
+        return _legacy_main(args, plan, cfg, args.device)
     return _engine_main(args, plan, cfg, args.device)
 
 

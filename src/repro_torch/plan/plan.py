@@ -41,7 +41,7 @@ class ExecutionPlan:
     decode_batch: int = 0          # engine decode slots (0 = not a serve plan)
     page_size: int = 0             # KV page tokens (0 = not a serve plan)
     kernel_impl: str = "cuda"      # paged-decode kernel ('ref' | 'cuda')
-    prefix_cache: bool = False     # not ported: the engine raises
+    prefix_cache: bool = False     # the engine shares prompt pages
     host_tier_bytes: int = 0       # not ported: the engine raises
     # ---- training face (kind='train' plans, from make_plan) ---------------
     shape: str = "serve"           # shape name ('train_4k', 'smoke', ...)

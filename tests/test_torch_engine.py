@@ -7,8 +7,9 @@ must be identical, with a request joining mid-run; the prefill's
 next-token hidden state must agree within 1e-4 (f32 smoke weights, the
 same products in another summation order), and so must the local-mode
 forward (one attention block per layer) of both packages. The port's own
-"batched == solo" replay must hold, and the knobs this slice does not port
-must raise.
+"batched == solo" replay must hold, and the knobs the port does not carry
+yet must raise. The prefix cache and chunked prefill are held against the
+JAX engine in ``tests/test_torch_prefix.py``.
 """
 
 import dataclasses
@@ -142,12 +143,6 @@ def test_unported_knobs_raise():
     with pytest.raises(NotImplementedError, match="temperature"):
         teng.add_request(torch_engine.Request("s", [1, 2], 2,
                                               temperature=0.8))
-    with pytest.raises(NotImplementedError, match="chunked prefill"):
-        torch_engine.Engine(teng.model, teng.plan,
-                            torch_engine.EngineConfig(prefill_chunk=8))
-    with pytest.raises(NotImplementedError, match="prefix cache"):
-        torch_engine.Engine(teng.model, dataclasses.replace(
-            teng.plan, prefix_cache=True))
     with pytest.raises(NotImplementedError, match="host KV tier"):
         torch_engine.Engine(teng.model, teng.plan,
                             torch_engine.EngineConfig(host_tier_bytes=1))
@@ -168,6 +163,11 @@ def test_launch_serve_cpu_and_rejected_modes():
     out = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                       "--requests", "2", "--prompt-len", "6", "--gen", "3"])
     assert sorted(out) == ["req0", "req1"]
-    with pytest.raises(NotImplementedError, match="--legacy"):
+    with pytest.raises(NotImplementedError, match="--http"):
         serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                    "--legacy"])
+                    "--http"])
+    out = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                      "--requests", "3", "--prompt-len", "6", "--gen", "3",
+                      "--prefix-cache", "--system-prompt-len", "16",
+                      "--prefill-chunk", "8"])
+    assert sorted(out) == ["req0", "req1", "req2"]

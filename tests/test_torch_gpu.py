@@ -7,8 +7,9 @@ tests). The file imports no JAX: the machine with the card has none. Run on
 the card with ``python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 
 The case tables and input builders are shared with
-``tests/test_torch_kernels.py``, which holds the plain versions against the
-JAX Pallas kernels on the CPU. Tolerances: forward 2e-5 for f32 inputs (the
+``tests/test_torch_kernels.py``, ``tests/test_torch_legacy.py`` (B5) and
+``tests/test_torch_prefix.py`` (B6), which hold the plain versions against
+the JAX Pallas kernels on the CPU. Tolerances: forward 2e-5 for f32 inputs (the
 JAX kernel tests' own), 1e-4 for bf16 inputs upcast to f32 in both versions
 (only the summation order differs); backward (B3) 3e-4, the JAX
 ``test_bwd_matches_ref`` bound; dead rows exact.
@@ -20,7 +21,8 @@ import torch
 
 from repro_torch.core import startrail as st_torch
 from repro_torch.core.combine import NEG_INF
-from repro_torch.kernels import flash_attention, paged_decode
+from repro_torch.kernels import (flash_attention, paged_decode,
+                                 paged_prefill, ragged_prefill)
 
 TOL = 2e-5
 
@@ -95,6 +97,75 @@ def _paged_inputs(B, Hq, Hkv, D, ps, W, sp, seed=0):
     tbl[-1] = -1                                     # an inactive slot
     cl[-1] = 0
     return q, pool_k, pool_v, tbl, cl
+
+
+RAGGED_CASES = {
+    # B, Sq, Sk, Hq, Hkv, D, window, positions
+    # per-row lengths 64, 37, 0 (the last row sees no key at all)
+    "ragged_rows": (3, 64, 64, 8, 2, 80, None, "lengths"),
+    # the static-batch decode shape: one query per row at its cache length
+    "decode_sq1": (4, 1, 96, 8, 2, 80, None, "decode"),
+    "window": (2, 64, 64, 4, 1, 16, 24, "lengths"),
+    # each row a sequence starting at its own position
+    "offset_rows": (3, 40, 72, 4, 4, 16, 30, "offset"),
+}
+
+
+def _ragged_inputs(B, Sq, Sk, Hq, Hkv, D, kind, seed=0):
+    """q, k, v and per-row positions pos_q (B,Sq), pos_k (B,Sk): validity
+    is positional (a key pushed past every query is never seen)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)
+    k = rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32)
+    ak = np.arange(Sk, dtype=np.int32)[None]
+    if kind == "lengths":
+        lens = np.array([Sk, 37, 0][:B] + [Sk] * (B - 3))[:, None]
+        pos_q = np.broadcast_to(np.arange(Sq, dtype=np.int32), (B, Sq))
+        pos_k = np.where(ak < lens, ak, Sq + Sk)
+    elif kind == "decode":
+        cl = np.array([Sk - 1, 50, 10, 0][:B])[:, None]
+        pos_q = cl
+        pos_k = np.where(ak <= cl, ak, cl + 1)
+    else:
+        start = 17 * np.arange(B)[:, None]
+        pos_q = start + (Sk - Sq) + np.arange(Sq, dtype=np.int32)[None]
+        pos_k = start + ak
+    return (q, k, v, np.ascontiguousarray(pos_q, dtype=np.int32),
+            np.ascontiguousarray(pos_k, dtype=np.int32))
+
+
+PAGED_PREFILL_CASES = {
+    # B, Sq, Hq, Hkv, D, ps, W, sp, rank, window, cached_len per row
+    # row 1 has no cached prefix (every row dead); row 0's last cached page
+    # is partly filled
+    "gqa_d80": (3, 20, 8, 2, 80, 4, 6, 1, 0, None, [13, 0, 20]),
+    "mha_d16": (2, 9, 2, 2, 16, 4, 5, 1, 0, None, [16, 7]),
+    # queries at 20.. see only keys inside a window of 6: the window slides
+    # past the whole prefix for the later rows
+    "window_slid": (2, 12, 4, 1, 16, 4, 6, 1, 0, 6, [20, 8]),
+    "sp2_rank1": (2, 10, 8, 2, 80, 4, 4, 2, 1, None, [24, 9]),
+}
+
+
+def _paged_prefill_inputs(B, Sq, Hq, Hkv, D, ps, W, sp, rank, cached_len,
+                          seed=0):
+    """q, pools, table and cached_len: row b's table holds distinct pages
+    for the blocks this rank owns below cached_len[b] plus one suffix page,
+    and -1 past them; row 0 also has an unallocated hole."""
+    rng = np.random.default_rng(seed)
+    pages_loc = B * W
+    pool_k = rng.normal(size=(pages_loc, ps, Hkv, D)).astype(np.float32)
+    pool_v = rng.normal(size=(pages_loc, ps, Hkv, D)).astype(np.float32)
+    q = rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)
+    perm = rng.permutation(pages_loc)
+    tbl = np.full((B, W), -1, np.int32)
+    for b, cl in enumerate(cached_len):
+        blocks = -(-cl // ps) + 1
+        n_local = min(W, (blocks - rank + sp - 1) // sp)
+        tbl[b, :n_local] = perm[b * W:b * W + n_local]
+    tbl[0, 1] = -1                                   # unallocated hole
+    return q, pool_k, pool_v, tbl, np.asarray(cached_len, np.int32)
 
 
 BWD_TOL = 3e-4
@@ -294,3 +365,69 @@ def test_startrail_backward_launches_b3(cuda_device):
         want = st_torch.startrail_backward(res, o2, do, cfg, SingleComm())
     for a, b in zip((dq, dk, dv), want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(RAGGED_CASES))
+def test_ragged_prefill_kernel_matches_plain(cuda_device, case, dtype):
+    B, Sq, Sk, Hq, Hkv, D, window, kind = RAGGED_CASES[case]
+    if D not in flash_attention.HEAD_DIMS:
+        D = 32
+    arrs = _ragged_inputs(B, Sq, Sk, Hq, Hkv, D, kind)
+    dt = getattr(torch, dtype)
+    args = [_t(x).to(cuda_device, dt) for x in arrs[:3]] + \
+        [_t(x).to(cuda_device) for x in arrs[3:]]
+    before = ragged_prefill.LAUNCHES["B5"]
+    o, lse = ragged_prefill.ragged_prefill_fwd(*args, window=window)
+    torch.cuda.synchronize()
+    assert ragged_prefill.LAUNCHES["B5"] == before + 1
+    o_p, lse_p = ragged_prefill.ragged_prefill_fwd_plain(*args,
+                                                         window=window)
+    tol = 2e-5 if dtype == "float32" else 1e-4
+    _assert_partials(o.cpu().numpy(), lse.cpu().numpy(),
+                     o_p.cpu().numpy(), lse_p.cpu().numpy(), tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(PAGED_PREFILL_CASES))
+def test_paged_prefill_kernel_matches_plain(cuda_device, case, dtype):
+    B, Sq, Hq, Hkv, D, ps, W, sp, rank, window, cls = \
+        PAGED_PREFILL_CASES[case]
+    if D not in flash_attention.HEAD_DIMS:
+        D = 32
+    arrs = _paged_prefill_inputs(B, Sq, Hq, Hkv, D, ps, W, sp, rank, cls)
+    dt = getattr(torch, dtype)
+    args = [_t(x).to(cuda_device, dt) for x in arrs[:3]] + \
+        [_t(x).to(cuda_device) for x in arrs[3:]] + [rank]
+    kw = dict(sp=sp, page_size=ps, window=window)
+    before = paged_prefill.LAUNCHES["B6"]
+    o, lse = paged_prefill.paged_prefill_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_prefill.LAUNCHES["B6"] == before + 1
+    o_p, lse_p = paged_prefill.paged_prefill_attention_plain(*args, **kw)
+    tol = 2e-5 if dtype == "float32" else 1e-4
+    _assert_partials(o.cpu().numpy(), lse.cpu().numpy(),
+                     o_p.cpu().numpy(), lse_p.cpu().numpy(), tol)
+
+
+@pytest.mark.gpu
+def test_batched_positions_route_to_b5(cuda_device):
+    """``dispatch.block_fwd`` and ``block_fwd_merge`` with (B, S) positions
+    launch B5 on CUDA tensors; only the backward (B7) still raises."""
+    from repro_torch.kernels import dispatch
+
+    arrs = _ragged_inputs(*RAGGED_CASES["ragged_rows"][:6], "lengths")
+    q, k, v, pq, pk = (_t(x).to(cuda_device) for x in arrs)
+    ragged_prefill.reset_launches()
+    o, lse = dispatch.block_fwd(q, k, v, pq, pk, impl="cuda")
+    o_acc = torch.zeros_like(o)
+    lse_acc = torch.full_like(lse, NEG_INF)
+    o2, lse2 = dispatch.block_fwd_merge(q, k, v, o_acc, lse_acc, pq, pk,
+                                        impl="cuda")
+    torch.cuda.synchronize()
+    assert ragged_prefill.LAUNCHES == {"B5": 2}
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    with pytest.raises(NotImplementedError, match="B7"):
+        dispatch.block_bwd(q, k, v, q, lse, lse, pq, pk, impl="cuda")
