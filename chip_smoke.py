@@ -12,17 +12,26 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               (B1, B2, B3 at the 1024-token shapes, B2 and B3 again at the
               training shape, seq 4096, B4 at a decode step, B5 on ragged
               rows and the legacy decode shape, B6 on a 256-query chunk
-              after cached prefixes), and timed (CUDA events, median of
-              bursts after warm-up) beside the plain version, a PyTorch
+              after cached prefixes, B7 on ragged rows with offsets and a
+              zero-length row, rectangular MQA, a window over 1000 rows and
+              the ragged_bwd path's shape), and timed (CUDA events, median
+              of bursts after warm-up) beside the plain version, a PyTorch
               library call where one computes the same function, and the
               card's bound for the work: B1, B2, B4, B5 and B6 at the
-              serving shapes, B3 (and B2 again) at the training shape
+              serving shapes, B3 (and B2 again) at the training shape, B7
+              at the ragged_bwd path's shape
   4. ring     StarTrail on a ThreadMesh(c=2, r=2): P = 8 ranks as threads
               on the one card, N = 2048 tokens of 32q/8kv heads of 80,
               bf16, causal + window; each rank runs the forward (B2 in
               every ring step) and then the backward (B3 in every ring
               step) explicitly; o and the gradients are held against plain
               full attention of the sequence and its autograd gradients
+  4a. ragged_bwd  the kernel layer's public entries with per-row (B, S)
+              positions: ``dispatch.block_fwd`` (B5), then
+              ``dispatch.block_bwd`` (B7), on 4 rows of 1024 tokens at
+              different offsets, 32q/8kv heads of 80, bf16, causal, window
+              4096; the gradients are held against autograd through the
+              plain version
   5. engine   the serving engine at the full width of h2o-danube-1.8b
               (24 layers, seeded random bf16 weights): 8 greedy requests,
               prompts staggered over 64-1024 tokens, 32 new tokens each.
@@ -51,24 +60,32 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               layer and step; the first decode step's hidden state and
               token are held against the engine's
   9. train    the full-width model trains through ``train.trainer.train``
-              with a plan from ``make_plan(c=1)``: seq 4096, batch 1, bf16,
-              AdamW (f32 moments, lr 1e-3, no warmup), 6 steps on one
-              repeated ``SyntheticLM`` batch. Each step runs, per layer,
-              one StarTrail ring step forward (B2) and backward (B3); the
-              loss must be finite and fall
+              with a plan from ``make_plan(c=1, microbatches=4)`` and its
+              default recompute (``remat='attn_out'``): seq 4096, global
+              batch 4 in 4 microbatches, bf16, AdamW (f32 moments, lr 1e-3,
+              no warmup), 4 steps on one repeated ``SyntheticLM`` batch.
+              Per layer and microbatch the StarTrail ring step runs forward
+              twice (B2: the forward and its recompute) and backward once
+              (B3); the loss must be finite and fall
  10. train_check  one loss and gradient of the same model at seq 1024
               under the CUDA kernels against the plain versions
- 11. train_profile  ``torch.profiler`` over one full-width train step
+ 11. train_profile  ``torch.profiler`` over one full-width train step of
+              one sequence under ``remat='none'`` and one under 'attn_out'
+ 12. resume   checkpoint and restart at full width with the depth cut to 2
+              layers: 4 steps straight, and 2 steps with ``ckpt_dir``
+              followed by a fresh model resumed from that checkpoint to
+              step 4; steps 3-4 must give the same losses
 
-The paths are phases 4, 5, 7, 8a, 8b and 9: the launch counters are set to
-0 just before each and read just after, and each must launch exactly the
-kernels it runs (B2 and B3 in the ring; B2 and B4 in the engine; B1 in the
-local prefill; B1, B2, B4 and B6 in the prefix phase; B2 and B5 in the
-legacy phase; B2 and B3 in the train loop). Comparison, timing and
-profiling launches are not counted. The kernels line's ``launches`` is each
-kernel's count on the path that runs it (the engine for B2 and B4, the
-local prefill for B1, the train loop for B3, the legacy phase for B5, the
-prefix phase for B6); ``launches_by_path`` gives every path's counts. The
+The paths are phases 4, 4a, 5, 7, 8a, 8b and 9: the launch counters are
+set to 0 just before each and read just after, and each must launch
+exactly the kernels it runs (B2 and B3 in the ring; B5 and B7 in
+ragged_bwd; B2 and B4 in the engine; B1 in the local prefill; B1, B2, B4
+and B6 in the prefix phase; B2 and B5 in the legacy phase; B2 and B3 in the
+train loop). Comparison, timing and profiling launches are not counted.
+The kernels line's ``launches`` is each kernel's count on the path that
+runs it (the engine for B2 and B4, the local prefill for B1, the train
+loop for B3, the legacy phase for B5, the prefix phase for B6, ragged_bwd
+for B7); ``launches_by_path`` gives every path's counts. The
 last three lines are the card's ``nvidia-smi`` name and power limit, the
 kernels' JSON line and ``{"ok": true, "device": {...}}``.
 Any failed check exits non-zero before the last line; so does a machine
@@ -97,13 +114,15 @@ REPLACES = {
     "B4": "src/repro/kernels/paged_decode.py:48",
     "B5": "src/repro/kernels/ragged_prefill.py:48",
     "B6": "src/repro/kernels/paged_prefill.py:56",
+    "B7": "src/repro/kernels/flash_attention.py:537",
 }
 SOURCES = {"B1": "src/repro_torch/csrc/flash_fwd.cu",
            "B2": "src/repro_torch/csrc/flash_fwd.cu",
            "B3": "src/repro_torch/csrc/flash_bwd.cu",
            "B4": "src/repro_torch/csrc/paged_decode.cu",
            "B5": "src/repro_torch/csrc/ragged_prefill.cu",
-           "B6": "src/repro_torch/csrc/paged_prefill.cu"}
+           "B6": "src/repro_torch/csrc/paged_prefill.cu",
+           "B7": "src/repro_torch/csrc/ragged_bwd.cu"}
 KERNELS = tuple(SOURCES)
 ARCH = "h2o-danube-1.8b"
 
@@ -270,27 +289,35 @@ def grad_err(got, want, lse, tol):
     return err, within and bool((got[0][dead] == 0).all()), int(dead.sum())
 
 
-def bwd_work(q, k, pairs):
-    """(bytes, flops) of B3: q, k, v, do, lse, delta and the positions in
-    once, dq, dk, dv out in f32; 10*D FLOPs per visible pair and query head
-    (the recomputed scores, dp, dq, dk, dv)."""
-    _, sq, hq, d = q.shape
-    sk, hkv = k.shape[1], k.shape[2]
+def bwd_work(q, k, pos_q, pos_k, pairs):
+    """(bytes, flops) of B3 / B7: q, k, v, do, lse, delta and the positions
+    in once, dq, dk, dv out in f32; 10*D FLOPs per visible pair and query
+    head (the recomputed scores, dp, dq, dk, dv)."""
+    b, sq, hq, d = q.shape
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
-        + 2 * hq * sq * 4 + (sq + sk) * 4 + (q.numel() + 2 * k.numel()) * 4
+        + 2 * b * hq * sq * 4 + (pos_q.numel() + pos_k.numel()) * 4 \
+        + (q.numel() + 2 * k.numel()) * 4
     return nbytes, 10 * d * hq * pairs
 
 
-def sdpa_bwd_ms(q, k, v, do):
-    """The autograd backward alone of ``scaled_dot_product_attention``
-    (causal, GQA) on the same inputs: the library yardstick of B3."""
+def sdpa_bwd_ms(q, k, v, do, mask=None):
+    """The autograd backward alone of ``scaled_dot_product_attention`` on
+    the same inputs: causal with GQA (the library yardstick of B3), or with
+    the boolean ``mask`` (B,1,Sq,Sk) and the kv heads repeated beforehand
+    (B7's)."""
     import torch
     import torch.nn.functional as F
 
+    g = q.shape[2] // k.shape[2]
+    if mask is not None:
+        k, v = (t.repeat_interleave(g, dim=2) for t in (k, v))
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                         enable_gqa=True)
+    if mask is None:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True)
+    else:
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     dot = do.transpose(1, 2)
     return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                retain_graph=True),
@@ -464,6 +491,49 @@ def paged_prefill_work(table, cached, sq, window, ps=16, hkv=8, d=80,
     return 2 * pages * ps * hkv * d * 2 + io, 4 * d * hq * pairs
 
 
+def ragged_bwd_cases():
+    # name: (B, Sq, Sk, Hq, Hkv, window, row offsets, zero-length rows)
+    return {
+        # rows at their own offsets; row 2's keys all sit past its queries
+        "ragged_rows": (4, 256, 256, 32, 8, 4096, [0, 300, 77, 1000], [2]),
+        "mqa_rect": (2, 192, 320, 8, 1, 4096, [0, 50], []),
+        # 1000 rows: not a multiple of the 64-row tile
+        "window256_s1000": (2, 1000, 1000, 32, 8, 256, [0, 17], []),
+        # the ragged_bwd path's shape
+        "path_4x1024": (4, 1024, 1024, 32, 8, 4096, [0, 1024, 2048, 3072],
+                        []),
+    }
+
+
+def ragged_bwd_inputs(dev, dtype, b, sq, sk, hq, hkv, window, offsets,
+                      zero_rows, seed=0):
+    """q, k, v, do in ``dtype``, the global lse and delta of the block pair
+    (delta from o rounded to q's dtype), and (B,Sq) / (B,Sk) positions: row
+    r's queries start at ``offsets[r]`` and its keys end with them (an Sk >
+    Sq row sees keys before its first query); the keys of ``zero_rows`` sit
+    past every query."""
+    import torch
+
+    from repro_torch.kernels import ragged_prefill as rp
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, sq, hq, 80), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, sk, hkv, 80), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, sk, hkv, 80), generator=g, device=dev).to(dtype)
+    do = torch.randn((b, sq, hq, 80), generator=g, device=dev).to(dtype)
+    off = torch.tensor(offsets, dtype=torch.int32, device=dev)[:, None]
+    pos_q = off + torch.arange(sq, dtype=torch.int32, device=dev)[None]
+    pos_k = off + torch.arange(sk, dtype=torch.int32, device=dev)[None] \
+        + (sq - sk)
+    pos_k[zero_rows] += 2 * (sq + sk)
+    o, lse = rp.ragged_prefill_fwd_plain(q, k, v, pos_q, pos_k,
+                                         window=window)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         o.to(dtype).float()).contiguous()
+    return (q, k, v, do, lse, delta, pos_q.contiguous(),
+            pos_k.contiguous())
+
+
 def phase_kernels(dev):
     import torch
     import torch.nn.functional as F
@@ -471,6 +541,7 @@ def phase_kernels(dev):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import ragged_bwd as rb
     from repro_torch.kernels import ragged_prefill as rp
     from repro_torch.kernels import ref
 
@@ -558,6 +629,28 @@ def phase_kernels(dev):
                 check(0 < n_dead < lse.numel(), f"B6 {case}: {n_dead} dead")
             rows["B6"]["max_abs_err"] = max(rows["B6"]["max_abs_err"], err)
             checked.append(f"B6/{case}/{dname}")
+        for case, (b, sq, sk, hq, hkv, window, offs, zero) in \
+                ragged_bwd_cases().items():
+            args = ragged_bwd_inputs(dev, dtype, b, sq, sk, hq, hkv, window,
+                                     offs, zero)
+            got = rb.flash_attention_bwd_ragged(*args, window=window)
+            torch.cuda.synchronize()
+            want = rb.flash_attention_bwd_ragged_plain(*args, window=window)
+            err, ok, n_dead = grad_err(got, want, args[4], BWD_TOL)
+            check(ok, f"B7 {case} {dname}: max err {err} (tol {BWD_TOL}) "
+                      f"or a dead row's dq not exactly 0")
+            for r in zero:
+                check(n_dead >= sq * hq and all(
+                    bool((t[r] == 0).all()) for t in got),
+                    f"B7 {case} {dname}: zero-length row {r} not exactly "
+                    f"0 in dq, dk, dv")
+            again = rb.flash_attention_bwd_ragged(*args, window=window)
+            check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+                  f"B7 {case} {dname}: two runs differ (no atomics: they "
+                  f"must give the same bits)")
+            rows["B7"]["max_abs_err"] = max(rows["B7"]["max_abs_err"], err)
+            checked.append(f"B7/{case}/{dname}")
+            del got, want, again, args
 
     # timing at the engine's shapes: a 1024-token prefill (bf16, causal,
     # window 4096) and a 4-slot decode step at ~1K context
@@ -672,7 +765,8 @@ def phase_kernels(dev):
                    reps=10, inner=2),
         plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(
             *bargs, window=4096), reps=5, inner=2),
-        library_ms=lib_ms, work=(*bwd_work(q, k, pairs), "bfloat16"))
+        library_ms=lib_ms, work=(*bwd_work(q, k, pos, pos, pairs),
+                                 "bfloat16"))
     fwd_io = sum(t.numel() * t.element_size() for t in (q, k, v, pos, pos)) \
         + 2 * (o_acc.numel() + lse_acc.numel()) * 4
     b2_4096 = dict(
@@ -685,15 +779,38 @@ def phase_kernels(dev):
         max_abs_err=b2_err)
     b2_4096["bound_ms"], b2_4096["bound_by"] = bound(
         fwd_io, 4 * 80 * 32 * pairs, "bfloat16")
+    del q, k, v, do, o, lse, delta, o_acc, lse_acc, bargs
+    # B7 at the ragged_bwd path's shape: 4 rows of 1024 tokens at their own
+    # offsets, bf16, causal, window 4096
+    b, sq, sk, hq, hkv, window, offs, zero = \
+        ragged_bwd_cases()["path_4x1024"]
+    args7 = ragged_bwd_inputs(dev, torch.bfloat16, b, sq, sk, hq, hkv,
+                              window, offs, zero)
+    q7, k7, v7, do7, _, _, pq7, pk7 = args7
+    mask7 = ref.make_mask(pq7, pk7, causal=True, window=window)
+    try:
+        lib7 = sdpa_bwd_ms(q7, k7, v7, do7, mask7[:, None])
+    except RuntimeError as e:      # no SDPA backend for these inputs
+        lib7 = None
+        emit("kernels_note", library_B7=f"SDPA backward refused: {e}")
+    timing["B7"] = dict(
+        ms=time_ms(lambda: rb.flash_attention_bwd_ragged(*args7,
+                                                         window=window),
+                   reps=10, inner=2),
+        plain_ms=time_ms(lambda: rb.flash_attention_bwd_ragged_plain(
+            *args7, window=window), reps=5, inner=2),
+        library_ms=lib7,
+        work=(*bwd_work(q7, k7, pq7, pk7, int(mask7.sum())), "bfloat16"))
+    del args7, q7, k7, v7, do7, mask7
     for name, t in timing.items():
         b_ms, b_by = bound(*t.pop("work"))
         rows[name].update(t, bound_ms=b_ms, bound_by=b_by,
-                          tol=BWD_TOL if name == "B3" else TOL)
+                          tol=BWD_TOL if name in ("B3", "B7") else TOL)
     emit("kernels", checked=len(checked),
          tolerances="forward: f32 inputs 2e-5 (the JAX kernel tests' own); "
                     "bf16 inputs, upcast to f32 in both versions, 1e-4; "
-                    "B3: 3e-4 (the JAX test_bwd_matches_ref bound); dead "
-                    "rows exact",
+                    "B3, B7: 3e-4 (the JAX test_bwd_matches_ref bound); "
+                    "dead rows exact",
          timing_shapes={"B1/B2": "q (1,1024,32,80) bf16, causal, window "
                                  "4096",
                         "B3, B2_seq4096": "q (1,4096,32,80), k/v "
@@ -704,14 +821,21 @@ def phase_kernels(dev):
                         "B5": "q (4,1,32,80), k/v (4,1056,8,80) bf16, "
                               "cache length 1024 per row",
                         "B6": "q (1,256,32,80) bf16, pool (512,16,8,80), "
-                              "W 128, cached_len 1024"},
+                              "W 128, cached_len 1024",
+                        "B7": "q (4,1024,32,80), k/v (4,1024,8,80) bf16, "
+                              "(B,S) positions at offsets 0/1024/2048/3072, "
+                              "causal, window 4096"},
          library={"B1": "scaled_dot_product_attention, o only, kv heads "
                         "repeated beforehand",
                   "B5": "scaled_dot_product_attention with the boolean "
                         "mask of the positions, kv heads repeated "
                         "beforehand",
                   "B3": "autograd backward of scaled_dot_product_attention"
-                        "(is_causal, enable_gqa), timed alone"},
+                        "(is_causal, enable_gqa), timed alone",
+                  "B7": "autograd backward of scaled_dot_product_attention"
+                        " with the boolean (B,1,Sq,Sk) mask of the "
+                        "positions, kv heads repeated beforehand, timed "
+                        "alone"},
          B2_seq4096=b2_4096, B3_seq4096_max_abs_err=b3_err,
          **{n: {k: r[k] for k in ("ms", "plain_ms", "library_ms",
                                    "bound_ms", "bound_by", "max_abs_err")}
@@ -801,6 +925,54 @@ def phase_ring(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 4a: the kernel layer's entries with per-row (B, S) positions
+# ---------------------------------------------------------------------------
+
+def phase_ragged_bwd(dev):
+    """``dispatch.block_fwd`` (B5) and ``dispatch.block_bwd`` (B7) with
+    (B, S) positions at the full width's heads. delta is taken from the f32
+    o, so the backward is the exact gradient of attention in f32 at the
+    bf16 inputs: autograd through the plain version of the same function
+    differs only in the order of the sums (BWD_TOL)."""
+    import torch
+
+    from repro_torch.kernels import dispatch, ref
+
+    b, sq, _, hq, hkv, window, offs, _ = ragged_bwd_cases()["path_4x1024"]
+    g = torch.Generator(device=dev).manual_seed(4)
+    q = torch.randn((b, sq, hq, 80), generator=g, device=dev).bfloat16()
+    k = torch.randn((b, sq, hkv, 80), generator=g, device=dev).bfloat16()
+    v = torch.randn((b, sq, hkv, 80), generator=g, device=dev).bfloat16()
+    do = torch.randn((b, sq, hq, 80), generator=g, device=dev).bfloat16()
+    pos = (torch.tensor(offs, dtype=torch.int32, device=dev)[:, None]
+           + torch.arange(sq, dtype=torch.int32, device=dev)[None])
+    kw = dict(causal=True, window=window, impl="cuda")
+    counts = reset_counts()
+    t0 = time.perf_counter()
+    o, lse = dispatch.block_fwd(q, k, v, pos, pos, **kw)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(), o).contiguous()
+    got = dispatch.block_bwd(q, k, v, do, lse, delta, pos, pos, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_counts(counts)
+    check(launches == launches_of(B5=1, B7=1),
+          f"ragged_bwd launches {launches}: want B5 1 and B7 1")
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    o_ref, _ = ref.block_attention(*leaves, pos, pos, causal=True,
+                                   window=window)
+    want = torch.autograd.grad(o_ref, leaves, do.float())
+    del o_ref, leaves
+    err, ok, _ = grad_err(got, want, lse, BWD_TOL)
+    check(ok and all(bool(torch.isfinite(t).all()) for t in got),
+          f"ragged_bwd: gradients max err {err} against autograd of the "
+          f"plain version (tol {BWD_TOL})")
+    emit("ragged_bwd", rows=b, seq=sq, offsets=offs, heads=[hq, hkv],
+         head_dim=80, window=window, dtype="bfloat16", max_abs_err=err,
+         tol=BWD_TOL, launches=launches, seconds=seconds)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the engine at full width
 # ---------------------------------------------------------------------------
 
@@ -808,9 +980,10 @@ def reset_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import ragged_bwd as rb
     from repro_torch.kernels import ragged_prefill as rp
 
-    mods = (fa, pd, rp, pp)
+    mods = (fa, pd, rp, pp, rb)
     for m in mods:
         m.reset_launches()
     return tuple(m.LAUNCHES for m in mods)
@@ -1241,8 +1414,10 @@ def serving_phases(dev, smi):
 # phases 9-11: training at the full width
 # ---------------------------------------------------------------------------
 
-TRAIN_SEQ, TRAIN_STEPS = 4096, 6
-TRAIN_RECKONED_BYTES = 40e9   # bf16 params + grads, f32 moments, activations
+TRAIN_SEQ, TRAIN_STEPS, TRAIN_MICRO = 4096, 4, 4
+# bf16 params and grads, f32 grad accumulators and moments, the recomputed
+# activations of one microbatch
+TRAIN_RECKONED_BYTES = 32e9
 
 
 class RepeatBatch:
@@ -1256,10 +1431,10 @@ class RepeatBatch:
         return self.batch
 
 
-def _train_shape(seq):
+def _train_shape(seq, batch=1):
     from repro_torch.configs.base import ShapeConfig
 
-    return ShapeConfig(f"train_{seq // 1024}k_b1", seq, 1, "train")
+    return ShapeConfig(f"train_{seq // 1024}k_b{batch}", seq, batch, "train")
 
 
 def phase_train(dev, smi):
@@ -1276,8 +1451,10 @@ def phase_train(dev, smi):
     from repro_torch.train import trainer
 
     cfg = registry.get(ARCH)
-    shape = _train_shape(TRAIN_SEQ)
-    plan = make_plan(cfg, shape, arch=ARCH, c=1)
+    shape = _train_shape(TRAIN_SEQ, TRAIN_MICRO)
+    plan = make_plan(cfg, shape, arch=ARCH, c=1, microbatches=TRAIN_MICRO)
+    check(plan.remat == "attn_out", f"plan remat {plan.remat!r}: the "
+          f"default is 'attn_out', as in the JAX plan")
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
@@ -1306,10 +1483,11 @@ def phase_train(dev, smi):
           f"train losses {losses}: want {TRAIN_STEPS} finite")
     check(losses[-1] < losses[0],
           f"train loss did not fall over one repeated batch: {losses}")
-    L = cfg.num_layers
-    want = launches_of(B2=L * TRAIN_STEPS, B3=L * TRAIN_STEPS)
-    check(launches == want, f"train launches {launches}: want {want} (one "
-          f"ring step forward and backward per layer and step)")
+    L, M = cfg.num_layers, plan.microbatches
+    want = launches_of(B2=2 * L * M * TRAIN_STEPS, B3=L * M * TRAIN_STEPS)
+    check(launches == want, f"train launches {launches}: want {want} (per "
+          f"layer and microbatch, the ring step forward twice under "
+          f"recompute and backward once)")
     step_ms = [1e3 * r["step_s"] for r in recs]
     # step_s of step i is its dispatch plus the wait on step i-1; from the
     # third step on it is the steady device step
@@ -1319,7 +1497,7 @@ def phase_train(dev, smi):
          shape={"seq_len": shape.seq_len, "batch": shape.global_batch},
          plan={"P_sp": plan.sp_size, "C": plan.c, "R": plan.r,
                "seq_scheme": plan.seq_scheme, "block_impl": plan.block_impl,
-               "remat": plan.remat},
+               "remat": plan.remat, "microbatches": plan.microbatches},
          adamw={"lr": adam.learning_rate, "warmup": adam.warmup_steps,
                 "state_dtype": adam.state_dtype},
          losses=losses, grad_norm=[r["grad_norm"] for r in recs],
@@ -1375,7 +1553,9 @@ def phase_train_check(model, dev):
 
 def phase_train_profile(model, dev, smi):
     """Where a train step's time goes: ``torch.profiler`` over one
-    full-width step (the card is warm from phase 9)."""
+    full-width step of one sequence without recompute and one with
+    ``remat='attn_out'``, each after one unprofiled step; the peak memory
+    of each profiled step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1385,21 +1565,115 @@ def phase_train_profile(model, dev, smi):
     from repro_torch.train import step as train_step
 
     shape = _train_shape(TRAIN_SEQ)
-    plan = make_plan(model.cfg, shape, arch=ARCH, c=1)
     adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0)
-    step_fn, sh = plan.build_train_step(model, adam)
-    opt = adamw.init_state(sh["params"], adam)
     batch = train_step.to_device(
         SyntheticLM(model.cfg, shape, seed=0).get_batch(0), dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    for remat in ("none", "attn_out"):
+        plan = make_plan(model.cfg, shape, arch=ARCH, c=1, remat=remat)
+        step_fn, sh = plan.build_train_step(model, adam)
+        opt = adamw.init_state(sh["params"], adam)
         step_fn(opt, batch)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    emit("train_profile", seq_len=shape.seq_len, batch=1, card=smi,
-         **_profile_window(prof, 1, wall, top=15))
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step_fn(opt, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        emit("train_profile", remat=remat, seq_len=shape.seq_len, batch=1,
+             max_memory_allocated=torch.cuda.max_memory_allocated(),
+             card=smi, **_profile_window(prof, 1, wall, top=15))
+        del step_fn, sh, opt, prof
+        free_device()
+
+
+# Steps 3-4 after a restart against the same steps run straight through:
+# the restored state is the saved one to the bit and no kernel of the step
+# uses atomics, so the losses are expected equal; 1e-5 relative allows for
+# a library kernel that sums in another order.
+RESUME_TOL = 1e-5
+
+
+def phase_resume(dev, smi):
+    """Checkpoint and restart at full width with the depth cut to 2
+    layers (the checkpoint ~3 GB): 4 steps straight; 2 steps with
+    ``ckpt_dir``; a model initialised otherwise resumed from that
+    checkpoint to step 4. Bytes written, the in-loop ``ckpt_s``, and a
+    restore and a blocking save of both trees timed alone."""
+    import dataclasses
+    import math
+    import pathlib
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import checkpoint
+    from repro_torch.models.factory import build_model, jax_tree
+    from repro_torch.optim import adamw
+    from repro_torch.plan import make_plan
+    from repro_torch.train import trainer
+
+    cfg = dataclasses.replace(registry.get(ARCH), num_layers=2)
+    shape = _train_shape(TRAIN_SEQ)
+    plan = make_plan(cfg, shape, arch=ARCH, c=1)
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0,
+                             state_dtype=cfg.opt_dtype)
+    data = SyntheticLM(cfg, shape, seed=0, seq_scheme=plan.seq_scheme,
+                       sp_size=plan.sp_size)
+
+    def run(seed, steps, ckpt_dir, path):
+        model = build_model(cfg, device=dev, seed=seed)
+        trainer.train(model, plan, adam, trainer.TrainerConfig(
+            num_steps=steps, ckpt_every=2, ckpt_dir=ckpt_dir,
+            log_every=steps, metrics_path=path), data_source=data,
+            device=dev)
+        with open(path) as f:
+            return model, [json.loads(line) for line in f]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        ckpt = root / "ckpt"
+        _, straight = run(0, 4, None, root / "straight.jsonl")
+        t0 = time.perf_counter()
+        _, first = run(0, 2, str(ckpt), root / "first.jsonl")
+        first_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in ckpt.rglob("*")
+                     if f.is_file())
+        model, resumed = run(1, 4, str(ckpt), root / "resumed.jsonl")
+        check([r["step"] for r in resumed] == [3, 4],
+              f"resume: steps {[r['step'] for r in resumed]}, want [3, 4] "
+              f"(restored from step 2)")
+        rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+               for a, b in zip(resumed, straight[2:])]
+        check(all(math.isfinite(x) and x <= RESUME_TOL for x in rel),
+              f"resume: losses at steps 3-4 {[r['loss'] for r in resumed]} "
+              f"vs straight {[r['loss'] for r in straight[2:]]}: rel {rel} "
+              f"beyond {RESUME_TOL}")
+        names = [n for n, _ in model.named_parameters()]
+        like = jax_tree(dict(model.named_parameters()), cfg, "meta")
+        opt_like = trainer.opt_tree(
+            adamw.init_state([p.to("meta") for p in model.parameters()],
+                             adam), names, cfg)
+        t0 = time.perf_counter()
+        trees = [checkpoint.restore(ckpt, 2, like),
+                 checkpoint.restore(ckpt / "opt", 2, opt_like)]
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checkpoint.save(root / "timing", 2, trees[0])
+        checkpoint.save(root / "timing" / "opt", 2, trees[1])
+        save_s = time.perf_counter() - t0
+        del trees, model
+    emit("resume", model=cfg.name, layers=cfg.num_layers,
+         shape={"seq_len": shape.seq_len, "batch": shape.global_batch},
+         remat=plan.remat, losses_straight=[r["loss"] for r in straight],
+         losses_resumed={r["step"]: r["loss"] for r in resumed},
+         loss_rel_diff=rel, tol=RESUME_TOL, checkpoint_bytes=nbytes,
+         ckpt_s_in_loop=[r["ckpt_s"] for r in first if r["ckpt_s"]],
+         first_run_s=first_s, restore_s=restore_s, blocking_save_s=save_s,
+         card=smi)
 
 
 def free_device():
@@ -1442,6 +1716,9 @@ def main():
         rows = phase_kernels(dev)
         free_device()
         by_path = {"ring": phase_ring(dev)}
+        free_device()
+        by_path["ragged_bwd"] = phase_ragged_bwd(dev)
+        free_device()
         (by_path["engine"], by_path["local"], by_path["prefix"],
          by_path["legacy"]) = serving_phases(dev, smi)
         free_device()
@@ -1450,8 +1727,12 @@ def main():
         phase_train_check(model, dev)
         free_device()
         phase_train_profile(model, dev, smi)
+        del model
+        free_device()
+        phase_resume(dev, smi)
         paths = {"B1": "local", "B2": "engine", "B3": "train",
-                 "B4": "engine", "B5": "legacy", "B6": "prefix"}
+                 "B4": "engine", "B5": "legacy", "B6": "prefix",
+                 "B7": "ragged_bwd"}
         for name, row in rows.items():
             row["launches"] = by_path[paths[name]][name]
             row["launches_by_path"] = {k: v[name] for k, v in by_path.items()}

@@ -125,8 +125,8 @@ class RunConfig:
     kernel_impl: str = "cuda"            # serving decode kernel: 'ref'|'cuda'
     block_skip: bool = False
     multi_pod: bool = False
-    # 'none' is the only policy ported ('attn_out' / 'full' recompute
-    # changes no value; ROADMAP.md §A)
-    remat: str = "none"
-    # cross-pod gradient compression ('none'; 'int8' is not ported)
+    # recompute policy: 'none' | 'attn_out' | 'full' (models/transformer.py)
+    remat: str = "attn_out"
+    # gradient compression: 'none' | 'int8' (optim/grad.py, applied by the
+    # train step)
     grad_compression: str = "none"

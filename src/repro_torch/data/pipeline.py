@@ -1,10 +1,12 @@
 """Data pipeline (the port's counterpart of ``repro.data.pipeline``):
-the deterministic synthetic source and host-side prefetch.
+the deterministic synthetic source, a memory-mapped token-file source and
+host-side prefetch.
 
-The sampler is a pure function of (seed, step), drawn from numpy's Philox
-stream exactly as the JAX package draws it, so both packages see the same
-batches bit for bit, and a restart resumes the same token stream. The
-memory-mapped ``TokenFile`` source is not ported yet (ROADMAP.md §A).
+Both sources are pure functions of the step: the synthetic sampler draws
+from numpy's Philox stream exactly as the JAX package draws it, and
+``TokenFile`` cuts the file as the JAX one does, so both packages see the
+same batches bit for bit, and a restart resumes the same token stream.
+Both lay the sequence out in the SP shard order (zigzag or contiguous).
 """
 
 from __future__ import annotations
@@ -19,6 +21,13 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import startrail as st
 
 
+def shard_permutation(seq_len: int, sp_size: int, scheme: str
+                      ) -> np.ndarray:
+    """(sp_size, seq_len // sp_size): rank p's token positions, in order."""
+    return np.stack([st.shard_positions(p, seq_len, sp_size, scheme).numpy()
+                     for p in range(sp_size)])
+
+
 class SyntheticLM:
     """Deterministic synthetic next-token data (self-supervised layout)."""
 
@@ -28,9 +37,8 @@ class SyntheticLM:
         self.shape = shape
         self.seed = seed
         self.scheme = seq_scheme
-        self.positions = np.stack([
-            st.shard_positions(p, shape.seq_len, sp_size, seq_scheme).numpy()
-            for p in range(sp_size)])
+        self.positions = shard_permutation(shape.seq_len, sp_size,
+                                           seq_scheme)
         self.perm = self.positions.reshape(-1)
 
     def _tokens(self, step: int) -> np.ndarray:
@@ -58,6 +66,35 @@ class SyntheticLM:
                 (self.shape.global_batch, self.shape.seq_len,
                  self.cfg.d_model), dtype=np.float32)
         return batch
+
+
+class TokenFile:
+    """Memory-mapped packed-token file source (a flat uint16 or uint32
+    ``.bin``): batch ``step`` is the ``step % num_batches``-th run of
+    ``global_batch * (seq_len + 1)`` tokens, each row's tokens and labels
+    its first and last ``seq_len``."""
+
+    def __init__(self, path: str, cfg: ModelConfig, shape: ShapeConfig, *,
+                 dtype=np.uint16, seq_scheme: str = "zigzag",
+                 sp_size: int = 1):
+        self.data = np.memmap(path, dtype=dtype, mode="r")
+        self.cfg = cfg
+        self.shape = shape
+        self.perm = shard_permutation(shape.seq_len, sp_size,
+                                      seq_scheme).reshape(-1)
+        self.tokens_per_batch = shape.global_batch * (shape.seq_len + 1)
+        self.num_batches = len(self.data) // self.tokens_per_batch
+        if self.num_batches == 0:
+            raise ValueError(f"{path}: too small for one batch")
+
+    def get_batch(self, step: int) -> Dict[str, np.ndarray]:
+        i = step % self.num_batches
+        flat = np.asarray(self.data[i * self.tokens_per_batch:
+                                    (i + 1) * self.tokens_per_batch],
+                          dtype=np.int32)
+        chunk = flat.reshape(self.shape.global_batch, self.shape.seq_len + 1)
+        return {"tokens": np.take(chunk[:, :-1], self.perm, axis=1),
+                "labels": np.take(chunk[:, 1:], self.perm, axis=1)}
 
 
 class Prefetcher:

@@ -40,6 +40,7 @@ SIGNATURES = {
     "repro_paged_decode": [_VP] * 7 + [_I] * 11 + [_F, _I, _VP],
     "repro_ragged_prefill": [_VP] * 7 + [_I] * 12 + [_F, _VP],
     "repro_paged_prefill": [_VP] * 7 + [_I] * 12 + [_F, _I, _VP],
+    "repro_ragged_bwd": [_VP] * 11 + [_I] * 12 + [_F, _VP],
 }
 
 _info: Dict[str, object] = {}

@@ -7,7 +7,8 @@ through this module. One ``impl`` knob selects the backend:
   'ref'   plain PyTorch (``kernels.ref``) on any device
   'cuda'  the hand-written kernels: ``flash_attention_fwd`` (B1/B2),
           ``flash_attention_bwd`` (B3), ``paged_decode_attention`` (B4),
-          ``ragged_prefill_fwd`` (B5) and ``paged_prefill_attention`` (B6).
+          ``ragged_prefill_fwd`` (B5), ``paged_prefill_attention`` (B6)
+          and ``flash_attention_bwd_ragged`` (B7).
           On CUDA tensors they launch the kernel or raise; on CPU tensors
           they run their plain version.
 
@@ -17,7 +18,8 @@ Entry points:
                                  the running (o_acc, lse_acc), fused into
                                  the B2 epilogue on 'cuda'. Batched (B, S)
                                  positions run B5 on 'cuda'
-    block_bwd                    the flash backward of one block pair (B3)
+    block_bwd                    the flash backward of one block pair (B3);
+                                 batched (B, S) positions run B7 on 'cuda'
     prefill                      full masked attention (o only, q's dtype)
     decode                       per-shard partial (o, lse) of M queries vs
                                  a dense cache slice
@@ -26,10 +28,6 @@ Entry points:
     paged_prefill                suffix queries vs the cached-prefix pages
                                  (the prefix-cached / chunked prefill
                                  partial), straight off the pool on 'cuda'
-
-The backward with batched (B, S) positions needs the ragged backward
-kernel B7, which is not ported (ROADMAP §B): 'cuda' raises on CUDA tensors
-there; 'ref' serves it.
 """
 
 from __future__ import annotations
@@ -42,6 +40,7 @@ from repro_torch.core.combine import combine_pair
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import paged_decode as _paged
 from repro_torch.kernels import paged_prefill as _paged_pre
+from repro_torch.kernels import ragged_bwd as _ragged_bwd
 from repro_torch.kernels import ragged_prefill as _ragged
 from repro_torch.kernels import ref as _ref
 
@@ -61,19 +60,6 @@ def resolve_impl(impl: Optional[str] = None) -> str:
 
 def _batched(*pos) -> bool:
     return any(p.dim() > 1 for p in pos)
-
-
-_RAGGED = {
-    "block_bwd": "the ragged backward kernel B7 (repro/kernels/"
-                 "flash_attention.py:_flash_attention_bwd_ragged)",
-}
-
-
-def _no_ragged_kernel(q, entry: str) -> None:
-    if q.is_cuda:
-        raise NotImplementedError(
-            f"dispatch.{entry}(impl='cuda') with batched (B, S) positions "
-            f"needs {_RAGGED[entry]}, not ported yet: ROADMAP §B")
 
 
 def block_fwd(q, k, v, pos_q, pos_k, *, causal=True, window=None, scale=None,
@@ -110,13 +96,16 @@ def block_fwd_merge(q, k, v, o_acc, lse_acc, pos_q, pos_k, *, causal=True,
 def block_bwd(q, k, v, do, lse, delta, pos_q, pos_k, *, causal=True,
               window=None, scale=None, prefix_len=None, impl="ref"):
     """Flash backward for one block pair -> (dq, dk, dv) in float32, from
-    the global ``lse`` and ``delta = rowsum(do * o)``."""
+    the global ``lse`` and ``delta = rowsum(do * o)``. Batched (B, S)
+    positions run B7 on 'cuda'."""
     if impl == "cuda":
         if not _batched(pos_q, pos_k):
             return _flash.flash_attention_bwd(
                 q, k, v, do, lse, delta, pos_q, pos_k, causal=causal,
                 window=window, scale=scale, prefix_len=prefix_len)
-        _no_ragged_kernel(q, "block_bwd")
+        return _ragged_bwd.flash_attention_bwd_ragged(
+            q, k, v, do, lse, delta, pos_q, pos_k, causal=causal,
+            window=window, scale=scale, prefix_len=prefix_len)
     return _ref.block_attention_bwd(
         q, k, v, do, lse, delta, pos_q, pos_k, causal=causal, window=window,
         scale=scale, prefix_len=prefix_len)

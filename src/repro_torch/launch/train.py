@@ -10,8 +10,12 @@ Runs on the CUDA card by default and raises if there is none;
 
 Without ``--smoke`` the full-width model trains at the ``--shape`` sequence
 length with the batch ``--batch``, 1 by default (one card: the published
-shape's batch does not fit). The JAX launcher's other options raise ``NotImplementedError``
-until their part is ported (ROADMAP.md).
+shape's batch does not fit). ``--microbatches M`` accumulates gradients
+over M slices of the batch; ``--ckpt-dir D`` checkpoints every
+``max(steps // 2, 1)`` steps into ``D`` and, run again, resumes from the
+newest checkpoint there (as the JAX launcher does). The JAX launcher's
+other options raise ``NotImplementedError`` until their part is ported
+(ROADMAP.md).
 """
 
 import argparse
@@ -19,12 +23,10 @@ import argparse
 # JAX launcher options that raise, with the ROADMAP.md item that ports them
 _UNPORTED = {
     "--devices": "the multi-process SP communicator ('The main path', "
-                 "item 3)",
-    "--data": "the multi-process SP communicator ('The main path', item 3)",
+                 "item 5)",
+    "--data": "the multi-process SP communicator ('The main path', item 5)",
     "--plan": "plan persistence and the cost model (§A)",
     "--autotune": "plan/autotune.py (§A)",
-    "--ckpt-dir": "dist/checkpoint.py save / restore (§A)",
-    "--microbatches": "gradient accumulation (§A)",
     "--scheme ulysses": "core/ulysses.py (§A)",
     "--multi-pod": "multi-pod meshes (§A)",
     "--metrics-dump": "the obs registry (§A)",
@@ -52,13 +54,15 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--metrics", default=None)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--microbatches", type=int, default=None,
+                    help="grad-accumulation microbatches (default: 1)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint here; resume from it when it holds one")
     # the JAX launcher's other options, rejected until they are ported
     ap.add_argument("--devices", type=int, default=1)
     ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--plan", default=None)
     ap.add_argument("--autotune", action="store_true")
-    ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--metrics-dump", default=None)
     ap.add_argument("--trace-out", default=None)
@@ -67,8 +71,6 @@ def main(argv=None):
                      ("--data", args.data > 1),
                      ("--plan", bool(args.plan)),
                      ("--autotune", args.autotune),
-                     ("--ckpt-dir", bool(args.ckpt_dir)),
-                     ("--microbatches", args.microbatches > 1),
                      ("--scheme ulysses", args.scheme == "ulysses"),
                      ("--multi-pod", args.multi_pod),
                      ("--metrics-dump", bool(args.metrics_dump)),
@@ -98,17 +100,19 @@ def main(argv=None):
         shape = dataclasses.replace(SHAPES[args.shape],
                                     global_batch=args.batch or 1)
     plan = make_plan(cfg, shape, arch=args.arch, c=args.c,
-                     scheme=args.scheme)
+                     scheme=args.scheme, microbatches=args.microbatches)
     print(f"[train] plan: P_sp={plan.sp_size} scheme={plan.scheme} "
           f"C={plan.c} R={plan.r} data={plan.data} seq={plan.seq_len} "
-          f"batch={plan.global_batch} block={plan.block_impl} "
-          f"device={device}")
+          f"batch={plan.global_batch} microbatches={plan.microbatches} "
+          f"remat={plan.remat} block={plan.block_impl} device={device}")
 
     model = build_model(cfg, device=device, seed=args.seed)
     adam_cfg = adamw.AdamWConfig(learning_rate=args.lr, warmup_steps=5,
                                  decay_steps=max(args.steps, 10),
                                  state_dtype=cfg.opt_dtype)
     tcfg = trainer_lib.TrainerConfig(num_steps=args.steps, log_every=5,
+                                     ckpt_every=max(args.steps // 2, 1),
+                                     ckpt_dir=args.ckpt_dir,
                                      metrics_path=args.metrics,
                                      seed=args.seed)
     metrics = trainer_lib.train(model, plan, adam_cfg, tcfg, device=device)

@@ -11,11 +11,13 @@ keeps its einsum layout, so both packages compute the same products.
 ``to_jax_layout(named, cfg)`` is its inverse: per-layer tensors keyed by
 their ``named_parameters`` names (parameters, or their gradients) are
 restacked into the JAX tree, so tests compare the two leaf by leaf.
+``jax_tree`` / ``load_jax_tree`` do the same in the tensors' own dtype,
+for checkpoints in the JAX package's format.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -49,7 +51,7 @@ class Model(nn.Module):
     def param_count(self) -> int:
         return spec.count_params(self)
 
-    def loss(self, rt, batch, *, remat: str = "none"):
+    def loss(self, rt, batch, *, remat: str = "attn_out"):
         """The training loss of ``batch`` ({tokens, labels}, this rank's
         slice) under the runtime ``rt``."""
         return transformer.lm_loss(rt, self, batch, self.cfg, remat=remat)
@@ -66,78 +68,102 @@ def build_model(cfg: ModelConfig, device="cpu", seed: int = 0) -> Model:
                                                    device))
 
 
+def _layer_path(name: str, n_sub: int):
+    """(JAX tree path, period) of the port parameter ``name``: a layer
+    leaf ``layers.<i>.<rest>`` sits at ``stack/sub<i % n_sub>/<rest>``,
+    row ``i // n_sub`` of the stacked leaf; other leaves keep their path
+    and have no period."""
+    parts = name.split(".")
+    if parts[0] != "layers":
+        return tuple(parts), None
+    i = int(parts[1])
+    return ("stack", f"sub{i % n_sub}", *parts[2:]), i // n_sub
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def jax_tree(named: Mapping[str, torch.Tensor], cfg: ModelConfig,
+             device=None) -> Dict:
+    """The JAX parameter tree (nested dicts of tensors) holding ``named``,
+    a map from the port's parameter names (``layers.3.mixer.wq``, as
+    ``Model.named_parameters`` gives them) to tensors of those shapes: the
+    per-layer leaves are stacked along the JAX stack's leading period
+    dimension, in their dtype, on ``device`` (default: where they are)."""
+    n_sub = len(transformer.layer_pattern(cfg))
+    groups: Dict = {}
+    layers = set()
+    for name, t in named.items():
+        path, period = _layer_path(name, n_sub)
+        groups.setdefault(path, {})[period] = t.detach()
+        if period is not None:
+            layers.add(int(name.split(".")[1]))
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{len(layers)} layers named, config has "
+                         f"{cfg.num_layers}")
+    tree: Dict = {}
+    for path, rows in groups.items():
+        # one leaf at a time, so only one leaf's rows are copied at once
+        leaf = rows[None].to(device) if None in rows else torch.stack(
+            [rows[j].to(device) for j in range(len(rows))])
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+def from_jax_tree(tree, names, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The inverse of ``jax_tree``: the port parameter ``names`` mapped to
+    their rows (views) of the JAX-layout tree ``tree``."""
+    n_sub = len(transformer.layer_pattern(cfg))
+    n_periods = tree["stack"]["sub0"]["mixer"]["wq"].shape[0]
+    if n_periods * n_sub != cfg.num_layers:
+        raise ValueError(f"tree has {n_periods} periods of {n_sub} "
+                         f"layers, config has {cfg.num_layers}")
+    out = {}
+    for name in names:
+        path, period = _layer_path(name, n_sub)
+        src = tree
+        for key in path:
+            src = src[key]
+        out[name] = src if period is None else src[period]
+    return out
+
+
+def load_jax_tree(model: Model, tree) -> None:
+    """Copy the JAX-layout parameter tree ``tree`` (nested dicts of
+    tensors, stacked layers, as ``jax_tree`` makes it) into ``model``'s
+    parameters in place, casting to each parameter's dtype."""
+    named = dict(model.named_parameters())
+    rows = from_jax_tree(tree, named, model.cfg)
+    with torch.no_grad():
+        for name, param in named.items():
+            src = rows[name]
+            if tuple(src.shape) != tuple(param.shape):
+                raise ValueError(f"{name}: JAX leaf {tuple(src.shape)} vs "
+                                 f"port {tuple(param.shape)}")
+            param.copy_(src)
+
+
 def from_jax_params(tree, cfg: ModelConfig, device="cpu") -> Model:
     """The port's ``Model`` holding the JAX package's parameters ``tree``."""
-    pat = transformer.layer_pattern(cfg)
-    stack = tree["stack"]
-    n_periods = np.asarray(stack["sub0"]["mixer"]["wq"]).shape[0]
-    if n_periods * len(pat) != cfg.num_layers:
-        raise ValueError(f"tree has {n_periods} periods of {len(pat)} "
-                         f"layers, config has {cfg.num_layers}")
-    flat = {"embed": tree["embed"], "final_norm": tree["final_norm"],
-            "layers": [{"mixer": stack[f"sub{i % len(pat)}"]["mixer"],
-                        "mlp": stack[f"sub{i % len(pat)}"]["mlp"],
-                        "_period": i // len(pat)}
-                       for i in range(cfg.num_layers)]}
-    if "lm_head" in tree:
-        flat["lm_head"] = tree["lm_head"]
     model = Model(cfg, lambda s: torch.empty(
         s.shape, dtype=spec.DTYPES[s.dtype or cfg.param_dtype],
         device=device))
-
-    def fill(mod: nn.Module, src, period: Optional[int]):
-        for name, param in mod.named_parameters(recurse=False):
-            arr = np.asarray(src[name])
-            if period is not None:
-                arr = arr[period]
-            if tuple(arr.shape) != tuple(param.shape):
-                raise ValueError(f"{name}: JAX leaf {arr.shape} vs port "
-                                 f"{tuple(param.shape)}")
-            param.data.copy_(torch.from_numpy(np.array(arr, np.float32)))
-        for name, child in mod.named_children():
-            if isinstance(child, nn.ModuleList):
-                for i, layer in enumerate(child):
-                    fill(layer, src[name][i], src[name][i]["_period"])
-            else:
-                fill(child, src[name], period)
-
-    with torch.no_grad():
-        fill(model, flat, None)
+    load_jax_tree(model, _map_tree(
+        lambda a: torch.from_numpy(np.array(a, np.float32)), tree))
     return model
 
 
 def to_jax_layout(named: Mapping[str, torch.Tensor], cfg: ModelConfig
                   ) -> Dict:
-    """The JAX parameter tree (nested dicts of f32 numpy arrays) holding
-    ``named``, a map from the port's parameter names (``layers.3.mixer.wq``,
-    as ``Model.named_parameters`` gives them) to tensors of those shapes:
-    the per-layer leaves are stacked along the JAX stack's leading period
-    dimension. The inverse of ``from_jax_params``."""
-    pat = transformer.layer_pattern(cfg)
-    tree: Dict = {}
-    layers: Dict[int, Dict] = {}
-    for name, t in named.items():
-        arr = t.detach().float().cpu().numpy()
-        parts = name.split(".")
-        if parts[0] == "layers":
-            node = layers.setdefault(int(parts[1]), {})
-            parts = parts[2:]
-        else:
-            node = tree
-        for key in parts[:-1]:
-            node = node.setdefault(key, {})
-        node[parts[-1]] = arr
-    if len(layers) != cfg.num_layers:
-        raise ValueError(f"{len(layers)} layers named, config has "
-                         f"{cfg.num_layers}")
-
-    def stack(trees):
-        if isinstance(trees[0], dict):
-            return {k: stack([t[k] for t in trees]) for k in trees[0]}
-        return np.stack(trees)
-
-    tree["stack"] = {
-        f"sub{i}": stack([layers[j] for j in range(i, cfg.num_layers,
-                                                   len(pat))])
-        for i in range(len(pat))}
-    return tree
+    """``jax_tree`` of ``named`` with every leaf an f32 numpy array (for
+    comparing with the JAX package leaf by leaf). The inverse of
+    ``from_jax_params``."""
+    tree = jax_tree({n: t.detach().float().cpu() for n, t in named.items()},
+                    cfg)
+    return _map_tree(lambda t: t.numpy(), tree)

@@ -4,17 +4,30 @@ The JAX package scans a repeating *period* of sub-layers over stacked
 parameters; PyTorch runs eagerly, so the port keeps one module per layer
 (``layers[i].mixer`` / ``layers[i].mlp``) and loops. Only dense,
 all-attention stacks are ported; MoE, hybrid and SSM periods raise, naming
-the ROADMAP queue. Recompute (the JAX ``remat`` policies 'attn_out' and
-'full') is not ported: it changes no value, and the full-width model fits
-one card at seq 4096 without it.
+the ROADMAP queue.
+
+Recompute follows the JAX ``remat`` policies (``apply_stack``), with
+non-reentrant ``torch.utils.checkpoint`` regions in place of
+``jax.checkpoint`` around each period. 'attn_out' (the default, as in the
+JAX package) keeps per layer only the layer input and the attention
+block's output (JAX's ``save_only_these_names("attn_out")``): one region
+around ``attention_block`` and one around ``mlp_block``, so each layer's
+attention forward runs twice per step. 'full' keeps only the layer input
+(one region around the layer); 'none' keeps every activation. Recompute
+changes no value.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+import torch
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
+
+REMATS = ("none", "attn_out", "full")
 
 
 def layer_pattern(cfg: ModelConfig) -> List[Tuple[str, Optional[str]]]:
@@ -44,20 +57,38 @@ def lm_specs(cfg: ModelConfig):
 
 
 def apply_stack(rt, layers, x, cfg: ModelConfig, *, causal: bool = True,
-                prefix_len=None, remat: str = "none"):
-    """x: (B, S_local, D) -> (B, S_local, D) through every layer."""
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r}: recompute is not ported to repro_torch yet "
-            "(ROADMAP.md §A); use remat='none'")
-    for layer in layers:
-        x = blocks.attention_block(rt, layer.mixer, x, cfg, causal=causal,
-                                   window=cfg.window, prefix_len=prefix_len)
-        x = blocks.mlp_block(rt, layer.mlp, x, cfg)
+                prefix_len=None, remat: str = "attn_out"):
+    """x: (B, S_local, D) -> (B, S_local, D) through every layer, under the
+    recompute policy ``remat`` ('none' | 'attn_out' | 'full'; it only
+    matters while autograd records)."""
+    if remat not in REMATS:
+        raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
+
+    def attn(p, x):
+        return blocks.attention_block(rt, p, x, cfg, causal=causal,
+                                      window=cfg.window,
+                                      prefix_len=prefix_len)
+
+    def mlp(p, x):
+        return blocks.mlp_block(rt, p, x, cfg)
+
+    def layer_fn(layer, x):
+        return mlp(layer.mlp, attn(layer.mixer, x))
+
+    if remat == "none" or not torch.is_grad_enabled():
+        for layer in layers:
+            x = layer_fn(layer, x)
+    elif remat == "attn_out":
+        for layer in layers:
+            x = checkpoint(attn, layer.mixer, x, use_reentrant=False)
+            x = checkpoint(mlp, layer.mlp, x, use_reentrant=False)
+    else:
+        for layer in layers:
+            x = checkpoint(layer_fn, layer, x, use_reentrant=False)
     return x
 
 
-def lm_loss(rt, model, batch, cfg: ModelConfig, *, remat: str = "none"):
+def lm_loss(rt, model, batch, cfg: ModelConfig, *, remat: str = "attn_out"):
     """batch: {tokens, labels} (this rank's sequence slice). Returns the
     scalar mean loss."""
     if cfg.frontend_stub is not None:

@@ -1,0 +1,73 @@
+"""Gradient compression (the port's counterpart of ``repro.optim.grad``).
+
+int8 quantisation with a per-tensor scale, optional stochastic rounding,
+and an error-feedback buffer (1-bit-Adam style). On a multi-pod deployment
+the compressed form is what crosses the slow link; here the round trip is
+applied by ``train.step.build_train_step`` when
+``run_cfg.grad_compression == 'int8'``, as in the JAX package.
+
+The arithmetic is the JAX package's op for op in float32 (the division
+order, and round half to even in both ``jnp.round`` and ``torch.round``),
+so the deterministic path gives the same bits. Stochastic rounding draws
+its uniforms from an explicit ``torch.Generator`` in place of a JAX key:
+the two give different numbers from one seed, so only its distribution is
+comparable.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+
+def quantize_int8(x: torch.Tensor,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8 quantisation -> (int8 values, f32 scale);
+    stochastic rounding when ``generator`` is given (on x's device)."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().max(), 1e-12) / 127.0
+    y = xf / scale
+    if generator is not None:
+        y = torch.floor(y + torch.rand(y.shape, generator=generator,
+                                       device=y.device))
+    else:
+        y = torch.round(y)
+    return torch.clamp(y, -127, 127).to(torch.int8), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def int8_roundtrip(grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The compressed reduction's values (deterministic rounding), each in
+    its gradient's dtype."""
+    out = []
+    for g in grads:
+        q, s = quantize_int8(g)
+        out.append(dequantize_int8(q, s).to(g.dtype))
+    return out
+
+
+def error_feedback_compress(grads: Sequence[torch.Tensor],
+                            residual: Sequence[torch.Tensor]
+                            ) -> Tuple[List[torch.Tensor],
+                                       List[torch.Tensor]]:
+    """Compress grads + residual -> (decompressed, new residual). The
+    residual carries the quantisation error into the next step, so the
+    compressed trajectory converges to the uncompressed one."""
+    dec, res = [], []
+    for g, r in zip(grads, residual):
+        t = g.float() + r
+        q, s = quantize_int8(t)
+        d = dequantize_int8(q, s)
+        dec.append(d.to(g.dtype))
+        res.append(t - d)
+    return dec, res
+
+
+def zeros_like_residual(grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    return [torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+            for g in grads]

@@ -16,6 +16,7 @@ from typing import Optional
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.kernels.dispatch import IMPLS, resolve_impl
+from repro_torch.models.transformer import REMATS
 
 SCHEMES = ("startrail", "ring")    # 'ulysses' is not ported (ROADMAP §A)
 
@@ -49,7 +50,7 @@ class ExecutionPlan:
     kind: str = "decode"           # 'train' | 'prefill' | 'decode'
     scheme: str = "startrail"      # 'startrail' | 'ring' (C = 1)
     seq_scheme: str = "contiguous"
-    remat: str = "none"            # the only policy ported
+    remat: str = "attn_out"        # 'none' | 'attn_out' | 'full'
     microbatches: int = 1
 
     @property
@@ -93,6 +94,9 @@ class ExecutionPlan:
                 f"seq_len={self.seq_len}, P={sp}")
         if self.microbatches < 1:
             raise ValueError("microbatches must be >= 1")
+        if self.remat not in REMATS:
+            raise ValueError(f"remat must be one of {REMATS}, "
+                             f"got {self.remat!r}")
         if self.kind == "train":
             if self.global_batch % self.data:
                 raise ValueError(
@@ -129,14 +133,17 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
               microbatches: Optional[int] = None,
               block_impl: Optional[str] = None,
               kernel_impl: Optional[str] = None,
-              remat: str = "none") -> ExecutionPlan:
+              remat: str = "attn_out") -> ExecutionPlan:
     """Resolve one training run into a validated ExecutionPlan.
 
     The sequence layout is zigzag for a dense model's training attention
     (causal load balance) and contiguous otherwise; ring-block skipping is
     on for a sliding window over the contiguous layout, as in the JAX
     package. ``block_impl`` / ``kernel_impl`` default to 'cuda' (the plain
-    versions on CPU tensors).
+    versions on CPU tensors). ``remat`` defaults to 'attn_out', as in the
+    JAX plan. ``microbatches=None`` means 1: the JAX package picks it with
+    the cost model's ``choose_microbatches``, not ported yet (ROADMAP.md
+    §A); the per-device batch must divide by it.
     """
     if c is None:
         raise _no_cost_model("make_plan")

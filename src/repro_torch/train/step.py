@@ -9,10 +9,17 @@ times 1/n_devices, summed over the data and SP axes (the port stores every
 parameter whole, so no axis is "mentioned"; the identity on one card),
 then cast once to the parameter dtype.
 
+With ``microbatches = M > 1`` the step accumulates gradients as the JAX
+``_make_vg_island`` does: the per-device batch is cut into M equal slices
+of consecutive rows, each slice's gradients (in the parameter dtype) are
+added into f32 accumulators, and loss and gradients are the sums over M,
+before the reduction above. With ``grad_compression='int8'`` the step
+passes the reduced gradients through ``optim.grad.int8_roundtrip`` before
+AdamW, as the JAX step does.
+
 Not ported yet, and raising with their ROADMAP.md item: more than one
 device (the multi-process communicator with differentiable collectives is
-the main path's next item), ``microbatches > 1`` and
-``grad_compression != 'none'`` (§A), ``attention_scheme='ulysses'`` and
+the main path's next item), ``attention_scheme='ulysses'`` and
 ``multi_pod`` (§A).
 """
 
@@ -28,6 +35,9 @@ from repro_torch.dist.comm import SingleComm
 from repro_torch.models.factory import Model
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim import adamw
+from repro_torch.optim import grad as grad_lib
+
+COMPRESSIONS = ("none", "int8")
 
 
 def _unported(what: str, where: str = "§A") -> NotImplementedError:
@@ -80,17 +90,40 @@ def build_value_and_grad_fn(model: Model, run_cfg: RunConfig,
         raise _unported(
             "training at SP degree > 1 (it needs differentiable "
             "collectives: the multi-process communicator)",
-            "'The main path', item 3")
-    if run_cfg.microbatches > 1:
-        raise _unported("gradient accumulation (microbatches > 1)")
-    if run_cfg.grad_compression != "none":
-        raise _unported(f"grad_compression={run_cfg.grad_compression!r}")
+            "'The main path', item 5")
+    if run_cfg.grad_compression not in COMPRESSIONS:
+        raise ValueError(f"grad_compression must be one of {COMPRESSIONS}, "
+                         f"got {run_cfg.grad_compression!r}")
     _, params = trainable(model)
     inv = 1.0 / rt.sp_size()
+    mb = max(run_cfg.microbatches, 1)
+
+    def loss_and_grads(batch):
+        loss = model.loss(rt, batch, remat=run_cfg.remat)
+        return loss, torch.autograd.grad(loss, params)
+
+    def accumulate(batch):
+        rows = next(iter(batch.values())).shape[0]
+        if rows % mb:
+            raise ValueError(f"per-device batch {rows} not divisible by "
+                             f"microbatches={mb}")
+        n = rows // mb
+        loss_sum = torch.zeros((), dtype=torch.float32, device=rt.device)
+        g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in params]
+        for i in range(mb):
+            l_mb, g_mb = loss_and_grads(
+                {k: v[i * n:(i + 1) * n] for k, v in batch.items()})
+            with torch.no_grad():
+                loss_sum += l_mb.float()
+                for acc, g in zip(g_sum, g_mb):
+                    acc.add_(g)
+            del g_mb
+        return loss_sum / mb, [g.div_(mb) for g in g_sum]
 
     def vg_fn(batch: Dict[str, torch.Tensor]):
-        loss = model.loss(rt, batch, remat=run_cfg.remat)
-        grads = torch.autograd.grad(loss, params)
+        loss, grads = (loss_and_grads(batch) if mb == 1
+                       else accumulate(batch))
         with torch.no_grad():
             # reduce in f32, downcast once at the end
             grads = [rt.psum_batch(rt.psum_model(g.float() * inv)).to(p.dtype)
@@ -112,6 +145,8 @@ def build_train_step(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
 
     def step(opt_state, batch):
         loss, grads = vg_fn(batch)
+        if run_cfg.grad_compression == "int8":
+            grads = grad_lib.int8_roundtrip(grads)
         _, opt_state, metrics = adamw.apply(params, grads, opt_state,
                                             adam_cfg)
         metrics["loss"] = loss

@@ -1,5 +1,6 @@
 """Training loop (the port's counterpart of ``repro.train.trainer``): the
-step loop, straggler detection and a jsonl metrics stream.
+step loop, checkpoint and restart, straggler detection and a jsonl
+metrics stream.
 
 The run is described by a ``repro_torch.plan.ExecutionPlan``: the trainer
 builds its runtime and train step from the plan. It runs on the CUDA card
@@ -16,23 +17,32 @@ batch, run-ahead stays bounded, and the straggler detector measures real
 step durations. ``step_s`` is that step's dispatch plus the wait on the
 step before it.
 
-Checkpoint save and restore (``dist/checkpoint.py``) are not ported yet:
-``ckpt_dir`` raises (ROADMAP.md §A).
+With ``ckpt_dir`` the loop restores the parameters (in place) and the
+AdamW state from the newest step both trees completed
+(``checkpoint.latest_common_step``), resumes the data stream at that step,
+and every ``ckpt_every`` steps saves both trees asynchronously (the
+previous pair joined first), in the JAX package's format and layout:
+parameters as the JAX tree (``factory.jax_tree``: stacked layers, each in
+its dtype) in ``ckpt_dir``, the optimizer as ``{"mu", "nu", "step"}`` in
+``ckpt_dir/opt``. Either package's checkpoint restores in the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import pathlib
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
+from repro_torch.dist import checkpoint
 from repro_torch.dist.elastic import StragglerDetector
 from repro_torch.engine.engine import resolve_device
-from repro_torch.models.factory import Model
+from repro_torch.models.factory import (Model, from_jax_tree, jax_tree,
+                                        load_jax_tree)
 from repro_torch.optim import adamw
 from repro_torch.plan.plan import ExecutionPlan
 from repro_torch.train.step import to_device
@@ -41,7 +51,8 @@ from repro_torch.train.step import to_device
 @dataclasses.dataclass
 class TrainerConfig:
     num_steps: int = 100
-    ckpt_dir: Optional[str] = None     # not ported: set, it raises
+    ckpt_every: int = 50
+    ckpt_dir: Optional[str] = None
     log_every: int = 10
     metrics_path: Optional[str] = None
     seed: int = 0
@@ -57,16 +68,45 @@ def _step_done_marker(device: torch.device):
     return ev
 
 
+def opt_tree(opt: Dict, names: Sequence[str], cfg, device=None) -> Dict:
+    """The AdamW state in the JAX ``init_state`` layout: ``mu`` and ``nu``
+    as parameter trees, ``step`` an int32 scalar."""
+    return {"mu": jax_tree(dict(zip(names, opt["mu"])), cfg, device),
+            "nu": jax_tree(dict(zip(names, opt["nu"])), cfg, device),
+            "step": torch.tensor(opt["step"], dtype=torch.int32)}
+
+
+def restore_latest(ckpt_dir, model: Model, names: Sequence[str],
+                   opt: Dict) -> Optional[int]:
+    """Load the newest step completed in both ``ckpt_dir`` (parameters)
+    and ``ckpt_dir/opt`` into ``model`` and ``opt`` in place; returns the
+    step, or None when there is none."""
+    opt_dir = pathlib.Path(ckpt_dir) / "opt"
+    last = checkpoint.latest_common_step(ckpt_dir, opt_dir)
+    if last is None:
+        return None
+    cfg = model.cfg
+    load_jax_tree(model, checkpoint.restore(
+        ckpt_dir, last, jax_tree(dict(model.named_parameters()), cfg,
+                                 "meta")))
+    tree = checkpoint.restore(opt_dir, last, opt_tree(opt, names, cfg,
+                                                       "meta"))
+    with torch.no_grad():
+        for key in ("mu", "nu"):
+            rows = from_jax_tree(tree[key], names, cfg)
+            for name, dst in zip(names, opt[key]):
+                dst.copy_(rows[name])
+    opt["step"] = int(tree["step"])
+    return last
+
+
 def train(model: Model, plan: ExecutionPlan, adam_cfg: adamw.AdamWConfig,
           tcfg: TrainerConfig, data_source=None, device=None) -> Dict:
     """Run the loop on ``device`` (default: the CUDA card, raising if there
     is none; the model must live there); returns the last step's metrics.
     ``data_source`` (default ``SyntheticLM`` of the plan's shape) has
-    ``get_batch(step) -> {tokens, labels}`` of numpy arrays."""
-    if tcfg.ckpt_dir:
-        raise NotImplementedError(
-            "checkpointing (dist/checkpoint.py save / restore) is not "
-            "ported to repro_torch yet (ROADMAP.md §A)")
+    ``get_batch(step) -> {tokens, labels}`` of numpy arrays. Restores from
+    ``tcfg.ckpt_dir`` if it holds a checkpoint (fault-tolerant restart)."""
     device = resolve_device(device)
     if model.device != device:
         raise ValueError(f"model lives on {model.device}, trainer on "
@@ -79,10 +119,17 @@ def train(model: Model, plan: ExecutionPlan, adam_cfg: adamw.AdamWConfig,
                                   seq_scheme=rt.st_cfg.seq_scheme,
                                   sp_size=plan.sp_size)
     opt = adamw.init_state(sh["params"], adam_cfg)
+    start = 0
+    if tcfg.ckpt_dir:
+        last = restore_latest(tcfg.ckpt_dir, model, sh["names"], opt)
+        if last is not None:
+            start = last
+            print(f"[trainer] restored step {last}", flush=True)
 
-    prefetch = Prefetcher(data_source, start_step=0)
+    prefetch = Prefetcher(data_source, start_step=start)
     detector = StragglerDetector()
     metrics_f = open(tcfg.metrics_path, "a") if tcfg.metrics_path else None
+    pending_ckpt = None
     last_metrics: Dict = {}
     # (step_i, on-device metrics, straggler flag, host phase timings)
     # buffered between flushes
@@ -104,7 +151,7 @@ def train(model: Model, plan: ExecutionPlan, adam_cfg: adamw.AdamWConfig,
 
     prev_done = None
     try:
-        for step_i in range(tcfg.num_steps):
+        for step_i in range(start, tcfg.num_steps):
             detector.step_start()
             t0 = time.perf_counter()
             _, batch_np = prefetch.next()
@@ -119,18 +166,40 @@ def train(model: Model, plan: ExecutionPlan, adam_cfg: adamw.AdamWConfig,
             t2 = time.perf_counter()
             prev_done = done
             straggling = detector.step_end()
-            phases = {"data_s": t1 - t0, "step_s": t2 - t1}
+            phases = {"data_s": t1 - t0, "step_s": t2 - t1, "ckpt_s": 0.0}
             pending_metrics.append((step_i, metrics, straggling, phases))
-            if ((step_i + 1) % tcfg.log_every == 0 or step_i == 0
-                    or step_i + 1 == tcfg.num_steps):
+            ckpt_boundary = (tcfg.ckpt_dir
+                             and (step_i + 1) % tcfg.ckpt_every == 0)
+            if ckpt_boundary:
+                t3 = time.perf_counter()
+                for t in pending_ckpt or ():
+                    t.join()
+                # both writes async: save() snapshots to the host in this
+                # thread before it returns, and a restart takes the newest
+                # step common to both trees, so a crash mid-write costs
+                # the torn step, never consistency
+                pending_ckpt = [
+                    checkpoint.save(tcfg.ckpt_dir, step_i + 1, jax_tree(
+                        dict(zip(sh["names"], sh["params"])), model.cfg,
+                        "cpu"), blocking=False),
+                    checkpoint.save(pathlib.Path(tcfg.ckpt_dir) / "opt",
+                                    step_i + 1, opt_tree(
+                                        opt, sh["names"], model.cfg, "cpu"),
+                                    blocking=False),
+                ]
+                phases["ckpt_s"] = time.perf_counter() - t3
+            if ((step_i + 1) % tcfg.log_every == 0 or step_i == start
+                    or ckpt_boundary or step_i + 1 == tcfg.num_steps):
                 m = flush_metrics()
-                if (step_i + 1) % tcfg.log_every == 0 or step_i == 0:
+                if (step_i + 1) % tcfg.log_every == 0 or step_i == start:
                     print(f"[trainer] step {step_i + 1} "
                           f"loss={m['loss']:.4f} "
                           f"gnorm={m['grad_norm']:.3f}", flush=True)
     finally:
         prefetch.stop()
         flush_metrics()
+        for t in pending_ckpt or ():
+            t.join()
         if metrics_f:
             metrics_f.close()
     return last_metrics

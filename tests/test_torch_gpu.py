@@ -7,13 +7,15 @@ tests). The file imports no JAX: the machine with the card has none. Run on
 the card with ``python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 
 The case tables and input builders are shared with
-``tests/test_torch_kernels.py``, ``tests/test_torch_legacy.py`` (B5) and
-``tests/test_torch_prefix.py`` (B6), which hold the plain versions against
-the JAX Pallas kernels on the CPU. Tolerances: forward 2e-5 for f32 inputs (the
-JAX kernel tests' own), 1e-4 for bf16 inputs upcast to f32 in both versions
-(only the summation order differs); backward (B3) 3e-4, the JAX
-``test_bwd_matches_ref`` bound; dead rows exact.
+``tests/test_torch_kernels.py`` (B1-B4, B7), ``tests/test_torch_legacy.py``
+(B5) and ``tests/test_torch_prefix.py`` (B6), which hold the plain versions
+against the JAX Pallas kernels on the CPU. Tolerances: forward 2e-5 for f32
+inputs (the JAX kernel tests' own), 1e-4 for bf16 inputs upcast to f32 in
+both versions (only the summation order differs); backward (B3, B7) 3e-4,
+the JAX ``test_bwd_matches_ref`` bound; dead rows exact.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -22,7 +24,7 @@ import torch
 from repro_torch.core import startrail as st_torch
 from repro_torch.core.combine import NEG_INF
 from repro_torch.kernels import (flash_attention, paged_decode,
-                                 paged_prefill, ragged_prefill)
+                                 paged_prefill, ragged_bwd, ragged_prefill)
 
 TOL = 2e-5
 
@@ -213,6 +215,43 @@ def _assert_grads(got, want, lse, tol=BWD_TOL):
                                    rtol=tol, err_msg=name)
     dead = np.swapaxes(np.asarray(lse) <= NEG_INF / 2, 1, 2)  # (B, Sq, Hq)
     assert (np.asarray(got[0])[dead] == 0.0).all()
+
+
+RAGGED_BWD_CASES = {
+    # B, Sq, Sk, Hq, Hkv, D, causal, window, zero_row: the cases of the JAX
+    # tests/test_kernels.py::test_bwd_ragged_matches_ref, each row of the
+    # batch at its own offset, plus a batch with a zero-length row
+    "gqa": (2, 64, 64, 4, 2, 32, True, None, None),
+    "mqa_rect": (2, 64, 128, 4, 1, 32, True, None, None),
+    "window_non_pow2": (1, 96, 96, 2, 2, 32, True, 24, None),
+    "full": (2, 64, 64, 2, 2, 32, False, None, None),
+    # row 1's keys all sit past its queries: lse -1e30 on every head
+    "zero_length_row": (3, 77, 77, 8, 2, 80, True, None, 1),
+}
+
+
+def _ragged_bwd_inputs(B, Sq, Sk, Hq, Hkv, D, causal, window, zero_row,
+                       seed=0):
+    """q, k, v, do, the global lse and delta of the block pair (from the
+    plain forward) and per-row positions pos_q (B,Sq), pos_k (B,Sk): row b
+    sits at offset 3b (the JAX test's layout); ``zero_row``'s keys are
+    pushed past every query."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)
+    k = rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32)
+    do = rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)
+    off = 3 * np.arange(B, dtype=np.int32)[:, None]
+    pos_q = off + np.arange(Sq, dtype=np.int32)[None]
+    pos_k = off + (np.arange(Sk, dtype=np.int32) + (Sq - Sk) // 2)[None]
+    if zero_row is not None:
+        pos_k[zero_row] += 2 * (Sq + Sk)
+    o, lse = ragged_prefill.ragged_prefill_fwd_plain(
+        _t(q), _t(k), _t(v), _t(pos_q), _t(pos_k), causal=causal,
+        window=window)
+    delta = np.einsum("bshd,bshd->bhs", do, o.numpy())
+    return (q, k, v, do, lse.numpy(), delta.astype(np.float32),
+            np.ascontiguousarray(pos_q), np.ascontiguousarray(pos_k))
 
 
 # ---------------------------------------------------------------------------
@@ -415,7 +454,7 @@ def test_paged_prefill_kernel_matches_plain(cuda_device, case, dtype):
 @pytest.mark.gpu
 def test_batched_positions_route_to_b5(cuda_device):
     """``dispatch.block_fwd`` and ``block_fwd_merge`` with (B, S) positions
-    launch B5 on CUDA tensors; only the backward (B7) still raises."""
+    launch B5 on CUDA tensors, and ``block_bwd`` launches B7."""
     from repro_torch.kernels import dispatch
 
     arrs = _ragged_inputs(*RAGGED_CASES["ragged_rows"][:6], "lengths")
@@ -429,5 +468,77 @@ def test_batched_positions_route_to_b5(cuda_device):
     torch.cuda.synchronize()
     assert ragged_prefill.LAUNCHES == {"B5": 2}
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
-    with pytest.raises(NotImplementedError, match="B7"):
-        dispatch.block_bwd(q, k, v, q, lse, lse, pq, pk, impl="cuda")
+    do = torch.randn_like(q)
+    delta = torch.einsum("bshd,bshd->bhs", do, o).contiguous()
+    ragged_bwd.reset_launches()
+    flash_attention.reset_launches()
+    got = dispatch.block_bwd(q, k, v, do, lse, delta, pq, pk, impl="cuda")
+    torch.cuda.synchronize()
+    assert ragged_bwd.LAUNCHES == {"B7": 1}
+    assert flash_attention.LAUNCHES["B3"] == 0
+    want = ragged_bwd.flash_attention_bwd_ragged_plain(q, k, v, do, lse,
+                                                       delta, pq, pk)
+    _assert_grads([g.cpu().numpy() for g in got],
+                  [w.cpu().numpy() for w in want], lse.cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(RAGGED_BWD_CASES))
+def test_ragged_bwd_kernel_matches_plain(cuda_device, case, dtype):
+    arrs = _ragged_bwd_inputs(*RAGGED_BWD_CASES[case])
+    causal, window, zero_row = RAGGED_BWD_CASES[case][6:]
+    dt = getattr(torch, dtype)
+    args = [_t(x).to(cuda_device, dt) for x in arrs[:4]] + \
+        [_t(x).to(cuda_device) for x in arrs[4:]]
+    kw = dict(causal=causal, window=window)
+    before = ragged_bwd.LAUNCHES["B7"]
+    got = ragged_bwd.flash_attention_bwd_ragged(*args, **kw)
+    torch.cuda.synchronize()
+    assert ragged_bwd.LAUNCHES["B7"] == before + 1
+    want = ragged_bwd.flash_attention_bwd_ragged_plain(*args, **kw)
+    _assert_grads([g.cpu().numpy() for g in got],
+                  [w.cpu().numpy() for w in want], arrs[4])
+    if zero_row is not None:
+        # the zero-length row: dq = 0 and nothing into dk, dv, exactly
+        assert all(bool((g[zero_row] == 0).all()) for g in got)
+    again = ragged_bwd.flash_attention_bwd_ragged(*args, **kw)
+    for a, b in zip(got, again):           # no atomics: the same bits
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", ["none", "attn_out", "full"])
+def test_recompute_reruns_the_attention_forward(cuda_device, remat):
+    """A training step of a 2-layer model launches B3 once per layer and B2
+    once per layer without recompute, twice with it ('attn_out', 'full');
+    the loss and gradients are those of remat='none' within f32 rounding
+    (the recomputed forward runs the same kernels on the same inputs)."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.models.factory import build_model
+    from repro_torch.train import step as train_step
+
+    # the smoke model with a head width the kernels take
+    cfg = dataclasses.replace(registry.get_smoke("h2o-danube-1.8b"),
+                              head_dim=32)
+    model = build_model(cfg, device=cuda_device, seed=0)
+    shape = ShapeConfig("t", 64, 2, "train")
+    rng = np.random.default_rng(0)
+    batch = {n: _t(rng.integers(0, cfg.vocab_size, (2, 64),
+                                dtype=np.int32)).to(cuda_device)
+             for n in ("tokens", "labels")}
+    out = {}
+    for r in dict.fromkeys(("none", remat)):
+        vg_fn, _ = train_step.build_value_and_grad_fn(
+            model, RunConfig(remat=r), shape)
+        flash_attention.reset_launches()
+        out[r] = vg_fn(batch)
+        torch.cuda.synchronize()
+        L = cfg.num_layers
+        assert flash_attention.LAUNCHES == {
+            "B1": 0, "B2": L * (1 if r == "none" else 2), "B3": L}
+    (loss0, g0), (loss1, g1) = out["none"], out[remat]
+    torch.testing.assert_close(loss1, loss0, rtol=1e-6, atol=0)
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

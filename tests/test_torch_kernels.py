@@ -1,10 +1,12 @@
 """repro_torch kernel modules vs the JAX Pallas kernels (interpret mode).
 
 The port's ``flash_attention_fwd`` (B1, and B2 with a running accumulator),
-``flash_attention_bwd`` (B3) and ``paged_decode_attention`` (B4) run their
-plain PyTorch versions on CPU tensors; they are held against
-``repro.kernels.flash_attention`` and ``repro.kernels.paged_decode`` run
-with ``interpret=True``, as ``tests/test_kernels.py`` runs them. Inputs are
+``flash_attention_bwd`` (B3), ``paged_decode_attention`` (B4) and
+``flash_attention_bwd_ragged`` (B7) run their plain PyTorch versions on CPU
+tensors; they are held against ``repro.kernels.flash_attention`` (B7: its
+batched-positions route, ``_flash_attention_bwd_ragged``) and
+``repro.kernels.paged_decode`` run with ``interpret=True``, as
+``tests/test_kernels.py`` runs them. Inputs are
 made with numpy from a seed and handed to both packages. Tolerance 2e-5 in
 f32 for the forward kernels (the JAX kernel tests' own) and 3e-4 for the
 backward (``test_bwd_matches_ref``'s); dead rows (no visible key) must be
@@ -23,10 +25,12 @@ import torch
 from repro.kernels import flash_attention as jax_flash
 from repro.kernels import paged_decode as jax_paged
 from repro_torch.core.combine import NEG_INF
-from repro_torch.kernels import flash_attention, paged_decode
+from repro_torch.kernels import dispatch, flash_attention, paged_decode
+from repro_torch.kernels import ragged_bwd
 from test_torch_gpu import (BWD_CASES, FWD_CASES, PAGED_CASES,
-                            _assert_grads, _assert_partials, _bwd_inputs,
-                            _fwd_inputs, _paged_inputs, _t)
+                            RAGGED_BWD_CASES, _assert_grads,
+                            _assert_partials, _bwd_inputs, _fwd_inputs,
+                            _paged_inputs, _ragged_bwd_inputs, _t)
 
 
 @pytest.mark.parametrize("merge", [False, True], ids=["B1", "B2"])
@@ -89,3 +93,29 @@ def test_paged_decode_plain_matches_jax(case):
     _assert_partials(o_t.numpy(), lse_t.numpy(), o_j, lse_j)
     # the inactive slot is dead on every head
     assert (lse_t[-1].numpy() == np.float32(NEG_INF)).all()
+
+
+@pytest.mark.parametrize("case", sorted(RAGGED_BWD_CASES))
+def test_ragged_bwd_plain_matches_jax(case):
+    """B7's plain version (and ``dispatch.block_bwd(impl='cuda')`` with
+    (B, S) positions on CPU tensors) against the JAX flash backward with
+    per-row positions in interpret mode."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window, zero_row = RAGGED_BWD_CASES[case]
+    arrs = _ragged_bwd_inputs(*RAGGED_BWD_CASES[case])
+    want = jax_flash.flash_attention_bwd(
+        *(jnp.asarray(x) for x in arrs), causal=causal, window=window,
+        interpret=True)
+    ragged_bwd.reset_launches()
+    got = ragged_bwd.flash_attention_bwd_ragged(*(_t(x) for x in arrs),
+                                                causal=causal, window=window)
+    routed = dispatch.block_bwd(*(_t(x) for x in arrs), causal=causal,
+                                window=window, impl="cuda")
+    assert ragged_bwd.LAUNCHES == {"B7": 0}
+    for a, b in zip(got, routed):
+        assert torch.equal(a, b)
+    _assert_grads([g.numpy() for g in got], want, arrs[4])
+    if zero_row is not None:
+        assert (arrs[4][zero_row] == np.float32(NEG_INF)).all()
+        for g, w in zip(got, want):
+            assert (g[zero_row] == 0).all()
+            assert (np.asarray(w)[zero_row] == 0).all()
