@@ -10,7 +10,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               the ``-Xptxas -v`` register / shared-memory / spill summary
   3. kernels  each CUDA kernel against its plain PyTorch version on the card
               (B1, B2, B3 at the 1024-token shapes, B2 and B3 again at the
-              training shape, seq 4096, B4 at a decode step, B5 on ragged
+              training shape, seq 4096, B3 on one 12288-token block of 4
+              query heads over one kv head, B4 at a decode step, B5 on ragged
               rows and the legacy decode shape, B6 on a 256-query chunk
               after cached prefixes, B7 on ragged rows with offsets and a
               zero-length row, rectangular MQA, a window over 1000 rows and
@@ -107,6 +108,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 1e-4}       # see phase_kernels
 NEG_INF = -1e30
 BWD_TOL = 3e-4                                   # see phase_kernels
+LONG_BWD_SEQ = 12288                             # B3's long-block check
 REPLACES = {
     "B1": "src/repro/kernels/flash_attention.py:125",
     "B2": "src/repro/kernels/flash_attention.py:148",
@@ -257,7 +259,7 @@ def bwd_cases():
     }
 
 
-def bwd_inputs(pos_q, pos_k, window, dtype, dev, seed=0):
+def bwd_inputs(pos_q, pos_k, window, dtype, dev, seed=0, heads=(32, 8)):
     """q, k, v, do in ``dtype`` and the global lse and delta of full
     attention over the block (delta from o rounded to q's dtype, as
     ``core.startrail.startrail_backward`` computes it)."""
@@ -267,10 +269,11 @@ def bwd_inputs(pos_q, pos_k, window, dtype, dev, seed=0):
 
     g = torch.Generator(device=dev).manual_seed(seed)
     sq, sk = pos_q.numel(), pos_k.numel()
-    q = torch.randn((1, sq, 32, 80), generator=g, device=dev).to(dtype)
-    k = torch.randn((1, sk, 8, 80), generator=g, device=dev).to(dtype)
-    v = torch.randn((1, sk, 8, 80), generator=g, device=dev).to(dtype)
-    do = torch.randn((1, sq, 32, 80), generator=g, device=dev).to(dtype)
+    hq, hkv = heads
+    q = torch.randn((1, sq, hq, 80), generator=g, device=dev).to(dtype)
+    k = torch.randn((1, sk, hkv, 80), generator=g, device=dev).to(dtype)
+    v = torch.randn((1, sk, hkv, 80), generator=g, device=dev).to(dtype)
+    do = torch.randn((1, sq, hq, 80), generator=g, device=dev).to(dtype)
     o, lse = fa.flash_attention_fwd_plain(q, k, v, pos_q, pos_k,
                                           window=window)
     delta = torch.einsum("bshd,bshd->bhs", do.float(),
@@ -287,6 +290,13 @@ def grad_err(got, want, lse, tol):
                  for a, b in zip(got, want))
     dead = (lse <= NEG_INF / 2).transpose(1, 2)      # (B, Sq, H)
     return err, within and bool((got[0][dead] == 0).all()), int(dead.sum())
+
+
+def scaled_err(got, want):
+    """max |g - g_ref| / (1 + |g_ref|) over dq, dk, dv: what ``grad_err``'s
+    tolerance check bounds by ``tol``."""
+    return max(float(((a - b).abs() / (1 + b.abs())).max())
+               for a, b in zip(got, want))
 
 
 def bwd_work(q, k, pos_q, pos_k, pairs):
@@ -548,6 +558,8 @@ def phase_kernels(dev):
     rows = {n: {"name": n, "route": "cuda", "source": SOURCES[n],
                 "replaces": REPLACES[n], "max_abs_err": 0.0}
             for n in KERNELS}
+    for n in ("B3", "B7"):
+        rows[n]["max_scaled_err"] = 0.0
     checked = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
@@ -584,6 +596,8 @@ def phase_kernels(dev):
                   f"B3 {case} {dname}: two runs differ (no atomics: they "
                   f"must give the same bits)")
             rows["B3"]["max_abs_err"] = max(rows["B3"]["max_abs_err"], err)
+            rows["B3"]["max_scaled_err"] = max(rows["B3"]["max_scaled_err"],
+                                               scaled_err(got, want))
             checked.append(f"B3/{case}/{dname}")
     for case, (sp, rank, window, cls) in paged_cases().items():
         q, pk_, pv_, table, cl = paged_inputs(dev, sp, cls)
@@ -649,6 +663,8 @@ def phase_kernels(dev):
                   f"B7 {case} {dname}: two runs differ (no atomics: they "
                   f"must give the same bits)")
             rows["B7"]["max_abs_err"] = max(rows["B7"]["max_abs_err"], err)
+            rows["B7"]["max_scaled_err"] = max(rows["B7"]["max_scaled_err"],
+                                               scaled_err(got, want))
             checked.append(f"B7/{case}/{dname}")
             del got, want, again, args
 
@@ -742,8 +758,30 @@ def phase_kernels(dev):
     b3_err, ok, _ = grad_err(got, want, lse, BWD_TOL)
     check(ok, f"B3 train_seq{S} bfloat16: max err {b3_err} (tol {BWD_TOL})")
     rows["B3"]["max_abs_err"] = max(rows["B3"]["max_abs_err"], b3_err)
+    b3_scaled = scaled_err(got, want)
+    rows["B3"]["max_scaled_err"] = max(rows["B3"]["max_scaled_err"],
+                                       b3_scaled)
     checked.append(f"B3/train_seq{S}/bfloat16")
     del got, want
+    # one long block, 12288 tokens of 4 query heads over one kv head: dk
+    # sums 4 x 12288 query rows, dq 12288 keys. The tensor cores' f32
+    # accumulation truncates, so one MMA chain over the whole block would
+    # drift past BWD_TOL; each tile's share is summed apart
+    pl = torch.arange(LONG_BWD_SEQ, dtype=torch.int32, device=dev)
+    largs = bwd_inputs(pl, pl, LONG_BWD_SEQ, torch.bfloat16, dev, seed=3,
+                       heads=(4, 1))
+    got = fa.flash_attention_bwd(*largs, pl, pl, window=LONG_BWD_SEQ)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(*largs, pl, pl, window=LONG_BWD_SEQ)
+    long_err, ok, _ = grad_err(got, want, largs[4], BWD_TOL)
+    long_scaled = scaled_err(got, want)
+    check(ok, f"B3 long_seq{LONG_BWD_SEQ} bfloat16: max err {long_err} "
+              f"(scaled {long_scaled}, tol {BWD_TOL})")
+    rows["B3"]["max_abs_err"] = max(rows["B3"]["max_abs_err"], long_err)
+    rows["B3"]["max_scaled_err"] = max(rows["B3"]["max_scaled_err"],
+                                       long_scaled)
+    checked.append(f"B3/long_seq{LONG_BWD_SEQ}/bfloat16")
+    del got, want, largs
     o2, lse2 = fa.flash_attention_fwd(q, k, v, pos, pos, o_acc, lse_acc,
                                       window=4096)
     torch.cuda.synchronize()
@@ -837,8 +875,12 @@ def phase_kernels(dev):
                         "positions, kv heads repeated beforehand, timed "
                         "alone"},
          B2_seq4096=b2_4096, B3_seq4096_max_abs_err=b3_err,
+         B3_seq4096_max_scaled_err=b3_scaled,
+         **{f"B3_long_seq{LONG_BWD_SEQ}_max_scaled_err": long_scaled},
+         bf16_bwd_occupancy_seq4096=fa.bwd_occupancy(80, S, S),
          **{n: {k: r[k] for k in ("ms", "plain_ms", "library_ms",
-                                   "bound_ms", "bound_by", "max_abs_err")}
+                                   "bound_ms", "bound_by", "max_abs_err",
+                                   "max_scaled_err") if k in r}
             for n, r in rows.items()})
     return rows
 

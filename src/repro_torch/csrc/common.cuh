@@ -1,10 +1,15 @@
 // Shared helpers of the repro_torch CUDA kernels (sm_90a).
 //
-// Tiles are staged in shared memory as float32 whatever the input type, so
-// every product and reduction runs in f32, as in the JAX package's kernels.
+// The CUDA-core kernels stage their tiles in shared memory as float32
+// whatever the input type (load_rows), so every product and reduction runs
+// in f32, as in the JAX package's kernels. The tensor-core kernels (the
+// bf16 backward of flash_bwd.cuh) keep bf16 tiles in shared memory, filled
+// by cp.async, and multiply with mma.sync m16n8k16 (bf16 in, f32
+// accumulate) fed by ldmatrix: the primitives at the end of this file.
 #pragma once
 
 #include <climits>
+#include <cmath>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,6 +53,20 @@ struct Mask {
     }
     if (has_prefix) l |= kmin < prefix_len;
     return l;
+  }
+
+  // is every pair of such a tile visible? (then visible() may be skipped:
+  // it would return true for each pair)
+  __device__ inline bool full(int qmin, int qmax, int kmin, int kmax) const {
+    const bool pre = has_prefix && kmax < prefix_len;
+    bool f = true;
+    if (causal) f &= kmax <= qmin || pre;
+    if (has_window) {
+      bool w = (qmax - kmin) < window;
+      if (!causal) w &= (kmax - qmin) < window;
+      f &= w || pre;
+    }
+    return f;
   }
 };
 
@@ -125,6 +144,82 @@ __device__ inline void load_rows(float* dst, int ld, const T* src,
 #pragma unroll
     for (int u = 0; u < VEC; ++u) dst[r * ld + c * VEC + u] = vals[u];
   }
+}
+
+// ---- tensor-core primitives: cp.async, ldmatrix, mma.sync (bf16) ----
+
+// 16 bytes global -> shared, asynchronously; valid = false zero-fills them
+// (src must still be a mapped address: callers pass the tile's first row)
+__device__ inline void cp_async_16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes (one int or float) global -> shared, zero-filled if !valid
+__device__ inline void cp_async_4(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 b16 matrices from shared memory; lane i addresses row i % 8 of
+// matrix i / 8. Plain: lane l gets row l / 4, columns 2 (l % 4) + {0, 1};
+// .trans: column l / 4, rows 2 (l % 4) + {0, 1}.
+__device__ inline void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ inline void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c += a b for a 16x16 bf16 A fragment (row-major), a 16x8 bf16 B fragment
+// (b0: k rows 0-7, b1: k rows 8-15) and a 16x8 f32 accumulator. Lane l
+// holds c rows l / 4 (c[0], c[1]) and l / 4 + 8 (c[2], c[3]), columns
+// 2 (l % 4) + {0, 1}; a[0..3] are the same rows for k columns
+// 2 (l % 4) + {0, 1} (a[0], a[1]) and + 8 (a[2], a[3]).
+__device__ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x, y) as a bf16 pair hi = bf16(x, y) and the pair of what it left out,
+// lo = bf16(x - hi.x, y - hi.y): hi + lo carries x and y to ~2^-16 of
+// their size, so two MMAs (hi, then lo) keep an f32 operand's precision.
+// Zero splits into (0, 0).
+__device__ inline void split_bf16x2(float x, float y, uint32_t& hi,
+                                    uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = reinterpret_cast<const uint32_t&>(h);
+  lo = reinterpret_cast<const uint32_t&>(l);
 }
 
 }  // namespace repro_torch

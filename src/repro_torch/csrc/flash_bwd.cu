@@ -8,14 +8,18 @@
 //                                             G * n_q), accumulate over the
 //                                             group's query heads and tiles)
 // It is the kernel pair of flash_bwd.cuh with shared (S,) positions (batch
-// strides 0). Semantics and design are described there.
+// strides 0). Semantics and design are described there: on bf16 inputs
+// mma.sync tensor-core tiles fed by ldmatrix from cp.async double buffers,
+// P and dS as bf16 hi/lo pairs; on f32 inputs CUDA-core f32 tiles.
 //
 // Bound on an H100: at the training slice's shape (Sq = Sk = 4096, 32 query
 // heads of D = 80, 8 kv heads, causal, bf16 in) the five products (the
 // recomputed scores, dp, dq, dk, dv) are 10*D FLOPs per visible (q, k) pair
 // and query head: 0.21 TFLOP, 0.22 ms at the bf16 tensor-core peak; the
 // ~116 MB moved (q, k, v, dO, lse, delta in; dq, dk, dv out in f32) take
-// 0.035 ms at 3.35 TB/s. So it is bound by operations.
+// 0.035 ms at 3.35 TB/s. So it is bound by operations. The hi/lo pairs
+// double the dq, dk and dv products: the kernels issue 20*D FLOPs of MMA
+// per visible pair and query head, twice what the bound counts.
 
 #include "flash_bwd.cuh"
 
@@ -33,4 +37,16 @@ extern "C" int repro_flash_bwd(
             Hq, Hkv, 0, 0,
             Mask{causal, has_window, window, has_prefix, prefix_len}, scale};
   return (int)run_bwd(a, D, dtype, stream);
+}
+
+// Resident CTAs per SM and dynamic shared memory (bytes) of the bf16 dq and
+// dk/dv kernels at (Sq, Sk, D): out[0..3] = dq CTAs, dk/dv CTAs, dq bytes,
+// dk/dv bytes. Returns the cudaError_t of the first query that fails, else
+// 0.
+extern "C" int repro_flash_bwd_occupancy(int Sq, int Sk, int D, int* out) {
+  using namespace repro_torch;
+  BwdArgs a{};
+  a.Sq = Sq;
+  a.Sk = Sk;
+  return (int)bwd_occupancy(a, D, out);
 }

@@ -18,23 +18,62 @@
 // batch (B3), a stride of S reads per-row (B,S) positions (B7), so tile
 // liveness is decided per (b, tile).
 //
-// Design, simple first: two kernels, each a loop inside one CTA in place of
-// the TPU's sequential grid axis, in a fixed order and without atomics, so
-// two runs give the same bits (as the JAX two-kernel design does).
-//   dq kernel: one CTA of 256 threads per (b, h, 64-row query tile); it
-//     loops over the K tiles. Four adjacent lanes share a query row: each
-//     takes 16 of the tile's 64 key columns for s and dp, and D/4 columns
-//     of dq.
+// Two kernels, each a loop inside one CTA in place of the TPU's sequential
+// grid axis, in a fixed order and without atomics, so two runs give the
+// same bits (as the JAX two-kernel design does):
+//   dq kernel: one CTA per (b, h, 64-row query tile); it loops over the
+//     live K tiles.
 //   dk/dv kernel: one CTA per (b, kv head, 64-key tile); it loops over the
-//     G query heads of the group and, for each, every query tile. Four
-//     lanes share a key row: each takes 16 query columns for s and dp, and
-//     D/4 columns of dk and dv, kept in registers in f32.
-// Tiles are staged in shared memory as f32 with a padded row stride (D+1).
-// At D = 80 that is ~100 KB (dq) and ~117 KB (dk/dv), past the 48 KB
-// default, so each launch first raises cudaFuncAttributeMaxDynamicShared-
-// MemorySize. Products run on the CUDA cores in f32, not on the tensor
-// cores: the kernel is far from its operations bound (wgmma/TMA are later
-// work).
+//     G query heads of the group and, for each, every live query tile, in
+//     the order t = g * n_q + iq; dk and dv stay in registers in f32.
+//
+// bf16 inputs (the main path) run on the tensor cores (flash_bwd_*_mma):
+// - 128 threads, four warps, each owning 16 rows of the CTA's 64-row tile
+//   (query rows in the dq kernel, key rows in the dk/dv kernel). Every
+//   product is mma.sync m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix
+//   from bf16 tiles in shared memory; the tiles have a row stride of D + 8
+//   elements, so the eight 16-byte rows of each ldmatrix phase fall in
+//   distinct banks.
+// - dq kernel: S = Q K^T and dP = dO V^T per warp (16 x 64), p and ds in
+//   registers, then dQ += dS K with dS taken straight from the S
+//   accumulator fragments as the A operand (two adjacent n8 tiles form one
+//   k16 tile) and K read by ldmatrix.trans.
+// - dk/dv kernel: S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
+//   dK += dS^T Q, P^T and dS^T again from registers, dO and Q by
+//   ldmatrix.trans. At D = 128 the 64 query columns go in two passes of 32
+//   to hold the register count.
+// - P and dS enter their products as a bf16 hi/lo pair (split_bf16x2, two
+//   MMAs): one bf16 rounding of them would put dq, dk, dv ~3e-3 off the
+//   f32 result (over 1 + |value|), ten times the 3e-4 bound; the pair
+//   keeps them near 1e-5 (tests/test_torch_bwd_split.py emulates this
+//   arithmetic on the CPU). The other operands (q, k, v, dO) are bf16 already, so the
+//   products are exact and sums are f32. scale is applied to dq and dk once,
+//   in the epilogue; p is exp2(s * scale * log2 e - lse * log2 e).
+// - The tensor cores' f32 accumulation truncates, so an accumulator that
+//   every MMA of a long block feeds drifts (~1e-4 of the result at 4096
+//   keys, past 3e-4 at 12288). Each tile's dq (dk, dv) share is therefore
+//   summed in a fresh MMA accumulator and added to the running registers
+//   with one f32 add.
+// - The streamed tiles (K, V and key positions in the dq kernel; Q, dO,
+//   lse, delta and query positions in the dk/dv kernel) are double-buffered
+//   with cp.async: the next live tile's copy overlaps this tile's MMAs.
+//   Which tiles are live (and which have every pair visible, so the
+//   per-element mask is skipped without changing a bit) is decided once per
+//   CTA from the min/max positions of each tile, into a byte per tile in
+//   shared memory.
+// - Heaviest tiles first under causal masking: the dq kernel issues its
+//   query tiles from the last (grid z = n_q - 1 - iq), the dk/dv kernel
+//   its key tiles from the first; the tile index is the slowest grid axis.
+// - 68-69 KB of shared memory at D = 80 (two K/V or Q/dO buffers, the
+//   resident pair, positions and row stats): the dq kernel fits three CTAs
+//   on an SM, the dk/dv kernel two (its registers, not shared memory, are
+//   the limit).
+//
+// f32 inputs (never on the main path; they keep the f32 tests exact) run
+// the CUDA-core kernels below (flash_bwd_dq_kernel, flash_bwd_dkv_kernel):
+// 256 threads, four adjacent lanes per row, f32 tiles of 64 x (D+1) in
+// shared memory (~100 KB dq, ~117 KB dk/dv at D = 80), every product a
+// scalar FMA loop.
 #pragma once
 
 #include "common.cuh"
@@ -331,12 +370,12 @@ flash_bwd_dkv_kernel(BwdArgs a) {
 }
 
 template <typename Kern>
-cudaError_t launch_one(Kern kern, dim3 grid, size_t smem, const BwdArgs& a,
-                       cudaStream_t stream) {
+cudaError_t launch_one(Kern kern, dim3 grid, int threads, size_t smem,
+                       const BwdArgs& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<grid, NT, smem, stream>>>(a);
+  kern<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -350,11 +389,11 @@ cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
   const size_t smem_dkv =
       sizeof(float) * (4 * (size_t)64 * LD + 2 * (size_t)BK * LDP) + stats;
   cudaError_t err = launch_one(flash_bwd_dq_kernel<T, D>,
-                               dim3((a.Sq + BQ - 1) / BQ, a.Hq, a.B), smem_dq,
-                               a, stream);
+                               dim3((a.Sq + BQ - 1) / BQ, a.Hq, a.B), NT,
+                               smem_dq, a, stream);
   if (err != cudaSuccess) return err;
   return launch_one(flash_bwd_dkv_kernel<T, D>,
-                    dim3((a.Sk + BK - 1) / BK, a.Hkv, a.B), smem_dkv, a,
+                    dim3((a.Sk + BK - 1) / BK, a.Hkv, a.B), NT, smem_dkv, a,
                     stream);
 }
 
@@ -369,13 +408,509 @@ cudaError_t launch_bwd_d(const BwdArgs& a, int D, cudaStream_t stream) {
   }
 }
 
-// Both kernels of one backward call. dtype: 0 = float32, 1 = bfloat16 (q,
-// k, v and dout share it). Returns the cudaError_t of the first launch
-// that fails, else cudaSuccess.
+// ---- bf16: the tensor-core kernels --------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int MMA_NT = 128;  // four warps, 16 rows of the 64-row tile each
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned char TILE_LIVE = 1;  // the tile has a visible pair
+constexpr unsigned char TILE_FULL = 2;  // 64 rows, every pair visible
+
+// smem row stride (elements) and size (bytes) of a 64 x D bf16 tile
+template <int D>
+struct MmaTile {
+  static constexpr int LDS = D + 8;
+  static constexpr int ELEMS = 64 * LDS;
+  static constexpr size_t BYTES = sizeof(bf16) * ELEMS;
+};
+
+// Asynchronous copy of rows [0, nvalid) of a 64 x D bf16 tile (row r at
+// src + r * stride) into shared memory with row stride D + 8; the rows
+// past nvalid are zero-filled, so masked products stay finite.
+template <int D>
+__device__ inline void tile_async(bf16* dst, const bf16* src, size_t stride,
+                                  int nvalid, int tid) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  static_assert((64 * CPR) % MMA_NT == 0, "whole chunks per thread");
+#pragma unroll
+  for (int it = 0; it < 64 * CPR / MMA_NT; ++it) {
+    const int e = tid + it * MMA_NT;
+    const int r = e / CPR;
+    const int c = e - r * CPR;
+    const bool ok = r < nvalid;
+    cp_async_16(dst + r * MmaTile<D>::LDS + c * 8,
+                src + (size_t)(ok ? r : 0) * stride + c * 8, ok);
+  }
+}
+
+// One flag byte per streamed 64-row tile of positions pos[0..S): TILE_LIVE
+// if some pair with the CTA's own tile (positions [lo, hi]) is visible,
+// TILE_FULL if the tile has 64 rows and every pair is. `streamed_q`: the
+// streamed tiles are query tiles (the dk/dv kernel), else key tiles.
+__device__ inline void tile_flags(unsigned char* flags, const int* pos,
+                                  int S, bool streamed_q, int lo, int hi,
+                                  const Mask& m, int warp, int lane) {
+  const int n_t = (S + 63) / 64;
+  for (int t = warp; t < n_t; t += MMA_NT / 32) {
+    const int n = min(64, S - t * 64);
+    int tlo, thi;
+    warp_range(pos + t * 64, n, lane, tlo, thi);
+    const bool live = streamed_q ? m.live(tlo, thi, lo, hi)
+                                 : m.live(lo, hi, tlo, thi);
+    const bool full = n == 64 && (streamed_q ? m.full(tlo, thi, lo, hi)
+                                             : m.full(lo, hi, tlo, thi));
+    if (lane == 0) flags[t] = (live ? TILE_LIVE : 0) | (full ? TILE_FULL : 0);
+  }
+}
+
+// s = A1 B1^T and dp = A2 B2^T for the warp's 16 rows of a1, a2 against
+// NCOL rows of b1, b2 from row col0 (all 64 x D bf16 tiles in shared
+// memory): both as the m16n8 accumulator fragments of NCOL / 8 n8 tiles.
+template <int D, int NCOL>
+__device__ __forceinline__ void score_products(
+    float (&s)[NCOL / 8][4], float (&dp)[NCOL / 8][4], const bf16* a1,
+    const bf16* a2, const bf16* b1, const bf16* b2, int warp, int col0,
+    int lane) {
+  constexpr int LDS = MmaTile<D>::LDS;
+#pragma unroll
+  for (int j = 0; j < NCOL / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t x1[4], x2[4];
+    const int arow = (16 * warp + (lane & 15)) * LDS + kk * 16 +
+                     (lane >> 4) * 8;
+    ldsm_x4(x1, a1 + arow);
+    ldsm_x4(x2, a2 + arow);
+#pragma unroll
+    for (int np = 0; np < NCOL / 16; ++np) {
+      const int boff = (col0 + np * 16 + (lane & 7) + ((lane >> 4) << 3)) *
+                           LDS + kk * 16 + ((lane >> 3) & 1) * 8;
+      uint32_t y1[4], y2[4];
+      ldsm_x4(y1, b1 + boff);
+      ldsm_x4(y2, b2 + boff);
+      mma_bf16(s[2 * np], x1, y1[0], y1[1]);
+      mma_bf16(s[2 * np + 1], x1, y1[2], y1[3]);
+      mma_bf16(dp[2 * np], x2, y2[0], y2[1]);
+      mma_bf16(dp[2 * np + 1], x2, y2[2], y2[3]);
+    }
+  }
+}
+
+// acc += (hi + lo) B over KC k16 chunks, for the warp's 16 rows and all D
+// columns: hi, lo are A fragments (a bf16 hi/lo pair), B is rows row0 ..
+// row0 + 16 KC of a 64 x D bf16 tile read by ldmatrix.trans. Each n8-tile
+// pair's share is summed in a fresh accumulator and added with one f32
+// add: the tensor cores' accumulation truncates, so one chain over a long
+// block would drift.
+template <int D, int KC>
+__device__ __forceinline__ void add_products(float (&acc)[D / 8][4],
+                                             const uint32_t (&hi)[KC][4],
+                                             const uint32_t (&lo)[KC][4],
+                                             const bf16* tile, int row0,
+                                             int lane) {
+  constexpr int LDS = MmaTile<D>::LDS;
+#pragma unroll
+  for (int dn = 0; dn < D / 16; ++dn) {
+    float part[2][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      const int off =
+          (row0 + kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
+          dn * 16 + (lane >> 4) * 8;
+      uint32_t b[4];
+      ldsm_x4_t(b, tile + off);
+      mma_bf16(part[0], hi[kc], b[0], b[1]);
+      mma_bf16(part[0], lo[kc], b[0], b[1]);
+      mma_bf16(part[1], hi[kc], b[2], b[3]);
+      mma_bf16(part[1], lo[kc], b[2], b[3]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[2 * dn][e] += part[0][e];
+      acc[2 * dn + 1][e] += part[1][e];
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_NT)
+flash_bwd_dq_mma(BwdArgs a) {
+  constexpr int TILE = MmaTile<D>::ELEMS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sO = sQ + TILE;                   // dO
+  bf16* sK = sO + TILE;                   // two buffers
+  bf16* sV = sK + 2 * TILE;               // two buffers
+  int* sPosK = reinterpret_cast<int*>(sV + 2 * TILE);  // two buffers of BK
+  unsigned char* sFlag = reinterpret_cast<unsigned char*>(sPosK + 2 * BK);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gr = lane >> 2;  // fragment row (and + 8)
+  const int tq = lane & 3;   // fragment column pair
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest first
+  const int kvh = h / (a.Hq / a.Hkv);
+  const int nq = min(BQ, a.Sq - q0);
+  const int n_k = (a.Sk + BK - 1) / BK;
+  const int* pos_q = a.pos_q + (size_t)b * a.pos_q_bstride;
+  const int* pos_k = a.pos_k + (size_t)b * a.pos_k_bstride;
+  const size_t kv_stride = (size_t)a.Hkv * D;
+  const bf16* k = static_cast<const bf16*>(a.k) +
+                  (size_t)b * a.Sk * kv_stride + (size_t)kvh * D;
+  const bf16* v = static_cast<const bf16*>(a.v) +
+                  (size_t)b * a.Sk * kv_stride + (size_t)kvh * D;
+
+  const size_t q_off = ((size_t)(b * a.Sq + q0) * a.Hq + h) * D;
+  tile_async<D>(sQ, static_cast<const bf16*>(a.q) + q_off,
+                (size_t)a.Hq * D, nq, tid);
+  tile_async<D>(sO, static_cast<const bf16*>(a.dout) + q_off,
+                (size_t)a.Hq * D, nq, tid);
+
+  // this thread's query rows 16 warp + gr and + 8: -lse log2 e (-inf on a
+  // dead row or past nq, so p = 0 there), delta, position
+  float nlse[2], delta[2];
+  int pq[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = 16 * warp + gr + 8 * i;
+    const bool ok = row < nq;
+    const size_t li = ((size_t)b * a.Hq + h) * a.Sq + q0 + (ok ? row : 0);
+    const float lse = ok ? a.lse[li] : NEG_INF;
+    nlse[i] = lse <= DEAD ? -INFINITY : -lse * LOG2E;
+    delta[i] = ok ? a.delta[li] : 0.0f;
+    pq[i] = ok ? pos_q[q0 + row] : 0;
+  }
+  int qlo, qhi;
+  warp_range(pos_q + q0, nq, lane, qlo, qhi);
+  tile_flags(sFlag, pos_k, a.Sk, false, qlo, qhi, a.mask, warp, lane);
+  __syncthreads();
+
+  auto next_live = [&](int t) {
+    while (t < n_k && !(sFlag[t] & TILE_LIVE)) ++t;
+    return t;
+  };
+  auto fetch = [&](int t, int buf) {
+    const int k0 = t * BK;
+    const int nk = min(BK, a.Sk - k0);
+    tile_async<D>(sK + buf * TILE, k + k0 * kv_stride, kv_stride, nk, tid);
+    tile_async<D>(sV + buf * TILE, v + k0 * kv_stride, kv_stride, nk, tid);
+    if (tid < BK)
+      cp_async_4(sPosK + buf * BK + tid, pos_k + k0 + (tid < nk ? tid : 0),
+                 tid < nk);
+  };
+
+  int t = next_live(0);
+  if (t < n_k) fetch(t, 0);
+  cp_async_commit();  // with Q and dO
+
+  const float sl2 = a.scale * LOG2E;
+  float acc[D / 8][4] = {};  // dq of the warp's 16 rows, n8 tiles over D
+
+  for (int buf = 0; t < n_k; buf ^= 1) {
+    const int tn = next_live(t + 1);
+    if (tn < n_k) fetch(tn, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t (and Q, dO) landed
+    __syncthreads();
+    const bf16* kt = sK + buf * TILE;
+    const bf16* vt = sV + buf * TILE;
+    const int* pk = sPosK + buf * BK;
+    const int nk = min(BK, a.Sk - t * BK);
+    const bool full = sFlag[t] & TILE_FULL;
+
+    // S = Q K^T and dP = dO V^T for the warp's 16 rows x 64 keys
+    float s[8][4], dp[8][4];
+    score_products<D, BK>(s, dp, sQ, sO, kt, vt, warp, 0, lane);
+
+    // ds = p (dp - delta) (scale comes in the epilogue), as hi/lo A
+    // fragments: n8 tiles 2c and 2c + 1 form k16 chunk c
+    uint32_t dsh[4][4], dsl[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 8 * j + 2 * tq;
+      const int2 pk2 = *reinterpret_cast<const int2*>(pk + c);
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;  // row gr or gr + 8
+        const int cc = c + (e & 1);
+        const bool vis =
+            full || (cc < nk && a.mask.visible(pq[i], (e & 1) ? pk2.y : pk2.x));
+        const float p = vis ? exp2f(fmaf(s[j][e], sl2, nlse[i])) : 0.0f;
+        ds[e] = p * (dp[j][e] - delta[i]);
+      }
+      split_bf16x2(ds[0], ds[1], dsh[j >> 1][(j & 1) * 2],
+                   dsl[j >> 1][(j & 1) * 2]);
+      split_bf16x2(ds[2], ds[3], dsh[j >> 1][(j & 1) * 2 + 1],
+                   dsl[j >> 1][(j & 1) * 2 + 1]);
+    }
+
+    // dQ += dS K (K as the k x n operand)
+    add_products<D, 4>(acc, dsh, dsl, kt, 0, lane);
+    __syncthreads();  // buf is refilled by the next iteration's fetch
+    t = tn;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = 16 * warp + gr + 8 * i;
+    if (row >= nq) continue;
+    float* out = a.dq + ((size_t)(b * a.Sq + q0 + row) * a.Hq + h) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(out + 8 * n + 2 * tq) = make_float2(
+          acc[n][2 * i] * a.scale, acc[n][2 * i + 1] * a.scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_NT)
+flash_bwd_dkv_mma(BwdArgs a) {
+  constexpr int TILE = MmaTile<D>::ELEMS;
+  constexpr int NC = D > 80 ? 32 : 64;  // query columns per pass
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sV = sK + TILE;
+  bf16* sQ = sV + TILE;                   // two buffers
+  bf16* sO = sQ + 2 * TILE;               // two buffers (dO)
+  float* sLse = reinterpret_cast<float*>(sO + 2 * TILE);  // two of BQ
+  float* sDelta = sLse + 2 * BQ;          // two buffers of BQ
+  int* sPosQ = reinterpret_cast<int*>(sDelta + 2 * BQ);  // two of BQ
+  unsigned char* sFlag = reinterpret_cast<unsigned char*>(sPosQ + 2 * BQ);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gr = lane >> 2;
+  const int tq = lane & 3;
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * BK;  // key tile 0 (heaviest when causal) first
+  const int G = a.Hq / a.Hkv;
+  const int nk = min(BK, a.Sk - k0);
+  const int n_q = (a.Sq + BQ - 1) / BQ;
+  const int* pos_q = a.pos_q + (size_t)b * a.pos_q_bstride;
+  const int* pos_k = a.pos_k + (size_t)b * a.pos_k_bstride;
+  const size_t q_stride = (size_t)a.Hq * D;
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* dout = static_cast<const bf16*>(a.dout);
+
+  const size_t kv_off = ((size_t)(b * a.Sk + k0) * a.Hkv + kvh) * D;
+  tile_async<D>(sK, static_cast<const bf16*>(a.k) + kv_off,
+                (size_t)a.Hkv * D, nk, tid);
+  tile_async<D>(sV, static_cast<const bf16*>(a.v) + kv_off,
+                (size_t)a.Hkv * D, nk, tid);
+  int pk[2];  // this thread's key rows 16 warp + gr and + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = 16 * warp + gr + 8 * i;
+    pk[i] = row < nk ? pos_k[k0 + row] : 0;
+  }
+  int klo, khi;
+  warp_range(pos_k + k0, nk, lane, klo, khi);
+  tile_flags(sFlag, pos_q, a.Sq, true, klo, khi, a.mask, warp, lane);
+  __syncthreads();
+
+  // (g, iq) -> the next live query tile in the order g * n_q + iq
+  auto advance = [&](int& g, int& iq) {
+    while (g < G && !(sFlag[iq] & TILE_LIVE)) {
+      if (++iq == n_q) {
+        iq = 0;
+        ++g;
+      }
+    }
+  };
+  auto fetch = [&](int g, int iq, int buf) {
+    const int h = kvh * G + g;
+    const int q0 = iq * BQ;
+    const int nq = min(BQ, a.Sq - q0);
+    const size_t q_off = ((size_t)(b * a.Sq + q0) * a.Hq + h) * D;
+    tile_async<D>(sQ + buf * TILE, q + q_off, q_stride, nq, tid);
+    tile_async<D>(sO + buf * TILE, dout + q_off, q_stride, nq, tid);
+    if (tid < BQ) {
+      const bool ok = tid < nq;
+      const int r = ok ? tid : 0;
+      const size_t li = ((size_t)b * a.Hq + h) * a.Sq + q0 + r;
+      cp_async_4(sLse + buf * BQ + tid, a.lse + li, ok);
+      cp_async_4(sDelta + buf * BQ + tid, a.delta + li, ok);
+      cp_async_4(sPosQ + buf * BQ + tid, pos_q + q0 + r, ok);
+    }
+  };
+
+  int g = 0, iq = 0;
+  advance(g, iq);
+  if (g < G) fetch(g, iq, 0);
+  cp_async_commit();  // with K and V
+
+  const float sl2 = a.scale * LOG2E;
+  float dk[D / 8][4] = {}, dv[D / 8][4] = {};  // the warp's 16 keys
+
+  for (int buf = 0; g < G; buf ^= 1) {
+    int gn = g, iqn = iq + 1;
+    if (iqn == n_q) {
+      iqn = 0;
+      ++gn;
+    }
+    advance(gn, iqn);
+    if (gn < G) fetch(gn, iqn, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile (g, iq) (and K, V) landed
+    __syncthreads();
+    const bf16* qt = sQ + buf * TILE;
+    const bf16* ot = sO + buf * TILE;
+    const float* lt = sLse + buf * BQ;
+    const float* dt = sDelta + buf * BQ;
+    const int* pt = sPosQ + buf * BQ;
+    const int nq = min(BQ, a.Sq - iq * BQ);
+    const bool full = sFlag[iq] & TILE_FULL;
+
+#pragma unroll
+    for (int hc = 0; hc < BQ / NC; ++hc) {
+      // S^T = K Q^T and dP^T = V dO^T: the warp's 16 keys x NC queries
+      float s[NC / 8][4], dp[NC / 8][4];
+      score_products<D, NC>(s, dp, sK, sV, qt, ot, warp, hc * NC, lane);
+
+      // p^T and ds^T = p (dp - delta) as hi/lo A fragments; rows are keys,
+      // columns queries
+      uint32_t ph[NC / 16][4], pl[NC / 16][4], dsh[NC / 16][4],
+          dsl[NC / 16][4];
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const int c = hc * NC + 8 * j + 2 * tq;
+        const float2 l2 = *reinterpret_cast<const float2*>(lt + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(dt + c);
+        const int2 p2 = *reinterpret_cast<const int2*>(pt + c);
+        const float nl[2] = {l2.x <= DEAD ? -INFINITY : -l2.x * LOG2E,
+                             l2.y <= DEAD ? -INFINITY : -l2.y * LOG2E};
+        const float dl[2] = {d2.x, d2.y};
+        const int pqc[2] = {p2.x, p2.y};
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;  // key row gr or gr + 8
+          const int u = e & 1;   // query column c or c + 1
+          const bool vis =
+              full || (c + u < nq && a.mask.visible(pqc[u], pk[i]));
+          p[e] = vis ? exp2f(fmaf(s[j][e], sl2, nl[u])) : 0.0f;
+          ds[e] = p[e] * (dp[j][e] - dl[u]);
+        }
+        const int f = j >> 1, r = (j & 1) * 2;
+        split_bf16x2(p[0], p[1], ph[f][r], pl[f][r]);
+        split_bf16x2(p[2], p[3], ph[f][r + 1], pl[f][r + 1]);
+        split_bf16x2(ds[0], ds[1], dsh[f][r], dsl[f][r]);
+        split_bf16x2(ds[2], ds[3], dsh[f][r + 1], dsl[f][r + 1]);
+      }
+
+      // dV += P^T dO, then dK += dS^T Q (dO, Q as the k x n operands):
+      // P's fragments are dead before dK's products start
+      add_products<D, NC / 16>(dv, ph, pl, ot, hc * NC, lane);
+      add_products<D, NC / 16>(dk, dsh, dsl, qt, hc * NC, lane);
+    }
+    __syncthreads();  // buf is refilled by the next iteration's fetch
+    g = gn;
+    iq = iqn;
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = 16 * warp + gr + 8 * i;
+    if (row >= nk) continue;
+    const size_t o_row = ((size_t)(b * a.Sk + k0 + row) * a.Hkv + kvh) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int d = 8 * n + 2 * tq;
+      *reinterpret_cast<float2*>(a.dk + o_row + d) = make_float2(
+          dk[n][2 * i] * a.scale, dk[n][2 * i + 1] * a.scale);
+      *reinterpret_cast<float2*>(a.dv + o_row + d) =
+          make_float2(dv[n][2 * i], dv[n][2 * i + 1]);
+    }
+  }
+}
+
+// Dynamic shared memory of the two tensor-core kernels: six bf16 tiles
+// (dq: Q, dO and two buffers of K and V; dk/dv: K, V and two buffers of
+// Q and dO), the streamed positions (and, for dk/dv, lse and delta), and
+// one flag byte per streamed tile.
+template <int D>
+size_t smem_dq_mma(const BwdArgs& a) {
+  return 6 * MmaTile<D>::BYTES + 2 * sizeof(int) * BK + (a.Sk + BK - 1) / BK;
+}
+
+template <int D>
+size_t smem_dkv_mma(const BwdArgs& a) {
+  return 6 * MmaTile<D>::BYTES + 2 * (2 * sizeof(float) + sizeof(int)) * BQ +
+         (a.Sq + BQ - 1) / BQ;
+}
+
+template <int D>
+cudaError_t launch_bwd_mma(const BwdArgs& a, cudaStream_t stream) {
+  cudaError_t err = launch_one(flash_bwd_dq_mma<D>,
+                               dim3(a.Hq, a.B, (a.Sq + BQ - 1) / BQ), MMA_NT,
+                               smem_dq_mma<D>(a), a, stream);
+  if (err != cudaSuccess) return err;
+  return launch_one(flash_bwd_dkv_mma<D>,
+                    dim3(a.Hkv, a.B, (a.Sk + BK - 1) / BK), MMA_NT,
+                    smem_dkv_mma<D>(a), a, stream);
+}
+
+inline cudaError_t launch_bwd_mma_d(const BwdArgs& a, int D,
+                                    cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch_bwd_mma<32>(a, stream);
+    case 64: return launch_bwd_mma<64>(a, stream);
+    case 80: return launch_bwd_mma<80>(a, stream);
+    case 128: return launch_bwd_mma<128>(a, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Resident CTAs per SM (the CUDA occupancy API) and dynamic shared memory
+// of the bf16 kernels for the shape in `a`: out = {dq CTAs, dk/dv CTAs, dq
+// bytes, dk/dv bytes}.
+template <typename Kern>
+cudaError_t occupancy_of(Kern kern, size_t smem, int* ctas) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kern, MMA_NT,
+                                                       smem);
+}
+
+template <int D>
+cudaError_t bwd_occupancy_mma(const BwdArgs& a, int* out) {
+  out[2] = (int)smem_dq_mma<D>(a);
+  out[3] = (int)smem_dkv_mma<D>(a);
+  cudaError_t err = occupancy_of(flash_bwd_dq_mma<D>, out[2], out);
+  if (err != cudaSuccess) return err;
+  return occupancy_of(flash_bwd_dkv_mma<D>, out[3], out + 1);
+}
+
+inline cudaError_t bwd_occupancy(const BwdArgs& a, int D, int* out) {
+  switch (D) {
+    case 32: return bwd_occupancy_mma<32>(a, out);
+    case 64: return bwd_occupancy_mma<64>(a, out);
+    case 80: return bwd_occupancy_mma<80>(a, out);
+    case 128: return bwd_occupancy_mma<128>(a, out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// Both kernels of one backward call. dtype: 0 = float32 (the CUDA-core
+// kernels), 1 = bfloat16 (the tensor-core kernels); q, k, v and dout share
+// it. Returns the cudaError_t of the first launch that fails, else
+// cudaSuccess.
 inline cudaError_t run_bwd(const BwdArgs& a, int D, int dtype,
                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return launch_bwd_d<__nv_bfloat16>(a, D, st);
+  if (dtype == 1) return launch_bwd_mma_d(a, D, st);
   if (dtype == 0) return launch_bwd_d<float>(a, D, st);
   return cudaErrorInvalidValue;
 }

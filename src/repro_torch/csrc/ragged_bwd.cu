@@ -19,9 +19,9 @@
 // (q, k) pair and query head; at 4 rows of 1024 tokens with 32 query heads
 // of 80 (causal) that is 0.054 ms at the bf16 tensor-core peak against
 // 0.034 ms for the ~115 MB moved (q, k, v, dO, lse, delta and positions in;
-// dq, dk, dv out in f32), so it is bound by operations. The design keeps
-// B3's CUDA-core f32 tiles: far from that bound, and shared with B3 so the
-// two stay in step (tensor cores are later work for both).
+// dq, dk, dv out in f32), so it is bound by operations. The design is B3's
+// (tensor-core tiles on bf16 inputs, CUDA-core f32 tiles on f32 inputs),
+// shared through flash_bwd.cuh so the two stay in step.
 
 #include "flash_bwd.cuh"
 

@@ -41,6 +41,7 @@ SIGNATURES = {
     "repro_ragged_prefill": [_VP] * 7 + [_I] * 12 + [_F, _VP],
     "repro_paged_prefill": [_VP] * 7 + [_I] * 12 + [_F, _I, _VP],
     "repro_ragged_bwd": [_VP] * 11 + [_I] * 12 + [_F, _VP],
+    "repro_flash_bwd_occupancy": [_I] * 3 + [ctypes.POINTER(_I)],
 }
 
 _info: Dict[str, object] = {}

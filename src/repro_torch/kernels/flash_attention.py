@@ -18,6 +18,7 @@ or bf16; pos_q (Sq,), pos_k (Sk,) int32; o (B,Sq,Hq,D) f32; lse, delta
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -166,3 +167,15 @@ def flash_attention_bwd(q, k, v, do, lse, delta, pos_q, pos_k, *,
     _build.check(err, "flash_bwd")
     LAUNCHES["B3"] += 1
     return dq, dk, dv
+
+
+def bwd_occupancy(D: int, Sq: int, Sk: int) -> Dict[str, int]:
+    """Resident CTAs per SM (the CUDA occupancy API) and dynamic shared
+    memory in bytes of B3's bf16 dq and dk/dv kernels at (Sq, Sk, D)."""
+    from repro_torch.kernels import _build
+
+    out = (ctypes.c_int * 4)()
+    _build.check(_build.library().repro_flash_bwd_occupancy(Sq, Sk, D, out),
+                 "flash_bwd_occupancy")
+    return dict(zip(("dq_ctas_per_sm", "dkv_ctas_per_sm", "dq_smem_bytes",
+                     "dkv_smem_bytes"), out))

@@ -57,10 +57,22 @@ class Model(nn.Module):
         return transformer.lm_loss(rt, self, batch, self.cfg, remat=remat)
 
 
-def build_model(cfg: ModelConfig, device="cpu", seed: int = 0) -> Model:
-    """A model with weights drawn from ``torch.Generator(device)`` seeded
-    with ``seed`` (normal, fan-in scaled; norms ones)."""
+def _on_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device with no card raises
+    (the port runs on the card unless the caller asks for the CPU)."""
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch builds models on a CUDA card by default and none "
+            "is available; pass device='cpu' to build on the CPU")
+    return device
+
+
+def build_model(cfg: ModelConfig, device="cuda", seed: int = 0) -> Model:
+    """A model with weights drawn from ``torch.Generator(device)`` seeded
+    with ``seed`` (normal, fan-in scaled; norms ones), on the card unless
+    ``device`` says otherwise."""
+    device = _on_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     with torch.no_grad():
@@ -149,8 +161,10 @@ def load_jax_tree(model: Model, tree) -> None:
             param.copy_(src)
 
 
-def from_jax_params(tree, cfg: ModelConfig, device="cpu") -> Model:
-    """The port's ``Model`` holding the JAX package's parameters ``tree``."""
+def from_jax_params(tree, cfg: ModelConfig, device="cuda") -> Model:
+    """The port's ``Model`` holding the JAX package's parameters ``tree``,
+    on the card unless ``device`` says otherwise."""
+    device = _on_device(device)
     model = Model(cfg, lambda s: torch.empty(
         s.shape, dtype=spec.DTYPES[s.dtype or cfg.param_dtype],
         device=device))

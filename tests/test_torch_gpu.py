@@ -507,6 +507,82 @@ def test_ragged_bwd_kernel_matches_plain(cuda_device, case, dtype):
         assert torch.equal(a, b)
 
 
+MMA_BWD_CASES = {
+    # B, Sq, Sk, Hq, Hkv, D, causal, window, B3 positions: bf16 shapes for
+    # the tensor-core tiles of B3 and B7, one per head size, each with two
+    # batch rows (B7 pushes row 1's keys past its queries)
+    "d32_dead_rows": (2, 150, 150, 4, 2, 32, True, None, "future"),
+    "d64_window_cuts_tiles": (2, 257, 257, 8, 2, 64, True, 40, "arange"),
+    "d80_causal_s1024": (2, 1024, 1024, 8, 2, 80, True, None, "arange"),
+    "d80_bidirectional_window": (2, 193, 193, 4, 2, 80, False, 100,
+                                 "arange"),
+    "d128_sq131_sk203": (2, 131, 203, 4, 1, 128, True, None, "offset"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["B3", "B7"])
+@pytest.mark.parametrize("case", sorted(MMA_BWD_CASES))
+def test_bwd_tensor_core_tiles_match_plain(cuda_device, case, route):
+    """The bf16 backward (mma.sync tiles, P and dS as hi/lo pairs) against
+    its plain version at BWD_TOL, at every head size, over many 64-row
+    tiles, a window edge inside a tile and ragged Sq / Sk; dead rows (B3)
+    and the zero-length row (B7) exactly 0; two runs give the same bits."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window, kind = MMA_BWD_CASES[case]
+    if route == "B3":
+        arrs = _bwd_inputs(B, Sq, Sk, Hq, Hkv, D, causal, window, kind)
+        fn = flash_attention.flash_attention_bwd
+        plain = flash_attention.flash_attention_bwd_plain
+        launches = flash_attention.LAUNCHES
+    else:
+        arrs = _ragged_bwd_inputs(B, Sq, Sk, Hq, Hkv, D, causal, window, 1)
+        fn = ragged_bwd.flash_attention_bwd_ragged
+        plain = ragged_bwd.flash_attention_bwd_ragged_plain
+        launches = ragged_bwd.LAUNCHES
+    args = [_t(x).to(cuda_device, torch.bfloat16) for x in arrs[:4]] + \
+        [_t(x).to(cuda_device) for x in arrs[4:]]
+    kw = dict(causal=causal, window=window)
+    before = launches[route]
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert launches[route] == before + 1
+    want = plain(*args, **kw)
+    _assert_grads([g.cpu().numpy() for g in got],
+                  [w.cpu().numpy() for w in want], arrs[4])
+    if route == "B7":
+        assert all(bool((g[1] == 0).all()) for g in got)
+    elif kind == "future":
+        assert (arrs[4] <= NEG_INF / 2).any()      # there are dead rows
+    again = fn(*args, **kw)
+    for a, b in zip(got, again):           # no atomics: the same bits
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_bwd_long_block_stays_within_tolerance(cuda_device):
+    """B3 on one 12288-token bf16 block, 4 query heads over one kv head,
+    causal: dk sums 4 x 12288 query rows and dq 12288 keys. The tensor
+    cores' f32 accumulation truncates, so the kernels sum each tile's share
+    in a fresh accumulator before one f32 add; a single MMA chain over the
+    block drifts past BWD_TOL at this length."""
+    S, Hq = 12288, 4
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, do = (torch.randn((1, S, Hq, 80), generator=g, device=cuda_device)
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn((1, S, 1, 80), generator=g, device=cuda_device)
+            .bfloat16() for _ in range(2))
+    pos = torch.arange(S, dtype=torch.int32, device=cuda_device)
+    o, lse = flash_attention.flash_attention_fwd_plain(q, k, v, pos, pos)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         o.bfloat16().float()).contiguous()
+    args = (q, k, v, do, lse, delta, pos, pos)
+    got = flash_attention.flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    want = flash_attention.flash_attention_bwd_plain(*args)
+    _assert_grads([t.cpu().numpy() for t in got],
+                  [t.cpu().numpy() for t in want], lse.cpu().numpy())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("remat", ["none", "attn_out", "full"])
 def test_recompute_reruns_the_attention_forward(cuda_device, remat):

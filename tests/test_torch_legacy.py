@@ -113,7 +113,7 @@ def test_contiguous_decode_on_two_ranks_matches_one():
     half the capacity, the new token written on its owner, the partials
     merged) against one rank, rows at different lengths."""
     cfg = registry.get_smoke(ARCH)
-    model = build_model(cfg, seed=0)
+    model = build_model(cfg, "cpu", seed=0)
     B, capacity = 3, 16
     cache_len = torch.tensor([5, 8, 14], dtype=torch.int32)
     rng = np.random.default_rng(2)

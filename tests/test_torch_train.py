@@ -345,3 +345,20 @@ def test_launch_train_microbatches_and_restart(tmp_path, capsys):
     assert [m["step"] for m in lines] == [1, 2, 3, 4, 5, 6]
     assert all(np.isfinite(m["loss"]) for m in lines)
     assert out["step"] == 6
+
+
+def test_models_are_built_on_the_card_by_default(monkeypatch):
+    """``build_model`` and ``from_jax_params`` default to the CUDA card:
+    with no card they raise (no silent CPU fallback); asked for the CPU,
+    they build there."""
+    from repro_torch.models.factory import build_model
+
+    ctx = _ctx()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(ctx["cfg"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_jax_params(ctx["tree"], ctx["cfg"])
+    for model in (build_model(ctx["cfg"], "cpu"),
+                  from_jax_params(ctx["tree"], ctx["cfg"], "cpu")):
+        assert model.device == torch.device("cpu")
