@@ -10,17 +10,22 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               the ``-Xptxas -v`` register / shared-memory / spill summary
   3. kernels  each CUDA kernel against its plain PyTorch version on the card
               (B1, B2, B3 at the 1024-token shapes, B2 and B3 again at the
-              training shape, seq 4096, B3 on one 12288-token block of 4
-              query heads over one kv head, B4 at a decode step, B5 on ragged
-              rows and the legacy decode shape, B6 on a 256-query chunk
+              training shape, seq 4096, B3 and B2 on one 12288-token block
+              of 4 query heads over one kv head, B4 at a decode step, B5 on
+              ragged rows and the legacy decode shape, B6 on a 256-query chunk
               after cached prefixes, B7 on ragged rows with offsets and a
               zero-length row, rectangular MQA, a window over 1000 rows and
-              the ragged_bwd path's shape), and timed (CUDA events, median
-              of bursts after warm-up) beside the plain version, a PyTorch
-              library call where one computes the same function, and the
-              card's bound for the work: B1, B2, B4, B5 and B6 at the
-              serving shapes, B3 (and B2 again) at the training shape, B7
-              at the ragged_bwd path's shape
+              the ragged_bwd path's shape), and timed (``ms``: CUDA
+              events, median of bursts after warm-up; ``device_ms``: calls
+              queued behind a device sleep, which the host's pace cannot
+              stretch) beside the plain version, a PyTorch library call
+              where one computes the same function, and the card's bound
+              for the work: B1, B2, B4, B5 and B6 at the serving shapes,
+              B3 (and B2 again) at the training shape, B7 at the
+              ragged_bwd path's shape; B1 beside two SDPA calls (a
+              boolean mask, and is_causal with enable_gqa), B2 at seq 4096
+              beside SDPA's forward (o only, no merge); CTAs per SM and
+              shared memory of the bf16 forward and backward kernels
   4. ring     StarTrail on a ThreadMesh(c=2, r=2): P = 8 ranks as threads
               on the one card, N = 2048 tokens of 32q/8kv heads of 80,
               bf16, causal + window; each rank runs the forward (B2 in
@@ -109,6 +114,7 @@ TOL = {"float32": 2e-5, "bfloat16": 1e-4}       # see phase_kernels
 NEG_INF = -1e30
 BWD_TOL = 3e-4                                   # see phase_kernels
 LONG_BWD_SEQ = 12288                             # B3's long-block check
+LONG_FWD_SEQ = 12288                             # B2's long-block check
 REPLACES = {
     "B1": "src/repro/kernels/flash_attention.py:125",
     "B2": "src/repro/kernels/flash_attention.py:148",
@@ -169,6 +175,31 @@ def time_ms(fn, reps=20, inner=5):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def device_ms(fn, calls=20, reps=5):
+    """Per call, median over ``reps``: CUDA events around ``calls`` calls
+    queued behind a ~50 ms device sleep, so the host has enqueued them all
+    before the first starts and the card runs them back to back. Unlike
+    ``time_ms`` it leaves out the host's time when a call is shorter than
+    its Python wrapper."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)          # cycles, ~50 ms
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -556,7 +587,8 @@ def phase_kernels(dev):
     from repro_torch.kernels import ref
 
     rows = {n: {"name": n, "route": "cuda", "source": SOURCES[n],
-                "replaces": REPLACES[n], "max_abs_err": 0.0}
+                "replaces": REPLACES[n], "max_abs_err": 0.0,
+                "device_ms": None, "library_device_ms": None}
             for n in KERNELS}
     for n in ("B3", "B7"):
         rows[n]["max_scaled_err"] = 0.0
@@ -687,9 +719,7 @@ def phase_kernels(dev):
                                                       window=4096)),
             plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(
                 q, k, v, pq, pq, window=4096)),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt_r, vt_r, attn_mask=mask)),
-            work=(io, flops, "bfloat16")),
+            library_ms=None, work=(io, flops, "bfloat16")),
         "B2": dict(
             ms=time_ms(lambda: fa.flash_attention_fwd(
                 q, k, v, pq, pq, o_acc, lse_acc, window=4096)),
@@ -697,6 +727,25 @@ def phase_kernels(dev):
                 q, k, v, pq, pq, o_acc, lse_acc, window=4096)),
             library_ms=None, work=(io + acc_io, flops, "bfloat16")),
     }
+    # B1's yardstick: the faster of SDPA with the boolean mask (kv heads
+    # repeated beforehand) and SDPA with is_causal and enable_gqa, the same
+    # function at this shape (window 4096 is inert over 1024 keys)
+    b1_sdpa = {
+        "bool_mask": lambda: F.scaled_dot_product_attention(
+            qt, kt_r, vt_r, attn_mask=mask),
+        "is_causal_gqa": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)}
+    b1_library = {n: time_ms(f) for n, f in b1_sdpa.items()}
+    b1_library_device = {n: device_ms(f) for n, f in b1_sdpa.items()}
+    timing["B1"]["library_ms"] = min(b1_library.values())
+    # device time alone (device_ms): a call shorter than its Python
+    # wrapper is paced by the host in time_ms
+    timing["B1"].update(
+        device_ms=device_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, pq, pq, window=4096)),
+        library_device_ms=min(b1_library_device.values()))
+    timing["B2"]["device_ms"] = device_ms(lambda: fa.flash_attention_fwd(
+        q, k, v, pq, pq, o_acc, lse_acc, window=4096))
     sp, rank, window, cls = paged_cases()["decode_1k"]
     qd, pk_, pv_, table, cl = paged_inputs(dev, sp, cls)
     nb, nf = paged_work(table.cpu().numpy(), cl.cpu().numpy(), sp, rank,
@@ -706,6 +755,8 @@ def phase_kernels(dev):
         ms=time_ms(lambda: pd.paged_decode_attention(qd, pk_, pv_, table, cl,
                                                      rank, **kw)),
         plain_ms=time_ms(lambda: pd.paged_decode_attention_plain(
+            qd, pk_, pv_, table, cl, rank, **kw)),
+        device_ms=device_ms(lambda: pd.paged_decode_attention(
             qd, pk_, pv_, table, cl, rank, **kw)),
         library_ms=None, work=(nb, nf, "bfloat16"))
     # B5 at the legacy path's first decode step: 4 rows at cache length
@@ -723,6 +774,10 @@ def phase_kernels(dev):
             q5, k5, v5, pq5, pk5, window=4096)),
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt5, kt5, vt5, attn_mask=mask5)),
+        device_ms=device_ms(lambda: rp.ragged_prefill_fwd(
+            q5, k5, v5, pq5, pk5, window=4096)),
+        library_device_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            qt5, kt5, vt5, attn_mask=mask5)),
         work=(*ragged_work(q5, k5, pq5, pk5, 4096), "bfloat16"))
     # B6 at the prefix phase's shape: a 256-query chunk after a 1024-token
     # cached prefix
@@ -731,6 +786,8 @@ def phase_kernels(dev):
     timing["B6"] = dict(
         ms=time_ms(lambda: pp.paged_prefill_attention(*args6, 0, **kw6)),
         plain_ms=time_ms(lambda: pp.paged_prefill_attention_plain(
+            *args6, 0, **kw6)),
+        device_ms=device_ms(lambda: pp.paged_prefill_attention(
             *args6, 0, **kw6)),
         library_ms=None,
         work=(*paged_prefill_work(args6[3].cpu().numpy(), [1024], 256,
@@ -782,6 +839,27 @@ def phase_kernels(dev):
                                        long_scaled)
     checked.append(f"B3/long_seq{LONG_BWD_SEQ}/bfloat16")
     del got, want, largs
+    # the same for the forward: B2 on one 12288-token block of 4 query heads
+    # over one kv head, a row summing up to 12288 keys; each tile's P V goes
+    # into a fresh accumulator before one f32 multiply-add
+    gl = torch.Generator(device=dev).manual_seed(4)
+    lq = torch.randn((1, LONG_FWD_SEQ, 4, 80), generator=gl, device=dev)
+    lk, lv = (torch.randn((1, LONG_FWD_SEQ, 1, 80), generator=gl,
+                          device=dev) for _ in range(2))
+    lacc = (torch.randn((1, LONG_FWD_SEQ, 4, 80), generator=gl, device=dev),
+            3 * torch.randn((1, 4, LONG_FWD_SEQ), generator=gl, device=dev))
+    pl = torch.arange(LONG_FWD_SEQ, dtype=torch.int32, device=dev)
+    largs = [t.bfloat16() for t in (lq, lk, lv)] + [pl, pl, *lacc]
+    o2, lse2 = fa.flash_attention_fwd(*largs, window=LONG_FWD_SEQ)
+    torch.cuda.synchronize()
+    o2_p, lse2_p = fa.flash_attention_fwd_plain(*largs, window=LONG_FWD_SEQ)
+    long_fwd_err, ok, _ = partial_err(o2, lse2, o2_p, lse2_p,
+                                      TOL["bfloat16"])
+    check(ok, f"B2 long_seq{LONG_FWD_SEQ} bfloat16: max err {long_fwd_err} "
+              f"(tol {TOL['bfloat16']}) or a dead row not exact")
+    rows["B2"]["max_abs_err"] = max(rows["B2"]["max_abs_err"], long_fwd_err)
+    checked.append(f"B2/long_seq{LONG_FWD_SEQ}/bfloat16")
+    del o2, lse2, o2_p, lse2_p, largs, lq, lk, lv, lacc
     o2, lse2 = fa.flash_attention_fwd(q, k, v, pos, pos, o_acc, lse_acc,
                                       window=4096)
     torch.cuda.synchronize()
@@ -803,6 +881,8 @@ def phase_kernels(dev):
                    reps=10, inner=2),
         plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(
             *bargs, window=4096), reps=5, inner=2),
+        device_ms=device_ms(lambda: fa.flash_attention_bwd(
+            *bargs, window=4096), calls=5),
         library_ms=lib_ms, work=(*bwd_work(q, k, pos, pos, pairs),
                                  "bfloat16"))
     fwd_io = sum(t.numel() * t.element_size() for t in (q, k, v, pos, pos)) \
@@ -815,6 +895,19 @@ def phase_kernels(dev):
             q, k, v, pos, pos, o_acc, lse_acc, window=4096), reps=5,
             inner=2),
         max_abs_err=b2_err)
+    # a reference, not B2's function: SDPA computes o alone, without lse
+    # and without the merge into the running accumulator
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    b2_4096["sdpa_fwd_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True),
+        reps=10, inner=2)
+    b2_4096["device_ms"] = device_ms(lambda: fa.flash_attention_fwd(
+        q, k, v, pos, pos, o_acc, lse_acc, window=4096), calls=5)
+    b2_4096["sdpa_fwd_device_ms"] = device_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True), calls=5)
+    del qt, kt, vt
     b2_4096["bound_ms"], b2_4096["bound_by"] = bound(
         fwd_io, 4 * 80 * 32 * pairs, "bfloat16")
     del q, k, v, do, o, lse, delta, o_acc, lse_acc, bargs
@@ -837,6 +930,8 @@ def phase_kernels(dev):
                    reps=10, inner=2),
         plain_ms=time_ms(lambda: rb.flash_attention_bwd_ragged_plain(
             *args7, window=window), reps=5, inner=2),
+        device_ms=device_ms(lambda: rb.flash_attention_bwd_ragged(
+            *args7, window=window), calls=5),
         library_ms=lib7,
         work=(*bwd_work(q7, k7, pq7, pk7, int(mask7.sum())), "bfloat16"))
     del args7, q7, k7, v7, do7, mask7
@@ -863,8 +958,15 @@ def phase_kernels(dev):
                         "B7": "q (4,1024,32,80), k/v (4,1024,8,80) bf16, "
                               "(B,S) positions at offsets 0/1024/2048/3072, "
                               "causal, window 4096"},
-         library={"B1": "scaled_dot_product_attention, o only, kv heads "
-                        "repeated beforehand",
+         library={"B1": "the faster of two scaled_dot_product_attention "
+                        "calls (B1_library_ms), o only: the boolean mask "
+                        "with kv heads repeated beforehand, and is_causal "
+                        "with enable_gqa",
+                  "B2_seq4096.sdpa_fwd_ms": "scaled_dot_product_attention "
+                                            "(is_causal, enable_gqa): a "
+                                            "reference that computes o "
+                                            "only, without lse or the "
+                                            "merge",
                   "B5": "scaled_dot_product_attention with the boolean "
                         "mask of the positions, kv heads repeated "
                         "beforehand",
@@ -874,11 +976,18 @@ def phase_kernels(dev):
                         " with the boolean (B,1,Sq,Sk) mask of the "
                         "positions, kv heads repeated beforehand, timed "
                         "alone"},
-         B2_seq4096=b2_4096, B3_seq4096_max_abs_err=b3_err,
+         B1_library_ms=b1_library, B1_library_device_ms=b1_library_device,
+         B2_seq4096=b2_4096,
+         **{f"B2_long_seq{LONG_FWD_SEQ}_max_abs_err": long_fwd_err},
+         B3_seq4096_max_abs_err=b3_err,
          B3_seq4096_max_scaled_err=b3_scaled,
          **{f"B3_long_seq{LONG_BWD_SEQ}_max_scaled_err": long_scaled},
          bf16_bwd_occupancy_seq4096=fa.bwd_occupancy(80, S, S),
+         fwd_occupancy={
+             f"D80_seq{S}": fa.fwd_occupancy(80, S, S, 4),
+             "D80_decode_sq1_sk1056": fa.fwd_occupancy(80, 1, 1056, 4)},
          **{n: {k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                   "device_ms", "library_device_ms",
                                    "bound_ms", "bound_by", "max_abs_err",
                                    "max_scaled_err") if k in r}
             for n, r in rows.items()})
@@ -1784,7 +1893,8 @@ def main():
         return 1
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "tol", "ms", "plain_ms",
-            "bound_ms", "bound_by", "library_ms")
+            "bound_ms", "bound_by", "library_ms", "device_ms",
+            "library_device_ms")
     print(f"seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -3,9 +3,10 @@
 // The CUDA-core kernels stage their tiles in shared memory as float32
 // whatever the input type (load_rows), so every product and reduction runs
 // in f32, as in the JAX package's kernels. The tensor-core kernels (the
-// bf16 backward of flash_bwd.cuh) keep bf16 tiles in shared memory, filled
-// by cp.async, and multiply with mma.sync m16n8k16 (bf16 in, f32
-// accumulate) fed by ldmatrix: the primitives at the end of this file.
+// bf16 forward of flash_fwd.cuh and backward of flash_bwd.cuh) keep bf16
+// tiles of 64 rows in shared memory, filled by cp.async, and multiply with
+// mma.sync m16n8k16 (bf16 in, f32 accumulate) fed by ldmatrix: the
+// primitives and tile helpers at the end of this file.
 #pragma once
 
 #include <climits>
@@ -220,6 +221,106 @@ __device__ inline void split_bf16x2(float x, float y, uint32_t& hi,
   const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
   hi = reinterpret_cast<const uint32_t&>(h);
   lo = reinterpret_cast<const uint32_t&>(l);
+}
+
+
+// ---- 64-row bf16 tiles of the tensor-core kernels (flash_fwd.cuh,
+// flash_bwd.cuh) ----
+
+using bf16 = __nv_bfloat16;
+
+constexpr int MMA_NT = 128;  // four warps, 16 rows of the 64-row tile each
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned char TILE_LIVE = 1;  // the tile has a visible pair
+constexpr unsigned char TILE_FULL = 2;  // 64 rows, every pair visible
+
+// smem row stride (elements) and size (bytes) of a 64 x D bf16 tile
+template <int D>
+struct MmaTile {
+  static constexpr int LDS = D + 8;
+  static constexpr int ELEMS = 64 * LDS;
+  static constexpr size_t BYTES = sizeof(bf16) * ELEMS;
+};
+
+// Asynchronous copy of rows [0, nvalid) of a 64 x D bf16 tile (row r at
+// src + r * stride) into shared memory with row stride D + 8, by NTHR
+// threads (tid in [0, NTHR)); the rows past nvalid are zero-filled, so
+// masked products stay finite.
+template <int D, int NTHR = MMA_NT>
+__device__ inline void tile_async(bf16* dst, const bf16* src, size_t stride,
+                                  int nvalid, int tid) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  static_assert((64 * CPR) % NTHR == 0, "whole chunks per thread");
+#pragma unroll
+  for (int it = 0; it < 64 * CPR / NTHR; ++it) {
+    const int e = tid + it * NTHR;
+    const int r = e / CPR;
+    const int c = e - r * CPR;
+    const bool ok = r < nvalid;
+    cp_async_16(dst + r * MmaTile<D>::LDS + c * 8,
+                src + (size_t)(ok ? r : 0) * stride + c * 8, ok);
+  }
+}
+
+// One flag byte per streamed 64-row tile of positions pos[0..S): TILE_LIVE
+// if some pair with the CTA's own tile (positions [lo, hi]) is visible,
+// TILE_FULL if the tile has 64 rows and every pair is. `streamed_q`: the
+// streamed tiles are query tiles (the dk/dv kernel), else key tiles.
+__device__ inline void tile_flags(unsigned char* flags, const int* pos,
+                                  int S, bool streamed_q, int lo, int hi,
+                                  const Mask& m, int warp, int lane) {
+  const int n_t = (S + 63) / 64;
+  for (int t = warp; t < n_t; t += MMA_NT / 32) {
+    const int n = min(64, S - t * 64);
+    int tlo, thi;
+    warp_range(pos + t * 64, n, lane, tlo, thi);
+    const bool live = streamed_q ? m.live(tlo, thi, lo, hi)
+                                 : m.live(lo, hi, tlo, thi);
+    const bool full = n == 64 && (streamed_q ? m.full(tlo, thi, lo, hi)
+                                             : m.full(lo, hi, tlo, thi));
+    if (lane == 0) flags[t] = (live ? TILE_LIVE : 0) | (full ? TILE_FULL : 0);
+  }
+}
+
+// part = (hi + lo) B for the warp's 16 rows and the 16 columns
+// [16 dn, 16 dn + 16) of B (two n8 tiles), over KC k16 chunks: hi, lo are
+// A fragments (a bf16 hi/lo pair, e.g. taken from S accumulator fragments,
+// two adjacent n8 tiles per k16 chunk), B is rows row0 .. row0 + 16 KC of
+// a 64 x D bf16 tile read by ldmatrix.trans. `part` starts at zero: the
+// caller adds it to its running sum with one f32 operation, so no MMA
+// chain runs longer than 2 KC products.
+template <int D, int KC>
+__device__ __forceinline__ void pair_products(float (&part)[2][4],
+                                              const uint32_t (&hi)[KC][4],
+                                              const uint32_t (&lo)[KC][4],
+                                              const bf16* tile, int row0,
+                                              int dn, int lane) {
+  constexpr int LDS = MmaTile<D>::LDS;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) part[0][e] = part[1][e] = 0.0f;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    const int off =
+        (row0 + kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
+        dn * 16 + (lane >> 4) * 8;
+    uint32_t b[4];
+    ldsm_x4_t(b, tile + off);
+    mma_bf16(part[0], hi[kc], b[0], b[1]);
+    mma_bf16(part[0], lo[kc], b[0], b[1]);
+    mma_bf16(part[1], hi[kc], b[2], b[3]);
+    mma_bf16(part[1], lo[kc], b[2], b[3]);
+  }
+}
+
+// Resident CTAs per SM (the CUDA occupancy API) of a kernel of MMA_NT
+// threads with `smem` bytes of dynamic shared memory
+template <typename Kern>
+cudaError_t occupancy_of(Kern kern, size_t smem, int* ctas) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kern, MMA_NT,
+                                                       smem);
 }
 
 }  // namespace repro_torch

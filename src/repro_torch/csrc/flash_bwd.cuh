@@ -409,60 +409,8 @@ cudaError_t launch_bwd_d(const BwdArgs& a, int D, cudaStream_t stream) {
 }
 
 // ---- bf16: the tensor-core kernels --------------------------------------
-
-using bf16 = __nv_bfloat16;
-
-constexpr int MMA_NT = 128;  // four warps, 16 rows of the 64-row tile each
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr unsigned char TILE_LIVE = 1;  // the tile has a visible pair
-constexpr unsigned char TILE_FULL = 2;  // 64 rows, every pair visible
-
-// smem row stride (elements) and size (bytes) of a 64 x D bf16 tile
-template <int D>
-struct MmaTile {
-  static constexpr int LDS = D + 8;
-  static constexpr int ELEMS = 64 * LDS;
-  static constexpr size_t BYTES = sizeof(bf16) * ELEMS;
-};
-
-// Asynchronous copy of rows [0, nvalid) of a 64 x D bf16 tile (row r at
-// src + r * stride) into shared memory with row stride D + 8; the rows
-// past nvalid are zero-filled, so masked products stay finite.
-template <int D>
-__device__ inline void tile_async(bf16* dst, const bf16* src, size_t stride,
-                                  int nvalid, int tid) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  static_assert((64 * CPR) % MMA_NT == 0, "whole chunks per thread");
-#pragma unroll
-  for (int it = 0; it < 64 * CPR / MMA_NT; ++it) {
-    const int e = tid + it * MMA_NT;
-    const int r = e / CPR;
-    const int c = e - r * CPR;
-    const bool ok = r < nvalid;
-    cp_async_16(dst + r * MmaTile<D>::LDS + c * 8,
-                src + (size_t)(ok ? r : 0) * stride + c * 8, ok);
-  }
-}
-
-// One flag byte per streamed 64-row tile of positions pos[0..S): TILE_LIVE
-// if some pair with the CTA's own tile (positions [lo, hi]) is visible,
-// TILE_FULL if the tile has 64 rows and every pair is. `streamed_q`: the
-// streamed tiles are query tiles (the dk/dv kernel), else key tiles.
-__device__ inline void tile_flags(unsigned char* flags, const int* pos,
-                                  int S, bool streamed_q, int lo, int hi,
-                                  const Mask& m, int warp, int lane) {
-  const int n_t = (S + 63) / 64;
-  for (int t = warp; t < n_t; t += MMA_NT / 32) {
-    const int n = min(64, S - t * 64);
-    int tlo, thi;
-    warp_range(pos + t * 64, n, lane, tlo, thi);
-    const bool live = streamed_q ? m.live(tlo, thi, lo, hi)
-                                 : m.live(lo, hi, tlo, thi);
-    const bool full = n == 64 && (streamed_q ? m.full(tlo, thi, lo, hi)
-                                             : m.full(lo, hi, tlo, thi));
-    if (lane == 0) flags[t] = (live ? TILE_LIVE : 0) | (full ? TILE_FULL : 0);
-  }
-}
+// (their tiles, cp.async loads, tile flags and the P / dS products are in
+// common.cuh, shared with the forward's flash_fwd_mma)
 
 // s = A1 B1^T and dp = A2 B2^T for the warp's 16 rows of a1, a2 against
 // NCOL rows of b1, b2 from row col0 (all 64 x D bf16 tiles in shared
@@ -500,33 +448,19 @@ __device__ __forceinline__ void score_products(
 }
 
 // acc += (hi + lo) B over KC k16 chunks, for the warp's 16 rows and all D
-// columns: hi, lo are A fragments (a bf16 hi/lo pair), B is rows row0 ..
-// row0 + 16 KC of a 64 x D bf16 tile read by ldmatrix.trans. Each n8-tile
-// pair's share is summed in a fresh accumulator and added with one f32
-// add: the tensor cores' accumulation truncates, so one chain over a long
-// block would drift.
+// columns (pair_products). Each n8-tile pair's share is summed in a fresh
+// accumulator and added with one f32 add: the tensor cores' accumulation
+// truncates, so one chain over a long block would drift.
 template <int D, int KC>
 __device__ __forceinline__ void add_products(float (&acc)[D / 8][4],
                                              const uint32_t (&hi)[KC][4],
                                              const uint32_t (&lo)[KC][4],
                                              const bf16* tile, int row0,
                                              int lane) {
-  constexpr int LDS = MmaTile<D>::LDS;
 #pragma unroll
   for (int dn = 0; dn < D / 16; ++dn) {
-    float part[2][4] = {};
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      const int off =
-          (row0 + kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
-          dn * 16 + (lane >> 4) * 8;
-      uint32_t b[4];
-      ldsm_x4_t(b, tile + off);
-      mma_bf16(part[0], hi[kc], b[0], b[1]);
-      mma_bf16(part[0], lo[kc], b[0], b[1]);
-      mma_bf16(part[1], hi[kc], b[2], b[3]);
-      mma_bf16(part[1], lo[kc], b[2], b[3]);
-    }
+    float part[2][4];
+    pair_products<D, KC>(part, hi, lo, tile, row0, dn, lane);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       acc[2 * dn][e] += part[0][e];
@@ -875,15 +809,6 @@ inline cudaError_t launch_bwd_mma_d(const BwdArgs& a, int D,
 // Resident CTAs per SM (the CUDA occupancy API) and dynamic shared memory
 // of the bf16 kernels for the shape in `a`: out = {dq CTAs, dk/dv CTAs, dq
 // bytes, dk/dv bytes}.
-template <typename Kern>
-cudaError_t occupancy_of(Kern kern, size_t smem, int* ctas) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kern, MMA_NT,
-                                                       smem);
-}
-
 template <int D>
 cudaError_t bwd_occupancy_mma(const BwdArgs& a, int* out) {
   out[2] = (int)smem_dq_mma<D>(a);

@@ -1,30 +1,86 @@
-// The block flash-attention forward kernel shared by B1/B2
-// (flash_fwd.cu) and B5 (ragged_prefill.cu).
+// The block flash-attention forward kernels shared by B1/B2
+// (flash_fwd.cu) and B5 (ragged_prefill.cu); B6 (paged_prefill.cu) reuses
+// the f32 tile update.
 //
 // Semantics (kept op for op from the Pallas kernels' _fwd_kernel,
 // _fwd_merge_kernel and ragged_prefill._fwd_kernel): the mask comes from
 // position vectors (causal, sliding window, prefix-LM: _mask_tile); a K tile
 // whose min/max positions show it fully masked is skipped (_tile_live;
 // min/max because zigzag positions are not sorted); the online softmax keeps
-// the guards of _fwd_accumulate (m_safe, p *= mask, alpha = 0 while the row
-// is dead); the finalize follows _block_partial and the MERGE epilogue
-// follows _fwd_merge_kernel. Dead rows give o = 0 and lse = -1e30 exactly.
-// Sq and Sk need not be multiples of the tile: the ragged edge is masked.
+// the guards of _fwd_accumulate (masked s = -1e30 before the max, m_safe,
+// p = 0 where masked, alpha = 0 while the row is dead); the finalize follows
+// _block_partial and the MERGE epilogue follows _fwd_merge_kernel
+// (combine_pair). Dead rows give o = 0 and lse = -1e30 exactly. Sq and Sk
+// need not be multiples of the tile: the ragged edge is masked.
 // Layouts: q (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) in f32 or bf16; o, o_acc
 // (B,Sq,Hq,D) f32; lse, lse_acc (B,Hq,Sq) f32; GQA via kv_head = h / G.
 // Positions are read at pos_q + b * pos_q_bstride (and likewise for keys):
 // a batch stride of 0 shares one (S,) vector over the batch (B1/B2), a
 // stride of S reads per-row (B,S) positions (B5), so tile liveness is
-// decided per (b, tile).
+// decided per (b, tile). No atomics: two runs give the same bits.
 //
-// Design, simple first: the TPU's sequential K grid axis becomes a loop
-// inside one CTA. One CTA of 256 threads owns a (b, h, 64-row query tile);
-// four threads share a query row (16 score columns and D/4 output columns
-// each). Q, K and V tiles are staged in shared memory as f32 with a padded
-// row stride (D+1) that spreads the banks; loads move 16 bytes a thread.
-// Products run on the CUDA cores in f32, not on the tensor cores, so the
-// kernel is far from the operations bound; wgmma/TMA tiles are later work.
+// What bounds it on an H100: at the main path's shapes the work is
+// 4*D FLOPs per visible (query, key) pair and query head against a few
+// bytes per key: bound by operations at long sequences (seq 4096: 0.087 ms
+// at the bf16 tensor-core peak) and by bytes near 1K tokens, where the two
+// nearly meet (~5.5 us); at the decode shape (Sq = 1) by bytes, the K/V
+// cache read once.
+//
+// bf16 inputs (the main path) run on the tensor cores (flash_fwd_mma):
+// - Rows are packed (query, head) pairs: the Sq * G rows of one kv group
+//   are R = i * G + g (query i of head kv_head * G + g), and one CTA of 128
+//   threads (four warps, 16 rows each) owns 64 consecutive packed rows of
+//   one (b, kv head). Each K/V tile is then read once for the G heads that
+//   use it (the f32 kernel reads it G times), and at the decode shape
+//   (Sq = 1) a CTA holds G live rows, not one. G need not divide 64: a
+//   tile may start inside a query; its query range for masking and
+//   liveness is [R0 / G, (R0 + 63) / G]. Warps whose 16 rows all lie past
+//   Sq * G only help load.
+// - When every live row fits one 16-row slab (Sq * G <= 16: the decode
+//   shape) and there is no merge (B1, B5), the keys are split inside the
+//   CTA instead: each of 4 warps (2 at D = 128) computes those rows
+//   against every 4th live K/V tile with its own cp.async double buffer,
+//   and the warps' (m, l, acc) are merged in warp order at the end (the
+//   same merge as alpha's, so dead rows stay exact and two runs give the
+//   same bits). A per-CTA walk would hold one warp's work and one tile in
+//   flight on each of B * Hkv SMs.
+// - S = Q K^T with mma.sync m16n8k16 (bf16 in, f32 accumulate). Q's A
+//   fragments are read once per CTA by ldmatrix and stay in registers; K
+//   comes from a bf16 tile in shared memory with a row stride of D + 8, so
+//   the eight 16-byte rows of each ldmatrix phase fall in distinct banks.
+// - K, V and key positions are double-buffered with cp.async: the next
+//   live tile's copy overlaps this tile's MMAs; rows past Sk are
+//   zero-filled (a garbage V row times p = 0 could give NaN). Which tiles
+//   are live, and which have every pair visible (the per-element mask is
+//   then skipped, without changing a bit), is decided once per CTA from the
+//   min/max positions of each tile. The heaviest query tiles go first under
+//   causal masking (the packed-row tile is the slowest grid axis, issued
+//   from the last).
+// - The online softmax runs in registers on the S accumulator fragments:
+//   s is scaled by scale * log2 e and exponentiated with ex2.approx, the
+//   row max and row sum are reduced over the four lanes of a quad, and l
+//   sums the f32 p. A tile whose every pair is visible takes a path without
+//   the per-element mask.
+// - P enters P V as a bf16 hi/lo pair (split_bf16x2, two MMAs), taken from
+//   the S fragments as the A operand (two adjacent n8 tiles form one k16
+//   tile); V is read by ldmatrix.trans. One bf16 rounding of P would put o
+//   ~1e-3 off on short rows, ten times the 1e-4 bound
+//   (tests/test_torch_fwd_split.py emulates this arithmetic on the CPU).
+// - The tensor cores' f32 accumulation truncates, so each tile's P V goes
+//   into a fresh accumulator and then acc = acc * alpha + pv with one f32
+//   multiply-add: no MMA chain runs longer than one tile.
+// - ~57 KB of dynamic shared memory at D = 80 (Q, two K and two V tiles,
+//   positions, a flag byte per K tile): three CTAs per SM at ~166
+//   registers; ~194 KB with the keys split (one CTA per SM).
+//
+// f32 inputs (never on the main path; they keep the f32 tests exact) run
+// the CUDA-core kernel flash_fwd_kernel: one CTA of 256 threads per
+// (b, h, 64-row query tile), four threads per query row, Q, K and V staged
+// in shared memory as f32 with a D+1 stride, every product a scalar FMA.
+// B6 (paged_prefill.cu) runs its pages through the same tile_update.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -236,13 +292,411 @@ cudaError_t launch_fwd(const FwdArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---- bf16: the tensor-core kernel ---------------------------------------
+
+// 2^x by the SFU (ex2.approx.ftz: ~2 ulp, results below 2^-126 flushed
+// to 0; 2^-1e30 is 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Warps that walk the K/V tiles apart when the live rows of a CTA fit one
+// 16-row slab (Sq * G <= 16, the decode shape): 4, or 2 at D = 128, where
+// 4 warps' double buffers would not fit in shared memory
+template <int D>
+__host__ __device__ constexpr int fwd_ksplit() { return D > 80 ? 2 : 4; }
+
+__host__ __device__ inline bool fwd_split(const FwdArgs& a) {
+  return (long long)a.Sq * (a.Hq / a.Hkv) <= 16;
+}
+
+// Shared memory of flash_fwd_mma: the Q tile, double buffers of K and V
+// tiles (bf16, row stride D + 8) and of their key positions (one pair per
+// CTA, or per walking warp when the keys are split), one flag byte per K
+// tile.
+template <int D, bool SPLIT>
+size_t smem_fwd_mma(const FwdArgs& a) {
+  const int pairs = 2 * (SPLIT ? fwd_ksplit<D>() : 1);
+  return (1 + 2 * pairs) * MmaTile<D>::BYTES + pairs * sizeof(int) * BK +
+         (a.Sk + BK - 1) / BK;
+}
+
+// SPLIT: the live rows fit slab 0 (Sq * G <= 16), and every walking warp
+// computes them against its own share of the K/V tiles; the shares are
+// merged at the end. It is taken only without MERGE, in its own
+// instantiation, so the merge and the split-key loop do not share one
+// kernel's registers.
+template <int D, bool MERGE, bool SPLIT>
+__global__ void __launch_bounds__(MMA_NT)
+flash_fwd_mma(FwdArgs a) {
+  constexpr int LDS = MmaTile<D>::LDS;
+  constexpr int TILE = MmaTile<D>::ELEMS;
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  constexpr float LN2 = 0.6931471805599453f;
+  constexpr int KSPLIT = fwd_ksplit<D>();
+  constexpr int pairs = 2 * (SPLIT ? KSPLIT : 1);  // K/V buffer pairs
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sKV = sQ + TILE;  // K/V buffer pair j: K at 2 j TILE, V after it
+  int* sPosK = reinterpret_cast<int*>(sKV + 2 * pairs * TILE);  // BK each
+  unsigned char* sFlag =
+      reinterpret_cast<unsigned char*>(sPosK + pairs * BK);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gr = lane >> 2;  // fragment row (and + 8)
+  const int tq = lane & 3;   // fragment column pair
+  const int kvh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int G = a.Hq / a.Hkv;
+  const int rows = a.Sq * G;                           // packed rows
+  const int R0 = (gridDim.z - 1 - blockIdx.z) * BQ;    // heaviest first
+  const int i_lo = R0 / G;
+  const int i_hi = min((R0 + BQ - 1) / G, a.Sq - 1);
+  const int n_k = (a.Sk + BK - 1) / BK;
+  const int* pos_q = a.pos_q + (size_t)b * a.pos_q_bstride;
+  const int* pos_k = a.pos_k + (size_t)b * a.pos_k_bstride;
+  const size_t kv_stride = (size_t)a.Hkv * D;
+  const bf16* k = static_cast<const bf16*>(a.k) +
+                  (size_t)b * a.Sk * kv_stride + (size_t)kvh * D;
+  const bf16* v = static_cast<const bf16*>(a.v) +
+                  (size_t)b * a.Sk * kv_stride + (size_t)kvh * D;
+  // packed row R of this (b, kv head) is q row (R / G) * Hq + R % G here
+  const bf16* q = static_cast<const bf16*>(a.q) +
+                  ((size_t)b * a.Sq * a.Hq + (size_t)kvh * G) * D;
+
+  // Q: 64 packed rows; the rows past Sq * G are zero-filled
+#pragma unroll
+  for (int it = 0; it < BQ * CPR / MMA_NT; ++it) {
+    const int e = tid + it * MMA_NT;
+    const int r = e / CPR;
+    const int c = e - r * CPR;
+    const int R = R0 + r;
+    const bool ok = R < rows;
+    const size_t row = ok ? (size_t)(R / G) * a.Hq + R % G : 0;
+    cp_async_16(sQ + r * LDS + c * 8, q + row * D + c * 8, ok);
+  }
+  cp_async_commit();
+
+  // this thread's packed rows 16 slab + gr and + 8: query position, and
+  // the output row (-1 past Sq * G: computed on zeros, never written)
+  const int slab = SPLIT ? 0 : warp;
+  int pq[2], qi[2], hh[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int R = R0 + 16 * slab + gr + 8 * i;
+    const bool ok = R < rows;
+    qi[i] = ok ? R / G : -1;
+    hh[i] = ok ? kvh * G + R % G : 0;
+    pq[i] = pos_q[ok ? qi[i] : i_lo];
+  }
+  const bool warp_live = SPLIT ? warp < KSPLIT : R0 + 16 * warp < rows;
+  int qlo, qhi;
+  warp_range(pos_q + i_lo, i_hi - i_lo + 1, lane, qlo, qhi);
+  tile_flags(sFlag, pos_k, a.Sk, false, qlo, qhi, a.mask, warp, lane);
+  __syncthreads();
+
+  // The tiles are walked by the whole CTA in order, or, with SPLIT, by each
+  // of the first KSPLIT warps alone: warp w takes live tiles w, w + KSPLIT,
+  // ... into its own buffer pairs 2 w and 2 w + 1
+  const int step = SPLIT ? KSPLIT : 1;
+  auto next_live = [&](int t) {
+    while (t < n_k && !(sFlag[t] & TILE_LIVE)) ++t;
+    return t;
+  };
+  auto advance = [&](int t, int n) {  // n live tiles on from live tile t
+    for (; n > 0 && t < n_k; --n) t = next_live(t + 1);
+    return t;
+  };
+  auto fetch = [&](int t, int buf) {
+    const int k0 = t * BK;
+    const int nk = min(BK, a.Sk - k0);
+    const int slot = SPLIT ? 2 * warp + buf : buf;
+    bf16* kd = sKV + 2 * slot * TILE;
+    if (SPLIT) {
+      tile_async<D, 32>(kd, k + k0 * kv_stride, kv_stride, nk, lane);
+      tile_async<D, 32>(kd + TILE, v + k0 * kv_stride, kv_stride, nk, lane);
+    } else {
+      tile_async<D>(kd, k + k0 * kv_stride, kv_stride, nk, tid);
+      tile_async<D>(kd + TILE, v + k0 * kv_stride, kv_stride, nk, tid);
+    }
+    for (int r = SPLIT ? lane : tid; r < BK; r += SPLIT ? 32 : MMA_NT)
+      cp_async_4(sPosK + slot * BK + r, pos_k + k0 + (r < nk ? r : 0),
+                 r < nk);
+  };
+  auto sync = [&]() {  // the threads that walk the tiles together
+    if (SPLIT)
+      __syncwarp();
+    else
+      __syncthreads();
+  };
+
+  int t = warp_live || !SPLIT ? advance(next_live(0), SPLIT ? warp : 0)
+                              : n_k;
+  if (t < n_k) fetch(t, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q landed
+  __syncthreads();
+  uint32_t qf[D / 16][4];  // Q's A fragments, k16 chunks over D
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(qf[kk], sQ + (16 * slab + (lane & 15)) * LDS + kk * 16 +
+                        (lane >> 4) * 8);
+
+  const float sl2 = a.scale * LOG2E;
+  // running max (log2 units: s * scale * log2 e), sum and output of the
+  // thread's two rows; acc holds n8 tiles over D
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
+  float acc[D / 8][4] = {};
+
+  for (int buf = 0; t < n_k; buf ^= 1) {
+    const int tn = advance(t, step);
+    if (tn < n_k) fetch(tn, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t landed
+    sync();
+    if (warp_live) {
+      const int slot = SPLIT ? 2 * warp + buf : buf;
+      const bf16* kt = sKV + 2 * slot * TILE;
+      const bf16* vt = kt + TILE;
+      const int* pk = sPosK + slot * BK;
+      const int nk = min(BK, a.Sk - t * BK);
+      const bool full = sFlag[t] & TILE_FULL;
+
+      // S = Q K^T: the warp's 16 rows x 64 keys, eight n8 tiles
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t y[4];
+          ldsm_x4(y, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS +
+                         kk * 16 + ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * np], qf[kk], y[0], y[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], y[2], y[3]);
+        }
+      }
+
+      // the online-softmax update of the warp's rows from S, and P as
+      // hi/lo A fragments: n8 tiles 2c and 2c + 1 form k16 chunk c. MASKED
+      // is false on a tile whose every pair is visible (no per-element
+      // mask, the same bits)
+      uint32_t ph[4][4], pl[4][4];
+      float alpha[2];
+      auto update = [&](auto masked) {
+        constexpr bool MASKED = decltype(masked)::value;
+        uint32_t vis = 0xffffffffu;  // bit 4 j + e: pair visible
+        float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + 2 * tq;
+          int2 pk2 = make_int2(0, 0);
+          if (MASKED) pk2 = *reinterpret_cast<const int2*>(pk + c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;  // row gr or gr + 8
+            bool ok = true;
+            if (MASKED) {
+              ok = c + (e & 1) < nk &&
+                   a.mask.visible(pq[i], (e & 1) ? pk2.y : pk2.x);
+              if (!ok) vis &= ~(1u << (4 * j + e));
+            }
+            // scaled to log2 units; masked s = -1e30 before the max
+            s[j][e] = ok ? s[j][e] * sl2 : NEG_INF;
+            mx[i] = fmaxf(mx[i], s[j][e]);
+          }
+        }
+        float m_safe[2], psum[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+          const float m_cur = fmaxf(m[i], mx[i]);
+          m_safe[i] = m_cur <= DEAD ? 0.0f : m_cur;
+          alpha[i] = m[i] <= DEAD ? 0.0f : ex2(m[i] - m_safe[i]);
+          m[i] = m_cur;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            // p = 0 where masked
+            p[e] = !MASKED || (vis >> (4 * j + e)) & 1u
+                       ? ex2(s[j][e] - m_safe[i])
+                       : 0.0f;
+            psum[i] += p[e];
+          }
+          const int f = j >> 1, r = (j & 1) * 2;
+          split_bf16x2(p[0], p[1], ph[f][r], pl[f][r]);
+          split_bf16x2(p[2], p[3], ph[f][r + 1], pl[f][r + 1]);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
+          psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
+          l[i] = l[i] * alpha[i] + psum[i];
+        }
+      };
+      if (full)
+        update(std::false_type{});
+      else
+        update(std::true_type{});
+
+      // acc = acc * alpha + P V, this tile's P V in a fresh accumulator
+#pragma unroll
+      for (int dn = 0; dn < D / 16; ++dn) {
+        float part[2][4];
+        pair_products<D, 4>(part, ph, pl, vt, 0, dn, lane);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[2 * dn][e] = fmaf(acc[2 * dn][e], alpha[e >> 1], part[0][e]);
+          acc[2 * dn + 1][e] =
+              fmaf(acc[2 * dn + 1][e], alpha[e >> 1], part[1][e]);
+        }
+      }
+    }
+    sync();  // buf is refilled by the next iteration's fetch
+    t = tn;
+  }
+  cp_async_wait<0>();
+
+  if (SPLIT) {
+    // merge the walking warps' (m, l, acc) of slab 0 in warp order
+    // through shared memory (the K/V buffers are free now)
+    float* sM = reinterpret_cast<float*>(sKV);  // [KSPLIT][16]
+    float* sL = sM + KSPLIT * 16;               // [KSPLIT][16]
+    float* sA = sL + KSPLIT * 16;               // [KSPLIT][16][D]
+    __syncthreads();
+    if (warp_live) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = warp * 16 + gr + 8 * i;
+        if (tq == 0) {
+          sM[r] = m[i];
+          sL[r] = l[i];
+        }
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<float2*>(sA + r * D + 8 * n + 2 * tq) =
+              make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+      }
+    }
+    __syncthreads();
+    if (warp == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = gr + 8 * i;
+        float m_tot = NEG_INF;
+#pragma unroll
+        for (int w = 0; w < KSPLIT; ++w) m_tot = fmaxf(m_tot, sM[w * 16 + r]);
+        const float m_safe = m_tot <= DEAD ? 0.0f : m_tot;
+        float wt[KSPLIT], l_tot = 0.0f;
+#pragma unroll
+        for (int w = 0; w < KSPLIT; ++w) {
+          const float mw = sM[w * 16 + r];
+          wt[w] = mw <= DEAD ? 0.0f : ex2(mw - m_safe);
+          l_tot += wt[w] * sL[w * 16 + r];
+        }
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          float2 sum = make_float2(0.0f, 0.0f);
+#pragma unroll
+          for (int w = 0; w < KSPLIT; ++w) {
+            const float2 x = *reinterpret_cast<const float2*>(
+                sA + (w * 16 + r) * D + 8 * n + 2 * tq);
+            sum.x += wt[w] * x.x;
+            sum.y += wt[w] * x.y;
+          }
+          acc[n][2 * i] = sum.x;
+          acc[n][2 * i + 1] = sum.y;
+        }
+        m[i] = m_tot;
+        l[i] = l_tot;
+      }
+    }
+  }
+
+  // _block_partial, then (MERGE) combine_pair with the running accumulator
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (qi[i] < 0 || (SPLIT && warp != 0)) continue;
+    const bool dead = m[i] <= DEAD;
+    const float l_safe = l[i] == 0.0f ? 1.0f : l[i];
+    float lse_out = dead ? NEG_INF : m[i] * LN2 + logf(l_safe);
+    const size_t o_row = ((size_t)(b * a.Sq + qi[i]) * a.Hq + hh[i]) * D;
+    const size_t l_idx = ((size_t)b * a.Hq + hh[i]) * a.Sq + qi[i];
+    float w1 = 0.0f, w2 = 1.0f, denom_safe = 1.0f;
+    if (MERGE) {
+      const float lse_prev = a.lse_acc[l_idx];
+      const float m2 = fmaxf(lse_prev, lse_out);
+      const bool both_dead = m2 <= DEAD;
+      const float m2_safe = both_dead ? 0.0f : m2;
+      w1 = expf(lse_prev - m2_safe);
+      w2 = expf(lse_out - m2_safe);
+      const float denom = w1 + w2;
+      denom_safe = denom == 0.0f ? 1.0f : denom;
+      lse_out = both_dead ? NEG_INF : m2_safe + logf(denom_safe);
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int d = 8 * n + 2 * tq;
+      float2 o = make_float2(acc[n][2 * i] / l_safe,
+                             acc[n][2 * i + 1] / l_safe);
+      if (MERGE) {
+        const float2 prev =
+            *reinterpret_cast<const float2*>(a.o_acc + o_row + d);
+        o = make_float2((w1 * prev.x + w2 * o.x) / denom_safe,
+                        (w1 * prev.y + w2 * o.y) / denom_safe);
+      }
+      *reinterpret_cast<float2*>(a.o + o_row + d) = o;
+    }
+    if (tq == 0) a.lse[l_idx] = lse_out;
+  }
+}
+
+template <int D, bool MERGE, bool SPLIT>
+cudaError_t launch_fwd_mma_as(const FwdArgs& a, cudaStream_t stream) {
+  const size_t smem = smem_fwd_mma<D, SPLIT>(a);
+  auto kern = flash_fwd_mma<D, MERGE, SPLIT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long tiles = ((long long)a.Sq * (a.Hq / a.Hkv) + BQ - 1) / BQ;
+  if (tiles > 65535) return cudaErrorInvalidConfiguration;
+  kern<<<dim3(a.Hkv, a.B, (unsigned)tiles), MMA_NT, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D, bool MERGE>
+cudaError_t launch_fwd_mma(const FwdArgs& a, cudaStream_t stream) {
+  if (!MERGE && fwd_split(a))
+    return launch_fwd_mma_as<D, false, true>(a, stream);
+  return launch_fwd_mma_as<D, MERGE, false>(a, stream);
+}
+
+// The forward of one call, by input type: bf16 runs flash_fwd_mma, f32
+// the CUDA-core flash_fwd_kernel.
 template <typename T, bool MERGE>
 cudaError_t launch_fwd_d(const FwdArgs& a, int D, cudaStream_t stream) {
+  constexpr bool TC = std::is_same<T, bf16>::value;
   switch (D) {
-    case 32: return launch_fwd<T, 32, MERGE>(a, stream);
-    case 64: return launch_fwd<T, 64, MERGE>(a, stream);
-    case 80: return launch_fwd<T, 80, MERGE>(a, stream);
-    case 128: return launch_fwd<T, 128, MERGE>(a, stream);
+    case 32: return TC ? launch_fwd_mma<32, MERGE>(a, stream)
+                       : launch_fwd<float, 32, MERGE>(a, stream);
+    case 64: return TC ? launch_fwd_mma<64, MERGE>(a, stream)
+                       : launch_fwd<float, 64, MERGE>(a, stream);
+    case 80: return TC ? launch_fwd_mma<80, MERGE>(a, stream)
+                       : launch_fwd<float, 80, MERGE>(a, stream);
+    case 128: return TC ? launch_fwd_mma<128, MERGE>(a, stream)
+                        : launch_fwd<float, 128, MERGE>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

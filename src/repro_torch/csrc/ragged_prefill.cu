@@ -17,11 +17,14 @@
 // bytes (the cache's K and V read once; 4*D FLOPs per key and query head is
 // far below the card's ratio of operations to bytes).
 //
-// Design, simple first: the shared kernel's 64-row query tile is kept, so
-// at the decode shape (Sq = 1) a CTA does 1/64 of its row work usefully and
-// the G = 4 query heads of a kv group each read the cache from memory. A
-// decode-shaped tiling (one CTA per (b, kv head) serving the whole group,
-// keys split across CTAs) is the first thing to fix.
+// Design: the kernels of flash_fwd.cuh (bf16: flash_fwd_mma). Rows are
+// packed (query, head) pairs of one kv group, so at the decode shape
+// (Sq = 1, G = 4) one CTA per (b, kv head) holds the group's 4 live rows
+// and reads each K/V tile once for them, where a per-head 64-query tile
+// held 1 live row and read the cache G times. That gives only B * Hkv = 32
+// CTAs on 132 SMs, so at Sq * G <= 16 the CTA's 4 warps split its K/V
+// tiles among them and merge their partial softmax states at the end.
+// Splitting the keys across CTAs as well is later work.
 
 #include "flash_fwd.cuh"
 

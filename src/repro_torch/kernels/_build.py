@@ -42,6 +42,7 @@ SIGNATURES = {
     "repro_paged_prefill": [_VP] * 7 + [_I] * 12 + [_F, _I, _VP],
     "repro_ragged_bwd": [_VP] * 11 + [_I] * 12 + [_F, _VP],
     "repro_flash_bwd_occupancy": [_I] * 3 + [ctypes.POINTER(_I)],
+    "repro_flash_fwd_occupancy": [_I] * 4 + [ctypes.POINTER(_I)],
 }
 
 _info: Dict[str, object] = {}

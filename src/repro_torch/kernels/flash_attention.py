@@ -3,7 +3,8 @@ B1 (``_fwd_kernel``) and B2 (the fused ring-merge ``_fwd_merge_kernel``),
 and the backward B3 (``_bwd_dq_kernel`` + ``_bwd_dkv_kernel``).
 
 ``flash_attention_fwd`` launches ``csrc/flash_fwd.cu`` and
-``flash_attention_bwd`` launches ``csrc/flash_bwd.cu`` on CUDA tensors; on
+``flash_attention_bwd`` launches ``csrc/flash_bwd.cu`` on CUDA tensors (bf16
+inputs on the tensor cores, f32 inputs on the CUDA cores); on
 CPU tensors they run their plain PyTorch versions
 (``flash_attention_fwd_plain``: the ``ref.block_attention`` oracle, then
 ``combine_pair`` for B2; ``flash_attention_bwd_plain``:
@@ -179,3 +180,16 @@ def bwd_occupancy(D: int, Sq: int, Sk: int) -> Dict[str, int]:
                  "flash_bwd_occupancy")
     return dict(zip(("dq_ctas_per_sm", "dkv_ctas_per_sm", "dq_smem_bytes",
                      "dkv_smem_bytes"), out))
+
+
+def fwd_occupancy(D: int, Sq: int, Sk: int, G: int) -> Dict[str, int]:
+    """Resident CTAs per SM (the CUDA occupancy API) and dynamic shared
+    memory in bytes of the bf16 forward kernel (B1, B2 and B5) for Sq
+    queries of G heads per kv head against Sk keys."""
+    from repro_torch.kernels import _build
+
+    out = (ctypes.c_int * 3)()
+    _build.check(_build.library().repro_flash_fwd_occupancy(Sq, G, Sk, D,
+                                                            out),
+                 "flash_fwd_occupancy")
+    return dict(zip(("b1_ctas_per_sm", "b2_ctas_per_sm", "smem_bytes"), out))

@@ -183,6 +183,19 @@ BWD_CASES = {
 }
 
 
+def _block_positions(Sq, Sk, kind):
+    """Shared (S,) positions of a block pair: "arange"; "future" (the first
+    half of the query rows see no key at all under causal masking);
+    "offset" (Sk > Sq keys straddle the queries); "zigzag" (two ranks' zigzag
+    shards)."""
+    if kind == "zigzag":
+        return _zigzag(1, 2 * Sq, 2), _zigzag(0, 2 * Sk, 2)
+    pos_q = np.arange(Sq, dtype=np.int32)
+    pos_k = np.arange(Sk, dtype=np.int32) + {
+        "arange": 0, "future": Sq // 2, "offset": (Sq - Sk) // 2}[kind]
+    return pos_q, pos_k
+
+
 def _bwd_inputs(B, Sq, Sk, Hq, Hkv, D, causal, window, kind, seed=0):
     """q, k, v, do, positions, and the *global* lse and delta =
     rowsum(do * o) of full attention over the block pair (from the plain
@@ -192,14 +205,7 @@ def _bwd_inputs(B, Sq, Sk, Hq, Hkv, D, causal, window, kind, seed=0):
     k = rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32)
     v = rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32)
     do = rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)
-    if kind == "zigzag":
-        pos_q, pos_k = _zigzag(1, 2 * Sq, 2), _zigzag(0, 2 * Sk, 2)
-    else:
-        pos_q = np.arange(Sq, dtype=np.int32)
-        # "future": the first half of the query rows see no key at all;
-        # "offset": Sk > Sq keys straddle the queries
-        pos_k = np.arange(Sk, dtype=np.int32) + {
-            "arange": 0, "future": Sq // 2, "offset": (Sq - Sk) // 2}[kind]
+    pos_q, pos_k = _block_positions(Sq, Sk, kind)
     o, lse = flash_attention.flash_attention_fwd_plain(
         _t(q), _t(k), _t(v), _t(pos_q), _t(pos_k), causal=causal,
         window=window)
@@ -252,6 +258,96 @@ def _ragged_bwd_inputs(B, Sq, Sk, Hq, Hkv, D, causal, window, zero_row,
     delta = np.einsum("bshd,bshd->bhs", do, o.numpy())
     return (q, k, v, do, lse.numpy(), delta.astype(np.float32),
             np.ascontiguousarray(pos_q), np.ascontiguousarray(pos_k))
+
+
+MMA_FWD_CASES = {
+    # B, Sq, Sk, Hq, Hkv, D, causal, window, B1/B2 positions: shapes for the
+    # tensor-core tiles of the bf16 forward (B1, B2, B5), every head size,
+    # G = Hq / Hkv in {1, 4, 6, 8} (6 does not divide the 64 packed rows of
+    # a tile), Sq and Sk not multiples of 64
+    "d32_g4_dead_rows": (2, 150, 150, 4, 1, 32, True, None, "future"),
+    "d64_g1_window_cuts_tiles": (2, 257, 257, 2, 2, 64, True, 40, "arange"),
+    "d80_g4_zigzag_window": (1, 128, 128, 8, 2, 80, True, 100, "zigzag"),
+    "d80_g6_sq77_sk203": (1, 77, 203, 12, 2, 80, True, None, "offset"),
+    "d80_g4_bidirectional_window": (2, 193, 193, 4, 1, 80, False, 100,
+                                    "arange"),
+    "d128_g8_sq131": (1, 131, 131, 8, 1, 128, True, None, "arange"),
+}
+
+# how each MMA_FWD_CASES case runs: B1 and B2 on the case's shared
+# positions (B2 with a running accumulator that holds dead rows), B5 on
+# per-row lengths with a zero-length row and at the decode shape (Sq = 1,
+# so Sq * G <= 16: the kernel splits the keys over its warps)
+FWD_ROUTES = ("B1", "B2", "B5_lengths", "B5_decode")
+
+
+def _mma_fwd_inputs(route, B, Sq, Sk, Hq, Hkv, D, kind, seed=0):
+    """(q, k, v, pos_q, pos_k, o_acc, lse_acc) numpy arrays of one
+    MMA_FWD_CASES case run as ``route`` (the accumulator None but for B2)."""
+    if route.startswith("B5"):
+        lengths = route == "B5_lengths"
+        q, k, v, pos_q, pos_k = _ragged_inputs(
+            3 if lengths else 4, Sq if lengths else 1, Sk, Hq, Hkv, D,
+            "lengths" if lengths else "decode", seed)
+        return q, k, v, pos_q, pos_k, None, None
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)
+    k = rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32)
+    pos_q, pos_k = _block_positions(Sq, Sk, kind)
+    o_acc = lse_acc = None
+    if route == "B2":
+        o_acc = rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)
+        lse_acc = 3 * rng.normal(size=(B, Hq, Sq)).astype(np.float32)
+        # the running accumulator has seen nothing yet on some rows
+        o_acc[:, :5] = 0.0
+        lse_acc[:, :, :5] = NEG_INF
+    return (q, k, v, pos_q.astype(np.int32), pos_k.astype(np.int32), o_acc,
+            lse_acc)
+
+
+PREFIX_CASES = {
+    # S, prefix_len, causal, window: keys below prefix_len are seen by every
+    # query. With 64-key tiles, tiles 0 and 1 lie wholly inside the prefix
+    # (every pair visible through the prefix alone) and one tile straddles
+    # its end
+    "causal_p130": (200, 130, True, None),
+    "window40_p100": (200, 100, True, 40),
+    "bidirectional_window24_p70": (150, 70, False, 24),
+}
+PREFIX_ROUTES = ("B1", "B2", "B3", "B5", "B7")
+
+
+def _prefix_inputs(route, S, prefix_len, causal, window, B=2, Hq=8, Hkv=2,
+                   D=32, seed=0):
+    """Inputs of one PREFIX_CASES case run as ``route``: q, k, v, pos_q,
+    pos_k for the forward kernels (B2 adds an accumulator), and q, k, v,
+    do, lse, delta, pos_q, pos_k for the backward (lse and delta from the
+    plain forward under the same prefix-LM mask). B1, B2, B3 take shared
+    (S,) positions; B5 and B7 per-row (B, S) positions, row b starting at
+    37 b."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
+    k = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, S, Hkv, D)).astype(np.float32)
+    pos = np.arange(S, dtype=np.int32)
+    if route in ("B5", "B7"):
+        pos = np.ascontiguousarray(37 * np.arange(B, dtype=np.int32)[:, None]
+                                   + pos[None])
+    if route in ("B1", "B5"):
+        return q, k, v, pos, pos
+    if route == "B2":
+        o_acc = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
+        lse_acc = rng.normal(size=(B, Hq, S)).astype(np.float32)
+        lse_acc[:, :, :7] = NEG_INF
+        o_acc[:, :7] = 0.0
+        return q, k, v, pos, pos, o_acc, lse_acc
+    do = rng.normal(size=(B, S, Hq, D)).astype(np.float32)
+    o, lse = ragged_prefill.ragged_prefill_fwd_plain(
+        _t(q), _t(k), _t(v), _t(pos), _t(pos), causal=causal, window=window,
+        prefix_len=prefix_len)
+    delta = np.einsum("bshd,bshd->bhs", do, o.numpy()).astype(np.float32)
+    return q, k, v, do, lse.numpy(), delta, pos, pos
 
 
 # ---------------------------------------------------------------------------
@@ -618,3 +714,110 @@ def test_recompute_reruns_the_attention_forward(cuda_device, remat):
     torch.testing.assert_close(loss1, loss0, rtol=1e-6, atol=0)
     for a, b in zip(g1, g0):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", FWD_ROUTES)
+@pytest.mark.parametrize("case", sorted(MMA_FWD_CASES))
+def test_fwd_tensor_core_tiles_match_plain(cuda_device, case, route):
+    """The bf16 forward (flash_fwd_mma: packed (query, head) rows, mma.sync
+    tiles, P as a hi/lo pair; keys split over the warps at the decode
+    shape) against its plain version within 1e-4, at every head size and G
+    in {1, 4, 6, 8}, over many 64-row tiles, a window edge inside a tile and
+    ragged Sq / Sk, as B1, B2 and B5; dead rows and the zero-length row
+    exact; two runs give the same bits."""
+    B, Sq, Sk, Hq, Hkv, D, causal, window, kind = MMA_FWD_CASES[case]
+    arrs = _mma_fwd_inputs(route, B, Sq, Sk, Hq, Hkv, D, kind)
+    args = [_t(x).to(cuda_device, torch.bfloat16) for x in arrs[:3]] + \
+        [_t(x).to(cuda_device) for x in arrs[3:] if x is not None]
+    kw = dict(causal=causal, window=window)
+    if route.startswith("B5"):
+        fn, plain = ragged_prefill.ragged_prefill_fwd, \
+            ragged_prefill.ragged_prefill_fwd_plain
+        launches, name = ragged_prefill.LAUNCHES, "B5"
+    else:
+        fn, plain = flash_attention.flash_attention_fwd, \
+            flash_attention.flash_attention_fwd_plain
+        launches, name = flash_attention.LAUNCHES, route
+    before = launches[name]
+    o, lse = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert launches[name] == before + 1
+    o_p, lse_p = plain(*args, **kw)
+    _assert_partials(o.cpu().numpy(), lse.cpu().numpy(), o_p.cpu().numpy(),
+                     lse_p.cpu().numpy(), 1e-4)
+    if route == "B5_lengths":            # the zero-length row
+        assert (lse[2] == NEG_INF).all() and (o[2] == 0).all()
+    elif kind == "future" and route == "B1":
+        assert (lse_p <= NEG_INF / 2).any()        # there are dead rows
+    o2, lse2 = fn(*args, **kw)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)   # no atomics
+
+
+@pytest.mark.gpu
+def test_fwd_long_block_stays_within_tolerance(cuda_device):
+    """B2 on one 12288-token bf16 block, 4 query heads over one kv head,
+    causal: a row sums up to 12288 keys. The tensor cores' f32
+    accumulation truncates, so each tile's P V goes into a fresh
+    accumulator and is added with one f32 multiply-add; a single MMA chain
+    over the block would drift."""
+    S, Hq = 12288, 4
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn((1, S, Hq, 80), generator=g, device=cuda_device)
+    k, v = (torch.randn((1, S, 1, 80), generator=g, device=cuda_device)
+            for _ in range(2))
+    o_acc = torch.randn((1, S, Hq, 80), generator=g, device=cuda_device)
+    lse_acc = 3 * torch.randn((1, Hq, S), generator=g, device=cuda_device)
+    pos = torch.arange(S, dtype=torch.int32, device=cuda_device)
+    args = [t.bfloat16() for t in (q, k, v)] + [pos, pos, o_acc, lse_acc]
+    o, lse = flash_attention.flash_attention_fwd(*args)
+    torch.cuda.synchronize()
+    o_p, lse_p = flash_attention.flash_attention_fwd_plain(*args)
+    _assert_partials(o.cpu().numpy(), lse.cpu().numpy(), o_p.cpu().numpy(),
+                     lse_p.cpu().numpy(), 1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("route", PREFIX_ROUTES)
+@pytest.mark.parametrize("case", sorted(PREFIX_CASES))
+def test_prefix_lm_kernel_matches_plain(cuda_device, case, route, dtype):
+    """The prefix-LM mask (prefix_len) on the card: every kernel that takes
+    it against its plain version, causal and windowed, with 64-key tiles
+    wholly inside the prefix (whose pairs are all visible through it, so
+    the tile skips the per-element mask) and one straddling its end."""
+    S, prefix_len, causal, window = PREFIX_CASES[case]
+    arrs = _prefix_inputs(route, S, prefix_len, causal, window, D=80)
+    n_in = 4 if route in ("B3", "B7") else 3
+    dt = getattr(torch, dtype)
+    args = [_t(x).to(cuda_device, dt) for x in arrs[:n_in]] + \
+        [_t(x).to(cuda_device) for x in arrs[n_in:]]
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len)
+    fn, plain, launches = {
+        "B1": (flash_attention.flash_attention_fwd,
+               flash_attention.flash_attention_fwd_plain,
+               flash_attention.LAUNCHES),
+        "B2": (flash_attention.flash_attention_fwd,
+               flash_attention.flash_attention_fwd_plain,
+               flash_attention.LAUNCHES),
+        "B3": (flash_attention.flash_attention_bwd,
+               flash_attention.flash_attention_bwd_plain,
+               flash_attention.LAUNCHES),
+        "B5": (ragged_prefill.ragged_prefill_fwd,
+               ragged_prefill.ragged_prefill_fwd_plain,
+               ragged_prefill.LAUNCHES),
+        "B7": (ragged_bwd.flash_attention_bwd_ragged,
+               ragged_bwd.flash_attention_bwd_ragged_plain,
+               ragged_bwd.LAUNCHES),
+    }[route]
+    before = launches[route]
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert launches[route] == before + 1
+    want = plain(*args, **kw)
+    if route in ("B3", "B7"):
+        _assert_grads([g.cpu().numpy() for g in got],
+                      [w.cpu().numpy() for w in want], arrs[4])
+    else:
+        tol = 2e-5 if dtype == "float32" else 1e-4
+        _assert_partials(*(t.cpu().numpy() for t in (*got, *want)), tol)

@@ -6,7 +6,9 @@ The port's ``flash_attention_fwd`` (B1, and B2 with a running accumulator),
 tensors; they are held against ``repro.kernels.flash_attention`` (B7: its
 batched-positions route, ``_flash_attention_bwd_ragged``) and
 ``repro.kernels.paged_decode`` run with ``interpret=True``, as
-``tests/test_kernels.py`` runs them. Inputs are
+``tests/test_kernels.py`` runs them. The prefix-LM mask (``prefix_len``)
+is held the same way for B1, B2, B3, B5 (against
+``repro.kernels.ragged_prefill``) and B7. Inputs are
 made with numpy from a seed and handed to both packages. Tolerance 2e-5 in
 f32 for the forward kernels (the JAX kernel tests' own) and 3e-4 for the
 backward (``test_bwd_matches_ref``'s); dead rows (no visible key) must be
@@ -24,13 +26,15 @@ import torch
 
 from repro.kernels import flash_attention as jax_flash
 from repro.kernels import paged_decode as jax_paged
+from repro.kernels import ragged_prefill as jax_ragged
 from repro_torch.core.combine import NEG_INF
 from repro_torch.kernels import dispatch, flash_attention, paged_decode
-from repro_torch.kernels import ragged_bwd
-from test_torch_gpu import (BWD_CASES, FWD_CASES, PAGED_CASES,
-                            RAGGED_BWD_CASES, _assert_grads,
+from repro_torch.kernels import ragged_bwd, ragged_prefill
+from test_torch_gpu import (BWD_CASES, FWD_CASES, PAGED_CASES, PREFIX_CASES,
+                            PREFIX_ROUTES, RAGGED_BWD_CASES, _assert_grads,
                             _assert_partials, _bwd_inputs, _fwd_inputs,
-                            _paged_inputs, _ragged_bwd_inputs, _t)
+                            _paged_inputs, _prefix_inputs,
+                            _ragged_bwd_inputs, _t)
 
 
 @pytest.mark.parametrize("merge", [False, True], ids=["B1", "B2"])
@@ -119,3 +123,34 @@ def test_ragged_bwd_plain_matches_jax(case):
         for g, w in zip(got, want):
             assert (g[zero_row] == 0).all()
             assert (np.asarray(w)[zero_row] == 0).all()
+
+
+@pytest.mark.parametrize("route", PREFIX_ROUTES)
+@pytest.mark.parametrize("case", sorted(PREFIX_CASES))
+def test_prefix_lm_plain_matches_jax(case, route):
+    """The plain versions under the prefix-LM mask (keys below prefix_len
+    seen by every query), causal and windowed, against the Pallas kernels
+    in interpret mode (50-row tiles, so some lie wholly inside the prefix):
+    B1, B2 and B3 with shared (S,) positions, B5 and B7 with per-row
+    (B, S) positions."""
+    S, prefix_len, causal, window = PREFIX_CASES[case]
+    arrs = _prefix_inputs(route, S, prefix_len, causal, window)
+    kw = dict(causal=causal, window=window, prefix_len=prefix_len)
+    blk = dict(block_q=50, block_k=50, interpret=True)
+    jx = [jnp.asarray(x) for x in arrs]
+    tx = [_t(x) for x in arrs]
+    if route in ("B3", "B7"):
+        want = jax_flash.flash_attention_bwd(*jx, **kw, **blk)
+        got = (flash_attention.flash_attention_bwd if route == "B3" else
+               ragged_bwd.flash_attention_bwd_ragged)(*tx, **kw)
+        _assert_grads([g.numpy() for g in got], want, arrs[4])
+        return
+    if route == "B5":
+        want = jax_ragged.ragged_prefill_fwd(*jx, **kw, **blk)
+        got = ragged_prefill.ragged_prefill_fwd(*tx, **kw)
+    else:
+        want = jax_flash.flash_attention_fwd(*jx, **kw, **blk)
+        got = flash_attention.flash_attention_fwd(*tx, **kw)
+    _assert_partials(got[0].numpy(), got[1].numpy(), *want)
+    # the prefix is seen by every query: no row is dead
+    assert (got[1] > NEG_INF / 2).all()
