@@ -24,8 +24,12 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               B3 (and B2 again) at the training shape, B7 at the
               ragged_bwd path's shape; B1 beside two SDPA calls (a
               boolean mask, and is_causal with enable_gqa), B2 at seq 4096
-              beside SDPA's forward (o only, no merge); CTAs per SM and
-              shared memory of the bf16 forward and backward kernels
+              beside SDPA's forward (o only, no merge), B3 and B7 beside
+              SDPA's backward, B4 and B6 beside references (SDPA on their
+              keys gathered densely beforehand); B3, B4, B6 and B7 run
+              twice on every check and must give the same bits; CTAs per
+              SM and shared memory of the bf16 forward and backward
+              kernels
   4. ring     StarTrail on a ThreadMesh(c=2, r=2): P = 8 ranks as threads
               on the one card, N = 2048 tokens of 32q/8kv heads of 80,
               bf16, causal + window; each rank runs the forward (B2 in
@@ -209,6 +213,13 @@ def bound(nbytes, flops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def same_bits(got, want):
+    """Whether two runs' outputs are equal to the bit."""
+    import torch
+
+    return all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+
+
 def partial_err(o, lse, o_ref, lse_ref, tol):
     """(largest |o - o_ref| and |lse - lse_ref| over live rows, whether
     every value is within ``tol`` absolute plus ``tol`` relative, as the
@@ -342,10 +353,10 @@ def bwd_work(q, k, pos_q, pos_k, pairs):
 
 
 def sdpa_bwd_ms(q, k, v, do, mask=None):
-    """The autograd backward alone of ``scaled_dot_product_attention`` on
-    the same inputs: causal with GQA (the library yardstick of B3), or with
-    the boolean ``mask`` (B,1,Sq,Sk) and the kv heads repeated beforehand
-    (B7's)."""
+    """(event ms, device ms) of the autograd backward alone of
+    ``scaled_dot_product_attention`` on the same inputs: causal with GQA
+    (the library yardstick of B3), or with the boolean ``mask``
+    (B,1,Sq,Sk) and the kv heads repeated beforehand (B7's)."""
     import torch
     import torch.nn.functional as F
 
@@ -360,9 +371,43 @@ def sdpa_bwd_ms(q, k, v, do, mask=None):
     else:
         out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     dot = do.transpose(1, 2)
-    return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
-                                               retain_graph=True),
-                   reps=10, inner=2)
+
+    def fn():
+        return torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+    return time_ms(fn, reps=10, inner=2), device_ms(fn, calls=5)
+
+
+def paged_sdpa(q, pool_k, pool_v, table, lens, ps, window, decode):
+    """A reference for B4 (``decode``) and B6, not their function: a
+    callable running ``scaled_dot_product_attention`` (o only, no lse) on
+    the keys of the table's allocated pages, gathered densely here, before
+    any timing, with kv heads repeated and the boolean mask of the kernel's
+    key validity and window (no mask when every pair is visible). SP
+    degree 1."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+
+    b, sq, hq, _ = q.shape
+    n = int((table >= 0).any(0).nonzero().max()) + 1
+    tb = table[:, :n].long()
+    k, v = (p[tb.clamp(min=0)].reshape(b, n * ps, *p.shape[2:])
+            for p in (pool_k, pool_v))
+    dev = q.device
+    pos = torch.arange(n * ps, dtype=torch.int32, device=dev)
+    valid = (tb >= 0).repeat_interleave(ps, 1) & \
+        (pos[None] < (lens + int(decode))[:, None])
+    pos_q = lens[:, None] + torch.arange(sq, dtype=torch.int32,
+                                         device=dev)[None]
+    pos_k = torch.where(valid, pos[None], pos_q.max() + 1)
+    mask = ref.make_mask(pos_q, pos_k, causal=True, window=window)[:, None]
+    g = hq // k.shape[2]
+    qt = q.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(g, dim=1) for t in (k, v))
+    mask = None if bool(mask.all()) else mask
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
 
 
 def paged_cases():
@@ -375,17 +420,19 @@ def paged_cases():
     }
 
 
-def paged_inputs(dev, sp, cache_len, seed=0):
-    """q (4,1,32,80) bf16; pool (512,16,8,80) bf16; table (4,64): distinct
-    pages for the blocks each row has written, -1 past them, so the last
-    page of a row is partial; a row with cache_len 0 is an inactive slot."""
+def paged_inputs(dev, sp, cache_len, seed=0, dtype=None):
+    """q (4,1,32,80); pool (512,16,8,80) (bf16 unless ``dtype``); table
+    (4,64): distinct pages for the blocks each row has written, -1 past
+    them, so the last page of a row is partial; a row with cache_len 0 is
+    an inactive slot."""
     import numpy as np
     import torch
 
+    dtype = dtype or torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((4, 1, 32, 80), generator=g, device=dev).bfloat16()
-    pool_k = torch.randn((512, 16, 8, 80), generator=g, device=dev).bfloat16()
-    pool_v = torch.randn((512, 16, 8, 80), generator=g, device=dev).bfloat16()
+    q = torch.randn((4, 1, 32, 80), generator=g, device=dev).to(dtype)
+    pool_k = torch.randn((512, 16, 8, 80), generator=g, device=dev).to(dtype)
+    pool_v = torch.randn((512, 16, 8, 80), generator=g, device=dev).to(dtype)
     rng = np.random.default_rng(seed)
     perm = rng.permutation(512)
     table = np.full((4, 64), -1, np.int32)
@@ -624,26 +671,32 @@ def phase_kernels(dev):
             if case == "dead_block":
                 check(n_dead >= 64 * 32, f"B3 dead_block: {n_dead} dead")
             again = fa.flash_attention_bwd(*args, pq, pk, window=window)
-            check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+            check(same_bits(got, again),
                   f"B3 {case} {dname}: two runs differ (no atomics: they "
                   f"must give the same bits)")
             rows["B3"]["max_abs_err"] = max(rows["B3"]["max_abs_err"], err)
             rows["B3"]["max_scaled_err"] = max(rows["B3"]["max_scaled_err"],
                                                scaled_err(got, want))
             checked.append(f"B3/{case}/{dname}")
-    for case, (sp, rank, window, cls) in paged_cases().items():
-        q, pk_, pv_, table, cl = paged_inputs(dev, sp, cls)
+    for dtype, (case, (sp, rank, window, cls)) in (
+            (d, c) for d in (torch.bfloat16, torch.float32)
+            for c in paged_cases().items()):
+        dname = str(dtype).split(".")[-1]
+        args = (*paged_inputs(dev, sp, cls, dtype=dtype), rank)
         kw = dict(sp=sp, page_size=16, window=window)
-        o, lse = pd.paged_decode_attention(q, pk_, pv_, table, cl, rank, **kw)
+        o, lse = pd.paged_decode_attention(*args, **kw)
         torch.cuda.synchronize()
-        o_p, lse_p = pd.paged_decode_attention_plain(q, pk_, pv_, table, cl,
-                                                     rank, **kw)
-        err, ok, _ = partial_err(o, lse, o_p, lse_p, TOL["bfloat16"])
-        check(ok, f"B4 {case}: max err {err} or a dead row not exact")
+        o_p, lse_p = pd.paged_decode_attention_plain(*args, **kw)
+        err, ok, _ = partial_err(o, lse, o_p, lse_p, TOL[dname])
+        check(ok, f"B4 {case} {dname}: max err {err} (tol {TOL[dname]}) "
+                  f"or a dead row not exact")
         if cls[-1] == 0:
             check(bool((lse[3] == NEG_INF).all()), f"B4 {case}: inactive")
+        check(same_bits(pd.paged_decode_attention(*args, **kw), (o, lse)),
+              f"B4 {case} {dname}: two runs differ (no atomics on values: "
+              f"they must give the same bits)")
         rows["B4"]["max_abs_err"] = max(rows["B4"]["max_abs_err"], err)
-        checked.append(f"B4/{case}/bfloat16")
+        checked.append(f"B4/{case}/{dname}")
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         for case, (sq, sk, window, rws, kind) in ragged_cases().items():
@@ -673,6 +726,10 @@ def phase_kernels(dev):
                       f"B6 {case}: the row with nothing cached is not dead")
             if case == "window_slid":
                 check(0 < n_dead < lse.numel(), f"B6 {case}: {n_dead} dead")
+            check(same_bits(pp.paged_prefill_attention(*args, 0, **kw),
+                            (o, lse)),
+                  f"B6 {case} {dname}: two runs differ (no atomics: they "
+                  f"must give the same bits)")
             rows["B6"]["max_abs_err"] = max(rows["B6"]["max_abs_err"], err)
             checked.append(f"B6/{case}/{dname}")
         for case, (b, sq, sk, hq, hkv, window, offs, zero) in \
@@ -691,7 +748,7 @@ def phase_kernels(dev):
                     f"B7 {case} {dname}: zero-length row {r} not exactly "
                     f"0 in dq, dk, dv")
             again = rb.flash_attention_bwd_ragged(*args, window=window)
-            check(all(bool(torch.equal(a, b)) for a, b in zip(got, again)),
+            check(same_bits(got, again),
                   f"B7 {case} {dname}: two runs differ (no atomics: they "
                   f"must give the same bits)")
             rows["B7"]["max_abs_err"] = max(rows["B7"]["max_abs_err"], err)
@@ -759,6 +816,8 @@ def phase_kernels(dev):
         device_ms=device_ms(lambda: pd.paged_decode_attention(
             qd, pk_, pv_, table, cl, rank, **kw)),
         library_ms=None, work=(nb, nf, "bfloat16"))
+    paged_refs = {"B4": paged_sdpa(qd, pk_, pv_, table, cl, 16, window,
+                                   decode=True)}
     # B5 at the legacy path's first decode step: 4 rows at cache length
     # 1024 against the capacity-sized cache (1024 prompt + 32 new tokens)
     (q5, k5, v5), pq5, pk5 = ragged_inputs(dev, torch.bfloat16, 1, 1056,
@@ -792,6 +851,9 @@ def phase_kernels(dev):
         library_ms=None,
         work=(*paged_prefill_work(args6[3].cpu().numpy(), [1024], 256,
                                   4096), "bfloat16"))
+    paged_refs["B6"] = paged_sdpa(*args6, 16, 4096, decode=False)
+    paged_refs = {n: dict(ms=time_ms(f), device_ms=device_ms(f))
+                  for n, f in paged_refs.items()}
     # the training shape: seq 4096, bf16, causal (window 4096 is inert)
     g = torch.Generator(device=dev).manual_seed(3)
     S = TRAIN_SEQ
@@ -872,9 +934,9 @@ def phase_kernels(dev):
     checked.append(f"B2/train_seq{S}/bfloat16")
     del o2, lse2, o2_p, lse2_p
     try:
-        lib_ms = sdpa_bwd_ms(q, k, v, do)
+        lib_ms, lib_dev = sdpa_bwd_ms(q, k, v, do)
     except RuntimeError as e:      # no SDPA backend for these inputs
-        lib_ms = None
+        lib_ms = lib_dev = None
         emit("kernels_note", library_B3=f"SDPA backward refused: {e}")
     timing["B3"] = dict(
         ms=time_ms(lambda: fa.flash_attention_bwd(*bargs, window=4096),
@@ -883,8 +945,8 @@ def phase_kernels(dev):
             *bargs, window=4096), reps=5, inner=2),
         device_ms=device_ms(lambda: fa.flash_attention_bwd(
             *bargs, window=4096), calls=5),
-        library_ms=lib_ms, work=(*bwd_work(q, k, pos, pos, pairs),
-                                 "bfloat16"))
+        library_ms=lib_ms, library_device_ms=lib_dev,
+        work=(*bwd_work(q, k, pos, pos, pairs), "bfloat16"))
     fwd_io = sum(t.numel() * t.element_size() for t in (q, k, v, pos, pos)) \
         + 2 * (o_acc.numel() + lse_acc.numel()) * 4
     b2_4096 = dict(
@@ -920,9 +982,9 @@ def phase_kernels(dev):
     q7, k7, v7, do7, _, _, pq7, pk7 = args7
     mask7 = ref.make_mask(pq7, pk7, causal=True, window=window)
     try:
-        lib7 = sdpa_bwd_ms(q7, k7, v7, do7, mask7[:, None])
+        lib7, lib7_dev = sdpa_bwd_ms(q7, k7, v7, do7, mask7[:, None])
     except RuntimeError as e:      # no SDPA backend for these inputs
-        lib7 = None
+        lib7 = lib7_dev = None
         emit("kernels_note", library_B7=f"SDPA backward refused: {e}")
     timing["B7"] = dict(
         ms=time_ms(lambda: rb.flash_attention_bwd_ragged(*args7,
@@ -932,7 +994,7 @@ def phase_kernels(dev):
             *args7, window=window), reps=5, inner=2),
         device_ms=device_ms(lambda: rb.flash_attention_bwd_ragged(
             *args7, window=window), calls=5),
-        library_ms=lib7,
+        library_ms=lib7, library_device_ms=lib7_dev,
         work=(*bwd_work(q7, k7, pq7, pk7, int(mask7.sum())), "bfloat16"))
     del args7, q7, k7, v7, do7, mask7
     for name, t in timing.items():
@@ -975,7 +1037,15 @@ def phase_kernels(dev):
                   "B7": "autograd backward of scaled_dot_product_attention"
                         " with the boolean (B,1,Sq,Sk) mask of the "
                         "positions, kv heads repeated beforehand, timed "
-                        "alone"},
+                        "alone",
+                  "paged_refs": "references, not B4's or B6's function: "
+                                "scaled_dot_product_attention (o only, no "
+                                "lse) on the allocated pages' keys gathered "
+                                "densely beforehand (the gather not timed), "
+                                "kv heads repeated, the boolean mask of "
+                                "key validity and window (none when every "
+                                "pair is visible)"},
+         paged_refs=paged_refs,
          B1_library_ms=b1_library, B1_library_device_ms=b1_library_device,
          B2_seq4096=b2_4096,
          **{f"B2_long_seq{LONG_FWD_SEQ}_max_abs_err": long_fwd_err},

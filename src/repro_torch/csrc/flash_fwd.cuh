@@ -1,6 +1,6 @@
 // The block flash-attention forward kernels shared by B1/B2
-// (flash_fwd.cu) and B5 (ragged_prefill.cu); B6 (paged_prefill.cu) reuses
-// the f32 tile update.
+// (flash_fwd.cu) and B5 (ragged_prefill.cu), and, through the paged K/V
+// source, by B4 (paged_decode.cu) and B6 (paged_prefill.cu) on bf16 inputs.
 //
 // Semantics (kept op for op from the Pallas kernels' _fwd_kernel,
 // _fwd_merge_kernel and ragged_prefill._fwd_kernel): the mask comes from
@@ -72,12 +72,26 @@
 // - ~57 KB of dynamic shared memory at D = 80 (Q, two K and two V tiles,
 //   positions, a flag byte per K tile): three CTAs per SM at ~166
 //   registers; ~194 KB with the keys split (one CTA per SM).
+// - The paged source (PAGED, B4 and B6): K and V are read from the pools
+//   (pages_loc, page_size, Hkv, D) through a page table. A 64-key tile is
+//   64 / page_size (floor) consecutive table entries, row r being slot
+//   r % page_size of entry r / page_size; the CTA reads the row's entries
+//   into shared memory once, testing each as the Pallas kernels' pl.when
+//   does (a dead or out-of-pool entry is never dereferenced), and each tile
+//   row is fetched by cp.async from its pool row, zero-filled where it
+//   holds no valid key. Query positions are computed (lens[b] + i), key
+//   positions too ((w * sp + rank) * page_size + slot, or past every query
+//   of the CTA when the row holds no valid key, so the causal mask drops
+//   it), and the tile flags come from them. With SPLIT (B4) the live tiles
+//   are also split over gridDim.z CTAs per (b, kv head) (split-KV), whose
+//   partials the last CTA to finish merges in split order from a workspace.
 //
 // f32 inputs (never on the main path; they keep the f32 tests exact) run
 // the CUDA-core kernel flash_fwd_kernel: one CTA of 256 threads per
 // (b, h, 64-row query tile), four threads per query row, Q, K and V staged
 // in shared memory as f32 with a D+1 stride, every product a scalar FMA.
-// B6 (paged_prefill.cu) runs its pages through the same tile_update.
+// tile_update serves only f32 inputs: flash_fwd_kernel's and B6's
+// (paged_prefill.cu: paged_prefill_kernel).
 #pragma once
 
 #include <type_traits>
@@ -94,6 +108,22 @@ constexpr int TPR = NT / BQ;    // threads per query row (4, adjacent lanes)
 constexpr int COLS = BK / TPR;  // score columns per thread
 constexpr int LDP = BK + 1;     // padded stride of the P tile
 
+// The paged K/V source of flash_fwd_mma<..., PAGED = true> (B4, B6): k and
+// v point at the pools (pages_loc, ps, Hkv, D), read through this shard's
+// page table (B, W) (-1 = unallocated; page w of row b covers positions
+// [(w * sp + rank) * ps, ... + ps)); query i of row b sits at position
+// lens[b] + i, and a key is valid below lens[b] + lim_off (B4: p <=
+// cache_len, lim_off 1; B6: p < cached_len, lim_off 0). ws and tickets are
+// B4's split-KV workspace (gridDim.z > 1): the CTAs' partial (m, l, acc)
+// and one zeroed counter per (b, kv head).
+struct Paged {
+  const int* table;
+  const int* lens;
+  float* ws;
+  int* tickets;
+  int pages_loc, ps, W, sp, rank, lim_off;
+};
+
 struct FwdArgs {
   const void* q;
   const void* k;
@@ -108,6 +138,7 @@ struct FwdArgs {
   int pos_q_bstride, pos_k_bstride;  // 0: shared (S,) positions
   Mask mask;
   float scale;
+  Paged pg;  // PAGED kernels only; zero otherwise
 };
 
 // One K/V tile's online-softmax update of a query row (_fwd_accumulate,
@@ -312,15 +343,91 @@ __host__ __device__ inline bool fwd_split(const FwdArgs& a) {
   return (long long)a.Sq * (a.Hq / a.Hkv) <= 16;
 }
 
+// K/V tiles of the paged source: a 64-key tile holds ppt = 64 / ps (floor)
+// consecutive table entries, row r being slot r % ps of entry r / ps; the
+// rows past ppt * ps belong to no page
+__host__ __device__ inline int paged_ppt(const Paged& pg) {
+  return BK / pg.ps;
+}
+
+__host__ __device__ inline int n_key_tiles(const FwdArgs& a, bool paged) {
+  return paged ? (a.pg.W + paged_ppt(a.pg) - 1) / paged_ppt(a.pg)
+               : (a.Sk + BK - 1) / BK;
+}
+
 // Shared memory of flash_fwd_mma: the Q tile, double buffers of K and V
 // tiles (bf16, row stride D + 8) and of their key positions (one pair per
-// CTA, or per walking warp when the keys are split), one flag byte per K
-// tile.
-template <int D, bool SPLIT>
+// CTA, or per walking warp when the keys are split), with PAGED the row's
+// W table entries, one flag byte per K tile.
+template <int D, bool SPLIT, bool PAGED = false>
 size_t smem_fwd_mma(const FwdArgs& a) {
   const int pairs = 2 * (SPLIT ? fwd_ksplit<D>() : 1);
   return (1 + 2 * pairs) * MmaTile<D>::BYTES + pairs * sizeof(int) * BK +
-         (a.Sk + BK - 1) / BK;
+         (PAGED ? sizeof(int) * a.pg.W : 0) + n_key_tiles(a, PAGED);
+}
+
+// The paged source's entry w of row b as the Pallas kernels' pl.when tests
+// it: the page id, or -1 if the entry is unallocated or out of the pool,
+// if the page starts at or past the key limit, or, with a window, if its
+// newest key is out of the window of the CTA's oldest query qlo
+// (the f32 kernels' tests in paged_decode.cu and paged_prefill.cu). No
+// page id read here is dereferenced unless it passes.
+__device__ inline void paged_pages(int* sPage, const FwdArgs& a, int b,
+                                   int limit, int qlo, int tid) {
+  const Paged& pg = a.pg;
+  for (int w = tid; w < pg.W; w += MMA_NT) {
+    const int e = pg.table[(size_t)b * pg.W + w];
+    const int base = (w * pg.sp + pg.rank) * pg.ps;
+    bool live = e >= 0 && e < pg.pages_loc && base < limit;
+    if (a.mask.has_window) live &= qlo - (base + pg.ps - 1) < a.mask.window;
+    sPage[w] = live ? e : -1;
+  }
+}
+
+// Row r of paged key tile t: its pool row (page * ps + slot), or -1 when it
+// holds no valid key (past the tile's pages or the table, a dead page, or a
+// position at or past `limit`); pos gets its key position.
+__device__ __forceinline__ int paged_row(const int* sPage, const Paged& pg,
+                                         int ppt, int t, int r, int limit,
+                                         int& pos) {
+  const int j = r / pg.ps;
+  const int w = t * ppt + j;
+  const int slot = r - j * pg.ps;
+  pos = (w * pg.sp + pg.rank) * pg.ps + slot;
+  if (j >= ppt || w >= pg.W) return -1;
+  const int page = sPage[w];
+  return page >= 0 && pos < limit ? page * pg.ps + slot : -1;
+}
+
+// tile_flags for the paged source: TILE_LIVE if the tile holds a valid key
+// and the min/max of its valid positions allow a visible pair with the
+// CTA's queries [lo, hi]; TILE_FULL if all 64 rows are valid keys and every
+// pair is visible.
+__device__ inline void paged_tile_flags(unsigned char* flags,
+                                        const int* sPage, const Paged& pg,
+                                        int ppt, int n_k, int limit, int lo,
+                                        int hi, const Mask& m, int warp,
+                                        int lane) {
+  for (int t = warp; t < n_k; t += MMA_NT / 32) {
+    int kmin = INT_MAX, kmax = INT_MIN, n = 0;
+    for (int r = lane; r < BK; r += 32) {
+      int pos;
+      if (paged_row(sPage, pg, ppt, t, r, limit, pos) >= 0) {
+        kmin = min(kmin, pos);
+        kmax = max(kmax, pos);
+        ++n;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      kmin = min(kmin, __shfl_xor_sync(0xffffffffu, kmin, off));
+      kmax = max(kmax, __shfl_xor_sync(0xffffffffu, kmax, off));
+      n += __shfl_xor_sync(0xffffffffu, n, off);
+    }
+    const bool live = n > 0 && m.live(lo, hi, kmin, kmax);
+    const bool full = n == BK && m.full(lo, hi, kmin, kmax);
+    if (lane == 0) flags[t] = (live ? TILE_LIVE : 0) | (full ? TILE_FULL : 0);
+  }
 }
 
 // SPLIT: the live rows fit slab 0 (Sq * G <= 16), and every walking warp
@@ -328,7 +435,12 @@ size_t smem_fwd_mma(const FwdArgs& a) {
 // merged at the end. It is taken only without MERGE, in its own
 // instantiation, so the merge and the split-key loop do not share one
 // kernel's registers.
-template <int D, bool MERGE, bool SPLIT>
+// PAGED: K and V come from the paged source (a.pg; B4, B6) and the query
+// positions are computed, not loaded. With SPLIT as well (B4), the grid's z
+// axis splits the live K/V tiles over CTAs too (split-KV): CTA z's warp w
+// walks live tiles z * KSPLIT + w, ... in steps of gridDim.z * KSPLIT, and
+// the last CTA of a (b, kv head) merges the CTAs' partials in split order.
+template <int D, bool MERGE, bool SPLIT, bool PAGED = false>
 __global__ void __launch_bounds__(MMA_NT)
 flash_fwd_mma(FwdArgs a) {
   constexpr int LDS = MmaTile<D>::LDS;
@@ -341,8 +453,9 @@ flash_fwd_mma(FwdArgs a) {
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sKV = sQ + TILE;  // K/V buffer pair j: K at 2 j TILE, V after it
   int* sPosK = reinterpret_cast<int*>(sKV + 2 * pairs * TILE);  // BK each
+  int* sPage = sPosK + pairs * BK;  // PAGED: the W entries, -1 = dead page
   unsigned char* sFlag =
-      reinterpret_cast<unsigned char*>(sPosK + pairs * BK);
+      reinterpret_cast<unsigned char*>(sPage + (PAGED ? a.pg.W : 0));
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -353,17 +466,22 @@ flash_fwd_mma(FwdArgs a) {
   const int b = blockIdx.y;
   const int G = a.Hq / a.Hkv;
   const int rows = a.Sq * G;                           // packed rows
-  const int R0 = (gridDim.z - 1 - blockIdx.z) * BQ;    // heaviest first
+  // packed rows [R0, R0 + 64): heaviest first; with split-KV z is the split
+  const int R0 = PAGED && SPLIT ? 0 : (gridDim.z - 1 - blockIdx.z) * BQ;
   const int i_lo = R0 / G;
   const int i_hi = min((R0 + BQ - 1) / G, a.Sq - 1);
-  const int n_k = (a.Sk + BK - 1) / BK;
+  const int n_k = n_key_tiles(a, PAGED);
+  const int ppt = PAGED ? paged_ppt(a.pg) : 1;
+  // PAGED: query i at len_b + i; keys valid below limit
+  const int len_b = PAGED ? a.pg.lens[b] : 0;
+  const int limit = len_b + a.pg.lim_off;
   const int* pos_q = a.pos_q + (size_t)b * a.pos_q_bstride;
   const int* pos_k = a.pos_k + (size_t)b * a.pos_k_bstride;
   const size_t kv_stride = (size_t)a.Hkv * D;
-  const bf16* k = static_cast<const bf16*>(a.k) +
-                  (size_t)b * a.Sk * kv_stride + (size_t)kvh * D;
-  const bf16* v = static_cast<const bf16*>(a.v) +
-                  (size_t)b * a.Sk * kv_stride + (size_t)kvh * D;
+  // PAGED: the pools, row p of the pool at p * kv_stride from here
+  const size_t kv_b = PAGED ? 0 : (size_t)b * a.Sk * kv_stride;
+  const bf16* k = static_cast<const bf16*>(a.k) + kv_b + (size_t)kvh * D;
+  const bf16* v = static_cast<const bf16*>(a.v) + kv_b + (size_t)kvh * D;
   // packed row R of this (b, kv head) is q row (R / G) * Hq + R % G here
   const bf16* q = static_cast<const bf16*>(a.q) +
                   ((size_t)b * a.Sq * a.Hq + (size_t)kvh * G) * D;
@@ -391,18 +509,32 @@ flash_fwd_mma(FwdArgs a) {
     const bool ok = R < rows;
     qi[i] = ok ? R / G : -1;
     hh[i] = ok ? kvh * G + R % G : 0;
-    pq[i] = pos_q[ok ? qi[i] : i_lo];
+    pq[i] = PAGED ? len_b + (ok ? qi[i] : i_lo) : pos_q[ok ? qi[i] : i_lo];
   }
   const bool warp_live = SPLIT ? warp < KSPLIT : R0 + 16 * warp < rows;
   int qlo, qhi;
-  warp_range(pos_q + i_lo, i_hi - i_lo + 1, lane, qlo, qhi);
-  tile_flags(sFlag, pos_k, a.Sk, false, qlo, qhi, a.mask, warp, lane);
+  if constexpr (PAGED) {
+    qlo = len_b + i_lo;
+    qhi = len_b + i_hi;
+    paged_pages(sPage, a, b, limit, qlo, tid);
+    __syncthreads();
+    paged_tile_flags(sFlag, sPage, a.pg, ppt, n_k, limit, qlo, qhi, a.mask,
+                     warp, lane);
+  } else {
+    warp_range(pos_q + i_lo, i_hi - i_lo + 1, lane, qlo, qhi);
+    tile_flags(sFlag, pos_k, a.Sk, false, qlo, qhi, a.mask, warp, lane);
+  }
   __syncthreads();
+  // PAGED: the position of a row that holds no valid key, past every query
+  // of the CTA, so the causal mask drops it (kernels/paged_decode.py)
+  const int pos_dead = qhi + 1;
 
   // The tiles are walked by the whole CTA in order, or, with SPLIT, by each
   // of the first KSPLIT warps alone: warp w takes live tiles w, w + KSPLIT,
-  // ... into its own buffer pairs 2 w and 2 w + 1
-  const int step = SPLIT ? KSPLIT : 1;
+  // ... into its own buffer pairs 2 w and 2 w + 1 (with split-KV, walker
+  // z * KSPLIT + w of gridDim.z * KSPLIT)
+  const int walker = SPLIT ? (PAGED ? blockIdx.z * KSPLIT : 0) + warp : 0;
+  const int step = SPLIT ? (PAGED ? gridDim.z : 1) * KSPLIT : 1;
   auto next_live = [&](int t) {
     while (t < n_k && !(sFlag[t] & TILE_LIVE)) ++t;
     return t;
@@ -412,20 +544,47 @@ flash_fwd_mma(FwdArgs a) {
     return t;
   };
   auto fetch = [&](int t, int buf) {
-    const int k0 = t * BK;
-    const int nk = min(BK, a.Sk - k0);
     const int slot = SPLIT ? 2 * warp + buf : buf;
     bf16* kd = sKV + 2 * slot * TILE;
-    if (SPLIT) {
-      tile_async<D, 32>(kd, k + k0 * kv_stride, kv_stride, nk, lane);
-      tile_async<D, 32>(kd + TILE, v + k0 * kv_stride, kv_stride, nk, lane);
+    if constexpr (PAGED) {
+      // two threads per row, each with every other 16-byte chunk: the row's
+      // pool row through the table, zero-filled where it holds no valid key
+      // (a garbage V row times p = 0 could give NaN); the even thread of
+      // the pair stores the row's position
+      constexpr int NTHR = SPLIT ? 32 : MMA_NT;
+      static_assert(CPR % 2 == 0, "whole chunk pairs per row");
+      const int me = SPLIT ? lane : tid;
+#pragma unroll
+      for (int it = 0; it < 2 * BK / NTHR; ++it) {
+        const int r = me / 2 + it * (NTHR / 2);
+        int pos;
+        const int prow = paged_row(sPage, a.pg, ppt, t, r, limit, pos);
+        const bool ok = prow >= 0;
+        if ((me & 1) == 0) sPosK[slot * BK + r] = ok ? pos : pos_dead;
+        const size_t off = (size_t)(ok ? prow : 0) * kv_stride;
+#pragma unroll
+        for (int j = 0; j < CPR / 2; ++j) {
+          const int c = 2 * j + (me & 1);
+          cp_async_16(kd + r * LDS + c * 8, k + off + c * 8, ok);
+          cp_async_16(kd + TILE + r * LDS + c * 8, v + off + c * 8, ok);
+        }
+      }
     } else {
-      tile_async<D>(kd, k + k0 * kv_stride, kv_stride, nk, tid);
-      tile_async<D>(kd + TILE, v + k0 * kv_stride, kv_stride, nk, tid);
+      const int k0 = t * BK;
+      const int nk = min(BK, a.Sk - k0);
+      const bf16* ks = k + k0 * kv_stride;
+      const bf16* vs = v + k0 * kv_stride;
+      if (SPLIT) {
+        tile_async<D, 32>(kd, ks, kv_stride, nk, lane);
+        tile_async<D, 32>(kd + TILE, vs, kv_stride, nk, lane);
+      } else {
+        tile_async<D>(kd, ks, kv_stride, nk, tid);
+        tile_async<D>(kd + TILE, vs, kv_stride, nk, tid);
+      }
+      for (int r = SPLIT ? lane : tid; r < BK; r += SPLIT ? 32 : MMA_NT)
+        cp_async_4(sPosK + slot * BK + r, pos_k + k0 + (r < nk ? r : 0),
+                   r < nk);
     }
-    for (int r = SPLIT ? lane : tid; r < BK; r += SPLIT ? 32 : MMA_NT)
-      cp_async_4(sPosK + slot * BK + r, pos_k + k0 + (r < nk ? r : 0),
-                 r < nk);
   };
   auto sync = [&]() {  // the threads that walk the tiles together
     if (SPLIT)
@@ -434,8 +593,7 @@ flash_fwd_mma(FwdArgs a) {
       __syncthreads();
   };
 
-  int t = warp_live || !SPLIT ? advance(next_live(0), SPLIT ? warp : 0)
-                              : n_k;
+  int t = warp_live || !SPLIT ? advance(next_live(0), walker) : n_k;
   if (t < n_k) fetch(t, 0);
   cp_async_commit();
   cp_async_wait<1>();  // Q landed
@@ -463,7 +621,7 @@ flash_fwd_mma(FwdArgs a) {
       const bf16* kt = sKV + 2 * slot * TILE;
       const bf16* vt = kt + TILE;
       const int* pk = sPosK + slot * BK;
-      const int nk = min(BK, a.Sk - t * BK);
+      const int nk = PAGED ? BK : min(BK, a.Sk - t * BK);
       const bool full = sFlag[t] & TILE_FULL;
 
       // S = Q K^T: the warp's 16 rows x 64 keys, eight n8 tiles
@@ -625,6 +783,68 @@ flash_fwd_mma(FwdArgs a) {
     }
   }
 
+  if constexpr (PAGED && SPLIT) {
+    if (gridDim.z > 1) {
+      // split-KV: warp 0's (m, l, acc) of slab 0 go to the workspace, and
+      // the last CTA of this (b, kv head) to arrive (a ticket counter,
+      // which it resets for the next call) merges the gridDim.z partials
+      // in split order, as the warps' were merged: a split with no live
+      // tile (m = -1e30, l = 0) weighs 0, and two runs give the same bits
+      const int S = gridDim.z;
+      const size_t bk = (size_t)b * a.Hkv + kvh;
+      float2* ws_ml = reinterpret_cast<float2*>(a.pg.ws);  // [B Hkv S 16]
+      float* ws_acc = a.pg.ws + (size_t)a.B * a.Hkv * S * 16 * 2;  // x D
+      __shared__ int sLast;
+      if (warp == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const size_t row = (bk * S + blockIdx.z) * 16 + gr + 8 * i;
+          if (tq == 0) ws_ml[row] = make_float2(m[i], l[i]);
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n)
+            *reinterpret_cast<float2*>(ws_acc + row * D + 8 * n + 2 * tq) =
+                make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+        }
+      }
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) sLast = atomicAdd(a.pg.tickets + bk, 1) == S - 1;
+      __syncthreads();
+      if (!sLast) return;
+      __threadfence();
+      if (warp == 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const size_t row0 = bk * S * 16 + gr + 8 * i;  // + 16 z
+          float m_tot = NEG_INF;
+          for (int z = 0; z < S; ++z)
+            m_tot = fmaxf(m_tot, __ldcg(ws_ml + row0 + 16 * z).x);
+          const float m_safe = m_tot <= DEAD ? 0.0f : m_tot;
+          float l_tot = 0.0f;
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n)
+            acc[n][2 * i] = acc[n][2 * i + 1] = 0.0f;
+          for (int z = 0; z < S; ++z) {
+            const size_t row = row0 + 16 * z;
+            const float2 ml = __ldcg(ws_ml + row);
+            const float wt = ml.x <= DEAD ? 0.0f : ex2(ml.x - m_safe);
+            l_tot += wt * ml.y;
+#pragma unroll
+            for (int n = 0; n < D / 8; ++n) {
+              const float2 x = __ldcg(reinterpret_cast<const float2*>(
+                  ws_acc + row * D + 8 * n + 2 * tq));
+              acc[n][2 * i] += wt * x.x;
+              acc[n][2 * i + 1] += wt * x.y;
+            }
+          }
+          m[i] = m_tot;
+          l[i] = l_tot;
+        }
+      }
+      if (tid == 0) a.pg.tickets[bk] = 0;
+    }
+  }
+
   // _block_partial, then (MERGE) combine_pair with the running accumulator
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -681,6 +901,37 @@ cudaError_t launch_fwd_mma(const FwdArgs& a, cudaStream_t stream) {
   if (!MERGE && fwd_split(a))
     return launch_fwd_mma_as<D, false, true>(a, stream);
   return launch_fwd_mma_as<D, MERGE, false>(a, stream);
+}
+
+// B4 (SPLIT: Sq * G <= 16, the keys split over `splits` CTAs per (b, kv
+// head) and over their warps) and B6 (64 packed rows per CTA) on bf16
+// inputs: flash_fwd_mma over the paged source a.pg.
+template <int D, bool SPLIT>
+cudaError_t launch_paged_mma(const FwdArgs& a, int splits,
+                             cudaStream_t stream) {
+  const size_t smem = smem_fwd_mma<D, SPLIT, true>(a);
+  auto kern = flash_fwd_mma<D, false, SPLIT, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const long long z =
+      SPLIT ? splits
+            : ((long long)a.Sq * (a.Hq / a.Hkv) + BQ - 1) / BQ;
+  if (z < 1 || z > 65535) return cudaErrorInvalidConfiguration;
+  kern<<<dim3(a.Hkv, a.B, (unsigned)z), MMA_NT, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool SPLIT>
+cudaError_t launch_paged_mma_d(const FwdArgs& a, int D, int splits,
+                               cudaStream_t stream) {
+  switch (D) {
+    case 32: return launch_paged_mma<32, SPLIT>(a, splits, stream);
+    case 64: return launch_paged_mma<64, SPLIT>(a, splits, stream);
+    case 80: return launch_paged_mma<80, SPLIT>(a, splits, stream);
+    case 128: return launch_paged_mma<128, SPLIT>(a, splits, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // The forward of one call, by input type: bf16 runs flash_fwd_mma, f32

@@ -19,23 +19,38 @@
 // elements each) must be read once; the arithmetic is 4*G*D FLOPs per key
 // and head group, far below the card's ratio of operations to bytes.
 //
-// Design, simple first: the TPU's sequential page axis becomes a loop inside
-// one CTA. One CTA of 4 warps owns a (b, kv_head) pair and serves all G
-// query heads of that group, so each live page's K/V is read from memory
-// once (not G times). The CTA reads table[b, w] itself, never dereferences
-// -1, stages the page's K and V in shared memory (16-byte loads, f32,
-// padded stride), and each warp runs the online softmax of one query head:
-// lane i scores key i, the warp reduces max/sum with shuffles, and each
-// lane accumulates D/32 output columns. One CTA per (b, kv_head) leaves most
-// SMs idle at small batch; splitting the page loop across CTAs is later work.
+// bf16 inputs (the main path) run flash_fwd.cuh's tensor-core forward
+// (flash_fwd_mma) over its paged K/V source, the kernel of B5 at the decode
+// shape with a page-table loader:
+// - One CTA per (b, kv head) holds the G query heads of the group as
+//   packed rows of one 16-row slab (G <= 16), read from Q once; each 64-key
+//   tile is 64 / page_size (floor) consecutive table entries, its rows
+//   fetched from the pool by cp.async through the table (the CTA reads and
+//   tests the entries itself and never dereferences -1), zero-filled where
+//   a row holds no valid key, into double buffers; S and P V on mma.sync,
+//   P as a bf16 hi/lo pair, each tile's P V in a fresh accumulator.
+// - The keys are split twice (split-KV): over `splits` CTAs per (b, kv
+//   head), sized by the wrapper so that B * Hkv * splits fills the SMs
+//   (one CTA per (b, kv head) gave 32 CTAs on 132 SMs at the engine's batch
+//   of 4), and over the 4 warps of each CTA (2 at D = 128); each of the
+//   splits * 4 walkers takes every (splits * 4)-th live tile. The warps
+//   merge in warp order, then the CTAs' partials go to a workspace and the
+//   last CTA of the (b, kv head), found by a ticket counter that it resets,
+//   merges them in split order: one launch per call, no atomics on values,
+//   the same bits twice.
+// f32 inputs (never on the main path; they keep the f32 tests exact at
+// 2e-5) run paged_decode_kernel below on the CUDA cores: one CTA of 4 warps
+// per (b, kv head) walks the live pages in turn, staging each page's K and
+// V in shared memory as f32; each warp runs the online softmax of one query
+// head, lane i scoring key i.
 
-#include "common.cuh"
+#include "flash_fwd.cuh"
 
 namespace repro_torch {
 namespace {
 
 constexpr int NWARP = 4;
-constexpr int NT = 32 * NWARP;
+constexpr int DEC_NT = 32 * NWARP;
 constexpr int MAX_HPW = 4;   // query heads per warp -> G <= 16
 constexpr int MAX_KPL = 2;   // keys per lane -> page_size <= 64
 
@@ -67,7 +82,7 @@ __device__ inline float warp_sum(float x) {
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(DEC_NT)
 paged_decode_kernel(DecodeArgs a) {
   constexpr int LD = D + 1;
   constexpr int DPL = (D + 31) / 32;  // output columns per lane
@@ -88,7 +103,7 @@ paged_decode_kernel(DecodeArgs a) {
   const T* pv = static_cast<const T*>(a.pool_v);
 
   load_rows<T, D>(sQ, D, q + ((size_t)b * a.Hq + (size_t)kvh * G) * D, D, G,
-                  G, tid, NT);
+                  G, tid, DEC_NT);
   const int cl = a.cache_len[b];
 
   float m[MAX_HPW], l[MAX_HPW], acc[MAX_HPW][DPL];
@@ -109,8 +124,9 @@ paged_decode_kernel(DecodeArgs a) {
     if (!live) continue;  // uniform: every thread read the same entry
     __syncthreads();      // the previous page's smem reads are done
     const size_t off = ((size_t)page * ps * a.Hkv + kvh) * D;
-    load_rows<T, D>(sK, LD, pk + off, (size_t)a.Hkv * D, ps, ps, tid, NT);
-    load_rows<T, D>(sV, LD, pv + off, (size_t)a.Hkv * D, ps, ps, tid, NT);
+    const size_t stride = (size_t)a.Hkv * D;
+    load_rows<T, D>(sK, LD, pk + off, stride, ps, ps, tid, DEC_NT);
+    load_rows<T, D>(sV, LD, pv + off, stride, ps, ps, tid, DEC_NT);
     __syncthreads();
 
 #pragma unroll
@@ -190,7 +206,7 @@ cudaError_t launch(const DecodeArgs& a, cudaStream_t stream) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.Hkv, a.B);
-  kern<<<grid, NT, smem, stream>>>(a);
+  kern<<<grid, DEC_NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -208,23 +224,34 @@ cudaError_t launch_d(const DecodeArgs& a, int D, cudaStream_t stream) {
 }  // namespace
 }  // namespace repro_torch
 
-// C entry for ctypes. dtype: 0 = float32, 1 = bfloat16 (q and the pools
-// share it). Returns the cudaError_t of the launch.
+// C entry for ctypes. dtype: 0 = float32 (paged_decode_kernel), 1 =
+// bfloat16 (flash_fwd_mma over the paged source, split over `splits` CTAs
+// per (b, kv head); with splits > 1, ws holds B * Hkv * splits * 16 * (D + 2)
+// floats and tickets B * Hkv zeroed ints, left zeroed). q and the pools
+// share the dtype. Returns the cudaError_t of the launch.
 extern "C" int repro_paged_decode(
     const void* q, const void* pool_k, const void* pool_v, const int* table,
-    const int* cache_len, float* o, float* lse, int B, int Hq, int Hkv,
-    int D, int pages_loc, int page_size, int W, int sp, int rank,
-    int has_window, int window, float scale, int dtype, void* stream) {
+    const int* cache_len, float* o, float* lse, float* ws, int* tickets,
+    int B, int Hq, int Hkv, int D, int pages_loc, int page_size, int W,
+    int sp, int rank, int has_window, int window, int splits, float scale,
+    int dtype, void* stream) {
   using namespace repro_torch;
   if (Hq % Hkv || Hq / Hkv > NWARP * MAX_HPW || page_size > 32 * MAX_KPL ||
       page_size < 1)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (splits < 1 || (splits > 1 && (ws == nullptr || tickets == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    FwdArgs f{q, pool_k, pool_v, nullptr, nullptr, nullptr, nullptr, o, lse,
+              B, 1, 0, Hq, Hkv, 0, 0, Mask{1, has_window, window, 0, 0},
+              scale,
+              Paged{table, cache_len, ws, tickets, pages_loc, page_size, W,
+                    sp, rank, 1}};
+    return (int)launch_paged_mma_d<true>(f, D, splits, st);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   DecodeArgs a{q, pool_k, pool_v, table, cache_len, o, lse, B, Hq, Hkv,
                pages_loc, page_size, W, sp, rank, has_window, window, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 1) err = launch_d<__nv_bfloat16>(a, D, st);
-  else if (dtype == 0) err = launch_d<float>(a, D, st);
-  else err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)launch_d<float>(a, D, st);
 }

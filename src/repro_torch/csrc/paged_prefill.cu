@@ -25,17 +25,23 @@
 // (q and the live pages in, o and lse out in f32) ~2 us: bound by
 // operations, nearly balanced.
 //
-// Design, simple first: B1's shape and its online-softmax tile update
-// (flash_fwd.cuh: one CTA of 256 threads per (b, query head, 64-row query
-// tile), four threads per query row, f32 tiles in shared memory with a D+1
-// stride, f32 products on the CUDA cores), with the K loop walking the
-// row's page table: each 64-key tile is 64/page_size consecutive table
-// entries. The CTA reads the entries itself, never dereferences -1, and
-// loads each live page's rows straight from the pool (16-byte loads; no
-// dense gather). A dead page's rows are zero-filled and masked, and a tile
-// with no live page is skipped whole. As in B1, the G query heads of a kv
-// group each read the pages, and the products are not on the tensor cores:
-// both are later work.
+// bf16 inputs (the main path) run flash_fwd.cuh's tensor-core forward
+// (flash_fwd_mma) over its paged K/V source: B1's tile with a page-table
+// loader. One CTA of 128 threads owns 64 packed (query, head) rows of one
+// (b, kv head) (grid (Hkv, B, ceil(Sq * G / 64))), so each cached page is
+// read once per kv group, not once per query head. Each 64-key tile is
+// 64 / page_size consecutive table entries; the CTA reads and tests them
+// itself (the page test uses the CTA's oldest query for the window), never
+// dereferences -1, and fetches each valid key row straight from the pool by
+// cp.async into double buffers (no dense gather), zero-filling rows that
+// hold no valid key; a tile with no live page is skipped whole. S and P V
+// run on mma.sync with P as a bf16 hi/lo pair, and the partial finalises as
+// _block_partial (the caller combines it with the suffix's B1 partial).
+// f32 inputs (never on the main path; they keep the f32 tests exact at
+// 2e-5) run paged_prefill_kernel below: one CTA of 256 threads per (b,
+// query head, 64-query tile), pages staged in shared memory as f32 with a
+// D+1 stride, products on the CUDA cores through flash_fwd.cuh's
+// tile_update.
 
 #include "flash_fwd.cuh"
 
@@ -202,9 +208,9 @@ cudaError_t launch_d(const PrefillArgs& a, int D, cudaStream_t stream) {
 }  // namespace
 }  // namespace repro_torch
 
-// C entry for ctypes. dtype: 0 = float32, 1 = bfloat16 (q and the pools
-// share it). page_size must divide 64. Returns the cudaError_t of the
-// launch.
+// C entry for ctypes. dtype: 0 = float32 (paged_prefill_kernel), 1 =
+// bfloat16 (flash_fwd_mma over the paged source); q and the pools share
+// it. page_size must divide 64. Returns the cudaError_t of the launch.
 extern "C" int repro_paged_prefill(
     const void* q, const void* pool_k, const void* pool_v, const int* table,
     const int* cached_len, float* o, float* lse, int B, int Sq, int Hq,
@@ -213,13 +219,18 @@ extern "C" int repro_paged_prefill(
   using namespace repro_torch;
   if (Hq % Hkv || page_size < 1 || BK % page_size)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    FwdArgs f{q, pool_k, pool_v, nullptr, nullptr, nullptr, nullptr, o, lse,
+              B, Sq, 0, Hq, Hkv, 0, 0, Mask{1, has_window, window, 0, 0},
+              scale,
+              Paged{table, cached_len, nullptr, nullptr, pages_loc,
+                    page_size, W, sp, rank, 0}};
+    return (int)launch_paged_mma_d<false>(f, D, 1, st);
+  }
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
   PrefillArgs a{q, pool_k, pool_v, table, cached_len, o, lse, B, Sq, Hq,
                 Hkv, pages_loc, page_size, W, sp, rank, has_window, window,
                 scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 1) err = launch_d<__nv_bfloat16>(a, D, st);
-  else if (dtype == 0) err = launch_d<float>(a, D, st);
-  else err = cudaErrorInvalidValue;
-  return (int)err;
+  return (int)launch_d<float>(a, D, st);
 }

@@ -10,7 +10,11 @@ through this module. One ``impl`` knob selects the backend:
           ``ragged_prefill_fwd`` (B5), ``paged_prefill_attention`` (B6)
           and ``flash_attention_bwd_ragged`` (B7).
           On CUDA tensors they launch the kernel or raise; on CPU tensors
-          they run their plain version.
+          they run their plain version. On bf16 inputs every kernel runs
+          on the tensor cores (B1, B2, B4, B5, B6: the forward tile of
+          ``csrc/flash_fwd.cuh``, B4 and B6 through its paged K/V source;
+          B3, B7: ``csrc/flash_bwd.cuh``); f32 inputs run CUDA-core
+          kernels.
 
 Entry points:
     block_fwd / block_fwd_merge  one (Q block x K/V block) pair of a ring
@@ -131,8 +135,10 @@ def paged_decode(q, pool_k, pool_v, table, cache_len, rank: int, *, sp: int,
                  page_size: int, window=None, scale=None, impl="ref"):
     """One query per row vs this shard's pages -> partial (o, lse).
 
-    'cuda' runs B4 (``kernels/paged_decode.py``); 'ref' gathers the pages
-    into a dense view and reuses the plain oracle.
+    'cuda' runs B4 (``kernels/paged_decode.py``: on bf16 the tensor-core
+    tile over the pages, its keys split over CTAs and merged in one
+    launch); 'ref' gathers the pages into a dense view and reuses the plain
+    oracle.
     """
     if impl == "cuda":
         return _paged.paged_decode_attention(
@@ -150,8 +156,10 @@ def paged_prefill(q, pool_k, pool_v, table, cached_len, rank, *, sp: int,
     keys at positions ``< cached_len[b]`` (strict: the suffix scores itself
     through ``block_fwd``).
 
-    'cuda' runs B6 (``kernels/paged_prefill.py``); 'ref' gathers the pages
-    into a dense view and masks positionally.
+    'cuda' runs B6 (``kernels/paged_prefill.py``: on bf16 the tensor-core
+    tile, 64 packed (query, head) rows of a kv group per CTA, each page
+    read once per group); 'ref' gathers the pages into a dense view and
+    masks positionally.
     """
     if impl == "cuda":
         return _paged_pre.paged_prefill_attention(

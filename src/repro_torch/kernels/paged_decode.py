@@ -2,10 +2,13 @@
 query token per row against this SP shard's page-table-indexed pool.
 
 ``paged_decode_attention`` launches ``csrc/paged_decode.cu`` on CUDA tensors
-and runs the plain PyTorch version (``paged_decode_attention_plain``: gather
-the table's pages densely, encode validity in positions, and reuse the
-``ref.block_attention`` oracle) on CPU tensors. There is no fallback: a CUDA
-tensor the kernel does not take raises. ``LAUNCHES`` counts the launches.
+(bf16: the tensor-core forward of ``csrc/flash_fwd.cuh`` over the paged
+source, its keys split over ``decode_splits`` CTAs per (row, kv head);
+f32: the CUDA-core kernel) and runs the plain PyTorch version
+(``paged_decode_attention_plain``: gather the table's pages densely, encode
+validity in positions, and reuse the ``ref.block_attention`` oracle) on CPU
+tensors. There is no fallback: a CUDA tensor the kernel does not take
+raises. ``LAUNCHES`` counts the launches.
 
 q (B,1,Hq,D); pool_k/pool_v (pages_loc,page_size,Hkv,D); table (B,W) int32
 (-1 = unallocated); cache_len (B,) int32, the new token's position; rank is
@@ -16,7 +19,7 @@ lse (B,Hq,1)) in f32.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -24,6 +27,12 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, _check
 
 LAUNCHES: Dict[str, int] = {"B4": 0}
+TILE_KEYS = 64          # the bf16 kernel's key tile: 64 // page_size pages
+# split-KV scratch per device, allocated once and grown only for a larger
+# call: the CTAs' partial (m, l, acc) and one ticket counter per (row, kv
+# head), which the kernel leaves at zero. Calls on one device share it, so
+# they run on one stream at a time (the port's current stream)
+_WORKSPACE: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def reset_launches() -> None:
@@ -52,6 +61,29 @@ def paged_decode_attention_plain(q, pool_k, pool_v, table, cache_len, rank,
     pos_k = torch.where(valid, pos[None], (cl + 1)[:, None])
     return ref.block_attention(q, k_r, v_r, cl[:, None], pos_k, causal=True,
                                window=window, scale=scale)
+
+
+def decode_splits(B: int, Hkv: int, D: int, W: int, page_size: int,
+                  sms: int) -> int:
+    """CTAs per (row, kv head) of the bf16 kernel: as many as fill the
+    card's ``sms`` SMs in one wave (its shared memory holds one CTA per
+    SM; on an H100 at batch 4, 5 splits, 160 CTAs on 132 SMs, took 0.024
+    device-ms against 4 splits' 0.019: ``scripts/compare_paged.py``), but
+    no more than give each of a CTA's walking warps (4, or 2 at D = 128) a
+    tile of the table's."""
+    walkers = 2 if D > 80 else 4
+    tiles = -(-W // (TILE_KEYS // page_size))
+    return max(1, min(sms // (B * Hkv), -(-tiles // walkers)))
+
+
+def _workspace(dev, n_ws: int, n_tickets: int):
+    ws, tickets = _WORKSPACE.get(dev, (None, None))
+    if ws is None or ws.numel() < n_ws:
+        ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
+    _WORKSPACE[dev] = (ws, tickets)
+    return ws, tickets
 
 
 def paged_decode_attention(q, pool_k, pool_v, table, cache_len, rank: int,
@@ -87,12 +119,21 @@ def paged_decode_attention(q, pool_k, pool_v, table, cache_len, rank: int,
     lse = torch.empty((B, Hq, 1), dtype=torch.float32, device=dev)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
+    splits, ws, tickets = 1, None, None
+    if q.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        splits = decode_splits(B, Hkv, D, W, page_size, sms)
+        if splits > 1:
+            ws, tickets = _workspace(dev, B * Hkv * splits * 16 * (D + 2),
+                                     B * Hkv)
     lib = _build.library()
     err = lib.repro_paged_decode(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), table.data_ptr(),
-        cache_len.data_ptr(), o.data_ptr(), lse.data_ptr(), B, Hq, Hkv, D,
+        cache_len.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), B, Hq, Hkv, D,
         pages_loc, page_size, W, int(sp), int(rank),
-        int(window is not None), int(window or 0), float(scale),
+        int(window is not None), int(window or 0), splits, float(scale),
         DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "paged_decode")
     LAUNCHES["B4"] += 1

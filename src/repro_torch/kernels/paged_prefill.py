@@ -3,7 +3,9 @@ block of suffix queries against this SP shard's page-table-indexed pool,
 the cached-prefix partial of a prefix-cached or chunked prefill.
 
 ``paged_prefill_attention`` launches ``csrc/paged_prefill.cu`` on CUDA
-tensors and runs the plain PyTorch version
+tensors (bf16: the tensor-core forward of ``csrc/flash_fwd.cuh`` over the
+paged source, 64 packed (query, head) rows of a kv group per CTA; f32: the
+CUDA-core kernel) and runs the plain PyTorch version
 (``paged_prefill_attention_plain``: gather the table's pages densely,
 encode validity in positions, and reuse the ``ref.block_attention``
 oracle, as the JAX ``dispatch.paged_prefill(impl='ref')`` does) on CPU

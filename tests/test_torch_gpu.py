@@ -350,6 +350,62 @@ def _prefix_inputs(route, S, prefix_len, causal, window, B=2, Hq=8, Hkv=2,
     return q, k, v, do, lse.numpy(), delta, pos, pos
 
 
+PAGED_MMA_CASES = {
+    # B4 on the tensor-core tile with split-KV: B, Hq, Hkv, D, page_size, W,
+    # sp, rank, window, cache_len per row (0: an inactive slot, no pages)
+    # the engine's shape: 4 slots, 32q/8kv heads of 80, pages of 16; an
+    # inactive row beside live ones, a last page partly filled
+    "engine_d80_inactive_row": (4, 32, 8, 80, 16, 64, 1, 0, 4096,
+                                [1023, 520, 7, 0]),
+    # one (row, kv head): 4 splits of 4 warps for 2 live tiles
+    "more_splits_than_tiles": (1, 4, 1, 80, 16, 64, 1, 0, None, [100]),
+    # window 8 at cache_len 1000: only the last page (992..1007) is live
+    "window_last_page_only": (2, 8, 2, 80, 16, 64, 1, 0, 8, [1000, 1003]),
+    # 24 does not divide 64: two pages per tile, its last 16 rows empty
+    "page24": (3, 8, 2, 80, 24, 48, 1, 0, None, [1100, 30, 777]),
+    "page64_sp2_rank1": (2, 8, 2, 64, 64, 16, 2, 1, 600, [1900, 131]),
+    "page1_g16": (2, 16, 1, 32, 1, 300, 1, 0, None, [299, 64]),
+    "d128": (4, 32, 8, 128, 16, 64, 1, 0, None, [1023, 64, 0, 500]),
+}
+
+PAGED_MMA_PREFILL_CASES = {
+    # B6 on the tensor-core tile: B, Sq, Hq, Hkv, D, page_size, W, sp, rank,
+    # window, cached_len per row (0: nothing cached, every row dead)
+    # the prefix phase's shape: a 256-query chunk after 1000 cached tokens
+    # (a partly filled last page) beside a row with nothing cached
+    "engine_d80": (2, 256, 32, 8, 80, 16, 96, 1, 0, 4096, [1000, 0]),
+    # queries 200..295 in a window of 64: the later ones see no key
+    "d128_window_slid": (1, 96, 8, 2, 128, 16, 24, 1, 0, 64, [200]),
+    "g6_page4_sp2_rank1": (2, 50, 12, 2, 64, 4, 80, 2, 1, None, [300, 9]),
+    "page64": (1, 70, 8, 2, 32, 64, 8, 1, 0, 250, [300]),
+}
+
+
+def _paged_pool_inputs(B, Sq, Hq, Hkv, D, ps, W, sp, rank, lens, decode,
+                       seed=0):
+    """q (B,Sq,Hq,D), pools, table (B,W) and lens: row b's table holds
+    distinct pages for the blocks this rank owns among the positions
+    written (decode: 0..cache_len, none for an inactive row at 0;
+    prefill: the cached prefix and the suffix), -1 past them."""
+    rng = np.random.default_rng(seed)
+    owned = []
+    for n in lens:
+        written = (n + 1 if n else 0) if decode else n + Sq
+        blocks = -(-written // ps)
+        owned.append(min(W, max(0, (blocks - rank + sp - 1) // sp)))
+    pages_loc = sum(owned) + 3
+    pool_k = rng.normal(size=(pages_loc, ps, Hkv, D)).astype(np.float32)
+    pool_v = rng.normal(size=(pages_loc, ps, Hkv, D)).astype(np.float32)
+    q = rng.normal(size=(B, Sq, Hq, D)).astype(np.float32)
+    perm = rng.permutation(pages_loc).astype(np.int32)
+    tbl = np.full((B, W), -1, np.int32)
+    used = 0
+    for b, n in enumerate(owned):
+        tbl[b, :n] = perm[used:used + n]
+        used += n
+    return q, pool_k, pool_v, tbl, np.asarray(lens, np.int32)
+
+
 # ---------------------------------------------------------------------------
 # on the card: each CUDA kernel vs its plain version
 # ---------------------------------------------------------------------------
@@ -821,3 +877,75 @@ def test_prefix_lm_kernel_matches_plain(cuda_device, case, route, dtype):
     else:
         tol = 2e-5 if dtype == "float32" else 1e-4
         _assert_partials(*(t.cpu().numpy() for t in (*got, *want)), tol)
+
+
+def _run_twice(fn, args, kw, launches, name):
+    """fn(*args, **kw) twice: each call adds exactly one launch, and the
+    two give the same bits (no atomics touch values)."""
+    before = launches[name]
+    o, lse = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert launches[name] == before + 1
+    o2, lse2 = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert launches[name] == before + 2
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    return o, lse
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(PAGED_MMA_CASES))
+def test_paged_decode_split_kv_matches_plain(cuda_device, case, dtype):
+    """B4 against its plain version: bf16 runs the tensor-core tile over
+    the paged source with the keys split over CTAs (split-KV) and warps,
+    f32 the CUDA-core kernel; inactive rows and dead rows exact."""
+    B, Hq, Hkv, D, ps, W, sp, rank, window, lens = PAGED_MMA_CASES[case]
+    arrs = _paged_pool_inputs(B, 1, Hq, Hkv, D, ps, W, sp, rank, lens, True)
+    dt = getattr(torch, dtype)
+    args = [_t(x).to(cuda_device, dt) for x in arrs[:3]] + \
+        [_t(x).to(cuda_device) for x in arrs[3:]] + [rank]
+    kw = dict(sp=sp, page_size=ps, window=window)
+    if case == "more_splits_than_tiles" and dtype == "bfloat16":
+        sms = torch.cuda.get_device_properties(
+            cuda_device).multi_processor_count
+        splits = paged_decode.decode_splits(B, Hkv, D, W, ps, sms)
+        assert splits * 4 > -(-(lens[0] + 1) // 64)     # walkers > tiles
+    o, lse = _run_twice(paged_decode.paged_decode_attention, args, kw,
+                        paged_decode.LAUNCHES, "B4")
+    o_p, lse_p = paged_decode.paged_decode_attention_plain(*args, **kw)
+    tol = 2e-5 if dtype == "float32" else 1e-4
+    _assert_partials(o.cpu().numpy(), lse.cpu().numpy(),
+                     o_p.cpu().numpy(), lse_p.cpu().numpy(), tol)
+    for b, n in enumerate(lens):
+        if n == 0:                                  # the inactive slot
+            assert (lse[b] == NEG_INF).all() and (o[b] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(PAGED_MMA_PREFILL_CASES))
+def test_paged_prefill_tensor_core_matches_plain(cuda_device, case, dtype):
+    """B6 against its plain version: bf16 runs the tensor-core tile over
+    the paged source (64 packed rows of a kv group per CTA), f32 the
+    CUDA-core kernel; rows with nothing cached or whose window slid past
+    the prefix are dead and exact."""
+    B, Sq, Hq, Hkv, D, ps, W, sp, rank, window, lens = \
+        PAGED_MMA_PREFILL_CASES[case]
+    arrs = _paged_pool_inputs(B, Sq, Hq, Hkv, D, ps, W, sp, rank, lens,
+                              False)
+    dt = getattr(torch, dtype)
+    args = [_t(x).to(cuda_device, dt) for x in arrs[:3]] + \
+        [_t(x).to(cuda_device) for x in arrs[3:]] + [rank]
+    kw = dict(sp=sp, page_size=ps, window=window)
+    o, lse = _run_twice(paged_prefill.paged_prefill_attention, args, kw,
+                        paged_prefill.LAUNCHES, "B6")
+    o_p, lse_p = paged_prefill.paged_prefill_attention_plain(*args, **kw)
+    tol = 2e-5 if dtype == "float32" else 1e-4
+    _assert_partials(o.cpu().numpy(), lse.cpu().numpy(),
+                     o_p.cpu().numpy(), lse_p.cpu().numpy(), tol)
+    if 0 in lens:
+        assert (lse[lens.index(0)] == NEG_INF).all()
+    if window is not None and window < Sq:
+        dead = (lse_p <= NEG_INF / 2)
+        assert dead.any() and not dead.all()
