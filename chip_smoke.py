@@ -85,14 +85,26 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               layers: 4 steps straight, and 2 steps with ``ckpt_dir``
               followed by a fresh model resumed from that checkpoint to
               step 4; steps 3-4 must give the same losses
+ 13. train_sp  training at SP degree 8: ``trainer.train`` on a plan with
+              ``n_devices=8, c=2`` runs P = 8 ranks as ThreadMesh(c=2, r=2)
+              threads on the one card (team gathers and two ring steps;
+              the collectives carry the gradients). Full width with the
+              depth cut to 8 layers (P ranks' gradients share one card),
+              seq 4096, batch 1, zigzag, ``remat='attn_out'``, bf16, 3
+              AdamW steps on one repeated batch: the loss must fall, and
+              the first step's loss and gradient norm agree with P = 1 on
+              the same weights. Per step B2 runs 8 ranks x 2 ring steps x
+              2 (recompute) x 8 layers = 256 times and B3 128 times.
+              Before it, in f32 (the CUDA-core kernels), depth 2, seq 1024:
+              the loss and every gradient leaf at P = 8 against P = 1
 
-The paths are phases 4, 4a, 5, 7, 8a, 8b and 9: the launch counters are
-set to 0 just before each and read just after, and each must launch
+The paths are phases 4, 4a, 5, 7, 8a, 8b, 9 and 13: the launch counters
+are set to 0 just before each and read just after, and each must launch
 exactly the kernels it runs (B2 and B3 in the ring; B5 and B7 in
 ragged_bwd; B2 and B4 in the engine; B1 in the local prefill; B1, B2, B4
 and B6 in the prefix phase; B2 and B5 in the legacy phase; B2 and B3 in the
-train loop). Comparison, timing and profiling launches are not counted.
-The kernels line's ``launches`` is each kernel's count on the path that
+train loop and in train_sp). Comparison, timing and profiling launches
+are not counted. The kernels line's ``launches`` is each kernel's count on the path that
 runs it (the engine for B2 and B4, the local prefill for B1, the train
 loop for B3, the legacy phase for B5, the prefix phase for B6, ragged_bwd
 for B7); ``launches_by_path`` gives every path's counts. The
@@ -1897,6 +1909,186 @@ def phase_resume(dev, smi):
          card=smi)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training at SP degree 8 on a ThreadMesh on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_SP_LAYERS, TRAIN_SP_STEPS = 8, 3
+TRAIN_SP_C, TRAIN_SP_R = 2, 2                  # P = C * C * R = 8 ranks
+# bf16 at P = 8 against P = 1 on the same weights and batch: the ranks sum
+# their bf16 MLP and vocab partials in another order and the ring merges
+# attention blocks in another order, so the first step's loss is held to
+# 1e-2 absolute and its global gradient norm to 2% relative. In f32 (the
+# CUDA-core kernels) the loss and every gradient leaf are held to 2e-3,
+# the reference's ``check_spmd_model`` bound.
+TRAIN_SP_TOL = {"loss_abs": 1e-2, "grad_norm_rel": 2e-2, "f32_abs": 2e-3}
+TRAIN_SP_F32 = {"layers": 2, "seq_len": 1024}
+TRAIN_SP_TIMEOUT = 180                         # s, a mesh run's limit
+
+
+def _train_sp_parity(dev):
+    """f32, depth 2, full width, seq 1024: the loss and every gradient
+    leaf at P = 8 against P = 1 (also the first run of the mesh's backward
+    on the card: a deadlock fails it within TRAIN_SP_TIMEOUT)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist.comm import ThreadMesh
+    from repro_torch.models.factory import build_model
+    from repro_torch.plan import make_plan
+    from repro_torch.train import step as train_step
+
+    cfg = dataclasses.replace(registry.get(ARCH), param_dtype="float32",
+                              num_layers=TRAIN_SP_F32["layers"])
+    shape = _train_shape(TRAIN_SP_F32["seq_len"])
+    model = build_model(cfg, device=dev, seed=1)
+    plan = make_plan(cfg, shape, arch=ARCH, c=1)
+    run_cfg = plan.run_config()
+    vg1, _ = train_step.build_value_and_grad_fn(model, run_cfg, shape)
+    loss1, g1 = vg1(train_step.to_device(
+        SyntheticLM(cfg, shape, seed=2).get_batch(0), dev))
+    p = TRAIN_SP_C * TRAIN_SP_C * TRAIN_SP_R
+    vg8 = train_step.build_mesh_value_and_grad_fn(
+        model, run_cfg, shape, ThreadMesh(TRAIN_SP_C, TRAIN_SP_R),
+        timeout=TRAIN_SP_TIMEOUT)
+    loss8, g8 = vg8(train_step.to_device(
+        SyntheticLM(cfg, shape, seed=2, sp_size=p).get_batch(0), dev))
+    names = [n for n, _ in model.named_parameters()]
+    errs = {n: float((a - b).abs().max()) for n, a, b in zip(names, g8, g1)}
+    worst = max(errs, key=errs.get)
+    loss_err = abs(float(loss8) - float(loss1))
+    check(all(torch.isfinite(g).all() for g in g8)
+          and loss_err <= TRAIN_SP_TOL["f32_abs"]
+          and errs[worst] <= TRAIN_SP_TOL["f32_abs"],
+          f"train_sp f32: loss {float(loss8)} vs {float(loss1)}, worst "
+          f"leaf {worst} max abs err {errs[worst]}, beyond "
+          f"{TRAIN_SP_TOL['f32_abs']}")
+    return dict(layers=cfg.num_layers, seq_len=shape.seq_len,
+                loss={"P8": float(loss8), "P1": float(loss1)},
+                loss_abs_err=loss_err, worst_leaf=worst,
+                worst_leaf_max_abs_err=errs[worst], leaves=len(errs))
+
+
+def phase_train_sp(dev, smi):
+    """P = 8 ranks as ThreadMesh(c=2, r=2) threads on the one card train
+    full-width h2o-danube-1.8b with the depth cut to 8 layers (P ranks'
+    gradients share one card's memory, where a real job has P cards): seq
+    4096, global batch 1, zigzag, ``remat='attn_out'``, bf16, through
+    ``trainer.train`` on a plan with ``n_devices=8``; 3 AdamW steps on one
+    repeated batch. The first step's loss and gradient norm against the
+    same model at P = 1 on the same weights and batch; before it, the f32
+    parity of ``_train_sp_parity``; after it, ``torch.profiler`` over one
+    more step."""
+    import dataclasses
+    import math
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.plan import make_plan
+    from repro_torch.train import step as train_step
+    from repro_torch.train import trainer
+
+    f32 = _train_sp_parity(dev)
+    free_device()
+    cfg = dataclasses.replace(registry.get(ARCH),
+                              num_layers=TRAIN_SP_LAYERS)
+    shape = _train_shape(TRAIN_SEQ)
+    p = TRAIN_SP_C * TRAIN_SP_C * TRAIN_SP_R
+    plan = make_plan(cfg, shape, arch=ARCH, n_devices=p, c=TRAIN_SP_C)
+    check((plan.sp_size, plan.r, plan.remat, plan.seq_scheme)
+          == (p, TRAIN_SP_R, "attn_out", "zigzag"),
+          f"train_sp plan {plan}")
+    model = build_model(cfg, device=dev, seed=0)
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0,
+                             state_dtype=cfg.opt_dtype)
+    # the P = 1 reference: the same weights, the batch in natural order
+    vg1, _ = train_step.build_value_and_grad_fn(model, plan.run_config(),
+                                                shape)
+    t0 = time.perf_counter()
+    loss1, g1 = vg1(train_step.to_device(
+        SyntheticLM(cfg, shape, seed=0).get_batch(0), dev))
+    loss1, gnorm1 = float(loss1), float(adamw.global_norm(g1))
+    p1_vg_s = time.perf_counter() - t0
+    del g1
+    free_device()
+    data = RepeatBatch(SyntheticLM(cfg, shape, seed=0,
+                                   seq_scheme=plan.seq_scheme,
+                                   sp_size=plan.sp_size))
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train_sp_metrics.jsonl")
+        counts = reset_counts()
+        t0 = time.perf_counter()
+        trainer.train(model, plan, adam, trainer.TrainerConfig(
+            num_steps=TRAIN_SP_STEPS, log_every=TRAIN_SP_STEPS,
+            metrics_path=path), data_source=data, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(counts)
+        with open(path) as f:
+            recs = [json.loads(line) for line in f]
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in recs]
+    gnorms = [r["grad_norm"] for r in recs]
+    check(len(recs) == TRAIN_SP_STEPS
+          and all(math.isfinite(x) for x in losses + gnorms),
+          f"train_sp losses {losses}: want {TRAIN_SP_STEPS} finite")
+    check(losses[-1] < losses[0],
+          f"train_sp loss did not fall over one repeated batch: {losses}")
+    loss_err = abs(losses[0] - loss1)
+    gnorm_rel = abs(gnorms[0] - gnorm1) / gnorm1
+    check(loss_err <= TRAIN_SP_TOL["loss_abs"]
+          and gnorm_rel <= TRAIN_SP_TOL["grad_norm_rel"],
+          f"train_sp bf16 first step at P={p}: loss {losses[0]} vs P=1 "
+          f"{loss1} (abs {loss_err}), grad norm {gnorms[0]} vs {gnorm1} "
+          f"(rel {gnorm_rel}), beyond {TRAIN_SP_TOL}")
+    L = cfg.num_layers
+    per_step = launches_of(B2=p * plan.r * 2 * L, B3=p * plan.r * L)
+    want = {k: v * TRAIN_SP_STEPS for k, v in per_step.items()}
+    check(launches == want, f"train_sp launches {launches}: want {want} "
+          f"(per step {per_step}: every rank's ring steps per layer, "
+          f"forward twice under recompute and backward once)")
+    step_ms = [1e3 * r["step_s"] for r in recs]
+    # where the P = 8 step's time goes: one more step under the profiler
+    step_fn, sh = plan.build_train_step(model, adam)
+    opt = adamw.init_state(sh["params"], adam)
+    batch = train_step.to_device(data.get_batch(0), dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(opt, batch)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    breakdown = _profile_window(prof, 1, prof_wall, top=10)
+    del step_fn, sh, opt, prof
+    emit("train_sp", model=cfg.name, layers=L, params=model.param_count(),
+         weights="seeded random bf16",
+         shape={"seq_len": shape.seq_len, "batch": shape.global_batch},
+         plan={"n_devices": plan.n_devices, "P_sp": plan.sp_size,
+               "C": plan.c, "R": plan.r, "data": plan.data,
+               "seq_scheme": plan.seq_scheme, "remat": plan.remat,
+               "block_impl": plan.block_impl},
+         losses=losses, grad_norm=gnorms,
+         p1_first_step={"loss": loss1, "grad_norm": gnorm1,
+                        "value_and_grad_s": p1_vg_s},
+         loss_abs_err=loss_err, grad_norm_rel_err=gnorm_rel,
+         tol=TRAIN_SP_TOL, f32_parity=f32, step_ms=step_ms,
+         wall_s=wall, max_memory_allocated=peak,
+         launches_per_step=per_step, launches=launches,
+         profile=breakdown, card=smi)
+    del model
+    return launches
+
+
 def free_device():
     import gc
 
@@ -1951,6 +2143,8 @@ def main():
         del model
         free_device()
         phase_resume(dev, smi)
+        free_device()
+        by_path["train_sp"] = phase_train_sp(dev, smi)
         paths = {"B1": "local", "B2": "engine", "B3": "train",
                  "B4": "engine", "B5": "legacy", "B6": "prefix",
                  "B7": "ragged_bwd"}

@@ -1,4 +1,4 @@
-"""Collectives over the named sequence-parallel axes ``(sp_grp, sp_ring,
+"""Collectives over the named mesh axes ``(data, sp_grp, sp_ring,
 sp_team)``: the port's stand-in for the ``jax.lax`` collectives the JAX
 package calls under ``shard_map``.
 
@@ -13,22 +13,45 @@ The per-shard code (``core.startrail``, ``models.runtime``,
   psum / pmax / pmin(x, axes)      elementwise reductions
   psum_scatter(x, axis, dim)       tiled reduce-scatter along ``dim``
 
-``axes`` is one name or a tuple. Linear ranks over several axes run
-grp-major and team-minor, the order of ``Runtime.sp_rank`` and
+``axes`` is one name or a tuple. Linear ranks over several axes run in the
+order of the tuple, major to minor; over the SP axes that is grp-major and
+team-minor, the order of ``Runtime.sp_rank`` and
 ``core.topology.StarTrailTopology.rank``: ``rank = (g*R + j)*C + t``.
 
 Two implementations:
 
-  SingleComm        P = 1: every collective is the identity (the engine on
-                    one card).
-  ThreadMesh(c, r)  P = c*c*r ranks as Python threads in one process,
-                    exchanging tensors through a shared slot table and a
-                    ``threading.Barrier``. It runs on the CPU (tests) and on
-                    one card (``chip_smoke.py``). A rank that raises aborts
-                    the barrier so the others fail at once, and a whole run
-                    has a timeout, so a fault fails instead of hanging.
+  SingleComm        P = 1: every collective is the identity (the engine and
+                    the trainer on one card); any axis has size 1.
+  ThreadMesh(c, r, data)  data*c*c*r ranks as Python threads in one
+                    process, data-major (``repro.dist.meshes.
+                    local_mesh_for_tests``' layout), exchanging tensors
+                    through a shared slot table and a ``threading.Barrier``.
+                    It runs on the CPU (tests) and on one card
+                    (``chip_smoke.py``). A rank that raises aborts the
+                    barrier so the others fail at once, and a whole run has
+                    a timeout, so a fault fails instead of hanging.
 
-The multi-process NCCL/gloo implementation is later work (ROADMAP §A).
+The ``ThreadMesh`` collectives are differentiable, as the JAX ones are
+under ``shard_map(check_vma=False)``: each is a ``torch.autograd.Function``
+whose backward is the transposed collective (all_gather <-> psum_scatter,
+psum <-> psum, ppermute <-> ppermute of the inverted pairs). The exchange
+publishes detached tensors, so no autograd edge crosses ranks: each rank
+differentiates its own graph, and the collectives in its backward meet the
+other ranks' in the same order because every rank builds the same graph.
+``pmax``/``pmin`` carry no gradient and raise on an input that needs one.
+Each rank thread runs its backward on its own thread
+(``torch.autograd.set_multithreading_enabled(False)``): on CUDA tensors the
+autograd engine would otherwise queue every rank's backward nodes on one
+worker thread per device, where the first collective waits forever for a
+rank queued behind it.
+
+Each rank publishes its collective's signature (op, axes, shape, dtype)
+with its tensor; ranks that meet at a barrier in different collectives, or
+with different shapes inside one group, raise instead of exchanging the
+wrong tensors.
+
+The multi-process NCCL/gloo implementation, for ranks on several cards,
+waits for a cell with more than one card (ROADMAP.md, the main path).
 """
 
 from __future__ import annotations
@@ -36,9 +59,11 @@ from __future__ import annotations
 import threading
 from typing import Callable, Dict, List, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
-from repro_torch.dist.sharding import SP_AXES
+from repro_torch.dist.meshes import refine_grid
+from repro_torch.dist.sharding import DATA_AXIS, MESH_AXES, SP_AXES
 
 Axes = Union[str, Sequence[str]]
 
@@ -49,8 +74,6 @@ def _axes_tuple(axes: Axes) -> Tuple[str, ...]:
 
 class SingleComm:
     """One rank: sizes 1, index 0, every collective the identity."""
-
-    axes = SP_AXES
 
     def axis_size(self, axis: str) -> int:
         return 1
@@ -79,24 +102,37 @@ class SingleComm:
 
 
 class ThreadMesh:
-    """P = c*c*r ranks run as threads of one process (see module doc).
+    """data*c*c*r ranks run as threads of one process (see module doc).
 
-    ``run(fn, timeout)`` calls ``fn(comm)`` once per rank, each with its own
-    ``comm`` (a :class:`_RankComm`), and returns the per-rank results in
-    linear rank order.
+    Thread ``i`` is data replica ``i // P`` (P = c*c*r) and, within it, SP
+    member ``i % P``, whose (g, j, t) coordinates come from
+    ``dist.meshes.refine_grid`` under ``placement``. Values do not depend on
+    the placement: every collective groups and orders ranks by their
+    coordinates. ``run(fn, timeout)`` calls ``fn(comm)`` once per rank,
+    each with its own ``comm`` (a :class:`_RankComm`), and returns the
+    results in thread order.
     """
 
-    def __init__(self, c: int, r: int):
-        if c < 1 or r < 1:
-            raise ValueError(f"need c, r >= 1, got c={c} r={r}")
-        self.c, self.r = c, r
-        self.size = c * c * r
-        self.shape = {SP_AXES[0]: c, SP_AXES[1]: r, SP_AXES[2]: c}
+    def __init__(self, c: int, r: int, data: int = 1,
+                 placement: str = "team_inner"):
+        if c < 1 or r < 1 or data < 1:
+            raise ValueError(f"need positive sizes, got c={c} r={r} "
+                             f"data={data}")
+        self.c, self.r, self.data = c, r, data
+        self.placement = placement
+        self.sp_size = c * c * r
+        self.size = data * self.sp_size
+        self.shape = {DATA_AXIS: data, SP_AXES[0]: c, SP_AXES[1]: r,
+                      SP_AXES[2]: c}
+        grid = refine_grid(np.arange(self.sp_size), c, placement)
+        sp_coords = {int(grid[g, j, t]): (g, j, t)
+                     for g in range(c) for j in range(r) for t in range(c)}
+        self._coords = [dict(zip(MESH_AXES, (d,) + sp_coords[q]))
+                        for d in range(data) for q in range(self.sp_size)]
 
     def coords(self, rank: int) -> Dict[str, int]:
-        g, rem = divmod(rank, self.r * self.c)
-        j, t = divmod(rem, self.c)
-        return {SP_AXES[0]: g, SP_AXES[1]: j, SP_AXES[2]: t}
+        """Thread ``rank``'s coordinate on every mesh axis."""
+        return dict(self._coords[rank])
 
     def run(self, fn: Callable, timeout: float = 600.0) -> List:
         barrier = threading.Barrier(self.size, timeout=timeout)
@@ -108,7 +144,9 @@ class ThreadMesh:
 
         def body(rank):
             try:
-                results[rank] = fn(comms[rank])
+                # this rank's backward runs on this thread (module doc)
+                with torch.autograd.set_multithreading_enabled(False):
+                    results[rank] = fn(comms[rank])
             except BaseException as e:  # noqa: BLE001 (re-raised by run)
                 errors[rank] = e
                 barrier.abort()        # the other ranks fail at once
@@ -138,12 +176,11 @@ class ThreadMesh:
 class _RankComm:
     """One rank's view of a :class:`ThreadMesh`."""
 
-    axes = SP_AXES
-
     def __init__(self, mesh: ThreadMesh, rank: int, barrier, slots):
         self.mesh, self.rank = mesh, rank
         self._barrier, self._slots = barrier, slots
         self._coords = mesh.coords(rank)
+        self._groups: Dict[Tuple[str, ...], List[int]] = {}
 
     def axis_size(self, axis: str) -> int:
         return self.mesh.shape[axis]
@@ -152,62 +189,54 @@ class _RankComm:
         return self._coords[axis]
 
     # ---- group bookkeeping ------------------------------------------------
-    def _group(self, axes: Axes) -> List[int]:
-        """Global ranks that share this rank's coordinates off ``axes``, in
-        linear order over ``axes`` (grp-major, team-minor)."""
+    def _group(self, names: Tuple[str, ...]) -> List[int]:
+        """Threads that share this rank's coordinates off ``names``, in
+        linear order over ``names`` (the first name major)."""
+        if names not in self._groups:
+            out = []
+            for rank in range(self.mesh.size):
+                co = self.mesh.coords(rank)
+                if all(co[a] == self._coords[a] for a in MESH_AXES
+                       if a not in names):
+                    out.append((tuple(co[a] for a in names), rank))
+            self._groups[names] = [rank for _, rank in sorted(out)]
+        return self._groups[names]
+
+    def _collective(self, op: str, x, axes: Axes, combine):
+        """Publish (signature, x), wait for every rank, check that they
+        all run this collective, combine this rank's group, and wait again
+        so no slot is overwritten before every rank has read it."""
         names = _axes_tuple(axes)
-        out = []
-        for rank in range(self.mesh.size):
-            co = self.mesh.coords(rank)
-            if all(co[a] == self._coords[a] for a in SP_AXES
-                   if a not in names):
-                out.append(rank)
-        return out   # ascending global rank == linear order over `axes`
-
-    def _exchange(self, x):
-        """Publish x, wait for every rank, return the slot table; a second
-        barrier after the caller's reads keeps slots from being reused
-        early (see ``_collective``)."""
-        self._slots[self.rank] = x
+        sig = (op, names, tuple(x.shape), x.dtype)
+        group = self._group(names)
+        self._slots[self.rank] = (sig, x)
         self._barrier.wait()
-        return self._slots
-
-    def _collective(self, x, axes: Axes, combine):
-        group = self._group(axes)
-        slots = self._exchange(x)
-        out = combine([slots[g] for g in group], group.index(self.rank))
+        slots = self._slots
+        for other in range(self.mesh.size):
+            theirs = slots[other][0]
+            if (theirs[:2] != sig[:2]
+                    or (other in group and theirs != sig)):
+                raise RuntimeError(
+                    f"ThreadMesh collective mismatch: rank {self.rank} runs "
+                    f"{sig}, rank {other} runs {theirs}")
+        out = combine([slots[g][1] for g in group], group.index(self.rank))
         self._barrier.wait()
         return out
 
-    # ---- collectives ------------------------------------------------------
-    def all_gather(self, x, axis: Axes, dim: int):
-        return self._collective(x, axis, lambda xs, i: torch.cat(xs, dim))
+    # ---- the exchanges (no autograd: callers pass detached tensors) -------
+    def _all_gather(self, x, axis: Axes, dim: int):
+        return self._collective("all_gather", x, axis,
+                                lambda xs, i: torch.cat(xs, dim))
 
-    def psum(self, x, axes: Axes):
+    def _psum(self, x, axes: Axes):
         def add(xs, i):
             out = xs[0].clone()
             for y in xs[1:]:
                 out += y
             return out
-        return self._collective(x, axes, add)
+        return self._collective("psum", x, axes, add)
 
-    def pmax(self, x, axes: Axes):
-        def mx(xs, i):
-            out = xs[0]
-            for y in xs[1:]:
-                out = torch.maximum(out, y)
-            return out.clone()
-        return self._collective(x, axes, mx)
-
-    def pmin(self, x, axes: Axes):
-        def mn(xs, i):
-            out = xs[0]
-            for y in xs[1:]:
-                out = torch.minimum(out, y)
-            return out.clone()
-        return self._collective(x, axes, mn)
-
-    def psum_scatter(self, x, axis: Axes, dim: int):
+    def _psum_scatter(self, x, axis: Axes, dim: int):
         def rs(xs, i):
             n = len(xs)
             parts = [y.chunk(n, dim)[i] for y in xs]
@@ -215,10 +244,106 @@ class _RankComm:
             for p in parts[1:]:
                 out += p
             return out.contiguous()
-        return self._collective(x, axis, rs)
+        return self._collective("psum_scatter", x, axis, rs)
 
-    def ppermute(self, x, axes: Axes, perm):
+    def _ppermute(self, x, axes: Axes, perm):
         def perm_fn(xs, i):
             src = [s for s, d in perm if d == i]
             return xs[src[0]].clone() if src else torch.zeros_like(xs[i])
-        return self._collective(x, axes, perm_fn)
+        return self._collective("ppermute", x, axes, perm_fn)
+
+    def _extreme(self, op: str, x, axes: Axes, pick):
+        if self._tracked(x):
+            raise ValueError(
+                f"{op} carries no gradient: detach its input (the JAX "
+                "stop_gradient) instead of dropping the gradient silently")
+
+        def red(xs, i):
+            out = xs[0]
+            for y in xs[1:]:
+                out = pick(out, y)
+            return out.clone()
+        return self._collective(op, x, axes, red)
+
+    # ---- collectives: differentiable where the input needs a gradient ----
+    @staticmethod
+    def _tracked(x) -> bool:
+        return torch.is_grad_enabled() and x.requires_grad
+
+    def all_gather(self, x, axis: Axes, dim: int):
+        if self._tracked(x):
+            return _AllGather.apply(x, self, axis, dim)
+        return self._all_gather(x.detach(), axis, dim)
+
+    def psum(self, x, axes: Axes):
+        if self._tracked(x):
+            return _PSum.apply(x, self, axes)
+        return self._psum(x.detach(), axes)
+
+    def psum_scatter(self, x, axis: Axes, dim: int):
+        if self._tracked(x):
+            return _PSumScatter.apply(x, self, axis, dim)
+        return self._psum_scatter(x.detach(), axis, dim)
+
+    def ppermute(self, x, axes: Axes, perm):
+        if self._tracked(x):
+            return _PPermute.apply(x, self, axes, perm)
+        return self._ppermute(x.detach(), axes, perm)
+
+    def pmax(self, x, axes: Axes):
+        return self._extreme("pmax", x, axes, torch.maximum)
+
+    def pmin(self, x, axes: Axes):
+        return self._extreme("pmin", x, axes, torch.minimum)
+
+
+# ---------------------------------------------------------------------------
+# autograd rules: each backward is the transposed collective
+# ---------------------------------------------------------------------------
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis, dim):
+        ctx.comm, ctx.axis, ctx.dim = comm, axis, dim
+        return comm._all_gather(x.detach(), axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.comm._psum_scatter(g.contiguous(), ctx.axis, ctx.dim),
+                None, None, None)
+
+
+class _PSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axis, dim):
+        ctx.comm, ctx.axis, ctx.dim = comm, axis, dim
+        return comm._psum_scatter(x.detach(), axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.comm._all_gather(g.contiguous(), ctx.axis, ctx.dim),
+                None, None, None)
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axes):
+        ctx.comm, ctx.axes = comm, axes
+        return comm._psum(x.detach(), axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm._psum(g.contiguous(), ctx.axes), None, None
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axes, perm):
+        ctx.comm, ctx.axes = comm, axes
+        ctx.inverse = [(d, s) for s, d in perm]
+        return comm._ppermute(x.detach(), axes, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.comm._ppermute(g.contiguous(), ctx.axes, ctx.inverse),
+                None, None, None)

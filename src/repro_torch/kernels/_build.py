@@ -22,6 +22,7 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from typing import Dict, List
 
@@ -124,10 +125,20 @@ def _build(out: pathlib.Path) -> str:
     return "\n".join(logs)
 
 
-@functools.lru_cache(maxsize=None)
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source hash has no
-    library in ``build/repro_torch`` yet."""
+    library in ``build/repro_torch`` yet. The ranks of a ``ThreadMesh``
+    reach their first kernel together: one of them builds, the others
+    wait for it."""
+    with _LIBRARY_LOCK:
+        return _library()
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     key = source_hash()
     out = BUILD_DIR / f"librepro_torch_{key}.so"

@@ -20,6 +20,7 @@ or bf16; pos_q (Sq,), pos_k (Sk,) int32; o (B,Sq,Hq,D) f32; lse, delta
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -31,6 +32,8 @@ HEAD_DIMS = (32, 64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Dict[str, int] = {"B1": 0, "B2": 0, "B3": 0}
+# the ranks of a ThreadMesh launch B2 and B3 from their own threads
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
@@ -129,7 +132,8 @@ def flash_attention_fwd(q, k, v, pos_q, pos_k, o_acc=None, lse_acc=None, *,
         int(prefix_len is not None), int(prefix_len or 0), float(scale),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flash_fwd")
-    LAUNCHES["B2" if merge else "B1"] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES["B2" if merge else "B1"] += 1
     return o, lse
 
 
@@ -166,7 +170,8 @@ def flash_attention_bwd(q, k, v, do, lse, delta, pos_q, pos_k, *,
         int(window or 0), int(prefix_len is not None), int(prefix_len or 0),
         float(scale), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "flash_bwd")
-    LAUNCHES["B3"] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES["B3"] += 1
     return dq, dk, dv
 
 

@@ -13,18 +13,25 @@ length with the batch ``--batch``, 1 by default (one card: the published
 shape's batch does not fit). ``--microbatches M`` accumulates gradients
 over M slices of the batch; ``--ckpt-dir D`` checkpoints every
 ``max(steps // 2, 1)`` steps into ``D`` and, run again, resumes from the
-newest checkpoint there (as the JAX launcher does). The JAX launcher's
-other options raise ``NotImplementedError`` until their part is ported
-(ROADMAP.md).
+newest checkpoint there (as the JAX launcher does).
+
+``--devices N --data D --c C`` trains on N ranks: D data replicas of
+P = N / D sequence-parallel ranks factored as (C, R, C), run as the
+threads of a ``ThreadMesh`` on the chosen device (the counterpart of the
+JAX launcher's forced host devices; ``--placement`` maps threads to
+coordinates and changes no value):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
+      --smoke --device cpu --devices 8 --data 2 --c 2 --steps 3
+
+The JAX launcher's other options raise ``NotImplementedError`` until their
+part is ported (ROADMAP.md).
 """
 
 import argparse
 
 # JAX launcher options that raise, with the ROADMAP.md item that ports them
 _UNPORTED = {
-    "--devices": "the multi-process SP communicator ('The main path', "
-                 "item 5)",
-    "--data": "the multi-process SP communicator ('The main path', item 5)",
     "--plan": "plan persistence and the cost model (§A)",
     "--autotune": "plan/autotune.py (§A)",
     "--scheme ulysses": "core/ulysses.py (§A)",
@@ -42,8 +49,13 @@ def main(argv=None):
                     help="reduced config + the --seq-len/--batch shape")
     ap.add_argument("--device", choices=["cuda", "cpu"], default=None,
                     help="default: the CUDA card (raises without one)")
-    ap.add_argument("--c", type=int, default=1,
-                    help="StarTrail C (one card: 1)")
+    ap.add_argument("--c", type=int, default=1, help="StarTrail C")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="ranks, as ThreadMesh threads on the device")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-parallel replicas (divides --devices)")
+    ap.add_argument("--placement", default=None,
+                    choices=["team_inner", "ring_inner"])
     ap.add_argument("--scheme", default=None,
                     choices=["startrail", "ring", "ulysses"])
     ap.add_argument("--steps", type=int, default=20)
@@ -59,17 +71,13 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint here; resume from it when it holds one")
     # the JAX launcher's other options, rejected until they are ported
-    ap.add_argument("--devices", type=int, default=1)
-    ap.add_argument("--data", type=int, default=1)
     ap.add_argument("--plan", default=None)
     ap.add_argument("--autotune", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--metrics-dump", default=None)
     ap.add_argument("--trace-out", default=None)
     args = ap.parse_args(argv)
-    for flag, on in (("--devices", args.devices > 1),
-                     ("--data", args.data > 1),
-                     ("--plan", bool(args.plan)),
+    for flag, on in (("--plan", bool(args.plan)),
                      ("--autotune", args.autotune),
                      ("--scheme ulysses", args.scheme == "ulysses"),
                      ("--multi-pod", args.multi_pod),
@@ -85,6 +93,7 @@ def main(argv=None):
     from repro_torch.configs import registry
     from repro_torch.configs.base import SHAPES, ShapeConfig
     from repro_torch.engine.engine import resolve_device
+    from repro_torch.launch.mesh import refinable_grids
     from repro_torch.models.factory import build_model
     from repro_torch.optim import adamw
     from repro_torch.plan import make_plan
@@ -99,10 +108,18 @@ def main(argv=None):
         cfg = registry.get(args.arch)
         shape = dataclasses.replace(SHAPES[args.shape],
                                     global_batch=args.batch or 1)
-    plan = make_plan(cfg, shape, arch=args.arch, c=args.c,
-                     scheme=args.scheme, microbatches=args.microbatches)
+    try:
+        plan = make_plan(cfg, shape, arch=args.arch,
+                         n_devices=args.devices, data=args.data, c=args.c,
+                         scheme=args.scheme, placement=args.placement,
+                         microbatches=args.microbatches)
+    except ValueError as e:
+        raise ValueError(
+            f"{e}; legal (data, SP) grids with C = 2 for --devices "
+            f"{args.devices}: {refinable_grids(args.devices)}") from e
     print(f"[train] plan: P_sp={plan.sp_size} scheme={plan.scheme} "
-          f"C={plan.c} R={plan.r} data={plan.data} seq={plan.seq_len} "
+          f"C={plan.c} R={plan.r} data={plan.data} "
+          f"placement={plan.placement} seq={plan.seq_len} "
           f"batch={plan.global_batch} microbatches={plan.microbatches} "
           f"remat={plan.remat} block={plan.block_impl} device={device}")
 

@@ -4,9 +4,10 @@ its ``spmd`` mode).
 
 Per-rank code runs against a ``dist.comm`` communicator: ``SingleComm`` at
 P = 1 (every collective the identity), ``ThreadMesh`` ranks for P > 1 in
-one process. Parameters are stored whole: there is no FSDP sharding, so
-``dense`` is the identity, and tensor-parallel blocks slice the rank's part
-themselves (``blocks.vocab_slice``, ``blocks.mlp_block``).
+one process, whose collectives are differentiable, so the same code trains
+at any SP degree. Parameters are stored whole: there is no FSDP sharding,
+so ``dense`` is the identity, and tensor-parallel blocks slice the rank's
+part themselves (``blocks.vocab_slice``, ``blocks.mlp_block``).
 
 ``attention`` runs StarTrail (``attention_impl='startrail'``, the ring
 kernels B2 forward and B3 backward on 'cuda'), or, with
@@ -14,9 +15,11 @@ kernels B2 forward and B3 backward on 'cuda'), or, with
 one ``dispatch.prefill`` over the rank's own tokens (kernel B1 on 'cuda'),
 exact only at P = 1.
 
-There is one data-parallel replica (``batch_axes = ()``): ``psum_batch``
-is the identity until the multi-process communicator carries a data axis
-(ROADMAP.md, the main path).
+``batch_axes`` names the data-parallel axes: ``("data",)`` on a
+``ThreadMesh`` with more than one replica (``train.step.make_runtime``), so
+``psum_batch`` sums the loss's terms over replicas; ``()`` (the identity)
+with one replica. Replicas on several cards wait for the multi-process
+communicator (ROADMAP.md, the main path).
 """
 
 from __future__ import annotations

@@ -6,6 +6,11 @@ trainer and the train step read).
 StarTrail ``c``: the JAX package picks it with the analytical cost model
 (``repro.plan.cost``), which is not ported yet, so ``c=None`` raises
 (ROADMAP.md §A).
+
+A training plan with ``n_devices > 1`` runs its ranks as the threads of a
+``dist.comm.ThreadMesh(c, r, data, placement)`` on one device
+(``build_mesh``), the port's counterpart of the JAX package's forced host
+devices (``local_mesh_for_tests``).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import math
 from typing import Optional
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
+from repro_torch.dist.meshes import PLACEMENTS
 from repro_torch.kernels.dispatch import IMPLS, resolve_impl
 from repro_torch.models.transformer import REMATS
 
@@ -37,6 +43,7 @@ class ExecutionPlan:
     n_devices: int
     data: int = 1
     c: int = 1
+    placement: str = "team_inner"  # ThreadMesh coordinates (dist.meshes)
     block_impl: str = "cuda"       # ring-step block kernel ('ref' | 'cuda')
     block_skip: bool = False
     decode_batch: int = 0          # engine decode slots (0 = not a serve plan)
@@ -65,6 +72,9 @@ class ExecutionPlan:
         if self.data < 1 or self.n_devices < 1 or self.n_devices % self.data:
             raise ValueError(f"n_devices={self.n_devices} not divisible by "
                              f"data={self.data}")
+        if self.placement not in PLACEMENTS:
+            raise ValueError(f"placement must be one of {PLACEMENTS}, "
+                             f"got {self.placement!r}")
         sp = self.sp_size
         if self.c < 1 or sp % (self.c * self.c):
             raise ValueError(
@@ -119,17 +129,28 @@ class ExecutionPlan:
             block_impl=self.block_impl, kernel_impl=self.kernel_impl,
             block_skip=self.block_skip, remat=self.remat)
 
+    def build_mesh(self):
+        """The ``ThreadMesh`` of the plan's ranks; None for one device."""
+        if self.n_devices == 1:
+            return None
+        from repro_torch.dist.comm import ThreadMesh
+
+        return ThreadMesh(self.c, self.r, self.data, self.placement)
+
     def build_train_step(self, model, adam_cfg, comm=None):
-        """(step, sh) -- see ``train.step.build_train_step``."""
+        """(step, sh) -- see ``train.step.build_train_step``; ``comm``
+        defaults to ``build_mesh()``."""
         from repro_torch.train import step as train_step
 
         return train_step.build_train_step(
-            model, self.run_config(), self.shape_config(), adam_cfg, comm)
+            model, self.run_config(), self.shape_config(), adam_cfg,
+            comm or self.build_mesh())
 
 
 def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
               arch: Optional[str] = None, n_devices: int = 1, data: int = 1,
               c: Optional[int] = None, scheme: Optional[str] = None,
+              placement: Optional[str] = None,
               microbatches: Optional[int] = None,
               block_impl: Optional[str] = None,
               kernel_impl: Optional[str] = None,
@@ -143,7 +164,8 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
     versions on CPU tensors). ``remat`` defaults to 'attn_out', as in the
     JAX plan. ``microbatches=None`` means 1: the JAX package picks it with
     the cost model's ``choose_microbatches``, not ported yet (ROADMAP.md
-    §A); the per-device batch must divide by it.
+    §A); the per-device batch must divide by it. ``placement`` (default
+    'team_inner') only matters for C > 1, as in the JAX plan.
     """
     if c is None:
         raise _no_cost_model("make_plan")
@@ -160,7 +182,9 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
         seq_scheme = "zigzag"
     return ExecutionPlan(
         arch=arch or cfg.name, seq_len=shape.seq_len, n_devices=n_devices,
-        data=data, c=c, block_impl=resolve_impl(block_impl),
+        data=data, c=c,
+        placement=placement if placement and c > 1 else "team_inner",
+        block_impl=resolve_impl(block_impl),
         block_skip=cfg.window is not None and seq_scheme == "contiguous",
         kernel_impl=resolve_impl(kernel_impl), shape=shape.name,
         global_batch=shape.global_batch, kind=shape.kind,

@@ -2,12 +2,24 @@
 model's loss and gradients, then AdamW.
 
 The JAX package runs forward and backward inside one ``shard_map`` island
-per device; the port runs the same per-rank code eagerly under autograd,
-on one card through ``SingleComm`` (P = 1, one data replica). Gradients
-leave ``value_and_grad`` reduced as the JAX ``reduce_leaf`` does: in f32,
-times 1/n_devices, summed over the data and SP axes (the port stores every
-parameter whole, so no axis is "mentioned"; the identity on one card),
-then cast once to the parameter dtype.
+per device; the port runs the same per-rank code eagerly under autograd:
+on one card through ``SingleComm`` (P = 1, one data replica), or as the
+ranks of a ``dist.comm.ThreadMesh`` (data replicas times SP ranks, threads
+of one process on the CPU or on one card), whose collectives carry
+gradients. Every rank's loss is the replicated global loss and its
+backward seeds 1, so gradients leave ``value_and_grad`` reduced as the JAX
+``reduce_leaf`` does: in f32, times 1/n_devices, summed over the data and
+SP axes (the port stores every parameter whole, so no axis is
+"mentioned"; the identity on one card), then cast once to the parameter
+dtype.
+
+On a ``ThreadMesh``, ``build_train_step``'s step takes the global batch
+(its sequence in SP shard order, as ``data.pipeline`` lays it out), runs
+``value_and_grad`` on every rank thread over the rank's part of it
+(``shard_batch``), and then AdamW once, on the reduced gradients of the
+first thread (every rank's are the same bits: the mesh sums each group in
+one order). The other ranks drop theirs as each leaf is reduced: on one
+card the P ranks' gradients share its memory.
 
 With ``microbatches = M > 1`` the step accumulates gradients as the JAX
 ``_make_vg_island`` does: the per-device batch is cut into M equal slices
@@ -17,10 +29,9 @@ before the reduction above. With ``grad_compression='int8'`` the step
 passes the reduced gradients through ``optim.grad.int8_roundtrip`` before
 AdamW, as the JAX step does.
 
-Not ported yet, and raising with their ROADMAP.md item: more than one
-device (the multi-process communicator with differentiable collectives is
-the main path's next item), ``attention_scheme='ulysses'`` and
-``multi_pod`` (§A).
+Not ported yet, and raising with their ROADMAP.md item:
+``attention_scheme='ulysses'`` and ``multi_pod`` (§A). Ranks on several
+cards wait for the multi-process communicator (the main path).
 """
 
 from __future__ import annotations
@@ -31,7 +42,8 @@ import torch
 
 from repro_torch.configs.base import RunConfig, ShapeConfig
 from repro_torch.core.startrail import StarTrailConfig
-from repro_torch.dist.comm import SingleComm
+from repro_torch.dist.comm import SingleComm, ThreadMesh
+from repro_torch.dist.sharding import DATA_AXIS
 from repro_torch.models.factory import Model
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim import adamw
@@ -40,9 +52,9 @@ from repro_torch.optim import grad as grad_lib
 COMPRESSIONS = ("none", "int8")
 
 
-def _unported(what: str, where: str = "§A") -> NotImplementedError:
+def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md {where})")
+        f"{what} is not ported to repro_torch yet (ROADMAP.md §A)")
 
 
 def make_runtime(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
@@ -63,8 +75,11 @@ def make_runtime(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
         block_skip=run_cfg.block_skip or (cfg.window is not None
                                           and scheme == "contiguous"),
     )
-    return Runtime(comm=comm or SingleComm(), st_cfg=st,
-                   kernel_impl=run_cfg.kernel_impl, device=model.device)
+    comm = comm or SingleComm()
+    return Runtime(comm=comm, st_cfg=st, kernel_impl=run_cfg.kernel_impl,
+                   device=model.device,
+                   batch_axes=(DATA_AXIS,) if comm.axis_size(DATA_AXIS) > 1
+                   else ())
 
 
 def trainable(model: Model) -> Tuple[List[str], List[torch.nn.Parameter]]:
@@ -79,28 +94,34 @@ def trainable(model: Model) -> Tuple[List[str], List[torch.nn.Parameter]]:
     return names, params
 
 
-def build_value_and_grad_fn(model: Model, run_cfg: RunConfig,
-                            shape: ShapeConfig, comm=None
-                            ) -> Tuple[Callable, Runtime]:
-    """Returns (vg_fn, rt) with vg_fn(batch) -> (loss, grads): the loss of
-    ``batch`` and the reduced gradient of every parameter, in
-    ``trainable(model)`` order."""
-    rt = make_runtime(model, run_cfg, shape, comm)
-    if rt.sp_size() != 1:
-        raise _unported(
-            "training at SP degree > 1 (it needs differentiable "
-            "collectives: the multi-process communicator)",
-            "'The main path', item 5")
+def shard_batch(batch: Dict[str, torch.Tensor], rt: Runtime
+                ) -> Dict[str, torch.Tensor]:
+    """The rank of ``rt``'s part of a global batch whose sequence is laid
+    out in SP shard order (``data.pipeline.shard_permutation``): its rows
+    by data index, its columns by SP rank."""
+    data, d = rt.comm.axis_size(DATA_AXIS), rt.comm.axis_index(DATA_AXIS)
+    p, q = rt.sp_size(), rt.sp_rank()
+    out = {}
+    for k, v in batch.items():
+        rows, cols = v.shape[0] // data, v.shape[1] // p
+        if rows * data != v.shape[0] or cols * p != v.shape[1]:
+            raise ValueError(f"batch {k} {tuple(v.shape)} does not split "
+                             f"over data={data} and SP={p}")
+        out[k] = v[d * rows:(d + 1) * rows, q * cols:(q + 1) * cols]
+    return out
+
+
+def _value_and_grad(model: Model, run_cfg: RunConfig, rt: Runtime,
+                    params: List[torch.nn.Parameter]) -> Callable:
     if run_cfg.grad_compression not in COMPRESSIONS:
         raise ValueError(f"grad_compression must be one of {COMPRESSIONS}, "
                          f"got {run_cfg.grad_compression!r}")
-    _, params = trainable(model)
-    inv = 1.0 / rt.sp_size()
+    inv = 1.0 / (rt.sp_size() * rt.comm.axis_size(DATA_AXIS))
     mb = max(run_cfg.microbatches, 1)
 
     def loss_and_grads(batch):
         loss = model.loss(rt, batch, remat=run_cfg.remat)
-        return loss, torch.autograd.grad(loss, params)
+        return loss, list(torch.autograd.grad(loss, params))
 
     def accumulate(batch):
         rows = next(iter(batch.values())).shape[0]
@@ -121,26 +142,69 @@ def build_value_and_grad_fn(model: Model, run_cfg: RunConfig,
             del g_mb
         return loss_sum / mb, [g.div_(mb) for g in g_sum]
 
-    def vg_fn(batch: Dict[str, torch.Tensor]):
+    def vg_fn(batch: Dict[str, torch.Tensor], keep: bool = True):
         loss, grads = (loss_and_grads(batch) if mb == 1
                        else accumulate(batch))
+        out = []
         with torch.no_grad():
-            # reduce in f32, downcast once at the end
-            grads = [rt.psum_batch(rt.psum_model(g.float() * inv)).to(p.dtype)
-                     for g, p in zip(grads, params)]
-        return loss.detach(), grads
+            for i, p in enumerate(params):
+                # reduce in f32, downcast once at the end; the rank's own
+                # gradient goes as soon as it is reduced
+                g = grads[i].float() * inv
+                grads[i] = None
+                g = rt.psum_batch(rt.psum_model(g)).to(p.dtype)
+                if keep:
+                    out.append(g)
+        return loss.detach(), out if keep else None
 
-    return vg_fn, rt
+    return vg_fn
+
+
+def build_value_and_grad_fn(model: Model, run_cfg: RunConfig,
+                            shape: ShapeConfig, comm=None
+                            ) -> Tuple[Callable, Runtime]:
+    """Returns (vg_fn, rt) with vg_fn(batch) -> (loss, grads): the loss and
+    the reduced gradient of every parameter, in ``trainable(model)`` order,
+    on the rank ``comm`` (one card by default; a ``ThreadMesh`` rank's
+    ``comm`` inside its ``run``). ``batch`` is the rank's part of the
+    global batch (``shard_batch``). ``vg_fn(batch, keep=False)`` takes
+    part in the reduction but keeps none of it (grads None)."""
+    rt = make_runtime(model, run_cfg, shape, comm)
+    _, params = trainable(model)
+    return _value_and_grad(model, run_cfg, rt, params), rt
+
+
+def build_mesh_value_and_grad_fn(model: Model, run_cfg: RunConfig,
+                                 shape: ShapeConfig, mesh: ThreadMesh,
+                                 timeout: float = 600.0) -> Callable:
+    """vg_fn(batch) -> (loss, grads) over every rank of ``mesh``: ``batch``
+    is the global batch in SP shard order; the gradients are the first
+    thread's reduced ones (each rank's are the same bits)."""
+    _, params = trainable(model)
+
+    def vg_fn(batch: Dict[str, torch.Tensor]):
+        def rank_fn(comm):
+            rt = make_runtime(model, run_cfg, shape, comm)
+            fn = _value_and_grad(model, run_cfg, rt, params)
+            return fn(shard_batch(batch, rt), keep=comm.rank == 0)
+
+        return mesh.run(rank_fn, timeout)[0]
+
+    return vg_fn
 
 
 def build_train_step(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
                      adam_cfg: adamw.AdamWConfig, comm=None):
     """Returns (step, sh) with step(opt_state, batch) -> (opt_state,
     metrics). The step updates the model's parameters in place (a PyTorch
-    module owns its parameters); ``sh`` holds the runtime and the
-    parameter list the optimizer state mirrors (``sh['params']``,
-    ``sh['names']``)."""
-    vg_fn, rt = build_value_and_grad_fn(model, run_cfg, shape, comm)
+    module owns its parameters); ``sh`` holds the parameter list the
+    optimizer state mirrors (``sh['params']``, ``sh['names']``). With
+    ``comm`` a ``ThreadMesh`` the step runs every rank on the global batch
+    (module doc)."""
+    if isinstance(comm, ThreadMesh):
+        vg_fn = build_mesh_value_and_grad_fn(model, run_cfg, shape, comm)
+    else:
+        vg_fn, _ = build_value_and_grad_fn(model, run_cfg, shape, comm)
     names, params = trainable(model)
 
     def step(opt_state, batch):
@@ -152,7 +216,7 @@ def build_train_step(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
         metrics["loss"] = loss
         return opt_state, metrics
 
-    return step, dict(rt=rt, params=params, names=names)
+    return step, dict(params=params, names=names)
 
 
 def build_loss_fn(model: Model, run_cfg: RunConfig, shape: ShapeConfig,

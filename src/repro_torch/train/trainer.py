@@ -3,8 +3,12 @@ step loop, checkpoint and restart, straggler detection and a jsonl
 metrics stream.
 
 The run is described by a ``repro_torch.plan.ExecutionPlan``: the trainer
-builds its runtime and train step from the plan. It runs on the CUDA card
-unless the caller passes ``device='cpu'``.
+builds its train step from the plan. It runs on the CUDA card unless the
+caller passes ``device='cpu'``. A plan with ``n_devices > 1`` runs its
+ranks as the threads of a ``ThreadMesh`` (``plan.build_mesh``) on that
+device: each step hands the global batch to every rank and updates the
+parameters once. Parameters are stored whole, so checkpoints do not
+depend on the plan.
 
 Metrics stay on the device between log boundaries: converting a device
 scalar to ``float`` blocks the host on the step, so the loop buffers the
@@ -113,10 +117,9 @@ def train(model: Model, plan: ExecutionPlan, adam_cfg: adamw.AdamWConfig,
                          f"{device}")
     shape = plan.shape_config()
     step_fn, sh = plan.build_train_step(model, adam_cfg)
-    rt = sh["rt"]
     if data_source is None:
         data_source = SyntheticLM(model.cfg, shape, seed=tcfg.seed,
-                                  seq_scheme=rt.st_cfg.seq_scheme,
+                                  seq_scheme=plan.seq_scheme,
                                   sp_size=plan.sp_size)
     opt = adamw.init_state(sh["params"], adam_cfg)
     start = 0

@@ -318,7 +318,7 @@ def test_launch_train_cpu_and_unported_flags(tmp_path):
     assert [m["step"] for m in lines] == [1, 2, 3, 4]
     assert all(np.isfinite(m["loss"]) and m["loss"] > 0 for m in lines)
     assert out["step"] == 4
-    for flags in (["--devices", "2"], ["--data", "2"], ["--plan", "p.json"],
+    for flags in (["--plan", "p.json"],
                   ["--autotune"], ["--scheme", "ulysses"],
                   ["--multi-pod"], ["--metrics-dump", "m.prom"],
                   ["--trace-out", "t.json"]):
