@@ -30,6 +30,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               twice on every check and must give the same bits; CTAs per
               SM and shared memory of the bf16 forward and backward
               kernels
+  3a. kernels_ulysses  B1 and B3 at the shape Ulysses gives them (q
+              (1,4096,4,80) over one kv head, the 8 zigzag shards
+              concatenated, and sorted), bf16 and f32 against their plain
+              versions; ``device_ms`` and bound of each on bf16
   4. ring     StarTrail on a ThreadMesh(c=2, r=2): P = 8 ranks as threads
               on the one card, N = 2048 tokens of 32q/8kv heads of 80,
               bf16, causal + window; each rank runs the forward (B2 in
@@ -97,13 +101,27 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               2 (recompute) x 8 layers = 256 times and B3 128 times.
               Before it, in f32 (the CUDA-core kernels), depth 2, seq 1024:
               the loss and every gradient leaf at P = 8 against P = 1
+ 14. schemes  the paper's comparison at the same size (8 layers, seq 4096,
+              batch 1, bf16, ``attn_out``, P = 8 ranks on the card) through
+              ``trainer.train`` with the obs registry and tracer, 2 steps
+              each from the same weights: the ring (C = 1, R = 8: B2
+              8*8*2*L and B3 8*8*L a step), DeepSpeed-Ulysses (all-to-all;
+              B1 8*2*L and B3 8*L) and StarTrail C = 2 with each ring
+              transfer in 2 sub-chunks (train_sp's counts). Each first
+              step's loss and grad norm against P = 1 (``TRAIN_SP_TOL``);
+              each scheme's forward island (one layer, full width, seq
+              4096) through ``obs.commlog.comm_report``: every live kind
+              at ratio 1.0 and no byte of a kind the scheme does not
+              run, printed beside eqs. 2-4's bytes; the ledger's bytes per step beside
+              ``CommLog.per_step``; a profiled step of the ring and Ulysses
 
-The paths are phases 4, 4a, 5, 7, 8a, 8b, 9 and 13: the launch counters
-are set to 0 just before each and read just after, and each must launch
-exactly the kernels it runs (B2 and B3 in the ring; B5 and B7 in
-ragged_bwd; B2 and B4 in the engine; B1 in the local prefill; B1, B2, B4
-and B6 in the prefix phase; B2 and B5 in the legacy phase; B2 and B3 in the
-train loop and in train_sp). Comparison, timing and profiling launches
+The paths are phases 4, 4a, 5, 7, 8a, 8b, 9, 13 and each scheme of 14:
+the launch counters are set to 0 just before each and read just after,
+and each must launch exactly the kernels it runs (B2 and B3 in the ring;
+B5 and B7 in ragged_bwd; B2 and B4 in the engine; B1 in the local
+prefill; B1, B2, B4 and B6 in the prefix phase; B2 and B5 in the legacy
+phase; B2 and B3 in the train loop, in train_sp and in the ring and
+StarTrail schemes; B1 and B3 under Ulysses). Comparison, timing and profiling launches
 are not counted. The kernels line's ``launches`` is each kernel's count on the path that
 runs it (the engine for B2 and B4, the local prefill for B1, the train
 loop for B3, the legacy phase for B5, the prefix phase for B6, ragged_bwd
@@ -1074,6 +1092,84 @@ def phase_kernels(dev):
                                    "max_scaled_err") if k in r}
             for n, r in rows.items()})
     return rows
+
+
+ULYSSES_P = 8                  # the schemes phase's SP degree
+
+
+def ulysses_positions(kind, n, p=ULYSSES_P):
+    """Ulysses' positions at SP degree p: the zigzag shards concatenated in
+    linear rank order, as its all-to-all gathers the sequence (unsorted),
+    or the same tokens sorted."""
+    import torch
+
+    if kind == "sorted":
+        return torch.arange(n, dtype=torch.int32)
+    return torch.cat([_zigzag(r, n, p) for r in range(p)])
+
+
+def phase_kernels_ulysses(dev, rows):
+    """B1 and B3 at the shape Ulysses gives them at full width and P = 8:
+    q (1, 4096, 4, 80) over k/v (1, 4096, 1, 80) (G = 4, one kv head),
+    causal, window 4096, the positions in the all-to-all's order and
+    sorted; bf16 and f32 against their plain versions (the kernels phase's
+    tolerances), then ``device_ms`` and the bound of each on bf16."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    S, W = TRAIN_SEQ, 4096
+    out = {}
+    for kind in ("zigzag_concat", "sorted"):
+        pos = ulysses_positions(kind, S).to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            q, k, v, do, lse, delta = bwd_inputs(pos, pos, W, dtype, dev,
+                                                 seed=6, heads=(4, 1))
+            o, lse1 = fa.flash_attention_fwd(q, k, v, pos, pos, window=W)
+            torch.cuda.synchronize()
+            o_p, lse_p = fa.flash_attention_fwd_plain(q, k, v, pos, pos,
+                                                      window=W)
+            b1_err, ok, _ = partial_err(o, lse1, o_p, lse_p, TOL[dname])
+            check(ok, f"B1 ulysses_{kind} {dname}: max err {b1_err} (tol "
+                      f"{TOL[dname]}) or a dead row not exact")
+            bargs = (q, k, v, do, lse, delta, pos, pos)
+            got = fa.flash_attention_bwd(*bargs, window=W)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_bwd_plain(*bargs, window=W)
+            b3_err, ok, _ = grad_err(got, want, lse, BWD_TOL)
+            check(ok, f"B3 ulysses_{kind} {dname}: max err {b3_err} (tol "
+                      f"{BWD_TOL}) or a dead row's dq not exactly 0")
+            rows["B1"]["max_abs_err"] = max(rows["B1"]["max_abs_err"],
+                                            b1_err)
+            rows["B3"]["max_abs_err"] = max(rows["B3"]["max_abs_err"],
+                                            b3_err)
+            rows["B3"]["max_scaled_err"] = max(
+                rows["B3"]["max_scaled_err"], scaled_err(got, want))
+            del o, lse1, o_p, lse_p, got, want
+            if dtype != torch.bfloat16:
+                continue
+            pairs = visible_pairs(pos, pos, W)
+            io = sum(t.numel() * t.element_size() for t in (q, k, v)) \
+                + 2 * pos.numel() * 4 + q.numel() * 4 + 4 * S * 4
+            b1_bound = bound(io, 4 * 80 * 4 * pairs, "bfloat16")
+            b3_bound = bound(*bwd_work(q, k, pos, pos, pairs), "bfloat16")
+            out[kind] = {
+                "visible_pairs": pairs,
+                "B1": {"max_abs_err": b1_err,
+                       "device_ms": device_ms(lambda: fa.flash_attention_fwd(
+                           q, k, v, pos, pos, window=W), calls=10),
+                       "bound_ms": b1_bound[0], "bound_by": b1_bound[1]},
+                "B3": {"max_abs_err": b3_err,
+                       "device_ms": device_ms(lambda: fa.flash_attention_bwd(
+                           *bargs, window=W), calls=5),
+                       "bound_ms": b3_bound[0], "bound_by": b3_bound[1]}}
+            del q, k, v, do, lse, delta, bargs
+    emit("kernels_ulysses", shape="q (1,4096,4,80), k/v (1,4096,1,80), "
+         "causal, window 4096", tol={"B1": TOL, "B3": BWD_TOL},
+         positions={"zigzag_concat": "the 8 zigzag shards concatenated "
+                                     "(Ulysses' all-to-all order)",
+                    "sorted": "0..4095"}, **out)
 
 
 # ---------------------------------------------------------------------------
@@ -2089,6 +2185,201 @@ def phase_train_sp(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the paper's baselines and StarTrail's chunked ring
+# ---------------------------------------------------------------------------
+
+SCHEMES_LAYERS, SCHEMES_STEPS = 8, 2
+# (path name, scheme, C, comm_chunks); P = 8 ranks each
+SCHEMES = (("ring", "ring", 1, 1), ("ulysses", "ulysses", 1, 1),
+           ("startrail", "startrail", 2, 2))
+# the profiled schemes (StarTrail at C = 2 is train_sp's profile)
+SCHEMES_PROFILED = ("ring", "ulysses")
+
+
+def _schemes_launches(name, plan, layers):
+    """The plan's launches per step: every rank's ring steps per layer,
+    forward twice under recompute and backward once; Ulysses one block per
+    rank and layer, likewise."""
+    p = plan.sp_size
+    if name == "ulysses":
+        return launches_of(B1=p * 2 * layers, B3=p * layers)
+    return launches_of(B2=p * plan.r * 2 * layers, B3=p * plan.r * layers)
+
+
+def phase_schemes(dev, smi):
+    """The paper's comparison at full width: ``trainer.train`` on
+    ``make_plan`` plans of P = 8 ThreadMesh ranks on the one card for the
+    ring (C = 1, R = 8), DeepSpeed-Ulysses (all-to-all, B1 forward and B3
+    backward over the whole sequence) and StarTrail (C = 2, R = 2, each ring
+    transfer in 2 sub-chunks): h2o-danube-1.8b cut to 8 layers (as
+    train_sp), seq 4096, batch 1, zigzag, ``remat='attn_out'``, bf16, 2
+    AdamW steps each from the same weights on one repeated batch, with the
+    obs registry and tracer on. Each first step's loss and gradient norm
+    against P = 1 on the same weights and batch; exact launch counts from
+    the plan; the forward island's ``comm_report`` per scheme (one layer at
+    full width, seq 4096, bf16) must read 1.0 on every live kind. Printed
+    beside them: the ledger's bytes per step against ``CommLog.per_step``,
+    step ms, peak memory, and a profiled step of the ring and Ulysses."""
+    import dataclasses
+    import math
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.factory import build_model
+    from repro_torch.obs import commlog
+    from repro_torch.optim import adamw
+    from repro_torch.plan import make_plan
+    from repro_torch.train import step as train_step
+    from repro_torch.train import trainer
+
+    full = registry.get(ARCH)
+    cfg = dataclasses.replace(full, num_layers=SCHEMES_LAYERS)
+    shape = _train_shape(TRAIN_SEQ)
+    p, L = ULYSSES_P, cfg.num_layers
+    # the forward island of one attention layer per scheme
+    reports = {}
+    for name, scheme, c, chunks in SCHEMES:
+        plan = make_plan(full, shape, arch=ARCH, n_devices=p, c=c,
+                         scheme=scheme, comm_chunks=chunks)
+        rep = commlog.comm_report(full, plan, device=dev)
+        rows = rep["per_collective"]
+        live = {k: row for k, row in rows.items() if row["analytical_bytes"]}
+        # a kind the scheme should not run at all must move no byte
+        check(live and rep["ranks_agree"] and rep["within_tolerance"]
+              and all(row["ratio"] == 1.0 for row in live.values())
+              and all(row["measured_bytes"] == 0 for k, row in rows.items()
+                      if k not in live),
+              f"schemes {name}: comm_report {rows} (ranks agree: "
+              f"{rep['ranks_agree']}): every live kind must read 1.0 and "
+              f"every other kind 0 bytes")
+        reports[name] = {
+            "per_collective": {k: {"measured_bytes": row["measured_bytes"],
+                                   "analytical_bytes":
+                                       row["analytical_bytes"],
+                                   "eqs_bytes": row["eqs_bytes"],
+                                   "ratio": row["ratio"]}
+                               for k, row in rows.items()
+                               if k in live or row["eqs_bytes"]},
+            "unmodelled_allreduce_bytes": rep["unmodelled_allreduce_bytes"],
+            "collective_counts": rep["collective_counts"]}
+    free_device()
+
+    model = build_model(cfg, device=dev, seed=0)
+    init = [t.detach().clone() for t in model.parameters()]
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0,
+                             state_dtype=cfg.opt_dtype)
+    # the P = 1 reference: the same weights, the batch in natural order
+    plan1 = make_plan(cfg, shape, arch=ARCH, c=1)
+    vg1, _ = train_step.build_value_and_grad_fn(model, plan1.run_config(),
+                                                shape)
+    loss1, g1 = vg1(train_step.to_device(
+        SyntheticLM(cfg, shape, seed=0).get_batch(0), dev))
+    loss1, gnorm1 = float(loss1), float(adamw.global_norm(g1))
+    del g1, vg1
+    free_device()
+    data = RepeatBatch(SyntheticLM(cfg, shape, seed=0, seq_scheme="zigzag",
+                                   sp_size=p))
+    by_path, out = {}, {}
+    for name, scheme, c, chunks in SCHEMES:
+        with torch.no_grad():
+            for t, t0 in zip(model.parameters(), init):
+                t.copy_(t0)
+        plan = make_plan(cfg, shape, arch=ARCH, n_devices=p, c=c,
+                         scheme=scheme, comm_chunks=chunks)
+        check((plan.sp_size, plan.c, plan.comm_chunks, plan.remat,
+               plan.seq_scheme) == (p, c, chunks, "attn_out", "zigzag"),
+              f"schemes {name} plan {plan}")
+        reg, tracer = obs.Registry(), obs.Tracer(enabled=True)
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "metrics.jsonl")
+            counts = reset_counts()
+            t0 = time.perf_counter()
+            trainer.train(model, plan, adam, trainer.TrainerConfig(
+                num_steps=SCHEMES_STEPS, log_every=SCHEMES_STEPS,
+                metrics_path=path), data_source=data, device=dev,
+                tracer=tracer, registry=reg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts(counts)
+            with open(path) as f:
+                recs = [json.loads(line) for line in f]
+        peak = torch.cuda.max_memory_allocated()
+        losses = [r["loss"] for r in recs]
+        gnorms = [r["grad_norm"] for r in recs]
+        check(len(recs) == SCHEMES_STEPS
+              and all(math.isfinite(x) for x in losses + gnorms)
+              and losses[-1] < losses[0],
+              f"schemes {name}: losses {losses} must be finite and fall")
+        loss_err = abs(losses[0] - loss1)
+        gnorm_rel = abs(gnorms[0] - gnorm1) / gnorm1
+        check(loss_err <= TRAIN_SP_TOL["loss_abs"]
+              and gnorm_rel <= TRAIN_SP_TOL["grad_norm_rel"],
+              f"schemes {name} first step at P={p}: loss {losses[0]} vs "
+              f"P=1 {loss1} (abs {loss_err}), grad norm {gnorms[0]} vs "
+              f"{gnorm1} (rel {gnorm_rel}), beyond {TRAIN_SP_TOL}")
+        per_step = _schemes_launches(name, plan, L)
+        want = {k: v * SCHEMES_STEPS for k, v in per_step.items()}
+        check(launches == want, f"schemes {name} launches {launches}: want "
+              f"{want} (per step {per_step}, from the plan)")
+        spans = [e["name"] for e in tracer.events()]
+        check(spans.count("train/step") == SCHEMES_STEPS,
+              f"schemes {name}: tracer spans {spans}")
+        measured = {}
+        for (fam, key), v in obs.parse_prometheus(
+                reg.render_prometheus()).items():
+            if fam == "comm_ledger_bytes_total":
+                lab = dict(key)
+                measured.setdefault(lab["pass"], {})[lab["collective"]] = \
+                    v / SCHEMES_STEPS
+        log = commlog.CommLog(obs.Registry(), cfg, plan)
+        row = dict(plan={"scheme": plan.scheme, "C": plan.c, "R": plan.r,
+                         "P_sp": plan.sp_size,
+                         "comm_chunks": plan.comm_chunks},
+                   losses=losses, grad_norm=gnorms,
+                   loss_abs_err=loss_err, grad_norm_rel_err=gnorm_rel,
+                   step_ms=[1e3 * r["step_s"] for r in recs], wall_s=wall,
+                   max_memory_allocated=peak, launches_per_step=per_step,
+                   launches=launches,
+                   ledger_bytes_per_step=measured,
+                   commlog_per_step=log.per_step,
+                   island=reports[name])
+        if name in SCHEMES_PROFILED:
+            step_fn, sh = plan.build_train_step(model, adam)
+            opt = adamw.init_state(sh["params"], adam)
+            batch = train_step.to_device(data.get_batch(0), dev)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                step_fn(opt, batch)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+            row["profile"] = _profile_window(prof, 1, prof_wall, top=10)
+            del step_fn, sh, opt, prof, batch
+        out[name] = row
+        by_path[f"schemes_{name}"] = launches
+        free_device()
+    emit("schemes", model=cfg.name, layers=L, params=model.param_count(),
+         weights="seeded random bf16",
+         shape={"seq_len": shape.seq_len, "batch": shape.global_batch},
+         remat="attn_out", steps=SCHEMES_STEPS,
+         p1_first_step={"loss": loss1, "grad_norm": gnorm1},
+         tol=TRAIN_SP_TOL,
+         island_shape={"layers": 1, "seq_len": TRAIN_SEQ, "batch": 1,
+                       "dtype": "bfloat16", "heads": [full.num_heads,
+                                                      full.num_kv_heads],
+                       "head_dim": full.head_dim_},
+         schemes=out, card=smi)
+    del model, init
+    return by_path
+
+
 def free_device():
     import gc
 
@@ -2128,6 +2419,8 @@ def main():
              ptxas=info["ptxas"])
         rows = phase_kernels(dev)
         free_device()
+        phase_kernels_ulysses(dev, rows)
+        free_device()
         by_path = {"ring": phase_ring(dev)}
         free_device()
         by_path["ragged_bwd"] = phase_ragged_bwd(dev)
@@ -2145,6 +2438,8 @@ def main():
         phase_resume(dev, smi)
         free_device()
         by_path["train_sp"] = phase_train_sp(dev, smi)
+        free_device()
+        by_path.update(phase_schemes(dev, smi))
         paths = {"B1": "local", "B2": "engine", "B3": "train",
                  "B4": "engine", "B5": "legacy", "B6": "prefix",
                  "B7": "ragged_bwd"}

@@ -111,12 +111,12 @@ class RunConfig:
 
     The JAX fields this port does not read yet are left out: the sharding
     rules (parameters are stored whole), ``unroll_scans`` (no XLA cost
-    analysis), ``pipeline_scan`` / ``comm_chunks`` (they reorder or split
-    ring transfers without changing a value; ROADMAP.md §A) and the
+    analysis), ``pipeline_scan`` (the ring's pipelined issue order waits
+    for an asynchronous communicator, ``core/startrail.py``) and the
     optimizer scalars, which live in ``optim.adamw.AdamWConfig``.
     """
     c: int = 1                           # StarTrail attention-parallel size
-    # 'startrail' | 'ring' (C=1 startrail); 'ulysses' is not ported
+    # 'startrail' | 'ring' (C=1 startrail) | 'ulysses'
     attention_scheme: str = "startrail"
     # gradient-accumulation microbatches per optimizer step (train only)
     microbatches: int = 1
@@ -130,3 +130,5 @@ class RunConfig:
     # gradient compression: 'none' | 'int8' (optim/grad.py, applied by the
     # train step)
     grad_compression: str = "none"
+    # the ring's transfer sub-chunks (core/startrail.py); no value changes
+    comm_chunks: int = 1

@@ -26,12 +26,21 @@ them, and ``startrail_attention`` applies it. Collectives go through a
 identities; ``ThreadMesh`` for P > 1 in one process). Masks come from global
 token positions computed from the rank coordinates.
 
-Differences from the JAX module: the ring runs as a Python loop in
-compute-then-transfer order (the JAX ``pipeline``/``comm_chunks`` knobs
-reorder or split transfers without changing values and are not ported);
-the forward's last step does not rotate K/V back into placement order,
-so the residuals keep the placement-ordered K/V from before the loop; and
-the circulating pack's team index is computed from the step, not sent.
+``comm_chunks = n`` (``StarTrailConfig``, the JAX knob) splits each ring
+transfer into n sequence sub-chunks. On a ``ThreadMesh`` that only splits
+synchronous exchanges, so values and the communicator's ledger bytes equal
+the unsplit ring's bit for bit.
+
+Differences from the JAX module: the ring runs in compute-then-transfer
+order. The JAX ``pipeline`` order (step s+1's transfer issued before step
+s's block kernel) is not ported: on synchronous ``ThreadMesh`` exchanges it
+gives the same bits and bytes and only keeps a second K/V alive, so it
+waits for an asynchronous communicator (ROADMAP.md §A item 1). The forward
+makes R-1 ring transfers, not R: its last step does not rotate K/V back
+into placement order (the residuals keep the placement-ordered K/V from
+before the loop), and at C = 1 the placement permutation is the identity
+and moves nothing; the circulating pack's team index is computed from the
+step, not sent.
 """
 
 from __future__ import annotations
@@ -53,7 +62,9 @@ class StarTrailConfig:
     seq_len: global sequence length N. axes: (sp_grp, sp_ring, sp_team).
     seq_scheme: 'zigzag' (causal load balance) or 'contiguous'. causal /
     window / prefix_len: the mask. block_impl: 'ref' | 'cuda'.
-    block_skip: skip ring steps whose block is fully masked.
+    block_skip: skip ring steps whose block is fully masked. comm_chunks:
+    split each ring transfer into this many sequence sub-chunks (no value
+    changes).
     """
 
     seq_len: int
@@ -65,6 +76,7 @@ class StarTrailConfig:
     prefix_len: Optional[int] = None
     block_impl: str = "ref"
     block_skip: bool = False
+    comm_chunks: int = 1
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +137,20 @@ def fully_masked(cfg: StarTrailConfig, pos_q, pos_k) -> bool:
 # the per-rank forward and backward
 # ---------------------------------------------------------------------------
 
+def _ring_permute(x, cfg: StarTrailConfig, comm, perm, dim: int):
+    """One ring transfer of ``x``, as ``cfg.comm_chunks`` sub-chunk
+    transfers along its sequence axis ``dim`` (``_chunked_ppermute``)."""
+    n = cfg.comm_chunks
+    if n <= 1:
+        return comm.ppermute(x, cfg.axes, perm)
+    if x.shape[dim] % n:
+        raise ValueError(
+            f"comm_chunks={n} must divide the permuted sequence "
+            f"axis (got length {x.shape[dim]})")
+    return torch.cat([comm.ppermute(part.contiguous(), cfg.axes, perm)
+                      for part in x.split(x.shape[dim] // n, dim)], dim)
+
+
 def _coords(cfg: StarTrailConfig, comm):
     """(c, r, p, topology, (g, j, t)) of this rank."""
     g_ax, r_ax, t_ax = cfg.axes
@@ -180,8 +206,8 @@ def startrail_forward(q, k, v, cfg: StarTrailConfig, comm):
                 scale=cfg.scale, prefix_len=cfg.prefix_len,
                 impl=cfg.block_impl)
         if s < r - 1:
-            k_cur = comm.ppermute(k_cur, cfg.axes, ring_perm)
-            v_cur = comm.ppermute(v_cur, cfg.axes, ring_perm)
+            k_cur = _ring_permute(k_cur, cfg, comm, ring_perm, 1)
+            v_cur = _ring_permute(v_cur, cfg, comm, ring_perm, 1)
 
     # 4. lse-combine + reduce-scatter (paper: ReduceScatter_combine)
     m = comm.pmax(lse_acc, t_ax)
@@ -222,6 +248,8 @@ def startrail_backward(res, o, do, cfg: StarTrailConfig, comm):
     ring_perm = tp.ring_permutation()
 
     pack = dict(q=q_team, do=do_team, delta=delta_team, lse=lse_glob)
+    # the sequence axis each circulating tensor is chunked along
+    seq_dim = dict(q=1, do=1, delta=2, lse=2)
     dq = torch.zeros((B, CS, Hq, D), dtype=torch.float32, device=dev)
     dk_acc = torch.zeros((B, CS, Hkv, D), dtype=torch.float32, device=dev)
     dv_acc = torch.zeros((B, CS, Hkv, D), dtype=torch.float32, device=dev)
@@ -240,9 +268,9 @@ def startrail_backward(res, o, do, cfg: StarTrailConfig, comm):
             dv_acc = dv_acc + dv_c
         # dq makes the full tour home; the inputs are not needed after
         # the last step
-        dq = comm.ppermute(dq, cfg.axes, ring_perm)
+        dq = _ring_permute(dq, cfg, comm, ring_perm, 1)
         if s < r - 1:
-            pack = {n: comm.ppermute(a, cfg.axes, ring_perm)
+            pack = {n: _ring_permute(a, cfg, comm, ring_perm, seq_dim[n])
                     for n, a in pack.items()}
 
     dq_local = comm.psum_scatter(dq, t_ax, 1)
@@ -271,9 +299,12 @@ class StarTrailAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        # unpacked first: under recompute this reruns the forward, whose
+        # collectives the ledger counts as forward ones
         q_team, k0, v0, lse_glob, o = ctx.saved_tensors
-        dq, dk, dv = startrail_backward((q_team, k0, v0, lse_glob), o, do,
-                                        ctx.cfg, ctx.comm)
+        with ctx.comm.ledger.backward():
+            dq, dk, dv = startrail_backward((q_team, k0, v0, lse_glob), o,
+                                            do, ctx.cfg, ctx.comm)
         return (dq.to(q_team.dtype), dk.to(k0.dtype), dv.to(v0.dtype),
                 None, None)
 

@@ -12,6 +12,12 @@ The per-shard code (``core.startrail``, ``models.runtime``,
                                    zeros (``jax.lax.ppermute``)
   psum / pmax / pmin(x, axes)      elementwise reductions
   psum_scatter(x, axis, dim)       tiled reduce-scatter along ``dim``
+  all_to_all(x, axes, split_axis, concat_axis)
+                                   ``jax.lax.all_to_all(..., tiled=True)``:
+                                   the group's i-th slice of ``x`` along
+                                   ``split_axis`` goes to member i, and the
+                                   slices received are concatenated along
+                                   ``concat_axis`` in member order
 
 ``axes`` is one name or a tuple. Linear ranks over several axes run in the
 order of the tuple, major to minor; over the SP axes that is grp-major and
@@ -34,7 +40,10 @@ Two implementations:
 The ``ThreadMesh`` collectives are differentiable, as the JAX ones are
 under ``shard_map(check_vma=False)``: each is a ``torch.autograd.Function``
 whose backward is the transposed collective (all_gather <-> psum_scatter,
-psum <-> psum, ppermute <-> ppermute of the inverted pairs). The exchange
+psum <-> psum, ppermute <-> ppermute of the inverted pairs, all_to_all <->
+all_to_all with split and concat swapped). A ppermute whose every pair is
+(i, i) over the whole group (StarTrail's placement at C = 1) returns its
+input: it moves nothing. The exchange
 publishes detached tensors, so no autograd edge crosses ranks: each rank
 differentiates its own graph, and the collectives in its backward meet the
 other ranks' in the same order because every rank builds the same graph.
@@ -50,12 +59,30 @@ with its tensor; ranks that meet at a barrier in different collectives, or
 with different shapes inside one group, raise instead of exchanging the
 wrong tensors.
 
+Every communicator keeps a :class:`CommLedger` per rank (``comm.ledger``;
+``ThreadMesh.ledgers`` keeps them across ``run`` calls): each collective
+adds the per-device wire bytes it moves, by the kind of the XLA collective
+the JAX package would compile it to, from the result's shape and element
+size alone (no device sync, no copy). Result bytes are converted as the
+JAX ``obs.commlog`` converts HLO result buffers, with n the group size:
+
+  all-gather           (n-1)/n   a member receives n-1 of n shards
+  reduce-scatter       (n-1)     n-1 shard-sized messages
+  collective-permute   1         the result is the message
+  all-to-all           (n-1)/n   a member keeps its own slice
+  all-reduce           1         psum / pmax / pmin: the result bytes
+
+A group of one moves nothing and counts 0. The backward collectives of the
+autograd rules (and any caller under ``ledger.backward()``) count under
+``'backward'``, the rest under ``'forward'``.
+
 The multi-process NCCL/gloo implementation, for ranks on several cards,
 waits for a cell with more than one card (ROADMAP.md, the main path).
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Callable, Dict, List, Sequence, Tuple, Union
 
@@ -72,8 +99,72 @@ def _axes_tuple(axes: Axes) -> Tuple[str, ...]:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
+WIRE_KINDS = ("all-gather", "collective-permute", "reduce-scatter",
+              "all-to-all", "all-reduce")
+PASSES = ("forward", "backward")
+
+
+class CommLedger:
+    """One rank's wire bytes and collective calls per kind, the forward
+    and the backward apart (module doc). Host arithmetic on shapes only."""
+
+    def __init__(self):
+        self.phase = "forward"
+        self.reset()
+
+    def reset(self) -> None:
+        self.bytes = {ph: dict.fromkeys(WIRE_KINDS, 0) for ph in PASSES}
+        self.calls = {ph: dict.fromkeys(WIRE_KINDS, 0) for ph in PASSES}
+
+    def add(self, kind: str, nbytes: int) -> None:
+        self.bytes[self.phase][kind] += nbytes
+        self.calls[self.phase][kind] += 1
+
+    @contextlib.contextmanager
+    def backward(self):
+        """Count the collectives of the block under ``'backward'``."""
+        prev, self.phase = self.phase, "backward"
+        try:
+            yield self
+        finally:
+            self.phase = prev
+
+    def snapshot(self) -> Dict[str, Dict[str, int]]:
+        return {ph: dict(self.bytes[ph]) for ph in PASSES}
+
+
+def _wire_bytes(op: str, result_bytes: int, n: int) -> Tuple[str, int]:
+    """(kind, per-device wire bytes) of collective ``op`` over a group of
+    ``n`` whose result on this rank has ``result_bytes`` (module doc)."""
+    kind, num, den = {
+        "all_gather": ("all-gather", n - 1, n),
+        "psum_scatter": ("reduce-scatter", n - 1, 1),
+        "ppermute": ("collective-permute", 1, 1),
+        "all_to_all": ("all-to-all", n - 1, n),
+        "psum": ("all-reduce", 1, 1),
+        "pmax": ("all-reduce", 1, 1),
+        "pmin": ("all-reduce", 1, 1),
+    }[op]
+    return kind, (result_bytes * num // den if n > 1 else 0)
+
+
+def _is_identity(perm, n: int) -> bool:
+    """Every pair (i, i), and every one of the group's n members in one."""
+    pairs = [tuple(p) for p in perm]
+    return (all(s == d for s, d in pairs)
+            and sorted(s for s, _ in pairs) == list(range(n)))
+
+
 class SingleComm:
-    """One rank: sizes 1, index 0, every collective the identity."""
+    """One rank: sizes 1, index 0, every collective the identity (and
+    nothing on the wire: its ledger stays at 0)."""
+
+    def __init__(self):
+        self.ledger = CommLedger()
+        self.ledgers = [self.ledger]
+
+    def reset_ledgers(self) -> None:
+        self.ledger.reset()
 
     def axis_size(self, axis: str) -> int:
         return 1
@@ -100,6 +191,9 @@ class SingleComm:
     def psum_scatter(self, x, axis: Axes, dim: int):
         return x
 
+    def all_to_all(self, x, axes: Axes, split_axis: int, concat_axis: int):
+        return x
+
 
 class ThreadMesh:
     """data*c*c*r ranks run as threads of one process (see module doc).
@@ -110,7 +204,8 @@ class ThreadMesh:
     the placement: every collective groups and orders ranks by their
     coordinates. ``run(fn, timeout)`` calls ``fn(comm)`` once per rank,
     each with its own ``comm`` (a :class:`_RankComm`), and returns the
-    results in thread order.
+    results in thread order. ``ledgers[rank]`` is thread ``rank``'s
+    :class:`CommLedger`, kept across runs until ``reset_ledgers()``.
     """
 
     def __init__(self, c: int, r: int, data: int = 1,
@@ -129,6 +224,11 @@ class ThreadMesh:
                      for g in range(c) for j in range(r) for t in range(c)}
         self._coords = [dict(zip(MESH_AXES, (d,) + sp_coords[q]))
                         for d in range(data) for q in range(self.sp_size)]
+        self.ledgers = [CommLedger() for _ in range(self.size)]
+
+    def reset_ledgers(self) -> None:
+        for ledger in self.ledgers:
+            ledger.reset()
 
     def coords(self, rank: int) -> Dict[str, int]:
         """Thread ``rank``'s coordinate on every mesh axis."""
@@ -181,6 +281,7 @@ class _RankComm:
         self._barrier, self._slots = barrier, slots
         self._coords = mesh.coords(rank)
         self._groups: Dict[Tuple[str, ...], List[int]] = {}
+        self.ledger = mesh.ledgers[rank]
 
     def axis_size(self, axis: str) -> int:
         return self.mesh.shape[axis]
@@ -221,6 +322,8 @@ class _RankComm:
                     f"{sig}, rank {other} runs {theirs}")
         out = combine([slots[g][1] for g in group], group.index(self.rank))
         self._barrier.wait()
+        self.ledger.add(*_wire_bytes(op, out.numel() * out.element_size(),
+                                    len(group)))
         return out
 
     # ---- the exchanges (no autograd: callers pass detached tensors) -------
@@ -251,6 +354,17 @@ class _RankComm:
             src = [s for s, d in perm if d == i]
             return xs[src[0]].clone() if src else torch.zeros_like(xs[i])
         return self._collective("ppermute", x, axes, perm_fn)
+
+    def _all_to_all(self, x, axes: Axes, split_axis: int, concat_axis: int):
+        def a2a(xs, i):
+            n = len(xs)
+            if xs[0].shape[split_axis] % n:
+                raise ValueError(
+                    f"all_to_all: split axis {split_axis} of length "
+                    f"{xs[0].shape[split_axis]} does not divide over {n}")
+            return torch.cat([y.chunk(n, split_axis)[i] for y in xs],
+                             concat_axis)
+        return self._collective("all_to_all", x, axes, a2a)
 
     def _extreme(self, op: str, x, axes: Axes, pick):
         if self._tracked(x):
@@ -286,9 +400,16 @@ class _RankComm:
         return self._psum_scatter(x.detach(), axis, dim)
 
     def ppermute(self, x, axes: Axes, perm):
+        if _is_identity(perm, len(self._group(_axes_tuple(axes)))):
+            return x
         if self._tracked(x):
             return _PPermute.apply(x, self, axes, perm)
         return self._ppermute(x.detach(), axes, perm)
+
+    def all_to_all(self, x, axes: Axes, split_axis: int, concat_axis: int):
+        if self._tracked(x):
+            return _AllToAll.apply(x, self, axes, split_axis, concat_axis)
+        return self._all_to_all(x.detach(), axes, split_axis, concat_axis)
 
     def pmax(self, x, axes: Axes):
         return self._extreme("pmax", x, axes, torch.maximum)
@@ -309,8 +430,9 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (ctx.comm._psum_scatter(g.contiguous(), ctx.axis, ctx.dim),
-                None, None, None)
+        with ctx.comm.ledger.backward():
+            return (ctx.comm._psum_scatter(g.contiguous(), ctx.axis,
+                                           ctx.dim), None, None, None)
 
 
 class _PSumScatter(torch.autograd.Function):
@@ -321,8 +443,9 @@ class _PSumScatter(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (ctx.comm._all_gather(g.contiguous(), ctx.axis, ctx.dim),
-                None, None, None)
+        with ctx.comm.ledger.backward():
+            return (ctx.comm._all_gather(g.contiguous(), ctx.axis, ctx.dim),
+                    None, None, None)
 
 
 class _PSum(torch.autograd.Function):
@@ -333,7 +456,8 @@ class _PSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.comm._psum(g.contiguous(), ctx.axes), None, None
+        with ctx.comm.ledger.backward():
+            return ctx.comm._psum(g.contiguous(), ctx.axes), None, None
 
 
 class _PPermute(torch.autograd.Function):
@@ -345,5 +469,21 @@ class _PPermute(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (ctx.comm._ppermute(g.contiguous(), ctx.axes, ctx.inverse),
-                None, None, None)
+        with ctx.comm.ledger.backward():
+            return (ctx.comm._ppermute(g.contiguous(), ctx.axes,
+                                       ctx.inverse), None, None, None)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axes, split_axis, concat_axis):
+        ctx.comm, ctx.axes = comm, axes
+        ctx.split_axis, ctx.concat_axis = split_axis, concat_axis
+        return comm._all_to_all(x.detach(), axes, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        with ctx.comm.ledger.backward():
+            return (ctx.comm._all_to_all(g.contiguous(), ctx.axes,
+                                         ctx.concat_axis, ctx.split_axis),
+                    None, None, None, None)

@@ -24,6 +24,18 @@ coordinates and changes no value):
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
       --smoke --device cpu --devices 8 --data 2 --c 2 --steps 3
 
+``--scheme`` picks the attention: 'startrail' (default), 'ring' (C = 1) or
+'ulysses' (all-to-all; P must divide the head counts); ``--comm-chunks``
+splits each ring transfer into sub-chunks (no value changes). ``--metrics-dump PATH`` writes the ``obs`` registry after
+the run (Prometheus text, or JSON for a ``.json`` path): the per-step
+analytical bytes per collective of ``obs.commlog.CommLog`` and the bytes
+the communicator counted; ``--trace-out PATH`` writes a Chrome trace of
+the loop's train/data, train/step and train/ckpt spans:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
+      --smoke --device cpu --devices 8 --data 4 --scheme ulysses --steps 3 \\
+      --metrics-dump "$TMPDIR/m.prom" --trace-out "$TMPDIR/trace.json"
+
 The JAX launcher's other options raise ``NotImplementedError`` until their
 part is ported (ROADMAP.md).
 """
@@ -34,10 +46,9 @@ import argparse
 _UNPORTED = {
     "--plan": "plan persistence and the cost model (§A)",
     "--autotune": "plan/autotune.py (§A)",
-    "--scheme ulysses": "core/ulysses.py (§A)",
     "--multi-pod": "multi-pod meshes (§A)",
-    "--metrics-dump": "the obs registry (§A)",
-    "--trace-out": "the obs tracer (§A)",
+    "--no-pipeline": "an asynchronous communicator, where the ring's two "
+                     "issue orders can differ (§A item 1)",
 }
 
 
@@ -70,19 +81,26 @@ def main(argv=None):
                     help="grad-accumulation microbatches (default: 1)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint here; resume from it when it holds one")
+    ap.add_argument("--comm-chunks", type=int, default=None,
+                    help="ring-transfer sub-chunks (default 1; must divide "
+                         "the team sequence length C*N/P)")
+    ap.add_argument("--metrics-dump", default=None,
+                    help="write the obs registry (per-collective comm "
+                         "bytes) here after the run (Prometheus text; "
+                         ".json suffix -> JSON)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome-trace JSON of the train/data, "
+                         "train/step and train/ckpt spans here")
     # the JAX launcher's other options, rejected until they are ported
     ap.add_argument("--plan", default=None)
     ap.add_argument("--autotune", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--metrics-dump", default=None)
-    ap.add_argument("--trace-out", default=None)
+    ap.add_argument("--no-pipeline", action="store_true")
     args = ap.parse_args(argv)
     for flag, on in (("--plan", bool(args.plan)),
                      ("--autotune", args.autotune),
-                     ("--scheme ulysses", args.scheme == "ulysses"),
                      ("--multi-pod", args.multi_pod),
-                     ("--metrics-dump", bool(args.metrics_dump)),
-                     ("--trace-out", bool(args.trace_out))):
+                     ("--no-pipeline", args.no_pipeline)):
         if on:
             raise NotImplementedError(
                 f"repro_torch.launch.train {flag} is not ported yet: it "
@@ -94,6 +112,7 @@ def main(argv=None):
     from repro_torch.configs.base import SHAPES, ShapeConfig
     from repro_torch.engine.engine import resolve_device
     from repro_torch.launch.mesh import refinable_grids
+    from repro_torch import obs
     from repro_torch.models.factory import build_model
     from repro_torch.optim import adamw
     from repro_torch.plan import make_plan
@@ -112,7 +131,8 @@ def main(argv=None):
         plan = make_plan(cfg, shape, arch=args.arch,
                          n_devices=args.devices, data=args.data, c=args.c,
                          scheme=args.scheme, placement=args.placement,
-                         microbatches=args.microbatches)
+                         microbatches=args.microbatches,
+                         comm_chunks=args.comm_chunks)
     except ValueError as e:
         raise ValueError(
             f"{e}; legal (data, SP) grids with C = 2 for --devices "
@@ -121,7 +141,9 @@ def main(argv=None):
           f"C={plan.c} R={plan.r} data={plan.data} "
           f"placement={plan.placement} seq={plan.seq_len} "
           f"batch={plan.global_batch} microbatches={plan.microbatches} "
-          f"remat={plan.remat} block={plan.block_impl} device={device}")
+          f"remat={plan.remat} block={plan.block_impl} "
+          f"comm_chunks={plan.comm_chunks} "
+          f"device={device}")
 
     model = build_model(cfg, device=device, seed=args.seed)
     adam_cfg = adamw.AdamWConfig(learning_rate=args.lr, warmup_steps=5,
@@ -132,7 +154,20 @@ def main(argv=None):
                                      ckpt_dir=args.ckpt_dir,
                                      metrics_path=args.metrics,
                                      seed=args.seed)
-    metrics = trainer_lib.train(model, plan, adam_cfg, tcfg, device=device)
+    registry = obs.Registry() if args.metrics_dump else None
+    # annotate: each span is also a torch.profiler range
+    tracer = (obs.Tracer(enabled=True, annotate=True) if args.trace_out
+              else None)
+    metrics = trainer_lib.train(model, plan, adam_cfg, tcfg, device=device,
+                                tracer=tracer, registry=registry)
+    if args.metrics_dump:
+        fmt = "json" if args.metrics_dump.endswith(".json") else "prometheus"
+        registry.dump(args.metrics_dump, fmt=fmt)
+        print(f"[train] metrics dump -> {args.metrics_dump} ({fmt})")
+    if args.trace_out:
+        tracer.dump(args.trace_out)
+        print(f"[train] trace ({len(tracer.events())} events) -> "
+              f"{args.trace_out}")
     print(f"[train] done: {metrics}")
     return metrics
 

@@ -10,10 +10,13 @@ so ``dense`` is the identity, and tensor-parallel blocks slice the rank's
 part themselves (``blocks.vocab_slice``, ``blocks.mlp_block``).
 
 ``attention`` runs StarTrail (``attention_impl='startrail'``, the ring
-kernels B2 forward and B3 backward on 'cuda'), or, with
-``attention_impl='local'``, the JAX local mode's single-device attention:
-one ``dispatch.prefill`` over the rank's own tokens (kernel B1 on 'cuda'),
-exact only at P = 1.
+kernels B2 forward and B3 backward on 'cuda'; the ring baseline is its
+C = 1 point), DeepSpeed-Ulysses (``attention_impl='ulysses'``: B1 forward
+and B3 backward over the whole sequence, on the layers whose head counts
+divide P, StarTrail on the others, as the JAX runtime dispatches per
+layer), or, with ``attention_impl='local'``, the JAX local mode's
+single-device attention: one ``dispatch.prefill`` over the rank's own
+tokens (kernel B1 on 'cuda'), exact only at P = 1.
 
 ``batch_axes`` names the data-parallel axes: ``("data",)`` on a
 ``ThreadMesh`` with more than one replica (``train.step.make_runtime``), so
@@ -30,6 +33,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.core import startrail as st
+from repro_torch.core import ulysses as ulysses_lib
 from repro_torch.kernels import dispatch as kernels
 
 
@@ -37,7 +41,7 @@ from repro_torch.kernels import dispatch as kernels
 class Runtime:
     comm: object
     st_cfg: st.StarTrailConfig
-    attention_impl: str = "startrail"   # 'startrail' | 'local'
+    attention_impl: str = "startrail"   # 'startrail' | 'ulysses' | 'local'
     kernel_impl: str = "cuda"      # paged-decode kernel: 'ref' | 'cuda'
     device: torch.device = torch.device("cpu")
     batch_axes: Tuple[str, ...] = ()
@@ -126,4 +130,12 @@ class Runtime:
                 q, k, v, pos, pos, causal=cfg.causal, window=cfg.window,
                 scale=cfg.scale, prefix_len=cfg.prefix_len,
                 impl=cfg.block_impl)
+        if self.attention_impl == "ulysses":
+            # per layer: Ulysses only where this layer's head counts divide
+            # the SP degree (the plan rejects a config where none does);
+            # StarTrail on the others
+            sp = self.sp_size()
+            if q.shape[2] % sp == 0 and k.shape[2] % sp == 0:
+                return ulysses_lib.ulysses_attention(q, k, v, cfg,
+                                                     self.comm)
         return st.startrail_attention(q, k, v, cfg, self.comm)

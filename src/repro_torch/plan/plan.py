@@ -3,9 +3,11 @@ counterpart of ``repro.plan.plan``, cut to the fields the engine, the
 trainer and the train step read).
 
 ``make_plan`` (training) and ``make_serve_plan`` (serving) need an explicit
-StarTrail ``c``: the JAX package picks it with the analytical cost model
-(``repro.plan.cost``), which is not ported yet, so ``c=None`` raises
-(ROADMAP.md §A).
+StarTrail ``c``: the JAX package picks it with the analytical cost model's
+time half (``repro.plan.cost.rank_arrangements``), which is not ported yet,
+so ``c=None`` raises (ROADMAP.md §A). The scheme half is ported
+(``plan.cost``): ``make_plan`` checks the scheme with
+``cost.check_scheme`` as the JAX one does.
 
 A training plan with ``n_devices > 1`` runs its ranks as the threads of a
 ``dist.comm.ThreadMesh(c, r, data, placement)`` on one device
@@ -23,8 +25,7 @@ from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.dist.meshes import PLACEMENTS
 from repro_torch.kernels.dispatch import IMPLS, resolve_impl
 from repro_torch.models.transformer import REMATS
-
-SCHEMES = ("startrail", "ring")    # 'ulysses' is not ported (ROADMAP §A)
+from repro_torch.plan import cost
 
 
 def _no_cost_model(entry: str) -> NotImplementedError:
@@ -55,10 +56,11 @@ class ExecutionPlan:
     shape: str = "serve"           # shape name ('train_4k', 'smoke', ...)
     global_batch: int = 0
     kind: str = "decode"           # 'train' | 'prefill' | 'decode'
-    scheme: str = "startrail"      # 'startrail' | 'ring' (C = 1)
+    scheme: str = "startrail"      # 'startrail' | 'ring' | 'ulysses'
     seq_scheme: str = "contiguous"
     remat: str = "attn_out"        # 'none' | 'attn_out' | 'full'
     microbatches: int = 1
+    comm_chunks: int = 1           # ring-transfer sub-chunks
 
     @property
     def sp_size(self) -> int:
@@ -93,17 +95,26 @@ class ExecutionPlan:
             raise ValueError(
                 f"seq_len={self.seq_len} not divisible by "
                 f"page_size={self.page_size}")
-        if self.scheme not in SCHEMES:
-            raise ValueError(f"scheme must be one of {SCHEMES}, "
+        if self.scheme not in cost.SCHEMES:
+            raise ValueError(f"scheme must be one of {cost.SCHEMES}, "
                              f"got {self.scheme!r}")
-        if self.scheme == "ring" and self.c != 1:
-            raise ValueError(f"scheme 'ring' implies C=1, got C={self.c}")
+        if self.scheme in ("ring", "ulysses") and self.c != 1:
+            raise ValueError(f"scheme {self.scheme!r} implies C=1, "
+                             f"got C={self.c}")
         if self.seq_scheme == "zigzag" and self.seq_len % (2 * sp):
             raise ValueError(
                 f"zigzag layout needs seq_len % (2*P) == 0, got "
                 f"seq_len={self.seq_len}, P={sp}")
         if self.microbatches < 1:
             raise ValueError("microbatches must be >= 1")
+        if self.comm_chunks < 1:
+            raise ValueError("comm_chunks must be >= 1")
+        s_team = self.c * self.seq_len // sp
+        if self.comm_chunks > 1 and s_team % self.comm_chunks:
+            raise ValueError(
+                f"comm_chunks={self.comm_chunks} must divide the team "
+                f"sequence length C*N/P = {s_team} (the axis the chunked "
+                f"ring ppermute splits)")
         if self.remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, "
                              f"got {self.remat!r}")
@@ -127,7 +138,8 @@ class ExecutionPlan:
             c=self.c, attention_scheme=self.scheme,
             microbatches=self.microbatches, seq_scheme=self.seq_scheme,
             block_impl=self.block_impl, kernel_impl=self.kernel_impl,
-            block_skip=self.block_skip, remat=self.remat)
+            block_skip=self.block_skip, remat=self.remat,
+            comm_chunks=self.comm_chunks)
 
     def build_mesh(self):
         """The ``ThreadMesh`` of the plan's ranks; None for one device."""
@@ -154,7 +166,8 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
               microbatches: Optional[int] = None,
               block_impl: Optional[str] = None,
               kernel_impl: Optional[str] = None,
-              remat: str = "attn_out") -> ExecutionPlan:
+              remat: str = "attn_out",
+              comm_chunks: Optional[int] = None) -> ExecutionPlan:
     """Resolve one training run into a validated ExecutionPlan.
 
     The sequence layout is zigzag for a dense model's training attention
@@ -165,17 +178,18 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
     JAX plan. ``microbatches=None`` means 1: the JAX package picks it with
     the cost model's ``choose_microbatches``, not ported yet (ROADMAP.md
     §A); the per-device batch must divide by it. ``placement`` (default
-    'team_inner') only matters for C > 1, as in the JAX plan.
+    'team_inner') only matters for C > 1, as in the JAX plan. An explicit
+    ``scheme`` is checked by ``cost.check_scheme`` (Ulysses needs head
+    counts that divide P). ``comm_chunks=None`` means 1: the JAX package
+    picks it with the cost model's ``choose_comm_chunks``, not ported yet.
     """
-    if c is None:
-        raise _no_cost_model("make_plan")
-    if scheme == "ulysses":
-        raise NotImplementedError(
-            "scheme='ulysses' (core/ulysses.py) is not ported to repro_torch "
-            "yet (ROADMAP.md §A)")
     if n_devices % data:
         raise ValueError(f"n_devices={n_devices} not divisible by "
                          f"data={data}")
+    if scheme is not None:
+        cost.check_scheme(cfg, n_devices // data, scheme)
+    if c is None:
+        raise _no_cost_model("make_plan")
     if cfg.family in ("ssm", "hybrid") or shape.kind != "train":
         seq_scheme = "contiguous"
     else:
@@ -189,7 +203,7 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
         kernel_impl=resolve_impl(kernel_impl), shape=shape.name,
         global_batch=shape.global_batch, kind=shape.kind,
         scheme=scheme or "startrail", seq_scheme=seq_scheme, remat=remat,
-        microbatches=microbatches or 1)
+        microbatches=microbatches or 1, comm_chunks=comm_chunks or 1)
 
 
 def make_serve_plan(cfg: ModelConfig, *, arch: Optional[str] = None,

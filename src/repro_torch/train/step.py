@@ -29,9 +29,15 @@ before the reduction above. With ``grad_compression='int8'`` the step
 passes the reduced gradients through ``optim.grad.int8_roundtrip`` before
 AdamW, as the JAX step does.
 
-Not ported yet, and raising with their ROADMAP.md item:
-``attention_scheme='ulysses'`` and ``multi_pod`` (§A). Ranks on several
-cards wait for the multi-process communicator (the main path).
+``attention_scheme`` selects the runtime's attention: 'startrail' and
+'ring' (its C = 1 point) run ``core.startrail`` with the plan's
+``comm_chunks``; 'ulysses' runs ``core.ulysses`` on
+the layers whose head counts divide P. The gradient reduction counts in
+the communicator's ledger as backward traffic (``dist.comm.CommLedger``).
+
+Not ported yet, and raising with its ROADMAP.md item: ``multi_pod`` (§A).
+Ranks on several cards wait for the multi-process communicator (the main
+path).
 """
 
 from __future__ import annotations
@@ -61,8 +67,6 @@ def make_runtime(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
                  comm=None) -> Runtime:
     """The runtime of one training rank on ``comm`` (default: one card)."""
     cfg = model.cfg
-    if run_cfg.attention_scheme == "ulysses":
-        raise _unported("the Ulysses attention scheme")
     if run_cfg.multi_pod:
         raise _unported("multi-pod meshes")
     scheme = run_cfg.seq_scheme
@@ -74,10 +78,14 @@ def make_runtime(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
         block_impl=run_cfg.block_impl,
         block_skip=run_cfg.block_skip or (cfg.window is not None
                                           and scheme == "contiguous"),
+        comm_chunks=run_cfg.comm_chunks,
     )
     comm = comm or SingleComm()
-    return Runtime(comm=comm, st_cfg=st, kernel_impl=run_cfg.kernel_impl,
-                   device=model.device,
+    # 'ring' is the C = 1 StarTrail config; 'ulysses' dispatches per layer
+    # in Runtime.attention (head counts permitting)
+    impl = "ulysses" if run_cfg.attention_scheme == "ulysses" else "startrail"
+    return Runtime(comm=comm, st_cfg=st, attention_impl=impl,
+                   kernel_impl=run_cfg.kernel_impl, device=model.device,
                    batch_axes=(DATA_AXIS,) if comm.axis_size(DATA_AXIS) > 1
                    else ())
 
@@ -146,7 +154,7 @@ def _value_and_grad(model: Model, run_cfg: RunConfig, rt: Runtime,
         loss, grads = (loss_and_grads(batch) if mb == 1
                        else accumulate(batch))
         out = []
-        with torch.no_grad():
+        with torch.no_grad(), rt.comm.ledger.backward():
             for i, p in enumerate(params):
                 # reduce in f32, downcast once at the end; the rank's own
                 # gradient goes as soon as it is reduced
@@ -198,9 +206,11 @@ def build_train_step(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
     """Returns (step, sh) with step(opt_state, batch) -> (opt_state,
     metrics). The step updates the model's parameters in place (a PyTorch
     module owns its parameters); ``sh`` holds the parameter list the
-    optimizer state mirrors (``sh['params']``, ``sh['names']``). With
-    ``comm`` a ``ThreadMesh`` the step runs every rank on the global batch
-    (module doc)."""
+    optimizer state mirrors (``sh['params']``, ``sh['names']``) and the
+    communicator the step runs on (``sh['comm']``: its ``ledgers`` count
+    the step's wire bytes). With ``comm`` a ``ThreadMesh`` the step runs
+    every rank on the global batch (module doc)."""
+    comm = comm or SingleComm()
     if isinstance(comm, ThreadMesh):
         vg_fn = build_mesh_value_and_grad_fn(model, run_cfg, shape, comm)
     else:
@@ -216,7 +226,7 @@ def build_train_step(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
         metrics["loss"] = loss
         return opt_state, metrics
 
-    return step, dict(params=params, names=names)
+    return step, dict(params=params, names=names, comm=comm)
 
 
 def build_loss_fn(model: Model, run_cfg: RunConfig, shape: ShapeConfig,

@@ -29,6 +29,13 @@ previous pair joined first), in the JAX package's format and layout:
 parameters as the JAX tree (``factory.jax_tree``: stacked layers, each in
 its dtype) in ``ckpt_dir``, the optimizer as ``{"mu", "nu", "step"}`` in
 ``ckpt_dir/opt``. Either package's checkpoint restores in the other.
+
+Observability, off by default as in the JAX trainer: a ``tracer``
+(``obs.Tracer``) spans each step's phases (``train/data``, ``train/step``,
+``train/ckpt``); a ``registry`` (``obs.Registry``) gets the per-step
+analytical comm-volume counters of ``obs.commlog.CommLog`` and the bytes
+the step's communicator counted in its ledger (rank 0's: every rank of a
+scheme moves the same), which is reset before each step.
 """
 
 from __future__ import annotations
@@ -47,6 +54,8 @@ from repro_torch.dist.elastic import StragglerDetector
 from repro_torch.engine.engine import resolve_device
 from repro_torch.models.factory import (Model, from_jax_tree, jax_tree,
                                         load_jax_tree)
+from repro_torch.obs import NULL_TRACER, Registry, Tracer
+from repro_torch.obs.commlog import CommLog
 from repro_torch.optim import adamw
 from repro_torch.plan.plan import ExecutionPlan
 from repro_torch.train.step import to_device
@@ -105,12 +114,17 @@ def restore_latest(ckpt_dir, model: Model, names: Sequence[str],
 
 
 def train(model: Model, plan: ExecutionPlan, adam_cfg: adamw.AdamWConfig,
-          tcfg: TrainerConfig, data_source=None, device=None) -> Dict:
+          tcfg: TrainerConfig, data_source=None, device=None,
+          tracer: Optional[Tracer] = None,
+          registry: Optional[Registry] = None) -> Dict:
     """Run the loop on ``device`` (default: the CUDA card, raising if there
     is none; the model must live there); returns the last step's metrics.
     ``data_source`` (default ``SyntheticLM`` of the plan's shape) has
     ``get_batch(step) -> {tokens, labels}`` of numpy arrays. Restores from
-    ``tcfg.ckpt_dir`` if it holds a checkpoint (fault-tolerant restart)."""
+    ``tcfg.ckpt_dir`` if it holds a checkpoint (fault-tolerant restart).
+    ``tracer`` spans the loop's phases; ``registry`` gets the comm-volume
+    counters (module doc). Both are off by default."""
+    tracer = tracer if tracer is not None else NULL_TRACER
     device = resolve_device(device)
     if model.device != device:
         raise ValueError(f"model lives on {model.device}, trainer on "
@@ -122,6 +136,9 @@ def train(model: Model, plan: ExecutionPlan, adam_cfg: adamw.AdamWConfig,
                                   seq_scheme=plan.seq_scheme,
                                   sp_size=plan.sp_size)
     opt = adamw.init_state(sh["params"], adam_cfg)
+    comm = sh["comm"]
+    commlog = CommLog(registry, model.cfg, plan) if registry is not None \
+        else None
     start = 0
     if tcfg.ckpt_dir:
         last = restore_latest(tcfg.ckpt_dir, model, sh["names"], opt)
@@ -157,39 +174,48 @@ def train(model: Model, plan: ExecutionPlan, adam_cfg: adamw.AdamWConfig,
         for step_i in range(start, tcfg.num_steps):
             detector.step_start()
             t0 = time.perf_counter()
-            _, batch_np = prefetch.next()
-            batch = to_device(batch_np, device)
+            with tracer.span("train/data", cat="train", step=step_i + 1):
+                _, batch_np = prefetch.next()
+                batch = to_device(batch_np, device)
             t1 = time.perf_counter()
-            opt, metrics = step_fn(opt, batch)
-            done = _step_done_marker(device)
-            # one-deep pipeline: wait on the *previous* step, while the
-            # card is already busy with this one
-            if prev_done is not None:
-                prev_done.synchronize()
+            if commlog is not None:
+                comm.reset_ledgers()
+            with tracer.span("train/step", cat="train", step=step_i + 1):
+                opt, metrics = step_fn(opt, batch)
+                done = _step_done_marker(device)
+                # one-deep pipeline: wait on the *previous* step, while the
+                # card is already busy with this one
+                if prev_done is not None:
+                    prev_done.synchronize()
             t2 = time.perf_counter()
             prev_done = done
             straggling = detector.step_end()
+            if commlog is not None:
+                commlog.record_step()
+                commlog.record_ledger(comm.ledgers[0])
             phases = {"data_s": t1 - t0, "step_s": t2 - t1, "ckpt_s": 0.0}
             pending_metrics.append((step_i, metrics, straggling, phases))
             ckpt_boundary = (tcfg.ckpt_dir
                              and (step_i + 1) % tcfg.ckpt_every == 0)
             if ckpt_boundary:
                 t3 = time.perf_counter()
-                for t in pending_ckpt or ():
-                    t.join()
-                # both writes async: save() snapshots to the host in this
-                # thread before it returns, and a restart takes the newest
-                # step common to both trees, so a crash mid-write costs
-                # the torn step, never consistency
-                pending_ckpt = [
-                    checkpoint.save(tcfg.ckpt_dir, step_i + 1, jax_tree(
-                        dict(zip(sh["names"], sh["params"])), model.cfg,
-                        "cpu"), blocking=False),
-                    checkpoint.save(pathlib.Path(tcfg.ckpt_dir) / "opt",
-                                    step_i + 1, opt_tree(
-                                        opt, sh["names"], model.cfg, "cpu"),
-                                    blocking=False),
-                ]
+                with tracer.span("train/ckpt", cat="train",
+                                 step=step_i + 1):
+                    for t in pending_ckpt or ():
+                        t.join()
+                    # both writes async: save() snapshots to the host in
+                    # this thread before it returns, and a restart takes
+                    # the newest step common to both trees, so a crash
+                    # mid-write costs the torn step, never consistency
+                    pending_ckpt = [
+                        checkpoint.save(tcfg.ckpt_dir, step_i + 1, jax_tree(
+                            dict(zip(sh["names"], sh["params"])), model.cfg,
+                            "cpu"), blocking=False),
+                        checkpoint.save(pathlib.Path(tcfg.ckpt_dir) / "opt",
+                                        step_i + 1, opt_tree(
+                                            opt, sh["names"], model.cfg,
+                                            "cpu"), blocking=False),
+                    ]
                 phases["ckpt_s"] = time.perf_counter() - t3
             if ((step_i + 1) % tcfg.log_every == 0 or step_i == start
                     or ckpt_boundary or step_i + 1 == tcfg.num_steps):

@@ -481,10 +481,11 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_input(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("attention_impl", ["startrail", "local"])
+@pytest.mark.parametrize("attention_impl", ["startrail", "local", "ulysses"])
 def test_attention_route_launches_its_kernel(cuda_device, attention_impl):
-    """At P = 1 the StarTrail route is one ring step through B2 and the
-    local route one block through B1; both match full plain attention."""
+    """At P = 1 the StarTrail route is one ring step through B2, and the
+    local and Ulysses routes one block through B1; all match full plain
+    attention."""
     from repro_torch.dist.comm import SingleComm
     from repro_torch.kernels import ref
     from repro_torch.models.runtime import Runtime
@@ -499,7 +500,7 @@ def test_attention_route_launches_its_kernel(cuda_device, attention_impl):
     flash_attention.reset_launches()
     o = rt.attention(q, k, v, window=window)
     torch.cuda.synchronize()
-    local = attention_impl == "local"
+    local = attention_impl != "startrail"
     assert flash_attention.LAUNCHES == {"B1": int(local), "B2": int(not local),
                                         "B3": 0}
     want = ref.mha_reference(q, k, v, causal=True, window=window)
@@ -949,3 +950,74 @@ def test_paged_prefill_tensor_core_matches_plain(cuda_device, case, dtype):
     if window is not None and window < Sq:
         dead = (lse_p <= NEG_INF / 2)
         assert dead.any() and not dead.all()
+
+
+# Ulysses at full width, P = 8: each rank attends 4 query heads over one kv
+# head of 80 across the whole 4096-token sequence, its positions in the
+# all-to-all's order (the zigzag shards concatenated: unsorted), beside the
+# same shape with sorted positions
+ULYSSES_POSITIONS = ("zigzag_concat", "sorted")
+
+
+def ulysses_positions(kind, n=4096, p=8):
+    if kind == "sorted":
+        return np.arange(n, dtype=np.int32)
+    return np.concatenate([_zigzag(r, n, p) for r in range(p)]).astype(
+        np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ULYSSES_POSITIONS)
+def test_b1_b3_at_the_ulysses_shape(cuda_device, kind, dtype):
+    S, window = 4096, 4096
+    rng = np.random.default_rng(5)
+    dt = getattr(torch, dtype)
+    q, k, v, do = (_t(rng.normal(size=(1, S, h, 80)).astype(
+        np.float32)).to(cuda_device, dt) for h in (4, 1, 1, 4))
+    pos = _t(ulysses_positions(kind, S)).to(cuda_device)
+    o, lse = flash_attention.flash_attention_fwd(q, k, v, pos, pos,
+                                                 window=window)
+    torch.cuda.synchronize()
+    o_p, lse_p = flash_attention.flash_attention_fwd_plain(
+        q, k, v, pos, pos, window=window)
+    tol = 2e-5 if dtype == "float32" else 1e-4
+    _assert_partials(o.cpu().numpy(), lse.cpu().numpy(),
+                     o_p.cpu().numpy(), lse_p.cpu().numpy(), tol)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         o_p.to(dt).float()).contiguous()
+    args = (q, k, v, do, lse_p, delta, pos, pos)
+    got = flash_attention.flash_attention_bwd(*args, window=window)
+    torch.cuda.synchronize()
+    want = flash_attention.flash_attention_bwd_plain(*args, window=window)
+    _assert_grads([g.cpu().numpy() for g in got],
+                  [w.cpu().numpy() for w in want], lse_p.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_flash_attention_function_launches_b1_and_b3(cuda_device):
+    """``kernels.ops.flash_attention`` (Ulysses' attention) runs B1 forward
+    and B3 backward, and matches its plain version's gradients."""
+    from repro_torch.kernels import ops
+
+    S, window = 77, 24
+    q, k, v, _, _ = _fwd_inputs(1, S, 8, 2, 80, "arange")
+    pos = torch.from_numpy(ulysses_positions("zigzag_concat", 80, 4)[
+        :S].copy()).to(cuda_device)
+    do = torch.randn((1, S, 8, 80), device=cuda_device)
+    out = {}
+    for impl in ("cuda", "ref"):
+        x = [_t(a).to(cuda_device).requires_grad_() for a in (q, k, v)]
+        flash_attention.reset_launches()
+        o = ops.flash_attention(*x, pos, pos, window=window, impl=impl)
+        grads = torch.autograd.grad(o, x, do)
+        torch.cuda.synchronize()
+        out[impl] = (dict(flash_attention.LAUNCHES), o, grads)
+    assert out["cuda"][0] == {"B1": 1, "B2": 0, "B3": 1}
+    assert out["ref"][0] == {"B1": 0, "B2": 0, "B3": 0}
+    np.testing.assert_allclose(out["cuda"][1].detach().cpu().numpy(),
+                               out["ref"][1].detach().cpu().numpy(),
+                               atol=TOL, rtol=TOL)
+    for a, b in zip(out["cuda"][2], out["ref"][2]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   atol=BWD_TOL, rtol=BWD_TOL)

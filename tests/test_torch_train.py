@@ -318,12 +318,19 @@ def test_launch_train_cpu_and_unported_flags(tmp_path):
     assert [m["step"] for m in lines] == [1, 2, 3, 4]
     assert all(np.isfinite(m["loss"]) and m["loss"] > 0 for m in lines)
     assert out["step"] == 4
-    for flags in (["--plan", "p.json"],
-                  ["--autotune"], ["--scheme", "ulysses"],
-                  ["--multi-pod"], ["--metrics-dump", "m.prom"],
-                  ["--trace-out", "t.json"]):
+    for flags in (["--plan", "p.json"], ["--autotune"], ["--multi-pod"],
+                  ["--no-pipeline"]):
         with pytest.raises(NotImplementedError, match=flags[0]):
             train.main(base + flags)
+    # the flags ported since: Ulysses at P = 1, the registry and the trace
+    prom, trace = tmp_path / "m.prom", tmp_path / "t.json"
+    out = train.main(base + ["--steps", "1", "--seq-len", "32", "--batch",
+                             "2", "--scheme", "ulysses", "--metrics-dump",
+                             str(prom), "--trace-out", str(trace)])
+    assert out["step"] == 1 and np.isfinite(out["loss"])
+    assert "comm_steps_total 1" in prom.read_text()
+    assert {e["name"] for e in json.loads(trace.read_text())[
+        "traceEvents"]} == {"train/data", "train/step"}
 
 
 def test_launch_train_microbatches_and_restart(tmp_path, capsys):

@@ -20,7 +20,8 @@ autograd, through the differentiable collectives of ``dist.comm``.
   ``test_three_train_steps_match_jax``), and ``check_spmd_train_step`` at
   (2, 1, 2): lr 1e-2, three steps, the loss falls.
 * Each collective's backward is its transpose: <C(x), g> = <x, C*(g)>
-  summed over ranks, in f64. ``pmax`` refuses an input that needs a
+  summed over ranks, in f64 (all_to_all's is all_to_all with split and
+  concat swapped). ``pmax`` refuses an input that needs a
   gradient; a rank thread runs its backward itself (multithreading off);
   ranks in different collectives raise instead of exchanging tensors.
 * ``dist.meshes.refine_grid`` and ``launch.mesh.refinable_grids`` against
@@ -248,6 +249,8 @@ COLLECTIVES = {
                      (2, 6, 4)),
     "psum": (lambda cm, x: cm.psum(x, ("sp_ring", "sp_team")), (3, 5)),
     "psum_data": (lambda cm, x: cm.psum(x, "data"), (3, 5)),
+    "all_to_all": (lambda cm, x: cm.all_to_all(
+        x, ("sp_grp", "sp_ring", "sp_team"), 1, 0), (3, 16)),
     # ranks 3 and 6 receive nothing; ranks 5 and 7 send nothing
     "ppermute": (lambda cm, x: cm.ppermute(
         x, ("sp_grp", "sp_ring", "sp_team"),
