@@ -114,16 +114,29 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               at ratio 1.0 and no byte of a kind the scheme does not
               run, printed beside eqs. 2-4's bytes; the ledger's bytes per step beside
               ``CommLog.per_step``; a profiled step of the ring and Ulysses
+ 15. autotune  the paper's §3.4 topology scheduler at the schemes phase's
+              size: the analytical ranking of the four arrangements at
+              P = 8 under the H100 table (``roofline.hw``; µs per layer,
+              whole-model s, bytes), then ``plan.autotune.autotune``
+              (top 3 plus the analytical worst, 1 warm-up and 2 timed
+              steps each, every candidate from the same weights): each
+              candidate's measured s per step beside its analytical s, the
+              winner, its plan file reloaded equal and holding the
+              arrangement its record timed fastest, one step of
+              ``launch.train --plan FILE`` (B2 and B3, or B1 and B3 if
+              Ulysses won) and ``make_serve_plan(c=None)`` at P = 1 (C = 1)
 
-The paths are phases 4, 4a, 5, 7, 8a, 8b, 9, 13 and each scheme of 14:
+The paths are phases 4, 4a, 5, 7, 8a, 8b, 9, 13, each scheme of 14, and
+15's search and its plan's step:
 the launch counters are set to 0 just before each and read just after,
 and each must launch exactly the kernels it runs (B2 and B3 in the ring;
 B5 and B7 in ragged_bwd; B2 and B4 in the engine; B1 in the local
 prefill; B1, B2, B4 and B6 in the prefix phase; B2 and B5 in the legacy
 phase; B2 and B3 in the train loop, in train_sp and in the ring and
-StarTrail schemes; B1 and B3 under Ulysses). Comparison, timing and profiling launches
-are not counted. The kernels line's ``launches`` is each kernel's count on the path that
-runs it (the engine for B2 and B4, the local prefill for B1, the train
+StarTrail schemes; B1 and B3 under Ulysses; B1, B2 and B3 in the
+autotune search, whose candidates are all four arrangements). Comparison,
+timing and profiling launches are not counted. The kernels line's
+``launches`` is each kernel's count on the path that runs it (the engine for B2 and B4, the local prefill for B1, the train
 loop for B3, the legacy phase for B5, the prefix phase for B6, ragged_bwd
 for B7); ``launches_by_path`` gives every path's counts. The
 last three lines are the card's ``nvidia-smi`` name and power limit, the
@@ -132,6 +145,7 @@ Any failed check exits non-zero before the last line; so does a machine
 without a CUDA card, or a directory without the rest of the repository.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -142,8 +156,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 TOL = {"float32": 2e-5, "bfloat16": 1e-4}       # see phase_kernels
 NEG_INF = -1e30
 BWD_TOL = 3e-4                                   # see phase_kernels
@@ -237,9 +249,22 @@ def device_ms(fn, calls=20, reps=5):
     return statistics.median(times)
 
 
+def hw_table():
+    """The card's datasheet peaks the bounds use (``roofline.hw``)."""
+    from repro_torch.roofline import hw
+
+    return {"source": "NVIDIA H100 80GB HBM3 (SXM5), 700 W, datasheet",
+            "PEAK_FLOPS_BF16": hw.PEAK_FLOPS_BF16,
+            "PEAK_FLOPS_F32": hw.PEAK_FLOPS_F32, "HBM_BW": hw.HBM_BW,
+            "NVLINK_BW": hw.NVLINK_BW}
+
+
 def bound(nbytes, flops, dtype):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    from repro_torch.roofline import hw
+
+    peak = {"bfloat16": hw.PEAK_FLOPS_BF16, "float32": hw.PEAK_FLOPS_F32}
+    t_bytes = nbytes / hw.HBM_BW * 1e3
+    t_ops = flops / peak[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2099,7 +2124,10 @@ def phase_train_sp(dev, smi):
                               num_layers=TRAIN_SP_LAYERS)
     shape = _train_shape(TRAIN_SEQ)
     p = TRAIN_SP_C * TRAIN_SP_C * TRAIN_SP_R
-    plan = make_plan(cfg, shape, arch=ARCH, n_devices=p, c=TRAIN_SP_C)
+    # placement and chunks pinned, not the ranking's pick, so the numbers
+    # compare with the phase's earlier runs
+    plan = make_plan(cfg, shape, arch=ARCH, n_devices=p, c=TRAIN_SP_C,
+                     placement="team_inner", comm_chunks=1)
     check((plan.sp_size, plan.r, plan.remat, plan.seq_scheme)
           == (p, TRAIN_SP_R, "attn_out", "zigzag"),
           f"train_sp plan {plan}")
@@ -2246,7 +2274,8 @@ def phase_schemes(dev, smi):
     reports = {}
     for name, scheme, c, chunks in SCHEMES:
         plan = make_plan(full, shape, arch=ARCH, n_devices=p, c=c,
-                         scheme=scheme, comm_chunks=chunks)
+                         scheme=scheme, placement="team_inner",
+                         comm_chunks=chunks)
         rep = commlog.comm_report(full, plan, device=dev)
         rows = rep["per_collective"]
         live = {k: row for k, row in rows.items() if row["analytical_bytes"]}
@@ -2291,7 +2320,8 @@ def phase_schemes(dev, smi):
             for t, t0 in zip(model.parameters(), init):
                 t.copy_(t0)
         plan = make_plan(cfg, shape, arch=ARCH, n_devices=p, c=c,
-                         scheme=scheme, comm_chunks=chunks)
+                         scheme=scheme, placement="team_inner",
+                         comm_chunks=chunks)
         check((plan.sp_size, plan.c, plan.comm_chunks, plan.remat,
                plan.seq_scheme) == (p, c, chunks, "attn_out", "zigzag"),
               f"schemes {name} plan {plan}")
@@ -2380,6 +2410,141 @@ def phase_schemes(dev, smi):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the §3.4 topology scheduler, measured
+# ---------------------------------------------------------------------------
+
+AUTOTUNE = {"top_k": 3, "steps": 2, "warmup": 1}
+
+
+@contextlib.contextmanager
+def _registry_depth(layers):
+    """``registry.get`` with the depth cut to ``layers`` (the launcher
+    builds its model from the registry; P = 8 ranks' gradients of 24
+    layers would crowd one card, as in train_sp)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    get = registry.get
+    registry.get = lambda name: dataclasses.replace(get(name),
+                                                    num_layers=layers)
+    try:
+        yield
+    finally:
+        registry.get = get
+
+
+def phase_autotune(dev, smi):
+    """The paper's §3.4 procedure end to end: the analytical ranking of
+    every legal arrangement at P = 8 under the H100 table
+    (``roofline.hw``), then ``plan.autotune.autotune`` (top 3 plus the
+    analytical worst: at P = 8 all four arrangements) times each on
+    ``trainer``'s step (warm-up 1, 2 timed steps, P = 8 ThreadMesh ranks on
+    the one card) at the schemes phase's size (h2o-danube-1.8b cut to 8
+    layers, seq 4096, batch 1, bf16, ``attn_out``), every candidate from
+    the same seeded weights. The winner's plan file must reload equal and
+    hold the arrangement its own record timed fastest, ``launch.train
+    --plan FILE --steps 1`` must train one finite step from it through B2
+    and B3 (B1 and B3 if Ulysses won), and
+    ``make_serve_plan(c=None)`` on the full model must give C = 1 at
+    P = 1. One card's ranks exchange synchronously and the step is
+    host-bound, so the measured order ranks host and kernel time, not
+    wires; the analytical one is the prediction a multi-card cell tests."""
+    import dataclasses
+    import math
+    import pathlib
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as launch_train
+    from repro_torch.plan import ExecutionPlan, autotune, cost
+    from repro_torch.plan import make_serve_plan
+
+    full = registry.get(ARCH)
+    cfg = dataclasses.replace(full, num_layers=SCHEMES_LAYERS)
+    shape = _train_shape(TRAIN_SEQ)
+    p, L = ULYSSES_P, cfg.num_layers
+    ranking = cost.rank_arrangements(cfg, shape, p)
+    want_keys = ({e["arrangement"].key for e in ranking[:AUTOTUNE["top_k"]]}
+                 | {ranking[-1]["arrangement"].key})
+    with tempfile.TemporaryDirectory() as tmp:
+        counts = reset_counts()
+        t0 = time.perf_counter()
+        tuned = autotune.autotune(
+            cfg, shape, arch=ARCH, n_devices=p, top_k=AUTOTUNE["top_k"],
+            steps=AUTOTUNE["steps"], warmup=AUTOTUNE["warmup"],
+            out_dir=tmp, device=dev)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        search = read_counts(counts)
+        measured = tuned["measured"]
+        keys = [e["arrangement"].key for e in measured]
+        check(sorted(keys) == sorted(want_keys),
+              f"autotune measured {keys}: want the analytical top "
+              f"{AUTOTUNE['top_k']} and the worst, {sorted(want_keys)}")
+        times = [e["measured_s"] for e in measured]
+        check(all(math.isfinite(t) and t > 0 for t in times),
+              f"autotune times {dict(zip(keys, times))}")
+        per_run = AUTOTUNE["warmup"] + AUTOTUNE["steps"]
+        want = launches_of()
+        for e in measured:
+            for k, v in _schemes_launches(e["plan"].scheme, e["plan"],
+                                          L).items():
+                want[k] += v * per_run
+        check(search == want, f"autotune search launches {search}: want "
+              f"{want} ({per_run} steps per candidate, from each plan)")
+        winner = ExecutionPlan.load(tuned["path"])
+        check(winner == tuned["plan"], f"plan file {tuned['path']} "
+              f"reloads as {winner}, not {tuned['plan']}")
+        # the file's own record: its plan is the arrangement it timed fastest
+        filed = json.loads(pathlib.Path(tuned["path"]).read_text())
+        fastest = min(filed["measured"], key=lambda m: m["measured_s"])
+        won = cost.Arrangement(winner.scheme, winner.c, winner.r,
+                               winner.placement).key
+        check(fastest["arrangement"] == won,
+              f"plan file holds {won}, but its fastest measured "
+              f"arrangement is {fastest['arrangement']} of "
+              f"{filed['measured']}")
+        free_device()
+        counts = reset_counts()
+        t0 = time.perf_counter()
+        with _registry_depth(SCHEMES_LAYERS):
+            out = launch_train.main(["--plan", str(tuned["path"]),
+                                     "--steps", "1", "--device", dev.type])
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        trained = read_counts(counts)
+    want = _schemes_launches(winner.scheme, winner, L)
+    check(out["step"] == 1 and math.isfinite(out["loss"])
+          and trained == want,
+          f"launch.train --plan: step {out['step']} loss {out['loss']}, "
+          f"launches {trained}: want one finite step and {want}")
+    serve = make_serve_plan(full, arch=ARCH)
+    check((serve.sp_size, serve.c) == (1, 1),
+          f"make_serve_plan(c=None) gave P={serve.sp_size} C={serve.c}")
+    emit("autotune", model=cfg.name, layers=L,
+         shape={"seq_len": shape.seq_len, "batch": shape.global_batch},
+         P=p, hw=hw_table(), card=smi,
+         analytical=[{"arrangement": e["arrangement"].key,
+                      "us_per_layer": 1e6 * e["total_s"],
+                      "model_s": e["model_s"], "volumes": e["volumes"]}
+                     for e in ranking],
+         measured=[{"arrangement": e["arrangement"].key,
+                    "measured_s_per_step": e["measured_s"],
+                    "analytical_s_per_layer": e["analytical_s"],
+                    "analytical_model_s": e["analytical_s"] * L}
+                   for e in measured],
+         winner=winner.to_dict(), search_s=search_s, **AUTOTUNE,
+         launches=search, plan_step={"loss": out["loss"], "wall_s": train_s,
+                                     "launches": trained},
+         serve_plan={"P_sp": serve.sp_size, "C": serve.c,
+                     "scheme": serve.scheme})
+    return {"autotune": search, "autotune_plan": trained}
+
+
 def free_device():
     import gc
 
@@ -2413,10 +2578,11 @@ def main():
         smi = nvidia_smi()
         emit("device", name=torch.cuda.get_device_name(0),
              count=torch.cuda.device_count(), nvidia_smi=smi,
+             total_memory=torch.cuda.get_device_properties(0).total_memory,
              torch=torch.__version__, cuda=torch.version.cuda)
         info = _build.build_info()
         emit("build", seconds=info["seconds"], built=info["built"],
-             ptxas=info["ptxas"])
+             ptxas=info["ptxas"], hw=hw_table(), card=smi)
         rows = phase_kernels(dev)
         free_device()
         phase_kernels_ulysses(dev, rows)
@@ -2440,6 +2606,8 @@ def main():
         by_path["train_sp"] = phase_train_sp(dev, smi)
         free_device()
         by_path.update(phase_schemes(dev, smi))
+        free_device()
+        by_path.update(phase_autotune(dev, smi))
         paths = {"B1": "local", "B2": "engine", "B3": "train",
                  "B4": "engine", "B5": "legacy", "B6": "prefix",
                  "B7": "ragged_bwd"}

@@ -178,7 +178,7 @@ def main(argv=None):
     cfg = registry.get_smoke(args.arch) if args.smoke \
         else registry.get(args.arch)
     plan = make_serve_plan(
-        cfg, arch=args.arch, c=1,
+        cfg, arch=args.arch,
         decode_batch=args.max_slots, page_size=args.page_size,
         max_len=args.max_len, kernel_impl=args.kernel,
         block_impl=args.kernel, prefix_cache=args.prefix_cache)

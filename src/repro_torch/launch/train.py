@@ -24,9 +24,25 @@ coordinates and changes no value):
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
       --smoke --device cpu --devices 8 --data 2 --c 2 --steps 3
 
-``--scheme`` picks the attention: 'startrail' (default), 'ring' (C = 1) or
-'ulysses' (all-to-all; P must divide the head counts); ``--comm-chunks``
-splits each ring transfer into sub-chunks (no value changes). ``--metrics-dump PATH`` writes the ``obs`` registry after
+``--scheme`` picks the attention: 'startrail', 'ring' (C = 1) or 'ulysses'
+(all-to-all; P must divide the head counts); ``--comm-chunks`` splits each
+ring transfer into sub-chunks (no value changes). Knobs left unset
+(``--c``, ``--scheme``, ``--placement``, ``--comm-chunks``) are the
+analytical cost model's pick (``plan.make_plan``), as in the JAX launcher.
+
+``--autotune`` times the analytical top 3 arrangements (and the worst) for
+a few steps each, writes the winner to
+``results/repro_torch/PLAN_<arch>_<shape>.json`` and trains it; ``--plan
+FILE`` trains a persisted plan (arch, shape, devices and arrangement from
+the file, the port's or the JAX package's; ``--smoke`` still picks the
+smoke width):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
+      --smoke --device cpu --devices 4 --autotune --steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+      --plan results/repro_torch/PLAN_h2o-danube-1.8b_smoke.json --steps 2
+
+``--metrics-dump PATH`` writes the ``obs`` registry after
 the run (Prometheus text, or JSON for a ``.json`` path): the per-step
 analytical bytes per collective of ``obs.commlog.CommLog`` and the bytes
 the communicator counted; ``--trace-out PATH`` writes a Chrome trace of
@@ -44,8 +60,6 @@ import argparse
 
 # JAX launcher options that raise, with the ROADMAP.md item that ports them
 _UNPORTED = {
-    "--plan": "plan persistence and the cost model (§A)",
-    "--autotune": "plan/autotune.py (§A)",
     "--multi-pod": "multi-pod meshes (§A)",
     "--no-pipeline": "an asynchronous communicator, where the ring's two "
                      "issue orders can differ (§A item 1)",
@@ -54,13 +68,15 @@ _UNPORTED = {
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", default=None,
+                    help="architecture id (optional with --plan)")
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced config + the --seq-len/--batch shape")
     ap.add_argument("--device", choices=["cuda", "cpu"], default=None,
                     help="default: the CUDA card (raises without one)")
-    ap.add_argument("--c", type=int, default=1, help="StarTrail C")
+    ap.add_argument("--c", type=int, default=None,
+                    help="StarTrail C (default: cost-model pick)")
     ap.add_argument("--devices", type=int, default=1,
                     help="ranks, as ThreadMesh threads on the device")
     ap.add_argument("--data", type=int, default=1,
@@ -82,8 +98,8 @@ def main(argv=None):
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint here; resume from it when it holds one")
     ap.add_argument("--comm-chunks", type=int, default=None,
-                    help="ring-transfer sub-chunks (default 1; must divide "
-                         "the team sequence length C*N/P)")
+                    help="ring-transfer sub-chunks (default: overlap-model "
+                         "pick; must divide the team sequence length C*N/P)")
     ap.add_argument("--metrics-dump", default=None,
                     help="write the obs registry (per-collective comm "
                          "bytes) here after the run (Prometheus text; "
@@ -91,15 +107,17 @@ def main(argv=None):
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome-trace JSON of the train/data, "
                          "train/step and train/ckpt spans here")
+    ap.add_argument("--plan", default=None,
+                    help="train a persisted ExecutionPlan json")
+    ap.add_argument("--autotune", action="store_true",
+                    help="measure the analytical top-k and train the winner")
     # the JAX launcher's other options, rejected until they are ported
-    ap.add_argument("--plan", default=None)
-    ap.add_argument("--autotune", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--no-pipeline", action="store_true")
     args = ap.parse_args(argv)
-    for flag, on in (("--plan", bool(args.plan)),
-                     ("--autotune", args.autotune),
-                     ("--multi-pod", args.multi_pod),
+    if not args.plan and not args.arch:
+        ap.error("--arch is required (unless --plan carries it)")
+    for flag, on in (("--multi-pod", args.multi_pod),
                      ("--no-pipeline", args.no_pipeline)):
         if on:
             raise NotImplementedError(
@@ -115,28 +133,47 @@ def main(argv=None):
     from repro_torch import obs
     from repro_torch.models.factory import build_model
     from repro_torch.optim import adamw
-    from repro_torch.plan import make_plan
+    from repro_torch.plan import ExecutionPlan, make_plan
+    from repro_torch.plan import autotune as autotune_lib
     from repro_torch.train import trainer as trainer_lib
 
     device = resolve_device(args.device)
-    if args.smoke:
-        cfg = registry.get_smoke(args.arch)
-        shape = ShapeConfig("smoke", seq_len=args.seq_len,
-                            global_batch=args.batch or 4, kind="train")
+    get_cfg = registry.get_smoke if args.smoke else registry.get
+    if args.plan:
+        plan = ExecutionPlan.load(args.plan)
+        cfg = get_cfg(plan.arch)
+        print(f"[train] loaded plan {args.plan}")
     else:
-        cfg = registry.get(args.arch)
-        shape = dataclasses.replace(SHAPES[args.shape],
-                                    global_batch=args.batch or 1)
-    try:
-        plan = make_plan(cfg, shape, arch=args.arch,
-                         n_devices=args.devices, data=args.data, c=args.c,
-                         scheme=args.scheme, placement=args.placement,
-                         microbatches=args.microbatches,
-                         comm_chunks=args.comm_chunks)
-    except ValueError as e:
-        raise ValueError(
-            f"{e}; legal (data, SP) grids with C = 2 for --devices "
-            f"{args.devices}: {refinable_grids(args.devices)}") from e
+        cfg = get_cfg(args.arch)
+        if args.smoke:
+            shape = ShapeConfig("smoke", seq_len=args.seq_len,
+                                global_batch=args.batch or 4, kind="train")
+        else:
+            shape = dataclasses.replace(SHAPES[args.shape],
+                                        global_batch=args.batch or 1)
+    if args.autotune and not args.plan:
+        tuned = autotune_lib.autotune(
+            cfg, shape, arch=args.arch, n_devices=args.devices,
+            data=args.data, microbatches=args.microbatches, device=device,
+            seed=args.seed)
+        plan = tuned["plan"]
+        for e in tuned["measured"]:
+            print(f"[train] autotune {e['arrangement'].key}: measured "
+                  f"{e['measured_s']:.4f} s/step, analytical "
+                  f"{e['analytical_s']:.3e} s/layer")
+        print(f"[train] autotuned plan -> {tuned['path']}")
+    elif not args.plan:
+        try:
+            plan = make_plan(cfg, shape, arch=args.arch,
+                             n_devices=args.devices, data=args.data,
+                             c=args.c, scheme=args.scheme,
+                             placement=args.placement,
+                             microbatches=args.microbatches,
+                             comm_chunks=args.comm_chunks)
+        except ValueError as e:
+            raise ValueError(
+                f"{e}; legal (data, SP) grids with C = 2 for --devices "
+                f"{args.devices}: {refinable_grids(args.devices)}") from e
     print(f"[train] plan: P_sp={plan.sp_size} scheme={plan.scheme} "
           f"C={plan.c} R={plan.r} data={plan.data} "
           f"placement={plan.placement} seq={plan.seq_len} "

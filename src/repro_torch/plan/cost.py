@@ -1,20 +1,23 @@
-"""The scheme half of the analytical cost model (the port of
-``repro.plan.cost``, lines 33-139): the legal communication arrangements
-at one sequence-parallel degree P and their per-device communication
-volumes (paper eqs. 2-4).
+"""Analytical cost model for communication arrangements (the port of
+``repro.plan.cost``; paper eqs. 2-4).
 
-At P there is a family of arrangements: the StarTrail (C, R)
-factorisations with P = C^2 * R and either axis placement, the plain ring
-(C = 1), and DeepSpeed-Ulysses' all-to-all scheme, legal only while the
-head counts divide P (the limit ``core.ulysses`` enforces).
-``comm_volumes`` prices one attention layer's forward per device and is a
-faithful copy of the JAX function: it ranks arrangements, and
-``obs.commlog`` holds the communicator's measured bytes against it.
+At a sequence-parallel degree P there is a family of arrangements: the
+StarTrail (C, R) factorisations with P = C^2 * R and either axis
+placement, the plain ring (C = 1), and DeepSpeed-Ulysses' all-to-all
+scheme, legal only while the head counts divide P (the limit
+``core.ulysses`` enforces).
 
-Not ported yet (ROADMAP.md §A): the time model (``rank_arrangements``,
-``choose_microbatches``, ``choose_comm_chunks``, the serving SLO cost),
-which needs ``core/scheduler.py`` and an H100 ``roofline/hw.py``; so
-``plan.make_plan(c=None)`` raises.
+The scheme half enumerates them and prices one attention layer's forward
+per device in bytes (``comm_volumes``, a faithful copy of the JAX
+function; ``obs.commlog`` holds the communicator's measured bytes against
+it). The time half prices them in seconds through ``core.scheduler``'s
+overlap model on the card's constants (``roofline.hw``) and ranks them
+(``rank_arrangements``); ``plan.make_plan`` turns the first legal match
+into an ``ExecutionPlan`` and ``plan.autotune`` refines the top of the
+ranking with measured steps. Every formula is the JAX one's, so under
+equal constants the numbers are the same. The JAX module's serving,
+prefill, prefix-cache, host-tier and microbatch costs come with the
+slices that call them (ROADMAP.md §A items 1, 6 and 7).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import dataclasses
 from typing import Dict, List, Optional
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core import scheduler as sch
 from repro_torch.core.topology import valid_c_values
 
 SCHEMES = ("startrail", "ring", "ulysses")
@@ -126,3 +130,83 @@ def comm_volumes(cfg: ModelConfig, shape: ShapeConfig, sp: int,
     }
     vols["total"] = sum(vols.values())
     return vols
+
+
+# ---------------------------------------------------------------------------
+# Time model (delegates to the §3.4 scheduler for ring/startrail)
+# ---------------------------------------------------------------------------
+
+def _workload(cfg: ModelConfig, shape: ShapeConfig,
+              batch: int) -> sch.AttnWorkload:
+    return sch.AttnWorkload(
+        batch=max(batch, 1), seq_len=shape.seq_len, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim_,
+        causal=(cfg.prefix_len_frac == 0.0))
+
+
+def arrangement_time(cfg: ModelConfig, shape: ShapeConfig, sp: int,
+                     arr: Arrangement, *, batch: Optional[int] = None,
+                     cluster: Optional[sch.ClusterModel] = None) -> float:
+    """Estimated seconds for one attention layer under ``arr``: the ring
+    schemes through ``core.scheduler.attention_step_cost`` (whole
+    transfers, overlap fraction 1.0), Ulysses as compute plus its
+    all-to-alls."""
+    b = shape.global_batch if batch is None else batch
+    w = _workload(cfg, shape, b)
+    cl = cluster or sch.ClusterModel(sp_size=sp)
+    if arr.scheme in ("ring", "startrail"):
+        return sch.attention_step_cost(w, cl, arr.c,
+                                       arr.placement)["total_s"]
+    # Ulysses: fully-local attention between two all-to-all pairs; the
+    # all-to-alls cannot overlap with the attention itself.
+    vols = comm_volumes(cfg, shape, sp, arr, batch=b,
+                        dtype_bytes=w.dtype_bytes)
+    causal_frac = 0.5 if w.causal else 1.0
+    flops = 4.0 * w.batch * w.seq_len * w.seq_len * w.num_heads \
+        * w.head_dim * causal_frac / sp
+    return flops / cl.peak_flops + vols["all_to_all"] / cl.link_bw \
+        + 2 * cl.step_latency
+
+
+def rank_arrangements(cfg: ModelConfig, shape: ShapeConfig, sp: int, *,
+                      batch: Optional[int] = None,
+                      cluster: Optional[sch.ClusterModel] = None,
+                      ) -> List[Dict[str, object]]:
+    """All legal arrangements priced and sorted fastest-first.
+
+    Each entry: {"arrangement": Arrangement, "total_s": float,
+    "volumes": per-layer byte breakdown, "model_s": whole-model estimate}.
+    """
+    n_attn = max(num_attention_layers(cfg), 1)
+    out = []
+    for arr in enumerate_arrangements(cfg, sp):
+        t = arrangement_time(cfg, shape, sp, arr, batch=batch,
+                             cluster=cluster)
+        out.append({
+            "arrangement": arr,
+            "total_s": t,
+            "model_s": t * n_attn,
+            "volumes": comm_volumes(cfg, shape, sp, arr, batch=batch),
+        })
+    out.sort(key=lambda e: e["total_s"])
+    return out
+
+
+def choose_comm_chunks(cfg: ModelConfig, shape: ShapeConfig, sp: int,
+                       arr: Arrangement, *, batch: Optional[int] = None,
+                       cluster: Optional[sch.ClusterModel] = None) -> int:
+    """Resolve the ring-transfer sub-chunk count for one arrangement.
+
+    Argmin of the overlap model over (1, 2, 4), constrained to chunk
+    counts that divide the per-device team sequence length (c * N / P, the
+    axis ``core.startrail._chunked_ppermute`` splits). Non-ring schemes have no transfers to
+    chunk -> 1.
+    """
+    if arr.scheme not in ("ring", "startrail"):
+        return 1
+    s_team = arr.c * shape.seq_len // sp
+    legal = tuple(n for n in (1, 2, 4) if s_team % n == 0) or (1,)
+    b = shape.global_batch if batch is None else batch
+    w = _workload(cfg, shape, b)
+    cl = cluster or sch.ClusterModel(sp_size=sp)
+    return sch.choose_comm_chunks(w, cl, arr.c, arr.placement, grid=legal)

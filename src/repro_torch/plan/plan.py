@@ -2,12 +2,17 @@
 counterpart of ``repro.plan.plan``, cut to the fields the engine, the
 trainer and the train step read).
 
-``make_plan`` (training) and ``make_serve_plan`` (serving) need an explicit
-StarTrail ``c``: the JAX package picks it with the analytical cost model's
-time half (``repro.plan.cost.rank_arrangements``), which is not ported yet,
-so ``c=None`` raises (ROADMAP.md §A). The scheme half is ported
-(``plan.cost``): ``make_plan`` checks the scheme with
-``cost.check_scheme`` as the JAX one does.
+Construction paths, as in the JAX package:
+  * ``make_plan(cfg, shape, ...)`` (training) and ``make_serve_plan``
+    (serving): explicit knobs are validated; knobs left as None are chosen
+    by the analytical cost model (``plan.cost.rank_arrangements``: scheme,
+    C and placement; ``plan.cost.choose_comm_chunks``: the ring's
+    sub-chunks) on the card's constants (``roofline.hw``).
+  * ``plan.autotune.autotune(...)``: measured refinement of the
+    analytical top-k; persists the winner to
+    ``results/repro_torch/PLAN_<arch>_<shape>.json``.
+  * ``ExecutionPlan.load(path)``: reuse a persisted plan (``--plan``),
+    the port's or one the JAX package wrote.
 
 A training plan with ``n_devices > 1`` runs its ranks as the threads of a
 ``dist.comm.ThreadMesh(c, r, data, placement)`` on one device
@@ -18,20 +23,30 @@ devices (``local_mesh_for_tests``).
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
-from typing import Optional
+import pathlib
+from typing import Dict, Optional
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
+from repro_torch.core.scheduler import ClusterModel
 from repro_torch.dist.meshes import PLACEMENTS
 from repro_torch.kernels.dispatch import IMPLS, resolve_impl
 from repro_torch.models.transformer import REMATS
 from repro_torch.plan import cost
 
 
-def _no_cost_model(entry: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{entry}(c=None) needs the analytical cost model "
-        "(repro/plan/cost.py), not ported yet (ROADMAP.md §A): pass c")
+# JAX plan fields the port cannot honour yet: (field, default, ROADMAP.md
+# item that ports them); ``ExecutionPlan.load`` raises on any other value
+_UNPORTED_FIELDS = (
+    ("pod", 1, "§A item 2, multi-pod meshes"),
+    ("mesh_kind", "local", "§A item 1, meshes of several cards"),
+    ("sharding_rules", "default", "§A item 2, FSDP sharding rules"),
+    ("unroll_scans", False, "§A item 9, the dry run"),
+    ("replicas", 1, "§A item 7, the gateway"),
+    ("role", "unified", "§A item 6, disaggregated serving"),
+    ("host_tier_bytes", 0, "§A item 6, the host KV tier"),
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +76,7 @@ class ExecutionPlan:
     remat: str = "attn_out"        # 'none' | 'attn_out' | 'full'
     microbatches: int = 1
     comm_chunks: int = 1           # ring-transfer sub-chunks
+    grad_compression: str = "none"  # 'none' | 'int8' (optim/grad.py)
 
     @property
     def sp_size(self) -> int:
@@ -115,6 +131,9 @@ class ExecutionPlan:
                 f"comm_chunks={self.comm_chunks} must divide the team "
                 f"sequence length C*N/P = {s_team} (the axis the chunked "
                 f"ring ppermute splits)")
+        if self.grad_compression not in ("none", "int8"):
+            raise ValueError(f"grad_compression must be 'none' | 'int8', "
+                             f"got {self.grad_compression!r}")
         if self.remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, "
                              f"got {self.remat!r}")
@@ -139,6 +158,7 @@ class ExecutionPlan:
             microbatches=self.microbatches, seq_scheme=self.seq_scheme,
             block_impl=self.block_impl, kernel_impl=self.kernel_impl,
             block_skip=self.block_skip, remat=self.remat,
+            grad_compression=self.grad_compression,
             comm_chunks=self.comm_chunks)
 
     def build_mesh(self):
@@ -158,6 +178,44 @@ class ExecutionPlan:
             model, self.run_config(), self.shape_config(), adam_cfg,
             comm or self.build_mesh())
 
+    # ---- persistence (the JAX file layout, ``{"plan": {...}}``) ---------
+    def to_dict(self) -> Dict:
+        d = dataclasses.asdict(self)
+        d["r"] = self.r           # derived, recorded for readability
+        d["sp_size"] = self.sp_size
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Dict) -> "ExecutionPlan":
+        """A plan from ``to_dict`` output, the port's or the JAX
+        package's: 'pallas' reads as 'cuda'; ``pipeline_scan`` is dropped
+        (both issue orders give the same bits on a ``ThreadMesh``); a value
+        the port cannot honour raises ``NotImplementedError``."""
+        for name, default, item in _UNPORTED_FIELDS:
+            if d.get(name, default) != default:
+                raise NotImplementedError(
+                    f"plan {name}={d[name]!r} is not ported to repro_torch "
+                    f"yet (ROADMAP.md {item})")
+        d = {k: ("cuda" if k in ("block_impl", "kernel_impl")
+                 and v == "pallas" else v) for k, v in d.items()}
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in fields})
+
+    def save(self, path) -> pathlib.Path:
+        path = pathlib.Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps({"plan": self.to_dict()}, indent=2))
+        return path
+
+    @classmethod
+    def load(cls, path) -> "ExecutionPlan":
+        d = json.loads(pathlib.Path(path).read_text())
+        return cls.from_dict(d["plan"] if "plan" in d else d)
+
+
+def plan_path(results_dir, arch: str, shape: str) -> pathlib.Path:
+    return pathlib.Path(results_dir) / f"PLAN_{arch}_{shape}.json"
+
 
 def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
               arch: Optional[str] = None, n_devices: int = 1, data: int = 1,
@@ -166,44 +224,75 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
               microbatches: Optional[int] = None,
               block_impl: Optional[str] = None,
               kernel_impl: Optional[str] = None,
-              remat: str = "attn_out",
-              comm_chunks: Optional[int] = None) -> ExecutionPlan:
+              remat: str = "attn_out", grad_compression: str = "none",
+              comm_chunks: Optional[int] = None,
+              cluster: Optional[ClusterModel] = None
+              ) -> ExecutionPlan:
     """Resolve one training run into a validated ExecutionPlan.
+
+    The arrangement is the first entry of ``cost.rank_arrangements``
+    (fastest first, on ``cluster``: default the card's constants) that
+    ``scheme``, ``c`` and ``placement`` admit, as in the JAX package:
+    knobs left as None are the model's pick, an explicit illegal one
+    raises (``scheme='ulysses'`` where the head counts do not divide P, a
+    C with P % C^2 != 0). ``placement`` only filters C > 1. Unset
+    ``comm_chunks`` resolves through ``cost.choose_comm_chunks``.
+    ``microbatches=None`` means 1, as on the JAX local
+    mesh (a ``ThreadMesh`` is its counterpart); the per-device batch must
+    divide by it.
 
     The sequence layout is zigzag for a dense model's training attention
     (causal load balance) and contiguous otherwise; ring-block skipping is
-    on for a sliding window over the contiguous layout, as in the JAX
-    package. ``block_impl`` / ``kernel_impl`` default to 'cuda' (the plain
-    versions on CPU tensors). ``remat`` defaults to 'attn_out', as in the
-    JAX plan. ``microbatches=None`` means 1: the JAX package picks it with
-    the cost model's ``choose_microbatches``, not ported yet (ROADMAP.md
-    §A); the per-device batch must divide by it. ``placement`` (default
-    'team_inner') only matters for C > 1, as in the JAX plan. An explicit
-    ``scheme`` is checked by ``cost.check_scheme`` (Ulysses needs head
-    counts that divide P). ``comm_chunks=None`` means 1: the JAX package
-    picks it with the cost model's ``choose_comm_chunks``, not ported yet.
+    on for a sliding window over the contiguous layout. ``block_impl`` /
+    ``kernel_impl`` default to 'cuda' (the plain versions on CPU
+    tensors). ``remat`` defaults to 'attn_out', as in the JAX plan.
     """
     if n_devices % data:
         raise ValueError(f"n_devices={n_devices} not divisible by "
                          f"data={data}")
-    if scheme is not None:
-        cost.check_scheme(cfg, n_devices // data, scheme)
-    if c is None:
-        raise _no_cost_model("make_plan")
+    sp = n_devices // data
     if cfg.family in ("ssm", "hybrid") or shape.kind != "train":
         seq_scheme = "contiguous"
     else:
         seq_scheme = "zigzag"
+    if scheme is not None:
+        cost.check_scheme(cfg, sp, scheme)
+    batch = max(shape.global_batch // data, 1)
+    ranking = cost.rank_arrangements(cfg, shape, sp, batch=batch,
+                                     cluster=cluster)
+
+    def matches(arr: cost.Arrangement) -> bool:
+        if scheme is not None and arr.scheme != scheme:
+            return False
+        if c is not None and arr.c != c:
+            return False
+        if placement is not None and arr.c > 1 and arr.placement != placement:
+            return False
+        return True
+
+    picked = next((e["arrangement"] for e in ranking
+                   if matches(e["arrangement"])), None)
+    if picked is None:
+        legal = sorted({e["arrangement"].key for e in ranking})
+        msg = (f"no legal arrangement matches scheme={scheme!r} c={c} "
+               f"placement={placement!r} at P={sp}; legal: {legal}")
+        if c is not None and (c < 1 or sp % (c * c)):
+            msg = f"C={c} invalid for P={sp}: need P % C^2 == 0; {msg}"
+        raise ValueError(msg)
+    if comm_chunks is None:
+        comm_chunks = cost.choose_comm_chunks(
+            cfg, shape, sp, picked, batch=batch, cluster=cluster)
     return ExecutionPlan(
         arch=arch or cfg.name, seq_len=shape.seq_len, n_devices=n_devices,
-        data=data, c=c,
-        placement=placement if placement and c > 1 else "team_inner",
+        data=data, c=picked.c,
+        placement=picked.placement if picked.c > 1 else "team_inner",
         block_impl=resolve_impl(block_impl),
         block_skip=cfg.window is not None and seq_scheme == "contiguous",
         kernel_impl=resolve_impl(kernel_impl), shape=shape.name,
         global_batch=shape.global_batch, kind=shape.kind,
-        scheme=scheme or "startrail", seq_scheme=seq_scheme, remat=remat,
-        microbatches=microbatches or 1, comm_chunks=comm_chunks or 1)
+        scheme=picked.scheme, seq_scheme=seq_scheme, remat=remat,
+        microbatches=microbatches or 1, comm_chunks=comm_chunks,
+        grad_compression=grad_compression)
 
 
 def make_serve_plan(cfg: ModelConfig, *, arch: Optional[str] = None,
@@ -213,15 +302,17 @@ def make_serve_plan(cfg: ModelConfig, *, arch: Optional[str] = None,
                     kernel_impl: Optional[str] = None,
                     block_impl: Optional[str] = None,
                     prefix_cache: bool = False,
-                    host_tier_bytes: int = 0) -> ExecutionPlan:
-    """Resolve one serving run into a plan.
+                    host_tier_bytes: int = 0,
+                    cluster: Optional[ClusterModel] = None
+                    ) -> ExecutionPlan:
+    """Resolve one serving run into a plan (``kind='decode'``).
 
     ``seq_len`` is the engine capacity (``max_len`` rounded up so both the
-    SP degree and the page size divide it). A sliding window turns
+    SP degree and the page size divide it) and ``global_batch`` the decode
+    slot count. The arrangement comes from the same ranking as a training
+    plan's (``make_plan``); at P = 1 that is C = 1. A sliding window turns
     ring-block skipping on, as in the JAX package's contiguous layout.
     """
-    if c is None:
-        raise _no_cost_model("make_serve_plan")
     if n_devices % data:
         raise ValueError(f"n_devices={n_devices} not divisible by "
                          f"data={data}")
@@ -231,9 +322,12 @@ def make_serve_plan(cfg: ModelConfig, *, arch: Optional[str] = None,
         raise ValueError("decode_batch must be >= 1")
     quantum = math.lcm(n_devices // data, page_size)
     seq_len = ((max_len + quantum - 1) // quantum) * quantum
-    return ExecutionPlan(
-        arch=arch or cfg.name, seq_len=seq_len, n_devices=n_devices,
-        data=data, c=c, block_impl=resolve_impl(block_impl),
-        block_skip=cfg.window is not None, decode_batch=decode_batch,
-        page_size=page_size, kernel_impl=resolve_impl(kernel_impl),
-        prefix_cache=prefix_cache, host_tier_bytes=host_tier_bytes)
+    shape = ShapeConfig("serve", seq_len=seq_len, global_batch=decode_batch,
+                        kind="decode")
+    base = make_plan(cfg, shape, arch=arch, n_devices=n_devices, data=data,
+                     c=c, block_impl=block_impl, kernel_impl=kernel_impl,
+                     cluster=cluster)
+    return dataclasses.replace(base, decode_batch=decode_batch,
+                               page_size=page_size,
+                               prefix_cache=prefix_cache,
+                               host_tier_bytes=host_tier_bytes)

@@ -1,0 +1,21 @@
+"""Hardware constants of the port's target card, one NVIDIA H100 (the
+counterpart of ``repro.roofline.hw``, which holds the TPU v5e's).
+
+Every figure is NVIDIA's datasheet figure for the NVIDIA H100 80GB HBM3
+(SXM5) at its full 700 W power limit: dense rates, no sparsity. A card set
+below 700 W runs slower under load (``nvidia-smi --query-gpu=power.limit``).
+The names the cost model reads are the JAX package's, so ``plan.cost``
+and ``core.scheduler`` read the same formulas. The JAX table's memory
+size and host link wait for their readers, the microbatch and host-tier
+costs (ROADMAP.md §A items 1 and 6).
+"""
+
+# H100 SXM5 80GB, 700 W, datasheet: bf16 tensor-core peak, dense (FLOP/s)
+PEAK_FLOPS_BF16 = 989e12
+# H100 SXM5 80GB, 700 W, datasheet: f32 peak outside the tensor cores
+PEAK_FLOPS_F32 = 67e12
+# H100 SXM5 80GB, 700 W, datasheet: HBM3 bandwidth (bytes/s)
+HBM_BW = 3.35e12
+# H100 SXM5 80GB, 700 W, datasheet: NVLink 4, 900 GB/s per GPU in both
+# directions, 450e9 bytes/s each way (the JAX table's ICI_BW_PER_LINK)
+NVLINK_BW = 450e9

@@ -148,8 +148,6 @@ def test_unported_knobs_raise():
                             torch_engine.EngineConfig(host_tier_bytes=1))
     with pytest.raises(NotImplementedError, match="preemption"):
         teng.preempt("g")
-    with pytest.raises(NotImplementedError, match="cost model"):
-        make_serve_plan(cfg, c=None)
     with pytest.raises(NotImplementedError, match="SP degree"):
         torch_engine.Engine(teng.model, make_serve_plan(
             cfg, n_devices=4, c=1, page_size=4, max_len=64))

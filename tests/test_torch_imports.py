@@ -51,7 +51,8 @@ def test_every_module_imports_without_jax():
         "          'repro_torch.kernels.ragged_bwd',\n"
         "          'repro_torch.dist.checkpoint', 'repro_torch.optim.grad',\n"
         "          'repro_torch.core.ulysses', 'repro_torch.kernels.ops',\n"
-        "          'repro_torch.plan.cost',\n"
+        "          'repro_torch.plan.cost', 'repro_torch.plan.autotune',\n"
+        "          'repro_torch.core.scheduler', 'repro_torch.roofline.hw',\n"
         "          'repro_torch.obs', 'repro_torch.obs.registry',\n"
         "          'repro_torch.obs.tracing', 'repro_torch.obs.commlog'):\n"
         "    assert n in names, (n, names)\n"

@@ -124,8 +124,11 @@ def _plans(scheme, c, seq=64):
     cfg = registry.get_smoke(ARCH)
     if scheme == "ulysses":         # head counts Ulysses can shard at P=8
         cfg = dataclasses.replace(cfg, num_heads=8, num_kv_heads=8)
+    # placement and chunks pinned, not the ranking's pick, so the island's
+    # counts stay those the JAX plan below is built with
     plan = make_plan(cfg, ShapeConfig("test", seq, 1, "train"),
-                     n_devices=8, scheme=scheme, c=c)
+                     n_devices=8, scheme=scheme, c=c,
+                     placement="team_inner", comm_chunks=1)
     plan_j = JaxPlan(arch=ARCH, shape="test", seq_len=seq, global_batch=1,
                      n_devices=8, scheme=scheme, c=c,
                      seq_scheme=plan.seq_scheme)

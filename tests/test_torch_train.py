@@ -318,10 +318,16 @@ def test_launch_train_cpu_and_unported_flags(tmp_path):
     assert [m["step"] for m in lines] == [1, 2, 3, 4]
     assert all(np.isfinite(m["loss"]) and m["loss"] > 0 for m in lines)
     assert out["step"] == 4
-    for flags in (["--plan", "p.json"], ["--autotune"], ["--multi-pod"],
-                  ["--no-pipeline"]):
+    for flags in (["--multi-pod"], ["--no-pipeline"]):
         with pytest.raises(NotImplementedError, match=flags[0]):
             train.main(base + flags)
+    # --plan reads the JAX layout and refuses what the port cannot honour
+    plan_file = tmp_path / "p.json"
+    plan_file.write_text(json.dumps({"plan": {
+        "arch": ARCH, "seq_len": 32, "n_devices": 1,
+        "mesh_kind": "production"}}))
+    with pytest.raises(NotImplementedError, match="mesh_kind"):
+        train.main(base + ["--plan", str(plan_file)])
     # the flags ported since: Ulysses at P = 1, the registry and the trace
     prom, trace = tmp_path / "m.prom", tmp_path / "t.json"
     out = train.main(base + ["--steps", "1", "--seq-len", "32", "--batch",
