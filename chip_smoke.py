@@ -13,7 +13,8 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               training shape, seq 4096, B3 and B2 on one 12288-token block
               of 4 query heads over one kv head, B4 at a decode step, B5 on
               ragged rows and the legacy decode shape, B6 on a 256-query chunk
-              after cached prefixes, B7 on ragged rows with offsets and a
+              after cached prefixes, B4 and B6 also on one rank's shard at
+              SP degree 2 and 8, B7 on ragged rows with offsets and a
               zero-length row, rectangular MQA, a window over 1000 rows and
               the ragged_bwd path's shape), and timed (``ms``: CUDA
               events, median of bursts after warm-up; ``device_ms``: calls
@@ -34,6 +35,20 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               (1,4096,4,80) over one kv head, the 8 zigzag shards
               concatenated, and sorted), bf16 and f32 against their plain
               versions; ``device_ms`` and bound of each on bf16
+  3b. kernels_d128  every kernel at head size 128 (GPT-7B, minitron-8b,
+              deepseek-7b): phase 3's check cases again at D = 128, bf16
+              and f32 (among them B4 and B6 on one rank's 64-page shard at
+              SP degree 8, the shapes dense_serve's P = 8 runs give them:
+              4 decode slots at rank 5, and q (1,256,32,128) after a
+              512-token prefix at rank 3), then B1, B2 and B3 at GPT-7B's
+              training shape (q,
+              k, v (1,4096,32,128), causal), B4 at minitron-8b's decode
+              step (4 slots at ~1K context, 32q/8kv, pages of 16), B6 at
+              its 256-query chunk after a 1024-token prefix, B5 at the
+              legacy decode shape and B7 at the ragged_bwd shape, each
+              held against its plain version at the same tolerances and
+              timed beside its bound and SDPA where one computes the
+              function; the ``-Xptxas -v`` lines of the D = 128 kernels
   4. ring     StarTrail on a ThreadMesh(c=2, r=2): P = 8 ranks as threads
               on the one card, N = 2048 tokens of 32q/8kv heads of 80,
               bf16, causal + window; each rank runs the forward (B2 in
@@ -125,16 +140,44 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               arrangement its record timed fastest, one step of
               ``launch.train --plan FILE`` (B2 and B3, or B1 and B3 if
               Ulysses won) and ``make_serve_plan(c=None)`` at P = 1 (C = 1)
+ 16. dense_serve  the engine at the full width of minitron-8b (32 layers,
+              d_model 4096, 32q/8kv heads of 128, vocab 256000, ~9.9 B
+              seeded bf16 parameters). At P = 1: 8 greedy requests of
+              64-1024 prompt tokens, 32 new tokens each (B2 per layer and
+              prefill, B4 per layer and decode step). At P = 8, as
+              ThreadMesh(c=2, r=2) threads on the one card from the same
+              weights, cut to keep the phase near 150 s (the 8 rank threads
+              share the GIL: a step takes seconds): 4 of those prompts
+              (336-1024 tokens) with 8 new tokens each (B2 on every rank,
+              ring step and layer of a prefill, B4 on every rank and layer
+              of a decode step), then 2 prompts sharing a 512-token prefix
+              through the prefix cache and 256-token chunks (B6 and B1 on
+              every rank and layer of a suffix chunk, merged across the
+              ranks). Every first-token hidden state at P = 8 is held
+              against P = 1's (``DENSE_SP_TOL``), the share of tokens that
+              agree with P = 1's printed; the engine raises if the ranks
+              sample different tokens; a profiled decode step at each P
+ 17. dense_train  ``trainer.train`` on the paper's GPT-7B (MHA 32/32, head
+              size 128) at seq 4096, batch 1, bf16, ``attn_out``, 3 AdamW
+              steps on one repeated batch at P = 1, the depth cut from 32
+              to 8 layers (the reckoned bytes of both printed: weights,
+              gradients and f32 moments of 32 layers exceed 80 GB); the
+              loss must fall; B2 2 x 8 and B3 8 a step; the D = 128
+              backward kernels' device ms from a profiled step; one loss
+              and gradient at seq 1024 under the CUDA kernels against the
+              plain versions (``dense_train_check``)
 
-The paths are phases 4, 4a, 5, 7, 8a, 8b, 9, 13, each scheme of 14, and
-15's search and its plan's step:
+The paths are phases 4, 4a, 5, 7, 8a, 8b, 9, 13, each scheme of 14,
+15's search and its plan's step, 16's three runs and 17:
 the launch counters are set to 0 just before each and read just after,
 and each must launch exactly the kernels it runs (B2 and B3 in the ring;
 B5 and B7 in ragged_bwd; B2 and B4 in the engine; B1 in the local
 prefill; B1, B2, B4 and B6 in the prefix phase; B2 and B5 in the legacy
 phase; B2 and B3 in the train loop, in train_sp and in the ring and
 StarTrail schemes; B1 and B3 under Ulysses; B1, B2 and B3 in the
-autotune search, whose candidates are all four arrangements). Comparison,
+autotune search, whose candidates are all four arrangements; B2 and B4
+in dense_serve's P = 1 and P = 8 runs, B1, B2, B4 and B6 in its prefix
+run; B2 and B3 in dense_train). Comparison,
 timing and profiling launches are not counted. The kernels line's
 ``launches`` is each kernel's count on the path that runs it (the engine for B2 and B4, the local prefill for B1, the train
 loop for B3, the legacy phase for B5, the prefix phase for B6, ragged_bwd
@@ -318,14 +361,14 @@ def fwd_cases():
     }
 
 
-def fwd_inputs(dtype, dev, seed=0):
+def fwd_inputs(dtype, dev, seed=0, d=80):
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((1, 1024, 32, 80), generator=g, device=dev)
-    k = torch.randn((1, 1024, 8, 80), generator=g, device=dev)
-    v = torch.randn((1, 1024, 8, 80), generator=g, device=dev)
-    o_acc = torch.randn((1, 1024, 32, 80), generator=g, device=dev)
+    q = torch.randn((1, 1024, 32, d), generator=g, device=dev)
+    k = torch.randn((1, 1024, 8, d), generator=g, device=dev)
+    v = torch.randn((1, 1024, 8, d), generator=g, device=dev)
+    o_acc = torch.randn((1, 1024, 32, d), generator=g, device=dev)
     lse_acc = torch.randn((1, 32, 1024), generator=g, device=dev) * 3
     # the running accumulator has seen nothing yet on some rows
     o_acc[:, :96] = 0.0
@@ -356,7 +399,8 @@ def bwd_cases():
     }
 
 
-def bwd_inputs(pos_q, pos_k, window, dtype, dev, seed=0, heads=(32, 8)):
+def bwd_inputs(pos_q, pos_k, window, dtype, dev, seed=0, heads=(32, 8),
+               d=80):
     """q, k, v, do in ``dtype`` and the global lse and delta of full
     attention over the block (delta from o rounded to q's dtype, as
     ``core.startrail.startrail_backward`` computes it)."""
@@ -367,10 +411,10 @@ def bwd_inputs(pos_q, pos_k, window, dtype, dev, seed=0, heads=(32, 8)):
     g = torch.Generator(device=dev).manual_seed(seed)
     sq, sk = pos_q.numel(), pos_k.numel()
     hq, hkv = heads
-    q = torch.randn((1, sq, hq, 80), generator=g, device=dev).to(dtype)
-    k = torch.randn((1, sk, hkv, 80), generator=g, device=dev).to(dtype)
-    v = torch.randn((1, sk, hkv, 80), generator=g, device=dev).to(dtype)
-    do = torch.randn((1, sq, hq, 80), generator=g, device=dev).to(dtype)
+    q = torch.randn((1, sq, hq, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((1, sk, hkv, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((1, sk, hkv, d), generator=g, device=dev).to(dtype)
+    do = torch.randn((1, sq, hq, d), generator=g, device=dev).to(dtype)
     o, lse = fa.flash_attention_fwd_plain(q, k, v, pos_q, pos_k,
                                           window=window)
     delta = torch.einsum("bshd,bshd->bhs", do.float(),
@@ -472,32 +516,38 @@ def paged_cases():
         "sp1_window256": (1, 0, 256, [1023, 700, 300, 0]),
         "sp2_rank1": (2, 1, 4096, [2047, 1000, 40, 0]),
         "decode_1k": (1, 0, 4096, [1023, 1010, 1000, 990]),
+        # dense_serve's P = 8 decode step: one rank's 64-page shard
+        "sp8_rank5": (8, 5, None, [1031, 700, 300, 0]),
     }
 
 
-def paged_inputs(dev, sp, cache_len, seed=0, dtype=None):
-    """q (4,1,32,80); pool (512,16,8,80) (bf16 unless ``dtype``); table
-    (4,64): distinct pages for the blocks each row has written, -1 past
-    them, so the last page of a row is partial; a row with cache_len 0 is
-    an inactive slot."""
+def paged_inputs(dev, sp, cache_len, seed=0, dtype=None, d=80, rank=None):
+    """q (4,1,32,d); pool (512/sp,16,8,d) (bf16 unless ``dtype``), rank
+    ``rank``'s shard (default 1 when sp > 1) of a 512-page cache as the
+    engine splits it; table (4, min(64, 128/sp)): distinct pages for the
+    rank's blocks (global block w*sp + rank at entry w) each row has
+    written, -1 past them, so the last page of a row is partial; a row with
+    cache_len 0 is an inactive slot."""
     import numpy as np
     import torch
 
     dtype = dtype or torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((4, 1, 32, 80), generator=g, device=dev).to(dtype)
-    pool_k = torch.randn((512, 16, 8, 80), generator=g, device=dev).to(dtype)
-    pool_v = torch.randn((512, 16, 8, 80), generator=g, device=dev).to(dtype)
+    pages, width = 512 // sp, min(64, 128 // sp)
+    q = torch.randn((4, 1, 32, d), generator=g, device=dev).to(dtype)
+    pool_k = torch.randn((pages, 16, 8, d), generator=g, device=dev).to(dtype)
+    pool_v = torch.randn((pages, 16, 8, d), generator=g, device=dev).to(dtype)
     rng = np.random.default_rng(seed)
-    perm = rng.permutation(512)
-    table = np.full((4, 64), -1, np.int32)
+    perm = rng.permutation(pages)
+    table = np.full((4, width), -1, np.int32)
     used = 0
-    rank = 1 if sp > 1 else 0
+    if rank is None:
+        rank = 1 if sp > 1 else 0
     for b, cl in enumerate(cache_len):
         if cl == 0:
             continue
         blocks = cl // 16 + 1           # global blocks 0 .. cl // 16
-        n_local = min(64, (blocks - rank + sp - 1) // sp)
+        n_local = min(width, (blocks - rank + sp - 1) // sp)
         table[b, :n_local] = perm[used:used + n_local]
         used += n_local
     return (q, pool_k, pool_v, torch.from_numpy(table).to(dev),
@@ -538,16 +588,16 @@ def ragged_cases():
     }
 
 
-def ragged_inputs(dev, dtype, sq, sk, rows, kind, seed=0):
-    """q (B,Sq,32,80), k/v (B,Sk,8,80) and per-row positions: validity is
+def ragged_inputs(dev, dtype, sq, sk, rows, kind, seed=0, d=80):
+    """q (B,Sq,32,d), k/v (B,Sk,8,d) and per-row positions: validity is
     positional, an unseen key sits past every query."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
     b = len(rows)
-    q = torch.randn((b, sq, 32, 80), generator=g, device=dev).to(dtype)
-    k = torch.randn((b, sk, 8, 80), generator=g, device=dev).to(dtype)
-    v = torch.randn((b, sk, 8, 80), generator=g, device=dev).to(dtype)
+    q = torch.randn((b, sq, 32, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, sk, 8, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, sk, 8, d), generator=g, device=dev).to(dtype)
     ak = torch.arange(sk, dtype=torch.int32, device=dev)[None]
     r = torch.tensor(rows, dtype=torch.int32, device=dev)[:, None]
     if kind == "lengths":
@@ -577,50 +627,59 @@ def ragged_work(q, k, pos_q, pos_k, window):
 
 
 def paged_prefill_cases():
-    # name: (cached_len per row, window, unallocated table entries of row 0)
+    # name: (cached_len per row, window, unallocated table entries of row 0,
+    #        sp, rank)
     return {
         # row 0's last cached page is half filled; row 1 has nothing cached
-        "partial_page_and_empty": ([1000, 0], 4096, []),
-        "unallocated": ([1024], 4096, [5, 40]),
+        "partial_page_and_empty": ([1000, 0], 4096, [], 1, 0),
+        "unallocated": ([1024], 4096, [5, 40], 1, 0),
         # queries 1024..1279 in a window of 256: the later ones see no key
-        "window_slid": ([1024], 256, []),
-        "prefix_1024": ([1024], 4096, []),     # the prefix phase's shape
+        "window_slid": ([1024], 256, [], 1, 0),
+        "prefix_1024": ([1024], 4096, [], 1, 0),  # the prefix phase's shape
+        # dense_serve's P = 8 suffix chunk after its 512-token prefix: one
+        # rank's 64-page shard, its blocks at w*8 + 3
+        "sp8_rank3_prefix512": ([512], None, [], 8, 3),
     }
 
 
-def paged_prefill_inputs(dev, dtype, cached, holes, sq=256, seed=0):
-    """q (B,256,32,80); pool (512,16,8,80); table (B,128): distinct pages
-    for the blocks of each row's prefix and suffix, -1 past them and at
-    ``holes`` in row 0."""
+def paged_prefill_inputs(dev, dtype, cached, holes, sq=256, seed=0, d=80,
+                         sp=1, rank=0):
+    """q (B,256,32,d); pool (512/sp,16,8,d), rank ``rank``'s shard of a
+    512-page cache as the engine splits it; table (B,128/sp): distinct
+    pages for the rank's blocks (global block w*sp + rank at entry w) of
+    each row's prefix and suffix, -1 past them and at ``holes`` in row 0."""
     import numpy as np
     import torch
 
+    pages, width = 512 // sp, 128 // sp
     g = torch.Generator(device=dev).manual_seed(seed)
     b = len(cached)
-    q = torch.randn((b, sq, 32, 80), generator=g, device=dev).to(dtype)
-    pool_k = torch.randn((512, 16, 8, 80), generator=g, device=dev).to(dtype)
-    pool_v = torch.randn((512, 16, 8, 80), generator=g, device=dev).to(dtype)
-    perm = np.random.default_rng(seed).permutation(512)
-    table = np.full((b, 128), -1, np.int32)
+    q = torch.randn((b, sq, 32, d), generator=g, device=dev).to(dtype)
+    pool_k = torch.randn((pages, 16, 8, d), generator=g, device=dev).to(dtype)
+    pool_v = torch.randn((pages, 16, 8, d), generator=g, device=dev).to(dtype)
+    perm = np.random.default_rng(seed).permutation(pages)
+    table = np.full((b, width), -1, np.int32)
     used = 0
     for row, cl in enumerate(cached):
         blocks = -(-(cl + sq) // 16)
-        table[row, :blocks] = perm[used:used + blocks]
-        used += blocks
+        n_local = max(0, -(-(blocks - rank) // sp))
+        table[row, :n_local] = perm[used:used + n_local]
+        used += n_local
     table[0, holes] = -1
     return (q, pool_k, pool_v, torch.from_numpy(table).to(dev),
             torch.tensor(cached, dtype=torch.int32, device=dev))
 
 
 def paged_prefill_work(table, cached, sq, window, ps=16, hkv=8, d=80,
-                       hq=32):
+                       hq=32, sp=1, rank=0):
     """(bytes, flops) this data needs: q in, the K and V of the pages some
     query sees, the table and lengths, o and lse out in f32; 4*D FLOPs per
-    visible (query, key) pair and query head."""
+    visible (query, key) pair and query head; no window is ``window=None``."""
+    window = (1 << 30) if window is None else window
     pages = pairs = 0
     for b, cl in enumerate(cached):
         for w in range(table.shape[1]):
-            base = w * ps
+            base = (w * sp + rank) * ps
             if table[b, w] < 0 or base >= cl:
                 continue
             # query i (position cl + i) sees key p iff cl + i - p < window
@@ -649,7 +708,7 @@ def ragged_bwd_cases():
 
 
 def ragged_bwd_inputs(dev, dtype, b, sq, sk, hq, hkv, window, offsets,
-                      zero_rows, seed=0):
+                      zero_rows, seed=0, d=80):
     """q, k, v, do in ``dtype``, the global lse and delta of the block pair
     (delta from o rounded to q's dtype), and (B,Sq) / (B,Sk) positions: row
     r's queries start at ``offsets[r]`` and its keys end with them (an Sk >
@@ -660,10 +719,10 @@ def ragged_bwd_inputs(dev, dtype, b, sq, sk, hq, hkv, window, offsets,
     from repro_torch.kernels import ragged_prefill as rp
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((b, sq, hq, 80), generator=g, device=dev).to(dtype)
-    k = torch.randn((b, sk, hkv, 80), generator=g, device=dev).to(dtype)
-    v = torch.randn((b, sk, hkv, 80), generator=g, device=dev).to(dtype)
-    do = torch.randn((b, sq, hq, 80), generator=g, device=dev).to(dtype)
+    q = torch.randn((b, sq, hq, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(dtype)
+    do = torch.randn((b, sq, hq, d), generator=g, device=dev).to(dtype)
     off = torch.tensor(offsets, dtype=torch.int32, device=dev)[:, None]
     pos_q = off + torch.arange(sq, dtype=torch.int32, device=dev)[None]
     pos_k = off + torch.arange(sk, dtype=torch.int32, device=dev)[None] \
@@ -677,27 +736,23 @@ def ragged_bwd_inputs(dev, dtype, b, sq, sk, hq, hkv, window, offsets,
             pos_k.contiguous())
 
 
-def phase_kernels(dev):
+def check_cases(dev, rows, d=80):
+    """Every kernel against its plain version on the check cases above,
+    bf16 and f32, at head size ``d``: each row's ``max_abs_err`` (and B3's
+    and B7's ``max_scaled_err``) rises to the worst case. Returns the
+    cases checked."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import paged_prefill as pp
     from repro_torch.kernels import ragged_bwd as rb
     from repro_torch.kernels import ragged_prefill as rp
-    from repro_torch.kernels import ref
 
-    rows = {n: {"name": n, "route": "cuda", "source": SOURCES[n],
-                "replaces": REPLACES[n], "max_abs_err": 0.0,
-                "device_ms": None, "library_device_ms": None}
-            for n in KERNELS}
-    for n in ("B3", "B7"):
-        rows[n]["max_scaled_err"] = 0.0
     checked = []
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        (q, k, v), o_acc, lse_acc = fwd_inputs(dtype, dev)
+        (q, k, v), o_acc, lse_acc = fwd_inputs(dtype, dev, d=d)
         for case, (pq, pk, window) in fwd_cases().items():
             pq, pk = pq.to(dev), pk.to(dev)
             for name, acc in (("B1", ()), ("B2", (o_acc, lse_acc))):
@@ -716,7 +771,7 @@ def phase_kernels(dev):
                 checked.append(f"{name}/{case}/{dname}")
         for case, (pq, pk, window) in bwd_cases().items():
             pq, pk = pq.to(dev), pk.to(dev)
-            args = bwd_inputs(pq, pk, window, dtype, dev)
+            args = bwd_inputs(pq, pk, window, dtype, dev, d=d)
             got = fa.flash_attention_bwd(*args, pq, pk, window=window)
             torch.cuda.synchronize()
             want = fa.flash_attention_bwd_plain(*args, pq, pk, window=window)
@@ -737,7 +792,8 @@ def phase_kernels(dev):
             (d, c) for d in (torch.bfloat16, torch.float32)
             for c in paged_cases().items()):
         dname = str(dtype).split(".")[-1]
-        args = (*paged_inputs(dev, sp, cls, dtype=dtype), rank)
+        args = (*paged_inputs(dev, sp, cls, dtype=dtype, d=d, rank=rank),
+                rank)
         kw = dict(sp=sp, page_size=16, window=window)
         o, lse = pd.paged_decode_attention(*args, **kw)
         torch.cuda.synchronize()
@@ -755,7 +811,8 @@ def phase_kernels(dev):
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
         for case, (sq, sk, window, rws, kind) in ragged_cases().items():
-            (q, k, v), pq, pk = ragged_inputs(dev, dtype, sq, sk, rws, kind)
+            (q, k, v), pq, pk = ragged_inputs(dev, dtype, sq, sk, rws, kind,
+                                             d=d)
             o, lse = rp.ragged_prefill_fwd(q, k, v, pq, pk, window=window)
             torch.cuda.synchronize()
             o_p, lse_p = rp.ragged_prefill_fwd_plain(q, k, v, pq, pk,
@@ -767,12 +824,14 @@ def phase_kernels(dev):
                 check(n_dead >= sq * 32, f"B5 {case}: {n_dead} dead rows")
             rows["B5"]["max_abs_err"] = max(rows["B5"]["max_abs_err"], err)
             checked.append(f"B5/{case}/{dname}")
-        for case, (cached, window, holes) in paged_prefill_cases().items():
-            args = paged_prefill_inputs(dev, dtype, cached, holes)
-            kw = dict(sp=1, page_size=16, window=window)
-            o, lse = pp.paged_prefill_attention(*args, 0, **kw)
+        for case, (cached, window, holes, sp, rank) in \
+                paged_prefill_cases().items():
+            args = (*paged_prefill_inputs(dev, dtype, cached, holes, d=d,
+                                          sp=sp, rank=rank), rank)
+            kw = dict(sp=sp, page_size=16, window=window)
+            o, lse = pp.paged_prefill_attention(*args, **kw)
             torch.cuda.synchronize()
-            o_p, lse_p = pp.paged_prefill_attention_plain(*args, 0, **kw)
+            o_p, lse_p = pp.paged_prefill_attention_plain(*args, **kw)
             err, ok, n_dead = partial_err(o, lse, o_p, lse_p, TOL[dname])
             check(ok, f"B6 {case} {dname}: max err {err} (tol {TOL[dname]})"
                       f" or a dead row not exact")
@@ -781,7 +840,7 @@ def phase_kernels(dev):
                       f"B6 {case}: the row with nothing cached is not dead")
             if case == "window_slid":
                 check(0 < n_dead < lse.numel(), f"B6 {case}: {n_dead} dead")
-            check(same_bits(pp.paged_prefill_attention(*args, 0, **kw),
+            check(same_bits(pp.paged_prefill_attention(*args, **kw),
                             (o, lse)),
                   f"B6 {case} {dname}: two runs differ (no atomics: they "
                   f"must give the same bits)")
@@ -790,7 +849,7 @@ def phase_kernels(dev):
         for case, (b, sq, sk, hq, hkv, window, offs, zero) in \
                 ragged_bwd_cases().items():
             args = ragged_bwd_inputs(dev, dtype, b, sq, sk, hq, hkv, window,
-                                     offs, zero)
+                                     offs, zero, d=d)
             got = rb.flash_attention_bwd_ragged(*args, window=window)
             torch.cuda.synchronize()
             want = rb.flash_attention_bwd_ragged_plain(*args, window=window)
@@ -811,6 +870,27 @@ def phase_kernels(dev):
                                                scaled_err(got, want))
             checked.append(f"B7/{case}/{dname}")
             del got, want, again, args
+    return checked
+
+
+def phase_kernels(dev):
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import ragged_bwd as rb
+    from repro_torch.kernels import ragged_prefill as rp
+    from repro_torch.kernels import ref
+
+    rows = {n: {"name": n, "route": "cuda", "source": SOURCES[n],
+                "replaces": REPLACES[n], "max_abs_err": 0.0,
+                "device_ms": None, "library_device_ms": None}
+            for n in KERNELS}
+    for n in ("B3", "B7"):
+        rows[n]["max_scaled_err"] = 0.0
+    checked = check_cases(dev, rows)
 
     # timing at the engine's shapes: a 1024-token prefill (bf16, causal,
     # window 4096) and a 4-slot decode step at ~1K context
@@ -1206,6 +1286,264 @@ def phase_kernels_ulysses(dev, rows):
 # to bf16 before delta = rowsum(do * o) (as the model's backward does), which
 # moves ds by up to a bf16 ulp of delta (2^-8 relative), so allow 1e-2 of
 # each gradient's largest magnitude.
+# ---------------------------------------------------------------------------
+# phase 3b: the kernels at head size 128
+# ---------------------------------------------------------------------------
+
+D128 = 128
+D128_SEQ = 4096          # GPT-7B's training shape: 32q/32kv heads, causal
+MINITRON_CTX = [1023, 1010, 1000, 990]   # 4 decode slots at ~1K context
+
+
+def phase_kernels_d128(dev, rows):
+    """Every kernel at head size 128, the head size of GPT-7B, minitron-8b
+    and deepseek-7b: the check cases of phase 3 again (bf16 and f32), then
+    each kernel at the shape the dense phases give it, held against its
+    plain version at the same ``TOL``/``BWD_TOL`` and timed beside its
+    bound and, where one exists, SDPA: B1, B2 and B3 at GPT-7B's training
+    shape (q, k, v (1,4096,32,128), causal), B4 at minitron-8b's decode
+    step (4 slots at ~1K context, 32q/8kv, pages of 16), B6 at its
+    256-query chunk after a 1024-token prefix, B5 at the legacy decode
+    shape and B7 at the ragged_bwd shape, each at D = 128 with no window.
+    The check cases include B4 and B6 at dense_serve's P = 8 shard shapes
+    (``sp8_rank5``, ``sp8_rank3_prefix512``). Each row gains ``d128``; the
+    ``-Xptxas -v`` lines of the D = 128 kernels show their registers and
+    spills."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_prefill as pp
+    from repro_torch.kernels import ragged_bwd as rb
+    from repro_torch.kernels import ragged_prefill as rp
+    from repro_torch.kernels import ref
+
+    d = D128
+    res = {n: {"max_abs_err": 0.0} for n in KERNELS}
+    for n in ("B3", "B7"):
+        res[n]["max_scaled_err"] = 0.0
+    checked = check_cases(dev, res, d=d)
+    shapes = {}
+
+    def hold(name, what, got, want, lse=None):
+        """The kernel's output against the plain version's at the
+        phase's tolerances."""
+        if lse is None:
+            err, ok, _ = partial_err(*got, *want, TOL["bfloat16"])
+            tol = TOL["bfloat16"]
+        else:
+            err, ok, _ = grad_err(got, want, lse, BWD_TOL)
+            res[name]["max_scaled_err"] = max(res[name]["max_scaled_err"],
+                                              scaled_err(got, want))
+            tol = BWD_TOL
+        check(ok, f"{name} {what} bfloat16 D=128: max err {err} (tol "
+                  f"{tol}) or a dead row not exact")
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        checked.append(f"{name}/{what}/bfloat16")
+
+    # B1, B2, B3 at GPT-7B's training shape (MHA, no window)
+    g = torch.Generator(device=dev).manual_seed(11)
+    S = D128_SEQ
+    q, k, v, do = (torch.randn((1, S, 32, d), generator=g,
+                               device=dev).bfloat16() for _ in range(4))
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    o_acc = torch.randn((1, S, 32, d), generator=g, device=dev)
+    lse_acc = 3 * torch.randn((1, 32, S), generator=g, device=dev)
+    o_acc[:, :96] = 0.0
+    lse_acc[:, :, :96] = NEG_INF
+    pairs = visible_pairs(pos, pos, None)
+    for name, acc in (("B1", ()), ("B2", (o_acc, lse_acc))):
+        got = fa.flash_attention_fwd(q, k, v, pos, pos, *acc)
+        torch.cuda.synchronize()
+        hold(name, f"gpt7b_seq{S}", got,
+             fa.flash_attention_fwd_plain(q, k, v, pos, pos, *acc))
+        shapes[name] = "q, k, v (1,4096,32,128) bf16, causal" + (
+            ", merged into a running (o, lse)" if acc else "")
+    del got
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, pos, pos)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         o.bfloat16().float()).contiguous()
+    bargs = (q, k, v, do, lse, delta, pos, pos)
+    got = fa.flash_attention_bwd(*bargs)
+    torch.cuda.synchronize()
+    hold("B3", f"gpt7b_seq{S}", got, fa.flash_attention_bwd_plain(*bargs),
+         lse)
+    check(same_bits(got, fa.flash_attention_bwd(*bargs)),
+          "B3 D=128: two runs differ (no atomics: they must give the same "
+          "bits)")
+    shapes["B3"] = "q, k, v, do (1,4096,32,128) bf16, causal"
+    del got, o
+    io = sum(t.numel() * t.element_size() for t in (q, k, v, pos, pos)) \
+        + q.numel() * 4 + 32 * S * 4
+    acc_io = (o_acc.numel() + lse_acc.numel()) * 4
+    flops = 4 * d * 32 * pairs
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    timing = {
+        "B1": dict(ms=time_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, pos, pos), reps=10, inner=2),
+            plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(
+                q, k, v, pos, pos), reps=5, inner=2),
+            device_ms=device_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, pos, pos), calls=5),
+            library_ms=time_ms(sdpa, reps=10, inner=2),
+            library_device_ms=device_ms(sdpa, calls=5),
+            work=(io, flops, "bfloat16")),
+        "B2": dict(ms=time_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, pos, pos, o_acc, lse_acc), reps=10, inner=2),
+            plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(
+                q, k, v, pos, pos, o_acc, lse_acc), reps=5, inner=2),
+            device_ms=device_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, pos, pos, o_acc, lse_acc), calls=5),
+            library_ms=None, library_device_ms=None,
+            sdpa_fwd_device_ms=device_ms(sdpa, calls=5),
+            work=(io + acc_io, flops, "bfloat16"))}
+    del qt, kt, vt
+    try:
+        lib_ms, lib_dev = sdpa_bwd_ms(q, k, v, do)
+    except RuntimeError as e:      # no SDPA backend for these inputs
+        lib_ms = lib_dev = None
+        emit("kernels_note", library_B3_d128=f"SDPA backward refused: {e}")
+    timing["B3"] = dict(
+        ms=time_ms(lambda: fa.flash_attention_bwd(*bargs), reps=10,
+                   inner=2),
+        plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(*bargs),
+                         reps=5, inner=2),
+        device_ms=device_ms(lambda: fa.flash_attention_bwd(*bargs),
+                            calls=5),
+        library_ms=lib_ms, library_device_ms=lib_dev,
+        work=(*bwd_work(q, k, pos, pos, pairs), "bfloat16"))
+    occupancy = {"bf16_bwd_seq4096": fa.bwd_occupancy(d, S, S),
+                 "fwd_seq4096_g1": fa.fwd_occupancy(d, S, S, 1),
+                 "fwd_decode_g4": fa.fwd_occupancy(d, 1, 1024, 4)}
+    del q, k, v, do, lse, delta, o_acc, lse_acc, bargs
+    free_device()
+
+    # B4 at minitron-8b's decode step
+    qd, pk_, pv_, table, cl = paged_inputs(dev, 1, MINITRON_CTX, seed=12,
+                                           d=d)
+    kw = dict(sp=1, page_size=16)
+    args4 = (qd, pk_, pv_, table, cl, 0)
+    got = pd.paged_decode_attention(*args4, **kw)
+    torch.cuda.synchronize()
+    hold("B4", "minitron_decode", got,
+         pd.paged_decode_attention_plain(*args4, **kw))
+    ref4 = paged_sdpa(qd, pk_, pv_, table, cl, 16, None, decode=True)
+    timing["B4"] = dict(
+        ms=time_ms(lambda: pd.paged_decode_attention(*args4, **kw)),
+        plain_ms=time_ms(lambda: pd.paged_decode_attention_plain(
+            *args4, **kw)),
+        device_ms=device_ms(lambda: pd.paged_decode_attention(*args4, **kw)),
+        library_ms=None, library_device_ms=None,
+        gathered_sdpa_device_ms=device_ms(ref4),
+        work=(*paged_work(table.cpu().numpy(), cl.cpu().numpy(), 1, 0,
+                          None, d=d), "bfloat16"))
+    shapes["B4"] = "q (4,1,32,128) bf16, pool (512,16,8,128), W 64, " \
+        "cache lengths 1023/1010/1000/990"
+    # B6 at minitron-8b's 256-query chunk after a 1024-token prefix
+    args6 = (*paged_prefill_inputs(dev, torch.bfloat16, [1024], [], seed=13,
+                                   d=d), 0)
+    got = pp.paged_prefill_attention(*args6, **kw)
+    torch.cuda.synchronize()
+    hold("B6", "minitron_chunk", got,
+         pp.paged_prefill_attention_plain(*args6, **kw))
+    ref6 = paged_sdpa(*args6[:5], 16, None, decode=False)
+    timing["B6"] = dict(
+        ms=time_ms(lambda: pp.paged_prefill_attention(*args6, **kw)),
+        plain_ms=time_ms(lambda: pp.paged_prefill_attention_plain(
+            *args6, **kw)),
+        device_ms=device_ms(lambda: pp.paged_prefill_attention(*args6,
+                                                               **kw)),
+        library_ms=None, library_device_ms=None,
+        gathered_sdpa_device_ms=device_ms(ref6),
+        work=(*paged_prefill_work(args6[3].cpu().numpy(), [1024], 256, None,
+                                  d=d), "bfloat16"))
+    shapes["B6"] = "q (1,256,32,128) bf16, pool (512,16,8,128), W 128, " \
+        "cached_len 1024"
+    del got, args4, args6, ref4, ref6
+    # B5 at the legacy decode shape
+    (q5, k5, v5), pq5, pk5 = ragged_inputs(dev, torch.bfloat16, 1, 1056,
+                                           [1024] * 4, "decode", seed=14,
+                                           d=d)
+    got = rp.ragged_prefill_fwd(q5, k5, v5, pq5, pk5)
+    torch.cuda.synchronize()
+    hold("B5", "decode_sq1", got,
+         rp.ragged_prefill_fwd_plain(q5, k5, v5, pq5, pk5))
+    mask5 = ref.make_mask(pq5, pk5, causal=True)[:, None]
+    qt5 = q5.transpose(1, 2)
+    kt5, vt5 = (t.transpose(1, 2).repeat_interleave(4, dim=1)
+                for t in (k5, v5))
+
+    def sdpa5():
+        return F.scaled_dot_product_attention(qt5, kt5, vt5,
+                                              attn_mask=mask5)
+
+    timing["B5"] = dict(
+        ms=time_ms(lambda: rp.ragged_prefill_fwd(q5, k5, v5, pq5, pk5)),
+        plain_ms=time_ms(lambda: rp.ragged_prefill_fwd_plain(
+            q5, k5, v5, pq5, pk5)),
+        device_ms=device_ms(lambda: rp.ragged_prefill_fwd(
+            q5, k5, v5, pq5, pk5)),
+        library_ms=time_ms(sdpa5), library_device_ms=device_ms(sdpa5),
+        work=(*ragged_work(q5, k5, pq5, pk5, None), "bfloat16"))
+    shapes["B5"] = "q (4,1,32,128), k/v (4,1056,8,128) bf16, cache " \
+        "length 1024 per row"
+    del got, q5, k5, v5, qt5, kt5, vt5, mask5
+    # B7 at the ragged_bwd path's shape
+    args7 = ragged_bwd_inputs(dev, torch.bfloat16, 4, 1024, 1024, 32, 8,
+                              None, [0, 1024, 2048, 3072], [], seed=15, d=d)
+    got = rb.flash_attention_bwd_ragged(*args7)
+    torch.cuda.synchronize()
+    hold("B7", "path_4x1024", got,
+         rb.flash_attention_bwd_ragged_plain(*args7), args7[4])
+    q7, k7, v7, do7, _, _, pq7, pk7 = args7
+    mask7 = ref.make_mask(pq7, pk7, causal=True)
+    try:
+        lib7, lib7_dev = sdpa_bwd_ms(q7, k7, v7, do7, mask7[:, None])
+    except RuntimeError as e:      # no SDPA backend for these inputs
+        lib7 = lib7_dev = None
+        emit("kernels_note", library_B7_d128=f"SDPA backward refused: {e}")
+    timing["B7"] = dict(
+        ms=time_ms(lambda: rb.flash_attention_bwd_ragged(*args7), reps=10,
+                   inner=2),
+        plain_ms=time_ms(lambda: rb.flash_attention_bwd_ragged_plain(
+            *args7), reps=5, inner=2),
+        device_ms=device_ms(lambda: rb.flash_attention_bwd_ragged(*args7),
+                            calls=5),
+        library_ms=lib7, library_device_ms=lib7_dev,
+        work=(*bwd_work(q7, k7, pq7, pk7, int(mask7.sum())), "bfloat16"))
+    shapes["B7"] = "q (4,1024,32,128), k/v (4,1024,8,128) bf16, (B,S) " \
+        "positions at offsets 0/1024/2048/3072, causal"
+    del got, args7, q7, k7, v7, do7, mask7
+    for name, t in timing.items():
+        b_ms, b_by = bound(*t.pop("work"))
+        res[name].update(t, bound_ms=b_ms, bound_by=b_by, shape=shapes[name])
+        rows[name]["d128"] = res[name]
+    ptxas = [line for line in _build.build_info()["ptxas"]
+             if "Li128E" in line]
+    emit("kernels_d128", checked=len(checked), head_dim=d,
+         tolerances="as phase 3: forward f32 2e-5, bf16 1e-4; B3, B7 3e-4; "
+                    "dead rows exact",
+         library={"B1": "scaled_dot_product_attention(is_causal), o only",
+                  "B2.sdpa_fwd_device_ms": "the same call: a reference "
+                                           "without lse or the merge",
+                  "B3": "autograd backward of scaled_dot_product_attention"
+                        "(is_causal), timed alone",
+                  "B4/B6.gathered_sdpa_device_ms": "references: SDPA on "
+                                                   "the pages' keys "
+                                                   "gathered beforehand",
+                  "B5": "scaled_dot_product_attention with the boolean "
+                        "mask, kv heads repeated beforehand",
+                  "B7": "autograd backward of scaled_dot_product_attention"
+                        " with the boolean mask, kv heads repeated"},
+         occupancy=occupancy, ptxas_d128=ptxas, kernels=res)
+
+
 RING_GRAD_TOL = 1e-2
 
 
@@ -1355,6 +1693,96 @@ def launches_of(**counts):
     return {n: counts.get(n, 0) for n in KERNELS}
 
 
+def p1_launches(engine):
+    """One card: C = R = 1, so each layer's StarTrail forward is one ring
+    step through B2 (merging into the empty accumulator), and each decode
+    step runs B4 once a layer."""
+    L, m = engine.cfg.num_layers, engine.metrics
+    return launches_of(B2=L * m.prefills, B4=L * m.decode_steps)
+
+
+def drive_engine(engine, smi, reqs, want, what, profile_steps=0,
+                 later=()):
+    """Serve ``reqs`` (then ``later``, each queued once every earlier
+    request's prefill has completed) step by step, with every count set to
+    0 just before and read just after; profile the first ``profile_steps``
+    steps that decode with no prefill queued or in flight. Each request
+    must stream its ``max_new_tokens`` in-vocab tokens, and the launches
+    must equal ``want(engine)``. Returns the streams, the first-token
+    hidden states, the launch counts and the run's record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    hidden = {}
+    engine.on_prefill = lambda uid, h: hidden.__setitem__(uid,
+                                                          h.float().clone())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pending = list(later)
+    decode_ms, window = [], None
+    counts = reset_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        check(engine.add_request(r) is None, f"{r.uid} rejected")
+    while not engine.idle() or pending:
+        if pending and engine.metrics.prefills == len(reqs) + len(later) \
+                - len(pending):
+            r = pending.pop(0)
+            check(engine.add_request(r) is None, f"{r.uid} rejected")
+        active = engine.scheduler.active()
+        # a step that only decodes: nothing queued, every prefill done
+        pure = not engine.scheduler.queue and bool(active) \
+            and all(st.cache_len > 0 for st in active)
+        profiled = pure and window is None and profile_steps > 0
+        t1 = time.perf_counter()
+        if profiled:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(profile_steps):
+                    engine.step()
+                torch.cuda.synchronize()
+            window = _profile_window(prof, profile_steps,
+                                     time.perf_counter() - t1)
+            del prof
+            emitted = [True]
+        else:
+            emitted = engine.step()
+            if pure:
+                decode_ms.append(1e3 * (time.perf_counter() - t1))
+        check(bool(emitted) or bool(engine.scheduler.active()),
+              "engine stalled")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counts)
+    engine.on_prefill = None
+    out = engine.collect()
+    vocab = engine.cfg.vocab_size
+    for r in (*reqs, *later):
+        toks = out.get(r.uid, [])
+        check(len(toks) == r.max_new_tokens
+              and all(0 <= t < vocab for t in toks),
+              f"{what} {r.uid}: {len(toks)} tokens, want "
+              f"{r.max_new_tokens} in-vocab")
+    m = engine.metrics
+    expected = want(engine)
+    check(launches == expected,
+          f"{what} launches {launches}: want {expected} ({m.prefills} "
+          f"prefills, {m.prefill_chunks} chunks, {m.decode_steps} decode "
+          f"steps)")
+    rec = {"P_sp": engine.sp, "C": engine.plan.c, "R": engine.plan.r,
+           "scheme": engine.plan.scheme,
+           "comm_chunks": engine.plan.comm_chunks, "wall_s": wall,
+           "prefills": m.prefills, "prefill_chunks": m.prefill_chunks,
+           "decode_steps": m.decode_steps, "prefill_s": m.prefill_wall_s,
+           "ttft_s": dict(engine.ttft_s),
+           "decode_step_wall_ms_median": (statistics.median(decode_ms)
+                                          if decode_ms else None),
+           "decode_step_profile": window,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": launches, "card": smi}
+    return out, hidden, launches, rec
+
+
 def phase_engine(dev, smi):
     import numpy as np
     import torch
@@ -1379,39 +1807,21 @@ def phase_engine(dev, smi):
                                                     64).tolist(), 4))
     engine.run()
     engine.reset()
-    torch.cuda.reset_peak_memory_stats()
     plens = [64, 200, 336, 472, 608, 744, 880, 1024]
     reqs = [Request(f"req{i}", rng.integers(0, cfg.vocab_size, n).tolist(),
                     32) for i, n in enumerate(plens)]
-    counts = reset_counts()
-    t0 = time.perf_counter()
-    for r in reqs:
-        check(engine.add_request(r) is None, f"{r.uid} rejected")
-    out = engine.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts(counts)
+    _, _, launches, rec = drive_engine(engine, smi, reqs, p1_launches,
+                                       "engine")
     m = engine.metrics
-    for r in reqs:
-        toks = out.get(r.uid, [])
-        check(len(toks) == 32 and all(0 <= t < cfg.vocab_size for t in toks),
-              f"{r.uid}: {len(toks)} tokens, want 32 in-vocab")
-    L = cfg.num_layers
-    # one card: C = R = 1, so each layer's StarTrail forward is one ring
-    # step through B2 (merging into the empty accumulator)
-    want = launches_of(B2=L * m.prefills, B4=L * m.decode_steps)
-    check(launches == want, f"engine launches {launches}: want {want} "
-          f"({m.prefills} prefills, {m.decode_steps} decode steps)")
     emit("engine", model=cfg.name, params=model.param_count(),
          weights="seeded random bf16", init_s=init_s, requests=len(reqs),
          prompt_lens=plens, new_tokens=32, launches=launches,
          prefills=m.prefills, decode_steps=m.decode_steps,
-         ttft_s={r.uid: engine.ttft_s[r.uid] for r in reqs},
+         ttft_s=rec["ttft_s"],
          mean_decode_step_ms=1e3 * m.decode_wall_s / max(m.decode_steps, 1),
-         prefill_s=m.prefill_wall_s, wall_s=wall,
-         tokens_per_s=m.tokens_out / wall,
-         max_memory_allocated=torch.cuda.max_memory_allocated(),
-         card=smi)
+         prefill_s=m.prefill_wall_s, wall_s=rec["wall_s"],
+         tokens_per_s=m.tokens_out / rec["wall_s"],
+         max_memory_allocated=rec["max_memory_allocated"], card=smi)
     return engine, reqs[5].tokens, launches
 
 
@@ -1433,11 +1843,13 @@ def _logits(engine, hidden):
     return logits
 
 
-def compare(got, want, what):
+def compare(got, want, what, tol=None):
     """Relative L2 error and largest error over the largest magnitude of
-    the hidden state and the logits, checked against ``ENGINE_TOL``."""
+    the hidden state and the logits, checked against ``tol`` (default
+    ``ENGINE_TOL``)."""
     import torch
 
+    tol = tol or ENGINE_TOL
     errs = {}
     for i, name in enumerate(("hidden", "logits")):
         a, b = got[i], want[i]
@@ -1445,8 +1857,8 @@ def compare(got, want, what):
                       "max_abs_over_max": float((a - b).abs().max()
                                                 / b.abs().max())}
         check(bool(torch.isfinite(a).all())
-              and all(errs[name][k] <= ENGINE_TOL[k] for k in ENGINE_TOL),
-              f"{what} {name}: {errs[name]} beyond {ENGINE_TOL}")
+              and all(errs[name][k] <= tol[k] for k in tol),
+              f"{what} {name}: {errs[name]} beyond {tol}")
     return errs
 
 
@@ -1871,7 +2283,7 @@ def phase_train(dev, smi):
 TRAIN_CHECK_TOL = {"loss_rel": 2e-3, "grad_rel_l2": 5e-2}
 
 
-def phase_train_check(model, dev):
+def phase_train_check(model, dev, phase="train_check"):
     import math
 
     from repro_torch.configs.base import RunConfig
@@ -1895,9 +2307,9 @@ def phase_train_check(model, dev):
     check(all(math.isfinite(x) for x in rel.values())
           and loss_rel <= TRAIN_CHECK_TOL["loss_rel"]
           and rel[worst] <= TRAIN_CHECK_TOL["grad_rel_l2"],
-          f"train_check: loss rel {loss_rel}, worst grad leaf {worst} rel "
+          f"{phase}: loss rel {loss_rel}, worst grad leaf {worst} rel "
           f"L2 {rel[worst]}, beyond {TRAIN_CHECK_TOL}")
-    emit("train_check", seq_len=shape.seq_len, batch=1,
+    emit(phase, seq_len=shape.seq_len, batch=1,
          loss={"cuda": float(loss_c), "ref": float(loss_r)},
          loss_rel=loss_rel, loss_rel_tol=TRAIN_CHECK_TOL["loss_rel"],
          grad_rel_l2_worst={"leaf": worst, "value": rel[worst]},
@@ -2545,6 +2957,286 @@ def phase_autotune(dev, smi):
     return {"autotune": search, "autotune_plan": trained}
 
 
+# ---------------------------------------------------------------------------
+# phases 16-17: the dense configs at head size 128
+# ---------------------------------------------------------------------------
+
+DENSE_ARCH = "minitron-8b"
+DENSE_PLENS = [64, 200, 336, 472, 608, 744, 880, 1024]   # P = 1 prompts
+DENSE_NEW = 32
+# P = 8: 4 of the P = 1 prompts (336-1024 tokens), 8 new tokens each; then
+# 2 prompts sharing a 512-token prefix through 256-token chunks
+DENSE_P8 = {"n_devices": 8, "c": 2, "prompts": (2, 4, 6, 7),
+            "new_tokens": 8, "prefix": 512, "chunk": 256,
+            "suffixes": (128, 256)}
+# P = 8 rounds in bf16 where P = 1 does not: the MLP's reduce-scatter sums
+# 8 bf16 partial products, the embedding's psum 8 partial lookups, and the
+# ring merges 2 blocks per team before the team's combine. Over 32 layers
+# that is a few bf16 roundings per layer more than ENGINE_TOL's 24-layer
+# budget covers, so P = 8 against P = 1 gets 5e-2 relative in the L2 norm
+# and 1e-1 of the largest magnitude: a wrong merge or kernel is off by O(1).
+DENSE_SP_TOL = {"rel_l2": 5e-2, "max_abs_over_max": 1e-1}
+
+
+def _dense_engine(model, n_devices=1, c=1, prefix_cache=False, chunk=0):
+    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.plan import make_serve_plan
+
+    plan = make_serve_plan(model.cfg, arch=DENSE_ARCH, n_devices=n_devices,
+                           c=c, decode_batch=4, page_size=16, max_len=2048,
+                           prefix_cache=prefix_cache)
+    # 4 slots of 2048 tokens in pages of 16, spread over the SP ranks
+    return Engine(model, plan, EngineConfig(
+        pages_per_shard=512 // plan.sp_size, prefill_chunk=chunk))
+
+
+def phase_dense_serve(dev, smi):
+    """The engine at the full width of minitron-8b (32 layers, d_model
+    4096, 32q/8kv heads of 128, vocab 256000, ~9.9 B seeded bf16
+    parameters): at P = 1, 8 greedy requests of 64-1024 prompt tokens and
+    32 new tokens (B2 per layer and prefill, B4 per layer and decode step);
+    then at P = 8 as ThreadMesh(c=2, r=2) threads on the one card from the
+    same weights, cut to 4 of those prompts (336-1024 tokens) with 8 new
+    tokens each (B2 on every rank, ring step and layer of a prefill; B4 on
+    every rank and layer of a decode step), and 2 prompts sharing a
+    512-token prefix through the prefix cache and 256-token chunks (each
+    suffix chunk runs B6 and B1 on every rank and layer, merged across the
+    ranks). The P = 8 cut keeps the phase near 150 s: its 8 rank threads
+    share the GIL, so a step takes seconds. Each request's first-token
+    hidden state at P = 8 is held against P = 1's (``DENSE_SP_TOL``); the
+    share of streamed tokens that agree with P = 1's is printed (a
+    mismatch after a bf16 near tie is reported, not failed on)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.engine import Request
+    from repro_torch.models.factory import build_model
+
+    cfg = registry.get(DENSE_ARCH)
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in DENSE_PLENS]
+    e1 = _dense_engine(model)
+    e1.add_request(Request("warm", prompts[0], 4))
+    e1.run()
+    e1.reset()
+    reqs = [Request(f"d{i}", p, DENSE_NEW) for i, p in enumerate(prompts)]
+    out1, hid1, l1, rec1 = drive_engine(e1, smi, reqs, p1_launches,
+                                        "dense P=1", profile_steps=4)
+
+    sp, c = DENSE_P8["n_devices"], DENSE_P8["c"]
+    e8 = _dense_engine(model, sp, c)
+    check(not e8.plan.block_skip, "dense P=8: ring-block skipping is on, "
+          "the launch counts below assume every ring step runs")
+    ring = e8.plan.r
+    n8 = DENSE_P8["new_tokens"]
+    reqs8 = [Request(f"d{i}", prompts[i], n8) for i in DENSE_P8["prompts"]]
+
+    def p8_launches(e):
+        # B2 on every rank, ring step and layer of a prefill; B4 on every
+        # rank and layer of a decode step
+        return launches_of(B2=sp * ring * L * e.metrics.prefills,
+                           B4=sp * L * e.metrics.decode_steps)
+
+    out8, hid8, l8, rec8 = drive_engine(e8, smi, reqs8, p8_launches,
+                                        "dense P=8", profile_steps=1)
+    errs, agree, total = {}, 0, 0
+    for r in reqs8:
+        toks = out8[r.uid]
+        errs[r.uid] = compare(
+            (hid8[r.uid], _logits(e1, hid8[r.uid])),
+            (hid1[r.uid], _logits(e1, hid1[r.uid])),
+            f"dense P=8 {r.uid} vs P=1", DENSE_SP_TOL)
+        agree += sum(a == b for a, b in zip(toks, out1[r.uid][:n8]))
+        total += n8
+    del e8
+    free_device()
+
+    # the prefix cache and chunked prefill at P = 8
+    ep = _dense_engine(model, sp, c, prefix_cache=True,
+                       chunk=DENSE_P8["chunk"])
+    shared = rng.integers(0, cfg.vocab_size, DENSE_P8["prefix"]).tolist()
+    reqp = [Request(f"px{i}", shared + rng.integers(
+        0, cfg.vocab_size, n).tolist(), n8)
+        for i, n in enumerate(DENSE_P8["suffixes"])]
+
+    def prefix_launches(e):
+        # a prompt with nothing cached runs its leading chunk through B2;
+        # every later chunk, and a cache hit's suffix, runs B6 and B1 on
+        # every rank and layer
+        m = e.metrics
+        leading = sum(1 for st in e.scheduler.finished.values()
+                      if st.cached_len == 0)
+        suffix = m.prefill_chunks - leading
+        return launches_of(B2=sp * ring * L * leading, B1=sp * L * suffix,
+                           B6=sp * L * suffix, B4=sp * L * m.decode_steps)
+
+    outp, hidp, lp, recp = drive_engine(ep, smi, reqp[:1], prefix_launches,
+                                        "dense P=8 prefix", later=reqp[1:])
+    cached = {r.uid: ep.scheduler.finished[r.uid].cached_len for r in reqp}
+    check(cached[reqp[1].uid] == DENSE_P8["prefix"],
+          f"dense P=8 prefix: cached lengths {cached}, want the second "
+          f"request's {DENSE_P8['prefix']}-token prefix cached")
+    for r in reqp:
+        toks = outp[r.uid]
+        mono = next_token(e1, r.tokens)
+        errs[r.uid] = compare((hidp[r.uid], _logits(e1, hidp[r.uid])), mono,
+                              f"dense P=8 {r.uid} vs P=1 monolithic",
+                              DENSE_SP_TOL)
+        agree += int(toks[0] == int(mono[1].argmax()))
+        total += 1
+    worst = {k: max(e[name][k] for e in errs.values()
+                    for name in ("hidden", "logits")) for k in DENSE_SP_TOL}
+    emit("dense_serve", model=cfg.name, params=model.param_count(),
+         weights="seeded random bf16", init_s=init_s,
+         p1={"prompt_lens": DENSE_PLENS, "new_tokens": DENSE_NEW, **rec1},
+         p8={"prompt_lens": [DENSE_PLENS[i] for i in DENSE_P8["prompts"]],
+             "new_tokens": n8, **rec8},
+         p8_prefix={"prefix_len": DENSE_P8["prefix"],
+                    "suffix_lens": list(DENSE_P8["suffixes"]),
+                    "chunk": DENSE_P8["chunk"], "cached_len": cached,
+                    **recp},
+         err_p8_vs_p1=errs, worst_err=worst, tol=DENSE_SP_TOL,
+         tokens_agreeing_with_p1=agree / total, tokens_compared=total)
+    del e1, ep, model
+    return {"dense_serve_p1": l1, "dense_serve_p8": l8,
+            "dense_serve_p8_prefix": lp}
+
+
+DENSE_TRAIN = {"model": "gpt-7b", "layers": 8, "seq": 4096, "steps": 3}
+# bytes a parameter holds while training: bf16 weights and gradients, f32
+# AdamW moments (the activations aside)
+TRAIN_BYTES_PER_PARAM = 2 + 2 + 8
+
+
+def _spec_params(tree):
+    """Parameters a spec tree declares, counted without allocating."""
+    import math
+
+    from repro_torch.models.spec import PSpec
+
+    if isinstance(tree, PSpec):
+        return math.prod(tree.shape)
+    items = tree.values() if isinstance(tree, dict) else tree
+    return sum(_spec_params(t) for t in items)
+
+
+def phase_dense_train(dev, smi):
+    """``trainer.train`` on the paper's GPT-7B (MHA 32/32, head size 128,
+    d_ff 16384, vocab 50304) at seq 4096, batch 1, ``remat='attn_out'``,
+    bf16, 3 AdamW steps on one repeated batch, at P = 1. The depth is cut
+    from 32 to 8 layers: the reckoned bytes of weights, gradients and
+    moments are printed for both. B2 runs 2 x 8 and B3 8 times a step.
+    Then the D = 128 backward's device time from a profiled step, and one
+    loss and gradient at seq 1024 under the CUDA kernels against the plain
+    versions (``TRAIN_CHECK_TOL``)."""
+    import dataclasses
+    import math
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import transformer
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.plan import make_plan
+    from repro_torch.train import step as train_step
+    from repro_torch.train import trainer
+
+    full = registry.paper_model(DENSE_TRAIN["model"])
+    L = DENSE_TRAIN["layers"]
+    cfg = dataclasses.replace(full, num_layers=L)
+    reckoned = {n: _spec_params(transformer.lm_specs(dataclasses.replace(
+        full, num_layers=n))) * TRAIN_BYTES_PER_PARAM
+        for n in (full.num_layers, L)}
+    shape = _train_shape(DENSE_TRAIN["seq"])
+    plan = make_plan(cfg, shape, arch=full.name, c=1)
+    check(plan.remat == "attn_out", f"plan remat {plan.remat!r}")
+    model = build_model(cfg, device=dev, seed=0)
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0,
+                             state_dtype=cfg.opt_dtype)
+    data = RepeatBatch(SyntheticLM(cfg, shape, seed=0,
+                                   seq_scheme=plan.seq_scheme,
+                                   sp_size=plan.sp_size))
+    steps = DENSE_TRAIN["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dense_train.jsonl")
+        counts = reset_counts()
+        t0 = time.perf_counter()
+        trainer.train(model, plan, adam, trainer.TrainerConfig(
+            num_steps=steps, log_every=steps, metrics_path=path),
+            data_source=data, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(counts)
+        with open(path) as f:
+            recs = [json.loads(line) for line in f]
+    peak = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in recs]
+    check(len(recs) == steps and all(math.isfinite(x) for x in losses),
+          f"dense_train losses {losses}: want {steps} finite")
+    check(losses[-1] < losses[0],
+          f"dense_train loss did not fall over one repeated batch: {losses}")
+    want = launches_of(B2=2 * L * steps, B3=L * steps)
+    check(launches == want, f"dense_train launches {launches}: want {want}")
+    free_device()
+    # one profiled step after one warm step: the D = 128 backward kernels
+    step_fn, sh = plan.build_train_step(model, adam)
+    opt = adamw.init_state(sh["params"], adam)
+    batch = train_step.to_device(data.get_batch(0), dev)
+    step_fn(opt, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(opt, batch)
+        torch.cuda.synchronize()
+        step_wall = time.perf_counter() - t0
+    bwd = {"dkv": [0.0, 0], "dq": [0.0, 0]}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for key, tag in (("dkv", "flash_bwd_dkv_mma"),
+                         ("dq", "flash_bwd_dq_mma")):
+            if tag in evt.name:
+                bwd[key][0] += evt.time_range.elapsed_us() / 1e3
+                bwd[key][1] += 1
+    check(bwd["dkv"][1] == L and bwd["dq"][1] == L,
+          f"dense_train profile: B3's kernels ran {bwd}, want {L} each")
+    window = _profile_window(prof, 1, step_wall, top=12)
+    del step_fn, sh, opt, prof, batch
+    free_device()
+    emit("dense_train", model=full.name, layers=L,
+         layers_published=full.num_layers, params=model.param_count(),
+         weights="seeded random bf16",
+         reckoned_bytes={f"{n}_layers": b for n, b in reckoned.items()},
+         reckoned_bytes_note="bf16 weights and gradients, f32 AdamW "
+                             "moments: 12 B a parameter, activations aside",
+         shape={"seq_len": shape.seq_len, "batch": shape.global_batch},
+         plan={"P_sp": plan.sp_size, "C": plan.c, "scheme": plan.scheme,
+               "remat": plan.remat, "block_impl": plan.block_impl},
+         losses=losses, grad_norm=[r["grad_norm"] for r in recs],
+         step_ms=[1e3 * r["step_s"] for r in recs], wall_s=wall,
+         max_memory_allocated=peak, launches=launches,
+         b3_d128_device_ms={k: {"ms_per_step": v[0], "calls": v[1],
+                                "ms_per_call": v[0] / max(v[1], 1)}
+                            for k, v in bwd.items()},
+         profile=window, card=smi)
+    phase_train_check(model, dev, phase="dense_train_check")
+    del model
+    return launches
+
+
 def free_device():
     import gc
 
@@ -2587,6 +3279,8 @@ def main():
         free_device()
         phase_kernels_ulysses(dev, rows)
         free_device()
+        phase_kernels_d128(dev, rows)
+        free_device()
         by_path = {"ring": phase_ring(dev)}
         free_device()
         by_path["ragged_bwd"] = phase_ragged_bwd(dev)
@@ -2608,6 +3302,10 @@ def main():
         by_path.update(phase_schemes(dev, smi))
         free_device()
         by_path.update(phase_autotune(dev, smi))
+        free_device()
+        by_path.update(phase_dense_serve(dev, smi))
+        free_device()
+        by_path["dense_train"] = phase_dense_train(dev, smi)
         paths = {"B1": "local", "B2": "engine", "B3": "train",
                  "B4": "engine", "B5": "legacy", "B6": "prefix",
                  "B7": "ragged_bwd"}
@@ -2621,7 +3319,7 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "tol", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "device_ms",
-            "library_device_ms")
+            "library_device_ms", "d128")
     print(f"seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

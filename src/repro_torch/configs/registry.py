@@ -1,7 +1,9 @@
-"""Architecture registry of the port: ``--arch <id>`` resolution.
+"""Architecture registry of the port: ``--arch <id>`` resolution, and the
+paper's own models (``paper_model``).
 
-Only ported architectures are listed. Any other architecture of the JAX
-package raises, naming the ROADMAP queue that ports it.
+Only ported architectures are listed: the dense all-attention ones. Any
+other architecture of the JAX package raises, naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -13,12 +15,15 @@ from repro_torch.configs.base import ModelConfig
 
 _ARCH_MODULES: Dict[str, str] = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
+    "minitron-8b": "repro_torch.configs.minitron_8b",
+    "deepseek-7b": "repro_torch.configs.deepseek_7b",
+    "stablelm-3b": "repro_torch.configs.stablelm_3b",
 }
 
-# architectures of the JAX reference not yet ported (ROADMAP.md §A,
+# architectures of the JAX reference not yet ported (ROADMAP.md §A8,
 # "Remaining model families", ports them)
 _UNPORTED = (
-    "minitron-8b", "deepseek-7b", "stablelm-3b", "paligemma-3b",
+    "paligemma-3b",
     "seamless-m4t-large-v2", "llama4-maverick-400b-a17b",
     "phi3.5-moe-42b-a6.6b", "xlstm-1.3b", "jamba-1.5-large-398b",
 )
@@ -32,7 +37,7 @@ def _module(name: str):
     if name in _UNPORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported to repro_torch yet (ROADMAP.md "
-            f"§A: remaining model families); ported: {PORTED_ARCHS}")
+            f"§A8: remaining model families); ported: {PORTED_ARCHS}")
     raise KeyError(f"unknown arch {name!r}; ported: {PORTED_ARCHS}")
 
 
@@ -42,3 +47,11 @@ def get(name: str) -> ModelConfig:
 
 def get_smoke(name: str) -> ModelConfig:
     return _module(name).smoke_config()
+
+
+def paper_model(name: str) -> ModelConfig:
+    """The paper's GPT-3B, GPT-7B or DiT-1B (``configs.paper_models``)."""
+    from repro_torch.configs import paper_models
+
+    return {"gpt-3b": paper_models.GPT_3B, "gpt-7b": paper_models.GPT_7B,
+            "dit-1b": paper_models.DIT_1B}[name]

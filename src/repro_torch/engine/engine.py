@@ -1,13 +1,14 @@
 """The serving engine: continuous batching over the paged KV cache (the
 port's counterpart of ``repro.engine.engine``).
 
-The engine owns three kinds of state:
+The engine owns two kinds of state:
 
-  * **device** — the model and this rank's page pools
-    (``paged_cache.init_pools``), on the card unless the caller asks for
-    the CPU;
+  * **device** — the model and every rank's page pools
+    (``paged_cache.init_pools``: ``pages_per_shard`` pages each), on the
+    card unless the caller asks for the CPU;
   * **host** — the ``Scheduler`` (slots, page free lists, page table, FIFO
-    queue);
+    queue), the prefix cache and sampling's bookkeeping, on the thread
+    that calls ``step()``.
 
 ``step()`` is one driver iteration: advance every in-flight chunked
 prefill by one chunk, admit queued requests into free slots (each
@@ -24,18 +25,32 @@ the hit pages), runs the *suffix* prefill (``serve.step.lm_prefill_paged``)
 that reads the pages already written in place. The prompt's full blocks are
 offered to the prefix cache after its last chunk.
 
-This slice serves greedy requests on one rank (``SingleComm``, P = 1).
-What it does not port raises ``NotImplementedError`` naming the ROADMAP
-item: temperature sampling, the host tier, disaggregated handoff and
-preemption, and P > 1 across cards.
+Device steps run on every rank of the plan (``_on_ranks``): on one rank
+(``SingleComm``) when the plan has one device, else as the threads of the
+plan's ``ThreadMesh`` (``plan.build_mesh``: data x C*C*R ranks on one
+card or on the CPU), each with its own ``Runtime`` over its rank's
+communicator and its own pool shard. The rank runtimes are the JAX
+engine's: ``train.step.make_runtime`` on the plan's run config with
+``batch_axes=()`` and the contiguous sequence layout, so StarTrail's team
+gathers and sub-rings run in the prefill, B4's and B6's partials merge
+across ranks, and data replicas compute the same batch. The ranks share
+one copy of the weights (the port stores parameters whole). Each rank
+samples greedily (vocab-parallel, ties to the lowest token id); every
+rank's tokens must be equal, and the engine raises if they are not.
 
-Prompts and chunks are prefilled at their own length: the JAX engine pads
-them to power-of-two buckets for its jit caches, but eager PyTorch compiles
-nothing and the kernels mask ragged edges. So ``prefill_compiles`` /
-``decode_compiles`` keep their names in ``EngineMetrics`` and stay 0. The
-chunk size keeps the JAX rule: ``prefill_chunk`` rounded up to a
-power-of-two multiple of ``lcm(P_sp, page_size)``, so chunk boundaries are
-page-aligned.
+What the engine does not port raises ``NotImplementedError`` naming the
+ROADMAP item: temperature sampling, the host tier, disaggregated handoff
+and preemption, and ranks on several cards.
+
+Prompts and chunks are prefilled at their own length, padded at the end to
+a multiple of ``P_sp * comm_chunks`` when P_sp > 1 so that every rank holds
+an equal contiguous slice and every ring transfer splits evenly: the JAX
+engine pads to power-of-two buckets for its jit caches, but eager PyTorch
+compiles nothing and the kernels mask ragged edges. So
+``prefill_compiles`` / ``decode_compiles`` keep their names in
+``EngineMetrics`` and stay 0. The chunk size keeps the JAX rule:
+``prefill_chunk`` rounded up to a power-of-two multiple of
+``lcm(P_sp, page_size)``, so chunk boundaries are page-aligned.
 """
 
 from __future__ import annotations
@@ -48,13 +63,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.startrail import StarTrailConfig
-from repro_torch.dist.comm import SingleComm
 from repro_torch.engine import paged_cache, sampling
 from repro_torch.engine.scheduler import (Rejection, Request, Scheduler,
                                           SlotState, bucket_pow2)
 from repro_torch.models.factory import Model
 from repro_torch.models.runtime import Runtime
+from repro_torch.train import step as train_step
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -154,12 +168,13 @@ class EngineMetrics:
 class Engine:
     """Continuous-batching serving engine (add_request / step / collect).
 
-    ``plan`` (``plan.make_serve_plan``) supplies the decode slot count, the
-    page size, the capacity, the prefix cache and the kernel knobs;
-    ``model`` the parameters and the device. ``on_prefill``, when set, is
-    called with ``(uid, hidden)`` as each prompt's prefill completes, where
-    ``hidden`` is the (1, 1, D) next-token hidden state its first token is
-    sampled from.
+    ``plan`` (``plan.make_serve_plan``) supplies the ranks (its
+    ``ThreadMesh`` when it has more than one device), the arrangement, the
+    decode slot count, the page size, the capacity, the prefix cache and
+    the kernel knobs; ``model`` the parameters and the device.
+    ``on_prefill``, when set, is called with ``(uid, hidden)`` as each
+    prompt's prefill completes, where ``hidden`` is the (1, 1, D)
+    next-token hidden state (rank 0's) its first token is sampled from.
     """
 
     def __init__(self, model: Model, plan,
@@ -172,9 +187,6 @@ class Engine:
             raise ValueError("engine plans need the serving face "
                              "(decode_batch/page_size > 0): build them with "
                              "plan.make_serve_plan")
-        if plan.sp_size != 1:
-            raise _unported(f"SP degree {plan.sp_size} across cards (the "
-                            "multi-process NCCL/gloo communicator)")
         if eng.host_tier_bytes > 0 or plan.host_tier_bytes > 0:
             raise _unported("the pinned-host KV tier (host_tier_bytes > 0)")
         eng = dataclasses.replace(eng, max_slots=plan.decode_batch,
@@ -183,14 +195,20 @@ class Engine:
         self.model, self.plan, self.eng, self.cfg = model, plan, eng, cfg
         self.device = model.device
         self.sp = plan.sp_size
-        self.rt = Runtime(
-            comm=SingleComm(), st_cfg=StarTrailConfig(
-                seq_len=plan.seq_len, seq_scheme="contiguous", causal=True,
-                window=cfg.window, block_impl=plan.block_impl,
-                block_skip=plan.block_skip),
-            kernel_impl=plan.kernel_impl, device=self.device)
-        self.pools = paged_cache.init_pools(cfg, eng.pages_per_shard,
-                                            eng.page_size, self.device)
+        self.mesh = plan.build_mesh()
+        # the rank runtime on one card; every rank's swaps in its comm
+        rt = train_step.make_runtime(model, plan.run_config(),
+                                     plan.shape_config())
+        self.rt = dataclasses.replace(
+            rt, batch_axes=(), st_cfg=dataclasses.replace(
+                rt.st_cfg, seq_scheme="contiguous"))
+        n_ranks = self.mesh.size if self.mesh is not None else 1
+        self.pools: List[Dict[str, torch.Tensor]] = [
+            paged_cache.init_pools(cfg, eng.pages_per_shard, eng.page_size,
+                                   self.device) for _ in range(n_ranks)]
+        # prompts pad to this multiple (module doc)
+        self._quantum = (self.sp * self.rt.st_cfg.comm_chunks
+                         if self.sp > 1 else 1)
         base = math.lcm(self.sp, eng.page_size)
         self._chunk = (bucket_pow2(max(eng.prefill_chunk, base), base)
                        if eng.prefill_chunk > 0 else 0)
@@ -251,9 +269,10 @@ class Engine:
 
     def reset(self) -> None:
         """Drop all requests and cache contents (the prefix cache too) and
-        zero the pools."""
-        for t in self.pools.values():
-            t.zero_()
+        zero every rank's pools."""
+        for pools in self.pools:
+            for t in pools.values():
+                t.zero_()
         self.scheduler = self._new_scheduler()
         self._prefilling = []
         self._arrival.clear()
@@ -263,27 +282,81 @@ class Engine:
         self.metrics.pages_total = self.scheduler.pages_total()
 
     # ---- device work ----------------------------------------------------
+    def _on_ranks(self, fn, rt: Optional[Runtime] = None) -> List:
+        """``fn(rank_rt, rank_pools)`` on every rank under ``no_grad``,
+        results in rank order (module doc). ``rt`` (default the engine's)
+        is the template whose communicator each rank's replaces."""
+        rt = rt or self.rt
+
+        def body(comm, pools):
+            with torch.no_grad():   # grad mode is per thread
+                return fn(rt if comm is None
+                          else dataclasses.replace(rt, comm=comm), pools)
+
+        if self.mesh is None:
+            return [body(None, self.pools[0])]
+        return self.mesh.run(lambda comm: body(comm, self.pools[comm.rank]))
+
     def _tensor(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+    def _padded(self, tokens: List[int]) -> torch.Tensor:
+        """(1, S) tokens zero-padded to a multiple of the prompt quantum,
+        on the device."""
+        n = -(-len(tokens) // self._quantum) * self._quantum
+        buf = np.zeros((1, n), np.int64)
+        buf[0, :len(tokens)] = tokens
+        return self._tensor(buf, torch.int64)
+
+    @staticmethod
+    def _rank_slice(rt, tokens: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous slice of (1, S) tokens."""
+        s_loc = tokens.shape[1] // rt.sp_size()
+        return tokens[:, rt.sp_rank() * s_loc:(rt.sp_rank() + 1) * s_loc]
+
+    def _prefill_rank(self, rt, tokens, n_real: int):
+        """This rank's ``lm_prefill`` of the padded prompt ``tokens`` (1, S)
+        of ``n_real`` real tokens: (hidden (1, 1, D), (k, v) stacks of its
+        slice)."""
+        from repro_torch.serve import step as serve_step
+
+        S = tokens.shape[1]
+        rt = dataclasses.replace(rt, st_cfg=dataclasses.replace(
+            rt.st_cfg, seq_len=S))
+        prompt_len = (None if S == n_real else
+                      torch.full((1,), n_real, dtype=torch.int32,
+                                 device=tokens.device))
+        return serve_step.lm_prefill(
+            rt, self.model, self._rank_slice(rt, tokens), self.cfg,
+            prompt_len=prompt_len, return_hidden=True)
 
     def prefill_hidden(self, tokens: List[int], rt: Optional[Runtime] = None):
         """The next-token hidden state (1, 1, D) and the prefill K/V stacks
         (L, 1, len(tokens), Hkv, hd) of one prompt, under ``rt`` (default
-        the engine's runtime)."""
-        from repro_torch.serve import step as serve_step
+        the engine's runtime) on every rank; rank 0's hidden state, the
+        ranks' K/V slices of the first replica joined in sequence order."""
+        padded = self._padded(tokens)
+        out = self._on_ranks(
+            lambda r, _: self._prefill_rank(r, padded, len(tokens)), rt)
+        ks, vs = zip(*(kv for _, kv in out[:self.sp]))
+        n = len(tokens)
+        return out[0][0], (torch.cat(ks, 2)[:, :, :n],
+                           torch.cat(vs, 2)[:, :, :n])
 
-        rt = rt or self.rt
-        rt = dataclasses.replace(rt, st_cfg=dataclasses.replace(
-            rt.st_cfg, seq_len=len(tokens)))
-        with torch.no_grad():
-            return serve_step.lm_prefill(
-                rt, self.model, self._tensor([tokens], torch.int64), self.cfg,
-                return_hidden=True)
+    @staticmethod
+    def _sampled(toks: List[torch.Tensor]) -> np.ndarray:
+        """Rank 0's tokens, on the host; raises if another rank's differ
+        (module doc)."""
+        every = torch.stack(toks).cpu().numpy()
+        if (every != every[0]).any():
+            raise RuntimeError(f"the ranks sampled different tokens: {every}")
+        return every[0]
 
-    def _advance_prefill(self, st: SlotState) -> Optional[torch.Tensor]:
+    def _advance_prefill(self, st: SlotState
+                         ) -> Optional[Tuple[torch.Tensor, int]]:
         """Run one prefill chunk of ``st`` (the whole remaining prompt when
-        chunking is off). Returns the next-token hidden state (1, 1, D) when
-        the prompt completes, else None.
+        chunking is off). Returns the next-token hidden state (1, 1, D) and
+        the greedy first token when the prompt completes, else None.
 
         A leading chunk (``prefill_pos == 0``) runs the full-forward prefill
         and inserts its K/V into the slot's pages; every later chunk is a
@@ -297,38 +370,43 @@ class Engine:
         start = st.prefill_pos
         end = req.prompt_len if not self._chunk \
             else min(start + self._chunk, req.prompt_len)
+        final = end == req.prompt_len
         table_row = self.scheduler.table[st.slot]
-        with torch.no_grad():
+        tokens = self._padded(req.tokens[start:end])
+        ps = self.eng.page_size
+
+        def rank_fn(rt, pools):
             if start:
                 last = serve_step.lm_prefill_paged(
-                    self.rt, self.model,
-                    self._tensor([req.tokens[start:end]], torch.int64),
-                    self.cfg, prompt_len=end, cached_len=start,
-                    pools=self.pools, table_row=table_row,
-                    page_size=self.eng.page_size)
+                    rt, self.model, self._rank_slice(rt, tokens), self.cfg,
+                    prompt_len=end, cached_len=start, pools=pools,
+                    table_row=table_row, page_size=ps)
             else:
-                last, (k_stack, v_stack) = self.prefill_hidden(
-                    req.tokens[:end])
-                paged_cache.insert_prompt(self.rt, self.pools, k_stack,
-                                          v_stack, table_row,
-                                          self.eng.page_size)
+                last, (k_stack, v_stack) = self._prefill_rank(rt, tokens,
+                                                              end)
+                paged_cache.insert_prompt(rt, pools, k_stack, v_stack,
+                                          table_row, end, ps)
+            tok = (sampling.greedy(rt, self.model.head, last, self.cfg)[0]
+                   if final else None)
+            return last, tok
+
+        out = self._on_ranks(rank_fn)
+        result = None
+        if final:
+            result = (out[0][0], int(self._sampled([t for _, t in out])[0]))
         st.prefill_pos = end
         m = self.metrics
         m.prefill_tokens_computed += end - start
         m.prefill_chunks += 1
         m.prefill_wall_s += time.monotonic() - t0
-        return last if end == req.prompt_len else None
+        return result
 
-    def _complete_prefill(self, st: SlotState, last: torch.Tensor,
+    def _complete_prefill(self, st: SlotState, last: torch.Tensor, tok: int,
                           emitted: List[Tuple[str, int]]) -> None:
-        """Sample the first token from ``last``, offer the prompt's full
-        blocks to the prefix cache and start the slot's decode."""
-        t0 = time.monotonic()
+        """Emit the first token ``tok`` sampled from ``last``, offer the
+        prompt's full blocks to the prefix cache and start the slot's
+        decode."""
         m = self.metrics
-        with torch.no_grad():
-            tok = int(sampling.greedy(self.rt, self.model.head, last,
-                                      self.cfg)[0, 0].item())
-        m.prefill_wall_s += time.monotonic() - t0
         if self.on_prefill is not None:
             self.on_prefill(st.req.uid, last)
         self._prefilling.remove(st)
@@ -366,12 +444,11 @@ class Engine:
             table=np.ascontiguousarray(self.scheduler.table[:, :, :width]),
             cache_len=cache_len, active=act, page_size=self.eng.page_size,
             device=self.device)
-        with torch.no_grad():
-            tok = serve_step.lm_decode_step(
-                self.rt, self.model, self.pools,
-                self._tensor(tokens, torch.int64), self.cfg,
-                self._tensor(cache_len, torch.int32), paged)
-        tok = tok.cpu().numpy()
+        tokens_d = self._tensor(tokens, torch.int64)
+        cache_len_d = self._tensor(cache_len, torch.int32)
+        out = self._on_ranks(lambda rt, pools: serve_step.lm_decode_step(
+            rt, self.model, pools, tokens_d, self.cfg, cache_len_d, paged))
+        tok = self._sampled(out)
         self.metrics.decode_wall_s += time.monotonic() - t0
         return tok
 
@@ -387,9 +464,9 @@ class Engine:
         # chunked prefills admitted on earlier steps go before this step's
         # admissions (FIFO progress)
         for st in list(self._prefilling):
-            last = self._advance_prefill(st)
-            if last is not None:
-                self._complete_prefill(st, last, emitted)
+            done = self._advance_prefill(st)
+            if done is not None:
+                self._complete_prefill(st, *done, emitted)
         while True:
             # one at a time: each admission registers its prompt blocks
             # before the next is matched, so a burst sharing a prefix hits
@@ -399,9 +476,9 @@ class Engine:
                 break
             st = batch[0]
             self._prefilling.append(st)
-            last = self._advance_prefill(st)
-            if last is not None:
-                self._complete_prefill(st, last, emitted)
+            done = self._advance_prefill(st)
+            if done is not None:
+                self._complete_prefill(st, *done, emitted)
         if self.prefix_cache is not None:
             m.prefix_evictions = self.prefix_cache.evicted_pages
 
@@ -472,10 +549,12 @@ def build_engine(arch: str, *, smoke: bool = True, c: Optional[int] = 1,
                  model: Optional[Model] = None, init_seed: int = 0,
                  kernel: Optional[str] = None, block: Optional[str] = None,
                  plan=None, device=None) -> Engine:
-    """Resolve a one-card serve plan and build the engine on ``device``
-    (default: the CUDA card, raising if there is none). ``model`` supplies
-    the weights (e.g. ``factory.from_jax_params``); else they are drawn
-    from ``init_seed`` on the device. ``kernel`` / ``block`` pick the
+    """Build the engine on ``device`` (default: the CUDA card, raising if
+    there is none) for ``plan``, or for a serve plan of ``data`` replicas
+    at SP degree 1 when none is given; a plan of SP degree > 1 runs its
+    ranks as ``ThreadMesh`` threads on that one device. ``model``
+    supplies the weights (e.g. ``factory.from_jax_params``); else they are
+    drawn from ``init_seed`` on the device. ``kernel`` / ``block`` pick the
     paged-decode and ring-block implementations ('ref' | 'cuda')."""
     from repro_torch.configs import registry
     from repro_torch.models.factory import build_model

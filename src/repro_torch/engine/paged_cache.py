@@ -220,7 +220,8 @@ def write_blocks(pools: Dict[str, torch.Tensor], k, v, targets) -> None:
 
 
 def insert_prompt(rt, pools: Dict[str, torch.Tensor], k_stack, v_stack,
-                  table_row: np.ndarray, page_size: int) -> None:
+                  table_row: np.ndarray, prompt_len: int,
+                  page_size: int) -> None:
     """Scatter a prefilled sequence's K/V into this rank's pool pages,
     **in place**.
 
@@ -229,6 +230,10 @@ def insert_prompt(rt, pools: Dict[str, torch.Tensor], k_stack, v_stack,
       sequence of ``S_loc * P_sp`` prompt tokens, SP-sharded contiguously
       (post-RoPE).
     table_row: (P_sp, W) host int32, the slot's page-table row.
+    prompt_len: the real prompt length; blocks wholly past it are padding
+      and are not written, while padding inside the last real block is
+      written but unreadable (its positions exceed every cache_len until
+      decode overwrites them).
 
     Pages are owned round-robin, so one all-gather over the SP axes
     re-materialises the prompt before each rank scatters its own blocks.
@@ -236,4 +241,4 @@ def insert_prompt(rt, pools: Dict[str, torch.Tensor], k_stack, v_stack,
     kg = rt.all_gather_model(k_stack, axis=2)[:, 0]      # (L, S, Hkv, hd)
     vg = rt.all_gather_model(v_stack, axis=2)[:, 0]
     write_blocks(pools, kg, vg,
-                 block_targets(rt, table_row, 0, kg.shape[1], page_size))
+                 block_targets(rt, table_row, 0, prompt_len, page_size))

@@ -19,6 +19,7 @@ lse (B,Hq,1)) in f32.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -27,6 +28,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, _check
 
 LAUNCHES: Dict[str, int] = {"B4": 0}
+# the ranks of a ThreadMesh engine launch B4 from their own threads
+_LAUNCHES_LOCK = threading.Lock()
 TILE_KEYS = 64          # the bf16 kernel's key tile: 64 // page_size pages
 # split-KV scratch per device, allocated once and grown only for a larger
 # call: the CTAs' partial (m, l, acc) and one ticket counter per (row, kv
@@ -136,5 +139,6 @@ def paged_decode_attention(q, pool_k, pool_v, table, cache_len, rank: int,
         int(window is not None), int(window or 0), splits, float(scale),
         DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "paged_decode")
-    LAUNCHES["B4"] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES["B4"] += 1
     return o, lse

@@ -23,6 +23,7 @@ visible key gives o = 0 and lse = -1e30 exactly.
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional
 
 import torch
@@ -31,6 +32,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, _check
 
 LAUNCHES: Dict[str, int] = {"B6": 0}
+# the ranks of a ThreadMesh engine launch B6 from their own threads
+_LAUNCHES_LOCK = threading.Lock()
 TILE_KEYS = 64          # the kernel's key tile: page_size must divide it
 
 
@@ -105,5 +108,6 @@ def paged_prefill_attention(q, pool_k, pool_v, table, cached_len, rank: int,
         int(window is not None), int(window or 0), float(scale),
         DTYPES[q.dtype], torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "paged_prefill")
-    LAUNCHES["B6"] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES["B6"] += 1
     return o, lse

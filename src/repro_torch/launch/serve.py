@@ -24,6 +24,18 @@ none; ``--device cpu`` runs the plain PyTorch versions of the kernels:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
       --smoke --device cpu --legacy
 
+``--devices N --data D --c C`` serves on N ranks: D data replicas of SP
+degree N / D (C * C * R), one ``ThreadMesh`` thread per rank on the one
+device, with the JAX launcher's meanings; ``--c`` unset lets the cost model
+pick C (C = 1 at P = 1). ``--save-plan FILE`` writes the resolved serve
+plan, ``--plan FILE`` serves a written one (its arch, ranks and
+arrangement; ``--smoke`` picks the width), and ``--comm-report FILE``
+writes the plan's attention island's measured-vs-analytical wire bytes
+(``obs.commlog.comm_report``):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
+      --smoke --device cpu --devices 8 --c 2 --comm-report "$TMPDIR/c.json"
+
 The full-width model (drop ``--smoke``) draws seeded random weights on the
 card. The JAX driver's other modes (``--replicas``, ``--roles``,
 ``--http``) are not ported yet and raise.
@@ -91,18 +103,15 @@ def _legacy_main(args, plan, cfg, device):
     return out
 
 
-def _engine_main(args, plan, cfg, device):
+def _engine_main(args, plan, device):
     import numpy as np
 
-    from repro_torch.engine import Engine, EngineConfig, Request
-    from repro_torch.engine.engine import resolve_device
-    from repro_torch.models.factory import build_model
+    from repro_torch.engine import EngineConfig, Request, build_engine
 
-    device = resolve_device(device)
-    model = build_model(cfg, device=device, seed=args.seed)
-    engine = Engine(model, plan,
-                    EngineConfig(pages_per_shard=args.pages_per_shard,
-                                 prefill_chunk=args.prefill_chunk))
+    engine = build_engine(
+        plan.arch, smoke=args.smoke, plan=plan, init_seed=args.seed,
+        device=device, eng=EngineConfig(pages_per_shard=args.pages_per_shard,
+                                        prefill_chunk=args.prefill_chunk))
     rng = np.random.default_rng(args.seed)
     vocab = engine.cfg.vocab_size
     shared = (rng.integers(0, vocab, args.system_prompt_len).tolist()
@@ -134,8 +143,23 @@ def _engine_main(args, plan, cfg, device):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", default=None,
+                    help="architecture id (optional with --plan)")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="ranks (ThreadMesh threads on the one device)")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-parallel replicas (divides --devices)")
+    ap.add_argument("--c", type=int, default=None,
+                    help="StarTrail C (default: cost-model pick)")
+    ap.add_argument("--plan", default=None,
+                    help="load a persisted serve ExecutionPlan json")
+    ap.add_argument("--save-plan", default=None,
+                    help="persist the resolved serve plan to this path")
+    ap.add_argument("--comm-report", default=None,
+                    help="measure the plan's attention island's wire bytes "
+                         "against the analytical ones and write the report "
+                         "(JSON) here")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--kernel", default=None, choices=["ref", "cuda"],
                     help="attention kernels (default cuda; on CPU tensors "
@@ -165,6 +189,8 @@ def main(argv=None):
     ap.add_argument("--roles", default=None)
     ap.add_argument("--http", action="store_true")
     args = ap.parse_args(argv)
+    if not args.plan and not args.arch:
+        ap.error("--arch is required (unless --plan carries it)")
     for flag, on in (("--replicas", args.replicas > 1),
                      ("--roles", bool(args.roles)), ("--http", args.http)):
         if on:
@@ -173,23 +199,52 @@ def main(argv=None):
                 "(ROADMAP.md §A); engine and --legacy modes only")
 
     from repro_torch.configs import registry
-    from repro_torch.plan import make_serve_plan
+    from repro_torch.plan import ExecutionPlan, make_serve_plan
 
-    cfg = registry.get_smoke(args.arch) if args.smoke \
-        else registry.get(args.arch)
-    plan = make_serve_plan(
-        cfg, arch=args.arch,
-        decode_batch=args.max_slots, page_size=args.page_size,
-        max_len=args.max_len, kernel_impl=args.kernel,
-        block_impl=args.kernel, prefix_cache=args.prefix_cache)
-    print(f"[serve] plan: P_sp={plan.sp_size} C={plan.c} R={plan.r} "
+    get_cfg = registry.get_smoke if args.smoke else registry.get
+    if args.plan:
+        plan = ExecutionPlan.load(args.plan)
+        cfg = get_cfg(plan.arch)
+        print(f"[serve] loaded plan {args.plan}")
+    else:
+        cfg = get_cfg(args.arch)
+        plan = make_serve_plan(
+            cfg, arch=args.arch, n_devices=args.devices, data=args.data,
+            c=args.c, decode_batch=args.max_slots, page_size=args.page_size,
+            max_len=args.max_len, kernel_impl=args.kernel,
+            block_impl=args.kernel, prefix_cache=args.prefix_cache)
+    print(f"[serve] plan: P_sp={plan.sp_size} scheme={plan.scheme} "
+          f"C={plan.c} R={plan.r} data={plan.data} "
           f"kernel={plan.kernel_impl} block={plan.block_impl} "
           f"slots={plan.decode_batch} page={plan.page_size} "
           f"capacity={plan.seq_len} prefix_cache={plan.prefix_cache} "
           f"device={args.device}")
+    if args.save_plan:
+        print(f"[serve] plan saved -> {plan.save(args.save_plan)}")
     if args.legacy:
-        return _legacy_main(args, plan, cfg, args.device)
-    return _engine_main(args, plan, cfg, args.device)
+        if plan.n_devices != 1:
+            raise NotImplementedError(
+                "repro_torch.launch.serve --legacy at --devices > 1 is not "
+                "ported yet (ROADMAP.md §A10); the engine serves any P")
+        out = _legacy_main(args, plan, cfg, args.device)
+    else:
+        out = _engine_main(args, plan, args.device)
+    if args.comm_report:
+        import json
+        import pathlib
+
+        from repro_torch.engine.engine import resolve_device
+        from repro_torch.obs import commlog
+
+        rep = commlog.comm_report(cfg, plan,
+                                  device=resolve_device(args.device))
+        path = pathlib.Path(args.comm_report)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(rep, indent=2))
+        ratios = {k: v["ratio"] for k, v in rep["per_collective"].items()}
+        print(f"[serve] comm report -> {path} "
+              f"within_tolerance={rep['within_tolerance']} ratios={ratios}")
+    return out
 
 
 if __name__ == "__main__":

@@ -8,7 +8,7 @@ next-token hidden state must agree within 1e-4 (f32 smoke weights, the
 same products in another summation order), and so must the local-mode
 forward (one attention block per layer) of both packages. The port's own
 "batched == solo" replay must hold, and the knobs the port does not carry
-yet must raise. The prefix cache and chunked prefill are held against the
+yet must raise (an SP degree > 1 no longer does). The prefix cache and chunked prefill are held against the
 JAX engine in ``tests/test_torch_prefix.py``.
 """
 
@@ -148,9 +148,10 @@ def test_unported_knobs_raise():
                             torch_engine.EngineConfig(host_tier_bytes=1))
     with pytest.raises(NotImplementedError, match="preemption"):
         teng.preempt("g")
-    with pytest.raises(NotImplementedError, match="SP degree"):
-        torch_engine.Engine(teng.model, make_serve_plan(
-            cfg, n_devices=4, c=1, page_size=4, max_len=64))
+    # SP degree > 1 runs on a ThreadMesh (tests/test_torch_engine_sp.py)
+    sp4 = torch_engine.Engine(teng.model, make_serve_plan(
+        cfg, n_devices=4, c=1, page_size=4, max_len=64))
+    assert sp4.mesh.sp_size == 4 and len(sp4.pools) == 4
     rej = teng.add_request(torch_engine.Request("big", [1] * 60, 10))
     assert rej is not None and rej.reason == "too_long"
 

@@ -56,6 +56,8 @@ FWD_CASES = {
     "gqa_full_d16": (1, 64, 8, 2, 16, False, None, "arange", 32),
     "dead_rows": (1, 64, 4, 1, 16, True, None, "future", 32),
     "zigzag_gqa": (1, 64, 8, 2, 80, True, 40, "zigzag", 32),
+    # head size 128, MHA (deepseek-7b, GPT-7B)
+    "mha_causal_d128": (1, 64, 4, 4, 128, True, None, "arange", 32),
 }
 
 
@@ -82,6 +84,8 @@ PAGED_CASES = {
     "gqa_window": (3, 8, 2, 16, 4, 5, 1, 0, 6),
     "sp2_rank1": (3, 8, 2, 80, 4, 3, 2, 1, None),
     "sp2_rank1_window": (3, 4, 1, 16, 4, 3, 2, 1, 7),
+    # head size 128, 4 query heads per kv head (minitron-8b)
+    "gqa4_d128": (3, 8, 2, 128, 4, 4, 1, 0, None),
 }
 
 
@@ -110,6 +114,7 @@ RAGGED_CASES = {
     "window": (2, 64, 64, 4, 1, 16, 24, "lengths"),
     # each row a sequence starting at its own position
     "offset_rows": (3, 40, 72, 4, 4, 16, 30, "offset"),
+    "decode_d128": (4, 1, 96, 8, 2, 128, None, "decode"),
 }
 
 
@@ -147,6 +152,7 @@ PAGED_PREFILL_CASES = {
     # past the whole prefix for the later rows
     "window_slid": (2, 12, 4, 1, 16, 4, 6, 1, 0, 6, [20, 8]),
     "sp2_rank1": (2, 10, 8, 2, 80, 4, 4, 2, 1, None, [24, 9]),
+    "gqa_d128": (3, 20, 8, 2, 128, 4, 6, 1, 0, None, [13, 0, 20]),
 }
 
 
@@ -180,6 +186,7 @@ BWD_CASES = {
     "dead_rows": (1, 64, 64, 4, 1, 16, True, None, "future", 32),
     "zigzag_gqa4": (1, 64, 64, 8, 2, 80, True, 40, "zigzag", 32),
     "sq_ne_sk": (1, 64, 128, 8, 2, 16, True, None, "offset", 32),
+    "mha_causal_d128": (1, 64, 64, 4, 4, 128, True, None, "arange", 32),
 }
 
 
@@ -233,6 +240,7 @@ RAGGED_BWD_CASES = {
     "full": (2, 64, 64, 2, 2, 32, False, None, None),
     # row 1's keys all sit past its queries: lse -1e30 on every head
     "zero_length_row": (3, 77, 77, 8, 2, 80, True, None, 1),
+    "gqa4_d128": (2, 64, 64, 8, 2, 128, True, None, None),
 }
 
 
@@ -1021,3 +1029,79 @@ def test_flash_attention_function_launches_b1_and_b3(cuda_device):
     for a, b in zip(out["cuda"][2], out["ref"][2]):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    atol=BWD_TOL, rtol=BWD_TOL)
+
+
+@pytest.mark.gpu
+def test_engine_step_at_p2_on_the_card(cuda_device):
+    """The engine at SP degree 2 (``ThreadMesh(c=1, r=2)`` threads on the
+    card), smoke minitron-8b with heads of 32 in f32: one step admits both
+    requests (B2 on both ranks, 2 ring steps, every layer, for each prompt)
+    and decodes once (B4 on both ranks and every layer); both ranks sample
+    the same tokens, and the streams equal the P = 1 engine's."""
+    from repro_torch.configs import registry
+    from repro_torch.engine import Engine, EngineConfig, Request
+    from repro_torch.models.factory import build_model
+    from repro_torch.plan import make_serve_plan
+
+    cfg = dataclasses.replace(registry.get_smoke("minitron-8b"), head_dim=32)
+    model = build_model(cfg, device=cuda_device, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (13, 6)]
+    out = {}
+    for sp in (1, 2):
+        engine = Engine(model, make_serve_plan(
+            cfg, arch="minitron-8b", n_devices=sp, c=1, decode_batch=2,
+            page_size=4, max_len=64), EngineConfig(pages_per_shard=32))
+        for i, p in enumerate(prompts):
+            engine.add_request(Request(f"r{i}", p, 5))
+        flash_attention.reset_launches()
+        paged_decode.reset_launches()
+        engine.step()
+        torch.cuda.synchronize()
+        L = cfg.num_layers
+        assert flash_attention.LAUNCHES == {"B1": 0, "B2": sp * sp * L * 2,
+                                            "B3": 0}
+        assert paged_decode.LAUNCHES == {"B4": sp * L}
+        out[sp] = engine.run()
+    assert out[2] == out[1] and [len(v) for v in out[1].values()] == [5, 5]
+
+
+@pytest.mark.gpu
+def test_paged_launch_counts_survive_rank_threads(cuda_device):
+    """16 threads launch B4 and B6 at a 1 us switch interval (the ranks of
+    a ThreadMesh engine do so from their own threads): no count is lost."""
+    import sys
+    import threading
+
+    q, pool_k, pool_v, tbl, cl = _paged_inputs(3, 8, 2, 128, 4, 4, 1)
+    args4 = [_t(x).to(cuda_device, torch.bfloat16)
+             for x in (q, pool_k, pool_v)] + \
+        [_t(x).to(cuda_device) for x in (tbl, cl)] + [0]
+    arrs = _paged_prefill_inputs(*PAGED_PREFILL_CASES["gqa_d128"][:9],
+                                 PAGED_PREFILL_CASES["gqa_d128"][10])
+    args6 = [_t(x).to(cuda_device, torch.bfloat16) for x in arrs[:3]] + \
+        [_t(x).to(cuda_device) for x in arrs[3:]] + [0]
+    kw = dict(sp=1, page_size=4)
+    paged_decode.reset_launches()
+    paged_prefill.reset_launches()
+    n_threads, calls = 16, 25
+
+    def body():
+        for _ in range(calls):
+            paged_decode.paged_decode_attention(*args4, **kw)
+            paged_prefill.paged_prefill_attention(*args6, **kw)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=body) for _ in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    torch.cuda.synchronize()
+    assert paged_decode.LAUNCHES == {"B4": n_threads * calls}
+    assert paged_prefill.LAUNCHES == {"B6": n_threads * calls}

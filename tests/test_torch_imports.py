@@ -54,12 +54,16 @@ def test_every_module_imports_without_jax():
         "          'repro_torch.plan.cost', 'repro_torch.plan.autotune',\n"
         "          'repro_torch.core.scheduler', 'repro_torch.roofline.hw',\n"
         "          'repro_torch.obs', 'repro_torch.obs.registry',\n"
-        "          'repro_torch.obs.tracing', 'repro_torch.obs.commlog'):\n"
+        "          'repro_torch.obs.tracing', 'repro_torch.obs.commlog',\n"
+        "          'repro_torch.configs.minitron_8b',\n"
+        "          'repro_torch.configs.deepseek_7b',\n"
+        "          'repro_torch.configs.stablelm_3b',\n"
+        "          'repro_torch.configs.paper_models'):\n"
         "    assert n in names, (n, names)\n"
         "print(len(names))\n")
     res = _run(code)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 43
+    assert int(res.stdout.split()[-1]) >= 47
 
 
 def test_no_jax_or_repro_import_lines():
