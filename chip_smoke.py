@@ -65,7 +65,28 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               (24 layers, seeded random bf16 weights): 8 greedy requests,
               prompts staggered over 64-1024 tokens, 32 new tokens each.
               Each prefill runs StarTrail at P = 1, one ring step per layer
-              through B2; each decode step runs B4 once per layer
+              through B2; each decode step runs B4 once per layer; 4 pure
+              decode steps profiled (the all-greedy window), which the
+              mean decode step and tokens/s leave out
+  5a. sample  sampled decoding on the same model and plan: the engine
+              phase's 8 prompts and budgets, even requests greedy, odd ones
+              at temperature 0.9 with top-k 0/16/32 and top-p 1.0/0.9/0.8
+              in turn, seeds 100 + i, through an engine with an
+              ``obs.Registry`` and an enabled ``Tracer``. The greedy
+              streams must equal the engine phase's (another batch) and
+              every sampled stream its request served alone; the dumped
+              registry's token, TTFT and inter-token counts and the trace's
+              request b/e pairs and ``engine/step`` spans must match the
+              run. Beside: 4 profiled pure decode steps (the mixed window,
+              the same steps as the engine phase's), the solo runs' decode
+              steps with the tracer on against ``NULL_TRACER`` on alternate
+              steps, ``latency_quantiles()``; ``sample`` on CUDA tensors at V = 32000, 4 rows, 4096 draws
+              at temperature 1 (top-k 8: every draw in the top 8, the
+              chi-square of the counts against the softmax over them below
+              24.3, the 0.999 quantile at 7 degrees of freedom; top-p 0.4:
+              every draw in the nucleus); ``launch.serve --smoke --kernel
+              ref`` on the card with ``--temperature --top-k --top-p
+              --metrics-dump --trace-out``
   6. engine_check  one prompt's next-token hidden state and logits under
               the CUDA kernels against the same engine on the plain versions
   7. local    the same prompt's prefill under the local-mode attention
@@ -156,7 +177,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               ranks). Every first-token hidden state at P = 8 is held
               against P = 1's (``DENSE_SP_TOL``), the share of tokens that
               agree with P = 1's printed; the engine raises if the ranks
-              sample different tokens; a profiled decode step at each P
+              sample different tokens; a profiled decode step at each P.
+              Then at P = 8 one sampled request (prompt 4, temperature 0.8,
+              top-k 40, top-p 0.9) beside one greedy (prompt 2), 8 new
+              tokens each: the sampled stream equals its solo run, the
+              greedy one its stream in the all-greedy run
  17. dense_train  ``trainer.train`` on the paper's GPT-7B (MHA 32/32, head
               size 128) at seq 4096, batch 1, bf16, ``attn_out``, 3 AdamW
               steps on one repeated batch at P = 1, the depth cut from 32
@@ -167,17 +192,18 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               and gradient at seq 1024 under the CUDA kernels against the
               plain versions (``dense_train_check``)
 
-The paths are phases 4, 4a, 5, 7, 8a, 8b, 9, 13, each scheme of 14,
-15's search and its plan's step, 16's three runs and 17:
+The paths are phases 4, 4a, 5, 5a, 7, 8a, 8b, 9, 13, each scheme of 14,
+15's search and its plan's step, 16's four runs and 17:
 the launch counters are set to 0 just before each and read just after,
 and each must launch exactly the kernels it runs (B2 and B3 in the ring;
-B5 and B7 in ragged_bwd; B2 and B4 in the engine; B1 in the local
+B5 and B7 in ragged_bwd; B2 and B4 in the engine and in the sample
+phase's mixed run; B1 in the local
 prefill; B1, B2, B4 and B6 in the prefix phase; B2 and B5 in the legacy
 phase; B2 and B3 in the train loop, in train_sp and in the ring and
 StarTrail schemes; B1 and B3 under Ulysses; B1, B2 and B3 in the
 autotune search, whose candidates are all four arrangements; B2 and B4
-in dense_serve's P = 1 and P = 8 runs, B1, B2, B4 and B6 in its prefix
-run; B2 and B3 in dense_train). Comparison,
+in dense_serve's P = 1, P = 8 and P = 8 sampled runs, B1, B2, B4 and B6
+in its prefix run; B2 and B3 in dense_train). Comparison,
 timing and profiling launches are not counted. The kernels line's
 ``launches`` is each kernel's count on the path that runs it (the engine for B2 and B4, the local prefill for B1, the train
 loop for B3, the legacy phase for B5, the prefix phase for B6, ragged_bwd
@@ -1720,6 +1746,8 @@ def drive_engine(engine, smi, reqs, want, what, profile_steps=0,
     torch.cuda.reset_peak_memory_stats()
     pending = list(later)
     decode_ms, window = [], None
+    in_window = {"wall_s": 0.0, "decode_steps": 0, "decode_wall_s": 0.0,
+                 "tokens": 0}
     counts = reset_counts()
     t0 = time.perf_counter()
     for r in reqs:
@@ -1736,6 +1764,8 @@ def drive_engine(engine, smi, reqs, want, what, profile_steps=0,
         profiled = pure and window is None and profile_steps > 0
         t1 = time.perf_counter()
         if profiled:
+            m = engine.metrics
+            before = (m.decode_steps, m.decode_wall_s, m.tokens_out)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 for _ in range(profile_steps):
@@ -1744,6 +1774,11 @@ def drive_engine(engine, smi, reqs, want, what, profile_steps=0,
             window = _profile_window(prof, profile_steps,
                                      time.perf_counter() - t1)
             del prof
+            # the window's steps and the reading of its trace
+            in_window = {"wall_s": time.perf_counter() - t1,
+                         "decode_steps": m.decode_steps - before[0],
+                         "decode_wall_s": m.decode_wall_s - before[1],
+                         "tokens": m.tokens_out - before[2]}
             emitted = [True]
         else:
             emitted = engine.step()
@@ -1777,7 +1812,7 @@ def drive_engine(engine, smi, reqs, want, what, profile_steps=0,
            "ttft_s": dict(engine.ttft_s),
            "decode_step_wall_ms_median": (statistics.median(decode_ms)
                                           if decode_ms else None),
-           "decode_step_profile": window,
+           "decode_step_profile": window, "profiled": in_window,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "launches": launches, "card": smi}
     return out, hidden, launches, rec
@@ -1810,19 +1845,282 @@ def phase_engine(dev, smi):
     plens = [64, 200, 336, 472, 608, 744, 880, 1024]
     reqs = [Request(f"req{i}", rng.integers(0, cfg.vocab_size, n).tolist(),
                     32) for i, n in enumerate(plens)]
-    _, _, launches, rec = drive_engine(engine, smi, reqs, p1_launches,
-                                       "engine")
-    m = engine.metrics
+    # the process's first profiler start takes seconds: keep it out of
+    # the profiled decode window
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.zeros(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+    out, _, launches, rec = drive_engine(engine, smi, reqs, p1_launches,
+                                         "engine", profile_steps=4)
+    m, prof = engine.metrics, rec["profiled"]
+    # the mean step and the rate leave out the profiled window and the
+    # reading of its trace, so they compare with runs that profiled
+    # nothing; wall_s is the whole run
     emit("engine", model=cfg.name, params=model.param_count(),
          weights="seeded random bf16", init_s=init_s, requests=len(reqs),
          prompt_lens=plens, new_tokens=32, launches=launches,
          prefills=m.prefills, decode_steps=m.decode_steps,
          ttft_s=rec["ttft_s"],
-         mean_decode_step_ms=1e3 * m.decode_wall_s / max(m.decode_steps, 1),
+         mean_decode_step_ms=1e3 * (m.decode_wall_s - prof["decode_wall_s"])
+         / max(m.decode_steps - prof["decode_steps"], 1),
+         decode_step_wall_ms_median=rec["decode_step_wall_ms_median"],
+         decode_step_profile=rec["decode_step_profile"],
          prefill_s=m.prefill_wall_s, wall_s=rec["wall_s"],
-         tokens_per_s=m.tokens_out / rec["wall_s"],
+         profiled_wall_s=prof["wall_s"],
+         tokens_per_s=(m.tokens_out - prof["tokens"])
+         / (rec["wall_s"] - prof["wall_s"]),
          max_memory_allocated=rec["max_memory_allocated"], card=smi)
-    return engine, reqs[5].tokens, launches
+    return engine, reqs, out, launches, rec
+
+
+SAMPLE_MIX = {"temperature": 0.9, "top_k": (0, 16, 32),
+              "top_p": (1.0, 0.9, 0.8), "seed": 100}
+# the 0.999 quantile of chi-square with 7 degrees of freedom: 8 categories
+CHI2_999_DF7 = 24.3
+SAMPLE_DRAWS = {"vocab": 32000, "rows": 4, "draws": 4096, "top_k": 8,
+                "top_p": 0.4}
+
+
+def sampled_mix(reqs):
+    """``check_engine_mixed``'s sampling settings on ``reqs``: even
+    requests greedy, odd ones at temperature 0.9 with top-k 0/16/32 and
+    top-p 1.0/0.9/0.8 in turn, seeds 100 + i."""
+    import dataclasses
+
+    mix = SAMPLE_MIX
+    return [dataclasses.replace(
+        r, temperature=0.0 if i % 2 == 0 else mix["temperature"],
+        top_k=mix["top_k"][i % 3], top_p=mix["top_p"][i % 3],
+        seed=mix["seed"] + i) for i, r in enumerate(reqs)]
+
+
+def solo_streams(engine, reqs, before_step=None):
+    """Each request served alone on ``engine``, ``before_step(engine)``
+    called before every step. Returns uid -> stream and uid -> [(step,
+    wall ms)] of the steps that only decode."""
+    out, walls = {}, {}
+    for r in reqs:
+        engine.reset()
+        check(engine.add_request(r) is None, f"{r.uid} rejected")
+        walls[r.uid] = []
+        while not engine.idle():
+            if before_step is not None:
+                before_step(engine)
+            pure = bool(engine.scheduler.active()) \
+                and not engine.scheduler.queue
+            step = engine.metrics.steps
+            t0 = time.perf_counter()
+            engine.step()
+            if pure:
+                walls[r.uid].append((step, 1e3 * (time.perf_counter() - t0)))
+        out[r.uid] = engine.collect()[r.uid]
+    return out, walls
+
+
+def _median_ms(walls, keep):
+    """Median of ``solo_streams``' step walls for which ``keep(uid, step)``."""
+    ms = [w for uid, ws in walls.items() for step, w in ws if keep(uid, step)]
+    return statistics.median(ms) if ms else None
+
+
+def _sample_draws(dev):
+    """``engine.sampling.sample`` on CUDA tensors at V = 32000, 4 rows:
+    4096 draws at temperature 1 with top-k 8 (every draw in the top 8, and
+    the chi-square of the counts against the softmax over those 8 below
+    its 0.999 quantile) and with top-p 0.4 (every draw in the nucleus);
+    each draw keyed by (row, draw) through ``fold_in``."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core.startrail import StarTrailConfig
+    from repro_torch.dist.comm import SingleComm
+    from repro_torch.engine import sampling
+    from repro_torch.models.runtime import Runtime
+
+    d = SAMPLE_DRAWS
+    V, B = d["vocab"], d["rows"]
+    logits = 3.0 * np.random.default_rng(3).normal(size=V).astype(np.float32)
+    cfg = ModelConfig(name="draws", family="dense", num_layers=1,
+                      d_model=1, num_heads=1, num_kv_heads=1, d_ff=1,
+                      vocab_size=V)
+    rt = Runtime(comm=SingleComm(), st_cfg=StarTrailConfig(
+        seq_len=8, seq_scheme="contiguous"), device=dev)
+    head = types.SimpleNamespace(
+        table=torch.from_numpy(logits[:, None]).to(dev))
+    x = torch.ones(B, 1, 1, device=dev)
+
+    def rows(v, dt):
+        return torch.full((B,), v, dtype=dt, device=dev)
+
+    def draw(top_k, top_p):
+        toks = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(d["draws"] // B):
+            keys = [sampling.fold_in(sampling.seed_key(b), i)
+                    for b in range(B)]
+            toks.append(sampling.sample(
+                rt, head, x, cfg, temperature=rows(1.0, torch.float32),
+                top_k=rows(top_k, torch.int32),
+                top_p=rows(top_p, torch.float32), keys=keys)[:, 0])
+        toks = torch.cat(toks).cpu().numpy()
+        ms = 1e3 * (time.perf_counter() - t0) / (d["draws"] // B)
+        return toks, ms
+
+    top = np.argsort(-logits)[:d["top_k"]]
+    k_toks, k_ms = draw(d["top_k"], 1.0)
+    check(np.isin(k_toks, top).all(), f"sample: top-k {d['top_k']} drew "
+          f"{sorted(set(k_toks) - set(top))[:5]} outside the top {d['top_k']}")
+    p = np.exp(logits[top].astype(np.float64) - logits[top].max())
+    p /= p.sum()
+    counts = np.array([(k_toks == t).sum() for t in top])
+    chi2 = float(((counts - len(k_toks) * p) ** 2
+                  / (len(k_toks) * p)).sum())
+    check(chi2 < CHI2_999_DF7, f"sample: chi-square {chi2:.2f} of the top-k "
+          f"draws against the softmax, bound {CHI2_999_DF7}")
+    probs = np.exp(logits.astype(np.float64) - logits.max())
+    probs /= probs.sum()
+    order = np.argsort(-probs)
+    nucleus = order[:int(np.searchsorted(np.cumsum(probs[order]),
+                                         d["top_p"]) + 1)]
+    p_toks, p_ms = draw(0, d["top_p"])
+    check(np.isin(p_toks, nucleus).all(),
+          f"sample: top-p {d['top_p']} drew outside its {len(nucleus)}-token "
+          "nucleus")
+    return {**d, "chi2_top_k": chi2, "chi2_bound": CHI2_999_DF7,
+            "top_k_counts": counts.tolist(), "top_k_expected":
+            (len(k_toks) * p).tolist(), "nucleus_size": len(nucleus),
+            "distinct_top_p_draws": int(len(set(p_toks.tolist()))),
+            "ms_per_call": {"top_k": k_ms, "top_p": p_ms}}
+
+
+def _launch_serve_flags(dev):
+    """``launch.serve`` in-process on the card at smoke width with the
+    sampling and observability flags; ``--kernel ref``, as the smoke
+    model's head size 16 is not one the kernels take."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.launch import serve
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prom, trace = (os.path.join(tmp, n) for n in ("m.prom", "t.json"))
+        out = serve.main(["--arch", ARCH, "--smoke", "--device", dev.type,
+                          "--kernel", "ref", "--requests", "4",
+                          "--temperature", "0.8", "--top-k", "40",
+                          "--top-p", "0.9", "--metrics-dump", prom,
+                          "--trace-out", trace])
+        parsed = obs.parse_prometheus(open(prom).read())
+        events = json.load(open(trace))["traceEvents"]
+    n_tok = sum(len(v) for v in out.values())
+    check(parsed[("engine_tokens_out_total", ())] == n_tok
+          and sum(e["ph"] == "b" for e in events) == len(out)
+          == sum(e["ph"] == "e" for e in events),
+          f"launch.serve: {parsed.get(('engine_tokens_out_total', ()))} "
+          f"tokens counted, {n_tok} streamed; request spans unmatched")
+    return {"requests": len(out), "tokens": n_tok,
+            "trace_events": len(events)}
+
+
+def phase_sample(engine, smi, reqs, greedy_out, greedy_rec):
+    """Sampled decoding on the engine phase's model and plan (P = 1):
+    the engine phase's 8 prompts and budgets with ``sampled_mix``'s
+    settings, through an engine with an ``obs.Registry`` and an enabled
+    ``Tracer``. The greedy requests' streams must equal the engine phase's
+    (another batch: that is their batch invariance), every sampled
+    request's must equal serving it alone; the registry's and the trace's
+    counts must match the run. Beside: the decode-step wall and device ms
+    of this mixed window against the engine phase's all-greedy window (the
+    same steps: the same prompts and budgets), the tracer on against
+    ``NULL_TRACER`` on alternate steps of the solo runs, ``sample``
+    on CUDA tensors (``_sample_draws``), and ``launch.serve`` with the
+    flags. Returns the mixed run's launch counts."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.engine import Engine
+
+    reg, tracer = obs.Registry(), obs.Tracer(enabled=True)
+    eng = Engine(engine.model, engine.plan, engine.eng, registry=reg,
+                 tracer=tracer)
+    sreqs = sampled_mix(reqs)
+    out, _, launches, rec = drive_engine(eng, smi, sreqs, p1_launches,
+                                         "sample", profile_steps=4)
+    for i, r in enumerate(sreqs):
+        if i % 2 == 0:
+            check(out[r.uid] == greedy_out[r.uid], f"sample: greedy "
+                  f"{r.uid}'s stream differs from the engine phase's")
+    check(any(out[r.uid] != greedy_out[r.uid] for r in sreqs[1::2]),
+          "sample: every sampled stream equals its greedy stream")
+    m = eng.metrics
+    with tempfile.TemporaryDirectory() as tmp:
+        reg.dump(os.path.join(tmp, "m.prom"))
+        reg.dump(os.path.join(tmp, "m.json"), fmt="json")
+        tracer.dump(os.path.join(tmp, "trace.json"))
+        parsed = obs.parse_prometheus(open(os.path.join(tmp, "m.prom"))
+                                      .read())
+        events = json.load(open(os.path.join(tmp, "trace.json"))
+                           )["traceEvents"]
+    n_tok = sum(len(v) for v in out.values())
+    got = {k: parsed[(k, ())] for k in (
+        "engine_tokens_out_total", "serve_ttft_seconds_count",
+        "serve_intertoken_seconds_count")}
+    check(got == {"engine_tokens_out_total": n_tok,
+                  "serve_ttft_seconds_count": m.prefills,
+                  "serve_intertoken_seconds_count": n_tok - m.prefills},
+          f"sample: dumped metrics {got}: {n_tok} tokens streamed, "
+          f"{m.prefills} prefills")
+    begins = sorted(e["args"]["uid"] for e in events if e["ph"] == "b")
+    ends = [e for e in events if e["ph"] == "e"]
+    steps = sum(e["name"] == "engine/step" for e in events)
+    check(begins == sorted(r.uid for r in sreqs) and len(ends) == len(sreqs)
+          and {e["id"] for e in ends} == {e["id"] for e in events
+                                          if e["ph"] == "b"}
+          and steps == m.steps,
+          f"sample: trace has {len(begins)} request begins, {len(ends)} "
+          f"ends, {steps} engine/step spans for {m.steps} steps")
+    spans_per_step = len(events) / m.steps
+    quantiles = m.latency_quantiles()
+
+    # each sampled request alone, the tracer on for even steps and off for
+    # odd
+    tracer.clear()
+
+    def toggle(e):
+        e.tracer = tracer if e.metrics.steps % 2 == 0 else obs.NULL_TRACER
+
+    sampled = [r for r in sreqs if r.temperature > 0]
+    solo, walls = solo_streams(eng, sampled, toggle)
+    eng.tracer = tracer
+    for r in sampled:
+        check(solo[r.uid] == out[r.uid], f"sample: {r.uid} alone gives "
+              f"{solo[r.uid][:8]}..., in the mix {out[r.uid][:8]}...")
+    draws = _sample_draws(eng.device)
+    flags = _launch_serve_flags(eng.device)
+    emit("sample", model=eng.cfg.name, requests=len(sreqs),
+         settings=[{"uid": r.uid, "temperature": r.temperature,
+                    "top_k": r.top_k, "top_p": r.top_p, "seed": r.seed}
+                   for r in sreqs], launches=launches,
+         greedy_equal_engine_phase=True, sampled_solo_equal_mixed=True,
+         decode_step_wall_ms_median={
+             "all_greedy": greedy_rec["decode_step_wall_ms_median"],
+             "mixed": rec["decode_step_wall_ms_median"]},
+         decode_window={"all_greedy": greedy_rec["decode_step_profile"],
+                        "mixed": rec["decode_step_profile"]},
+         tracer={"solo_decode_step_wall_ms_median": {
+             "on": _median_ms(walls, lambda u, s: s % 2 == 0),
+             "off": _median_ms(walls, lambda u, s: s % 2 == 1)},
+             "steps_each": sum(len(w) for w in walls.values()) / 2,
+             "events_per_step": spans_per_step},
+         metrics=got, latency_quantiles=quantiles, draws=draws,
+         launch_serve=flags, wall_s=rec["wall_s"], card=smi)
+    del eng
+    return launches
 
 
 def next_token(engine, prompt, rt=None):
@@ -2165,15 +2463,19 @@ def phase_legacy(engine, smi):
 
 def serving_phases(dev, smi):
     """The serving phases on one model; returns the launch counts of the
-    engine, the local prefill, the prefix phase and the legacy phase (the
-    engines and the model are freed after)."""
-    engine, prompt, engine_launches = phase_engine(dev, smi)
+    engine, the sample phase, the local prefill, the prefix phase and the
+    legacy phase (the engines and the model are freed after)."""
+    engine, reqs, out, engine_launches, rec = phase_engine(dev, smi)
+    sample_launches = phase_sample(engine, smi, reqs, out, rec)
+    free_device()
+    prompt = reqs[5].tokens
     startrail_route = phase_engine_check(engine, prompt)
     local_launches = phase_local(engine, prompt, startrail_route)
     phase_profile(engine, smi)
     prefix_launches = phase_prefix(engine.model, smi)
     legacy_launches = phase_legacy(engine, smi)
-    return engine_launches, local_launches, prefix_launches, legacy_launches
+    return (engine_launches, sample_launches, local_launches,
+            prefix_launches, legacy_launches)
 
 
 # ---------------------------------------------------------------------------
@@ -2969,6 +3271,9 @@ DENSE_NEW = 32
 DENSE_P8 = {"n_devices": 8, "c": 2, "prompts": (2, 4, 6, 7),
             "new_tokens": 8, "prefix": 512, "chunk": 256,
             "suffixes": (128, 256)}
+# P = 8 sampled: prompt 2 greedy and prompt 4 sampled, 8 new tokens each
+DENSE_P8_SAMPLED = {"greedy": 2, "sampled": 4, "temperature": 0.8,
+                    "top_k": 40, "top_p": 0.9, "seed": 7}
 # P = 8 rounds in bf16 where P = 1 does not: the MLP's reduce-scatter sums
 # 8 bf16 partial products, the embedding's psum 8 partial lookups, and the
 # ring merges 2 blocks per team before the team's combine. Over 32 layers
@@ -3055,6 +3360,25 @@ def phase_dense_serve(dev, smi):
             f"dense P=8 {r.uid} vs P=1", DENSE_SP_TOL)
         agree += sum(a == b for a, b in zip(toks, out1[r.uid][:n8]))
         total += n8
+
+    # one sampled and one greedy request at P = 8: every rank samples (the
+    # engine raises if their tokens differ), the sampled stream equals its
+    # solo run, the greedy one its stream in the all-greedy run above (its
+    # batch invariance)
+    ps = DENSE_P8_SAMPLED
+    greq = Request(f"d{ps['greedy']}", prompts[ps["greedy"]], n8)
+    sreq = Request(f"d{ps['sampled']}s", prompts[ps["sampled"]], n8,
+                   temperature=ps["temperature"], top_k=ps["top_k"],
+                   top_p=ps["top_p"], seed=ps["seed"])
+    e8.reset()
+    outs, _, ls, recs = drive_engine(e8, smi, [greq, sreq], p8_launches,
+                                     "dense P=8 sampled")
+    check(outs[greq.uid] == out8[greq.uid], f"dense P=8 sampled: greedy "
+          f"{greq.uid} {outs[greq.uid]} beside a sampled request, "
+          f"{out8[greq.uid]} in the all-greedy run")
+    solo, walls8 = solo_streams(e8, [sreq])
+    check(solo[sreq.uid] == outs[sreq.uid], f"dense P=8 sampled: alone "
+          f"{solo[sreq.uid]}, beside a greedy request {outs[sreq.uid]}")
     del e8
     free_device()
 
@@ -3098,6 +3422,12 @@ def phase_dense_serve(dev, smi):
          p1={"prompt_lens": DENSE_PLENS, "new_tokens": DENSE_NEW, **rec1},
          p8={"prompt_lens": [DENSE_PLENS[i] for i in DENSE_P8["prompts"]],
              "new_tokens": n8, **rec8},
+         p8_sampled={**ps, "prompt_lens": [DENSE_PLENS[ps["greedy"]],
+                                           DENSE_PLENS[ps["sampled"]]],
+                     "new_tokens": n8, "streams": outs,
+                     "sampled_solo_equal": True,
+                     "sampled_solo_decode_step_wall_ms_median": _median_ms(
+                         walls8, lambda u, s: True), **recs},
          p8_prefix={"prefix_len": DENSE_P8["prefix"],
                     "suffix_lens": list(DENSE_P8["suffixes"]),
                     "chunk": DENSE_P8["chunk"], "cached_len": cached,
@@ -3106,7 +3436,7 @@ def phase_dense_serve(dev, smi):
          tokens_agreeing_with_p1=agree / total, tokens_compared=total)
     del e1, ep, model
     return {"dense_serve_p1": l1, "dense_serve_p8": l8,
-            "dense_serve_p8_prefix": lp}
+            "dense_serve_p8_sampled": ls, "dense_serve_p8_prefix": lp}
 
 
 DENSE_TRAIN = {"model": "gpt-7b", "layers": 8, "seq": 4096, "steps": 3}
@@ -3285,8 +3615,8 @@ def main():
         free_device()
         by_path["ragged_bwd"] = phase_ragged_bwd(dev)
         free_device()
-        (by_path["engine"], by_path["local"], by_path["prefix"],
-         by_path["legacy"]) = serving_phases(dev, smi)
+        (by_path["engine"], by_path["sample"], by_path["local"],
+         by_path["prefix"], by_path["legacy"]) = serving_phases(dev, smi)
         free_device()
         model, by_path["train"] = phase_train(dev, smi)
         free_device()

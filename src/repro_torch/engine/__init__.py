@@ -2,12 +2,13 @@
 cache (the port of ``repro.engine``).
 
 Public surface:
-  Request                — one serving request (prompt, budget)
+  Request                — one serving request (prompt, budget, sampling)
   Engine / EngineConfig  — add_request / step / collect / run driver
   build_engine           — resolves a one-card serve plan and builds the
                            engine, on the CUDA card unless told otherwise
   paged_cache            — page-pool layout, in-place write/insert helpers
-  sampling               — vocab-parallel greedy sampling
+  sampling               — vocab-parallel greedy and sampled decoding
+                           (temperature, top-k, top-p)
   scheduler              — FIFO continuous-batching slot/page bookkeeping
 """
 

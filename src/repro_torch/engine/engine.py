@@ -7,8 +7,8 @@ The engine owns two kinds of state:
     (``paged_cache.init_pools``: ``pages_per_shard`` pages each), on the
     card unless the caller asks for the CPU;
   * **host** — the ``Scheduler`` (slots, page free lists, page table, FIFO
-    queue), the prefix cache and sampling's bookkeeping, on the thread
-    that calls ``step()``.
+    queue), the prefix cache, sampling's keys and the metrics and spans
+    (``obs``), on the thread that calls ``step()``.
 
 ``step()`` is one driver iteration: advance every in-flight chunked
 prefill by one chunk, admit queued requests into free slots (each
@@ -34,13 +34,24 @@ engine's: ``train.step.make_runtime`` on the plan's run config with
 ``batch_axes=()`` and the contiguous sequence layout, so StarTrail's team
 gathers and sub-rings run in the prefill, B4's and B6's partials merge
 across ranks, and data replicas compute the same batch. The ranks share
-one copy of the weights (the port stores parameters whole). Each rank
-samples greedily (vocab-parallel, ties to the lowest token id); every
-rank's tokens must be equal, and the engine raises if they are not.
+one copy of the weights (the port stores parameters whole). Every rank
+samples (``engine.sampling``: vocab-parallel greedy, or temperature, top-k
+and top-p with gumbel noise keyed by the request's seed, the token's
+position and the rank); every rank's tokens must be equal, and the engine
+raises if they are not. A request's first token folds its key with
+``prompt_len``, a decode step's with ``cache_len + 1``, so a request's
+stream does not depend on its batch or on how its prompt was chunked.
+
+Metrics live in an ``obs.Registry`` (``EngineMetrics``: the JAX engine's
+names and kinds, unlabelled until a front end passes replica labels) and
+spans go to an ``obs.Tracer``: an async ``request`` span per request,
+``engine/step``, ``engine/prefill``, ``engine/prefill_chunk`` and
+``engine/decode``. Both are written on the thread that calls ``step()``
+only; rank threads never touch them.
 
 What the engine does not port raises ``NotImplementedError`` naming the
-ROADMAP item: temperature sampling, the host tier, disaggregated handoff
-and preemption, and ranks on several cards.
+ROADMAP item: the host tier, disaggregated handoff and preemption, and
+ranks on several cards.
 
 Prompts and chunks are prefilled at their own length, padded at the end to
 a multiple of ``P_sp * comm_chunks`` when P_sp > 1 so that every rank holds
@@ -63,6 +74,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.engine import paged_cache, sampling
 from repro_torch.engine.scheduler import (Rejection, Request, Scheduler,
                                           SlotState, bucket_pow2)
@@ -88,54 +100,95 @@ class EngineConfig:
 
 
 class EngineMetrics:
-    """Dict-backed engine metrics with the JAX engine's field names
-    (``m.steps += 1``, ``to_dict()``, ``reset(keep_compiles=True)``), plus
-    the host seconds spent in prefill and in decode steps. Each of those
-    intervals ends with the sampled tokens copied to the host, so it
-    includes the device work."""
+    """Registry-backed engine metrics (the JAX ``EngineMetrics``).
 
-    FIELDS = {
-        "steps": int, "decode_steps": int, "prefills": int, "finished": int,
-        "tokens_out": int, "prefill_chunks": int, "prefill_compiles": int,
-        "decode_compiles": int, "transfer_compiles": int,
-        "occupancy_sum": float, "peak_pages": int, "pages_total": int,
-        "wall_s": float, "prefill_tokens_computed": int,
-        "prefill_tokens_cached": int, "prefill_tokens_host": int,
-        "prefix_evictions": int, "handoffs_out": int, "handoffs_in": int,
-        "preemptions": int, "prefill_wall_s": float, "decode_wall_s": float,
+    Keeps the attribute interface the engine uses (``m.steps += 1``,
+    ``to_dict()``, ``reset(keep_compiles=True)``) while each field lives as
+    a series in an ``obs.Registry``: counter-kind fields render as
+    ``engine_*_total`` counters, level-kind fields as gauges, and the TTFT
+    and inter-token histograms (the pinned ``obs.TTFT_BUCKETS`` /
+    ``obs.INTERTOKEN_BUCKETS``) ride in the same registry. The port adds
+    two gauges, the host seconds spent in prefill and in decode steps; each
+    of those intervals ends with the sampled tokens copied to the host, so
+    it includes the device work. The compile counters stay 0 (module doc).
+    """
+
+    # attribute -> (metric name, kind, python type)
+    _SPECS = {
+        "steps": ("engine_steps_total", "counter", int),
+        "decode_steps": ("engine_decode_steps_total", "counter", int),
+        "prefills": ("engine_prefills_total", "counter", int),
+        "finished": ("engine_requests_finished_total", "counter", int),
+        "tokens_out": ("engine_tokens_out_total", "counter", int),
+        "prefill_chunks": ("engine_prefill_chunks_total", "counter", int),
+        "prefill_compiles": ("engine_prefill_compiles_total", "counter",
+                             int),
+        "decode_compiles": ("engine_decode_compiles_total", "counter", int),
+        "transfer_compiles": ("engine_transfer_compiles_total", "counter",
+                              int),
+        "occupancy_sum": ("engine_occupancy_sum", "gauge", float),
+        "peak_pages": ("engine_peak_pages", "gauge", int),
+        "pages_total": ("engine_pages_total", "gauge", int),
+        "wall_s": ("engine_wall_seconds", "gauge", float),
+        "prefill_tokens_computed": ("engine_prefill_tokens_computed_total",
+                                    "counter", int),
+        "prefill_tokens_cached": ("engine_prefill_tokens_cached_total",
+                                  "counter", int),
+        "prefill_tokens_host": ("engine_prefill_tokens_host_total",
+                                "counter", int),
+        "prefix_evictions": ("engine_prefix_evictions", "gauge", int),
+        "handoffs_out": ("engine_handoffs_out_total", "counter", int),
+        "handoffs_in": ("engine_handoffs_in_total", "counter", int),
+        "preemptions": ("engine_preemptions_total", "counter", int),
+        "prefill_wall_s": ("engine_prefill_wall_seconds", "gauge", float),
+        "decode_wall_s": ("engine_decode_wall_seconds", "gauge", float),
     }
+    _HISTOGRAMS = ("serve_ttft_seconds", "serve_intertoken_seconds")
 
-    def __init__(self, **initial):
-        object.__setattr__(self, "_v", {k: t() for k, t in
-                                        self.FIELDS.items()})
-        object.__setattr__(self, "ttft_s", [])
-        object.__setattr__(self, "intertoken_s", [])
+    def __init__(self, registry: Optional[obs.Registry] = None, **initial):
+        reg = registry if registry is not None else obs.Registry()
+        object.__setattr__(self, "registry", reg)
+        for metric, kind, _ in self._SPECS.values():
+            if kind == "counter":
+                reg.counter(metric)
+            else:
+                reg.gauge(metric)
+        reg.histogram("serve_ttft_seconds",
+                      "Request admission -> first emitted token",
+                      buckets=obs.TTFT_BUCKETS)
+        reg.histogram("serve_intertoken_seconds",
+                      "Gap between consecutive emitted tokens of a request",
+                      buckets=obs.INTERTOKEN_BUCKETS)
         for name, v in initial.items():
             setattr(self, name, v)
 
     def __getattr__(self, name):
-        try:
-            return self.__dict__["_v"][name]
-        except KeyError:
-            raise AttributeError(name) from None
+        spec = self._SPECS.get(name)
+        if spec is None:
+            raise AttributeError(name)
+        metric, _, typ = spec
+        return typ(self.registry.get(metric).value())
 
     def __setattr__(self, name, value) -> None:
-        if name not in self.FIELDS:
+        spec = self._SPECS.get(name)
+        if spec is None:
             raise AttributeError(f"EngineMetrics has no field {name!r}")
-        self._v[name] = self.FIELDS[name](value)
+        metric, _, typ = spec
+        self.registry.get(metric).set(typ(value))
 
     def reset(self, keep_compiles: bool = True) -> None:
-        keep = {k: self._v[k] for k in ("prefill_compiles", "decode_compiles",
-                                        "transfer_compiles")}
-        for name, typ in self.FIELDS.items():
-            self._v[name] = typ()
+        pc, dc, tc = (self.prefill_compiles, self.decode_compiles,
+                      self.transfer_compiles)
+        for name in self._SPECS:
+            setattr(self, name, 0)
+        for name in self._HISTOGRAMS:
+            self.registry.get(name).reset()
         if keep_compiles:
-            self._v.update(keep)
-        self.ttft_s.clear()
-        self.intertoken_s.clear()
+            self.prefill_compiles, self.decode_compiles = pc, dc
+            self.transfer_compiles = tc
 
     def to_dict(self) -> Dict[str, float]:
-        d = dict(self._v)
+        d = {name: getattr(self, name) for name in self._SPECS}
         d["occupancy"] = (self.occupancy_sum / self.decode_steps
                           if self.decode_steps else 0.0)
         d["page_utilization"] = (self.peak_pages / self.pages_total
@@ -148,20 +201,21 @@ class EngineMetrics:
         return d
 
     def observe_ttft(self, seconds: float) -> None:
-        self.ttft_s.append(seconds)
+        self.registry.get("serve_ttft_seconds").observe(seconds)
 
     def observe_intertoken(self, seconds: float) -> None:
-        self.intertoken_s.append(seconds)
+        self.registry.get("serve_intertoken_seconds").observe(seconds)
 
     def latency_quantiles(self) -> Dict[str, float]:
-        """p50/p95/p99 TTFT and inter-token gap (host seconds)."""
+        """p50/p95/p99 TTFT and inter-token gap (host seconds) from the
+        fixed buckets."""
         out = {}
-        for short, xs in (("ttft", self.ttft_s),
-                          ("intertoken", self.intertoken_s)):
-            for q in (50, 95, 99):
-                out[f"{short}_p{q}_s"] = (float(np.percentile(xs, q))
-                                          if xs else 0.0)
-            out[f"{short}_count"] = len(xs)
+        for short, metric in (("ttft", "serve_ttft_seconds"),
+                              ("intertoken", "serve_intertoken_seconds")):
+            h = self.registry.get(metric)
+            for q in (0.5, 0.95, 0.99):
+                out[f"{short}_p{int(q * 100)}_s"] = h.quantile(q)
+            out[f"{short}_count"] = h.count()
         return out
 
 
@@ -175,10 +229,15 @@ class Engine:
     ``on_prefill``, when set, is called with ``(uid, hidden)`` as each
     prompt's prefill completes, where ``hidden`` is the (1, 1, D)
     next-token hidden state (rank 0's) its first token is sampled from.
+    ``registry`` holds the metrics (a private registry by default);
+    ``tracer`` records the spans (``obs.NULL_TRACER`` by
+    default).
     """
 
     def __init__(self, model: Model, plan,
-                 eng: EngineConfig = EngineConfig()):
+                 eng: EngineConfig = EngineConfig(),
+                 registry: Optional[obs.Registry] = None,
+                 tracer: Optional[obs.Tracer] = None):
         cfg = model.cfg
         ok, why = paged_cache.supported(cfg)
         if not ok:
@@ -214,10 +273,13 @@ class Engine:
                        if eng.prefill_chunk > 0 else 0)
         self._prefilling: List[SlotState] = []
         self.on_prefill: Optional[Callable[[str, torch.Tensor], None]] = None
-        self.metrics = EngineMetrics(pages_total=self.sp
-                                     * eng.pages_per_shard)
+        self.metrics = EngineMetrics(
+            registry, pages_total=self.sp * eng.pages_per_shard)
+        self.registry = self.metrics.registry
+        self.tracer = tracer if tracer is not None else obs.NULL_TRACER
         self._arrival: Dict[str, float] = {}
         self._last_emit: Dict[str, float] = {}
+        self._req_spans: Dict[str, Optional[str]] = {}
         self.ttft_s: Dict[str, float] = {}
         self.scheduler = self._new_scheduler()
 
@@ -241,9 +303,6 @@ class Engine:
     def add_request(self, req: Request) -> Optional[Rejection]:
         """Queue ``req``. Returns ``None`` on success or a typed
         :class:`Rejection` for an unserveable request."""
-        if req.temperature > 0.0:
-            raise _unported("temperature > 0 sampling (the JAX engine keys "
-                            "its gumbel noise with threefry)")
         if req.handoff:
             raise _unported("disaggregated prefill->decode handoff")
         rej = self.scheduler.validate(req)
@@ -251,6 +310,9 @@ class Engine:
             return rej
         self.scheduler.queue.append(req)
         self._arrival[req.uid] = time.monotonic()
+        self._req_spans[req.uid] = self.tracer.async_begin(
+            "request", uid=req.uid, prompt_len=req.prompt_len,
+            max_new=req.max_new_tokens)
         return None
 
     def preempt(self, uid: str):
@@ -259,8 +321,11 @@ class Engine:
     def _finish_request(self, st: SlotState) -> None:
         self.scheduler.finish(st.slot, self.metrics.steps)
         self.metrics.finished += 1
-        self._arrival.pop(st.req.uid, None)
-        self._last_emit.pop(st.req.uid, None)
+        uid = st.req.uid
+        self._arrival.pop(uid, None)
+        self._last_emit.pop(uid, None)
+        self.tracer.async_end("request", self._req_spans.pop(uid, None),
+                              tokens=len(st.out))
 
     def collect(self) -> Dict[str, List[int]]:
         """uid -> generated tokens, for every finished request."""
@@ -277,6 +342,7 @@ class Engine:
         self._prefilling = []
         self._arrival.clear()
         self._last_emit.clear()
+        self._req_spans.clear()
         self.ttft_s.clear()
         self.metrics.reset(keep_compiles=True)
         self.metrics.pages_total = self.scheduler.pages_total()
@@ -352,16 +418,31 @@ class Engine:
             raise RuntimeError(f"the ranks sampled different tokens: {every}")
         return every[0]
 
+    def _row_params(self, reqs: List[Optional[Request]]
+                    ) -> Dict[str, torch.Tensor]:
+        """(B,) device tensors of the rows' temperature, top_k and top_p;
+        a row without a request (padding) is greedy."""
+        return {"temperature": self._tensor(
+                    [r.temperature if r else 0.0 for r in reqs],
+                    torch.float32),
+                "top_k": self._tensor([r.top_k if r else 0 for r in reqs],
+                                      torch.int32),
+                "top_p": self._tensor([r.top_p if r else 1.0 for r in reqs],
+                                      torch.float32)}
+
     def _advance_prefill(self, st: SlotState
                          ) -> Optional[Tuple[torch.Tensor, int]]:
         """Run one prefill chunk of ``st`` (the whole remaining prompt when
         chunking is off). Returns the next-token hidden state (1, 1, D) and
-        the greedy first token when the prompt completes, else None.
+        the first token when the prompt completes, else None.
 
         A leading chunk (``prefill_pos == 0``) runs the full-forward prefill
         and inserts its K/V into the slot's pages; every later chunk is a
         suffix prefill with ``cached_len = prefill_pos``, reading the pages
-        earlier chunks (or the prefix cache) populated in place.
+        earlier chunks (or the prefix cache) populated in place. Only the
+        final chunk's token is kept; a sampled one folds its key with
+        ``prompt_len``, as the monolithic path does, so chunking never
+        changes the stream.
         """
         from repro_torch.serve import step as serve_step
 
@@ -374,6 +455,11 @@ class Engine:
         table_row = self.scheduler.table[st.slot]
         tokens = self._padded(req.tokens[start:end])
         ps = self.eng.page_size
+        sampled = final and req.temperature > 0.0
+        if sampled:
+            params = self._row_params([req])
+            keys = [sampling.fold_in(sampling.seed_key(req.seed),
+                                     req.prompt_len)]
 
         def rank_fn(rt, pools):
             if start:
@@ -386,9 +472,14 @@ class Engine:
                                                               end)
                 paged_cache.insert_prompt(rt, pools, k_stack, v_stack,
                                           table_row, end, ps)
-            tok = (sampling.greedy(rt, self.model.head, last, self.cfg)[0]
-                   if final else None)
-            return last, tok
+            if not final:
+                return last, None
+            if sampled:
+                return last, sampling.sample(
+                    rt, self.model.head, last, self.cfg, keys=keys,
+                    **params)[0]
+            return last, sampling.greedy(rt, self.model.head, last,
+                                         self.cfg)[0]
 
         out = self._on_ranks(rank_fn)
         result = None
@@ -427,19 +518,28 @@ class Engine:
         if st.done:
             self._finish_request(st)
 
-    def _decode(self, active: List[SlotState]) -> np.ndarray:
+    def _decode(self, active: List[SlotState], width: int) -> np.ndarray:
+        """One decode step of every slot; the sampling operands go in only
+        when some active row samples (the JAX engine's ``sampled``
+        switch), padding rows decode greedily."""
         from repro_torch.serve import step as serve_step
 
         t0 = time.monotonic()
-        width = self.scheduler.decode_width()
         B = self.eng.max_slots
         tokens = np.zeros((B, 1), np.int64)
         cache_len = np.zeros((B,), np.int32)
         act = np.zeros((B,), bool)
+        rows: List[Optional[Request]] = [None] * B
         for st in active:
             tokens[st.slot, 0] = st.out[-1]
             cache_len[st.slot] = st.cache_len
             act[st.slot] = True
+            rows[st.slot] = st.req
+        samp = None
+        if any(st.req.temperature > 0.0 for st in active):
+            samp = self._row_params(rows)
+            samp["seeds"] = [r.seed if r is not None and r.temperature > 0.0
+                             else None for r in rows]
         paged = paged_cache.PagedTables(
             table=np.ascontiguousarray(self.scheduler.table[:, :, :width]),
             cache_len=cache_len, active=act, page_size=self.eng.page_size,
@@ -447,7 +547,8 @@ class Engine:
         tokens_d = self._tensor(tokens, torch.int64)
         cache_len_d = self._tensor(cache_len, torch.int32)
         out = self._on_ranks(lambda rt, pools: serve_step.lm_decode_step(
-            rt, self.model, pools, tokens_d, self.cfg, cache_len_d, paged))
+            rt, self.model, pools, tokens_d, self.cfg, cache_len_d, paged,
+            sampling=samp))
         tok = self._sampled(out)
         self.metrics.decode_wall_s += time.monotonic() - t0
         return tok
@@ -458,13 +559,21 @@ class Engine:
         chunk each), admit (one chunk for each admission), then one decode
         step for every slot whose prefill has completed. Returns the
         (uid, token) pairs emitted this step."""
+        with self.tracer.span("engine/step", cat="engine",
+                              step=self.metrics.steps):
+            return self._step_inner()
+
+    def _step_inner(self) -> List[Tuple[str, int]]:
         t0 = time.monotonic()
         emitted: List[Tuple[str, int]] = []
         m = self.metrics
+        tracer = self.tracer
         # chunked prefills admitted on earlier steps go before this step's
         # admissions (FIFO progress)
         for st in list(self._prefilling):
-            done = self._advance_prefill(st)
+            with tracer.span("engine/prefill_chunk", cat="engine",
+                             uid=st.req.uid, start=st.prefill_pos):
+                done = self._advance_prefill(st)
             if done is not None:
                 self._complete_prefill(st, *done, emitted)
         while True:
@@ -476,7 +585,10 @@ class Engine:
                 break
             st = batch[0]
             self._prefilling.append(st)
-            done = self._advance_prefill(st)
+            with tracer.span("engine/prefill", cat="engine",
+                             uid=st.req.uid, prompt_len=st.req.prompt_len,
+                             cached_len=st.cached_len):
+                done = self._advance_prefill(st)
             if done is not None:
                 self._complete_prefill(st, *done, emitted)
         if self.prefix_cache is not None:
@@ -487,7 +599,10 @@ class Engine:
         active = [st for st in self.scheduler.active()
                   if st.cache_len > 0 and not st.done]
         if active:
-            tok = self._decode(active)
+            width = self.scheduler.decode_width()
+            with tracer.span("engine/decode", cat="engine", width=width,
+                             active=len(active)):
+                tok = self._decode(active, width)
             now = time.monotonic()
             for st in active:
                 t = int(tok[st.slot, 0])
@@ -548,20 +663,23 @@ def build_engine(arch: str, *, smoke: bool = True, c: Optional[int] = 1,
                  data: int = 1, eng: EngineConfig = EngineConfig(),
                  model: Optional[Model] = None, init_seed: int = 0,
                  kernel: Optional[str] = None, block: Optional[str] = None,
-                 plan=None, device=None) -> Engine:
+                 plan=None, device=None,
+                 registry: Optional[obs.Registry] = None,
+                 tracer: Optional[obs.Tracer] = None) -> Engine:
     """Build the engine on ``device`` (default: the CUDA card, raising if
     there is none) for ``plan``, or for a serve plan of ``data`` replicas
     at SP degree 1 when none is given; a plan of SP degree > 1 runs its
     ranks as ``ThreadMesh`` threads on that one device. ``model``
     supplies the weights (e.g. ``factory.from_jax_params``); else they are
     drawn from ``init_seed`` on the device. ``kernel`` / ``block`` pick the
-    paged-decode and ring-block implementations ('ref' | 'cuda')."""
-    from repro_torch.configs import registry
+    paged-decode and ring-block implementations ('ref' | 'cuda');
+    ``registry`` and ``tracer`` go to the ``Engine``."""
+    from repro_torch.configs import registry as arch_registry
     from repro_torch.models.factory import build_model
     from repro_torch.plan import make_serve_plan
 
     device = resolve_device(device)
-    cfg = registry.get_smoke(arch) if smoke else registry.get(arch)
+    cfg = arch_registry.get_smoke(arch) if smoke else arch_registry.get(arch)
     if plan is None:
         plan = make_serve_plan(
             cfg, arch=arch, n_devices=data, data=data, c=c,
@@ -571,4 +689,4 @@ def build_engine(arch: str, *, smoke: bool = True, c: Optional[int] = 1,
         model = build_model(cfg, device=device, seed=init_seed)
     elif model.device != device:
         raise ValueError(f"model lives on {model.device}, engine on {device}")
-    return Engine(model, plan, eng)
+    return Engine(model, plan, eng, registry=registry, tracer=tracer)

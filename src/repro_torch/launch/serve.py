@@ -1,15 +1,21 @@
 """Serving driver on top of ``repro_torch.engine`` (engine and ``--legacy``
 modes of ``repro.launch.serve``).
 
-Engine mode serves a mixed workload of ``--requests`` greedy requests with
+Engine mode serves a mixed workload of ``--requests`` requests with
 staggered prompt lengths and budgets by continuous batching over the paged
-KV cache, and prints per-request generations and the engine metrics.
+KV cache, and prints per-request generations and the engine metrics. The
+requests are greedy unless ``--temperature`` > 0, which samples each with
+``--top-k`` / ``--top-p`` and seed ``--seed + i``. ``--metrics-dump FILE``
+writes the engine's ``obs`` registry after the run (Prometheus text, JSON
+when FILE ends ``.json``), ``--trace-out FILE`` a Chrome-trace JSON of its
+request, step, prefill and decode spans.
 ``--prefill-chunk N`` prefills prompts in page-aligned chunks of about N
 tokens; ``--prefix-cache`` shares a ``--system-prompt-len``-token prefix
 over every request and turns the block-hash prefix cache on, so later
 requests prefill only their uncached suffix.
 
-``--legacy`` is the static-batch greedy path: one batch of ``--batch``
+``--legacy`` is the static-batch greedy path (it ignores the sampling
+flags, as the JAX launcher's does): one batch of ``--batch``
 random prompts of ``--prompt-len`` tokens, prefilled at the prompt length,
 the cache expanded to capacity, then ``--gen - 1`` decode steps against the
 contiguous cache (kernel B5 once per layer and step on the card).
@@ -21,6 +27,9 @@ none; ``--device cpu`` runs the plain PyTorch versions of the kernels:
       --smoke --device cpu --requests 8 --prompt-len 16 --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
       --smoke --device cpu --prefix-cache --prefill-chunk 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
+      --smoke --device cpu --temperature 0.8 --top-k 40 --top-p 0.9 \\
+      --metrics-dump "$TMPDIR/m.prom" --trace-out "$TMPDIR/trace.json"
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
       --smoke --device cpu --legacy
 
@@ -103,7 +112,7 @@ def _legacy_main(args, plan, cfg, device):
     return out
 
 
-def _engine_main(args, plan, device):
+def _engine_main(args, plan, device, registry=None, tracer=None):
     import numpy as np
 
     from repro_torch.engine import EngineConfig, Request, build_engine
@@ -111,7 +120,8 @@ def _engine_main(args, plan, device):
     engine = build_engine(
         plan.arch, smoke=args.smoke, plan=plan, init_seed=args.seed,
         device=device, eng=EngineConfig(pages_per_shard=args.pages_per_shard,
-                                        prefill_chunk=args.prefill_chunk))
+                                        prefill_chunk=args.prefill_chunk),
+        registry=registry, tracer=tracer)
     rng = np.random.default_rng(args.seed)
     vocab = engine.cfg.vocab_size
     shared = (rng.integers(0, vocab, args.system_prompt_len).tolist()
@@ -125,7 +135,7 @@ def _engine_main(args, plan, device):
             uid=f"req{i}",
             tokens=shared + rng.integers(0, vocab, plen).tolist(),
             max_new_tokens=gen, temperature=args.temperature,
-            seed=args.seed + i))
+            top_k=args.top_k, top_p=args.top_p, seed=args.seed + i))
     for r in reqs:
         rej = engine.add_request(r)
         if rej is not None:
@@ -183,7 +193,15 @@ def main(argv=None):
                     help="tokens of the shared prefix under --prefix-cache")
     ap.add_argument("--max-len", type=int, default=512)
     ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--metrics-dump", default=None,
+                    help="write the obs registry here after the run "
+                         "(Prometheus text; .json suffix -> JSON dump)")
+    ap.add_argument("--trace-out", default=None,
+                    help="write a Chrome-trace-format JSON timeline of the "
+                         "engine's request and step spans here")
     # the JAX driver's other modes, rejected until they are ported
     ap.add_argument("--replicas", type=int, default=1)
     ap.add_argument("--roles", default=None)
@@ -221,6 +239,10 @@ def main(argv=None):
           f"device={args.device}")
     if args.save_plan:
         print(f"[serve] plan saved -> {plan.save(args.save_plan)}")
+    from repro_torch import obs
+
+    registry = obs.Registry()
+    tracer = obs.Tracer(enabled=bool(args.trace_out))
     if args.legacy:
         if plan.n_devices != 1:
             raise NotImplementedError(
@@ -228,7 +250,16 @@ def main(argv=None):
                 "ported yet (ROADMAP.md §A10); the engine serves any P")
         out = _legacy_main(args, plan, cfg, args.device)
     else:
-        out = _engine_main(args, plan, args.device)
+        out = _engine_main(args, plan, args.device, registry=registry,
+                           tracer=tracer)
+    if args.metrics_dump:
+        fmt = "json" if args.metrics_dump.endswith(".json") else "prometheus"
+        registry.dump(args.metrics_dump, fmt=fmt)
+        print(f"[serve] metrics dump -> {args.metrics_dump} ({fmt})")
+    if args.trace_out:
+        tracer.dump(args.trace_out)
+        print(f"[serve] trace ({len(tracer.events())} events) -> "
+              f"{args.trace_out}")
     if args.comm_report:
         import json
         import pathlib

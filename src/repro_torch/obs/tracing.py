@@ -1,10 +1,15 @@
 """Nestable spans with a thread-safe in-memory buffer, exported as
 Chrome-trace-format JSON (chrome://tracing / Perfetto "traceEvents").
 
-``span(name, ...)`` records a synchronous complete event (ph="X") covering
-a with-block: a train phase (``train/data``, ``train/step``,
-``train/ckpt``). Nesting comes for free from Chrome's stack-building on
-(pid, tid, ts, dur).
+Two span flavours:
+
+  * ``span(name, ...)`` records a synchronous complete event (ph="X")
+    covering a with-block: a train phase (``train/data``, ``train/step``,
+    ``train/ckpt``), an engine step, a prefill chunk. Nesting comes for
+    free from Chrome's stack-building on (pid, tid, ts, dur).
+  * ``async_begin``/``async_end`` record async events (ph="b"/"e") keyed
+    by an id, for spans that outlive any one stack frame: a request's
+    lifecycle in the engine, from ``add_request`` to its last token.
 
 The disabled tracer (default, and the module-level ``NULL_TRACER``) makes
 every call a no-op returning a shared null context manager — a loop pays
@@ -15,21 +20,21 @@ instrumentation in place costs ~nothing when ``--trace-out`` is absent.
 ``torch.profiler.record_function``, so host-side spans line up with the
 device timeline when a ``torch.profiler`` trace is captured alongside.
 
-The port's own copy of ``repro.obs.tracing``'s spans: the same events and
-Chrome JSON, with ``torch.profiler`` in place of ``jax.profiler``. The JAX
-module's async and instant events mark a request's lifecycle across the
-gateway and the engine; they come with the serving-side tracing
-(ROADMAP.md §A item 4).
+The port's own copy of ``repro.obs.tracing``: the same events and Chrome
+JSON, with ``torch.profiler`` in place of ``jax.profiler``. The JAX
+module's instant events and ``extend`` (merging a worker process's events)
+serve its gateway and front end (ROADMAP.md §A item 7).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
 import threading
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 
 class _NullContext:
@@ -53,6 +58,7 @@ class Tracer:
         self.annotate = annotate
         self._lock = threading.Lock()
         self._events: List[Dict[str, Any]] = []
+        self._ids = itertools.count(1)
         # epoch for ts: trace-relative µs keeps numbers small and stable
         self._t0 = time.perf_counter()
 
@@ -84,6 +90,28 @@ class Tracer:
                             "tid": threading.get_ident(),
                             **({"args": args} if args else {})})
 
+    # -- async (cross-frame) spans ---------------------------------------
+    def async_begin(self, name: str, cat: str = "request",
+                    **args) -> Optional[str]:
+        """Open an async span; returns the id to pass to ``async_end``."""
+        if not self.enabled:
+            return None
+        sid = f"s{next(self._ids)}"
+        self._emit({"name": name, "cat": cat, "ph": "b", "id": sid,
+                    "ts": self._now_us(), "pid": os.getpid(),
+                    "tid": threading.get_ident(),
+                    **({"args": args} if args else {})})
+        return sid
+
+    def async_end(self, name: str, span_id: Optional[str],
+                  cat: str = "request", **args) -> None:
+        if not self.enabled or span_id is None:
+            return
+        self._emit({"name": name, "cat": cat, "ph": "e", "id": str(span_id),
+                    "ts": self._now_us(), "pid": os.getpid(),
+                    "tid": threading.get_ident(),
+                    **({"args": args} if args else {})})
+
     # -- buffer -----------------------------------------------------------
     def _emit(self, event: Dict[str, Any]) -> None:
         with self._lock:
@@ -92,6 +120,10 @@ class Tracer:
     def events(self) -> List[Dict[str, Any]]:
         with self._lock:
             return list(self._events)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
 
     # -- export -----------------------------------------------------------
     def chrome_trace(self) -> Dict[str, Any]:

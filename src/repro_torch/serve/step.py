@@ -10,7 +10,7 @@ decode: one new token per sequence against the SP-sharded KV cache.
     written at ``cache_len`` (``kv_cache.write_token``), unfilled slots are
     pushed past the query, and ``startrail.decode_attention`` scores the
     cache with per-row positions (kernel B5 on 'cuda').
-  Vocab-parallel greedy sampling.
+  Vocab-parallel greedy or sampled (temperature, top-k, top-p) tokens.
 
 prefill: the full forward pass (StarTrail attention: kernel B2 on 'cuda';
   B1 under the local attention of ``Runtime``) returning every layer's K/V
@@ -34,7 +34,8 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.core import startrail as st
 from repro_torch.core.combine import combine_pair
-from repro_torch.engine import paged_cache, sampling
+from repro_torch.engine import paged_cache
+from repro_torch.engine import sampling as sampling_lib
 from repro_torch.kernels import dispatch as kernels
 from repro_torch.models import blocks
 from repro_torch.serve import kv_cache
@@ -75,12 +76,19 @@ def _attn_decode(rt, p, x, cache, cfg: ModelConfig, cache_len,
 
 def lm_decode_step(rt, model, cache, tokens, cfg: ModelConfig, cache_len,
                    paged: Optional[paged_cache.PagedTables] = None,
-                   return_hidden: bool = False):
+                   return_hidden: bool = False, sampling=None):
     """tokens: (B, 1) int64 (replicated across SP); cache_len: (B,) int32.
     cache: {'k','v'}, updated in place: the page pools (L, pages_loc, ps,
     Hkv, hd) with ``paged``, else the contiguous cache (L, B, S_local, Hkv,
-    hd) of ``kv_cache``. Returns the greedy next tokens (B, 1) int32, or
-    with ``return_hidden`` the (B, 1, D) pre-head hidden state."""
+    hd) of ``kv_cache``. Returns the next tokens (B, 1) int32, or with
+    ``return_hidden`` the (B, 1, D) pre-head hidden state.
+
+    sampling: None for greedy, or a dict of per-row ``temperature``,
+      ``top_k``, ``top_p`` ((B,) device tensors) and ``seeds`` (B host
+      request seeds, None for a row that draws no noise); needs
+      ``paged``. Each seed's key is folded here with the
+      sampled token's position, ``cache_len + 1``, from the host copy, so
+      solo and batched serving draw the same noise."""
     x = blocks.embed(rt, model.embed, tokens, cfg, tokens_replicated=True)
     for i, layer in enumerate(model.layers):
         x = _attn_decode(rt, layer.mixer, x,
@@ -90,7 +98,17 @@ def lm_decode_step(rt, model, cache, tokens, cfg: ModelConfig, cache_len,
     x = blocks.rmsnorm(model.final_norm, x, cfg.norm_eps)
     if return_hidden:
         return x
-    return sampling.greedy(rt, model.head, x, cfg)
+    if sampling is None:
+        return sampling_lib.greedy(rt, model.head, x, cfg)
+    if paged is None:
+        raise ValueError("sampled decoding needs the paged tables' host "
+                         "cache lengths (the engine's decode step)")
+    keys = [None if s is None else sampling_lib.fold_in(
+        sampling_lib.seed_key(s), int(cl) + 1)
+        for s, cl in zip(sampling["seeds"], paged.cache_len)]
+    return sampling_lib.sample(
+        rt, model.head, x, cfg, temperature=sampling["temperature"],
+        top_k=sampling["top_k"], top_p=sampling["top_p"], keys=keys)
 
 
 def lm_prefill(rt, model, tokens, cfg: ModelConfig,
@@ -136,7 +154,7 @@ def lm_prefill(rt, model, tokens, cfg: ModelConfig,
     cache = (torch.stack(ks), torch.stack(vs))
     if return_hidden:
         return last, cache
-    return sampling.greedy(rt, model.head, last, cfg), cache
+    return sampling_lib.greedy(rt, model.head, last, cfg), cache
 
 
 def _attn_prefill_paged(rt, p, x, cache, cfg: ModelConfig, cached_len: int,

@@ -8,7 +8,7 @@ next-token hidden state must agree within 1e-4 (f32 smoke weights, the
 same products in another summation order), and so must the local-mode
 forward (one attention block per layer) of both packages. The port's own
 "batched == solo" replay must hold, and the knobs the port does not carry
-yet must raise (an SP degree > 1 no longer does). The prefix cache and chunked prefill are held against the
+yet must raise (an SP degree > 1 and temperature > 0 no longer do). The prefix cache and chunked prefill are held against the
 JAX engine in ``tests/test_torch_prefix.py``.
 """
 
@@ -140,9 +140,12 @@ def test_batched_equals_solo_replay():
 def test_unported_knobs_raise():
     ctx = _engines()
     cfg, teng = ctx["cfg"], ctx["teng"]
-    with pytest.raises(NotImplementedError, match="temperature"):
-        teng.add_request(torch_engine.Request("s", [1, 2], 2,
-                                              temperature=0.8))
+    # temperature > 0 is served (held in tests/test_torch_sampling.py)
+    teng.reset()
+    assert teng.add_request(torch_engine.Request(
+        "s", [1, 2], 2, temperature=0.8, top_k=4, seed=3)) is None
+    out = teng.run()["s"]
+    assert len(out) == 2 and all(0 <= t < cfg.vocab_size for t in out)
     with pytest.raises(NotImplementedError, match="host KV tier"):
         torch_engine.Engine(teng.model, teng.plan,
                             torch_engine.EngineConfig(host_tier_bytes=1))

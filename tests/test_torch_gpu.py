@@ -1105,3 +1105,65 @@ def test_paged_launch_counts_survive_rank_threads(cuda_device):
     torch.cuda.synchronize()
     assert paged_decode.LAUNCHES == {"B4": n_threads * calls}
     assert paged_prefill.LAUNCHES == {"B6": n_threads * calls}
+
+
+def _sample_on(device, logits, temp, top_k, top_p, keys):
+    """``engine.sampling.sample`` at P = 1 on ``device`` for the rows of
+    ``logits`` (B, V): the head's first column holds them, x picks it."""
+    import types
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.dist.comm import SingleComm
+    from repro_torch.engine import sampling
+    from repro_torch.models.runtime import Runtime
+
+    B, V = logits.shape
+    cfg = ModelConfig(name="s", family="dense", num_layers=1, d_model=B,
+                      num_heads=1, num_kv_heads=1, d_ff=8, vocab_size=V)
+    rt = Runtime(comm=SingleComm(), st_cfg=st_torch.StarTrailConfig(
+        seq_len=8, seq_scheme="contiguous"), device=device)
+    table = torch.from_numpy(np.ascontiguousarray(logits.T)).to(device)
+    x = torch.eye(B, device=device)[:, None]             # row b -> column b
+
+    def rows(v, dt):
+        return torch.full((B,), v, dtype=dt, device=device)
+
+    return sampling.sample(
+        rt, types.SimpleNamespace(table=table), x, cfg,
+        temperature=rows(temp, torch.float32), top_k=rows(top_k, torch.int32),
+        top_p=rows(top_p, torch.float32), keys=keys)[:, 0].cpu().numpy()
+
+
+@pytest.mark.gpu
+def test_sample_on_the_card_membership_and_determinism(cuda_device):
+    """``sample`` on CUDA tensors at V = 32000: the CUDA generators' draws
+    stay in the top 8 and in the top-0.4 nucleus, the same keys give the
+    same tokens, other positions other tokens, temperature 0 the argmax."""
+    from repro_torch.engine import sampling
+
+    B, V = 4, 32000
+    logits = np.repeat(3.0 * np.random.default_rng(0).normal(
+        size=(1, V)).astype(np.float32), B, axis=0)
+    top8 = set(np.argsort(logits[0])[-8:].tolist())
+    probs = np.exp(logits[0].astype(float) - logits[0].max())
+    probs /= probs.sum()
+    order = np.argsort(-probs)
+    nucleus = set(order[:int(np.searchsorted(np.cumsum(probs[order]), 0.4)
+                             + 1)].tolist())
+
+    def keys(step):
+        return [sampling.fold_in(sampling.seed_key(b), step)
+                for b in range(B)]
+
+    k8 = [_sample_on(cuda_device, logits, 1.0, 8, 1.0, keys(i))
+          for i in range(16)]
+    assert set(np.concatenate(k8).tolist()) <= top8
+    assert len(set(np.concatenate(k8).tolist())) > 1
+    p4 = [_sample_on(cuda_device, logits, 1.0, 0, 0.4, keys(i))
+          for i in range(16)]
+    assert set(np.concatenate(p4).tolist()) <= nucleus
+    again = _sample_on(cuda_device, logits, 1.0, 8, 1.0, keys(3))
+    np.testing.assert_array_equal(again, k8[3])
+    assert len({tuple(t) for t in k8}) > 1
+    greedy = _sample_on(cuda_device, logits, 0.0, 8, 0.9, keys(0))
+    assert (greedy == int(np.argmax(logits[0]))).all()
