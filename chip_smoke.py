@@ -109,6 +109,34 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               then 31 decode steps against the contiguous cache, B5 per
               layer and step; the first decode step's hidden state and
               token are held against the engine's
+  8c. host_tier  the pinned-host KV tier, the handoff and preemption on
+              the same model, pages of 16 (983 040 B at full width): a
+              family prompt (1024-token prefix, 16-token tail), two
+              1536-token evictors, the family again with a new tail, 8 new
+              tokens each, through a roomy pool (512 pages), a tight pool
+              (100 pages) with a 256 MiB tier and the tight pool without
+              it. The tier's streams must equal the roomy pool's token for
+              token, its connector must spill and reload the family's 64
+              blocks and hit 1024 tokens, the re-arrival's suffix prefill
+              (B6 on the 1024 reloaded tokens, B1) must run; the tier-off
+              engine's streams equal, or its re-arrival's hidden state
+              within ``ENGINE_TOL`` of the roomy pool's. The re-arrival's
+              TTFT with the tier and without it (median of 3 sequences),
+              split by the engine's spans into the admission (the
+              evictions' spills), the reload and the prefill;
+              the link's GB/s from ``kv_transfer_seconds`` (reload and
+              inject h2d, export d2h) against ``hw.HOST_LINK_BW``. Then 4
+              prompts of 512-1024 tokens prefilled as 1-token handoff twins
+              on one engine, exported, released and added to a decode
+              engine (16 new tokens each; a fifth with a budget of 1 needs
+              no handoff): the streams equal a unified engine's, the decode
+              engine prefills nothing. Then 4 requests (2 greedy, 2 at
+              temperature 0.8, top-k 40, top-p 0.9) with the prefix cache;
+              after 6 steps one of each is preempted mid-decode and its
+              resume request added back: the resume prefill hits the
+              cache, and each resumed stream equals the uninterrupted one
+              or its first hidden state is within ``ENGINE_TOL`` of a
+              monolithic prefill of the same tokens
   9. train    the full-width model trains through ``train.trainer.train``
               with a plan from ``make_plan(c=1, microbatches=4)`` and its
               default recompute (``remat='attn_out'``): seq 4096, global
@@ -192,14 +220,17 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               and gradient at seq 1024 under the CUDA kernels against the
               plain versions (``dense_train_check``)
 
-The paths are phases 4, 4a, 5, 5a, 7, 8a, 8b, 9, 13, each scheme of 14,
-15's search and its plan's step, 16's four runs and 17:
+The paths are phases 4, 4a, 5, 5a, 7, 8a, 8b, 8c's five runs (roomy,
+tier, tier-off, handoff, preempt), 9, 13, each scheme of 14, 15's search
+and its plan's step, 16's four runs and 17:
 the launch counters are set to 0 just before each and read just after,
 and each must launch exactly the kernels it runs (B2 and B3 in the ring;
 B5 and B7 in ragged_bwd; B2 and B4 in the engine and in the sample
 phase's mixed run; B1 in the local
 prefill; B1, B2, B4 and B6 in the prefix phase; B2 and B5 in the legacy
-phase; B2 and B3 in the train loop, in train_sp and in the ring and
+phase; B1, B2, B4 and B6 in the host tier's roomy and tier runs and its
+preempt run, B2 and B4 in its tier-off run and its handoff run (the
+prefill and the decode engine); B2 and B3 in the train loop, in train_sp and in the ring and
 StarTrail schemes; B1 and B3 under Ulysses; B1, B2 and B3 in the
 autotune search, whose candidates are all four arrangements; B2 and B4
 in dense_serve's P = 1, P = 8 and P = 8 sampled runs, B1, B2, B4 and B6
@@ -1719,6 +1750,15 @@ def launches_of(**counts):
     return {n: counts.get(n, 0) for n in KERNELS}
 
 
+def _cached_launches(engine, cold):
+    """A run's launches when ``cold`` prompts prefill whole (B2) and every
+    other prefill is a suffix prefill (B6 and B1) over its cached pages."""
+    L, m = engine.cfg.num_layers, engine.metrics
+    return launches_of(B1=L * (m.prefill_chunks - cold), B2=L * cold,
+                       B4=L * m.decode_steps,
+                       B6=L * (m.prefill_chunks - cold))
+
+
 def p1_launches(engine):
     """One card: C = R = 1, so each layer's StarTrail forward is one ring
     step through B2 (merging into the empty accumulator), and each decode
@@ -2346,11 +2386,8 @@ def phase_prefix(model, smi, reps=3):
     check(m.prefill_tokens_cached > 0 and launches["B6"] > 0,
           f"prefix: {m.prefill_tokens_cached} cached tokens, B6 launched "
           f"{launches['B6']} times")
-    L = cfg.num_layers
     cold = sum(1 for c in cached.values() if c == 0)
-    want = launches_of(B1=L * (m.prefill_chunks - cold), B2=L * cold,
-                       B4=L * m.decode_steps,
-                       B6=L * (m.prefill_chunks - cold))
+    want = _cached_launches(engine, cold)
     check(launches == want, f"prefix launches {launches}: want {want} "
           f"({cold} leading chunks of {m.prefill_chunks}, "
           f"{m.decode_steps} decode steps)")
@@ -2461,10 +2498,364 @@ def phase_legacy(engine, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8c: the pinned-host KV tier, the handoff and preemption
+# ---------------------------------------------------------------------------
+
+# The pressure sequence at full width: a family prompt (a 1024-token prefix
+# and its own 16-token tail), two 1536-token evictors (deeper chains, so the
+# cost-aware eviction unwinds the family's first), the family again with a
+# new tail. The tight pool (100 pages of 16) cannot hold the family beside
+# an evictor, the roomy one (512) never evicts.
+HOST_TIER = {"prefix": 1024, "tail": 16, "evictor": 1536, "new": 8,
+             "tight_pages": 100, "roomy_pages": 512,
+             "tier_bytes": 256 << 20, "reps": 3}
+HANDOFF_PLENS = [512, 640, 896, 1024]          # 16 new tokens each
+HANDOFF_NEW = 16
+PREEMPT = {"plens": [320, 448, 576, 704], "new": 16, "at": 6,
+           "temperature": 0.8, "top_k": 40, "top_p": 0.9}
+
+
+def _serve_engine(model, pages, prefix_cache=False, tier_bytes=0,
+                  tracer=None):
+    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.plan import make_serve_plan
+
+    plan = make_serve_plan(model.cfg, arch=ARCH, c=1, decode_batch=4,
+                           page_size=16, max_len=2048,
+                           prefix_cache=prefix_cache,
+                           host_tier_bytes=tier_bytes)
+    return Engine(model, plan, EngineConfig(pages_per_shard=pages),
+                  tracer=tracer)
+
+
+def _pressure_requests(vocab, rep):
+    import numpy as np
+
+    from repro_torch.engine import Request
+
+    h = HOST_TIER
+    rng = np.random.default_rng(11 + rep)
+    fam = rng.integers(0, vocab, h["prefix"]).tolist()
+    return [Request(f"h0.{rep}", fam + rng.integers(0, vocab, h["tail"])
+                    .tolist(), h["new"]),
+            *[Request(f"e{i}.{rep}", rng.integers(0, vocab, h["evictor"])
+                      .tolist(), h["new"]) for i in range(2)],
+            Request(f"h1.{rep}", fam + rng.integers(0, vocab, h["tail"])
+                    .tolist(), h["new"])]
+
+
+def _serve_pressure(engine, rep):
+    """The pressure sequence on a fresh ``engine``, each request served to
+    the end before the next arrives; every count set to 0 just before and
+    read just after. Returns the streams, the re-arrival's first-token
+    hidden state, TTFT and where it went (from the engine's spans: the
+    admission, its evictions' spills included, is the TTFT less the
+    ``engine/prefill`` span, which holds ``engine/host_reload``), cached
+    and host-hit tokens, and the launches."""
+    import torch
+
+    reqs = _pressure_requests(engine.cfg.vocab_size, rep)
+    again = reqs[-1]
+    engine.tracer.clear()
+    hidden = {}
+    engine.on_prefill = lambda uid, h: hidden.__setitem__(uid,
+                                                          h.float().clone())
+    torch.cuda.synchronize()
+    counts = reset_counts()
+    out = {}
+    for r in reqs:
+        check(engine.add_request(r) is None, f"{r.uid} rejected")
+        out.update(engine.run())
+    torch.cuda.synchronize()
+    launches = read_counts(counts)
+    engine.on_prefill = None
+    st = engine.scheduler.finished[again.uid]
+    cold = sum(1 for r in reqs
+               if engine.scheduler.finished[r.uid].cached_len == 0)
+    want = _cached_launches(engine, cold)
+    check(launches == want, f"host_tier rep {rep} launches {launches}: "
+          f"want {want}")
+    for r in reqs:
+        check(len(out[r.uid]) == r.max_new_tokens,
+              f"{r.uid}: {len(out[r.uid])} tokens")
+    span = {e["name"]: e["dur"] / 1e3 for e in engine.tracer.events()
+            if e.get("ph") == "X" and e.get("args", {}).get("uid")
+            == again.uid}
+    ttft_ms = 1e3 * engine.ttft_s[again.uid]
+    reload_ms = span.get("engine/host_reload", 0.0)
+    parts = {"admission_ms": ttft_ms - span["engine/prefill"],
+             "reload_ms": reload_ms,
+             "prefill_ms": span["engine/prefill"] - reload_ms}
+    return {"out": out, "hidden": hidden[again.uid],
+            "ttft": engine.ttft_s[again.uid], "ttft_parts": parts,
+            "cached_len": st.cached_len,
+            "host_len": st.host_len, "launches": launches,
+            "uids": [r.uid for r in reqs]}
+
+
+def _link_rates(conn):
+    """Per op: pages, bytes, summed seconds of ``kv_transfer_seconds`` and
+    bytes over them, against ``hw.HOST_LINK_BW``. Spills time dispatch to
+    commit (the next step's flush), so only the synchronous ops give a
+    link rate: export (d2h), reload and inject (h2d)."""
+    from repro_torch.roofline import hw
+
+    reg = conn.registry
+    lat = reg.get("kv_transfer_seconds")
+    out = {}
+    for op in ("spill", "reload", "handoff_out", "handoff_in"):
+        n = int(reg.get("kv_transfer_pages_total").value(op=op))
+        if not n:
+            continue
+        nbytes = int(reg.get("kv_transfer_bytes_total").value(op=op))
+        s, count = lat.value(op=op), lat.count(op=op)
+        out[op] = {"pages": n, "bytes": nbytes, "seconds": s,
+                   "transfers": count}
+        if op == "spill":
+            out[op]["mean_dispatch_to_commit_s"] = s / count
+        else:
+            out[op].update(GB_per_s=nbytes / s / 1e9,
+                           of_host_link=nbytes / s / hw.HOST_LINK_BW)
+    return out
+
+
+def _token_share(got, want):
+    pairs = [(a, b) for u in want for a, b in zip(got[u], want[u])]
+    return sum(a == b for a, b in pairs) / len(pairs)
+
+
+def phase_host_tier(model, smi):
+    """The host KV tier at full width (module doc, phase 8c): the pressure
+    sequence through a roomy pool, the tight pool with a 256 MiB tier and
+    the tight pool without it; the prefill -> decode handoff between two
+    engines against a unified one; preemption of a greedy and a sampled
+    request mid-decode, each resumed. Returns the launches of each run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.engine import Request
+
+    t_phase = time.perf_counter()
+    cfg, h = model.cfg, HOST_TIER
+    L = cfg.num_layers
+    by_path = {}
+    # --- 1. the tier under pressure
+    engines = {name: _serve_engine(model, pages, True, tier,
+                                   obs.Tracer(enabled=True))
+               for name, pages, tier in (
+                   ("roomy", h["roomy_pages"], 0),
+                   ("tier", h["tight_pages"], h["tier_bytes"]),
+                   ("off", h["tight_pages"], 0))}
+    runs = {}
+    for name, engine in engines.items():
+        reps = [_serve_pressure(engine, 0)]
+        runs[name] = {"reps": reps, "stats": engine.connector.stats(),
+                      "rates": _link_rates(engine.connector),
+                      "metrics": engine.metrics.to_dict()}
+        by_path["host_tier" if name == "tier" else f"host_tier_{name}"] = \
+            reps[0]["launches"]
+        for rep in range(1, h["reps"] if name != "roomy" else 1):
+            engine.reset()
+            reps.append(_serve_pressure(engine, rep))
+    # d2h over the link, synchronously: the last re-arrival's registered
+    # blocks exported from the tier engine
+    tier_eng = engines["tier"]
+    last = _pressure_requests(cfg.vocab_size, h["reps"] - 1)[-1]
+    tier_eng.connector.export(tier_eng.prefix_cache.match(
+        tier_eng.prefix_cache.hashes(last.tokens)))
+    runs["tier"]["rates"]["handoff_out"] = \
+        _link_rates(tier_eng.connector)["handoff_out"]
+    roomy, tier, off = (runs[n]["reps"][0] for n in ("roomy", "tier", "off"))
+    check(tier["out"] == roomy["out"],
+          "host tier streams differ from the roomy pool's")
+    ts, os_ = runs["tier"]["stats"], runs["off"]["stats"]
+    fam_blocks = h["prefix"] // 16
+    check(ts["spill_pages"] >= fam_blocks and ts["reload_pages"]
+          >= fam_blocks and ts["hit_tokens"] >= h["prefix"],
+          f"host tier stats {ts}: want the family's {fam_blocks} blocks "
+          f"spilled and reloaded")
+    check(os_["hit_tokens"] == 0, f"tier-off host hits {os_}")
+    check(tier["host_len"] == tier["cached_len"] == h["prefix"]
+          and tier["launches"]["B6"] >= L,
+          f"the re-arrival's cached {tier['cached_len']} / host "
+          f"{tier['host_len']} tokens, B6 {tier['launches']['B6']}: B6 must "
+          f"run on the {h['prefix']} reloaded tokens")
+    off_err = None
+    if off["out"] != roomy["out"]:
+        # the tier-off engine prefills the family again, cold, at another
+        # length: cuBLAS may pick other GEMM algorithms
+        ref = engines["roomy"]
+        off_err = compare((off["hidden"], _logits(ref, off["hidden"])),
+                          (roomy["hidden"], _logits(ref, roomy["hidden"])),
+                          "tier-off re-arrival vs the roomy pool")
+    page_bytes = tier_eng.connector.page_bytes
+    del engines, tier_eng
+    free_device()
+    ttft = {n: statistics.median(r["ttft"] for r in runs[n]["reps"])
+            for n in ("tier", "off")}
+    # --- 2. the prefill -> decode handoff
+    rng = np.random.default_rng(13)
+    hreqs = [Request(f"p{i}", rng.integers(0, cfg.vocab_size, n).tolist(),
+                     HANDOFF_NEW) for i, n in enumerate(HANDOFF_PLENS)]
+    hreqs.append(Request("p_one", rng.integers(0, cfg.vocab_size, 300)
+                         .tolist(), 1))
+    pre = _serve_engine(model, 512)
+    for r in hreqs:
+        check(pre.add_request(r) is None, f"{r.uid} rejected")
+    unified = pre.run()
+    pre.reset()
+    dec = _serve_engine(model, 512)
+    torch.cuda.synchronize()
+    counts = reset_counts()
+    t0 = time.perf_counter()
+    first = {}
+    for r in hreqs:
+        check(pre.add_request(dataclasses.replace(
+            r, max_new_tokens=1, handoff=True)) is None, f"{r.uid} rejected")
+    by_uid = {r.uid: r for r in hreqs}
+    while not (pre.idle() and dec.idle()):
+        for eng in (pre, dec):
+            if not eng.idle():
+                eng.step()
+        for st in pre.take_handoffs():
+            orig = by_uid[st.req.uid]
+            first[orig.uid] = st.out[0]
+            if orig.max_new_tokens > 1:
+                blocks = pre.export_kv(st)
+                pre.release_handoff(st)
+                dec.add_prefilled(orig, st.out[0], blocks)
+            else:
+                pre.release_handoff(st)
+    torch.cuda.synchronize()
+    handoff_wall = time.perf_counter() - t0
+    launches = read_counts(counts)
+    got = dec.collect()
+    streams = {u: got.get(u, [first[u]]) for u in by_uid}
+    check(streams == unified, "handoff streams differ from the unified "
+          "engine's")
+    ps, ds = pre.connector.stats(), dec.connector.stats()
+    check(dec.metrics.prefills == 0 and ps["handoff_out_pages"]
+          == ds["handoff_in_pages"] > 0,
+          f"handoff: decode engine prefills {dec.metrics.prefills}, pages "
+          f"out {ps['handoff_out_pages']} in {ds['handoff_in_pages']}")
+    want = launches_of(B2=L * pre.metrics.prefills,
+                       B4=L * dec.metrics.decode_steps)
+    check(launches == want, f"handoff launches {launches}: want {want}")
+    by_path["handoff"] = launches
+    handoff = {"requests": len(hreqs), "prompt_lens": HANDOFF_PLENS + [300],
+               "new_tokens": HANDOFF_NEW, "wall_s": handoff_wall,
+               "handoff_out_pages": ps["handoff_out_pages"],
+               "handoff_in_pages": ds["handoff_in_pages"],
+               "decode_prefills": dec.metrics.prefills,
+               "handoffs_out": pre.metrics.handoffs_out,
+               "handoffs_in": dec.metrics.handoffs_in,
+               "rates": {**_link_rates(pre.connector),
+                         **_link_rates(dec.connector)},
+               "launches": launches}
+    del pre, dec
+    free_device()
+    # --- 3. preemption mid-decode, greedy and sampled
+    p = PREEMPT
+    rng = np.random.default_rng(17)
+    preqs = [Request(f"g{i}", rng.integers(0, cfg.vocab_size, n).tolist(),
+                     p["new"]) if i % 2 == 0 else
+             Request(f"s{i}", rng.integers(0, cfg.vocab_size, n).tolist(),
+                     p["new"], temperature=p["temperature"], top_k=p["top_k"],
+                     top_p=p["top_p"], seed=40 + i)
+             for i, n in enumerate(p["plens"])]
+    engine = _serve_engine(model, 512, prefix_cache=True)
+    for r in preqs:
+        check(engine.add_request(r) is None, f"{r.uid} rejected")
+    whole = engine.run()
+    engine.reset()
+    hidden = {}
+    engine.on_prefill = lambda uid, hs: hidden.__setitem__(
+        uid, hs.float().clone())
+    torch.cuda.synchronize()
+    counts = reset_counts()
+    for r in preqs:
+        engine.add_request(r)
+    for _ in range(p["at"]):
+        engine.step()
+    victims = ("g0", "s1")
+    before, resumes = {}, {}
+    for uid in victims:
+        st = next(s for s in engine.scheduler.active() if s.req.uid == uid)
+        check(st.cache_len > 0 and not st.done, f"{uid} is not mid-decode")
+        before[uid] = list(st.out)
+        resumes[uid] = engine.preempt(uid)
+    cached_before = engine.metrics.prefill_tokens_cached
+    for uid in victims:
+        check(engine.add_request(resumes[uid]) is None, f"{uid} rejected")
+    out = engine.run()
+    torch.cuda.synchronize()
+    launches = read_counts(counts)
+    engine.on_prefill = None
+    resumed = {r.uid: before.get(r.uid, []) + out[r.uid] for r in preqs}
+    m = engine.metrics
+    check(m.prefill_tokens_cached > cached_before and m.preemptions == 2,
+          f"preempt: cached {cached_before} -> {m.prefill_tokens_cached}, "
+          f"{m.preemptions} preemptions")
+    cold = sum(1 for r in preqs if r.uid not in victims) + len(victims)
+    want = _cached_launches(engine, cold)
+    check(launches == want, f"preempt launches {launches}: want {want}")
+    by_path["preempt"] = launches
+    for r in preqs:
+        if r.uid not in victims:
+            check(resumed[r.uid] == whole[r.uid],
+                  f"{r.uid} (not preempted) changed")
+    resume_err = {}
+    for uid in victims:
+        if resumed[uid] != whole[uid]:
+            # the tail block is recomputed by a prefill where the
+            # uninterrupted run wrote it with decode steps: hold the
+            # resume's first hidden state against a monolithic prefill
+            want_h = next_token(engine, resumes[uid].tokens)
+            resume_err[uid] = compare(
+                (hidden[uid], _logits(engine, hidden[uid])), want_h,
+                f"preempt resume {uid} vs monolithic")
+    preempt = {"prompt_lens": p["plens"], "new_tokens": p["new"],
+               "preempted_at_step": p["at"], "victims": list(victims),
+               "resume_lens": {u: len(resumes[u].tokens) for u in victims},
+               "equal_streams": {u: resumed[u] == whole[u] for u in victims},
+               "token_share": _token_share(resumed, whole),
+               "resume_err_vs_monolithic": resume_err,
+               "prefill_tokens_cached": m.prefill_tokens_cached,
+               "launches": launches}
+    del engine
+    free_device()
+    emit("host_tier", model=cfg.name, page_bytes=page_bytes, **h,
+         streams_equal_roomy=True,
+         off_streams_equal=off["out"] == roomy["out"],
+         off_token_share=_token_share(off["out"], roomy["out"]),
+         off_err_vs_roomy=off_err, tol=ENGINE_TOL,
+         rearrival={"cached_len": tier["cached_len"],
+                    "host_len": tier["host_len"]},
+         rearrival_ttft_s={n: [r["ttft"] for r in runs[n]["reps"]]
+                           for n in ("tier", "off")},
+         rearrival_ttft_median_s=ttft,
+         rearrival_ttft_parts_ms={n: [r["ttft_parts"]
+                                      for r in runs[n]["reps"]]
+                                  for n in ("tier", "off")},
+         tier_stats=ts, off_stats=os_, rates=runs["tier"]["rates"],
+         tier_metrics={k: runs["tier"]["metrics"][k] for k in (
+             "prefill_tokens_host", "prefill_tokens_cached",
+             "prefill_tokens_computed", "prefix_evictions")},
+         launches={n: runs[n]["reps"][0]["launches"] for n in runs},
+         handoff=handoff, preempt=preempt,
+         seconds=time.perf_counter() - t_phase, card=smi)
+    return by_path
+
+
 def serving_phases(dev, smi):
     """The serving phases on one model; returns the launch counts of the
     engine, the sample phase, the local prefill, the prefix phase and the
-    legacy phase (the engines and the model are freed after)."""
+    legacy phase, and the host_tier phase's by run (the engines and the
+    model are freed after)."""
     engine, reqs, out, engine_launches, rec = phase_engine(dev, smi)
     sample_launches = phase_sample(engine, smi, reqs, out, rec)
     free_device()
@@ -2474,8 +2865,12 @@ def serving_phases(dev, smi):
     phase_profile(engine, smi)
     prefix_launches = phase_prefix(engine.model, smi)
     legacy_launches = phase_legacy(engine, smi)
+    model = engine.model
+    del engine
+    free_device()
+    host_tier = phase_host_tier(model, smi)
     return (engine_launches, sample_launches, local_launches,
-            prefix_launches, legacy_launches)
+            prefix_launches, legacy_launches, host_tier)
 
 
 # ---------------------------------------------------------------------------
@@ -3616,7 +4011,9 @@ def main():
         by_path["ragged_bwd"] = phase_ragged_bwd(dev)
         free_device()
         (by_path["engine"], by_path["sample"], by_path["local"],
-         by_path["prefix"], by_path["legacy"]) = serving_phases(dev, smi)
+         by_path["prefix"], by_path["legacy"],
+         host_tier) = serving_phases(dev, smi)
+        by_path.update(host_tier)
         free_device()
         model, by_path["train"] = phase_train(dev, smi)
         free_device()

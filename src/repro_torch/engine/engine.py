@@ -7,8 +7,9 @@ The engine owns two kinds of state:
     (``paged_cache.init_pools``: ``pages_per_shard`` pages each), on the
     card unless the caller asks for the CPU;
   * **host** — the ``Scheduler`` (slots, page free lists, page table, FIFO
-    queue), the prefix cache, sampling's keys and the metrics and spans
-    (``obs``), on the thread that calls ``step()``.
+    queue), the prefix cache, the KV connector and its host tier,
+    sampling's keys and the metrics and spans (``obs``), on the thread that
+    calls ``step()``.
 
 ``step()`` is one driver iteration: advance every in-flight chunked
 prefill by one chunk, admit queued requests into free slots (each
@@ -24,6 +25,18 @@ prefix-cache hit (``plan.prefix_cache``: ``gateway.prefix_cache`` shares
 the hit pages), runs the *suffix* prefill (``serve.step.lm_prefill_paged``)
 that reads the pages already written in place. The prompt's full blocks are
 offered to the prefix cache after its last chunk.
+
+The pinned-host KV tier (the plan's ``host_tier_bytes > 0``, which needs
+the prefix cache; ``engine.kv_connector``): a page the prefix cache evicts
+is spilled to host memory, committed at the top of the next step, and
+reloaded into fresh pages when a later prompt's chain hits it, before its
+suffix prefill. The engine always builds the connector, so its registry
+holds the JAX engine's ``kv_transfer_*`` / ``host_tier_*`` series; the
+same transfers carry the disaggregated prefill -> decode handoff
+(``take_handoffs``, ``export_kv``, ``release_handoff``,
+``add_prefilled``). ``preempt`` takes a request out and returns the
+request that resumes it; with the prefix cache its valid blocks are
+registered first, so the resume prefill mostly hits.
 
 Device steps run on every rank of the plan (``_on_ranks``): on one rank
 (``SingleComm``) when the plan has one device, else as the threads of the
@@ -45,13 +58,12 @@ stream does not depend on its batch or on how its prompt was chunked.
 Metrics live in an ``obs.Registry`` (``EngineMetrics``: the JAX engine's
 names and kinds, unlabelled until a front end passes replica labels) and
 spans go to an ``obs.Tracer``: an async ``request`` span per request,
-``engine/step``, ``engine/prefill``, ``engine/prefill_chunk`` and
-``engine/decode``. Both are written on the thread that calls ``step()``
-only; rank threads never touch them.
+``engine/step``, ``engine/prefill``, ``engine/prefill_chunk``,
+``engine/host_reload``, ``engine/handoff_inject`` and ``engine/decode``.
+Both are written on the thread that calls ``step()`` only; rank threads
+never touch them.
 
-What the engine does not port raises ``NotImplementedError`` naming the
-ROADMAP item: the host tier, disaggregated handoff and preemption, and
-ranks on several cards.
+Ranks on several cards are not ported (ROADMAP.md §A item 1).
 
 Prompts and chunks are prefilled at their own length, padded at the end to
 a multiple of ``P_sp * comm_chunks`` when P_sp > 1 so that every rank holds
@@ -75,17 +87,13 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.engine import paged_cache, sampling
+from repro_torch.dist.sharding import DATA_AXIS
+from repro_torch.engine import kv_connector, paged_cache, sampling
 from repro_torch.engine.scheduler import (Rejection, Request, Scheduler,
                                           SlotState, bucket_pow2)
 from repro_torch.models.factory import Model
 from repro_torch.models.runtime import Runtime
 from repro_torch.train import step as train_step
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"repro_torch.engine: {what} is not ported yet (ROADMAP.md §A)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,7 +104,6 @@ class EngineConfig:
     max_len: int = 512          # max prompt_len + max_new_tokens
     max_steps: int = 100_000    # runaway guard for run()
     prefill_chunk: int = 0      # > 0: prefill prompts in chunks
-    host_tier_bytes: int = 0    # > 0 (pinned-host KV tier) is not ported
 
 
 class EngineMetrics:
@@ -246,11 +253,9 @@ class Engine:
             raise ValueError("engine plans need the serving face "
                              "(decode_batch/page_size > 0): build them with "
                              "plan.make_serve_plan")
-        if eng.host_tier_bytes > 0 or plan.host_tier_bytes > 0:
-            raise _unported("the pinned-host KV tier (host_tier_bytes > 0)")
-        eng = dataclasses.replace(eng, max_slots=plan.decode_batch,
-                                  page_size=plan.page_size,
-                                  max_len=plan.seq_len)
+        eng = dataclasses.replace(
+            eng, max_slots=plan.decode_batch, page_size=plan.page_size,
+            max_len=plan.seq_len)
         self.model, self.plan, self.eng, self.cfg = model, plan, eng, cfg
         self.device = model.device
         self.sp = plan.sp_size
@@ -281,6 +286,28 @@ class Engine:
         self._last_emit: Dict[str, float] = {}
         self._req_spans: Dict[str, Optional[str]] = {}
         self.ttft_s: Dict[str, float] = {}
+        # the pools of every rank holding each SP shard, data replica 0
+        # first: the host-link transfers' view (paged_cache.read_pages)
+        where = self._on_ranks(
+            lambda rt, _: (rt.comm.axis_index(DATA_AXIS), rt.sp_rank()))
+        self._shards: List[List[Dict[str, torch.Tensor]]] = [
+            [] for _ in range(self.sp)]
+        for rank in sorted(range(n_ranks), key=lambda i: where[i]):
+            self._shards[where[rank][1]].append(self.pools[rank])
+        self._cost_memo: Dict[int, float] = {}
+        self._spill_memo: Dict[int, bool] = {}
+        self.connector = kv_connector.KVConnector(
+            read_fn=lambda idx: paged_cache.read_pages(self._shards, idx),
+            write_fn=lambda idx, data: paged_cache.write_pages(
+                self._shards, idx, data),
+            bucket=kv_connector.TRANSFER_BUCKET, page_size=eng.page_size,
+            pages_per_shard=eng.pages_per_shard,
+            page_bytes=sum(t[:, 0].numel() * t.element_size()
+                           for t in self.pools[0].values()),
+            capacity_bytes=plan.host_tier_bytes,
+            spill_fn=self._spill_worthwhile, registry=self.registry,
+            device=self.device)
+        self._handoff_ready: List[SlotState] = []
         self.scheduler = self._new_scheduler()
 
     def _new_scheduler(self) -> Scheduler:
@@ -288,12 +315,41 @@ class Engine:
                           page_size=self.eng.page_size, sp=self.sp,
                           pages_per_shard=self.eng.pages_per_shard,
                           max_len=self.eng.max_len)
+        sched.connector = self.connector
         if self.plan.prefix_cache:
             from repro_torch.gateway.prefix_cache import PrefixCache
 
             sched.prefix_cache = PrefixCache(
-                sched.pool, page_size=self.eng.page_size, sp=self.sp)
+                sched.pool, page_size=self.eng.page_size, sp=self.sp,
+                cost_fn=self._recompute_cost,
+                connector=(self.connector if self.connector.enabled
+                           else None))
         return sched
+
+    def _recompute_cost(self, chain_tokens: int) -> float:
+        """Eviction ranking: seconds to prefill a chain cold."""
+        c = self._cost_memo.get(chain_tokens)
+        if c is None:
+            from repro_torch.plan import cost as plan_cost
+
+            c = plan_cost.prefill_step_cost(
+                self.cfg, prompt_len=chain_tokens, sp=self.sp,
+                page_size=self.eng.page_size)["total_s"]
+            self._cost_memo[chain_tokens] = c
+        return c
+
+    def _spill_worthwhile(self, chain_tokens: int) -> bool:
+        """Under host-tier pressure: does the transfer round trip beat
+        recomputing this chain (``plan.cost.spill_decision``)?"""
+        v = self._spill_memo.get(chain_tokens)
+        if v is None:
+            from repro_torch.plan import cost as plan_cost
+
+            v = bool(plan_cost.spill_decision(
+                self.cfg, chain_tokens=chain_tokens, sp=self.sp,
+                page_size=self.eng.page_size)["spill"])
+            self._spill_memo[chain_tokens] = v
+        return v
 
     @property
     def prefix_cache(self):
@@ -303,8 +359,6 @@ class Engine:
     def add_request(self, req: Request) -> Optional[Rejection]:
         """Queue ``req``. Returns ``None`` on success or a typed
         :class:`Rejection` for an unserveable request."""
-        if req.handoff:
-            raise _unported("disaggregated prefill->decode handoff")
         rej = self.scheduler.validate(req)
         if rej is not None:
             return rej
@@ -315,8 +369,60 @@ class Engine:
             max_new=req.max_new_tokens)
         return None
 
-    def preempt(self, uid: str):
-        raise _unported("priority preemption")
+    def preempt(self, uid: str) -> Optional[Request]:
+        """Take ``uid`` out of the engine, keeping its progress, and return
+        the *resume request* to add later (here or on another engine);
+        ``None`` if the uid is neither queued nor active here, or holds a
+        handoff slot (its exported KV is pinned until released).
+
+        The resume request's prompt is ``tokens + out`` with the remaining
+        budget: sampling folds the prefill's key with ``prompt_len`` and a
+        decode step's with ``cache_len + 1``, so the resumed stream
+        continues as the uninterrupted one would, up to bf16 near-ties
+        (the tail block is recomputed by a prefill where the original run
+        wrote it with decode steps). With the prefix cache, the slot's
+        complete valid KV blocks are registered in the trie first, so the
+        resume prefill is mostly a cache hit; under pressure those blocks
+        spill to the host tier like any cached chain.
+        """
+        for i, r in enumerate(self.scheduler.queue):
+            if r.uid == uid:                 # still queued: nothing started
+                del self.scheduler.queue[i]
+                self._arrival.pop(uid, None)
+                self.tracer.async_end(
+                    "request", self._req_spans.pop(uid, None), preempted=True)
+                self.metrics.preemptions += 1
+                return r
+        st = next((s for s in self.scheduler.active() if s.req.uid == uid),
+                  None)
+        if st is None or st.req.handoff:
+            return None
+        req = st.req
+        seq = list(req.tokens) + [int(t) for t in st.out]
+        # KV is valid through max(cache_len, prefill_pos): decode keeps
+        # cache_len, a mid-chunk prefill only prefill_pos. pending_reload
+        # blocks hold nothing until _advance_prefill lands them, so a slot
+        # that never ran a chunk registers nothing new (its device-hit
+        # prefix is already in the trie)
+        valid = max(st.cache_len, st.prefill_pos)
+        pc = self.prefix_cache
+        if pc is not None and not st.pending_reload:
+            full = valid // self.eng.page_size
+            if full > 0:
+                pc.insert(pc.hashes(seq)[:full], st.pages[:full])
+        if st in self._prefilling:
+            self._prefilling.remove(st)
+        remaining = req.max_new_tokens - len(st.out)
+        self.scheduler.finish(st.slot, self.metrics.steps)
+        self.scheduler.finished.pop(uid, None)    # not finished: preempted
+        self.metrics.preemptions += 1
+        self._arrival.pop(uid, None)
+        self._last_emit.pop(uid, None)
+        self.tracer.async_end("request", self._req_spans.pop(uid, None),
+                              preempted=True, tokens=len(st.out))
+        if not st.out:
+            return req
+        return dataclasses.replace(req, tokens=seq, max_new_tokens=remaining)
 
     def _finish_request(self, st: SlotState) -> None:
         self.scheduler.finish(st.slot, self.metrics.steps)
@@ -333,13 +439,15 @@ class Engine:
                 for uid, st in self.scheduler.finished.items()}
 
     def reset(self) -> None:
-        """Drop all requests and cache contents (the prefix cache too) and
-        zero every rank's pools."""
+        """Drop all requests and cache contents (the prefix cache and the
+        host tier too) and zero every rank's pools."""
         for pools in self.pools:
             for t in pools.values():
                 t.zero_()
+        self.connector.reset()
         self.scheduler = self._new_scheduler()
         self._prefilling = []
+        self._handoff_ready = []
         self._arrival.clear()
         self._last_emit.clear()
         self._req_spans.clear()
@@ -442,12 +550,21 @@ class Engine:
         earlier chunks (or the prefix cache) populated in place. Only the
         final chunk's token is kept; a sampled one folds its key with
         ``prompt_len``, as the monolithic path does, so chunking never
-        changes the stream.
+        changes the stream. Host-tier hits are reloaded into their fresh
+        pages first (``engine/host_reload``), inside ``prefill_wall_s``.
         """
         from repro_torch.serve import step as serve_step
 
         t0 = time.monotonic()
         req = st.req
+        m = self.metrics
+        if st.pending_reload:
+            # land the host-tier hits' KV before any forward reads it
+            with self.tracer.span("engine/host_reload", cat="engine",
+                                  uid=req.uid, blocks=len(st.pending_reload)):
+                self.connector.reload(st.pending_reload)
+            m.prefill_tokens_host += st.host_len
+            st.pending_reload = []
         start = st.prefill_pos
         end = req.prompt_len if not self._chunk \
             else min(start + self._chunk, req.prompt_len)
@@ -486,7 +603,6 @@ class Engine:
         if final:
             result = (out[0][0], int(self._sampled([t for _, t in out])[0]))
         st.prefill_pos = end
-        m = self.metrics
         m.prefill_tokens_computed += end - start
         m.prefill_chunks += 1
         m.prefill_wall_s += time.monotonic() - t0
@@ -516,7 +632,40 @@ class Engine:
             self.ttft_s[st.req.uid] = now - arrived
         self._last_emit[st.req.uid] = now
         if st.done:
-            self._finish_request(st)
+            if st.req.handoff:
+                # keep the slot and its pages' refs until the caller exports
+                # the prompt KV: finishing here could recycle the pages
+                self._handoff_ready.append(st)
+                m.handoffs_out += 1
+            else:
+                self._finish_request(st)
+
+    # ---- disaggregated prefill -> decode handoff ------------------------
+    def take_handoffs(self) -> List[SlotState]:
+        """Slots whose handoff prefill has finished (prompt KV still
+        pinned). The caller must ``export_kv`` then ``release_handoff``
+        each one."""
+        out, self._handoff_ready = self._handoff_ready, []
+        return out
+
+    def export_kv(self, st: SlotState) -> List[Dict[str, torch.Tensor]]:
+        """The slot's prompt-KV pages on the host, in block order. The
+        partial tail block rides along: positions past ``prompt_len`` are
+        never read (validity is positional)."""
+        nb_kv = math.ceil(st.req.prompt_len / self.eng.page_size)
+        return self.connector.export(st.pages[:nb_kv])
+
+    def release_handoff(self, st: SlotState) -> None:
+        """Drop the handoff slot after its KV has been exported."""
+        self._finish_request(st)
+
+    def add_prefilled(self, req: Request, first_token: int,
+                      blocks: List[Dict[str, torch.Tensor]]) -> None:
+        """Decode-side entry point: queue a request whose prompt KV
+        (``export_kv`` of another engine) and first token came from a
+        prefill engine. No TTFT is observed here: the prefill engine
+        emitted the first token."""
+        self.scheduler.enqueue_prefilled(req, first_token, blocks)
 
     def _decode(self, active: List[SlotState], width: int) -> np.ndarray:
         """One decode step of every slot; the sampling operands go in only
@@ -568,6 +717,24 @@ class Engine:
         emitted: List[Tuple[str, int]] = []
         m = self.metrics
         tracer = self.tracer
+        # commit the spills the previous step's evictions staged: host-tier
+        # entries become hittable only once their copy has landed
+        self.connector.flush()
+        # the handoff inbox: prompts prefilled on another engine enter with
+        # their exported pages and first token, skipping the prefill
+        for st, tok, blocks in self.scheduler.admit_prefilled(m.steps):
+            with tracer.span("engine/handoff_inject", cat="engine",
+                             uid=st.req.uid, blocks=len(blocks)):
+                nb_kv = math.ceil(st.req.prompt_len / self.eng.page_size)
+                self.connector.inject(st.pages[:nb_kv], blocks)
+            st.cache_len = st.req.prompt_len
+            st.prefill_pos = st.req.prompt_len
+            st.out.append(tok)
+            st.first_token_step = m.steps
+            m.handoffs_in += 1
+            self._last_emit[st.req.uid] = time.monotonic()
+            if st.done:                      # a 1-token budget
+                self._finish_request(st)
         # chunked prefills admitted on earlier steps go before this step's
         # admissions (FIFO progress)
         for st in list(self._prefilling):
@@ -595,7 +762,8 @@ class Engine:
             m.prefix_evictions = self.prefix_cache.evicted_pages
 
         # decode: slots whose prefill has completed (a mid-chunk slot holds
-        # pages but has no token stream yet)
+        # pages but has no token stream yet; a finished handoff slot only
+        # awaits its export)
         active = [st for st in self.scheduler.active()
                   if st.cache_len > 0 and not st.done]
         if active:
@@ -625,7 +793,8 @@ class Engine:
         return emitted
 
     def idle(self) -> bool:
-        return not self.scheduler.queue and not self.scheduler.active()
+        return not self.scheduler.queue and not self.scheduler.prefilled \
+            and not self.scheduler.active()
 
     def run(self, max_steps: Optional[int] = None) -> Dict[str, List[int]]:
         """Drive until every queued/running request finishes."""

@@ -19,13 +19,15 @@ The JAX package's helpers are pure functions; here ``write_token``,
 write targets are computed on the host, where the scheduler keeps the table
 and the lengths (``PagedTables.write_targets`` once per decode step,
 ``block_targets`` once per prefill), so the per-layer writes are plain
-index calls and never wait on the device.
+index calls and never wait on the device. ``read_pages`` / ``write_pages``
+move whole pages by global page id between the pools and the host KV tier
+(``engine.kv_connector``), on the thread that drives the engine.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -242,3 +244,79 @@ def insert_prompt(rt, pools: Dict[str, torch.Tensor], k_stack, v_stack,
     vg = rt.all_gather_model(v_stack, axis=2)[:, 0]
     write_blocks(pools, kg, vg,
                  block_targets(rt, table_row, 0, prompt_len, page_size))
+
+
+# Pools of every rank holding one SP shard, data replica 0 first.
+ShardPools = Sequence[Sequence[Dict[str, torch.Tensor]]]
+
+
+def _owned(idx: np.ndarray, shard: int, pages_loc: int, device
+           ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """(positions in ``idx``, local pages) of the global ids that ``shard``
+    owns, as device int64 tensors; None when it owns none. The copies do
+    not wait for the stream (a blocking one would wait for every kernel
+    queued before it)."""
+    mine = np.nonzero((idx >= 0) & (idx // pages_loc == shard))[0]
+    if not len(mine):
+        return None
+    return tuple(torch.from_numpy(a).to(device, non_blocking=True)
+                 for a in (mine, idx[mine] - shard * pages_loc))
+
+
+def read_pages(shards: ShardPools, idx) -> Dict[str, torch.Tensor]:
+    """Gather whole pages by *global* page id.
+
+    shards: per SP shard, the pools {'k','v'} (L, pages_loc, ps, Hkv, hd)
+      of every rank that holds it, data replica 0 first.
+    idx: (B,) global page ids (``shard * pages_loc + local_page``); -1
+      (the JAX connector's bucket padding) reads as zeros.
+
+    Returns {'k','v'} (L, B, ps, Hkv, hd) on the pools' device. Each page
+    comes from data replica 0's rank of its shard. This direct access to
+    every rank's pool is the one-process stand-in for the JAX function's
+    psum over the SP axes: ranks on several cards (ROADMAP.md §A item 1)
+    need a collective here. This is the device leg of the KV connector's
+    spill and of the prefill -> decode handoff's export.
+    """
+    idx = np.asarray(idx, np.int64)
+    first = shards[0][0]
+    pages_loc = first["k"].shape[1]
+    out = {n: t.new_zeros((t.shape[0], len(idx)) + tuple(t.shape[2:]))
+           for n, t in first.items()}
+    for s, replicas in enumerate(shards):
+        owned = _owned(idx, s, pages_loc, first["k"].device)
+        if owned is None:
+            continue
+        pos, local = owned
+        for n, t in replicas[0].items():
+            out[n].index_copy_(1, pos, t.index_select(1, local))
+    return out
+
+
+def write_pages(shards: ShardPools, idx, data: Dict[str, torch.Tensor]
+                ) -> None:
+    """Scatter whole pages by global page id, **in place** (the inverse of
+    ``read_pages``).
+
+    data: {'k','v'} (L, B, ps, Hkv, hd) on the host (pinned for an
+    asynchronous copy) or the device. Each shard's rank in **every** data
+    replica writes the entries whose page it owns (the replicas hold
+    identical pools); -1 and out-of-range ids drop. This
+    is the device leg of the connector's reload and of the handoff's
+    injection.
+    """
+    idx = np.asarray(idx, np.int64)
+    first = shards[0][0]
+    pages_loc, dev = first["k"].shape[1], first["k"].device
+    src = {n: t.to(dev, non_blocking=True) for n, t in data.items()}
+    for s, replicas in enumerate(shards):
+        owned = _owned(idx, s, pages_loc, dev)
+        if owned is None:
+            continue
+        pos, local = owned
+        for n, t in src.items():
+            if len(pos) < len(idx):
+                t = t.index_select(1, pos)
+            vals = t.to(first[n].dtype)
+            for pools in replicas:
+                pools[n].index_copy_(1, local, vals)

@@ -6,7 +6,8 @@ All state here is host-side numpy/python; the device sees only the page
 *table* and per-slot scalars the engine assembles each step. This is the
 port's copy of ``repro.engine.scheduler``; the engine sets the prefix-cache
 hook (``repro_torch.gateway.prefix_cache``) when its plan asks for it, and
-the host-tier hook stays unset until the KV connector is ported.
+always the KV connector (``repro_torch.engine.kv_connector``), whose host
+tier admission probes past the device-trie match when the tier is on.
 
 Policy
 ------
@@ -140,7 +141,7 @@ class Scheduler:
         self.pool = PagePool(sp, pages_per_shard)
         # optional gateway.prefix_cache.PrefixCache sharing this pool
         self.prefix_cache = prefix_cache
-        # optional repro.engine.kv_connector.KVConnector: admission probes
+        # optional engine.kv_connector.KVConnector: admission probes
         # its committed host tier for blocks past the device-trie match
         self.connector = None
         # disaggregated handoff inbox: (req, first token, exported KV

@@ -25,18 +25,21 @@ page body survives until the last sharing request finishes.
 Eviction is leaf-first and cost-aware: only nodes with no children and no
 live sharer (refcount == 1, the cache's own hold) are candidates, so an
 interior node is never dropped while a descendant could still be matched
-through it. Candidates are ranked by the tokens a future miss on their
-chain would recompute, with the LRU stamp as the tie-break: the JAX
-cache's default ``cost_fn``, and the order its engine's cost model gives
-for any cost that grows with the tokens. The JAX cache's ``cost_fn`` and
-``connector`` (spilling evicted pages to the pinned-host tier) options are
-left out: the cost model and the host tier are not ported (ROADMAP.md §A).
+through it. Candidates are ranked by the recompute cost a future miss on
+their chain would pay (``cost_fn`` over tokens-in-chain: the engine passes
+``plan.cost.prefill_step_cost``; the default is the token count itself,
+the same order for any cost that grows with the tokens), with the LRU
+stamp as the tie-break, so an expensive deep chain outlives a cheap
+shallow one that happens to be more recent. When a ``connector``
+(``engine.kv_connector.KVConnector``) is attached, every dropped node's
+page is offered to the pinned-host tier first: eviction then demotes KV
+instead of destroying it.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 _HASH_SEED = 0x51ab5eed
 
@@ -65,11 +68,17 @@ class _Node:
 class PrefixCache:
     """Trie of cached full prompt blocks over one engine's page pool."""
 
-    def __init__(self, pool, *, page_size: int, sp: int):
+    def __init__(self, pool, *, page_size: int, sp: int,
+                 cost_fn: Optional[Callable[[int], float]] = None,
+                 connector=None):
         self.pool = pool                # paged_cache.PagePool (shared with
         #                                 the scheduler: same refcounts)
         self.page_size = page_size
         self.sp = sp
+        # cost_fn(chain_tokens) -> relative recompute cost of losing a node
+        # at that chain depth; tokens themselves are the default
+        self.cost_fn = cost_fn or float
+        self.connector = connector      # engine.kv_connector.KVConnector
         self.children: Dict[int, _Node] = {}     # root level
         self._clock = 0
         # metrics (token-denominated where it matters for hit rate)
@@ -189,12 +198,14 @@ class PrefixCache:
         nobody else references (refcount 1 == the cache's hold — a block
         shared with a live request is skipped: dropping it would not free
         a page, only forfeit future hits). Victims are the *cheapest to
-        recompute* first (fewest tokens in the chain, LRU stamp as
+        recompute* first (``cost_fn`` over tokens-in-chain, LRU stamp as
         tie-break). Blocks are round-robin over shards, so the page wanted
         on ``shard`` may sit mid-chain under leaves on *other* shards:
         when the target shard has no evictable leaf, the cheapest
         evictable leaf anywhere is dropped to unwind its chain toward one.
-        Returns pages freed on ``shard``."""
+        With a connector attached the victim's page spills to the host
+        tier before the device page is released. Returns pages freed on
+        ``shard``."""
         freed = 0
         while freed < need:
             victims = [n for n in self._leaves()
@@ -203,7 +214,12 @@ class PrefixCache:
                 break
             on_shard = [n for n in victims if n.page[0] == shard]
             victim = min(on_shard or victims,
-                         key=lambda n: (self._chain_tokens(n), n.stamp))
+                         key=lambda n: (self.cost_fn(self._chain_tokens(n)),
+                                        n.stamp))
+            if self.connector is not None:
+                self.connector.spill(
+                    key=victim.key, page=victim.page,
+                    chain_tokens=self._chain_tokens(victim))
             self._drop(victim)
             if victim.page[0] == shard:
                 freed += 1

@@ -12,7 +12,10 @@ request, step, prefill and decode spans.
 ``--prefill-chunk N`` prefills prompts in page-aligned chunks of about N
 tokens; ``--prefix-cache`` shares a ``--system-prompt-len``-token prefix
 over every request and turns the block-hash prefix cache on, so later
-requests prefill only their uncached suffix.
+requests prefill only their uncached suffix. ``--host-tier-bytes N`` (with
+``--prefix-cache``) puts a pinned-host KV tier of N bytes behind the pool:
+evicted prefix pages spill there and later hits reload them; its
+counters are printed after the run (``[serve] host tier:``).
 
 ``--legacy`` is the static-batch greedy path (it ignores the sampling
 flags, as the JAX launcher's does): one batch of ``--batch``
@@ -27,6 +30,9 @@ none; ``--device cpu`` runs the plain PyTorch versions of the kernels:
       --smoke --device cpu --requests 8 --prompt-len 16 --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
       --smoke --device cpu --prefix-cache --prefill-chunk 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
+      --smoke --device cpu --prefix-cache --pages-per-shard 12 \\
+      --host-tier-bytes 1048576
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
       --smoke --device cpu --temperature 0.8 --top-k 40 --top-p 0.9 \\
       --metrics-dump "$TMPDIR/m.prom" --trace-out "$TMPDIR/trace.json"
@@ -144,10 +150,13 @@ def _engine_main(args, plan, device, registry=None, tracer=None):
     for r in reqs:
         print(f"[serve] {r.uid}: prompt_len={r.prompt_len} "
               f"-> {out[r.uid]}")
-    stats = engine.metrics.to_dict()
-    print("[serve] metrics: " + ", ".join(
-        f"{k}={v:.3g}" if isinstance(v, float) else f"{k}={v}"
-        for k, v in sorted(stats.items())))
+    report = [("metrics", engine.metrics.to_dict())]
+    if engine.connector.enabled:
+        report.append(("host tier", engine.connector.stats()))
+    for name, stats in report:
+        print(f"[serve] {name}: " + ", ".join(
+            f"{k}={v:.3g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in sorted(stats.items())))
     return out
 
 
@@ -191,6 +200,11 @@ def main(argv=None):
                          "reuse its cached pages")
     ap.add_argument("--system-prompt-len", type=int, default=32,
                     help="tokens of the shared prefix under --prefix-cache")
+    ap.add_argument("--host-tier-bytes", type=int, default=0,
+                    help="pinned-host KV tier capacity, bytes (0 = off; "
+                         "prefix-cache evictions spill here and later hits "
+                         "reload instead of prefilling again; needs "
+                         "--prefix-cache)")
     ap.add_argument("--max-len", type=int, default=512)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
@@ -230,13 +244,14 @@ def main(argv=None):
             cfg, arch=args.arch, n_devices=args.devices, data=args.data,
             c=args.c, decode_batch=args.max_slots, page_size=args.page_size,
             max_len=args.max_len, kernel_impl=args.kernel,
-            block_impl=args.kernel, prefix_cache=args.prefix_cache)
+            block_impl=args.kernel, prefix_cache=args.prefix_cache,
+            host_tier_bytes=args.host_tier_bytes)
     print(f"[serve] plan: P_sp={plan.sp_size} scheme={plan.scheme} "
           f"C={plan.c} R={plan.r} data={plan.data} "
           f"kernel={plan.kernel_impl} block={plan.block_impl} "
           f"slots={plan.decode_batch} page={plan.page_size} "
           f"capacity={plan.seq_len} prefix_cache={plan.prefix_cache} "
-          f"device={args.device}")
+          f"host_tier_bytes={plan.host_tier_bytes} device={args.device}")
     if args.save_plan:
         print(f"[serve] plan saved -> {plan.save(args.save_plan)}")
     from repro_torch import obs

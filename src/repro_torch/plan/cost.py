@@ -14,10 +14,15 @@ it). The time half prices them in seconds through ``core.scheduler``'s
 overlap model on the card's constants (``roofline.hw``) and ranks them
 (``rank_arrangements``); ``plan.make_plan`` turns the first legal match
 into an ``ExecutionPlan`` and ``plan.autotune`` refines the top of the
-ranking with measured steps. Every formula is the JAX one's, so under
-equal constants the numbers are the same. The JAX module's serving,
-prefill, prefix-cache, host-tier and microbatch costs come with the
-slices that call them (ROADMAP.md §A items 1, 6 and 7).
+ranking with measured steps. The serving half prices one prefill with
+part of its prompt cached (``prefill_step_cost``: the engine's eviction
+ranking) and the host KV tier's spill against recompute
+(``kv_transfer_cost``, ``spill_decision``) over the card's host link.
+Every formula is the JAX one's, so under equal constants the numbers are
+the same. The JAX module's decode, SLO, chunked-prefill, prefix-cache-value
+and microbatch costs, ``spill_threshold_tokens`` and the rest of
+``prefill_step_cost``'s fields come with the slices that read them
+(ROADMAP.md §A items 1 and 7).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Dict, List, Optional
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import scheduler as sch
 from repro_torch.core.topology import valid_c_values
+from repro_torch.roofline import hw
 
 SCHEMES = ("startrail", "ring", "ulysses")
 
@@ -210,3 +216,102 @@ def choose_comm_chunks(cfg: ModelConfig, shape: ShapeConfig, sp: int,
     w = _workload(cfg, shape, b)
     cl = cluster or sch.ClusterModel(sp_size=sp)
     return sch.choose_comm_chunks(w, cl, arr.c, arr.placement, grid=legal)
+
+
+# ---------------------------------------------------------------------------
+# Serving prefill cost and the host-tier spill/reload pricing
+# ---------------------------------------------------------------------------
+
+def prefill_step_cost(cfg: ModelConfig, *, prompt_len: int,
+                      cached_len: int = 0, sp: int = 1,
+                      page_size: int = 8, dtype_bytes: int = 2,
+                      cluster: Optional[sch.ClusterModel] = None
+                      ) -> Dict[str, float]:
+    """Per-device cost of prefilling one request with ``cached_len`` of its
+    prompt served from the prefix cache.
+
+    Only the suffix tokens are forwarded: dense/MLP FLOPs scale linearly in
+    forwarded tokens (``2 * P_dense`` per token), attention quadratically
+    (suffix queries still score the cached keys, reading them from the
+    pool, but never recompute their K/V or their own rows). What a cached
+    token costs is the page-pool read of its K/V during the suffix's
+    attention plus the page-table writes (int32 per block), so cached
+    tokens are priced in bytes, not FLOPs.
+
+    Returns {'total_s'}: the larger of the FLOP time and the byte time.
+    """
+    if not 0 <= cached_len <= prompt_len:
+        raise ValueError(f"cached_len={cached_len} outside "
+                         f"[0, {prompt_len}]")
+    cl = cluster or sch.ClusterModel(sp_size=sp)
+    n_attn = max(num_attention_layers(cfg), 1)
+    dh = cfg.head_dim_
+    d = cfg.d_model
+    # dense params touched per token per layer (qkv/o + mlp), vocab head off
+    dense_per_layer = d * dh * (cfg.num_heads * 2 + cfg.num_kv_heads * 2) \
+        + 3 * d * cfg.d_ff
+
+    def attn_flops(q_tokens: int, k_tokens_extra: int) -> float:
+        # causal suffix scores ~ q*(q/2) within itself + q*cached keys
+        return 4.0 * cfg.num_heads * dh * (
+            q_tokens * q_tokens / 2.0 + q_tokens * k_tokens_extra)
+
+    suffix = prompt_len - cached_len
+    flops = (2.0 * dense_per_layer * suffix * cfg.num_layers
+             + n_attn * attn_flops(suffix, cached_len)) / sp
+    # cached K/V read once by the suffix attention; page-table writes are
+    # one int32 per (shard, block)
+    cached_blocks = cached_len // max(page_size, 1)
+    bytes_moved = n_attn * (2.0 * cached_len * cfg.num_kv_heads * dh
+                            * dtype_bytes) / sp + 4.0 * cached_blocks
+    return {"total_s": max(flops / cl.peak_flops, bytes_moved / hw.HBM_BW)}
+
+
+def kv_bytes_per_token(cfg: ModelConfig, *, dtype_bytes: int = 2) -> int:
+    """Bytes of K+V one token pins across all attention layers."""
+    n_attn = max(num_attention_layers(cfg), 1)
+    return n_attn * 2 * cfg.num_kv_heads * cfg.head_dim_ * dtype_bytes
+
+
+def kv_transfer_cost(cfg: ModelConfig, *, tokens: int, dtype_bytes: int = 2,
+                     link_bw: Optional[float] = None) -> Dict[str, float]:
+    """Price moving ``tokens`` of KV over the device<->host link
+    (``hw.HOST_LINK_BW`` unless ``link_bw`` is given).
+
+    The pool is SP-sharded but the host link is per host, so the bytes are
+    not divided by ``sp``. ``roundtrip_s`` is the spill (d2h) plus the
+    eventual reload (h2d): what a host-tier hit pays instead of recompute.
+    """
+    bw = link_bw if link_bw is not None else hw.HOST_LINK_BW
+    total = float(tokens) * kv_bytes_per_token(cfg, dtype_bytes=dtype_bytes)
+    one_way = total / bw
+    return {"bytes": total, "d2h_s": one_way, "h2d_s": one_way,
+            "roundtrip_s": 2.0 * one_way}
+
+
+def spill_decision(cfg: ModelConfig, *, chain_tokens: int, sp: int = 1,
+                   page_size: int = 8, dtype_bytes: int = 2,
+                   link_bw: Optional[float] = None,
+                   cluster: Optional[sch.ClusterModel] = None
+                   ) -> Dict[str, object]:
+    """Should an evicted ``chain_tokens``-token prefix spill to host?
+
+    Compares what a later miss would pay either way: recomputing the chain
+    cold (``prefill_step_cost``: dense FLOPs linear in tokens, attention
+    quadratic) against round-tripping its KV bytes over the host link
+    (linear in tokens). Only recompute has a quadratic term, so short
+    chains are faster to re-prefill and long ones faster to reload.
+
+    Returns {'recompute_s', 'transfer_s', 'bytes', 'spill'}.
+    """
+    if chain_tokens <= 0:
+        raise ValueError(f"chain_tokens must be positive, got {chain_tokens}")
+    rec = prefill_step_cost(cfg, prompt_len=chain_tokens, sp=sp,
+                            page_size=page_size, dtype_bytes=dtype_bytes,
+                            cluster=cluster)
+    xfer = kv_transfer_cost(cfg, tokens=chain_tokens,
+                            dtype_bytes=dtype_bytes, link_bw=link_bw)
+    return {"recompute_s": rec["total_s"],
+            "transfer_s": xfer["roundtrip_s"],
+            "bytes": xfer["bytes"],
+            "spill": xfer["roundtrip_s"] < rec["total_s"]}

@@ -44,8 +44,7 @@ _UNPORTED_FIELDS = (
     ("sharding_rules", "default", "§A item 2, FSDP sharding rules"),
     ("unroll_scans", False, "§A item 9, the dry run"),
     ("replicas", 1, "§A item 7, the gateway"),
-    ("role", "unified", "§A item 6, disaggregated serving"),
-    ("host_tier_bytes", 0, "§A item 6, the host KV tier"),
+    ("role", "unified", "§A item 7, role plans of the gateway"),
 )
 
 
@@ -66,7 +65,8 @@ class ExecutionPlan:
     page_size: int = 0             # KV page tokens (0 = not a serve plan)
     kernel_impl: str = "cuda"      # paged-decode kernel ('ref' | 'cuda')
     prefix_cache: bool = False     # the engine shares prompt pages
-    host_tier_bytes: int = 0       # not ported: the engine raises
+    host_tier_bytes: int = 0       # pinned-host KV tier capacity per
+    #                                engine (0 = off; needs prefix_cache)
     # ---- training face (kind='train' plans, from make_plan) ---------------
     shape: str = "serve"           # shape name ('train_4k', 'smoke', ...)
     global_batch: int = 0
@@ -107,6 +107,13 @@ class ExecutionPlan:
                                  f"got {val!r}")
         if self.decode_batch < 0 or self.page_size < 0:
             raise ValueError("decode_batch/page_size must be >= 0")
+        if self.host_tier_bytes < 0:
+            raise ValueError("host_tier_bytes must be >= 0")
+        if self.host_tier_bytes and not self.prefix_cache:
+            raise ValueError(
+                "host_tier_bytes > 0 needs prefix_cache=True: the host "
+                "tier is fed by prefix-cache eviction (spilled chains are "
+                "rediscovered through the trie hash walk)")
         if self.page_size and self.seq_len % self.page_size:
             raise ValueError(
                 f"seq_len={self.seq_len} not divisible by "

@@ -5,9 +5,10 @@ Every figure is NVIDIA's datasheet figure for the NVIDIA H100 80GB HBM3
 (SXM5) at its full 700 W power limit: dense rates, no sparsity. A card set
 below 700 W runs slower under load (``nvidia-smi --query-gpu=power.limit``).
 The names the cost model reads are the JAX package's, so ``plan.cost``
-and ``core.scheduler`` read the same formulas. The JAX table's memory
-size and host link wait for their readers, the microbatch and host-tier
-costs (ROADMAP.md §A items 1 and 6).
+and ``core.scheduler`` read the same formulas; ``HOST_LINK_BW`` prices the
+host KV tier's spills and reloads (``plan.cost.kv_transfer_cost``). The
+JAX table's memory size waits for its reader, the microbatch cost
+(ROADMAP.md §A item 1).
 """
 
 # H100 SXM5 80GB, 700 W, datasheet: bf16 tensor-core peak, dense (FLOP/s)
@@ -19,3 +20,6 @@ HBM_BW = 3.35e12
 # H100 SXM5 80GB, 700 W, datasheet: NVLink 4, 900 GB/s per GPU in both
 # directions, 450e9 bytes/s each way (the JAX table's ICI_BW_PER_LINK)
 NVLINK_BW = 450e9
+# H100 SXM5 80GB, datasheet: PCIe Gen5 x16 host interface, 128 GB/s in
+# both directions, 64e9 bytes/s each way (the host KV tier's d2h and h2d)
+HOST_LINK_BW = 64e9

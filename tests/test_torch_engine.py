@@ -8,7 +8,8 @@ next-token hidden state must agree within 1e-4 (f32 smoke weights, the
 same products in another summation order), and so must the local-mode
 forward (one attention block per layer) of both packages. The port's own
 "batched == solo" replay must hold, and the knobs the port does not carry
-yet must raise (an SP degree > 1 and temperature > 0 no longer do). The prefix cache and chunked prefill are held against the
+yet must raise (an SP degree > 1, temperature > 0, the host tier and
+preemption no longer do: ``tests/test_torch_host_tier.py``). The prefix cache and chunked prefill are held against the
 JAX engine in ``tests/test_torch_prefix.py``.
 """
 
@@ -146,11 +147,10 @@ def test_unported_knobs_raise():
         "s", [1, 2], 2, temperature=0.8, top_k=4, seed=3)) is None
     out = teng.run()["s"]
     assert len(out) == 2 and all(0 <= t < cfg.vocab_size for t in out)
-    with pytest.raises(NotImplementedError, match="host KV tier"):
-        torch_engine.Engine(teng.model, teng.plan,
-                            torch_engine.EngineConfig(host_tier_bytes=1))
-    with pytest.raises(NotImplementedError, match="preemption"):
-        teng.preempt("g")
+    # the host tier needs the prefix cache (tests/test_torch_host_tier.py)
+    with pytest.raises(ValueError, match="prefix_cache"):
+        make_serve_plan(cfg, page_size=4, max_len=64, host_tier_bytes=1)
+    assert teng.preempt("nope") is None
     # SP degree > 1 runs on a ThreadMesh (tests/test_torch_engine_sp.py)
     sp4 = torch_engine.Engine(teng.model, make_serve_plan(
         cfg, n_devices=4, c=1, page_size=4, max_len=64))

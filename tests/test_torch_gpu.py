@@ -1167,3 +1167,148 @@ def test_sample_on_the_card_membership_and_determinism(cuda_device):
     assert len({tuple(t) for t in k8}) > 1
     greedy = _sample_on(cuda_device, logits, 0.0, 8, 0.9, keys(0))
     assert (greedy == int(np.argmax(logits[0]))).all()
+
+
+# ---------------------------------------------------------------------------
+# The host KV tier's transfers (engine/kv_connector.py over
+# paged_cache.read_pages / write_pages) on the card
+# ---------------------------------------------------------------------------
+
+def _card_connector(dev, capacity_pages=8, n_pages=8):
+    """A connector over one rank's bf16 pools {'k','v'} (2, n_pages, 16, 8,
+    80) on the card, as the engine builds it (pinned host pages)."""
+    from repro_torch.engine import paged_cache
+    from repro_torch.engine.kv_connector import KVConnector
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    pools = {n: torch.randn((2, n_pages, 16, 8, 80), generator=g, device=dev,
+                            dtype=torch.bfloat16) for n in ("k", "v")}
+    shards = [[pools]]
+    page_bytes = sum(t[:, 0].numel() * t.element_size()
+                     for t in pools.values())
+    conn = KVConnector(
+        read_fn=lambda idx: paged_cache.read_pages(shards, idx),
+        write_fn=lambda idx, data: paged_cache.write_pages(shards, idx, data),
+        bucket=4, page_size=16, pages_per_shard=n_pages,
+        page_bytes=page_bytes, capacity_bytes=capacity_pages * page_bytes,
+        device=dev)
+    return pools, conn
+
+
+def _page(pools, p):
+    return {n: t[:, p].clone() for n, t in pools.items()}
+
+
+def _same_page(got, want):
+    for n in want:
+        assert torch.equal(got[n].to(want[n].device), want[n]), n
+
+
+@pytest.mark.gpu
+def test_host_tier_pinned_round_trip(cuda_device):
+    """Spill to pinned staging, commit at flush, reload into other pages,
+    export and inject: every page lands bit for bit."""
+    pools, conn = _card_connector(cuda_device)
+    want = {10 + p: _page(pools, p) for p in range(5)}
+    for p in range(5):
+        assert conn.spill(key=10 + p, page=(0, p), chain_tokens=16 * (p + 1))
+    staged = [e for es in conn._staging.values() for e in es]
+    assert all(t.is_pinned() for e in staged for t in e.data.values())
+    assert not conn.has(10)
+    assert conn.flush() == 5 and conn.has(10)
+    for p in range(5):
+        _same_page(conn.tier.get(10 + p).data, want[10 + p])
+    for t in pools.values():
+        t.zero_()
+    # 5 pages over two transfer buckets, into other pages
+    conn.reload([(10 + p, (0, 7 - p)) for p in range(5)])
+    for p in range(5):
+        _same_page(_page(pools, 7 - p), want[10 + p])
+    blocks = conn.export([(0, 7), (0, 6)])
+    assert all(t.is_pinned() for b in blocks for t in b.values())
+    conn.inject([(0, 0), (0, 1)], blocks)
+    _same_page(_page(pools, 0), want[10])
+    _same_page(_page(pools, 1), want[11])
+    s = conn.stats()
+    assert (s["spill_pages"], s["reload_pages"], s["handoff_out_pages"],
+            s["handoff_in_pages"]) == (5, 5, 2, 2)
+
+
+@pytest.mark.gpu
+def test_host_tier_spill_captures_value_before_page_reuse(cuda_device):
+    """The spill's gather and copy are queued behind a long device sleep, so
+    they have not run when the host overwrites the page right after
+    ``spill()``: stream order must still give the committed copy the old
+    value."""
+    pools, conn = _card_connector(cuda_device)
+    # a first spill pins a chunk of host pages, and pinning waits for the
+    # work queued on the card: done here, before the sleep is queued, so
+    # the measured spill below copies into a page already pinned
+    conn.spill(key=6, page=(0, 1), chain_tokens=16)
+    conn.flush()
+    want = _page(pools, 2)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)           # ~25 ms of queued device time
+    conn.spill(key=7, page=(0, 2), chain_tokens=16)
+    for t in pools.values():
+        t[:, 2].fill_(-1.0)                 # the page reused at once
+    assert not conn._staging[0][0].done.query()   # still in flight
+    conn.flush()
+    _same_page(conn.tier.get(7).data, want)
+    assert bool((pools["k"][:, 2] == -1.0).all())
+
+
+@pytest.mark.gpu
+def test_host_tier_evict_while_reloading(cuda_device):
+    """A reload queued behind a long device sleep, then, at once, spills
+    that LRU-evict the reloaded entries from a 4-page tier and new pinned
+    buffers written over whatever memory was freed: the reloaded pages
+    still land with the values the tier held."""
+    pools, conn = _card_connector(cuda_device, capacity_pages=4)
+    want = {20 + p: _page(pools, p) for p in range(4)}
+    for p in range(4):
+        conn.spill(key=20 + p, page=(0, p), chain_tokens=16)
+    conn.flush()
+    torch.cuda._sleep(50_000_000)
+    conn.reload([(20 + p, (0, 4 + p)) for p in range(4)])
+    for p in range(4):                      # displace every reloaded entry
+        conn.spill(key=30 + p, page=(0, p), chain_tokens=16)
+    conn.flush()
+    assert not any(conn.has(20 + p) for p in range(4))
+    assert conn.stats()["host_evicted_pages"] == 4
+    junk = [torch.full((2, 4, 16, 8, 80), 7.0, dtype=torch.bfloat16,
+                       pin_memory=True) for _ in range(8)]
+    torch.cuda.synchronize()
+    for p in range(4):
+        _same_page(_page(pools, 4 + p), want[20 + p])
+    del junk
+
+
+@pytest.mark.gpu
+def test_read_write_pages_every_data_replica(cuda_device):
+    """``write_pages`` reaches each shard's rank in every data replica;
+    ``read_pages`` takes replica 0's copy; -1 pads read as zeros."""
+    from repro_torch.engine import paged_cache
+
+    def pools():
+        return {n: torch.zeros((2, 4, 16, 8, 80), device=cuda_device,
+                               dtype=torch.bfloat16) for n in ("k", "v")}
+
+    shards = [[pools(), pools()], [pools(), pools()]]   # 2 shards x 2 data
+    data = {n: torch.randn((2, 4, 16, 8, 80), dtype=torch.bfloat16
+                           ).pin_memory() for n in ("k", "v")}
+    idx = np.array([5, 0, -1, 3])           # shard 1 page 1, shard 0 ...
+    paged_cache.write_pages(shards, idx, data)
+    for replica in range(2):
+        for n in ("k", "v"):
+            assert torch.equal(shards[1][replica][n][:, 1].cpu(),
+                               data[n][:, 0])
+            assert torch.equal(shards[0][replica][n][:, 0].cpu(),
+                               data[n][:, 1])
+            assert torch.equal(shards[0][replica][n][:, 3].cpu(),
+                               data[n][:, 3])
+    shards[1][1]["k"].fill_(9.0)            # replica 1 is not read
+    got = paged_cache.read_pages(shards, idx)
+    for n in ("k", "v"):
+        assert torch.equal(got[n][:, [0, 1, 3]].cpu(), data[n][:, [0, 1, 3]])
+        assert not got[n][:, 2].any()

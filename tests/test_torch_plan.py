@@ -317,8 +317,7 @@ def test_plan_file_from_jax(tmp_path):
     ("pod", 2, "§A item 2"), ("mesh_kind", "production", "§A item 1"),
     ("sharding_rules", "fsdp", "§A item 2"), ("unroll_scans", True,
                                               "§A item 9"),
-    ("replicas", 2, "§A item 7"), ("role", "prefill", "§A item 6"),
-    ("host_tier_bytes", 1 << 20, "§A item 6")])
+    ("replicas", 2, "§A item 7"), ("role", "prefill", "§A item 7")])
 def test_plan_file_unported_values_raise(field, value, item, tmp_path):
     _, d = _jax_plan_dict()
     d[field] = value
@@ -326,6 +325,27 @@ def test_plan_file_unported_values_raise(field, value, item, tmp_path):
     path.write_text(json.dumps({"plan": d}))
     with pytest.raises(NotImplementedError, match=f"{field}=.*{item}"):
         ExecutionPlan.load(path)
+
+
+def test_plan_file_host_tier_bytes_loads(tmp_path):
+    """The JAX serve plan's host tier reads into the port's plan, with the
+    JAX validation: >= 0, and only with the prefix cache."""
+    cfg_j = jax_registry.get_smoke(ARCH)
+    plan_j = jax_make_serve_plan(
+        cfg_j, arch=ARCH, n_devices=1, decode_batch=2, page_size=4,
+        max_len=64, mesh_kind="local", prefix_cache=True,
+        host_tier_bytes=1 << 20)
+    got = ExecutionPlan.load(plan_j.save(tmp_path / "PLAN_tier.json"))
+    assert (got.host_tier_bytes, got.prefix_cache) == (1 << 20, True)
+    cfg = registry.get_smoke(ARCH)
+    assert make_serve_plan(cfg, prefix_cache=True, host_tier_bytes=4096
+                           ).host_tier_bytes == 4096
+    for kw in (dict(prefix_cache=True, host_tier_bytes=-1),
+               dict(host_tier_bytes=4096)):
+        with pytest.raises(ValueError, match="host_tier_bytes"):
+            make_serve_plan(cfg, **kw)
+        with pytest.raises(ValueError, match="host_tier_bytes"):
+            jax_make_serve_plan(cfg_j, n_devices=1, mesh_kind="local", **kw)
 
 
 def test_plan_roundtrip_and_path(tmp_path):
