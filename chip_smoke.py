@@ -219,10 +219,64 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               backward kernels' device ms from a profiled step; one loss
               and gradient at seq 1024 under the CUDA kernels against the
               plain versions (``dense_train_check``)
+ 18. gateway  right after host_tier, on the same full-width model (seeded
+              bf16), pages of 16, 4 slots a replica. a. ``gateway.Gateway``
+              with two unified replicas on the card sharing the model,
+              prefix cache on: two families of 4 requests, each family one
+              session behind its own 1024-token system prompt, tails of
+              64-256 tokens, 32 new tokens each; each family must land on
+              one replica (routed [4, 4], 6 affinity hits), both replicas
+              hit their caches, and every stream must equal a single
+              engine's fed that replica's requests at the same steps; the
+              gateway's pure-decode step wall beside those engines'. b. a
+              prefill/decode pair (``plan.make_role_plans``) on one family:
+              every request enters replica 0, 4 handoffs, pages out = in >
+              0, the decode replica prefills nothing, the streams equal a
+              unified engine's. c. two ``frontend.ProcReplica`` workers
+              spawned on the card (each its own CUDA context, the weights
+              drawn from seed 0: their digests must equal this process's
+              model's) behind a ``FrontendServer`` on an ephemeral port:
+              6 requests of 64-1024 prompt tokens, 16 new tokens, two of
+              them sampled, as concurrent SSE streams through
+              ``frontend.client.generate_many``; the merged /metrics must
+              carry worker="0" and worker="1"; then the same 6 again with
+              one worker hard-killed mid-decode: every stream must finish,
+              the one death must be the kill and ``frontend_failovers_total``
+              the streams it orphaned; then a drained shutdown that joins
+              the workers. Every HTTP stream must equal ``replay`` of the
+              run (its admissions and the kill at the same ticks) over two
+              in-process ``LocalReplica``s sharing the model. Each
+              worker's start seconds, TTFT p50/p95 from the orchestrator's
+              histogram and the HTTP run's tokens/s are printed. d. in
+              process, ``interactive,batch`` with preemption: 4 batch
+              requests fill the slots, an interactive one arrives after 4
+              steps; one preemption; every stream not preempted equals
+              the run without preemption; both runs equal, stream for
+              stream and the victim's resumed tokens included, the same
+              traffic driven straight on an ``Engine`` with and without
+              the victim preempted at the same tick; where the victim's
+              stream differs from its run without preemption (the resume
+              recomputes the last block), the first difference must be a
+              near-tie: the two runs' sampler inputs within
+              ``ENGINE_TOL``'s ``max_abs_over_max``, and the tokens split
+              by a top-k cut or an argmax within twice that difference
+              (``_first_difference``); a 1 ms TTFT SLO must be refused
+              over HTTP with 429 ``slo_ttft_unattainable`` and a
+              Retry-After.
+              e. ``python -m repro_torch.launch.serve --http --workers 2``
+              as two subprocesses started together, one ``--smoke --kernel
+              ref`` (the JAX CI's http-smoke), one at full width through
+              the CUDA kernels (``--max-slots 4 --page-size 16 --max-len
+              2048``), each driven by ``python -m
+              repro_torch.frontend.client --verify`` (6 and 8 requests),
+              which must print its bit-identical line; SIGTERM must drain
+              each to exit 0. The worker processes' launches cannot be
+              counted from this process: their check is stream equality
 
 The paths are phases 4, 4a, 5, 5a, 7, 8a, 8b, 8c's five runs (roomy,
 tier, tier-off, handoff, preempt), 9, 13, each scheme of 14, 15's search
-and its plan's step, 16's four runs and 17:
+and its plan's step, 16's four runs, 17 and 18's four in-process runs
+(gateway, gateway_disagg, frontend_ref, priority):
 the launch counters are set to 0 just before each and read just after,
 and each must launch exactly the kernels it runs (B2 and B3 in the ring;
 B5 and B7 in ragged_bwd; B2 and B4 in the engine and in the sample
@@ -234,7 +288,9 @@ prefill and the decode engine); B2 and B3 in the train loop, in train_sp and in 
 StarTrail schemes; B1 and B3 under Ulysses; B1, B2 and B3 in the
 autotune search, whose candidates are all four arrangements; B2 and B4
 in dense_serve's P = 1, P = 8 and P = 8 sampled runs, B1, B2, B4 and B6
-in its prefix run; B2 and B3 in dense_train). Comparison,
+in its prefix run; B2 and B3 in dense_train; B1, B2, B4 and B6 in the
+gateway, its prefill/decode pair and the priority run, B2 and B4 in the
+front end's replayed reference). Comparison,
 timing and profiling launches are not counted. The kernels line's
 ``launches`` is each kernel's count on the path that runs it (the engine for B2 and B4, the local prefill for B1, the train
 loop for B3, the legacy phase for B5, the prefix phase for B6, ragged_bwd
@@ -2851,11 +2907,742 @@ def phase_host_tier(model, smi):
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the gateway and the process-separated front end
+# ---------------------------------------------------------------------------
+
+GATEWAY = {"system": 1024, "tails": [64, 128, 192, 256], "new": 32,
+           "slots": 4, "page": 16, "pages": 512, "max_len": 2048}
+FRONTEND = {"plens": [64, 256, 448, 640, 832, 1024], "new": 16,
+            "sampled": (1, 4), "temperature": 0.8, "top_k": 40,
+            "top_p": 0.9, "kill_after": 2, "timeout_s": 300}
+PRIORITY = {"batch_plens": [256, 320, 384, 448], "batch_new": 24,
+            "interactive_plen": 128, "interactive_new": 8, "at": 4,
+            "slo_ms": 1.0, "slo_plen": 1024}
+HTTP_SMOKE_TIMEOUT_S = 240
+
+
+def _gw_plan(cfg, **kw):
+    from repro_torch.plan import make_serve_plan
+
+    g = GATEWAY
+    return make_serve_plan(cfg, arch=ARCH, c=1, decode_batch=g["slots"],
+                           page_size=g["page"], max_len=g["max_len"], **kw)
+
+
+def _gw_eng():
+    from repro_torch.engine import EngineConfig
+
+    return EngineConfig(pages_per_shard=GATEWAY["pages"])
+
+
+def _gateway_launches(engines, cold):
+    """The launches of engines whose ``cold`` prompts prefill whole (B2)
+    and whose every other prefill is a suffix prefill over cached pages
+    (B6 and B1), each decode step B4 (``_cached_launches`` summed)."""
+    L = engines[0].cfg.num_layers
+    chunks = sum(e.metrics.prefill_chunks for e in engines)
+    return launches_of(B1=L * (chunks - cold), B2=L * cold,
+                       B4=L * sum(e.metrics.decode_steps for e in engines),
+                       B6=L * (chunks - cold))
+
+
+def _pure_decode(engines):
+    """Every engine only decodes this step: nothing queued, handed in or
+    mid-prefill, and some slot decoding."""
+    busy = False
+    for e in engines:
+        s = e.scheduler
+        if s.queue or s.prefilled or e._prefilling:
+            return False
+        busy = busy or bool(s.active())
+    return busy
+
+
+def _step_walls(step, engines, idle):
+    """Drive ``step`` until ``idle()``; the wall ms of each step that only
+    decodes (``_pure_decode`` before it)."""
+    import torch
+
+    walls = []
+    while not idle():
+        pure = _pure_decode(engines)
+        t0 = time.perf_counter()
+        emitted = step()
+        torch.cuda.synchronize()
+        if pure:
+            walls.append(1e3 * (time.perf_counter() - t0))
+        check(bool(emitted) or any(e.scheduler.active() or
+                                   e.scheduler.prefilled for e in engines),
+              "stalled")
+    return walls
+
+
+def replay(orch, replicas, **orch_kw):
+    """Serve ``orch``'s admitted traffic again on ``replicas`` (in-process
+    ``LocalReplica``s of the same seed's model): each request is submitted
+    before the tick it was submitted at (``_Stream.submitted_step``) with
+    its class, sampling and session, and each replica that died is killed
+    before the tick its death was noticed at (``Orchestrator.deaths``), so
+    the router, the admissions and the failovers follow the recorded run
+    and every replica runs the same batches. Returns {rid -> stream}. A
+    death noticed inside a submission is not replayed exactly."""
+    from repro_torch.frontend.orchestrator import Orchestrator
+
+    reqs = [dict(step=s.submitted_step, prompt=list(s.req.tokens),
+                 max_new_tokens=s.req.max_new_tokens, cls=s.cls.name,
+                 temperature=s.req.temperature, top_k=s.req.top_k,
+                 top_p=s.req.top_p, seed=s.req.seed, session=s.session)
+            for _, s in sorted(orch.streams.items())]
+    deaths = list(orch.deaths)
+    again = Orchestrator(replicas, **orch_kw)
+    while reqs or not again.idle():
+        for tick, i in deaths:
+            if tick == again.steps and again.replicas[i].alive:
+                again.replicas[i].kill()
+        while reqs and reqs[0]["step"] == again.steps:
+            kw = reqs.pop(0)
+            kw.pop("step")
+            rid = again.submit(kw.pop("prompt"), kw.pop("max_new_tokens"),
+                               **kw)
+            if not isinstance(rid, int):
+                raise RuntimeError(f"replay: submission rejected: {rid}")
+        again.step()
+        if again.steps > again.max_steps:
+            raise RuntimeError("replay did not drain")
+    out = {rid: list(s.tokens) for rid, s in again.streams.items()}
+    again.shutdown(drain=False)
+    return out
+
+
+def _priority_engine(model, reqs, at, victim=None, preempt_at=None):
+    """Phase d's traffic straight on one ``Engine``, no orchestrator: the
+    batch requests (all of ``reqs`` but the last) at tick 0, the
+    interactive one after ``at`` ticks and, given ``victim``, that uid
+    preempted right after it, with ``preempt_at`` tokens out, and its
+    resume queued behind it, as the orchestrator's preemption tick does
+    (the resume prefill recomputes the same last block). Returns the
+    streams by uid and, for each of the victim's tokens, the (V,)
+    ``sampling.scores`` row it was the argmax of and the logits row those
+    scores came from."""
+    from repro_torch.engine import Engine, sampling
+
+    eng = Engine(model, _gw_plan(model.cfg, prefix_cache=True), _gw_eng())
+    slots = eng.eng.max_slots
+    calls, rows, hooked = [], [], [0]
+    orig_sample, orig_greedy = sampling.sample, sampling.greedy
+
+    def sample(rt, head, x, cfg, **kw):
+        calls.append((sampling.scores(rt, head, x, cfg, **kw)[0],
+                      sampling.shard_logits(rt, head, x, cfg)[0]))
+        return orig_sample(rt, head, x, cfg, **kw)
+
+    def greedy(rt, head, x, cfg):
+        logits = sampling.shard_logits(rt, head, x, cfg)[0]
+        calls.append((logits, logits))
+        return orig_greedy(rt, head, x, cfg)
+
+    def on_prefill(uid, _):
+        # the prefill's own (B = 1) draw is the latest call
+        if uid == victim:
+            rows.append(tuple(t[0] for t in calls[-1]))
+            hooked[0] += 1
+
+    eng.on_prefill = on_prefill
+    pre = []
+    sampling.sample, sampling.greedy = sample, greedy
+    try:
+        for r in reqs[:-1]:
+            check(eng.add_request(r) is None, f"{r.uid} rejected")
+        tick = 0
+        while tick <= at or not eng.idle():
+            if tick == at:
+                check(eng.add_request(reqs[-1]) is None, "interactive")
+                if preempt_at is not None:
+                    resume = eng.preempt(victim)
+                    prompt = next(r for r in reqs if r.uid == victim).tokens
+                    pre = resume.tokens[len(prompt):]
+                    check(len(pre) == preempt_at,
+                          f"{victim} had {len(pre)} tokens at tick {at}, "
+                          f"the orchestrator preempted it at {preempt_at}")
+                    check(eng.add_request(resume) is None, "resume")
+            calls.clear()
+            hooked[0] = 0
+            emitted = eng.step()
+            n_dec = sum(u == victim for u, _ in emitted) - hooked[0]
+            if n_dec:
+                dec = [c for c in calls if c[0].shape[0] == slots]
+                st = next(s for s in list(eng.scheduler.active())
+                          + list(eng.scheduler.finished.values())
+                          if s.req.uid == victim)
+                check(n_dec == 1 and len(dec) == 1, "one decode draw a step")
+                rows.append(tuple(t[st.slot] for t in dec[0]))
+            tick += 1
+    finally:
+        sampling.sample, sampling.greedy = orig_sample, orig_greedy
+    out = eng.collect()
+    if victim is not None:
+        out[victim] = pre + out[victim]
+        check([int(r[0].argmax()) for r in rows] == out[victim],
+              f"{victim}'s recorded scores do not give its tokens")
+    return out, rows
+
+
+def _first_difference(req, off, on, rows_off, rows_on, resumed):
+    """Where the preempted stream ``on`` first differs from its run without
+    preemption ``off``: the two runs' sampler inputs (logits / T, T = 1
+    for a greedy row) must agree within ``ENGINE_TOL``'s
+    ``max_abs_over_max`` (the error the engine's logits are held to
+    elsewhere), and the different tokens must be a near-tie at that
+    error d: a token kept by top-k in one run and cut in the other lies
+    within 2 d of each run's k-th score, and where the argmax over the
+    tokens kept in both runs differs, each run's top-2 margin over them
+    is at most 2 d (the gumbel noise is the same in both runs, keyed by
+    seed and position). A wrong position, page or key is none of these.
+    Returns the readings, each run's top-2 margin of its scores among
+    them."""
+    import torch
+
+    from repro_torch.engine import sampling
+
+    check(req.top_p >= 1.0, "the near-tie test covers top-k, not top-p")
+    j = next(i for i, (a, b) in enumerate(zip(off, on)) if a != b)
+    check(j >= resumed, f"differs at token {j}, before the resume at "
+          f"{resumed}")
+    (so, lo), (sn, ln) = ([t.float() for t in rows_off[j]],
+                          [t.float() for t in rows_on[j]])
+    temp = req.temperature if req.temperature > 0 else 1.0
+    real = lo > sampling.NEG / 2
+    zo, zn = lo[real] / temp, ln[real] / temp
+    d = float((zo - zn).abs().max())
+    tol = ENGINE_TOL["max_abs_over_max"] * float(
+        torch.maximum(zo.abs().max(), zn.abs().max()))
+    keep_o, keep_n = so > sampling.NEG / 2, sn > sampling.NEG / 2
+    top_o, top_n = so.topk(2), sn.topk(2)
+    rec = {"token": j, "resumed_at": resumed, "tokens": [off[j], on[j]],
+           "margin_off": float(top_o.values[0] - top_o.values[1]),
+           "margin_on": float(top_n.values[0] - top_n.values[1]),
+           "top2_off": top_o.indices.tolist(),
+           "top2_on": top_n.indices.tolist(),
+           "max_abs_input_diff": d, "input_tol": tol}
+    ok = d <= tol
+    thr = []
+    for t in sorted({off[j], on[j]}):
+        if bool(keep_o[t]) == bool(keep_n[t]):
+            continue
+        # kept in one run only: a top-k boundary tie
+        k = req.top_k
+        ok = ok and 0 < k < zo.numel()
+        if ok:
+            gaps = [abs(float(z[t] - z.topk(k).values[-1]))
+                    for z in (lo / temp, ln / temp)]
+            thr.append({"token": t, "gap_to_kth_off": gaps[0],
+                        "gap_to_kth_on": gaps[1]})
+            ok = ok and max(gaps) <= 2 * d
+    both = keep_o & keep_n
+    ids = both.nonzero().flatten()
+    c_o, c_n = int(ids[so[both].argmax()]), int(ids[sn[both].argmax()])
+    rec["argmax_kept_in_both"] = [c_o, c_n]
+    if c_o != c_n:
+        m_o, m_n = float(so[c_o] - so[c_n]), float(sn[c_n] - sn[c_o])
+        rec["margins_kept_in_both"] = [m_o, m_n]
+        ok = ok and m_o <= 2 * d and m_n <= 2 * d
+    rec["topk_boundary"] = thr
+    check(ok and (thr or c_o != c_n),
+          f"the preempted stream's first difference is no near-tie: {rec}")
+    return rec
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _start_server(srv):
+    """``srv`` (a ``FrontendServer`` on port 0) on an event loop in a
+    thread of its own; returns (loop, thread) once it listens."""
+    import asyncio
+    import threading
+
+    loop = asyncio.new_event_loop()
+
+    def serve():
+        asyncio.set_event_loop(loop)
+        loop.run_until_complete(srv.start())
+        loop.run_forever()
+
+    t = threading.Thread(target=serve, daemon=True)
+    t.start()
+    for _ in range(400):
+        if srv.port:
+            return loop, t
+        time.sleep(0.025)
+    raise CheckFailed("front-end server did not come up")
+
+
+def _stop_server(srv, loop, t, drain=True):
+    srv.shutdown(drain=drain)
+    loop.call_soon_threadsafe(loop.stop)
+    t.join(30)
+
+
+# phase e's launchers: the smoke model through the plain versions (its
+# head size 16 is not one the kernels take), as the JAX CI's http-smoke
+# runs it, and the full width through the CUDA kernels (README's command)
+HTTP_LAUNCHERS = {
+    "smoke": (["--smoke", "--kernel", "ref"], 6),
+    "full": (["--max-slots", "4", "--page-size", "16", "--max-len", "2048"],
+             8),
+}
+
+
+def _http_launcher(flags, port, log):
+    """``launch.serve --http --workers 2`` with ``flags`` as a subprocess
+    on the card."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
+         *flags, "--http", "--workers", "2", "--port", str(port)], cwd=ROOT,
+        env=env, stdout=log, stderr=subprocess.STDOUT, text=True)
+
+
+def _http_smoke(proc, port, log_path, n_requests):
+    """The launcher's front end driven by ``frontend.client --verify``
+    (``n_requests`` streams against an in-process rebuild of the served
+    engine), then SIGTERM: it must drain and exit 0."""
+    import signal
+
+    from repro_torch.frontend import client
+
+    t0 = time.perf_counter()
+    while True:
+        check(proc.poll() is None, "launch.serve --http exited early: "
+              + open(log_path).read()[-2000:])
+        try:
+            if client.get_json("127.0.0.1", port, "/healthz")["ok"]:
+                break
+        except OSError:
+            pass
+        check(time.perf_counter() - t0 < HTTP_SMOKE_TIMEOUT_S,
+              "launch.serve --http did not come up")
+        time.sleep(0.2)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t1 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.frontend.client", "--port",
+         str(port), "--requests", str(n_requests), "--verify"], cwd=ROOT,
+        env=env, capture_output=True, text=True,
+        timeout=HTTP_SMOKE_TIMEOUT_S)
+    client_s = time.perf_counter() - t1
+    check(res.returncode == 0 and "bit-identical" in res.stdout,
+          f"frontend.client --verify: rc {res.returncode}\n"
+          f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+    t2 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=120)
+    drain_s = time.perf_counter() - t2
+    log = open(log_path).read()
+    check(rc == 0 and "drained; workers joined" in log,
+          f"launch.serve --http after SIGTERM: rc {rc}\n{log[-2000:]}")
+    starts = [ln for ln in log.splitlines() if "ready in" in ln]
+    return {"client_lines": res.stdout.strip().splitlines(),
+            "client_s": client_s, "sigterm_to_exit_s": drain_s, "rc": rc,
+            "worker_lines": starts}
+
+
+def phase_gateway(model, smi):
+    """The gateway and the front end at full width (module doc, phase 18):
+    a. two unified replicas on the card sharing ``model``, b. a
+    prefill/decode pair, c. two spawned ``ProcReplica`` workers behind a
+    ``FrontendServer`` with a worker killed mid-decode, d. priority
+    preemption and the SLO gate in process, e. ``launch.serve --http
+    --workers 2`` driven by ``frontend.client --verify`` and stopped by
+    SIGTERM. The launches of the in-process runs (a, b, c's replayed
+    reference, d) are counted; the worker processes' launches cannot be
+    counted from this process, so c holds their streams to the replay
+    instead. Returns the launches of each counted run."""
+    import dataclasses
+    import http.client
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from repro_torch.engine import Engine, Request
+    from repro_torch.frontend import client
+    from repro_torch.frontend.orchestrator import Orchestrator
+    from repro_torch.frontend.protocol import make_worker_spec
+    from repro_torch.frontend.server import FrontendServer
+    from repro_torch.frontend.slo import (PriorityClass, SLOAdmission,
+                                          parse_classes)
+    from repro_torch.frontend.worker import (LocalReplica, ProcReplica,
+                                             weights_digest)
+    from repro_torch.gateway import Gateway
+    from repro_torch.plan import make_role_plans
+
+    t_phase = time.perf_counter()
+    cfg, g = model.cfg, GATEWAY
+    L = cfg.num_layers
+    by_path, rec = {}, {}
+    tmp = tempfile.TemporaryDirectory()
+    launchers, procs = {}, []
+    try:
+        # --- a. two unified replicas sharing the model, prefix cache on
+        rng = np.random.default_rng(23)
+        system = [rng.integers(0, cfg.vocab_size, g["system"]).tolist()
+                  for _ in range(2)]
+        reqs = [Request(f"f{i % 2}.{i // 2}", system[i % 2] + rng.integers(
+                    0, cfg.vocab_size, g["tails"][i // 2]).tolist(), g["new"])
+                for i in range(8)]
+        plan = _gw_plan(cfg, replicas=2, prefix_cache=True)
+        gw = Gateway(model, plan, _gw_eng())
+        check(all(e.model is model for e in gw.engines), "replica models")
+        torch.cuda.synchronize()
+        counts = reset_counts()
+        t0 = time.perf_counter()
+        owners = [gw.add_request(r, session=f"fam{i % 2}")
+                  for i, r in enumerate(reqs)]
+        gw_walls = _step_walls(gw.step, gw.engines, gw.idle)
+        gw_wall = time.perf_counter() - t0
+        launches = read_counts(counts)
+        out = gw.collect()
+        m = gw.metrics_dict()
+        check(owners == [0, 1] * 4 and m["routed"] == [4, 4]
+              and m["affinity_hits"] == 6,
+              f"gateway routing: owners {owners}, routed {m['routed']}, "
+              f"affinity hits {m['affinity_hits']}")
+        check(all(p["prefill_tokens_cached"] > 0 for p in m["per_replica"]),
+              f"gateway prefix hits: {m['per_replica']}")
+        cold = sum(1 for e in gw.engines
+                   for st in e.scheduler.finished.values()
+                   if st.cached_len == 0)
+        want = _gateway_launches(gw.engines, cold)
+        check(launches == want, f"gateway launches {launches}: want {want}")
+        by_path["gateway"] = launches
+        # the reference: one engine per replica fed that replica's
+        # requests at the same steps (so the same batches and cache hits)
+        ref_walls, ref_out = [], {}
+        for i in range(2):
+            solo = Engine(model, dataclasses.replace(plan, replicas=1),
+                          _gw_eng())
+            for r in reqs:
+                if gw._owner[r.uid] == i:
+                    check(solo.add_request(r) is None, f"{r.uid} rejected")
+            ref_walls.append(_step_walls(solo.step, [solo], solo.idle))
+            ref_out.update(solo.collect())
+            del solo
+        check(out == ref_out, "gateway streams differ from one engine's "
+              "per replica")
+        check(all(len(out[r.uid]) == g["new"] for r in reqs),
+              "gateway budgets")
+        rec["replicas"] = {
+            "requests": len(reqs), "system_prompt": g["system"],
+            "tails": g["tails"], "new_tokens": g["new"], "routed": m["routed"],
+            "affinity_hits": m["affinity_hits"],
+            "prefill_tokens_cached": m["prefill_tokens_cached"],
+            "prefix_hit_rate": m["prefix_hit_rate"], "wall_s": gw_wall,
+            "tokens_per_s": m["tokens_out"] / gw_wall,
+            "gateway_decode_step_ms_median": statistics.median(gw_walls),
+            "gateway_decode_steps": len(gw_walls),
+            "single_engine_decode_step_ms_median": [
+                statistics.median(w) for w in ref_walls],
+            "latency": gw.latency_quantiles(), "launches": launches}
+        del gw
+        free_device()
+        # --- b. prefill/decode roles, one family
+        fam = reqs[0::2]
+        plans = make_role_plans(cfg, roles=["prefill", "decode"], arch=ARCH,
+                                n_devices=1, c=1, decode_batch=g["slots"],
+                                page_size=g["page"], max_len=g["max_len"],
+                                prefix_cache=True)
+        dis = Gateway(model, None, _gw_eng(), plans=plans)
+        torch.cuda.synchronize()
+        counts = reset_counts()
+        t0 = time.perf_counter()
+        owners = [dis.add_request(r) for r in fam]
+        dis_out = dis.run()
+        torch.cuda.synchronize()
+        dis_wall = time.perf_counter() - t0
+        launches = read_counts(counts)
+        tier = dis.stats()["host_tier"]
+        pre, dec = dis.engines
+        check(owners == [0] * 4 and dis.handoffs == 4
+              and tier["handoff_out_pages"] == tier["handoff_in_pages"] > 0
+              and dec.metrics.prefills == 0,
+              f"disaggregated: owners {owners}, {dis.handoffs} handoffs, "
+              f"pages out {tier['handoff_out_pages']} in "
+              f"{tier['handoff_in_pages']}, decode prefills "
+              f"{dec.metrics.prefills}")
+        cold = sum(1 for st in pre.scheduler.finished.values()
+                   if st.cached_len == 0)
+        want = _gateway_launches([pre, dec], cold)
+        check(launches == want, f"disagg launches {launches}: want {want}")
+        by_path["gateway_disagg"] = launches
+        uni = Engine(model, _gw_plan(cfg, prefix_cache=True), _gw_eng())
+        for r in fam:
+            uni.add_request(r)
+        check(dis_out == uni.run(), "disaggregated streams differ from a "
+              "unified engine's")
+        rec["disagg"] = {"requests": len(fam), "handoffs": dis.handoffs,
+                         "handoff_out_pages": tier["handoff_out_pages"],
+                         "handoff_in_pages": tier["handoff_in_pages"],
+                         "decode_prefills": dec.metrics.prefills,
+                         "wall_s": dis_wall, "launches": launches}
+        del dis, pre, dec, uni
+        free_device()
+        # --- c. two worker processes behind the HTTP/SSE server
+        f = FRONTEND
+        spec = make_worker_spec(plan=_gw_plan(cfg), eng=_gw_eng(),
+                                init_seed=0, smoke=False)
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(2) as ex:
+            procs = list(ex.map(lambda i: ProcReplica(
+                i, spec, start_timeout_s=f["timeout_s"]), range(2)))
+        start_s = [p.start_s for p in procs]
+        start_wall = time.perf_counter() - t0
+        digest = weights_digest(model)
+        digests = [p.digest() for p in procs]
+        check(digests == [digest] * 2,
+              f"worker weights differ from the seed's: {digests} vs "
+              f"{digest}")
+        orch = Orchestrator(procs)
+        srv = FrontendServer(orch, port=0, worker_spec=spec, workers=2)
+        loop, thread = _start_server(srv)
+        rng = np.random.default_rng(29)
+        kws = [dict(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=f["new"], seed=50 + i,
+                    **(dict(temperature=f["temperature"], top_k=f["top_k"],
+                            top_p=f["top_p"]) if i in f["sampled"] else {}))
+                for i, n in enumerate(f["plens"])]
+        t0 = time.perf_counter()
+        first = client.generate_many("127.0.0.1", srv.port, kws,
+                                     concurrency=len(kws))
+        http_wall = time.perf_counter() - t0
+        bad = [r for r in first if isinstance(r, Exception)]
+        check(not bad, f"HTTP round 1 failed: {bad}")
+        metrics = client.get_text("127.0.0.1", srv.port, "/metrics")
+        check('worker="0"' in metrics and 'worker="1"' in metrics,
+              "merged /metrics lacks a worker's series")
+        check(not orch.deaths, f"a worker died unasked: {orch.deaths}")
+        ttft = {q: orch.ttft_quantile(q) for q in (0.5, 0.95)}
+        # round 2: the same requests, one worker killed mid-decode
+        box = {}
+        t2 = threading.Thread(target=lambda: box.update(
+            res=client.generate_many("127.0.0.1", srv.port, kws,
+                                     concurrency=len(kws))))
+        t2.start()
+        victim, orphans, t0 = None, [], time.perf_counter()
+        while victim is None:
+            check(time.perf_counter() - t0 < f["timeout_s"],
+                  "no stream of round 2 reached mid-decode")
+            with orch._lock:
+                # every request of round 2 admitted (a kill inside an
+                # admission would answer that request 503)
+                round2 = [s for s in orch.streams.values()
+                          if s.rid >= len(kws)]
+                live = [s for s in round2
+                        if not s.done and len(s.tokens) >= f["kill_after"]]
+                if live and len(round2) == len(kws):
+                    victim = live[0].replica
+                    orphans = [s.rid for s in orch.streams.values()
+                               if s.replica == victim and not s.done]
+                    orch.replicas[victim].kill()
+            time.sleep(0.002)
+        t2.join(f["timeout_s"])
+        second = box.get("res")
+        check(second is not None and not any(
+            isinstance(r, Exception) for r in second),
+            "HTTP round 2 failed: " + str(second and [
+                r for r in second if isinstance(r, Exception)]))
+        fails = orch.registry.get("frontend_failovers_total").value()
+        check(len(orch.deaths) == 1 and orch.deaths[0][1] == victim
+              and fails == len(orphans) > 0
+              and orch.registry.value("frontend_live_replicas") == 1,
+              f"deaths {orch.deaths} (1 kill of worker {victim}), "
+              f"failovers {fails} for {len(orphans)} orphaned streams")
+        _stop_server(srv, loop, thread, drain=True)
+        check(all(not p.proc.is_alive() for p in procs),
+              "a worker did not join")
+        # the reference: the recorded run replayed on two in-process
+        # replicas of the same seed's model, the kill at the same tick
+        locals_ = [LocalReplica(i, dict(spec, device=str(model.device)),
+                                model=model) for i in range(2)]
+        torch.cuda.synchronize()
+        counts = reset_counts()
+        want_out = replay(orch, locals_)
+        torch.cuda.synchronize()
+        launches = read_counts(counts)
+        engines = [r.host.engine for r in locals_]
+        want = launches_of(
+            B2=L * sum(e.metrics.prefills for e in engines),
+            B4=L * sum(e.metrics.decode_steps for e in engines))
+        check(launches == want, f"front-end reference launches {launches}: "
+              f"want {want}")
+        by_path["frontend_ref"] = launches
+        got = {r["rid"]: r["tokens"] for r in first + second}
+        check(got == want_out, "HTTP streams differ from the replayed "
+              "in-process run")
+        n_tok = sum(len(r["tokens"]) for r in first)
+        rec["frontend"] = {
+            "requests_per_round": len(kws), "prompt_lens": f["plens"],
+            "new_tokens": f["new"], "sampled": list(f["sampled"]),
+            "worker_start_s": start_s, "workers_start_wall_s": start_wall,
+            "http_round1_wall_s": http_wall,
+            "http_tokens_per_s": n_tok / http_wall,
+            "ttft_p50_s": ttft[0.5], "ttft_p95_s": ttft[0.95],
+            "deaths": orch.deaths, "orphans": len(orphans),
+            "failovers": fails, "steps": orch.steps,
+            "weights_digest": digest, "reference_launches": launches}
+        del locals_, engines, orch, srv
+        free_device()
+        # --- d. priority preemption and the SLO gate, in process
+        p = PRIORITY
+        dspec = make_worker_spec(plan=_gw_plan(cfg, prefix_cache=True),
+                                 eng=_gw_eng(), init_seed=0, smoke=False,
+                                 device=str(model.device), trace=True)
+        classes = {"interactive": PriorityClass("interactive", 0),
+                   "batch": PriorityClass("batch", 1, preemptible=True)}
+        rng = np.random.default_rng(31)
+        batch = [rng.integers(0, cfg.vocab_size, n).tolist()
+                 for n in p["batch_plens"]]
+        inter = rng.integers(0, cfg.vocab_size,
+                             p["interactive_plen"]).tolist()
+
+        def run(preempt):
+            rep = LocalReplica(0, dspec, model=model)
+            orch = Orchestrator([rep], classes=classes, preempt=preempt)
+            rids = [orch.submit(b, p["batch_new"], cls="batch",
+                                temperature=0.8 if i % 2 else 0.0,
+                                top_k=40 if i % 2 else 0, seed=60 + i)
+                    for i, b in enumerate(batch)]
+            for _ in range(p["at"]):
+                orch.step()
+            rids.append(orch.submit(inter, p["interactive_new"],
+                                    cls="interactive", seed=70))
+            out = orch.run()
+            return rep, orch, [out[r] for r in rids]
+
+        _, _, off = run(False)
+        free_device()
+        torch.cuda.synchronize()
+        counts = reset_counts()
+        rep, porch, on = run(True)
+        torch.cuda.synchronize()
+        launches = read_counts(counts)
+        n_pre = porch.registry.get("frontend_preemptions_total").value(
+            cls="batch")
+        eng = rep.host.engine
+        victims = [s for s in porch.streams.values() if s.preemptions]
+        vic_rids = {s.rid for s in victims}
+        check(n_pre >= 1 and len(victims) == 1
+              and victims[0].preemptions == 1,
+              f"{n_pre} preemptions of {sorted(vic_rids)}: the references "
+              "below re-create exactly one")
+        for i, (a, b) in enumerate(zip(on, off)):
+            check(a == b or i in vic_rids, f"stream {i}, not preempted, "
+                  "differs from the run without preemption")
+        # the references: the same traffic straight on an engine, with and
+        # without the victim's preemption at the same tick, each equal to
+        # its orchestrated run bit for bit (the resumed tokens included);
+        # where the victim's stream differs, the first difference must be
+        # a near-tie of the scores both references drew it from
+        vs = victims[0]
+        vuid = vs.req.uid
+        reqs = [porch.streams[r].req for r in sorted(porch.streams)]
+        ref_on, rows_on = _priority_engine(model, reqs, p["at"], vuid,
+                                           vs.resumed)
+        ref_off, rows_off = _priority_engine(model, reqs, p["at"], vuid)
+        check([ref_on[r.uid] for r in reqs] == on, "the orchestrated "
+              "preemption differs from an engine preempted at that tick")
+        check([ref_off[r.uid] for r in reqs] == off, "the orchestrated run "
+              "without preemption differs from the engine's")
+        flip = None
+        if on[vs.rid] != off[vs.rid]:
+            flip = _first_difference(vs.req, off[vs.rid], on[vs.rid],
+                                     rows_off, rows_on, vs.resumed)
+        cold = sum(1 for e in rep.host.tracer.events()
+                   if e.get("name") == "engine/prefill"
+                   and e["args"]["cached_len"] == 0)
+        want = _gateway_launches([eng], cold)
+        check(launches == want, f"priority launches {launches}: want {want}")
+        by_path["priority"] = launches
+        # the SLO gate: a 1 ms TTFT target the priced prefill cannot meet
+        slo = SLOAdmission(cfg, sp=1, page_size=g["page"],
+                           decode_batch=g["slots"], kernel="cuda")
+        sorch = Orchestrator([LocalReplica(0, dspec, model=model)],
+                             classes=parse_classes(
+            "interactive,batch", slo_ttft_ms=p["slo_ms"]), slo=slo)
+        srv = FrontendServer(sorch, port=0, worker_spec=dspec, workers=0)
+        loop, thread = _start_server(srv)
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+        conn.request("POST", "/generate", json.dumps(
+            {"prompt": rng.integers(0, cfg.vocab_size,
+                                    p["slo_plen"]).tolist(),
+             "max_new_tokens": 4}), {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        text = resp.read().decode()
+        body = json.loads(text) if resp.status != 200 else {"sse": text}
+        retry_after = resp.getheader("Retry-After")
+        conn.close()
+        _stop_server(srv, loop, thread, drain=False)
+        priced = slo.price(prompt_len=p["slo_plen"], queued_tokens=0)
+        check(resp.status == 429 and body["error"] == "slo_ttft_unattainable"
+              and retry_after is not None and int(retry_after) >= 1,
+              f"SLO gate: {resp.status} {body} Retry-After {retry_after}")
+        rec["priority"] = {"batch_prompt_lens": p["batch_plens"],
+                           "preempted_at_step": p["at"],
+                           "preemptions": n_pre,
+                           "victims": sorted(vic_rids),
+                           "equal_streams": [a == b for a, b in zip(on, off)],
+                           "token_share": sum(
+                               x == y for a, b in zip(on, off)
+                               for x, y in zip(a, b)) / sum(map(len, off)),
+                           "victim_resumed_at": vs.resumed,
+                           "first_difference": flip,
+                           "launches": launches,
+                           "slo": {"status": resp.status, "body": body,
+                                   "retry_after": retry_after,
+                                   "priced_s": priced}}
+        del rep, porch, sorch, eng, rows_on, rows_off
+        free_device()
+        # --- e. the launcher's front end, driven by its client; both
+        # launchers start together (after a-d, whose timings they would
+        # share the card with) and are driven one after the other
+        for name, (flags, _) in HTTP_LAUNCHERS.items():
+            port = _free_port()
+            log_path = os.path.join(tmp.name, f"serve_{name}.log")
+            log = open(log_path, "w")
+            launchers[name] = (_http_launcher(flags, port, log), port,
+                               log_path, log)
+        for name, (proc, port, log_path, _) in launchers.items():
+            rec[f"http_{name}"] = _http_smoke(proc, port, log_path,
+                                              HTTP_LAUNCHERS[name][1])
+    finally:
+        for proc, _, _, log in launchers.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+            log.close()
+        tmp.cleanup()
+        for proc in procs:
+            if proc.proc.is_alive():
+                proc.proc.kill()
+                proc.proc.join(10)
+    emit("gateway", model=cfg.name, page_size=g["page"], slots=g["slots"],
+         **rec, seconds=time.perf_counter() - t_phase, card=smi)
+    return by_path
+
+
 def serving_phases(dev, smi):
     """The serving phases on one model; returns the launch counts of the
     engine, the sample phase, the local prefill, the prefix phase and the
-    legacy phase, and the host_tier phase's by run (the engines and the
-    model are freed after)."""
+    legacy phase, and the host_tier and gateway phases' by run (the
+    engines and the model are freed after)."""
     engine, reqs, out, engine_launches, rec = phase_engine(dev, smi)
     sample_launches = phase_sample(engine, smi, reqs, out, rec)
     free_device()
@@ -2869,8 +3656,10 @@ def serving_phases(dev, smi):
     del engine
     free_device()
     host_tier = phase_host_tier(model, smi)
+    free_device()
+    gateway = phase_gateway(model, smi)
     return (engine_launches, sample_launches, local_launches,
-            prefix_launches, legacy_launches, host_tier)
+            prefix_launches, legacy_launches, host_tier, gateway)
 
 
 # ---------------------------------------------------------------------------
@@ -4012,8 +4801,9 @@ def main():
         free_device()
         (by_path["engine"], by_path["sample"], by_path["local"],
          by_path["prefix"], by_path["legacy"],
-         host_tier) = serving_phases(dev, smi)
+         host_tier, gateway) = serving_phases(dev, smi)
         by_path.update(host_tier)
+        by_path.update(gateway)
         free_device()
         model, by_path["train"] = phase_train(dev, smi)
         free_device()

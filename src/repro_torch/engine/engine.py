@@ -56,7 +56,8 @@ raises if they are not. A request's first token folds its key with
 stream does not depend on its batch or on how its prompt was chunked.
 
 Metrics live in an ``obs.Registry`` (``EngineMetrics``: the JAX engine's
-names and kinds, unlabelled until a front end passes replica labels) and
+names and kinds, under the engine's ``labels``: the gateway's replicas
+share one registry as ``{replica=i}``) and
 spans go to an ``obs.Tracer``: an async ``request`` span per request,
 ``engine/step``, ``engine/prefill``, ``engine/prefill_chunk``,
 ``engine/host_reload``, ``engine/handoff_inject`` and ``engine/decode``.
@@ -118,6 +119,8 @@ class EngineMetrics:
     two gauges, the host seconds spent in prefill and in decode steps; each
     of those intervals ends with the sampled tokens copied to the host, so
     it includes the device work. The compile counters stay 0 (module doc).
+    Every series is written and read under ``labels`` (the gateway's
+    ``{replica=i}``), so several engines share one registry.
     """
 
     # attribute -> (metric name, kind, python type)
@@ -152,9 +155,11 @@ class EngineMetrics:
     }
     _HISTOGRAMS = ("serve_ttft_seconds", "serve_intertoken_seconds")
 
-    def __init__(self, registry: Optional[obs.Registry] = None, **initial):
+    def __init__(self, registry: Optional[obs.Registry] = None,
+                 labels: Optional[Dict[str, str]] = None, **initial):
         reg = registry if registry is not None else obs.Registry()
         object.__setattr__(self, "registry", reg)
+        object.__setattr__(self, "labels", dict(labels or {}))
         for metric, kind, _ in self._SPECS.values():
             if kind == "counter":
                 reg.counter(metric)
@@ -174,14 +179,14 @@ class EngineMetrics:
         if spec is None:
             raise AttributeError(name)
         metric, _, typ = spec
-        return typ(self.registry.get(metric).value())
+        return typ(self.registry.get(metric).value(**self.labels))
 
     def __setattr__(self, name, value) -> None:
         spec = self._SPECS.get(name)
         if spec is None:
             raise AttributeError(f"EngineMetrics has no field {name!r}")
         metric, _, typ = spec
-        self.registry.get(metric).set(typ(value))
+        self.registry.get(metric).set(typ(value), **self.labels)
 
     def reset(self, keep_compiles: bool = True) -> None:
         pc, dc, tc = (self.prefill_compiles, self.decode_compiles,
@@ -189,7 +194,7 @@ class EngineMetrics:
         for name in self._SPECS:
             setattr(self, name, 0)
         for name in self._HISTOGRAMS:
-            self.registry.get(name).reset()
+            self.registry.get(name).reset(**self.labels)
         if keep_compiles:
             self.prefill_compiles, self.decode_compiles = pc, dc
             self.transfer_compiles = tc
@@ -208,10 +213,12 @@ class EngineMetrics:
         return d
 
     def observe_ttft(self, seconds: float) -> None:
-        self.registry.get("serve_ttft_seconds").observe(seconds)
+        self.registry.get("serve_ttft_seconds").observe(seconds,
+                                                        **self.labels)
 
     def observe_intertoken(self, seconds: float) -> None:
-        self.registry.get("serve_intertoken_seconds").observe(seconds)
+        self.registry.get("serve_intertoken_seconds").observe(
+            seconds, **self.labels)
 
     def latency_quantiles(self) -> Dict[str, float]:
         """p50/p95/p99 TTFT and inter-token gap (host seconds) from the
@@ -221,8 +228,9 @@ class EngineMetrics:
                               ("intertoken", "serve_intertoken_seconds")):
             h = self.registry.get(metric)
             for q in (0.5, 0.95, 0.99):
-                out[f"{short}_p{int(q * 100)}_s"] = h.quantile(q)
-            out[f"{short}_count"] = h.count()
+                out[f"{short}_p{int(q * 100)}_s"] = h.quantile(
+                    q, **self.labels)
+            out[f"{short}_count"] = h.count(**self.labels)
         return out
 
 
@@ -236,14 +244,15 @@ class Engine:
     ``on_prefill``, when set, is called with ``(uid, hidden)`` as each
     prompt's prefill completes, where ``hidden`` is the (1, 1, D)
     next-token hidden state (rank 0's) its first token is sampled from.
-    ``registry`` holds the metrics (a private registry by default);
-    ``tracer`` records the spans (``obs.NULL_TRACER`` by
-    default).
+    ``registry`` holds the metrics (a private registry by default), under
+    ``labels`` (the gateway's ``{replica=i}``; the connector's series
+    too); ``tracer`` records the spans (``obs.NULL_TRACER`` by default).
     """
 
     def __init__(self, model: Model, plan,
                  eng: EngineConfig = EngineConfig(),
                  registry: Optional[obs.Registry] = None,
+                 labels: Optional[Dict[str, str]] = None,
                  tracer: Optional[obs.Tracer] = None):
         cfg = model.cfg
         ok, why = paged_cache.supported(cfg)
@@ -279,7 +288,7 @@ class Engine:
         self._prefilling: List[SlotState] = []
         self.on_prefill: Optional[Callable[[str, torch.Tensor], None]] = None
         self.metrics = EngineMetrics(
-            registry, pages_total=self.sp * eng.pages_per_shard)
+            registry, labels, pages_total=self.sp * eng.pages_per_shard)
         self.registry = self.metrics.registry
         self.tracer = tracer if tracer is not None else obs.NULL_TRACER
         self._arrival: Dict[str, float] = {}
@@ -306,7 +315,7 @@ class Engine:
                            for t in self.pools[0].values()),
             capacity_bytes=plan.host_tier_bytes,
             spill_fn=self._spill_worthwhile, registry=self.registry,
-            device=self.device)
+            labels=labels, device=self.device)
         self._handoff_ready: List[SlotState] = []
         self.scheduler = self._new_scheduler()
 

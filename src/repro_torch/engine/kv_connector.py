@@ -59,8 +59,8 @@ admission. The same cost curve orders ``PrefixCache.evict``'s victims.
 A page is a dict ``{'k', 'v'}`` of contiguous tensors (num_layers,
 page_size, Hkv, hd); a batch of pages, as ``read_fn`` returns it and
 ``write_fn`` takes it, stacks them on dim 1, the pool's page axis. The
-series are the JAX connector's, unlabelled like ``EngineMetrics`` (replica
-labels come with the gateway, ROADMAP.md §A item 7).
+series are the JAX connector's, under the engine's ``labels`` (the
+gateway's ``{replica=i}``), as ``EngineMetrics``'s are.
 """
 
 from __future__ import annotations
@@ -212,6 +212,7 @@ class KVConnector:
                  page_bytes: int, capacity_bytes: int,
                  spill_fn: Optional[Callable[[int], bool]] = None,
                  registry: Optional[obs.Registry] = None,
+                 labels: Optional[Dict[str, str]] = None,
                  device=torch.device("cpu")):
         self.read_fn = read_fn
         self.write_fn = write_fn
@@ -232,6 +233,7 @@ class KVConnector:
         self._staging: Dict[int, List[_Staged]] = {}     # per source shard
         self._staged_keys: set = set()
         self.registry = registry if registry is not None else obs.Registry()
+        self.labels = dict(labels or {})
         r = self.registry
         self._pages = r.counter(
             "kv_transfer_pages_total",
@@ -290,9 +292,9 @@ class KVConnector:
             torch.cuda.current_stream().synchronize()
 
     def _count(self, op: str, pages: int, seconds: float) -> None:
-        self._pages.inc(pages, op=op)
-        self._bytes.inc(pages * self.page_bytes, op=op)
-        self._lat.observe(seconds, op=op)
+        self._pages.inc(pages, op=op, **self.labels)
+        self._bytes.inc(pages * self.page_bytes, op=op, **self.labels)
+        self._lat.observe(seconds, op=op, **self.labels)
 
     @property
     def enabled(self) -> bool:
@@ -316,7 +318,7 @@ class KVConnector:
         occupied = len(self.tier) + len(self._staged_keys)
         if occupied >= self.tier.capacity_pages and self.spill_fn is not None \
                 and not self.spill_fn(chain_tokens):
-            self._skipped.inc(1)
+            self._skipped.inc(1, **self.labels)
             return False
         out = self.read_fn(self._ids([page]))
         data = self._host_page(out)
@@ -347,7 +349,7 @@ class KVConnector:
                     key=entry.key, chain_tokens=entry.chain_tokens,
                     data=entry.data))
                 if dropped:
-                    self._host_evict.inc(dropped)
+                    self._host_evict.inc(dropped, **self.labels)
                 committed += 1
         self._staging.clear()
         self._staged_keys.clear()
@@ -363,8 +365,8 @@ class KVConnector:
     def note_probe(self, lookup_blocks: int, hit_blocks: int) -> None:
         """Hit-rate accounting, called once per *successful* admission
         (blocked admissions leave no trace)."""
-        self._lookup_tok.inc(lookup_blocks * self.page_size)
-        self._hit_tok.inc(hit_blocks * self.page_size)
+        self._lookup_tok.inc(lookup_blocks * self.page_size, **self.labels)
+        self._hit_tok.inc(hit_blocks * self.page_size, **self.labels)
         self._update_gauges()
 
     def reload(self, items: Sequence[Tuple[int, Tuple[int, int]]]) -> None:
@@ -442,39 +444,42 @@ class KVConnector:
         self._staging.clear()
         self._staged_keys.clear()
         for op in ("spill", "reload", "handoff_out", "handoff_in"):
-            self._pages.set(0, op=op)
-            self._bytes.set(0, op=op)
-            self._lat.reset(op=op)
+            self._pages.set(0, op=op, **self.labels)
+            self._bytes.set(0, op=op, **self.labels)
+            self._lat.reset(op=op, **self.labels)
         for c in (self._skipped, self._host_evict, self._hit_tok,
                   self._lookup_tok):
-            c.set(0)
+            c.set(0, **self.labels)
         self._update_gauges()
 
     def _update_gauges(self) -> None:
-        self._g_pages.set(len(self.tier))
-        self._g_bytes.set(self.tier.bytes_resident)
-        self._g_hit.set(self.hit_rate)
+        self._g_pages.set(len(self.tier), **self.labels)
+        self._g_bytes.set(self.tier.bytes_resident, **self.labels)
+        self._g_hit.set(self.hit_rate, **self.labels)
 
     @property
     def hit_rate(self) -> float:
-        lookup = self._lookup_tok.value()
-        return self._hit_tok.value() / lookup if lookup else 0.0
+        lookup = self._lookup_tok.value(**self.labels)
+        return (self._hit_tok.value(**self.labels) / lookup if lookup
+                else 0.0)
 
     def stats(self) -> Dict[str, float]:
+        v = self.labels
         return {
             "capacity_pages": self.tier.capacity_pages,
             "resident_pages": len(self.tier),
             "resident_bytes": self.tier.bytes_resident,
             "staged_pages": len(self._staged_keys),
-            "spill_pages": int(self._pages.value(op="spill")),
-            "spill_bytes": int(self._bytes.value(op="spill")),
-            "reload_pages": int(self._pages.value(op="reload")),
-            "reload_bytes": int(self._bytes.value(op="reload")),
-            "handoff_out_pages": int(self._pages.value(op="handoff_out")),
-            "handoff_in_pages": int(self._pages.value(op="handoff_in")),
-            "spills_skipped": int(self._skipped.value()),
-            "host_evicted_pages": int(self._host_evict.value()),
-            "hit_tokens": int(self._hit_tok.value()),
-            "lookup_tokens": int(self._lookup_tok.value()),
+            "spill_pages": int(self._pages.value(op="spill", **v)),
+            "spill_bytes": int(self._bytes.value(op="spill", **v)),
+            "reload_pages": int(self._pages.value(op="reload", **v)),
+            "reload_bytes": int(self._bytes.value(op="reload", **v)),
+            "handoff_out_pages": int(self._pages.value(op="handoff_out",
+                                                       **v)),
+            "handoff_in_pages": int(self._pages.value(op="handoff_in", **v)),
+            "spills_skipped": int(self._skipped.value(**v)),
+            "host_evicted_pages": int(self._host_evict.value(**v)),
+            "hit_tokens": int(self._hit_tok.value(**v)),
+            "lookup_tokens": int(self._lookup_tok.value(**v)),
             "hit_rate": self.hit_rate,
         }

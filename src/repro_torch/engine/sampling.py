@@ -123,7 +123,21 @@ def sample(rt, head, x, cfg: ModelConfig, *, temperature, top_k, top_p,
            keys: Optional[Sequence[Optional[int]]] = None,
            noise: Optional[torch.Tensor] = None,
            max_top_k: int = MAX_TOP_K):
-    """Sample next tokens with per-row parameters. Returns (B, 1) int32.
+    """Sample next tokens with per-row parameters: the vocab-wide argmax
+    of each row of ``scores``. Returns (B, 1) int32."""
+    s, lo = scores(rt, head, x, cfg, temperature=temperature, top_k=top_k,
+                   top_p=top_p, keys=keys, noise=noise, max_top_k=max_top_k)
+    return lowest_shard_argmax(rt, s, lo)[:, None]
+
+
+def scores(rt, head, x, cfg: ModelConfig, *, temperature, top_k, top_p,
+           keys: Optional[Sequence[Optional[int]]] = None,
+           noise: Optional[torch.Tensor] = None,
+           max_top_k: int = MAX_TOP_K):
+    """This rank's (B, V_local) scores whose vocab-wide argmax is each
+    row's sampled token, and the slice's first vocab id: a greedy row's
+    logits; a sampled row's top-k/top-p survivors' logits / T plus its
+    gumbel noise (NEG elsewhere).
 
     temperature: (B,) float32 tensor; rows with temperature <= 0 decode
       greedily.
@@ -138,7 +152,6 @@ def sample(rt, head, x, cfg: ModelConfig, *, temperature, top_k, top_p,
     """
     logits, lo = shard_logits(rt, head, x, cfg)
     B, v_local = logits.shape
-    greedy_tok = lowest_shard_argmax(rt, logits, lo)
     comm, axes = rt.comm, rt.sp_axes
 
     z = logits / temperature.clamp_min(1e-6)[:, None]
@@ -175,7 +188,4 @@ def sample(rt, head, x, cfg: ModelConfig, *, temperature, top_k, top_p,
     g = noise if noise is not None else gumbel(keys, rt.sp_rank(), v_local,
                                                logits.device)
     pert = torch.where(z <= NEG / 2, NEG, z + g)
-    samp_tok = lowest_shard_argmax(rt, pert, lo)
-
-    tok = torch.where(temperature <= 0.0, greedy_tok, samp_tok)
-    return tok[:, None]
+    return torch.where((temperature <= 0.0)[:, None], logits, pert), lo

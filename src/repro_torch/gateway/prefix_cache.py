@@ -102,6 +102,11 @@ class PrefixCache:
             level = node.children
         return nodes
 
+    def match_len(self, hashes: Sequence[int]) -> int:
+        """Longest cached prefix, in blocks. Read-only (the router's
+        probe)."""
+        return len(self._walk(hashes))
+
     def match(self, hashes: Sequence[int]) -> List[Tuple[int, int]]:
         """The longest cached prefix's pages, in block order. Read-only —
         no refcounts, stats or LRU stamps move (the scheduler probes with
@@ -224,6 +229,18 @@ class PrefixCache:
             if victim.page[0] == shard:
                 freed += 1
         return freed
+
+    def drop_all(self) -> None:
+        """Release every cache hold at once, leaves first; a page a live
+        request shares stays until it finishes. Not counted as eviction
+        (``evicted_pages`` counts pool pressure)."""
+        while True:
+            leaves = self._leaves()
+            if not leaves:
+                break
+            for node in leaves:
+                self._drop(node)
+                self.evicted_pages -= 1
 
     # ---- metrics --------------------------------------------------------
     @property

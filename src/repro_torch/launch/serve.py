@@ -1,21 +1,40 @@
-"""Serving driver on top of ``repro_torch.engine`` (engine and ``--legacy``
-modes of ``repro.launch.serve``).
+"""Serving driver on top of ``repro_torch.engine`` and
+``repro_torch.gateway`` (the port of ``repro.launch.serve``).
 
 Engine mode serves a mixed workload of ``--requests`` requests with
 staggered prompt lengths and budgets by continuous batching over the paged
 KV cache, and prints per-request generations and the engine metrics. The
 requests are greedy unless ``--temperature`` > 0, which samples each with
 ``--top-k`` / ``--top-p`` and seed ``--seed + i``. ``--metrics-dump FILE``
-writes the engine's ``obs`` registry after the run (Prometheus text, JSON
-when FILE ends ``.json``), ``--trace-out FILE`` a Chrome-trace JSON of its
-request, step, prefill and decode spans.
-``--prefill-chunk N`` prefills prompts in page-aligned chunks of about N
-tokens; ``--prefix-cache`` shares a ``--system-prompt-len``-token prefix
-over every request and turns the block-hash prefix cache on, so later
-requests prefill only their uncached suffix. ``--host-tier-bytes N`` (with
-``--prefix-cache``) puts a pinned-host KV tier of N bytes behind the pool:
-evicted prefix pages spill there and later hits reload them; its
-counters are printed after the run (``[serve] host tier:``).
+writes the ``obs`` registry after the run (Prometheus text, JSON when FILE
+ends ``.json``), ``--trace-out FILE`` a Chrome-trace JSON of the request,
+step, prefill and decode spans. ``--prefill-chunk N`` prefills prompts in
+page-aligned chunks of about N tokens.
+
+**Gateway mode** (``--replicas N > 1``, ``--roles`` or ``--prefix-cache``,
+as in the JAX launcher) serves the workload through ``gateway.Gateway``:
+N engine replicas on the one card sharing one model, prefix-aware and
+load-aware routing with session affinity, and two request families each
+behind its own ``--system-prompt-len``-token system prompt (one session
+each), so the prefix caches have something to hit. It prints each
+request's replica and stream, the gateway's routing, hit-rate and
+eviction metrics, each replica's line, the host tier's counters when it
+is on (``--host-tier-bytes N``: pinned-host KV tier of N bytes a replica
+behind the prefix cache) and ``plan.cost.prefix_cache_value``'s analytical
+line. ``--roles prefill,decode`` disaggregates: one engine a role, with
+each finished prompt's KV handed from the prefill replica to a decode
+replica through the KV connector.
+
+**HTTP front-end mode** (``--http``) starts the process-separated
+``repro_torch.frontend`` stack instead of a canned workload: ``--workers``
+engine processes (spawned; each draws the weights from ``--seed`` on the
+device; ``0`` keeps one in-process replica), an asyncio HTTP/SSE server on
+``--host:--port`` streaming tokens per request, priority classes
+(``--priority-classes``, highest first) with optional preemption
+(``--preempt``), a class budget (``--class-budget-tokens``) and SLO-priced
+admission (``--slo-ttft-ms``, scaled by ``--slo-calibration``). SIGTERM
+drains: streams in flight finish, host-tier spills flush, workers join.
+``python -m repro_torch.frontend.client --port P --verify`` drives it.
 
 ``--legacy`` is the static-batch greedy path (it ignores the sampling
 flags, as the JAX launcher's does): one batch of ``--batch``
@@ -29,31 +48,34 @@ none; ``--device cpu`` runs the plain PyTorch versions of the kernels:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
       --smoke --device cpu --requests 8 --prompt-len 16 --gen 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
-      --smoke --device cpu --prefix-cache --prefill-chunk 8
+      --smoke --device cpu --replicas 2 --prefix-cache --prefill-chunk 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
-      --smoke --device cpu --prefix-cache --pages-per-shard 12 \\
+      --smoke --device cpu --roles prefill,decode --prefix-cache \\
       --host-tier-bytes 1048576
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
       --smoke --device cpu --temperature 0.8 --top-k 40 --top-p 0.9 \\
       --metrics-dump "$TMPDIR/m.prom" --trace-out "$TMPDIR/trace.json"
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
+      --smoke --device cpu --http --workers 2 --port 8080
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
       --smoke --device cpu --legacy
 
 ``--devices N --data D --c C`` serves on N ranks: D data replicas of SP
 degree N / D (C * C * R), one ``ThreadMesh`` thread per rank on the one
-device, with the JAX launcher's meanings; ``--c`` unset lets the cost model
-pick C (C = 1 at P = 1). ``--save-plan FILE`` writes the resolved serve
-plan, ``--plan FILE`` serves a written one (its arch, ranks and
-arrangement; ``--smoke`` picks the width), and ``--comm-report FILE``
-writes the plan's attention island's measured-vs-analytical wire bytes
-(``obs.commlog.comm_report``):
+device, with the JAX launcher's meanings; with several gateway replicas
+or workers N is split evenly between them (default: one rank each).
+``--c`` unset lets the cost model pick C (C = 1 at P = 1). ``--save-plan
+FILE`` writes the resolved serve plan (``{"plans": [...]}`` for roles),
+``--plan FILE`` serves a written one, the port's or the JAX launcher's
+(its arch, ranks, arrangement, replicas and roles; ``--smoke`` picks the
+width), and ``--comm-report FILE`` writes the plan's attention island's
+measured-vs-analytical wire bytes (``obs.commlog.comm_report``):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
       --smoke --device cpu --devices 8 --c 2 --comm-report "$TMPDIR/c.json"
 
 The full-width model (drop ``--smoke``) draws seeded random weights on the
-card. The JAX driver's other modes (``--replicas``, ``--roles``,
-``--http``) are not ported yet and raise.
+card.
 """
 
 import argparse
@@ -118,30 +140,51 @@ def _legacy_main(args, plan, cfg, device):
     return out
 
 
-def _engine_main(args, plan, device, registry=None, tracer=None):
+def _requests(args, vocab: int, shared=None):
+    """The canned workload: ``--requests`` requests, prompts and budgets
+    staggered; request ``i`` follows system prompt ``shared[i % 2]`` when
+    ``shared`` is given (the gateway's two families)."""
     import numpy as np
 
-    from repro_torch.engine import EngineConfig, Request, build_engine
+    from repro_torch.engine import Request
+
+    rng = np.random.default_rng(args.seed)
+    if shared is not None:
+        shared = [rng.integers(0, vocab, args.system_prompt_len).tolist()
+                  if args.system_prompt_len else [] for _ in range(2)]
+    reqs = []
+    for i in range(args.requests):
+        plen = max(1, args.prompt_len // 2 + (i * 3) % (args.prompt_len + 1))
+        gen = max(1, args.gen // 2 + i % (args.gen + 1))
+        prefix = shared[i % 2] if shared is not None else []
+        reqs.append(Request(
+            uid=f"req{i}",
+            tokens=prefix + rng.integers(0, vocab, plen).tolist(),
+            max_new_tokens=gen, temperature=args.temperature,
+            top_k=args.top_k, top_p=args.top_p, seed=args.seed + i))
+    return reqs
+
+
+def _fmt(stats) -> str:
+    return ", ".join(f"{k}={v:.3g}" if isinstance(v, float) else f"{k}={v}"
+                     for k, v in sorted(stats.items()))
+
+
+def _engine_config(args):
+    from repro_torch.engine import EngineConfig
+
+    return EngineConfig(pages_per_shard=args.pages_per_shard,
+                        prefill_chunk=args.prefill_chunk)
+
+
+def _engine_main(args, plan, device, registry=None, tracer=None):
+    from repro_torch.engine import build_engine
 
     engine = build_engine(
         plan.arch, smoke=args.smoke, plan=plan, init_seed=args.seed,
-        device=device, eng=EngineConfig(pages_per_shard=args.pages_per_shard,
-                                        prefill_chunk=args.prefill_chunk),
-        registry=registry, tracer=tracer)
-    rng = np.random.default_rng(args.seed)
-    vocab = engine.cfg.vocab_size
-    shared = (rng.integers(0, vocab, args.system_prompt_len).tolist()
-              if args.prefix_cache else [])
-    reqs = []
-    for i in range(args.requests):
-        # staggered mixed workload: prompts and budgets vary per request
-        plen = max(1, args.prompt_len // 2 + (i * 3) % (args.prompt_len + 1))
-        gen = max(1, args.gen // 2 + i % (args.gen + 1))
-        reqs.append(Request(
-            uid=f"req{i}",
-            tokens=shared + rng.integers(0, vocab, plen).tolist(),
-            max_new_tokens=gen, temperature=args.temperature,
-            top_k=args.top_k, top_p=args.top_p, seed=args.seed + i))
+        device=device, eng=_engine_config(args), registry=registry,
+        tracer=tracer)
+    reqs = _requests(args, engine.cfg.vocab_size)
     for r in reqs:
         rej = engine.add_request(r)
         if rej is not None:
@@ -150,14 +193,150 @@ def _engine_main(args, plan, device, registry=None, tracer=None):
     for r in reqs:
         print(f"[serve] {r.uid}: prompt_len={r.prompt_len} "
               f"-> {out[r.uid]}")
-    report = [("metrics", engine.metrics.to_dict())]
-    if engine.connector.enabled:
-        report.append(("host tier", engine.connector.stats()))
-    for name, stats in report:
-        print(f"[serve] {name}: " + ", ".join(
-            f"{k}={v:.3g}" if isinstance(v, float) else f"{k}={v}"
-            for k, v in sorted(stats.items())))
+    print(f"[serve] metrics: {_fmt(engine.metrics.to_dict())}")
     return out
+
+
+def _gateway_main(args, plan, cfg, device, registry=None, tracer=None,
+                  plans=None):
+    """The canned workload through ``gateway.Gateway``: two families
+    behind their own system prompts, each one session, one request added
+    per gateway step (the JAX launcher's gateway mode)."""
+    from repro_torch.engine.engine import resolve_device
+    from repro_torch.gateway import Gateway
+    from repro_torch.models.factory import build_model
+    from repro_torch.plan import cost as plan_cost
+
+    model = build_model(cfg, device=resolve_device(device), seed=args.seed)
+    gw = Gateway(model, plan, _engine_config(args), registry=registry,
+                 tracer=tracer, plans=plans)
+    sys_len = args.system_prompt_len
+    reqs = _requests(args, cfg.vocab_size, shared=True)
+    for i, r in enumerate(reqs):
+        rej = gw.add_request(r, session=f"sess{i % 2}" if sys_len else None)
+        if not isinstance(rej, int):
+            raise SystemExit(f"[gateway] {r.uid} rejected: {rej.detail}")
+        gw.step()           # stream as the requests arrive
+    out = gw.run()
+    for r in reqs:
+        print(f"[gateway] {r.uid} (replica {gw._owner[r.uid]}): "
+              f"prompt_len={r.prompt_len} -> {out[r.uid]}")
+    stats = gw.stats()
+    tier = stats.pop("host_tier")
+    per = stats.pop("per_replica")
+    print(f"[gateway] metrics: {_fmt(stats)}")
+    for i, m in enumerate(per):
+        print(f"[gateway]   replica {i} ({gw.roles[i]}): "
+              f"tokens={m['tokens_out']} "
+              f"hit_rate={m['prefix_hit_rate']:.3g} "
+              f"occupancy={m['occupancy']:.3g}")
+    if tier["enabled"]:
+        for i, t in enumerate(tier.pop("per_replica")):
+            print(f"[gateway]   replica {i} host tier: {_fmt(t)}")
+        print(f"[gateway] host tier: {_fmt(tier)}")
+    if plan.prefix_cache and sys_len:
+        roi = plan_cost.prefix_cache_value(
+            cfg, prompt_len=sys_len + args.prompt_len, shared_len=sys_len,
+            requests=max(args.requests // gw.replicas, 2),
+            sp=plan.sp_size, page_size=plan.page_size,
+            pages_per_shard=args.pages_per_shard, max_len=args.gen)
+        print(f"[gateway] analytical cache value/replica: "
+              f"hit_rate~{roi['hit_rate']:.2f} "
+              f"saved_tokens~{roi['saved_tokens']} "
+              f"cache_pages={roi['cache_pages']} fits={roi['fits']}")
+    return out
+
+
+def _frontend_main(args, plan, cfg, registry=None, tracer=None):
+    """The process-separated front end: ``--workers`` engine processes
+    (or one in-process replica) behind the orchestrator and the HTTP/SSE
+    server, until SIGTERM, then drain."""
+    import dataclasses
+
+    from repro_torch.frontend.orchestrator import Orchestrator
+    from repro_torch.frontend.protocol import make_worker_spec
+    from repro_torch.frontend.server import run_server
+    from repro_torch.frontend.slo import SLOAdmission, parse_classes
+    from repro_torch.frontend.worker import LocalReplica, ProcReplica
+
+    # each worker is a one-engine replica of the per-worker plan
+    spec = make_worker_spec(
+        plan=dataclasses.replace(plan, replicas=1), eng=_engine_config(args),
+        init_seed=args.seed, trace=bool(args.trace_out), smoke=args.smoke,
+        device=args.device)
+    workers = max(args.workers, 0)
+    if workers:
+        from concurrent.futures import ThreadPoolExecutor
+
+        print(f"[serve] spawning {workers} worker processes "
+              f"({plan.n_devices} ranks each)...", flush=True)
+        # the workers start together: each one's start is mostly its own
+        # interpreter, torch import, CUDA context and model
+        with ThreadPoolExecutor(workers) as ex:
+            replicas = list(ex.map(lambda i: ProcReplica(i, spec),
+                                   range(workers)))
+        for r in replicas:
+            print(f"[serve] worker {r.index} (pid {r.pid}) ready in "
+                  f"{r.start_s:.1f} s", flush=True)
+    else:
+        print("[serve] --workers 0: one in-process replica", flush=True)
+        replicas = [LocalReplica(0, spec)]
+    classes = parse_classes(args.priority_classes,
+                            slo_ttft_ms=args.slo_ttft_ms,
+                            budget_tokens=args.class_budget_tokens)
+    slo = None
+    if args.slo_ttft_ms > 0:
+        slo = SLOAdmission(cfg, sp=plan.sp_size, page_size=plan.page_size,
+                           decode_batch=plan.decode_batch,
+                           kernel=plan.kernel_impl,
+                           calibration=args.slo_calibration)
+    orch = Orchestrator(replicas, classes=classes, slo=slo,
+                        preempt=bool(args.preempt), registry=registry,
+                        tracer=tracer)
+    run_server(orch, host=args.host, port=args.port, worker_spec=spec,
+               workers=workers)
+    return {}
+
+
+def _resolve_plan(args):
+    """``(plan, plans, cfg)``; ``plans`` is the per-role list of a
+    disaggregated gateway (``--roles`` or a ``{"plans": [...]}`` file),
+    else None. With several replicas (``--replicas``, ``--roles``, or
+    ``--workers`` under ``--http``) ``--devices`` is split evenly between
+    them; 0 gives each one rank."""
+    import json
+
+    from repro_torch.configs import registry
+    from repro_torch.plan import (ExecutionPlan, make_role_plans,
+                                  make_serve_plan)
+
+    get_cfg = registry.get_smoke if args.smoke else registry.get
+    if args.plan:
+        rec = json.loads(open(args.plan).read())
+        if "plans" in rec:
+            plans = [ExecutionPlan.from_dict(d) for d in rec["plans"]]
+            print(f"[serve] loaded {len(plans)} role plans {args.plan}: "
+                  f"roles={[p.role for p in plans]}")
+            return plans[0], plans, get_cfg(plans[0].arch)
+        plan = ExecutionPlan.load(args.plan)
+        print(f"[serve] loaded plan {args.plan}")
+        return plan, None, get_cfg(plan.arch)
+    cfg = get_cfg(args.arch)
+    roles = [r.strip() for r in (args.roles or "").split(",") if r.strip()]
+    n_rep = len(roles) or max(args.replicas, 1)
+    if args.devices % n_rep:
+        raise ValueError(f"--devices {args.devices} does not split evenly "
+                         f"over {n_rep} replicas")
+    kw = dict(arch=args.arch, n_devices=args.devices // n_rep or 1,
+              data=args.data, c=args.c, decode_batch=args.max_slots,
+              page_size=args.page_size, max_len=args.max_len,
+              kernel_impl=args.kernel, block_impl=args.kernel,
+              prefix_cache=bool(args.prefix_cache),
+              host_tier_bytes=args.host_tier_bytes)
+    if roles:
+        plans = make_role_plans(cfg, roles=roles, **kw)
+        return plans[0], plans, cfg
+    return make_serve_plan(cfg, replicas=n_rep, **kw), None, cfg
 
 
 def main(argv=None):
@@ -165,8 +344,10 @@ def main(argv=None):
     ap.add_argument("--arch", default=None,
                     help="architecture id (optional with --plan)")
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--devices", type=int, default=1,
-                    help="ranks (ThreadMesh threads on the one device)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="ranks (ThreadMesh threads on the one device), "
+                         "split evenly over the gateway's replicas or the "
+                         "front end's workers (0: one rank each)")
     ap.add_argument("--data", type=int, default=1,
                     help="data-parallel replicas (divides --devices)")
     ap.add_argument("--c", type=int, default=None,
@@ -189,22 +370,58 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=8)
     ap.add_argument("--requests", type=int, default=8)
+    # gateway knobs
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="engine replicas on the card (gateway mode when "
+                         "> 1); --devices is split evenly across them")
+    ap.add_argument("--prefix-cache", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="block-hash prefix cache with copy-on-write page "
+                         "reuse (gateway mode)")
+    ap.add_argument("--host-tier-bytes", type=int, default=0,
+                    help="pinned-host KV tier capacity per engine, bytes "
+                         "(0 = off; prefix-cache evictions spill here and "
+                         "later hits reload instead of prefilling again; "
+                         "needs --prefix-cache)")
+    ap.add_argument("--roles", default=None,
+                    help="comma-separated replica roles for disaggregated "
+                         "serving, e.g. 'prefill,decode': one engine per "
+                         "role; overrides --replicas")
+    ap.add_argument("--system-prompt-len", type=int, default=32,
+                    help="shared prompt prefix length in gateway mode "
+                         "(0 = fully independent prompts)")
+    # HTTP front-end knobs (repro_torch.frontend; --http switches modes)
+    ap.add_argument("--http", action="store_true",
+                    help="serve an async HTTP/SSE front end instead of a "
+                         "canned workload")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8080)
+    ap.add_argument("--workers", type=int, default=0,
+                    help="engine worker processes behind the front end "
+                         "(--devices is split evenly across them; 0 = one "
+                         "in-process replica)")
+    ap.add_argument("--priority-classes", default="interactive,batch",
+                    help="comma-separated priority classes, highest "
+                         "first; classes after the first are preemptible")
+    ap.add_argument("--slo-ttft-ms", type=float, default=0.0,
+                    help="TTFT SLO for the highest class, priced at "
+                         "admission from plan.cost (0 = no SLO gate)")
+    ap.add_argument("--class-budget-tokens", type=int, default=0,
+                    help="outstanding-token budget for the highest class "
+                         "(0 = unlimited)")
+    ap.add_argument("--slo-calibration", type=float, default=1.0,
+                    help="scale analytical seconds to this machine "
+                         "(measured_step_s / analytical_step_s)")
+    ap.add_argument("--preempt", action=argparse.BooleanOptionalAction,
+                    default=False,
+                    help="preempt the worst preemptible stream when a "
+                         "higher-priority request is stuck queued")
     ap.add_argument("--max-slots", type=int, default=4)
     ap.add_argument("--page-size", type=int, default=8)
     ap.add_argument("--pages-per-shard", type=int, default=128)
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="prefill prompts in chunks of about this many "
                          "tokens (0: whole prompts)")
-    ap.add_argument("--prefix-cache", action="store_true",
-                    help="share a system prompt over the requests and "
-                         "reuse its cached pages")
-    ap.add_argument("--system-prompt-len", type=int, default=32,
-                    help="tokens of the shared prefix under --prefix-cache")
-    ap.add_argument("--host-tier-bytes", type=int, default=0,
-                    help="pinned-host KV tier capacity, bytes (0 = off; "
-                         "prefix-cache evictions spill here and later hits "
-                         "reload instead of prefilling again; needs "
-                         "--prefix-cache)")
     ap.add_argument("--max-len", type=int, default=512)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
@@ -215,55 +432,53 @@ def main(argv=None):
                          "(Prometheus text; .json suffix -> JSON dump)")
     ap.add_argument("--trace-out", default=None,
                     help="write a Chrome-trace-format JSON timeline of the "
-                         "engine's request and step spans here")
-    # the JAX driver's other modes, rejected until they are ported
-    ap.add_argument("--replicas", type=int, default=1)
-    ap.add_argument("--roles", default=None)
-    ap.add_argument("--http", action="store_true")
+                         "request, engine and gateway spans here")
     args = ap.parse_args(argv)
     if not args.plan and not args.arch:
         ap.error("--arch is required (unless --plan carries it)")
-    for flag, on in (("--replicas", args.replicas > 1),
-                     ("--roles", bool(args.roles)), ("--http", args.http)):
-        if on:
-            raise NotImplementedError(
-                f"repro_torch.launch.serve {flag} is not ported yet "
-                "(ROADMAP.md §A); engine and --legacy modes only")
+    if args.http and args.workers > 1:
+        # the ranks are split over the worker processes as over gateway
+        # replicas; the resolved plan is then per worker
+        args.replicas = args.workers
 
-    from repro_torch.configs import registry
-    from repro_torch.plan import ExecutionPlan, make_serve_plan
-
-    get_cfg = registry.get_smoke if args.smoke else registry.get
-    if args.plan:
-        plan = ExecutionPlan.load(args.plan)
-        cfg = get_cfg(plan.arch)
-        print(f"[serve] loaded plan {args.plan}")
-    else:
-        cfg = get_cfg(args.arch)
-        plan = make_serve_plan(
-            cfg, arch=args.arch, n_devices=args.devices, data=args.data,
-            c=args.c, decode_batch=args.max_slots, page_size=args.page_size,
-            max_len=args.max_len, kernel_impl=args.kernel,
-            block_impl=args.kernel, prefix_cache=args.prefix_cache,
-            host_tier_bytes=args.host_tier_bytes)
+    plan, plans, cfg = _resolve_plan(args)
     print(f"[serve] plan: P_sp={plan.sp_size} scheme={plan.scheme} "
           f"C={plan.c} R={plan.r} data={plan.data} "
           f"kernel={plan.kernel_impl} block={plan.block_impl} "
           f"slots={plan.decode_batch} page={plan.page_size} "
-          f"capacity={plan.seq_len} prefix_cache={plan.prefix_cache} "
+          f"capacity={plan.seq_len} "
+          f"replicas={len(plans) if plans else plan.replicas} "
+          f"roles={[p.role for p in plans] if plans else [plan.role]} "
+          f"prefix_cache={plan.prefix_cache} "
           f"host_tier_bytes={plan.host_tier_bytes} device={args.device}")
     if args.save_plan:
-        print(f"[serve] plan saved -> {plan.save(args.save_plan)}")
+        if plans:
+            import json
+            import pathlib
+
+            path = pathlib.Path(args.save_plan)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps(
+                {"plans": [p.to_dict() for p in plans]}, indent=2))
+        else:
+            path = plan.save(args.save_plan)
+        print(f"[serve] plan saved -> {path}")
     from repro_torch import obs
 
     registry = obs.Registry()
     tracer = obs.Tracer(enabled=bool(args.trace_out))
-    if args.legacy:
-        if plan.n_devices != 1:
+    if args.http:
+        out = _frontend_main(args, plan, cfg, registry=registry,
+                             tracer=tracer)
+    elif args.legacy:
+        if plan.n_devices != 1 or plans or plan.replicas > 1:
             raise NotImplementedError(
-                "repro_torch.launch.serve --legacy at --devices > 1 is not "
-                "ported yet (ROADMAP.md §A10); the engine serves any P")
+                "repro_torch.launch.serve --legacy runs one rank of one "
+                "replica (ROADMAP.md §A10); the engine serves any P")
         out = _legacy_main(args, plan, cfg, args.device)
+    elif plans or plan.replicas > 1 or plan.prefix_cache:
+        out = _gateway_main(args, plan, cfg, args.device, registry=registry,
+                            tracer=tracer, plans=plans)
     else:
         out = _engine_main(args, plan, args.device, registry=registry,
                            tracer=tracer)

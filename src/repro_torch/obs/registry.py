@@ -6,9 +6,10 @@ the port imports nothing of ``repro``); its text and JSON are the same for
 the same sequence of operations. The trainer's comm-volume accounting
 (``obs.commlog.CommLog``) and the serving engine's ``EngineMetrics`` write
 through it; ``launch.train`` and ``launch.serve --metrics-dump`` dump it.
-The JAX module's attribution scopes and global registry serve its kernel
-dispatch's fallback counters, which the port does not have; its
-cross-process merge serves the front end (ROADMAP.md §A item 7).
+The front end's orchestrator folds each worker process's scrape into one
+exposition through ``merge_prometheus_text``. The JAX module's attribution
+scopes and global registry serve its kernel dispatch's fallback counters,
+which the port does not have.
 
 A series is (metric name, sorted label items); a counter ``inc`` is one
 dict lookup and add under a lock, a histogram ``observe`` a bisect over
@@ -345,6 +346,21 @@ def _unescape(v: str) -> str:
     return v.replace("\\n", "\n").replace('\\"', '"').replace("\\\\", "\\")
 
 
+def _parse_sample(line: str) -> Tuple[str, LabelKey, float]:
+    """One exposition sample line -> (sample name, label key, value)."""
+    m = _SAMPLE_RE.match(line)
+    if not m:
+        raise ValueError(f"unparseable sample line: {line!r}")
+    labels: Dict[str, str] = {}
+    if m.group("labels"):
+        for lm in _LABEL_RE.finditer(m.group("labels")):
+            labels[lm.group(1)] = _unescape(lm.group(2))
+    raw = m.group("value")
+    value = {"+Inf": math.inf, "-Inf": -math.inf, "NaN": math.nan}.get(raw)
+    return (m.group("name"), _label_key(labels),
+            float(raw) if value is None else value)
+
+
 def parse_prometheus(text: str) -> Dict[Tuple[str, LabelKey], float]:
     """Prometheus text -> {(sample name, label key) -> value}. Histogram
     series appear under their ``_bucket``/``_sum``/``_count`` sample
@@ -352,18 +368,102 @@ def parse_prometheus(text: str) -> Dict[Tuple[str, LabelKey], float]:
     out: Dict[Tuple[str, LabelKey], float] = {}
     for line in text.splitlines():
         line = line.strip()
-        if not line or line.startswith("#"):
-            continue
-        m = _SAMPLE_RE.match(line)
-        if not m:
-            raise ValueError(f"unparseable sample line: {line!r}")
-        labels: Dict[str, str] = {}
-        if m.group("labels"):
-            for lm in _LABEL_RE.finditer(m.group("labels")):
-                labels[lm.group(1)] = _unescape(lm.group(2))
-        raw = m.group("value")
-        value = {"+Inf": math.inf, "-Inf": -math.inf,
-                 "NaN": math.nan}.get(raw)
-        out[(m.group("name"), _label_key(labels))] = \
-            float(raw) if value is None else value
+        if line and not line.startswith("#"):
+            name, key, value = _parse_sample(line)
+            out[(name, key)] = value
     return out
+
+
+def parse_prometheus_families(text: str) -> Dict[str, Dict]:
+    """``# TYPE``-aware Prometheus text parse: {family name -> {"kind",
+    "help", "samples"}}, ``samples`` mapping (sample name, label key) ->
+    value, histogram sample names keeping their ``_bucket``/``_sum``/
+    ``_count`` suffixes. A family without a ``# TYPE`` line parses as
+    ``untyped`` under its sample name."""
+    kinds: Dict[str, str] = {}
+    helps: Dict[str, str] = {}
+    out: Dict[str, Dict] = {}
+    for line in text.splitlines():
+        line = line.strip()
+        if not line:
+            continue
+        if line.startswith("# TYPE "):
+            name, _, kind = line[len("# TYPE "):].partition(" ")
+            kinds[name] = kind.strip()
+            continue
+        if line.startswith("# HELP "):
+            name, _, h = line[len("# HELP "):].partition(" ")
+            helps[name] = _unescape(h)
+            continue
+        if line.startswith("#"):
+            continue
+        sample, key, value = _parse_sample(line)
+        family = sample
+        for suffix in ("_bucket", "_sum", "_count"):
+            base = sample[:-len(suffix)] if sample.endswith(suffix) else None
+            if base and kinds.get(base) == "histogram":
+                family = base
+                break
+        fam = out.setdefault(family, {"kind": kinds.get(family, "untyped"),
+                                      "help": helps.get(family, ""),
+                                      "samples": {}})
+        fam["samples"][(sample, key)] = value
+    return out
+
+
+def merge_prometheus_text(registry: Registry, text: str,
+                          **extra_labels) -> Registry:
+    """Fold a scraped exposition into ``registry``, adding
+    ``extra_labels`` to every series (the orchestrator merges each worker's
+    text under ``worker=<i>``). Counters and gauges merge by addition;
+    histograms are rebuilt bucket for bucket (cumulative ``_bucket`` lines
+    differenced back to per-bucket counts, ``_sum`` and ``_count``
+    restored), so quantiles over the merged registry see every process's
+    observations. Merging the same text twice counts it twice."""
+    for family, fam in parse_prometheus_families(text).items():
+        kind, help_, samples = fam["kind"], fam["help"], fam["samples"]
+        if kind == "histogram":
+            bounds = sorted({float(dict(key)["le"])
+                             for (s, key) in samples
+                             if s == f"{family}_bucket"
+                             and not math.isinf(float(dict(key)["le"]))})
+            if not bounds:
+                continue
+            h = registry.histogram(family, help_, buckets=bounds)
+            series: Dict[LabelKey, Dict[float, float]] = {}
+            sums: Dict[LabelKey, float] = {}
+            counts_n: Dict[LabelKey, float] = {}
+            for (sample, key), v in samples.items():
+                if sample == f"{family}_bucket":
+                    lab = dict(key)
+                    le_raw = lab.pop("le")
+                    le = math.inf if le_raw == "+Inf" else float(le_raw)
+                    series.setdefault(_label_key(lab), {})[le] = v
+                elif sample == f"{family}_sum":
+                    sums[key] = v
+                elif sample == f"{family}_count":
+                    counts_n[key] = v
+            for key, bucket_map in series.items():
+                lab = dict(key)
+                lab.update({k: str(v) for k, v in extra_labels.items()})
+                dst = _label_key(lab)
+                cum = [bucket_map.get(b, 0.0) for b in bounds]
+                cum.append(bucket_map.get(math.inf, cum[-1]))
+                per = [cum[0]] + [cum[i] - cum[i - 1]
+                                  for i in range(1, len(cum))]
+                with h._lock:
+                    have = h._counts.setdefault(
+                        dst, [0] * (len(h.buckets) + 1))
+                    for i, c in enumerate(per):
+                        have[i] += int(c)
+                    h._n[dst] = h._n.get(dst, 0) + int(counts_n.get(key, 0))
+                    h._series[dst] = h._series.get(dst, 0.0) \
+                        + sums.get(key, 0.0)
+            continue
+        m = registry.counter(family, help_) if kind == "counter" \
+            else registry.gauge(family, help_)
+        for (sample, key), v in samples.items():
+            lab = dict(key)
+            lab.update({k: str(v2) for k, v2 in extra_labels.items()})
+            m._add(v, lab)
+    return registry

@@ -21,9 +21,9 @@ instrumentation in place costs ~nothing when ``--trace-out`` is absent.
 device timeline when a ``torch.profiler`` trace is captured alongside.
 
 The port's own copy of ``repro.obs.tracing``: the same events and Chrome
-JSON, with ``torch.profiler`` in place of ``jax.profiler``. The JAX
-module's instant events and ``extend`` (merging a worker process's events)
-serve its gateway and front end (ROADMAP.md §A item 7).
+JSON, with ``torch.profiler`` in place of ``jax.profiler``. ``extend``
+merges a worker process's events into the front end's trace. The JAX
+module's instant events have no caller in either package's serving path.
 """
 
 from __future__ import annotations
@@ -124,6 +124,14 @@ class Tracer:
     def clear(self) -> None:
         with self._lock:
             self._events.clear()
+
+    def extend(self, events: List[Dict[str, Any]]) -> None:
+        """Append events recorded by another tracer (a worker process's,
+        shipped back at drain; each carries its own ``pid``, so the trace
+        viewer lays the processes out side by side). Works on a disabled
+        tracer too, so the merged trace is dumpable with local spans off."""
+        with self._lock:
+            self._events.extend(events)
 
     # -- export -----------------------------------------------------------
     def chrome_trace(self) -> Dict[str, Any]:

@@ -5,8 +5,8 @@ the legal (C, R) / scheme arrangements analytically (paper eqs. 2-4);
 persists the winner."""
 
 from repro_torch.plan import autotune, cost
-from repro_torch.plan.plan import (ExecutionPlan, make_plan, make_serve_plan,
-                                   plan_path)
+from repro_torch.plan.plan import (ExecutionPlan, make_plan, make_role_plans,
+                                   make_serve_plan, plan_path)
 
-__all__ = ["ExecutionPlan", "make_plan", "make_serve_plan", "plan_path",
-           "cost", "autotune"]
+__all__ = ["ExecutionPlan", "make_plan", "make_serve_plan",
+           "make_role_plans", "plan_path", "cost", "autotune"]

@@ -16,13 +16,17 @@ overlap model on the card's constants (``roofline.hw``) and ranks them
 into an ``ExecutionPlan`` and ``plan.autotune`` refines the top of the
 ranking with measured steps. The serving half prices one prefill with
 part of its prompt cached (``prefill_step_cost``: the engine's eviction
-ranking) and the host KV tier's spill against recompute
-(``kv_transfer_cost``, ``spill_decision``) over the card's host link.
-Every formula is the JAX one's, so under equal constants the numbers are
-the same. The JAX module's decode, SLO, chunked-prefill, prefix-cache-value
-and microbatch costs, ``spill_threshold_tokens`` and the rest of
-``prefill_step_cost``'s fields come with the slices that read them
-(ROADMAP.md §A items 1 and 7).
+ranking), one decode step (``decode_step_cost``, B4 as the JAX model's
+'pallas' row), a request's TTFT at admission (``serve_slo_cost``: the
+front end's SLO gate), a prefix cache's value (``prefix_cache_value``:
+``launch.serve``'s gateway mode), and the host KV tier's spill against
+recompute (``kv_transfer_cost``, ``spill_decision``) over the card's host
+link. Every formula is the JAX one's, so under equal constants the numbers
+are the same. The JAX module's chunked-prefill and microbatch costs,
+``rank_decode_kernels``, ``spill_threshold_tokens``, the rest of
+``prefill_step_cost``'s and ``decode_step_cost``'s fields and
+``prefix_cache_value``'s ``saved_flops``/``saved_s`` come with the slices
+that read them (ROADMAP.md §A items 1 and 9).
 """
 
 from __future__ import annotations
@@ -265,6 +269,106 @@ def prefill_step_cost(cfg: ModelConfig, *, prompt_len: int,
     bytes_moved = n_attn * (2.0 * cached_len * cfg.num_kv_heads * dh
                             * dtype_bytes) / sp + 4.0 * cached_blocks
     return {"total_s": max(flops / cl.peak_flops, bytes_moved / hw.HBM_BW)}
+
+
+# the paged-decode kernels (``kernels.dispatch.IMPLS``); 'cuda' is the JAX
+# model's 'pallas' row: one pass over the bucketed pages
+DECODE_KERNELS = ("ref", "cuda")
+
+
+def decode_step_cost(cfg: ModelConfig, *, batch: int, cache_len: int,
+                     sp: int, page_size: int, kernel: str = "ref",
+                     dtype_bytes: int = 2,
+                     cluster: Optional[sch.ClusterModel] = None
+                     ) -> Dict[str, float]:
+    """Per-device cost of one decode step's attention, all layers.
+
+    Decode is bandwidth-bound: the FLOPs (one query against the cache) are
+    the same for both kernels, the bytes through HBM are not. Both walk
+    the per-shard table width rounded up to a power of two (the JAX
+    engine's buckets; the formula is the JAX one's): ``kernel='cuda'``
+    (B4) reads each table-indexed K/V page once, ``'ref'`` makes three
+    passes (read the pool pages, write a dense copy, read it into the
+    attention).
+
+    Returns {'total_s'}: the larger of the FLOP time and the byte time,
+    summed over the attention layers.
+    """
+    if kernel not in DECODE_KERNELS:
+        raise ValueError(f"kernel must be one of {DECODE_KERNELS}, "
+                         f"got {kernel!r}")
+    cl = cluster or sch.ClusterModel(sp_size=sp)
+    n_attn = max(num_attention_layers(cfg), 1)
+    dh = cfg.head_dim_
+    keys_local = -(-cache_len // sp)                 # ceil: per-shard keys
+    pages_local = -(-keys_local // page_size)
+    w_bucket = 1
+    while w_bucket < pages_local:
+        w_bucket *= 2
+    bucket_bytes = batch * w_bucket * page_size * 2 * cfg.num_kv_heads \
+        * dh * dtype_bytes
+    flops = 4.0 * batch * keys_local * cfg.num_heads * dh
+    bytes_moved = bucket_bytes if kernel == "cuda" else 3.0 * bucket_bytes
+    flops_s = n_attn * flops / cl.peak_flops
+    bytes_s = n_attn * bytes_moved / hw.HBM_BW
+    return {"total_s": max(flops_s, bytes_s)}
+
+
+def serve_slo_cost(cfg: ModelConfig, *, prompt_len: int,
+                   queued_tokens: int = 0, sp: int = 1, page_size: int = 8,
+                   decode_batch: int = 1, kernel: str = "ref",
+                   cluster: Optional[sch.ClusterModel] = None
+                   ) -> Dict[str, float]:
+    """A request's TTFT and steady tokens/s for SLO-priced admission
+    (``frontend.slo.SLOAdmission``): TTFT is this prompt's own cold
+    prefill plus the time the replica takes to clear the
+    ``queued_tokens`` committed ahead of it at the full-batch decode rate.
+
+    Returns {'prefill_s', 'decode_step_s', 'queue_s', 'ttft_s',
+    'tokens_per_s'} in analytical seconds (callers scale them to the
+    measured machine with one factor).
+    """
+    prefill_s = prefill_step_cost(
+        cfg, prompt_len=max(prompt_len, 1), sp=sp, page_size=page_size,
+        cluster=cluster)["total_s"]
+    decode_step_s = decode_step_cost(
+        cfg, batch=max(decode_batch, 1),
+        cache_len=max(prompt_len, page_size * sp), sp=sp,
+        page_size=page_size, kernel=kernel, cluster=cluster)["total_s"]
+    rate = max(decode_batch, 1) / max(decode_step_s, 1e-12)
+    queue_s = queued_tokens / rate
+    return {"prefill_s": prefill_s, "decode_step_s": decode_step_s,
+            "queue_s": queue_s, "ttft_s": prefill_s + queue_s,
+            "tokens_per_s": rate}
+
+
+def prefix_cache_value(cfg: ModelConfig, *, prompt_len: int,
+                       shared_len: int, requests: int, sp: int,
+                       page_size: int, pages_per_shard: int,
+                       max_len: int = 0) -> Dict[str, float]:
+    """A prefix-cache capacity priced against the hit rate it can sustain:
+    ``requests`` arrivals share a ``shared_len``-token prefix of their
+    ``prompt_len`` prompts. The shared prefix's pages sit on top of one
+    worst-case live request's; if the pool cannot hold both, every lookup
+    misses. Otherwise the first request pays the cold prefill and each
+    later one skips the cached prefix.
+
+    Returns {'hit_rate', 'saved_tokens', 'cache_pages', 'fits'}.
+    """
+    shared_cacheable = (shared_len // page_size) * page_size
+    cache_pages = -(-shared_cacheable // page_size)
+    # worst-case per-shard pages of one live request: ceil blocks, then
+    # ceil over the round-robin shards (Scheduler._blocks_for semantics)
+    worst_blocks = -(-(prompt_len + (max_len or prompt_len)) // page_size)
+    worst = -(-worst_blocks // sp)
+    fits = (-(-cache_pages // sp)) + worst <= pages_per_shard
+    if not fits or requests < 2 or shared_cacheable == 0:
+        return {"hit_rate": 0.0, "saved_tokens": 0,
+                "cache_pages": cache_pages, "fits": fits}
+    warm = requests - 1
+    return {"hit_rate": warm * shared_cacheable / (requests * prompt_len),
+            "saved_tokens": warm * shared_cacheable,
+            "cache_pages": cache_pages, "fits": fits}
 
 
 def kv_bytes_per_token(cfg: ModelConfig, *, dtype_bytes: int = 2) -> int:

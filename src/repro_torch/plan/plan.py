@@ -26,7 +26,7 @@ import dataclasses
 import json
 import math
 import pathlib
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.core.scheduler import ClusterModel
@@ -43,9 +43,9 @@ _UNPORTED_FIELDS = (
     ("mesh_kind", "local", "§A item 1, meshes of several cards"),
     ("sharding_rules", "default", "§A item 2, FSDP sharding rules"),
     ("unroll_scans", False, "§A item 9, the dry run"),
-    ("replicas", 1, "§A item 7, the gateway"),
-    ("role", "unified", "§A item 7, role plans of the gateway"),
 )
+
+ROLES = ("unified", "prefill", "decode")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +64,11 @@ class ExecutionPlan:
     decode_batch: int = 0          # engine decode slots (0 = not a serve plan)
     page_size: int = 0             # KV page tokens (0 = not a serve plan)
     kernel_impl: str = "cuda"      # paged-decode kernel ('ref' | 'cuda')
+    replicas: int = 1              # gateway engine replicas (n_devices is
+    #                                the per-replica rank count)
     prefix_cache: bool = False     # the engine shares prompt pages
+    role: str = "unified"          # 'unified' | 'prefill' | 'decode':
+    #                                disaggregated serving (gateway)
     host_tier_bytes: int = 0       # pinned-host KV tier capacity per
     #                                engine (0 = off; needs prefix_cache)
     # ---- training face (kind='train' plans, from make_plan) ---------------
@@ -107,6 +111,20 @@ class ExecutionPlan:
                                  f"got {val!r}")
         if self.decode_batch < 0 or self.page_size < 0:
             raise ValueError("decode_batch/page_size must be >= 0")
+        if self.replicas < 1:
+            raise ValueError("replicas must be >= 1")
+        if (self.replicas > 1 or self.prefix_cache) and not self.page_size:
+            raise ValueError(
+                "replicas/prefix_cache are serving-face knobs: only valid "
+                "on kind='decode' plans with decode_batch/page_size set "
+                "(build them with plan.make_serve_plan)")
+        if self.role not in ROLES:
+            raise ValueError(f"role must be one of {ROLES}, "
+                             f"got {self.role!r}")
+        if self.role != "unified" and not self.page_size:
+            raise ValueError(
+                "role is a serving-face knob: only valid on plans with "
+                "decode_batch/page_size set (plan.make_serve_plan)")
         if self.host_tier_bytes < 0:
             raise ValueError("host_tier_bytes must be >= 0")
         if self.host_tier_bytes and not self.prefix_cache:
@@ -308,8 +326,8 @@ def make_serve_plan(cfg: ModelConfig, *, arch: Optional[str] = None,
                     page_size: int = 8, max_len: int = 512,
                     kernel_impl: Optional[str] = None,
                     block_impl: Optional[str] = None,
-                    prefix_cache: bool = False,
-                    host_tier_bytes: int = 0,
+                    replicas: int = 1, prefix_cache: bool = False,
+                    role: str = "unified", host_tier_bytes: int = 0,
                     cluster: Optional[ClusterModel] = None
                     ) -> ExecutionPlan:
     """Resolve one serving run into a plan (``kind='decode'``).
@@ -319,6 +337,8 @@ def make_serve_plan(cfg: ModelConfig, *, arch: Optional[str] = None,
     slot count. The arrangement comes from the same ranking as a training
     plan's (``make_plan``); at P = 1 that is C = 1. A sliding window turns
     ring-block skipping on, as in the JAX package's contiguous layout.
+    ``replicas`` and ``role`` fill the gateway face (``gateway.Gateway``):
+    ``n_devices`` is then the rank count of each replica.
     """
     if n_devices % data:
         raise ValueError(f"n_devices={n_devices} not divisible by "
@@ -335,6 +355,22 @@ def make_serve_plan(cfg: ModelConfig, *, arch: Optional[str] = None,
                      c=c, block_impl=block_impl, kernel_impl=kernel_impl,
                      cluster=cluster)
     return dataclasses.replace(base, decode_batch=decode_batch,
-                               page_size=page_size,
-                               prefix_cache=prefix_cache,
+                               page_size=page_size, replicas=replicas,
+                               prefix_cache=prefix_cache, role=role,
                                host_tier_bytes=host_tier_bytes)
+
+
+def make_role_plans(cfg: ModelConfig, *, roles: Sequence[str],
+                    n_devices: int, **kw) -> List[ExecutionPlan]:
+    """One plan per replica of a disaggregated gateway, ``roles`` one entry
+    per replica (e.g. ``['prefill', 'decode']``), ``n_devices`` each
+    replica's rank count. Every other knob is shared, so the engines agree
+    on kernels, page size and capacity, which keeps the prefill -> decode
+    handoff exact. Each plan has ``replicas=1``."""
+    if not roles:
+        raise ValueError("roles must name at least one replica")
+    kw.pop("replicas", None)
+    kw.pop("role", None)
+    return [make_serve_plan(cfg, n_devices=n_devices, replicas=1, role=role,
+                            **kw)
+            for role in roles]

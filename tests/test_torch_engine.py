@@ -165,9 +165,11 @@ def test_launch_serve_cpu_and_rejected_modes():
     out = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                       "--requests", "2", "--prompt-len", "6", "--gen", "3"])
     assert sorted(out) == ["req0", "req1"]
-    with pytest.raises(NotImplementedError, match="--http"):
+    # the static-batch path runs one replica (--replicas, --roles and
+    # --http are served: tests/test_torch_gateway.py, test_torch_frontend.py)
+    with pytest.raises(NotImplementedError, match="--legacy"):
         serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
-                    "--http"])
+                    "--legacy", "--replicas", "2"])
     out = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
                       "--requests", "3", "--prompt-len", "6", "--gen", "3",
                       "--prefix-cache", "--system-prompt-len", "16",

@@ -1312,3 +1312,88 @@ def test_read_write_pages_every_data_replica(cuda_device):
     for n in ("k", "v"):
         assert torch.equal(got[n][:, [0, 1, 3]].cpu(), data[n][:, [0, 1, 3]])
         assert not got[n][:, 2].any()
+
+
+def _small_serving_model(cuda_device):
+    """The smoke h2o config widened to head size 32 (the kernels' smallest),
+    seeded on the card."""
+    from repro_torch.configs import registry
+    from repro_torch.models.factory import build_model
+
+    cfg = dataclasses.replace(registry.get_smoke("h2o-danube-1.8b"),
+                              d_model=128, window=None,
+                              param_dtype="bfloat16")
+    return build_model(cfg, device=cuda_device, seed=0)
+
+
+@pytest.mark.gpu
+def test_gateway_two_replicas_share_one_model_on_card(cuda_device):
+    """Two unified replicas on the card share one ``Model``; each
+    replica's streams equal a single engine's fed the same requests at the
+    same steps (the same batches), and both prefix caches hit."""
+    from repro_torch.engine import Engine, EngineConfig, Request
+    from repro_torch.gateway import Gateway
+    from repro_torch.plan import make_serve_plan
+
+    model = _small_serving_model(cuda_device)
+    plan = make_serve_plan(model.cfg, arch="h2o-danube-1.8b", replicas=2,
+                           decode_batch=2, page_size=16, max_len=256,
+                           prefix_cache=True)
+    eng = EngineConfig(pages_per_shard=64)
+    gw = Gateway(model, plan, eng)
+    assert all(e.model is model for e in gw.engines)
+    rng = np.random.default_rng(0)
+    shared = [rng.integers(0, 256, 64).tolist() for _ in range(2)]
+    reqs = [Request(f"r{i}", shared[i % 2] + rng.integers(0, 256, 20 + i)
+                    .tolist(), 8) for i in range(6)]
+    for i, r in enumerate(reqs):
+        assert gw.add_request(r, session=f"s{i % 2}") == i % 2
+    out = gw.run()
+    m = gw.metrics_dict()
+    assert m["routed"] == [3, 3] and m["affinity_hits"] == 4
+    assert all(p["prefill_tokens_cached"] > 0 for p in m["per_replica"])
+    for i in range(2):
+        solo = Engine(model, dataclasses.replace(plan, replicas=1), eng)
+        mine = [r for r in reqs if gw._owner[r.uid] == i]
+        for r in mine:
+            assert solo.add_request(r) is None
+        got = solo.run()
+        assert {r.uid: got[r.uid] for r in mine} == \
+            {r.uid: out[r.uid] for r in mine}
+
+
+@pytest.mark.gpu
+def test_proc_replicas_seeded_on_card_hold_equal_weights(cuda_device):
+    """Two spawned workers draw the weights from one seed on the card: the
+    same bits as each other and as an in-process replica (digest), and
+    the same greedy streams as the in-process replica."""
+    from repro_torch.configs import registry
+    from repro_torch.engine import EngineConfig
+    from repro_torch.frontend.orchestrator import Orchestrator
+    from repro_torch.frontend.protocol import make_worker_spec
+    from repro_torch.frontend.worker import LocalReplica, ProcReplica
+    from repro_torch.plan import make_serve_plan
+
+    plan = make_serve_plan(registry.get_smoke("h2o-danube-1.8b"),
+                           arch="h2o-danube-1.8b", decode_batch=2,
+                           page_size=4, max_len=64, kernel_impl="ref",
+                           block_impl="ref")
+    spec = make_worker_spec(plan=plan, eng=EngineConfig(pages_per_shard=64),
+                            init_seed=7)
+    local = LocalReplica(0, spec)
+    procs = [ProcReplica(i, spec) for i in range(2)]
+    try:
+        assert [p.digest() for p in procs] == [local.digest()] * 2
+        reqs = [[(5 * i + j) % 97 + 1 for j in range(8 + i)]
+                for i in range(4)]
+        outs = []
+        for reps in ([local], procs[:1]):
+            orch = Orchestrator(reps)
+            rids = [orch.submit(p, 6) for p in reqs]
+            got = orch.run()
+            outs.append([got[r] for r in rids])
+        assert outs[0] == outs[1]
+    finally:
+        for p in procs:
+            p.shutdown()
+    assert all(not p.proc.is_alive() for p in procs)

@@ -408,10 +408,11 @@ def test_launch_serve_host_tier(capsys):
     on = serve.main(argv + ["--host-tier-bytes", str(1 << 20)])
     text = capsys.readouterr().out
     assert on == off
-    line = next(s for s in text.splitlines()
-                if s.startswith("[serve] host tier: "))
-    fields = dict(kv.split("=") for kv in
-                  line[len("[serve] host tier: "):].split(", "))
+    # --prefix-cache serves through the gateway (one replica), which
+    # prints each replica's connector stats
+    head = "[gateway]   replica 0 host tier: "
+    line = next(s for s in text.splitlines() if s.startswith(head))
+    fields = dict(kv.split("=") for kv in line[len(head):].split(", "))
     assert int(fields["capacity_pages"]) == 256
     assert int(fields["spill_pages"]) > 0
     assert "host_tier_bytes=1048576" in text

@@ -4,9 +4,10 @@
   ``repro_torch`` imports.
 * No file under ``src/repro_torch/`` (nor ``chip_smoke.py``) has an
   ``import jax`` / ``from jax`` / ``import repro`` / ``from repro.`` line.
-* ``build_engine()`` with no device, and ``python -m
-  repro_torch.launch.train`` without ``--device``, in a process without
-  CUDA, raise instead of running on the CPU.
+* ``build_engine()``, ``build_gateway()`` and a front-end worker spec
+  with no device, and ``python -m repro_torch.launch.train`` without
+  ``--device``, in a process without CUDA, raise instead of running on
+  the CPU.
 """
 
 import os
@@ -58,12 +59,18 @@ def test_every_module_imports_without_jax():
         "          'repro_torch.configs.minitron_8b',\n"
         "          'repro_torch.configs.deepseek_7b',\n"
         "          'repro_torch.configs.stablelm_3b',\n"
-        "          'repro_torch.configs.paper_models'):\n"
+        "          'repro_torch.configs.paper_models',\n"
+        "          'repro_torch.gateway.router', 'repro_torch.gateway.gateway',\n"
+        "          'repro_torch.frontend', 'repro_torch.frontend.protocol',\n"
+        "          'repro_torch.frontend.slo', 'repro_torch.frontend.worker',\n"
+        "          'repro_torch.frontend.orchestrator',\n"
+        "          'repro_torch.frontend.server',\n"
+        "          'repro_torch.frontend.client'):\n"
         "    assert n in names, (n, names)\n"
         "print(len(names))\n")
     res = _run(code)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 47
+    assert int(res.stdout.split()[-1]) >= 78
 
 
 def test_no_jax_or_repro_import_lines():
@@ -86,6 +93,30 @@ def test_build_engine_without_cuda_raises():
     res = _run(code, CUDA_VISIBLE_DEVICES="")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "raised"
+
+
+def test_gateway_and_worker_without_cuda_raise():
+    code = (
+        "from repro_torch.configs import registry\n"
+        "from repro_torch.engine import EngineConfig\n"
+        "from repro_torch.frontend.protocol import make_worker_spec\n"
+        "from repro_torch.frontend.worker import LocalReplica\n"
+        "from repro_torch.gateway import build_gateway\n"
+        "from repro_torch.plan import make_serve_plan\n"
+        "plan = make_serve_plan(registry.get_smoke('h2o-danube-1.8b'),\n"
+        "                       arch='h2o-danube-1.8b')\n"
+        "for build in (lambda: build_gateway('h2o-danube-1.8b',\n"
+        "                                    replicas=2),\n"
+        "              lambda: LocalReplica(0, make_worker_spec(\n"
+        "                  plan=plan, eng=EngineConfig()))):\n"
+        "    try:\n"
+        "        build()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'CUDA' in str(e), e\n"
+        "        print('raised')\n")
+    res = _run(code, CUDA_VISIBLE_DEVICES="")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["raised", "raised"]
 
 
 def test_launch_train_without_device_raises_without_cuda():

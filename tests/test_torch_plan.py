@@ -31,6 +31,7 @@ from repro.plan import autotune as jax_autotune
 from repro.plan import cost as jax_cost
 from repro.plan.plan import ExecutionPlan as JaxPlan
 from repro.plan.plan import make_plan as jax_make_plan
+from repro.plan.plan import make_role_plans as jax_make_role_plans
 from repro.plan.plan import make_serve_plan as jax_make_serve_plan
 from repro.roofline import hw as jax_hw
 
@@ -316,8 +317,7 @@ def test_plan_file_from_jax(tmp_path):
 @pytest.mark.parametrize("field,value,item", [
     ("pod", 2, "§A item 2"), ("mesh_kind", "production", "§A item 1"),
     ("sharding_rules", "fsdp", "§A item 2"), ("unroll_scans", True,
-                                              "§A item 9"),
-    ("replicas", 2, "§A item 7"), ("role", "prefill", "§A item 7")])
+                                              "§A item 9")])
 def test_plan_file_unported_values_raise(field, value, item, tmp_path):
     _, d = _jax_plan_dict()
     d[field] = value
@@ -325,6 +325,34 @@ def test_plan_file_unported_values_raise(field, value, item, tmp_path):
     path.write_text(json.dumps({"plan": d}))
     with pytest.raises(NotImplementedError, match=f"{field}=.*{item}"):
         ExecutionPlan.load(path)
+
+
+@pytest.mark.parametrize("face", ["replicas", "roles"])
+def test_plan_file_gateway_face_loads(face, tmp_path):
+    """A JAX serve plan of 2 replicas, and each of a JAX prefill/decode
+    pair, read into the port's plan with their gateway fields; the JAX
+    validation holds in both packages."""
+    cfg_j = jax_registry.get_smoke(ARCH)
+    kw = dict(arch=ARCH, n_devices=2, decode_batch=2, page_size=4,
+              max_len=64, mesh_kind="local", prefix_cache=True)
+    if face == "replicas":
+        plans_j = [jax_make_serve_plan(cfg_j, replicas=2, **kw)]
+    else:
+        plans_j = jax_make_role_plans(cfg_j, roles=["prefill", "decode"],
+                                      **kw)
+    for i, plan_j in enumerate(plans_j):
+        got = ExecutionPlan.load(plan_j.save(tmp_path / f"PLAN_{i}.json"))
+        for f in ("replicas", "role", "prefix_cache", "n_devices",
+                  "decode_batch", "page_size", "seq_len"):
+            assert getattr(got, f) == getattr(plan_j, f), f
+        assert ExecutionPlan.from_dict(got.to_dict()) == got
+    cfg = registry.get_smoke(ARCH)
+    for bad, match in ((dict(replicas=0), "replicas"),
+                       (dict(role="router"), "role")):
+        with pytest.raises(ValueError, match=match):
+            make_serve_plan(cfg, **bad)
+        with pytest.raises(ValueError, match=match):
+            jax_make_serve_plan(cfg_j, n_devices=1, mesh_kind="local", **bad)
 
 
 def test_plan_file_host_tier_bytes_loads(tmp_path):
