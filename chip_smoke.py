@@ -156,15 +156,20 @@ Phases, each printing one JSON line (``{"phase": ...}``):
  13. train_sp  training at SP degree 8: ``trainer.train`` on a plan with
               ``n_devices=8, c=2`` runs P = 8 ranks as ThreadMesh(c=2, r=2)
               threads on the one card (team gathers and two ring steps;
-              the collectives carry the gradients). Full width with the
-              depth cut to 8 layers (P ranks' gradients share one card),
-              seq 4096, batch 1, zigzag, ``remat='attn_out'``, bf16, 3
-              AdamW steps on one repeated batch: the loss must fall, and
-              the first step's loss and gradient norm agree with P = 1 on
-              the same weights. Per step B2 runs 8 ranks x 2 ring steps x
-              2 (recompute) x 8 layers = 256 times and B3 128 times.
-              Before it, in f32 (the CUDA-core kernels), depth 2, seq 1024:
-              the loss and every gradient leaf at P = 8 against P = 1
+              the collectives carry the gradients), each rank holding its
+              shards under the 'default' sharding rules. Full width and
+              full depth (24 layers), seq 4096, batch 1, zigzag,
+              ``remat='attn_out'``, bf16, 3 AdamW steps on one repeated
+              batch: the loss must fall, and the first step's loss and
+              gradient norm agree with P = 1 on the same weights. Per step
+              B2 runs 8 ranks x 2 ring steps x 2 (recompute) x 24 layers =
+              768 times and B3 384 times; peak memory, the profiled
+              step's device ms and f32 adds beside the 8-layer step that
+              stored every parameter whole. Before it, in f32 (the
+              CUDA-core kernels), depth 2, seq 1024: the loss and every
+              gradient leaf, assembled whole from the unique shards, at
+              P = 8 and at 2 data replicas of P = 4, under each of the
+              'default', 'fsdp' and 'tp' rules, against P = 1
  14. schemes  the paper's comparison at the same size (8 layers, seq 4096,
               batch 1, bf16, ``attn_out``, P = 8 ranks on the card) through
               ``trainer.train`` with the obs registry and tracer, 2 steps
@@ -272,11 +277,24 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               which must print its bit-identical line; SIGTERM must drain
               each to exit 0. The worker processes' launches cannot be
               counted from this process: their check is stream equality
+ 19. rules    the 'fsdp' and 'tp' sharding rules at full width, 8
+              layers, seq 4096, bf16, ``attn_out``: a. one train step under
+              each at (data 2, c 2, r 1), global batch 2, from the same
+              weights: loss and gradient norm against P = 1
+              (``TRAIN_SP_TOL``), B2 8 x 1 x 2 x 8 = 128 and B3 64 a step,
+              device ms, f32 adds and peak memory from a profiled step; b.
+              ``trainer.train`` under 'default' at P = 8 writes a
+              checkpoint at step 2; a P = 1 state restored from it must
+              hold the trained parameters and the saved moments bit for
+              bit, and one more step from it at P = 1 must give the loss
+              and gradient norm of one more step at P = 8 (the trainer
+              restoring the same checkpoint)
 
 The paths are phases 4, 4a, 5, 5a, 7, 8a, 8b, 8c's five runs (roomy,
 tier, tier-off, handoff, preempt), 9, 13, each scheme of 14, 15's search
-and its plan's step, 16's four runs, 17 and 18's four in-process runs
-(gateway, gateway_disagg, frontend_ref, priority):
+and its plan's step, 16's four runs, 17, 18's four in-process runs
+(gateway, gateway_disagg, frontend_ref, priority) and 19's two steps
+(rules_fsdp, rules_tp):
 the launch counters are set to 0 just before each and read just after,
 and each must launch exactly the kernels it runs (B2 and B3 in the ring;
 B5 and B7 in ragged_bwd; B2 and B4 in the engine and in the sample
@@ -285,7 +303,8 @@ prefill; B1, B2, B4 and B6 in the prefix phase; B2 and B5 in the legacy
 phase; B1, B2, B4 and B6 in the host tier's roomy and tier runs and its
 preempt run, B2 and B4 in its tier-off run and its handoff run (the
 prefill and the decode engine); B2 and B3 in the train loop, in train_sp and in the ring and
-StarTrail schemes; B1 and B3 under Ulysses; B1, B2 and B3 in the
+StarTrail schemes and under the fsdp and tp rules; B1 and B3 under
+Ulysses; B1, B2 and B3 in the
 autotune search, whose candidates are all four arrangements; B2 and B4
 in dense_serve's P = 1, P = 8 and P = 8 sampled runs, B1, B2, B4 and B6
 in its prefix run; B2 and B3 in dense_train; B1, B2, B4 and B6 in the
@@ -3932,7 +3951,7 @@ def phase_resume(dev, smi):
 # phase 13: training at SP degree 8 on a ThreadMesh on the card
 # ---------------------------------------------------------------------------
 
-TRAIN_SP_LAYERS, TRAIN_SP_STEPS = 8, 3
+TRAIN_SP_LAYERS, TRAIN_SP_STEPS = 24, 3           # the full depth
 TRAIN_SP_C, TRAIN_SP_R = 2, 2                  # P = C * C * R = 8 ranks
 # bf16 at P = 8 against P = 1 on the same weights and batch: the ranks sum
 # their bf16 MLP and vocab partials in another order and the ring merges
@@ -3942,13 +3961,26 @@ TRAIN_SP_C, TRAIN_SP_R = 2, 2                  # P = C * C * R = 8 ranks
 # the reference's ``check_spmd_model`` bound.
 TRAIN_SP_TOL = {"loss_abs": 1e-2, "grad_norm_rel": 2e-2, "f32_abs": 2e-3}
 TRAIN_SP_F32 = {"layers": 2, "seq_len": 1024}
+# the f32 parity's meshes, (c, r, data): P = 8 at one data replica, and 2
+# replicas of P = 4 (global batch 2), under each sharding rule set
+TRAIN_SP_F32_MESHES = ((2, 2, 1), (2, 1, 2))
 TRAIN_SP_TIMEOUT = 180                         # s, a mesh run's limit
+# the phase's P = 8 step at 8 layers with every parameter stored whole on
+# every rank (CHANGES and PERF.md, PR 18-19; NVIDIA H100 80GB HBM3, 700 W),
+# printed beside this run's 24 layers under the 'default' rules
+TRAIN_SP_8_LAYERS_WHOLE = {
+    "layers": 8, "max_memory_allocated_GB": [23.7, 24.1],
+    "device_ms_per_step": [505.6, 540.4], "f32_add_device_ms": 186.7,
+    "f32_add_calls": 8924, "step_s": [4.3, 5.9]}
 
 
 def _train_sp_parity(dev):
     """f32, depth 2, full width, seq 1024: the loss and every gradient
-    leaf at P = 8 against P = 1 (also the first run of the mesh's backward
-    on the card: a deadlock fails it within TRAIN_SP_TIMEOUT)."""
+    leaf, assembled whole from the ranks' unique shards, on
+    ThreadMesh(c=2, r=2) and on ThreadMesh(c=2, r=1, data=2) under each
+    sharding rule set, against P = 1 on the same weights and batch (also
+    the first run of the mesh's backward on the card: a deadlock fails it
+    within TRAIN_SP_TIMEOUT)."""
     import dataclasses
 
     import torch
@@ -3956,51 +3988,78 @@ def _train_sp_parity(dev):
     from repro_torch.configs import registry
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.dist.comm import ThreadMesh
+    from repro_torch.dist.sharding import RULES
     from repro_torch.models.factory import build_model
     from repro_torch.plan import make_plan
     from repro_torch.train import step as train_step
 
     cfg = dataclasses.replace(registry.get(ARCH), param_dtype="float32",
                               num_layers=TRAIN_SP_F32["layers"])
-    shape = _train_shape(TRAIN_SP_F32["seq_len"])
     model = build_model(cfg, device=dev, seed=1)
-    plan = make_plan(cfg, shape, arch=ARCH, c=1)
-    run_cfg = plan.run_config()
-    vg1, _ = train_step.build_value_and_grad_fn(model, run_cfg, shape)
-    loss1, g1 = vg1(train_step.to_device(
-        SyntheticLM(cfg, shape, seed=2).get_batch(0), dev))
-    p = TRAIN_SP_C * TRAIN_SP_C * TRAIN_SP_R
-    vg8 = train_step.build_mesh_value_and_grad_fn(
-        model, run_cfg, shape, ThreadMesh(TRAIN_SP_C, TRAIN_SP_R),
-        timeout=TRAIN_SP_TIMEOUT)
-    loss8, g8 = vg8(train_step.to_device(
-        SyntheticLM(cfg, shape, seed=2, sp_size=p).get_batch(0), dev))
     names = [n for n, _ in model.named_parameters()]
-    errs = {n: float((a - b).abs().max()) for n, a, b in zip(names, g8, g1)}
-    worst = max(errs, key=errs.get)
-    loss_err = abs(float(loss8) - float(loss1))
-    check(all(torch.isfinite(g).all() for g in g8)
-          and loss_err <= TRAIN_SP_TOL["f32_abs"]
-          and errs[worst] <= TRAIN_SP_TOL["f32_abs"],
-          f"train_sp f32: loss {float(loss8)} vs {float(loss1)}, worst "
-          f"leaf {worst} max abs err {errs[worst]}, beyond "
-          f"{TRAIN_SP_TOL['f32_abs']}")
-    return dict(layers=cfg.num_layers, seq_len=shape.seq_len,
-                loss={"P8": float(loss8), "P1": float(loss1)},
-                loss_abs_err=loss_err, worst_leaf=worst,
-                worst_leaf_max_abs_err=errs[worst], leaves=len(errs))
+    runs = {}
+    for c, r, data in TRAIN_SP_F32_MESHES:
+        shape = _train_shape(TRAIN_SP_F32["seq_len"], batch=data)
+        plan = make_plan(cfg, shape, arch=ARCH, c=1)
+        vg1, _ = train_step.build_value_and_grad_fn(model, plan.run_config(),
+                                                    shape)
+        loss1, g1 = vg1(train_step.to_device(
+            SyntheticLM(cfg, shape, seed=2).get_batch(0), dev))
+        p = c * c * r
+        batch = train_step.to_device(
+            SyntheticLM(cfg, shape, seed=2, sp_size=p).get_batch(0), dev)
+        for rules in sorted(RULES):
+            run_cfg = dataclasses.replace(plan.run_config(),
+                                          sharding_rules=rules)
+            vg8 = train_step.build_mesh_value_and_grad_fn(
+                model, run_cfg, shape, ThreadMesh(c, r, data),
+                timeout=TRAIN_SP_TIMEOUT)
+            loss8, g8 = vg8(batch)
+            errs = {n: float((a - b).abs().max())
+                    for n, a, b in zip(names, g8, g1)}
+            worst = max(errs, key=errs.get)
+            loss_err = abs(float(loss8) - float(loss1))
+            key = f"{rules}_c{c}_r{r}_data{data}"
+            check(all(torch.isfinite(g).all() for g in g8)
+                  and loss_err <= TRAIN_SP_TOL["f32_abs"]
+                  and errs[worst] <= TRAIN_SP_TOL["f32_abs"],
+                  f"train_sp f32 {key}: loss {float(loss8)} vs "
+                  f"{float(loss1)}, worst leaf {worst} max abs err "
+                  f"{errs[worst]}, beyond {TRAIN_SP_TOL['f32_abs']}")
+            runs[key] = dict(loss={"P8": float(loss8), "P1": float(loss1)},
+                             loss_abs_err=loss_err, worst_leaf=worst,
+                             worst_leaf_max_abs_err=errs[worst])
+            del g8
+        del g1
+    return dict(layers=cfg.num_layers, seq_len=TRAIN_SP_F32["seq_len"],
+                leaves=len(names), runs=runs)
+
+
+def _f32_add_rows(prof, steps=1):
+    """Device ms and calls per step of the f32 elementwise adds in a
+    profile (the mesh's psums are f32 adds)."""
+    import torch
+
+    ms, calls = 0.0, 0
+    for evt in prof.events():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and "add" in evt.name.lower() and "<float>" in evt.name):
+            ms += evt.time_range.elapsed_us() / 1e3
+            calls += 1
+    return {"device_ms_per_step": ms / steps, "calls_per_step": calls / steps}
 
 
 def phase_train_sp(dev, smi):
     """P = 8 ranks as ThreadMesh(c=2, r=2) threads on the one card train
-    full-width h2o-danube-1.8b with the depth cut to 8 layers (P ranks'
-    gradients share one card's memory, where a real job has P cards): seq
-    4096, global batch 1, zigzag, ``remat='attn_out'``, bf16, through
-    ``trainer.train`` on a plan with ``n_devices=8``; 3 AdamW steps on one
-    repeated batch. The first step's loss and gradient norm against the
-    same model at P = 1 on the same weights and batch; before it, the f32
-    parity of ``_train_sp_parity``; after it, ``torch.profiler`` over one
-    more step."""
+    full-width, full-depth h2o-danube-1.8b under the 'default' sharding
+    rules (each rank's gradients are its shards': the MLP and the vocab
+    tables split over the 8 ranks): seq 4096, global batch 1, zigzag,
+    ``remat='attn_out'``, bf16, through ``trainer.train`` on a plan with
+    ``n_devices=8``; 3 AdamW steps on one repeated batch. The first step's
+    loss and gradient norm against the same model at P = 1 on the same
+    weights and batch; before it, the f32 parity of ``_train_sp_parity``;
+    after it, ``torch.profiler`` over one more step, whose f32 adds are
+    printed beside the 8-layer step that stored every parameter whole."""
     import dataclasses
     import math
     import tempfile
@@ -4016,6 +4075,7 @@ def phase_train_sp(dev, smi):
     from repro_torch.train import step as train_step
     from repro_torch.train import trainer
 
+    t_phase = time.perf_counter()
     f32 = _train_sp_parity(dev)
     free_device()
     cfg = dataclasses.replace(registry.get(ARCH),
@@ -4091,6 +4151,7 @@ def phase_train_sp(dev, smi):
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
     breakdown = _profile_window(prof, 1, prof_wall, top=10)
+    f32_add = _f32_add_rows(prof)
     del step_fn, sh, opt, prof
     emit("train_sp", model=cfg.name, layers=L, params=model.param_count(),
          weights="seeded random bf16",
@@ -4106,7 +4167,10 @@ def phase_train_sp(dev, smi):
          tol=TRAIN_SP_TOL, f32_parity=f32, step_ms=step_ms,
          wall_s=wall, max_memory_allocated=peak,
          launches_per_step=per_step, launches=launches,
-         profile=breakdown, card=smi)
+         profile=breakdown, f32_add=f32_add,
+         rules=plan.sharding_rules,
+         whole_storage_8_layers=TRAIN_SP_8_LAYERS_WHOLE,
+         phase_s=time.perf_counter() - t_phase, card=smi)
     del model
     return launches
 
@@ -4751,6 +4815,206 @@ def phase_dense_train(dev, smi):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the 'fsdp' and 'tp' sharding rules, and checkpoints across
+# meshes, at full width
+# ---------------------------------------------------------------------------
+
+RULES_PHASE = {"layers": 8, "batch": 2, "c": 2, "data": 2, "ckpt_steps": 2}
+
+
+def _rules_steps(model, cfg, dev, adam):
+    """One train step under 'fsdp' and one under 'tp' at (data 2, c 2,
+    r 1), each from the same weights (restored after it) and global batch
+    2, profiled; loss and gradient norm against P = 1."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.optim import adamw
+    from repro_torch.plan import make_plan
+    from repro_torch.train import step as train_step
+
+    shape = _train_shape(TRAIN_SEQ, batch=RULES_PHASE["batch"])
+    plan1 = make_plan(cfg, shape, arch=ARCH, c=1)
+    vg1, _ = train_step.build_value_and_grad_fn(model, plan1.run_config(),
+                                                shape)
+    loss1, g1 = vg1(train_step.to_device(
+        SyntheticLM(cfg, shape, seed=0).get_batch(0), dev))
+    loss1, gnorm1 = float(loss1), float(adamw.global_norm(g1))
+    del g1
+    free_device()
+    init = [p.detach().clone() for p in model.parameters()]
+    L = cfg.num_layers
+    runs, by_path = {}, {}
+    for rules in ("fsdp", "tp"):
+        plan = make_plan(cfg, shape, arch=ARCH, n_devices=8,
+                         data=RULES_PHASE["data"], c=RULES_PHASE["c"],
+                         placement="team_inner", comm_chunks=1,
+                         sharding_rules=rules)
+        check((plan.sp_size, plan.r, plan.data, plan.sharding_rules)
+              == (4, 1, 2, rules), f"rules plan {plan}")
+        step_fn, sh = plan.build_train_step(model, adam)
+        opt = adamw.init_state(sh["params"], adam)
+        batch = train_step.to_device(SyntheticLM(
+            cfg, shape, seed=0, sp_size=plan.sp_size).get_batch(0), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = reset_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            opt, m = step_fn(opt, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_counts(counts)
+        peak = torch.cuda.max_memory_allocated()
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        loss_err = abs(loss - loss1)
+        gnorm_rel = abs(gnorm - gnorm1) / gnorm1
+        check(loss_err <= TRAIN_SP_TOL["loss_abs"]
+              and gnorm_rel <= TRAIN_SP_TOL["grad_norm_rel"],
+              f"rules {rules}: loss {loss} vs P=1 {loss1} (abs {loss_err}), "
+              f"grad norm {gnorm} vs {gnorm1} (rel {gnorm_rel}), beyond "
+              f"{TRAIN_SP_TOL}")
+        want = launches_of(B2=plan.n_devices * plan.r * 2 * L,
+                           B3=plan.n_devices * plan.r * L)
+        check(launches == want, f"rules {rules} launches {launches}: want "
+              f"{want} (every rank's ring steps per layer, forward twice "
+              f"under recompute and backward once)")
+        runs[rules] = dict(loss=loss, grad_norm=gnorm, loss_abs_err=loss_err,
+                           grad_norm_rel_err=gnorm_rel, wall_s=wall,
+                           max_memory_allocated=peak, launches=launches,
+                           profile=_profile_window(prof, 1, wall, top=8),
+                           f32_add=_f32_add_rows(prof))
+        by_path[f"rules_{rules}"] = launches
+        del step_fn, sh, opt, prof
+        with torch.no_grad():
+            for p, p0 in zip(model.parameters(), init):
+                p.copy_(p0)
+        free_device()
+    del init
+    return dict(p1={"loss": loss1, "grad_norm": gnorm1}, runs=runs), by_path
+
+
+def _rules_checkpoint(model, cfg, dev, adam):
+    """``trainer.train`` under 'default' at P = 8 (ThreadMesh(2, 2)) writes
+    a checkpoint at step 2; a P = 1 state restored from it holds the
+    trained parameters and the saved moments bit for bit; one more step
+    from it at P = 1 and one more from it at P = 8 give the same loss and
+    gradient norm."""
+    import pathlib
+    import tempfile
+
+    import torch
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist import checkpoint
+    from repro_torch.models.factory import build_model, from_jax_tree
+    from repro_torch.optim import adamw
+    from repro_torch.plan import make_plan
+    from repro_torch.train import step as train_step
+    from repro_torch.train import trainer
+
+    shape = _train_shape(TRAIN_SEQ)
+    steps = RULES_PHASE["ckpt_steps"]
+    plan8 = make_plan(cfg, shape, arch=ARCH, n_devices=8, c=2,
+                      placement="team_inner", comm_chunks=1)
+    plan1 = make_plan(cfg, shape, arch=ARCH, c=1)
+    check(plan8.sharding_rules == plan1.sharding_rules == "default",
+          "checkpoint plans' rules")
+
+    def tcfg(n, ckpt):
+        return trainer.TrainerConfig(num_steps=n, ckpt_every=steps,
+                                     ckpt_dir=ckpt, log_every=n, seed=0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        trainer.train(model, plan8, adam, tcfg(steps, str(ckpt)),
+                      device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in ckpt.rglob("*")
+                     if f.is_file())
+        # the P = 1 state restored from the P = 8 checkpoint
+        t0 = time.perf_counter()
+        model1 = build_model(cfg, device=dev, seed=1)
+        step1, sh1 = plan1.build_train_step(model1, adam)
+        opt1 = adamw.init_state(sh1["params"], adam)
+        last = trainer.restore_latest(ckpt, model1, sh1["names"], opt1)
+        restore_s = time.perf_counter() - t0
+        check(last == steps and opt1["step"] == steps,
+              f"restore at P = 1: step {last}, want {steps}")
+        params_equal = all(torch.equal(a, b) for a, b in
+                           zip(model.parameters(), model1.parameters()))
+        saved = checkpoint.restore(ckpt / "opt", steps, trainer.opt_tree(
+            opt1, sh1["names"], cfg, "meta"))
+        moments_equal = all(
+            torch.equal(rows[n].to(dev), t)
+            for key in ("mu", "nu")
+            for rows in [from_jax_tree(saved[key], sh1["names"], cfg)]
+            for n, t in zip(sh1["names"], opt1[key]))
+        del saved
+        check(params_equal and moments_equal,
+              f"restore at P = 1: parameters equal {params_equal}, moments "
+              f"equal {moments_equal} (want both bit for bit)")
+        # one more step from the restored state at P = 1 ...
+        batch = SyntheticLM(cfg, shape, seed=0, seq_scheme=plan1.seq_scheme,
+                            sp_size=1).get_batch(steps)
+        opt1, m1 = step1(opt1, train_step.to_device(batch, dev))
+        m1 = {k: float(m1[k]) for k in ("loss", "grad_norm")}
+        del step1, sh1, opt1, model1
+        free_device()
+        # ... and at P = 8 (the trainer restores the same checkpoint)
+        m8 = trainer.train(model, plan8, adam, tcfg(steps + 1, str(ckpt)),
+                           device=dev)
+    loss_err = abs(m8["loss"] - m1["loss"])
+    gnorm_rel = abs(m8["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+    check(m8["step"] == steps + 1 and loss_err <= TRAIN_SP_TOL["loss_abs"]
+          and gnorm_rel <= TRAIN_SP_TOL["grad_norm_rel"],
+          f"step {steps + 1} from the checkpoint: P = 8 {m8} vs P = 1 {m1} "
+          f"(loss abs {loss_err}, grad norm rel {gnorm_rel}), beyond "
+          f"{TRAIN_SP_TOL}")
+    return dict(checkpoint_bytes=nbytes, train_s=train_s,
+                restore_s=restore_s, params_bit_equal=params_equal,
+                moments_bit_equal=moments_equal,
+                next_step={"P8": {k: m8[k] for k in ("loss", "grad_norm")},
+                           "P1": m1},
+                loss_abs_err=loss_err, grad_norm_rel_err=gnorm_rel)
+
+
+def phase_rules(dev, smi):
+    """The 'fsdp' and 'tp' sharding rules at full width, h2o-danube-1.8b
+    cut to 8 layers, seq 4096, bf16, ``remat='attn_out'``: a. one step
+    under each at (data 2, c 2, r 1) against P = 1 (``_rules_steps``), b. a
+    checkpoint written at P = 8 under 'default' restored at P = 1
+    (``_rules_checkpoint``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(registry.get(ARCH),
+                              num_layers=RULES_PHASE["layers"])
+    model = build_model(cfg, device=dev, seed=0)
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0,
+                             state_dtype=cfg.opt_dtype)
+    steps, by_path = _rules_steps(model, cfg, dev, adam)
+    ckpt = _rules_checkpoint(model, cfg, dev, adam)
+    del model
+    emit("rules", model=cfg.name, layers=cfg.num_layers,
+         seq_len=TRAIN_SEQ, weights="seeded random bf16", remat="attn_out",
+         steps=steps, checkpoint=ckpt, tol=TRAIN_SP_TOL,
+         phase_s=time.perf_counter() - t_phase, card=smi)
+    torch.cuda.synchronize()
+    return by_path
+
+
 def free_device():
     import gc
 
@@ -4823,6 +5087,8 @@ def main():
         by_path.update(phase_dense_serve(dev, smi))
         free_device()
         by_path["dense_train"] = phase_dense_train(dev, smi)
+        free_device()
+        by_path.update(phase_rules(dev, smi))
         paths = {"B1": "local", "B2": "engine", "B3": "train",
                  "B4": "engine", "B5": "legacy", "B6": "prefix",
                  "B7": "ragged_bwd"}

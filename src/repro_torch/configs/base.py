@@ -109,11 +109,12 @@ class RunConfig:
     """Parallelism + training hyper-config for one run, normally produced by
     ``repro_torch.plan.ExecutionPlan.run_config()``.
 
-    The JAX fields this port does not read yet are left out: the sharding
-    rules (parameters are stored whole), ``unroll_scans`` (no XLA cost
-    analysis), ``pipeline_scan`` (the ring's pipelined issue order waits
-    for an asynchronous communicator, ``core/startrail.py``) and the
-    optimizer scalars, which live in ``optim.adamw.AdamWConfig``.
+    The JAX fields this port does not read yet are left out:
+    ``unroll_scans`` (no XLA cost analysis), ``pipeline_scan`` (the ring's
+    pipelined issue order waits for an asynchronous communicator,
+    ``core/startrail.py``) and the optimizer scalars, which live in
+    ``optim.adamw.AdamWConfig``. ``sharding_rules`` names the rule set of
+    ``dist.sharding`` each rank stores its parameter shards under.
     """
     c: int = 1                           # StarTrail attention-parallel size
     # 'startrail' | 'ring' (C=1 startrail) | 'ulysses'
@@ -132,3 +133,5 @@ class RunConfig:
     grad_compression: str = "none"
     # the ring's transfer sub-chunks (core/startrail.py); no value changes
     comm_chunks: int = 1
+    # 'default' | 'fsdp' | 'tp' (dist/sharding.py)
+    sharding_rules: str = "default"

@@ -42,12 +42,14 @@ Device steps run on every rank of the plan (``_on_ranks``): on one rank
 (``SingleComm``) when the plan has one device, else as the threads of the
 plan's ``ThreadMesh`` (``plan.build_mesh``: data x C*C*R ranks on one
 card or on the CPU), each with its own ``Runtime`` over its rank's
-communicator and its own pool shard. The rank runtimes are the JAX
+communicator, its own pool shard and its own parameter tree: the model's
+weights as the plan's sharding rules store them on that rank
+(``models.factory.shard_params``: views, no copies; the whole leaves at
+one rank). The rank runtimes are the JAX
 engine's: ``train.step.make_runtime`` on the plan's run config with
 ``batch_axes=()`` and the contiguous sequence layout, so StarTrail's team
 gathers and sub-rings run in the prefill, B4's and B6's partials merge
-across ranks, and data replicas compute the same batch. The ranks share
-one copy of the weights (the port stores parameters whole). Every rank
+across ranks, and data replicas compute the same batch. Every rank
 samples (``engine.sampling``: vocab-parallel greedy, or temperature, top-k
 and top-p with gumbel noise keyed by the request's seed, the token's
 position and the rank); every rank's tokens must be equal, and the engine
@@ -92,7 +94,7 @@ from repro_torch.dist.sharding import DATA_AXIS
 from repro_torch.engine import kv_connector, paged_cache, sampling
 from repro_torch.engine.scheduler import (Rejection, Request, Scheduler,
                                           SlotState, bucket_pow2)
-from repro_torch.models.factory import Model
+from repro_torch.models.factory import Model, RankParams, shard_params
 from repro_torch.models.runtime import Runtime
 from repro_torch.train import step as train_step
 
@@ -276,6 +278,9 @@ class Engine:
             rt, batch_axes=(), st_cfg=dataclasses.replace(
                 rt.st_cfg, seq_scheme="contiguous"))
         n_ranks = self.mesh.size if self.mesh is not None else 1
+        # each rank's parameter tree under the plan's rules, views of the
+        # model's tensors, built at the rank's first step (_on_ranks)
+        self._params: List[Optional[RankParams]] = [None] * n_ranks
         self.pools: List[Dict[str, torch.Tensor]] = [
             paged_cache.init_pools(cfg, eng.pages_per_shard, eng.page_size,
                                    self.device) for _ in range(n_ranks)]
@@ -298,7 +303,7 @@ class Engine:
         # the pools of every rank holding each SP shard, data replica 0
         # first: the host-link transfers' view (paged_cache.read_pages)
         where = self._on_ranks(
-            lambda rt, _: (rt.comm.axis_index(DATA_AXIS), rt.sp_rank()))
+            lambda rt, *_: (rt.comm.axis_index(DATA_AXIS), rt.sp_rank()))
         self._shards: List[List[Dict[str, torch.Tensor]]] = [
             [] for _ in range(self.sp)]
         for rank in sorted(range(n_ranks), key=lambda i: where[i]):
@@ -466,19 +471,24 @@ class Engine:
 
     # ---- device work ----------------------------------------------------
     def _on_ranks(self, fn, rt: Optional[Runtime] = None) -> List:
-        """``fn(rank_rt, rank_pools)`` on every rank under ``no_grad``,
-        results in rank order (module doc). ``rt`` (default the engine's)
-        is the template whose communicator each rank's replaces."""
+        """``fn(rank_rt, rank_pools, rank_params)`` on every rank under
+        ``no_grad``, results in rank order (module doc). ``rt`` (default
+        the engine's) is the template whose communicator each rank's
+        replaces."""
         rt = rt or self.rt
 
-        def body(comm, pools):
+        def body(comm, rank):
+            rank_rt = rt if comm is None else dataclasses.replace(rt,
+                                                                  comm=comm)
+            if self._params[rank] is None:
+                self._params[rank] = shard_params(self.model, rank_rt.comm,
+                                                  rank_rt.rules)
             with torch.no_grad():   # grad mode is per thread
-                return fn(rt if comm is None
-                          else dataclasses.replace(rt, comm=comm), pools)
+                return fn(rank_rt, self.pools[rank], self._params[rank])
 
         if self.mesh is None:
-            return [body(None, self.pools[0])]
-        return self.mesh.run(lambda comm: body(comm, self.pools[comm.rank]))
+            return [body(None, 0)]
+        return self.mesh.run(lambda comm: body(comm, comm.rank))
 
     def _tensor(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
@@ -497,7 +507,7 @@ class Engine:
         s_loc = tokens.shape[1] // rt.sp_size()
         return tokens[:, rt.sp_rank() * s_loc:(rt.sp_rank() + 1) * s_loc]
 
-    def _prefill_rank(self, rt, tokens, n_real: int):
+    def _prefill_rank(self, rt, tree, tokens, n_real: int):
         """This rank's ``lm_prefill`` of the padded prompt ``tokens`` (1, S)
         of ``n_real`` real tokens: (hidden (1, 1, D), (k, v) stacks of its
         slice)."""
@@ -510,7 +520,7 @@ class Engine:
                       torch.full((1,), n_real, dtype=torch.int32,
                                  device=tokens.device))
         return serve_step.lm_prefill(
-            rt, self.model, self._rank_slice(rt, tokens), self.cfg,
+            rt, tree, self._rank_slice(rt, tokens), self.cfg,
             prompt_len=prompt_len, return_hidden=True)
 
     def prefill_hidden(self, tokens: List[int], rt: Optional[Runtime] = None):
@@ -520,7 +530,8 @@ class Engine:
         ranks' K/V slices of the first replica joined in sequence order."""
         padded = self._padded(tokens)
         out = self._on_ranks(
-            lambda r, _: self._prefill_rank(r, padded, len(tokens)), rt)
+            lambda r, _, tree: self._prefill_rank(r, tree, padded,
+                                                  len(tokens)), rt)
         ks, vs = zip(*(kv for _, kv in out[:self.sp]))
         n = len(tokens)
         return out[0][0], (torch.cat(ks, 2)[:, :, :n],
@@ -587,24 +598,24 @@ class Engine:
             keys = [sampling.fold_in(sampling.seed_key(req.seed),
                                      req.prompt_len)]
 
-        def rank_fn(rt, pools):
+        def rank_fn(rt, pools, tree):
             if start:
                 last = serve_step.lm_prefill_paged(
-                    rt, self.model, self._rank_slice(rt, tokens), self.cfg,
+                    rt, tree, self._rank_slice(rt, tokens), self.cfg,
                     prompt_len=end, cached_len=start, pools=pools,
                     table_row=table_row, page_size=ps)
             else:
-                last, (k_stack, v_stack) = self._prefill_rank(rt, tokens,
-                                                              end)
+                last, (k_stack, v_stack) = self._prefill_rank(
+                    rt, tree, tokens, end)
                 paged_cache.insert_prompt(rt, pools, k_stack, v_stack,
                                           table_row, end, ps)
             if not final:
                 return last, None
             if sampled:
                 return last, sampling.sample(
-                    rt, self.model.head, last, self.cfg, keys=keys,
+                    rt, tree.head, last, self.cfg, keys=keys,
                     **params)[0]
-            return last, sampling.greedy(rt, self.model.head, last,
+            return last, sampling.greedy(rt, tree.head, last,
                                          self.cfg)[0]
 
         out = self._on_ranks(rank_fn)
@@ -704,9 +715,10 @@ class Engine:
             device=self.device)
         tokens_d = self._tensor(tokens, torch.int64)
         cache_len_d = self._tensor(cache_len, torch.int32)
-        out = self._on_ranks(lambda rt, pools: serve_step.lm_decode_step(
-            rt, self.model, pools, tokens_d, self.cfg, cache_len_d, paged,
-            sampling=samp))
+        out = self._on_ranks(lambda rt, pools, tree: (
+            serve_step.lm_decode_step(
+                rt, tree, pools, tokens_d, self.cfg, cache_len_d, paged,
+                sampling=samp)))
         tok = self._sampled(out)
         self.metrics.decode_wall_s += time.monotonic() - t0
         return tok

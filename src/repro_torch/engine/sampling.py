@@ -90,7 +90,8 @@ def shard_logits(rt, head, x, cfg: ModelConfig):
     x: (B, 1, D) replicated over SP. Returns (logits (B, V_local) float32
     with padded vocab rows at NEG, lo = first global token id of the slice).
     """
-    table, lo = blocks.vocab_slice(rt, rt.dense(head.table))
+    table = rt.dense(head.table, blocks.TABLE_AXES)
+    lo = blocks.vocab_start(rt, table)
     logits = torch.einsum("bsd,vd->bsv", x.float(), table.float())[:, 0]
     ids = lo + torch.arange(table.shape[0], device=logits.device)
     return torch.where(ids < cfg.vocab_size, logits, NEG), lo

@@ -24,6 +24,13 @@ coordinates and changes no value):
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
       --smoke --device cpu --devices 8 --data 2 --c 2 --steps 3
 
+``--rules`` picks the sharding rule set each rank stores its parameter
+shards under (``dist.sharding``: 'default', 'fsdp' or 'tp'; written into
+the plan, and read back from a ``--plan`` file):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
+      --smoke --device cpu --devices 8 --data 2 --c 2 --rules tp --steps 3
+
 ``--scheme`` picks the attention: 'startrail', 'ring' (C = 1) or 'ulysses'
 (all-to-all; P must divide the head counts); ``--comm-chunks`` splits each
 ring transfer into sub-chunks (no value changes). Knobs left unset
@@ -45,7 +52,8 @@ smoke width):
 ``--metrics-dump PATH`` writes the ``obs`` registry after
 the run (Prometheus text, or JSON for a ``.json`` path): the per-step
 analytical bytes per collective of ``obs.commlog.CommLog`` and the bytes
-the communicator counted; ``--trace-out PATH`` writes a Chrome trace of
+the communicator counted (the whole step: the rules' parameter gathers,
+run again in the recompute, and gradient reductions among them); ``--trace-out PATH`` writes a Chrome trace of
 the loop's train/data, train/step and train/ckpt spans:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
@@ -58,9 +66,11 @@ part is ported (ROADMAP.md).
 
 import argparse
 
+from repro_torch.dist.sharding import RULES
+
 # JAX launcher options that raise, with the ROADMAP.md item that ports them
 _UNPORTED = {
-    "--multi-pod": "multi-pod meshes (§A)",
+    "--multi-pod": "multi-pod meshes (§A item 1)",
     "--no-pipeline": "an asynchronous communicator, where the ring's two "
                      "issue orders can differ (§A item 1)",
 }
@@ -85,6 +95,8 @@ def main(argv=None):
                     choices=["team_inner", "ring_inner"])
     ap.add_argument("--scheme", default=None,
                     choices=["startrail", "ring", "ulysses"])
+    ap.add_argument("--rules", default="default", choices=sorted(RULES),
+                    help="sharding rule set of the parameter shards")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq-len", type=int, default=64)
     ap.add_argument("--batch", type=int, default=None,
@@ -169,7 +181,8 @@ def main(argv=None):
                              c=args.c, scheme=args.scheme,
                              placement=args.placement,
                              microbatches=args.microbatches,
-                             comm_chunks=args.comm_chunks)
+                             comm_chunks=args.comm_chunks,
+                             sharding_rules=args.rules)
         except ValueError as e:
             raise ValueError(
                 f"{e}; legal (data, SP) grids with C = 2 for --devices "
@@ -180,7 +193,7 @@ def main(argv=None):
           f"batch={plan.global_batch} microbatches={plan.microbatches} "
           f"remat={plan.remat} block={plan.block_impl} "
           f"comm_chunks={plan.comm_chunks} "
-          f"device={device}")
+          f"rules={plan.sharding_rules} device={device}")
 
     model = build_model(cfg, device=device, seed=args.seed)
     adam_cfg = adamw.AdamWConfig(learning_rate=args.lr, warmup_steps=5,

@@ -2,9 +2,12 @@
 
 ``<block>_specs(cfg)`` declares parameters in the JAX package's einsum
 layouts (``wq (D, Hq, hd)``, ``wo (Hq, hd, D)``, ...); ``<block>(rt, p, x,
-...)`` applies the submodule ``p`` holding them. Norms and residuals in
-float32; matmuls in the parameter dtype. Collectives go through the
-``Runtime``'s communicator, so the same code serves one rank and P ranks.
+...)`` applies the subtree ``p`` holding them: each leaf the rank's shard
+as stored under ``rt.rules`` (``models.factory.shard_params``; the whole
+leaf at P = 1), passed through ``rt.dense`` with its logical axes. Norms
+and residuals in float32; matmuls in the parameter dtype. Collectives go
+through the ``Runtime``'s communicator, so the same code serves one rank
+and P ranks.
 """
 
 from __future__ import annotations
@@ -57,23 +60,33 @@ def rope(x, positions, theta: float = 10000.0):
 # attention block (StarTrail inside)
 # ---------------------------------------------------------------------------
 
+Q_AXES = ("embed", "heads", "head_dim")
+KV_AXES = ("embed", "kv_heads", "head_dim")
+O_AXES = ("heads", "head_dim", "embed_out")
+
+
 def attention_specs(cfg: ModelConfig):
     d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     return {
-        "wq": PSpec((d, hq, hd), ("embed", "heads", "head_dim")),
-        "wk": PSpec((d, hkv, hd), ("embed", "kv_heads", "head_dim")),
-        "wv": PSpec((d, hkv, hd), ("embed", "kv_heads", "head_dim")),
-        "wo": PSpec((hq, hd, d), ("heads", "head_dim", "embed_out")),
+        "wq": PSpec((d, hq, hd), Q_AXES),
+        "wk": PSpec((d, hkv, hd), KV_AXES),
+        "wv": PSpec((d, hkv, hd), KV_AXES),
+        "wo": PSpec((hq, hd, d), O_AXES),
         "norm": rmsnorm_specs(d),
     }
 
 
 def qkv(rt, p, h):
     """Projections of the normed input h (B, S, D) -> q, k, v (B, S, H, hd)."""
-    q = torch.einsum("bsd,dhk->bshk", h, rt.dense(p.wq))
-    k = torch.einsum("bsd,dhk->bshk", h, rt.dense(p.wk))
-    v = torch.einsum("bsd,dhk->bshk", h, rt.dense(p.wv))
+    q = torch.einsum("bsd,dhk->bshk", h, rt.dense(p.wq, Q_AXES))
+    k = torch.einsum("bsd,dhk->bshk", h, rt.dense(p.wk, KV_AXES))
+    v = torch.einsum("bsd,dhk->bshk", h, rt.dense(p.wv, KV_AXES))
     return q, k, v
+
+
+def attention_out(rt, p, o):
+    """The output projection of the attention o (B, S, H, hd) -> (B, S, D)."""
+    return torch.einsum("bshk,hkd->bsd", o, rt.dense(p.wo, O_AXES))
 
 
 def attention_block(rt, p, x, cfg: ModelConfig, *, causal: bool = True,
@@ -88,41 +101,53 @@ def attention_block(rt, p, x, cfg: ModelConfig, *, causal: bool = True,
     k = rope(k, pos, cfg.rope_theta)
     o = rt.attention(q, k, v, causal=causal, window=window,
                      prefix_len=prefix_len)
-    out = x + torch.einsum("bshk,hkd->bsd", o, rt.dense(p.wo))
+    out = x + attention_out(rt, p, o)
     if return_kv:
         return out, (k, v)
     return out
 
 
 # ---------------------------------------------------------------------------
-# MLP: SwiGLU; tokens all-gathered over the SP axes, reduce-scattered back
-# (the JAX package's 'default' rules; identities at P = 1)
+# MLP: SwiGLU, Megatron-style TP over the SP axes under 'default' (ffn stays
+# sharded; tokens all-gathered, reduce-scattered back); under 'fsdp'/'tp'
+# the weights are gathered instead and no activation collective runs
 # ---------------------------------------------------------------------------
+
+UP_AXES = ("embed", "ffn")
+DOWN_AXES = ("ffn", "embed_out")
+
 
 def mlp_specs(cfg: ModelConfig, d_ff: Optional[int] = None):
     d = cfg.d_model
     f = d_ff or cfg.d_ff
     return {
-        "w1": PSpec((d, f), ("embed", "ffn")),
-        "w3": PSpec((d, f), ("embed", "ffn")),
-        "w2": PSpec((f, d), ("ffn", "embed_out")),
+        "w1": PSpec((d, f), UP_AXES),
+        "w3": PSpec((d, f), UP_AXES),
+        "w2": PSpec((f, d), DOWN_AXES),
         "norm": rmsnorm_specs(d),
     }
 
 
-def mlp_block(rt, p, x, cfg: ModelConfig):
-    """Tensor-parallel SwiGLU: rank p multiplies its slice of the ffn dim
-    (the port stores the weights whole), the reduce-scatter sums them."""
-    h = rmsnorm(p.norm, x, cfg.norm_eps)
-    hg = rt.all_gather_model(h, axis=1)
-    w1, w3, w2 = rt.dense(p.w1), rt.dense(p.w3), rt.dense(p.w2)
-    f_local = w1.shape[1] // rt.sp_size()
-    lo = rt.sp_rank() * f_local
-    u = torch.einsum("bsd,df->bsf", hg, w1[:, lo:lo + f_local])
-    g = torch.einsum("bsd,df->bsf", hg, w3[:, lo:lo + f_local])
+def _swiglu(h, w1, w3, w2):
+    u = torch.einsum("bsd,df->bsf", h, w1)
+    g = torch.einsum("bsd,df->bsf", h, w3)
     a = F.silu(u.float()).to(u.dtype) * g
-    o = torch.einsum("bsf,fd->bsd", a, w2[lo:lo + f_local])
-    return x + rt.psum_scatter_model(o, axis=1)
+    return torch.einsum("bsf,fd->bsd", a, w2)
+
+
+def mlp_block(rt, p, x, cfg: ModelConfig):
+    """SwiGLU with residual. Under 'default' rank p multiplies its stored
+    slice of the ffn dim with every rank's tokens and the reduce-scatter
+    sums the slices; under 'fsdp'/'tp' the gathered weights multiply the
+    rank's own tokens."""
+    h = rmsnorm(p.norm, x, cfg.norm_eps)
+    w1 = rt.dense(p.w1, UP_AXES)
+    w3 = rt.dense(p.w3, UP_AXES)
+    w2 = rt.dense(p.w2, DOWN_AXES)
+    if rt.rules == "default":
+        hg = rt.all_gather_model(h, axis=1)
+        return x + rt.psum_scatter_model(_swiglu(hg, w1, w3, w2), axis=1)
+    return x + _swiglu(h, w1, w3, w2)
 
 
 # ---------------------------------------------------------------------------
@@ -135,24 +160,24 @@ def padded_vocab(cfg: ModelConfig, multiple: int = 32) -> int:
     return ((v + multiple - 1) // multiple) * multiple
 
 
+TABLE_AXES = ("vocab", "embed")
+
+
 def embedding_specs(cfg: ModelConfig):
     # d^-0.5 keeps initial logits O(1) (the table doubles as the LM head)
     return {"table": PSpec((padded_vocab(cfg), cfg.d_model),
-                           ("vocab", "embed"), scale=cfg.d_model ** -0.5)}
+                           TABLE_AXES, scale=cfg.d_model ** -0.5)}
 
 
-def vocab_slice(rt, table):
-    """This rank's rows of a whole (V, D) table -> (rows, first token id).
-    The port stores tables whole; rank p owns rows [p*V/P, (p+1)*V/P)."""
-    v_local = table.shape[0] // rt.sp_size()
-    lo = rt.sp_rank() * v_local
-    return table[lo:lo + v_local], lo
+def vocab_start(rt, rows) -> int:
+    """The first token id of this rank's stored vocab rows: the table is
+    split over the SP axes, so rank p holds rows [p*V/P, (p+1)*V/P)."""
+    return rt.sp_rank() * rows.shape[0]
 
 
-def _vocab_shard_lookup(rt, table, ids):
-    """Look up ids in this rank's vocab slice (zeros outside)."""
-    rows, lo = vocab_slice(rt, table)
-    ids = ids - lo
+def _vocab_shard_lookup(rt, rows, ids):
+    """Look up ids in this rank's vocab rows (zeros outside)."""
+    ids = ids - vocab_start(rt, rows)
     in_range = (ids >= 0) & (ids < rows.shape[0])
     ids = ids.clamp(0, rows.shape[0] - 1)
     return rows[ids] * in_range[..., None].to(rows.dtype)
@@ -166,7 +191,7 @@ def embed(rt, p, tokens, cfg: ModelConfig, *,
     slice, and a reduce-scatter sums the slices and returns each rank its
     own positions; replicated (decode) tokens need only the sum.
     """
-    table = rt.dense(p.table)
+    table = rt.dense(p.table, TABLE_AXES)
     if tokens_replicated:
         return rt.psum_model(_vocab_shard_lookup(rt, table, tokens))
     tokens_all = rt.all_gather_model(tokens, axis=1)
@@ -178,13 +203,15 @@ def lm_head_logits_and_loss(rt, p, x, labels, cfg: ModelConfig, mask=None):
     """Vocab-parallel cross-entropy (the JAX spmd form). x: (B, S_local, D);
     labels (B, S_local); mask (B, S_local) or None.
 
-    Sequence and vocab are split over the same SP axes, so the loss runs
+    Sequence and vocab are split over the same SP axes (``p.table`` is the
+    rank's stored rows), so the loss runs
     over the P gathered shards' activations in turn: this rank computes its
     vocab slice's logits for one shard, and a psum combines the logsumexp
     and gold terms. Full logits are never held (B x S_local x V/P at a
     time). Returns the mean loss over the (masked) tokens.
     """
-    table, lo = vocab_slice(rt, rt.dense(p.table))
+    table = rt.dense(p.table, TABLE_AXES)
+    lo = vocab_start(rt, table)
     v_local = table.shape[0]
     tf32 = table.float()
     x_all = rt.all_gather_sp_stack(x)                 # (P, B, S_l, D)

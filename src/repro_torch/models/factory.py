@@ -13,17 +13,27 @@ their ``named_parameters`` names (parameters, or their gradients) are
 restacked into the JAX tree, so tests compare the two leaf by leaf.
 ``jax_tree`` / ``load_jax_tree`` do the same in the tensors' own dtype,
 for checkpoints in the JAX package's format.
+
+The ``Model`` holds every parameter whole, once. ``shard_params(model,
+comm, rules)`` gives one rank its parameter tree under a rule set of
+``dist.sharding``: each leaf the rank's stored shard, a view of the whole
+tensor (no copy), and with ``trainable=True`` a leaf of its own that
+requires a gradient, so autograd returns a shard-sized gradient. Blocks
+read only such a tree (or the ``Model`` itself, whose leaves are the
+shards of one rank). Checkpoints keep whole leaves.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import types
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import sharding
 from repro_torch.models import spec, transformer
 
 
@@ -36,7 +46,9 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, make):
         super().__init__()
         self.cfg = cfg
-        root = spec.build_module(transformer.lm_specs(cfg), make)
+        specs = transformer.lm_specs(cfg)
+        self._axes_tree = spec.axes_tree(specs)
+        root = spec.build_module(specs, make)
         for name, child in root.named_children():
             self.add_module(name, child)
 
@@ -51,10 +63,69 @@ class Model(nn.Module):
     def param_count(self) -> int:
         return spec.count_params(self)
 
-    def loss(self, rt, batch, *, remat: str = "attn_out"):
+    def axes(self) -> Dict[str, Tuple]:
+        """Each parameter's logical axes, by its ``named_parameters`` name."""
+        return dict(spec.named_leaves(self._axes_tree))
+
+    def partition(self, rules: str = "default") -> Dict[str, Tuple]:
+        """Each parameter's layout under the rule set ``rules``
+        (``dist.sharding.partition_tree``), by name."""
+        return dict(spec.named_leaves(
+            sharding.partition_tree(self._axes_tree, rules)))
+
+    def loss(self, rt, params, batch, *, remat: str = "attn_out"):
         """The training loss of ``batch`` ({tokens, labels}, this rank's
-        slice) under the runtime ``rt``."""
-        return transformer.lm_loss(rt, self, batch, self.cfg, remat=remat)
+        slice) under the runtime ``rt``, with ``params`` the rank's tree
+        (``shard_params``)."""
+        return transformer.lm_loss(rt, params, batch, self.cfg, remat=remat)
+
+
+class RankParams(types.SimpleNamespace):
+    """One rank's parameter tree (``shard_params``): the ``Model``'s
+    nesting (``embed.table``, ``layers[i].mixer.wq``, ...) with each leaf
+    the rank's stored shard; ``named`` maps the parameter names to them."""
+
+    @property
+    def head(self):
+        return self.lm_head if hasattr(self, "lm_head") else self.embed
+
+
+def _nest(module: nn.Module, prefix: str, named: Dict):
+    if isinstance(module, nn.ModuleList):
+        return [_nest(m, f"{prefix}{i}.", named)
+                for i, m in enumerate(module)]
+    out = {n: named[prefix + n]
+           for n, _ in module.named_parameters(recurse=False)}
+    for n, child in module.named_children():
+        out[n] = _nest(child, f"{prefix}{n}.", named)
+    return out if prefix == "" else types.SimpleNamespace(**out)
+
+
+def shard_blocks(model: Model, comm, rules: str = "default"
+                 ) -> List[Tuple[slice, ...]]:
+    """The block of every parameter, in ``named_parameters`` order, that
+    the rank of ``comm`` stores under ``rules``
+    (``dist.sharding.shard_slices``). Raises, naming the leaf, where a
+    sharded dim does not divide by its mesh axes."""
+    layouts = model.partition(rules)
+    return [sharding.shard_slices(p.shape, layouts[n], comm, n)
+            for n, p in model.named_parameters()]
+
+
+def shard_params(model: Model, comm, rules: str = "default", *,
+                 trainable: bool = False) -> RankParams:
+    """The parameter tree of the rank of ``comm`` under ``rules``: every
+    leaf a view of its block of the ``Model``'s tensor (``shard_blocks``;
+    the whole tensor where no mesh axis of its layout has more than one
+    member). With ``trainable`` each view is a leaf that requires a
+    gradient; update the ``Model`` only under ``no_grad``, and build fresh
+    views for the next step."""
+    named = {}
+    for (name, p), block in zip(model.named_parameters(),
+                                shard_blocks(model, comm, rules)):
+        view = p.detach()[block]
+        named[name] = view.requires_grad_() if trainable else view
+    return RankParams(**_nest(model, "", named), named=named)
 
 
 def _on_device(device) -> torch.device:

@@ -5,9 +5,12 @@ its ``spmd`` mode).
 Per-rank code runs against a ``dist.comm`` communicator: ``SingleComm`` at
 P = 1 (every collective the identity), ``ThreadMesh`` ranks for P > 1 in
 one process, whose collectives are differentiable, so the same code trains
-at any SP degree. Parameters are stored whole: there is no FSDP sharding,
-so ``dense`` is the identity, and tensor-parallel blocks slice the rank's
-part themselves (``blocks.vocab_slice``, ``blocks.mlp_block``).
+at any SP degree. Each rank reads its parameters as stored under the
+sharding rule set ``rules`` (``dist.sharding``; ``models.factory.
+shard_params``): ``dense`` gathers a leaf's FSDP-sharded dims on use, and
+the gather's backward reduce-scatters the gradient (ZeRO-3); the
+computation-sharded dims (``vocab``, and ``ffn`` under ``default``) stay
+sharded through the blocks.
 
 ``attention`` runs StarTrail (``attention_impl='startrail'``, the ring
 kernels B2 forward and B3 backward on 'cuda'; the ring baseline is its
@@ -28,12 +31,13 @@ communicator (ROADMAP.md, the main path).
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core import startrail as st
 from repro_torch.core import ulysses as ulysses_lib
+from repro_torch.dist import sharding
 from repro_torch.kernels import dispatch as kernels
 
 
@@ -45,6 +49,7 @@ class Runtime:
     kernel_impl: str = "cuda"      # paged-decode kernel: 'ref' | 'cuda'
     device: torch.device = torch.device("cpu")
     batch_axes: Tuple[str, ...] = ()
+    rules: str = "default"         # dist.sharding rule set
 
     # ---- axis info -----------------------------------------------------
     @property
@@ -78,8 +83,20 @@ class Runtime:
             s_local, dtype=torch.int32, device=self.device)
 
     # ---- parameters ------------------------------------------------------
-    def dense(self, leaf: torch.Tensor) -> torch.Tensor:
-        """A parameter leaf for dense use: stored whole, so the identity."""
+    def dense(self, leaf: torch.Tensor,
+              axes: Tuple[Optional[str], ...]) -> torch.Tensor:
+        """A stored parameter shard with logical ``axes`` for dense use:
+        every FSDP logical axis of the rule set is all-gathered over its
+        mesh axes, innermost first, so the result is the leaf in linear
+        shard order; the backward reduce-scatters the gradient. Mesh axes
+        of one member gather nothing."""
+        fsdp = sharding.fsdp_logical(self.rules)
+        table = sharding.RULES[self.rules]
+        for dim, ax in enumerate(axes):
+            if ax in fsdp:
+                for mesh_ax in reversed(table[ax]):
+                    if self.comm.axis_size(mesh_ax) > 1:
+                        leaf = self.comm.all_gather(leaf, mesh_ax, dim)
         return leaf
 
     # ---- collectives (identities at P = 1) -------------------------------

@@ -7,6 +7,8 @@ initialised from a seeded ``torch.Generator`` with the JAX package's per-leaf
 scales: normal with stddev ``scale`` or ``fan_in ** -0.5`` (fan-in = the
 first dim), or zeros / ones. The two frameworks draw different numbers from
 the same seed; tests share weights through ``factory.from_jax_params``.
+``axes_tree`` maps a spec tree to the tree of its leaves' logical axes,
+which ``dist.sharding.partition_tree`` turns into per-rank layouts.
 """
 
 from __future__ import annotations
@@ -64,6 +66,28 @@ def build_module(tree, make: Callable[[PSpec], torch.Tensor]) -> nn.Module:
         else:
             mod.add_module(name, build_module(sub, make))
     return mod
+
+
+def axes_tree(tree):
+    """The tree of ``tree``'s leaves' logical axis tuples (same nesting)."""
+    if isinstance(tree, PSpec):
+        return tree.axes
+    if isinstance(tree, list):
+        return [axes_tree(s) for s in tree]
+    return {k: axes_tree(v) for k, v in tree.items()}
+
+
+def named_leaves(tree, prefix: str = ""):
+    """(name, leaf) pairs of a tree of dicts and lists, each name the dotted
+    path ``named_parameters`` gives the leaf in ``build_module(tree)``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from named_leaves(tree[k], f"{prefix}{k}.")
+    elif isinstance(tree, list):
+        for i, sub in enumerate(tree):
+            yield from named_leaves(sub, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
 
 
 def count_params(module: nn.Module) -> int:

@@ -88,16 +88,18 @@ def apply_stack(rt, layers, x, cfg: ModelConfig, *, causal: bool = True,
     return x
 
 
-def lm_loss(rt, model, batch, cfg: ModelConfig, *, remat: str = "attn_out"):
-    """batch: {tokens, labels} (this rank's sequence slice). Returns the
-    scalar mean loss."""
+def lm_loss(rt, params, batch, cfg: ModelConfig, *,
+            remat: str = "attn_out"):
+    """batch: {tokens, labels} (this rank's sequence slice); params: the
+    rank's parameter tree (``factory.shard_params``). Returns the scalar
+    mean loss."""
     if cfg.frontend_stub is not None:
         raise NotImplementedError(
             f"{cfg.name}: frontend embeddings (VLM / audio prefix) are not "
             "ported to repro_torch yet (ROADMAP.md §A: remaining model "
             "families)")
-    x = blocks.embed(rt, model.embed, batch["tokens"], cfg)
-    x = apply_stack(rt, model.layers, x, cfg, causal=True, remat=remat)
-    x = blocks.rmsnorm(model.final_norm, x, cfg.norm_eps)
-    return blocks.lm_head_logits_and_loss(rt, model.head, x,
+    x = blocks.embed(rt, params.embed, batch["tokens"], cfg)
+    x = apply_stack(rt, params.layers, x, cfg, causal=True, remat=remat)
+    x = blocks.rmsnorm(params.final_norm, x, cfg.norm_eps)
+    return blocks.lm_head_logits_and_loss(rt, params.head, x,
                                           batch["labels"], cfg)

@@ -7,7 +7,12 @@ in float32 and is cast once to the parameter dtype (and the state dtype).
 and order the decay differently. The update is written into the parameter
 and moment tensors in place, which saves holding a second copy of them
 (15 GB of f32 moments at full width); ``apply`` returns them for the JAX
-call shape. The step counter is a host integer and the scalars derived
+call shape. Under sharded storage (``train.step``) the step runs it over
+each unique parameter shard once: ``state_partition`` gives the moments
+of those shards, views of the moment tensors, the counterpart of the JAX
+``state_partition`` (moments shard-local), and ``global_norm`` over the
+unique shards is the norm of the whole gradients. The step counter is a
+host integer and the scalars derived
 from it are float32 CPU tensors, so a step reads nothing back from the
 device.
 """
@@ -48,6 +53,16 @@ def init_state(params: Sequence[torch.Tensor], cfg: AdamWConfig) -> Dict:
     }
 
 
+def state_partition(state: Dict, index: Sequence[Tuple[int, Tuple]]
+                    ) -> Dict:
+    """The state of the parameter shards ``index`` ((leaf, block) pairs,
+    as ``dist.sharding.shard_slices`` gives blocks): each moment a view of
+    its leaf's block, so ``apply`` writes the leaf's moments in place."""
+    return {"mu": [state["mu"][i][sl] for i, sl in index],
+            "nu": [state["nu"][i][sl] for i, sl in index],
+            "step": state["step"]}
+
+
 def _f32(x) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
@@ -64,6 +79,8 @@ def schedule(step: int, cfg: AdamWConfig) -> torch.Tensor:
 
 
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The l2 norm over every element of ``grads`` (whole leaves, or the
+    unique shards of them: each element counted once)."""
     leaves = [torch.sum(torch.square(g.float())) for g in grads]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 

@@ -22,12 +22,17 @@ import torch
 
 
 def quantize_int8(x: torch.Tensor,
-                  generator: Optional[torch.Generator] = None
+                  generator: Optional[torch.Generator] = None,
+                  amax: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor symmetric int8 quantisation -> (int8 values, f32 scale);
-    stochastic rounding when ``generator`` is given (on x's device)."""
+    stochastic rounding when ``generator`` is given (on x's device).
+    ``amax`` is the tensor's max |value| when ``x`` is a shard of it
+    (default: x's own)."""
     xf = x.float()
-    scale = torch.clamp_min(xf.abs().max(), 1e-12) / 127.0
+    if amax is None:
+        amax = xf.abs().max()
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
     y = xf / scale
     if generator is not None:
         y = torch.floor(y + torch.rand(y.shape, generator=generator,
@@ -41,12 +46,22 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def int8_roundtrip(grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def int8_roundtrip(grads: Sequence[torch.Tensor],
+                   leaves: Optional[Sequence[int]] = None
+                   ) -> List[torch.Tensor]:
     """The compressed reduction's values (deterministic rounding), each in
-    its gradient's dtype."""
+    its gradient's dtype. ``leaves[i]`` names the leaf ``grads[i]`` is a
+    shard of (default: every gradient a whole leaf): the scale of each
+    leaf is taken over all of its shards, as the JAX round trip takes it
+    over the global array."""
+    leaves = range(len(grads)) if leaves is None else leaves
+    amax: dict = {}
+    for g, k in zip(grads, leaves):
+        m = g.float().abs().max()
+        amax[k] = m if k not in amax else torch.maximum(amax[k], m)
     out = []
-    for g in grads:
-        q, s = quantize_int8(g)
+    for g, k in zip(grads, leaves):
+        q, s = quantize_int8(g, amax=amax[k])
         out.append(dequantize_int8(q, s).to(g.dtype))
     return out
 

@@ -31,6 +31,7 @@ from typing import Dict, List, Optional, Sequence
 from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
 from repro_torch.core.scheduler import ClusterModel
 from repro_torch.dist.meshes import PLACEMENTS
+from repro_torch.dist.sharding import check_rules
 from repro_torch.kernels.dispatch import IMPLS, resolve_impl
 from repro_torch.models.transformer import REMATS
 from repro_torch.plan import cost
@@ -39,9 +40,8 @@ from repro_torch.plan import cost
 # JAX plan fields the port cannot honour yet: (field, default, ROADMAP.md
 # item that ports them); ``ExecutionPlan.load`` raises on any other value
 _UNPORTED_FIELDS = (
-    ("pod", 1, "§A item 2, multi-pod meshes"),
+    ("pod", 1, "§A item 1, multi-pod meshes"),
     ("mesh_kind", "local", "§A item 1, meshes of several cards"),
-    ("sharding_rules", "default", "§A item 2, FSDP sharding rules"),
     ("unroll_scans", False, "§A item 9, the dry run"),
 )
 
@@ -81,6 +81,8 @@ class ExecutionPlan:
     microbatches: int = 1
     comm_chunks: int = 1           # ring-transfer sub-chunks
     grad_compression: str = "none"  # 'none' | 'int8' (optim/grad.py)
+    sharding_rules: str = "default"  # 'default' | 'fsdp' | 'tp'
+    #                                  (dist/sharding.py)
 
     @property
     def sp_size(self) -> int:
@@ -162,6 +164,7 @@ class ExecutionPlan:
         if self.remat not in REMATS:
             raise ValueError(f"remat must be one of {REMATS}, "
                              f"got {self.remat!r}")
+        check_rules(self.sharding_rules)
         if self.kind == "train":
             if self.global_batch % self.data:
                 raise ValueError(
@@ -184,7 +187,8 @@ class ExecutionPlan:
             block_impl=self.block_impl, kernel_impl=self.kernel_impl,
             block_skip=self.block_skip, remat=self.remat,
             grad_compression=self.grad_compression,
-            comm_chunks=self.comm_chunks)
+            comm_chunks=self.comm_chunks,
+            sharding_rules=self.sharding_rules)
 
     def build_mesh(self):
         """The ``ThreadMesh`` of the plan's ranks; None for one device."""
@@ -251,6 +255,7 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
               kernel_impl: Optional[str] = None,
               remat: str = "attn_out", grad_compression: str = "none",
               comm_chunks: Optional[int] = None,
+              sharding_rules: str = "default",
               cluster: Optional[ClusterModel] = None
               ) -> ExecutionPlan:
     """Resolve one training run into a validated ExecutionPlan.
@@ -270,7 +275,8 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
     (causal load balance) and contiguous otherwise; ring-block skipping is
     on for a sliding window over the contiguous layout. ``block_impl`` /
     ``kernel_impl`` default to 'cuda' (the plain versions on CPU
-    tensors). ``remat`` defaults to 'attn_out', as in the JAX plan.
+    tensors). ``remat`` defaults to 'attn_out', as in the JAX plan;
+    ``sharding_rules`` to 'default'.
     """
     if n_devices % data:
         raise ValueError(f"n_devices={n_devices} not divisible by "
@@ -317,7 +323,7 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
         global_batch=shape.global_batch, kind=shape.kind,
         scheme=picked.scheme, seq_scheme=seq_scheme, remat=remat,
         microbatches=microbatches or 1, comm_chunks=comm_chunks,
-        grad_compression=grad_compression)
+        grad_compression=grad_compression, sharding_rules=sharding_rules)
 
 
 def make_serve_plan(cfg: ModelConfig, *, arch: Optional[str] = None,
@@ -328,6 +334,7 @@ def make_serve_plan(cfg: ModelConfig, *, arch: Optional[str] = None,
                     block_impl: Optional[str] = None,
                     replicas: int = 1, prefix_cache: bool = False,
                     role: str = "unified", host_tier_bytes: int = 0,
+                    sharding_rules: str = "default",
                     cluster: Optional[ClusterModel] = None
                     ) -> ExecutionPlan:
     """Resolve one serving run into a plan (``kind='decode'``).
@@ -353,7 +360,7 @@ def make_serve_plan(cfg: ModelConfig, *, arch: Optional[str] = None,
                         kind="decode")
     base = make_plan(cfg, shape, arch=arch, n_devices=n_devices, data=data,
                      c=c, block_impl=block_impl, kernel_impl=kernel_impl,
-                     cluster=cluster)
+                     sharding_rules=sharding_rules, cluster=cluster)
     return dataclasses.replace(base, decode_batch=decode_batch,
                                page_size=page_size, replicas=replicas,
                                prefix_cache=prefix_cache, role=role,

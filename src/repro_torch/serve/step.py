@@ -20,7 +20,9 @@ prefill: the full forward pass (StarTrail attention: kernel B2 on 'cuda';
   the page pool (kernel B6) and writing the suffix K/V into its pages.
 
 Only dense, all-attention stacks are ported; the per-rank functions take
-the ``Runtime`` (communicator + attention config) and the ``Model``.
+the ``Runtime`` (communicator + attention config) and the rank's parameter
+tree (``models.factory.shard_params`` under ``rt.rules``; at one rank the
+``Model`` itself).
 """
 
 from __future__ import annotations
@@ -71,10 +73,10 @@ def _attn_decode(rt, p, x, cache, cfg: ModelConfig, cache_len,
                                      window=cfg.window, prefix_len=None)
         o = st.decode_attention(q.contiguous(), cache["k"], cache["v"],
                                 pos_new, pos_k, cfg_st, rt.comm)
-    return x + torch.einsum("bshk,hkd->bsd", o, rt.dense(p.wo))
+    return x + blocks.attention_out(rt, p, o)
 
 
-def lm_decode_step(rt, model, cache, tokens, cfg: ModelConfig, cache_len,
+def lm_decode_step(rt, params, cache, tokens, cfg: ModelConfig, cache_len,
                    paged: Optional[paged_cache.PagedTables] = None,
                    return_hidden: bool = False, sampling=None):
     """tokens: (B, 1) int64 (replicated across SP); cache_len: (B,) int32.
@@ -89,17 +91,17 @@ def lm_decode_step(rt, model, cache, tokens, cfg: ModelConfig, cache_len,
       ``paged``. Each seed's key is folded here with the
       sampled token's position, ``cache_len + 1``, from the host copy, so
       solo and batched serving draw the same noise."""
-    x = blocks.embed(rt, model.embed, tokens, cfg, tokens_replicated=True)
-    for i, layer in enumerate(model.layers):
+    x = blocks.embed(rt, params.embed, tokens, cfg, tokens_replicated=True)
+    for i, layer in enumerate(params.layers):
         x = _attn_decode(rt, layer.mixer, x,
                          {"k": cache["k"][i], "v": cache["v"][i]}, cfg,
                          cache_len, paged)
         x = blocks.mlp_block(rt, layer.mlp, x, cfg)
-    x = blocks.rmsnorm(model.final_norm, x, cfg.norm_eps)
+    x = blocks.rmsnorm(params.final_norm, x, cfg.norm_eps)
     if return_hidden:
         return x
     if sampling is None:
-        return sampling_lib.greedy(rt, model.head, x, cfg)
+        return sampling_lib.greedy(rt, params.head, x, cfg)
     if paged is None:
         raise ValueError("sampled decoding needs the paged tables' host "
                          "cache lengths (the engine's decode step)")
@@ -107,11 +109,11 @@ def lm_decode_step(rt, model, cache, tokens, cfg: ModelConfig, cache_len,
         sampling_lib.seed_key(s), int(cl) + 1)
         for s, cl in zip(sampling["seeds"], paged.cache_len)]
     return sampling_lib.sample(
-        rt, model.head, x, cfg, temperature=sampling["temperature"],
+        rt, params.head, x, cfg, temperature=sampling["temperature"],
         top_k=sampling["top_k"], top_p=sampling["top_p"], keys=keys)
 
 
-def lm_prefill(rt, model, tokens, cfg: ModelConfig,
+def lm_prefill(rt, params, tokens, cfg: ModelConfig,
                prompt_len: Optional[torch.Tensor] = None,
                return_hidden: bool = False):
     """Full forward pass over the prompt, collecting the serving cache.
@@ -127,16 +129,16 @@ def lm_prefill(rt, model, tokens, cfg: ModelConfig,
     return_hidden: return the (B, 1, D) pre-head hidden state (replicated
       across SP) instead of a greedily sampled token.
     """
-    x = blocks.embed(rt, model.embed, tokens, cfg)
+    x = blocks.embed(rt, params.embed, tokens, cfg)
     ks, vs = [], []
-    for layer in model.layers:
+    for layer in params.layers:
         x, (k, v) = blocks.attention_block(
             rt, layer.mixer, x, cfg, causal=True, window=cfg.window,
             return_kv=True)
         ks.append(k)
         vs.append(v)
         x = blocks.mlp_block(rt, layer.mlp, x, cfg)
-    x = blocks.rmsnorm(model.final_norm, x, cfg.norm_eps)
+    x = blocks.rmsnorm(params.final_norm, x, cfg.norm_eps)
     if prompt_len is None:
         # the last position: the last rank's final slot (contiguous layout)
         last = x[:, -1:, :]
@@ -154,7 +156,7 @@ def lm_prefill(rt, model, tokens, cfg: ModelConfig,
     cache = (torch.stack(ks), torch.stack(vs))
     if return_hidden:
         return last, cache
-    return sampling_lib.greedy(rt, model.head, last, cfg), cache
+    return sampling_lib.greedy(rt, params.head, last, cfg), cache
 
 
 def _attn_prefill_paged(rt, p, x, cache, cfg: ModelConfig, cached_len: int,
@@ -201,12 +203,12 @@ def _attn_prefill_paged(rt, p, x, cache, cfg: ModelConfig, cached_len: int,
         q.contiguous(), kg.contiguous(), vg.contiguous(), pos_loc, pos_all,
         causal=True, window=cfg.window, impl=rt.kernel_impl)
     o, _ = combine_pair(o_pre, lse_pre, o_suf, lse_suf)
-    x = x + torch.einsum("bshk,hkd->bsd", o.to(x.dtype), rt.dense(p.wo))
+    x = x + blocks.attention_out(rt, p, o.to(x.dtype))
     paged_cache.write_blocks(cache, kg[0], vg[0], targets)
     return x
 
 
-def lm_prefill_paged(rt, model, tokens, cfg: ModelConfig, *, prompt_len: int,
+def lm_prefill_paged(rt, params, tokens, cfg: ModelConfig, *, prompt_len: int,
                      cached_len: int, pools, table_row: np.ndarray,
                      page_size: int):
     """Prefix-cached prefill: forward only the prompt *suffix*, reading the
@@ -227,13 +229,13 @@ def lm_prefill_paged(rt, model, tokens, cfg: ModelConfig, *, prompt_len: int,
     cached = torch.tensor([cached_len], dtype=torch.int32, device=dev)
     targets = paged_cache.block_targets(
         rt, table_row, cached_len, prompt_len - cached_len, page_size)
-    x = blocks.embed(rt, model.embed, tokens, cfg)
-    for i, layer in enumerate(model.layers):
+    x = blocks.embed(rt, params.embed, tokens, cfg)
+    for i, layer in enumerate(params.layers):
         x = _attn_prefill_paged(
             rt, layer.mixer, x, {"k": pools["k"][i], "v": pools["v"][i]},
             cfg, cached_len, table, cached, targets, page_size)
         x = blocks.mlp_block(rt, layer.mlp, x, cfg)
-    x = blocks.rmsnorm(model.final_norm, x, cfg.norm_eps)
+    x = blocks.rmsnorm(params.final_norm, x, cfg.norm_eps)
     # prompt_len - 1 sits at suffix offset prompt_len - 1 - cached_len on
     # exactly one (rank, slot): a one-hot contraction plus psum broadcasts it
     pos = rt.positions_contig(x.shape[1])

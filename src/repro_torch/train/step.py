@@ -6,38 +6,54 @@ per device; the port runs the same per-rank code eagerly under autograd:
 on one card through ``SingleComm`` (P = 1, one data replica), or as the
 ranks of a ``dist.comm.ThreadMesh`` (data replicas times SP ranks, threads
 of one process on the CPU or on one card), whose collectives carry
-gradients. Every rank's loss is the replicated global loss and its
-backward seeds 1, so gradients leave ``value_and_grad`` reduced as the JAX
-``reduce_leaf`` does: in f32, times 1/n_devices, summed over the data and
-SP axes (the port stores every parameter whole, so no axis is
-"mentioned"; the identity on one card), then cast once to the parameter
-dtype.
+gradients.
 
-On a ``ThreadMesh``, ``build_train_step``'s step takes the global batch
-(its sequence in SP shard order, as ``data.pipeline`` lays it out), runs
-``value_and_grad`` on every rank thread over the rank's part of it
-(``shard_batch``), and then AdamW once, on the reduced gradients of the
-first thread (every rank's are the same bits: the mesh sums each group in
-one order). The other ranks drop theirs as each leaf is reduced: on one
-card the P ranks' gradients share its memory.
+Storage. Each rank reads its parameters as the rule set
+``run_cfg.sharding_rules`` stores them (``dist.sharding``): every call
+takes fresh views of the rank's shards of the ``Model``'s tensors as
+leaves of their own (``factory.shard_params(trainable=True)``), so
+autograd returns gradients of the shards' shapes.
+
+Reduction. Every rank's loss is the replicated global loss and its
+backward seeds 1, so ``value_and_grad`` reduces each leaf as the JAX
+``reduce_leaf`` does: in f32, times 1/n_devices, summed over the mesh axes
+(of more than one member) that the leaf's layout does not mention, then
+cast once to the parameter dtype. The FSDP dims were reduce-scattered
+already by the backward of ``Runtime.dense``'s gather; under ``default``
+at one data replica the MLP weights and the vocab tables take no sum at
+all. The reduction counts in the communicator's ledger as backward traffic
+(``dist.comm.CommLedger``).
+
+Update. On a ``ThreadMesh``, ``build_train_step``'s step takes the global
+batch (its sequence in SP shard order, as ``data.pipeline`` lays it out)
+and runs ``value_and_grad`` on every rank thread over the rank's part of
+it (``shard_batch``). Each unique shard's reduced gradient is kept by one
+owner (``dist.sharding.owns``; its replicas hold the same bits: the mesh
+sums each group in one order), and the other ranks drop theirs as each
+leaf is reduced. AdamW then runs once over the unique shards, on views of
+the parameters and of the moments (``adamw.state_partition``), so each
+unique shard is updated exactly once. On one card a leaf's unique shards
+tile it, so the moments are kept as whole tensors: they hold exactly the
+shards' moments, and checkpoints keep the JAX format of whole leaves.
 
 With ``microbatches = M > 1`` the step accumulates gradients as the JAX
 ``_make_vg_island`` does: the per-device batch is cut into M equal slices
 of consecutive rows, each slice's gradients (in the parameter dtype) are
-added into f32 accumulators, and loss and gradients are the sums over M,
-before the reduction above. With ``grad_compression='int8'`` the step
-passes the reduced gradients through ``optim.grad.int8_roundtrip`` before
-AdamW, as the JAX step does.
+added into f32 accumulators of the shards' shapes, and loss and gradients
+are the sums over M, before the reduction above. With
+``grad_compression='int8'`` the step passes the reduced gradients through
+``optim.grad.int8_roundtrip`` before AdamW, as the JAX step does, with
+each leaf's per-tensor scale taken over all of its unique shards (JAX
+quantises the global array).
 
 ``attention_scheme`` selects the runtime's attention: 'startrail' and
 'ring' (its C = 1 point) run ``core.startrail`` with the plan's
 ``comm_chunks``; 'ulysses' runs ``core.ulysses`` on
-the layers whose head counts divide P. The gradient reduction counts in
-the communicator's ledger as backward traffic (``dist.comm.CommLedger``).
+the layers whose head counts divide P.
 
-Not ported yet, and raising with its ROADMAP.md item: ``multi_pod`` (§A).
-Ranks on several cards wait for the multi-process communicator (the main
-path).
+Not ported yet, and raising with its ROADMAP.md item: ``multi_pod`` (§A
+item 1). Ranks on several cards wait for the multi-process communicator
+(the main path).
 """
 
 from __future__ import annotations
@@ -48,19 +64,22 @@ import torch
 
 from repro_torch.configs.base import RunConfig, ShapeConfig
 from repro_torch.core.startrail import StarTrailConfig
+from repro_torch.dist import sharding
 from repro_torch.dist.comm import SingleComm, ThreadMesh
-from repro_torch.dist.sharding import DATA_AXIS
-from repro_torch.models.factory import Model
+from repro_torch.dist.sharding import DATA_AXIS, MESH_AXES
+from repro_torch.models.factory import Model, shard_blocks, shard_params
 from repro_torch.models.runtime import Runtime
 from repro_torch.optim import adamw
 from repro_torch.optim import grad as grad_lib
 
 COMPRESSIONS = ("none", "int8")
+# (leaf index in ``named_parameters`` order, its block, reduced gradient)
+Shard = Tuple[int, Tuple[slice, ...], torch.Tensor]
 
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md §A)")
+        f"{what} is not ported to repro_torch yet (ROADMAP.md §A item 1)")
 
 
 def make_runtime(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
@@ -87,19 +106,8 @@ def make_runtime(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
     return Runtime(comm=comm, st_cfg=st, attention_impl=impl,
                    kernel_impl=run_cfg.kernel_impl, device=model.device,
                    batch_axes=(DATA_AXIS,) if comm.axis_size(DATA_AXIS) > 1
-                   else ())
-
-
-def trainable(model: Model) -> Tuple[List[str], List[torch.nn.Parameter]]:
-    """The model's parameters in ``named_parameters`` order, made trainable:
-    ``spec.build_module`` registers them frozen, which the serving engine
-    keeps, and autograd returns no gradient for a frozen leaf."""
-    names, params = [], []
-    for name, p in model.named_parameters():
-        p.requires_grad_(True)
-        names.append(name)
-        params.append(p)
-    return names, params
+                   else (), rules=sharding.check_rules(
+                       run_cfg.sharding_rules))
 
 
 def shard_batch(batch: Dict[str, torch.Tensor], rt: Runtime
@@ -119,19 +127,41 @@ def shard_batch(batch: Dict[str, torch.Tensor], rt: Runtime
     return out
 
 
-def _value_and_grad(model: Model, run_cfg: RunConfig, rt: Runtime,
-                    params: List[torch.nn.Parameter]) -> Callable:
+def reduce_leaf(rt: Runtime, g: torch.Tensor, layout: sharding.Layout,
+                dtype: torch.dtype) -> torch.Tensor:
+    """JAX's ``reduce_leaf``: this rank's gradient ``g`` of a leaf shard
+    stored under ``layout``, in f32 times 1/n_devices, summed over the
+    mesh axes (of more than one member) the layout does not mention, then
+    cast once to ``dtype``. Every rank of a leaf sums over the same axes,
+    so the collectives meet. The result is contiguous: autograd may
+    return a leaf's gradient transposed (the vocab rows' from the logits'
+    product), and the norm and AdamW then reduce it in another order."""
+    comm = rt.comm
+    g32 = g.float().contiguous() * (
+        1.0 / (rt.sp_size() * comm.axis_size(DATA_AXIS)))
+    skip = sharding.mentioned(layout)
+    axes = tuple(a for a in MESH_AXES
+                 if a not in skip and comm.axis_size(a) > 1)
+    if axes:
+        g32 = comm.psum(g32, axes)
+    return g32.to(dtype)
+
+
+def _value_and_grad(model: Model, run_cfg: RunConfig, rt: Runtime
+                    ) -> Callable:
     if run_cfg.grad_compression not in COMPRESSIONS:
         raise ValueError(f"grad_compression must be one of {COMPRESSIONS}, "
                          f"got {run_cfg.grad_compression!r}")
-    inv = 1.0 / (rt.sp_size() * rt.comm.axis_size(DATA_AXIS))
+    comm = rt.comm
     mb = max(run_cfg.microbatches, 1)
+    layouts = model.partition(rt.rules)
+    owner = {n: sharding.owns(lay, comm) for n, lay in layouts.items()}
 
-    def loss_and_grads(batch):
-        loss = model.loss(rt, batch, remat=run_cfg.remat)
-        return loss, list(torch.autograd.grad(loss, params))
+    def loss_and_grads(params, leaves, batch):
+        loss = model.loss(rt, params, batch, remat=run_cfg.remat)
+        return loss, list(torch.autograd.grad(loss, leaves))
 
-    def accumulate(batch):
+    def accumulate(params, leaves, batch):
         rows = next(iter(batch.values())).shape[0]
         if rows % mb:
             raise ValueError(f"per-device batch {rows} not divisible by "
@@ -139,9 +169,10 @@ def _value_and_grad(model: Model, run_cfg: RunConfig, rt: Runtime,
         n = rows // mb
         loss_sum = torch.zeros((), dtype=torch.float32, device=rt.device)
         g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for p in params]
+                 for p in leaves]
         for i in range(mb):
             l_mb, g_mb = loss_and_grads(
+                params, leaves,
                 {k: v[i * n:(i + 1) * n] for k, v in batch.items()})
             with torch.no_grad():
                 loss_sum += l_mb.float()
@@ -150,20 +181,20 @@ def _value_and_grad(model: Model, run_cfg: RunConfig, rt: Runtime,
             del g_mb
         return loss_sum / mb, [g.div_(mb) for g in g_sum]
 
-    def vg_fn(batch: Dict[str, torch.Tensor], keep: bool = True):
-        loss, grads = (loss_and_grads(batch) if mb == 1
-                       else accumulate(batch))
+    def vg_fn(batch: Dict[str, torch.Tensor], owned_only: bool = False):
+        params = shard_params(model, comm, rt.rules, trainable=True)
+        names, leaves = list(params.named), list(params.named.values())
+        loss, grads = (loss_and_grads(params, leaves, batch) if mb == 1
+                       else accumulate(params, leaves, batch))
         out = []
-        with torch.no_grad(), rt.comm.ledger.backward():
-            for i, p in enumerate(params):
+        with torch.no_grad(), comm.ledger.backward():
+            for i, (name, p) in enumerate(zip(names, leaves)):
                 # reduce in f32, downcast once at the end; the rank's own
                 # gradient goes as soon as it is reduced
-                g = grads[i].float() * inv
+                g = reduce_leaf(rt, grads[i], layouts[name], p.dtype)
                 grads[i] = None
-                g = rt.psum_batch(rt.psum_model(g)).to(p.dtype)
-                if keep:
-                    out.append(g)
-        return loss.detach(), out if keep else None
+                out.append(g if owner[name] or not owned_only else None)
+        return loss.detach(), out
 
     return vg_fn
 
@@ -172,31 +203,62 @@ def build_value_and_grad_fn(model: Model, run_cfg: RunConfig,
                             shape: ShapeConfig, comm=None
                             ) -> Tuple[Callable, Runtime]:
     """Returns (vg_fn, rt) with vg_fn(batch) -> (loss, grads): the loss and
-    the reduced gradient of every parameter, in ``trainable(model)`` order,
-    on the rank ``comm`` (one card by default; a ``ThreadMesh`` rank's
-    ``comm`` inside its ``run``). ``batch`` is the rank's part of the
-    global batch (``shard_batch``). ``vg_fn(batch, keep=False)`` takes
-    part in the reduction but keeps none of it (grads None)."""
+    the reduced gradient of the rank's shard of every parameter, in
+    ``named_parameters`` order, on the rank ``comm`` (one card by default,
+    where every shard is the whole leaf; a ``ThreadMesh`` rank's ``comm``
+    inside its ``run``). ``batch`` is the rank's part of the global batch
+    (``shard_batch``). ``vg_fn(batch, owned_only=True)`` takes part in the
+    reduction but keeps only the shards this rank owns (None elsewhere)."""
     rt = make_runtime(model, run_cfg, shape, comm)
-    _, params = trainable(model)
-    return _value_and_grad(model, run_cfg, rt, params), rt
+    return _value_and_grad(model, run_cfg, rt), rt
+
+
+def _shard_grads_fn(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
+                    comm, timeout: float = 600.0) -> Callable:
+    """fn(global batch) -> (loss, shards): every unique shard's reduced
+    gradient once, from its owner (module doc), as ``Shard`` triples
+    ordered by leaf. ``comm`` is a ``ThreadMesh`` or one card's
+    ``SingleComm``."""
+    def fn(batch: Dict[str, torch.Tensor]):
+        def rank_fn(rank_comm):
+            rt = make_runtime(model, run_cfg, shape, rank_comm)
+            loss, grads = _value_and_grad(model, run_cfg, rt)(
+                shard_batch(batch, rt), owned_only=True)
+            return loss, [(i, sl, g) for i, (sl, g) in enumerate(
+                zip(shard_blocks(model, rank_comm, rt.rules), grads))
+                if g is not None]
+
+        out = (comm.run(rank_fn, timeout) if isinstance(comm, ThreadMesh)
+               else [rank_fn(comm)])
+        shards = sorted((s for _, rank in out for s in rank),
+                        key=lambda s: s[0])
+        return out[0][0], shards
+
+    return fn
+
+
+def assemble(params: List[torch.Tensor], shards: List[Shard]
+             ) -> List[torch.Tensor]:
+    """Whole tensors shaped like ``params`` from their unique shards."""
+    whole = [torch.empty_like(p) for p in params]
+    for i, sl, g in shards:
+        whole[i][sl] = g
+    return whole
 
 
 def build_mesh_value_and_grad_fn(model: Model, run_cfg: RunConfig,
                                  shape: ShapeConfig, mesh: ThreadMesh,
                                  timeout: float = 600.0) -> Callable:
     """vg_fn(batch) -> (loss, grads) over every rank of ``mesh``: ``batch``
-    is the global batch in SP shard order; the gradients are the first
-    thread's reduced ones (each rank's are the same bits)."""
-    _, params = trainable(model)
+    is the global batch in SP shard order; each gradient is whole, in
+    ``named_parameters`` order, assembled from its unique shards' reduced
+    gradients."""
+    fn = _shard_grads_fn(model, run_cfg, shape, mesh, timeout)
+    params = [p for _, p in model.named_parameters()]
 
     def vg_fn(batch: Dict[str, torch.Tensor]):
-        def rank_fn(comm):
-            rt = make_runtime(model, run_cfg, shape, comm)
-            fn = _value_and_grad(model, run_cfg, rt, params)
-            return fn(shard_batch(batch, rt), keep=comm.rank == 0)
-
-        return mesh.run(rank_fn, timeout)[0]
+        loss, shards = fn(batch)
+        return loss, assemble(params, shards)
 
     return vg_fn
 
@@ -204,25 +266,29 @@ def build_mesh_value_and_grad_fn(model: Model, run_cfg: RunConfig,
 def build_train_step(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
                      adam_cfg: adamw.AdamWConfig, comm=None):
     """Returns (step, sh) with step(opt_state, batch) -> (opt_state,
-    metrics). The step updates the model's parameters in place (a PyTorch
-    module owns its parameters); ``sh`` holds the parameter list the
-    optimizer state mirrors (``sh['params']``, ``sh['names']``) and the
-    communicator the step runs on (``sh['comm']``: its ``ledgers`` count
-    the step's wire bytes). With ``comm`` a ``ThreadMesh`` the step runs
-    every rank on the global batch (module doc)."""
+    metrics). The step updates the model's parameters in place, each
+    unique shard once (module doc); ``sh`` holds the whole parameters the
+    optimizer state mirrors (``sh['params']``, ``sh['names']``: give
+    ``adamw.init_state`` the former) and the communicator the step runs on
+    (``sh['comm']``: its ``ledgers`` count the step's wire bytes, the
+    parameter gathers and gradient reductions of the rules included). With
+    ``comm`` a ``ThreadMesh`` the step runs every rank on the global
+    batch."""
     comm = comm or SingleComm()
-    if isinstance(comm, ThreadMesh):
-        vg_fn = build_mesh_value_and_grad_fn(model, run_cfg, shape, comm)
-    else:
-        vg_fn, _ = build_value_and_grad_fn(model, run_cfg, shape, comm)
-    names, params = trainable(model)
+    grads_fn = _shard_grads_fn(model, run_cfg, shape, comm)
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
 
     def step(opt_state, batch):
-        loss, grads = vg_fn(batch)
+        loss, shards = grads_fn(batch)
+        index = [(i, sl) for i, sl, _ in shards]
+        grads = [g for _, _, g in shards]
         if run_cfg.grad_compression == "int8":
-            grads = grad_lib.int8_roundtrip(grads)
-        _, opt_state, metrics = adamw.apply(params, grads, opt_state,
-                                            adam_cfg)
+            grads = grad_lib.int8_roundtrip(grads, [i for i, _ in index])
+        state = adamw.state_partition(opt_state, index)
+        _, state, metrics = adamw.apply(
+            [params[i][sl] for i, sl in index], grads, state, adam_cfg)
+        opt_state["step"] = state["step"]
         metrics["loss"] = loss
         return opt_state, metrics
 
@@ -233,10 +299,11 @@ def build_loss_fn(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
                   comm=None) -> Tuple[Callable, Runtime]:
     """Loss only (eval): fn(batch) -> loss, with no autograd graph."""
     rt = make_runtime(model, run_cfg, shape, comm)
+    params = shard_params(model, rt.comm, rt.rules)
 
     def fn(batch):
         with torch.no_grad():
-            return model.loss(rt, batch, remat=run_cfg.remat)
+            return model.loss(rt, params, batch, remat=run_cfg.remat)
 
     return fn, rt
 

@@ -6,9 +6,11 @@ The run is described by a ``repro_torch.plan.ExecutionPlan``: the trainer
 builds its train step from the plan. It runs on the CUDA card unless the
 caller passes ``device='cpu'``. A plan with ``n_devices > 1`` runs its
 ranks as the threads of a ``ThreadMesh`` (``plan.build_mesh``) on that
-device: each step hands the global batch to every rank and updates the
-parameters once. Parameters are stored whole, so checkpoints do not
-depend on the plan.
+device: each step hands the global batch to every rank and updates each
+unique parameter shard once (``train.step``). The ``Model`` holds every
+parameter whole and the AdamW moments are whole tensors whose blocks are
+the unique shards' moments, so a checkpoint does not depend on the plan:
+one written under any mesh and sharding rules restores under any other.
 
 Metrics stay on the device between log boundaries: converting a device
 scalar to ``float`` blocks the host on the step, so the loop buffers the
@@ -35,7 +37,9 @@ Observability, off by default as in the JAX trainer: a ``tracer``
 ``train/ckpt``); a ``registry`` (``obs.Registry``) gets the per-step
 analytical comm-volume counters of ``obs.commlog.CommLog`` and the bytes
 the step's communicator counted in its ledger (rank 0's: every rank of a
-scheme moves the same), which is reset before each step.
+scheme moves the same), which is reset before each step: the whole
+step's, the rules' parameter gathers (again in the recompute), their
+reduce-scatters and the gradient reduction included.
 """
 
 from __future__ import annotations

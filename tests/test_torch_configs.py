@@ -37,6 +37,7 @@ from repro_torch.dist.comm import ThreadMesh
 from repro_torch.models.factory import from_jax_params, to_jax_layout
 from repro_torch.plan import make_serve_plan
 from repro_torch.train import step as train_step
+from test_torch_train_sp import mesh_whole_grads
 
 DENSE = ["h2o-danube-1.8b", "minitron-8b", "deepseek-7b", "stablelm-3b"]
 NEW = ["minitron-8b", "deepseek-7b", "stablelm-3b", "gpt-7b"]
@@ -134,26 +135,20 @@ def test_loss_and_grads_match_jax_at_p1(name):
 @pytest.mark.parametrize("name", NEW)
 def test_loss_and_grads_match_jax_on_a_thread_mesh(name):
     """P = 8 as ``ThreadMesh(c=2, r=2)``: the global batch in zigzag shard
-    order, every rank's reduced gradients the same bits."""
+    order, every gradient leaf assembled whole from the ranks' shards, the
+    replicas of a shard the same bits."""
     ctx = _ctx(name)
     perm = pipeline.shard_permutation(SEQ, 8, "zigzag").reshape(-1)
     batch = {k: torch.from_numpy(np.take(v, perm, axis=1))
              for k, v in ctx["batch"].items()}
-
-    def rank_fn(comm):
-        vg_fn, rt = train_step.build_value_and_grad_fn(
-            ctx["model"], RunConfig(c=2, seq_scheme="zigzag", remat="none"),
-            ShapeConfig("t", SEQ, BATCH, "train"), comm)
-        return vg_fn(train_step.shard_batch(batch, rt))
-
-    out = ThreadMesh(2, 2).run(rank_fn, timeout=120)
-    loss, grads = out[0]
-    assert abs(float(loss) - ctx["loss_j"]) < TOL
+    losses, grads = mesh_whole_grads(
+        ctx["model"], ThreadMesh(2, 2),
+        RunConfig(c=2, seq_scheme="zigzag", remat="none"),
+        ShapeConfig("t", SEQ, BATCH, "train"), batch)
+    assert abs(float(losses[0]) - ctx["loss_j"]) < TOL
     errs = _leaf_errs(name, grads)
     assert np.isfinite(errs).all() and max(errs) < TOL, errs
-    for loss_i, grads_i in out[1:]:
-        assert torch.equal(loss_i, loss)
-        assert all(torch.equal(a, b) for a, b in zip(grads_i, grads))
+    assert all(torch.equal(loss, losses[0]) for loss in losses[1:])
 
 
 def _requests(vocab, cls):

@@ -43,7 +43,7 @@ from repro.train import step as jax_train_step
 from repro_torch import engine as torch_engine
 from repro_torch.dist.comm import ThreadMesh
 from repro_torch.engine import paged_cache
-from repro_torch.models.factory import from_jax_params
+from repro_torch.models.factory import from_jax_params, shard_params
 from repro_torch.plan import make_serve_plan
 from repro_torch.serve import step as serve_step
 
@@ -235,11 +235,12 @@ def test_paged_decode_step_p8_matches_jax_local_mode(arch):
 
     def rank_fn(comm):
         rt = dataclasses.replace(rt0, comm=comm)
+        tree = shard_params(model, comm, rt.rules)   # the rank's shards
         with torch.no_grad():
-            tok = serve_step.lm_decode_step(rt, model, pools[comm.rank],
+            tok = serve_step.lm_decode_step(rt, tree, pools[comm.rank],
                                             tok_t, cfg, cl_t, paged)
             hid = serve_step.lm_decode_step(
-                rt, model, {n: t.clone() for n, t in pools[comm.rank].items()},
+                rt, tree, {n: t.clone() for n, t in pools[comm.rank].items()},
                 tok_t, cfg, cl_t, paged, return_hidden=True)
         return tok, hid
 

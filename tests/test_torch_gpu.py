@@ -782,6 +782,44 @@ def test_recompute_reruns_the_attention_forward(cuda_device, remat):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rules", ["default", "fsdp", "tp"])
+def test_mesh_step_under_rules_matches_cpu(cuda_device, rules):
+    """One train step of the smoke model (head width 32, which the kernels
+    take) on ``ThreadMesh(c=2, r=1, data=2)`` threads under each sharding
+    rule set, on the card and on the CPU from the same weights and batch:
+    loss, gradient norm and every updated parameter within 2e-3."""
+    import copy
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.plan import make_plan
+
+    cfg = dataclasses.replace(registry.get_smoke("h2o-danube-1.8b"),
+                              head_dim=32)
+    cpu = build_model(cfg, device="cpu", seed=0)
+    plan = make_plan(cfg, ShapeConfig("t", 64, 2, "train"), n_devices=8,
+                     data=2, c=2, sharding_rules=rules)
+    batch = SyntheticLM(cfg, plan.shape_config(), seed=0,
+                        sp_size=plan.sp_size).get_batch(0)
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = copy.deepcopy(cpu).to(dev)
+        step, sh = plan.build_train_step(model, adam)
+        _, m = step(adamw.init_state(sh["params"], adam),
+                    {k: _t(v).to(dev) for k, v in batch.items()})
+        out[dev.type] = (m, [p.detach().cpu() for p in sh["params"]])
+    (m_gpu, p_gpu), (m_cpu, p_cpu) = out["cuda"], out["cpu"]
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m_gpu[key]) - float(m_cpu[key])) < 2e-3, key
+    assert max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu)) \
+        < 2e-3
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("route", FWD_ROUTES)
 @pytest.mark.parametrize("case", sorted(MMA_FWD_CASES))
 def test_fwd_tensor_core_tiles_match_plain(cuda_device, case, route):

@@ -36,7 +36,8 @@ from repro_torch.core import startrail as st
 from repro_torch.dist.comm import SingleComm, ThreadMesh
 from repro_torch.kernels import ragged_prefill
 from repro_torch.launch import serve
-from repro_torch.models.factory import build_model, from_jax_params
+from repro_torch.models.factory import (build_model, from_jax_params,
+                                        shard_params)
 from repro_torch.models.runtime import Runtime
 from repro_torch.plan import make_serve_plan
 from repro_torch.serve import kv_cache
@@ -131,8 +132,9 @@ def test_contiguous_decode_on_two_ranks_matches_one():
         cache = {n: full[n][:, :, r * s:(r + 1) * s].clone()
                  for n in ("k", "v")}
         with torch.no_grad():
-            hidden = serve_step.lm_decode_step(rt, model, cache, tokens, cfg,
-                                               cache_len, return_hidden=True)
+            hidden = serve_step.lm_decode_step(
+                rt, shard_params(model, comm), cache, tokens, cfg, cache_len,
+                return_hidden=True)
         return hidden, cache
 
     h1, c1 = run(SingleComm())

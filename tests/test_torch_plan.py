@@ -315,9 +315,8 @@ def test_plan_file_from_jax(tmp_path):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("pod", 2, "§A item 2"), ("mesh_kind", "production", "§A item 1"),
-    ("sharding_rules", "fsdp", "§A item 2"), ("unroll_scans", True,
-                                              "§A item 9")])
+    ("pod", 2, "§A item 1"), ("mesh_kind", "production", "§A item 1"),
+    ("unroll_scans", True, "§A item 9")])
 def test_plan_file_unported_values_raise(field, value, item, tmp_path):
     _, d = _jax_plan_dict()
     d[field] = value

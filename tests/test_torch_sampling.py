@@ -121,12 +121,14 @@ def test_sample_matches_jax_given_its_noise(kind, P):
     noise = np.asarray(jax.vmap(lambda k: jax.random.gumbel(
         jax.random.fold_in(k, 0), (V,), jnp.float32))(keys))
     cfg = _cfg(ModelConfig, vocab)
-    head = types.SimpleNamespace(table=torch.from_numpy(table))
 
     def run(comm):
         rt = _torch_rt(comm)
         v_loc = V // rt.sp_size()
         lo = rt.sp_rank() * v_loc
+        # the rank's stored vocab rows
+        head = types.SimpleNamespace(
+            table=torch.from_numpy(table)[lo:lo + v_loc])
         return sampling.sample(
             rt, head, torch.from_numpy(xb), cfg,
             temperature=torch.from_numpy(temp),

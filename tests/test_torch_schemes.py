@@ -53,6 +53,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models.factory import from_jax_params, to_jax_layout
 from repro_torch.plan import cost, make_plan
 from repro_torch.train import step as train_step
+from test_torch_train_sp import mesh_whole_grads
 
 ARCH = "h2o-danube-1.8b"
 SEQ, BATCH = 32, 2
@@ -117,12 +118,12 @@ def test_baselines_match_jax_local_mode(scheme):
     loss_j, grads_j = jax.jit(jax.value_and_grad(lambda p: ctx[
         "model_j"].loss(rt_j, p, ctx["batch"], remat="none")))(ctx["tree"])
     model = _model()
-    out = _mesh_vg(model, ThreadMesh(1, 4, data=2),
-                   RunConfig(c=1, attention_scheme=scheme, remat="none"),
-                   ShapeConfig("test", SEQ, BATCH, "train"),
-                   _sharded(ctx["batch"], 4))
-    loss, grads, ledger = out[0]
-    assert abs(float(loss) - float(loss_j)) < TOL
+    mesh = ThreadMesh(1, 4, data=2)
+    losses, grads = mesh_whole_grads(
+        model, mesh, RunConfig(c=1, attention_scheme=scheme, remat="none"),
+        ShapeConfig("test", SEQ, BATCH, "train"), _sharded(ctx["batch"], 4))
+    ledger = mesh.ledgers[0].snapshot()
+    assert abs(float(losses[0]) - float(loss_j)) < TOL
     names = [n for n, _ in model.named_parameters()]
     got = to_jax_layout(dict(zip(names, grads)), ctx["cfg"])
     errs = jax.tree_util.tree_leaves_with_path(jax.tree.map(
@@ -131,9 +132,7 @@ def test_baselines_match_jax_local_mode(scheme):
     assert len(errs) == 12
     worst = max(errs, key=lambda kv: kv[1])
     assert np.isfinite(worst[1]) and worst[1] < TOL, worst
-    for loss_i, grads_i, _ in out[1:]:
-        assert torch.equal(loss_i, loss)
-        assert all(torch.equal(a, b) for a, b in zip(grads_i, grads))
+    assert all(torch.equal(loss, losses[0]) for loss in losses[1:])
     # the scheme's collectives, and nothing of the other's
     used, unused = (("all-to-all", "collective-permute")
                     if scheme == "ulysses"

@@ -11,7 +11,8 @@ autograd, through the differentiable collectives of ``dist.comm``.
   (2, 1, 2) (``spmd_dense_swa``), (1, 4, 2) (``spmd_dense_c1``) and (2, 2, 1)
   (P = 8, a team and a ring) against the JAX local mode's
   ``jax.value_and_grad(model.loss)``, within 2e-3 (``check_spmd_model``'s
-  bound); every rank's reduced gradients are the same bits.
+  bound), each leaf assembled whole from the ranks' shards (``default``
+  rules); every rank's loss, and every replica of a shard, the same bits.
 * ``remat='attn_out'`` at (2, 2, 1) equals ``'none'`` within f32 rounding.
 * ``microbatches=4`` against 1 at (2, 1, 2), f32, seq 64, batch 8, within
   5e-5 (``check_microbatch_equiv``).
@@ -54,7 +55,8 @@ from repro_torch.data import pipeline
 from repro_torch.dist import meshes
 from repro_torch.dist.comm import ThreadMesh
 from repro_torch.launch import mesh as launch_mesh
-from repro_torch.models.factory import from_jax_params, to_jax_layout
+from repro_torch.models.factory import (from_jax_params, shard_blocks,
+                                        to_jax_layout)
 from repro_torch.optim import adamw
 from repro_torch.plan import make_plan
 from repro_torch.train import step as train_step
@@ -99,6 +101,34 @@ def _mesh_vg(model, mesh, run_cfg, shape, batch):
     return mesh.run(rank_fn, timeout=120)
 
 
+def mesh_whole_grads(model, mesh, run_cfg, shape, batch):
+    """(every rank's loss, every gradient leaf whole): each rank's reduced
+    shard gradients (``build_value_and_grad_fn`` on the rank) put in their
+    blocks; the replicas of a block must hold the same bits, and the
+    blocks must cover every leaf."""
+    def rank_fn(comm):
+        vg_fn, rt = train_step.build_value_and_grad_fn(model, run_cfg, shape,
+                                                       comm)
+        loss, grads = vg_fn(train_step.shard_batch(batch, rt))
+        return loss, grads, shard_blocks(model, comm, rt.rules)
+
+    out = mesh.run(rank_fn, timeout=120)
+    whole = [torch.full(p.shape, float("nan"), dtype=p.dtype)
+             for p in model.parameters()]
+    seen = {}
+    for _, grads, blocks in out:
+        for i, (g, block) in enumerate(zip(grads, blocks)):
+            assert g.shape == whole[i][block].shape
+            key = (i, tuple((b.start, b.stop) for b in block))
+            if key in seen:
+                assert torch.equal(seen[key], g), key
+            else:
+                seen[key] = g
+                whole[i][block] = g
+    assert all(not torch.isnan(w).any() for w in whole)
+    return [loss for loss, _, _ in out], whole
+
+
 def _jax_value_and_grad(remat="none"):
     ctx = _ctx()
     shape_j = JaxShapeConfig("test", seq_len=SEQ, global_batch=BATCH,
@@ -130,21 +160,18 @@ def test_loss_and_grads_match_jax_local_mode(c, r, data):
     loss_j, grads_j = _jax_value_and_grad()
     model = from_jax_params(ctx["tree"], ctx["cfg"], "cpu")
     mesh = ThreadMesh(c, r, data)
-    out = _mesh_vg(model, mesh, RunConfig(c=c, seq_scheme="zigzag",
-                                          remat="none"),
-                   ShapeConfig("test", SEQ, BATCH, "train"),
-                   _sharded(ctx["batch"], c * c * r))
-    assert len(out) == 8
-    loss, grads = out[0]
-    assert abs(float(loss) - float(loss_j)) < TOL
+    losses, grads = mesh_whole_grads(
+        model, mesh, RunConfig(c=c, seq_scheme="zigzag", remat="none"),
+        ShapeConfig("test", SEQ, BATCH, "train"),
+        _sharded(ctx["batch"], c * c * r))
+    assert len(losses) == 8
+    assert abs(float(losses[0]) - float(loss_j)) < TOL
     leaves = _max_errs(model, grads, grads_j)
     assert len(leaves) == len(jax.tree.leaves(grads_j)) == 12
     worst = max(leaves, key=lambda kv: kv[1])
     assert np.isfinite(worst[1]) and worst[1] < TOL, worst
     # the mesh sums every group in one order: all ranks hold the same bits
-    for loss_i, grads_i in out[1:]:
-        assert torch.equal(loss_i, loss)
-        assert all(torch.equal(a, b) for a, b in zip(grads_i, grads))
+    assert all(torch.equal(loss, losses[0]) for loss in losses[1:])
 
 
 def test_remat_attn_out_matches_none_on_the_mesh():
