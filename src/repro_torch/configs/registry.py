@@ -1,9 +1,9 @@
 """Architecture registry of the port: ``--arch <id>`` resolution, and the
 paper's own models (``paper_model``).
 
-Only ported architectures are listed: the dense all-attention ones. Any
-other architecture of the JAX package raises, naming the ROADMAP item that
-ports it.
+Only ported architectures are listed: the dense all-attention ones and
+the MoE family (phi3.5-moe, llama4-maverick). Any other architecture of the
+JAX package raises, naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -18,14 +18,16 @@ _ARCH_MODULES: Dict[str, str] = {
     "minitron-8b": "repro_torch.configs.minitron_8b",
     "deepseek-7b": "repro_torch.configs.deepseek_7b",
     "stablelm-3b": "repro_torch.configs.stablelm_3b",
+    "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe_42b_a6_6b",
+    "llama4-maverick-400b-a17b":
+        "repro_torch.configs.llama4_maverick_400b_a17b",
 }
 
 # architectures of the JAX reference not yet ported (ROADMAP.md §A8,
 # "Remaining model families", ports them)
 _UNPORTED = (
-    "paligemma-3b",
-    "seamless-m4t-large-v2", "llama4-maverick-400b-a17b",
-    "phi3.5-moe-42b-a6.6b", "xlstm-1.3b", "jamba-1.5-large-398b",
+    "paligemma-3b", "seamless-m4t-large-v2", "xlstm-1.3b",
+    "jamba-1.5-large-398b",
 )
 
 PORTED_ARCHS: List[str] = list(_ARCH_MODULES)

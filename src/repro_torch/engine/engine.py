@@ -16,8 +16,12 @@ prefill by one chunk, admit queued requests into free slots (each
 admission runs its first chunk, the whole prompt when chunking is off),
 then one decode step for every slot whose prefill has completed, then
 evict finished requests. Outputs are identical to serving each request
-alone: attention, MLP and sampling are row-independent and page content is
-per slot.
+alone for dense stacks: attention, MLP and sampling are row-independent and
+page content is per slot. A MoE stack's stream depends on its batch, as the
+JAX engine's does: expert capacity couples the tokens of one prefill and
+the rows of one decode step (the inactive slots' zero tokens among them).
+So a MoE stack refuses chunked prefill and prefix caching (the host tier
+needs the latter), as the JAX engine does.
 
 A prompt's leading chunk runs the full-forward prefill and inserts its K/V
 into the slot's pages; every later chunk, and the uncached suffix of a
@@ -68,13 +72,17 @@ never touch them.
 
 Ranks on several cards are not ported (ROADMAP.md §A item 1).
 
-Prompts and chunks are prefilled at their own length, padded at the end to
-a multiple of ``P_sp * comm_chunks`` when P_sp > 1 so that every rank holds
-an equal contiguous slice and every ring transfer splits evenly: the JAX
-engine pads to power-of-two buckets for its jit caches, but eager PyTorch
-compiles nothing and the kernels mask ragged edges. So
+Dense prompts and chunks are prefilled at their own length, padded at the
+end to a multiple of ``P_sp * comm_chunks`` when P_sp > 1 so that every
+rank holds an equal contiguous slice and every ring transfer splits
+evenly: the JAX engine pads to power-of-two buckets for its jit caches, but
+eager PyTorch compiles nothing and the kernels mask ragged edges. So
 ``prefill_compiles`` / ``decode_compiles`` keep their names in
-``EngineMetrics`` and stay 0. The chunk size keeps the JAX rule:
+``EngineMetrics`` and stay 0. A MoE stack's prompt is padded with zero
+tokens to the JAX bucket, ``bucket_pow2(prompt_len, lcm(P_sp,
+page_size))``: the padding competes for expert capacity (capacity is
+reckoned from the padded token count), so only the JAX bucket gives the
+JAX stream. The chunk size keeps the JAX rule:
 ``prefill_chunk`` rounded up to a power-of-two multiple of
 ``lcm(P_sp, page_size)``, so chunk boundaries are page-aligned.
 """
@@ -94,6 +102,7 @@ from repro_torch.dist.sharding import DATA_AXIS
 from repro_torch.engine import kv_connector, paged_cache, sampling
 from repro_torch.engine.scheduler import (Rejection, Request, Scheduler,
                                           SlotState, bucket_pow2)
+from repro_torch.models import transformer
 from repro_torch.models.factory import Model, RankParams, shard_params
 from repro_torch.models.runtime import Runtime
 from repro_torch.train import step as train_step
@@ -267,6 +276,18 @@ class Engine:
         eng = dataclasses.replace(
             eng, max_slots=plan.decode_batch, page_size=plan.page_size,
             max_len=plan.seq_len)
+        self.moe = transformer.has_moe(cfg)
+        if self.moe and eng.prefill_chunk > 0:
+            # a chunk's tokens would compete for expert capacity without
+            # the rest of the prompt: chunked != monolithic
+            raise NotImplementedError(
+                f"repro_torch.engine: {cfg.name}: chunked prefill is unsound "
+                "for MoE stacks (expert capacity couples a chunk's tokens "
+                "to the rest of the prompt)")
+        if self.moe and plan.prefix_cache:
+            raise NotImplementedError(
+                f"repro_torch.engine: {cfg.name}: prefix caching is unsound "
+                "for MoE stacks (capacity couples prefix KV to the suffix)")
         self.model, self.plan, self.eng, self.cfg = model, plan, eng, cfg
         self.device = model.device
         self.sp = plan.sp_size
@@ -494,9 +515,12 @@ class Engine:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
 
     def _padded(self, tokens: List[int]) -> torch.Tensor:
-        """(1, S) tokens zero-padded to a multiple of the prompt quantum,
-        on the device."""
-        n = -(-len(tokens) // self._quantum) * self._quantum
+        """(1, S) tokens zero-padded to a multiple of the prompt quantum
+        (a MoE stack's to the JAX bucket first), on the device."""
+        n = len(tokens)
+        if self.moe:
+            n = bucket_pow2(n, math.lcm(self.sp, self.eng.page_size))
+        n = -(-n // self._quantum) * self._quantum
         buf = np.zeros((1, n), np.int64)
         buf[0, :len(tokens)] = tokens
         return self._tensor(buf, torch.int64)

@@ -39,8 +39,9 @@ from repro_torch.models import spec, transformer
 
 class Model(nn.Module):
     """Decoder LM parameters: ``embed.table``, ``layers[i].mixer`` (wq, wk,
-    wv, wo, norm), ``layers[i].mlp`` (w1, w3, w2, norm), ``final_norm``,
-    ``lm_head.table``. The serving forward passes live in ``serve.step``;
+    wv, wo, norm), ``layers[i].mlp`` (w1, w3, w2, norm; on a MoE layer
+    router, w1, w3, w2, norm and the shared expert's ``shared``),
+    ``final_norm``, ``lm_head.table``. The serving forward passes live in ``serve.step``;
     the training loss is ``loss``."""
 
     def __init__(self, cfg: ModelConfig, make):

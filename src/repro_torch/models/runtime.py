@@ -38,6 +38,7 @@ import torch
 from repro_torch.core import startrail as st
 from repro_torch.core import ulysses as ulysses_lib
 from repro_torch.dist import sharding
+from repro_torch.dist.sharding import DATA_AXIS
 from repro_torch.kernels import dispatch as kernels
 
 
@@ -119,6 +120,16 @@ class Runtime:
         if self.batch_axes:
             return self.comm.psum(x, self.batch_axes)
         return x
+
+    def psum_all(self, x):
+        """Sum over the data-parallel and the SP axes (the MoE block's
+        global token statistics): the identity at one rank."""
+        return self.comm.psum(x, tuple(self.batch_axes) + self.sp_axes)
+
+    def all_to_all_data(self, x, split_axis: int, concat_axis: int):
+        """The tiled all-to-all over ``data`` (the MoE block's expert
+        parallelism): the identity with one replica."""
+        return self.comm.all_to_all(x, DATA_AXIS, split_axis, concat_axis)
 
     def all_gather_sp_stack(self, x):
         """Gather per-rank values into a leading SP dim (P, ...), in linear

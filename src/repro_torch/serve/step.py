@@ -19,8 +19,13 @@ prefill: the full forward pass (StarTrail attention: kernel B2 on 'cuda';
   (a prefix-cache hit or a later chunk), reading the cached prefix from
   the page pool (kernel B6) and writing the suffix K/V into its pages.
 
-Only dense, all-attention stacks are ported; the per-rank functions take
-the ``Runtime`` (communicator + attention config) and the rank's parameter
+Dense and MoE attention stacks are ported: a MoE layer runs
+``models.moe.moe_block`` in place of the MLP in the decode step and the
+full prefill, its auxiliary losses dropped, and its expert capacity couples
+the rows of one call (the decode batch, the padded prompt), as in the JAX
+package. The suffix prefill never sees a MoE stack: the engine refuses
+prefix caching and chunking for them. The per-rank functions take the
+``Runtime`` (communicator + attention config) and the rank's parameter
 tree (``models.factory.shard_params`` under ``rt.rules``; at one rank the
 ``Model`` itself).
 """
@@ -39,7 +44,7 @@ from repro_torch.core.combine import combine_pair
 from repro_torch.engine import paged_cache
 from repro_torch.engine import sampling as sampling_lib
 from repro_torch.kernels import dispatch as kernels
-from repro_torch.models import blocks
+from repro_torch.models import blocks, transformer
 from repro_torch.serve import kv_cache
 
 
@@ -49,6 +54,13 @@ def _attn_decode(rt, p, x, cache, cfg: ModelConfig, cache_len,
     tensor, the new token's position. cache: {'k','v'} this layer's pool
     slices (pages_loc, page_size, Hkv, hd) when ``paged`` is given, else its
     contiguous cache slices (B, S_local, Hkv, hd); updated in place."""
+    return x + attn_decode_branch(rt, p, x, cache, cfg, cache_len, paged)
+
+
+def attn_decode_branch(rt, p, x, cache, cfg: ModelConfig, cache_len,
+                       paged: Optional[paged_cache.PagedTables]):
+    """``_attn_decode`` less its residual add: the attention's output
+    projection (B, 1, D), the new token written into ``cache``."""
     h = blocks.rmsnorm(p.norm, x, cfg.norm_eps)
     q, k_new, v_new = blocks.qkv(rt, p, h)
     pos_new = cache_len[:, None]                                  # (B, 1)
@@ -73,7 +85,7 @@ def _attn_decode(rt, p, x, cache, cfg: ModelConfig, cache_len,
                                      window=cfg.window, prefix_len=None)
         o = st.decode_attention(q.contiguous(), cache["k"], cache["v"],
                                 pos_new, pos_k, cfg_st, rt.comm)
-    return x + blocks.attention_out(rt, p, o)
+    return blocks.attention_out(rt, p, o)
 
 
 def lm_decode_step(rt, params, cache, tokens, cfg: ModelConfig, cache_len,
@@ -92,11 +104,12 @@ def lm_decode_step(rt, params, cache, tokens, cfg: ModelConfig, cache_len,
       sampled token's position, ``cache_len + 1``, from the host copy, so
       solo and batched serving draw the same noise."""
     x = blocks.embed(rt, params.embed, tokens, cfg, tokens_replicated=True)
-    for i, layer in enumerate(params.layers):
+    for i, (layer, kind) in enumerate(zip(params.layers,
+                                          transformer.layer_kinds(cfg))):
         x = _attn_decode(rt, layer.mixer, x,
                          {"k": cache["k"][i], "v": cache["v"][i]}, cfg,
                          cache_len, paged)
-        x = blocks.mlp_block(rt, layer.mlp, x, cfg)
+        x = transformer.mlp_sublayer(rt, layer.mlp, x, cfg, kind)[0]
     x = blocks.rmsnorm(params.final_norm, x, cfg.norm_eps)
     if return_hidden:
         return x
@@ -131,13 +144,13 @@ def lm_prefill(rt, params, tokens, cfg: ModelConfig,
     """
     x = blocks.embed(rt, params.embed, tokens, cfg)
     ks, vs = [], []
-    for layer in params.layers:
+    for layer, kind in zip(params.layers, transformer.layer_kinds(cfg)):
         x, (k, v) = blocks.attention_block(
             rt, layer.mixer, x, cfg, causal=True, window=cfg.window,
             return_kv=True)
         ks.append(k)
         vs.append(v)
-        x = blocks.mlp_block(rt, layer.mlp, x, cfg)
+        x = transformer.mlp_sublayer(rt, layer.mlp, x, cfg, kind)[0]
     x = blocks.rmsnorm(params.final_norm, x, cfg.norm_eps)
     if prompt_len is None:
         # the last position: the last rank's final slot (contiguous layout)
@@ -222,6 +235,9 @@ def lm_prefill_paged(rt, params, tokens, cfg: ModelConfig, *, prompt_len: int,
       (L, pages_loc, ps, Hkv, hd), updated in place; table_row: (P_sp, W)
       host int32, the slot's page-table row.
     """
+    # MoE capacity couples the prefix's tokens to the suffix: the engine
+    # refuses prefix caching and chunking for MoE stacks, as JAX's does
+    assert not transformer.has_moe(cfg), "prefix-cached prefill excludes MoE"
     dev = tokens.device
     rank = rt.sp_rank()
     table = torch.from_numpy(np.ascontiguousarray(

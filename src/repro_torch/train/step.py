@@ -22,7 +22,9 @@ cast once to the parameter dtype. The FSDP dims were reduce-scattered
 already by the backward of ``Runtime.dense``'s gather; under ``default``
 at one data replica the MLP weights and the vocab tables take no sum at
 all. The reduction counts in the communicator's ledger as backward traffic
-(``dist.comm.CommLedger``).
+(``dist.comm.CommLedger``). A MoE stack's auxiliary losses are part of
+that loss, summed over every rank by ``Runtime.psum_all`` as the JAX
+block sums them, so the same reduction gives JAX's gradients.
 
 Update. On a ``ThreadMesh``, ``build_train_step``'s step takes the global
 batch (its sequence in SP shard order, as ``data.pipeline`` lays it out)

@@ -1435,3 +1435,104 @@ def test_proc_replicas_seeded_on_card_hold_equal_weights(cuda_device):
         for p in procs:
             p.shutdown()
     assert all(not p.proc.is_alive() for p in procs)
+
+
+# ---------------------------------------------------------------------------
+# the MoE family on the card (smoke width, heads of 32, f32)
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ["phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b"]
+
+
+def _moe_smoke(arch):
+    """The smoke MoE config with a head size the kernels take."""
+    from repro_torch.configs import registry
+
+    return dataclasses.replace(registry.get_smoke(arch), head_dim=32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_engine_on_the_card_matches_cpu(cuda_device, arch):
+    """A smoke MoE engine at P = 1 on the card (B2 per layer and prefill,
+    B4 per layer and decode step) against the same engine on the CPU: the
+    streams equal, every first-token hidden state within 2e-3."""
+    import copy
+
+    from repro_torch.engine import Engine, EngineConfig, Request
+    from repro_torch.models.factory import build_model
+    from repro_torch.plan import make_serve_plan
+
+    cfg = _moe_smoke(arch)
+    cpu = build_model(cfg, device="cpu", seed=0)
+    rng = np.random.default_rng(2)
+    reqs = [Request(f"m{i}", rng.integers(0, cfg.vocab_size,
+                                          5 + 3 * i).tolist(), 3 + i)
+            for i in range(3)]
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        engine = Engine(copy.deepcopy(cpu).to(dev), make_serve_plan(
+            cfg, arch=arch, c=1, decode_batch=2, page_size=4, max_len=64),
+            EngineConfig(pages_per_shard=32))
+        hidden = {}
+        engine.on_prefill = lambda uid, h: hidden.__setitem__(
+            uid, h.float().cpu())
+        for r in reqs:
+            engine.add_request(r)
+        flash_attention.reset_launches()
+        paged_decode.reset_launches()
+        streams = engine.run()
+        L, m = cfg.num_layers, engine.metrics
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert flash_attention.LAUNCHES["B2"] == L * m.prefills
+            assert paged_decode.LAUNCHES == {"B4": L * m.decode_steps}
+        out[dev.type] = (streams, hidden)
+    assert out["cuda"][0] == out["cpu"][0]
+    for uid, h in out["cpu"][1].items():
+        assert float((out["cuda"][1][uid] - h).abs().max()) < 2e-3, uid
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data,c", [(1, 1), (2, 2)], ids=["p1", "c2data2"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_train_step_matches_cpu(cuda_device, arch, data, c):
+    """One train step of a smoke MoE model on the card and on the CPU from
+    the same weights and batch, at P = 1 and on ``ThreadMesh(c=2, r=1,
+    data=2)`` (experts split over the 2 data shards): loss, gradient norm
+    and every updated parameter within 2e-3; B2 twice and B3 once per
+    layer and rank (``attn_out``)."""
+    import copy
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.plan import make_plan
+
+    cfg = _moe_smoke(arch)
+    cpu = build_model(cfg, device="cpu", seed=0)
+    n = data * c * c
+    plan = make_plan(cfg, ShapeConfig("t", 64, 2, "train"), n_devices=n,
+                     data=data, c=c)
+    batch = SyntheticLM(cfg, plan.shape_config(), seed=0,
+                        sp_size=plan.sp_size).get_batch(0)
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = copy.deepcopy(cpu).to(dev)
+        step, sh = plan.build_train_step(model, adam)
+        flash_attention.reset_launches()
+        _, m = step(adamw.init_state(sh["params"], adam),
+                    {k: _t(v).to(dev) for k, v in batch.items()})
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            L = cfg.num_layers
+            assert flash_attention.LAUNCHES == {
+                "B1": 0, "B2": n * plan.r * 2 * L, "B3": n * plan.r * L}
+        out[dev.type] = (m, [p.detach().cpu() for p in sh["params"]])
+    (m_gpu, p_gpu), (m_cpu, p_cpu) = out["cuda"], out["cpu"]
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m_gpu[key]) - float(m_cpu[key])) < 2e-3, key
+    assert max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu)) \
+        < 2e-3

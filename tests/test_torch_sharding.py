@@ -61,7 +61,7 @@ from repro_torch.configs.base import RunConfig, ShapeConfig
 from repro_torch.data import pipeline
 from repro_torch.dist import sharding
 from repro_torch.dist.comm import ThreadMesh
-from repro_torch.models import factory
+from repro_torch.models import factory, transformer
 from repro_torch.models.factory import (Model, build_model, from_jax_params,
                                         shard_blocks, shard_params,
                                         to_jax_layout)
@@ -80,6 +80,7 @@ from test_torch_train_sp import (ADAM, ARCH, BATCH, SEQ, TOL, _ctx,
 
 RULE_SETS = sorted(sharding.RULES)
 DENSE = ["h2o-danube-1.8b", "minitron-8b", "deepseek-7b", "stablelm-3b"]
+MOE = ["phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b"]
 PAPER = ["gpt-3b", "gpt-7b", "dit-1b"]
 # the axis sizes of tests/test_dist_substrate.py's MESH_SIZES
 MESH_SIZES = {
@@ -195,7 +196,7 @@ def test_rules_equal_jax(islands):
 
 
 @pytest.mark.parametrize("rules", RULE_SETS)
-@pytest.mark.parametrize("name", DENSE + PAPER)
+@pytest.mark.parametrize("name", DENSE + MOE + PAPER)
 def test_partition_tree_roundtrip(name, rules):
     """Every leaf's layout is the JAX PartitionSpec's entries, the stacked
     layer dim left out; its axes are the JAX leaf's, and no mesh axis is
@@ -206,8 +207,9 @@ def test_partition_tree_roundtrip(name, rules):
     layouts, axes = model.partition(rules), model.axes()
     assert set(layouts) == set(axes) == {n for n, _ in
                                          model.named_parameters()}
+    n_sub = len(transformer.layer_pattern(cfg))
     for name_p, layout in layouts.items():
-        path, period = factory._layer_path(name_p, 1)
+        path, period = factory._layer_path(name_p, n_sub)
         spec, ax = specs_j, axes_j
         for key in path:
             spec, ax = spec[key], ax[key]
@@ -218,13 +220,17 @@ def test_partition_tree_roundtrip(name, rules):
         assert axes[name_p] == want_axes, (name, name_p)
         used = [a for entry in layout for a in entry]
         assert len(used) == len(set(used))
-    # 9 leaves a layer, the table(s) and the final norm
-    assert len(layouts) == 9 * cfg.num_layers + 2 + (not cfg.tie_embeddings)
+    # 9 leaves a dense layer, one more a MoE layer (its router) and 4 more
+    # with a shared expert, the table(s) and the final norm
+    n_moe = transformer.layer_kinds(cfg).count("moe")
+    shared = bool(cfg.moe and cfg.moe.shared_expert)
+    assert len(layouts) == (9 * cfg.num_layers + (1 + 4 * shared) * n_moe
+                            + 2 + (not cfg.tie_embeddings))
 
 
 @pytest.mark.parametrize("rules", RULE_SETS)
 @pytest.mark.parametrize("mesh_name", sorted(MESH_SIZES))
-@pytest.mark.parametrize("name", DENSE + PAPER)
+@pytest.mark.parametrize("name", DENSE + MOE + PAPER)
 def test_partition_layout_divisible(name, mesh_name, rules):
     """Sharded dims divide on the meshes the JAX layout test runs (smoke
     configs on the smoke meshes, full configs on the production pod); the
