@@ -327,13 +327,52 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               (``TRAIN_SP_TOL``), B2 32 and B3 16, the ledger's all-to-all
               bytes per layer equal to 2 x E x cap x D x 2 B x (data -
               1) / data
+ 22. legacy_sp  ``launch.serve.legacy_generate`` at P = 4 on the plan's
+              ThreadMesh(c=2, r=1) at the full width of h2o-danube-1.8b
+              (seeded bf16, 24 layers): phase 8b's 4 prompts of 1024
+              tokens, 8 greedy tokens (a P = 4 decode step takes ~1.3 s of
+              wall), the capacity padded to a multiple of 4. The prefill
+              runs B2 on 3 of the 4 ranks' ring steps a layer (the
+              causal skip drops query block 0 against key block 1), each
+              decode step B5 on every rank and layer; the first decode step's hidden state and logits and
+              the prefill's last-layer K/V through the CUDA kernels
+              against the plain versions (``ENGINE_TOL``); the share of
+              tokens equal to the same batch at P = 1, reported
+ 23. xlstm_serve  full-width xlstm-1.3b (48 layers: 42 mLSTM, 6 sLSTM; ~1.06
+              B seeded bf16 parameters) through ``--legacy`` at P = 1 and
+              at P = 4 (ThreadMesh(c=2, r=1)): 4 prompts of 1024 tokens, 32
+              greedy tokens at P = 1 and 8 at P = 4 (a P = 4 decode step
+              takes ~0.5 s of wall); per run the prefill's and the decode
+              steps' wall, a profiled window of each (device ms, idle
+              share, kernel launches), peak memory, and no attention
+              kernel launched. First, in f32 on the card: layer 0's mLSTM at P = 4
+              against P = 1 (output and state, the cross-shard correction
+              exact) and ``chunked_gla`` at the mLSTM's shape against the
+              f64 recurrence on the CPU, within 2e-5 of the largest
+              magnitude (the CPU's f32 result reported beside). The bf16 tokens'
+              agreement between P = 1 and P = 4 is reported: the sLSTM
+              starts every rank's recurrence from zero, so they differ by
+              construction
+ 24. xlstm_train  the same model trained, seq 512, batch 1, bf16,
+              ``attn_out`` (one recompute region around each mixer),
+              AdamW on one repeated batch: 3 steps of all 48 layers at
+              P = 1, then 2 at P = 8 on ThreadMesh(c=2, r=2) of its first
+              period (8 layers; seq and depth cut for the script's time,
+              ``XLSTM_TRAIN``); the loss finite and falling in each, the
+              last step of each profiled, peak memory, no attention
+              kernel launched. First, in f32: one mLSTM's and
+              one sLSTM's gradients (every parameter and the input) on
+              the card against the CPU, within 2e-3 of the largest
+              magnitude
 
 The paths are phases 4, 4a, 5, 5a, 7, 8a, 8b, 8c's five runs (roomy,
 tier, tier-off, handoff, preempt), 9, 13, each scheme of 14, 15's search
 and its plan's step, 16's four runs, 17, 18's four in-process runs
 (gateway, gateway_disagg, frontend_ref, priority), 19's two steps
 (rules_fsdp, rules_tp), 20's three runs (moe_serve_phi, moe_legacy,
-moe_serve_llama) and 21's two (moe_train, moe_train_mesh):
+moe_serve_llama), 21's two (moe_train, moe_train_mesh), 22 (legacy_sp),
+23's two (xlstm_serve_p1, xlstm_serve_p4) and 24's two (xlstm_train_p1,
+xlstm_train_p8):
 the launch counters are set to 0 just before each and read just after,
 and each must launch exactly the kernels it runs (B2 and B3 in the ring;
 B5 and B7 in ragged_bwd; B2 and B4 in the engine and in the sample
@@ -349,7 +388,8 @@ in dense_serve's P = 1, P = 8 and P = 8 sampled runs, B1, B2, B4 and B6
 in its prefix run; B2 and B3 in dense_train; B1, B2, B4 and B6 in the
 gateway, its prefill/decode pair and the priority run, B2 and B4 in the
 front end's replayed reference; B2 and B4 in both MoE engines, B2 and B5
-in the MoE legacy run, B2 and B3 in both MoE trainings). Comparison,
+in the MoE legacy run, B2 and B3 in both MoE trainings, B2 and B5 at
+P = 4 in legacy_sp, none in the xLSTM runs). Comparison,
 timing and profiling launches are not counted. The kernels line's
 ``launches`` is each kernel's count on the path that runs it (the engine for B2 and B4, the local prefill for B1, the train
 loop for B3, the legacy phase for B5, the prefix phase for B6, ragged_bwd
@@ -2371,17 +2411,26 @@ def phase_local(engine, prompt, startrail_route):
     return launches
 
 
+def _device_events(prof):
+    """(name, ms) of every device event (kernel, copy, memset) of a
+    finished ``torch.profiler`` window, read from the profiler's raw
+    events: a window of ~10^5 launches parses in about a second, not the
+    tens of seconds ``prof.events()`` takes to build its event tree."""
+    import torch
+
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+            yield evt.name(), evt.duration_ns() / 1e6
+
+
 def _profile_window(prof, steps, wall_s, top=12):
     import collections
 
-    import torch
-
     per_name = collections.defaultdict(lambda: [0.0, 0])
-    for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            rec = per_name[evt.name]
-            rec[0] += evt.time_range.elapsed_us() / 1e3
-            rec[1] += 1
+    for name, ms in _device_events(prof):
+        rec = per_name[name]
+        rec[0] += ms
+        rec[1] += 1
     check(bool(per_name), "torch.profiler recorded no device activity")
     device_ms = sum(v[0] for v in per_name.values())
     ranked = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]
@@ -2581,9 +2630,9 @@ def phase_legacy(engine, smi):
           f"batched prefill, B5 once per layer in each of {G - 1} decode "
           f"steps)")
     # the first decode step's hidden state, by the same steps
-    tok0, cache, decode = legacy_start(model, plan, tokens, G)
-    h1 = decode(cache, tok0.long(), torch.full((B,), S, dtype=torch.int32,
-                                              device=dev),
+    tok0, caches, decode = legacy_start(model, plan, tokens, G)
+    h1 = decode(caches, tok0.long(), torch.full((B,), S, dtype=torch.int32,
+                                               device=dev),
                 return_hidden=True)
     # host ms of 8 further decode steps, each ending in its tokens on the
     # host (the legacy loop keeps them on the card until the end)
@@ -2591,12 +2640,12 @@ def phase_legacy(engine, smi):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     for i in range(8):
-        tok = decode(cache, tok, torch.full((B,), S + 1 + i,
-                                            dtype=torch.int32,
-                                            device=dev)).long()
+        tok = decode(caches, tok, torch.full((B,), S + 1 + i,
+                                             dtype=torch.int32,
+                                             device=dev)).long()
         tok.cpu()
     step_ms = 1e3 * (time.perf_counter() - t1) / 8
-    del cache
+    del caches
     # the engine: the same prompts, two tokens each
     engine.reset()
     for b in range(B):
@@ -4088,13 +4137,10 @@ def _train_sp_parity(dev):
 def _f32_add_rows(prof, steps=1):
     """Device ms and calls per step of the f32 elementwise adds in a
     profile (the mesh's psums are f32 adds)."""
-    import torch
-
     ms, calls = 0.0, 0
-    for evt in prof.events():
-        if (evt.device_type == torch.autograd.DeviceType.CUDA
-                and "add" in evt.name.lower() and "<float>" in evt.name):
-            ms += evt.time_range.elapsed_us() / 1e3
+    for name, evt_ms in _device_events(prof):
+        if "add" in name.lower() and "<float>" in name:
+            ms += evt_ms
             calls += 1
     return {"device_ms_per_step": ms / steps, "calls_per_step": calls / steps}
 
@@ -4831,13 +4877,11 @@ def phase_dense_train(dev, smi):
         torch.cuda.synchronize()
         step_wall = time.perf_counter() - t0
     bwd = {"dkv": [0.0, 0], "dq": [0.0, 0]}
-    for evt in prof.events():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for name, ms in _device_events(prof):
         for key, tag in (("dkv", "flash_bwd_dkv_mma"),
                          ("dq", "flash_bwd_dq_mma")):
-            if tag in evt.name:
-                bwd[key][0] += evt.time_range.elapsed_us() / 1e3
+            if tag in name:
+                bwd[key][0] += ms
                 bwd[key][1] += 1
     check(bwd["dkv"][1] == L and bwd["dq"][1] == L,
           f"dense_train profile: B3's kernels ran {bwd}, want {L} each")
@@ -5318,13 +5362,13 @@ def _moe_decode_layer_check(model, plan, cache, tok, cache_len):
 
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.models import blocks, transformer
-    from repro_torch.serve import step as serve_step
+    from repro_torch.serve import kv_cache, step as serve_step
 
     cfg, dev = model.cfg, model.device
-    B, capacity = tok.shape[0], cache["k"].shape[2]
-    rt = serve_step._contiguous_runtime(
+    B, capacity = tok.shape[0], kv_cache.kv_stacks(cache)[0].shape[2]
+    rt = serve_step.StaticSteps(
         model, plan.run_config(), ShapeConfig("serve", capacity, B,
-                                              "decode"))
+                                              "decode")).rt
     rt_c = dataclasses.replace(rt, kernel_impl="cuda", st_cfg=dataclasses.
                                replace(rt.st_cfg, block_impl="cuda"))
     rt_r = dataclasses.replace(rt_c, kernel_impl="ref", st_cfg=dataclasses.
@@ -5336,7 +5380,7 @@ def _moe_decode_layer_check(model, plan, cache, tok, cache_len):
                          tokens_replicated=True)
         for i, kind in enumerate(transformer.layer_kinds(cfg)):
             layer = model.layers[i]
-            c_i = {"k": cache["k"][i], "v": cache["v"][i]}
+            c_i = kv_cache.layer(cache, i)
             b_c, b_r = (serve_step.attn_decode_branch(
                 r, layer.mixer, x, c_i, cfg, cl, None) for r in (rt_c, rt_r))
             out.append(compare([b_c.float()], [b_r.float()],
@@ -5400,11 +5444,11 @@ def _moe_legacy(engine, smi):
     for impl in ("cuda", "ref"):
         plan = dataclasses.replace(engine.plan, kernel_impl=impl,
                                    block_impl=impl)
-        tok0, cache, decode = legacy_start(model, plan, tokens, G)
-        h1 = decode(cache, tok0.long(), torch.full(
+        tok0, caches, decode = legacy_start(model, plan, tokens, G)
+        h1 = decode(caches, tok0.long(), torch.full(
             (B,), S, dtype=torch.int32, device=dev), return_hidden=True)
         hidden[impl] = (tok0, h1)
-        del cache
+        del caches
     # the whole model's first decode step, reported (see _moe_serve_run);
     # the check is each layer's decode attention (B5) on one input
     errs = {}
@@ -5415,9 +5459,10 @@ def _moe_legacy(engine, smi):
                _logits(engine, hidden["ref"][1][b:b + 1])]
         errs[f"row{b}"] = compare(got, ref, f"moe legacy row {b} cuda vs "
                                   f"ref", strict=False)
-    tok0, cache, _ = legacy_start(model, engine.plan, tokens, G)
-    layer_check = _moe_decode_layer_check(model, engine.plan, cache, tok0, S)
-    del cache
+    tok0, caches, _ = legacy_start(model, engine.plan, tokens, G)
+    layer_check = _moe_decode_layer_check(model, engine.plan, caches[0], tok0,
+                                          S)
+    del caches
     emit("moe_legacy", model=cfg.name, layers=L, batch=B, prompt_len=S,
          new_tokens=G, launches=launches, wall_s=wall,
          tokens_per_s=B * G / wall, err_cuda_vs_ref=errs,
@@ -5796,6 +5841,553 @@ def phase_moe_train(dev, smi):
     return {"moe_train": p1["launches"], "moe_train_mesh": mesh_launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 22: --legacy at SP degree 4
+# ---------------------------------------------------------------------------
+
+# full-width h2o-danube-1.8b on ThreadMesh(c=2, r=1), phase 8b's 4 prompts
+# of 1024 tokens; 8 new tokens, as a P = 4 decode step takes ~1.4 s of
+# wall (the 4 rank threads share one interpreter)
+LEGACY_SP = {"n_devices": 4, "c": 2, "new": 8}
+
+
+def _head_logits(model, hidden):
+    """The (B, V) f32 logits of (B, 1, D) hidden states on one rank."""
+    import torch
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.engine import sampling
+    from repro_torch.train import step as train_step
+
+    rt = train_step.make_runtime(model, RunConfig(), _train_shape(1024))
+    with torch.no_grad():
+        logits, _ = sampling.shard_logits(rt, model.head, hidden, model.cfg)
+    return logits
+
+
+def _profile_call(fn, top=8):
+    """``_profile_window`` of one call of ``fn`` under ``torch.profiler``,
+    CUDA activity only (the xLSTM windows hold ~10^5 launches, and CPU
+    activity would slow their host loops)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return _profile_window(prof, 1, wall, top=top)
+
+
+def phase_legacy_sp(dev, smi):
+    """Phase 22: ``legacy_generate`` at P = 4 on ThreadMesh(c=2, r=1) at
+    the full width of h2o-danube-1.8b: phase 8b's 4 prompts of 1024
+    tokens, ``LEGACY_SP['new']`` greedy tokens. The prefill runs B2 on
+    every rank and unskipped ring step of each layer, each decode step B5
+    on every rank and layer; the first decode step's hidden state and
+    logits and the prefill's last-layer K/V through the CUDA kernels
+    against the plain versions; the tokens' agreement with the same batch
+    at P = 1, reported."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import legacy_generate, legacy_start
+    from repro_torch.models.factory import build_model
+    from repro_torch.plan import make_serve_plan
+    from repro_torch.serve import kv_cache
+
+    t_phase = time.perf_counter()
+    cfg = registry.get(ARCH)
+    model = build_model(cfg, dev, seed=0)
+    B, S, G = LEGACY_BATCH, LEGACY_PROMPT, LEGACY_SP["new"]
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (B, S))).to(dev)
+    t0 = time.perf_counter()
+    out1 = legacy_generate(model, make_serve_plan(cfg, arch=ARCH, c=1),
+                           tokens, G)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    plan = make_serve_plan(cfg, arch=ARCH, n_devices=LEGACY_SP["n_devices"],
+                           c=LEGACY_SP["c"])
+    check((plan.sp_size, plan.c, plan.r, plan.data) == (4, 2, 1, 1),
+          f"legacy_sp plan {plan}")
+    torch.cuda.reset_peak_memory_stats()
+    counts = reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = legacy_generate(model, plan, tokens, G)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(counts)
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(out.shape) == (B, G)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"legacy_sp tokens {tuple(out.shape)}: want ({B}, {G}) in-vocab")
+    L, sp = cfg.num_layers, plan.sp_size
+    # contiguous layout at (c, r) = (2, 1): rank (g, t) runs one ring step,
+    # query block g against key block t, fully masked (skipped) for g < t,
+    # so 3 of the 4 ranks launch B2 a layer
+    ring = 3
+    want = launches_of(B2=L * ring, B5=L * sp * (G - 1))
+    check(launches == want,
+          f"legacy_sp launches {launches}: want {want} (B2 on {ring} rank "
+          f"ring steps a layer, B5 on {sp} ranks a layer and step)")
+    # the CUDA kernels against the plain versions on the same batch
+    runs = {}
+    for impl in ("cuda", "ref"):
+        plan_i = dataclasses.replace(plan, kernel_impl=impl, block_impl=impl)
+        tok0, caches, decode = legacy_start(model, plan_i, tokens, G)
+        h1 = decode(caches, tok0.long(), torch.full(
+            (B,), S, dtype=torch.int32, device=dev), return_hidden=True)
+        # the prefill's last-layer K/V, the ranks' slices in SP order
+        kv = [torch.cat([kv_cache.layer(caches[r], L - 1)[n] for r in
+                         decode.steps.groups()[0]], dim=1)[:, :S].float()
+              for n in ("k", "v")]
+        runs[impl] = (tok0, h1, kv)
+        del caches, decode
+    errs = {}
+    for b in range(B):
+        got, ref = ([h[b:b + 1].float(), _head_logits(model, h[b:b + 1])]
+                    for h in (runs["cuda"][1], runs["ref"][1]))
+        errs[f"row{b}"] = compare(got, ref, f"legacy_sp row {b} cuda vs ref")
+    errs["prefill_last_layer_kv"] = compare(
+        runs["cuda"][2], runs["ref"][2], "legacy_sp prefill K/V cuda vs ref",
+        names=("k", "v"))
+    check(torch.equal(runs["cuda"][0], runs["ref"][0]),
+          "legacy_sp first tokens differ between the CUDA kernels and the "
+          "plain versions")
+    emit("legacy_sp", model=cfg.name, layers=L, batch=B, prompt_len=S,
+         new_tokens=G, mesh={"c": plan.c, "r": plan.r, "data": plan.data},
+         capacity=-(-(S + G) // sp) * sp, launches=launches,
+         ring_steps_per_layer=ring, wall_s=wall, tokens_per_s=B * G / wall,
+         p1_wall_s=wall1,
+         token_agreement_with_p1=float((out == out1).float().mean()),
+         max_memory_allocated=peak, err_cuda_vs_ref=errs, tol=ENGINE_TOL,
+         phase_s=time.perf_counter() - t_phase, card=smi)
+    del model
+    free_device()
+    return {"legacy_sp": launches}
+
+
+# ---------------------------------------------------------------------------
+# phases 23-24: the xLSTM family at full width
+# ---------------------------------------------------------------------------
+
+XLSTM_ARCH = "xlstm-1.3b"
+# all 48 layers; a prompt of 1024 tokens is 256 a rank at P = 4, a
+# multiple of the mLSTM's chunk of 64. New tokens by SP degree: a P = 4
+# decode step takes ~0.56 s of wall (4 rank threads, one interpreter)
+XLSTM_SERVE = {"batch": 4, "prompt": 1024, "new": {1: 32, 4: 8}, "c": 2,
+               "layer_seq": 1024, "gla_seq": 256}
+# seq cut from 2048 to 512 and the P = 8 run's depth from 48 layers to one
+# period of 8, for the script's time: the sLSTM loop's launches grow with
+# seq, and a P = 8 step of all 48 layers at seq 512 took ~50-60 s (8 rank
+# threads sharing one interpreter; PERF.md §6)
+XLSTM_TRAIN = {"seq": 512, "batch": 1, "p1_steps": 3, "mesh": (2, 2, 1),
+               "mesh_steps": 2, "mesh_layers": 8, "check_seq": 256}
+XLSTM_F32_TOL = 2e-5       # f32 layer checks, of the largest magnitude
+XLSTM_GRAD_TOL = 2e-3      # f32 layer gradients, card against the CPU
+
+
+def _xlstm_model(dev):
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models.factory import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(registry.get(XLSTM_ARCH), dev, seed=0)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def _f32_tree(module, device=None, grad=False):
+    """A module's parameters as a tree of f32 leaves (copies, on
+    ``device``), the nesting the blocks read."""
+    import torch
+
+    out = {n: p.detach().to(device or p.device, torch.float32, copy=True)
+           .requires_grad_(grad)
+           for n, p in module.named_parameters(recurse=False)}
+    for n, child in module.named_children():
+        out[n] = _f32_tree(child, device, grad)
+    return types.SimpleNamespace(**out)
+
+
+def _tree_leaves(tree, prefix=""):
+    for n, t in vars(tree).items():
+        if isinstance(t, types.SimpleNamespace):
+            yield from _tree_leaves(t, f"{prefix}{n}.")
+        else:
+            yield prefix + n, t
+
+
+def _rel_max(got, want):
+    """max |got - want| / max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def _contig_rt(comm, seq, dev):
+    from repro_torch.core.startrail import StarTrailConfig
+    from repro_torch.models.runtime import Runtime
+
+    return Runtime(comm=comm, st_cfg=StarTrailConfig(
+        seq_len=seq, seq_scheme="contiguous"), device=dev)
+
+
+def _xlstm_layer_checks(model, dev):
+    """f32 on the card: layer 0's ``mlstm_block`` at P = 4 (ThreadMesh(2,
+    1), the slices joined) against P = 1, output and returned state; one
+    ``chunked_gla`` at the mLSTM's shape on the card against the f64
+    recurrence on the CPU (the CPU's own f32 result reported beside)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dist.comm import SingleComm, ThreadMesh
+    from repro_torch.models import ssm
+
+    cfg = model.cfg
+    S = XLSTM_SERVE["layer_seq"]
+    p = _f32_tree(model.layers[0].mixer)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((1, S, cfg.d_model), generator=gen, device=dev)
+    with torch.no_grad():
+        y1, st1 = ssm.mlstm_block(_contig_rt(SingleComm(), S, dev), p, x,
+                                  cfg, return_state=True)
+    mesh = ThreadMesh(2, 1)
+    n = S // mesh.size
+
+    def rank_fn(comm):
+        rt = _contig_rt(comm, S, dev)
+        r = rt.sp_rank()
+        with torch.no_grad():
+            y, st = ssm.mlstm_block(rt, p, x[:, r * n:(r + 1) * n], cfg,
+                                    return_state=True)
+        return r, y, st["state"]
+
+    out = sorted(mesh.run(rank_fn), key=lambda t: t[0])
+    report = {}
+    errs = {"mlstm_p4_vs_p1_out": _rel_max(
+        torch.cat([y for _, y, _ in out], dim=1), y1),
+            "mlstm_p4_vs_p1_state": max(_rel_max(s, st1["state"])
+                                        for _, _, s in out)}
+    G = XLSTM_SERVE["gla_seq"]
+    H, N = cfg.num_heads, cfg.d_model // cfg.num_heads
+    rng = np.random.default_rng(12)
+    q, k = (rng.normal(size=(1, G, H, N)).astype(np.float32) * N ** -0.25
+            for _ in range(2))
+    v = rng.normal(size=(1, G, H, N + 1)).astype(np.float32)
+    ld = np.log(1.0 / (1.0 + np.exp(-rng.normal(size=(1, G, H)) - 3.0))
+                ).astype(np.float32)
+    arrs = [torch.from_numpy(a) for a in (q, k, v, ld)]
+    got = ssm.chunked_gla(*(a.to(dev) for a in arrs), cfg.xlstm.chunk)
+    cpu = ssm.chunked_gla(*arrs, cfg.xlstm.chunk)
+    want = _gla_f64(*arrs)
+    for name, a, b, c in zip(("y", "h_fin", "ld_tot", "la"), got, want,
+                             cpu):
+        errs[f"chunked_gla_card_vs_f64_{name}"] = _rel_max(a.cpu(), b)
+        # reported: the host's own f32 sums are no reference at 2e-5
+        report[f"chunked_gla_cpu_vs_f64_{name}"] = _rel_max(c, b)
+    bad = {k_: v_ for k_, v_ in errs.items() if not v_ <= XLSTM_F32_TOL}
+    check(not bad, f"xlstm f32 layer checks beyond {XLSTM_F32_TOL} of the "
+          f"largest magnitude: {bad}")
+    return {**errs, **report}
+
+
+def _gla_f64(q, k, v, ld):
+    """``chunked_gla``'s four outputs by the token-by-token recurrence in
+    f64 on the CPU (the reference of ``test_ssm_and_roofline``)."""
+    import torch
+
+    q, k, v, ld = (a.double() for a in (q, k, v, ld))
+    B, S, H, N = q.shape
+    h = torch.zeros((B, H, N, v.shape[-1]), dtype=torch.float64)
+    ys = []
+    for t in range(S):
+        h = h * ld[:, t].exp()[..., None, None] \
+            + k[:, t, :, :, None] * v[:, t, :, None, :]
+        ys.append(torch.einsum("bhn,bhnp->bhp", q[:, t], h))
+    return torch.stack(ys, 1), h, ld.sum(1), ld.cumsum(1)
+
+
+def _xlstm_serve_run(model, plan, tokens, new):
+    """``--legacy`` at ``plan``'s ranks: ``legacy_generate``'s steps
+    (``legacy_start``, then ``new - 1`` decode steps) timed one by one;
+    the tokens, the launches (none: the family runs no attention kernel),
+    the prefill's wall (with the cache's expansion) and each decode
+    step's, a profiled decode step and prefill, peak memory."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.serve import legacy_start
+    from repro_torch.serve import step as serve_step
+
+    B, S = tokens.shape
+    dev = model.device
+    torch.cuda.reset_peak_memory_stats()
+    counts = reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, caches, decode = legacy_start(model, plan, tokens, new)
+    torch.cuda.synchronize()
+    prefill_wall = time.perf_counter() - t0
+    toks, walls = [tok], []
+    for i in range(new - 1):
+        cl = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        tok = decode(caches, tok.long(), cl)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        toks.append(tok)
+    launches = read_counts(counts)
+    out = torch.cat(toks, dim=1)
+    check(launches == launches_of(), f"xlstm_serve P={plan.sp_size} "
+          f"launched {launches}: the family runs no attention kernel")
+    check(tuple(out.shape) == (B, new)
+          and bool(((out >= 0) & (out < model.cfg.vocab_size)).all()),
+          f"xlstm tokens {tuple(out.shape)}: want ({B}, {new}) in-vocab")
+    cl = torch.full((B,), S + new - 1, dtype=torch.int32, device=dev)
+    decode_prof = _profile_call(lambda: decode(caches, tok.long(), cl))
+    peak = torch.cuda.max_memory_allocated()
+    del caches, decode
+    prefill = serve_step.build_prefill_step(
+        model, plan.run_config(), ShapeConfig("serve", S, B, "prefill"),
+        plan.build_mesh())
+    prefill_prof = _profile_call(lambda: prefill(tokens))
+    del prefill
+    free_device()
+    wall = prefill_wall + sum(walls)
+    return out, dict(
+        launches=launches, new_tokens=new, wall_s=wall,
+        tokens_per_s=B * new / wall, prefill_wall_s=prefill_wall,
+        decode_step_wall_ms=[1e3 * min(walls), 1e3 * statistics.median(
+            walls), 1e3 * max(walls)],
+        decode_step_profile=decode_prof, prefill_profile=prefill_prof,
+        max_memory_allocated=peak)
+
+
+def phase_xlstm_serve(dev, smi):
+    """Phase 23: full-width xlstm-1.3b (48 layers: 42 mLSTM, 6 sLSTM;
+    seeded bf16) served by ``--legacy`` at P = 1 and at P = 4 on
+    ThreadMesh(c=2, r=1): 4 prompts of 1024 tokens, 32 greedy tokens at
+    P = 1 and 8 at P = 4. Each run's prefill and decode steps: wall, a
+    profiled window's device ms, idle share and kernel launches, peak
+    memory; no attention kernel launches. f32 layer checks first
+    (``_xlstm_layer_checks``); the bf16 tokens' agreement between P = 1
+    and P = 4 reported (the sLSTM's shard-local prefill state differs by
+    construction)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.plan import make_serve_plan
+    from repro_torch.roofline import hw
+
+    t_phase = time.perf_counter()
+    model, init_s = _xlstm_model(dev)
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    layer_checks = _xlstm_layer_checks(model, dev)
+    layer_checks_s = time.perf_counter() - t0
+    free_device()
+    B, S = XLSTM_SERVE["batch"], XLSTM_SERVE["prompt"]
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (B, S))).to(dev)
+    runs, outs, by_path = {}, {}, {}
+    for n, new in XLSTM_SERVE["new"].items():
+        t0 = time.perf_counter()
+        plan = make_serve_plan(cfg, arch=XLSTM_ARCH, n_devices=n,
+                               c=XLSTM_SERVE["c"] if n > 1 else 1)
+        check(plan.sp_size == n, f"xlstm plan {plan}")
+        outs[n], runs[f"p{n}"] = _xlstm_serve_run(model, plan, tokens, new)
+        runs[f"p{n}"]["run_s"] = time.perf_counter() - t0
+        by_path[f"xlstm_serve_p{n}"] = runs[f"p{n}"]["launches"]
+    n1, n4 = XLSTM_SERVE["new"]
+    k = min(XLSTM_SERVE["new"].values())
+    d = cfg.d_model // cfg.num_heads
+    n_mlstm = sum(cfg.mixer_on_layer(i) == "mlstm"
+                  for i in range(cfg.num_layers))
+    state_bytes = n_mlstm * B * cfg.num_heads * d * (d + 1) * 4
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for name, p in model.named_parameters()
+                       if name != "embed.table")
+    bound = (weight_bytes + 2 * state_bytes) / hw.HBM_BW * 1e3
+    emit("xlstm_serve", model=cfg.name, layers=cfg.num_layers,
+         params=model.param_count(), init_s=init_s,
+         weights="seeded random bf16", batch=B, prompt_len=S,
+         layer_checks=layer_checks, layer_checks_s=layer_checks_s,
+         layer_tol=XLSTM_F32_TOL, runs=runs,
+         token_agreement_p1_p4=float(
+             (outs[n1][:, :k] == outs[n4][:, :k]).float().mean()),
+         decode_bytes={"weights_less_embedding": weight_bytes,
+                       "mlstm_states": state_bytes,
+                       "p1_bound_ms": bound, "p4_bound_ms": n4 * bound},
+         phase_s=time.perf_counter() - t_phase, card=smi)
+    del model
+    free_device()
+    return by_path
+
+
+def _xlstm_grad_checks(model, dev):
+    """f32: one mLSTM layer's and one sLSTM layer's gradients (every
+    parameter and the input) of a fixed random projection of the block's
+    output, on the card against the CPU, at ``check_seq`` tokens."""
+    import torch
+
+    from repro_torch.dist.comm import SingleComm
+    from repro_torch.models import ssm
+
+    cfg = model.cfg
+    S = XLSTM_TRAIN["check_seq"]
+    gen = torch.Generator().manual_seed(13)
+    x0 = torch.randn((1, S, cfg.d_model), generator=gen)
+    w = torch.randn((1, S, cfg.d_model), generator=gen)
+    errs = {}
+    for kind in ("mlstm", "slstm"):
+        i = next(j for j in range(cfg.num_layers)
+                 if cfg.mixer_on_layer(j) == kind)
+        grads = {}
+        for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            p = _f32_tree(model.layers[i].mixer, where, grad=True)
+            x = x0.to(where, copy=True).requires_grad_()
+            y = ssm.MIXERS[kind][1](_contig_rt(SingleComm(), S, where), p,
+                                    x, cfg)
+            (y * w.to(where)).sum().backward()
+            grads[label] = {"x": x.grad, **{n: t.grad for n, t in
+                                            _tree_leaves(p)}}
+        for n, g in grads["cpu"].items():
+            errs[f"{kind}_layer{i}.{n}"] = _rel_max(grads["card"][n].cpu(), g)
+    bad = {k: v for k, v in errs.items() if not v <= XLSTM_GRAD_TOL}
+    check(not bad, f"xlstm f32 gradients, card vs CPU, beyond "
+          f"{XLSTM_GRAD_TOL} of the largest magnitude: {bad}")
+    return errs
+
+
+def _xlstm_steps(model, plan, batch, steps):
+    """``steps`` AdamW steps of ``plan``'s train step on one repeated
+    batch, the last profiled: losses, grad norms, step walls, the
+    profile, peak memory, launches."""
+    import torch
+
+    from repro_torch.optim import adamw
+
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0)
+    step_fn, sh = plan.build_train_step(model, adam)
+    state = {"opt": adamw.init_state(sh["params"], adam)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = reset_counts()
+    losses, norms, walls = [], [], []
+
+    def step():
+        t0 = time.perf_counter()
+        state["opt"], m = step_fn(state["opt"], batch)
+        losses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+
+    for _ in range(steps - 1):
+        step()
+    window = _profile_call(step)
+    launches = read_counts(counts)
+    peak = torch.cuda.max_memory_allocated()
+    del step_fn, sh, state
+    free_device()
+    return dict(losses=losses, grad_norm=norms, step_s=walls,
+                profiled_step=window, max_memory_allocated=peak,
+                launches=launches)
+
+
+def _xlstm_cut(model, layers):
+    """A model of ``model``'s first ``layers`` layers (and its embedding,
+    final norm and head), the weights copied."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.factory import Model
+
+    cfg = dataclasses.replace(model.cfg, num_layers=layers)
+    whole = dict(model.named_parameters())
+    with torch.no_grad():
+        cut = Model(cfg, lambda s: torch.empty(
+            s.shape, dtype=model.embed.table.dtype, device=model.device))
+        for name, p in cut.named_parameters():
+            p.copy_(whole[name])
+    return cut
+
+
+def phase_xlstm_train(dev, smi):
+    """Phase 24: full-width xlstm-1.3b trained at seq
+    ``XLSTM_TRAIN['seq']``, batch 1, bf16, ``attn_out`` (each layer
+    recomputes its mixer in the backward), AdamW (f32 moments, lr 1e-3)
+    on one repeated batch: 3 steps of all 48 layers at P = 1, then 2 at
+    P = 8 on ThreadMesh(c=2, r=2) of its first period (8 layers: 7 mLSTM,
+    1 sLSTM; the weights P = 1 left, fresh moments); the loss must be
+    finite and fall, no attention kernel launches; the last step of each
+    profiled. f32 gradient checks first (``_xlstm_grad_checks``)."""
+    import math
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.plan import make_plan
+    from repro_torch.train import step as train_step
+
+    t_phase = time.perf_counter()
+    model, init_s = _xlstm_model(dev)
+    t0 = time.perf_counter()
+    grad_checks = _xlstm_grad_checks(model, dev)
+    grad_checks_s = time.perf_counter() - t0
+    free_device()
+    shape = _train_shape(XLSTM_TRAIN["seq"], XLSTM_TRAIN["batch"])
+    runs, by_path = {}, {}
+    c, r, data = XLSTM_TRAIN["mesh"]
+    for key, mesh, steps in (("p1", (1, 1, 1), XLSTM_TRAIN["p1_steps"]),
+                             ("p8", (c, r, data), XLSTM_TRAIN["mesh_steps"])):
+        t0 = time.perf_counter()
+        if key == "p8":
+            trained = model
+            model = _xlstm_cut(trained, XLSTM_TRAIN["mesh_layers"])
+            del trained
+            free_device()
+        cfg = model.cfg
+        plan = make_plan(cfg, shape, arch=cfg.name,
+                         n_devices=mesh[2] * mesh[0] ** 2 * mesh[1],
+                         data=mesh[2], c=mesh[0])
+        check((plan.c, plan.r, plan.data) == mesh and plan.remat ==
+              "attn_out" and plan.seq_scheme == "contiguous",
+              f"xlstm plan {plan}")
+        batch = train_step.to_device(SyntheticLM(
+            cfg, shape, seed=0, seq_scheme=plan.seq_scheme,
+            sp_size=plan.sp_size).get_batch(0), dev)
+        run = _xlstm_steps(model, plan, batch, steps)
+        losses = run["losses"]
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"xlstm_train {key}: losses {losses} must be finite and fall")
+        check(run["launches"] == launches_of(), f"xlstm_train {key} "
+              f"launched {run['launches']}: the family runs no attention "
+              "kernel")
+        run.update(layers=cfg.num_layers, params=model.param_count(),
+                   plan={"P_sp": plan.sp_size, "c": plan.c, "r": plan.r,
+                         "data": plan.data, "remat": plan.remat},
+                   run_s=time.perf_counter() - t0)
+        runs[key] = run
+        by_path[f"xlstm_train_{key}"] = run["launches"]
+    emit("xlstm_train", model=cfg.name, init_s=init_s,
+         seq_len=shape.seq_len, batch=shape.global_batch,
+         weights="seeded random bf16", remat="attn_out",
+         grad_checks=grad_checks, grad_checks_s=grad_checks_s,
+         grad_tol=XLSTM_GRAD_TOL, runs=runs,
+         phase_s=time.perf_counter() - t_phase, card=smi)
+    del model
+    free_device()
+    return by_path
+
+
 def free_device():
     import gc
 
@@ -5874,6 +6466,12 @@ def main():
         by_path.update(phase_moe_serve(dev, smi))
         free_device()
         by_path.update(phase_moe_train(dev, smi))
+        free_device()
+        by_path.update(phase_legacy_sp(dev, smi))
+        free_device()
+        by_path.update(phase_xlstm_serve(dev, smi))
+        free_device()
+        by_path.update(phase_xlstm_train(dev, smi))
         paths = {"B1": "local", "B2": "engine", "B3": "train",
                  "B4": "engine", "B5": "legacy", "B6": "prefix",
                  "B7": "ragged_bwd"}

@@ -1,9 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` resolution, and the
 paper's own models (``paper_model``).
 
-Only ported architectures are listed: the dense all-attention ones and
-the MoE family (phi3.5-moe, llama4-maverick). Any other architecture of the
-JAX package raises, naming the ROADMAP item that ports it.
+Only ported architectures are listed: the dense all-attention ones, the
+MoE family (phi3.5-moe, llama4-maverick) and xLSTM (xlstm-1.3b). Any other
+architecture of the JAX package raises, naming the ROADMAP item that ports
+it.
 """
 
 from __future__ import annotations
@@ -21,13 +22,13 @@ _ARCH_MODULES: Dict[str, str] = {
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe_42b_a6_6b",
     "llama4-maverick-400b-a17b":
         "repro_torch.configs.llama4_maverick_400b_a17b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
 }
 
-# architectures of the JAX reference not yet ported (ROADMAP.md §A8,
+# architectures of the JAX reference not yet ported (ROADMAP.md §A8 c-e,
 # "Remaining model families", ports them)
 _UNPORTED = (
-    "paligemma-3b", "seamless-m4t-large-v2", "xlstm-1.3b",
-    "jamba-1.5-large-398b",
+    "paligemma-3b", "seamless-m4t-large-v2", "jamba-1.5-large-398b",
 )
 
 PORTED_ARCHS: List[str] = list(_ARCH_MODULES)
@@ -39,7 +40,7 @@ def _module(name: str):
     if name in _UNPORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported to repro_torch yet (ROADMAP.md "
-            f"§A8: remaining model families); ported: {PORTED_ARCHS}")
+            f"§A8 c-e: remaining model families); ported: {PORTED_ARCHS}")
     raise KeyError(f"unknown arch {name!r}; ported: {PORTED_ARCHS}")
 
 

@@ -103,8 +103,9 @@ from repro_torch.engine import kv_connector, paged_cache, sampling
 from repro_torch.engine.scheduler import (Rejection, Request, Scheduler,
                                           SlotState, bucket_pow2)
 from repro_torch.models import transformer
-from repro_torch.models.factory import Model, RankParams, shard_params
+from repro_torch.models.factory import Model, RankParams, run_on_ranks
 from repro_torch.models.runtime import Runtime
+from repro_torch.serve import kv_cache
 from repro_torch.train import step as train_step
 
 
@@ -493,23 +494,12 @@ class Engine:
     # ---- device work ----------------------------------------------------
     def _on_ranks(self, fn, rt: Optional[Runtime] = None) -> List:
         """``fn(rank_rt, rank_pools, rank_params)`` on every rank under
-        ``no_grad``, results in rank order (module doc). ``rt`` (default
-        the engine's) is the template whose communicator each rank's
-        replaces."""
-        rt = rt or self.rt
-
-        def body(comm, rank):
-            rank_rt = rt if comm is None else dataclasses.replace(rt,
-                                                                  comm=comm)
-            if self._params[rank] is None:
-                self._params[rank] = shard_params(self.model, rank_rt.comm,
-                                                  rank_rt.rules)
-            with torch.no_grad():   # grad mode is per thread
-                return fn(rank_rt, self.pools[rank], self._params[rank])
-
-        if self.mesh is None:
-            return [body(None, 0)]
-        return self.mesh.run(lambda comm: body(comm, comm.rank))
+        ``no_grad``, results in rank order (module doc;
+        ``models.factory.run_on_ranks``). ``rt`` (default the engine's) is
+        the template whose communicator each rank's replaces."""
+        return run_on_ranks(
+            self.mesh, rt or self.rt, self.model, self._params,
+            lambda rank_rt, rank, tree: fn(rank_rt, self.pools[rank], tree))
 
     def _tensor(self, a, dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
@@ -533,8 +523,8 @@ class Engine:
 
     def _prefill_rank(self, rt, tree, tokens, n_real: int):
         """This rank's ``lm_prefill`` of the padded prompt ``tokens`` (1, S)
-        of ``n_real`` real tokens: (hidden (1, 1, D), (k, v) stacks of its
-        slice)."""
+        of ``n_real`` real tokens: (hidden (1, 1, D), its slice's cache,
+        ``serve.kv_cache``'s)."""
         from repro_torch.serve import step as serve_step
 
         S = tokens.shape[1]
@@ -556,7 +546,7 @@ class Engine:
         out = self._on_ranks(
             lambda r, _, tree: self._prefill_rank(r, tree, padded,
                                                   len(tokens)), rt)
-        ks, vs = zip(*(kv for _, kv in out[:self.sp]))
+        ks, vs = zip(*(kv_cache.kv_stacks(c) for _, c in out[:self.sp]))
         n = len(tokens)
         return out[0][0], (torch.cat(ks, 2)[:, :, :n],
                            torch.cat(vs, 2)[:, :, :n])
@@ -629,9 +619,9 @@ class Engine:
                     prompt_len=end, cached_len=start, pools=pools,
                     table_row=table_row, page_size=ps)
             else:
-                last, (k_stack, v_stack) = self._prefill_rank(
-                    rt, tree, tokens, end)
-                paged_cache.insert_prompt(rt, pools, k_stack, v_stack,
+                last, cache = self._prefill_rank(rt, tree, tokens, end)
+                paged_cache.insert_prompt(rt, pools,
+                                          *kv_cache.kv_stacks(cache),
                                           table_row, end, ps)
             if not final:
                 return last, None

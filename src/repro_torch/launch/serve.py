@@ -39,8 +39,15 @@ drains: streams in flight finish, host-tier spills flush, workers join.
 ``--legacy`` is the static-batch greedy path (it ignores the sampling
 flags, as the JAX launcher's does): one batch of ``--batch``
 random prompts of ``--prompt-len`` tokens, prefilled at the prompt length,
-the cache expanded to capacity, then ``--gen - 1`` decode steps against the
-contiguous cache (kernel B5 once per layer and step on the card).
+the cache expanded to capacity (padded to a multiple of the SP degree),
+then ``--gen - 1`` decode steps against the contiguous cache (kernel B5
+once per rank, layer and step on the card). It runs on the plan's ranks
+(``--devices N``, one ``ThreadMesh`` thread each) and is the only path
+that serves the xLSTM family (``--arch xlstm-1.3b``), whose recurrent
+states the engine refuses, as the JAX engine does:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
+      --smoke --device cpu --legacy --devices 4 --c 2 --prompt-len 16
 
 Runs on the CUDA card by default (``--device cuda``), and raises if there is
 none; ``--device cpu`` runs the plain PyTorch versions of the kernels:
@@ -82,26 +89,35 @@ import argparse
 
 
 def legacy_start(model, plan, tokens, gen: int):
-    """The static-batch path up to its first decode step, on one card (the
-    JAX ``_legacy_main``'s steps at SP degree 1): prefill ``tokens``
-    (B, prompt_len) at their own length and copy the cache into one of
-    capacity ``prompt_len + gen``. Returns ``(first tokens (B, 1), cache,
-    decode)``, ``decode`` the step of ``serve.step.build_decode_step``."""
+    """The static-batch path up to its first decode step, on the plan's
+    ranks (one card, or its ``ThreadMesh``; the JAX ``_legacy_main``'s
+    steps): prefill ``tokens`` (B, prompt_len) at their own length and
+    copy each rank's cache into one of capacity ``prompt_len + gen``
+    padded to a multiple of the SP degree: the prompt's K/V at its
+    positions, recurrent states as they are. Returns ``(first tokens (B,
+    1), caches, decode)``, ``decode`` the step of
+    ``serve.step.build_decode_step`` and ``caches`` every rank's cache, in
+    rank order."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.serve import kv_cache, step as serve_step
 
     B, prompt_len = tokens.shape
-    capacity = prompt_len + gen
-    run_cfg = plan.run_config()
+    sp = plan.sp_size
+    capacity = -(-(prompt_len + gen) // sp) * sp    # pad to an SP multiple
+    run_cfg, mesh = plan.run_config(), plan.build_mesh()
     prefill = serve_step.build_prefill_step(
-        model, run_cfg, ShapeConfig("serve", prompt_len, B, "prefill"))
-    tok, cache_p = prefill(tokens)
-    cache = kv_cache.init_cache(model.cfg, B, capacity, model.device)
-    for name in ("k", "v"):
-        cache[name][:, :, :prompt_len] = cache_p[name]
+        model, run_cfg, ShapeConfig("serve", prompt_len, B, "prefill"), mesh)
+    tok, caches_p = prefill(tokens)
     decode = serve_step.build_decode_step(
-        model, run_cfg, ShapeConfig("serve", capacity, B, "decode"))
-    return tok, cache, decode
+        model, run_cfg, ShapeConfig("serve", capacity, B, "decode"), mesh)
+    caches = [kv_cache.init_cache(model.cfg, decode.steps.rows,
+                                  capacity // sp,
+                                  model.device) for _ in caches_p]
+    for group in decode.steps.groups():
+        kv_cache.fill_from_prefill(
+            model.cfg, [caches[r] for r in group],
+            [caches_p[r] for r in group], prompt_len)
+    return tok, caches, decode
 
 
 def legacy_generate(model, plan, tokens, gen: int):
@@ -111,12 +127,12 @@ def legacy_generate(model, plan, tokens, gen: int):
     import torch
 
     B, prompt_len = tokens.shape
-    tok, cache, decode = legacy_start(model, plan, tokens, gen)
+    tok, caches, decode = legacy_start(model, plan, tokens, gen)
     generated = [tok]
     for i in range(gen - 1):
         cache_len = torch.full((B,), prompt_len + i, dtype=torch.int32,
                                device=model.device)
-        tok = decode(cache, tok.long(), cache_len)
+        tok = decode(caches, tok.long(), cache_len)
         generated.append(tok)
     return torch.cat(generated, dim=1).long()
 
@@ -471,10 +487,10 @@ def main(argv=None):
         out = _frontend_main(args, plan, cfg, registry=registry,
                              tracer=tracer)
     elif args.legacy:
-        if plan.n_devices != 1 or plans or plan.replicas > 1:
+        if plans or plan.replicas > 1:
             raise NotImplementedError(
-                "repro_torch.launch.serve --legacy runs one rank of one "
-                "replica (ROADMAP.md §A10); the engine serves any P")
+                "repro_torch.launch.serve --legacy serves one replica (on "
+                "any number of ranks); the gateway serves several")
         out = _legacy_main(args, plan, cfg, args.device)
     elif plans or plan.replicas > 1 or plan.prefix_cache:
         out = _gateway_main(args, plan, cfg, args.device, registry=registry,

@@ -20,11 +20,14 @@ comm, rules)`` gives one rank its parameter tree under a rule set of
 tensor (no copy), and with ``trainable=True`` a leaf of its own that
 requires a gradient, so autograd returns a shard-sized gradient. Blocks
 read only such a tree (or the ``Model`` itself, whose leaves are the
-shards of one rank). Checkpoints keep whole leaves.
+shards of one rank). ``run_on_ranks`` runs a function on every rank of a
+``ThreadMesh`` (or on one card) with each rank's tree, built at its first
+call. Checkpoints keep whole leaves.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import types
 from typing import Dict, List, Mapping, Tuple
 
@@ -39,9 +42,10 @@ from repro_torch.models import spec, transformer
 
 class Model(nn.Module):
     """Decoder LM parameters: ``embed.table``, ``layers[i].mixer`` (wq, wk,
-    wv, wo, norm), ``layers[i].mlp`` (w1, w3, w2, norm; on a MoE layer
-    router, w1, w3, w2, norm and the shared expert's ``shared``),
-    ``final_norm``, ``lm_head.table``. The serving forward passes live in ``serve.step``;
+    wv, wo, norm; an mLSTM's wq, wk, wv, wi, wf, wo, norm; an sLSTM's wx,
+    r, wo, norm), ``layers[i].mlp`` (w1, w3, w2, norm; on a MoE layer
+    router, w1, w3, w2, norm and the shared expert's ``shared``; none in an
+    xLSTM stack), ``final_norm``, ``lm_head.table``. The serving forward passes live in ``serve.step``;
     the training loss is ``loss``."""
 
     def __init__(self, cfg: ModelConfig, make):
@@ -129,6 +133,25 @@ def shard_params(model: Model, comm, rules: str = "default", *,
     return RankParams(**_nest(model, "", named), named=named)
 
 
+def run_on_ranks(mesh, rt, model: Model, trees: List, fn) -> List:
+    """``fn(rank_rt, rank, tree)`` on every rank under ``no_grad``, the
+    results in rank order: one rank (index 0, ``rt`` itself) when ``mesh``
+    is None, else every thread of the ``ThreadMesh``, each with ``rt``'s
+    communicator replaced by its own. ``trees`` holds each rank's
+    ``shard_params`` tree under ``rt.rules`` (a list of one entry a rank,
+    None until the rank's first call, which builds it)."""
+    def body(comm, rank):
+        rank_rt = rt if comm is None else dataclasses.replace(rt, comm=comm)
+        if trees[rank] is None:
+            trees[rank] = shard_params(model, rank_rt.comm, rank_rt.rules)
+        with torch.no_grad():   # grad mode is per thread
+            return fn(rank_rt, rank, trees[rank])
+
+    if mesh is None:
+        return [body(None, 0)]
+    return mesh.run(lambda comm: body(comm, comm.rank))
+
+
 def _on_device(device) -> torch.device:
     """``device`` as a ``torch.device``; a CUDA device with no card raises
     (the port runs on the card unless the caller asks for the CPU)."""
@@ -204,7 +227,10 @@ def from_jax_tree(tree, names, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """The inverse of ``jax_tree``: the port parameter ``names`` mapped to
     their rows (views) of the JAX-layout tree ``tree``."""
     n_sub = len(transformer.layer_pattern(cfg))
-    n_periods = tree["stack"]["sub0"]["mixer"]["wq"].shape[0]
+    leaf = tree["stack"]
+    while isinstance(leaf, dict):
+        leaf = next(iter(leaf.values()))
+    n_periods = leaf.shape[0]
     if n_periods * n_sub != cfg.num_layers:
         raise ValueError(f"tree has {n_periods} periods of {n_sub} "
                          f"layers, config has {cfg.num_layers}")

@@ -7,8 +7,11 @@ sub-layer ``i % len(period)`` of ``layer_pattern``. Dense stacks have a
 period of one (attention, MLP); MoE stacks a period of
 ``moe.every_n_layers`` with the MoE block (``models.moe``, stored under
 ``mlp`` as in the JAX tree) on its last layer and a dense MLP on the others
-(llama4-maverick: dense, then MoE). Hybrid, SSM and encoder-decoder periods
-raise, naming the ROADMAP queue.
+(llama4-maverick: dense, then MoE); xLSTM stacks a period of
+``xlstm.slstm_every`` recurrent mixers (``models.ssm``), an sLSTM on its
+last layer and mLSTMs on the others, with no MLP (``d_ff == 0``): their
+layers hold ``mixer`` only. Hybrid and encoder-decoder periods raise,
+naming the ROADMAP queue.
 
 ``apply_stack`` returns ``(x, aux)``: the MoE layers' auxiliary losses with
 the JAX weights, ``0.01 * moe_lb + 1e-3 * moe_z`` per MoE layer, summed;
@@ -21,9 +24,11 @@ JAX package) keeps per layer only the layer input and the attention
 block's output (JAX's ``save_only_these_names("attn_out")``): one region
 around ``attention_block`` and one around the MLP or MoE block (its aux
 losses among the region's outputs), so each layer's attention forward, and
-each MoE block with its all-to-alls, runs twice per step. 'full' keeps
-only the layer input (one region around the layer); 'none' keeps every
-activation. Recompute changes no value.
+each MoE block with its all-to-alls, runs twice per step. A layer with a
+recurrent mixer has no attention output to keep: one region around the
+mixer keeps only its input, as JAX's policy does for a period without
+attention. 'full' keeps only the layer input (one region around the
+layer); 'none' keeps every activation. Recompute changes no value.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import blocks, moe
+from repro_torch.models import blocks, moe, ssm
 
 REMATS = ("none", "attn_out", "full")
 # the aux-loss weights of a MoE layer (JAX ``apply_stack``)
@@ -42,39 +47,66 @@ LB_WEIGHT, Z_WEIGHT = 0.01, 1e-3
 
 
 def layer_pattern(cfg: ModelConfig) -> List[Tuple[str, Optional[str]]]:
-    """The repeating (mixer, mlp) period of the architecture: (attn, mlp)
-    for a dense stack; for a MoE stack ``every_n_layers`` attention layers
-    with 'moe' on the last."""
-    if (cfg.family not in ("dense", "moe") or cfg.encdec
-            or (cfg.d_ff == 0 and cfg.moe is None)):
+    """The repeating (mixer, mlp) period of the architecture (JAX
+    ``layer_pattern``): (attn, mlp) for a dense stack; for a MoE stack
+    ``every_n_layers`` attention layers with 'moe' on the last; for xLSTM
+    ``slstm_every`` layers, 'slstm' on the last and 'mlstm' on the others,
+    each with no MLP."""
+    if cfg.family not in ("dense", "moe", "ssm") or cfg.encdec:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (hybrid / SSM / "
-            "encoder-decoder layers) is not ported to repro_torch yet "
-            "(ROADMAP.md §A8 b-d: remaining model families)")
-    period = cfg.moe.every_n_layers if cfg.moe is not None else 1
+            f"{cfg.name}: family {cfg.family!r} (hybrid / encoder-decoder / "
+            "VLM layers) is not ported to repro_torch yet (ROADMAP.md §A8 "
+            "c-e: remaining model families)")
+    period = 1
+    if cfg.moe is not None:
+        period = max(period, cfg.moe.every_n_layers)
+    if cfg.family == "ssm" and cfg.xlstm is not None:
+        period = max(period, cfg.xlstm.slstm_every)
     if cfg.num_layers % period:
         raise ValueError(f"{cfg.num_layers=} not divisible by {period=}")
-    return [("attn", "moe" if cfg.moe_on_layer(i) else "mlp")
-            for i in range(period)]
+    pat = []
+    for i in range(period):
+        if cfg.d_ff == 0 and cfg.moe is None:
+            mlp = None                      # xLSTM blocks have no FFN
+        elif cfg.moe_on_layer(i):
+            mlp = "moe"
+        else:
+            mlp = "mlp"
+        pat.append((cfg.mixer_on_layer(i), mlp))
+    return pat
+
+
+def layer_plan(cfg: ModelConfig) -> List[Tuple[str, Optional[str]]]:
+    """Each layer's (mixer, mlp) kinds, in stack order."""
+    pat = layer_pattern(cfg)
+    return [pat[i % len(pat)] for i in range(cfg.num_layers)]
 
 
 def has_moe(cfg: ModelConfig) -> bool:
     return any(mlp == "moe" for _, mlp in layer_pattern(cfg))
 
 
-def layer_kinds(cfg: ModelConfig) -> List[str]:
-    """Each layer's MLP kind, 'mlp' or 'moe', in stack order."""
-    pat = layer_pattern(cfg)
-    return [pat[i % len(pat)][1] for i in range(cfg.num_layers)]
+def layer_kinds(cfg: ModelConfig) -> List[Optional[str]]:
+    """Each layer's MLP kind, 'mlp', 'moe' or None (no MLP), in stack
+    order."""
+    return [mlp for _, mlp in layer_plan(cfg)]
+
+
+def _layer_specs(cfg: ModelConfig, mixer: str, mlp: Optional[str]):
+    s = {"mixer": (blocks.attention_specs(cfg) if mixer == "attn"
+                   else ssm.MIXERS[mixer][0](cfg))}
+    if mlp == "moe":
+        s["mlp"] = moe.moe_specs(cfg)
+    elif mlp == "mlp":
+        s["mlp"] = blocks.mlp_specs(cfg)
+    return s
 
 
 def lm_specs(cfg: ModelConfig):
     s = {
         "embed": blocks.embedding_specs(cfg),
-        "layers": [{"mixer": blocks.attention_specs(cfg),
-                    "mlp": (moe.moe_specs(cfg) if kind == "moe"
-                            else blocks.mlp_specs(cfg))}
-                   for kind in layer_kinds(cfg)],
+        "layers": [_layer_specs(cfg, mixer, mlp)
+                   for mixer, mlp in layer_plan(cfg)],
         "final_norm": blocks.rmsnorm_specs(cfg.d_model),
     }
     if not cfg.tie_embeddings:
@@ -99,26 +131,33 @@ def apply_stack(rt, layers, x, cfg: ModelConfig, *, causal: bool = True,
     weighted auxiliary losses (0 for a dense stack)."""
     if remat not in REMATS:
         raise ValueError(f"remat must be one of {REMATS}, got {remat!r}")
-    kinds = layer_kinds(cfg)
 
-    def attn(p, x):
-        return blocks.attention_block(rt, p, x, cfg, causal=causal,
-                                      window=cfg.window,
-                                      prefix_len=prefix_len)
+    def mix(p, x, mixer):
+        if mixer == "attn":
+            return blocks.attention_block(rt, p, x, cfg, causal=causal,
+                                          window=cfg.window,
+                                          prefix_len=prefix_len)
+        return ssm.MIXERS[mixer][1](rt, p, x, cfg)
 
-    def layer_fn(layer, x, kind):
-        return mlp_sublayer(rt, layer.mlp, attn(layer.mixer, x), cfg, kind)
+    def mlp(layer, x, kind):
+        if kind is None:
+            return x, None
+        return mlp_sublayer(rt, layer.mlp, x, cfg, kind)
+
+    def layer_fn(layer, x, mixer, kind):
+        return mlp(layer, mix(layer.mixer, x, mixer), kind)
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer, kind in zip(layers, kinds):
+    for layer, (mixer, kind) in zip(layers, layer_plan(cfg)):
         if remat == "none" or not torch.is_grad_enabled():
-            x, a = layer_fn(layer, x, kind)
+            x, a = layer_fn(layer, x, mixer, kind)
         elif remat == "attn_out":
-            x = checkpoint(attn, layer.mixer, x, use_reentrant=False)
-            x, a = checkpoint(mlp_sublayer, rt, layer.mlp, x, cfg, kind,
-                              use_reentrant=False)
+            x = checkpoint(mix, layer.mixer, x, mixer, use_reentrant=False)
+            x, a = (checkpoint(mlp, layer, x, kind, use_reentrant=False)
+                    if kind is not None else (x, None))
         else:
-            x, a = checkpoint(layer_fn, layer, x, kind, use_reentrant=False)
+            x, a = checkpoint(layer_fn, layer, x, mixer, kind,
+                              use_reentrant=False)
         if a is not None:
             aux = aux + a
     return x, aux

@@ -1,41 +1,124 @@
 """The contiguous serving cache of the static-batch path (the port's
-counterpart of ``repro.serve.kv_cache``, attention layers only).
+counterpart of ``repro.serve.kv_cache``).
 
-Layout, per rank: every layer's K and V in one tensor each,
+Layouts, per rank (JAX ``kv_cache.py:53-64``):
+
+  attention : k, v (B, S_local, Hkv, hd)   the rank's contiguous slice
+  mlstm     : state (B, H, dk, dk + 1) f32
+  slstm     : h, c (B, H, dh) f32
+
+Recurrent states have no sequence dimension: every SP rank holds the
+same, and only the batch splits over data replicas. An all-attention
+stack (dense, MoE) keeps every layer's K and V in one tensor each,
 
     k, v : (num_layers, B, S_local, Hkv, hd)
 
-the rank's contiguous slice of a capacity-sized cache (``capacity`` a
-multiple of the SP degree). Slot ``s`` of rank ``r`` holds position
+a stack with a recurrent mixer a list of per-layer dicts. Only this
+module reads the difference: ``from_layers`` builds either from per-layer
+dicts, ``layer(cache, i)`` gives layer ``i``'s dict of either (views of
+the stacked tensors), ``kv_stacks`` a stacked cache's two tensors.
+The K/V slices are those of a capacity-sized cache (``capacity`` a
+multiple of the SP degree): slot ``s`` of rank ``r`` holds position
 ``r * S_local + s``; a decode step treats positions ``<= cache_len`` as
 filled and writes the new token at ``cache_len`` on its owning rank.
-Recurrent-state layers (mamba, mLSTM, sLSTM) are not ported, so only
-all-attention stacks are served, as ``engine.paged_cache.supported``
-decides. ``write_token`` updates the cache **in place**.
+``write_token`` and the decode steps update the cache **in place**.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.engine import paged_cache
-from repro_torch.models import spec
+from repro_torch.models import spec, transformer
+
+Cache = Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]]]
+
+
+def stacked(cfg: ModelConfig) -> bool:
+    """Whether ``cfg``'s cache is the stacked {'k','v'} of an
+    all-attention stack."""
+    return all(m == "attn" for m, _ in transformer.layer_pattern(cfg))
+
+
+def _layer_cache(cfg: ModelConfig, mixer: str, batch: int, s_local: int,
+                 dtype, device) -> Dict[str, torch.Tensor]:
+    d, hq = cfg.d_model, cfg.num_heads
+    if mixer == "attn":
+        shape = (batch, s_local, cfg.num_kv_heads, cfg.head_dim_)
+        return {n: torch.zeros(shape, dtype=dtype, device=device)
+                for n in ("k", "v")}
+    dk = d // hq
+    if mixer == "mlstm":
+        return {"state": torch.zeros((batch, hq, dk, dk + 1),
+                                     dtype=torch.float32, device=device)}
+    return {n: torch.zeros((batch, hq, dk), dtype=torch.float32,
+                           device=device) for n in ("h", "c")}
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
-               device) -> Dict[str, torch.Tensor]:
-    """A zeroed cache {'k','v'}: (L, batch, capacity, Hkv, hd)."""
-    ok, why = paged_cache.supported(cfg)
-    if not ok:
-        raise NotImplementedError(f"repro_torch.serve: {cfg.name}: {why}")
-    shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads,
-             cfg.head_dim_)
+               device) -> Cache:
+    """A zeroed cache of ``batch`` rows whose K/V hold ``capacity``
+    positions: {'k','v'} (L, batch, capacity, Hkv, hd) for an
+    all-attention stack, else one dict a layer (module doc)."""
     dtype = spec.DTYPES[cfg.param_dtype]
-    return {n: torch.zeros(shape, dtype=dtype, device=device)
-            for n in ("k", "v")}
+    if stacked(cfg):
+        shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads,
+                 cfg.head_dim_)
+        return {n: torch.zeros(shape, dtype=dtype, device=device)
+                for n in ("k", "v")}
+    return [_layer_cache(cfg, mixer, batch, capacity, dtype, device)
+            for mixer, _ in transformer.layer_plan(cfg)]
+
+
+def from_layers(cfg: ModelConfig,
+                layers: Sequence[Dict[str, torch.Tensor]]) -> Cache:
+    """The cache of ``cfg`` made of one dict a layer (module doc): the
+    layers' K/V stacked for an all-attention stack, else the list."""
+    if stacked(cfg):
+        return {n: torch.stack([c[n] for c in layers]) for n in ("k", "v")}
+    return list(layers)
+
+
+def kv_stacks(cache: Cache):
+    """(k, v), the (L, B, S_local, Hkv, hd) tensors of an all-attention
+    stack's cache."""
+    if isinstance(cache, list):
+        raise TypeError("a cache with recurrent layers has no K/V stacks")
+    return cache["k"], cache["v"]
+
+
+def layer(cache: Cache, i: int) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s dict of ``cache`` (stacked leaves give views, so
+    writes land in the cache); also a page pool's {'k','v'} stacks."""
+    if isinstance(cache, list):
+        return cache[i]
+    return {n: t[i] for n, t in cache.items()}
+
+
+def fill_from_prefill(cfg: ModelConfig, dst: Sequence[Cache],
+                      src: Sequence[Cache], prompt_len: int) -> None:
+    """Copy the prefill caches ``src`` of one data replica's SP ranks, in
+    SP rank order (each rank's slice of ``prompt_len`` positions), into
+    the capacity-sized caches ``dst`` of the same ranks, in place: the
+    prompt's K/V at positions ``0 .. prompt_len - 1`` of the capacity
+    layout, and each recurrent state as it is (JAX ``_legacy_main``'s
+    ``merge``)."""
+    for i, (mixer, _) in enumerate(transformer.layer_plan(cfg)):
+        if mixer != "attn":
+            for d, s in zip(dst, src):
+                for n, t in layer(d, i).items():
+                    t.copy_(layer(s, i)[n])
+            continue
+        for n in ("k", "v"):
+            full = torch.cat([layer(s, i)[n] for s in src], dim=1)
+            s_cap = layer(dst[0], i)[n].shape[1]
+            for j, d in enumerate(dst):
+                lo = j * s_cap
+                m = max(0, min(s_cap, prompt_len - lo))
+                if m:
+                    layer(d, i)[n][:, :m] = full[:, lo:lo + m]
 
 
 def write_token(rt, cache: Dict[str, torch.Tensor], k_new, v_new,
@@ -54,3 +137,4 @@ def write_token(rt, cache: Dict[str, torch.Tensor], k_new, v_new,
     for name, new in (("k", k_new), ("v", v_new)):
         t = cache[name]
         t[rows, slot] = torch.where(own, new[:, 0].to(t.dtype), t[rows, slot])
+

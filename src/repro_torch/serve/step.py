@@ -19,6 +19,13 @@ prefill: the full forward pass (StarTrail attention: kernel B2 on 'cuda';
   (a prefix-cache hit or a later chunk), reading the cached prefix from
   the page pool (kernel B6) and writing the suffix K/V into its pages.
 
+Recurrent mixers (the xLSTM family, ``models.ssm``): the decode step
+  advances an mLSTM's matrix memory or an sLSTM's (h, c) by one token in
+  place (``_mlstm_decode``, ``_slstm_decode``); the prefill returns each
+  such layer's state: the last rank's cross-shard-corrected final state
+  for an mLSTM, the last rank's shard-local (h, c) for an sLSTM. Only the
+  static-batch path serves them: the engine refuses them, as JAX's does.
+
 Dense and MoE attention stacks are ported: a MoE layer runs
 ``models.moe.moe_block`` in place of the MLP in the decode step and the
 full prefill, its auxiliary losses dropped, and its expert capacity couples
@@ -27,13 +34,14 @@ package. The suffix prefill never sees a MoE stack: the engine refuses
 prefix caching and chunking for them. The per-rank functions take the
 ``Runtime`` (communicator + attention config) and the rank's parameter
 tree (``models.factory.shard_params`` under ``rt.rules``; at one rank the
-``Model`` itself).
+``Model`` itself). ``build_prefill_step`` / ``build_decode_step`` run them
+on one card or on every rank of a ``ThreadMesh``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -44,7 +52,9 @@ from repro_torch.core.combine import combine_pair
 from repro_torch.engine import paged_cache
 from repro_torch.engine import sampling as sampling_lib
 from repro_torch.kernels import dispatch as kernels
-from repro_torch.models import blocks, transformer
+from repro_torch.dist.sharding import DATA_AXIS
+from repro_torch.models import blocks, ssm, transformer
+from repro_torch.models.factory import run_on_ranks
 from repro_torch.serve import kv_cache
 
 
@@ -88,13 +98,70 @@ def attn_decode_branch(rt, p, x, cache, cfg: ModelConfig, cache_len,
     return blocks.attention_out(rt, p, o)
 
 
+def _mlstm_decode(rt, p, x, cache, cfg: ModelConfig):
+    """One token through an mLSTM layer. x: (B, 1, D); cache: {'state'}
+    (B, H, dk, dk + 1) f32, updated in place."""
+    B = x.shape[0]
+    h = blocks.rmsnorm(p.norm, x, cfg.norm_eps)
+    wq = rt.dense(p.wq, ssm.QKV_AXES)
+    wk = rt.dense(p.wk, ssm.QKV_AXES)
+    wv = rt.dense(p.wv, ssm.QKV_AXES)
+    wi = rt.dense(p.wi, ssm.GATE_AXES)
+    wf = rt.dense(p.wf, ssm.GATE_AXES)
+    wo = rt.dense(p.wo, ssm.O_AXES)
+    dk = wq.shape[-1]
+
+    h1 = h[:, :1]
+    q = torch.einsum("bsd,dhk->bhk", h1, wq) * dk ** -0.5
+    k = torch.einsum("bsd,dhk->bhk", h1, wk)
+    v = torch.einsum("bsd,dhk->bhk", h1, wv)
+    ig = torch.sigmoid(torch.einsum("bsd,dh->bh", h1, wi).float())
+    f = torch.sigmoid(torch.einsum("bsd,dh->bh", h1, wf).float())
+
+    k = k.float() * ig[..., None]
+    v_aug = torch.cat([v.float(), torch.ones((B, v.shape[1], 1),
+                                             dtype=torch.float32,
+                                             device=v.device)], dim=-1)
+    state = cache["state"] * f[..., None, None] \
+        + k[..., :, None] * v_aug[..., None, :]
+    cache["state"].copy_(state)
+    y_aug = torch.einsum("bhk,bhkp->bhp", q.float(), state)
+    y, ndot = y_aug[..., :-1], y_aug[..., -1]
+    y = y / torch.clamp(ndot.abs(), min=1.0)[..., None]
+    return x + torch.einsum("bhk,hkd->bd", y.to(x.dtype), wo)[:, None]
+
+
+def _slstm_decode(rt, p, x, cache, cfg: ModelConfig):
+    """One token through an sLSTM layer. x: (B, 1, D); cache: {'h','c'}
+    (B, H, dh) f32, updated in place. ``r`` is gathered whole
+    (``ssm.slstm_recurrent_weight``)."""
+    B = x.shape[0]
+    hq = cfg.num_heads
+    dh = cfg.d_model // hq
+    h = blocks.rmsnorm(p.norm, x, cfg.norm_eps)
+    wx = rt.dense(p.wx, ssm.WX_AXES)
+    r = ssm.slstm_recurrent_weight(rt, p)
+    wo = rt.dense(p.wo, ssm.SO_AXES)
+
+    gx = torch.einsum("bsd,dg->bg", h[:, :1], wx).float()
+    hs, cs = ssm.slstm_cell(gx.reshape(B, hq, 4 * dh), cache["h"],
+                            cache["c"], r)
+    cache["h"].copy_(hs)
+    cache["c"].copy_(cs)
+    y = hs.reshape(B, 1, cfg.d_model).to(x.dtype)
+    return x + torch.einsum("bsd,de->bse", y, wo)
+
+
+_RECURRENT_DECODE = {"mlstm": _mlstm_decode, "slstm": _slstm_decode}
+
+
 def lm_decode_step(rt, params, cache, tokens, cfg: ModelConfig, cache_len,
                    paged: Optional[paged_cache.PagedTables] = None,
                    return_hidden: bool = False, sampling=None):
     """tokens: (B, 1) int64 (replicated across SP); cache_len: (B,) int32.
-    cache: {'k','v'}, updated in place: the page pools (L, pages_loc, ps,
-    Hkv, hd) with ``paged``, else the contiguous cache (L, B, S_local, Hkv,
-    hd) of ``kv_cache``. Returns the next tokens (B, 1) int32, or with
+    cache: updated in place: the page pools {'k','v'} (L, pages_loc, ps,
+    Hkv, hd) with ``paged``, else the contiguous cache of ``kv_cache``
+    (its recurrent states too). Returns the next tokens (B, 1) int32, or with
     ``return_hidden`` the (B, 1, D) pre-head hidden state.
 
     sampling: None for greedy, or a dict of per-row ``temperature``,
@@ -104,12 +171,15 @@ def lm_decode_step(rt, params, cache, tokens, cfg: ModelConfig, cache_len,
       sampled token's position, ``cache_len + 1``, from the host copy, so
       solo and batched serving draw the same noise."""
     x = blocks.embed(rt, params.embed, tokens, cfg, tokens_replicated=True)
-    for i, (layer, kind) in enumerate(zip(params.layers,
-                                          transformer.layer_kinds(cfg))):
-        x = _attn_decode(rt, layer.mixer, x,
-                         {"k": cache["k"][i], "v": cache["v"][i]}, cfg,
-                         cache_len, paged)
-        x = transformer.mlp_sublayer(rt, layer.mlp, x, cfg, kind)[0]
+    for i, (layer, (mixer, kind)) in enumerate(zip(
+            params.layers, transformer.layer_plan(cfg))):
+        c = kv_cache.layer(cache, i)
+        if mixer == "attn":
+            x = _attn_decode(rt, layer.mixer, x, c, cfg, cache_len, paged)
+        else:
+            x = _RECURRENT_DECODE[mixer](rt, layer.mixer, x, c, cfg)
+        if kind is not None:
+            x = transformer.mlp_sublayer(rt, layer.mlp, x, cfg, kind)[0]
     x = blocks.rmsnorm(params.final_norm, x, cfg.norm_eps)
     if return_hidden:
         return x
@@ -134,8 +204,9 @@ def lm_prefill(rt, params, tokens, cfg: ModelConfig,
     tokens: (B, S_local) int64, this rank's contiguous slice of the prompt
       of ``rt.st_cfg.seq_len`` tokens (right-padded, if at all, past the
       real length). Returns
-      ``(next_token or hidden, (k_stack, v_stack))`` with K/V stacks
-      (L, B, S_local, Hkv, hd), post-RoPE.
+      ``(next_token or hidden, cache)``, the cache in ``kv_cache``'s
+      layout over the rank's S_local positions: K/V post-RoPE, each
+      recurrent layer's state from ``return_state``.
     prompt_len: optional (B,) int32 real prompt lengths; the next-token
       hidden state is then taken at ``prompt_len - 1`` instead of the last
       slot. Causal attention makes right-padding harmless before it.
@@ -143,14 +214,20 @@ def lm_prefill(rt, params, tokens, cfg: ModelConfig,
       across SP) instead of a greedily sampled token.
     """
     x = blocks.embed(rt, params.embed, tokens, cfg)
-    ks, vs = [], []
-    for layer, kind in zip(params.layers, transformer.layer_kinds(cfg)):
-        x, (k, v) = blocks.attention_block(
-            rt, layer.mixer, x, cfg, causal=True, window=cfg.window,
-            return_kv=True)
-        ks.append(k)
-        vs.append(v)
-        x = transformer.mlp_sublayer(rt, layer.mlp, x, cfg, kind)[0]
+    caches = []
+    for layer, (mixer, kind) in zip(params.layers,
+                                    transformer.layer_plan(cfg)):
+        if mixer == "attn":
+            x, (k, v) = blocks.attention_block(
+                rt, layer.mixer, x, cfg, causal=True, window=cfg.window,
+                return_kv=True)
+            caches.append({"k": k, "v": v})
+        else:
+            x, state = ssm.MIXERS[mixer][1](rt, layer.mixer, x, cfg,
+                                            return_state=True)
+            caches.append(state)
+        if kind is not None:
+            x = transformer.mlp_sublayer(rt, layer.mlp, x, cfg, kind)[0]
     x = blocks.rmsnorm(params.final_norm, x, cfg.norm_eps)
     if prompt_len is None:
         # the last position: the last rank's final slot (contiguous layout)
@@ -166,7 +243,7 @@ def lm_prefill(rt, params, tokens, cfg: ModelConfig,
         onehot = (pos[None] == target[:, None]).float()
         last = torch.einsum("bs,bsd->bd", onehot, x.float())[:, None]
         last = rt.psum_model(last).to(x.dtype)
-    cache = (torch.stack(ks), torch.stack(vs))
+    cache = kv_cache.from_layers(cfg, caches)
     if return_hidden:
         return last, cache
     return sampling_lib.greedy(rt, params.head, last, cfg), cache
@@ -264,42 +341,106 @@ def lm_prefill_paged(rt, params, tokens, cfg: ModelConfig, *, prompt_len: int,
 # the static-batch path (launch.serve --legacy)
 # ---------------------------------------------------------------------------
 
-def _contiguous_runtime(model, run_cfg: RunConfig, shape: ShapeConfig):
-    """The runtime of one card with the caches' contiguous layout."""
-    from repro_torch.train import step as train_step
+class StaticSteps:
+    """The ranks of the static-batch steps of one ``shape``
+    (``build_prefill_step`` / ``build_decode_step``): one card when
+    ``mesh`` is None, else every thread of the ``ThreadMesh``. Each rank
+    serves its data replica's rows (the batch splits over the replicas
+    when it divides, else every replica serves it all) and its contiguous
+    slice of the sequence, with its parameter tree under the plan's rules
+    (built at its first call). ``where`` gives each rank's (data replica,
+    SP rank)."""
 
-    rt = train_step.make_runtime(model, run_cfg, shape)
-    return dataclasses.replace(rt, st_cfg=dataclasses.replace(
-        rt.st_cfg, seq_scheme="contiguous"))
+    def __init__(self, model, run_cfg: RunConfig, shape: ShapeConfig,
+                 mesh=None):
+        from repro_torch.train import step as train_step
+
+        self.model, self.mesh = model, mesh
+        data = mesh.data if mesh is not None else 1
+        # split the batch over the replicas when it divides, else every
+        # replica serves every row (JAX ``batch_axes_for``)
+        self.split = data > 1 and shape.global_batch % data == 0
+        self.rows = shape.global_batch // data if self.split \
+            else shape.global_batch
+        rt = train_step.make_runtime(model, run_cfg, shape)
+        self.rt = dataclasses.replace(
+            rt, batch_axes=(DATA_AXIS,) if self.split else (),
+            st_cfg=dataclasses.replace(rt.st_cfg, seq_scheme="contiguous"))
+        self._trees = [None] * (mesh.size if mesh is not None else 1)
+        self.where = self.run(lambda rt, *_: (
+            rt.comm.axis_index(DATA_AXIS), rt.sp_rank()))
+
+    def run(self, fn) -> List:
+        """``fn(rt, rank, tree)`` on every rank under ``no_grad``, the
+        results in rank order (``models.factory.run_on_ranks``)."""
+        return run_on_ranks(self.mesh, self.rt, self.model, self._trees, fn)
+
+    def rows_of(self, rt, x):
+        """The rows of ``x`` (batch-major) the rank of ``rt`` serves."""
+        if not self.split:
+            return x
+        d = rt.comm.axis_index(DATA_AXIS)
+        return x[d * self.rows:(d + 1) * self.rows]
+
+    def groups(self) -> List[List[int]]:
+        """Each data replica's ranks, in SP rank order."""
+        n = max(d for d, _ in self.where) + 1
+        return [[rank for _, rank in sorted(
+            (sp, rank) for rank, (d, sp) in enumerate(self.where)
+            if d == dd)] for dd in range(n)]
+
+    def gather(self, outs):
+        """The batch's rows of a per-rank output: each serving replica's
+        SP rank 0's, in replica order (replica 0's alone when every
+        replica serves every row)."""
+        groups = self.groups() if self.split else self.groups()[:1]
+        return torch.cat([outs[g[0]] for g in groups])
 
 
-def build_prefill_step(model, run_cfg: RunConfig, shape: ShapeConfig):
-    """The prefill of a static batch at ``shape.seq_len`` tokens on one
-    card: ``fn(tokens (B, S)) -> (next token (B, 1), cache {'k','v'}
-    (L, B, S, Hkv, hd))``, the contiguous cache of ``kv_cache`` holding the
-    prompt."""
-    rt = _contiguous_runtime(model, run_cfg, shape)
+def build_prefill_step(model, run_cfg: RunConfig, shape: ShapeConfig,
+                       mesh=None):
+    """The prefill of a static batch at ``shape.seq_len`` tokens (a
+    multiple of the SP degree): ``fn(tokens (B, S)) -> (next token (B, 1),
+    caches)``, ``caches`` every rank's ``kv_cache`` cache holding its
+    slice of the prompt, in rank order (one on one card). ``fn.steps`` is
+    its ``StaticSteps``."""
+    steps = StaticSteps(model, run_cfg, shape, mesh)
+    cfg = model.cfg
 
     def fn(tokens):
-        with torch.no_grad():
-            tok, (k, v) = lm_prefill(rt, model, tokens, model.cfg)
-        return tok, {"k": k, "v": v}
+        sp = mesh.sp_size if mesh is not None else 1
+        if tokens.shape[1] % sp:
+            raise ValueError(f"prompt of {tokens.shape[1]} tokens does not "
+                             f"split over {sp} SP ranks")
 
+        def rank_fn(rt, _, tree):
+            s = tokens.shape[1] // rt.sp_size()
+            own = steps.rows_of(rt, tokens)[
+                :, rt.sp_rank() * s:(rt.sp_rank() + 1) * s]
+            return lm_prefill(rt, tree, own, cfg)
+
+        out = steps.run(rank_fn)
+        return steps.gather([t for t, _ in out]), [c for _, c in out]
+
+    fn.steps = steps
     return fn
 
 
-def build_decode_step(model, run_cfg: RunConfig, shape: ShapeConfig):
-    """One decode step of a static batch on one card against the contiguous
-    cache of capacity ``shape.seq_len``: ``fn(cache, tokens (B, 1),
-    cache_len (B,) int32, return_hidden=False) -> next token (B, 1)`` (or
-    the hidden state), the cache updated in place. The JAX step fixes
-    ``cache_len = seq_len - 1`` when it compiles; here each call passes the
-    batch's true lengths."""
-    rt = _contiguous_runtime(model, run_cfg, shape)
+def build_decode_step(model, run_cfg: RunConfig, shape: ShapeConfig,
+                      mesh=None):
+    """One decode step of a static batch against the contiguous caches of
+    capacity ``shape.seq_len``: ``fn(caches, tokens (B, 1), cache_len (B,)
+    int32, return_hidden=False) -> next token (B, 1)`` (or the hidden
+    state), ``caches`` every rank's, in rank order (one on one card),
+    updated in place. The JAX step fixes ``cache_len = seq_len - 1`` when
+    it compiles; here each call passes the batch's true lengths.
+    ``fn.steps`` is its ``StaticSteps``."""
+    steps = StaticSteps(model, run_cfg, shape, mesh)
 
-    def fn(cache, tokens, cache_len, return_hidden=False):
-        with torch.no_grad():
-            return lm_decode_step(rt, model, cache, tokens, model.cfg,
-                                  cache_len, return_hidden=return_hidden)
+    def fn(caches, tokens, cache_len, return_hidden=False):
+        return steps.gather(steps.run(lambda rt, rank, tree: lm_decode_step(
+            rt, tree, caches[rank], steps.rows_of(rt, tokens), model.cfg,
+            steps.rows_of(rt, cache_len), return_hidden=return_hidden)))
 
+    fn.steps = steps
     return fn

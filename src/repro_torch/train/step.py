@@ -91,6 +91,8 @@ def make_runtime(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
     if run_cfg.multi_pod:
         raise _unported("multi-pod meshes")
     scheme = run_cfg.seq_scheme
+    if cfg.family in ("ssm", "hybrid"):
+        scheme = "contiguous"   # the recurrent state passing needs it
     st = StarTrailConfig(
         seq_len=shape.seq_len,
         seq_scheme=scheme,

@@ -1536,3 +1536,83 @@ def test_moe_train_step_matches_cpu(cuda_device, arch, data, c):
         assert abs(float(m_gpu[key]) - float(m_cpu[key])) < 2e-3, key
     assert max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu)) \
         < 2e-3
+
+
+# ---------------------------------------------------------------------------
+# the xLSTM family on the card (smoke width, f32): no attention kernel
+# ---------------------------------------------------------------------------
+
+XLSTM = "xlstm-1.3b"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_devices", [1, 4])
+def test_xlstm_legacy_on_the_card_matches_cpu(cuda_device, n_devices):
+    """``--legacy`` of a smoke xLSTM model at P = 1 and at P = 4
+    (ThreadMesh(c=2, r=1)) on the card against the CPU from the same
+    weights: the tokens equal, the first decode step's hidden state within
+    2e-4, no attention kernel launched."""
+    import copy
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import legacy_start
+    from repro_torch.models.factory import build_model
+    from repro_torch.plan import make_serve_plan
+
+    cfg = registry.get_smoke(XLSTM)
+    cpu = build_model(cfg, device="cpu", seed=0)
+    plan = make_serve_plan(cfg, arch=XLSTM, n_devices=n_devices,
+                           c=2 if n_devices > 1 else 1)
+    tokens = _t(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 32)))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = copy.deepcopy(cpu).to(dev)
+        flash_attention.reset_launches()
+        ragged_prefill.reset_launches()
+        tok, cache, decode = legacy_start(model, plan, tokens.to(dev), 4)
+        cl = torch.full((2,), 32, dtype=torch.int32, device=dev)
+        hidden = decode(cache, tok.long(), cl, return_hidden=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert not any(flash_attention.LAUNCHES.values())
+            assert not any(ragged_prefill.LAUNCHES.values())
+        out[dev.type] = (tok.cpu(), hidden.float().cpu())
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert float((out["cuda"][1] - out["cpu"][1]).abs().max()) < 2e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data,c", [(1, 1), (1, 2)], ids=["p1", "c2"])
+def test_xlstm_train_step_matches_cpu(cuda_device, data, c):
+    """One train step of a smoke xLSTM model on the card and on the CPU
+    from the same weights and batch, at P = 1 and on ThreadMesh(c=2, r=1):
+    loss, gradient norm and every updated parameter within 2e-3."""
+    import copy
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.plan import make_plan
+
+    cfg = registry.get_smoke(XLSTM)
+    cpu = build_model(cfg, device="cpu", seed=0)
+    plan = make_plan(cfg, ShapeConfig("t", 64, 2, "train"),
+                     n_devices=data * c * c, data=data, c=c)
+    batch = SyntheticLM(cfg, plan.shape_config(), seed=0,
+                        seq_scheme=plan.seq_scheme,
+                        sp_size=plan.sp_size).get_batch(0)
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = copy.deepcopy(cpu).to(dev)
+        step, sh = plan.build_train_step(model, adam)
+        _, m = step(adamw.init_state(sh["params"], adam),
+                    {k: _t(v).to(dev) for k, v in batch.items()})
+        out[dev.type] = (m, [p.detach().cpu() for p in sh["params"]])
+    (m_gpu, p_gpu), (m_cpu, p_cpu) = out["cuda"], out["cpu"]
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m_gpu[key]) - float(m_cpu[key])) < 2e-3, key
+    assert max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu)) \
+        < 2e-3

@@ -63,6 +63,7 @@ def test_every_module_imports_without_jax():
         "          'repro_torch.configs.phi3_5_moe_42b_a6_6b',\n"
         "          'repro_torch.configs.llama4_maverick_400b_a17b',\n"
         "          'repro_torch.models.moe',\n"
+        "          'repro_torch.configs.xlstm_1_3b', 'repro_torch.models.ssm',\n"
         "          'repro_torch.gateway.router', 'repro_torch.gateway.gateway',\n"
         "          'repro_torch.frontend', 'repro_torch.frontend.protocol',\n"
         "          'repro_torch.frontend.slo', 'repro_torch.frontend.worker',\n"
@@ -73,7 +74,7 @@ def test_every_module_imports_without_jax():
         "print(len(names))\n")
     res = _run(code)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 81
+    assert int(res.stdout.split()[-1]) >= 83
 
 
 def test_no_jax_or_repro_import_lines():

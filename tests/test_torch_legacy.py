@@ -15,7 +15,16 @@ JAX package.
   lengths.)
 * The contiguous decode on a two-rank ``ThreadMesh`` (the cache split over
   the ranks, the token written on its owner) against one rank.
+* ``--legacy`` on the plan's ``ThreadMesh`` ranks: at P = 4 (c = 2, r = 1)
+  and at (c, data) = (2, 2), the batch split over the replicas (4 rows)
+  or served whole by each (3 rows), the tokens of the JAX islands on the
+  same mesh (one child process with 8 forced host devices, started by the
+  first of those tests), the capacity padded to the SP multiple.
 """
+
+import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -64,27 +73,34 @@ def test_ragged_prefill_plain_matches_jax(case):
 
 
 def _jax_legacy_steps(cfg, params, plan, tokens, gen):
-    """The JAX steps of ``_legacy_main`` at the true cache lengths."""
+    """The JAX steps of ``_legacy_main`` at the true cache lengths: the
+    capacity padded to the SP multiple, the prompt's K/V copied into its
+    prefix and recurrent states carried over (its ``merge``)."""
     model = jax_build_model(cfg)
     mesh, run_cfg = plan.build_mesh(), plan.run_config()
     B, prompt_len = tokens.shape
-    capacity = prompt_len + gen
+    sp = plan.sp_size
+    capacity = -(-(prompt_len + gen) // sp) * sp
     jprefill, _ = jax_serve_step.build_prefill_step(
         model, mesh, run_cfg, JaxShape("serve", prompt_len, B, "prefill"))
     tok, cache_p = jprefill(params, {"tokens": jnp.asarray(tokens,
                                                            jnp.int32)})
     cache = jax.tree.map(np.array, jax_kv_cache.init_cache(cfg, B,
                                                            capacity))
-    for sub, kv in cache["stack"].items():
-        for n in kv:
-            kv[n][:, :, :prompt_len] = np.asarray(cache_p["stack"][sub][n])
+    for sub, leaves in cache["stack"].items():
+        for n, leaf in leaves.items():
+            src = np.asarray(cache_p["stack"][sub][n])
+            if leaf.ndim >= 3 and leaf.shape[2] == capacity:
+                leaf[:, :, :prompt_len] = src
+            else:
+                leaves[n] = src
     _, info = jax_serve_step.build_decode_step(
         model, mesh, run_cfg, JaxShape("serve", capacity, B, "decode"))
     decode = jax.jit(jax.shard_map(
         lambda p, c, t, cl: jax_serve_step.lm_decode_step(
             info["rt"], p, c, t, cfg, cl),
         mesh=mesh, in_specs=(info["param_specs"], info["cache_specs"],
-                             info["tok_spec"], P()),
+                             info["tok_spec"], P(info["tok_spec"][0])),
         out_specs=(info["tok_spec"], info["cache_specs"]), check_vma=False))
     out = [np.asarray(tok)]
     for i in range(gen - 1):
@@ -159,3 +175,98 @@ def test_launch_serve_legacy_cpu():
                       "--gen", "3"])
     assert tuple(out.shape) == (2, 3)
     assert ((out >= 0) & (out < registry.get_smoke(ARCH).vocab_size)).all()
+
+
+# ---------------------------------------------------------------------------
+# --legacy at SP degree > 1
+# ---------------------------------------------------------------------------
+
+# (n_devices, c, data, batch); prompt 12 and 5 tokens (capacity 17 -> 20)
+MESH_LEGACY = {"c2r1d1": (4, 2, 1, 3), "c2r1d2": (8, 2, 2, 4),
+               "c2r1d2_b3": (8, 2, 2, 3)}
+MESH_PROMPT, MESH_GEN = 12, 5
+
+
+def _mesh_legacy_tokens(batch, vocab):
+    return np.random.default_rng(6).integers(0, vocab, (batch, MESH_PROMPT))
+
+
+def jax_mesh_references():
+    """The JAX islands' tokens of every ``MESH_LEGACY`` case (run in the
+    child process)."""
+    cfg = jax_registry.get_smoke(ARCH)
+    params = jax_build_model(cfg).init(jax.random.PRNGKey(0))
+    out = {}
+    for key, (n, c, data, batch) in MESH_LEGACY.items():
+        plan = jax_make_serve_plan(cfg, arch=ARCH, n_devices=n, data=data,
+                                   c=c)
+        assert (plan.c, plan.r, plan.data) == (c, 1, data)
+        out[key] = _jax_legacy_steps(
+            cfg, params, plan, _mesh_legacy_tokens(batch, cfg.vocab_size),
+            MESH_GEN)
+    return out
+
+
+_JAX_CHILD = r"""
+import sys
+import numpy as np
+sys.path.insert(0, "tests")
+from test_torch_legacy import jax_mesh_references
+np.savez(sys.argv[1], **jax_mesh_references())
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh_references(tmp_path_factory):
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = tmp_path_factory.mktemp("legacy") / "references.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               PYTHONPATH=os.path.join(root, "src"))
+    proc = subprocess.Popen([sys.executable, "-c", _JAX_CHILD, str(path)],
+                            cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    state = {}
+
+    def load():
+        if "want" not in state:
+            _, stderr = proc.communicate(timeout=600)
+            assert proc.returncode == 0, stderr[-4000:]
+            state["want"] = dict(np.load(path))
+        return state["want"]
+
+    try:
+        yield load
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.communicate()
+
+
+@pytest.mark.parametrize("case", sorted(MESH_LEGACY))
+def test_legacy_on_the_mesh_matches_jax_steps(mesh_references, case):
+    n, c, data, batch = MESH_LEGACY[case]
+    cfg_j = jax_registry.get_smoke(ARCH)
+    params = jax_build_model(cfg_j).init(jax.random.PRNGKey(0))
+    model = from_jax_params(jax.tree.map(np.asarray, params),
+                            registry.get_smoke(ARCH), "cpu")
+    plan = make_serve_plan(model.cfg, arch=ARCH, n_devices=n, data=data,
+                           c=c)
+    assert (plan.c, plan.r, plan.data) == (c, 1, data)
+    tokens = torch.from_numpy(_mesh_legacy_tokens(batch, cfg_j.vocab_size))
+    # the capacity-sized caches: 17 positions padded to 20, 5 a rank
+    _, caches, decode = serve.legacy_start(model, plan, tokens, MESH_GEN)
+    assert len(caches) == n
+    assert decode.steps.split == (data > 1 and batch % data == 0)
+    assert all(cache["k"].shape[2] == 5 for cache in caches)
+    got = serve.legacy_generate(model, plan, tokens, MESH_GEN)
+    assert got.shape == (batch, MESH_GEN)
+    np.testing.assert_array_equal(got.numpy(), mesh_references()[case])
+
+
+def test_launch_serve_legacy_on_eight_ranks(capsys):
+    out = serve.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                      "--legacy", "--devices", "8", "--data", "2", "--c",
+                      "2", "--batch", "2", "--prompt-len", "8", "--gen", "3"])
+    assert tuple(out.shape) == (2, 3)
+    assert "P_sp=4" in capsys.readouterr().out

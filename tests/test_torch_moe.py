@@ -250,7 +250,7 @@ def test_configs_equal_jax(references, arch):
     assert registry.get(LLAMA).opt_dtype == "bfloat16"
     assert transformer.layer_pattern(registry.get(LLAMA)) == [
         ("attn", "mlp"), ("attn", "moe")]
-    for other in ("paligemma-3b", "seamless-m4t-large-v2", "xlstm-1.3b",
+    for other in ("paligemma-3b", "seamless-m4t-large-v2",
                   "jamba-1.5-large-398b"):
         with pytest.raises(NotImplementedError, match="§A8"):
             registry.get_smoke(other)
