@@ -159,8 +159,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               the collectives carry the gradients), each rank holding its
               shards under the 'default' sharding rules. Full width and
               full depth (24 layers), seq 4096, batch 1, zigzag,
-              ``remat='attn_out'``, bf16, 3 AdamW steps on one repeated
-              batch: the loss must fall, and the first step's loss and
+              ``remat='attn_out'``, bf16, 2 AdamW steps on one repeated
+              batch (``TRAIN_SP_STEPS``, the script's time): the loss must
+              fall, and the first step's loss and
               gradient norm agree with P = 1 on the same weights. Per step
               B2 runs 8 ranks x 2 ring steps x 2 (recompute) x 24 layers =
               768 times and B3 384 times; peak memory, the profiled
@@ -170,7 +171,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               gradient leaf, assembled whole from the unique shards, at
               P = 8 and at 2 data replicas of P = 4, under each of the
               'default', 'fsdp' and 'tp' rules, against P = 1
- 14. schemes  the paper's comparison at the same size (8 layers, seq 4096,
+ 14. schemes  the paper's comparison at the train_sp width (4 layers, seq 4096,
               batch 1, bf16, ``attn_out``, P = 8 ranks on the card) through
               ``trainer.train`` with the obs registry and tracer, 2 steps
               each from the same weights: the ring (C = 1, R = 8: B2
@@ -200,9 +201,9 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               64-1024 prompt tokens, 32 new tokens each (B2 per layer and
               prefill, B4 per layer and decode step). At P = 8, as
               ThreadMesh(c=2, r=2) threads on the one card from the same
-              weights, cut to keep the phase near 150 s (the 8 rank threads
-              share the GIL: a step takes seconds): 4 of those prompts
-              (336-1024 tokens) with 8 new tokens each (B2 on every rank,
+              weights, cut to keep the phase near 100 s (the 8 rank threads
+              share the GIL: a step takes seconds): 2 of those prompts
+              (336 and 1024 tokens) with 3 new tokens each (B2 on every rank,
               ring step and layer of a prefill, B4 on every rank and layer
               of a decode step), then 2 prompts sharing a 512-token prefix
               through the prefix cache and 256-token chunks (B6 and B1 on
@@ -212,7 +213,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               agree with P = 1's printed; the engine raises if the ranks
               sample different tokens; a profiled decode step at each P.
               Then at P = 8 one sampled request (prompt 4, temperature 0.8,
-              top-k 40, top-p 0.9) beside one greedy (prompt 2), 8 new
+              top-k 40, top-p 0.9) beside one greedy (prompt 2), 3 new
               tokens each: the sampled stream equals its solo run, the
               greedy one its stream in the all-greedy run
  17. dense_train  ``trainer.train`` on the paper's GPT-7B (MHA 32/32, head
@@ -277,11 +278,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               which must print its bit-identical line; SIGTERM must drain
               each to exit 0. The worker processes' launches cannot be
               counted from this process: their check is stream equality
- 19. rules    the 'fsdp' and 'tp' sharding rules at full width, 8
+ 19. rules    the 'fsdp' and 'tp' sharding rules at full width, 4
               layers, seq 4096, bf16, ``attn_out``: a. one train step under
               each at (data 2, c 2, r 1), global batch 2, from the same
               weights: loss and gradient norm against P = 1
-              (``TRAIN_SP_TOL``), B2 8 x 1 x 2 x 8 = 128 and B3 64 a step,
+              (``TRAIN_SP_TOL``), B2 8 x 1 x 2 x 4 = 64 and B3 32 a step,
               device ms, f32 adds and peak memory from a profiled step; b.
               ``trainer.train`` under 'default' at P = 8 writes a
               checkpoint at step 2; a P = 1 state restored from it must
@@ -355,7 +356,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               construction
  24. xlstm_train  the same model trained, seq 512, batch 1, bf16,
               ``attn_out`` (one recompute region around each mixer),
-              AdamW on one repeated batch: 3 steps of all 48 layers at
+              AdamW on one repeated batch: 2 steps of all 48 layers at
               P = 1, then 2 at P = 8 on ThreadMesh(c=2, r=2) of its first
               period (8 layers; seq and depth cut for the script's time,
               ``XLSTM_TRAIN``); the loss finite and falling in each, the
@@ -364,6 +365,45 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               one sLSTM's gradients (every parameter and the input) on
               the card against the CPU, within 2e-3 of the largest
               magnitude
+ 25. hybrid_serve  full-width jamba-1.5-large-398b cut to its first five
+              layers (Mamba + MLP, Mamba + MoE, Mamba + MLP, Mamba + MoE,
+              attention + MLP; 24.0 B seeded bf16 parameters, 48.0 GB;
+              the MoE capacity lifted to 8, no token dropped) through
+              ``--legacy`` at P = 1 and at P = 4 (ThreadMesh(c=2, r=1)):
+              4 prompts of 1024 tokens, 32 greedy tokens at P = 1 and 8
+              at P = 4; per run the prefill's and the decode steps' wall,
+              a profiled window of each, peak memory, B2 on the attention
+              layer's prefill and B5 on every decode step; the attention
+              layer's branch (less the residual add, which the seeded MoE
+              layers' ~1e3 growth of the stream would round away) in the
+              prefill (B2) and the first decode step (B5), on every rank,
+              through the CUDA kernels against the plain versions on the
+              CUDA run's input (``ENGINE_TOL``). First, in f32: layer 0's Mamba
+              block (output, SSM state, conv state) on the card at P = 1
+              and at P = 4 with its conv halo against the CPU, within
+              2e-5 of the largest magnitude. Last, tokens against the
+              full forward's argmax over each generated sequence
+              (teacher forcing): the bf16 P = 1 run's agreement reported
+              (its seeded MoE routes chaotically, ``HYBRID_F32_SERVE``),
+              and in f32 on the first three layers (13.2 B parameters),
+              ``--legacy`` at P = 1 on 2 prompts of 256 tokens, 8 new,
+              each token equal or a near tie within ``HYBRID_TIE``
+              standard deviations of the logits
+ 26. hybrid_train  jamba cut to one layer (Mamba + MLP), seq 4096, batch
+              1, bf16, ``attn_out``, AdamW (bf16 moments, the config's)
+              on one repeated batch: 3 steps at P = 1, then 3 at P = 8
+              on ThreadMesh(c=2, r=2) from the same seeded weights, the
+              conv halo and the state correction between 8 slices at
+              full width; the loss finite and falling in each, P = 8's
+              first loss and gradient norm against P = 1's
+              (``TRAIN_SP_TOL``), the last step of each profiled, peak
+              memory, no attention kernel launched. First, in f32: the
+              Mamba block's gradients (every parameter and the input) on
+              the card at P = 1 and at P = 8 against the CPU, within
+              2e-3 of the largest magnitude
+
+Every JSON line carries ``seconds``: the wall time since the line before
+(or the phase's own, where the phase reports it).
 
 The paths are phases 4, 4a, 5, 5a, 7, 8a, 8b, 8c's five runs (roomy,
 tier, tier-off, handoff, preempt), 9, 13, each scheme of 14, 15's search
@@ -371,8 +411,9 @@ and its plan's step, 16's four runs, 17, 18's four in-process runs
 (gateway, gateway_disagg, frontend_ref, priority), 19's two steps
 (rules_fsdp, rules_tp), 20's three runs (moe_serve_phi, moe_legacy,
 moe_serve_llama), 21's two (moe_train, moe_train_mesh), 22 (legacy_sp),
-23's two (xlstm_serve_p1, xlstm_serve_p4) and 24's two (xlstm_train_p1,
-xlstm_train_p8):
+23's two (xlstm_serve_p1, xlstm_serve_p4), 24's two (xlstm_train_p1,
+xlstm_train_p8), 25's two (hybrid_serve_p1, hybrid_serve_p4) and 26's
+two (hybrid_train_p1, hybrid_train_p8):
 the launch counters are set to 0 just before each and read just after,
 and each must launch exactly the kernels it runs (B2 and B3 in the ring;
 B5 and B7 in ragged_bwd; B2 and B4 in the engine and in the sample
@@ -389,7 +430,8 @@ in its prefix run; B2 and B3 in dense_train; B1, B2, B4 and B6 in the
 gateway, its prefill/decode pair and the priority run, B2 and B4 in the
 front end's replayed reference; B2 and B4 in both MoE engines, B2 and B5
 in the MoE legacy run, B2 and B3 in both MoE trainings, B2 and B5 at
-P = 4 in legacy_sp, none in the xLSTM runs). Comparison,
+P = 4 in legacy_sp, none in the xLSTM runs, B2 and B5 in both hybrid
+serving runs, none in the one-layer hybrid trainings). Comparison,
 timing and profiling launches are not counted. The kernels line's
 ``launches`` is each kernel's count on the path that runs it (the engine for B2 and B4, the local prefill for B1, the train
 loop for B3, the legacy phase for B5, the prefix phase for B6, ragged_bwd
@@ -446,7 +488,15 @@ def check(cond, what):
         raise CheckFailed(what)
 
 
+_LAST_EMIT = [time.perf_counter()]
+
+
 def emit(phase, **fields):
+    """One JSON line; ``seconds`` is the wall time since the previous line
+    (the work this line reports) unless the caller gives its own."""
+    now = time.perf_counter()
+    fields.setdefault("seconds", now - _LAST_EMIT[0])
+    _LAST_EMIT[0] = now
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -3309,9 +3359,9 @@ def _stop_server(srv, loop, t, drain=True):
 # head size 16 is not one the kernels take), as the JAX CI's http-smoke
 # runs it, and the full width through the CUDA kernels (README's command)
 HTTP_LAUNCHERS = {
-    "smoke": (["--smoke", "--kernel", "ref"], 6),
+    "smoke": (["--smoke", "--kernel", "ref"], 4),
     "full": (["--max-slots", "4", "--page-size", "16", "--max-len", "2048"],
-             8),
+             4),
 }
 
 
@@ -4050,7 +4100,7 @@ def phase_resume(dev, smi):
 # phase 13: training at SP degree 8 on a ThreadMesh on the card
 # ---------------------------------------------------------------------------
 
-TRAIN_SP_LAYERS, TRAIN_SP_STEPS = 24, 3           # the full depth
+TRAIN_SP_LAYERS, TRAIN_SP_STEPS = 24, 2           # the full depth
 TRAIN_SP_C, TRAIN_SP_R = 2, 2                  # P = C * C * R = 8 ranks
 # bf16 at P = 8 against P = 1 on the same weights and batch: the ranks sum
 # their bf16 MLP and vocab partials in another order and the ring merges
@@ -4275,7 +4325,9 @@ def phase_train_sp(dev, smi):
 # phase 14: the paper's baselines and StarTrail's chunked ring
 # ---------------------------------------------------------------------------
 
-SCHEMES_LAYERS, SCHEMES_STEPS = 8, 2
+# 4 layers for the script's time: a P = 8 step's wall is host-bound, ~1 s
+# a layer on a slow host
+SCHEMES_LAYERS, SCHEMES_STEPS = 4, 2
 # (path name, scheme, C, comm_chunks); P = 8 ranks each
 SCHEMES = (("ring", "ring", 1, 1), ("ulysses", "ulysses", 1, 1),
            ("startrail", "startrail", 2, 2))
@@ -4298,8 +4350,8 @@ def phase_schemes(dev, smi):
     ``make_plan`` plans of P = 8 ThreadMesh ranks on the one card for the
     ring (C = 1, R = 8), DeepSpeed-Ulysses (all-to-all, B1 forward and B3
     backward over the whole sequence) and StarTrail (C = 2, R = 2, each ring
-    transfer in 2 sub-chunks): h2o-danube-1.8b cut to 8 layers (as
-    train_sp), seq 4096, batch 1, zigzag, ``remat='attn_out'``, bf16, 2
+    transfer in 2 sub-chunks): h2o-danube-1.8b cut to ``SCHEMES_LAYERS``
+    layers, seq 4096, batch 1, zigzag, ``remat='attn_out'``, bf16, 2
     AdamW steps each from the same weights on one repeated batch, with the
     obs registry and tracer on. Each first step's loss and gradient norm
     against P = 1 on the same weights and batch; exact launch counts from
@@ -4610,12 +4662,14 @@ def phase_autotune(dev, smi):
 DENSE_ARCH = "minitron-8b"
 DENSE_PLENS = [64, 200, 336, 472, 608, 744, 880, 1024]   # P = 1 prompts
 DENSE_NEW = 32
-# P = 8: 4 of the P = 1 prompts (336-1024 tokens), 8 new tokens each; then
-# 2 prompts sharing a 512-token prefix through 256-token chunks
-DENSE_P8 = {"n_devices": 8, "c": 2, "prompts": (2, 4, 6, 7),
-            "new_tokens": 8, "prefix": 512, "chunk": 256,
+# P = 8: 2 of the P = 1 prompts (336 and 1024 tokens), 3 new tokens each;
+# then 2 prompts sharing a 512-token prefix through 256-token chunks (few
+# prompts and tokens for the script's time: a P = 8 decode step takes
+# 2.5-5.7 s of wall)
+DENSE_P8 = {"n_devices": 8, "c": 2, "prompts": (2, 7),
+            "new_tokens": 3, "prefix": 512, "chunk": 256,
             "suffixes": (128, 256)}
-# P = 8 sampled: prompt 2 greedy and prompt 4 sampled, 8 new tokens each
+# P = 8 sampled: prompt 2 greedy and prompt 4 sampled, 3 new tokens each
 DENSE_P8_SAMPLED = {"greedy": 2, "sampled": 4, "temperature": 0.8,
                     "top_k": 40, "top_p": 0.9, "seed": 7}
 # P = 8 rounds in bf16 where P = 1 does not: the MLP's reduce-scatter sums
@@ -4645,12 +4699,12 @@ def phase_dense_serve(dev, smi):
     parameters): at P = 1, 8 greedy requests of 64-1024 prompt tokens and
     32 new tokens (B2 per layer and prefill, B4 per layer and decode step);
     then at P = 8 as ThreadMesh(c=2, r=2) threads on the one card from the
-    same weights, cut to 4 of those prompts (336-1024 tokens) with 8 new
-    tokens each (B2 on every rank, ring step and layer of a prefill; B4 on
+    same weights, cut to 2 of those prompts (336 and 1024 tokens) with 3
+    new tokens each (B2 on every rank, ring step and layer of a prefill; B4 on
     every rank and layer of a decode step), and 2 prompts sharing a
     512-token prefix through the prefix cache and 256-token chunks (each
     suffix chunk runs B6 and B1 on every rank and layer, merged across the
-    ranks). The P = 8 cut keeps the phase near 150 s: its 8 rank threads
+    ranks). The P = 8 cut keeps the phase near 100 s: its 8 rank threads
     share the GIL, so a step takes seconds. Each request's first-token
     hidden state at P = 8 is held against P = 1's (``DENSE_SP_TOL``); the
     share of streamed tokens that agree with P = 1's is printed (a
@@ -4914,7 +4968,8 @@ def phase_dense_train(dev, smi):
 # meshes, at full width
 # ---------------------------------------------------------------------------
 
-RULES_PHASE = {"layers": 8, "batch": 2, "c": 2, "data": 2, "ckpt_steps": 2}
+# 4 layers for the script's time (as the schemes phase)
+RULES_PHASE = {"layers": 4, "batch": 2, "c": 2, "data": 2, "ckpt_steps": 2}
 
 
 def _rules_steps(model, cfg, dev, adam):
@@ -5080,7 +5135,7 @@ def _rules_checkpoint(model, cfg, dev, adam):
 
 def phase_rules(dev, smi):
     """The 'fsdp' and 'tp' sharding rules at full width, h2o-danube-1.8b
-    cut to 8 layers, seq 4096, bf16, ``remat='attn_out'``: a. one step
+    cut to ``RULES_PHASE['layers']`` layers, seq 4096, bf16, ``remat='attn_out'``: a. one step
     under each at (data 2, c 2, r 1) against P = 1 (``_rules_steps``), b. a
     checkpoint written at P = 8 under 'default' restored at P = 1
     (``_rules_checkpoint``)."""
@@ -5258,6 +5313,21 @@ def _moe_serve_run(model, smi, plens, new, what, seed, strict):
     return engine, launches, run, check_out
 
 
+def _attn_prefill_branch(r, p, xi, cfg):
+    """``attention_block`` less its residual add, which at the seeded MoE
+    models' residual magnitudes (~1e3) would round the branch to bf16 ulps
+    of the stream."""
+    from repro_torch.models import blocks
+
+    h = blocks.rmsnorm(p.norm, xi, cfg.norm_eps)
+    q, k, v = blocks.qkv(r, p, h)
+    pos = r.positions(xi.shape[1])
+    q = blocks.rope(q, pos, cfg.rope_theta)
+    k = blocks.rope(k, pos, cfg.rope_theta)
+    return blocks.attention_out(r, p, r.attention(
+        q, k, v, causal=True, window=cfg.window))
+
+
 def _moe_layer_check(model, rt, tokens, what, grad=False):
     """Each layer's attention branch through the CUDA kernels against the
     plain versions on one input, the layer's input in the CUDA run (the
@@ -5287,18 +5357,6 @@ def _moe_layer_check(model, rt, tokens, what, grad=False):
     tree = shard_params(model, SingleComm(), trainable=grad)
     gen = torch.Generator(device=model.device)
     gen.manual_seed(8)
-    def branch(r, p, xi):
-        # attention_block less its residual add, which at this init's
-        # residual magnitudes (~1e3) would round the branch to bf16 ulps
-        # of the stream
-        h = blocks.rmsnorm(p.norm, xi, cfg.norm_eps)
-        q, k, v = blocks.qkv(r, p, h)
-        pos = r.positions(xi.shape[1])
-        q = blocks.rope(q, pos, cfg.rope_theta)
-        k = blocks.rope(k, pos, cfg.rope_theta)
-        return blocks.attention_out(r, p, r.attention(
-            q, k, v, causal=True, window=cfg.window))
-
     layers = []
     with torch.no_grad():
         x = blocks.embed(rt_c, model.embed, tokens, cfg)
@@ -5311,7 +5369,7 @@ def _moe_layer_check(model, rt, tokens, what, grad=False):
         for name, r in (("cuda", rt_c), ("ref", rt_r)):
             xi = x.detach().requires_grad_(grad)
             with torch.set_grad_enabled(grad):
-                b = branch(r, p, xi)
+                b = _attn_prefill_branch(r, p, xi, cfg)
                 grads = (torch.autograd.grad(b, [xi] + leaves, g_out)
                          if grad else ())
             out[name] = (b.detach(), [g.float() for g in grads])
@@ -5988,7 +6046,7 @@ XLSTM_SERVE = {"batch": 4, "prompt": 1024, "new": {1: 32, 4: 8}, "c": 2,
 # period of 8, for the script's time: the sLSTM loop's launches grow with
 # seq, and a P = 8 step of all 48 layers at seq 512 took ~50-60 s (8 rank
 # threads sharing one interpreter; PERF.md §6)
-XLSTM_TRAIN = {"seq": 512, "batch": 1, "p1_steps": 3, "mesh": (2, 2, 1),
+XLSTM_TRAIN = {"seq": 512, "batch": 1, "p1_steps": 2, "mesh": (2, 2, 1),
                "mesh_steps": 2, "mesh_layers": 8, "check_seq": 256}
 XLSTM_F32_TOL = 2e-5       # f32 layer checks, of the largest magnitude
 XLSTM_GRAD_TOL = 2e-3      # f32 layer gradients, card against the CPU
@@ -6268,15 +6326,16 @@ def _xlstm_grad_checks(model, dev):
     return errs
 
 
-def _xlstm_steps(model, plan, batch, steps):
+def _repeated_steps(model, plan, batch, steps, state_dtype="float32"):
     """``steps`` AdamW steps of ``plan``'s train step on one repeated
-    batch, the last profiled: losses, grad norms, step walls, the
-    profile, peak memory, launches."""
+    batch (moments in ``state_dtype``), the last profiled: losses, grad
+    norms, step walls, the profile, peak memory, launches."""
     import torch
 
     from repro_torch.optim import adamw
 
-    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0)
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0,
+                             state_dtype=state_dtype)
     step_fn, sh = plan.build_train_step(model, adam)
     state = {"opt": adamw.init_state(sh["params"], adam)}
     torch.cuda.synchronize()
@@ -6326,7 +6385,7 @@ def phase_xlstm_train(dev, smi):
     """Phase 24: full-width xlstm-1.3b trained at seq
     ``XLSTM_TRAIN['seq']``, batch 1, bf16, ``attn_out`` (each layer
     recomputes its mixer in the backward), AdamW (f32 moments, lr 1e-3)
-    on one repeated batch: 3 steps of all 48 layers at P = 1, then 2 at
+    on one repeated batch: 2 steps of all 48 layers at P = 1, then 2 at
     P = 8 on ThreadMesh(c=2, r=2) of its first period (8 layers: 7 mLSTM,
     1 sLSTM; the weights P = 1 left, fresh moments); the loss must be
     finite and fall, no attention kernel launches; the last step of each
@@ -6364,7 +6423,7 @@ def phase_xlstm_train(dev, smi):
         batch = train_step.to_device(SyntheticLM(
             cfg, shape, seed=0, seq_scheme=plan.seq_scheme,
             sp_size=plan.sp_size).get_batch(0), dev)
-        run = _xlstm_steps(model, plan, batch, steps)
+        run = _repeated_steps(model, plan, batch, steps)
         losses = run["losses"]
         check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
               f"xlstm_train {key}: losses {losses} must be finite and fall")
@@ -6382,6 +6441,579 @@ def phase_xlstm_train(dev, smi):
          weights="seeded random bf16", remat="attn_out",
          grad_checks=grad_checks, grad_checks_s=grad_checks_s,
          grad_tol=XLSTM_GRAD_TOL, runs=runs,
+         phase_s=time.perf_counter() - t_phase, card=smi)
+    del model
+    free_device()
+    return by_path
+
+
+# ---------------------------------------------------------------------------
+# phases 25-26: the hybrid family (jamba) at full width
+# ---------------------------------------------------------------------------
+
+HYBRID_ARCH = "jamba-1.5-large-398b"
+# jamba's 8-layer period is 90.3 GB of bf16; its first five layers (Mamba +
+# MLP, Mamba + MoE, Mamba + MLP, Mamba + MoE, attention + MLP: every (mixer,
+# MLP) kind of the stack) are 48.0 GB. The MoE capacity factor is lifted to
+# experts / top_k = 8, the least at which no token can be dropped, so the
+# prefill, the decode steps and the full forward route alike
+# (tests/test_serving_consistency.py lifts it for the same reason). A
+# prompt of 1024 tokens is 256 a rank at P = 4, a multiple of the chunk.
+HYBRID_SERVE = {"layers": 5, "batch": 4, "prompt": 1024,
+                "new": {1: 32, 4: 8}, "c": 2, "capacity_factor": 8.0,
+                "layer_seq": 256}
+# one layer (Mamba + MLP, 2.08 B parameters) is the depth that trains on
+# the card; P = 8 on ThreadMesh(2, 2) runs the conv halo and the state
+# correction between 8 slices of 512 tokens
+HYBRID_TRAIN = {"layers": 1, "seq": 4096, "batch": 1, "steps": 3,
+                "mesh": (2, 2, 1), "check_seq": 256}
+HYBRID_F32_TOL = 2e-5      # f32 Mamba layer, card against the CPU
+HYBRID_GRAD_TOL = 2e-3     # f32 Mamba layer gradients, card against the CPU
+# The tokens against the full forward's argmax. In bf16 the seeded MoE
+# routes chaotically (as phase 20's phi): a near tie between two experts
+# that the decode step and the full forward round apart sends a token to
+# another expert, and the Mamba states carry the change to every later
+# position of the row; so the five-layer bf16 run's agreement is reported.
+# The check runs in f32 on the largest cut whose f32 weights fit beside
+# nothing else on the card: the first three layers (Mamba + MLP, Mamba +
+# MoE, Mamba + MLP; 13.2 B parameters, 52.6 GB), 2 prompts of 256 tokens,
+# 8 new. A token off the argmax must be a near tie there: its full-forward
+# logit within ``HYBRID_TIE`` standard deviations of the logits below the
+# largest (a wrong cache or state lands several below).
+HYBRID_F32_SERVE = {"layers": 3, "batch": 2, "prompt": 256, "new": 8}
+HYBRID_TIE = 0.1
+
+
+def _hybrid_model(layers, dev, capacity_factor=None, dtype="bfloat16"):
+    """Full-width jamba cut to its first ``layers`` layers (the port's
+    depth cut below one period), seeded weights in ``dtype`` on the card,
+    the MoE capacity factor lifted when given; and the seconds its init
+    took."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models.factory import build_model
+
+    cfg = dataclasses.replace(registry.get(HYBRID_ARCH), num_layers=layers,
+                              param_dtype=dtype)
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def _hybrid_layer_checks(model, dev):
+    """f32: layer 0's ``mamba_block`` (output, SSM state, conv state) on
+    the card at P = 1 and at P = 4 (ThreadMesh(2, 1), the slices joined,
+    the conv halo between them) against the CPU at P = 1, within
+    ``HYBRID_F32_TOL`` of the largest magnitude."""
+    import torch
+
+    from repro_torch.dist.comm import SingleComm, ThreadMesh
+    from repro_torch.models import ssm
+
+    cfg = model.cfg
+    S = HYBRID_SERVE["layer_seq"]
+    cpu = torch.device("cpu")
+    x = torch.randn((1, S, cfg.d_model),
+                    generator=torch.Generator().manual_seed(11))
+    want = {}
+    runs = {}
+    for where in (cpu, dev):
+        p = _f32_tree(model.layers[0].mixer, where)
+        with torch.no_grad():
+            y, st = ssm.mamba_block(_contig_rt(SingleComm(), S, where), p,
+                                    x.to(where), cfg, return_state=True)
+        runs[where.type] = {"out": y, **st}
+    want = runs["cpu"]
+    errs = {f"p1_{n}": _rel_max(t.cpu(), want[n])
+            for n, t in runs[dev.type].items()}
+    mesh = ThreadMesh(2, 1)
+    n = S // mesh.size
+    p = _f32_tree(model.layers[0].mixer, dev)
+    xd = x.to(dev)
+
+    def rank_fn(comm):
+        rt = _contig_rt(comm, S, dev)
+        r = rt.sp_rank()
+        with torch.no_grad():
+            y, st = ssm.mamba_block(rt, p, xd[:, r * n:(r + 1) * n], cfg,
+                                    return_state=True)
+        return r, y, st
+
+    out = sorted(mesh.run(rank_fn), key=lambda t: t[0])
+    errs["p4_out"] = _rel_max(torch.cat([y for _, y, _ in out], 1).cpu(),
+                              want["out"])
+    for name in ("state", "conv"):
+        errs[f"p4_{name}"] = max(_rel_max(st[name].cpu(), want[name])
+                                 for _, _, st in out)
+    bad = {k: v for k, v in errs.items() if not v <= HYBRID_F32_TOL}
+    check(not bad, f"hybrid f32 Mamba layer checks beyond {HYBRID_F32_TOL} "
+          f"of the largest magnitude: {bad}")
+    return errs
+
+
+def _hybrid_serve_run(model, plan, tokens, new):
+    """``--legacy`` at ``plan``'s ranks: ``legacy_start``, then ``new - 1``
+    decode steps timed one by one; the tokens, the attention kernels'
+    launches (B2 on the prefill's attention layer, B5 on every decode
+    step), the prefill's wall and each decode step's, a profiled decode
+    step and prefill, peak memory."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.serve import legacy_start
+    from repro_torch.serve import step as serve_step
+
+    B, S = tokens.shape
+    dev = model.device
+    torch.cuda.reset_peak_memory_stats()
+    counts = reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok, caches, decode = legacy_start(model, plan, tokens, new)
+    torch.cuda.synchronize()
+    prefill_wall = time.perf_counter() - t0
+    toks, walls = [tok], []
+    for i in range(new - 1):
+        cl = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        tok = decode(caches, tok.long(), cl)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        toks.append(tok)
+    launches = read_counts(counts)
+    out = torch.cat(toks, dim=1)
+    n_attn = sum(model.cfg.mixer_on_layer(i) == "attn"
+                 for i in range(model.cfg.num_layers))
+    sp = plan.sp_size
+    # no window, so no ring step is skipped: every rank runs its R ring
+    # steps of each attention layer (phase 22's h2o skips one of 4)
+    check(not plan.block_skip, "hybrid_serve: ring-block skipping is on, "
+          "the launch counts below assume every ring step runs")
+    ring = sp * plan.r
+    want = launches_of(B2=n_attn * ring, B5=n_attn * sp * (new - 1))
+    check(launches == want, f"hybrid_serve P={sp} launches {launches}: "
+          f"want {want} (B2 on {ring} rank ring steps of each attention "
+          f"layer, B5 on {sp} ranks a decode step)")
+    check(tuple(out.shape) == (B, new)
+          and bool(((out >= 0) & (out < model.cfg.vocab_size)).all()),
+          f"hybrid tokens {tuple(out.shape)}: want ({B}, {new}) in-vocab")
+    cl = torch.full((B,), S + new - 1, dtype=torch.int32, device=dev)
+    decode_prof = _profile_call(lambda: decode(caches, tok.long(), cl))
+    peak = torch.cuda.max_memory_allocated()
+    del caches, decode
+    prefill = serve_step.build_prefill_step(
+        model, plan.run_config(), ShapeConfig("serve", S, B, "prefill"),
+        plan.build_mesh())
+    prefill_prof = _profile_call(lambda: prefill(tokens))
+    del prefill
+    free_device()
+    wall = prefill_wall + sum(walls)
+    return out, dict(
+        launches=launches, new_tokens=new, wall_s=wall,
+        tokens_per_s=B * new / wall, prefill_wall_s=prefill_wall,
+        decode_step_wall_ms=[1e3 * min(walls), 1e3 * statistics.median(
+            walls), 1e3 * max(walls)],
+        decode_step_profile=decode_prof, prefill_profile=prefill_prof,
+        max_memory_allocated=peak)
+
+
+def _hybrid_kernel_checks(model, plan, tokens):
+    """B2 and B5 against their plain versions on this path, as phase 20's
+    per-layer checks: the attention layer's branch (its block less the
+    residual add: the seeded MoE layers grow the residual stream ~1e3
+    times the branch, so the whole model's output would round a wrong
+    branch away) through the CUDA kernels and the plain versions on one
+    input, the layer's input from the CUDA run; in the prefill (B2) and in
+    the first decode step against the prefilled cache (B5), on every rank
+    of ``plan``; ``ENGINE_TOL``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.serve import legacy_start
+    from repro_torch.models import blocks, ssm, transformer
+    from repro_torch.serve import kv_cache, step as serve_step
+
+    cfg = model.cfg
+    B, S = tokens.shape
+    kinds = transformer.layer_plan(cfg)
+
+    def impls(rt):
+        rt_c = dataclasses.replace(rt, kernel_impl="cuda", st_cfg=dataclasses.
+                                   replace(rt.st_cfg, block_impl="cuda"))
+        return rt_c, dataclasses.replace(
+            rt_c, kernel_impl="ref",
+            st_cfg=dataclasses.replace(rt_c.st_cfg, block_impl="ref"))
+
+    def stack(rt_c, tree, x, attn, mix):
+        """x through every layer, the CUDA run's; ``attn(layer, i, x)``
+        gives the attention branch pair, ``mix`` runs the other mixers."""
+        pairs = []
+        for i, (layer, (mixer, kind)) in enumerate(zip(tree.layers, kinds)):
+            if mixer == "attn":
+                b_c, b_r = attn(layer, i, x)
+                pairs.append((b_c.float(), b_r.float()))
+                x = x + b_c
+            else:
+                x = mix(layer, i, x, mixer)
+            x = transformer.mlp_sublayer(rt_c, layer.mlp, x, cfg, kind)[0]
+        return pairs
+
+    prefill = serve_step.build_prefill_step(
+        model, plan.run_config(), ShapeConfig("serve", S, B, "prefill"),
+        plan.build_mesh())
+
+    def prefill_fn(rt, _, tree):
+        rt_c, rt_r = impls(rt)
+        s = S // rt.sp_size()
+        own = prefill.steps.rows_of(rt, tokens)[
+            :, rt.sp_rank() * s:(rt.sp_rank() + 1) * s]
+        return stack(
+            rt_c, tree, blocks.embed(rt_c, tree.embed, own, cfg),
+            lambda layer, i, x: tuple(_attn_prefill_branch(
+                r, layer.mixer, x, cfg) for r in (rt_c, rt_r)),
+            lambda layer, i, x, mixer: ssm.MIXERS[mixer][1](
+                rt_c, layer.mixer, x, cfg))
+
+    pre = prefill.steps.run(prefill_fn)
+    del prefill
+    tok0, caches, decode = legacy_start(model, plan, tokens, 2)
+
+    def decode_fn(rt, rank, tree):
+        rt_c, rt_r = impls(rt)
+        tok = decode.steps.rows_of(rt, tok0.long())
+        cl = torch.full((tok.shape[0],), S, dtype=torch.int32,
+                        device=tok.device)
+        cache = caches[rank]
+        return stack(
+            rt_c, tree, blocks.embed(rt_c, tree.embed, tok, cfg,
+                                     tokens_replicated=True),
+            lambda layer, i, x: tuple(serve_step.attn_decode_branch(
+                r, layer.mixer, x, kv_cache.layer(cache, i), cfg, cl, None)
+                for r in (rt_c, rt_r)),
+            lambda layer, i, x, mixer: serve_step._RECURRENT_DECODE[mixer](
+                rt_c, layer.mixer, x, kv_cache.layer(cache, i), cfg))
+
+    dec = decode.steps.run(decode_fn)
+    del caches, decode
+    free_device()
+    errs = {}
+    for what, ranks in (("prefill_b2", pre), ("decode_b5", dec)):
+        for rank, pairs in enumerate(ranks):
+            for j, (b_c, b_r) in enumerate(pairs):
+                errs[f"{what}_rank{rank}_attn{j}"] = compare(
+                    [b_c], [b_r], f"hybrid P={plan.sp_size} rank {rank} "
+                    f"{what} attention branch", names=("branch",))["branch"]
+    return errs
+
+
+def _hybrid_full_forward_check(model, tokens, out, strict=True):
+    """Teacher forcing: the full forward (the training path, P = 1) over
+    the prompt and the generated tokens but the last, one row at a time;
+    each generated token against its argmax. Returns the share that equal
+    it and the largest gap, in standard deviations of the logits, between
+    the argmax's logit and the generated token's; with ``strict`` each gap
+    must be within ``HYBRID_TIE`` (a near tie), else it is reported."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.engine import sampling
+    from repro_torch.models import blocks, transformer
+    from repro_torch.train import step as train_step
+
+    cfg = model.cfg
+    B, S = tokens.shape
+    new = out.shape[1]
+    seq = torch.cat([tokens, out[:, :-1].to(tokens.dtype)], dim=1)
+    seq = F.pad(seq, (0, -seq.shape[1] % cfg.mamba.chunk))
+    rt = train_step.make_runtime(model, RunConfig(),
+                                 _train_shape(seq.shape[1]))
+    gaps, match = [], []
+    for b in range(B):
+        with torch.no_grad():
+            x = blocks.embed(rt, model.embed, seq[b:b + 1], cfg)
+            x, _ = transformer.apply_stack(rt, model.layers, x, cfg,
+                                           remat="none")
+            x = blocks.rmsnorm(model.final_norm, x, cfg.norm_eps)
+            logits, _ = sampling.shard_logits(
+                rt, model.head, x[0, S - 1:S - 1 + new, None], cfg)
+        valid = logits[:, :cfg.vocab_size]
+        top = valid.max(-1).values
+        picked = valid.gather(-1, out[b].long()[:, None])[:, 0]
+        gaps.append((top - picked) / valid.std(-1))
+        match.append(out[b].long() == valid.argmax(-1))
+    gaps, match = torch.stack(gaps), torch.stack(match)
+    worst = float(gaps.max())
+    if strict:
+        check(worst <= HYBRID_TIE,
+              f"hybrid {cfg.param_dtype} P=1 tokens off the full-forward "
+              f"argmax by {worst} standard deviations of the logits (beyond "
+              f"the near-tie bound {HYBRID_TIE}); {int((~match).sum())} of "
+              f"{match.numel()} differ")
+    free_device()
+    return {"dtype": cfg.param_dtype, "layers": cfg.num_layers,
+            "equal_share": float(match.float().mean()),
+            "differ": [[int(b), int(i)] for b, i in (~match).nonzero()],
+            "max_gap_in_std": worst, "tie_bound": HYBRID_TIE,
+            "within_tie_bound": worst <= HYBRID_TIE}
+
+
+def _hybrid_f32_tokens(dev):
+    """``--legacy`` at P = 1 in f32 on the first ``HYBRID_F32_SERVE``
+    layers (capacity lifted), its tokens held against the f32 full
+    forward's argmax (``_hybrid_full_forward_check``, strict)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import legacy_generate
+    from repro_torch.plan import make_serve_plan
+
+    f = HYBRID_F32_SERVE
+    t0 = time.perf_counter()
+    model, _ = _hybrid_model(f["layers"], dev,
+                             HYBRID_SERVE["capacity_factor"], "float32")
+    cfg = model.cfg
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (f["batch"], f["prompt"]))).to(dev)
+    out = legacy_generate(model, make_serve_plan(cfg, arch=HYBRID_ARCH, c=1),
+                          tokens, f["new"])
+    rec = _hybrid_full_forward_check(model, tokens, out)
+    rec.update(params=model.param_count(), batch=f["batch"],
+               prompt_len=f["prompt"], new_tokens=f["new"])
+    del model
+    free_device()
+    return {**rec, "seconds": time.perf_counter() - t0}
+
+
+def phase_hybrid_serve(dev, smi):
+    """Phase 25: full-width jamba-1.5-large-398b cut to its first five
+    layers (seeded bf16, MoE capacity lifted to no drops) served by
+    ``--legacy`` at P = 1 and at P = 4 on ThreadMesh(c=2, r=1): 4 prompts
+    of 1024 tokens, 32 greedy tokens at P = 1 and 8 at P = 4. Each run's
+    prefill and decode steps: wall, a profiled window's device ms, idle
+    share and launches, peak memory, B2 and B5 launches; B2 and B5 against
+    their plain versions on this path; an f32 Mamba layer on the card
+    against the CPU first; the P = 1 tokens against the full forward's
+    argmax, reported in bf16 and checked in f32 on a three-layer cut
+    (``_hybrid_f32_tokens``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.plan import make_serve_plan
+    from repro_torch.roofline import hw
+
+    t_phase = time.perf_counter()
+    model, init_s = _hybrid_model(HYBRID_SERVE["layers"], dev,
+                                  HYBRID_SERVE["capacity_factor"])
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    layer_checks = _hybrid_layer_checks(model, dev)
+    layer_checks_s = time.perf_counter() - t0
+    free_device()
+    B, S = HYBRID_SERVE["batch"], HYBRID_SERVE["prompt"]
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (B, S))).to(dev)
+    runs, outs, by_path, kernel_checks = {}, {}, {}, {}
+    for n, new in HYBRID_SERVE["new"].items():
+        t0 = time.perf_counter()
+        plan = make_serve_plan(cfg, arch=HYBRID_ARCH, n_devices=n,
+                               c=HYBRID_SERVE["c"] if n > 1 else 1)
+        check(plan.sp_size == n and plan.seq_scheme == "contiguous",
+              f"hybrid plan {plan}")
+        outs[n], runs[f"p{n}"] = _hybrid_serve_run(model, plan, tokens, new)
+        by_path[f"hybrid_serve_p{n}"] = runs[f"p{n}"]["launches"]
+        kernel_checks[f"p{n}"] = _hybrid_kernel_checks(model, plan, tokens)
+        runs[f"p{n}"]["run_s"] = time.perf_counter() - t0
+    n1, n4 = HYBRID_SERVE["new"]
+    t0 = time.perf_counter()
+    full_forward = _hybrid_full_forward_check(model, tokens, outs[n1],
+                                              strict=False)
+    full_forward["seconds"] = time.perf_counter() - t0
+    k = min(HYBRID_SERVE["new"].values())
+    m = cfg.mamba
+    di = m.expand * cfg.d_model
+    n_mamba = sum(cfg.mixer_on_layer(i) == "mamba"
+                  for i in range(cfg.num_layers))
+    state_bytes = n_mamba * B * (di // m.head_dim) * m.d_state \
+        * m.head_dim * 4
+    conv_bytes = n_mamba * B * (m.d_conv - 1) * di * 2
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for name, p in model.named_parameters()
+                       if name != "embed.table")
+    kv_bytes = 2 * B * (S + n1) * cfg.num_kv_heads * cfg.head_dim_ * 2
+    # a decode step reads every weight but the embedding (every expert of
+    # a MoE layer: the port runs each expert's rows, empty or not), reads
+    # and writes the Mamba states and conv windows, reads the K/V cache
+    bound = (weight_bytes + 2 * (state_bytes + conv_bytes) + kv_bytes) \
+        / hw.HBM_BW * 1e3
+    params, layer_plan = model.param_count(), transformer.layer_plan(cfg)
+    del model
+    free_device()
+    full_forward_f32 = _hybrid_f32_tokens(dev)
+    emit("hybrid_serve", model=cfg.name, layers=cfg.num_layers,
+         layer_plan=[list(x) for x in layer_plan],
+         params=params, init_s=init_s,
+         weights="seeded random bf16",
+         capacity_factor=cfg.moe.capacity_factor, batch=B, prompt_len=S,
+         layer_checks=layer_checks, layer_checks_s=layer_checks_s,
+         layer_tol=HYBRID_F32_TOL, runs=runs,
+         kernel_checks=kernel_checks, tol=ENGINE_TOL,
+         full_forward_p1=full_forward, full_forward_f32=full_forward_f32,
+         token_agreement_p1_p4=float(
+             (outs[n1][:, :k] == outs[n4][:, :k]).float().mean()),
+         decode_bytes={"weights_less_embedding": weight_bytes,
+                       "mamba_states": state_bytes, "conv": conv_bytes,
+                       "kv_cache": kv_bytes, "p1_bound_ms": bound},
+         phase_s=time.perf_counter() - t_phase, card=smi)
+    return by_path
+
+
+def _hybrid_grad_checks(model, dev):
+    """f32: layer 0's ``mamba_block`` gradients (every parameter and the
+    input) of a fixed random projection of its output, on the card at
+    P = 1 and at P = 8 (ThreadMesh(2, 2): the halo's and the correction's
+    backward; each rank's parameter gradients summed) against the CPU at
+    P = 1, at ``check_seq`` tokens."""
+    import torch
+
+    from repro_torch.dist.comm import SingleComm, ThreadMesh
+    from repro_torch.models import ssm
+
+    cfg = model.cfg
+    S = HYBRID_TRAIN["check_seq"]
+    gen = torch.Generator().manual_seed(13)
+    x0 = torch.randn((1, S, cfg.d_model), generator=gen)
+    w = torch.randn((1, S, cfg.d_model), generator=gen)
+    mixer = model.layers[0].mixer
+    grads = {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = _f32_tree(mixer, where, grad=True)
+        x = x0.to(where, copy=True).requires_grad_()
+        y = ssm.mamba_block(_contig_rt(SingleComm(), S, where), p, x, cfg)
+        (y * w.to(where)).sum().backward()
+        grads[label] = {"x": x.grad, **{n: t.grad for n, t in
+                                        _tree_leaves(p)}}
+    base = _f32_tree(mixer, dev)
+    mesh = ThreadMesh(*HYBRID_TRAIN["mesh"])
+    n = S // mesh.size
+    xd, wd = x0.to(dev), w.to(dev)
+
+    def leaf_tree(tree):
+        return types.SimpleNamespace(**{
+            k: leaf_tree(v) if isinstance(v, types.SimpleNamespace)
+            else v.detach().requires_grad_() for k, v in vars(tree).items()})
+
+    def rank_fn(comm):
+        rt = _contig_rt(comm, S, dev)
+        r = rt.sp_rank()
+        p = leaf_tree(base)
+        x = xd[:, r * n:(r + 1) * n].clone().requires_grad_()
+        y = ssm.mamba_block(rt, p, x, cfg)
+        (y * wd[:, r * n:(r + 1) * n]).sum().backward()
+        return r, x.grad, {k: t.grad for k, t in _tree_leaves(p)}
+
+    out = sorted(mesh.run(rank_fn), key=lambda t: t[0])
+    mesh_grads = {"x": torch.cat([g for _, g, _ in out], dim=1)}
+    for k in out[0][2]:
+        mesh_grads[k] = sum(g[k] for _, _, g in out)
+    errs = {}
+    for name, g in grads["cpu"].items():
+        errs[f"p1.{name}"] = _rel_max(grads["card"][name].cpu(), g)
+        errs[f"p8.{name}"] = _rel_max(mesh_grads[name].cpu(), g)
+    bad = {k: v for k, v in errs.items() if not v <= HYBRID_GRAD_TOL}
+    check(not bad, f"hybrid f32 Mamba gradients, card vs CPU, beyond "
+          f"{HYBRID_GRAD_TOL} of the largest magnitude: {bad}")
+    return errs
+
+
+def phase_hybrid_train(dev, smi):
+    """Phase 26: full-width jamba-1.5-large-398b cut to one layer (Mamba +
+    MLP) trained at seq ``HYBRID_TRAIN['seq']``, batch 1, bf16,
+    ``attn_out`` recompute (the Mamba layer keeps only its input), AdamW
+    (lr 1e-3, moments in the config's bf16) on one repeated batch: 3
+    steps at P = 1, then 3 at P = 8 on ThreadMesh(c=2, r=2) (the conv halo
+    and the cross-shard state correction at full width); the loss must be
+    finite and fall; no attention
+    kernel launches (the cut has no attention layer); the last step of
+    each profiled. Each run starts from the same seeded weights (after
+    P = 1's steps, a fresh Adam's first step at lr 1e-3 moves every weight
+    by ~1e-3, ~10% of its scale, and the loss leaves the minimum P = 1
+    reached), so P = 8's first loss and gradient norm are held against
+    P = 1's (``TRAIN_SP_TOL``). f32 gradient checks first
+    (``_hybrid_grad_checks``)."""
+    import math
+
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.plan import make_plan
+    from repro_torch.train import step as train_step
+
+    t_phase = time.perf_counter()
+    model, init_s = _hybrid_model(HYBRID_TRAIN["layers"], dev)
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    grad_checks = _hybrid_grad_checks(model, dev)
+    grad_checks_s = time.perf_counter() - t0
+    free_device()
+    shape = _train_shape(HYBRID_TRAIN["seq"], HYBRID_TRAIN["batch"])
+    runs, by_path = {}, {}
+    for key, (c, r, data) in (("p1", (1, 1, 1)),
+                              ("p8", HYBRID_TRAIN["mesh"])):
+        t0 = time.perf_counter()
+        if key == "p8":
+            del model
+            free_device()
+            model, _ = _hybrid_model(HYBRID_TRAIN["layers"], dev)
+        plan = make_plan(cfg, shape, arch=cfg.name,
+                         n_devices=data * c * c * r, data=data, c=c)
+        check((plan.c, plan.r, plan.data) == (c, r, data) and plan.remat ==
+              "attn_out" and plan.seq_scheme == "contiguous",
+              f"hybrid plan {plan}")
+        batch = train_step.to_device(SyntheticLM(
+            cfg, shape, seed=0, seq_scheme=plan.seq_scheme,
+            sp_size=plan.sp_size).get_batch(0), dev)
+        run = _repeated_steps(model, plan, batch, HYBRID_TRAIN["steps"],
+                              state_dtype=cfg.opt_dtype)
+        losses = run["losses"]
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"hybrid_train {key}: losses {losses} must be finite and fall")
+        check(run["launches"] == launches_of(), f"hybrid_train {key} "
+              f"launched {run['launches']}: the one-layer cut has no "
+              "attention layer")
+        if key == "p8":
+            p1 = runs["p1"]
+            loss_err = abs(losses[0] - p1["losses"][0])
+            gnorm_rel = abs(run["grad_norm"][0] - p1["grad_norm"][0]) \
+                / p1["grad_norm"][0]
+            run.update(first_loss_abs_err_vs_p1=loss_err,
+                       first_grad_norm_rel_err_vs_p1=gnorm_rel)
+            check(loss_err <= TRAIN_SP_TOL["loss_abs"]
+                  and gnorm_rel <= TRAIN_SP_TOL["grad_norm_rel"],
+                  f"hybrid_train P=8 first step: loss {losses[0]} vs P=1 "
+                  f"{p1['losses'][0]} (abs {loss_err}), grad norm "
+                  f"{run['grad_norm'][0]} vs {p1['grad_norm'][0]} (rel "
+                  f"{gnorm_rel}), beyond {TRAIN_SP_TOL}")
+        run.update(plan={"P_sp": plan.sp_size, "c": plan.c, "r": plan.r,
+                         "data": plan.data, "remat": plan.remat},
+                   run_s=time.perf_counter() - t0)
+        runs[key] = run
+        by_path[f"hybrid_train_{key}"] = run["launches"]
+    emit("hybrid_train", model=cfg.name, layers=cfg.num_layers,
+         params=model.param_count(), init_s=init_s,
+         seq_len=shape.seq_len, batch=shape.global_batch,
+         weights="seeded random bf16", remat="attn_out",
+         opt_dtype=cfg.opt_dtype,
+         grad_checks=grad_checks, grad_checks_s=grad_checks_s,
+         grad_tol=HYBRID_GRAD_TOL, runs=runs, tol=TRAIN_SP_TOL,
          phase_s=time.perf_counter() - t_phase, card=smi)
     del model
     free_device()
@@ -6472,6 +7104,10 @@ def main():
         by_path.update(phase_xlstm_serve(dev, smi))
         free_device()
         by_path.update(phase_xlstm_train(dev, smi))
+        free_device()
+        by_path.update(phase_hybrid_serve(dev, smi))
+        free_device()
+        by_path.update(phase_hybrid_train(dev, smi))
         paths = {"B1": "local", "B2": "engine", "B3": "train",
                  "B4": "engine", "B5": "legacy", "B6": "prefix",
                  "B7": "ragged_bwd"}

@@ -43,7 +43,8 @@ from repro_torch.models import spec, transformer
 class Model(nn.Module):
     """Decoder LM parameters: ``embed.table``, ``layers[i].mixer`` (wq, wk,
     wv, wo, norm; an mLSTM's wq, wk, wv, wi, wf, wo, norm; an sLSTM's wx,
-    r, wo, norm), ``layers[i].mlp`` (w1, w3, w2, norm; on a MoE layer
+    r, wo, norm; a Mamba mixer's in_proj, conv_w, A_log, dt_bias, D_skip,
+    norm_in, norm, out_proj), ``layers[i].mlp`` (w1, w3, w2, norm; on a MoE layer
     router, w1, w3, w2, norm and the shared expert's ``shared``; none in an
     xLSTM stack), ``final_norm``, ``lm_head.table``. The serving forward passes live in ``serve.step``;
     the training loss is ``loss``."""
@@ -187,6 +188,16 @@ def _layer_path(name: str, n_sub: int):
     return ("stack", f"sub{i % n_sub}", *parts[2:]), i // n_sub
 
 
+def _check_jax_layout(cfg: ModelConfig) -> None:
+    """Raise for a stack the JAX package cannot lay out: a hybrid stack
+    cut below one period (``transformer.cut_below_period``)."""
+    if transformer.cut_below_period(cfg):
+        raise ValueError(
+            f"{cfg.name}: {cfg.num_layers} layers cut below one period of "
+            f"{transformer.period_length(cfg)} have no JAX parameter layout "
+            "(its layer_pattern raises for them)")
+
+
 def _map_tree(fn, tree):
     if isinstance(tree, dict):
         return {k: _map_tree(fn, v) for k, v in tree.items()}
@@ -199,7 +210,9 @@ def jax_tree(named: Mapping[str, torch.Tensor], cfg: ModelConfig,
     a map from the port's parameter names (``layers.3.mixer.wq``, as
     ``Model.named_parameters`` gives them) to tensors of those shapes: the
     per-layer leaves are stacked along the JAX stack's leading period
-    dimension, in their dtype, on ``device`` (default: where they are)."""
+    dimension, in their dtype, on ``device`` (default: where they are).
+    Raises for a hybrid stack cut below one period."""
+    _check_jax_layout(cfg)
     n_sub = len(transformer.layer_pattern(cfg))
     groups: Dict = {}
     layers = set()
@@ -226,6 +239,7 @@ def jax_tree(named: Mapping[str, torch.Tensor], cfg: ModelConfig,
 def from_jax_tree(tree, names, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """The inverse of ``jax_tree``: the port parameter ``names`` mapped to
     their rows (views) of the JAX-layout tree ``tree``."""
+    _check_jax_layout(cfg)
     n_sub = len(transformer.layer_pattern(cfg))
     leaf = tree["stack"]
     while isinstance(leaf, dict):

@@ -131,6 +131,16 @@ class Runtime:
         parallelism): the identity with one replica."""
         return self.comm.all_to_all(x, DATA_AXIS, split_axis, concat_axis)
 
+    def ppermute_prev_shard(self, x):
+        """Receive ``x`` from the previous SP rank in linear rank order
+        (rank p sends to p + 1, as ``sp_rank`` and the state correction of
+        ``models.ssm`` order them); rank 0 receives zeros, as does the one
+        rank of P = 1. The Mamba conv's halo. Its backward is the
+        transposed permutation (``dist.comm``)."""
+        p = self.sp_size()
+        return self.comm.ppermute(x, self.sp_axes,
+                                  [(i, i + 1) for i in range(p - 1)])
+
     def all_gather_sp_stack(self, x):
         """Gather per-rank values into a leading SP dim (P, ...), in linear
         rank order."""

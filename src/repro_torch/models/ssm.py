@@ -1,21 +1,25 @@
-"""Recurrent sequence mixers: mLSTM and sLSTM, the xLSTM family's blocks
-(the port's counterpart of ``repro.models.ssm``; its Mamba mixer is
-ROADMAP.md §A8 c).
+"""Recurrent sequence mixers: the Mamba (SSD) mixer of the hybrid family
+and the xLSTM family's mLSTM and sLSTM (the port's counterpart of
+``repro.models.ssm``).
 
-The mLSTM's matrix memory is a gated linear recurrence
+The Mamba mixer's SSD form and the mLSTM's matrix memory are both a gated
+linear recurrence
 
     h_t = a_t * h_{t-1} + k_t v_t^T ;   y_t = q_t . h_t
 
 computed in the chunked (gated-linear-attention) form of ``chunked_gla``:
 O(S * Lc) work inside each chunk of Lc tokens and a scan over the S / Lc
-chunks, each an einsum (no kernel of its own in either package).
+chunks, each an einsum (no kernel of its own in either package). Mamba's
+q and k are its C and B projections broadcast over its heads.
 
 Sequence parallelism needs the contiguous sequence layout
-(``train.step.make_runtime`` forces it for SSM stacks): each rank runs its
-slice from a zero state, then the ranks' (final state, total log decay)
-summaries are gathered in linear rank order and each rank adds the term
-its predecessors' states contribute (``cross_shard_correction``): exact,
-and zero at one rank.
+(``train.step.make_runtime`` forces it for SSM and hybrid stacks): each
+rank runs its slice from a zero state, then the ranks' (final state, total
+log decay) summaries are gathered in linear rank order and each rank adds
+the term its predecessors' states contribute (``cross_shard_correction``):
+exact, and zero at one rank. Mamba's depthwise causal conv reads the last
+``d_conv - 1`` inputs of the previous rank as its halo
+(``Runtime.ppermute_prev_shard``; zeros on rank 0).
 
 The sLSTM's recurrence is nonlinear, so it keeps the JAX package's
 documented approximation: during training and prefill each rank starts
@@ -24,15 +28,20 @@ Python, one token at a time.
 
 Einsum layouts and the float32 cast points follow the JAX code line for
 line. Blocks take the rank's parameter subtree (``models.factory.
-shard_params``) and read every leaf through ``rt.dense``.
+shard_params``) and read every leaf through ``rt.dense``. One difference
+from the JAX package: ``mamba_block(return_state=True)`` returns the raw
+pre-conv inputs as the conv cache, which is what the decode step convolves
+(ROADMAP.md §C).
 """
 
 from __future__ import annotations
 
+import types
+
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig, XLSTMConfig
+from repro_torch.configs.base import MambaConfig, ModelConfig, XLSTMConfig
 from repro_torch.models import blocks
 from repro_torch.models.spec import PSpec
 
@@ -43,6 +52,11 @@ WX_AXES = ("embed", "mamba_inner")
 R_AXES = ("heads", "head_dim", None)
 # square (d, d): only the output dim carries the FSDP axis
 SO_AXES = ("embed_nosplit", "embed_out")
+IN_PROJ_AXES = ("embed", "mamba_inner")
+OUT_PROJ_AXES = ("mamba_inner", "embed_out")
+CONV_AXES = ("conv", "mamba_inner")
+STATE_AXES = ("state",)
+INNER_NORM_AXES = ("embed_nosplit",)
 
 
 # ---------------------------------------------------------------------------
@@ -147,6 +161,108 @@ def _from_last_shard(rt, x):
     if rt.sp_rank() != rt.sp_size() - 1:
         x = torch.zeros_like(x)
     return rt.psum_model(x)
+
+
+# ---------------------------------------------------------------------------
+# Mamba (SSD) mixer
+# ---------------------------------------------------------------------------
+
+def mamba_specs(cfg: ModelConfig):
+    m = cfg.mamba or MambaConfig()
+    d = cfg.d_model
+    di = m.expand * d
+    hm = di // m.head_dim
+    n = m.d_state
+    return {
+        "in_proj": PSpec((d, 2 * di + 2 * n + hm), IN_PROJ_AXES),
+        "conv_w": PSpec((m.d_conv, di), CONV_AXES, scale=m.d_conv ** -0.5),
+        "A_log": PSpec((hm,), STATE_AXES, init="zeros"),
+        "dt_bias": PSpec((hm,), STATE_AXES, init="zeros"),
+        "D_skip": PSpec((hm,), STATE_AXES, init="ones"),
+        "norm_in": blocks.rmsnorm_specs(d),
+        "norm": {"scale": PSpec((di,), INNER_NORM_AXES, init="ones")},
+        "out_proj": PSpec((di, d), OUT_PROJ_AXES),
+    }
+
+
+def _causal_conv(rt, x, w):
+    """Depthwise causal conv across rank boundaries. x (B, S, C); w (K, C).
+    The first K - 1 outputs read the previous rank's last K - 1 inputs
+    (zeros on rank 0). JAX's ``halo_exchange=False`` branch, which no
+    caller takes, is not ported."""
+    K = w.shape[0]
+    halo = rt.ppermute_prev_shard(x[:, -(K - 1):])
+    pad = torch.cat([halo, x], dim=1)
+    S = x.shape[1]
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for o in range(K):
+        out = out + pad[:, o:o + S].float() * w[o].float()
+    return out.to(x.dtype)
+
+
+def mamba_in(rt, p, x, cfg: ModelConfig):
+    """The pre-norm input projection, split: (xin, z, B, C, dt_raw), xin
+    (B, S, d_inner) the conv's raw input."""
+    m = cfg.mamba or MambaConfig()
+    di = m.expand * cfg.d_model
+    n = m.d_state
+    h = blocks.rmsnorm(p.norm_in, x, cfg.norm_eps)
+    u = torch.einsum("bsd,dx->bsx", h, rt.dense(p.in_proj, IN_PROJ_AXES))
+    return torch.split(u, [di, di, n, n, u.shape[-1] - 2 * di - 2 * n],
+                       dim=-1)
+
+
+def mamba_out(rt, p, x, y, z, cfg: ModelConfig):
+    """The gated inner norm and output projection with residual: y (B, S,
+    d_inner) f32, z the gate's pre-activation."""
+    y = y * F.silu(z.float())
+    norm = types.SimpleNamespace(scale=rt.dense(p.norm.scale,
+                                                INNER_NORM_AXES))
+    y = blocks.rmsnorm(norm, y.to(x.dtype), cfg.norm_eps)
+    return x + torch.einsum("bsx,xd->bsd", y,
+                            rt.dense(p.out_proj, OUT_PROJ_AXES))
+
+
+def mamba_block(rt, p, x, cfg: ModelConfig, return_state: bool = False):
+    """Pre-norm Mamba (SSD) mixer with residual. x: (B, S_local, D). With
+    ``return_state`` also the decode cache, the last rank's on every rank:
+    ``conv`` (B, d_conv - 1, d_inner), the last raw (pre-conv) inputs in
+    x's dtype, and ``state`` (B, Hm, N, P) f32, the cross-shard-corrected
+    final state."""
+    m = cfg.mamba or MambaConfig()
+    B, S, D = x.shape
+    di = m.expand * D
+    hm = di // m.head_dim
+    n = m.d_state
+
+    xin, z, Bc, Cc, dt_raw = mamba_in(rt, p, x, cfg)
+    xc = _causal_conv(rt, xin, rt.dense(p.conv_w, CONV_AXES))
+    xc = F.silu(xc.float())
+
+    dt = F.softplus(dt_raw.float()
+                    + rt.dense(p.dt_bias, STATE_AXES).float())  # (B,S,Hm)
+    log_decay = -torch.exp(rt.dense(p.A_log, STATE_AXES).float()) * dt
+
+    xh = xc.reshape(B, S, hm, m.head_dim)
+    v = xh * dt[..., None]
+    q = Cc.float()[:, :, None, :].expand(B, S, hm, n)
+    k = Bc.float()[:, :, None, :].expand(B, S, hm, n)
+
+    y, h_fin, ld_tot, la = chunked_gla(q, k, v, log_decay, m.chunk)
+    y_corr, h_true = cross_shard_correction(rt, q, la, h_fin, ld_tot)
+    if y_corr is not None:
+        y = y + y_corr
+    d_skip = rt.dense(p.D_skip, STATE_AXES).float()
+    y = y + d_skip[None, None, :, None] * xh
+    out = mamba_out(rt, p, x, y.reshape(B, S, di), z, cfg)
+    if return_state:
+        # the decode step convolves the cached inputs with the new one, so
+        # the cache holds the raw in_proj slice (JAX caches the conv's
+        # SiLU'd output here, repro/models/ssm.py:194, :217)
+        conv = xin[:, -(m.d_conv - 1):].contiguous()   # not a view of u
+        return out, {"conv": _from_last_shard(rt, conv),
+                     "state": _from_last_shard(rt, h_true)}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -274,5 +390,6 @@ def slstm_block(rt, p, x, cfg: ModelConfig, return_state: bool = False):
 
 
 # (specs, block) of each recurrent mixer, by its ``layer_pattern`` name
-MIXERS = {"mlstm": (mlstm_specs, mlstm_block),
+MIXERS = {"mamba": (mamba_specs, mamba_block),
+          "mlstm": (mlstm_specs, mlstm_block),
           "slstm": (slstm_specs, slstm_block)}

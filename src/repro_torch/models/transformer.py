@@ -10,8 +10,19 @@ period of one (attention, MLP); MoE stacks a period of
 (llama4-maverick: dense, then MoE); xLSTM stacks a period of
 ``xlstm.slstm_every`` recurrent mixers (``models.ssm``), an sLSTM on its
 last layer and mLSTMs on the others, with no MLP (``d_ff == 0``): their
-layers hold ``mixer`` only. Hybrid and encoder-decoder periods raise,
+layers hold ``mixer`` only. Hybrid stacks (jamba) a period of
+lcm(``attn_every``, ``moe.every_n_layers``) layers: attention on layer
+``attn_every // 2`` of each ``attn_every``, the Mamba mixer
+(``models.ssm.mamba_block``) on the others, and the MoE block on the last
+layer of each ``every_n_layers``. Encoder-decoder and VLM stacks raise,
 naming the ROADMAP queue.
+
+The depth cut (a port-only difference): a hybrid config whose
+``num_layers`` is below one period takes the period's first ``num_layers``
+layers, so a card can hold a cut of jamba's 8-layer period that keeps
+every (mixer, MLP) kind. The JAX ``layer_pattern`` raises for it, so such
+a stack has no JAX tree (``models.factory.jax_tree`` raises); every other
+``num_layers`` that is not a multiple of the period raises as JAX's does.
 
 ``apply_stack`` returns ``(x, aux)``: the MoE layers' auxiliary losses with
 the JAX weights, ``0.01 * moe_lb + 1e-3 * moe_z`` per MoE layer, summed;
@@ -33,6 +44,7 @@ layer); 'none' keeps every activation. Recompute changes no value.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -46,22 +58,42 @@ REMATS = ("none", "attn_out", "full")
 LB_WEIGHT, Z_WEIGHT = 0.01, 1e-3
 
 
+def period_length(cfg: ModelConfig) -> int:
+    """The number of layers of one period (JAX ``layer_pattern``'s)."""
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} (encoder-decoder / VLM "
+            "layers) is not ported to repro_torch yet (ROADMAP.md §A8 d-e: "
+            "remaining model families)")
+    period = 1
+    if cfg.moe is not None:
+        period = max(period, cfg.moe.every_n_layers)
+    if cfg.family == "hybrid":
+        period = max(period, cfg.attn_every)
+        if cfg.moe is not None:
+            period = math.lcm(cfg.attn_every, cfg.moe.every_n_layers)
+    if cfg.family == "ssm" and cfg.xlstm is not None:
+        period = max(period, cfg.xlstm.slstm_every)
+    return period
+
+
+def cut_below_period(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` is a hybrid stack cut to fewer layers than one
+    period (the port-only depth cut of the module doc)."""
+    return cfg.family == "hybrid" and cfg.num_layers < period_length(cfg)
+
+
 def layer_pattern(cfg: ModelConfig) -> List[Tuple[str, Optional[str]]]:
     """The repeating (mixer, mlp) period of the architecture (JAX
     ``layer_pattern``): (attn, mlp) for a dense stack; for a MoE stack
     ``every_n_layers`` attention layers with 'moe' on the last; for xLSTM
     ``slstm_every`` layers, 'slstm' on the last and 'mlstm' on the others,
-    each with no MLP."""
-    if cfg.family not in ("dense", "moe", "ssm") or cfg.encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (hybrid / encoder-decoder / "
-            "VLM layers) is not ported to repro_torch yet (ROADMAP.md §A8 "
-            "c-e: remaining model families)")
-    period = 1
-    if cfg.moe is not None:
-        period = max(period, cfg.moe.every_n_layers)
-    if cfg.family == "ssm" and cfg.xlstm is not None:
-        period = max(period, cfg.xlstm.slstm_every)
+    each with no MLP; for a hybrid stack Mamba and attention layers, MLP
+    or MoE (module doc). A hybrid stack cut below one period gets the
+    period's first ``num_layers`` layers, where JAX raises."""
+    period = period_length(cfg)
+    if cut_below_period(cfg):
+        period = cfg.num_layers
     if cfg.num_layers % period:
         raise ValueError(f"{cfg.num_layers=} not divisible by {period=}")
     pat = []

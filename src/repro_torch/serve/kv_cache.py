@@ -1,9 +1,11 @@
 """The contiguous serving cache of the static-batch path (the port's
 counterpart of ``repro.serve.kv_cache``).
 
-Layouts, per rank (JAX ``kv_cache.py:53-64``):
+Layouts, per rank (JAX ``kv_cache.py:34-64``):
 
   attention : k, v (B, S_local, Hkv, hd)   the rank's contiguous slice
+  mamba     : conv (B, d_conv - 1, d_inner) the last raw conv inputs, in
+              the param dtype; state (B, Hm, N, P) f32
   mlstm     : state (B, H, dk, dk + 1) f32
   slstm     : h, c (B, H, dh) f32
 
@@ -13,7 +15,8 @@ stack (dense, MoE) keeps every layer's K and V in one tensor each,
 
     k, v : (num_layers, B, S_local, Hkv, hd)
 
-a stack with a recurrent mixer a list of per-layer dicts. Only this
+a stack with a recurrent mixer (xLSTM, and jamba's Mamba layers beside
+its attention layers) a list of per-layer dicts. Only this
 module reads the difference: ``from_layers`` builds either from per-layer
 dicts, ``layer(cache, i)`` gives layer ``i``'s dict of either (views of
 the stacked tensors), ``kv_stacks`` a stacked cache's two tensors.
@@ -30,7 +33,7 @@ from typing import Dict, List, Sequence, Union
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MambaConfig, ModelConfig
 from repro_torch.models import spec, transformer
 
 Cache = Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]]]
@@ -49,6 +52,14 @@ def _layer_cache(cfg: ModelConfig, mixer: str, batch: int, s_local: int,
         shape = (batch, s_local, cfg.num_kv_heads, cfg.head_dim_)
         return {n: torch.zeros(shape, dtype=dtype, device=device)
                 for n in ("k", "v")}
+    if mixer == "mamba":
+        m = cfg.mamba or MambaConfig()
+        di = m.expand * d
+        return {"conv": torch.zeros((batch, m.d_conv - 1, di), dtype=dtype,
+                                    device=device),
+                "state": torch.zeros((batch, di // m.head_dim, m.d_state,
+                                      m.head_dim), dtype=torch.float32,
+                                     device=device)}
     dk = d // hq
     if mixer == "mlstm":
         return {"state": torch.zeros((batch, hq, dk, dk + 1),

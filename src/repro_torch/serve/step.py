@@ -19,12 +19,15 @@ prefill: the full forward pass (StarTrail attention: kernel B2 on 'cuda';
   (a prefix-cache hit or a later chunk), reading the cached prefix from
   the page pool (kernel B6) and writing the suffix K/V into its pages.
 
-Recurrent mixers (the xLSTM family, ``models.ssm``): the decode step
-  advances an mLSTM's matrix memory or an sLSTM's (h, c) by one token in
-  place (``_mlstm_decode``, ``_slstm_decode``); the prefill returns each
-  such layer's state: the last rank's cross-shard-corrected final state
-  for an mLSTM, the last rank's shard-local (h, c) for an sLSTM. Only the
-  static-batch path serves them: the engine refuses them, as JAX's does.
+Recurrent mixers (``models.ssm``: the xLSTM family, and the Mamba layers
+  of the hybrid family beside its attention layers): the decode step
+  advances a Mamba layer's conv window and SSM state, an mLSTM's matrix
+  memory or an sLSTM's (h, c) by one token in place (``_mamba_decode``,
+  ``_mlstm_decode``, ``_slstm_decode``); the prefill returns each such
+  layer's state, the last rank's: a Mamba layer's last raw conv inputs and
+  its cross-shard-corrected final state, an mLSTM's corrected final state,
+  an sLSTM's shard-local (h, c). Only the static-batch path serves them:
+  the engine refuses them, as JAX's does.
 
 Dense and MoE attention stacks are ported: a MoE layer runs
 ``models.moe.moe_block`` in place of the MLP in the decode step and the
@@ -46,7 +49,10 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, RunConfig, ShapeConfig
+import torch.nn.functional as F
+
+from repro_torch.configs.base import (MambaConfig, ModelConfig, RunConfig,
+                                      ShapeConfig)
 from repro_torch.core import startrail as st
 from repro_torch.core.combine import combine_pair
 from repro_torch.engine import paged_cache
@@ -96,6 +102,36 @@ def attn_decode_branch(rt, p, x, cache, cfg: ModelConfig, cache_len,
         o = st.decode_attention(q.contiguous(), cache["k"], cache["v"],
                                 pos_new, pos_k, cfg_st, rt.comm)
     return blocks.attention_out(rt, p, o)
+
+
+def _mamba_decode(rt, p, x, cache, cfg: ModelConfig):
+    """One token through a Mamba layer. x: (B, 1, D); cache: {'conv'}
+    (B, d_conv - 1, d_inner), the last raw conv inputs, and {'state'}
+    (B, Hm, N, P) f32, both updated in place."""
+    m = cfg.mamba or MambaConfig()
+    B = x.shape[0]
+    di = m.expand * cfg.d_model
+    hm = di // m.head_dim
+
+    xin, z, Bc, Cc, dt_raw = ssm.mamba_in(rt, p, x, cfg)
+    window = torch.cat([cache["conv"], xin], dim=1)        # (B, K, di)
+    w = rt.dense(p.conv_w, ssm.CONV_AXES).float()
+    xc = torch.einsum("bkc,kc->bc", window.float(), w)[:, None]
+    xc = F.silu(xc)
+    cache["conv"].copy_(window[:, 1:])
+
+    dt = F.softplus(dt_raw.float()
+                    + rt.dense(p.dt_bias, ssm.STATE_AXES).float())  # (B,1,Hm)
+    a_log = rt.dense(p.A_log, ssm.STATE_AXES).float()
+    decay = torch.exp(-torch.exp(a_log) * dt)[:, 0]
+    xh = xc.reshape(B, hm, m.head_dim)
+    v = xh * dt[:, 0, :, None]
+    state = cache["state"] * decay[..., None, None] + torch.einsum(
+        "bn,bhp->bhnp", Bc[:, 0].float(), v)
+    cache["state"].copy_(state)
+    y = torch.einsum("bn,bhnp->bhp", Cc[:, 0].float(), state)
+    y = y + rt.dense(p.D_skip, ssm.STATE_AXES).float()[None, :, None] * xh
+    return ssm.mamba_out(rt, p, x, y.reshape(B, 1, di), z, cfg)
 
 
 def _mlstm_decode(rt, p, x, cache, cfg: ModelConfig):
@@ -152,7 +188,8 @@ def _slstm_decode(rt, p, x, cache, cfg: ModelConfig):
     return x + torch.einsum("bsd,de->bse", y, wo)
 
 
-_RECURRENT_DECODE = {"mlstm": _mlstm_decode, "slstm": _slstm_decode}
+_RECURRENT_DECODE = {"mamba": _mamba_decode, "mlstm": _mlstm_decode,
+                     "slstm": _slstm_decode}
 
 
 def lm_decode_step(rt, params, cache, tokens, cfg: ModelConfig, cache_len,

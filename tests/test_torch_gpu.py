@@ -1616,3 +1616,91 @@ def test_xlstm_train_step_matches_cpu(cuda_device, data, c):
         assert abs(float(m_gpu[key]) - float(m_cpu[key])) < 2e-3, key
     assert max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu)) \
         < 2e-3
+
+
+# ---------------------------------------------------------------------------
+# the hybrid family on the card (smoke width, f32; its head size 16 is not
+# one the kernels take, so attention runs the plain versions here)
+# ---------------------------------------------------------------------------
+
+JAMBA = "jamba-1.5-large-398b"
+
+
+def _plain_kernels(plan):
+    import dataclasses
+
+    return dataclasses.replace(plan, kernel_impl="ref", block_impl="ref")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_devices", [1, 4])
+def test_hybrid_legacy_on_the_card_matches_cpu(cuda_device, n_devices):
+    """``--legacy`` of a smoke jamba model at P = 1 and at P = 4
+    (ThreadMesh(c=2, r=1)) on the card against the CPU from the same
+    weights: the first tokens equal, the first decode step's hidden state
+    and every Mamba layer's conv and SSM state within 2e-4."""
+    import copy
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import legacy_start
+    from repro_torch.models.factory import build_model
+    from repro_torch.plan import make_serve_plan
+
+    cfg = registry.get_smoke(JAMBA)
+    cpu = build_model(cfg, device="cpu", seed=0)
+    plan = _plain_kernels(make_serve_plan(
+        cfg, arch=JAMBA, n_devices=n_devices, c=2 if n_devices > 1 else 1))
+    tokens = _t(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 32)))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = copy.deepcopy(cpu).to(dev)
+        tok, caches, decode = legacy_start(model, plan, tokens.to(dev), 4)
+        cl = torch.full((2,), 32, dtype=torch.int32, device=dev)
+        hidden = decode(caches, tok.long(), cl, return_hidden=True)
+        states = [t.float().cpu() for layer in caches[-1]
+                  for n, t in sorted(layer.items()) if n in ("conv", "state")]
+        out[dev.type] = (tok.cpu(), hidden.float().cpu(), states)
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert float((out["cuda"][1] - out["cpu"][1]).abs().max()) < 2e-4
+    assert len(out["cuda"][2]) == 12      # 6 Mamba layers: conv, state
+    for a, b in zip(out["cuda"][2], out["cpu"][2]):
+        assert float((a - b).abs().max()) < 2e-4 * max(
+            float(b.abs().max()), 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data,c", [(1, 1), (1, 2)], ids=["p1", "c2"])
+def test_hybrid_train_step_matches_cpu(cuda_device, data, c):
+    """One train step of a smoke jamba model on the card and on the CPU
+    from the same weights and batch, at P = 1 and on ThreadMesh(c=2, r=1)
+    (the conv halo and the state correction between ranks): loss,
+    gradient norm and every updated parameter within 2e-3."""
+    import copy
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.plan import make_plan
+
+    cfg = registry.get_smoke(JAMBA)
+    cpu = build_model(cfg, device="cpu", seed=0)
+    plan = _plain_kernels(make_plan(cfg, ShapeConfig("t", 64, 2, "train"),
+                                    n_devices=data * c * c, data=data, c=c))
+    batch = SyntheticLM(cfg, plan.shape_config(), seed=0,
+                        seq_scheme=plan.seq_scheme,
+                        sp_size=plan.sp_size).get_batch(0)
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = copy.deepcopy(cpu).to(dev)
+        step, sh = plan.build_train_step(model, adam)
+        _, m = step(adamw.init_state(sh["params"], adam),
+                    {k: _t(v).to(dev) for k, v in batch.items()})
+        out[dev.type] = (m, [p.detach().cpu() for p in sh["params"]])
+    (m_gpu, p_gpu), (m_cpu, p_cpu) = out["cuda"], out["cpu"]
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m_gpu[key]) - float(m_cpu[key])) < 2e-3, key
+    assert max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu)) \
+        < 2e-3

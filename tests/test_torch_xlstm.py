@@ -5,8 +5,9 @@ chunk 8), f32, with the JAX parameters carried across by
 ``from_jax_params`` and the same numpy inputs.
 
 * The config and its smoke config equal JAX's field for field;
-  ``layer_pattern`` and ``mixer_on_layer`` match; jamba, seamless-m4t and
-  paligemma still raise, naming §A8.
+  ``layer_pattern`` and ``mixer_on_layer`` match; seamless-m4t and
+  paligemma still raise, naming §A8, and jamba (ported since) gives
+  JAX's config and period.
 * ``chunked_gla`` against JAX's and the naive recurrence of
   ``tests/test_ssm_and_roofline.py`` at chunks 2-16 and a sequence shorter
   than the chunk, within 2e-5 (that file's bound), a zero decay giving the
@@ -274,13 +275,22 @@ def test_configs_equal_jax(references):
     assert not transformer.has_moe(registry.get(ARCH))
     for other in ("paligemma-3b", "seamless-m4t-large-v2",
                   "jamba-1.5-large-398b"):
+        cfg_o = jax_registry.get_smoke(other)
+        as_h2o = dataclasses.replace(registry.get_smoke("h2o-danube-1.8b"),
+                                     family=cfg_o.family, encdec=cfg_o.encdec)
+        if other == "jamba-1.5-large-398b":
+            # the hybrid family is ported (§A8 c): JAX's config and period
+            assert dataclasses.asdict(registry.get_smoke(other)) == \
+                dataclasses.asdict(cfg_o)
+            assert transformer.layer_pattern(as_h2o) == \
+                jax_transformer.layer_pattern(dataclasses.replace(
+                    jax_registry.get_smoke("h2o-danube-1.8b"),
+                    family=cfg_o.family))
+            continue
         with pytest.raises(NotImplementedError, match="§A8"):
             registry.get_smoke(other)
-        cfg_o = jax_registry.get_smoke(other)
         with pytest.raises(NotImplementedError, match="§A8"):
-            transformer.layer_pattern(dataclasses.replace(
-                registry.get_smoke("h2o-danube-1.8b"), family=cfg_o.family,
-                encdec=cfg_o.encdec))
+            transformer.layer_pattern(as_h2o)
 
 
 def test_specs_and_parameter_count_equal_jax():
