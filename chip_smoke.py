@@ -157,21 +157,21 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               ``n_devices=8, c=2`` runs P = 8 ranks as ThreadMesh(c=2, r=2)
               threads on the one card (team gathers and two ring steps;
               the collectives carry the gradients), each rank holding its
-              shards under the 'default' sharding rules. Full width and
-              full depth (24 layers), seq 4096, batch 1, zigzag,
+              shards under the 'default' sharding rules. Full width, 12
+              of 24 layers (``TRAIN_SP_LAYERS``), seq 4096, batch 1, zigzag,
               ``remat='attn_out'``, bf16, 2 AdamW steps on one repeated
               batch (``TRAIN_SP_STEPS``, the script's time): the loss must
               fall, and the first step's loss and
               gradient norm agree with P = 1 on the same weights. Per step
-              B2 runs 8 ranks x 2 ring steps x 2 (recompute) x 24 layers =
-              768 times and B3 384 times; peak memory, the profiled
+              B2 runs 8 ranks x 2 ring steps x 2 (recompute) x 12 layers =
+              384 times and B3 192 times; peak memory, the profiled
               step's device ms and f32 adds beside the 8-layer step that
               stored every parameter whole. Before it, in f32 (the
               CUDA-core kernels), depth 2, seq 1024: the loss and every
               gradient leaf, assembled whole from the unique shards, at
               P = 8 and at 2 data replicas of P = 4, under each of the
               'default', 'fsdp' and 'tp' rules, against P = 1
- 14. schemes  the paper's comparison at the train_sp width (4 layers, seq 4096,
+ 14. schemes  the paper's comparison at the train_sp width (2 layers, seq 4096,
               batch 1, bf16, ``attn_out``, P = 8 ranks on the card) through
               ``trainer.train`` with the obs registry and tracer, 2 steps
               each from the same weights: the ring (C = 1, R = 8: B2
@@ -203,7 +203,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               ThreadMesh(c=2, r=2) threads on the one card from the same
               weights, cut to keep the phase near 100 s (the 8 rank threads
               share the GIL: a step takes seconds): 2 of those prompts
-              (336 and 1024 tokens) with 3 new tokens each (B2 on every rank,
+              (336 and 1024 tokens) with 2 new tokens each (B2 on every rank,
               ring step and layer of a prefill, B4 on every rank and layer
               of a decode step), then 2 prompts sharing a 512-token prefix
               through the prefix cache and 256-token chunks (B6 and B1 on
@@ -213,7 +213,7 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               agree with P = 1's printed; the engine raises if the ranks
               sample different tokens; a profiled decode step at each P.
               Then at P = 8 one sampled request (prompt 4, temperature 0.8,
-              top-k 40, top-p 0.9) beside one greedy (prompt 2), 3 new
+              top-k 40, top-p 0.9) beside one greedy (prompt 2), 2 new
               tokens each: the sampled stream equals its solo run, the
               greedy one its stream in the all-greedy run
  17. dense_train  ``trainer.train`` on the paper's GPT-7B (MHA 32/32, head
@@ -278,11 +278,11 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               which must print its bit-identical line; SIGTERM must drain
               each to exit 0. The worker processes' launches cannot be
               counted from this process: their check is stream equality
- 19. rules    the 'fsdp' and 'tp' sharding rules at full width, 4
+ 19. rules    the 'fsdp' and 'tp' sharding rules at full width, 2
               layers, seq 4096, bf16, ``attn_out``: a. one train step under
               each at (data 2, c 2, r 1), global batch 2, from the same
               weights: loss and gradient norm against P = 1
-              (``TRAIN_SP_TOL``), B2 8 x 1 x 2 x 4 = 64 and B3 32 a step,
+              (``TRAIN_SP_TOL``), B2 8 x 1 x 2 x 2 = 32 and B3 16 a step,
               device ms, f32 adds and peak memory from a profiled step; b.
               ``trainer.train`` under 'default' at P = 8 writes a
               checkpoint at step 2; a P = 1 state restored from it must
@@ -401,6 +401,36 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               Mamba block's gradients (every parameter and the input) on
               the card at P = 1 and at P = 8 against the CPU, within
               2e-3 of the largest magnitude
+ 27. encdec_serve  full-width seamless-m4t-large-v2 whole (24 encoder +
+              24 decoder layers, 2.04 B, seeded bf16). First the path's
+              kernel regimes against their plain versions
+              (``ENCDEC_KERNEL_CASES``: B2 under no mask, B1 with one
+              query row, B1 and B3 with Sq != Sk; bf16 and f32, device
+              ms, bound, SDPA). The encoder prefill of 1 x 4096 frames at
+              P = 1 and at P = 4 (ThreadMesh(c=2, r=1)), B2 on every
+              rank's ring step of each encoder layer, its output on the
+              CUDA kernels against the plain versions (``ENGINE_TOL``).
+              ``--legacy`` at P = 1 (2 x 128, 32 new) and at P = 4 (2 x 8,
+              4 new): the encoder prefilled over seeded frames, the
+              decoder's prompt fed one decode step a token, B1 (cross)
+              and B5 (self) on every rank, layer and step; the decoder's
+              hidden states over the first 48 (P = 1) and 4 (P = 4) of
+              the same tokens on both routes
+              (``ENGINE_TOL``); the P = 1 tokens against the full
+              forward's argmax, reported in bf16 and checked in f32 at
+              full depth (2 x 64, 8 new; near ties within ``HYBRID_TIE``)
+ 28. encdec_train  the same model, all 48 layers, seq 4096, batch 1,
+              ``attn_out``, AdamW on one repeated batch of the pipeline's
+              tokens and frames: the first step's gradients against the
+              plain kernels' (``TRAIN_CHECK_TOL`` on an f32 copy of the
+              model; in bf16 reported, each route beside the f32
+              model's: the encoder's query and key gradients are bf16
+              noise there), 3 steps at P = 1 (B1
+              on every cross-attention, B2 on every self-attention, B3 on
+              both); then a 4 + 4-layer cut at batch 2, 2 steps at P = 1
+              and 2 at P = 8 (ThreadMesh(c=2, r=1, data=2)) from the same
+              weights and batch, P = 8's first loss and gradient norm
+              against P = 1's (``TRAIN_SP_TOL``)
 
 Every JSON line carries ``seconds``: the wall time since the line before
 (or the phase's own, where the phase reports it).
@@ -412,8 +442,10 @@ and its plan's step, 16's four runs, 17, 18's four in-process runs
 (rules_fsdp, rules_tp), 20's three runs (moe_serve_phi, moe_legacy,
 moe_serve_llama), 21's two (moe_train, moe_train_mesh), 22 (legacy_sp),
 23's two (xlstm_serve_p1, xlstm_serve_p4), 24's two (xlstm_train_p1,
-xlstm_train_p8), 25's two (hybrid_serve_p1, hybrid_serve_p4) and 26's
-two (hybrid_train_p1, hybrid_train_p8):
+xlstm_train_p8), 25's two (hybrid_serve_p1, hybrid_serve_p4), 26's
+two (hybrid_train_p1, hybrid_train_p8), 27's four (encdec_prefill_p1,
+encdec_prefill_p4, encdec_legacy_p1, encdec_legacy_p4) and 28's three
+(encdec_train_p1, encdec_train_cut_p1, encdec_train_cut_p8):
 the launch counters are set to 0 just before each and read just after,
 and each must launch exactly the kernels it runs (B2 and B3 in the ring;
 B5 and B7 in ragged_bwd; B2 and B4 in the engine and in the sample
@@ -431,7 +463,9 @@ gateway, its prefill/decode pair and the priority run, B2 and B4 in the
 front end's replayed reference; B2 and B4 in both MoE engines, B2 and B5
 in the MoE legacy run, B2 and B3 in both MoE trainings, B2 and B5 at
 P = 4 in legacy_sp, none in the xLSTM runs, B2 and B5 in both hybrid
-serving runs, none in the one-layer hybrid trainings). Comparison,
+serving runs, none in the one-layer hybrid trainings, B2 in the encoder
+prefills, B1, B2 and B5 in the encdec ``--legacy`` runs, B1, B2 and B3
+in the encdec trainings). Comparison,
 timing and profiling launches are not counted. The kernels line's
 ``launches`` is each kernel's count on the path that runs it (the engine for B2 and B4, the local prefill for B1, the train
 loop for B3, the legacy phase for B5, the prefix phase for B6, ragged_bwd
@@ -4100,7 +4134,8 @@ def phase_resume(dev, smi):
 # phase 13: training at SP degree 8 on a ThreadMesh on the card
 # ---------------------------------------------------------------------------
 
-TRAIN_SP_LAYERS, TRAIN_SP_STEPS = 24, 2           # the full depth
+# 12 of h2o's 24 layers for the script's time (PERF.md §4)
+TRAIN_SP_LAYERS, TRAIN_SP_STEPS = 12, 2
 TRAIN_SP_C, TRAIN_SP_R = 2, 2                  # P = C * C * R = 8 ranks
 # bf16 at P = 8 against P = 1 on the same weights and batch: the ranks sum
 # their bf16 MLP and vocab partials in another order and the ring merges
@@ -4116,7 +4151,7 @@ TRAIN_SP_F32_MESHES = ((2, 2, 1), (2, 1, 2))
 TRAIN_SP_TIMEOUT = 180                         # s, a mesh run's limit
 # the phase's P = 8 step at 8 layers with every parameter stored whole on
 # every rank (CHANGES and PERF.md, PR 18-19; NVIDIA H100 80GB HBM3, 700 W),
-# printed beside this run's 24 layers under the 'default' rules
+# printed beside this run's layers under the 'default' rules
 TRAIN_SP_8_LAYERS_WHOLE = {
     "layers": 8, "max_memory_allocated_GB": [23.7, 24.1],
     "device_ms_per_step": [505.6, 540.4], "f32_add_device_ms": 186.7,
@@ -4325,9 +4360,9 @@ def phase_train_sp(dev, smi):
 # phase 14: the paper's baselines and StarTrail's chunked ring
 # ---------------------------------------------------------------------------
 
-# 4 layers for the script's time: a P = 8 step's wall is host-bound, ~1 s
-# a layer on a slow host
-SCHEMES_LAYERS, SCHEMES_STEPS = 4, 2
+# 2 layers for the script's time (PERF.md §4): a P = 8 step's wall is
+# host-bound, ~1 s a layer on a slow host
+SCHEMES_LAYERS, SCHEMES_STEPS = 2, 2
 # (path name, scheme, C, comm_chunks); P = 8 ranks each
 SCHEMES = (("ring", "ring", 1, 1), ("ulysses", "ulysses", 1, 1),
            ("startrail", "startrail", 2, 2))
@@ -4662,14 +4697,14 @@ def phase_autotune(dev, smi):
 DENSE_ARCH = "minitron-8b"
 DENSE_PLENS = [64, 200, 336, 472, 608, 744, 880, 1024]   # P = 1 prompts
 DENSE_NEW = 32
-# P = 8: 2 of the P = 1 prompts (336 and 1024 tokens), 3 new tokens each;
+# P = 8: 2 of the P = 1 prompts (336 and 1024 tokens), 2 new tokens each;
 # then 2 prompts sharing a 512-token prefix through 256-token chunks (few
 # prompts and tokens for the script's time: a P = 8 decode step takes
 # 2.5-5.7 s of wall)
 DENSE_P8 = {"n_devices": 8, "c": 2, "prompts": (2, 7),
-            "new_tokens": 3, "prefix": 512, "chunk": 256,
+            "new_tokens": 2, "prefix": 512, "chunk": 256,
             "suffixes": (128, 256)}
-# P = 8 sampled: prompt 2 greedy and prompt 4 sampled, 3 new tokens each
+# P = 8 sampled: prompt 2 greedy and prompt 4 sampled, 2 new tokens each
 DENSE_P8_SAMPLED = {"greedy": 2, "sampled": 4, "temperature": 0.8,
                     "top_k": 40, "top_p": 0.9, "seed": 7}
 # P = 8 rounds in bf16 where P = 1 does not: the MLP's reduce-scatter sums
@@ -4968,8 +5003,8 @@ def phase_dense_train(dev, smi):
 # meshes, at full width
 # ---------------------------------------------------------------------------
 
-# 4 layers for the script's time (as the schemes phase)
-RULES_PHASE = {"layers": 4, "batch": 2, "c": 2, "data": 2, "ckpt_steps": 2}
+# 2 layers for the script's time (as the schemes phase; PERF.md §4)
+RULES_PHASE = {"layers": 2, "batch": 2, "c": 2, "data": 2, "ckpt_steps": 2}
 
 
 def _rules_steps(model, cfg, dev, adam):
@@ -6362,9 +6397,10 @@ def _repeated_steps(model, plan, batch, steps, state_dtype="float32"):
                 launches=launches)
 
 
-def _xlstm_cut(model, layers):
-    """A model of ``model``'s first ``layers`` layers (and its embedding,
-    final norm and head), the weights copied."""
+def _layers_cut(model, layers):
+    """A model of ``model``'s first ``layers`` layers (an encoder-decoder's
+    first ``layers`` encoder and decoder layers) and every other leaf, the
+    weights copied."""
     import dataclasses
 
     import torch
@@ -6372,6 +6408,8 @@ def _xlstm_cut(model, layers):
     from repro_torch.models.factory import Model
 
     cfg = dataclasses.replace(model.cfg, num_layers=layers)
+    if cfg.encdec:
+        cfg = dataclasses.replace(cfg, num_encoder_layers=layers)
     whole = dict(model.named_parameters())
     with torch.no_grad():
         cut = Model(cfg, lambda s: torch.empty(
@@ -6410,7 +6448,7 @@ def phase_xlstm_train(dev, smi):
         t0 = time.perf_counter()
         if key == "p8":
             trained = model
-            model = _xlstm_cut(trained, XLSTM_TRAIN["mesh_layers"])
+            model = _layers_cut(trained, XLSTM_TRAIN["mesh_layers"])
             del trained
             free_device()
         cfg = model.cfg
@@ -6721,7 +6759,8 @@ def _hybrid_full_forward_check(model, tokens, out, strict=True):
     each generated token against its argmax. Returns the share that equal
     it and the largest gap, in standard deviations of the logits, between
     the argmax's logit and the generated token's; with ``strict`` each gap
-    must be within ``HYBRID_TIE`` (a near tie), else it is reported."""
+    must be within ``HYBRID_TIE`` (a near tie), else it is reported
+    (``_argmax_report``)."""
     import torch
     import torch.nn.functional as F
 
@@ -6737,7 +6776,7 @@ def _hybrid_full_forward_check(model, tokens, out, strict=True):
     seq = F.pad(seq, (0, -seq.shape[1] % cfg.mamba.chunk))
     rt = train_step.make_runtime(model, RunConfig(),
                                  _train_shape(seq.shape[1]))
-    gaps, match = [], []
+    rows = []
     for b in range(B):
         with torch.no_grad():
             x = blocks.embed(rt, model.embed, seq[b:b + 1], cfg)
@@ -6746,6 +6785,20 @@ def _hybrid_full_forward_check(model, tokens, out, strict=True):
             x = blocks.rmsnorm(model.final_norm, x, cfg.norm_eps)
             logits, _ = sampling.shard_logits(
                 rt, model.head, x[0, S - 1:S - 1 + new, None], cfg)
+        rows.append(logits)
+    return _argmax_report(cfg, rows, out, strict, "hybrid")
+
+
+def _argmax_report(cfg, rows, out, strict, what):
+    """Each row's generated tokens ``out[b]`` against the argmax of its
+    full-forward logits ``rows[b]`` (new, V): the share that equal it and
+    the largest gap, in standard deviations of the logits, between the
+    argmax's logit and the generated token's; with ``strict`` each gap
+    must be within ``HYBRID_TIE`` (a near tie), else it is reported."""
+    import torch
+
+    gaps, match = [], []
+    for b, logits in enumerate(rows):
         valid = logits[:, :cfg.vocab_size]
         top = valid.max(-1).values
         picked = valid.gather(-1, out[b].long()[:, None])[:, 0]
@@ -6755,7 +6808,7 @@ def _hybrid_full_forward_check(model, tokens, out, strict=True):
     worst = float(gaps.max())
     if strict:
         check(worst <= HYBRID_TIE,
-              f"hybrid {cfg.param_dtype} P=1 tokens off the full-forward "
+              f"{what} {cfg.param_dtype} P=1 tokens off the full-forward "
               f"argmax by {worst} standard deviations of the logits (beyond "
               f"the near-tie bound {HYBRID_TIE}); {int((~match).sum())} of "
               f"{match.numel()} differ")
@@ -7020,6 +7073,627 @@ def phase_hybrid_train(dev, smi):
     return by_path
 
 
+ENCDEC_ARCH = "seamless-m4t-large-v2"
+# seamless-m4t-large-v2 whole (24 encoder + 24 decoder layers, 2.04 B
+# parameters, 4.07 GB of bf16): the encoder prefill at 1 x 4096 frames, then
+# ``--legacy`` (the encoder prefilled over ``prompt`` frames, the decoder's
+# prompt fed one token a decode step, then ``new`` tokens) at P = 1 and at
+# P = 4 on ThreadMesh(c=2, r=1), as (batch, prompt, new); the CUDA-vs-plain
+# check teacher-forces the first ``check_positions`` tokens on both routes.
+# Cut for the script's time: a P = 4 decode step takes 1.3-2.0 s of wall
+# (four rank threads share one interpreter), so P = 4 serves 8 prompt
+# tokens and 4 new, not 64 and 8 (71 steps and their check took 350 s on
+# an H100), and P = 1 a prompt of 128, not 256 (25 s for its steps)
+ENCDEC_SERVE = {"enc_len": 4096, "c": 2,
+                "legacy": {1: (2, 128, 32), 4: (2, 8, 4)},
+                "check_positions": {1: 48, 4: 4}}
+# the tokens against the full forward's argmax, strict in f32 at full depth
+# (8.1 GB): a token off the argmax must be a near tie (``HYBRID_TIE``)
+ENCDEC_F32_SERVE = {"batch": 2, "prompt": 64, "new": 8}
+# all 48 layers train at P = 1; the P = 8 mesh (c 2, r 1, data 2) runs a
+# 4 + 4-layer cut, against P = 1 at the same cut and batch
+ENCDEC_TRAIN = {"seq": 4096, "batch": 1, "steps": 3, "cut": 4,
+                "mesh": (2, 1, 2), "mesh_batch": 2, "mesh_steps": 2}
+# the kernel regimes of the path (``_encdec_kernel_checks``), as (kernel,
+# batch, Sq, Sk) at 16 heads of 64: B2 under no mask at the encoder's ring
+# step (P = 1: 4096 queries and keys; a ring step of P = 8 at c = 2: 2048
+# team queries against 1024 keys), B1 with one query row against the
+# encoder output (the cross decode: 256 keys at P = 1, 16 on a rank at
+# P = 4), B3 under no mask at P = 1 (the encoder's backward and the
+# training cross-attention's), B1 and B3 with Sq != Sk under no mask (the
+# training cross-attention of a rank at P = 4: 1024 queries against the
+# 4096 gathered keys)
+ENCDEC_KERNEL_CASES = {"b2_full_p1": ("B2", 1, 4096, 4096),
+                       "b2_full_ring_step_p8": ("B2", 1, 2048, 1024),
+                       "b1_one_row_p1": ("B1", 2, 1, 256),
+                       "b1_one_row_p4_rank": ("B1", 2, 1, 16),
+                       "b1_sq_ne_sk": ("B1", 1, 1024, 4096),
+                       "b3_full_p1": ("B3", 1, 4096, 4096),
+                       "b3_sq_ne_sk": ("B3", 1, 1024, 4096)}
+
+
+def _encdec_model(dev, layers=None, dtype="bfloat16"):
+    """Full-width seamless (cut to ``layers`` encoder and decoder layers
+    when given), seeded weights in ``dtype`` on the card; and the seconds
+    its init took."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models.factory import build_model
+
+    cfg = dataclasses.replace(registry.get(ENCDEC_ARCH), param_dtype=dtype)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers,
+                                  num_encoder_layers=layers)
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def _encdec_kernel_checks(dev):
+    """The regimes the encoder-decoder runs the kernels in
+    (``ENCDEC_KERNEL_CASES``), each against its plain version on the card
+    at the path's shapes, bf16 and f32, to ``TOL`` (forward) and
+    ``BWD_TOL`` (backward) as in phase 3; bf16 device ms against the plain
+    version's, the bound and, for B1, SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    h, d = 16, 64
+    out = {}
+    for case, (name, b, sq, sk) in ENCDEC_KERNEL_CASES.items():
+        rec = {"kernel": name, "shape": [b, sq, sk, h, d]}
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            g = torch.Generator(device=dev).manual_seed(sq + sk)
+            q = torch.randn((b, sq, h, d), generator=g, device=dev).to(dtype)
+            k = torch.randn((b, sk, h, d), generator=g, device=dev).to(dtype)
+            v = torch.randn((b, sk, h, d), generator=g, device=dev).to(dtype)
+            pq = torch.arange(sq, dtype=torch.int32, device=dev)
+            pk = torch.arange(sk, dtype=torch.int32, device=dev)
+            acc = ()
+            if name == "B2":
+                acc = tuple(t.contiguous() for t in fa.flash_attention_fwd_plain(
+                    q, k.flip(1), v.flip(1), pq, pk, causal=False))
+            if name == "B3":
+                do = torch.randn((b, sq, h, d), generator=g,
+                                 device=dev).to(dtype)
+                o, lse = fa.flash_attention_fwd_plain(q, k, v, pq, pk,
+                                                      causal=False)
+                delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                                     o.to(dtype).float()).contiguous()
+                args = (q, k, v, do, lse, delta, pq, pk)
+                got = fa.flash_attention_bwd(*args, causal=False)
+                torch.cuda.synchronize()
+                want = fa.flash_attention_bwd_plain(*args, causal=False)
+                err, ok, _ = grad_err(got, want, lse, BWD_TOL)
+                tol = BWD_TOL
+                call = lambda: fa.flash_attention_bwd(*args, causal=False)
+                plain = lambda: fa.flash_attention_bwd_plain(*args,
+                                                             causal=False)
+                nbytes, flops = bwd_work(q, k, pq, pk, sq * sk * b)
+            else:
+                o, lse = fa.flash_attention_fwd(q, k, v, pq, pk, *acc,
+                                                causal=False)
+                torch.cuda.synchronize()
+                o_p, lse_p = fa.flash_attention_fwd_plain(
+                    q, k, v, pq, pk, *acc, causal=False)
+                err, ok, _ = partial_err(o, lse, o_p, lse_p, TOL[dname])
+                tol = TOL[dname]
+                call = lambda: fa.flash_attention_fwd(q, k, v, pq, pk, *acc,
+                                                      causal=False)
+                plain = lambda: fa.flash_attention_fwd_plain(
+                    q, k, v, pq, pk, *acc, causal=False)
+                io = 2 * (b * h * sq * d + b * h * sq) * 4
+                nbytes = (q.numel() + 2 * k.numel()) * q.element_size() \
+                    + (sq + sk) * 4 + io
+                flops = 4 * d * h * sq * sk * b
+            check(ok, f"encdec kernel check {case} {dname}: max err {err} "
+                      f"(tol {tol}) or a dead row not exact")
+            rec[dname] = {"max_abs_err": err, "tol": tol}
+            if dtype == torch.bfloat16:
+                t_b, by = bound(nbytes, flops, "bfloat16")
+                rec.update(device_ms=device_ms(call, calls=10, reps=3),
+                           plain_device_ms=device_ms(plain, calls=3, reps=3),
+                           bound_ms=t_b, bound_by=by)
+                if name == "B1":
+                    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                    rec["sdpa_device_ms"] = device_ms(
+                        lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                        calls=10, reps=3)
+        out[case] = rec
+    free_device()
+    return out
+
+
+def _encdec_frames(dev, batch, length, d_model, seed):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn((batch, length, d_model), generator=g, device=dev)
+
+
+def _encdec_plan(cfg, n, impl="cuda"):
+    from repro_torch.plan import make_serve_plan
+
+    plan = make_serve_plan(cfg, arch=ENCDEC_ARCH, n_devices=n,
+                           c=ENCDEC_SERVE["c"] if n > 1 else 1,
+                           kernel_impl=impl, block_impl=impl)
+    check(plan.sp_size == n and plan.block_impl == impl
+          and not plan.block_skip, f"encdec plan {plan}")
+    return plan
+
+
+def _encdec_prefill_run(model, n, frames):
+    """The encoder prefill (``serve.step.build_prefill_step``) of
+    ``frames`` at P = ``n`` on the CUDA kernels: wall, launches (B2 on
+    every rank's ring step of each encoder layer: no mask, none
+    skipped), a profiled call, peak memory; then the same on the plain
+    versions, the two encoder outputs within ``ENGINE_TOL``."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.serve import step as serve_step
+
+    cfg = model.cfg
+    shape = ShapeConfig("serve", frames.shape[1], frames.shape[0], "prefill")
+    enc = {}
+    rec = {}
+    for impl in ("cuda", "ref"):
+        plan = _encdec_plan(cfg, n, impl)
+        prefill = serve_step.build_prefill_step(
+            model, plan.run_config(), shape, plan.build_mesh())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = reset_counts()
+        t0 = time.perf_counter()
+        outs = prefill(frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(counts)
+        enc[impl] = torch.cat([outs[r] for r in prefill.steps.groups()[0]],
+                              dim=1)
+        if impl == "cuda":
+            want = launches_of(B2=cfg.num_encoder_layers * n * plan.r)
+            check(launches == want, f"encdec prefill P={n} launches "
+                  f"{launches}: want {want} (B2 on every rank's ring step "
+                  f"of each encoder layer)")
+            rec.update(launches=launches, wall_s=wall,
+                       profile=_profile_call(lambda: prefill(frames)),
+                       max_memory_allocated=torch.cuda.max_memory_allocated())
+        else:
+            rec["plain_wall_s"] = wall
+        del prefill, outs
+        free_device()
+    rec["cuda_vs_plain"] = compare([enc["cuda"].float()], [enc["ref"].float()],
+                                   f"encdec prefill P={n} enc_out",
+                                   names=("enc_out",))["enc_out"]
+    return enc["cuda"], rec
+
+
+def _encdec_teacher_hidden(model, n, impl, tokens, frames):
+    """The decoder's hidden state at every position of ``tokens`` (B, S)
+    fed one a decode step after the encoder prefill of ``frames``
+    (``launch.serve.encdec_caches``), at P = ``n`` on ``impl``'s kernels:
+    (B, S, D) f32."""
+    import torch
+
+    from repro_torch.launch.serve import encdec_caches
+
+    B, S = tokens.shape
+    caches, decode = encdec_caches(model, _encdec_plan(model.cfg, n, impl),
+                                   frames, -(-S // n) * n)
+    hid = []
+    for t in range(S):
+        cl = torch.full((B,), t, dtype=torch.int32, device=model.device)
+        hid.append(decode(caches, tokens[:, t:t + 1].long(), cl,
+                          return_hidden=True).float())
+    del caches, decode
+    free_device()
+    return torch.cat(hid, dim=1)
+
+
+def _encdec_legacy_run(model, n, batch, prompt, new, seed):
+    """``--legacy`` at P = ``n`` on the CUDA kernels (``legacy_start``,
+    then ``new - 1`` decode steps timed one by one): tokens, launches (B2
+    on the encoder prefill; on every decode step, each rank's B5 for the
+    decoder's self-attention and B1 for its cross-attention in every
+    layer), walls, a profiled decode step, peak memory; then the
+    decoder's hidden states over the first ``check_positions`` of the
+    same tokens (teacher forced) on the CUDA kernels and on the plain
+    versions, within ``ENGINE_TOL``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import legacy_start
+
+    cfg = model.cfg
+    dev = model.device
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, prompt))).to(dev)
+    frames = _encdec_frames(dev, batch, prompt, cfg.d_model, seed)
+    plan = _encdec_plan(cfg, n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = reset_counts()
+    t0 = time.perf_counter()
+    tok, caches, decode = legacy_start(model, plan, tokens, new, frames)
+    torch.cuda.synchronize()
+    start_wall = time.perf_counter() - t0
+    toks, walls = [tok], []
+    for i in range(new - 1):
+        cl = torch.full((batch,), prompt + i, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        tok = decode(caches, tok.long(), cl)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        toks.append(tok)
+    launches = read_counts(counts)
+    out = torch.cat(toks, dim=1)
+    steps = prompt + new - 1
+    L = cfg.num_layers
+    want = launches_of(B2=cfg.num_encoder_layers * n * plan.r,
+                       B1=L * n * steps, B5=L * n * steps)
+    check(launches == want, f"encdec --legacy P={n} launches {launches}: "
+          f"want {want} (B2 on the encoder's ring steps; B5 and B1 on {n} "
+          f"ranks, {L} layers and {steps} decode steps)")
+    check(tuple(out.shape) == (batch, new)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"encdec tokens {tuple(out.shape)}: want ({batch}, {new}) in-vocab")
+    cl = torch.full((batch,), prompt + new - 1, dtype=torch.int32, device=dev)
+    decode_prof = _profile_call(lambda: decode(caches, tok.long(), cl))
+    peak = torch.cuda.max_memory_allocated()
+    del caches, decode
+    free_device()
+    seq = torch.cat([tokens, out[:, :-1]], dim=1)[
+        :, :ENCDEC_SERVE["check_positions"][n]]
+    t0 = time.perf_counter()
+    hid = {impl: _encdec_teacher_hidden(model, n, impl, seq, frames)
+           for impl in ("cuda", "ref")}
+    check_s = time.perf_counter() - t0
+    errs = compare([hid["cuda"]], [hid["ref"]],
+                   f"encdec --legacy P={n} decoder hidden states",
+                   names=("hidden",))["hidden"]
+    wall = start_wall + sum(walls)
+    return out, tokens, frames, dict(
+        batch=batch, prompt_len=prompt, new_tokens=new, launches=launches,
+        tokens=out.tolist(), start_wall_s=start_wall,
+        decode_step_wall_ms=[1e3 * min(walls), 1e3 * statistics.median(
+            walls), 1e3 * max(walls)] if walls else None,
+        prompt_steps_per_s=prompt / start_wall,
+        tokens_per_s=batch * new / wall, decode_step_profile=decode_prof,
+        max_memory_allocated=peak, hidden_cuda_vs_plain=errs,
+        hidden_check_positions=seq.shape[1], hidden_check_s=check_s)
+
+
+def _encdec_full_forward_check(model, tokens, frames, out, strict=True):
+    """Teacher forcing: the full forward (the training path's encoder and
+    decoder, P = 1) over the frames and the prompt and generated tokens
+    but the last, one row at a time; each generated token against its
+    argmax (``_argmax_report``)."""
+    import torch
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.engine import sampling
+    from repro_torch.models import encdec
+    from repro_torch.train import step as train_step
+
+    cfg = model.cfg
+    B, S = tokens.shape
+    new = out.shape[1]
+    seq = torch.cat([tokens, out[:, :-1].to(tokens.dtype)], dim=1)
+    rt = train_step.make_runtime(model, RunConfig(seq_scheme="contiguous"),
+                                 _train_shape(seq.shape[1]))
+    rows = []
+    for b in range(B):
+        with torch.no_grad():
+            enc = encdec.encode(rt, model, frames[b:b + 1], cfg)
+            x = encdec.decode(rt, model, seq[b:b + 1], enc, cfg)
+            logits, _ = sampling.shard_logits(
+                rt, model.head, x[0, S - 1:S - 1 + new, None], cfg)
+        rows.append(logits)
+    return _argmax_report(cfg, rows, out, strict, "encdec")
+
+
+def phase_encdec_serve(dev, smi):
+    """Phase 27: full-width seamless-m4t-large-v2 whole (48 layers, seeded
+    bf16). The path's kernel regimes against their plain versions first
+    (``_encdec_kernel_checks``). The encoder prefill of 1 x 4096 frames at
+    P = 1 and at P = 4 (ThreadMesh(c=2, r=1)), on the CUDA kernels and on
+    the plain versions (``ENGINE_TOL``); ``--legacy`` at P = 1 (2 x 128,
+    32 new) and at P = 4 (2 x 8, 4 new), the decoder's hidden states
+    teacher forced on both routes (``ENGINE_TOL``); the P = 1 tokens
+    against the full forward's argmax, reported in bf16 and checked in
+    f32 at full depth on 2 x 64, 8 new."""
+    t_phase = time.perf_counter()
+    model, init_s = _encdec_model(dev)
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    kernel_checks = _encdec_kernel_checks(dev)
+    kernel_checks_s = time.perf_counter() - t0
+    frames = _encdec_frames(dev, 1, ENCDEC_SERVE["enc_len"], cfg.d_model, 5)
+    prefill, enc, by_path = {}, {}, {}
+    for n in (1, 4):
+        t0 = time.perf_counter()
+        enc[n], prefill[f"p{n}"] = _encdec_prefill_run(model, n, frames)
+        prefill[f"p{n}"]["run_s"] = time.perf_counter() - t0
+        by_path[f"encdec_prefill_p{n}"] = prefill[f"p{n}"]["launches"]
+    prefill["p4_vs_p1"] = compare([enc[4].float()], [enc[1].float()],
+                                  "encdec prefill P=4 against P=1",
+                                  names=("enc_out",), strict=False)["enc_out"]
+    del enc
+    free_device()
+    legacy, outs = {}, {}
+    for n, (b, s, new) in ENCDEC_SERVE["legacy"].items():
+        t0 = time.perf_counter()
+        out, tokens, frames_l, rec = _encdec_legacy_run(model, n, b, s, new,
+                                                        seed=7 + n)
+        rec["run_s"] = time.perf_counter() - t0
+        legacy[f"p{n}"] = rec
+        by_path[f"encdec_legacy_p{n}"] = rec["launches"]
+        outs[n] = (out, tokens, frames_l)
+    t0 = time.perf_counter()
+    full_forward = _encdec_full_forward_check(model, *outs[1][1:], outs[1][0],
+                                              strict=False)
+    full_forward["seconds"] = time.perf_counter() - t0
+    from repro_torch.roofline import hw
+
+    params = model.param_count()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for name, p in model.named_parameters()
+                       if name not in ("embed.table", "frontend_proj")
+                       and not name.startswith("encoder."))
+    b1, s1, n1 = ENCDEC_SERVE["legacy"][1]
+    kv = 2 * cfg.num_layers * b1 * (s1 + n1) * cfg.num_kv_heads \
+        * cfg.head_dim_ * 2
+    enc_bytes = b1 * s1 * cfg.d_model * 2
+    del model, outs
+    free_device()
+    t0 = time.perf_counter()
+    f = ENCDEC_F32_SERVE
+    model32, _ = _encdec_model(dev, dtype="float32")
+    out32, tokens32, frames32, rec32 = _encdec_legacy_run_f32(
+        model32, f["batch"], f["prompt"], f["new"])
+    full_forward_f32 = _encdec_full_forward_check(model32, tokens32,
+                                                  frames32, out32)
+    full_forward_f32.update(rec32, seconds=time.perf_counter() - t0)
+    del model32
+    free_device()
+    emit("encdec_serve", model=cfg.name, params=params,
+         encoder_layers=cfg.num_encoder_layers, decoder_layers=cfg.num_layers,
+         init_s=init_s, weights="seeded random bf16",
+         kernel_checks=kernel_checks, kernel_checks_s=kernel_checks_s,
+         prefill_frames=ENCDEC_SERVE["enc_len"], prefill=prefill,
+         legacy=legacy, tol=ENGINE_TOL, full_forward_p1=full_forward,
+         full_forward_f32=full_forward_f32,
+         decode_bytes={"decoder_weights_and_head": weight_bytes,
+                       "kv_cache": kv, "enc_out": enc_bytes,
+                       "p1_bound_ms": (weight_bytes + kv + enc_bytes)
+                       / hw.HBM_BW * 1e3},
+         phase_s=time.perf_counter() - t_phase, card=smi)
+    return by_path
+
+
+def _encdec_legacy_run_f32(model, batch, prompt, new):
+    """``--legacy`` at P = 1 in f32 (``legacy_generate``): the tokens, the
+    prompt and frames it read, and its wall."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import legacy_generate
+
+    cfg = model.cfg
+    dev = model.device
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (batch, prompt))).to(dev)
+    frames = _encdec_frames(dev, batch, prompt, cfg.d_model, 8)
+    t0 = time.perf_counter()
+    out = legacy_generate(model, _encdec_plan(cfg, 1), tokens, new, frames)
+    torch.cuda.synchronize()
+    return out, tokens, frames, {"batch": batch, "prompt_len": prompt,
+                                 "new_tokens": new, "tokens": out.tolist(),
+                                 "legacy_wall_s": time.perf_counter() - t0}
+
+
+def _encdec_train_launches(cfg, ranks, steps):
+    """B2 and B3 on every self-attention ring step (R = 1 here), B1 and
+    B3 on every cross-attention, forward twice under ``attn_out``."""
+    self_attn = cfg.num_encoder_layers + cfg.num_layers
+    return launches_of(B1=2 * cfg.num_layers * ranks * steps,
+                       B2=2 * self_attn * ranks * steps,
+                       B3=(self_attn + cfg.num_layers) * ranks * steps)
+
+
+def _encdec_batch(cfg, shape, plan, dev):
+    """The pipeline's batch of step 0 in sequence order (``SyntheticLM`` at
+    one rank), its tokens, labels and frames laid out in ``plan``'s SP
+    shard order. (The pipeline draws the frames of a wider mesh in shard
+    order directly, as the JAX one does, so at another SP degree the same
+    seed puts other frames at each position.)"""
+    import numpy as np
+
+    from repro_torch.data.pipeline import SyntheticLM, shard_permutation
+    from repro_torch.train import step as train_step
+
+    batch = SyntheticLM(cfg, shape, seed=0, seq_scheme="contiguous",
+                        sp_size=1).get_batch(0)
+    perm = shard_permutation(shape.seq_len, plan.sp_size,
+                             plan.seq_scheme).reshape(-1)
+    return train_step.to_device(
+        {k: np.take(v, perm, axis=1) for k, v in batch.items()}, dev)
+
+
+def _encdec_grad_check(model, batch, shape):
+    """The first step's loss and gradients on the fresh model, CUDA
+    kernels against the plain versions. In bf16 the encoder's deep query
+    and key gradients are noise: their norm is ~1e-4 of the value
+    gradients', and both routes land 1.5-3.7 times that norm from an f32
+    model's on an H100 (PERF.md §6), so the bf16 comparison is reported,
+    each route beside the f32 model's gradients, and the check
+    (``TRAIN_CHECK_TOL``, as ``phase_train_check``) runs on an f32 copy of
+    the model: the CUDA-core f32 kernels against the plain versions."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models.factory import Model
+    from repro_torch.train import step as train_step
+
+    def grads(m):
+        out = {}
+        for impl in ("cuda", "ref"):
+            vg_fn, _ = train_step.build_value_and_grad_fn(
+                m, RunConfig(block_impl=impl), shape)
+            out[impl] = vg_fn(batch)
+            free_device()
+        return out
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    def summary(losses, rels, strict):
+        loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+        worst = max(rels, key=rels.get)
+        ok = (all(math.isfinite(x) for x in rels.values())
+              and loss_rel <= TRAIN_CHECK_TOL["loss_rel"]
+              and rels[worst] <= TRAIN_CHECK_TOL["grad_rel_l2"])
+        return {"loss": {"cuda": losses[0], "ref": losses[1]},
+                "loss_rel": loss_rel, "strict": strict, "within_tol": ok,
+                "grad_rel_l2_worst": {"leaf": worst, "value": rels[worst]},
+                "grad_rel_l2_median": statistics.median(rels.values())}
+
+    names = [n for n, _ in model.named_parameters()]
+    bf = grads(model)
+    rec = {"leaves": len(names), "tol": TRAIN_CHECK_TOL}
+    rec["bf16"] = summary(
+        [float(bf[i][0]) for i in ("cuda", "ref")],
+        {n: rel(a, b) for n, a, b in zip(names, bf["cuda"][1],
+                                         bf["ref"][1])}, False)
+    with torch.no_grad():
+        m32 = Model(dataclasses.replace(model.cfg, param_dtype="float32"),
+                    lambda s: torch.empty(s.shape, device=model.device))
+        for a, b in zip(m32.parameters(), model.parameters()):
+            a.copy_(b)
+    f32 = grads(m32)
+    del m32
+    rec["f32"] = summary(
+        [float(f32[i][0]) for i in ("cuda", "ref")],
+        {n: rel(a, b) for n, a, b in zip(names, f32["cuda"][1],
+                                         f32["ref"][1])}, True)
+    truth = f32["cuda"][1]
+    for impl in ("cuda", "ref"):
+        r = {n: rel(a, t) for n, a, t in zip(names, bf[impl][1], truth)}
+        worst = max(r, key=r.get)
+        rec[f"bf16_{impl}_vs_f32"] = {
+            "worst": {"leaf": worst, "value": r[worst]},
+            "median": statistics.median(r.values())}
+    del bf, f32, truth
+    free_device()
+    f = rec["f32"]
+    check(f["within_tol"], f"encdec_train first step in f32: loss rel "
+          f"{f['loss_rel']}, worst grad leaf {f['grad_rel_l2_worst']}, "
+          f"beyond {TRAIN_CHECK_TOL}")
+    return rec
+
+
+def phase_encdec_train(dev, smi):
+    """Phase 28: full-width seamless-m4t-large-v2 whole (48 layers) trained
+    at seq 4096, batch 1, bf16, ``attn_out`` recompute, AdamW (lr 1e-3,
+    f32 moments) on one repeated batch of the pipeline's tokens and
+    frames: the first step's gradients on the fresh model, CUDA kernels
+    against the plain versions (``_encdec_grad_check``: checked in f32,
+    reported in bf16), then 3 steps at
+    P = 1 (loss finite and falling; B1, B2, B3 launched, the last step
+    profiled). Then a 4 + 4-layer cut of the same weights at batch 2: 2
+    steps at P = 1, and 2 at P = 8 on ThreadMesh(c=2, r=1, data=2) from
+    the same weights and batch (``_encdec_batch``), P = 8's first loss
+    and gradient norm against P = 1's (``TRAIN_SP_TOL``)."""
+    import math
+
+    from repro_torch.plan import make_plan
+
+    t_phase = time.perf_counter()
+    model, init_s = _encdec_model(dev)
+    cfg = model.cfg
+    t = ENCDEC_TRAIN
+    cuts = [_layers_cut(model, t["cut"]) for _ in range(2)]
+    runs, by_path = {}, {}
+    shape = _train_shape(t["seq"], t["batch"])
+    plan = make_plan(cfg, shape, arch=cfg.name, n_devices=1, c=1)
+    check(plan.remat == "attn_out", f"encdec plan {plan}")
+    batch = _encdec_batch(cfg, shape, plan, dev)
+    t0 = time.perf_counter()
+    grad_check = _encdec_grad_check(model, batch, shape)
+    grad_check["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = _repeated_steps(model, plan, batch, t["steps"])
+    losses = run["losses"]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"encdec_train p1: losses {losses} must be finite and fall")
+    want = _encdec_train_launches(cfg, 1, t["steps"])
+    check(run["launches"] == want, f"encdec_train p1 launches "
+          f"{run['launches']}: want {want}")
+    run.update(run_s=time.perf_counter() - t0, layers=2 * cfg.num_layers,
+               seq_len=shape.seq_len, batch=shape.global_batch)
+    runs["p1"], by_path["encdec_train_p1"] = run, run["launches"]
+    params = model.param_count()
+    del model
+    free_device()
+    cut_shape = _train_shape(t["seq"], t["mesh_batch"])
+    for key, cut, (c, r, data) in (("cut_p1", cuts[0], (1, 1, 1)),
+                                   ("cut_p8", cuts[1], t["mesh"])):
+        t0 = time.perf_counter()
+        plan = make_plan(cut.cfg, cut_shape, arch=cfg.name,
+                         n_devices=data * c * c * r, data=data, c=c)
+        check((plan.c, plan.r, plan.data) == (c, r, data)
+              and plan.remat == "attn_out", f"encdec plan {plan}")
+        batch = _encdec_batch(cut.cfg, cut_shape, plan, dev)
+        run = _repeated_steps(cut, plan, batch, t["mesh_steps"])
+        losses = run["losses"]
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0],
+              f"encdec_train {key}: losses {losses} must be finite and fall")
+        want = _encdec_train_launches(cut.cfg, data * c * c * r,
+                                      t["mesh_steps"])
+        check(run["launches"] == want, f"encdec_train {key} launches "
+              f"{run['launches']}: want {want}")
+        if key == "cut_p8":
+            p1 = runs["cut_p1"]
+            loss_err = abs(losses[0] - p1["losses"][0])
+            gnorm_rel = abs(run["grad_norm"][0] - p1["grad_norm"][0]) \
+                / p1["grad_norm"][0]
+            run.update(first_loss_abs_err_vs_p1=loss_err,
+                       first_grad_norm_rel_err_vs_p1=gnorm_rel)
+            check(loss_err <= TRAIN_SP_TOL["loss_abs"]
+                  and gnorm_rel <= TRAIN_SP_TOL["grad_norm_rel"],
+                  f"encdec_train P=8 first step: loss {losses[0]} vs P=1 "
+                  f"{p1['losses'][0]} (abs {loss_err}), grad norm "
+                  f"{run['grad_norm'][0]} vs {p1['grad_norm'][0]} (rel "
+                  f"{gnorm_rel}), beyond {TRAIN_SP_TOL}")
+        run.update(plan={"P_sp": plan.sp_size, "c": plan.c, "r": plan.r,
+                         "data": plan.data, "remat": plan.remat,
+                         "seq_scheme": plan.seq_scheme},
+                   layers=2 * t["cut"], seq_len=cut_shape.seq_len,
+                   batch=cut_shape.global_batch,
+                   run_s=time.perf_counter() - t0)
+        runs[key] = run
+        by_path[f"encdec_train_{key}"] = run["launches"]
+    del cuts, cut
+    free_device()
+    emit("encdec_train", model=cfg.name, params=params,
+         init_s=init_s, weights="seeded random bf16", remat="attn_out",
+         opt_dtype=cfg.opt_dtype, grad_check=grad_check, runs=runs,
+         tol=TRAIN_SP_TOL, phase_s=time.perf_counter() - t_phase, card=smi)
+    return by_path
+
+
 def free_device():
     import gc
 
@@ -7108,6 +7782,10 @@ def main():
         by_path.update(phase_hybrid_serve(dev, smi))
         free_device()
         by_path.update(phase_hybrid_train(dev, smi))
+        free_device()
+        by_path.update(phase_encdec_serve(dev, smi))
+        free_device()
+        by_path.update(phase_encdec_train(dev, smi))
         paths = {"B1": "local", "B2": "engine", "B3": "train",
                  "B4": "engine", "B5": "legacy", "B6": "prefix",
                  "B7": "ragged_bwd"}

@@ -2,9 +2,10 @@
 paper's own models (``paper_model``).
 
 Only ported architectures are listed: the dense all-attention ones, the
-MoE family (phi3.5-moe, llama4-maverick), xLSTM (xlstm-1.3b) and the
-hybrid Mamba/attention/MoE stack (jamba-1.5-large). Any other architecture
-of the JAX package raises, naming the ROADMAP item that ports it.
+MoE family (phi3.5-moe, llama4-maverick), xLSTM (xlstm-1.3b), the
+hybrid Mamba/attention/MoE stack (jamba-1.5-large) and the
+encoder-decoder seamless-m4t-large-v2. The VLM paligemma-3b raises, naming
+the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -24,11 +25,12 @@ _ARCH_MODULES: Dict[str, str] = {
         "repro_torch.configs.llama4_maverick_400b_a17b",
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
 }
 
-# architectures of the JAX reference not yet ported (ROADMAP.md §A8 d-e,
-# "Remaining model families", ports them)
-_UNPORTED = ("paligemma-3b", "seamless-m4t-large-v2")
+# architectures of the JAX reference not yet ported (ROADMAP.md §A8 e,
+# the VLM prefix-LM, ports it)
+_UNPORTED = ("paligemma-3b",)
 
 PORTED_ARCHS: List[str] = list(_ARCH_MODULES)
 
@@ -39,7 +41,7 @@ def _module(name: str):
     if name in _UNPORTED:
         raise NotImplementedError(
             f"arch {name!r} is not ported to repro_torch yet (ROADMAP.md "
-            f"§A8 d-e: remaining model families); ported: {PORTED_ARCHS}")
+            f"§A8 e: the VLM prefix-LM); ported: {PORTED_ARCHS}")
     raise KeyError(f"unknown arch {name!r}; ported: {PORTED_ARCHS}")
 
 

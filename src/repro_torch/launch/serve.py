@@ -43,8 +43,17 @@ the cache expanded to capacity (padded to a multiple of the SP degree),
 then ``--gen - 1`` decode steps against the contiguous cache (kernel B5
 once per rank, layer and step on the card). It runs on the plan's ranks
 (``--devices N``, one ``ThreadMesh`` thread each) and is the only path
-that serves the xLSTM family (``--arch xlstm-1.3b``), whose recurrent
-states the engine refuses, as the JAX engine does:
+that serves the xLSTM, hybrid and encoder-decoder families, which the
+engine refuses, as the JAX engine does. For the encoder-decoder
+(``--arch seamless-m4t-large-v2``) the batch also gets ``--prompt-len``
+frames of seeded random embeddings (``--seed``), which the encoder
+prefills; the decoder's prompt tokens then go through decode steps one at
+a time, each at its own position, before the ``--gen`` new tokens:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch seamless-m4t-large-v2 --smoke --device cpu --legacy
+
+For the xLSTM family:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
       --smoke --device cpu --legacy --devices 4 --c 2 --prompt-len 16
@@ -88,7 +97,7 @@ card.
 import argparse
 
 
-def legacy_start(model, plan, tokens, gen: int):
+def legacy_start(model, plan, tokens, gen: int, frames=None):
     """The static-batch path up to its first decode step, on the plan's
     ranks (one card, or its ``ThreadMesh``; the JAX ``_legacy_main``'s
     steps): prefill ``tokens`` (B, prompt_len) at their own length and
@@ -97,13 +106,17 @@ def legacy_start(model, plan, tokens, gen: int):
     positions, recurrent states as they are. Returns ``(first tokens (B,
     1), caches, decode)``, ``decode`` the step of
     ``serve.step.build_decode_step`` and ``caches`` every rank's cache, in
-    rank order."""
+    rank order. An encoder-decoder needs ``frames`` (B, S_enc, D): the
+    encoder prefills them, and the decoder's prompt goes through decode
+    steps (``_encdec_start``)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.serve import kv_cache, step as serve_step
 
     B, prompt_len = tokens.shape
     sp = plan.sp_size
     capacity = -(-(prompt_len + gen) // sp) * sp    # pad to an SP multiple
+    if model.cfg.encdec:
+        return _encdec_start(model, plan, tokens, frames, capacity)
     run_cfg, mesh = plan.run_config(), plan.build_mesh()
     prefill = serve_step.build_prefill_step(
         model, run_cfg, ShapeConfig("serve", prompt_len, B, "prefill"), mesh)
@@ -120,14 +133,62 @@ def legacy_start(model, plan, tokens, gen: int):
     return tok, caches, decode
 
 
-def legacy_generate(model, plan, tokens, gen: int):
+def encdec_caches(model, plan, frames, capacity: int):
+    """An encoder-decoder's serving state on the plan's ranks: ``frames``
+    (B, S_enc, D) through the encoder (``serve.step.build_prefill_step``),
+    and every rank's cache, in rank order, of ``capacity`` decoder
+    positions (a multiple of the SP degree) holding its slice of the
+    encoder output at the encoder's length. Returns ``(caches, decode)``,
+    ``decode`` the step of ``serve.step.build_decode_step``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.serve import kv_cache, step as serve_step
+
+    if frames is None:
+        raise ValueError(f"{model.cfg.name}: the encoder-decoder needs "
+                         "frames (B, S_enc, D) for its encoder")
+    B = frames.shape[0]
+    run_cfg, mesh = plan.run_config(), plan.build_mesh()
+    enc_outs = serve_step.build_prefill_step(
+        model, run_cfg, ShapeConfig("serve", frames.shape[1], B, "prefill"),
+        mesh)(frames)
+    decode = serve_step.build_decode_step(
+        model, run_cfg, ShapeConfig("serve", capacity, B, "decode"), mesh)
+    caches = []
+    for enc_out in enc_outs:
+        cache = kv_cache.init_cache(model.cfg, decode.steps.rows,
+                                    capacity // plan.sp_size, model.device,
+                                    enc_len=enc_out.shape[1])
+        cache["enc_out"].copy_(enc_out)
+        caches.append(cache)
+    return caches, decode
+
+
+def _encdec_start(model, plan, tokens, frames, capacity: int):
+    """``legacy_start`` of an encoder-decoder (the JAX package has no
+    decoder prefill): ``encdec_caches``, then the decoder's prompt
+    ``tokens`` one at a time through decode steps, token ``t`` at cache
+    length ``t``; the last step's tokens are the first generated."""
+    import torch
+
+    caches, decode = encdec_caches(model, plan, frames, capacity)
+    B, prompt_len = tokens.shape
+    tok = None
+    for t in range(prompt_len):
+        cache_len = torch.full((B,), t, dtype=torch.int32,
+                               device=model.device)
+        tok = decode(caches, tokens[:, t:t + 1].long(), cache_len)
+    return tok, caches, decode
+
+
+def legacy_generate(model, plan, tokens, gen: int, frames=None):
     """Static-batch greedy generation: ``legacy_start``, then ``gen - 1``
     decode steps, each at the batch's true cache length. Returns the
-    (B, gen) generated tokens, int64."""
+    (B, gen) generated tokens, int64. ``frames`` (B, S_enc, D): the
+    encoder's input of an encoder-decoder."""
     import torch
 
     B, prompt_len = tokens.shape
-    tok, caches, decode = legacy_start(model, plan, tokens, gen)
+    tok, caches, decode = legacy_start(model, plan, tokens, gen, frames)
     generated = [tok]
     for i in range(gen - 1):
         cache_len = torch.full((B,), prompt_len + i, dtype=torch.int32,
@@ -149,7 +210,15 @@ def _legacy_main(args, plan, cfg, device):
     rng = np.random.default_rng(args.seed + 1)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))).to(device)
-    out = legacy_generate(model, plan, tokens, args.gen)
+    frames = None
+    if cfg.encdec:
+        # seeded random frame embeddings: zero frames would make every
+        # encoder output, so every cross-attention's K and V, zero
+        frames = torch.from_numpy(np.random.default_rng(
+            args.seed).standard_normal(
+                (args.batch, args.prompt_len, cfg.d_model),
+                dtype=np.float32)).to(device)
+    out = legacy_generate(model, plan, tokens, args.gen, frames)
     print(f"[serve --legacy] prompt {tuple(tokens.shape)} -> generated "
           f"{tuple(out.shape)}:")
     print(out.cpu().numpy())
@@ -483,6 +552,14 @@ def main(argv=None):
 
     registry = obs.Registry()
     tracer = obs.Tracer(enabled=bool(args.trace_out))
+    if not args.legacy:
+        from repro_torch.engine import paged_cache
+
+        # the engine's refusal, before any worker or replica is built
+        ok, why = paged_cache.supported(cfg)
+        if not ok:
+            raise NotImplementedError(
+                f"repro_torch.launch.serve: {cfg.name}: {why}")
     if args.http:
         out = _frontend_main(args, plan, cfg, registry=registry,
                              tracer=tracer)

@@ -6,8 +6,10 @@ drawn from a seeded ``torch.Generator`` on ``device`` with the JAX
 package's per-leaf scales. ``from_jax_params(tree, cfg, device)`` carries a
 JAX parameter tree (numpy arrays, as ``np.asarray`` of
 ``repro.models.factory.Model.init``) across: the leading period dimension
-of ``tree["stack"]`` is un-stacked into per-layer modules and every leaf
-keeps its einsum layout, so both packages compute the same products.
+of ``tree["stack"]`` is un-stacked into per-layer modules (an
+encoder-decoder tree's ``encoder`` and ``decoder`` stacks, whose leading
+dimension is the layer, into ``encoder[i]`` and ``decoder[i]``) and every
+leaf keeps its einsum layout, so both packages compute the same products.
 ``to_jax_layout(named, cfg)`` is its inverse: per-layer tensors keyed by
 their ``named_parameters`` names (parameters, or their gradients) are
 restacked into the JAX tree, so tests compare the two leaf by leaf.
@@ -37,7 +39,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding
-from repro_torch.models import spec, transformer
+from repro_torch.models import encdec, spec, transformer
 
 
 class Model(nn.Module):
@@ -46,15 +48,22 @@ class Model(nn.Module):
     r, wo, norm; a Mamba mixer's in_proj, conv_w, A_log, dt_bias, D_skip,
     norm_in, norm, out_proj), ``layers[i].mlp`` (w1, w3, w2, norm; on a MoE layer
     router, w1, w3, w2, norm and the shared expert's ``shared``; none in an
-    xLSTM stack), ``final_norm``, ``lm_head.table``. The serving forward passes live in ``serve.step``;
-    the training loss is ``loss``."""
+    xLSTM stack), ``final_norm``, ``lm_head.table``. An encoder-decoder
+    model (``cfg.encdec``, ``models.encdec.encdec_specs``) holds instead
+    ``frontend_proj``, ``encoder[i].attn`` / ``.mlp``, ``enc_norm``,
+    ``embed.table``, ``decoder[i].attn`` / ``.cross`` / ``.mlp``,
+    ``final_norm`` and an untied ``lm_head.table``. The serving forward
+    passes live in ``serve.step``; the training loss is ``loss``."""
 
     def __init__(self, cfg: ModelConfig, make):
         super().__init__()
         self.cfg = cfg
-        specs = transformer.lm_specs(cfg)
+        specs = (encdec.encdec_specs(cfg) if cfg.encdec
+                 else transformer.lm_specs(cfg))
         self._axes_tree = spec.axes_tree(specs)
         root = spec.build_module(specs, make)
+        for name, param in root.named_parameters(recurse=False):
+            self.register_parameter(name, param)   # frontend_proj
         for name, child in root.named_children():
             self.add_module(name, child)
 
@@ -80,9 +89,12 @@ class Model(nn.Module):
             sharding.partition_tree(self._axes_tree, rules)))
 
     def loss(self, rt, params, batch, *, remat: str = "attn_out"):
-        """The training loss of ``batch`` ({tokens, labels}, this rank's
-        slice) under the runtime ``rt``, with ``params`` the rank's tree
-        (``shard_params``)."""
+        """The training loss of ``batch`` ({tokens, labels}, and an
+        encoder-decoder's ``frontend_emb``; this rank's slice) under the
+        runtime ``rt``, with ``params`` the rank's tree (``shard_params``)."""
+        if self.cfg.encdec:
+            return encdec.encdec_loss(rt, params, batch, self.cfg,
+                                      remat=remat)
         return transformer.lm_loss(rt, params, batch, self.cfg, remat=remat)
 
 
@@ -176,16 +188,40 @@ def build_model(cfg: ModelConfig, device="cuda", seed: int = 0) -> Model:
                                                    device))
 
 
+# an encoder-decoder tree's stacks, one row of each leaf a layer
+ENCDEC_STACKS = ("encoder", "decoder")
+
+
 def _layer_path(name: str, n_sub: int):
     """(JAX tree path, period) of the port parameter ``name``: a layer
     leaf ``layers.<i>.<rest>`` sits at ``stack/sub<i % n_sub>/<rest>``,
-    row ``i // n_sub`` of the stacked leaf; other leaves keep their path
-    and have no period."""
+    row ``i // n_sub`` of the stacked leaf (``n_sub`` None: an
+    encoder-decoder's ``encoder.<i>.<rest>`` / ``decoder.<i>.<rest>`` at
+    ``encoder/<rest>`` / ``decoder/<rest>``, row ``i``); other leaves keep
+    their path and have no period."""
     parts = name.split(".")
+    if n_sub is None:
+        if parts[0] not in ENCDEC_STACKS:
+            return tuple(parts), None
+        return (parts[0], *parts[2:]), int(parts[1])
     if parts[0] != "layers":
         return tuple(parts), None
     i = int(parts[1])
     return ("stack", f"sub{i % n_sub}", *parts[2:]), i // n_sub
+
+
+def _stack_depths(cfg: ModelConfig) -> Dict[str, int]:
+    """Each layer stack's depth, by the first part of its leaves' names."""
+    if cfg.encdec:
+        return {"encoder": cfg.num_encoder_layers,
+                "decoder": cfg.num_layers}
+    return {"layers": cfg.num_layers}
+
+
+def _n_sub(cfg: ModelConfig):
+    """The layers of one JAX period (None for an encoder-decoder tree,
+    whose stacks have no ``sub<i>``)."""
+    return None if cfg.encdec else len(transformer.layer_pattern(cfg))
 
 
 def _check_jax_layout(cfg: ModelConfig) -> None:
@@ -213,17 +249,19 @@ def jax_tree(named: Mapping[str, torch.Tensor], cfg: ModelConfig,
     dimension, in their dtype, on ``device`` (default: where they are).
     Raises for a hybrid stack cut below one period."""
     _check_jax_layout(cfg)
-    n_sub = len(transformer.layer_pattern(cfg))
+    n_sub = _n_sub(cfg)
     groups: Dict = {}
-    layers = set()
+    layers = {k: set() for k in _stack_depths(cfg)}
     for name, t in named.items():
         path, period = _layer_path(name, n_sub)
         groups.setdefault(path, {})[period] = t.detach()
         if period is not None:
-            layers.add(int(name.split(".")[1]))
-    if len(layers) != cfg.num_layers:
-        raise ValueError(f"{len(layers)} layers named, config has "
-                         f"{cfg.num_layers}")
+            stack, i = name.split(".")[:2]
+            layers[stack].add(int(i))
+    for stack, depth in _stack_depths(cfg).items():
+        if len(layers[stack]) != depth:
+            raise ValueError(f"{len(layers[stack])} {stack} named, config "
+                             f"has {depth}")
     tree: Dict = {}
     for path, rows in groups.items():
         # one leaf at a time, so only one leaf's rows are copied at once
@@ -240,14 +278,16 @@ def from_jax_tree(tree, names, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """The inverse of ``jax_tree``: the port parameter ``names`` mapped to
     their rows (views) of the JAX-layout tree ``tree``."""
     _check_jax_layout(cfg)
-    n_sub = len(transformer.layer_pattern(cfg))
-    leaf = tree["stack"]
-    while isinstance(leaf, dict):
-        leaf = next(iter(leaf.values()))
-    n_periods = leaf.shape[0]
-    if n_periods * n_sub != cfg.num_layers:
-        raise ValueError(f"tree has {n_periods} periods of {n_sub} "
-                         f"layers, config has {cfg.num_layers}")
+    n_sub = _n_sub(cfg)
+    for stack, depth in _stack_depths(cfg).items():
+        leaf = tree["stack" if n_sub is not None else stack]
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        rows = leaf.shape[0] * (n_sub or 1)
+        if rows != depth:
+            raise ValueError(f"tree has {leaf.shape[0]} rows of {stack} "
+                             f"({n_sub or 1} layers each), config has "
+                             f"{depth}")
     out = {}
     for name in names:
         path, period = _layer_path(name, n_sub)

@@ -14,8 +14,10 @@ layers hold ``mixer`` only. Hybrid stacks (jamba) a period of
 lcm(``attn_every``, ``moe.every_n_layers``) layers: attention on layer
 ``attn_every // 2`` of each ``attn_every``, the Mamba mixer
 (``models.ssm.mamba_block``) on the others, and the MoE block on the last
-layer of each ``every_n_layers``. Encoder-decoder and VLM stacks raise,
-naming the ROADMAP queue.
+layer of each ``every_n_layers``. An encoder-decoder config's decoder has
+the dense period (attention, MLP: JAX's ``layer_pattern``); its stacks are
+built and run by ``models.encdec``. VLM stacks raise, naming the ROADMAP
+queue.
 
 The depth cut (a port-only difference): a hybrid config whose
 ``num_layers`` is below one period takes the period's first ``num_layers``
@@ -60,11 +62,11 @@ LB_WEIGHT, Z_WEIGHT = 0.01, 1e-3
 
 def period_length(cfg: ModelConfig) -> int:
     """The number of layers of one period (JAX ``layer_pattern``'s)."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid") or cfg.encdec:
+    if cfg.family == "vlm":
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (encoder-decoder / VLM "
-            "layers) is not ported to repro_torch yet (ROADMAP.md §A8 d-e: "
-            "remaining model families)")
+            f"{cfg.name}: family {cfg.family!r} (VLM prefix-LM layers) is not "
+            "ported to repro_torch yet (ROADMAP.md §A8 e: the VLM "
+            "prefix-LM)")
     period = 1
     if cfg.moe is not None:
         period = max(period, cfg.moe.every_n_layers)
@@ -200,11 +202,10 @@ def lm_loss(rt, params, batch, cfg: ModelConfig, *,
     """batch: {tokens, labels} (this rank's sequence slice); params: the
     rank's parameter tree (``factory.shard_params``). Returns the scalar
     mean loss plus the MoE layers' auxiliary losses."""
-    if cfg.frontend_stub is not None:
+    if cfg.frontend_stub == "patch":
         raise NotImplementedError(
-            f"{cfg.name}: frontend embeddings (VLM / audio prefix) are not "
-            "ported to repro_torch yet (ROADMAP.md §A: remaining model "
-            "families)")
+            f"{cfg.name}: the VLM patch prefix is not ported to repro_torch "
+            "yet (ROADMAP.md §A8 e: the VLM prefix-LM)")
     x = blocks.embed(rt, params.embed, batch["tokens"], cfg)
     x, aux = apply_stack(rt, params.layers, x, cfg, causal=True,
                          remat=remat)

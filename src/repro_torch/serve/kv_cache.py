@@ -16,7 +16,16 @@ stack (dense, MoE) keeps every layer's K and V in one tensor each,
     k, v : (num_layers, B, S_local, Hkv, hd)
 
 a stack with a recurrent mixer (xLSTM, and jamba's Mamba layers beside
-its attention layers) a list of per-layer dicts. Only this
+its attention layers) a list of per-layer dicts. An encoder-decoder's
+cache is its decoder's stacked {'k','v'} plus
+
+    enc_out : (B, S_enc_local, D)   the rank's contiguous slice of the
+                                    encoder output
+
+at the encoder's own length: the JAX cache holds ``enc_out`` at the
+decoder's capacity (``repro/serve/kv_cache.py:90-92``), and its
+unmasked cross decode gives the zero rows past the encoder's length
+softmax weight, which the port's does not. Only this
 module reads the difference: ``from_layers`` builds either from per-layer
 dicts, ``layer(cache, i)`` gives layer ``i``'s dict of either (views of
 the stacked tensors), ``kv_stacks`` a stacked cache's two tensors.
@@ -29,7 +38,7 @@ filled and writes the new token at ``cache_len`` on its owning rank.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -69,16 +78,25 @@ def _layer_cache(cfg: ModelConfig, mixer: str, batch: int, s_local: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, capacity: int,
-               device) -> Cache:
+               device, enc_len: Optional[int] = None) -> Cache:
     """A zeroed cache of ``batch`` rows whose K/V hold ``capacity``
     positions: {'k','v'} (L, batch, capacity, Hkv, hd) for an
-    all-attention stack, else one dict a layer (module doc)."""
+    all-attention stack, else one dict a layer (module doc); an
+    encoder-decoder's also holds ``enc_out`` (batch, enc_len, D), where
+    ``enc_len`` (the encoder's length on this rank) must be given."""
     dtype = spec.DTYPES[cfg.param_dtype]
     if stacked(cfg):
         shape = (cfg.num_layers, batch, capacity, cfg.num_kv_heads,
                  cfg.head_dim_)
-        return {n: torch.zeros(shape, dtype=dtype, device=device)
-                for n in ("k", "v")}
+        cache = {n: torch.zeros(shape, dtype=dtype, device=device)
+                 for n in ("k", "v")}
+        if cfg.encdec:
+            if enc_len is None:
+                raise ValueError(f"{cfg.name}: an encoder-decoder cache "
+                                 "needs the encoder's length (enc_len)")
+            cache["enc_out"] = torch.zeros((batch, enc_len, cfg.d_model),
+                                           dtype=dtype, device=device)
+        return cache
     return [_layer_cache(cfg, mixer, batch, capacity, dtype, device)
             for mixer, _ in transformer.layer_plan(cfg)]
 
@@ -105,7 +123,7 @@ def layer(cache: Cache, i: int) -> Dict[str, torch.Tensor]:
     writes land in the cache); also a page pool's {'k','v'} stacks."""
     if isinstance(cache, list):
         return cache[i]
-    return {n: t[i] for n, t in cache.items()}
+    return {n: cache[n][i] for n in ("k", "v")}
 
 
 def fill_from_prefill(cfg: ModelConfig, dst: Sequence[Cache],

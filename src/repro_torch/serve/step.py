@@ -29,6 +29,19 @@ Recurrent mixers (``models.ssm``: the xLSTM family, and the Mamba layers
   an sLSTM's shard-local (h, c). Only the static-batch path serves them:
   the engine refuses them, as JAX's does.
 
+Encoder-decoder stacks (``models.encdec``, seamless-m4t): the prefill is
+  the encoder's forward over the frames (``encdec_prefill``: full-mask
+  StarTrail, B2 on every ring step), whose output each rank keeps, its
+  contiguous slice at the encoder's own length, as the cache's
+  ``enc_out``; the decode step (``encdec_decode_step``) runs each decoder
+  layer's self-attention against the contiguous K/V cache, then its
+  cross-attention (``_cross_decode``: K/V recomputed from ``enc_out`` on
+  every step, as the JAX step does; at P = 1 one ``dispatch.prefill``, B1
+  with one query row, at P > 1 ``startrail.decode_attention`` over each
+  rank's slice, merged with the lse), then the MLP. There is no decoder
+  prefill (nor in the JAX package): the static-batch path feeds a decoder
+  prompt through decode steps. Only the static-batch path serves them.
+
 Dense and MoE attention stacks are ported: a MoE layer runs
 ``models.moe.moe_block`` in place of the MLP in the decode step and the
 full prefill, its auxiliary losses dropped, and its expert capacity couples
@@ -59,7 +72,7 @@ from repro_torch.engine import paged_cache
 from repro_torch.engine import sampling as sampling_lib
 from repro_torch.kernels import dispatch as kernels
 from repro_torch.dist.sharding import DATA_AXIS
-from repro_torch.models import blocks, ssm, transformer
+from repro_torch.models import blocks, encdec, ssm, transformer
 from repro_torch.models.factory import run_on_ranks
 from repro_torch.serve import kv_cache
 
@@ -231,6 +244,55 @@ def lm_decode_step(rt, params, cache, tokens, cfg: ModelConfig, cache_len,
     return sampling_lib.sample(
         rt, params.head, x, cfg, temperature=sampling["temperature"],
         top_k=sampling["top_k"], top_p=sampling["top_p"], keys=keys)
+
+
+def _cross_decode(rt, p, x, enc_out, cfg: ModelConfig):
+    """Cross-attention of one decoder token per row against the encoder
+    output, with residual. x: (B, 1, D) replicated over SP; enc_out: (B,
+    S_enc_local, D) this rank's contiguous slice; non-causal, so every
+    encoder position is visible."""
+    q = encdec.cross_query(rt, p, x, cfg).contiguous()
+    k, v = encdec.cross_kv(rt, p, enc_out)
+    k, v = k.contiguous(), v.contiguous()
+    pos_k = rt.positions_contig(k.shape[1])
+    pos_q = torch.zeros((1,), dtype=torch.int32, device=x.device)
+    if rt.sp_size() == 1:
+        o = kernels.prefill(q, k, v, pos_q, pos_k, causal=False,
+                            impl=rt.st_cfg.block_impl)
+    else:
+        cfg_st = dataclasses.replace(rt.st_cfg, causal=False, window=None,
+                                     prefix_len=None)
+        o = st.decode_attention(q, k, v, pos_q, pos_k, cfg_st, rt.comm)
+    return x + blocks.attention_out(rt, p, o)
+
+
+def encdec_decode_step(rt, params, cache, tokens, cfg: ModelConfig,
+                       cache_len, return_hidden: bool = False):
+    """The decoder's decode step against the contiguous cache
+    (``kv_cache``: the decoder's {'k','v'}, updated in place, and the
+    encoder's ``enc_out``). tokens: (B, 1) int64 replicated across SP;
+    cache_len: (B,) int32, the new token's position. Returns the next
+    greedy tokens (B, 1) int32, or with ``return_hidden`` the (B, 1, D)
+    pre-head hidden state."""
+    enc_out = cache["enc_out"]
+    x = blocks.embed(rt, params.embed, tokens, cfg, tokens_replicated=True)
+    for i, layer in enumerate(params.decoder):
+        x = _attn_decode(rt, layer.attn, x, kv_cache.layer(cache, i), cfg,
+                         cache_len, None)
+        x = _cross_decode(rt, layer.cross, x, enc_out, cfg)
+        x = blocks.mlp_block(rt, layer.mlp, x, cfg)
+    x = blocks.rmsnorm(params.final_norm, x, cfg.norm_eps)
+    if return_hidden:
+        return x
+    return sampling_lib.greedy(rt, params.head, x, cfg)
+
+
+def encdec_prefill(rt, params, frames, cfg: ModelConfig):
+    """The encoder's forward (the serving entry of the family): frames
+    (B, S_local, D), this rank's contiguous slice of the frame embeddings
+    -> its slice of the encoder output (B, S_local, D), the cache's
+    ``enc_out``."""
+    return encdec.encode(rt, params, frames, cfg)
 
 
 def lm_prefill(rt, params, tokens, cfg: ModelConfig,
@@ -439,10 +501,14 @@ def build_prefill_step(model, run_cfg: RunConfig, shape: ShapeConfig,
     """The prefill of a static batch at ``shape.seq_len`` tokens (a
     multiple of the SP degree): ``fn(tokens (B, S)) -> (next token (B, 1),
     caches)``, ``caches`` every rank's ``kv_cache`` cache holding its
-    slice of the prompt, in rank order (one on one card). ``fn.steps`` is
-    its ``StaticSteps``."""
+    slice of the prompt, in rank order (one on one card). For an
+    encoder-decoder, ``fn(frames (B, S, D)) -> enc_outs``: every rank's
+    slice of the encoder output (``encdec_prefill``), in rank order, as
+    the JAX island returns it sharded. ``fn.steps`` is its
+    ``StaticSteps``."""
     steps = StaticSteps(model, run_cfg, shape, mesh)
     cfg = model.cfg
+    forward = encdec_prefill if cfg.encdec else lm_prefill
 
     def fn(tokens):
         sp = mesh.sp_size if mesh is not None else 1
@@ -454,9 +520,11 @@ def build_prefill_step(model, run_cfg: RunConfig, shape: ShapeConfig,
             s = tokens.shape[1] // rt.sp_size()
             own = steps.rows_of(rt, tokens)[
                 :, rt.sp_rank() * s:(rt.sp_rank() + 1) * s]
-            return lm_prefill(rt, tree, own, cfg)
+            return forward(rt, tree, own, cfg)
 
         out = steps.run(rank_fn)
+        if cfg.encdec:
+            return out
         return steps.gather([t for t, _ in out]), [c for _, c in out]
 
     fn.steps = steps
@@ -470,12 +538,14 @@ def build_decode_step(model, run_cfg: RunConfig, shape: ShapeConfig,
     int32, return_hidden=False) -> next token (B, 1)`` (or the hidden
     state), ``caches`` every rank's, in rank order (one on one card),
     updated in place. The JAX step fixes ``cache_len = seq_len - 1`` when
-    it compiles; here each call passes the batch's true lengths.
-    ``fn.steps`` is its ``StaticSteps``."""
+    it compiles; here each call passes the batch's true lengths. An
+    encoder-decoder runs ``encdec_decode_step`` against each rank's
+    ``enc_out``. ``fn.steps`` is its ``StaticSteps``."""
     steps = StaticSteps(model, run_cfg, shape, mesh)
+    step = encdec_decode_step if model.cfg.encdec else lm_decode_step
 
     def fn(caches, tokens, cache_len, return_hidden=False):
-        return steps.gather(steps.run(lambda rt, rank, tree: lm_decode_step(
+        return steps.gather(steps.run(lambda rt, rank, tree: step(
             rt, tree, caches[rank], steps.rows_of(rt, tokens), model.cfg,
             steps.rows_of(rt, cache_len), return_hidden=return_hidden)))
 

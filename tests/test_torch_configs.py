@@ -43,6 +43,7 @@ DENSE = ["h2o-danube-1.8b", "minitron-8b", "deepseek-7b", "stablelm-3b"]
 MOE = ["phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b"]
 SSM = ["xlstm-1.3b"]
 HYBRID = ["jamba-1.5-large-398b"]
+ENCDEC = ["seamless-m4t-large-v2"]
 NEW = ["minitron-8b", "deepseek-7b", "stablelm-3b", "gpt-7b"]
 PAPER = ["gpt-3b", "gpt-7b", "dit-1b"]
 SEQ, BATCH = 32, 2
@@ -98,15 +99,17 @@ def test_paper_models_equal_jax(name):
 
 
 def test_registry_lists_the_dense_archs_and_refuses_the_rest():
-    """The dense archs, the MoE family, xLSTM and the hybrid jamba are
-    ported; the other A8 families raise, naming the ROADMAP item."""
-    assert sorted(registry.PORTED_ARCHS) == sorted(DENSE + MOE + SSM
-                                                   + HYBRID)
+    """The dense archs, the MoE family, xLSTM, the hybrid jamba and the
+    encoder-decoder seamless are ported; the VLM raises, naming the
+    ROADMAP item."""
+    ported = DENSE + MOE + SSM + HYBRID + ENCDEC
+    assert sorted(registry.PORTED_ARCHS) == sorted(ported)
     for arch in jax_registry.ASSIGNED_ARCHS:
-        if arch in DENSE + MOE + SSM + HYBRID:
+        if arch in ported:
             assert registry.get(arch).family == (
                 "dense" if arch in DENSE else "moe" if arch in MOE
-                else "ssm" if arch in SSM else "hybrid")
+                else "ssm" if arch in SSM else "hybrid" if arch in HYBRID
+                else "encdec")
             continue
         with pytest.raises(NotImplementedError, match="§A8"):
             registry.get(arch)

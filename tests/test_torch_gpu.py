@@ -1704,3 +1704,101 @@ def test_hybrid_train_step_matches_cpu(cuda_device, data, c):
         assert abs(float(m_gpu[key]) - float(m_cpu[key])) < 2e-3, key
     assert max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu)) \
         < 2e-3
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder family on the card (smoke seamless widened to d_model
+# 128, so its 4 heads of 32 run the kernels; f32, the CUDA-core kernels)
+# ---------------------------------------------------------------------------
+
+SEAMLESS = "seamless-m4t-large-v2"
+
+
+def _seamless_cfg():
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    return dataclasses.replace(registry.get_smoke(SEAMLESS), d_model=128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_devices", [1, 4])
+def test_encdec_legacy_on_the_card_matches_cpu(cuda_device, n_devices):
+    """``--legacy`` of a smoke seamless model at P = 1 and at P = 4
+    (ThreadMesh(c=2, r=1)) on the card (B2 in the encoder prefill, B1 and
+    B5 in every decode step) against the CPU from the same weights and
+    frames: the first tokens equal, each rank's ``enc_out`` and the first
+    decode step's hidden state within 2e-4 of the largest magnitude."""
+    import copy
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ragged_prefill as rp
+    from repro_torch.launch.serve import legacy_start
+    from repro_torch.models.factory import build_model
+    from repro_torch.plan import make_serve_plan
+
+    cfg = _seamless_cfg()
+    cpu = build_model(cfg, device="cpu", seed=0)
+    plan = make_serve_plan(cfg, arch=SEAMLESS, n_devices=n_devices,
+                           c=2 if n_devices > 1 else 1)
+    rng = np.random.default_rng(3)
+    tokens = _t(rng.integers(0, cfg.vocab_size, (2, 16)))
+    frames = _t(rng.standard_normal((2, 16, cfg.d_model), dtype=np.float32))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = copy.deepcopy(cpu).to(dev)
+        fa.reset_launches()
+        rp.reset_launches()
+        tok, caches, decode = legacy_start(model, plan, tokens.to(dev), 4,
+                                           frames.to(dev))
+        cl = torch.full((2,), 16, dtype=torch.int32, device=dev)
+        hidden = decode(caches, tok.long(), cl, return_hidden=True)
+        out[dev.type] = (tok.cpu(), hidden.float().cpu(),
+                         [c["enc_out"].float().cpu() for c in caches],
+                         dict(fa.LAUNCHES, **rp.LAUNCHES))
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert out["cuda"][3]["B2"] > 0 and out["cuda"][3]["B1"] > 0 \
+        and out["cuda"][3]["B5"] > 0
+    for a, b in [(out["cuda"][1], out["cpu"][1])] + list(zip(
+            out["cuda"][2], out["cpu"][2])):
+        assert float((a - b).abs().max()) < 2e-4 * max(
+            float(b.abs().max()), 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data,c", [(1, 1), (1, 2)], ids=["p1", "c2"])
+def test_encdec_train_step_matches_cpu(cuda_device, data, c):
+    """One train step of a smoke seamless model on the card (B1, B2 and
+    B3) and on the CPU from the same weights and batch (frames included),
+    at P = 1 and on ThreadMesh(c=2, r=1) (the cross-attention's K/V
+    gathered between ranks): loss, gradient norm and every updated
+    parameter within 2e-3."""
+    import copy
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.plan import make_plan
+
+    cfg = _seamless_cfg()
+    cpu = build_model(cfg, device="cpu", seed=0)
+    plan = make_plan(cfg, ShapeConfig("t", 64, 2, "train"),
+                     n_devices=data * c * c, data=data, c=c)
+    batch = SyntheticLM(cfg, plan.shape_config(), seed=0,
+                        seq_scheme=plan.seq_scheme,
+                        sp_size=plan.sp_size).get_batch(0)
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = copy.deepcopy(cpu).to(dev)
+        step, sh = plan.build_train_step(model, adam)
+        _, m = step(adamw.init_state(sh["params"], adam),
+                    {k: _t(v).to(dev) for k, v in batch.items()})
+        out[dev.type] = (m, [p.detach().cpu() for p in sh["params"]])
+    (m_gpu, p_gpu), (m_cpu, p_cpu) = out["cuda"], out["cpu"]
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m_gpu[key]) - float(m_cpu[key])) < 2e-3, key
+    assert max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu)) \
+        < 2e-3

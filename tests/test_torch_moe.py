@@ -6,8 +6,8 @@ layer then a MoE layer), f32, with the JAX parameters carried across by
 ``from_jax_params`` and the same numpy batch.
 
 * Both configs and their smoke configs equal JAX's field for field;
-  ``moe_on_layer`` and ``layer_pattern`` match; the other A8 archs raise,
-  but jamba (ported since) gives JAX's config.
+  ``moe_on_layer`` and ``layer_pattern`` match; the VLM raises, but
+  jamba and seamless-m4t (ported since) give JAX's configs.
 * ``moe_block`` at the default capacity (tokens dropped) against JAX's
   ``moe_block`` in local mode: the output within 2e-5 of its largest
   magnitude (the blocks' outputs reach ~3e3 at the smoke init, where f32
@@ -259,6 +259,13 @@ def test_configs_equal_jax(references, arch):
             assert dataclasses.asdict(got) == dataclasses.asdict(
                 jax_registry.get_smoke(other))
             assert transformer.has_moe(got)
+            continue
+        if other == "seamless-m4t-large-v2":
+            # the encoder-decoder family is ported (§A8 d), with no MoE
+            got = registry.get_smoke(other)
+            assert dataclasses.asdict(got) == dataclasses.asdict(
+                jax_registry.get_smoke(other))
+            assert not transformer.has_moe(got)
             continue
         with pytest.raises(NotImplementedError, match="§A8"):
             registry.get_smoke(other)

@@ -8,7 +8,11 @@ order and held against ``repro.kernels.ref.mha_reference`` over the whole
 sequence, and the gradients against ``jax.grad`` of its loss
 ``sum(o * do)``, as ``repro/testing/dist_checks.py:check_attention`` does.
 Inputs are made with numpy from a seed and handed to both packages.
-Tolerance 2e-4, that dist check's own. ``combine_decode_partials`` is held
+Tolerance 2e-4, that dist check's own. Beside the causal windowed
+layouts at (c, r) = (1, 4), (2, 1), (2, 2), the JAX checks' other layouts
+(``JAX_LAYOUTS``): the non-causal ``ring_full_contig`` and ``st2_full``,
+``st2_mha``, ``st2_mqa`` and the P = 16 ``st4_p16``, ``st2_p16_r4`` and
+``st2_p16_window``. ``combine_decode_partials`` is held
 against the JAX ``combine_pair`` folded over the shards.
 
 The P > 1 backward is called explicitly per rank: autograd runs the
@@ -124,6 +128,66 @@ def test_startrail_backward_matches_jax_grad(c, r, scheme):
     for name, got, want in zip(("dq", "dk", "dv"), grads, g_want):
         np.testing.assert_allclose(got, want, atol=TOL, rtol=TOL,
                                    err_msg=name)
+
+
+# the layouts of the JAX ``check_attention`` dist checks the tests above
+# do not cover (``repro/testing/dist_checks.py:195-235``), at their
+# shapes: seq 64, batch 2, head size 8, 4q/2kv unless named
+JAX_LAYOUTS = {
+    # name: (c, r, causal, scheme, window, block_skip, hq, hkv)
+    "ring_full_contig": (1, 8, False, "contiguous", None, False, 4, 2),
+    "st2_full": (2, 2, False, "contiguous", None, False, 4, 2),
+    "st2_mha": (2, 2, True, "zigzag", None, False, 4, 4),
+    "st2_mqa": (2, 2, True, "zigzag", None, False, 4, 1),
+    "st4_p16": (4, 1, True, "zigzag", None, False, 4, 2),
+    "st2_p16_r4": (2, 4, True, "zigzag", None, False, 4, 2),
+    "st2_p16_window": (2, 4, True, "contiguous", 24, True, 4, 2),
+}
+
+
+@pytest.mark.parametrize("name", list(JAX_LAYOUTS))
+def test_startrail_at_the_jax_checks_layouts(name):
+    """Forward and backward of every rank (explicit per rank, as above)
+    against ``mha_reference`` and ``jax.grad`` of ``sum(o * do)`` at each
+    layout of ``JAX_LAYOUTS``, the non-causal ones (the encoder's full
+    mask: every ring step runs) among them; ``TOL``."""
+    c, r, causal, scheme, window, skip, hq, hkv = JAX_LAYOUTS[name]
+    n, d = 64, 8
+    rng = np.random.default_rng(7)
+    q, k, v, do = (rng.normal(size=(B, n, h, d)).astype(np.float32)
+                   for h in (hq, hkv, hkv, hq))
+    mesh = ThreadMesh(c, r)
+    p = mesh.size
+    cfg = st.StarTrailConfig(seq_len=n, seq_scheme=scheme, causal=causal,
+                             window=window, block_impl="cuda",
+                             block_skip=skip)
+
+    def rank_fn(comm):
+        g, j, t = (comm.axis_index(a) for a in cfg.axes)
+        pos = st.shard_positions((g * r + j) * c + t, n, p, scheme).numpy()
+        shard = [torch.from_numpy(np.ascontiguousarray(x[:, pos]))
+                 for x in (q, k, v, do)]
+        o, res = st.startrail_forward(*shard[:3], cfg, comm)
+        return pos, o, st.startrail_backward(res, o, shard[3], cfg, comm)
+
+    out = np.zeros_like(q)
+    grads = [np.zeros_like(x) for x in (q, k, v)]
+    for pos, o, gs in mesh.run(rank_fn, timeout=120):
+        out[:, pos] = o.numpy()
+        for full, gr in zip(grads, gs):
+            full[:, pos] = gr.numpy()
+
+    def loss(q, k, v):
+        o = jax_ref.mha_reference(q, k, v, causal=causal, window=window)
+        return (o * do).sum()
+
+    args = tuple(jnp.asarray(x) for x in (q, k, v))
+    want = jax_ref.mha_reference(*args, causal=causal, window=window)
+    np.testing.assert_allclose(out, np.asarray(want), atol=TOL, rtol=TOL)
+    for label, got, g in zip(("dq", "dk", "dv"), grads,
+                             jax.grad(loss, argnums=(0, 1, 2))(*args)):
+        np.testing.assert_allclose(got, np.asarray(g), atol=TOL, rtol=TOL,
+                                   err_msg=label)
 
 
 def test_block_skip_gives_the_same_gradients():

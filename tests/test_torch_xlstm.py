@@ -5,8 +5,8 @@ chunk 8), f32, with the JAX parameters carried across by
 ``from_jax_params`` and the same numpy inputs.
 
 * The config and its smoke config equal JAX's field for field;
-  ``layer_pattern`` and ``mixer_on_layer`` match; seamless-m4t and
-  paligemma still raise, naming §A8, and jamba (ported since) gives
+  ``layer_pattern`` and ``mixer_on_layer`` match; paligemma still
+  raises, naming §A8, and jamba and seamless-m4t (ported since) give
   JAX's config and period.
 * ``chunked_gla`` against JAX's and the naive recurrence of
   ``tests/test_ssm_and_roofline.py`` at chunks 2-16 and a sequence shorter
@@ -278,8 +278,9 @@ def test_configs_equal_jax(references):
         cfg_o = jax_registry.get_smoke(other)
         as_h2o = dataclasses.replace(registry.get_smoke("h2o-danube-1.8b"),
                                      family=cfg_o.family, encdec=cfg_o.encdec)
-        if other == "jamba-1.5-large-398b":
-            # the hybrid family is ported (§A8 c): JAX's config and period
+        if other in ("jamba-1.5-large-398b", "seamless-m4t-large-v2"):
+            # the hybrid (§A8 c) and encoder-decoder (§A8 d) families are
+            # ported: JAX's config and period
             assert dataclasses.asdict(registry.get_smoke(other)) == \
                 dataclasses.asdict(cfg_o)
             assert transformer.layer_pattern(as_h2o) == \
