@@ -49,6 +49,18 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               held against its plain version at the same tolerances and
               timed beside its bound and SDPA where one computes the
               function; the ``-Xptxas -v`` lines of the D = 128 kernels
+  3c. kernels_d256  the kernels that take head size 256 (paligemma-3b: B1,
+              B2, B3, B5, B7): phase 3's check cases again at D = 256,
+              bf16 and f32, and prefix-LM cases (one block, a zigzag ring
+              step straddling the prefix, per-row positions); B4 and B6
+              raising at D = 256 (ROADMAP §B item 5) with nothing
+              launched; then B1, B2 and B3 at paligemma's training shape
+              (q (1,4096,8,256), k/v (1,4096,1,256), causal, a
+              512-position prefix), B5 at its ``--legacy`` decode shape
+              and B7 at the ragged_bwd shape with 8q/1kv, each held
+              against its plain version and timed beside its bound and
+              SDPA; the D = 256 kernels' ``-Xptxas -v`` lines and CTAs per
+              SM
   4. ring     StarTrail on a ThreadMesh(c=2, r=2): P = 8 ranks as threads
               on the one card, N = 2048 tokens of 32q/8kv heads of 80,
               bf16, causal + window; each rank runs the forward (B2 in
@@ -157,14 +169,14 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               ``n_devices=8, c=2`` runs P = 8 ranks as ThreadMesh(c=2, r=2)
               threads on the one card (team gathers and two ring steps;
               the collectives carry the gradients), each rank holding its
-              shards under the 'default' sharding rules. Full width, 12
+              shards under the 'default' sharding rules. Full width, 8
               of 24 layers (``TRAIN_SP_LAYERS``), seq 4096, batch 1, zigzag,
               ``remat='attn_out'``, bf16, 2 AdamW steps on one repeated
               batch (``TRAIN_SP_STEPS``, the script's time): the loss must
               fall, and the first step's loss and
               gradient norm agree with P = 1 on the same weights. Per step
-              B2 runs 8 ranks x 2 ring steps x 2 (recompute) x 12 layers =
-              384 times and B3 192 times; peak memory, the profiled
+              B2 runs 8 ranks x 2 ring steps x 2 (recompute) x 8 layers =
+              256 times and B3 128 times; peak memory, the profiled
               step's device ms and f32 adds beside the 8-layer step that
               stored every parameter whole. Before it, in f32 (the
               CUDA-core kernels), depth 2, seq 1024: the loss and every
@@ -410,15 +422,15 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               P = 1 and at P = 4 (ThreadMesh(c=2, r=1)), B2 on every
               rank's ring step of each encoder layer, its output on the
               CUDA kernels against the plain versions (``ENGINE_TOL``).
-              ``--legacy`` at P = 1 (2 x 128, 32 new) and at P = 4 (2 x 8,
-              4 new): the encoder prefilled over seeded frames, the
+              ``--legacy`` at P = 1 (2 x 64, 16 new) and at P = 4 (2 x 4,
+              3 new): the encoder prefilled over seeded frames, the
               decoder's prompt fed one decode step a token, B1 (cross)
               and B5 (self) on every rank, layer and step; the decoder's
-              hidden states over the first 48 (P = 1) and 4 (P = 4) of
+              hidden states over the first 24 (P = 1) and 3 (P = 4) of
               the same tokens on both routes
               (``ENGINE_TOL``); the P = 1 tokens against the full
               forward's argmax, reported in bf16 and checked in f32 at
-              full depth (2 x 64, 8 new; near ties within ``HYBRID_TIE``)
+              full depth (2 x 32, 8 new; near ties within ``HYBRID_TIE``)
  28. encdec_train  the same model, all 48 layers, seq 4096, batch 1,
               ``attn_out``, AdamW on one repeated batch of the pipeline's
               tokens and frames: the first step's gradients against the
@@ -431,6 +443,27 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               and 2 at P = 8 (ThreadMesh(c=2, r=1, data=2)) from the same
               weights and batch, P = 8's first loss and gradient norm
               against P = 1's (``TRAIN_SP_TOL``)
+ 29. vlm_serve  full-width paligemma-3b whole (18 layers, 3.04 B, head size
+              256, seeded bf16, seeded patches). The prefill of 1 x 4096
+              tokens (512 patches) at P = 1 through StarTrail (B2) and
+              through the local route (B1), each against the plain
+              versions (``ENGINE_TOL``); ``--legacy`` at P = 1 (2 x 1024,
+              128 patches, 32 new) and at P = 4 (ThreadMesh(c=2, r=1); 2 x
+              64, 8 patches, 4 new), B2 on the prefill and B5 on every
+              rank, layer and decode step, the hidden states teacher
+              forced on both routes (``ENGINE_TOL``); the P = 1 tokens
+              against the full forward's argmax at the prompt's prefix,
+              reported in bf16 and checked in f32 at a 4-layer cut (2 x
+              128, 8 new; near ties within ``HYBRID_TIE``)
+ 30. vlm_train  the same model, all 18 layers, seq 4096 (512 patches),
+              batch 1, ``attn_out``, AdamW (f32 moments) on one repeated
+              batch of the pipeline's tokens and patches: the first step's
+              gradients against the plain kernels' (``TRAIN_CHECK_TOL`` on
+              an f32 copy of 4 layers; in bf16 reported at full depth), 3
+              steps at P = 1 (B2 and B3 on every layer); then a 2-layer
+              cut at batch 2, 2 steps at P = 1 and 2 at P = 8
+              (ThreadMesh(c=2, r=1, data=2)), P = 8's first loss and
+              gradient norm against P = 1's (``TRAIN_SP_TOL``)
 
 Every JSON line carries ``seconds``: the wall time since the line before
 (or the phase's own, where the phase reports it).
@@ -444,8 +477,10 @@ moe_serve_llama), 21's two (moe_train, moe_train_mesh), 22 (legacy_sp),
 23's two (xlstm_serve_p1, xlstm_serve_p4), 24's two (xlstm_train_p1,
 xlstm_train_p8), 25's two (hybrid_serve_p1, hybrid_serve_p4), 26's
 two (hybrid_train_p1, hybrid_train_p8), 27's four (encdec_prefill_p1,
-encdec_prefill_p4, encdec_legacy_p1, encdec_legacy_p4) and 28's three
-(encdec_train_p1, encdec_train_cut_p1, encdec_train_cut_p8):
+encdec_prefill_p4, encdec_legacy_p1, encdec_legacy_p4), 28's three
+(encdec_train_p1, encdec_train_cut_p1, encdec_train_cut_p8), 29's four
+(vlm_prefill_p1, vlm_prefill_local, vlm_legacy_p1, vlm_legacy_p4) and
+30's three (vlm_train_p1, vlm_train_cut_p1, vlm_train_cut_p8):
 the launch counters are set to 0 just before each and read just after,
 and each must launch exactly the kernels it runs (B2 and B3 in the ring;
 B5 and B7 in ragged_bwd; B2 and B4 in the engine and in the sample
@@ -465,7 +500,9 @@ in the MoE legacy run, B2 and B3 in both MoE trainings, B2 and B5 at
 P = 4 in legacy_sp, none in the xLSTM runs, B2 and B5 in both hybrid
 serving runs, none in the one-layer hybrid trainings, B2 in the encoder
 prefills, B1, B2 and B5 in the encdec ``--legacy`` runs, B1, B2 and B3
-in the encdec trainings). Comparison,
+in the encdec trainings, B2 in the VLM's StarTrail prefill and B1 in its
+local one, B2 and B5 in its ``--legacy`` runs, B2 and B3 in its
+trainings, all at head size 256). Comparison,
 timing and profiling launches are not counted. The kernels line's
 ``launches`` is each kernel's count on the path that runs it (the engine for B2 and B4, the local prefill for B1, the train
 loop for B3, the legacy phase for B5, the prefix phase for B6, ragged_bwd
@@ -697,9 +734,10 @@ def bwd_cases():
 
 
 def bwd_inputs(pos_q, pos_k, window, dtype, dev, seed=0, heads=(32, 8),
-               d=80):
+               d=80, prefix_len=None):
     """q, k, v, do in ``dtype`` and the global lse and delta of full
-    attention over the block (delta from o rounded to q's dtype, as
+    attention over the block under the mask (with ``prefix_len``, the
+    prefix-LM's; delta from o rounded to q's dtype, as
     ``core.startrail.startrail_backward`` computes it)."""
     import torch
 
@@ -713,7 +751,8 @@ def bwd_inputs(pos_q, pos_k, window, dtype, dev, seed=0, heads=(32, 8),
     v = torch.randn((1, sk, hkv, d), generator=g, device=dev).to(dtype)
     do = torch.randn((1, sq, hq, d), generator=g, device=dev).to(dtype)
     o, lse = fa.flash_attention_fwd_plain(q, k, v, pos_q, pos_k,
-                                          window=window)
+                                          window=window,
+                                          prefix_len=prefix_len)
     delta = torch.einsum("bshd,bshd->bhs", do.float(),
                          o.to(dtype).float()).contiguous()
     return q, k, v, do, lse, delta
@@ -885,16 +924,18 @@ def ragged_cases():
     }
 
 
-def ragged_inputs(dev, dtype, sq, sk, rows, kind, seed=0, d=80):
-    """q (B,Sq,32,d), k/v (B,Sk,8,d) and per-row positions: validity is
-    positional, an unseen key sits past every query."""
+def ragged_inputs(dev, dtype, sq, sk, rows, kind, seed=0, d=80,
+                  heads=(32, 8)):
+    """q (B,Sq,32,d), k/v (B,Sk,8,d) (or ``heads``) and per-row positions:
+    validity is positional, an unseen key sits past every query."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(seed)
     b = len(rows)
-    q = torch.randn((b, sq, 32, d), generator=g, device=dev).to(dtype)
-    k = torch.randn((b, sk, 8, d), generator=g, device=dev).to(dtype)
-    v = torch.randn((b, sk, 8, d), generator=g, device=dev).to(dtype)
+    hq, hkv = heads
+    q = torch.randn((b, sq, hq, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, sk, hkv, d), generator=g, device=dev).to(dtype)
     ak = torch.arange(sk, dtype=torch.int32, device=dev)[None]
     r = torch.tensor(rows, dtype=torch.int32, device=dev)[:, None]
     if kind == "lengths":
@@ -1005,9 +1046,10 @@ def ragged_bwd_cases():
 
 
 def ragged_bwd_inputs(dev, dtype, b, sq, sk, hq, hkv, window, offsets,
-                      zero_rows, seed=0, d=80):
+                      zero_rows, seed=0, d=80, prefix_len=None):
     """q, k, v, do in ``dtype``, the global lse and delta of the block pair
-    (delta from o rounded to q's dtype), and (B,Sq) / (B,Sk) positions: row
+    under the mask (with ``prefix_len``, the prefix-LM's; delta from o
+    rounded to q's dtype), and (B,Sq) / (B,Sk) positions: row
     r's queries start at ``offsets[r]`` and its keys end with them (an Sk >
     Sq row sees keys before its first query); the keys of ``zero_rows`` sit
     past every query."""
@@ -1026,18 +1068,20 @@ def ragged_bwd_inputs(dev, dtype, b, sq, sk, hq, hkv, window, offsets,
         + (sq - sk)
     pos_k[zero_rows] += 2 * (sq + sk)
     o, lse = rp.ragged_prefill_fwd_plain(q, k, v, pos_q, pos_k,
-                                         window=window)
+                                         window=window,
+                                         prefix_len=prefix_len)
     delta = torch.einsum("bshd,bshd->bhs", do.float(),
                          o.to(dtype).float()).contiguous()
     return (q, k, v, do, lse, delta, pos_q.contiguous(),
             pos_k.contiguous())
 
 
-def check_cases(dev, rows, d=80):
+def check_cases(dev, rows, d=80, paged=True):
     """Every kernel against its plain version on the check cases above,
     bf16 and f32, at head size ``d``: each row's ``max_abs_err`` (and B3's
-    and B7's ``max_scaled_err``) rises to the worst case. Returns the
-    cases checked."""
+    and B7's ``max_scaled_err``) rises to the worst case; ``paged=False``
+    leaves B4 and B6 out (they take no head size 256). Returns the cases
+    checked."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -1087,7 +1131,7 @@ def check_cases(dev, rows, d=80):
             checked.append(f"B3/{case}/{dname}")
     for dtype, (case, (sp, rank, window, cls)) in (
             (d, c) for d in (torch.bfloat16, torch.float32)
-            for c in paged_cases().items()):
+            for c in (paged_cases().items() if paged else ())):
         dname = str(dtype).split(".")[-1]
         args = (*paged_inputs(dev, sp, cls, dtype=dtype, d=d, rank=rank),
                 rank)
@@ -1121,8 +1165,8 @@ def check_cases(dev, rows, d=80):
                 check(n_dead >= sq * 32, f"B5 {case}: {n_dead} dead rows")
             rows["B5"]["max_abs_err"] = max(rows["B5"]["max_abs_err"], err)
             checked.append(f"B5/{case}/{dname}")
-        for case, (cached, window, holes, sp, rank) in \
-                paged_prefill_cases().items():
+        for case, (cached, window, holes, sp, rank) in (
+                paged_prefill_cases().items() if paged else ()):
             args = (*paged_prefill_inputs(dev, dtype, cached, holes, d=d,
                                           sp=sp, rank=rank), rank)
             kw = dict(sp=sp, page_size=16, window=window)
@@ -1839,6 +1883,332 @@ def phase_kernels_d128(dev, rows):
                   "B7": "autograd backward of scaled_dot_product_attention"
                         " with the boolean mask, kv heads repeated"},
          occupancy=occupancy, ptxas_d128=ptxas, kernels=res)
+
+
+D256 = 256
+VLM_HEADS = (8, 1)       # paligemma-3b: 8 query heads on one kv head
+D256_SEQ = 4096          # paligemma-3b's training and prefill shape
+D256_PREFIX = 512        # its image prefix there (an eighth)
+# prefix-LM cases at head size 256 (8q/1kv over 1024 tokens): shared
+# positions (B1, B2, B3), as (positions, prefix_len): one block, and a ring
+# step of P = 2 whose keys straddle the prefix's end; per-row positions (B5,
+# B7), as (row offsets, prefix_len)
+D256_PREFIX_CASES = {"causal_p128": ("arange", 128),
+                     "zigzag_p300": ("zigzag", 300)}
+D256_RAGGED_PREFIX = ([0, 40], 100)
+# B4 and B6 take no head size 256 (ROADMAP §B item 5)
+D256_NOT_TAKEN = "not taken (ROADMAP.md §B item 5: the engine refuses the " \
+    "family that needs head size 256)"
+
+
+def _d256_prefix_cases(dev, res):
+    """B1, B2, B3, B5 and B7 under the prefix-LM mask at head size 256,
+    bf16 and f32, against their plain versions (``TOL`` / ``BWD_TOL``; no
+    row is dead: every query sees the prefix). Returns the cases checked."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ragged_bwd as rb
+    from repro_torch.kernels import ragged_prefill as rp
+
+    checked = []
+    S = 1024
+    ar = torch.arange(S, dtype=torch.int32, device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for case, (kind, pre) in D256_PREFIX_CASES.items():
+            pq, pk = (ar, ar) if kind == "arange" else (
+                _zigzag(1, 2 * S, 2).to(dev), _zigzag(0, 2 * S, 2).to(dev))
+            q, k, v, do, lse, delta = bwd_inputs(pq, pk, None, dtype, dev,
+                                                 heads=VLM_HEADS, d=D256,
+                                                 prefix_len=pre)
+            g = torch.Generator(device=dev).manual_seed(1)
+            o_acc = torch.randn(q.shape, generator=g, device=dev)
+            lse_acc = 3 * torch.randn(lse.shape, generator=g, device=dev)
+            for name, acc in (("B1", ()), ("B2", (o_acc, lse_acc))):
+                got = fa.flash_attention_fwd(q, k, v, pq, pk, *acc,
+                                             prefix_len=pre)
+                torch.cuda.synchronize()
+                want = fa.flash_attention_fwd_plain(q, k, v, pq, pk, *acc,
+                                                    prefix_len=pre)
+                err, ok, n_dead = partial_err(*got, *want, TOL[dname])
+                check(ok and n_dead == 0, f"{name} prefix {case} {dname} "
+                      f"D=256: max err {err} (tol {TOL[dname]}), {n_dead} "
+                      f"dead rows")
+                res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+                checked.append(f"{name}/prefix_{case}/{dname}")
+            args = (q, k, v, do, lse, delta, pq, pk)
+            got = fa.flash_attention_bwd(*args, prefix_len=pre)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_bwd_plain(*args, prefix_len=pre)
+            err, ok, _ = grad_err(got, want, lse, BWD_TOL)
+            check(ok, f"B3 prefix {case} {dname} D=256: max err {err} (tol "
+                      f"{BWD_TOL})")
+            res["B3"]["max_abs_err"] = max(res["B3"]["max_abs_err"], err)
+            res["B3"]["max_scaled_err"] = max(res["B3"]["max_scaled_err"],
+                                              scaled_err(got, want))
+            checked.append(f"B3/prefix_{case}/{dname}")
+        offsets, pre = D256_RAGGED_PREFIX
+        args = ragged_bwd_inputs(dev, dtype, 2, 256, 256, *VLM_HEADS, None,
+                                 offsets, [], d=D256, prefix_len=pre)
+        got = rp.ragged_prefill_fwd(*args[:3], *args[6:], prefix_len=pre)
+        torch.cuda.synchronize()
+        want = rp.ragged_prefill_fwd_plain(*args[:3], *args[6:],
+                                           prefix_len=pre)
+        err, ok, _ = partial_err(*got, *want, TOL[dname])
+        check(ok, f"B5 prefix {dname} D=256: max err {err} (tol "
+                  f"{TOL[dname]}) or a dead row not exact")
+        res["B5"]["max_abs_err"] = max(res["B5"]["max_abs_err"], err)
+        got = rb.flash_attention_bwd_ragged(*args, prefix_len=pre)
+        torch.cuda.synchronize()
+        want = rb.flash_attention_bwd_ragged_plain(*args, prefix_len=pre)
+        err, ok, _ = grad_err(got, want, args[4], BWD_TOL)
+        check(ok, f"B7 prefix {dname} D=256: max err {err} (tol {BWD_TOL})")
+        res["B7"]["max_abs_err"] = max(res["B7"]["max_abs_err"], err)
+        res["B7"]["max_scaled_err"] = max(res["B7"]["max_scaled_err"],
+                                          scaled_err(got, want))
+        checked += [f"B5/prefix/{dname}", f"B7/prefix/{dname}"]
+        del got, want, args
+    return checked
+
+
+def _d256_paged_refusals(dev):
+    """B4 and B6 on CUDA tensors at head size 256: each wrapper raises
+    (ROADMAP §B item 5), launches nothing and runs no plain version."""
+    import torch
+
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_prefill as pp
+
+    qd, pk_, pv_, table, cl = paged_inputs(dev, 1, [100, 50, 20, 0], seed=3,
+                                           d=D256)
+    out = {}
+    counts = reset_counts()
+    for name, fn in (("B4", pd.paged_decode_attention),
+                     ("B6", pp.paged_prefill_attention)):
+        try:
+            fn(qd, pk_, pv_, table, cl, 0, sp=1, page_size=16)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+        check(out[name] is not None and "§B item 5" in out[name],
+              f"{name} at head size 256 did not raise naming ROADMAP §B "
+              f"item 5: {out[name]}")
+    check(read_counts(counts) == launches_of(),
+          "B4/B6 at head size 256 launched a kernel")
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_kernels_d256(dev, rows):
+    """Every kernel that takes head size 256 (paligemma-3b: B1, B2, B3, B5
+    and B7): the check cases of phase 3 again at D = 256 (bf16 and f32),
+    the prefix-LM cases (``D256_PREFIX_CASES``), B4 and B6 refusing the
+    head size; then each at the shape the VLM phases give it, held against
+    its plain version at ``TOL``/``BWD_TOL`` and timed beside its bound and
+    SDPA: B1, B2 and B3 at paligemma's training and prefill shape (q
+    (1,4096,8,256), k/v (1,4096,1,256), causal, a 512-position prefix), B5
+    at its ``--legacy`` decode shape (2 rows, one query of 8 heads against
+    1056 cached keys), B7 at the ragged_bwd shape with 8q/1kv. Each row
+    gains ``d256`` (B4 and B6 ``D256_NOT_TAKEN``); the ``-Xptxas -v`` lines
+    of the D = 256 kernels show their registers and spills."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ragged_bwd as rb
+    from repro_torch.kernels import ragged_prefill as rp
+    from repro_torch.kernels import ref
+
+    d, (hq, hkv) = D256, VLM_HEADS
+    taken = ("B1", "B2", "B3", "B5", "B7")
+    res = {n: {"max_abs_err": 0.0} for n in KERNELS}
+    for n in ("B3", "B7"):
+        res[n]["max_scaled_err"] = 0.0
+    checked = check_cases(dev, res, d=d, paged=False)
+    checked += _d256_prefix_cases(dev, res)
+    refusals = _d256_paged_refusals(dev)
+    free_device()
+    shapes = {}
+
+    def hold(name, what, got, want, lse=None):
+        if lse is None:
+            err, ok, _ = partial_err(*got, *want, TOL["bfloat16"])
+            tol = TOL["bfloat16"]
+        else:
+            err, ok, _ = grad_err(got, want, lse, BWD_TOL)
+            res[name]["max_scaled_err"] = max(res[name]["max_scaled_err"],
+                                              scaled_err(got, want))
+            tol = BWD_TOL
+        check(ok, f"{name} {what} bfloat16 D=256: max err {err} (tol "
+                  f"{tol}) or a dead row not exact")
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+        checked.append(f"{name}/{what}/bfloat16")
+
+    # B1, B2, B3 at paligemma's training shape, with its prefix
+    g = torch.Generator(device=dev).manual_seed(21)
+    S, pre = D256_SEQ, D256_PREFIX
+    q, do = (torch.randn((1, S, hq, d), generator=g, device=dev).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn((1, S, hkv, d), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    o_acc = torch.randn((1, S, hq, d), generator=g, device=dev)
+    lse_acc = 3 * torch.randn((1, hq, S), generator=g, device=dev)
+    kw = dict(prefix_len=pre)
+    pairs = int(ref.make_mask(pos, pos, causal=True, prefix_len=pre).sum())
+    for name, acc in (("B1", ()), ("B2", (o_acc, lse_acc))):
+        got = fa.flash_attention_fwd(q, k, v, pos, pos, *acc, **kw)
+        torch.cuda.synchronize()
+        hold(name, f"paligemma_seq{S}", got,
+             fa.flash_attention_fwd_plain(q, k, v, pos, pos, *acc, **kw))
+        shapes[name] = f"q (1,{S},8,256), k/v (1,{S},1,256) bf16, causal " \
+            f"with a {pre}-position prefix" + (
+                ", merged into a running (o, lse)" if acc else "")
+    del got
+    o, lse = fa.flash_attention_fwd_plain(q, k, v, pos, pos, **kw)
+    delta = torch.einsum("bshd,bshd->bhs", do.float(),
+                         o.bfloat16().float()).contiguous()
+    bargs = (q, k, v, do, lse, delta, pos, pos)
+    got = fa.flash_attention_bwd(*bargs, **kw)
+    torch.cuda.synchronize()
+    hold("B3", f"paligemma_seq{S}", got,
+         fa.flash_attention_bwd_plain(*bargs, **kw), lse)
+    check(same_bits(got, fa.flash_attention_bwd(*bargs, **kw)),
+          "B3 D=256: two runs differ (no atomics: they must give the same "
+          "bits)")
+    shapes["B3"] = f"q, do (1,{S},8,256), k/v (1,{S},1,256) bf16, causal " \
+        f"with a {pre}-position prefix"
+    del got, o
+    io = sum(t.numel() * t.element_size() for t in (q, k, v, pos, pos)) \
+        + q.numel() * 4 + hq * S * 4
+    acc_io = (o_acc.numel() + lse_acc.numel()) * 4
+    flops = 4 * d * hq * pairs
+    qt = q.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+              for t in (k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    timing = {
+        "B1": dict(ms=time_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, pos, pos, **kw), reps=10, inner=2),
+            plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(
+                q, k, v, pos, pos, **kw), reps=5, inner=2),
+            device_ms=device_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, pos, pos, **kw), calls=5),
+            library_ms=time_ms(sdpa, reps=10, inner=2),
+            library_device_ms=device_ms(sdpa, calls=5),
+            work=(io, flops, "bfloat16")),
+        "B2": dict(ms=time_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, pos, pos, o_acc, lse_acc, **kw), reps=10, inner=2),
+            plain_ms=time_ms(lambda: fa.flash_attention_fwd_plain(
+                q, k, v, pos, pos, o_acc, lse_acc, **kw), reps=5, inner=2),
+            device_ms=device_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, pos, pos, o_acc, lse_acc, **kw), calls=5),
+            library_ms=None, library_device_ms=None,
+            sdpa_fwd_device_ms=device_ms(sdpa, calls=5),
+            work=(io + acc_io, flops, "bfloat16"))}
+    del qt, kt, vt
+    try:
+        lib_ms, lib_dev = sdpa_bwd_ms(q, k, v, do)
+    except RuntimeError as e:      # no SDPA backend for these inputs
+        lib_ms = lib_dev = None
+        emit("kernels_note", library_B3_d256=f"SDPA backward refused: {e}")
+    timing["B3"] = dict(
+        ms=time_ms(lambda: fa.flash_attention_bwd(*bargs, **kw), reps=10,
+                   inner=2),
+        plain_ms=time_ms(lambda: fa.flash_attention_bwd_plain(*bargs, **kw),
+                         reps=5, inner=2),
+        device_ms=device_ms(lambda: fa.flash_attention_bwd(*bargs, **kw),
+                            calls=5),
+        library_ms=lib_ms, library_device_ms=lib_dev,
+        work=(*bwd_work(q, k, pos, pos, pairs), "bfloat16"))
+    occupancy = {"bf16_bwd_seq4096": fa.bwd_occupancy(d, S, S),
+                 "fwd_seq4096_g8": fa.fwd_occupancy(d, S, S, hq),
+                 "fwd_decode_g8": fa.fwd_occupancy(d, 1, 1056, hq)}
+    del q, k, v, do, lse, delta, o_acc, lse_acc, bargs
+    free_device()
+    # B5 at the --legacy decode shape (VLM_SERVE's P = 1 run)
+    (q5, k5, v5), pq5, pk5 = ragged_inputs(dev, torch.bfloat16, 1, 1056,
+                                           [1024, 1040], "decode", seed=24,
+                                           d=d, heads=VLM_HEADS)
+    got = rp.ragged_prefill_fwd(q5, k5, v5, pq5, pk5)
+    torch.cuda.synchronize()
+    hold("B5", "legacy_decode_g8", got,
+         rp.ragged_prefill_fwd_plain(q5, k5, v5, pq5, pk5))
+    mask5 = ref.make_mask(pq5, pk5, causal=True)[:, None]
+    qt5 = q5.transpose(1, 2)
+    kt5, vt5 = (t.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
+                for t in (k5, v5))
+
+    def sdpa5():
+        return F.scaled_dot_product_attention(qt5, kt5, vt5,
+                                              attn_mask=mask5)
+
+    timing["B5"] = dict(
+        ms=time_ms(lambda: rp.ragged_prefill_fwd(q5, k5, v5, pq5, pk5)),
+        plain_ms=time_ms(lambda: rp.ragged_prefill_fwd_plain(
+            q5, k5, v5, pq5, pk5)),
+        device_ms=device_ms(lambda: rp.ragged_prefill_fwd(
+            q5, k5, v5, pq5, pk5)),
+        library_ms=time_ms(sdpa5), library_device_ms=device_ms(sdpa5),
+        work=(*ragged_work(q5, k5, pq5, pk5, None), "bfloat16"))
+    shapes["B5"] = "q (2,1,8,256), k/v (2,1056,1,256) bf16, cache " \
+        "lengths 1024 and 1040"
+    del got, q5, k5, v5, qt5, kt5, vt5, mask5
+    # B7 at the ragged_bwd path's shape with paligemma's heads
+    args7 = ragged_bwd_inputs(dev, torch.bfloat16, 4, 1024, 1024, hq, hkv,
+                              None, [0, 1024, 2048, 3072], [], seed=25, d=d)
+    got = rb.flash_attention_bwd_ragged(*args7)
+    torch.cuda.synchronize()
+    hold("B7", "path_4x1024_g8", got,
+         rb.flash_attention_bwd_ragged_plain(*args7), args7[4])
+    q7, k7, v7, do7, _, _, pq7, pk7 = args7
+    mask7 = ref.make_mask(pq7, pk7, causal=True)
+    try:
+        lib7, lib7_dev = sdpa_bwd_ms(q7, k7, v7, do7, mask7[:, None])
+    except RuntimeError as e:      # no SDPA backend for these inputs
+        lib7 = lib7_dev = None
+        emit("kernels_note", library_B7_d256=f"SDPA backward refused: {e}")
+    timing["B7"] = dict(
+        ms=time_ms(lambda: rb.flash_attention_bwd_ragged(*args7), reps=10,
+                   inner=2),
+        plain_ms=time_ms(lambda: rb.flash_attention_bwd_ragged_plain(
+            *args7), reps=5, inner=2),
+        device_ms=device_ms(lambda: rb.flash_attention_bwd_ragged(*args7),
+                            calls=5),
+        library_ms=lib7, library_device_ms=lib7_dev,
+        work=(*bwd_work(q7, k7, pq7, pk7, int(mask7.sum())), "bfloat16"))
+    shapes["B7"] = "q (4,1024,8,256), k/v (4,1024,1,256) bf16, (B,S) " \
+        "positions at offsets 0/1024/2048/3072, causal"
+    del got, args7, q7, k7, v7, do7, mask7
+    for name, t in timing.items():
+        b_ms, b_by = bound(*t.pop("work"))
+        res[name].update(t, bound_ms=b_ms, bound_by=b_by, shape=shapes[name])
+    for name in KERNELS:
+        rows[name]["d256"] = res[name] if name in taken else D256_NOT_TAKEN
+    ptxas = [line for line in _build.build_info()["ptxas"]
+             if "Li256E" in line]
+    emit("kernels_d256", checked=len(checked), head_dim=d,
+         tolerances="as phase 3: forward f32 2e-5, bf16 1e-4; B3, B7 3e-4; "
+                    "dead rows exact",
+         library={"B1": "scaled_dot_product_attention(is_causal), o only, "
+                        "kv heads repeated: causal without the prefix",
+                  "B2.sdpa_fwd_device_ms": "the same call: a reference "
+                                           "without lse or the merge",
+                  "B3": "autograd backward of scaled_dot_product_attention"
+                        "(is_causal, enable_gqa), timed alone, without the "
+                        "prefix",
+                  "B5": "scaled_dot_product_attention with the boolean "
+                        "mask, kv heads repeated beforehand",
+                  "B7": "autograd backward of scaled_dot_product_attention"
+                        " with the boolean mask, kv heads repeated"},
+         paged_refusals=refusals, occupancy=occupancy, ptxas_d256=ptxas,
+         kernels={n: res[n] for n in taken})
+
 
 
 RING_GRAD_TOL = 1e-2
@@ -4134,8 +4504,8 @@ def phase_resume(dev, smi):
 # phase 13: training at SP degree 8 on a ThreadMesh on the card
 # ---------------------------------------------------------------------------
 
-# 12 of h2o's 24 layers for the script's time (PERF.md §4)
-TRAIN_SP_LAYERS, TRAIN_SP_STEPS = 12, 2
+# 8 of h2o's 24 layers for the script's time (PERF.md §4)
+TRAIN_SP_LAYERS, TRAIN_SP_STEPS = 8, 2
 TRAIN_SP_C, TRAIN_SP_R = 2, 2                  # P = C * C * R = 8 ranks
 # bf16 at P = 8 against P = 1 on the same weights and batch: the ranks sum
 # their bf16 MLP and vocab partials in another order and the ring merges
@@ -6397,23 +6767,25 @@ def _repeated_steps(model, plan, batch, steps, state_dtype="float32"):
                 launches=launches)
 
 
-def _layers_cut(model, layers):
+def _layers_cut(model, layers, dtype=None):
     """A model of ``model``'s first ``layers`` layers (an encoder-decoder's
     first ``layers`` encoder and decoder layers) and every other leaf, the
-    weights copied."""
+    weights copied (cast to ``dtype`` when given)."""
     import dataclasses
 
     import torch
 
     from repro_torch.models.factory import Model
 
-    cfg = dataclasses.replace(model.cfg, num_layers=layers)
+    dtype = dtype or model.embed.table.dtype
+    cfg = dataclasses.replace(model.cfg, num_layers=layers,
+                              param_dtype=str(dtype).split(".")[-1])
     if cfg.encdec:
         cfg = dataclasses.replace(cfg, num_encoder_layers=layers)
     whole = dict(model.named_parameters())
     with torch.no_grad():
         cut = Model(cfg, lambda s: torch.empty(
-            s.shape, dtype=model.embed.table.dtype, device=model.device))
+            s.shape, dtype=dtype, device=model.device))
         for name, p in cut.named_parameters():
             p.copy_(whole[name])
     return cut
@@ -7081,15 +7453,16 @@ ENCDEC_ARCH = "seamless-m4t-large-v2"
 # P = 4 on ThreadMesh(c=2, r=1), as (batch, prompt, new); the CUDA-vs-plain
 # check teacher-forces the first ``check_positions`` tokens on both routes.
 # Cut for the script's time: a P = 4 decode step takes 1.3-2.0 s of wall
-# (four rank threads share one interpreter), so P = 4 serves 8 prompt
-# tokens and 4 new, not 64 and 8 (71 steps and their check took 350 s on
-# an H100), and P = 1 a prompt of 128, not 256 (25 s for its steps)
+# (four rank threads share one interpreter), so P = 4 serves 4 prompt
+# tokens and 3 new, not 64 and 8 (71 steps and their check took 350 s on
+# an H100), and P = 1 a prompt of 64 and 16 new, not 256 and 32 (the
+# prompt's steps 25 s), checks over 24 and 3 positions (PERF.md §4)
 ENCDEC_SERVE = {"enc_len": 4096, "c": 2,
-                "legacy": {1: (2, 128, 32), 4: (2, 8, 4)},
-                "check_positions": {1: 48, 4: 4}}
+                "legacy": {1: (2, 64, 16), 4: (2, 4, 3)},
+                "check_positions": {1: 24, 4: 3}}
 # the tokens against the full forward's argmax, strict in f32 at full depth
 # (8.1 GB): a token off the argmax must be a near tie (``HYBRID_TIE``)
-ENCDEC_F32_SERVE = {"batch": 2, "prompt": 64, "new": 8}
+ENCDEC_F32_SERVE = {"batch": 2, "prompt": 32, "new": 8}
 # all 48 layers train at P = 1; the P = 8 mesh (c 2, r 1, data 2) runs a
 # 4 + 4-layer cut, against P = 1 at the same cut and batch
 ENCDEC_TRAIN = {"seq": 4096, "batch": 1, "steps": 3, "cut": 4,
@@ -7405,11 +7778,11 @@ def phase_encdec_serve(dev, smi):
     bf16). The path's kernel regimes against their plain versions first
     (``_encdec_kernel_checks``). The encoder prefill of 1 x 4096 frames at
     P = 1 and at P = 4 (ThreadMesh(c=2, r=1)), on the CUDA kernels and on
-    the plain versions (``ENGINE_TOL``); ``--legacy`` at P = 1 (2 x 128,
-    32 new) and at P = 4 (2 x 8, 4 new), the decoder's hidden states
+    the plain versions (``ENGINE_TOL``); ``--legacy`` at P = 1 (2 x 64,
+    16 new) and at P = 4 (2 x 4, 3 new), the decoder's hidden states
     teacher forced on both routes (``ENGINE_TOL``); the P = 1 tokens
     against the full forward's argmax, reported in bf16 and checked in
-    f32 at full depth on 2 x 64, 8 new."""
+    f32 at full depth on 2 x 32, 8 new."""
     t_phase = time.perf_counter()
     model, init_s = _encdec_model(dev)
     cfg = model.cfg
@@ -7509,12 +7882,13 @@ def _encdec_train_launches(cfg, ranks, steps):
                        B3=(self_attn + cfg.num_layers) * ranks * steps)
 
 
-def _encdec_batch(cfg, shape, plan, dev):
+def _pipeline_batch(cfg, shape, plan, dev):
     """The pipeline's batch of step 0 in sequence order (``SyntheticLM`` at
-    one rank), its tokens, labels and frames laid out in ``plan``'s SP
-    shard order. (The pipeline draws the frames of a wider mesh in shard
-    order directly, as the JAX one does, so at another SP degree the same
-    seed puts other frames at each position.)"""
+    one rank), its tokens, labels and frontend embeddings (an
+    encoder-decoder's frames, a VLM's patches) laid out in ``plan``'s SP
+    shard order. (The pipeline draws the embeddings of a wider mesh in
+    shard order directly, as the JAX one does, so at another SP degree the
+    same seed puts other embeddings at each position.)"""
     import numpy as np
 
     from repro_torch.data.pipeline import SyntheticLM, shard_permutation
@@ -7613,7 +7987,7 @@ def phase_encdec_train(dev, smi):
     P = 1 (loss finite and falling; B1, B2, B3 launched, the last step
     profiled). Then a 4 + 4-layer cut of the same weights at batch 2: 2
     steps at P = 1, and 2 at P = 8 on ThreadMesh(c=2, r=1, data=2) from
-    the same weights and batch (``_encdec_batch``), P = 8's first loss
+    the same weights and batch (``_pipeline_batch``), P = 8's first loss
     and gradient norm against P = 1's (``TRAIN_SP_TOL``)."""
     import math
 
@@ -7628,7 +8002,7 @@ def phase_encdec_train(dev, smi):
     shape = _train_shape(t["seq"], t["batch"])
     plan = make_plan(cfg, shape, arch=cfg.name, n_devices=1, c=1)
     check(plan.remat == "attn_out", f"encdec plan {plan}")
-    batch = _encdec_batch(cfg, shape, plan, dev)
+    batch = _pipeline_batch(cfg, shape, plan, dev)
     t0 = time.perf_counter()
     grad_check = _encdec_grad_check(model, batch, shape)
     grad_check["seconds"] = time.perf_counter() - t0
@@ -7654,7 +8028,7 @@ def phase_encdec_train(dev, smi):
                          n_devices=data * c * c * r, data=data, c=c)
         check((plan.c, plan.r, plan.data) == (c, r, data)
               and plan.remat == "attn_out", f"encdec plan {plan}")
-        batch = _encdec_batch(cut.cfg, cut_shape, plan, dev)
+        batch = _pipeline_batch(cut.cfg, cut_shape, plan, dev)
         run = _repeated_steps(cut, plan, batch, t["mesh_steps"])
         losses = run["losses"]
         check(all(math.isfinite(x) for x in losses)
@@ -7692,6 +8066,497 @@ def phase_encdec_train(dev, smi):
          opt_dtype=cfg.opt_dtype, grad_check=grad_check, runs=runs,
          tol=TRAIN_SP_TOL, phase_s=time.perf_counter() - t_phase, card=smi)
     return by_path
+
+
+VLM_ARCH = "paligemma-3b"
+# paligemma-3b whole (18 layers, 3.04 B parameters, 6.07 GB of bf16): the
+# prefill of 1 x 4096 tokens (512 patches) at P = 1 through StarTrail (B2)
+# and once through the local route (B1); ``--legacy`` at P = 1 and at P = 4
+# on ThreadMesh(c=2, r=1), as (batch, prompt, new): the prompt's first
+# eighth its image prefix (128 and 8 patches); the CUDA-vs-plain check
+# teacher-forces the first ``check_positions`` generated tokens on both
+# routes
+VLM_SERVE = {"prefill": 4096, "c": 2,
+             "legacy": {1: (2, 1024, 32), 4: (2, 64, 4)},
+             "check_positions": {1: 32, 4: 3}}
+# the tokens against the full forward's argmax, strict in f32 at a depth
+# cut (its head alone is 2.1 B parameters, 8.4 GB of f32): the f32 kernels
+# at head size 256 on the path (B2 f32 in the prefill, B5 f32 in decode)
+VLM_F32_SERVE = {"layers": 4, "batch": 2, "prompt": 128, "new": 8}
+# all 18 layers train at P = 1 (seq 4096, 512 patches); the gradient check
+# in f32 on a ``check_cut``-layer copy; the P = 8 mesh (c 2, r 1, data 2)
+# runs a ``cut``-layer copy against P = 1 at the same cut and batch
+VLM_TRAIN = {"seq": 4096, "batch": 1, "steps": 3, "check_cut": 4,
+             "cut": 2, "mesh": (2, 1, 2), "mesh_batch": 2, "mesh_steps": 2}
+
+
+def _vlm_model(dev, layers=None, dtype="bfloat16"):
+    """Full-width paligemma (cut to its first ``layers`` layers when
+    given), seeded weights in ``dtype`` on the card; and the seconds its
+    init took."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.models.factory import build_model
+
+    cfg = dataclasses.replace(registry.get(VLM_ARCH), param_dtype=dtype)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    t0 = time.perf_counter()
+    model = build_model(cfg, dev, seed=0)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def _vlm_plan(cfg, n, impl="cuda"):
+    from repro_torch.plan import make_serve_plan
+
+    plan = make_serve_plan(cfg, arch=VLM_ARCH, n_devices=n,
+                           c=VLM_SERVE["c"] if n > 1 else 1,
+                           kernel_impl=impl, block_impl=impl)
+    check(plan.sp_size == n and plan.block_impl == impl
+          and plan.scheme != "ulysses", f"vlm plan {plan}")
+    return plan
+
+
+def _vlm_inputs(dev, cfg, batch, length, seed):
+    """Seeded prompt tokens (B, S) and patch embeddings (B, S, d_model):
+    the prompt's first ``int(0.125 * S)`` positions take the patches."""
+    import numpy as np
+    import torch
+
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, length))).to(dev)
+    return tokens, _encdec_frames(dev, batch, length, cfg.d_model, seed)
+
+
+def _vlm_prefill_run(model, tokens, patches):
+    """The prefill with patches (``serve.step.lm_prefill`` at P = 1) on the
+    CUDA kernels through StarTrail (B2 once a layer), then through the
+    local route (B1 once a layer), then on the plain versions: walls,
+    launches, a profiled call, peak memory; the next-token hidden state and
+    every layer's K and V of each CUDA route against the plain versions'
+    (``ENGINE_TOL``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.serve import step as serve_step
+    from repro_torch.train import step as train_step
+
+    cfg = model.cfg
+    shape = ShapeConfig("serve", tokens.shape[1], tokens.shape[0], "prefill")
+    L = cfg.num_layers
+    out, rec = {}, {}
+    for route in ("startrail", "local", "ref"):
+        impl = "ref" if route == "ref" else "cuda"
+        plan = _vlm_plan(cfg, 1, impl)
+        rt = train_step.make_runtime(model, plan.run_config(), shape)
+        rt = dataclasses.replace(rt, st_cfg=dataclasses.replace(
+            rt.st_cfg, seq_scheme="contiguous"))
+        if route == "local":
+            rt = dataclasses.replace(rt, attention_impl="local")
+
+        def run():
+            with torch.no_grad():
+                return serve_step.lm_prefill(rt, model, tokens, cfg,
+                                             return_hidden=True,
+                                             frontend_emb=patches)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts = reset_counts()
+        t0 = time.perf_counter()
+        last, cache = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(counts)
+        out[route] = [last.float(), cache["k"].float(), cache["v"].float()]
+        del cache
+        if route == "ref":
+            rec["plain_wall_s"] = wall
+            continue
+        want = launches_of(B2=L) if route == "startrail" \
+            else launches_of(B1=L)
+        check(launches == want, f"vlm prefill ({route}) launches "
+              f"{launches}: want {want}")
+        rec[route] = dict(launches=launches, wall_s=wall,
+                          profile=_profile_call(run),
+                          max_memory_allocated=torch.cuda.max_memory_allocated())
+        free_device()
+    for route in ("startrail", "local"):
+        rec[route]["cuda_vs_plain"] = compare(
+            out[route], out["ref"], f"vlm prefill ({route}) against plain",
+            names=("hidden", "k", "v"))
+    rec["local_vs_startrail"] = compare(
+        out["local"], out["startrail"], "vlm prefill local against "
+        "StarTrail", names=("hidden", "k", "v"), strict=False)
+    del out
+    free_device()
+    return rec
+
+
+def _vlm_teacher_hidden(model, n, impl, tokens, patches, seq):
+    """The hidden state after the prefill of ``tokens`` with ``patches``
+    (``launch.serve.legacy_start``) at every decode step over ``seq`` (B,
+    k), each at its own position, at P = ``n`` on ``impl``'s kernels: (B,
+    k, D) f32."""
+    import torch
+
+    from repro_torch.launch.serve import legacy_start
+
+    B, prompt = tokens.shape
+    _, caches, decode = legacy_start(model, _vlm_plan(model.cfg, n, impl),
+                                     tokens, seq.shape[1] + 1,
+                                     patches=patches)
+    hid = []
+    for t in range(seq.shape[1]):
+        cl = torch.full((B,), prompt + t, dtype=torch.int32,
+                        device=model.device)
+        hid.append(decode(caches, seq[:, t:t + 1].long(), cl,
+                          return_hidden=True).float())
+    del caches, decode
+    free_device()
+    return torch.cat(hid, dim=1)
+
+
+def _vlm_legacy_run(model, n, batch, prompt, new, seed):
+    """``--legacy`` at P = ``n`` on the CUDA kernels (``legacy_start``, then
+    ``new - 1`` decode steps timed one by one): tokens, launches (B2 on the
+    prefill's ring steps; B5 on every rank, layer and decode step), walls,
+    a profiled decode step, peak memory; then the hidden states over the
+    first ``check_positions`` generated tokens (teacher forced) on the CUDA
+    kernels and on the plain versions, within ``ENGINE_TOL``."""
+    import torch
+
+    from repro_torch.launch.serve import legacy_start
+
+    cfg = model.cfg
+    dev = model.device
+    tokens, patches = _vlm_inputs(dev, cfg, batch, prompt, seed)
+    plan = _vlm_plan(cfg, n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts = reset_counts()
+    t0 = time.perf_counter()
+    tok, caches, decode = legacy_start(model, plan, tokens, new,
+                                       patches=patches)
+    torch.cuda.synchronize()
+    start_wall = time.perf_counter() - t0
+    toks, walls = [tok], []
+    for i in range(new - 1):
+        cl = torch.full((batch,), prompt + i, dtype=torch.int32, device=dev)
+        t0 = time.perf_counter()
+        tok = decode(caches, tok.long(), cl)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        toks.append(tok)
+    launches = read_counts(counts)
+    out = torch.cat(toks, dim=1)
+    L = cfg.num_layers
+    want = launches_of(B2=L * n * plan.r, B5=L * n * (new - 1))
+    check(launches == want, f"vlm --legacy P={n} launches {launches}: want "
+          f"{want} (B2 on the prefill's ring steps; B5 on {n} ranks, {L} "
+          f"layers and {new - 1} decode steps)")
+    check(tuple(out.shape) == (batch, new)
+          and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"vlm tokens {tuple(out.shape)}: want ({batch}, {new}) in-vocab")
+    cl = torch.full((batch,), prompt + new - 1, dtype=torch.int32,
+                    device=dev)
+    decode_prof = _profile_call(lambda: decode(caches, tok.long(), cl))
+    peak = torch.cuda.max_memory_allocated()
+    del caches, decode
+    free_device()
+    seq = out[:, :VLM_SERVE["check_positions"][n]]
+    t0 = time.perf_counter()
+    hid = {impl: _vlm_teacher_hidden(model, n, impl, tokens, patches, seq)
+           for impl in ("cuda", "ref")}
+    check_s = time.perf_counter() - t0
+    errs = compare([hid["cuda"]], [hid["ref"]],
+                   f"vlm --legacy P={n} hidden states",
+                   names=("hidden",))["hidden"]
+    wall = start_wall + sum(walls)
+    return out, tokens, patches, dict(
+        batch=batch, prompt_len=prompt, patches=int(
+            cfg.prefix_len_frac * prompt), new_tokens=new,
+        launches=launches, tokens=out.tolist(), start_wall_s=start_wall,
+        decode_step_wall_ms=[1e3 * min(walls), 1e3 * statistics.median(
+            walls), 1e3 * max(walls)] if walls else None,
+        tokens_per_s=batch * new / wall, decode_step_profile=decode_prof,
+        max_memory_allocated=peak, hidden_cuda_vs_plain=errs,
+        hidden_check_positions=seq.shape[1], hidden_check_s=check_s)
+
+
+def _vlm_full_forward_check(model, tokens, patches, out, strict=True):
+    """Teacher forcing: the full forward at P = 1 over the prompt and the
+    generated tokens but the last, the patches at the *prompt's* prefix
+    (``int(0.125 * prompt_len)`` positions; a forward that derived it from
+    its own length would move it), one row at a time; each generated token
+    against its argmax (``_argmax_report``)."""
+    import torch
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.engine import sampling
+    from repro_torch.models import blocks, transformer
+    from repro_torch.train import step as train_step
+
+    cfg = model.cfg
+    B, S = tokens.shape
+    new = out.shape[1]
+    seq = torch.cat([tokens, out[:, :-1].to(tokens.dtype)], dim=1)
+    rt = train_step.make_runtime(model, RunConfig(seq_scheme="contiguous"),
+                                 _train_shape(seq.shape[1]))
+    prefix_len = int(cfg.prefix_len_frac * S)
+    is_prefix = torch.arange(seq.shape[1], device=model.device) < prefix_len
+    rows = []
+    for b in range(B):
+        with torch.no_grad():
+            x = blocks.embed(rt, model.embed, seq[b:b + 1], cfg)
+            emb = torch.zeros_like(x)
+            emb[:, :S] = patches[b:b + 1].to(x.dtype)
+            x = torch.where(is_prefix[None, :, None], emb, x)
+            x, _ = transformer.apply_stack(rt, model.layers, x, cfg,
+                                           prefix_len=prefix_len)
+            x = blocks.rmsnorm(model.final_norm, x, cfg.norm_eps)
+            logits, _ = sampling.shard_logits(
+                rt, model.head, x[0, S - 1:S - 1 + new, None], cfg)
+        rows.append(logits)
+    return _argmax_report(cfg, rows, out, strict, "vlm")
+
+
+def phase_vlm_serve(dev, smi):
+    """Phase 29: full-width paligemma-3b whole (18 layers, head size 256,
+    seeded bf16). The prefill of 1 x 4096 tokens with 512 patches at P = 1
+    through StarTrail (B2) and through the local route (B1), each against
+    the plain versions (``ENGINE_TOL``); ``--legacy`` at P = 1 (2 x 1024,
+    128 patches, 32 new) and at P = 4 on ThreadMesh(c=2, r=1) (2 x 64, 8
+    patches, 4 new), B2 on the prefill and B5 on every rank, layer and
+    decode step, the hidden states teacher forced on both routes
+    (``ENGINE_TOL``); the P = 1 tokens against the full forward's argmax
+    at the prompt's prefix, reported in bf16 and checked in f32 at a
+    4-layer cut (2 x 128, 8 new; near ties within ``HYBRID_TIE``)."""
+    t_phase = time.perf_counter()
+    model, init_s = _vlm_model(dev)
+    cfg = model.cfg
+    by_path = {}
+    t0 = time.perf_counter()
+    tokens, patches = _vlm_inputs(dev, cfg, 1, VLM_SERVE["prefill"], 5)
+    prefill = _vlm_prefill_run(model, tokens, patches)
+    prefill["run_s"] = time.perf_counter() - t0
+    by_path["vlm_prefill_p1"] = prefill["startrail"]["launches"]
+    by_path["vlm_prefill_local"] = prefill["local"]["launches"]
+    del tokens, patches
+    legacy, outs = {}, {}
+    for n, (b, s, new) in VLM_SERVE["legacy"].items():
+        t0 = time.perf_counter()
+        out, tokens, patches, rec = _vlm_legacy_run(model, n, b, s, new,
+                                                    seed=7 + n)
+        rec["run_s"] = time.perf_counter() - t0
+        legacy[f"p{n}"] = rec
+        by_path[f"vlm_legacy_p{n}"] = rec["launches"]
+        outs[n] = (out, tokens, patches)
+    t0 = time.perf_counter()
+    full_forward = _vlm_full_forward_check(model, *outs[1][1:], outs[1][0],
+                                           strict=False)
+    full_forward["seconds"] = time.perf_counter() - t0
+    from repro_torch.roofline import hw
+
+    params = model.param_count()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for name, p in model.named_parameters()
+                       if name != "embed.table")
+    b1, s1, n1 = VLM_SERVE["legacy"][1]
+    kv = 2 * cfg.num_layers * b1 * (s1 + n1) * cfg.num_kv_heads \
+        * cfg.head_dim_ * 2
+    del model, outs
+    free_device()
+    t0 = time.perf_counter()
+    f = VLM_F32_SERVE
+    model32, _ = _vlm_model(dev, layers=f["layers"], dtype="float32")
+    tokens32, patches32 = _vlm_inputs(dev, model32.cfg, f["batch"],
+                                      f["prompt"], 8)
+    from repro_torch.launch.serve import legacy_generate
+
+    out32 = legacy_generate(model32, _vlm_plan(model32.cfg, 1), tokens32,
+                            f["new"], patches=patches32)
+    full_forward_f32 = _vlm_full_forward_check(model32, tokens32, patches32,
+                                               out32)
+    full_forward_f32.update(batch=f["batch"], prompt_len=f["prompt"],
+                            new_tokens=f["new"], tokens=out32.tolist(),
+                            params=model32.param_count(),
+                            seconds=time.perf_counter() - t0)
+    del model32
+    free_device()
+    emit("vlm_serve", model=cfg.name, params=params, layers=cfg.num_layers,
+         head_dim=cfg.head_dim_, init_s=init_s, weights="seeded random bf16",
+         patches="seeded random (the JAX launcher's zeros would keep the "
+                 "prefix rows zero)",
+         prefill_tokens=VLM_SERVE["prefill"], prefill=prefill,
+         legacy=legacy, tol=ENGINE_TOL, full_forward_p1=full_forward,
+         full_forward_f32=full_forward_f32,
+         decode_bytes={"weights_and_head": weight_bytes, "kv_cache": kv,
+                       "p1_bound_ms": (weight_bytes + kv) / hw.HBM_BW * 1e3},
+         phase_s=time.perf_counter() - t_phase, card=smi)
+    return by_path
+
+
+def _vlm_train_launches(cfg, ranks, steps):
+    """B2 on every ring step (R = 1 here), twice under ``attn_out``; B3
+    once."""
+    return launches_of(B2=2 * cfg.num_layers * ranks * steps,
+                       B3=cfg.num_layers * ranks * steps)
+
+
+def _vlm_grad_check(model, batch, shape):
+    """The first step's loss and gradients on the fresh model, CUDA kernels
+    against the plain versions: reported in bf16 at full depth, checked
+    (``TRAIN_CHECK_TOL``, as ``phase_train_check``) on an f32 copy of the
+    first ``check_cut`` layers, which runs the CUDA-core f32 kernels at
+    head size 256 (PR 29 found the bf16 gradients of deep query and key
+    projections to be noise against an f32 model's)."""
+    import math
+
+    import torch
+
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.train import step as train_step
+
+    def grads(m):
+        out = {}
+        for impl in ("cuda", "ref"):
+            vg_fn, _ = train_step.build_value_and_grad_fn(
+                m, RunConfig(block_impl=impl), shape)
+            out[impl] = vg_fn(batch)
+            free_device()
+        return out
+
+    def summary(m, g, strict):
+        names = [n for n, _ in m.named_parameters()]
+        rels = {n: float((a.float() - b.float()).norm() / b.float().norm())
+                for n, a, b in zip(names, g["cuda"][1], g["ref"][1])}
+        losses = [float(g[i][0]) for i in ("cuda", "ref")]
+        loss_rel = abs(losses[0] - losses[1]) / abs(losses[1])
+        worst = max(rels, key=rels.get)
+        ok = (all(math.isfinite(x) for x in rels.values())
+              and loss_rel <= TRAIN_CHECK_TOL["loss_rel"]
+              and rels[worst] <= TRAIN_CHECK_TOL["grad_rel_l2"])
+        return {"layers": m.cfg.num_layers, "dtype": m.cfg.param_dtype,
+                "leaves": len(names),
+                "loss": {"cuda": losses[0], "ref": losses[1]},
+                "loss_rel": loss_rel, "strict": strict, "within_tol": ok,
+                "grad_rel_l2_worst": {"leaf": worst, "value": rels[worst]},
+                "grad_rel_l2_median": statistics.median(rels.values())}
+
+    rec = {"tol": TRAIN_CHECK_TOL}
+    rec["bf16"] = summary(model, grads(model), False)
+    m32 = _layers_cut(model, VLM_TRAIN["check_cut"], torch.float32)
+    rec["f32"] = summary(m32, grads(m32), True)
+    del m32
+    free_device()
+    f = rec["f32"]
+    check(f["within_tol"], f"vlm_train first step in f32: loss rel "
+          f"{f['loss_rel']}, worst grad leaf {f['grad_rel_l2_worst']}, "
+          f"beyond {TRAIN_CHECK_TOL}")
+    return rec
+
+
+def phase_vlm_train(dev, smi):
+    """Phase 30: full-width paligemma-3b whole (18 layers) trained at seq
+    4096 (512 patches), batch 1, bf16, ``attn_out`` recompute, AdamW (lr
+    1e-3, f32 moments) on one repeated batch of the pipeline's tokens and
+    patches: the first step's gradients on the fresh model, CUDA kernels
+    against the plain versions (``_vlm_grad_check``: checked in f32 on a
+    4-layer copy, reported in bf16 at full depth), then 3 steps at P = 1
+    (loss finite and falling; B2 and B3 at head size 256 on every layer,
+    the last step profiled, peak memory). Then a 2-layer cut of the same
+    weights at batch 2: 2 steps at P = 1 and 2 at P = 8 on ThreadMesh(c=2,
+    r=1, data=2) from the same weights and batch (``_pipeline_batch``: the
+    pipeline's patches laid out in the shard order), P = 8's first loss
+    and gradient norm against P = 1's (``TRAIN_SP_TOL``)."""
+    import math
+
+    from repro_torch.plan import make_plan
+
+    t_phase = time.perf_counter()
+    model, init_s = _vlm_model(dev)
+    cfg = model.cfg
+    t = VLM_TRAIN
+    cuts = [_layers_cut(model, t["cut"]) for _ in range(2)]
+    runs, by_path = {}, {}
+    shape = _train_shape(t["seq"], t["batch"])
+    plan = make_plan(cfg, shape, arch=cfg.name, n_devices=1, c=1)
+    check(plan.remat == "attn_out", f"vlm plan {plan}")
+    batch = _pipeline_batch(cfg, shape, plan, dev)
+    check(tuple(batch["frontend_emb"].shape) == (1, t["seq"], cfg.d_model),
+          f"vlm batch patches {tuple(batch['frontend_emb'].shape)}")
+    t0 = time.perf_counter()
+    grad_check = _vlm_grad_check(model, batch, shape)
+    grad_check["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = _repeated_steps(model, plan, batch, t["steps"])
+    losses = run["losses"]
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"vlm_train p1: losses {losses} must be finite and fall")
+    want = _vlm_train_launches(cfg, 1, t["steps"])
+    check(run["launches"] == want, f"vlm_train p1 launches "
+          f"{run['launches']}: want {want}")
+    run.update(run_s=time.perf_counter() - t0, layers=cfg.num_layers,
+               seq_len=shape.seq_len, batch=shape.global_batch,
+               patches=int(cfg.prefix_len_frac * shape.seq_len))
+    runs["p1"], by_path["vlm_train_p1"] = run, run["launches"]
+    params = model.param_count()
+    del model
+    free_device()
+    cut_shape = _train_shape(t["seq"], t["mesh_batch"])
+    for key, cut, (c, r, data) in (("cut_p1", cuts[0], (1, 1, 1)),
+                                   ("cut_p8", cuts[1], t["mesh"])):
+        t0 = time.perf_counter()
+        plan = make_plan(cut.cfg, cut_shape, arch=cfg.name,
+                         n_devices=data * c * c * r, data=data, c=c)
+        check((plan.c, plan.r, plan.data) == (c, r, data)
+              and plan.remat == "attn_out", f"vlm plan {plan}")
+        batch = _pipeline_batch(cut.cfg, cut_shape, plan, dev)
+        run = _repeated_steps(cut, plan, batch, t["mesh_steps"])
+        losses = run["losses"]
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0],
+              f"vlm_train {key}: losses {losses} must be finite and fall")
+        want = _vlm_train_launches(cut.cfg, data * c * c * r,
+                                   t["mesh_steps"])
+        check(run["launches"] == want, f"vlm_train {key} launches "
+              f"{run['launches']}: want {want}")
+        if key == "cut_p8":
+            p1 = runs["cut_p1"]
+            loss_err = abs(losses[0] - p1["losses"][0])
+            gnorm_rel = abs(run["grad_norm"][0] - p1["grad_norm"][0]) \
+                / p1["grad_norm"][0]
+            run.update(first_loss_abs_err_vs_p1=loss_err,
+                       first_grad_norm_rel_err_vs_p1=gnorm_rel)
+            check(loss_err <= TRAIN_SP_TOL["loss_abs"]
+                  and gnorm_rel <= TRAIN_SP_TOL["grad_norm_rel"],
+                  f"vlm_train P=8 first step: loss {losses[0]} vs P=1 "
+                  f"{p1['losses'][0]} (abs {loss_err}), grad norm "
+                  f"{run['grad_norm'][0]} vs {p1['grad_norm'][0]} (rel "
+                  f"{gnorm_rel}), beyond {TRAIN_SP_TOL}")
+        run.update(plan={"P_sp": plan.sp_size, "c": plan.c, "r": plan.r,
+                         "data": plan.data, "remat": plan.remat,
+                         "seq_scheme": plan.seq_scheme},
+                   layers=t["cut"], seq_len=cut_shape.seq_len,
+                   batch=cut_shape.global_batch,
+                   run_s=time.perf_counter() - t0)
+        runs[key] = run
+        by_path[f"vlm_train_{key}"] = run["launches"]
+    del cuts, cut
+    free_device()
+    emit("vlm_train", model=cfg.name, params=params, head_dim=cfg.head_dim_,
+         init_s=init_s, weights="seeded random bf16", remat="attn_out",
+         opt_dtype=cfg.opt_dtype, grad_check=grad_check, runs=runs,
+         tol=TRAIN_SP_TOL, phase_s=time.perf_counter() - t_phase, card=smi)
+    return by_path
+
 
 
 def free_device():
@@ -7737,6 +8602,8 @@ def main():
         phase_kernels_ulysses(dev, rows)
         free_device()
         phase_kernels_d128(dev, rows)
+        free_device()
+        phase_kernels_d256(dev, rows)
         free_device()
         by_path = {"ring": phase_ring(dev)}
         free_device()
@@ -7786,6 +8653,10 @@ def main():
         by_path.update(phase_encdec_serve(dev, smi))
         free_device()
         by_path.update(phase_encdec_train(dev, smi))
+        free_device()
+        by_path.update(phase_vlm_serve(dev, smi))
+        free_device()
+        by_path.update(phase_vlm_train(dev, smi))
         paths = {"B1": "local", "B2": "engine", "B3": "train",
                  "B4": "engine", "B5": "legacy", "B6": "prefix",
                  "B7": "ragged_bwd"}
@@ -7799,7 +8670,7 @@ def main():
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "tol", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms", "device_ms",
-            "library_device_ms", "d128")
+            "library_device_ms", "d128", "d256")
     print(f"seconds {time.perf_counter() - t_start:.1f}", flush=True)
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -3,9 +3,9 @@ paper's own models (``paper_model``).
 
 Only ported architectures are listed: the dense all-attention ones, the
 MoE family (phi3.5-moe, llama4-maverick), xLSTM (xlstm-1.3b), the
-hybrid Mamba/attention/MoE stack (jamba-1.5-large) and the
-encoder-decoder seamless-m4t-large-v2. The VLM paligemma-3b raises, naming
-the ROADMAP item that ports it.
+hybrid Mamba/attention/MoE stack (jamba-1.5-large), the encoder-decoder
+seamless-m4t-large-v2 and the VLM prefix-LM paligemma-3b: every
+architecture of the JAX reference.
 """
 
 from __future__ import annotations
@@ -26,11 +26,8 @@ _ARCH_MODULES: Dict[str, str] = {
     "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
     "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
+    "paligemma-3b": "repro_torch.configs.paligemma_3b",
 }
-
-# architectures of the JAX reference not yet ported (ROADMAP.md §A8 e,
-# the VLM prefix-LM, ports it)
-_UNPORTED = ("paligemma-3b",)
 
 PORTED_ARCHS: List[str] = list(_ARCH_MODULES)
 
@@ -38,10 +35,6 @@ PORTED_ARCHS: List[str] = list(_ARCH_MODULES)
 def _module(name: str):
     if name in _ARCH_MODULES:
         return importlib.import_module(_ARCH_MODULES[name])
-    if name in _UNPORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet (ROADMAP.md "
-            f"§A8 e: the VLM prefix-LM); ported: {PORTED_ARCHS}")
     raise KeyError(f"unknown arch {name!r}; ported: {PORTED_ARCHS}")
 
 

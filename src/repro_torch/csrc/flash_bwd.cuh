@@ -40,7 +40,7 @@
 //   k16 tile) and K read by ldmatrix.trans.
 // - dk/dv kernel: S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
 //   dK += dS^T Q, P^T and dS^T again from registers, dO and Q by
-//   ldmatrix.trans. At D = 128 the 64 query columns go in two passes of 32
+//   ldmatrix.trans. At D >= 128 the 64 query columns go in two passes of 32
 //   to hold the register count.
 // - P and dS enter their products as a bf16 hi/lo pair (split_bf16x2, two
 //   MMAs): one bf16 rounding of them would put dq, dk, dv ~3e-3 off the
@@ -69,11 +69,24 @@
 //   on an SM, the dk/dv kernel two (its registers, not shared memory, are
 //   the limit).
 //
+// - Head size 256 (paligemma-3b): the f32 accumulators (dq 16 x 256, dk
+//   and dv 16 x 256 each per warp) cannot sit in registers beside S, dP
+//   and their fragments. So above D = 128 the outputs' D is split over
+//   CTAs (bwd_dq_dv: 128 dq columns a CTA; bwd_dkv_dv: 64 dk and dv
+//   columns a CTA; the grid's x axis multiplied by D / DV): every CTA
+//   recomputes the whole S and dP over D = 256 from full tiles and forms
+//   only its columns' products, reading the K (dq) or Q and dO (dk/dv)
+//   tiles at the column offset. Six 64 x 264 bf16 tiles take ~203 KB of
+//   shared memory: one CTA per SM. The dk/dv split also gives a one kv
+//   head shape D / 64 = 4 times the CTAs (ROADMAP §B item 6's under-fill).
+//
 // f32 inputs (never on the main path; they keep the f32 tests exact) run
 // the CUDA-core kernels below (flash_bwd_dq_kernel, flash_bwd_dkv_kernel):
 // 256 threads, four adjacent lanes per row, f32 tiles of 64 x (D+1) in
 // shared memory (~100 KB dq, ~117 KB dk/dv at D = 80), every product a
-// scalar FMA loop.
+// scalar FMA loop. At D = 256 four such tiles would not fit, so the tiles
+// there have 32 rows (f32_rows) with eight lanes per row (~136 KB dq,
+// ~140 KB dk/dv).
 #pragma once
 
 #include "common.cuh"
@@ -88,6 +101,18 @@ constexpr int TPR = 4;          // threads per row (adjacent lanes)
 constexpr int COLS = 64 / TPR;  // score columns per thread
 constexpr int LDP = 64 + 1;     // padded stride of the P / dS tiles
 static_assert(BQ == 64 && BK == 64 && NT == BQ * TPR, "tile shape");
+
+// rows per tile of the f32 kernels: 64, or 32 above D = 128 (shared memory)
+template <int D>
+__host__ __device__ constexpr int f32_rows() { return D > 128 ? 32 : 64; }
+
+// the f32 kernels' tile shape at head size D (shadowing the 64-row
+// constants above inside them)
+#define F32_TILE_SHAPE(D)                                            \
+  constexpr int BQ = f32_rows<D>(), BK = BQ; /* rows per tile */     \
+  constexpr int TPR = NT / BQ;    /* threads per row (adjacent) */   \
+  constexpr int COLS = BK / TPR;  /* score columns per thread */     \
+  constexpr int LDP = BK + 1      /* padded stride of P / dS */
 
 struct BwdArgs {
   const void* q;
@@ -107,12 +132,13 @@ struct BwdArgs {
   float scale;
 };
 
-// lse, delta and positions of query rows [q0, q0 + nq) of head h; rows past
-// nq are dead (lse = -1e30), so they contribute p = 0
+// lse, delta and positions of query rows [q0, q0 + nq) of head h (a tile of
+// ROWS); rows past nq are dead (lse = -1e30), so they contribute p = 0
+template <int ROWS>
 __device__ inline void load_row_stats(const BwdArgs& a, int b, int h, int q0,
                                       int nq, int tid, float* sLse,
                                       float* sDelta, int* sPosQ) {
-  if (tid < BQ) {
+  if (tid < ROWS) {
     const bool ok = tid < nq;
     const size_t li = ((size_t)b * a.Hq + h) * a.Sq + q0 + tid;
     sLse[tid] = ok ? a.lse[li] : NEG_INF;
@@ -135,6 +161,7 @@ __device__ inline void prob_and_ds(const BwdArgs& a, bool vis, float qk,
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(BwdArgs a) {
+  F32_TILE_SHAPE(D);
   constexpr int LD = D + 1;
   constexpr int DPT = (D + TPR - 1) / TPR;      // dq columns per thread
   extern __shared__ float smem[];
@@ -166,7 +193,7 @@ flash_bwd_dq_kernel(BwdArgs a) {
                   (size_t)a.Hq * D, nq, BQ, tid, NT);
   load_rows<T, D>(sO, LD, static_cast<const T*>(a.dout) + q_off,
                   (size_t)a.Hq * D, nq, BQ, tid, NT);
-  load_row_stats(a, b, h, q0, nq, tid, sLse, sDelta, sPosQ);
+  load_row_stats<BQ>(a, b, h, q0, nq, tid, sLse, sDelta, sPosQ);
   __syncthreads();
   if (tid < 32) {
     int lo, hi;
@@ -247,6 +274,7 @@ flash_bwd_dq_kernel(BwdArgs a) {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_kernel(BwdArgs a) {
+  F32_TILE_SHAPE(D);
   constexpr int LD = D + 1;
   constexpr int DPT = (D + TPR - 1) / TPR;      // dk/dv columns per thread
   extern __shared__ float smem[];
@@ -299,7 +327,7 @@ flash_bwd_dkv_kernel(BwdArgs a) {
       const int q0 = iq * BQ;
       const int nq = min(BQ, a.Sq - q0);
       __syncthreads();  // the previous tile's smem reads are done
-      load_row_stats(a, b, h, q0, nq, tid, sLse, sDelta, sPosQ);
+      load_row_stats<BQ>(a, b, h, q0, nq, tid, sLse, sDelta, sPosQ);
       __syncthreads();
       if (tid < 32) {
         int lo, hi;
@@ -381,13 +409,15 @@ cudaError_t launch_one(Kern kern, dim3 grid, int threads, size_t smem,
 
 template <typename T, int D>
 cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  F32_TILE_SHAPE(D);
   constexpr int LD = D + 1;
-  // four f32 tiles of 64 x (D+1), the dS (and P) tiles, row stats, positions
+  // four f32 tiles of BQ x (D+1), the dS (and P) tiles, row stats,
+  // positions
   const size_t stats = 2 * sizeof(float) * BQ + sizeof(int) * (BQ + BK);
   const size_t smem_dq =
-      sizeof(float) * (4 * (size_t)64 * LD + (size_t)BQ * LDP) + stats;
+      sizeof(float) * (4 * (size_t)BQ * LD + (size_t)BQ * LDP) + stats;
   const size_t smem_dkv =
-      sizeof(float) * (4 * (size_t)64 * LD + 2 * (size_t)BK * LDP) + stats;
+      sizeof(float) * (4 * (size_t)BQ * LD + 2 * (size_t)BK * LDP) + stats;
   cudaError_t err = launch_one(flash_bwd_dq_kernel<T, D>,
                                dim3((a.Sq + BQ - 1) / BQ, a.Hq, a.B), NT,
                                smem_dq, a, stream);
@@ -404,6 +434,7 @@ cudaError_t launch_bwd_d(const BwdArgs& a, int D, cudaStream_t stream) {
     case 64: return launch_bwd<T, 64>(a, stream);
     case 80: return launch_bwd<T, 80>(a, stream);
     case 128: return launch_bwd<T, 128>(a, stream);
+    case 256: return launch_bwd<T, 256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -447,18 +478,19 @@ __device__ __forceinline__ void score_products(
   }
 }
 
-// acc += (hi + lo) B over KC k16 chunks, for the warp's 16 rows and all D
-// columns (pair_products). Each n8-tile pair's share is summed in a fresh
+// acc += (hi + lo) B over KC k16 chunks, for the warp's 16 rows and the DN
+// columns of B from `tile` (a 64 x D tile, or one offset to a column)
+// (pair_products). Each n8-tile pair's share is summed in a fresh
 // accumulator and added with one f32 add: the tensor cores' accumulation
 // truncates, so one chain over a long block would drift.
-template <int D, int KC>
-__device__ __forceinline__ void add_products(float (&acc)[D / 8][4],
+template <int D, int KC, int DN = D>
+__device__ __forceinline__ void add_products(float (&acc)[DN / 8][4],
                                              const uint32_t (&hi)[KC][4],
                                              const uint32_t (&lo)[KC][4],
                                              const bf16* tile, int row0,
                                              int lane) {
 #pragma unroll
-  for (int dn = 0; dn < D / 16; ++dn) {
+  for (int dn = 0; dn < DN / 16; ++dn) {
     float part[2][4];
     pair_products<D, KC>(part, hi, lo, tile, row0, dn, lane);
 #pragma unroll
@@ -469,10 +501,20 @@ __device__ __forceinline__ void add_products(float (&acc)[D / 8][4],
   }
 }
 
+// dq columns of one CTA of flash_bwd_dq_mma, and dk/dv columns of one CTA
+// of flash_bwd_dkv_mma: all D up to 128; above, D is split over CTAs (the
+// register budget, module doc)
+template <int D>
+__host__ __device__ constexpr int bwd_dq_dv() { return D > 128 ? 128 : D; }
+template <int D>
+__host__ __device__ constexpr int bwd_dkv_dv() { return D > 128 ? 64 : D; }
+
 template <int D>
 __global__ void __launch_bounds__(MMA_NT)
 flash_bwd_dq_mma(BwdArgs a) {
   constexpr int TILE = MmaTile<D>::ELEMS;
+  constexpr int DV = bwd_dq_dv<D>();  // dq columns [d0, d0 + DV) here
+  constexpr int NDS = D / DV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   bf16* sO = sQ + TILE;                   // dO
@@ -486,7 +528,8 @@ flash_bwd_dq_mma(BwdArgs a) {
   const int lane = tid & 31;
   const int gr = lane >> 2;  // fragment row (and + 8)
   const int tq = lane & 3;   // fragment column pair
-  const int h = blockIdx.x;
+  const int h = blockIdx.x / NDS;
+  const int d0 = (blockIdx.x % NDS) * DV;
   const int b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;  // heaviest first
   const int kvh = h / (a.Hq / a.Hkv);
@@ -544,7 +587,7 @@ flash_bwd_dq_mma(BwdArgs a) {
   cp_async_commit();  // with Q and dO
 
   const float sl2 = a.scale * LOG2E;
-  float acc[D / 8][4] = {};  // dq of the warp's 16 rows, n8 tiles over D
+  float acc[DV / 8][4] = {};  // dq of the warp's 16 rows, n8 tiles over DV
 
   for (int buf = 0; t < n_k; buf ^= 1) {
     const int tn = next_live(t + 1);
@@ -585,8 +628,8 @@ flash_bwd_dq_mma(BwdArgs a) {
                    dsl[j >> 1][(j & 1) * 2 + 1]);
     }
 
-    // dQ += dS K (K as the k x n operand)
-    add_products<D, 4>(acc, dsh, dsl, kt, 0, lane);
+    // dQ += dS K (K's columns [d0, d0 + DV) as the k x n operand)
+    add_products<D, 4, DV>(acc, dsh, dsl, kt + d0, 0, lane);
     __syncthreads();  // buf is refilled by the next iteration's fetch
     t = tn;
   }
@@ -596,9 +639,10 @@ flash_bwd_dq_mma(BwdArgs a) {
   for (int i = 0; i < 2; ++i) {
     const int row = 16 * warp + gr + 8 * i;
     if (row >= nq) continue;
-    float* out = a.dq + ((size_t)(b * a.Sq + q0 + row) * a.Hq + h) * D;
+    float* out =
+        a.dq + ((size_t)(b * a.Sq + q0 + row) * a.Hq + h) * D + d0;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DV / 8; ++n)
       *reinterpret_cast<float2*>(out + 8 * n + 2 * tq) = make_float2(
           acc[n][2 * i] * a.scale, acc[n][2 * i + 1] * a.scale);
   }
@@ -608,6 +652,8 @@ template <int D>
 __global__ void __launch_bounds__(MMA_NT)
 flash_bwd_dkv_mma(BwdArgs a) {
   constexpr int TILE = MmaTile<D>::ELEMS;
+  constexpr int DV = bwd_dkv_dv<D>();  // dk/dv columns [d0, d0 + DV) here
+  constexpr int NDS = D / DV;
   constexpr int NC = D > 80 ? 32 : 64;  // query columns per pass
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);
@@ -624,7 +670,8 @@ flash_bwd_dkv_mma(BwdArgs a) {
   const int lane = tid & 31;
   const int gr = lane >> 2;
   const int tq = lane & 3;
-  const int kvh = blockIdx.x;
+  const int kvh = blockIdx.x / NDS;
+  const int d0 = (blockIdx.x % NDS) * DV;
   const int b = blockIdx.y;
   const int k0 = blockIdx.z * BK;  // key tile 0 (heaviest when causal) first
   const int G = a.Hq / a.Hkv;
@@ -684,7 +731,7 @@ flash_bwd_dkv_mma(BwdArgs a) {
   cp_async_commit();  // with K and V
 
   const float sl2 = a.scale * LOG2E;
-  float dk[D / 8][4] = {}, dv[D / 8][4] = {};  // the warp's 16 keys
+  float dk[DV / 8][4] = {}, dv[DV / 8][4] = {};  // the warp's 16 keys
 
   for (int buf = 0; g < G; buf ^= 1) {
     int gn = g, iqn = iq + 1;
@@ -744,8 +791,8 @@ flash_bwd_dkv_mma(BwdArgs a) {
 
       // dV += P^T dO, then dK += dS^T Q (dO, Q as the k x n operands):
       // P's fragments are dead before dK's products start
-      add_products<D, NC / 16>(dv, ph, pl, ot, hc * NC, lane);
-      add_products<D, NC / 16>(dk, dsh, dsl, qt, hc * NC, lane);
+      add_products<D, NC / 16, DV>(dv, ph, pl, ot + d0, hc * NC, lane);
+      add_products<D, NC / 16, DV>(dk, dsh, dsl, qt + d0, hc * NC, lane);
     }
     __syncthreads();  // buf is refilled by the next iteration's fetch
     g = gn;
@@ -757,9 +804,10 @@ flash_bwd_dkv_mma(BwdArgs a) {
   for (int i = 0; i < 2; ++i) {
     const int row = 16 * warp + gr + 8 * i;
     if (row >= nk) continue;
-    const size_t o_row = ((size_t)(b * a.Sk + k0 + row) * a.Hkv + kvh) * D;
+    const size_t o_row =
+        ((size_t)(b * a.Sk + k0 + row) * a.Hkv + kvh) * D + d0;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       const int d = 8 * n + 2 * tq;
       *reinterpret_cast<float2*>(a.dk + o_row + d) = make_float2(
           dk[n][2 * i] * a.scale, dk[n][2 * i + 1] * a.scale);
@@ -786,13 +834,15 @@ size_t smem_dkv_mma(const BwdArgs& a) {
 
 template <int D>
 cudaError_t launch_bwd_mma(const BwdArgs& a, cudaStream_t stream) {
-  cudaError_t err = launch_one(flash_bwd_dq_mma<D>,
-                               dim3(a.Hq, a.B, (a.Sq + BQ - 1) / BQ), MMA_NT,
-                               smem_dq_mma<D>(a), a, stream);
+  cudaError_t err = launch_one(
+      flash_bwd_dq_mma<D>,
+      dim3(a.Hq * (D / bwd_dq_dv<D>()), a.B, (a.Sq + BQ - 1) / BQ), MMA_NT,
+      smem_dq_mma<D>(a), a, stream);
   if (err != cudaSuccess) return err;
-  return launch_one(flash_bwd_dkv_mma<D>,
-                    dim3(a.Hkv, a.B, (a.Sk + BK - 1) / BK), MMA_NT,
-                    smem_dkv_mma<D>(a), a, stream);
+  return launch_one(
+      flash_bwd_dkv_mma<D>,
+      dim3(a.Hkv * (D / bwd_dkv_dv<D>()), a.B, (a.Sk + BK - 1) / BK), MMA_NT,
+      smem_dkv_mma<D>(a), a, stream);
 }
 
 inline cudaError_t launch_bwd_mma_d(const BwdArgs& a, int D,
@@ -802,6 +852,7 @@ inline cudaError_t launch_bwd_mma_d(const BwdArgs& a, int D,
     case 64: return launch_bwd_mma<64>(a, stream);
     case 80: return launch_bwd_mma<80>(a, stream);
     case 128: return launch_bwd_mma<128>(a, stream);
+    case 256: return launch_bwd_mma<256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -824,6 +875,7 @@ inline cudaError_t bwd_occupancy(const BwdArgs& a, int D, int* out) {
     case 64: return bwd_occupancy_mma<64>(a, out);
     case 80: return bwd_occupancy_mma<80>(a, out);
     case 128: return bwd_occupancy_mma<128>(a, out);
+    case 256: return bwd_occupancy_mma<256>(a, out);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -18,8 +18,9 @@
 // by a hair (B2 adds the f32 accumulator in and is bound by bytes). At the
 // training shape (seq 4096) B2 is bound by operations: 86 GFLOP, 0.087 ms.
 // The hi/lo pair doubles the P V products, so the kernel issues 6*D MMA
-// FLOPs per visible pair and query head against the bound's 4*D. With f32
-// inputs the f32 peak makes it bound by operations.
+// FLOPs per visible pair and query head against the bound's 4*D (at
+// D = 256, whose output is split over two CTAs that each recompute S,
+// 8*D). With f32 inputs the f32 peak makes it bound by operations.
 
 #include "flash_fwd.cuh"
 
@@ -86,6 +87,7 @@ extern "C" int repro_flash_fwd_occupancy(int Sq, int G, int Sk, int D,
     case 64: return (int)fwd_occupancy<64>(a, out);
     case 80: return (int)fwd_occupancy<80>(a, out);
     case 128: return (int)fwd_occupancy<128>(a, out);
+    case 256: return (int)fwd_occupancy<256>(a, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

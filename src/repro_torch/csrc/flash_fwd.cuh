@@ -38,7 +38,7 @@
 //   Sq * G only help load.
 // - When every live row fits one 16-row slab (Sq * G <= 16: the decode
 //   shape) and there is no merge (B1, B5), the keys are split inside the
-//   CTA instead: each of 4 warps (2 at D = 128) computes those rows
+//   CTA instead: each of 4 warps (2 at D = 128, 256) computes those rows
 //   against every 4th live K/V tile with its own cp.async double buffer,
 //   and the warps' (m, l, acc) are merged in warp order at the end (the
 //   same merge as alpha's, so dead rows stay exact and two runs give the
@@ -72,6 +72,18 @@
 // - ~57 KB of dynamic shared memory at D = 80 (Q, two K and two V tiles,
 //   positions, a flag byte per K tile): three CTAs per SM at ~166
 //   registers; ~194 KB with the keys split (one CTA per SM).
+// - Head size 256 (paligemma-3b): Q's fragments alone would be 64
+//   registers a thread and the f32 output accumulator 128, past the 255
+//   limit with S and P. So above D = 128 the output's D is split over
+//   CTAs (fwd_dv: 128 output columns each, the grid's x axis Hkv * 2):
+//   each CTA computes the whole S = Q K^T (QK^T twice over the pair, the
+//   price of the split) but P V and the accumulator only for its 128
+//   columns, from a V tile of those columns; Q's fragments are read from
+//   shared memory by ldmatrix for each K tile instead of being held. Both
+//   CTAs compute the same softmax state bit for bit; the first writes lse.
+//   Shared memory: Q (64 x 264), two K tiles (64 x 264) and two half V
+//   tiles (64 x 136), ~136 KB, one CTA per SM; with the keys split the Q
+//   tile is the 16 live rows, so two walking warps' buffers fit (~214 KB).
 // - The paged source (PAGED, B4 and B6): K and V are read from the pools
 //   (pages_loc, page_size, Hkv, D) through a page table. A 64-key tile is
 //   64 / page_size (floor) consecutive table entries, row r being slot
@@ -89,7 +101,8 @@
 // f32 inputs (never on the main path; they keep the f32 tests exact) run
 // the CUDA-core kernel flash_fwd_kernel: one CTA of 256 threads per
 // (b, h, 64-row query tile), four threads per query row, Q, K and V staged
-// in shared memory as f32 with a D+1 stride, every product a scalar FMA.
+// in shared memory as f32 with a D+1 stride, every product a scalar FMA
+// (~214 KB of shared memory at D = 256, one CTA per SM).
 // tile_update serves only f32 inputs: flash_fwd_kernel's and B6's
 // (paged_prefill.cu: paged_prefill_kernel).
 #pragma once
@@ -334,10 +347,22 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // Warps that walk the K/V tiles apart when the live rows of a CTA fit one
-// 16-row slab (Sq * G <= 16, the decode shape): 4, or 2 at D = 128, where
-// 4 warps' double buffers would not fit in shared memory
+// 16-row slab (Sq * G <= 16, the decode shape): 4, or 2 at D = 128 and
+// 256, where 4 warps' double buffers would not fit in shared memory
 template <int D>
 __host__ __device__ constexpr int fwd_ksplit() { return D > 80 ? 2 : 4; }
+
+// Output columns per CTA: all D up to 128; above, the output's D is split
+// over D / 128 CTAs (the register budget, module doc)
+template <int D>
+__host__ __device__ constexpr int fwd_dv() { return D > 128 ? 128 : D; }
+
+// Rows of the Q tile in shared memory: 64, or with the keys split above
+// D = 128 only the 16 rows of slab 0 (the others are never live there)
+template <int D, bool SPLIT>
+__host__ __device__ constexpr int fwd_qrows() {
+  return SPLIT && D > 128 ? 16 : BQ;
+}
 
 __host__ __device__ inline bool fwd_split(const FwdArgs& a) {
   return (long long)a.Sq * (a.Hq / a.Hkv) <= 16;
@@ -356,14 +381,17 @@ __host__ __device__ inline int n_key_tiles(const FwdArgs& a, bool paged) {
 }
 
 // Shared memory of flash_fwd_mma: the Q tile, double buffers of K and V
-// tiles (bf16, row stride D + 8) and of their key positions (one pair per
-// CTA, or per walking warp when the keys are split), with PAGED the row's
-// W table entries, one flag byte per K tile.
+// tiles (bf16, row stride D + 8; V holds the CTA's fwd_dv columns) and of
+// their key positions (one pair per CTA, or per walking warp when the keys
+// are split), with PAGED the row's W table entries, one flag byte per K
+// tile.
 template <int D, bool SPLIT, bool PAGED = false>
 size_t smem_fwd_mma(const FwdArgs& a) {
   const int pairs = 2 * (SPLIT ? fwd_ksplit<D>() : 1);
-  return (1 + 2 * pairs) * MmaTile<D>::BYTES + pairs * sizeof(int) * BK +
-         (PAGED ? sizeof(int) * a.pg.W : 0) + n_key_tiles(a, PAGED);
+  return sizeof(bf16) * fwd_qrows<D, SPLIT>() * MmaTile<D>::LDS +
+         pairs * (MmaTile<D>::BYTES + MmaTile<fwd_dv<D>()>::BYTES) +
+         pairs * sizeof(int) * BK + (PAGED ? sizeof(int) * a.pg.W : 0) +
+         n_key_tiles(a, PAGED);
 }
 
 // The paged source's entry w of row b as the Pallas kernels' pl.when tests
@@ -440,19 +468,30 @@ __device__ inline void paged_tile_flags(unsigned char* flags,
 // axis splits the live K/V tiles over CTAs too (split-KV): CTA z's warp w
 // walks live tiles z * KSPLIT + w, ... in steps of gridDim.z * KSPLIT, and
 // the last CTA of a (b, kv head) merges the CTAs' partials in split order.
+// Above D = 128 (fwd_dv) the grid's x axis is Hkv * D / DV: CTA x takes
+// kv head x / (D / DV) and output columns [d0, d0 + DV), d0 = DV (x % (D /
+// DV)); Q's fragments are then read from shared memory for each K tile.
 template <int D, bool MERGE, bool SPLIT, bool PAGED = false>
 __global__ void __launch_bounds__(MMA_NT)
 flash_fwd_mma(FwdArgs a) {
   constexpr int LDS = MmaTile<D>::LDS;
   constexpr int TILE = MmaTile<D>::ELEMS;
+  constexpr int DV = fwd_dv<D>();           // output columns of this CTA
+  constexpr int NDS = D / DV;               // CTAs over the output's D
+  constexpr bool QREG = DV == D;            // Q's fragments in registers
+  constexpr int VTILE = MmaTile<DV>::ELEMS;
+  constexpr int QROWS = fwd_qrows<D, SPLIT>();
   constexpr int CPR = D / 8;  // 16-byte chunks per row
   constexpr float LN2 = 0.6931471805599453f;
   constexpr int KSPLIT = fwd_ksplit<D>();
   constexpr int pairs = 2 * (SPLIT ? KSPLIT : 1);  // K/V buffer pairs
+  static_assert(!PAGED || NDS == 1, "the paged source takes D <= 128");
+  static_assert(QROWS * CPR % MMA_NT == 0, "whole Q chunks per thread");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sKV = sQ + TILE;  // K/V buffer pair j: K at 2 j TILE, V after it
-  int* sPosK = reinterpret_cast<int*>(sKV + 2 * pairs * TILE);  // BK each
+  // K/V buffer pair j: K at j (TILE + VTILE), V (DV columns) after it
+  bf16* sKV = sQ + QROWS * LDS;
+  int* sPosK = reinterpret_cast<int*>(sKV + pairs * (TILE + VTILE));
   int* sPage = sPosK + pairs * BK;  // PAGED: the W entries, -1 = dead page
   unsigned char* sFlag =
       reinterpret_cast<unsigned char*>(sPage + (PAGED ? a.pg.W : 0));
@@ -462,7 +501,8 @@ flash_fwd_mma(FwdArgs a) {
   const int lane = tid & 31;
   const int gr = lane >> 2;  // fragment row (and + 8)
   const int tq = lane & 3;   // fragment column pair
-  const int kvh = blockIdx.x;
+  const int kvh = blockIdx.x / NDS;
+  const int d0 = (blockIdx.x % NDS) * DV;   // this CTA's output columns
   const int b = blockIdx.y;
   const int G = a.Hq / a.Hkv;
   const int rows = a.Sq * G;                           // packed rows
@@ -486,9 +526,9 @@ flash_fwd_mma(FwdArgs a) {
   const bf16* q = static_cast<const bf16*>(a.q) +
                   ((size_t)b * a.Sq * a.Hq + (size_t)kvh * G) * D;
 
-  // Q: 64 packed rows; the rows past Sq * G are zero-filled
+  // Q: 64 (QROWS) packed rows; the rows past Sq * G are zero-filled
 #pragma unroll
-  for (int it = 0; it < BQ * CPR / MMA_NT; ++it) {
+  for (int it = 0; it < QROWS * CPR / MMA_NT; ++it) {
     const int e = tid + it * MMA_NT;
     const int r = e / CPR;
     const int c = e - r * CPR;
@@ -499,17 +539,17 @@ flash_fwd_mma(FwdArgs a) {
   }
   cp_async_commit();
 
-  // this thread's packed rows 16 slab + gr and + 8: query position, and
-  // the output row (-1 past Sq * G: computed on zeros, never written)
+  // this thread's packed rows 16 slab + gr and + 8: query position (a
+  // row past Sq * G is computed on zeros at query i_lo's, never written;
+  // its output row is recomputed in the epilogue, not held across the key
+  // loop: at D = 256 holding it spilled the merge kernel's registers)
   const int slab = SPLIT ? 0 : warp;
-  int pq[2], qi[2], hh[2];
+  int pq[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int R = R0 + 16 * slab + gr + 8 * i;
-    const bool ok = R < rows;
-    qi[i] = ok ? R / G : -1;
-    hh[i] = ok ? kvh * G + R % G : 0;
-    pq[i] = PAGED ? len_b + (ok ? qi[i] : i_lo) : pos_q[ok ? qi[i] : i_lo];
+    const int qr = R < rows ? R / G : i_lo;
+    pq[i] = PAGED ? len_b + qr : pos_q[qr];
   }
   const bool warp_live = SPLIT ? warp < KSPLIT : R0 + 16 * warp < rows;
   int qlo, qhi;
@@ -545,7 +585,7 @@ flash_fwd_mma(FwdArgs a) {
   };
   auto fetch = [&](int t, int buf) {
     const int slot = SPLIT ? 2 * warp + buf : buf;
-    bf16* kd = sKV + 2 * slot * TILE;
+    bf16* kd = sKV + slot * (TILE + VTILE);
     if constexpr (PAGED) {
       // two threads per row, each with every other 16-byte chunk: the row's
       // pool row through the table, zero-filled where it holds no valid key
@@ -573,13 +613,13 @@ flash_fwd_mma(FwdArgs a) {
       const int k0 = t * BK;
       const int nk = min(BK, a.Sk - k0);
       const bf16* ks = k + k0 * kv_stride;
-      const bf16* vs = v + k0 * kv_stride;
+      const bf16* vs = v + k0 * kv_stride + d0;
       if (SPLIT) {
         tile_async<D, 32>(kd, ks, kv_stride, nk, lane);
-        tile_async<D, 32>(kd + TILE, vs, kv_stride, nk, lane);
+        tile_async<DV, 32>(kd + TILE, vs, kv_stride, nk, lane);
       } else {
         tile_async<D>(kd, ks, kv_stride, nk, tid);
-        tile_async<D>(kd + TILE, vs, kv_stride, nk, tid);
+        tile_async<DV>(kd + TILE, vs, kv_stride, nk, tid);
       }
       for (int r = SPLIT ? lane : tid; r < BK; r += SPLIT ? 32 : MMA_NT)
         cp_async_4(sPosK + slot * BK + r, pos_k + k0 + (r < nk ? r : 0),
@@ -598,17 +638,20 @@ flash_fwd_mma(FwdArgs a) {
   cp_async_commit();
   cp_async_wait<1>();  // Q landed
   __syncthreads();
-  uint32_t qf[D / 16][4];  // Q's A fragments, k16 chunks over D
+  // Q's A fragments, k16 chunks over D: held in registers up to D = 128,
+  // read from shared memory for each K tile above
+  const bf16* qa_row = sQ + (16 * slab + (lane & 15)) * LDS + (lane >> 4) * 8;
+  uint32_t qf[QREG ? D / 16 : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(qf[kk], sQ + (16 * slab + (lane & 15)) * LDS + kk * 16 +
-                        (lane >> 4) * 8);
+    for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], qa_row + kk * 16);
+  }
 
   const float sl2 = a.scale * LOG2E;
   // running max (log2 units: s * scale * log2 e), sum and output of the
-  // thread's two rows; acc holds n8 tiles over D
+  // thread's two rows; acc holds n8 tiles over the CTA's DV columns
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
-  float acc[D / 8][4] = {};
+  float acc[DV / 8][4] = {};
 
   for (int buf = 0; t < n_k; buf ^= 1) {
     const int tn = advance(t, step);
@@ -618,7 +661,7 @@ flash_fwd_mma(FwdArgs a) {
     sync();
     if (warp_live) {
       const int slot = SPLIT ? 2 * warp + buf : buf;
-      const bf16* kt = sKV + 2 * slot * TILE;
+      const bf16* kt = sKV + slot * (TILE + VTILE);
       const bf16* vt = kt + TILE;
       const int* pk = sPosK + slot * BK;
       const int nk = PAGED ? BK : min(BK, a.Sk - t * BK);
@@ -632,13 +675,20 @@ flash_fwd_mma(FwdArgs a) {
         for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qa[4];
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+        } else {
+          ldsm_x4(qa, qa_row + kk * 16);
+        }
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           uint32_t y[4];
           ldsm_x4(y, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS +
                          kk * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], qf[kk], y[0], y[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], y[2], y[3]);
+          mma_bf16(s[2 * np], qa, y[0], y[1]);
+          mma_bf16(s[2 * np + 1], qa, y[2], y[3]);
         }
       }
 
@@ -711,9 +761,9 @@ flash_fwd_mma(FwdArgs a) {
 
       // acc = acc * alpha + P V, this tile's P V in a fresh accumulator
 #pragma unroll
-      for (int dn = 0; dn < D / 16; ++dn) {
+      for (int dn = 0; dn < DV / 16; ++dn) {
         float part[2][4];
-        pair_products<D, 4>(part, ph, pl, vt, 0, dn, lane);
+        pair_products<DV, 4>(part, ph, pl, vt, 0, dn, lane);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           acc[2 * dn][e] = fmaf(acc[2 * dn][e], alpha[e >> 1], part[0][e]);
@@ -732,7 +782,7 @@ flash_fwd_mma(FwdArgs a) {
     // through shared memory (the K/V buffers are free now)
     float* sM = reinterpret_cast<float*>(sKV);  // [KSPLIT][16]
     float* sL = sM + KSPLIT * 16;               // [KSPLIT][16]
-    float* sA = sL + KSPLIT * 16;               // [KSPLIT][16][D]
+    float* sA = sL + KSPLIT * 16;               // [KSPLIT][16][DV]
     __syncthreads();
     if (warp_live) {
 #pragma unroll
@@ -743,8 +793,8 @@ flash_fwd_mma(FwdArgs a) {
           sL[r] = l[i];
         }
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<float2*>(sA + r * D + 8 * n + 2 * tq) =
+        for (int n = 0; n < DV / 8; ++n)
+          *reinterpret_cast<float2*>(sA + r * DV + 8 * n + 2 * tq) =
               make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
       }
     }
@@ -765,12 +815,12 @@ flash_fwd_mma(FwdArgs a) {
           l_tot += wt[w] * sL[w * 16 + r];
         }
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
+        for (int n = 0; n < DV / 8; ++n) {
           float2 sum = make_float2(0.0f, 0.0f);
 #pragma unroll
           for (int w = 0; w < KSPLIT; ++w) {
             const float2 x = *reinterpret_cast<const float2*>(
-                sA + (w * 16 + r) * D + 8 * n + 2 * tq);
+                sA + (w * 16 + r) * DV + 8 * n + 2 * tq);
             sum.x += wt[w] * x.x;
             sum.y += wt[w] * x.y;
           }
@@ -848,12 +898,14 @@ flash_fwd_mma(FwdArgs a) {
   // _block_partial, then (MERGE) combine_pair with the running accumulator
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (qi[i] < 0 || (SPLIT && warp != 0)) continue;
+    const int R = R0 + 16 * slab + gr + 8 * i;  // the output row
+    if (R >= rows || (SPLIT && warp != 0)) continue;
+    const int qi = R / G, hh = kvh * G + R % G;
     const bool dead = m[i] <= DEAD;
     const float l_safe = l[i] == 0.0f ? 1.0f : l[i];
     float lse_out = dead ? NEG_INF : m[i] * LN2 + logf(l_safe);
-    const size_t o_row = ((size_t)(b * a.Sq + qi[i]) * a.Hq + hh[i]) * D;
-    const size_t l_idx = ((size_t)b * a.Hq + hh[i]) * a.Sq + qi[i];
+    const size_t o_row = ((size_t)(b * a.Sq + qi) * a.Hq + hh) * D + d0;
+    const size_t l_idx = ((size_t)b * a.Hq + hh) * a.Sq + qi;
     float w1 = 0.0f, w2 = 1.0f, denom_safe = 1.0f;
     if (MERGE) {
       const float lse_prev = a.lse_acc[l_idx];
@@ -867,7 +919,7 @@ flash_fwd_mma(FwdArgs a) {
       lse_out = both_dead ? NEG_INF : m2_safe + logf(denom_safe);
     }
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       const int d = 8 * n + 2 * tq;
       float2 o = make_float2(acc[n][2 * i] / l_safe,
                              acc[n][2 * i + 1] / l_safe);
@@ -879,7 +931,7 @@ flash_fwd_mma(FwdArgs a) {
       }
       *reinterpret_cast<float2*>(a.o + o_row + d) = o;
     }
-    if (tq == 0) a.lse[l_idx] = lse_out;
+    if (tq == 0 && d0 == 0) a.lse[l_idx] = lse_out;
   }
 }
 
@@ -892,7 +944,8 @@ cudaError_t launch_fwd_mma_as(const FwdArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const long long tiles = ((long long)a.Sq * (a.Hq / a.Hkv) + BQ - 1) / BQ;
   if (tiles > 65535) return cudaErrorInvalidConfiguration;
-  kern<<<dim3(a.Hkv, a.B, (unsigned)tiles), MMA_NT, smem, stream>>>(a);
+  kern<<<dim3(a.Hkv * (D / fwd_dv<D>()), a.B, (unsigned)tiles), MMA_NT, smem,
+         stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -948,6 +1001,8 @@ cudaError_t launch_fwd_d(const FwdArgs& a, int D, cudaStream_t stream) {
                        : launch_fwd<float, 80, MERGE>(a, stream);
     case 128: return TC ? launch_fwd_mma<128, MERGE>(a, stream)
                         : launch_fwd<float, 128, MERGE>(a, stream);
+    case 256: return TC ? launch_fwd_mma<256, MERGE>(a, stream)
+                        : launch_fwd<float, 256, MERGE>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -28,7 +28,11 @@ import torch
 from repro_torch.core.combine import combine_pair
 from repro_torch.kernels import ref
 
-HEAD_DIMS = (32, 64, 80, 128)
+# head sizes of B1, B2, B3 (and B5, B7 through the same templates); B4 and
+# B6 keep PAGED_HEAD_DIMS: the engine, their only caller, refuses the
+# family that needs 256 (ROADMAP.md §B item 5)
+HEAD_DIMS = (32, 64, 80, 128, 256)
+PAGED_HEAD_DIMS = (32, 64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Dict[str, int] = {"B1": 0, "B2": 0, "B3": 0}
@@ -75,6 +79,19 @@ def _check(name, t, shape, dtypes, device):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def check_head_dim(D: int, dims) -> None:
+    """Raise unless the kernel takes head size ``D`` (``dims``); a paged
+    kernel at 256 names the ROADMAP item that would add it."""
+    if D in dims:
+        return
+    if D in HEAD_DIMS:
+        raise ValueError(
+            f"head_dim {D}: the paged kernels (B4, B6) take {dims}; head "
+            "size 256 waits on ROADMAP.md §B item 5 (the engine refuses the "
+            "family that needs it)")
+    raise ValueError(f"head_dim {D} not in the kernel's {dims}")
+
+
 def _check_block(q, k, v, pos_q, pos_k):
     """Check the (Q block x K/V block) inputs a kernel takes on the card;
     returns (B, Sq, Hq, D, Sk, Hkv)."""
@@ -82,8 +99,7 @@ def _check_block(q, k, v, pos_q, pos_k):
     _, Sk, Hkv, _ = k.shape
     if Hkv < 1 or Hq % Hkv:
         raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in the kernel's {HEAD_DIMS}")
+    check_head_dim(D, HEAD_DIMS)
     dev = q.device
     dts = (q.dtype,)
     _check("q", q, (B, Sq, Hq, D), DTYPES, dev)

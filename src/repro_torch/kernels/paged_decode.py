@@ -25,7 +25,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, _check
+from repro_torch.kernels.flash_attention import (
+    DTYPES, PAGED_HEAD_DIMS, _check, check_head_dim)
 
 LAUNCHES: Dict[str, int] = {"B4": 0}
 # the ranks of a ThreadMesh engine launch B4 from their own threads
@@ -106,8 +107,7 @@ def paged_decode_attention(q, pool_k, pool_v, table, cache_len, rank: int,
             page_size=page_size, window=window, scale=scale)
     from repro_torch.kernels import _build
 
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in the kernel's {HEAD_DIMS}")
+    check_head_dim(D, PAGED_HEAD_DIMS)
     if Hq % Hkv or Hq // Hkv > 16 or not 1 <= page_size <= 64:
         raise ValueError(f"kernel takes G = Hq/Hkv <= 16 and page_size <= "
                          f"64, got Hq={Hq} Hkv={Hkv} page_size={page_size}")

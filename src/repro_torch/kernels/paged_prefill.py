@@ -29,7 +29,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, _check
+from repro_torch.kernels.flash_attention import (
+    DTYPES, PAGED_HEAD_DIMS, _check, check_head_dim)
 
 LAUNCHES: Dict[str, int] = {"B6": 0}
 # the ranks of a ThreadMesh engine launch B6 from their own threads
@@ -83,8 +84,7 @@ def paged_prefill_attention(q, pool_k, pool_v, table, cached_len, rank: int,
             page_size=page_size, window=window, scale=scale)
     from repro_torch.kernels import _build
 
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in the kernel's {HEAD_DIMS}")
+    check_head_dim(D, PAGED_HEAD_DIMS)
     if Hq % Hkv or page_size < 1 or TILE_KEYS % page_size:
         raise ValueError(f"kernel takes Hq % Hkv == 0 and a page_size that "
                          f"divides {TILE_KEYS}, got Hq={Hq} Hkv={Hkv} "

@@ -24,7 +24,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, _check
+from repro_torch.kernels.flash_attention import (
+    DTYPES, HEAD_DIMS, _check, check_head_dim)
 from repro_torch.kernels.ragged_prefill import _batched
 
 LAUNCHES: Dict[str, int] = {"B7": 0}
@@ -65,8 +66,7 @@ def flash_attention_bwd_ragged(q, k, v, do, lse, delta, pos_q, pos_k, *,
     _, Sk, Hkv, _ = k.shape
     if Hkv < 1 or Hq % Hkv:
         raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in the kernel's {HEAD_DIMS}")
+    check_head_dim(D, HEAD_DIMS)
     dev = q.device
     pos_q, pos_k = _batched(pos_q, B), _batched(pos_k, B)
     _check("q", q, (B, Sq, Hq, D), DTYPES, dev)

@@ -21,7 +21,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, _check
+from repro_torch.kernels.flash_attention import (
+    DTYPES, HEAD_DIMS, _check, check_head_dim)
 
 LAUNCHES: Dict[str, int] = {"B5": 0}
 
@@ -64,8 +65,7 @@ def ragged_prefill_fwd(q, k, v, pos_q, pos_k, *, causal=True,
     _, Sk, Hkv, _ = k.shape
     if Hkv < 1 or Hq % Hkv:
         raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in the kernel's {HEAD_DIMS}")
+    check_head_dim(D, HEAD_DIMS)
     dev = q.device
     pos_q, pos_k = _batched(pos_q, B), _batched(pos_k, B)
     _check("q", q, (B, Sq, Hq, D), DTYPES, dev)

@@ -43,7 +43,7 @@ the cache expanded to capacity (padded to a multiple of the SP degree),
 then ``--gen - 1`` decode steps against the contiguous cache (kernel B5
 once per rank, layer and step on the card). It runs on the plan's ranks
 (``--devices N``, one ``ThreadMesh`` thread each) and is the only path
-that serves the xLSTM, hybrid and encoder-decoder families, which the
+that serves the xLSTM, hybrid, encoder-decoder and VLM families, which the
 engine refuses, as the JAX engine does. For the encoder-decoder
 (``--arch seamless-m4t-large-v2``) the batch also gets ``--prompt-len``
 frames of seeded random embeddings (``--seed``), which the encoder
@@ -52,6 +52,14 @@ a time, each at its own position, before the ``--gen`` new tokens:
 
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch seamless-m4t-large-v2 --smoke --device cpu --legacy
+
+For the VLM (``--arch paligemma-3b``) the batch gets ``--prompt-len`` seeded
+random patch embeddings, whose first ``int(0.125 * prompt_len)`` replace
+the prompt's embeddings as its bidirectional image prefix (the JAX
+launcher feeds zeros, which keep the prefix rows zero in every layer):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch paligemma-3b \\
+      --smoke --device cpu --legacy --devices 4 --c 2 --prompt-len 16
 
 For the xLSTM family:
 
@@ -97,7 +105,7 @@ card.
 import argparse
 
 
-def legacy_start(model, plan, tokens, gen: int, frames=None):
+def legacy_start(model, plan, tokens, gen: int, frames=None, patches=None):
     """The static-batch path up to its first decode step, on the plan's
     ranks (one card, or its ``ThreadMesh``; the JAX ``_legacy_main``'s
     steps): prefill ``tokens`` (B, prompt_len) at their own length and
@@ -108,7 +116,9 @@ def legacy_start(model, plan, tokens, gen: int, frames=None):
     ``serve.step.build_decode_step`` and ``caches`` every rank's cache, in
     rank order. An encoder-decoder needs ``frames`` (B, S_enc, D): the
     encoder prefills them, and the decoder's prompt goes through decode
-    steps (``_encdec_start``)."""
+    steps (``_encdec_start``). A VLM takes ``patches`` (B, prompt_len, D):
+    the prompt's first ``int(prefix_len_frac * prompt_len)`` positions
+    are its image prefix (``serve.step.lm_prefill``)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.serve import kv_cache, step as serve_step
 
@@ -120,7 +130,7 @@ def legacy_start(model, plan, tokens, gen: int, frames=None):
     run_cfg, mesh = plan.run_config(), plan.build_mesh()
     prefill = serve_step.build_prefill_step(
         model, run_cfg, ShapeConfig("serve", prompt_len, B, "prefill"), mesh)
-    tok, caches_p = prefill(tokens)
+    tok, caches_p = prefill(tokens, patches)
     decode = serve_step.build_decode_step(
         model, run_cfg, ShapeConfig("serve", capacity, B, "decode"), mesh)
     caches = [kv_cache.init_cache(model.cfg, decode.steps.rows,
@@ -180,15 +190,18 @@ def _encdec_start(model, plan, tokens, frames, capacity: int):
     return tok, caches, decode
 
 
-def legacy_generate(model, plan, tokens, gen: int, frames=None):
+def legacy_generate(model, plan, tokens, gen: int, frames=None,
+                    patches=None):
     """Static-batch greedy generation: ``legacy_start``, then ``gen - 1``
     decode steps, each at the batch's true cache length. Returns the
     (B, gen) generated tokens, int64. ``frames`` (B, S_enc, D): the
-    encoder's input of an encoder-decoder."""
+    encoder's input of an encoder-decoder; ``patches`` (B, prompt_len,
+    D): a VLM's image prefix."""
     import torch
 
     B, prompt_len = tokens.shape
-    tok, caches, decode = legacy_start(model, plan, tokens, gen, frames)
+    tok, caches, decode = legacy_start(model, plan, tokens, gen, frames,
+                                       patches)
     generated = [tok]
     for i in range(gen - 1):
         cache_len = torch.full((B,), prompt_len + i, dtype=torch.int32,
@@ -210,15 +223,21 @@ def _legacy_main(args, plan, cfg, device):
     rng = np.random.default_rng(args.seed + 1)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))).to(device)
-    frames = None
-    if cfg.encdec:
-        # seeded random frame embeddings: zero frames would make every
-        # encoder output, so every cross-attention's K and V, zero
-        frames = torch.from_numpy(np.random.default_rng(
+    frames = patches = None
+    if cfg.frontend_stub is not None:
+        # seeded random frame or patch embeddings, where the JAX launcher
+        # feeds zeros: zero frames would make every encoder output, so
+        # every cross-attention's K and V, zero; zero patches would keep
+        # every layer's prefix rows exactly zero (ROADMAP.md §C)
+        emb = torch.from_numpy(np.random.default_rng(
             args.seed).standard_normal(
                 (args.batch, args.prompt_len, cfg.d_model),
                 dtype=np.float32)).to(device)
-    out = legacy_generate(model, plan, tokens, args.gen, frames)
+        if cfg.encdec:
+            frames = emb
+        else:
+            patches = emb.to(getattr(torch, cfg.param_dtype))
+    out = legacy_generate(model, plan, tokens, args.gen, frames, patches)
     print(f"[serve --legacy] prompt {tuple(tokens.shape)} -> generated "
           f"{tuple(out.shape)}:")
     print(out.cpu().numpy())

@@ -16,8 +16,8 @@ lcm(``attn_every``, ``moe.every_n_layers``) layers: attention on layer
 (``models.ssm.mamba_block``) on the others, and the MoE block on the last
 layer of each ``every_n_layers``. An encoder-decoder config's decoder has
 the dense period (attention, MLP: JAX's ``layer_pattern``); its stacks are
-built and run by ``models.encdec``. VLM stacks raise, naming the ROADMAP
-queue.
+built and run by ``models.encdec``. A VLM stack (paligemma) has the
+dense period; its patch prefix is ``lm_loss``'s (``frontend_emb``).
 
 The depth cut (a port-only difference): a hybrid config whose
 ``num_layers`` is below one period takes the period's first ``num_layers``
@@ -62,11 +62,6 @@ LB_WEIGHT, Z_WEIGHT = 0.01, 1e-3
 
 def period_length(cfg: ModelConfig) -> int:
     """The number of layers of one period (JAX ``layer_pattern``'s)."""
-    if cfg.family == "vlm":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} (VLM prefix-LM layers) is not "
-            "ported to repro_torch yet (ROADMAP.md §A8 e: the VLM "
-            "prefix-LM)")
     period = 1
     if cfg.moe is not None:
         period = max(period, cfg.moe.every_n_layers)
@@ -197,18 +192,38 @@ def apply_stack(rt, layers, x, cfg: ModelConfig, *, causal: bool = True,
     return x, aux
 
 
+def patch_prefix(rt, x, frontend_emb, cfg: ModelConfig):
+    """The VLM's image prefix (JAX ``lm_loss``, op for op): the positions
+    of this rank's tokens below ``prefix_len = int(prefix_len_frac *
+    seq_len)`` take the patch embeddings ``frontend_emb`` (B, S_local, D)
+    in place of the token embeddings ``x``. Returns ``(x, prefix_len,
+    is_prefix)``, ``is_prefix`` the (S_local,) bool of those positions."""
+    prefix_len = int(cfg.prefix_len_frac * rt.st_cfg.seq_len)
+    is_prefix = rt.positions(x.shape[1]) < prefix_len
+    x = torch.where(is_prefix[None, :, None], frontend_emb.to(x.dtype), x)
+    return x, prefix_len, is_prefix
+
+
 def lm_loss(rt, params, batch, cfg: ModelConfig, *,
             remat: str = "attn_out"):
-    """batch: {tokens, labels} (this rank's sequence slice); params: the
-    rank's parameter tree (``factory.shard_params``). Returns the scalar
-    mean loss plus the MoE layers' auxiliary losses."""
-    if cfg.frontend_stub == "patch":
-        raise NotImplementedError(
-            f"{cfg.name}: the VLM patch prefix is not ported to repro_torch "
-            "yet (ROADMAP.md §A8 e: the VLM prefix-LM)")
-    x = blocks.embed(rt, params.embed, batch["tokens"], cfg)
+    """batch: {tokens, labels[, frontend_emb]} (this rank's sequence
+    slice); params: the rank's parameter tree (``factory.shard_params``).
+    Returns the scalar mean loss plus the MoE layers' auxiliary losses.
+    With ``frontend_emb`` (B, S_local, D) a VLM's patches replace the
+    prefix positions' embeddings (``patch_prefix``), every attention layer
+    sees the prefix bidirectionally, and the prefix positions leave the
+    loss (JAX ``lm_loss``)."""
+    tokens = batch["tokens"]
+    x = blocks.embed(rt, params.embed, tokens, cfg)
+    prefix_len = loss_mask = None
+    if cfg.frontend_stub is not None and "frontend_emb" in batch:
+        x, prefix_len, is_prefix = patch_prefix(rt, x, batch["frontend_emb"],
+                                                cfg)
+        loss_mask = (1.0 - is_prefix.float())[None].expand(
+            tokens.shape).contiguous()
     x, aux = apply_stack(rt, params.layers, x, cfg, causal=True,
-                         remat=remat)
+                         prefix_len=prefix_len, remat=remat)
     x = blocks.rmsnorm(params.final_norm, x, cfg.norm_eps)
     return blocks.lm_head_logits_and_loss(rt, params.head, x,
-                                          batch["labels"], cfg) + aux
+                                          batch["labels"], cfg,
+                                          mask=loss_mask) + aux

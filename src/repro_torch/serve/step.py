@@ -42,6 +42,13 @@ Encoder-decoder stacks (``models.encdec``, seamless-m4t): the prefill is
   prefill (nor in the JAX package): the static-batch path feeds a decoder
   prompt through decode steps. Only the static-batch path serves them.
 
+VLM stacks (paligemma): ``lm_prefill`` takes the rank's slice of the
+  patch embeddings (``frontend_emb``), which replace the embeddings of the
+  prompt's first ``int(prefix_len_frac * seq_len)`` positions, and every
+  attention layer sees that prefix bidirectionally (B2 with the prefix-LM
+  mask); the decode steps need no prefix (``prefix_len=None``, as JAX's):
+  the causal mask already shows every prefix key to a later query.
+
 Dense and MoE attention stacks are ported: a MoE layer runs
 ``models.moe.moe_block`` in place of the MLP in the decode step and the
 full prefill, its auxiliary losses dropped, and its expert capacity couples
@@ -297,7 +304,7 @@ def encdec_prefill(rt, params, frames, cfg: ModelConfig):
 
 def lm_prefill(rt, params, tokens, cfg: ModelConfig,
                prompt_len: Optional[torch.Tensor] = None,
-               return_hidden: bool = False):
+               return_hidden: bool = False, frontend_emb=None):
     """Full forward pass over the prompt, collecting the serving cache.
 
     tokens: (B, S_local) int64, this rank's contiguous slice of the prompt
@@ -311,15 +318,22 @@ def lm_prefill(rt, params, tokens, cfg: ModelConfig,
       slot. Causal attention makes right-padding harmless before it.
     return_hidden: return the (B, 1, D) pre-head hidden state (replicated
       across SP) instead of a greedily sampled token.
+    frontend_emb: a VLM's (B, S_local, D) patch embeddings, this rank's
+      contiguous slice: the prompt's first ``int(prefix_len_frac *
+      rt.st_cfg.seq_len)`` positions take them and form the bidirectional
+      prefix (JAX ``lm_prefill``).
     """
     x = blocks.embed(rt, params.embed, tokens, cfg)
+    prefix_len = None
+    if cfg.frontend_stub is not None and frontend_emb is not None:
+        x, prefix_len, _ = transformer.patch_prefix(rt, x, frontend_emb, cfg)
     caches = []
     for layer, (mixer, kind) in zip(params.layers,
                                     transformer.layer_plan(cfg)):
         if mixer == "attn":
             x, (k, v) = blocks.attention_block(
                 rt, layer.mixer, x, cfg, causal=True, window=cfg.window,
-                return_kv=True)
+                prefix_len=prefix_len, return_kv=True)
             caches.append({"k": k, "v": v})
         else:
             x, state = ssm.MIXERS[mixer][1](rt, layer.mixer, x, cfg,
@@ -504,13 +518,15 @@ def build_prefill_step(model, run_cfg: RunConfig, shape: ShapeConfig,
     slice of the prompt, in rank order (one on one card). For an
     encoder-decoder, ``fn(frames (B, S, D)) -> enc_outs``: every rank's
     slice of the encoder output (``encdec_prefill``), in rank order, as
-    the JAX island returns it sharded. ``fn.steps`` is its
+    the JAX island returns it sharded. A VLM takes ``fn(tokens,
+    frontend_emb (B, S, D))``: each rank gets its contiguous slice of the
+    patches (JAX's ``P(b, seq, None)``). ``fn.steps`` is its
     ``StaticSteps``."""
     steps = StaticSteps(model, run_cfg, shape, mesh)
     cfg = model.cfg
     forward = encdec_prefill if cfg.encdec else lm_prefill
 
-    def fn(tokens):
+    def fn(tokens, frontend_emb=None):
         sp = mesh.sp_size if mesh is not None else 1
         if tokens.shape[1] % sp:
             raise ValueError(f"prompt of {tokens.shape[1]} tokens does not "
@@ -518,8 +534,11 @@ def build_prefill_step(model, run_cfg: RunConfig, shape: ShapeConfig,
 
         def rank_fn(rt, _, tree):
             s = tokens.shape[1] // rt.sp_size()
-            own = steps.rows_of(rt, tokens)[
-                :, rt.sp_rank() * s:(rt.sp_rank() + 1) * s]
+            cols = slice(rt.sp_rank() * s, (rt.sp_rank() + 1) * s)
+            own = steps.rows_of(rt, tokens)[:, cols]
+            if frontend_emb is not None:
+                return forward(rt, tree, own, cfg, frontend_emb=steps.rows_of(
+                    rt, frontend_emb)[:, cols])
             return forward(rt, tree, own, cfg)
 
         out = steps.run(rank_fn)

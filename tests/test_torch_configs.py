@@ -40,6 +40,7 @@ from repro_torch.train import step as train_step
 from test_torch_train_sp import mesh_whole_grads
 
 DENSE = ["h2o-danube-1.8b", "minitron-8b", "deepseek-7b", "stablelm-3b"]
+VLM = ["paligemma-3b"]
 MOE = ["phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b"]
 SSM = ["xlstm-1.3b"]
 HYBRID = ["jamba-1.5-large-398b"]
@@ -99,24 +100,23 @@ def test_paper_models_equal_jax(name):
 
 
 def test_registry_lists_the_dense_archs_and_refuses_the_rest():
-    """The dense archs, the MoE family, xLSTM, the hybrid jamba and the
-    encoder-decoder seamless are ported; the VLM raises, naming the
-    ROADMAP item."""
-    ported = DENSE + MOE + SSM + HYBRID + ENCDEC
+    """The dense archs, the MoE family, xLSTM, the hybrid jamba, the
+    encoder-decoder seamless and the VLM paligemma are ported: every
+    architecture the JAX registry assigns, each of its family; an unknown
+    name raises."""
+    ported = DENSE + MOE + SSM + HYBRID + ENCDEC + VLM
     assert sorted(registry.PORTED_ARCHS) == sorted(ported)
+    assert sorted(jax_registry.ASSIGNED_ARCHS) == sorted(ported)
     for arch in jax_registry.ASSIGNED_ARCHS:
-        if arch in ported:
-            assert registry.get(arch).family == (
-                "dense" if arch in DENSE else "moe" if arch in MOE
-                else "ssm" if arch in SSM else "hybrid" if arch in HYBRID
-                else "encdec")
-            continue
-        with pytest.raises(NotImplementedError, match="§A8"):
-            registry.get(arch)
-        with pytest.raises(NotImplementedError, match="§A8"):
-            registry.get_smoke(arch)
+        assert registry.get(arch).family == (
+            "dense" if arch in DENSE else "moe" if arch in MOE
+            else "ssm" if arch in SSM else "hybrid" if arch in HYBRID
+            else "encdec" if arch in ENCDEC else "vlm")
+        assert registry.get_smoke(arch).family == registry.get(arch).family
     with pytest.raises(KeyError):
         registry.get("no-such-arch")
+    with pytest.raises(KeyError):
+        registry.get_smoke("no-such-arch")
 
 
 def _leaf_errs(name, grads):

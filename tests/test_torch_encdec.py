@@ -253,8 +253,9 @@ def test_configs_equal_jax(references):
         assert dataclasses.asdict(cfg) == dataclasses.asdict(cfg_j)
         assert cfg.encdec and cfg.frontend_stub == "frames"
         assert transformer.layer_pattern(cfg) == [("attn", "mlp")]
-    with pytest.raises(NotImplementedError, match="§A8 e"):
-        registry.get_smoke("paligemma-3b")
+    # the VLM family is ported since (§A8 e): JAX's config
+    assert dataclasses.asdict(registry.get_smoke("paligemma-3b")) == \
+        dataclasses.asdict(jax_registry.get_smoke("paligemma-3b"))
 
 
 def test_specs_and_parameter_count_equal_jax():

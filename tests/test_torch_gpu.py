@@ -58,6 +58,8 @@ FWD_CASES = {
     "zigzag_gqa": (1, 64, 8, 2, 80, True, 40, "zigzag", 32),
     # head size 128, MHA (deepseek-7b, GPT-7B)
     "mha_causal_d128": (1, 64, 4, 4, 128, True, None, "arange", 32),
+    # head size 256, 8 query heads on one kv head (paligemma-3b)
+    "mqa_g8_d256": (1, 64, 8, 1, 256, True, None, "arange", 32),
 }
 
 
@@ -115,6 +117,8 @@ RAGGED_CASES = {
     # each row a sequence starting at its own position
     "offset_rows": (3, 40, 72, 4, 4, 16, 30, "offset"),
     "decode_d128": (4, 1, 96, 8, 2, 128, None, "decode"),
+    # paligemma-3b's --legacy decode: 8 query heads on one kv head of 256
+    "decode_g8_d256": (4, 1, 96, 8, 1, 256, None, "decode"),
 }
 
 
@@ -187,6 +191,7 @@ BWD_CASES = {
     "zigzag_gqa4": (1, 64, 64, 8, 2, 80, True, 40, "zigzag", 32),
     "sq_ne_sk": (1, 64, 128, 8, 2, 16, True, None, "offset", 32),
     "mha_causal_d128": (1, 64, 64, 4, 4, 128, True, None, "arange", 32),
+    "mqa_g8_d256": (1, 64, 64, 8, 1, 256, True, None, "arange", 32),
 }
 
 
@@ -241,6 +246,7 @@ RAGGED_BWD_CASES = {
     # row 1's keys all sit past its queries: lse -1e30 on every head
     "zero_length_row": (3, 77, 77, 8, 2, 80, True, None, 1),
     "gqa4_d128": (2, 64, 64, 8, 2, 128, True, None, None),
+    "mqa_g8_d256": (2, 64, 64, 8, 1, 256, True, None, None),
 }
 
 
@@ -280,6 +286,9 @@ MMA_FWD_CASES = {
     "d80_g4_bidirectional_window": (2, 193, 193, 4, 1, 80, False, 100,
                                     "arange"),
     "d128_g8_sq131": (1, 131, 131, 8, 1, 128, True, None, "arange"),
+    # head size 256: the output's D over two CTAs, Q read from shared
+    # memory per K tile (paligemma-3b's 8 query heads on one kv head)
+    "d256_g8_sq131": (1, 131, 131, 8, 1, 256, True, None, "arange"),
 }
 
 # how each MMA_FWD_CASES case runs: B1 and B2 on the case's shared
@@ -315,13 +324,15 @@ def _mma_fwd_inputs(route, B, Sq, Sk, Hq, Hkv, D, kind, seed=0):
 
 
 PREFIX_CASES = {
-    # S, prefix_len, causal, window: keys below prefix_len are seen by every
-    # query. With 64-key tiles, tiles 0 and 1 lie wholly inside the prefix
-    # (every pair visible through the prefix alone) and one tile straddles
-    # its end
-    "causal_p130": (200, 130, True, None),
-    "window40_p100": (200, 100, True, 40),
-    "bidirectional_window24_p70": (150, 70, False, 24),
+    # S, prefix_len, causal, window, D: keys below prefix_len are seen by
+    # every query. With 64-key tiles, tiles 0 and 1 lie wholly inside the
+    # prefix (every pair visible through the prefix alone) and one tile
+    # straddles its end. D None: 32 on the CPU, 80 on the card
+    "causal_p130": (200, 130, True, None, None),
+    "window40_p100": (200, 100, True, 40, None),
+    "bidirectional_window24_p70": (150, 70, False, 24, None),
+    # paligemma-3b's head size, its prefix an eighth of the sequence
+    "causal_p25_d256": (200, 25, True, None, 256),
 }
 PREFIX_ROUTES = ("B1", "B2", "B3", "B5", "B7")
 
@@ -486,6 +497,25 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_input(cuda_device):
     pos = torch.arange(8, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention.flash_attention_fwd(q, q, q, pos, pos)
+
+
+@pytest.mark.gpu
+def test_paged_kernels_raise_at_head_size_256(cuda_device):
+    """B4 and B6 take no head size 256 (ROADMAP.md §B item 5): their
+    wrappers raise on CUDA tensors, with no fallback to the plain
+    version."""
+    B, Hq, Hkv, _, ps, W, sp, rank, window = PAGED_CASES["gqa_d80"]
+    q, pool_k, pool_v, tbl, cl = _paged_inputs(B, Hq, Hkv, 256, ps, W, sp)
+    args = [_t(x).to(cuda_device, torch.bfloat16) for x in
+            (q, pool_k, pool_v)] + [_t(x).to(cuda_device) for x in (tbl, cl)]
+    before = (paged_decode.LAUNCHES["B4"], paged_prefill.LAUNCHES["B6"])
+    with pytest.raises(ValueError, match="§B item 5"):
+        paged_decode.paged_decode_attention(*args, rank, sp=sp, page_size=ps)
+    with pytest.raises(ValueError, match="§B item 5"):
+        paged_prefill.paged_prefill_attention(*args, rank, sp=sp,
+                                              page_size=ps)
+    assert (paged_decode.LAUNCHES["B4"], paged_prefill.LAUNCHES["B6"]) == \
+        before
 
 
 @pytest.mark.gpu
@@ -678,6 +708,8 @@ MMA_BWD_CASES = {
     "d80_bidirectional_window": (2, 193, 193, 4, 2, 80, False, 100,
                                  "arange"),
     "d128_sq131_sk203": (2, 131, 203, 4, 1, 128, True, None, "offset"),
+    # head size 256: dq over two CTAs, dk/dv over four
+    "d256_g8_sq131_sk203": (2, 131, 203, 8, 1, 256, True, None, "offset"),
 }
 
 
@@ -889,8 +921,8 @@ def test_prefix_lm_kernel_matches_plain(cuda_device, case, route, dtype):
     it against its plain version, causal and windowed, with 64-key tiles
     wholly inside the prefix (whose pairs are all visible through it, so
     the tile skips the per-element mask) and one straddling its end."""
-    S, prefix_len, causal, window = PREFIX_CASES[case]
-    arrs = _prefix_inputs(route, S, prefix_len, causal, window, D=80)
+    S, prefix_len, causal, window, D = PREFIX_CASES[case]
+    arrs = _prefix_inputs(route, S, prefix_len, causal, window, D=D or 80)
     n_in = 4 if route in ("B3", "B7") else 3
     dt = getattr(torch, dtype)
     args = [_t(x).to(cuda_device, dt) for x in arrs[:n_in]] + \
@@ -1789,6 +1821,102 @@ def test_encdec_train_step_matches_cpu(cuda_device, data, c):
     batch = SyntheticLM(cfg, plan.shape_config(), seed=0,
                         seq_scheme=plan.seq_scheme,
                         sp_size=plan.sp_size).get_batch(0)
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = copy.deepcopy(cpu).to(dev)
+        step, sh = plan.build_train_step(model, adam)
+        _, m = step(adamw.init_state(sh["params"], adam),
+                    {k: _t(v).to(dev) for k, v in batch.items()})
+        out[dev.type] = (m, [p.detach().cpu() for p in sh["params"]])
+    (m_gpu, p_gpu), (m_cpu, p_cpu) = out["cuda"], out["cpu"]
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m_gpu[key]) - float(m_cpu[key])) < 2e-3, key
+    assert max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu)) \
+        < 2e-3
+
+
+# ---------------------------------------------------------------------------
+# the VLM prefix-LM on the card (smoke paligemma widened to heads of 256,
+# the kernels' head size for the family; f32, the CUDA-core kernels)
+# ---------------------------------------------------------------------------
+
+PALIGEMMA = "paligemma-3b"
+
+
+def _paligemma_cfg():
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    return dataclasses.replace(registry.get_smoke(PALIGEMMA), d_model=256,
+                               head_dim=256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_devices", [1, 4])
+def test_vlm_legacy_on_the_card_matches_cpu(cuda_device, n_devices):
+    """``--legacy`` of a smoke paligemma model at head size 256 at P = 1
+    and at P = 4 (ThreadMesh(c=2, r=1)) on the card (B2 in the prefill
+    with its patch prefix, B5 in every decode step) against the CPU from
+    the same weights, tokens and patches: the first tokens equal, the first
+    decode step's hidden state within 2e-4 of the largest magnitude."""
+    import copy
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ragged_prefill as rp
+    from repro_torch.launch.serve import legacy_start
+    from repro_torch.models.factory import build_model
+    from repro_torch.plan import make_serve_plan
+
+    cfg = _paligemma_cfg()
+    cpu = build_model(cfg, device="cpu", seed=0)
+    plan = make_serve_plan(cfg, arch=PALIGEMMA, n_devices=n_devices,
+                           c=2 if n_devices > 1 else 1)
+    rng = np.random.default_rng(3)
+    tokens = _t(rng.integers(0, cfg.vocab_size, (2, 32)))
+    patches = _t(rng.standard_normal((2, 32, cfg.d_model), dtype=np.float32))
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        model = copy.deepcopy(cpu).to(dev)
+        fa.reset_launches()
+        rp.reset_launches()
+        tok, caches, decode = legacy_start(model, plan, tokens.to(dev), 4,
+                                           patches=patches.to(dev))
+        cl = torch.full((2,), 32, dtype=torch.int32, device=dev)
+        hidden = decode(caches, tok.long(), cl, return_hidden=True)
+        out[dev.type] = (tok.cpu(), hidden.float().cpu(),
+                         dict(fa.LAUNCHES, **rp.LAUNCHES))
+    assert torch.equal(out["cuda"][0], out["cpu"][0])
+    assert out["cuda"][2]["B2"] > 0 and out["cuda"][2]["B5"] > 0
+    a, b = out["cuda"][1], out["cpu"][1]
+    assert float((a - b).abs().max()) < 2e-4 * max(float(b.abs().max()), 1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("data,c", [(1, 1), (1, 2)], ids=["p1", "c2"])
+def test_vlm_train_step_matches_cpu(cuda_device, data, c):
+    """One train step of a smoke paligemma model at head size 256 on the
+    card (B2 and B3 under the prefix-LM mask) and on the CPU from the same
+    weights and batch (patches included), at P = 1 and on ThreadMesh(c=2,
+    r=1) (the prefix spread over the zigzag shards): loss, gradient norm
+    and every updated parameter within 2e-3."""
+    import copy
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.plan import make_plan
+
+    cfg = _paligemma_cfg()
+    cpu = build_model(cfg, device="cpu", seed=0)
+    plan = make_plan(cfg, ShapeConfig("t", 64, 2, "train"),
+                     n_devices=data * c * c, data=data, c=c)
+    batch = SyntheticLM(cfg, plan.shape_config(), seed=0,
+                        seq_scheme=plan.seq_scheme,
+                        sp_size=plan.sp_size).get_batch(0)
+    assert batch["frontend_emb"].shape == (2, 64, cfg.d_model)
     adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0)
     out = {}
     for dev in (cuda_device, torch.device("cpu")):

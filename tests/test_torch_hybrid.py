@@ -304,9 +304,10 @@ def test_configs_equal_jax(references):
         ("mamba", "mlp"), ("mamba", "moe"), ("attn", "mlp"),
         ("mamba", "moe")]
     assert transformer.has_moe(registry.get(ARCH))
-    # the encoder-decoder family is ported since (§A8 d); the VLM raises
-    with pytest.raises(NotImplementedError, match="§A8 e"):
-        registry.get_smoke("paligemma-3b")
+    # the encoder-decoder (§A8 d) and VLM (§A8 e) families are ported
+    # since: JAX's configs
+    assert dataclasses.asdict(registry.get_smoke("paligemma-3b")) == \
+        dataclasses.asdict(jax_registry.get_smoke("paligemma-3b"))
     assert dataclasses.asdict(registry.get_smoke("seamless-m4t-large-v2")) \
         == dataclasses.asdict(jax_registry.get_smoke("seamless-m4t-large-v2"))
 

@@ -133,8 +133,8 @@ def test_prefix_lm_plain_matches_jax(case, route):
     in interpret mode (50-row tiles, so some lie wholly inside the prefix):
     B1, B2 and B3 with shared (S,) positions, B5 and B7 with per-row
     (B, S) positions."""
-    S, prefix_len, causal, window = PREFIX_CASES[case]
-    arrs = _prefix_inputs(route, S, prefix_len, causal, window)
+    S, prefix_len, causal, window, D = PREFIX_CASES[case]
+    arrs = _prefix_inputs(route, S, prefix_len, causal, window, D=D or 32)
     kw = dict(causal=causal, window=window, prefix_len=prefix_len)
     blk = dict(block_q=50, block_k=50, interpret=True)
     jx = [jnp.asarray(x) for x in arrs]
@@ -154,3 +154,17 @@ def test_prefix_lm_plain_matches_jax(case, route):
     _assert_partials(got[0].numpy(), got[1].numpy(), *want)
     # the prefix is seen by every query: no row is dead
     assert (got[1] > NEG_INF / 2).all()
+
+
+def test_paged_kernels_refuse_head_size_256():
+    """B4 and B6 keep their own head sizes: at 256 (which B1, B2, B3, B5
+    and B7 take) their wrappers raise, naming the ROADMAP item, before a
+    CUDA tensor can reach a launch switch without that case."""
+    assert 256 in flash_attention.HEAD_DIMS
+    assert 256 not in flash_attention.PAGED_HEAD_DIMS
+    for D in flash_attention.HEAD_DIMS[:-1]:
+        flash_attention.check_head_dim(D, flash_attention.PAGED_HEAD_DIMS)
+    with pytest.raises(ValueError, match="§B item 5"):
+        flash_attention.check_head_dim(256, flash_attention.PAGED_HEAD_DIMS)
+    with pytest.raises(ValueError, match="not in the kernel's"):
+        flash_attention.check_head_dim(48, flash_attention.HEAD_DIMS)

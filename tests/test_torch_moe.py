@@ -260,15 +260,12 @@ def test_configs_equal_jax(references, arch):
                 jax_registry.get_smoke(other))
             assert transformer.has_moe(got)
             continue
-        if other == "seamless-m4t-large-v2":
-            # the encoder-decoder family is ported (§A8 d), with no MoE
-            got = registry.get_smoke(other)
-            assert dataclasses.asdict(got) == dataclasses.asdict(
-                jax_registry.get_smoke(other))
-            assert not transformer.has_moe(got)
-            continue
-        with pytest.raises(NotImplementedError, match="§A8"):
-            registry.get_smoke(other)
+        # the encoder-decoder (§A8 d) and VLM (§A8 e) families are
+        # ported, with no MoE
+        got = registry.get_smoke(other)
+        assert dataclasses.asdict(got) == dataclasses.asdict(
+            jax_registry.get_smoke(other))
+        assert not transformer.has_moe(got)
 
 
 def test_capacity_and_specs_equal_jax():

@@ -5,9 +5,8 @@ chunk 8), f32, with the JAX parameters carried across by
 ``from_jax_params`` and the same numpy inputs.
 
 * The config and its smoke config equal JAX's field for field;
-  ``layer_pattern`` and ``mixer_on_layer`` match; paligemma still
-  raises, naming §A8, and jamba and seamless-m4t (ported since) give
-  JAX's config and period.
+  ``layer_pattern`` and ``mixer_on_layer`` match; paligemma, jamba and
+  seamless-m4t (ported since) give JAX's config and period.
 * ``chunked_gla`` against JAX's and the naive recurrence of
   ``tests/test_ssm_and_roofline.py`` at chunks 2-16 and a sequence shorter
   than the chunk, within 2e-5 (that file's bound), a zero decay giving the
@@ -278,20 +277,14 @@ def test_configs_equal_jax(references):
         cfg_o = jax_registry.get_smoke(other)
         as_h2o = dataclasses.replace(registry.get_smoke("h2o-danube-1.8b"),
                                      family=cfg_o.family, encdec=cfg_o.encdec)
-        if other in ("jamba-1.5-large-398b", "seamless-m4t-large-v2"):
-            # the hybrid (§A8 c) and encoder-decoder (§A8 d) families are
-            # ported: JAX's config and period
-            assert dataclasses.asdict(registry.get_smoke(other)) == \
-                dataclasses.asdict(cfg_o)
-            assert transformer.layer_pattern(as_h2o) == \
-                jax_transformer.layer_pattern(dataclasses.replace(
-                    jax_registry.get_smoke("h2o-danube-1.8b"),
-                    family=cfg_o.family))
-            continue
-        with pytest.raises(NotImplementedError, match="§A8"):
-            registry.get_smoke(other)
-        with pytest.raises(NotImplementedError, match="§A8"):
-            transformer.layer_pattern(as_h2o)
+        # the hybrid (§A8 c), encoder-decoder (§A8 d) and VLM (§A8 e)
+        # families are ported: JAX's config and period
+        assert dataclasses.asdict(registry.get_smoke(other)) == \
+            dataclasses.asdict(cfg_o)
+        assert transformer.layer_pattern(as_h2o) == \
+            jax_transformer.layer_pattern(dataclasses.replace(
+                jax_registry.get_smoke("h2o-danube-1.8b"),
+                family=cfg_o.family))
 
 
 def test_specs_and_parameter_count_equal_jax():
