@@ -464,6 +464,21 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               cut at batch 2, 2 steps at P = 1 and 2 at P = 8
               (ThreadMesh(c=2, r=1, data=2)), P = 8's first loss and
               gradient norm against P = 1's (``TRAIN_SP_TOL``)
+ 31. dryrun  the dry run (``launch.dryrun``, the step traced on the meta
+              device on the host). (a) Full-width h2o-danube-1.8b at
+              decode_32k on the 256-device single-pod plan (data 16, C 2,
+              the kernels' meta rules): the trace seconds, the peak GiB
+              per device against ``hw.HBM_BYTES`` (it must fit) and the
+              three roofline terms on the card's constants. (b) The
+              phase-9 train step (seq 4096, batch 4 in 4 microbatches,
+              ``attn_out``, P = 1) traced with ``kernel_impl='cuda'``,
+              then run on the card twice (B2 and B3 launched), the second
+              step timed: the parameters plus AdamW state the trace
+              predicts against the bytes of the live storages (they must
+              be equal), its ``peak_bytes_per_device`` against
+              ``torch.cuda.max_memory_allocated`` over the step (the ratio
+              must lie in 0.5-2) and the roofline ``bound_s`` against the
+              step's device ms (CUDA events)
 
 Every JSON line carries ``seconds``: the wall time since the line before
 (or the phase's own, where the phase reports it).
@@ -479,8 +494,9 @@ xlstm_train_p8), 25's two (hybrid_serve_p1, hybrid_serve_p4), 26's
 two (hybrid_train_p1, hybrid_train_p8), 27's four (encdec_prefill_p1,
 encdec_prefill_p4, encdec_legacy_p1, encdec_legacy_p4), 28's three
 (encdec_train_p1, encdec_train_cut_p1, encdec_train_cut_p8), 29's four
-(vlm_prefill_p1, vlm_prefill_local, vlm_legacy_p1, vlm_legacy_p4) and
-30's three (vlm_train_p1, vlm_train_cut_p1, vlm_train_cut_p8):
+(vlm_prefill_p1, vlm_prefill_local, vlm_legacy_p1, vlm_legacy_p4),
+30's three (vlm_train_p1, vlm_train_cut_p1, vlm_train_cut_p8) and 31's
+measured step (dryrun):
 the launch counters are set to 0 just before each and read just after,
 and each must launch exactly the kernels it runs (B2 and B3 in the ring;
 B5 and B7 in ragged_bwd; B2 and B4 in the engine and in the sample
@@ -502,7 +518,8 @@ serving runs, none in the one-layer hybrid trainings, B2 in the encoder
 prefills, B1, B2 and B5 in the encdec ``--legacy`` runs, B1, B2 and B3
 in the encdec trainings, B2 in the VLM's StarTrail prefill and B1 in its
 local one, B2 and B5 in its ``--legacy`` runs, B2 and B3 in its
-trainings, all at head size 256). Comparison,
+trainings, all at head size 256; B2 and B3 in the dry run's measured
+step). Comparison,
 timing and profiling launches are not counted. The kernels line's
 ``launches`` is each kernel's count on the path that runs it (the engine for B2 and B4, the local prefill for B1, the train
 loop for B3, the legacy phase for B5, the prefix phase for B6, ragged_bwd
@@ -4328,6 +4345,111 @@ def phase_train(dev, smi):
          wall_s=wall, max_memory_allocated=peak,
          reckoned_bytes=TRAIN_RECKONED_BYTES, launches=launches, card=smi)
     return model, launches
+
+
+def _state_bytes(tensors):
+    """Bytes of the distinct storages under ``tensors``."""
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def phase_dryrun(dev, smi):
+    """Phase 31 (module doc): the production cell traced on the host, then
+    the phase-9 train step predicted by its trace and measured on the
+    card. Returns the measured steps' launches."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.plan import make_plan
+    from repro_torch.roofline import hw
+    from repro_torch.roofline import model as roofline
+
+    t0 = time.perf_counter()
+    rec = dryrun.lower_cell(ARCH, "decode_32k")
+    trace_s = time.perf_counter() - t0
+    roof = roofline.from_record(dict(rec, status="ok"))
+    peak = rec["memory"]["peak_bytes_per_device"]
+    emit("dryrun_cell", cell=f"{ARCH} decode_32k single pod C=2",
+         devices=rec["devices"], mesh=rec["mesh"],
+         kernel_impl=rec["plan"]["kernel_impl"], trace_s=trace_s,
+         full_depth_trace_s=rec["compile_s"], peak_gib=peak / 2**30,
+         hbm_gib=hw.HBM_BYTES / 2**30, fits=dryrun.fits(rec),
+         memory=rec["memory"], flops_per_device=rec["flops_per_device"],
+         bytes_accessed_per_device=rec["bytes_accessed_per_device"],
+         collective_bytes=rec["collectives"]["total_bytes"],
+         compute_s=roof.compute_s, memory_s=roof.memory_s,
+         collective_s=roof.collective_s, dominant=roof.dominant,
+         bound_s=roof.bound_s, card=smi)
+    check(dryrun.fits(rec), f"dry run: {ARCH} decode_32k peak {peak} B "
+          f"does not fit {hw.HBM_BYTES} B")
+
+    cfg = registry.get(ARCH)
+    shape = _train_shape(TRAIN_SEQ, TRAIN_MICRO)
+    plan = make_plan(cfg, shape, arch=ARCH, c=1, microbatches=TRAIN_MICRO,
+                     kernel_impl="cuda", block_impl="cuda")
+    t0 = time.perf_counter()
+    costs, mem = dryrun.trace_step(cfg, plan)
+    step_trace_s = time.perf_counter() - t0
+    bound_s = max(costs["flops"] / hw.PEAK_FLOPS_BF16,
+                  costs["bytes"] / hw.HBM_BW,
+                  costs["coll_total"] / hw.NVLINK_BW)
+    predicted = mem["alias_bytes"] - 4         # parameters + state - step
+    model = build_model(cfg, device=dev, seed=0)
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0,
+                             state_dtype=cfg.opt_dtype)
+    step, sh = plan.build_train_step(model, adam)
+    opt = adamw.init_state(sh["params"], adam)
+    measured = _state_bytes(list(model.parameters()) + opt["mu"]
+                            + opt["nu"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = {n: torch.randint(0, cfg.vocab_size, (shape.global_batch,
+                                                  shape.seq_len),
+                              device=dev, generator=gen, dtype=torch.int32)
+             for n in ("tokens", "labels")}
+    counts = reset_counts()
+    step(opt, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    _, metrics = step(opt, batch)
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counts(counts)
+    device_ms = start.elapsed_time(end)
+    max_alloc = torch.cuda.max_memory_allocated()
+    ratio = mem["peak_bytes_per_device"] / max_alloc
+    L, M = cfg.num_layers, plan.microbatches
+    want = launches_of(B2=2 * 2 * L * M, B3=2 * L * M)
+    emit("dryrun_step", shape={"seq_len": shape.seq_len,
+                               "batch": shape.global_batch},
+         plan={"P_sp": plan.sp_size, "remat": plan.remat,
+               "microbatches": M, "kernel_impl": plan.kernel_impl},
+         trace_s=step_trace_s,
+         predicted_param_state_bytes=predicted,
+         measured_param_state_bytes=measured,
+         predicted_memory=mem, max_memory_allocated=max_alloc,
+         peak_ratio=ratio, traced_flops=costs["flops"],
+         traced_bytes=costs["bytes"], bound_s=bound_s,
+         bound_ms=bound_s * 1e3, device_ms=device_ms,
+         bound_over_device=bound_s * 1e3 / device_ms,
+         loss=float(metrics["loss"]), launches=launches, card=smi)
+    check(predicted == measured, f"dry run: parameters and AdamW state "
+          f"predicted {predicted} B, the live storages hold {measured} B")
+    check(0.5 <= ratio <= 2.0, f"dry run: predicted peak "
+          f"{mem['peak_bytes_per_device']} B against max_memory_allocated "
+          f"{max_alloc} B (ratio {ratio:.3f}, want 0.5-2)")
+    check(launches == want, f"dry run's step launches {launches}: want "
+          f"{want}")
+    del model, opt, sh, step, batch, metrics
+    return launches
 
 
 # The CUDA kernels against the plain versions through a whole model at seq
@@ -8623,6 +8745,8 @@ def main():
         del model
         free_device()
         phase_resume(dev, smi)
+        free_device()
+        by_path["dryrun"] = phase_dryrun(dev, smi)
         free_device()
         by_path["train_sp"] = phase_train_sp(dev, smi)
         free_device()

@@ -135,3 +135,71 @@ class RunConfig:
     comm_chunks: int = 1
     # 'default' | 'fsdp' | 'tp' (dist/sharding.py)
     sharding_rules: str = "default"
+
+
+def model_flops_per_token(cfg: ModelConfig) -> float:
+    """Approx. 6*N_active params-FLOPs per token (for the roofline's
+    MODEL_FLOPS = 6*N*D term). Embedding params excluded (standard)."""
+    d, L = cfg.d_model, cfg.num_layers
+    hd = cfg.head_dim_
+    n = 0.0
+    for i in range(L):
+        mixer = cfg.mixer_on_layer(i)
+        if mixer == "attn":
+            n += d * hd * (cfg.num_heads + 2 * cfg.num_kv_heads)  # qkv
+            n += cfg.num_heads * hd * d                           # out
+        elif mixer == "mamba":
+            m = cfg.mamba or MambaConfig()
+            di = m.expand * d
+            n += d * 2 * di + di * d + di * (2 * m.d_state + di // m.head_dim)
+        elif mixer in ("mlstm", "slstm"):
+            di = 2 * d
+            n += d * di * 4 + di * d
+        if cfg.moe_on_layer(i):
+            n += cfg.moe.top_k * 3 * d * cfg.moe.d_ff_expert
+            if cfg.moe.shared_expert:
+                n += 3 * d * cfg.moe.d_ff_expert
+        elif cfg.d_ff > 0 and mixer in ("attn", "mamba"):
+            n += 3 * d * cfg.d_ff
+    if cfg.encdec:
+        for _ in range(cfg.num_encoder_layers):
+            n += (d * hd * (cfg.num_heads + 2 * cfg.num_kv_heads)
+                  + cfg.num_heads * hd * d)
+            n += 3 * d * cfg.d_ff
+            # the decoder's cross-attention, counted with the encoder's
+            n += (d * hd * (cfg.num_heads + 2 * cfg.num_kv_heads)
+                  + cfg.num_heads * hd * d)
+    return 6.0 * n
+
+
+def total_params(cfg: ModelConfig) -> float:
+    """Approximate total parameter count (for memory accounting)."""
+    d, L = cfg.d_model, cfg.num_layers
+    hd = cfg.head_dim_
+    n = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    for i in range(L):
+        mixer = cfg.mixer_on_layer(i)
+        if mixer == "attn":
+            n += (d * hd * (cfg.num_heads + 2 * cfg.num_kv_heads)
+                  + cfg.num_heads * hd * d)
+        elif mixer == "mamba":
+            m = cfg.mamba or MambaConfig()
+            di = m.expand * d
+            n += d * 2 * di + di * d + di * (2 * m.d_state + di // m.head_dim)
+        elif mixer in ("mlstm", "slstm"):
+            di = 2 * d
+            n += d * di * 4 + di * d
+        if cfg.moe_on_layer(i):
+            n += cfg.moe.num_experts * 3 * d * cfg.moe.d_ff_expert
+            if cfg.moe.shared_expert:
+                n += 3 * d * cfg.moe.d_ff_expert
+        elif cfg.d_ff > 0 and mixer in ("attn", "mamba"):
+            n += 3 * d * cfg.d_ff
+    if cfg.encdec:
+        n += cfg.num_encoder_layers * (
+            d * hd * (cfg.num_heads + 2 * cfg.num_kv_heads)
+            + cfg.num_heads * hd * d + 3 * d * cfg.d_ff)
+        n += cfg.num_layers * (  # cross-attention blocks
+            d * hd * (cfg.num_heads + 2 * cfg.num_kv_heads)
+            + cfg.num_heads * hd * d)
+    return float(n)

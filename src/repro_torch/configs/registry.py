@@ -11,9 +11,9 @@ architecture of the JAX reference.
 from __future__ import annotations
 
 import importlib
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 
 _ARCH_MODULES: Dict[str, str] = {
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1_8b",
@@ -30,6 +30,11 @@ _ARCH_MODULES: Dict[str, str] = {
 }
 
 PORTED_ARCHS: List[str] = list(_ARCH_MODULES)
+# the JAX registry's order (``launch.dryrun --all`` runs them in it)
+ASSIGNED_ARCHS: List[str] = [
+    "h2o-danube-1.8b", "minitron-8b", "deepseek-7b", "stablelm-3b",
+    "paligemma-3b", "seamless-m4t-large-v2", "llama4-maverick-400b-a17b",
+    "phi3.5-moe-42b-a6.6b", "xlstm-1.3b", "jamba-1.5-large-398b"]
 
 
 def _module(name: str):
@@ -52,3 +57,25 @@ def paper_model(name: str) -> ModelConfig:
 
     return {"gpt-3b": paper_models.GPT_3B, "gpt-7b": paper_models.GPT_7B,
             "dit-1b": paper_models.DIT_1B}[name]
+
+
+def shape_supported(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """(supported, reason). long_500k needs sub-quadratic attention."""
+    if shape.name == "long_500k":
+        subq = cfg.window is not None or cfg.family in ("ssm", "hybrid")
+        if not subq:
+            return False, (
+                "long_500k skipped: pure full-attention arch (no SWA/SSM); "
+                "see DESIGN.md §Arch-applicability")
+    return True, ""
+
+
+def cells(archs=None) -> List[Tuple[str, str, bool, str]]:
+    """All (arch, shape, supported, reason) assignment cells."""
+    out = []
+    for a in archs or ASSIGNED_ARCHS:
+        cfg = get(a)
+        for s in SHAPES.values():
+            ok, why = shape_supported(cfg, s)
+            out.append((a, s.name, ok, why))
+    return out

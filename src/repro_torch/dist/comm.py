@@ -24,7 +24,7 @@ order of the tuple, major to minor; over the SP axes that is grp-major and
 team-minor, the order of ``Runtime.sp_rank`` and
 ``core.topology.StarTrailTopology.rank``: ``rank = (g*R + j)*C + t``.
 
-Two implementations:
+Three implementations:
 
   SingleComm        P = 1: every collective is the identity (the engine and
                     the trainer on one card); any axis has size 1.
@@ -36,6 +36,10 @@ Two implementations:
                     (``chip_smoke.py``). A rank that raises aborts the
                     barrier so the others fail at once, and a whole run has
                     a timeout, so a fault fails instead of hanging.
+  TraceComm(c, r, data, pod)  one rank (rank 0) standing for a whole mesh
+                    in a trace on the meta device (``launch.dryrun``):
+                    each collective returns a meta tensor of the shape
+                    the real one gives and logs the op (below).
 
 The ``ThreadMesh`` collectives are differentiable, as the JAX ones are
 under ``shard_map(check_vma=False)``: each is a ``torch.autograd.Function``
@@ -487,3 +491,127 @@ class _AllToAll(torch.autograd.Function):
             return (ctx.comm._all_to_all(g.contiguous(), ctx.axes,
                                          ctx.concat_axis, ctx.split_axis),
                     None, None, None, None)
+
+
+# ---------------------------------------------------------------------------
+# the trace communicator: one rank standing for the mesh
+# ---------------------------------------------------------------------------
+
+# the XLA collective each op compiles to (``roofline.hlo``'s kinds)
+HLO_KINDS = {"all_gather": "all-gather", "psum": "all-reduce",
+             "pmax": "all-reduce", "pmin": "all-reduce",
+             "psum_scatter": "reduce-scatter",
+             "ppermute": "collective-permute", "all_to_all": "all-to-all"}
+
+
+class TraceComm(_RankComm):
+    """Rank 0 of a mesh of ``pod * data * c*c*r`` ranks, for a trace on
+    the meta device (``launch.dryrun``). Nothing is exchanged: each
+    collective returns a new meta tensor of the shape the collective gives
+    on a real mesh, and appends ``(op, kind, result_bytes, group_size,
+    phase, dtype)`` to ``log`` (``kind`` the XLA collective it compiles
+    to, ``phase`` forward or backward), besides counting its wire bytes in
+    ``ledger`` as a ``ThreadMesh`` rank does. A collective over a group of
+    one, and a ppermute that moves nothing (which returns its input), are
+    logged too, as XLA keeps them in the compiled program; they move
+    nothing on the wire. The autograd rules are the ``ThreadMesh``'s
+    (this class is a ``_RankComm``: the same autograd Functions call its
+    exchanges).
+
+    Why one rank stands for all: every rank of a plan holds the same
+    shapes. Sharding rules split each leaf into equal blocks, the batch
+    splits into equal rows per data replica and the sequence into equal
+    slices per SP rank, and every collective gives equal shapes on every
+    member, so rank 0's argument, output and temporary bytes and its
+    collective bytes are every rank's. Its FLOPs and accessed bytes are
+    every rank's too except where the work depends on the rank's
+    positions: under causal ring-block skipping (``block_skip``, the
+    sliding-window layouts) the live ring steps depend on the rank, and
+    rank 0, which holds the earliest queries, skips the most; the zigzag
+    and full-mask layouts run every step on every rank. ``run(fn)`` calls
+    ``fn(self)`` once, so a step builder that takes a ``ThreadMesh`` runs
+    its rank-0 body on it."""
+
+    def __init__(self, c: int, r: int, data: int = 1, pod: int = 1,
+                 placement: str = "team_inner"):
+        if min(c, r, data, pod) < 1:
+            raise ValueError(f"need positive sizes, got c={c} r={r} "
+                             f"data={data} pod={pod}")
+        self.c, self.r, self.data, self.pod = c, r, data, pod
+        self.placement = placement
+        self.sp_size = c * c * r
+        self.size = pod * data * self.sp_size
+        self.shape = {"pod": pod, DATA_AXIS: data, SP_AXES[0]: c,
+                      SP_AXES[1]: r, SP_AXES[2]: c}
+        self.mesh, self.rank = self, 0
+        self._coords = dict.fromkeys(self.shape, 0)
+        self._groups = {}
+        self.ledger = CommLedger()
+        self.log: List[Tuple[str, str, int, int, str, torch.dtype]] = []
+
+    def run(self, fn: Callable, timeout: float = 600.0) -> List:
+        return [fn(self)]
+
+    def _group(self, names: Tuple[str, ...]) -> List[int]:
+        n = 1
+        for a in names:
+            n *= self.shape[a]
+        return list(range(n))
+
+    def _result(self, op: str, x, axes: Axes, shape):
+        """A meta tensor of ``shape`` in x's dtype, the op logged."""
+        n = len(self._group(_axes_tuple(axes)))
+        out = torch.empty(shape, dtype=x.dtype, device=x.device)
+        nbytes = out.numel() * out.element_size()
+        self.log.append((op, HLO_KINDS[op], nbytes, n, self.ledger.phase,
+                         x.dtype))
+        self.ledger.add(*_wire_bytes(op, nbytes, n))
+        return out
+
+    def _all_gather(self, x, axis: Axes, dim: int):
+        n = len(self._group(_axes_tuple(axis)))
+        shape = list(x.shape)
+        shape[dim] *= n
+        return self._result("all_gather", x, axis, shape)
+
+    def _psum(self, x, axes: Axes):
+        return self._result("psum", x, axes, x.shape)
+
+    def _psum_scatter(self, x, axis: Axes, dim: int):
+        n = len(self._group(_axes_tuple(axis)))
+        shape = list(x.shape)
+        if shape[dim] % n:
+            raise ValueError(f"psum_scatter: dim {dim} of length "
+                             f"{shape[dim]} does not divide over {n}")
+        shape[dim] //= n
+        return self._result("psum_scatter", x, axis, shape)
+
+    def ppermute(self, x, axes: Axes, perm):
+        if _is_identity(perm, len(self._group(_axes_tuple(axes)))):
+            self.log.append(("ppermute", HLO_KINDS["ppermute"],
+                             x.numel() * x.element_size(),
+                             len(self._group(_axes_tuple(axes))),
+                             self.ledger.phase, x.dtype))
+            return x
+        return super().ppermute(x, axes, perm)
+
+    def _ppermute(self, x, axes: Axes, perm):
+        return self._result("ppermute", x, axes, x.shape)
+
+    def _all_to_all(self, x, axes: Axes, split_axis: int, concat_axis: int):
+        n = len(self._group(_axes_tuple(axes)))
+        shape = list(x.shape)
+        if shape[split_axis] % n:
+            raise ValueError(
+                f"all_to_all: split axis {split_axis} of length "
+                f"{shape[split_axis]} does not divide over {n}")
+        shape[split_axis] //= n
+        shape[concat_axis] *= n
+        return self._result("all_to_all", x, axes, shape)
+
+    def _extreme(self, op: str, x, axes: Axes, pick):
+        if self._tracked(x):
+            raise ValueError(
+                f"{op} carries no gradient: detach its input (the JAX "
+                "stop_gradient) instead of dropping the gradient silently")
+        return self._result(op, x, axes, x.shape)

@@ -10,7 +10,12 @@ through this module. One ``impl`` knob selects the backend:
           ``ragged_prefill_fwd`` (B5), ``paged_prefill_attention`` (B6)
           and ``flash_attention_bwd_ragged`` (B7).
           On CUDA tensors they launch the kernel or raise; on CPU tensors
-          they run their plain version. On bf16 inputs every kernel runs
+          they run their plain version; on meta tensors (the dry run's
+          trace, ``launch.dryrun``) their meta rule (``kernels.meta``):
+          the launch's checks, so it raises where the kernel raises, and
+          the kernel's outputs, its FLOPs and bytes charged to the trace,
+          nothing launched. No 'cuda' call on meta tensors reaches a
+          plain version. On bf16 inputs every kernel runs
           on the tensor cores (B1, B2, B4, B5, B6: the forward tile of
           ``csrc/flash_fwd.cuh``, B4 and B6 through its paged K/V source;
           B3, B7: ``csrc/flash_bwd.cuh``); f32 inputs run CUDA-core

@@ -8,8 +8,9 @@ inputs on the tensor cores, f32 inputs on the CUDA cores); on
 CPU tensors they run their plain PyTorch versions
 (``flash_attention_fwd_plain``: the ``ref.block_attention`` oracle, then
 ``combine_pair`` for B2; ``flash_attention_bwd_plain``:
-``ref.block_attention_bwd``). There is no fallback: a CUDA tensor a kernel
-does not take raises. ``LAUNCHES`` counts the wrapper calls that launched a
+``ref.block_attention_bwd``), and on meta tensors their meta rules
+(``kernels.meta``: the launch's checks and outputs, no launch). There is
+no fallback: a CUDA tensor a kernel does not take raises. ``LAUNCHES`` counts the wrapper calls that launched a
 kernel (B1, B2 and B3 apart; one B3 call is two kernel launches).
 
 Layouts are the JAX package's: q, do (B,Sq,Hq,D), k/v (B,Sk,Hkv,D) in f32
@@ -26,7 +27,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.combine import combine_pair
-from repro_torch.kernels import ref
+from repro_torch.kernels import meta, ref
 
 # head sizes of B1, B2, B3 (and B5, B7 through the same templates); B4 and
 # B6 keep PAGED_HEAD_DIMS: the engine, their only caller, refuses the
@@ -122,7 +123,7 @@ def flash_attention_fwd(q, k, v, pos_q, pos_k, o_acc=None, lse_acc=None, *,
     merge fused into the kernel epilogue (B2)."""
     if (o_acc is None) != (lse_acc is None):
         raise ValueError("o_acc and lse_acc must be passed together")
-    if not q.is_cuda:
+    if q.device.type == "cpu":
         return flash_attention_fwd_plain(
             q, k, v, pos_q, pos_k, o_acc, lse_acc, causal=causal,
             window=window, scale=scale, prefix_len=prefix_len)
@@ -136,6 +137,11 @@ def flash_attention_fwd(q, k, v, pos_q, pos_k, o_acc=None, lse_acc=None, *,
         _check("lse_acc", lse_acc, (B, Hq, Sq), (torch.float32,), dev)
     o = torch.empty((B, Sq, Hq, D), dtype=torch.float32, device=dev)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    if q.is_meta:
+        return meta.charge(
+            "B2" if merge else "B1", meta.attention_flops(q, Sk),
+            meta.io_bytes(q, k, v, pos_q, pos_k, o_acc, lse_acc, o, lse),
+            (o, lse))
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     lib = _build.library()
@@ -161,7 +167,7 @@ def flash_attention_bwd(q, k, v, do, lse, delta, pos_q, pos_k, *,
     """Flash backward for one (Q x K/V) block pair from the *global* lse
     and ``delta = rowsum(do * o)`` -> (dq, dk, dv) in f32, the semantics of
     ``ref.block_attention_bwd`` (kernel B3 on CUDA tensors)."""
-    if not q.is_cuda:
+    if q.device.type == "cpu":
         return flash_attention_bwd_plain(
             q, k, v, do, lse, delta, pos_q, pos_k, causal=causal,
             window=window, scale=scale, prefix_len=prefix_len)
@@ -175,6 +181,11 @@ def flash_attention_bwd(q, k, v, do, lse, delta, pos_q, pos_k, *,
     dq = torch.empty((B, Sq, Hq, D), dtype=torch.float32, device=dev)
     dk = torch.empty((B, Sk, Hkv, D), dtype=torch.float32, device=dev)
     dv = torch.empty((B, Sk, Hkv, D), dtype=torch.float32, device=dev)
+    if q.is_meta:
+        return meta.charge(
+            "B3", meta.attention_flops(q, Sk, 10),
+            meta.io_bytes(q, k, v, do, lse, delta, pos_q, pos_k, dq, dk, dv),
+            (dq, dk, dv))
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     lib = _build.library()

@@ -28,7 +28,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import meta, ref
 from repro_torch.kernels.flash_attention import (
     DTYPES, PAGED_HEAD_DIMS, _check, check_head_dim)
 
@@ -78,7 +78,7 @@ def paged_prefill_attention(q, pool_k, pool_v, table, cached_len, rank: int,
     pages_loc, ps, Hkv, _ = pool_k.shape
     if ps != page_size:
         raise ValueError(f"pool page size {ps} != page_size {page_size}")
-    if not q.is_cuda:
+    if q.device.type == "cpu":
         return paged_prefill_attention_plain(
             q, pool_k, pool_v, table, cached_len, rank, sp=sp,
             page_size=page_size, window=window, scale=scale)
@@ -98,6 +98,11 @@ def paged_prefill_attention(q, pool_k, pool_v, table, cached_len, rank: int,
     _check("cached_len", cached_len, (B,), (torch.int32,), dev)
     o = torch.empty((B, Sq, Hq, D), dtype=torch.float32, device=dev)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    if q.is_meta:
+        kv = 2 * B * W * page_size * Hkv * D * pool_k.element_size()
+        return meta.charge(
+            "B6", meta.attention_flops(q, W * page_size),
+            kv + meta.io_bytes(q, table, cached_len, o, lse), (o, lse))
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     lib = _build.library()

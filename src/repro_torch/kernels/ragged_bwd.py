@@ -23,7 +23,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import meta, ref
 from repro_torch.kernels.flash_attention import (
     DTYPES, HEAD_DIMS, _check, check_head_dim)
 from repro_torch.kernels.ragged_prefill import _batched
@@ -56,7 +56,7 @@ def flash_attention_bwd_ragged(q, k, v, do, lse, delta, pos_q, pos_k, *,
     """Batched-positions flash backward for one (Q x K/V) block pair ->
     (dq, dk, dv) in f32, the semantics of ``ref.block_attention_bwd``
     (kernel B7 on CUDA tensors)."""
-    if not q.is_cuda:
+    if q.device.type == "cpu":
         return flash_attention_bwd_ragged_plain(
             q, k, v, do, lse, delta, pos_q, pos_k, causal=causal,
             window=window, scale=scale, prefix_len=prefix_len)
@@ -80,6 +80,11 @@ def flash_attention_bwd_ragged(q, k, v, do, lse, delta, pos_q, pos_k, *,
     dq = torch.empty((B, Sq, Hq, D), dtype=torch.float32, device=dev)
     dk = torch.empty((B, Sk, Hkv, D), dtype=torch.float32, device=dev)
     dv = torch.empty((B, Sk, Hkv, D), dtype=torch.float32, device=dev)
+    if q.is_meta:
+        return meta.charge(
+            "B7", meta.attention_flops(q, Sk, 10),
+            meta.io_bytes(q, k, v, do, lse, delta, pos_q, pos_k, dq, dk, dv),
+            (dq, dk, dv))
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     lib = _build.library()

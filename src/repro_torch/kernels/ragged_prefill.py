@@ -20,7 +20,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import meta, ref
 from repro_torch.kernels.flash_attention import (
     DTYPES, HEAD_DIMS, _check, check_head_dim)
 
@@ -55,7 +55,7 @@ def ragged_prefill_fwd(q, k, v, pos_q, pos_k, *, causal=True,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched-positions block flash attention -> (o, lse), the semantics
     of ``ref.block_attention`` (kernel B5 on CUDA tensors)."""
-    if not q.is_cuda:
+    if q.device.type == "cpu":
         return ragged_prefill_fwd_plain(q, k, v, pos_q, pos_k, causal=causal,
                                         window=window, scale=scale,
                                         prefix_len=prefix_len)
@@ -75,6 +75,10 @@ def ragged_prefill_fwd(q, k, v, pos_q, pos_k, *, causal=True,
     _check("pos_k", pos_k, (B, Sk), (torch.int32,), dev)
     o = torch.empty((B, Sq, Hq, D), dtype=torch.float32, device=dev)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=dev)
+    if q.is_meta:
+        return meta.charge(
+            "B5", meta.attention_flops(q, Sk),
+            meta.io_bytes(q, k, v, pos_q, pos_k, o, lse), (o, lse))
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     lib = _build.library()

@@ -419,10 +419,13 @@ def _resolve_plan(args):
         rec = json.loads(open(args.plan).read())
         if "plans" in rec:
             plans = [ExecutionPlan.from_dict(d) for d in rec["plans"]]
+            for p in plans:
+                p.check_runnable()
             print(f"[serve] loaded {len(plans)} role plans {args.plan}: "
                   f"roles={[p.role for p in plans]}")
             return plans[0], plans, get_cfg(plans[0].arch)
         plan = ExecutionPlan.load(args.plan)
+        plan.check_runnable()
         print(f"[serve] loaded plan {args.plan}")
         return plan, None, get_cfg(plan.arch)
     cfg = get_cfg(args.arch)

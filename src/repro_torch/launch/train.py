@@ -153,6 +153,7 @@ def main(argv=None):
     get_cfg = registry.get_smoke if args.smoke else registry.get
     if args.plan:
         plan = ExecutionPlan.load(args.plan)
+        plan.check_runnable()
         cfg = get_cfg(plan.arch)
         print(f"[train] loaded plan {args.plan}")
     else:

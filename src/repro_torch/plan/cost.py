@@ -21,17 +21,20 @@ ranking), one decode step (``decode_step_cost``, B4 as the JAX model's
 front end's SLO gate), a prefix cache's value (``prefix_cache_value``:
 ``launch.serve``'s gateway mode), and the host KV tier's spill against
 recompute (``kv_transfer_cost``, ``spill_decision``) over the card's host
-link. Every formula is the JAX one's, so under equal constants the numbers
-are the same. The JAX module's chunked-prefill and microbatch costs,
-``rank_decode_kernels``, ``spill_threshold_tokens``, the rest of
-``prefill_step_cost``'s and ``decode_step_cost``'s fields and
-``prefix_cache_value``'s ``saved_flops``/``saved_s`` come with the slices
-that read them (ROADMAP.md §A items 1 and 9).
+link. ``rank_decode_kernels`` sorts both decode kernels fastest first,
+``chunked_prefill_cost`` prices a chunked prefill against the monolithic
+one, and ``spill_threshold_tokens`` finds the chain length from which a
+spill beats recompute. Every formula is the JAX one's, so under equal
+constants the numbers are the same. The microbatch half
+(``activation_bytes_per_microbatch``, ``choose_microbatches``) picks a
+production training plan's microbatch count against a share of the
+card's memory (``hw.HBM_BYTES``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
@@ -242,7 +245,10 @@ def prefill_step_cost(cfg: ModelConfig, *, prompt_len: int,
     attention plus the page-table writes (int32 per block), so cached
     tokens are priced in bytes, not FLOPs.
 
-    Returns {'total_s'}: the larger of the FLOP time and the byte time.
+    Returns {'flops', 'bytes', 'total_s', 'flops_saved', 'saved_frac'}:
+    ``total_s`` the larger of the FLOP time and the byte time,
+    ``saved_frac`` the fraction of the cold prefill's FLOPs the cache
+    removed.
     """
     if not 0 <= cached_len <= prompt_len:
         raise ValueError(f"cached_len={cached_len} outside "
@@ -261,6 +267,8 @@ def prefill_step_cost(cfg: ModelConfig, *, prompt_len: int,
             q_tokens * q_tokens / 2.0 + q_tokens * k_tokens_extra)
 
     suffix = prompt_len - cached_len
+    flops_cold = (2.0 * dense_per_layer * prompt_len * cfg.num_layers
+                  + n_attn * attn_flops(prompt_len, 0)) / sp
     flops = (2.0 * dense_per_layer * suffix * cfg.num_layers
              + n_attn * attn_flops(suffix, cached_len)) / sp
     # cached K/V read once by the suffix attention; page-table writes are
@@ -268,7 +276,74 @@ def prefill_step_cost(cfg: ModelConfig, *, prompt_len: int,
     cached_blocks = cached_len // max(page_size, 1)
     bytes_moved = n_attn * (2.0 * cached_len * cfg.num_kv_heads * dh
                             * dtype_bytes) / sp + 4.0 * cached_blocks
-    return {"total_s": max(flops / cl.peak_flops, bytes_moved / hw.HBM_BW)}
+    flops_s = flops / cl.peak_flops
+    bytes_s = bytes_moved / hw.HBM_BW
+    return {"flops": flops, "bytes": bytes_moved,
+            "total_s": max(flops_s, bytes_s),
+            "flops_saved": flops_cold - flops,
+            "saved_frac": 1.0 - flops / flops_cold if flops_cold else 0.0}
+
+
+def chunked_prefill_cost(cfg: ModelConfig, *, prompt_len: int,
+                         cached_len: int = 0, chunk: int = 0, sp: int = 1,
+                         page_size: int = 8, dtype_bytes: int = 2,
+                         cluster: Optional[sch.ClusterModel] = None
+                         ) -> Dict[str, object]:
+    """A chunked prefill priced against the monolithic one.
+
+    The engine's chunking rule: the chunk is rounded up to a power-of-two
+    multiple of ``lcm(sp, page_size)``, and chunk ``k`` runs as a suffix
+    prefill with ``cached_len`` the tokens already landed, so its
+    attention re-reads the earlier chunks' K/V from the pool. Chunking
+    costs total time (the re-reads, and the quadratic self-attention lost
+    to the split) and buys latency: the longest single step shrinks from
+    the whole prompt to one chunk, which bounds the decode stall a
+    co-scheduled batch sees.
+
+    Returns {'chunks' (each chunk's ``prefill_step_cost`` with its 'start'
+    and 'end'), 'n_chunks', 'total_s', 'monolithic_s', 'overhead_frac',
+    'max_step_s', 'monolithic_step_s'}; ``chunk=0`` is one chunk with no
+    overhead.
+    """
+    if not 0 <= cached_len <= prompt_len:
+        raise ValueError(f"cached_len={cached_len} outside "
+                         f"[0, {prompt_len}]")
+    base = math.lcm(sp, page_size)
+    step = 0
+    if chunk > 0:
+        step = base
+        while step < max(chunk, base):
+            step *= 2
+    bounds = []
+    start = cached_len
+    while start < prompt_len:
+        end = prompt_len if not step else min(start + step, prompt_len)
+        bounds.append((start, end))
+        start = end
+    if not bounds:                      # a fully cached prompt
+        bounds = [(cached_len, prompt_len)]
+    chunks = []
+    for s, e in bounds:
+        c = prefill_step_cost(cfg, prompt_len=e, cached_len=s, sp=sp,
+                              page_size=page_size, dtype_bytes=dtype_bytes,
+                              cluster=cluster)
+        c["start"], c["end"] = s, e
+        chunks.append(c)
+    mono = prefill_step_cost(cfg, prompt_len=prompt_len,
+                             cached_len=cached_len, sp=sp,
+                             page_size=page_size, dtype_bytes=dtype_bytes,
+                             cluster=cluster)
+    total_s = sum(c["total_s"] for c in chunks)
+    return {
+        "chunks": chunks,
+        "n_chunks": len(chunks),
+        "total_s": total_s,
+        "monolithic_s": mono["total_s"],
+        "overhead_frac": (total_s / mono["total_s"] - 1.0
+                          if mono["total_s"] else 0.0),
+        "max_step_s": max(c["total_s"] for c in chunks),
+        "monolithic_step_s": mono["total_s"],
+    }
 
 
 # the paged-decode kernels (``kernels.dispatch.IMPLS``); 'cuda' is the JAX
@@ -291,8 +366,8 @@ def decode_step_cost(cfg: ModelConfig, *, batch: int, cache_len: int,
     passes (read the pool pages, write a dense copy, read it into the
     attention).
 
-    Returns {'total_s'}: the larger of the FLOP time and the byte time,
-    summed over the attention layers.
+    Returns {'flops', 'bytes', 'flops_s', 'bytes_s', 'total_s'} summed
+    over the attention layers, ``total_s`` the larger of the two times.
     """
     if kernel not in DECODE_KERNELS:
         raise ValueError(f"kernel must be one of {DECODE_KERNELS}, "
@@ -311,7 +386,24 @@ def decode_step_cost(cfg: ModelConfig, *, batch: int, cache_len: int,
     bytes_moved = bucket_bytes if kernel == "cuda" else 3.0 * bucket_bytes
     flops_s = n_attn * flops / cl.peak_flops
     bytes_s = n_attn * bytes_moved / hw.HBM_BW
-    return {"total_s": max(flops_s, bytes_s)}
+    return {"flops": n_attn * flops, "bytes": n_attn * bytes_moved,
+            "flops_s": flops_s, "bytes_s": bytes_s,
+            "total_s": max(flops_s, bytes_s)}
+
+
+def rank_decode_kernels(cfg: ModelConfig, *, batch: int, cache_len: int,
+                        sp: int, page_size: int,
+                        cluster: Optional[sch.ClusterModel] = None
+                        ) -> List[Dict[str, object]]:
+    """Both decode kernels priced and sorted fastest first ('cuda' is the
+    JAX model's 'pallas')."""
+    out = [{"kernel": k,
+            **decode_step_cost(cfg, batch=batch, cache_len=cache_len,
+                               sp=sp, page_size=page_size, kernel=k,
+                               cluster=cluster)}
+           for k in DECODE_KERNELS]
+    out.sort(key=lambda e: e["total_s"])
+    return out
 
 
 def serve_slo_cost(cfg: ModelConfig, *, prompt_len: int,
@@ -345,15 +437,18 @@ def serve_slo_cost(cfg: ModelConfig, *, prompt_len: int,
 def prefix_cache_value(cfg: ModelConfig, *, prompt_len: int,
                        shared_len: int, requests: int, sp: int,
                        page_size: int, pages_per_shard: int,
-                       max_len: int = 0) -> Dict[str, float]:
+                       max_len: int = 0,
+                       cluster: Optional[sch.ClusterModel] = None
+                       ) -> Dict[str, float]:
     """A prefix-cache capacity priced against the hit rate it can sustain:
     ``requests`` arrivals share a ``shared_len``-token prefix of their
     ``prompt_len`` prompts. The shared prefix's pages sit on top of one
     worst-case live request's; if the pool cannot hold both, every lookup
     misses. Otherwise the first request pays the cold prefill and each
-    later one skips the cached prefix.
+    later one saves ``prefill_step_cost(..., cached_len=)`` of its own.
 
-    Returns {'hit_rate', 'saved_tokens', 'cache_pages', 'fits'}.
+    Returns {'hit_rate', 'saved_tokens', 'saved_flops', 'saved_s',
+    'cache_pages', 'fits'}.
     """
     shared_cacheable = (shared_len // page_size) * page_size
     cache_pages = -(-shared_cacheable // page_size)
@@ -363,11 +458,18 @@ def prefix_cache_value(cfg: ModelConfig, *, prompt_len: int,
     worst = -(-worst_blocks // sp)
     fits = (-(-cache_pages // sp)) + worst <= pages_per_shard
     if not fits or requests < 2 or shared_cacheable == 0:
-        return {"hit_rate": 0.0, "saved_tokens": 0,
-                "cache_pages": cache_pages, "fits": fits}
+        return {"hit_rate": 0.0, "saved_tokens": 0, "saved_flops": 0.0,
+                "saved_s": 0.0, "cache_pages": cache_pages, "fits": fits}
+    per = prefill_step_cost(cfg, prompt_len=prompt_len,
+                            cached_len=shared_cacheable, sp=sp,
+                            page_size=page_size, cluster=cluster)
+    cold = prefill_step_cost(cfg, prompt_len=prompt_len, sp=sp,
+                             page_size=page_size, cluster=cluster)
     warm = requests - 1
     return {"hit_rate": warm * shared_cacheable / (requests * prompt_len),
             "saved_tokens": warm * shared_cacheable,
+            "saved_flops": warm * per["flops_saved"],
+            "saved_s": warm * (cold["total_s"] - per["total_s"]),
             "cache_pages": cache_pages, "fits": fits}
 
 
@@ -419,3 +521,77 @@ def spill_decision(cfg: ModelConfig, *, chain_tokens: int, sp: int = 1,
             "transfer_s": xfer["roundtrip_s"],
             "bytes": xfer["bytes"],
             "spill": xfer["roundtrip_s"] < rec["total_s"]}
+
+
+def spill_threshold_tokens(cfg: ModelConfig, *, sp: int = 1,
+                           page_size: int = 8, max_tokens: int = 1 << 20,
+                           dtype_bytes: int = 2,
+                           link_bw: Optional[float] = None,
+                           cluster: Optional[sch.ClusterModel] = None
+                           ) -> Optional[int]:
+    """The smallest page-multiple chain length for which spilling beats
+    recompute, or None if no chain up to ``max_tokens`` does.
+
+    recompute_s - transfer_s = a*t^2 + b*t with a > 0 (the attention
+    term), so the decision is monotone in t: a binary search finds the
+    first page boundary where it flips.
+    """
+    def spills(tokens: int) -> bool:
+        return bool(spill_decision(
+            cfg, chain_tokens=tokens, sp=sp, page_size=page_size,
+            dtype_bytes=dtype_bytes, link_bw=link_bw,
+            cluster=cluster)["spill"])
+
+    lo, hi = 1, max_tokens // page_size          # in blocks
+    if hi < 1 or not spills(hi * page_size):
+        return None
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if spills(mid * page_size):
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo * page_size
+
+
+# ---------------------------------------------------------------------------
+# Microbatch selection (gradient accumulation)
+# ---------------------------------------------------------------------------
+
+def activation_bytes_per_microbatch(cfg: ModelConfig, shape: ShapeConfig, *,
+                                    dp: int, sp: int, c: int,
+                                    microbatches: int,
+                                    remat: str = "attn_out") -> float:
+    """Rough per-device activation footprint of one microbatch's fwd+bwd:
+    the residual-stream activations kept for the backward (d_model wide,
+    bf16) per decoder layer, scaled by the recompute policy, plus the
+    team-gathered attention working set (C * S_local wide). A planning
+    heuristic; ``launch.dryrun``'s memory record is the measured figure."""
+    act_factor = {"none": 12.0, "attn_out": 6.0, "full": 2.0}[remat]
+    b_local = max(shape.global_batch // max(dp, 1), 1) / max(microbatches, 1)
+    tokens = b_local * shape.seq_len / sp
+    resid = tokens * cfg.d_model * 2.0 * cfg.num_layers * act_factor
+    attn_ws = tokens * c * cfg.head_dim_ * (cfg.num_heads
+                                            + 2 * cfg.num_kv_heads) * 4.0
+    return resid + attn_ws
+
+
+def choose_microbatches(cfg: ModelConfig, shape: ShapeConfig, *, dp: int,
+                        sp: int, c: int = 1, remat: str = "attn_out",
+                        hbm_budget: Optional[float] = None) -> int:
+    """Smallest microbatch count dividing the per-device batch whose
+    activation estimate fits ``hbm_budget`` (default 0.4 of the card's
+    memory; the rest is parameters, optimizer state and temporaries)."""
+    if shape.kind != "train":
+        return 1
+    if hbm_budget is None:
+        hbm_budget = 0.4 * hw.HBM_BYTES
+    b_local = max(shape.global_batch // max(dp, 1), 1)
+    for m in range(1, b_local + 1):
+        if b_local % m:
+            continue
+        if activation_bytes_per_microbatch(
+                cfg, shape, dp=dp, sp=sp, c=c, microbatches=m,
+                remat=remat) <= hbm_budget:
+            return m
+    return b_local

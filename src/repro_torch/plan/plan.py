@@ -37,15 +37,17 @@ from repro_torch.models.transformer import REMATS
 from repro_torch.plan import cost
 
 
-# JAX plan fields the port cannot honour yet: (field, default, ROADMAP.md
-# item that ports them); ``ExecutionPlan.load`` raises on any other value
-_UNPORTED_FIELDS = (
+# plan values the port can trace (``launch.dryrun``) but not run yet:
+# (field, runnable value, ROADMAP.md item that ports them); the runnable
+# paths (``build_mesh``, ``build_train_step``, the engine, the launchers)
+# raise on any other value
+_TRACE_ONLY_FIELDS = (
     ("pod", 1, "§A item 1, multi-pod meshes"),
     ("mesh_kind", "local", "§A item 1, meshes of several cards"),
-    ("unroll_scans", False, "§A item 9, the dry run"),
 )
 
 ROLES = ("unified", "prefill", "decode")
+MESH_KINDS = ("local", "production")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,19 +85,37 @@ class ExecutionPlan:
     grad_compression: str = "none"  # 'none' | 'int8' (optim/grad.py)
     sharding_rules: str = "default"  # 'default' | 'fsdp' | 'tp'
     #                                  (dist/sharding.py)
+    # ---- the JAX plan's mesh face (traced by launch.dryrun; a runnable
+    # plan has pod 1 and a local mesh: ``check_runnable``) --------------
+    pod: int = 1
+    mesh_kind: str = "local"       # 'local' (ThreadMesh) | 'production'
+    # carried for the JAX record and changes nothing here: the port's
+    # rings, layers and chunk loops are Python loops, which a trace (and
+    # the profiler) sees every iteration of
+    unroll_scans: bool = False
+    # the JAX ring's issue order; both orders give the same bits on a
+    # ThreadMesh, whose collectives are synchronous
+    pipeline_scan: bool = True
+
+    @property
+    def dp_size(self) -> int:
+        return self.pod * self.data
 
     @property
     def sp_size(self) -> int:
-        return self.n_devices // self.data
+        return self.n_devices // self.dp_size
 
     @property
     def r(self) -> int:
         return self.sp_size // (self.c * self.c)
 
     def __post_init__(self):
-        if self.data < 1 or self.n_devices < 1 or self.n_devices % self.data:
+        if self.mesh_kind not in MESH_KINDS:
+            raise ValueError(f"mesh_kind must be one of {MESH_KINDS}")
+        if (self.pod < 1 or self.data < 1 or self.n_devices < 1
+                or self.n_devices % self.dp_size):
             raise ValueError(f"n_devices={self.n_devices} not divisible by "
-                             f"data={self.data}")
+                             f"pod*data={self.dp_size}")
         if self.placement not in PLACEMENTS:
             raise ValueError(f"placement must be one of {PLACEMENTS}, "
                              f"got {self.placement!r}")
@@ -166,14 +186,24 @@ class ExecutionPlan:
                              f"got {self.remat!r}")
         check_rules(self.sharding_rules)
         if self.kind == "train":
-            if self.global_batch % self.data:
+            if self.global_batch % self.dp_size:
                 raise ValueError(
                     f"global_batch={self.global_batch} not divisible by "
-                    f"dp={self.data}")
-            if (self.global_batch // self.data) % self.microbatches:
+                    f"dp={self.dp_size}")
+            if (self.global_batch // self.dp_size) % self.microbatches:
                 raise ValueError(
-                    f"per-device batch {self.global_batch // self.data} "
+                    f"per-device batch {self.global_batch // self.dp_size} "
                     f"not divisible by microbatches={self.microbatches}")
+
+    def check_runnable(self) -> None:
+        """Raise ``NotImplementedError`` (naming its ROADMAP.md item) if
+        the plan's mesh needs several cards: such a plan is traced by
+        ``launch.dryrun``, never run."""
+        for name, value, item in _TRACE_ONLY_FIELDS:
+            if getattr(self, name) != value:
+                raise NotImplementedError(
+                    f"plan {name}={getattr(self, name)!r} is not ported to "
+                    f"repro_torch yet (ROADMAP.md {item})")
 
     # ---- the objects the trainer consumes --------------------------------
     def shape_config(self) -> ShapeConfig:
@@ -188,10 +218,11 @@ class ExecutionPlan:
             block_skip=self.block_skip, remat=self.remat,
             grad_compression=self.grad_compression,
             comm_chunks=self.comm_chunks,
-            sharding_rules=self.sharding_rules)
+            sharding_rules=self.sharding_rules, multi_pod=self.pod > 1)
 
     def build_mesh(self):
         """The ``ThreadMesh`` of the plan's ranks; None for one device."""
+        self.check_runnable()
         if self.n_devices == 1:
             return None
         from repro_torch.dist.comm import ThreadMesh
@@ -203,6 +234,7 @@ class ExecutionPlan:
         defaults to ``build_mesh()``."""
         from repro_torch.train import step as train_step
 
+        self.check_runnable()
         return train_step.build_train_step(
             model, self.run_config(), self.shape_config(), adam_cfg,
             comm or self.build_mesh())
@@ -217,14 +249,9 @@ class ExecutionPlan:
     @classmethod
     def from_dict(cls, d: Dict) -> "ExecutionPlan":
         """A plan from ``to_dict`` output, the port's or the JAX
-        package's: 'pallas' reads as 'cuda'; ``pipeline_scan`` is dropped
-        (both issue orders give the same bits on a ``ThreadMesh``); a value
-        the port cannot honour raises ``NotImplementedError``."""
-        for name, default, item in _UNPORTED_FIELDS:
-            if d.get(name, default) != default:
-                raise NotImplementedError(
-                    f"plan {name}={d[name]!r} is not ported to repro_torch "
-                    f"yet (ROADMAP.md {item})")
+        package's: 'pallas' reads as 'cuda'. A plan of several cards loads
+        (the dry run traces it) and its runnable paths raise
+        (``check_runnable``)."""
         d = {k: ("cuda" if k in ("block_impl", "kernel_impl")
                  and v == "pallas" else v) for k, v in d.items()}
         fields = {f.name for f in dataclasses.fields(cls)}
@@ -255,7 +282,8 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
               kernel_impl: Optional[str] = None,
               remat: str = "attn_out", grad_compression: str = "none",
               comm_chunks: Optional[int] = None,
-              sharding_rules: str = "default",
+              sharding_rules: str = "default", pod: int = 1,
+              mesh_kind: str = "local",
               cluster: Optional[ClusterModel] = None
               ) -> ExecutionPlan:
     """Resolve one training run into a validated ExecutionPlan.
@@ -268,27 +296,34 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
     C with P % C^2 != 0). ``placement`` only filters C > 1. Unset
     ``comm_chunks`` resolves through ``cost.choose_comm_chunks``.
     ``microbatches=None`` means 1, as on the JAX local
-    mesh (a ``ThreadMesh`` is its counterpart); the per-device batch must
-    divide by it.
+    mesh (a ``ThreadMesh`` is its counterpart), and on a production
+    training plan ``cost.choose_microbatches``'s pick against the card's
+    memory, as in the JAX package; the per-device batch must divide by
+    it.
 
     The sequence layout is zigzag for a dense model's training attention
     (causal load balance) and contiguous otherwise; ring-block skipping is
     on for a sliding window over the contiguous layout. ``block_impl`` /
     ``kernel_impl`` default to 'cuda' (the plain versions on CPU
     tensors). ``remat`` defaults to 'attn_out', as in the JAX plan;
-    ``sharding_rules`` to 'default'.
+    ``sharding_rules`` to 'default'. ``pod`` and ``mesh_kind`` fill the
+    JAX plan's mesh face: a plan with ``pod > 1`` or
+    ``mesh_kind='production'`` is traced by ``launch.dryrun`` and refused
+    by the runnable paths (ROADMAP.md §A item 1). ``unroll_scans`` and
+    ``pipeline_scan`` keep the JAX defaults.
     """
-    if n_devices % data:
+    dp = pod * data
+    if n_devices % dp:
         raise ValueError(f"n_devices={n_devices} not divisible by "
-                         f"data={data}")
-    sp = n_devices // data
+                         f"pod*data={dp}")
+    sp = n_devices // dp
     if cfg.family in ("ssm", "hybrid") or shape.kind != "train":
         seq_scheme = "contiguous"
     else:
         seq_scheme = "zigzag"
     if scheme is not None:
         cost.check_scheme(cfg, sp, scheme)
-    batch = max(shape.global_batch // data, 1)
+    batch = max(shape.global_batch // dp, 1)
     ranking = cost.rank_arrangements(cfg, shape, sp, batch=batch,
                                      cluster=cluster)
 
@@ -310,6 +345,11 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
         if c is not None and (c < 1 or sp % (c * c)):
             msg = f"C={c} invalid for P={sp}: need P % C^2 == 0; {msg}"
         raise ValueError(msg)
+    if microbatches is None:
+        microbatches = 1
+        if mesh_kind == "production" and shape.kind == "train":
+            microbatches = cost.choose_microbatches(
+                cfg, shape, dp=dp, sp=sp, c=picked.c, remat=remat)
     if comm_chunks is None:
         comm_chunks = cost.choose_comm_chunks(
             cfg, shape, sp, picked, batch=batch, cluster=cluster)
@@ -322,8 +362,9 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
         kernel_impl=resolve_impl(kernel_impl), shape=shape.name,
         global_batch=shape.global_batch, kind=shape.kind,
         scheme=picked.scheme, seq_scheme=seq_scheme, remat=remat,
-        microbatches=microbatches or 1, comm_chunks=comm_chunks,
-        grad_compression=grad_compression, sharding_rules=sharding_rules)
+        microbatches=microbatches, comm_chunks=comm_chunks,
+        grad_compression=grad_compression, sharding_rules=sharding_rules,
+        pod=pod, mesh_kind=mesh_kind)
 
 
 def make_serve_plan(cfg: ModelConfig, *, arch: Optional[str] = None,

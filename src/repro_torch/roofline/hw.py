@@ -6,9 +6,9 @@ Every figure is NVIDIA's datasheet figure for the NVIDIA H100 80GB HBM3
 below 700 W runs slower under load (``nvidia-smi --query-gpu=power.limit``).
 The names the cost model reads are the JAX package's, so ``plan.cost``
 and ``core.scheduler`` read the same formulas; ``HOST_LINK_BW`` prices the
-host KV tier's spills and reloads (``plan.cost.kv_transfer_cost``). The
-JAX table's memory size waits for its reader, the microbatch cost
-(ROADMAP.md §A item 1).
+host KV tier's spills and reloads (``plan.cost.kv_transfer_cost``);
+``HBM_BYTES`` is the memory the dry run's fits check holds a cell's
+peak against (``launch.dryrun``, ``roofline.model``).
 """
 
 # H100 SXM5 80GB, 700 W, datasheet: bf16 tensor-core peak, dense (FLOP/s)
@@ -23,3 +23,6 @@ NVLINK_BW = 450e9
 # H100 SXM5 80GB, datasheet: PCIe Gen5 x16 host interface, 128 GB/s in
 # both directions, 64e9 bytes/s each way (the host KV tier's d2h and h2d)
 HOST_LINK_BW = 64e9
+# H100 SXM5 80GB, 700 W, datasheet: 80 GB of HBM3 on the card, counted as
+# the JAX table counts its 16 GiB (binary units)
+HBM_BYTES = 80 * 2**30

@@ -24,6 +24,22 @@ embeddings from a numpy seed).
   ``spmd_encdec`` check bounds its gradients at 3e-2. (The JAX
   initialiser draws a stacked leaf at its layer count's fan-in scale,
   2 ** -0.5 in the smoke tree, so the attention is sharply peaked.)
+* Precision: f32 does not determine this model's gradients to ``TOL``
+  on the zigzag island's sequence. The zigzag layout computes the model
+  on the batch's columns taken in position order. Evaluated exactly
+  (float64 throughout: x64 with ``jnp.float32`` made float64 in the JAX
+  child, ``_exact_torch`` in the port), both packages' islands at
+  (c, r, data) = (2, 1, 1), (1, 4, 1) and (2, 1, 2), zigzag and
+  contiguous, equal each other and P = 1 on that permuted sequence to
+  1e-11 of a leaf's magnitude. On that sequence the f32 evaluations
+  scatter: JAX's own P = 1 lies 2.4e-3 from exact and its zigzag island
+  3.9e-3, the port's 2.3e-3 and 3.4e-3. (On the natural order the two
+  packages' f32 gradients agree to 5e-4 at P = 1 and in the contiguous
+  layout: the same operation order rounds alike.) So the zigzag island
+  is held in f32 for its loss and exactly for every gradient leaf
+  (``EXACT_TOL``), under each rule set; the f32 island in the
+  contiguous layout is held at ``TOL``. ``torch_encdec_precision.py``
+  beside this file prints these numbers.
 * Serving: ``encdec_prefill`` against JAX's at P = 1 and against the
   ``build_prefill_step`` island at (2, 1, 2); ``encdec_decode_step`` fed
   the non-zero ``enc_out`` of JAX's prefill (capacity equal to the
@@ -50,6 +66,7 @@ embeddings from a numpy seed).
   forced host devices, started by the first test so it overlaps the rest.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -93,6 +110,8 @@ SEQ, BATCH = 32, 2
 TOL = 2e-3                               # a loss or gradient (ROADMAP;
                                          # a leaf's, of its magnitude)
 BLOCK_TOL = 2e-5                         # a block's output (ROADMAP)
+EXACT_TOL = 1e-9                         # the same, evaluated exactly
+                                         # (float64 throughout)
 ISLAND = (2, 1, 2)                       # spmd_encdec's and serve_encdec's
 RULE_SETS = ["default", "fsdp", "tp"]
 REMATS = ["none", "attn_out", "full"]
@@ -175,6 +194,13 @@ def jax_references():
         for path, g in jax.tree_util.tree_leaves_with_path(grads):
             out[f"{rules}|{jax.tree_util.keystr(path)}"] = \
                 np.asarray(g, np.float32)
+    fn, _ = jax_train_step.build_value_and_grad_fn(
+        model, mesh, JaxRunConfig(c=c, seq_scheme="contiguous"), shape)
+    loss, grads = jax.jit(fn)(params, ctx["batch"])
+    out["contiguous|loss"] = np.asarray(loss, np.float32)
+    for path, g in jax.tree_util.tree_leaves_with_path(grads):
+        out[f"contiguous|{jax.tree_util.keystr(path)}"] = \
+            np.asarray(g, np.float32)
 
     # the encoder prefill at P = 1 (local mode) and on the island's mesh
     pshape = JaxShapeConfig("t", SEQ, BATCH, "prefill")
@@ -197,6 +223,24 @@ def jax_references():
     tok, cache = jdecode(params, _jax_cache(k, v, out["prefill|1"]), toks)
     out["serve|tok"] = np.asarray(tok)
     out["serve|k"] = np.asarray(cache["stack"]["sub0"]["k"])
+
+    # the zigzag island evaluated exactly: x64, and every float32 the
+    # reference names made float64 (last: nothing after it runs so)
+    jax.config.update("jax_enable_x64", True)
+    jnp.float32 = jnp.float64
+    params64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64),
+                            ctx["tree"])
+    batch64 = dict(ctx["batch"], frontend_emb=np.asarray(
+        ctx["batch"]["frontend_emb"], np.float64))
+    for rules in RULE_SETS:
+        fn, _ = jax_train_step.build_value_and_grad_fn(
+            model, mesh, JaxRunConfig(c=c, seq_scheme="zigzag",
+                                      sharding_rules=rules), shape)
+        loss, grads = jax.jit(fn)(params64, batch64)
+        out[f"{rules}|f64|loss"] = np.asarray(loss, np.float64)
+        for path, g in jax.tree_util.tree_leaves_with_path(grads):
+            out[f"{rules}|f64|{jax.tree_util.keystr(path)}"] = \
+                np.asarray(g, np.float64)
     return out
 
 
@@ -487,24 +531,96 @@ def test_loss_and_grads_match_jax_local_mode():
         assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
+@contextlib.contextmanager
+def _exact_torch():
+    """Every float32 the port names made float64 (``torch.float32``,
+    ``Tensor.float``, the default dtype) until exit: the port's exact
+    evaluation, as the JAX child's under x64 with ``jnp.float32`` made
+    float64 (module doc, "Precision")."""
+    f32, to_f32 = torch.float32, torch.Tensor.float
+    torch.float32, torch.Tensor.float = torch.float64, torch.Tensor.double
+    torch.set_default_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        torch.float32, torch.Tensor.float = f32, to_f32
+        torch.set_default_dtype(f32)
+
+
+def _island(scheme, rules, dtype):
+    """(model, per-rank losses, whole gradients) of the port's island at
+    ``ISLAND`` in ``scheme`` under ``rules``, its parameters and frames in
+    ``dtype``."""
+    ctx = _ctx()
+    model = from_jax_params(ctx["tree"], ctx["cfg"], "cpu").to(dtype)
+    batch = _torch_batch()
+    batch["frontend_emb"] = batch["frontend_emb"].to(dtype)
+    c, r, data = ISLAND
+    losses, grads = mesh_whole_grads(
+        model, ThreadMesh(c, r, data),
+        RunConfig(c=c, seq_scheme=scheme, sharding_rules=rules),
+        ShapeConfig("test", SEQ, BATCH, "train"), batch)
+    return model, losses, grads
+
+
+def _jax_leaves(want, key):
+    """{JAX path: gradient} of the references ``key|...``."""
+    return {k[len(key) + 1:]: v for k, v in want.items()
+            if k.startswith(key + "|") and k[len(key) + 1:].startswith("[")}
+
+
 @pytest.mark.parametrize("rules", RULE_SETS)
 def test_loss_and_grads_match_the_jax_island(references, rules):
     """At ``spmd_encdec``'s mesh (c 2, r 1, data 2) on ``ThreadMesh``
     ranks, zigzag layout, against the JAX spmd island under the same rule
-    set; the loss within ``TOL``, every gradient leaf within ``TOL`` of
-    its magnitude (``_leaf_errs``)."""
+    set. In f32, the smoke config's dtype: the loss within ``TOL``, every
+    gradient leaf finite. Both evaluated exactly (module doc, "Precision";
+    f32 does not determine this island's gradients to ``TOL``, which
+    ``test_f32_does_not_determine_the_zigzag_island`` pins): the loss and
+    every gradient leaf within ``EXACT_TOL`` (``_leaf_errs``)."""
     want = references()
-    ctx = _ctx()
-    model = from_jax_params(ctx["tree"], ctx["cfg"], "cpu")
-    c, r, data = ISLAND
-    losses, grads = mesh_whole_grads(
-        model, ThreadMesh(c, r, data),
-        RunConfig(c=c, seq_scheme="zigzag", sharding_rules=rules),
-        ShapeConfig("test", SEQ, BATCH, "train"), _torch_batch())
+    _, losses, grads = _island("zigzag", rules, torch.float32)
     for loss in losses:
         assert abs(float(loss) - float(want[f"{rules}|loss"])) < TOL
-    errs = _leaf_errs(model, grads, lambda p: want[f"{rules}|{p}"])
-    assert len(errs) == len(jax.tree.leaves(ctx["tree"]))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    with _exact_torch():                 # (``_leaf_errs`` reads f64 too)
+        model, losses, grads = _island("zigzag", rules, torch.float64)
+        errs = _leaf_errs(model, grads, lambda p: want[f"{rules}|f64|{p}"])
+    for loss in losses:
+        assert abs(float(loss) - float(want[f"{rules}|f64|loss"])) \
+            < EXACT_TOL
+    assert len(errs) == len(jax.tree.leaves(_ctx()["tree"]))
+    assert max(errs.values()) < EXACT_TOL, errs
+
+
+def test_f32_does_not_determine_the_zigzag_island(references):
+    """The fact the island test is built on: the JAX island's own f32
+    gradients (zigzag, ``default``) lie more than ``TOL`` of a leaf's
+    magnitude from its exact evaluation (3.9e-3 measured), so the port's
+    f32 gradients cannot be held to JAX's f32 ones within ``TOL``. If the
+    reference grows this precise, hold the f32 island at ``TOL`` again."""
+    want = references()
+    f32, exact = _jax_leaves(want, "default"), _jax_leaves(want,
+                                                           "default|f64")
+    assert sorted(f32) == sorted(exact) and len(f32) == \
+        len(jax.tree.leaves(_ctx()["tree"]))
+    errs = {p: float(np.max(np.abs(f32[p] - exact[p]))
+                     / max(1.0, float(np.abs(exact[p]).max())))
+            for p in exact}
+    assert max(errs.values()) > TOL, errs
+
+
+def test_loss_and_grads_match_the_contiguous_jax_island_in_f32(references):
+    """The same island in the contiguous layout, in f32 (the smoke
+    config's dtype), against the JAX island in f32 under ``default``:
+    the loss within ``TOL``, every gradient leaf within ``TOL`` of its
+    magnitude."""
+    want = references()
+    model, losses, grads = _island("contiguous", "default", torch.float32)
+    for loss in losses:
+        assert abs(float(loss) - float(want["contiguous|loss"])) < TOL
+    errs = _leaf_errs(model, grads, lambda p: want[f"contiguous|{p}"])
+    assert len(errs) == len(jax.tree.leaves(_ctx()["tree"]))
     assert max(errs.values()) < TOL, errs
 
 

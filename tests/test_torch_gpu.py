@@ -1930,3 +1930,43 @@ def test_vlm_train_step_matches_cpu(cuda_device, data, c):
         assert abs(float(m_gpu[key]) - float(m_cpu[key])) < 2e-3, key
     assert max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu)) \
         < 2e-3
+
+
+@pytest.mark.gpu
+def test_dry_run_predicts_the_train_step(cuda_device):
+    """``launch.dryrun``'s trace of a P = 1 train step (full-width
+    h2o-danube-1.8b cut to 2 layers, seq 1024, batch 2 in 2 microbatches,
+    ``attn_out``, ``kernel_impl='cuda'``) against the same step on the
+    card: the parameters plus AdamW state it predicts equal the bytes of
+    the live storages, and its ``peak_bytes_per_device`` lies within 0.5
+    to 2 of ``torch.cuda.max_memory_allocated`` over the step."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.plan import make_plan
+
+    cfg = dataclasses.replace(registry.get("h2o-danube-1.8b"), num_layers=2)
+    shape = ShapeConfig("t", 1024, 2, "train")
+    plan = make_plan(cfg, shape, c=1, microbatches=2, kernel_impl="cuda",
+                     block_impl="cuda")
+    _, mem = dryrun.trace_step(cfg, plan)
+    model = build_model(cfg, device=cuda_device, seed=0)
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0,
+                             state_dtype=cfg.opt_dtype)
+    step, sh = plan.build_train_step(model, adam)
+    opt = adamw.init_state(sh["params"], adam)
+    live = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for t in list(model.parameters()) + opt["mu"] + opt["nu"]}
+    assert mem["alias_bytes"] - 4 == sum(live.values())   # less the step
+    batch = {n: torch.randint(0, cfg.vocab_size, (2, 1024), dtype=torch.int32,
+                              device=cuda_device)
+             for n in ("tokens", "labels")}
+    step(opt, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(opt, batch)
+    torch.cuda.synchronize()
+    ratio = mem["peak_bytes_per_device"] / torch.cuda.max_memory_allocated()
+    assert 0.5 <= ratio <= 2.0, ratio

@@ -21,7 +21,9 @@ carried across by ``from_jax_params`` and the same numpy inputs.
   against the JAX local mode, and on ``ThreadMesh`` (c, r, data) =
   (2, 1, 2), (1, 4, 2) and (2, 2, 1) against the JAX spmd island at the
   same mesh under ``default``, ``fsdp`` and ``tp``. Three train steps at
-  (2, 1, 2) against JAX ``build_train_step``.
+  (2, 1, 2) against JAX ``build_train_step``, each from the parameters
+  JAX's starts from (AdamW's first update turns f32 noise in near-zero
+  gradients into full steps), with every rank's expert choices equal.
 * Serving: the prefill's attention K/V and Mamba states at P = 1 and at
   (2, 1, 2) against the JAX ``lm_prefill`` cache within 2e-5 of their
   largest magnitude; one decode step from a zero cache at (c, data) =
@@ -71,7 +73,7 @@ from repro_torch.dist import checkpoint
 from repro_torch.dist.comm import SingleComm, ThreadMesh
 from repro_torch.engine import sampling
 from repro_torch.launch import serve
-from repro_torch.models import blocks, ssm, transformer
+from repro_torch.models import blocks, moe, ssm, transformer
 from repro_torch.models.factory import (Model, build_model,
                                         from_jax_params, jax_tree,
                                         load_jax_tree, to_jax_layout)
@@ -179,18 +181,37 @@ def jax_references():
                 out[f"{key}|{jax.tree_util.keystr(path)}"] = \
                     np.asarray(g, np.float32)
 
-    # three train steps (check_spmd_train_step) on the island's mesh
+    # three train steps (check_spmd_train_step) on the island's mesh:
+    # each step's metrics, the parameters it starts from and every rank's
+    # expert choices (``jax.lax.top_k``'s, through a debug callback)
     c, r, data = ISLAND
     mesh = meshes.local_mesh_for_tests(c=c, r=r, data=data)
-    jstep, _ = jax_train_step.build_train_step(
-        lifted, mesh, JaxRunConfig(c=c, seq_scheme="zigzag"), shape,
-        jax_adamw.AdamWConfig(**ADAM_STEP))
-    p = jax.tree.map(jnp.array, ctx["tree"])    # the step donates its inputs
-    opt = jax_adamw.init_state(p, jax_adamw.AdamWConfig(**ADAM_STEP))
-    metrics = []
-    for _ in range(3):
-        p, opt, m = jstep(p, opt, ctx["batch"])
-        metrics.append([float(m["loss"]), float(m["grad_norm"])])
+    seen = []
+    top_k = jax.lax.top_k
+
+    def recording_top_k(x, k):
+        vals, sel = top_k(x, k)
+        jax.debug.callback(lambda s: seen.append(choice_key(s)), sel)
+        return vals, sel
+
+    jax.lax.top_k = recording_top_k
+    try:
+        jstep, _ = jax_train_step.build_train_step(
+            lifted, mesh, JaxRunConfig(c=c, seq_scheme="zigzag"), shape,
+            jax_adamw.AdamWConfig(**ADAM_STEP))
+        p = jax.tree.map(jnp.array, ctx["tree"])   # the step donates them
+        opt = jax_adamw.init_state(p, jax_adamw.AdamWConfig(**ADAM_STEP))
+        metrics = []
+        for i in range(3):
+            for path, leaf in jax.tree_util.tree_leaves_with_path(p):
+                out[f"steps|{i}|{jax.tree_util.keystr(path)}"] = \
+                    np.asarray(leaf)
+            seen.clear()
+            p, opt, m = jstep(p, opt, ctx["batch"])
+            metrics.append([float(m["loss"]), float(m["grad_norm"])])
+            out[f"steps|{i}|choices"] = np.asarray(sorted(set(seen)))
+    finally:
+        jax.lax.top_k = top_k
     out["steps"] = np.asarray(metrics)
 
     # the prefill's cache at P = 1 (local mode) and on the island's mesh
@@ -743,8 +764,31 @@ def test_loss_and_grads_match_the_jax_island(references, c, r, data, rules):
     assert all(bool(torch.isfinite(g).all()) for g in grads)
 
 
-def test_three_mesh_train_steps_match_jax(references):
-    want = references()["steps"]
+def choice_key(sel) -> str:
+    """One rank's (T, k) expert choices of one MoE call, as a string."""
+    sel = np.asarray(sel, np.int32)
+    return f"{sel.shape}:{sel.tobytes().hex()}"
+
+
+def _jax_step_tree(want, i):
+    """The parameters JAX's step ``i`` starts from, as a JAX-layout tree
+    of tensors."""
+    return jax.tree_util.tree_map_with_path(
+        lambda path, _: torch.from_numpy(
+            want[f"steps|{i}|{jax.tree_util.keystr(path)}"]),
+        _ctx()["tree"])
+
+
+def test_three_mesh_train_steps_match_jax(references, monkeypatch):
+    """Three ``plan.build_train_step`` steps at (2, 1, 2) against JAX
+    ``build_train_step``, each from the parameters JAX's step starts from:
+    loss and grad norm within ``TOL``, every rank's expert choices equal to
+    JAX's. (Run free, the port's parameters drift from JAX's at step 0:
+    AdamW's first update ``g / (|g| + eps)`` gives the thousands of
+    elements whose gradient is below 1e-6, f32 noise, a near-full ``lr``
+    step of either sign, 2.7e-4 apart after one step; the step-2 grad
+    norm then lay 2.7e-3 from JAX's.)"""
+    want = references()
     ctx = _ctx()
     model = _lifted_model()
     plan = make_plan(model.cfg, ShapeConfig("test", SEQ, BATCH, "train"),
@@ -754,11 +798,23 @@ def test_three_mesh_train_steps_match_jax(references):
     step, sh = plan.build_train_step(model, adamw.AdamWConfig(**ADAM_STEP))
     opt = adamw.init_state(sh["params"], adamw.AdamWConfig(**ADAM_STEP))
     batch = {k: torch.from_numpy(v) for k, v in ctx["batch"].items()}
+    seen = set()
+    route = moe.route
+
+    def recording_route(probs, k):
+        gates, sel = route(probs, k)
+        seen.add(choice_key(sel))
+        return gates, sel
+
+    monkeypatch.setattr(moe, "route", recording_route)
     losses = []
-    for i, (loss_j, gnorm_j) in enumerate(want):
+    for i, (loss_j, gnorm_j) in enumerate(want["steps"]):
+        load_jax_tree(model, _jax_step_tree(want, i))
+        seen.clear()
         opt, m = step(opt, batch)
         assert abs(float(m["loss"]) - loss_j) < TOL, (i, "loss")
         assert abs(float(m["grad_norm"]) - gnorm_j) < TOL, (i, "grad_norm")
+        assert seen and sorted(seen) == list(want[f"steps|{i}|choices"]), i
         losses.append(float(m["loss"]))
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
 

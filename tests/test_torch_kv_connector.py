@@ -9,7 +9,7 @@ model.
   spill, page reuse, flush, has, reload, export, inject and reset over
   equal fake pools, under capacity pressure with a cost gate: every return
   value, ``stats()`` and the pool contents equal after every operation.
-* ``prefill_step_cost`` (its ``total_s``, the one field the port reads),
+* ``prefill_step_cost`` (every field),
   ``kv_bytes_per_token``, ``kv_transfer_cost`` and ``spill_decision``
   against the JAX ones on the 13 configs at SP degree 1-8, under the JAX table's constants (an
   equal explicit ``ClusterModel``, and the port's ``hw`` HBM and host-link
@@ -551,7 +551,7 @@ def test_host_tier_costs_match_jax(name, monkeypatch):
                     _same(cost.prefill_step_cost(
                               cfg, prompt_len=tokens, cached_len=cached,
                               sp=sp, page_size=ps, cluster=cl),
-                          {"total_s": want["total_s"]},
+                          want,
                           f"{name} prefill sp={sp} {tokens}/{cached}")
                 _same(cost.kv_transfer_cost(cfg, tokens=tokens),
                       jax_cost.kv_transfer_cost(cfg_j, tokens=tokens),

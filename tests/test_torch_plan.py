@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch  # noqa: F401
 
+from repro.configs import base as jax_base
 from repro.configs import paper_models
 from repro.configs import registry as jax_registry
 from repro.configs.base import SHAPES as JAX_SHAPES
@@ -38,6 +39,7 @@ from repro.roofline import hw as jax_hw
 from repro_torch.configs import base as tbase
 from repro_torch.configs import registry
 from repro_torch.core import scheduler as sch
+from repro_torch.models.factory import Model
 from repro_torch.plan import (ExecutionPlan, autotune, cost, make_plan,
                               make_serve_plan, plan_path)
 from repro_torch.roofline import hw
@@ -316,14 +318,29 @@ def test_plan_file_from_jax(tmp_path):
 
 @pytest.mark.parametrize("field,value,item", [
     ("pod", 2, "§A item 1"), ("mesh_kind", "production", "§A item 1"),
-    ("unroll_scans", True, "§A item 9")])
+    ("unroll_scans", True, None)])
 def test_plan_file_unported_values_raise(field, value, item, tmp_path):
+    """A JAX plan of several cards loads (the dry run traces it) and its
+    runnable paths raise naming §A item 1; ``unroll_scans`` loads and
+    runs (it changes nothing in the port)."""
     _, d = _jax_plan_dict()
     d[field] = value
+    if field == "pod":
+        d["n_devices"] = 16
     path = tmp_path / "PLAN_x.json"
     path.write_text(json.dumps({"plan": d}))
-    with pytest.raises(NotImplementedError, match=f"{field}=.*{item}"):
-        ExecutionPlan.load(path)
+    plan = ExecutionPlan.load(path)
+    assert getattr(plan, field) == value
+    assert plan.to_dict()[field] == value
+    if item is None:
+        assert plan.build_mesh().size == 8
+        return
+    model = Model(registry.get_smoke(ARCH),
+                  lambda s: torch.empty(s.shape, device="meta"))
+    for build in (plan.check_runnable, plan.build_mesh,
+                  lambda: plan.build_train_step(model, None)):
+        with pytest.raises(NotImplementedError, match=f"{field}=.*{item}"):
+            build()
 
 
 @pytest.mark.parametrize("face", ["replicas", "roles"])
@@ -459,3 +476,168 @@ def test_launch_train_autotune_then_plan(tmp_path, monkeypatch, capsys):
     # with --c left open at P = 1 the ranking picks the ring (C = 1)
     out = train.main(base + ["--arch", ARCH, "--steps", "1"])
     assert "scheme=ring C=1 R=1" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# plan/cost.py: the serving half (every field) and the config pieces the
+# dry run reads
+# ---------------------------------------------------------------------------
+
+SERVE_ARCHS = ("h2o-danube-1.8b", "phi3.5-moe-42b-a6.6b",
+               "jamba-1.5-large-398b", "seamless-m4t-large-v2")
+
+
+@pytest.mark.parametrize("name", SERVE_ARCHS)
+def test_serving_cost_fields_match_jax(name, monkeypatch):
+    """Dense, MoE, hybrid and encoder-decoder, under an equal explicit
+    ``ClusterModel`` and the JAX table's HBM and host-link rates:
+    ``prefill_step_cost``, ``chunked_prefill_cost``, ``decode_step_cost``,
+    ``rank_decode_kernels`` (same order, 'cuda' for 'pallas'),
+    ``prefix_cache_value`` and ``spill_threshold_tokens`` over cached
+    lengths, chunks and page sizes, every field equal."""
+    monkeypatch.setattr(hw, "HBM_BW", jax_hw.HBM_BW)
+    monkeypatch.setattr(hw, "HOST_LINK_BW", jax_hw.HOST_LINK_BW)
+    cfg_j = CONFIGS[name]
+    cfg = _port_cfg(cfg_j)
+    names = {"ref": "ref", "cuda": "pallas"}
+    for sp in (1, 4, 16):
+        cl, cl_j = _clusters(sp)
+        for ps in (8, 16):
+            for plen, cached in ((64, 0), (1000, 256), (32768, 4096),
+                                 (512, 512)):
+                kw = dict(prompt_len=plen, cached_len=cached, sp=sp,
+                          page_size=ps)
+                _same(cost.prefill_step_cost(cfg, cluster=cl, **kw),
+                      jax_cost.prefill_step_cost(cfg_j, cluster=cl_j, **kw),
+                      f"{name} prefill {kw}")
+                for chunk in (0, 64, 500, 4096):
+                    _same(cost.chunked_prefill_cost(cfg, chunk=chunk,
+                                                    cluster=cl, **kw),
+                          jax_cost.chunked_prefill_cost(
+                              cfg_j, chunk=chunk, cluster=cl_j, **kw),
+                          f"{name} chunked {chunk} {kw}")
+            for batch, cache_len in ((1, 1), (8, 1000), (16, 32768)):
+                kw = dict(batch=batch, cache_len=cache_len, sp=sp,
+                          page_size=ps)
+                for kernel in ("ref", "cuda"):
+                    _same(cost.decode_step_cost(cfg, kernel=kernel,
+                                                cluster=cl, **kw),
+                          jax_cost.decode_step_cost(
+                              cfg_j, kernel=names[kernel], cluster=cl_j,
+                              **kw), f"{name} decode {kernel} {kw}")
+                got = cost.rank_decode_kernels(cfg, cluster=cl, **kw)
+                want = jax_cost.rank_decode_kernels(cfg_j, cluster=cl_j,
+                                                    **kw)
+                assert [names[e["kernel"]] for e in got] == \
+                    [e["kernel"] for e in want]
+                for g, w in zip(got, want):
+                    _same({k: v for k, v in g.items() if k != "kernel"},
+                          {k: v for k, v in w.items() if k != "kernel"},
+                          f"{name} ranked {kw}")
+            for plen, shared, pages in ((128, 96, 64), (4096, 1024, 4096),
+                                        (128, 96, 4)):
+                kw = dict(prompt_len=plen, shared_len=shared, requests=8,
+                          sp=sp, page_size=ps, pages_per_shard=pages,
+                          max_len=32)
+                _same(cost.prefix_cache_value(cfg, cluster=cl, **kw),
+                      jax_cost.prefix_cache_value(cfg_j, cluster=cl_j, **kw),
+                      f"{name} value {kw}")
+            for bw in (None, 1e9):
+                kw = dict(sp=sp, page_size=ps, link_bw=bw,
+                          max_tokens=1 << 16)
+                assert cost.spill_threshold_tokens(cfg, cluster=cl, **kw) \
+                    == jax_cost.spill_threshold_tokens(cfg_j, cluster=cl_j,
+                                                       **kw), (name, kw)
+    with pytest.raises(ValueError, match="cached_len"):
+        cost.chunked_prefill_cost(cfg, prompt_len=8, cached_len=9)
+
+
+def test_flops_params_and_cells_match_jax():
+    """``model_flops_per_token`` and ``total_params`` on every JAX arch and
+    the paper's models; the registry's ``ASSIGNED_ARCHS``, ``SHAPES``,
+    ``shape_supported`` and ``cells`` against JAX's."""
+    for name, cfg_j in CONFIGS.items():
+        cfg = _port_cfg(cfg_j)
+        assert tbase.model_flops_per_token(cfg) == \
+            jax_base.model_flops_per_token(cfg_j), name
+        assert tbase.total_params(cfg) == jax_base.total_params(cfg_j), name
+    assert registry.ASSIGNED_ARCHS == jax_registry.ASSIGNED_ARCHS
+    assert sorted(registry.PORTED_ARCHS) == sorted(registry.ASSIGNED_ARCHS)
+    assert {k: dataclasses.asdict(v) for k, v in registry.SHAPES.items()} \
+        == {k: dataclasses.asdict(v) for k, v in JAX_SHAPES.items()}
+    assert registry.ShapeConfig is tbase.ShapeConfig
+    assert registry.cells() == jax_registry.cells()
+    ok, why = registry.shape_supported(registry.get(ARCH),
+                                       registry.SHAPES["long_500k"])
+    assert (ok, why) == jax_registry.shape_supported(
+        jax_registry.get(ARCH), JAX_SHAPES["long_500k"])
+    assert ok and not why     # h2o has a sliding window
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n_devices=8, data=2, c=2, kind="train"),
+    dict(n_devices=256, data=16, c=2, kind="decode", mesh_kind="production"),
+    dict(n_devices=512, data=16, c=2, kind="prefill", pod=2,
+         mesh_kind="production"),
+    dict(n_devices=8, data=2, c=2, kind="train", unroll_scans=True,
+         pipeline_scan=False)])
+def test_plan_dict_equals_jax_key_for_key(kw, monkeypatch):
+    """``make_plan`` with the JAX plan's mesh face (``pod``,
+    ``mesh_kind``; ``unroll_scans`` and ``pipeline_scan`` set on the plan
+    with ``dataclasses.replace``): ``to_dict`` equal to JAX's key for key,
+    'cuda' read as 'pallas'; ``from_dict`` of the JAX dict gives the
+    port's plan back. A production training plan with unset microbatches
+    takes ``choose_microbatches``'s pick, JAX's under JAX's memory size."""
+    kind = kw.pop("kind")
+    face = {k: kw.pop(k) for k in ("unroll_scans", "pipeline_scan")
+            if k in kw}
+    shape = _shapes({"train": "train_4k", "prefill": "prefill_32k",
+                     "decode": "decode_32k"}[kind])
+    cfg_j = jax_registry.get(ARCH)
+    cfg = _port_cfg(cfg_j)
+    cl, cl_j = _clusters(kw["n_devices"] // (kw["data"] * kw.get("pod", 1)))
+    want = jax_make_plan(cfg_j, shape[1], arch=ARCH, cluster=cl_j,
+                         block_impl="pallas", kernel_impl="pallas",
+                         microbatches=1, **face, **kw)
+    got = dataclasses.replace(make_plan(cfg, shape[0], arch=ARCH, cluster=cl,
+                                        microbatches=1, **kw), **face)
+    d = {k: ("pallas" if v == "cuda" else v) for k, v in got.to_dict().items()}
+    assert d == want.to_dict()
+    assert ExecutionPlan.from_dict(want.to_dict()) == got
+    if kw.get("mesh_kind") == "production":
+        monkeypatch.setattr(hw, "HBM_BYTES", jax_hw.HBM_BYTES)
+        train = _shapes("train_4k")
+        want = jax_make_plan(cfg_j, train[1], arch=ARCH, cluster=cl_j,
+                             block_impl="pallas", kernel_impl="pallas", **kw)
+        got = make_plan(cfg, train[0], arch=ARCH, cluster=cl, **kw)
+        assert got.microbatches == want.microbatches
+        d = {k: ("pallas" if v == "cuda" else v)
+             for k, v in got.to_dict().items()}
+        assert d == want.to_dict()
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_microbatch_costs_match_jax(name):
+    """``activation_bytes_per_microbatch`` and ``choose_microbatches``
+    against JAX's on the 13 configs, at train_4k over data degrees, SP
+    degrees, C, ``remat`` and an explicit equal memory budget."""
+    cfg_j = CONFIGS[name]
+    cfg = _port_cfg(cfg_j)
+    shape, shape_j = _shapes("train_4k")
+    for dp, sp, c in ((1, 1, 1), (16, 16, 2), (4, 64, 4), (256, 1, 1)):
+        for remat in ("none", "attn_out", "full"):
+            for m in (1, 2, 4):
+                assert cost.activation_bytes_per_microbatch(
+                    cfg, shape, dp=dp, sp=sp, c=c, microbatches=m,
+                    remat=remat) == jax_cost.activation_bytes_per_microbatch(
+                        cfg_j, shape_j, dp=dp, sp=sp, c=c, microbatches=m,
+                        remat=remat)
+            for budget in (2**28, 2**32, 0.4 * jax_hw.HBM_BYTES,
+                           0.4 * hw.HBM_BYTES):
+                assert cost.choose_microbatches(
+                    cfg, shape, dp=dp, sp=sp, c=c, remat=remat,
+                    hbm_budget=budget) == jax_cost.choose_microbatches(
+                        cfg_j, shape_j, dp=dp, sp=sp, c=c, remat=remat,
+                        hbm_budget=budget)
+    decode = _shapes("decode_32k")
+    assert cost.choose_microbatches(cfg, decode[0], dp=1, sp=1) == 1
