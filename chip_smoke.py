@@ -49,18 +49,21 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               held against its plain version at the same tolerances and
               timed beside its bound and SDPA where one computes the
               function; the ``-Xptxas -v`` lines of the D = 128 kernels
-  3c. kernels_d256  the kernels that take head size 256 (paligemma-3b: B1,
-              B2, B3, B5, B7): phase 3's check cases again at D = 256,
-              bf16 and f32, and prefix-LM cases (one block, a zigzag ring
-              step straddling the prefix, per-row positions); B4 and B6
-              raising at D = 256 (ROADMAP §B item 5) with nothing
-              launched; then B1, B2 and B3 at paligemma's training shape
-              (q (1,4096,8,256), k/v (1,4096,1,256), causal, a
-              512-position prefix), B5 at its ``--legacy`` decode shape
-              and B7 at the ragged_bwd shape with 8q/1kv, each held
-              against its plain version and timed beside its bound and
-              SDPA; the D = 256 kernels' ``-Xptxas -v`` lines and CTAs per
-              SM
+  3c. kernels_d256  every kernel at head size 256 (paligemma-3b, GPT-3B):
+              phase 3's check cases again at D = 256, bf16 and f32, B4
+              and B6 among them, and prefix-LM cases (one block, a zigzag
+              ring step straddling the prefix, per-row positions); B4 and
+              B6 at pages of 128, 96 (B6 also 48) under windows that
+              start inside a page, and B4 at 32 query heads on one kv
+              head; then B1, B2 and B3 at paligemma's training shape (q
+              (1,4096,8,256), k/v (1,4096,1,256), causal, a 512-position
+              prefix), B5 at its ``--legacy`` decode shape, B7 at the
+              ragged_bwd shape with 8q/1kv, B4 at GPT-3B's decode step (4
+              slots at ~1K context, 12 heads of 256) and B6 at its
+              256-query chunk after a 1024-token prefix, at pages of 16
+              and 128, each held against its plain version and timed
+              beside its bound and SDPA; the D = 256 kernels' ``-Xptxas
+              -v`` lines and CTAs per SM
   4. ring     StarTrail on a ThreadMesh(c=2, r=2): P = 8 ranks as threads
               on the one card, N = 2048 tokens of 32q/8kv heads of 80,
               bf16, causal + window; each rank runs the forward (B2 in
@@ -479,6 +482,21 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               ``torch.cuda.max_memory_allocated`` over the step (the ratio
               must lie in 0.5-2) and the roofline ``bound_s`` against the
               step's device ms (CUDA events)
+ 32. gpt3b_serve  the paper's GPT-3B (16 layers, d_model 4096, 12 heads of
+              256, MHA, vocab 50304, 4.44 B seeded bf16 parameters) at full
+              width through the paged engine with the prefix cache, pages
+              of 16: prompts of 64, 512 and 2048 tokens and three sharing
+              a 1024-token prefix (two of them prefix hits), 32 new tokens
+              each (B2 per cold prefill and layer, B6 and B1 per hit and
+              layer, B4 per decode step and layer, all at head size 256; 4
+              pure decode steps profiled); the same requests on the plain
+              versions: every prompt's next-token hidden state and logits
+              and the first decode step's within ``ENGINE_TOL``, the
+              tokens' agreement printed; P = 4 on ThreadMesh(c=2, r=1), 2
+              prompts, 3 new tokens, first-token hidden states against
+              P = 1's (``DENSE_SP_TOL``); ``launch.serve`` in engine mode
+              with ``--page-size 128`` on the full-width h2o-danube-1.8b
+              (B4 at pages of 128)
 
 Every JSON line carries ``seconds``: the wall time since the line before
 (or the phase's own, where the phase reports it).
@@ -495,8 +513,9 @@ two (hybrid_train_p1, hybrid_train_p8), 27's four (encdec_prefill_p1,
 encdec_prefill_p4, encdec_legacy_p1, encdec_legacy_p4), 28's three
 (encdec_train_p1, encdec_train_cut_p1, encdec_train_cut_p8), 29's four
 (vlm_prefill_p1, vlm_prefill_local, vlm_legacy_p1, vlm_legacy_p4),
-30's three (vlm_train_p1, vlm_train_cut_p1, vlm_train_cut_p8) and 31's
-measured step (dryrun):
+30's three (vlm_train_p1, vlm_train_cut_p1, vlm_train_cut_p8), 31's
+measured step (dryrun) and 32's three (gpt3b_serve_p1, gpt3b_serve_p4,
+serve_page128):
 the launch counters are set to 0 just before each and read just after,
 and each must launch exactly the kernels it runs (B2 and B3 in the ring;
 B5 and B7 in ragged_bwd; B2 and B4 in the engine and in the sample
@@ -519,7 +538,9 @@ prefills, B1, B2 and B5 in the encdec ``--legacy`` runs, B1, B2 and B3
 in the encdec trainings, B2 in the VLM's StarTrail prefill and B1 in its
 local one, B2 and B5 in its ``--legacy`` runs, B2 and B3 in its
 trainings, all at head size 256; B2 and B3 in the dry run's measured
-step). Comparison,
+step; B1, B2, B4 and B6 in GPT-3B's P = 1 run and B2 and B4 in its P = 4
+run, all at head size 256, B2 and B4 in ``launch.serve --page-size
+128``). Comparison,
 timing and profiling launches are not counted. The kernels line's
 ``launches`` is each kernel's count on the path that runs it (the engine for B2 and B4, the local prefill for B1, the train
 loop for B3, the legacy phase for B5, the prefix phase for B6, ragged_bwd
@@ -874,32 +895,61 @@ def paged_cases():
     }
 
 
-def paged_inputs(dev, sp, cache_len, seed=0, dtype=None, d=80, rank=None):
-    """q (4,1,32,d); pool (512/sp,16,8,d) (bf16 unless ``dtype``), rank
-    ``rank``'s shard (default 1 when sp > 1) of a 512-page cache as the
-    engine splits it; table (4, min(64, 128/sp)): distinct pages for the
-    rank's blocks (global block w*sp + rank at entry w) each row has
-    written, -1 past them, so the last page of a row is partial; a row with
-    cache_len 0 is an inactive slot."""
+# B4 and B6 on the paged shapes page_size 16 does not reach, at every head
+# size check_cases runs (h2o's 80 with its 32q/8kv heads, 128, 256), as
+# (sp, rank, window, cache lengths, page size, heads): pages of 128 (two
+# key tiles each; launch.serve --page-size 128) and 96 (the second tile of
+# a page half empty), windows starting inside a page, 32 query heads on
+# one kv head (two 16-row slabs, B4's unsplit route)
+LARGE_PAGE_DECODE = {
+    "page128_window300": (1, 0, 300, [1400, 700, 130, 0], 128, (32, 8)),
+    "page96_sp2_rank1": (2, 1, None, [1800, 900, 77, 0], 96, (32, 8)),
+    "g32_page16": (1, 0, None, [1023, 500, 7, 0], 16, (32, 1)),
+    "g32_page128_window200": (1, 0, 200, [1100, 260, 60, 0], 128, (32, 1)),
+}
+# B6 likewise, as (cached lengths, window, sp, rank, page size): a window
+# sliding past the prefix inside a page, a row with nothing cached, pages
+# of 48 (64 does not divide by it) on rank 1 of 2
+LARGE_PAGE_PREFILL = {
+    "page128_window_slid": ([1024], 256, 1, 0, 128),
+    "page96_partial_and_empty": ([1000, 0], None, 1, 0, 96),
+    "page48_sp2_rank1": ([700, 50], None, 2, 1, 48),
+}
+
+
+
+def paged_inputs(dev, sp, cache_len, seed=0, dtype=None, d=80, rank=None,
+                 ps=16, heads=(32, 8)):
+    """q (4,1,32,d) (``heads``: query and kv heads); pool
+    (8192/(ps*sp),ps,8,d) (bf16 unless ``dtype``), rank ``rank``'s shard
+    (default 1 when sp > 1) of an 8192-token cache as the engine splits
+    it; table (4, min(1024, 2048/sp)/ps): distinct pages for the rank's
+    blocks (global block w*sp + rank at entry w) each row has written, -1
+    past them, so the last page of a row is partial; a row with cache_len
+    0 is an inactive slot."""
     import numpy as np
     import torch
 
     dtype = dtype or torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(seed)
-    pages, width = 512 // sp, min(64, 128 // sp)
-    q = torch.randn((4, 1, 32, d), generator=g, device=dev).to(dtype)
-    pool_k = torch.randn((pages, 16, 8, d), generator=g, device=dev).to(dtype)
-    pool_v = torch.randn((pages, 16, 8, d), generator=g, device=dev).to(dtype)
+    pages, width = 8192 // (ps * sp), min(1024, 2048 // sp) // ps
+    hq, hkv = heads
+    b = len(cache_len)
+    q = torch.randn((b, 1, hq, d), generator=g, device=dev).to(dtype)
+    pool_k = torch.randn((pages, ps, hkv, d), generator=g,
+                         device=dev).to(dtype)
+    pool_v = torch.randn((pages, ps, hkv, d), generator=g,
+                         device=dev).to(dtype)
     rng = np.random.default_rng(seed)
     perm = rng.permutation(pages)
-    table = np.full((4, width), -1, np.int32)
+    table = np.full((b, width), -1, np.int32)
     used = 0
     if rank is None:
         rank = 1 if sp > 1 else 0
     for b, cl in enumerate(cache_len):
         if cl == 0:
             continue
-        blocks = cl // 16 + 1           # global blocks 0 .. cl // 16
+        blocks = cl // ps + 1           # global blocks 0 .. cl // ps
         n_local = min(width, (blocks - rank + sp - 1) // sp)
         table[b, :n_local] = perm[used:used + n_local]
         used += n_local
@@ -924,9 +974,10 @@ def paged_work(table, cache_len, sp, rank, window, ps=16, hkv=8, d=80,
             for p in range(base, base + ps):
                 if p <= cl and (window is None or cl - p < window):
                     vis += 1
+    rows = table.shape[0]
     kv = 2 * live_pages * ps * hkv * d * 2
-    io = (4 * hq * d * 2 + table.size * 4 + table.shape[0] * 4
-          + 4 * hq * d * 4 + 4 * hq * 4)
+    io = (rows * hq * d * 2 + table.size * 4 + rows * 4
+          + rows * hq * d * 4 + rows * hq * 4)
     return kv + io, 4 * d * hq * vis
 
 
@@ -998,25 +1049,29 @@ def paged_prefill_cases():
 
 
 def paged_prefill_inputs(dev, dtype, cached, holes, sq=256, seed=0, d=80,
-                         sp=1, rank=0):
-    """q (B,256,32,d); pool (512/sp,16,8,d), rank ``rank``'s shard of a
-    512-page cache as the engine splits it; table (B,128/sp): distinct
-    pages for the rank's blocks (global block w*sp + rank at entry w) of
-    each row's prefix and suffix, -1 past them and at ``holes`` in row 0."""
+                         sp=1, rank=0, ps=16, heads=(32, 8)):
+    """q (B,256,32,d) (``heads``: query and kv heads); pool
+    (8192/(ps*sp),ps,8,d), rank ``rank``'s shard of an 8192-token cache as
+    the engine splits it; table (B,ceil(2048/(ps*sp))): distinct pages for
+    the rank's blocks (global block w*sp + rank at entry w) of each row's
+    prefix and suffix, -1 past them and at ``holes`` in row 0."""
     import numpy as np
     import torch
 
-    pages, width = 512 // sp, 128 // sp
+    pages, width = 8192 // (ps * sp), -(-2048 // (ps * sp))
+    hq, hkv = heads
     g = torch.Generator(device=dev).manual_seed(seed)
     b = len(cached)
-    q = torch.randn((b, sq, 32, d), generator=g, device=dev).to(dtype)
-    pool_k = torch.randn((pages, 16, 8, d), generator=g, device=dev).to(dtype)
-    pool_v = torch.randn((pages, 16, 8, d), generator=g, device=dev).to(dtype)
+    q = torch.randn((b, sq, hq, d), generator=g, device=dev).to(dtype)
+    pool_k = torch.randn((pages, ps, hkv, d), generator=g,
+                         device=dev).to(dtype)
+    pool_v = torch.randn((pages, ps, hkv, d), generator=g,
+                         device=dev).to(dtype)
     perm = np.random.default_rng(seed).permutation(pages)
     table = np.full((b, width), -1, np.int32)
     used = 0
     for row, cl in enumerate(cached):
-        blocks = -(-(cl + sq) // 16)
+        blocks = -(-(cl + sq) // ps)
         n_local = max(0, -(-(blocks - rank) // sp))
         table[row, :n_local] = perm[used:used + n_local]
         used += n_local
@@ -1046,6 +1101,67 @@ def paged_prefill_work(table, cached, sq, window, ps=16, hkv=8, d=80,
     io = (rows * sq * hq * d * 2 + table.size * 4 + rows * 4
           + rows * sq * hq * d * 4 + rows * hq * sq * 4)
     return 2 * pages * ps * hkv * d * 2 + io, 4 * d * hq * pairs
+
+
+def large_page_cases(dev, res, d):
+    """B4 and B6 at head size ``d`` on ``LARGE_PAGE_DECODE`` and
+    ``LARGE_PAGE_PREFILL``, bf16 and f32, against their plain versions at
+    ``TOL``, dead rows and the inactive slot exact, the same bits twice.
+    Returns the cases checked."""
+    import torch
+
+    from repro_torch.kernels import paged_decode as pd
+    from repro_torch.kernels import paged_prefill as pp
+
+    checked = []
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for case, (sp, rank, window, cls, ps, heads) in \
+                LARGE_PAGE_DECODE.items():
+            args = (*paged_inputs(dev, sp, cls, seed=31, dtype=dtype,
+                                  d=d, rank=rank, ps=ps, heads=heads),
+                    rank)
+            kw = dict(sp=sp, page_size=ps, window=window)
+            o, lse = pd.paged_decode_attention(*args, **kw)
+            torch.cuda.synchronize()
+            err, ok, _ = partial_err(
+                o, lse, *pd.paged_decode_attention_plain(*args, **kw),
+                TOL[dname])
+            check(ok and bool((lse[3] == NEG_INF).all())
+                  and bool((o[3] == 0).all()),
+                  f"B4 {case} {dname} D={d}: max err {err} (tol "
+                  f"{TOL[dname]}), a dead row or the inactive slot not "
+                  f"exact")
+            check(same_bits(pd.paged_decode_attention(*args, **kw),
+                            (o, lse)),
+                  f"B4 {case} {dname} D={d}: two runs differ")
+            res["B4"]["max_abs_err"] = max(res["B4"]["max_abs_err"], err)
+            checked.append(f"B4/{case}/{dname}")
+        for case, (cached, window, sp, rank, ps) in \
+                LARGE_PAGE_PREFILL.items():
+            args = (*paged_prefill_inputs(dev, dtype, cached, [], seed=32,
+                                          d=d, sp=sp, rank=rank, ps=ps),
+                    rank)
+            kw = dict(sp=sp, page_size=ps, window=window)
+            o, lse = pp.paged_prefill_attention(*args, **kw)
+            torch.cuda.synchronize()
+            err, ok, n_dead = partial_err(
+                o, lse, *pp.paged_prefill_attention_plain(*args, **kw),
+                TOL[dname])
+            check(ok, f"B6 {case} {dname} D={d}: max err {err} (tol "
+                      f"{TOL[dname]}) or a dead row not exact")
+            if 0 in cached:
+                check(bool((lse[cached.index(0)] == NEG_INF).all()),
+                      f"B6 {case}: the row with nothing cached is not dead")
+            if window is not None:
+                check(0 < n_dead < lse.numel(), f"B6 {case}: {n_dead} dead")
+            check(same_bits(pp.paged_prefill_attention(*args, **kw),
+                            (o, lse)),
+                  f"B6 {case} {dname} D={d}: two runs differ")
+            res["B6"]["max_abs_err"] = max(res["B6"]["max_abs_err"], err)
+            checked.append(f"B6/{case}/{dname}")
+        del o, lse, args
+    return checked
 
 
 def ragged_bwd_cases():
@@ -1093,12 +1209,11 @@ def ragged_bwd_inputs(dev, dtype, b, sq, sk, hq, hkv, window, offsets,
             pos_k.contiguous())
 
 
-def check_cases(dev, rows, d=80, paged=True):
+def check_cases(dev, rows, d=80):
     """Every kernel against its plain version on the check cases above,
     bf16 and f32, at head size ``d``: each row's ``max_abs_err`` (and B3's
-    and B7's ``max_scaled_err``) rises to the worst case; ``paged=False``
-    leaves B4 and B6 out (they take no head size 256). Returns the cases
-    checked."""
+    and B7's ``max_scaled_err``) rises to the worst case. Returns the
+    cases checked."""
     import torch
 
     from repro_torch.kernels import flash_attention as fa
@@ -1148,7 +1263,7 @@ def check_cases(dev, rows, d=80, paged=True):
             checked.append(f"B3/{case}/{dname}")
     for dtype, (case, (sp, rank, window, cls)) in (
             (d, c) for d in (torch.bfloat16, torch.float32)
-            for c in (paged_cases().items() if paged else ())):
+            for c in paged_cases().items()):
         dname = str(dtype).split(".")[-1]
         args = (*paged_inputs(dev, sp, cls, dtype=dtype, d=d, rank=rank),
                 rank)
@@ -1182,8 +1297,8 @@ def check_cases(dev, rows, d=80, paged=True):
                 check(n_dead >= sq * 32, f"B5 {case}: {n_dead} dead rows")
             rows["B5"]["max_abs_err"] = max(rows["B5"]["max_abs_err"], err)
             checked.append(f"B5/{case}/{dname}")
-        for case, (cached, window, holes, sp, rank) in (
-                paged_prefill_cases().items() if paged else ()):
+        for case, (cached, window, holes, sp, rank) in \
+                paged_prefill_cases().items():
             args = (*paged_prefill_inputs(dev, dtype, cached, holes, d=d,
                                           sp=sp, rank=rank), rank)
             kw = dict(sp=sp, page_size=16, window=window)
@@ -1228,7 +1343,7 @@ def check_cases(dev, rows, d=80, paged=True):
                                                scaled_err(got, want))
             checked.append(f"B7/{case}/{dname}")
             del got, want, again, args
-    return checked
+    return checked + large_page_cases(dev, rows, d)
 
 
 def phase_kernels(dev):
@@ -1672,8 +1787,6 @@ def phase_kernels_d128(dev, rows):
 
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_decode as pd
-    from repro_torch.kernels import paged_prefill as pp
     from repro_torch.kernels import ragged_bwd as rb
     from repro_torch.kernels import ragged_prefill as rp
     from repro_torch.kernels import ref
@@ -1782,48 +1895,12 @@ def phase_kernels_d128(dev, rows):
     del q, k, v, do, lse, delta, o_acc, lse_acc, bargs
     free_device()
 
-    # B4 at minitron-8b's decode step
-    qd, pk_, pv_, table, cl = paged_inputs(dev, 1, MINITRON_CTX, seed=12,
-                                           d=d)
-    kw = dict(sp=1, page_size=16)
-    args4 = (qd, pk_, pv_, table, cl, 0)
-    got = pd.paged_decode_attention(*args4, **kw)
-    torch.cuda.synchronize()
-    hold("B4", "minitron_decode", got,
-         pd.paged_decode_attention_plain(*args4, **kw))
-    ref4 = paged_sdpa(qd, pk_, pv_, table, cl, 16, None, decode=True)
-    timing["B4"] = dict(
-        ms=time_ms(lambda: pd.paged_decode_attention(*args4, **kw)),
-        plain_ms=time_ms(lambda: pd.paged_decode_attention_plain(
-            *args4, **kw)),
-        device_ms=device_ms(lambda: pd.paged_decode_attention(*args4, **kw)),
-        library_ms=None, library_device_ms=None,
-        gathered_sdpa_device_ms=device_ms(ref4),
-        work=(*paged_work(table.cpu().numpy(), cl.cpu().numpy(), 1, 0,
-                          None, d=d), "bfloat16"))
-    shapes["B4"] = "q (4,1,32,128) bf16, pool (512,16,8,128), W 64, " \
-        "cache lengths 1023/1010/1000/990"
-    # B6 at minitron-8b's 256-query chunk after a 1024-token prefix
-    args6 = (*paged_prefill_inputs(dev, torch.bfloat16, [1024], [], seed=13,
-                                   d=d), 0)
-    got = pp.paged_prefill_attention(*args6, **kw)
-    torch.cuda.synchronize()
-    hold("B6", "minitron_chunk", got,
-         pp.paged_prefill_attention_plain(*args6, **kw))
-    ref6 = paged_sdpa(*args6[:5], 16, None, decode=False)
-    timing["B6"] = dict(
-        ms=time_ms(lambda: pp.paged_prefill_attention(*args6, **kw)),
-        plain_ms=time_ms(lambda: pp.paged_prefill_attention_plain(
-            *args6, **kw)),
-        device_ms=device_ms(lambda: pp.paged_prefill_attention(*args6,
-                                                               **kw)),
-        library_ms=None, library_device_ms=None,
-        gathered_sdpa_device_ms=device_ms(ref6),
-        work=(*paged_prefill_work(args6[3].cpu().numpy(), [1024], 256, None,
-                                  d=d), "bfloat16"))
-    shapes["B6"] = "q (1,256,32,128) bf16, pool (512,16,8,128), W 128, " \
-        "cached_len 1024"
-    del got, args4, args6, ref4, ref6
+    # B4 at minitron-8b's decode step, B6 at its 256-query chunk after a
+    # 1024-token prefix
+    for name, t in paged_timing(dev, hold, "minitron", d, (32, 8),
+                                MINITRON_CTX, 16, 12).items():
+        shapes[name] = t.pop("shape")
+        timing[name] = t
     # B5 at the legacy decode shape
     (q5, k5, v5), pq5, pk5 = ragged_inputs(dev, torch.bfloat16, 1, 1056,
                                            [1024] * 4, "decode", seed=14,
@@ -1913,11 +1990,8 @@ D256_PREFIX = 512        # its image prefix there (an eighth)
 D256_PREFIX_CASES = {"causal_p128": ("arange", 128),
                      "zigzag_p300": ("zigzag", 300)}
 D256_RAGGED_PREFIX = ([0, 40], 100)
-# B4 and B6 take no head size 256 (ROADMAP §B item 5)
-D256_NOT_TAKEN = "not taken (ROADMAP.md §B item 5: the engine refuses the " \
-    "family that needs head size 256)"
-
-
+GPT3B_HEADS = (12, 12)   # GPT-3B: MHA, 12 heads of 256
+GPT3B_CTX = [1023, 1010, 1000, 990]      # 4 decode slots at ~1K context
 def _d256_prefix_cases(dev, res):
     """B1, B2, B3, B5 and B7 under the prefix-LM mask at head size 256,
     bf16 and f32, against their plain versions (``TOL`` / ``BWD_TOL``; no
@@ -1989,46 +2063,85 @@ def _d256_prefix_cases(dev, res):
     return checked
 
 
-def _d256_paged_refusals(dev):
-    """B4 and B6 on CUDA tensors at head size 256: each wrapper raises
-    (ROADMAP §B item 5), launches nothing and runs no plain version."""
+def paged_timing(dev, hold, label, d, heads, ctx, ps, seed):
+    """B4 at a decode step (``ctx``: 4 slots' cache lengths) and B6 at a
+    256-query chunk after a 1024-token prefix, ``heads`` (query, kv) of
+    size ``d`` in pages of ``ps``: each held against its plain version
+    (``hold``) and timed beside it, its bound and SDPA on the keys gathered
+    beforehand. Returns {"B4": timing, "B6": timing}, each with its
+    shape."""
     import torch
 
     from repro_torch.kernels import paged_decode as pd
     from repro_torch.kernels import paged_prefill as pp
 
-    qd, pk_, pv_, table, cl = paged_inputs(dev, 1, [100, 50, 20, 0], seed=3,
-                                           d=D256)
-    out = {}
-    counts = reset_counts()
-    for name, fn in (("B4", pd.paged_decode_attention),
-                     ("B6", pp.paged_prefill_attention)):
-        try:
-            fn(qd, pk_, pv_, table, cl, 0, sp=1, page_size=16)
-            out[name] = None
-        except ValueError as e:
-            out[name] = str(e)
-        check(out[name] is not None and "§B item 5" in out[name],
-              f"{name} at head size 256 did not raise naming ROADMAP §B "
-              f"item 5: {out[name]}")
-    check(read_counts(counts) == launches_of(),
-          "B4/B6 at head size 256 launched a kernel")
+    hq, hkv = heads
+    kw = dict(sp=1, page_size=ps)
+    args4 = (*paged_inputs(dev, 1, ctx, seed=seed, d=d, ps=ps, heads=heads),
+             0)
+    got = pd.paged_decode_attention(*args4, **kw)
     torch.cuda.synchronize()
-    return out
+    hold("B4", f"{label}_decode_page{ps}", got,
+         pd.paged_decode_attention_plain(*args4, **kw))
+    ref4 = paged_sdpa(*args4[:5], ps, None, decode=True)
+    table, cl = args4[3].cpu().numpy(), args4[4].cpu().numpy()
+    t4 = dict(
+        ms=time_ms(lambda: pd.paged_decode_attention(*args4, **kw)),
+        plain_ms=time_ms(lambda: pd.paged_decode_attention_plain(
+            *args4, **kw)),
+        device_ms=device_ms(lambda: pd.paged_decode_attention(*args4,
+                                                              **kw)),
+        library_ms=None, library_device_ms=None,
+        gathered_sdpa_device_ms=device_ms(ref4),
+        splits=pd.decode_splits(len(ctx), hkv, d, table.shape[1], ps,
+                                torch.cuda.get_device_properties(
+                                    dev).multi_processor_count),
+        work=(*paged_work(table, cl, 1, 0, None, ps=ps, hkv=hkv, d=d,
+                          hq=hq), "bfloat16"),
+        shape=f"q ({len(ctx)},1,{hq},{d}) bf16, pool ({8192 // ps},{ps},"
+              f"{hkv},{d}), W {table.shape[1]}, cache lengths "
+              f"{'/'.join(map(str, ctx))}")
+    del got, args4, ref4
+    args6 = (*paged_prefill_inputs(dev, torch.bfloat16, [1024], [],
+                                   seed=seed + 1, d=d, ps=ps, heads=heads),
+             0)
+    got = pp.paged_prefill_attention(*args6, **kw)
+    torch.cuda.synchronize()
+    hold("B6", f"{label}_chunk_page{ps}", got,
+         pp.paged_prefill_attention_plain(*args6, **kw))
+    ref6 = paged_sdpa(*args6[:5], ps, None, decode=False)
+    t6 = dict(
+        ms=time_ms(lambda: pp.paged_prefill_attention(*args6, **kw)),
+        plain_ms=time_ms(lambda: pp.paged_prefill_attention_plain(
+            *args6, **kw)),
+        device_ms=device_ms(lambda: pp.paged_prefill_attention(*args6,
+                                                               **kw)),
+        library_ms=None, library_device_ms=None,
+        gathered_sdpa_device_ms=device_ms(ref6),
+        work=(*paged_prefill_work(args6[3].cpu().numpy(), [1024], 256,
+                                  None, ps=ps, hkv=hkv, d=d, hq=hq),
+              "bfloat16"),
+        shape=f"q (1,256,{hq},{d}) bf16, pool ({8192 // ps},{ps},{hkv},"
+              f"{d}), W {args6[3].shape[1]}, cached_len 1024")
+    del got, args6, ref6
+    free_device()
+    return {"B4": t4, "B6": t6}
 
 
 def phase_kernels_d256(dev, rows):
-    """Every kernel that takes head size 256 (paligemma-3b: B1, B2, B3, B5
-    and B7): the check cases of phase 3 again at D = 256 (bf16 and f32),
-    the prefix-LM cases (``D256_PREFIX_CASES``), B4 and B6 refusing the
-    head size; then each at the shape the VLM phases give it, held against
-    its plain version at ``TOL``/``BWD_TOL`` and timed beside its bound and
-    SDPA: B1, B2 and B3 at paligemma's training and prefill shape (q
-    (1,4096,8,256), k/v (1,4096,1,256), causal, a 512-position prefix), B5
-    at its ``--legacy`` decode shape (2 rows, one query of 8 heads against
-    1056 cached keys), B7 at the ragged_bwd shape with 8q/1kv. Each row
-    gains ``d256`` (B4 and B6 ``D256_NOT_TAKEN``); the ``-Xptxas -v`` lines
-    of the D = 256 kernels show their registers and spills."""
+    """Every kernel at head size 256 (paligemma-3b, GPT-3B): the check
+    cases of phase 3 again at D = 256 (bf16 and f32), B4 and B6 among them
+    at pages of 16, 128, 96 and 48 and 32 query heads a kv head, the
+    prefix-LM cases (``D256_PREFIX_CASES``); then each at the shape
+    the VLM and GPT-3B phases give it, held against its plain version at
+    ``TOL``/``BWD_TOL`` and timed beside its bound and SDPA: B1, B2 and B3
+    at paligemma's training and prefill shape (q (1,4096,8,256), k/v
+    (1,4096,1,256), causal, a 512-position prefix), B5 at its ``--legacy``
+    decode shape (2 rows, one query of 8 heads against 1056 cached keys),
+    B7 at the ragged_bwd shape with 8q/1kv, B4 at GPT-3B's decode step and
+    B6 at its 256-query chunk, each at pages of 16 and 128. Each row gains
+    ``d256``; the ``-Xptxas -v`` lines of the D = 256 kernels show their
+    registers and spills."""
     import torch
     import torch.nn.functional as F
 
@@ -2039,15 +2152,13 @@ def phase_kernels_d256(dev, rows):
     from repro_torch.kernels import ref
 
     d, (hq, hkv) = D256, VLM_HEADS
-    taken = ("B1", "B2", "B3", "B5", "B7")
     res = {n: {"max_abs_err": 0.0} for n in KERNELS}
     for n in ("B3", "B7"):
         res[n]["max_scaled_err"] = 0.0
-    checked = check_cases(dev, res, d=d, paged=False)
+    checked = check_cases(dev, res, d=d)
     checked += _d256_prefix_cases(dev, res)
-    refusals = _d256_paged_refusals(dev)
     free_device()
-    shapes = {}
+    shapes, page128 = {}, {}
 
     def hold(name, what, got, want, lse=None):
         if lse is None:
@@ -2202,11 +2313,24 @@ def phase_kernels_d256(dev, rows):
     shapes["B7"] = "q (4,1024,8,256), k/v (4,1024,1,256) bf16, (B,S) " \
         "positions at offsets 0/1024/2048/3072, causal"
     del got, args7, q7, k7, v7, do7, mask7
+    free_device()
+    # B4 at GPT-3B's decode step, B6 at its 256-query chunk after a
+    # 1024-token prefix, at pages of 16 (the engine phase's) and of 128
+    for ps in (128, 16):
+        for name, t in paged_timing(dev, hold, "gpt3b", d, GPT3B_HEADS,
+                                    GPT3B_CTX, ps, 33).items():
+            shapes[name] = t.pop("shape")
+            if ps == 128:
+                b_ms, b_by = bound(*t.pop("work"))
+                page128[name] = dict(t, bound_ms=b_ms, bound_by=b_by,
+                                     shape=shapes[name])
+            else:
+                timing[name] = dict(t, page128=page128[name])
     for name, t in timing.items():
         b_ms, b_by = bound(*t.pop("work"))
         res[name].update(t, bound_ms=b_ms, bound_by=b_by, shape=shapes[name])
     for name in KERNELS:
-        rows[name]["d256"] = res[name] if name in taken else D256_NOT_TAKEN
+        rows[name]["d256"] = res[name]
     ptxas = [line for line in _build.build_info()["ptxas"]
              if "Li256E" in line]
     emit("kernels_d256", checked=len(checked), head_dim=d,
@@ -2219,12 +2343,14 @@ def phase_kernels_d256(dev, rows):
                   "B3": "autograd backward of scaled_dot_product_attention"
                         "(is_causal, enable_gqa), timed alone, without the "
                         "prefix",
+                  "B4/B6.gathered_sdpa_device_ms": "references: SDPA on "
+                                                   "the pages' keys "
+                                                   "gathered beforehand",
                   "B5": "scaled_dot_product_attention with the boolean "
                         "mask, kv heads repeated beforehand",
                   "B7": "autograd backward of scaled_dot_product_attention"
                         " with the boolean mask, kv heads repeated"},
-         paged_refusals=refusals, occupancy=occupancy, ptxas_d256=ptxas,
-         kernels={n: res[n] for n in taken})
+         occupancy=occupancy, ptxas_d256=ptxas, kernels=res)
 
 
 
@@ -8681,6 +8807,242 @@ def phase_vlm_train(dev, smi):
 
 
 
+GPT3B_ARCH = "gpt-3b"
+# The paper's GPT-3B at full width through the paged engine (pages of 16,
+# 4 slots of 2080 tokens, the prefix cache on): four prompts with nothing
+# cached, the first 1024 tokens of the last one shared by the two prompts
+# queued once those prefills are done (1024-token prefix hits), 32 new
+# tokens each. Then P = 4 on ThreadMesh(c=2, r=1) from the same weights:
+# 2 of the prompts, 3 new tokens each
+GPT3B_SERVE = {"cold": [64, 512, 2048], "prefix": 1024,
+               "suffixes": [64, 256, 512], "new": 32, "page": 16,
+               "max_len": 2080, "pages": 1024,
+               "p4": {"n_devices": 4, "c": 2, "prompts": (1, 3), "new": 3}}
+# launch.serve's engine mode at pages of 128 on the full-width h2o
+SERVE_PAGE128 = ["--arch", ARCH, "--page-size", "128", "--pages-per-shard",
+                 "32", "--max-len", "1024", "--prompt-len", "600", "--gen",
+                 "8", "--requests", "4"]
+
+
+@contextlib.contextmanager
+def _decode_hiddens(engine, steps):
+    """Append to ``steps``, for each greedy decode step of ``engine``
+    (``serve.step.lm_decode_step``) while the block runs, its (B, 1, D)
+    hidden state, cache lengths, input tokens and the uid of each slot's
+    request (None for a free slot): the step is computed as before, its
+    tokens from that state."""
+    from repro_torch.engine import sampling as sampling_lib
+    from repro_torch.serve import step as serve_step
+
+    orig = serve_step.lm_decode_step
+
+    def decode(rt, params, cache, tokens, cfg, cache_len, paged=None,
+               return_hidden=False, sampling=None):
+        check(sampling is None, "decode capture: greedy rows only")
+        x = orig(rt, params, cache, tokens, cfg, cache_len, paged,
+                 return_hidden=True)
+        steps.append(dict(
+            hidden=x.float().clone(), cache_len=cache_len.cpu().tolist(),
+            tokens=tokens.flatten().cpu().tolist(),
+            uids=[st.req.uid if st is not None else None
+                  for st in engine.scheduler.slots]))
+        return x if return_hidden else sampling_lib.greedy(
+            rt, params.head, x, cfg)
+
+    serve_step.lm_decode_step = decode
+    try:
+        yield steps
+    finally:
+        serve_step.lm_decode_step = orig
+
+
+def _gpt3b_run(engine, smi, reqs, later, want, what, profile_steps=0):
+    """``drive_engine`` with every decode step's hidden state kept."""
+    steps = []
+    with _decode_hiddens(engine, steps):
+        out, hidden, launches, rec = drive_engine(
+            engine, smi, reqs, want, what, profile_steps=profile_steps,
+            later=later)
+    return out, hidden, steps, launches, rec
+
+
+def _same_context_rows(step, step_r, out, out_r, prompt_len):
+    """The slots of one decode step that hold the same request at the same
+    cache length in both runs, with every token fed so far equal: their
+    inputs are the same, so their hidden states must agree."""
+    rows = []
+    for st, uid in enumerate(step["uids"]):
+        n = step["cache_len"][st]
+        if uid is None or uid != step_r["uids"][st] or n == 0 \
+                or n != step_r["cache_len"][st]:
+            continue
+        fed = n - prompt_len[uid] + 1      # the first token, then each new
+        if out[uid][:fed] == out_r[uid][:fed]:
+            rows.append(st)
+    return rows
+
+
+def phase_gpt3b_serve(dev, smi):
+    """Phase 32: the paper's GPT-3B (16 layers, d_model 4096, 12 heads of
+    256, MHA, vocab 50304, ~4.4 B seeded bf16 parameters) served at full
+    width by the paged engine with the prefix cache: ``GPT3B_SERVE``'s
+    prompts (the cold ones prefill through B2 at head size 256 on every
+    layer, the two prefix hits through B6 and B1, every decode step runs B4
+    at head size 256 on every layer; 4 pure decode steps profiled). The
+    same requests through the same engine on the plain versions: each
+    prompt's next-token hidden state and logits, and each decode step's
+    (the rows whose tokens fed so far agree; the first, the last and at
+    least half of the steps must have one), within ``ENGINE_TOL``; the
+    share of streamed tokens that agree printed. Then P = 4 on
+    ThreadMesh(c=2, r=1): 2 prompts, 3 new tokens, first-token hidden
+    states against P = 1's (``DENSE_SP_TOL``), B4 reading each rank's
+    shard of the pages. Last, ``launch.serve`` in engine mode with
+    ``--page-size 128`` on the full-width h2o-danube-1.8b
+    (``SERVE_PAGE128``: B4 at pages of 128, two key tiles a page)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.engine import Engine, EngineConfig, Request
+    from repro_torch.launch import serve
+    from repro_torch.models.factory import build_model
+    from repro_torch.plan import make_serve_plan
+
+    cfg = registry.paper_model(GPT3B_ARCH)
+    L, sv = cfg.num_layers, GPT3B_SERVE
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = model.param_count()
+
+    def engine(n_devices=1, c=1, impl="cuda"):
+        plan = make_serve_plan(cfg, arch=GPT3B_ARCH, n_devices=n_devices,
+                               c=c, decode_batch=4, page_size=sv["page"],
+                               max_len=sv["max_len"], prefix_cache=True)
+        plan = dataclasses.replace(plan, kernel_impl=impl, block_impl=impl)
+        return Engine(model, plan, EngineConfig(
+            pages_per_shard=sv["pages"] // plan.sp_size))
+
+    rng = np.random.default_rng(32)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in sv["cold"]]
+    shared = rng.integers(0, cfg.vocab_size, sv["prefix"]).tolist()
+    prompts += [shared + rng.integers(0, cfg.vocab_size, n).tolist()
+                for n in sv["suffixes"]]
+    cold = len(sv["cold"]) + 1
+    reqs = [Request(f"g{i}", p, sv["new"]) for i, p in enumerate(prompts)]
+
+    e1 = engine()
+    e1.add_request(Request("warm", prompts[0], 4))
+    e1.run()
+    e1.reset()
+    out, hid, steps, l1, rec = _gpt3b_run(
+        e1, smi, reqs[:cold], reqs[cold:],
+        lambda e: _cached_launches(e, cold), "gpt3b P=1", profile_steps=4)
+    cached = {r.uid: e1.scheduler.finished[r.uid].cached_len for r in reqs}
+    check(all(cached[r.uid] == sv["prefix"] for r in reqs[cold:]),
+          f"gpt3b: cached lengths {cached}, want the {sv['prefix']}-token "
+          f"prefix hit by the last {len(reqs) - cold} prompts")
+    check(l1["B4"] > 0 and l1["B6"] > 0 and l1["B2"] > 0,
+          f"gpt3b: launches {l1}")
+
+    eref = engine(impl="ref")
+    out_r, hid_r, steps_r, _, rec_r = _gpt3b_run(
+        eref, smi, reqs[:cold], reqs[cold:], lambda e: launches_of(),
+        "gpt3b P=1 plain")
+    errs = {r.uid: compare((hid[r.uid], _logits(e1, hid[r.uid])),
+                           (hid_r[r.uid], _logits(eref, hid_r[r.uid])),
+                           f"gpt3b {r.uid} prefill cuda vs plain")
+            for r in reqs}
+    # every decode step (B4 at head size 256 on each layer), on the rows
+    # whose context is the same in both runs
+    firsts = {r.uid: (out[r.uid][0], out_r[r.uid][0]) for r in reqs}
+    check(len(steps) == len(steps_r) and len(steps) > 1,
+          f"gpt3b: {len(steps)} decode steps, plain {len(steps_r)}")
+    plen = {r.uid: len(r.tokens) for r in reqs}
+    worst = {"hidden": {}, "logits": {}}
+    step_rows = []
+    for k, (a, b) in enumerate(zip(steps, steps_r)):
+        rows = _same_context_rows(a, b, out, out_r, plen)
+        step_rows.append(len(rows))
+        if not rows:
+            continue
+        h, hr = a["hidden"][rows], b["hidden"][rows]
+        e = compare((h, _logits(e1, h)), (hr, _logits(eref, hr)),
+                    f"gpt3b decode step {k} cuda vs plain")
+        for name in worst:
+            for key, x in e[name].items():
+                worst[name][key] = max(worst[name].get(key, 0.0), x)
+    held = sum(n > 0 for n in step_rows)
+    check(step_rows[0] > 0 and step_rows[-1] > 0
+          and 2 * held >= len(steps),
+          f"gpt3b: rows of the same context per decode step {step_rows}")
+    errs["decode_steps_worst"] = worst
+    tokens = sum(len(out[r.uid]) for r in reqs)
+    same = sum(a == b for r in reqs for a, b in zip(out[r.uid],
+                                                     out_r[r.uid]))
+    del eref
+    free_device()
+
+    p4 = sv["p4"]
+    e4 = engine(p4["n_devices"], p4["c"])
+    check(not e4.plan.block_skip, "gpt3b P=4: ring-block skipping is on, "
+          "the launch counts below assume every ring step runs")
+    sp, ring = e4.sp, e4.plan.r
+    reqs4 = [Request(f"g{i}", prompts[i], p4["new"]) for i in p4["prompts"]]
+
+    def p4_launches(e):
+        # B2 on every rank, ring step and layer of a prefill; B4 on every
+        # rank and layer of a decode step
+        return launches_of(B2=sp * ring * L * e.metrics.prefills,
+                           B4=sp * L * e.metrics.decode_steps)
+
+    out4, hid4, l4, rec4 = drive_engine(e4, smi, reqs4, p4_launches,
+                                        "gpt3b P=4")
+    errs4 = {r.uid: compare((hid4[r.uid], _logits(e1, hid4[r.uid])),
+                            (hid[r.uid], _logits(e1, hid[r.uid])),
+                            f"gpt3b P=4 {r.uid} vs P=1", DENSE_SP_TOL)
+             for r in reqs4}
+    agree4 = sum(a == b for r in reqs4
+                 for a, b in zip(out4[r.uid], out[r.uid]))
+    del e4, e1, model
+    free_device()
+
+    counts = reset_counts()
+    t1 = time.perf_counter()
+    served = serve.main([*SERVE_PAGE128, "--device", dev.type])
+    torch.cuda.synchronize()
+    l128 = read_counts(counts)
+    check(len(served) == 4 and all(0 < len(v) <= 8 for v in served.values())
+          and l128["B4"] > 0 and l128["B2"] > 0,
+          f"launch.serve --page-size 128: {len(served)} streams, launches "
+          f"{l128}")
+    page128 = {"flags": SERVE_PAGE128, "streams": len(served),
+               "tokens": sum(len(v) for v in served.values()),
+               "launches": l128, "wall_s": time.perf_counter() - t1}
+    # B4 on bf16 with G <= 16: the paged, key-split forward
+    b4_ms = sum(k["ms_per_step"]
+                for k in rec["decode_step_profile"]["top_kernels"]
+                if "flash_fwd_mma<256, false, true, true>" in k["name"])
+    emit("gpt3b_serve", model=cfg.name, params=params,
+         weights="seeded random bf16", init_s=init_s,
+         prompt_lens=[len(p) for p in prompts], new_tokens=sv["new"],
+         prefix_len=sv["prefix"], cached_len=cached, p1=rec,
+         b4_device_ms_per_decode_step=b4_ms, plain=rec_r,
+         first_tokens=firsts, decode_rows_held=step_rows, err=errs,
+         tol=ENGINE_TOL, tokens_agreeing_with_plain=same / tokens,
+         tokens_compared=tokens,
+         p4={**p4, "P_sp": sp, "err_vs_p1": errs4, "tol": DENSE_SP_TOL,
+             "tokens_agreeing_with_p1": agree4 / (len(reqs4) * p4["new"]),
+             **rec4},
+         launch_serve_page128=page128, card=smi)
+    return {"gpt3b_serve_p1": l1, "gpt3b_serve_p4": l4,
+            "serve_page128": l128}
+
+
 def free_device():
     import gc
 
@@ -8781,6 +9143,8 @@ def main():
         by_path.update(phase_vlm_serve(dev, smi))
         free_device()
         by_path.update(phase_vlm_train(dev, smi))
+        free_device()
+        by_path.update(phase_gpt3b_serve(dev, smi))
         paths = {"B1": "local", "B2": "engine", "B3": "train",
                  "B4": "engine", "B5": "legacy", "B6": "prefix",
                  "B7": "ragged_bwd"}

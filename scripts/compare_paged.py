@@ -14,9 +14,11 @@ its milliseconds per call from CUDA events around bursts
 (``chip_smoke.device_ms``): B4 at ``decode_1k`` (q (4,1,32,80) against the
 pool (512,16,8,80), ~1K keys a row, a table of 64 entries) and again with
 the engine's table of 128 entries (max_len 2048, pages of 16), and B6 for
-a 256-query chunk after a 1024-token prefix. Where the checkout splits B4's
-keys over CTAs (``paged_decode.decode_splits``), B4 is also timed at each
-fixed split count of ``SPLITS`` beside the wrapper's own choice. The
+a 256-query chunk after a 1024-token prefix; then both again at each shape
+of ``WIDE`` (minitron-8b's heads of 128, GPT-3B's of 256 at pages of 16
+and 128) where the checkout's B4 and B6 take it. Where the checkout splits
+B4's keys over CTAs (``paged_decode.decode_splits``), B4 is also timed at
+each fixed split count of ``SPLITS`` beside the wrapper's own choice. The
 card's name and power limit come first.
 """
 
@@ -26,6 +28,11 @@ import subprocess
 import sys
 
 SPLITS = (1, 2, 3, 4, 5, 8)
+# name: (head size, (query, kv) heads, page size); B4 at 4 slots of
+# cache lengths 1023/1010/1000/990, B6 at a 256-query chunk after 1024
+WIDE = {"d128_minitron": (128, (32, 8), 16),
+        "d256_gpt3b": (256, (12, 12), 16),
+        "d256_gpt3b_page128": (256, (12, 12), 128)}
 
 
 def one(root, ptxas):
@@ -75,6 +82,22 @@ def one(root, ptxas):
     out["B6_prefix_1024"] = bench(
         lambda: pp.paged_prefill_attention(*args6, 0, **kw6),
         lambda: pp.paged_prefill_attention_plain(*args6, 0, **kw6))
+    for name, (d, heads, ps) in WIDE.items():
+        kw = dict(sp=1, page_size=ps)
+        try:
+            args4 = (*cs.paged_inputs(dev, 1, [1023, 1010, 1000, 990],
+                                      d=d, ps=ps, heads=heads), 0)
+            out[f"B4_{name}"] = bench(
+                lambda: pd.paged_decode_attention(*args4, **kw),
+                lambda: pd.paged_decode_attention_plain(*args4, **kw))
+            args6 = (*cs.paged_prefill_inputs(dev, torch.bfloat16, [1024],
+                                              [], d=d, ps=ps, heads=heads),
+                     0)
+            out[f"B6_{name}"] = bench(
+                lambda: pp.paged_prefill_attention(*args6, **kw),
+                lambda: pp.paged_prefill_attention_plain(*args6, **kw))
+        except (TypeError, ValueError, RuntimeError) as e:
+            out[name] = f"not taken: {e}"   # an older checkout refuses it
     print(json.dumps(out), flush=True)
 
 

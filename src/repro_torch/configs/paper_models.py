@@ -4,8 +4,9 @@
 The planner reads all three; GPT-7B is the model of the paper's throughput
 figures. ``ModelConfig`` has no attention-mask field, so DiT-1B runs, in
 both packages, as a dense causal LM backbone of its sizes (no text or image
-encoders). GPT-3B's head size 256 is outside the card kernels' head sizes
-(``kernels/flash_attention.py:HEAD_DIMS``): it is data for the planner.
+encoders). GPT-3B's head size 256 is one of every card kernel's head sizes
+(``kernels/flash_attention.py:HEAD_DIMS``): it trains, and the paged engine
+serves it (B4 and B6 at head size 256).
 """
 
 import dataclasses
@@ -14,7 +15,7 @@ from repro_torch.configs.base import ModelConfig
 
 # note: the paper's GPT-3B row (12 heads, hidden 4096) is not head-divisible
 # (4096/12 = 341.3); we keep 12 heads and use head_dim=256 like common 3B
-# configs. The planner reads it; the card's kernels refuse head size 256.
+# configs.
 GPT_3B = ModelConfig(
     name="gpt-3b", family="dense", num_layers=16, d_model=4096,
     num_heads=12, num_kv_heads=12, d_ff=16384, vocab_size=50304,

@@ -85,18 +85,27 @@
 //   tiles (64 x 136), ~136 KB, one CTA per SM; with the keys split the Q
 //   tile is the 16 live rows, so two walking warps' buffers fit (~214 KB).
 // - The paged source (PAGED, B4 and B6): K and V are read from the pools
-//   (pages_loc, page_size, Hkv, D) through a page table. A 64-key tile is
-//   64 / page_size (floor) consecutive table entries, row r being slot
-//   r % page_size of entry r / page_size; the CTA reads the row's entries
-//   into shared memory once, testing each as the Pallas kernels' pl.when
-//   does (a dead or out-of-pool entry is never dereferenced), and each tile
-//   row is fetched by cp.async from its pool row, zero-filled where it
-//   holds no valid key. Query positions are computed (lens[b] + i), key
-//   positions too ((w * sp + rank) * page_size + slot, or past every query
-//   of the CTA when the row holds no valid key, so the causal mask drops
-//   it), and the tile flags come from them. With SPLIT (B4) the live tiles
-//   are also split over gridDim.z CTAs per (b, kv head) (split-KV), whose
-//   partials the last CTA to finish merges in split order from a workspace.
+//   (pages_loc, page_size, Hkv, D) through a page table. Pages of up to 64
+//   keys: a 64-key tile is 64 / page_size (floor) consecutive table
+//   entries, row r being slot r % page_size of entry r / page_size. Larger
+//   pages: a page spans ceil(page_size / 64) tiles, each a 64-row slice of
+//   it, the rows past the page's end holding no key. The CTA reads the
+//   row's entries into shared memory once, testing each as the Pallas
+//   kernels' pl.when does (a dead or out-of-pool entry is never
+//   dereferenced), and each tile row is fetched by cp.async from its pool
+//   row, zero-filled where it holds no valid key. Query positions are
+//   computed (lens[b] + i), key positions too ((w * sp + rank) * page_size
+//   + slot, or past every query of the CTA when the row holds no valid
+//   key, so the causal mask drops it), and the tile flags come from them
+//   (so a window that starts inside a large page skips the slices wholly
+//   out of it). A table too long for shared memory goes in chunks
+//   (paged_chunk_tiles: at most 4,096 key tiles and 2,048 entries), each
+//   read, flagged and walked in turn, the walkers dealt each chunk's live
+//   tiles afresh. Above D = 128 the output's D is split over CTAs as for the
+//   dense source (each CTA fetches every K column and its own 128 V
+//   columns). With SPLIT (B4) the live tiles are also split over gridDim.z
+//   CTAs per (b, kv head, D slice) (split-KV), whose partials the last CTA
+//   to finish merges in split order from a workspace.
 //
 // f32 inputs (never on the main path; they keep the f32 tests exact) run
 // the CUDA-core kernel flash_fwd_kernel: one CTA of 256 threads per
@@ -116,6 +125,11 @@ namespace {
 
 constexpr int BQ = 64;          // query rows per CTA
 constexpr int BK = 64;          // keys per K/V tile
+// The paged source's keys go in chunks of at most FLAG_CAP key tiles whose
+// table entries number at most TABLE_CAP (paged_chunk_tiles): the chunk's
+// flags and entries are what flash_fwd_mma holds of them in shared memory
+constexpr int FLAG_CAP = 4096;
+constexpr int TABLE_CAP = 2048;
 constexpr int NT = 256;         // threads per CTA
 constexpr int TPR = NT / BQ;    // threads per query row (4, adjacent lanes)
 constexpr int COLS = BK / TPR;  // score columns per thread
@@ -357,6 +371,12 @@ __host__ __device__ constexpr int fwd_ksplit() { return D > 80 ? 2 : 4; }
 template <int D>
 __host__ __device__ constexpr int fwd_dv() { return D > 128 ? 128 : D; }
 
+// CTAs over the output's D (D / fwd_dv<D>()) at a head size known only at
+// run time
+__host__ __device__ constexpr int fwd_d_slices(int D) {
+  return D > 128 ? D / 128 : 1;
+}
+
 // Rows of the Q tile in shared memory: 64, or with the keys split above
 // D = 128 only the 16 rows of slab 0 (the others are never live there)
 template <int D, bool SPLIT>
@@ -368,79 +388,126 @@ __host__ __device__ inline bool fwd_split(const FwdArgs& a) {
   return (long long)a.Sq * (a.Hq / a.Hkv) <= 16;
 }
 
-// K/V tiles of the paged source: a 64-key tile holds ppt = 64 / ps (floor)
-// consecutive table entries, row r being slot r % ps of entry r / ps; the
-// rows past ppt * ps belong to no page
-__host__ __device__ inline int paged_ppt(const Paged& pg) {
-  return BK / pg.ps;
+// K/V tiles of the paged source. Pages of up to 64 keys: a 64-key tile
+// holds 64 / ps (floor) consecutive table entries, row r being slot r % ps
+// of entry r / ps, the rows past the tile's whole pages holding no key.
+// Larger pages: page w spans tpp = ceil(ps / 64) tiles, tile t being rows
+// [64 (t % tpp), + 64) of entry t / tpp, the rows past the page's end
+// holding no key. paged_slot gives row r of tile t as (entry w, slot), and
+// false where the row lies in no page (w may then be past the table).
+__host__ __device__ inline int paged_tiles(int ps, int W) {
+  return ps <= BK ? (W + BK / ps - 1) / (BK / ps) : W * ((ps + BK - 1) / BK);
+}
+
+__host__ __device__ __forceinline__ bool paged_slot(int ps, int t, int r,
+                                                    int& w, int& slot) {
+  if (ps <= BK) {
+    const int ppt = BK / ps;
+    const int j = r / ps;
+    w = t * ppt + j;
+    slot = r - j * ps;
+    return j < ppt;
+  }
+  const int tpp = (ps + BK - 1) / BK;
+  w = t / tpp;
+  slot = (t - w * tpp) * BK + r;
+  return slot < ps;
 }
 
 __host__ __device__ inline int n_key_tiles(const FwdArgs& a, bool paged) {
-  return paged ? (a.pg.W + paged_ppt(a.pg) - 1) / paged_ppt(a.pg)
-               : (a.Sk + BK - 1) / BK;
+  return paged ? paged_tiles(a.pg.ps, a.pg.W) : (a.Sk + BK - 1) / BK;
+}
+
+// Key tiles of a chunk of the paged source: at most FLAG_CAP, and so few
+// that the table entries they read number at most TABLE_CAP (64 / ps
+// entries a tile up to 64 keys a page; above, ceil(ps / 64) tiles an
+// entry, and a chunk that starts inside a page reads one entry more)
+__host__ __device__ inline int paged_chunk_tiles(int ps) {
+  return ps <= BK ? min(FLAG_CAP, TABLE_CAP / (BK / ps))
+                  : min(FLAG_CAP, (TABLE_CAP - 1) * ((ps + BK - 1) / BK));
+}
+
+// The table entries [w0, w1) that key tiles [c0, c1) read (w1 may pass W)
+__host__ __device__ inline void paged_entries(int ps, int c0, int c1,
+                                              int& w0, int& w1) {
+  if (ps <= BK) {
+    w0 = c0 * (BK / ps);
+    w1 = c1 * (BK / ps);
+  } else {
+    const int tpp = (ps + BK - 1) / BK;
+    w0 = c0 / tpp;
+    w1 = (c1 - 1) / tpp + 1;
+  }
 }
 
 // Shared memory of flash_fwd_mma: the Q tile, double buffers of K and V
 // tiles (bf16, row stride D + 8; V holds the CTA's fwd_dv columns) and of
 // their key positions (one pair per CTA, or per walking warp when the keys
-// are split), with PAGED the row's W table entries, one flag byte per K
-// tile.
+// are split), one flag byte per K tile; with PAGED, a chunk's table
+// entries and flags (at most TABLE_CAP and FLAG_CAP: nothing grows with
+// the table past them).
 template <int D, bool SPLIT, bool PAGED = false>
 size_t smem_fwd_mma(const FwdArgs& a) {
   const int pairs = 2 * (SPLIT ? fwd_ksplit<D>() : 1);
+  const int n_k = n_key_tiles(a, PAGED);
   return sizeof(bf16) * fwd_qrows<D, SPLIT>() * MmaTile<D>::LDS +
          pairs * (MmaTile<D>::BYTES + MmaTile<fwd_dv<D>()>::BYTES) +
-         pairs * sizeof(int) * BK + (PAGED ? sizeof(int) * a.pg.W : 0) +
-         n_key_tiles(a, PAGED);
+         pairs * sizeof(int) * BK +
+         (PAGED ? sizeof(int) * min(a.pg.W, TABLE_CAP) +
+                      min(n_k, paged_chunk_tiles(a.pg.ps))
+                : n_k);
 }
 
-// The paged source's entry w of row b as the Pallas kernels' pl.when tests
-// it: the page id, or -1 if the entry is unallocated or out of the pool,
-// if the page starts at or past the key limit, or, with a window, if its
-// newest key is out of the window of the CTA's oldest query qlo
-// (the f32 kernels' tests in paged_decode.cu and paged_prefill.cu). No
-// page id read here is dereferenced unless it passes.
+// The paged source's entries [w0, w1) of row b into sPage[w - w0] as the
+// Pallas kernels' pl.when tests them: the page id, or -1 if the entry is
+// unallocated or out of the pool, if the page starts at or past the key
+// limit, or, with a window, if its newest key is out of the window of the
+// CTA's oldest query qlo (the f32 kernels' tests in paged_decode.cu and
+// paged_prefill.cu). No page id read here is dereferenced unless it
+// passes.
 __device__ inline void paged_pages(int* sPage, const FwdArgs& a, int b,
-                                   int limit, int qlo, int tid) {
+                                   int w0, int w1, int limit, int qlo,
+                                   int tid) {
   const Paged& pg = a.pg;
-  for (int w = tid; w < pg.W; w += MMA_NT) {
+  for (int w = w0 + tid; w < min(w1, pg.W); w += MMA_NT) {
     const int e = pg.table[(size_t)b * pg.W + w];
     const int base = (w * pg.sp + pg.rank) * pg.ps;
     bool live = e >= 0 && e < pg.pages_loc && base < limit;
     if (a.mask.has_window) live &= qlo - (base + pg.ps - 1) < a.mask.window;
-    sPage[w] = live ? e : -1;
+    sPage[w - w0] = live ? e : -1;
   }
 }
 
-// Row r of paged key tile t: its pool row (page * ps + slot), or -1 when it
-// holds no valid key (past the tile's pages or the table, a dead page, or a
-// position at or past `limit`); pos gets its key position.
-__device__ __forceinline__ int paged_row(const int* sPage, const Paged& pg,
-                                         int ppt, int t, int r, int limit,
-                                         int& pos) {
-  const int j = r / pg.ps;
-  const int w = t * ppt + j;
-  const int slot = r - j * pg.ps;
+// Row r of paged key tile t of the chunk whose entries start at w0: its
+// pool row (page * ps + slot), or -1 when it holds no valid key (in no
+// page, past the table, a dead page, or a position at or past `limit`);
+// pos gets its key position.
+__device__ __forceinline__ int paged_row(const int* sPage, int w0,
+                                         const Paged& pg, int t, int r,
+                                         int limit, int& pos) {
+  int w, slot;
+  const bool in = paged_slot(pg.ps, t, r, w, slot);
   pos = (w * pg.sp + pg.rank) * pg.ps + slot;
-  if (j >= ppt || w >= pg.W) return -1;
-  const int page = sPage[w];
+  if (!in || w >= pg.W) return -1;
+  const int page = sPage[w - w0];
   return page >= 0 && pos < limit ? page * pg.ps + slot : -1;
 }
 
-// tile_flags for the paged source: TILE_LIVE if the tile holds a valid key
-// and the min/max of its valid positions allow a visible pair with the
-// CTA's queries [lo, hi]; TILE_FULL if all 64 rows are valid keys and every
-// pair is visible.
+// tile_flags for the paged source, over the chunk's key tiles [t0, t1)
+// (flags[t - t0]): TILE_LIVE if the tile holds a valid key and the min/max
+// of its valid positions allow a visible pair with the CTA's queries
+// [lo, hi]; TILE_FULL if all 64 rows are valid keys and every pair is
+// visible.
 __device__ inline void paged_tile_flags(unsigned char* flags,
-                                        const int* sPage, const Paged& pg,
-                                        int ppt, int n_k, int limit, int lo,
-                                        int hi, const Mask& m, int warp,
-                                        int lane) {
-  for (int t = warp; t < n_k; t += MMA_NT / 32) {
+                                        const int* sPage, int w0,
+                                        const Paged& pg, int t0, int t1,
+                                        int limit, int lo, int hi,
+                                        const Mask& m, int warp, int lane) {
+  for (int t = t0 + warp; t < t1; t += MMA_NT / 32) {
     int kmin = INT_MAX, kmax = INT_MIN, n = 0;
     for (int r = lane; r < BK; r += 32) {
       int pos;
-      if (paged_row(sPage, pg, ppt, t, r, limit, pos) >= 0) {
+      if (paged_row(sPage, w0, pg, t, r, limit, pos) >= 0) {
         kmin = min(kmin, pos);
         kmax = max(kmax, pos);
         ++n;
@@ -454,7 +521,8 @@ __device__ inline void paged_tile_flags(unsigned char* flags,
     }
     const bool live = n > 0 && m.live(lo, hi, kmin, kmax);
     const bool full = n == BK && m.full(lo, hi, kmin, kmax);
-    if (lane == 0) flags[t] = (live ? TILE_LIVE : 0) | (full ? TILE_FULL : 0);
+    if (lane == 0)
+      flags[t - t0] = (live ? TILE_LIVE : 0) | (full ? TILE_FULL : 0);
   }
 }
 
@@ -485,16 +553,19 @@ flash_fwd_mma(FwdArgs a) {
   constexpr float LN2 = 0.6931471805599453f;
   constexpr int KSPLIT = fwd_ksplit<D>();
   constexpr int pairs = 2 * (SPLIT ? KSPLIT : 1);  // K/V buffer pairs
-  static_assert(!PAGED || NDS == 1, "the paged source takes D <= 128");
   static_assert(QROWS * CPR % MMA_NT == 0, "whole Q chunks per thread");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
   // K/V buffer pair j: K at j (TILE + VTILE), V (DV columns) after it
   bf16* sKV = sQ + QROWS * LDS;
   int* sPosK = reinterpret_cast<int*>(sKV + pairs * (TILE + VTILE));
-  int* sPage = sPosK + pairs * BK;  // PAGED: the W entries, -1 = dead page
-  unsigned char* sFlag =
-      reinterpret_cast<unsigned char*>(sPage + (PAGED ? a.pg.W : 0));
+  // PAGED: the current chunk's table entries [w0, w1), entry w at
+  // sPage[w - w0], -1 = dead page
+  int* sPage = sPosK + pairs * BK;
+  // a flag byte per key tile (PAGED: of the current chunk [c0, c1), tile
+  // t at sFlag[t - c0])
+  unsigned char* sFlag = reinterpret_cast<unsigned char*>(
+      sPage + (PAGED ? min(a.pg.W, TABLE_CAP) : 0));
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -511,7 +582,6 @@ flash_fwd_mma(FwdArgs a) {
   const int i_lo = R0 / G;
   const int i_hi = min((R0 + BQ - 1) / G, a.Sq - 1);
   const int n_k = n_key_tiles(a, PAGED);
-  const int ppt = PAGED ? paged_ppt(a.pg) : 1;
   // PAGED: query i at len_b + i; keys valid below limit
   const int len_b = PAGED ? a.pg.lens[b] : 0;
   const int limit = len_b + a.pg.lim_off;
@@ -556,49 +626,41 @@ flash_fwd_mma(FwdArgs a) {
   if constexpr (PAGED) {
     qlo = len_b + i_lo;
     qhi = len_b + i_hi;
-    paged_pages(sPage, a, b, limit, qlo, tid);
-    __syncthreads();
-    paged_tile_flags(sFlag, sPage, a.pg, ppt, n_k, limit, qlo, qhi, a.mask,
-                     warp, lane);
   } else {
     warp_range(pos_q + i_lo, i_hi - i_lo + 1, lane, qlo, qhi);
-    tile_flags(sFlag, pos_k, a.Sk, false, qlo, qhi, a.mask, warp, lane);
   }
-  __syncthreads();
   // PAGED: the position of a row that holds no valid key, past every query
   // of the CTA, so the causal mask drops it (kernels/paged_decode.py)
   const int pos_dead = qhi + 1;
 
-  // The tiles are walked by the whole CTA in order, or, with SPLIT, by each
-  // of the first KSPLIT warps alone: warp w takes live tiles w, w + KSPLIT,
-  // ... into its own buffer pairs 2 w and 2 w + 1 (with split-KV, walker
-  // z * KSPLIT + w of gridDim.z * KSPLIT)
+  // The key tiles [c0, c1) whose flags sFlag holds (all of them, or with
+  // PAGED a chunk of paged_chunk_tiles) are walked by the whole CTA in
+  // order, or, with SPLIT, by each of the first KSPLIT warps alone: warp w
+  // takes live tiles c0 + w, + KSPLIT, ... into its own buffer pairs 2 w
+  // and 2 w + 1 (with split-KV, walker z * KSPLIT + w of gridDim.z *
+  // KSPLIT)
   const int walker = SPLIT ? (PAGED ? blockIdx.z * KSPLIT : 0) + warp : 0;
   const int step = SPLIT ? (PAGED ? gridDim.z : 1) * KSPLIT : 1;
-  auto next_live = [&](int t) {
-    while (t < n_k && !(sFlag[t] & TILE_LIVE)) ++t;
-    return t;
-  };
-  auto advance = [&](int t, int n) {  // n live tiles on from live tile t
-    for (; n > 0 && t < n_k; --n) t = next_live(t + 1);
-    return t;
-  };
+  int w0 = 0;  // PAGED: the current chunk's first table entry
   auto fetch = [&](int t, int buf) {
     const int slot = SPLIT ? 2 * warp + buf : buf;
     bf16* kd = sKV + slot * (TILE + VTILE);
     if constexpr (PAGED) {
       // two threads per row, each with every other 16-byte chunk: the row's
-      // pool row through the table, zero-filled where it holds no valid key
-      // (a garbage V row times p = 0 could give NaN); the even thread of
-      // the pair stores the row's position
+      // pool row through the table (every K column, the CTA's DV columns of
+      // V), zero-filled where it holds no valid key (a garbage V row times
+      // p = 0 could give NaN); the even thread of the pair stores the row's
+      // position
       constexpr int NTHR = SPLIT ? 32 : MMA_NT;
-      static_assert(CPR % 2 == 0, "whole chunk pairs per row");
+      constexpr int CPRV = DV / 8;
+      constexpr int LDV = MmaTile<DV>::LDS;
+      static_assert(CPR % 2 == 0 && CPRV % 2 == 0, "whole chunk pairs");
       const int me = SPLIT ? lane : tid;
 #pragma unroll
       for (int it = 0; it < 2 * BK / NTHR; ++it) {
         const int r = me / 2 + it * (NTHR / 2);
         int pos;
-        const int prow = paged_row(sPage, a.pg, ppt, t, r, limit, pos);
+        const int prow = paged_row(sPage, w0, a.pg, t, r, limit, pos);
         const bool ok = prow >= 0;
         if ((me & 1) == 0) sPosK[slot * BK + r] = ok ? pos : pos_dead;
         const size_t off = (size_t)(ok ? prow : 0) * kv_stride;
@@ -606,7 +668,11 @@ flash_fwd_mma(FwdArgs a) {
         for (int j = 0; j < CPR / 2; ++j) {
           const int c = 2 * j + (me & 1);
           cp_async_16(kd + r * LDS + c * 8, k + off + c * 8, ok);
-          cp_async_16(kd + TILE + r * LDS + c * 8, v + off + c * 8, ok);
+        }
+#pragma unroll
+        for (int j = 0; j < CPRV / 2; ++j) {
+          const int c = 2 * j + (me & 1);
+          cp_async_16(kd + TILE + r * LDV + c * 8, v + off + d0 + c * 8, ok);
         }
       }
     } else {
@@ -633,147 +699,183 @@ flash_fwd_mma(FwdArgs a) {
       __syncthreads();
   };
 
-  int t = warp_live || !SPLIT ? advance(next_live(0), walker) : n_k;
-  if (t < n_k) fetch(t, 0);
-  cp_async_commit();
-  cp_async_wait<1>();  // Q landed
-  __syncthreads();
   // Q's A fragments, k16 chunks over D: held in registers up to D = 128,
   // read from shared memory for each K tile above
   const bf16* qa_row = sQ + (16 * slab + (lane & 15)) * LDS + (lane >> 4) * 8;
   uint32_t qf[QREG ? D / 16 : 1][4];
-  if constexpr (QREG) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], qa_row + kk * 16);
-  }
-
   const float sl2 = a.scale * LOG2E;
   // running max (log2 units: s * scale * log2 e), sum and output of the
   // thread's two rows; acc holds n8 tiles over the CTA's DV columns
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f};
   float acc[DV / 8][4] = {};
 
-  for (int buf = 0; t < n_k; buf ^= 1) {
-    const int tn = advance(t, step);
-    if (tn < n_k) fetch(tn, buf ^ 1);
+  // walk key tiles [c0, c1) (tile t's flags at sFlag[t - c0]); the first
+  // walk (c0 = 0) waits for Q and takes its fragments
+  auto walk = [&](const int c0, const int c1) {
+    auto next_live = [&](int t) {
+      while (t < c1 && !(sFlag[t - c0] & TILE_LIVE)) ++t;
+      return t;
+    };
+    auto advance = [&](int t, int n) {  // n live tiles on from live tile t
+      for (; n > 0 && t < c1; --n) t = next_live(t + 1);
+      return t;
+    };
+    int t = warp_live || !SPLIT ? advance(next_live(c0), walker) : c1;
+    if (t < c1) fetch(t, 0);
     cp_async_commit();
-    cp_async_wait<1>();  // tile t landed
-    sync();
-    if (warp_live) {
-      const int slot = SPLIT ? 2 * warp + buf : buf;
-      const bf16* kt = sKV + slot * (TILE + VTILE);
-      const bf16* vt = kt + TILE;
-      const int* pk = sPosK + slot * BK;
-      const int nk = PAGED ? BK : min(BK, a.Sk - t * BK);
-      const bool full = sFlag[t] & TILE_FULL;
-
-      // S = Q K^T: the warp's 16 rows x 64 keys, eight n8 tiles
-      float s[8][4];
+    if (c0 == 0) {
+      cp_async_wait<1>();  // Q landed
+      __syncthreads();
+      if constexpr (QREG) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t qa[4];
-        if constexpr (QREG) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
-        } else {
-          ldsm_x4(qa, qa_row + kk * 16);
-        }
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t y[4];
-          ldsm_x4(y, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS +
-                         kk * 16 + ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], qa, y[0], y[1]);
-          mma_bf16(s[2 * np + 1], qa, y[2], y[3]);
-        }
-      }
-
-      // the online-softmax update of the warp's rows from S, and P as
-      // hi/lo A fragments: n8 tiles 2c and 2c + 1 form k16 chunk c. MASKED
-      // is false on a tile whose every pair is visible (no per-element
-      // mask, the same bits)
-      uint32_t ph[4][4], pl[4][4];
-      float alpha[2];
-      auto update = [&](auto masked) {
-        constexpr bool MASKED = decltype(masked)::value;
-        uint32_t vis = 0xffffffffu;  // bit 4 j + e: pair visible
-        float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = 8 * j + 2 * tq;
-          int2 pk2 = make_int2(0, 0);
-          if (MASKED) pk2 = *reinterpret_cast<const int2*>(pk + c);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = e >> 1;  // row gr or gr + 8
-            bool ok = true;
-            if (MASKED) {
-              ok = c + (e & 1) < nk &&
-                   a.mask.visible(pq[i], (e & 1) ? pk2.y : pk2.x);
-              if (!ok) vis &= ~(1u << (4 * j + e));
-            }
-            // scaled to log2 units; masked s = -1e30 before the max
-            s[j][e] = ok ? s[j][e] * sl2 : NEG_INF;
-            mx[i] = fmaxf(mx[i], s[j][e]);
-          }
-        }
-        float m_safe[2], psum[2] = {0.0f, 0.0f};
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-          mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-          const float m_cur = fmaxf(m[i], mx[i]);
-          m_safe[i] = m_cur <= DEAD ? 0.0f : m_cur;
-          alpha[i] = m[i] <= DEAD ? 0.0f : ex2(m[i] - m_safe[i]);
-          m[i] = m_cur;
-        }
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float p[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = e >> 1;
-            // p = 0 where masked
-            p[e] = !MASKED || (vis >> (4 * j + e)) & 1u
-                       ? ex2(s[j][e] - m_safe[i])
-                       : 0.0f;
-            psum[i] += p[e];
-          }
-          const int f = j >> 1, r = (j & 1) * 2;
-          split_bf16x2(p[0], p[1], ph[f][r], pl[f][r]);
-          split_bf16x2(p[2], p[3], ph[f][r + 1], pl[f][r + 1]);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
-          psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
-          l[i] = l[i] * alpha[i] + psum[i];
-        }
-      };
-      if (full)
-        update(std::false_type{});
-      else
-        update(std::true_type{});
-
-      // acc = acc * alpha + P V, this tile's P V in a fresh accumulator
-#pragma unroll
-      for (int dn = 0; dn < DV / 16; ++dn) {
-        float part[2][4];
-        pair_products<DV, 4>(part, ph, pl, vt, 0, dn, lane);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          acc[2 * dn][e] = fmaf(acc[2 * dn][e], alpha[e >> 1], part[0][e]);
-          acc[2 * dn + 1][e] =
-              fmaf(acc[2 * dn + 1][e], alpha[e >> 1], part[1][e]);
-        }
+        for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(qf[kk], qa_row + kk * 16);
       }
     }
-    sync();  // buf is refilled by the next iteration's fetch
-    t = tn;
+
+    for (int buf = 0; t < c1; buf ^= 1) {
+      const int tn = advance(t, step);
+      if (tn < c1) fetch(tn, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // tile t landed
+      sync();
+      if (warp_live) {
+        const int slot = SPLIT ? 2 * warp + buf : buf;
+        const bf16* kt = sKV + slot * (TILE + VTILE);
+        const bf16* vt = kt + TILE;
+        const int* pk = sPosK + slot * BK;
+        const int nk = PAGED ? BK : min(BK, a.Sk - t * BK);
+        const bool full = sFlag[t - c0] & TILE_FULL;
+
+        // S = Q K^T: the warp's 16 rows x 64 keys, eight n8 tiles
+        float s[8][4];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          uint32_t qa[4];
+          if constexpr (QREG) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+          } else {
+            ldsm_x4(qa, qa_row + kk * 16);
+          }
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            uint32_t y[4];
+            ldsm_x4(y, kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS +
+                           kk * 16 + ((lane >> 3) & 1) * 8);
+            mma_bf16(s[2 * np], qa, y[0], y[1]);
+            mma_bf16(s[2 * np + 1], qa, y[2], y[3]);
+          }
+        }
+
+        // the online-softmax update of the warp's rows from S, and P as
+        // hi/lo A fragments: n8 tiles 2c and 2c + 1 form k16 chunk c. MASKED
+        // is false on a tile whose every pair is visible (no per-element
+        // mask, the same bits)
+        uint32_t ph[4][4], pl[4][4];
+        float alpha[2];
+        auto update = [&](auto masked) {
+          constexpr bool MASKED = decltype(masked)::value;
+          uint32_t vis = 0xffffffffu;  // bit 4 j + e: pair visible
+          float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c = 8 * j + 2 * tq;
+            int2 pk2 = make_int2(0, 0);
+            if (MASKED) pk2 = *reinterpret_cast<const int2*>(pk + c);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e >> 1;  // row gr or gr + 8
+              bool ok = true;
+              if (MASKED) {
+                ok = c + (e & 1) < nk &&
+                     a.mask.visible(pq[i], (e & 1) ? pk2.y : pk2.x);
+                if (!ok) vis &= ~(1u << (4 * j + e));
+              }
+              // scaled to log2 units; masked s = -1e30 before the max
+              s[j][e] = ok ? s[j][e] * sl2 : NEG_INF;
+              mx[i] = fmaxf(mx[i], s[j][e]);
+            }
+          }
+          float m_safe[2], psum[2] = {0.0f, 0.0f};
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+            mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+            const float m_cur = fmaxf(m[i], mx[i]);
+            m_safe[i] = m_cur <= DEAD ? 0.0f : m_cur;
+            alpha[i] = m[i] <= DEAD ? 0.0f : ex2(m[i] - m_safe[i]);
+            m[i] = m_cur;
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float p[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e >> 1;
+              // p = 0 where masked
+              p[e] = !MASKED || (vis >> (4 * j + e)) & 1u
+                         ? ex2(s[j][e] - m_safe[i])
+                         : 0.0f;
+              psum[i] += p[e];
+            }
+            const int f = j >> 1, r = (j & 1) * 2;
+            split_bf16x2(p[0], p[1], ph[f][r], pl[f][r]);
+            split_bf16x2(p[2], p[3], ph[f][r + 1], pl[f][r + 1]);
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
+            psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
+            l[i] = l[i] * alpha[i] + psum[i];
+          }
+        };
+        if (full)
+          update(std::false_type{});
+        else
+          update(std::true_type{});
+
+        // acc = acc * alpha + P V, this tile's P V in a fresh accumulator
+#pragma unroll
+        for (int dn = 0; dn < DV / 16; ++dn) {
+          float part[2][4];
+          pair_products<DV, 4>(part, ph, pl, vt, 0, dn, lane);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[2 * dn][e] = fmaf(acc[2 * dn][e], alpha[e >> 1], part[0][e]);
+            acc[2 * dn + 1][e] =
+                fmaf(acc[2 * dn + 1][e], alpha[e >> 1], part[1][e]);
+          }
+        }
+      }
+      sync();  // buf is refilled by the next iteration's fetch
+      t = tn;
+    }
+  };
+  if constexpr (PAGED) {
+    // chunk by chunk: its table entries, its flags, then its walk
+    const int chunk = paged_chunk_tiles(a.pg.ps);
+    int c0 = 0;
+    do {
+      const int c1 = min(n_k, c0 + chunk);
+      int w1;
+      paged_entries(a.pg.ps, c0, c1, w0, w1);
+      if (c0 > 0) __syncthreads();  // the last chunk's entries, tiles read
+      paged_pages(sPage, a, b, w0, w1, limit, qlo, tid);
+      __syncthreads();
+      paged_tile_flags(sFlag, sPage, w0, a.pg, c0, c1, limit, qlo, qhi,
+                       a.mask, warp, lane);
+      __syncthreads();
+      walk(c0, c1);
+      c0 = c1;
+    } while (c0 < n_k);
+  } else {
+    tile_flags(sFlag, pos_k, a.Sk, false, qlo, qhi, a.mask, warp, lane);
+    __syncthreads();
+    walk(0, n_k);
   }
   cp_async_wait<0>();
 
@@ -836,14 +938,15 @@ flash_fwd_mma(FwdArgs a) {
   if constexpr (PAGED && SPLIT) {
     if (gridDim.z > 1) {
       // split-KV: warp 0's (m, l, acc) of slab 0 go to the workspace, and
-      // the last CTA of this (b, kv head) to arrive (a ticket counter,
-      // which it resets for the next call) merges the gridDim.z partials
-      // in split order, as the warps' were merged: a split with no live
-      // tile (m = -1e30, l = 0) weighs 0, and two runs give the same bits
+      // the last CTA of this (b, kv head, D slice) to arrive (a ticket
+      // counter, which it resets for the next call) merges the gridDim.z
+      // partials in split order, as the warps' were merged: a split with no
+      // live tile (m = -1e30, l = 0) weighs 0, and two runs give the same
+      // bits. Workspace: (m, l) [B Hkv NDS S 16], then acc [.. 16][DV]
       const int S = gridDim.z;
-      const size_t bk = (size_t)b * a.Hkv + kvh;
-      float2* ws_ml = reinterpret_cast<float2*>(a.pg.ws);  // [B Hkv S 16]
-      float* ws_acc = a.pg.ws + (size_t)a.B * a.Hkv * S * 16 * 2;  // x D
+      const size_t bk = ((size_t)b * a.Hkv + kvh) * NDS + blockIdx.x % NDS;
+      float2* ws_ml = reinterpret_cast<float2*>(a.pg.ws);
+      float* ws_acc = a.pg.ws + (size_t)a.B * a.Hkv * NDS * S * 16 * 2;
       __shared__ int sLast;
       if (warp == 0) {
 #pragma unroll
@@ -851,8 +954,8 @@ flash_fwd_mma(FwdArgs a) {
           const size_t row = (bk * S + blockIdx.z) * 16 + gr + 8 * i;
           if (tq == 0) ws_ml[row] = make_float2(m[i], l[i]);
 #pragma unroll
-          for (int n = 0; n < D / 8; ++n)
-            *reinterpret_cast<float2*>(ws_acc + row * D + 8 * n + 2 * tq) =
+          for (int n = 0; n < DV / 8; ++n)
+            *reinterpret_cast<float2*>(ws_acc + row * DV + 8 * n + 2 * tq) =
                 make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
         }
       }
@@ -872,7 +975,7 @@ flash_fwd_mma(FwdArgs a) {
           const float m_safe = m_tot <= DEAD ? 0.0f : m_tot;
           float l_tot = 0.0f;
 #pragma unroll
-          for (int n = 0; n < D / 8; ++n)
+          for (int n = 0; n < DV / 8; ++n)
             acc[n][2 * i] = acc[n][2 * i + 1] = 0.0f;
           for (int z = 0; z < S; ++z) {
             const size_t row = row0 + 16 * z;
@@ -880,9 +983,9 @@ flash_fwd_mma(FwdArgs a) {
             const float wt = ml.x <= DEAD ? 0.0f : ex2(ml.x - m_safe);
             l_tot += wt * ml.y;
 #pragma unroll
-            for (int n = 0; n < D / 8; ++n) {
+            for (int n = 0; n < DV / 8; ++n) {
               const float2 x = __ldcg(reinterpret_cast<const float2*>(
-                  ws_acc + row * D + 8 * n + 2 * tq));
+                  ws_acc + row * DV + 8 * n + 2 * tq));
               acc[n][2 * i] += wt * x.x;
               acc[n][2 * i + 1] += wt * x.y;
             }
@@ -957,8 +1060,9 @@ cudaError_t launch_fwd_mma(const FwdArgs& a, cudaStream_t stream) {
 }
 
 // B4 (SPLIT: Sq * G <= 16, the keys split over `splits` CTAs per (b, kv
-// head) and over their warps) and B6 (64 packed rows per CTA) on bf16
-// inputs: flash_fwd_mma over the paged source a.pg.
+// head, D slice) and over their warps; G > 16 runs unsplit, as B6 does at
+// Sq = 1) and B6 (64 packed rows per CTA) on bf16 inputs: flash_fwd_mma
+// over the paged source a.pg, grid (Hkv * D / DV, B, splits or row tiles).
 template <int D, bool SPLIT>
 cudaError_t launch_paged_mma(const FwdArgs& a, int splits,
                              cudaStream_t stream) {
@@ -971,7 +1075,8 @@ cudaError_t launch_paged_mma(const FwdArgs& a, int splits,
       SPLIT ? splits
             : ((long long)a.Sq * (a.Hq / a.Hkv) + BQ - 1) / BQ;
   if (z < 1 || z > 65535) return cudaErrorInvalidConfiguration;
-  kern<<<dim3(a.Hkv, a.B, (unsigned)z), MMA_NT, smem, stream>>>(a);
+  kern<<<dim3(a.Hkv * (D / fwd_dv<D>()), a.B, (unsigned)z), MMA_NT, smem,
+         stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -983,6 +1088,7 @@ cudaError_t launch_paged_mma_d(const FwdArgs& a, int D, int splits,
     case 64: return launch_paged_mma<64, SPLIT>(a, splits, stream);
     case 80: return launch_paged_mma<80, SPLIT>(a, splits, stream);
     case 128: return launch_paged_mma<128, SPLIT>(a, splits, stream);
+    case 256: return launch_paged_mma<256, SPLIT>(a, splits, stream);
     default: return cudaErrorInvalidValue;
   }
 }

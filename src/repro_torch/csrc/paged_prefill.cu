@@ -30,18 +30,20 @@
 // loader. One CTA of 128 threads owns 64 packed (query, head) rows of one
 // (b, kv head) (grid (Hkv, B, ceil(Sq * G / 64))), so each cached page is
 // read once per kv group, not once per query head. Each 64-key tile is
-// 64 / page_size consecutive table entries; the CTA reads and tests them
-// itself (the page test uses the CTA's oldest query for the window), never
+// 64 / page_size (floor) consecutive table entries; the CTA reads and tests
+// them itself (the page test uses the CTA's oldest query for the window), never
 // dereferences -1, and fetches each valid key row straight from the pool by
 // cp.async into double buffers (no dense gather), zero-filling rows that
-// hold no valid key; a tile with no live page is skipped whole. S and P V
+// hold no valid key; a tile with no live page is skipped whole. Pages larger
+// than 64 keys span several tiles, each a 64-row slice of the page; at head
+// size 256 the output's D is split over 2 CTAs of 128 columns. S and P V
 // run on mma.sync with P as a bf16 hi/lo pair, and the partial finalises as
 // _block_partial (the caller combines it with the suffix's B1 partial).
 // f32 inputs (never on the main path; they keep the f32 tests exact at
 // 2e-5) run paged_prefill_kernel below: one CTA of 256 threads per (b,
-// query head, 64-query tile), pages staged in shared memory as f32 with a
-// D+1 stride, products on the CUDA cores through flash_fwd.cuh's
-// tile_update.
+// query head, 64-query tile), each 64-key tile (flash_fwd.cuh's paged tile
+// mapping, any page size) staged in shared memory as f32 with a D+1 stride,
+// products on the CUDA cores through flash_fwd.cuh's tile_update.
 
 #include "flash_fwd.cuh"
 
@@ -61,21 +63,21 @@ struct PrefillArgs {
   float scale;
 };
 
-// Stage BK key rows of one kv head: row r of the tile is slot r % ps of the
-// tile's page r / ps; rows of a dead page (sPage < 0) are zero-filled.
+// Stage BK key rows of one kv head: tile row r is pool row sRow[r] (page *
+// ps + slot), zero-filled where it holds no valid key (sRow < 0).
 template <typename T, int D>
-__device__ inline void load_page_rows(float* dst, int ld, const T* pool,
-                                      const int* sPage, int ps, int Hkv,
-                                      int kvh, int tid) {
+__device__ inline void load_pool_rows(float* dst, int ld, const T* pool,
+                                      const int* sRow, int Hkv, int kvh,
+                                      int tid) {
   constexpr int VEC = Vec16<T>::N;
   constexpr int CPR = D / VEC;  // 16-byte chunks per row
   for (int e = tid; e < BK * CPR; e += NT) {
     const int r = e / CPR;
     const int c = e - r * CPR;
-    const int page = sPage[r / ps];
+    const int prow = sRow[r];
     float vals[VEC];
-    if (page >= 0) {
-      const size_t row = ((size_t)page * ps + r % ps) * Hkv + kvh;
+    if (prow >= 0) {
+      const size_t row = (size_t)prow * Hkv + kvh;
       const uint4 raw =
           *reinterpret_cast<const uint4*>(pool + row * D + c * VEC);
       Vec16<T>::unpack(raw, vals);
@@ -99,7 +101,8 @@ paged_prefill_kernel(PrefillArgs a) {
   float* sV = sK + BK * LD;                     // BK x LD
   float* sP = sV + BK * LD;                     // BQ x LDP
   int* sPosK = reinterpret_cast<int*>(sP + BQ * LDP);  // BK; -1 = invalid
-  int* sPage = sPosK + BK;                      // pages of the tile; -1 = dead
+  int* sRow = sPosK + BK;                       // BK pool rows; -1 = none
+  __shared__ int sAny;
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
@@ -110,7 +113,6 @@ paged_prefill_kernel(PrefillArgs a) {
   const int row = tid / TPR;
   const int cg = tid % TPR;
   const int ps = a.page_size;
-  const int ppt = BK / ps;                      // pages per tile
   const int cl = a.cached_len[b];
   const int pq = cl + q0 + row;                 // this row's position
   const int* table = a.table + (size_t)b * a.W;
@@ -126,34 +128,33 @@ paged_prefill_kernel(PrefillArgs a) {
 #pragma unroll
   for (int j = 0; j < DPT; ++j) acc[j] = 0.0f;
 
-  const int n_t = (a.W + ppt - 1) / ppt;
+  const int n_t = paged_tiles(ps, a.W);
   for (int t = 0; t < n_t; ++t) {
     __syncthreads();  // the previous tile's smem reads are done
-    if (tid < ppt) {
-      // the Pallas kernel's pl.when test for page w
-      const int w = t * ppt + tid;
-      int page = -1;
-      if (w < a.W) {
+    if (tid == 0) sAny = 0;
+    __syncthreads();
+    if (tid < BK) {
+      // row tid of the tile, its page under the Pallas kernel's pl.when
+      // test; the oldest query of the tile sits at cl + q0
+      int w, slot, prow = -1, pos = -1;
+      if (paged_slot(ps, t, tid, w, slot) && w < a.W) {
         const int entry = table[w];
         const int base = (w * a.sp + a.rank) * ps;
         bool live = entry >= 0 && entry < a.pages_loc && base < cl;
-        // the oldest query of the tile sits at cl + q0
         if (a.has_window) live &= (cl + q0 - (base + ps - 1)) < a.window;
-        page = live ? entry : -1;
+        if (live && base + slot < cl) {
+          prow = entry * ps + slot;
+          pos = base + slot;
+        }
       }
-      sPage[tid] = page;
+      sRow[tid] = prow;
+      sPosK[tid] = pos;
+      if (prow >= 0) sAny = 1;
     }
     __syncthreads();
-    bool any = false;
-    for (int i = 0; i < ppt; ++i) any |= sPage[i] >= 0;
-    if (!any) continue;  // uniform: every thread read the same entries
-    if (tid < BK) {
-      const int w = t * ppt + tid / ps;
-      const int pos = (w * a.sp + a.rank) * ps + tid % ps;
-      sPosK[tid] = sPage[tid / ps] >= 0 && pos < cl ? pos : -1;
-    }
-    load_page_rows<T, D>(sK, LD, pk, sPage, ps, a.Hkv, kvh, tid);
-    load_page_rows<T, D>(sV, LD, pv, sPage, ps, a.Hkv, kvh, tid);
+    if (!sAny) continue;  // uniform: no row of the tile holds a valid key
+    load_pool_rows<T, D>(sK, LD, pk, sRow, a.Hkv, kvh, tid);
+    load_pool_rows<T, D>(sV, LD, pv, sRow, a.Hkv, kvh, tid);
     __syncthreads();
 
     tile_update<D>(sQ, sK, sV, sP, row, cg, a.scale,
@@ -201,6 +202,7 @@ cudaError_t launch_d(const PrefillArgs& a, int D, cudaStream_t stream) {
     case 64: return launch<T, 64>(a, stream);
     case 80: return launch<T, 80>(a, stream);
     case 128: return launch<T, 128>(a, stream);
+    case 256: return launch<T, 256>(a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -210,15 +212,14 @@ cudaError_t launch_d(const PrefillArgs& a, int D, cudaStream_t stream) {
 
 // C entry for ctypes. dtype: 0 = float32 (paged_prefill_kernel), 1 =
 // bfloat16 (flash_fwd_mma over the paged source); q and the pools share
-// it. page_size must divide 64. Returns the cudaError_t of the launch.
+// it. Any page size. Returns the cudaError_t of the launch.
 extern "C" int repro_paged_prefill(
     const void* q, const void* pool_k, const void* pool_v, const int* table,
     const int* cached_len, float* o, float* lse, int B, int Sq, int Hq,
     int Hkv, int D, int pages_loc, int page_size, int W, int sp, int rank,
     int has_window, int window, float scale, int dtype, void* stream) {
   using namespace repro_torch;
-  if (Hq % Hkv || page_size < 1 || BK % page_size)
-    return (int)cudaErrorInvalidValue;
+  if (Hkv < 1 || Hq % Hkv || page_size < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
     FwdArgs f{q, pool_k, pool_v, nullptr, nullptr, nullptr, nullptr, o, lse,

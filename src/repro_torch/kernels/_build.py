@@ -39,6 +39,8 @@ SIGNATURES = {
     "repro_flash_fwd": [_VP] * 9 + [_I] * 12 + [_F, _VP],
     "repro_flash_bwd": [_VP] * 11 + [_I] * 12 + [_F, _VP],
     "repro_paged_decode": [_VP] * 9 + [_I] * 12 + [_F, _I, _VP],
+    "repro_paged_decode_scratch": [_I] * 6 + [ctypes.POINTER(
+        ctypes.c_longlong)],
     "repro_ragged_prefill": [_VP] * 7 + [_I] * 12 + [_F, _VP],
     "repro_paged_prefill": [_VP] * 7 + [_I] * 12 + [_F, _I, _VP],
     "repro_ragged_bwd": [_VP] * 11 + [_I] * 12 + [_F, _VP],

@@ -29,11 +29,9 @@ import torch
 from repro_torch.core.combine import combine_pair
 from repro_torch.kernels import meta, ref
 
-# head sizes of B1, B2, B3 (and B5, B7 through the same templates); B4 and
-# B6 keep PAGED_HEAD_DIMS: the engine, their only caller, refuses the
-# family that needs 256 (ROADMAP.md §B item 5)
+# head sizes of every kernel (B1-B7 share the forward and backward
+# templates of csrc/flash_fwd.cuh and flash_bwd.cuh)
 HEAD_DIMS = (32, 64, 80, 128, 256)
-PAGED_HEAD_DIMS = (32, 64, 80, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES: Dict[str, int] = {"B1": 0, "B2": 0, "B3": 0}
@@ -81,16 +79,9 @@ def _check(name, t, shape, dtypes, device):
 
 
 def check_head_dim(D: int, dims) -> None:
-    """Raise unless the kernel takes head size ``D`` (``dims``); a paged
-    kernel at 256 names the ROADMAP item that would add it."""
-    if D in dims:
-        return
-    if D in HEAD_DIMS:
-        raise ValueError(
-            f"head_dim {D}: the paged kernels (B4, B6) take {dims}; head "
-            "size 256 waits on ROADMAP.md §B item 5 (the engine refuses the "
-            "family that needs it)")
-    raise ValueError(f"head_dim {D} not in the kernel's {dims}")
+    """Raise unless the kernel takes head size ``D`` (``dims``)."""
+    if D not in dims:
+        raise ValueError(f"head_dim {D} not in the kernel's {dims}")
 
 
 def _check_block(q, k, v, pos_q, pos_k):

@@ -3,10 +3,10 @@ on the meta device (``launch.dryrun``), which launches nothing.
 
 A kernel wrapper given meta tensors (``kernels.dispatch`` under
 ``impl='cuda'``) runs the same checks as before a launch, so it raises
-wherever the kernel raises (a head size the kernel does not take, B4's
-and B6's page-size limits, a dtype or a shape it refuses), allocates the
-kernel's outputs (their shapes and dtypes), and instead of launching
-calls ``charge`` with the kernel's own FLOPs and bytes:
+wherever the kernel raises (a head size the kernel does not take, a
+dtype or a shape it refuses), allocates the kernel's outputs (their
+shapes and dtypes), and instead of launching calls ``charge`` with the
+kernel's own FLOPs and bytes:
 
   FLOPs  4 * D per (query, key) pair and query head forward (B1, B2, B4,
          B5, B6: the scores and P @ V), 10 * D backward (B3, B7: the

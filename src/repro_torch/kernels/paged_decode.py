@@ -3,8 +3,10 @@ query token per row against this SP shard's page-table-indexed pool.
 
 ``paged_decode_attention`` launches ``csrc/paged_decode.cu`` on CUDA tensors
 (bf16: the tensor-core forward of ``csrc/flash_fwd.cuh`` over the paged
-source, its keys split over ``decode_splits`` CTAs per (row, kv head);
-f32: the CUDA-core kernel) and runs the plain PyTorch version
+source, its keys split over ``decode_splits`` CTAs per (row, kv head) when
+the G = Hq/Hkv query heads of a group fit one 16-row slab, unsplit above;
+f32: the CUDA-core kernel) at every head size of ``HEAD_DIMS``, any page
+size and any G, and runs the plain PyTorch version
 (``paged_decode_attention_plain``: gather the table's pages densely, encode
 validity in positions, and reuse the ``ref.block_attention`` oracle) on CPU
 tensors. There is no fallback: a CUDA tensor the kernel does not take
@@ -19,6 +21,7 @@ lse (B,Hq,1)) in f32.
 
 from __future__ import annotations
 
+import ctypes
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -26,16 +29,17 @@ import torch
 
 from repro_torch.kernels import meta, ref
 from repro_torch.kernels.flash_attention import (
-    DTYPES, PAGED_HEAD_DIMS, _check, check_head_dim)
+    DTYPES, HEAD_DIMS, _check, check_head_dim)
 
 LAUNCHES: Dict[str, int] = {"B4": 0}
 # the ranks of a ThreadMesh engine launch B4 from their own threads
 _LAUNCHES_LOCK = threading.Lock()
-TILE_KEYS = 64          # the bf16 kernel's key tile: 64 // page_size pages
-# split-KV scratch per device, allocated once and grown only for a larger
-# call: the CTAs' partial (m, l, acc) and one ticket counter per (row, kv
-# head), which the kernel leaves at zero. Calls on one device share it, so
-# they run on one stream at a time (the port's current stream)
+TILE_KEYS = 64          # the bf16 kernel's key tile (key_tiles)
+# split-KV scratch per device, sized by the C entry
+# (repro_paged_decode_scratch), allocated once and grown only for a larger
+# call: the CTAs' partial (m, l, acc) and ticket counters, which the kernel
+# leaves at zero. Calls on one device share it, so they run on one stream
+# at a time (the port's current stream)
 _WORKSPACE: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
@@ -67,17 +71,29 @@ def paged_decode_attention_plain(q, pool_k, pool_v, table, cache_len, rank,
                                window=window, scale=scale)
 
 
+def key_tiles(W: int, page_size: int) -> int:
+    """64-key tiles of the bf16 kernel over a W-entry table: pages of up
+    to 64 keys go ``64 // page_size`` whole pages a tile, larger ones
+    ``ceil(page_size / 64)`` tiles a page."""
+    if page_size <= TILE_KEYS:
+        return -(-W // (TILE_KEYS // page_size))
+    return W * -(-page_size // TILE_KEYS)
+
+
 def decode_splits(B: int, Hkv: int, D: int, W: int, page_size: int,
                   sms: int) -> int:
-    """CTAs per (row, kv head) of the bf16 kernel: as many as fill the
-    card's ``sms`` SMs in one wave (its shared memory holds one CTA per
-    SM; on an H100 at batch 4, 5 splits, 160 CTAs on 132 SMs, took 0.024
-    device-ms against 4 splits' 0.019: ``scripts/compare_paged.py``), but
-    no more than give each of a CTA's walking warps (4, or 2 at D = 128) a
-    tile of the table's."""
+    """CTAs per (row, kv head, D slice) of the bf16 kernel where a
+    group's G query heads fit one 16-row slab (the launch reads it only
+    there; ``repro_paged_decode_scratch`` sizes its scratch): as many as
+    fill the card's ``sms`` SMs in one wave (its shared memory holds one
+    CTA per SM; on an H100 at batch 4, 5 splits, 160 CTAs on 132 SMs, took
+    0.024 device-ms against 4 splits' 0.019: ``scripts/compare_paged.py``),
+    but no more than give each of a CTA's walking warps (4, or 2 at D =
+    128 and 256) a tile of the table's. Above D = 128 each (row, kv head)
+    has a CTA per 128 output columns."""
     walkers = 2 if D > 80 else 4
-    tiles = -(-W // (TILE_KEYS // page_size))
-    return max(1, min(sms // (B * Hkv), -(-tiles // walkers)))
+    ctas = B * Hkv * (D // 128 if D > 128 else 1)
+    return max(1, min(sms // ctas, -(-key_tiles(W, page_size) // walkers)))
 
 
 def _workspace(dev, n_ws: int, n_tickets: int):
@@ -107,10 +123,10 @@ def paged_decode_attention(q, pool_k, pool_v, table, cache_len, rank: int,
             page_size=page_size, window=window, scale=scale)
     from repro_torch.kernels import _build
 
-    check_head_dim(D, PAGED_HEAD_DIMS)
-    if Hq % Hkv or Hq // Hkv > 16 or not 1 <= page_size <= 64:
-        raise ValueError(f"kernel takes G = Hq/Hkv <= 16 and page_size <= "
-                         f"64, got Hq={Hq} Hkv={Hkv} page_size={page_size}")
+    check_head_dim(D, HEAD_DIMS)
+    if Hkv < 1 or Hq % Hkv or page_size < 1:
+        raise ValueError(f"kernel takes Hq % Hkv == 0 and page_size >= 1, "
+                         f"got Hq={Hq} Hkv={Hkv} page_size={page_size}")
     W = table.shape[1]
     dev = q.device
     _check("q", q, (B, 1, Hq, D), DTYPES, dev)
@@ -127,14 +143,16 @@ def paged_decode_attention(q, pool_k, pool_v, table, cache_len, rank: int,
             kv + meta.io_bytes(q, table, cache_len, o, lse), (o, lse))
     if scale is None:
         scale = 1.0 / (D ** 0.5)
+    lib = _build.library()
     splits, ws, tickets = 1, None, None
     if q.dtype == torch.bfloat16:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         splits = decode_splits(B, Hkv, D, W, page_size, sms)
-        if splits > 1:
-            ws, tickets = _workspace(dev, B * Hkv * splits * 16 * (D + 2),
-                                     B * Hkv)
-    lib = _build.library()
+    sizes = (ctypes.c_longlong * 2)()
+    _build.check(lib.repro_paged_decode_scratch(
+        B, Hq, Hkv, D, splits, DTYPES[q.dtype], sizes), "paged_decode")
+    if sizes[0]:
+        ws, tickets = _workspace(dev, sizes[0], sizes[1])
     err = lib.repro_paged_decode(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), table.data_ptr(),
         cache_len.data_ptr(), o.data_ptr(), lse.data_ptr(),

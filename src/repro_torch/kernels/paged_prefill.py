@@ -5,7 +5,8 @@ the cached-prefix partial of a prefix-cached or chunked prefill.
 ``paged_prefill_attention`` launches ``csrc/paged_prefill.cu`` on CUDA
 tensors (bf16: the tensor-core forward of ``csrc/flash_fwd.cuh`` over the
 paged source, 64 packed (query, head) rows of a kv group per CTA; f32: the
-CUDA-core kernel) and runs the plain PyTorch version
+CUDA-core kernel) at every head size of ``HEAD_DIMS`` and any page size,
+and runs the plain PyTorch version
 (``paged_prefill_attention_plain``: gather the table's pages densely,
 encode validity in positions, and reuse the ``ref.block_attention``
 oracle, as the JAX ``dispatch.paged_prefill(impl='ref')`` does) on CPU
@@ -30,12 +31,11 @@ import torch
 
 from repro_torch.kernels import meta, ref
 from repro_torch.kernels.flash_attention import (
-    DTYPES, PAGED_HEAD_DIMS, _check, check_head_dim)
+    DTYPES, HEAD_DIMS, _check, check_head_dim)
 
 LAUNCHES: Dict[str, int] = {"B6": 0}
 # the ranks of a ThreadMesh engine launch B6 from their own threads
 _LAUNCHES_LOCK = threading.Lock()
-TILE_KEYS = 64          # the kernel's key tile: page_size must divide it
 
 
 def reset_launches() -> None:
@@ -84,11 +84,10 @@ def paged_prefill_attention(q, pool_k, pool_v, table, cached_len, rank: int,
             page_size=page_size, window=window, scale=scale)
     from repro_torch.kernels import _build
 
-    check_head_dim(D, PAGED_HEAD_DIMS)
-    if Hq % Hkv or page_size < 1 or TILE_KEYS % page_size:
-        raise ValueError(f"kernel takes Hq % Hkv == 0 and a page_size that "
-                         f"divides {TILE_KEYS}, got Hq={Hq} Hkv={Hkv} "
-                         f"page_size={page_size}")
+    check_head_dim(D, HEAD_DIMS)
+    if Hkv < 1 or Hq % Hkv or page_size < 1:
+        raise ValueError(f"kernel takes Hq % Hkv == 0 and page_size >= 1, "
+                         f"got Hq={Hq} Hkv={Hkv} page_size={page_size}")
     W = table.shape[1]
     dev = q.device
     _check("q", q, (B, Sq, Hq, D), DTYPES, dev)

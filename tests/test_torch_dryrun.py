@@ -577,26 +577,32 @@ def test_paged_meta_rules_match_the_plain_versions(name):
 
 
 def test_meta_rules_raise_where_the_kernels_raise():
-    """Head size 16 in every kernel; 256 in B4 and B6 (ROADMAP.md §B item
-    5); B4 past 16 query heads a kv head or 64-token pages; and no launch
-    is counted."""
+    """Head size 16 raises in every kernel; B4 and B6 charge at head size
+    256 (GPT-3B's, which their kernels take) as the other kernels do, and
+    B4 at 34 query heads on 2 kv heads (G = 17, past one 16-row slab) and
+    pages of 128; no launch is counted."""
     before = dict(fa.LAUNCHES)
     x = _blocks("meta", d=16)
     for name, (fn, _) in _calls(x).items():
         with pytest.raises(ValueError, match="head_dim 16"):
             fn()
-    for kernel, sq in ((paged_decode.paged_decode_attention, 1),
-                       (paged_prefill.paged_prefill_attention, SQ)):
-        q, pk, pv, table, cl = _paged("meta", d=256, sq=sq)
-        with pytest.raises(ValueError, match="§B item 5"):
-            kernel(q, pk, pv, table, cl, 0, sp=1, page_size=PS)
-    q = torch.empty((B, 1, 34, D), device="meta")
-    pk = torch.empty((B * W, PS, 2, D), device="meta")
-    table = torch.zeros((B, W), dtype=torch.int32, device="meta")
-    cl = torch.zeros((B,), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="G = Hq/Hkv <= 16"):
-        paged_decode.paged_decode_attention(q, pk, pk, table, cl, 0, sp=1,
-                                            page_size=PS)
+    charged = []
+    with meta.charging(lambda *a: charged.append(a)):
+        for kernel, sq in ((paged_decode.paged_decode_attention, 1),
+                           (paged_prefill.paged_prefill_attention, SQ)):
+            q, pk, pv, table, cl = _paged("meta", d=256, sq=sq)
+            o, lse = kernel(q, pk, pv, table, cl, 0, sp=1, page_size=PS)
+            assert o.shape == (B, sq, q.shape[2], 256)
+        q = torch.empty((B, 1, 34, D), device="meta")
+        pk = torch.empty((B * W, 128, 2, D), device="meta")
+        table = torch.zeros((B, W), dtype=torch.int32, device="meta")
+        cl = torch.zeros((B,), dtype=torch.int32, device="meta")
+        o, lse = paged_decode.paged_decode_attention(q, pk, pk, table, cl, 0,
+                                                     sp=1, page_size=128)
+        assert o.shape == (B, 1, 34, D) and lse.shape == (B, 34, 1)
+    assert [c[0] for c in charged] == ["B4", "B6", "B4"]
+    assert charged[0][1] == 4 * 256 * HQ * B * W * PS
+    assert charged[2][1] == 4 * D * 34 * B * W * 128
     assert fa.LAUNCHES == before
 
 

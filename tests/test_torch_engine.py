@@ -10,7 +10,10 @@ forward (one attention block per layer) of both packages. The port's own
 "batched == solo" replay must hold, and the knobs the port does not carry
 yet must raise (an SP degree > 1, temperature > 0, the host tier and
 preemption no longer do: ``tests/test_torch_host_tier.py``). The prefix cache and chunked prefill are held against the
-JAX engine in ``tests/test_torch_prefix.py``.
+JAX engine in ``tests/test_torch_prefix.py``. The paper's GPT-3B, cut to
+2 layers and narrow widths but keeping its head size 256 and MHA, streams
+the JAX engine's greedy tokens with pages of 128 and a prefix hit: the
+path on which the card runs B4 and B6 at head size 256.
 """
 
 import dataclasses
@@ -22,11 +25,14 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 from repro import engine as jax_engine
+from repro.configs import paper_models as jax_paper_models
 from repro.configs import registry as jax_registry
+from repro.models.factory import build_model as jax_build_model
 from repro.dist.sharding import SP_AXES
 from repro.plan import make_serve_plan as jax_make_serve_plan
 from repro.serve import step as jax_serve_step
 from repro_torch import engine as torch_engine
+from repro_torch.configs import paper_models
 from repro_torch.models.factory import from_jax_params
 from repro_torch.plan import make_serve_plan
 
@@ -175,3 +181,58 @@ def test_launch_serve_cpu_and_rejected_modes():
                       "--prefix-cache", "--system-prompt-len", "16",
                       "--prefill-chunk", "8"])
     assert sorted(out) == ["req0", "req1", "req2"]
+
+
+# GPT-3B at head size 256, cut to 2 layers and narrow widths, built the
+# same way in both packages; pages of 128 keys, two slots of 512 tokens
+GPT3B_NARROW = dict(num_layers=2, d_model=64, num_heads=2, num_kv_heads=2,
+                    d_ff=128, vocab_size=256, param_dtype="float32")
+GPT3B_ENG = dict(max_slots=2, page_size=128, pages_per_shard=12,
+                 max_len=512)
+
+
+def _gpt3b_requests(vocab, cls):
+    """A prompt whose first 128-token page the next two reuse (a prefix
+    hit of one page each), one joining mid-run."""
+    rng = np.random.default_rng(7)
+    shared = rng.integers(0, vocab, 150).tolist()
+    return [cls("first", shared + rng.integers(0, vocab, 10).tolist(), 5),
+            cls("hit", shared + rng.integers(0, vocab, 40).tolist(), 6),
+            cls("late", shared[:130] + rng.integers(0, vocab, 3).tolist(),
+                4)]
+
+
+def _drive_gpt3b(eng, reqs):
+    eng.add_request(reqs[0])
+    out = eng.run()                    # "first" finishes: its pages cached
+    eng.add_request(reqs[1])
+    eng.step()
+    eng.add_request(reqs[2])           # joins the running batch
+    out.update(eng.run())
+    return out
+
+
+def test_gpt3b_head256_streams_with_prefix_hit_match_jax_engine():
+    cfg_j = dataclasses.replace(jax_paper_models.GPT_3B, **GPT3B_NARROW)
+    cfg = dataclasses.replace(paper_models.GPT_3B, **GPT3B_NARROW)
+    assert cfg.head_dim_ == 256 and cfg.num_heads == cfg.num_kv_heads
+    model_j = jax_build_model(cfg_j)
+    params = model_j.init(jax.random.PRNGKey(0))
+    kw = dict(arch="gpt-3b", c=1, decode_batch=GPT3B_ENG["max_slots"],
+              page_size=GPT3B_ENG["page_size"],
+              max_len=GPT3B_ENG["max_len"], prefix_cache=True)
+    jeng = jax_engine.Engine(
+        model_j, jax_make_serve_plan(cfg_j, n_devices=1, **kw),
+        jax_engine.EngineConfig(**GPT3B_ENG), params)
+    teng = torch_engine.Engine(
+        from_jax_params(jax.tree.map(np.asarray, params), cfg, "cpu"),
+        make_serve_plan(cfg, **kw), torch_engine.EngineConfig(**GPT3B_ENG))
+    want = _drive_gpt3b(jeng, _gpt3b_requests(cfg.vocab_size,
+                                              jax_engine.Request))
+    got = _drive_gpt3b(teng, _gpt3b_requests(cfg.vocab_size,
+                                             torch_engine.Request))
+    assert [len(got[u]) for u in ("first", "hit", "late")] == [5, 6, 4]
+    assert got == want
+    # both later prompts reused the first one's 128-token page
+    assert teng.metrics.prefill_tokens_cached == \
+        jeng.metrics.prefill_tokens_cached == 2 * 128

@@ -88,6 +88,14 @@ PAGED_CASES = {
     "sp2_rank1_window": (3, 4, 1, 16, 4, 3, 2, 1, 7),
     # head size 128, 4 query heads per kv head (minitron-8b)
     "gqa4_d128": (3, 8, 2, 128, 4, 4, 1, 0, None),
+    # head size 256, MHA (GPT-3B)
+    "mha_d256": (3, 4, 4, 256, 16, 4, 1, 0, None),
+    # pages of 128 (two key tiles each) under a window that starts inside
+    # a page; pages of 96 on rank 1 of 2
+    "page128_window": (3, 8, 2, 32, 128, 3, 1, 0, 100),
+    "page96_sp2_rank1": (3, 4, 1, 64, 96, 3, 2, 1, None),
+    # 32 query heads on one kv head: more than one 16-row slab
+    "g32": (3, 32, 1, 32, 16, 4, 1, 0, None),
 }
 
 
@@ -157,6 +165,12 @@ PAGED_PREFILL_CASES = {
     "window_slid": (2, 12, 4, 1, 16, 4, 6, 1, 0, 6, [20, 8]),
     "sp2_rank1": (2, 10, 8, 2, 80, 4, 4, 2, 1, None, [24, 9]),
     "gqa_d128": (3, 20, 8, 2, 128, 4, 6, 1, 0, None, [13, 0, 20]),
+    "mqa_d256": (2, 20, 4, 1, 256, 16, 4, 1, 0, None, [40, 0]),
+    # pages of 128 with row 0's page 1 a hole: queries 200..239 in a window
+    # of 100 see keys 100..127 of page 0 until the window slides past it
+    "page128_window_slid": (2, 40, 4, 1, 32, 128, 3, 1, 0, 100, [200, 0]),
+    "page96": (2, 12, 4, 2, 32, 96, 3, 1, 0, None, [150, 0]),
+    "page48_sp2_rank1": (2, 10, 4, 2, 32, 48, 4, 2, 1, None, [200, 60]),
 }
 
 
@@ -385,6 +399,17 @@ PAGED_MMA_CASES = {
     "page64_sp2_rank1": (2, 8, 2, 64, 64, 16, 2, 1, 600, [1900, 131]),
     "page1_g16": (2, 16, 1, 32, 1, 300, 1, 0, None, [299, 64]),
     "d128": (4, 32, 8, 128, 16, 64, 1, 0, None, [1023, 64, 0, 500]),
+    # GPT-3B's decode step: 12 kv heads of 256, MHA, two D slices per
+    # (row, kv head)
+    "d256_mha": (4, 12, 12, 256, 16, 64, 1, 0, None, [1023, 600, 7, 0]),
+    "d256_g8_split": (1, 8, 1, 256, 16, 64, 1, 0, 100, [900]),
+    # pages of 128 (two tiles each) and 96 (the second tile of a page half
+    # empty), windows starting inside a page
+    "page128_window300": (3, 8, 2, 80, 128, 12, 1, 0, 300, [1400, 130, 0]),
+    "page96_sp2_rank1": (2, 8, 2, 128, 96, 10, 2, 1, 250, [1800, 77]),
+    # 32 query heads a kv head: the unsplit route, two 16-row slabs
+    "g32_d128": (2, 32, 1, 128, 16, 64, 1, 0, None, [1000, 0]),
+    "g32_d256_page128": (2, 32, 1, 256, 128, 8, 1, 0, None, [900, 200]),
 }
 
 PAGED_MMA_PREFILL_CASES = {
@@ -397,6 +422,11 @@ PAGED_MMA_PREFILL_CASES = {
     "d128_window_slid": (1, 96, 8, 2, 128, 16, 24, 1, 0, 64, [200]),
     "g6_page4_sp2_rank1": (2, 50, 12, 2, 64, 4, 80, 2, 1, None, [300, 9]),
     "page64": (1, 70, 8, 2, 32, 64, 8, 1, 0, 250, [300]),
+    # GPT-3B's chunk after a cached prefix: 12 heads of 256, two D slices
+    "d256_mha": (2, 256, 12, 12, 256, 16, 96, 1, 0, None, [1000, 0]),
+    "page128_window_slid": (1, 96, 8, 2, 80, 128, 12, 1, 0, 64, [700]),
+    "page96_d256": (2, 50, 8, 2, 256, 96, 16, 1, 0, None, [900, 40]),
+    "page48_sp2_rank1": (2, 40, 12, 2, 64, 48, 20, 2, 1, None, [600, 9]),
 }
 
 
@@ -501,22 +531,28 @@ def test_kernel_wrappers_raise_on_unsupported_cuda_input(cuda_device):
 
 @pytest.mark.gpu
 def test_paged_kernels_raise_at_head_size_256(cuda_device):
-    """B4 and B6 take no head size 256 (ROADMAP.md §B item 5): their
-    wrappers raise on CUDA tensors, with no fallback to the plain
-    version."""
+    """B4 and B6 raise at head size 256 no more: on CUDA tensors, f32 and
+    bf16, each launches its kernel (one count each) and matches its plain
+    version (f32 2e-5, bf16 1e-4), the inactive slot exactly dead."""
     B, Hq, Hkv, _, ps, W, sp, rank, window = PAGED_CASES["gqa_d80"]
     q, pool_k, pool_v, tbl, cl = _paged_inputs(B, Hq, Hkv, 256, ps, W, sp)
-    args = [_t(x).to(cuda_device, torch.bfloat16) for x in
-            (q, pool_k, pool_v)] + [_t(x).to(cuda_device) for x in (tbl, cl)]
-    before = (paged_decode.LAUNCHES["B4"], paged_prefill.LAUNCHES["B6"])
-    with pytest.raises(ValueError, match="§B item 5"):
-        paged_decode.paged_decode_attention(*args, rank, sp=sp, page_size=ps)
-    with pytest.raises(ValueError, match="§B item 5"):
-        paged_prefill.paged_prefill_attention(*args, rank, sp=sp,
-                                              page_size=ps)
-    assert (paged_decode.LAUNCHES["B4"], paged_prefill.LAUNCHES["B6"]) == \
-        before
-
+    kw = dict(sp=sp, page_size=ps)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-4)):
+        args = [_t(x).to(cuda_device, dtype) for x in (q, pool_k, pool_v)] \
+            + [_t(x).to(cuda_device) for x in (tbl, cl)] + [rank]
+        for mod, name, fn, plain in (
+                (paged_decode, "B4", paged_decode.paged_decode_attention,
+                 paged_decode.paged_decode_attention_plain),
+                (paged_prefill, "B6", paged_prefill.paged_prefill_attention,
+                 paged_prefill.paged_prefill_attention_plain)):
+            before = mod.LAUNCHES[name]
+            o, lse = fn(*args, **kw)
+            torch.cuda.synchronize()
+            assert mod.LAUNCHES[name] == before + 1
+            o_p, lse_p = plain(*args, **kw)
+            _assert_partials(o.cpu().numpy(), lse.cpu().numpy(),
+                             o_p.cpu().numpy(), lse_p.cpu().numpy(), tol)
+            assert (lse[-1] == NEG_INF).all() and (o[-1] == 0).all()
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("attention_impl", ["startrail", "local", "ulysses"])
@@ -595,6 +631,7 @@ def test_startrail_backward_launches_b3(cuda_device):
         want = st_torch.startrail_backward(res, o2, do, cfg, SingleComm())
     for a, b in zip((dq, dk, dv), want):
         assert torch.equal(a, b)
+
 
 
 @pytest.mark.gpu
@@ -1028,6 +1065,70 @@ def test_paged_prefill_tensor_core_matches_plain(cuda_device, case, dtype):
     if window is not None and window < Sq:
         dead = (lse_p <= NEG_INF / 2)
         assert dead.any() and not dead.all()
+
+
+# Key ranges longer than one chunk of the paged forward (at most 4096 key
+# tiles reading at most 2048 table entries, csrc/flash_fwd.cuh), which it
+# reads, flags and walks chunk by chunk, and B1 over as many keys in one
+# block (its flags all in shared memory): case -> (head size, query rows,
+# query heads, kv heads)
+CHUNKED_KEYS = 270_000
+CHUNKED_CASES = {
+    "B1_split_keys": (80, 4, 4, 1),        # Sq * G = 16: the warps split
+    "B1": (80, 64, 4, 1),
+    "B4_d256_page16": (256, 1, 8, 1),      # 16,875 table entries
+    "B4_d256_page128_g32": (256, 1, 32, 1),
+    "B6_d256_page16": (256, 16, 8, 1),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(CHUNKED_CASES))
+def test_keys_past_flag_cap_match_plain(cuda_device, case):
+    """B1, B4 and B6 in bf16 over 270,000 keys (4,219 key tiles; B4 and B6
+    walk their tables of 16,875 entries at pages of 16 in 9 chunks of 512
+    tiles, of 2,110 at pages of 128 in 2 chunks) against their plain
+    versions within 1e-4, causal, the queries at the end: one launch each,
+    the same bits twice."""
+    D, Sq, Hq, Hkv = CHUNKED_CASES[case]
+    n = CHUNKED_KEYS
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    q = torch.randn((1, Sq, Hq, D), generator=g,
+                    device=cuda_device).bfloat16()
+    if case.startswith("B1"):
+        k, v = (torch.randn((1, n, Hkv, D), generator=g,
+                            device=cuda_device).bfloat16() for _ in range(2))
+        pos_k = torch.arange(n, dtype=torch.int32, device=cuda_device)
+        args, kw = (q, k, v, pos_k[n - Sq:], pos_k), dict(causal=True)
+        fn, plain = flash_attention.flash_attention_fwd, \
+            flash_attention.flash_attention_fwd_plain
+        launches, name = flash_attention.LAUNCHES, "B1"
+    else:
+        ps = 128 if "page128" in case else 16
+        W = -(-n // ps)
+        pool_k, pool_v = (torch.randn((W + 3, ps, Hkv, D), generator=g,
+                                      device=cuda_device).bfloat16()
+                          for _ in range(2))
+        table = torch.randperm(W + 3, generator=g, device=cuda_device)[:W]
+        table = table.to(torch.int32)[None].contiguous()
+        kw = dict(sp=1, page_size=ps)
+        if case.startswith("B4"):
+            lens = torch.tensor([n - 1], dtype=torch.int32,
+                                device=cuda_device)
+            fn, plain = paged_decode.paged_decode_attention, \
+                paged_decode.paged_decode_attention_plain
+            launches, name = paged_decode.LAUNCHES, "B4"
+        else:
+            lens = torch.tensor([n - Sq], dtype=torch.int32,
+                                device=cuda_device)
+            fn, plain = paged_prefill.paged_prefill_attention, \
+                paged_prefill.paged_prefill_attention_plain
+            launches, name = paged_prefill.LAUNCHES, "B6"
+        args = (q, pool_k, pool_v, table, lens, 0)
+    o, lse = _run_twice(fn, args, kw, launches, name)
+    o_p, lse_p = plain(*args, **kw)
+    _assert_partials(o.cpu().numpy(), lse.cpu().numpy(), o_p.cpu().numpy(),
+                     lse_p.cpu().numpy(), 1e-4)
 
 
 # Ulysses at full width, P = 8: each rank attends 4 query heads over one kv

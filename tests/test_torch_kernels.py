@@ -28,7 +28,8 @@ from repro.kernels import flash_attention as jax_flash
 from repro.kernels import paged_decode as jax_paged
 from repro.kernels import ragged_prefill as jax_ragged
 from repro_torch.core.combine import NEG_INF
-from repro_torch.kernels import dispatch, flash_attention, paged_decode
+from repro_torch.kernels import (dispatch, flash_attention, paged_decode,
+                                 paged_prefill)
 from repro_torch.kernels import ragged_bwd, ragged_prefill
 from test_torch_gpu import (BWD_CASES, FWD_CASES, PAGED_CASES, PREFIX_CASES,
                             PREFIX_ROUTES, RAGGED_BWD_CASES, _assert_grads,
@@ -157,14 +158,28 @@ def test_prefix_lm_plain_matches_jax(case, route):
 
 
 def test_paged_kernels_refuse_head_size_256():
-    """B4 and B6 keep their own head sizes: at 256 (which B1, B2, B3, B5
-    and B7 take) their wrappers raise, naming the ROADMAP item, before a
-    CUDA tensor can reach a launch switch without that case."""
+    """No kernel refuses head size 256 any more: B4 and B6 check the same
+    ``HEAD_DIMS`` as B1, B2, B3, B5 and B7 (256 among them), and their
+    plain versions at 256 and pages of 128 run on the CPU; a head size
+    outside ``HEAD_DIMS`` (48) raises in every kernel's check."""
     assert 256 in flash_attention.HEAD_DIMS
-    assert 256 not in flash_attention.PAGED_HEAD_DIMS
-    for D in flash_attention.HEAD_DIMS[:-1]:
-        flash_attention.check_head_dim(D, flash_attention.PAGED_HEAD_DIMS)
-    with pytest.raises(ValueError, match="§B item 5"):
-        flash_attention.check_head_dim(256, flash_attention.PAGED_HEAD_DIMS)
+    assert not hasattr(flash_attention, "PAGED_HEAD_DIMS")
+    for D in flash_attention.HEAD_DIMS:
+        flash_attention.check_head_dim(D, flash_attention.HEAD_DIMS)
     with pytest.raises(ValueError, match="not in the kernel's"):
         flash_attention.check_head_dim(48, flash_attention.HEAD_DIMS)
+    q, pool_k, pool_v, tbl, cl = _paged_inputs(2, 2, 2, 256, 128, 2, 1)
+    o, lse = paged_decode.paged_decode_attention(
+        _t(q), _t(pool_k), _t(pool_v), _t(tbl), _t(cl), 0, sp=1,
+        page_size=128)
+    assert o.shape == (2, 1, 2, 256) and bool(torch.isfinite(o).all())
+    # B4 and B6 on meta tensors (their checks, no launch) at 256 and 48
+    meta = torch.device("meta")
+    args = [_t(x).to(meta) for x in (q, pool_k, pool_v, tbl, cl)]
+    paged_decode.paged_decode_attention(*args, 0, sp=1, page_size=128)
+    paged_prefill.paged_prefill_attention(*args, 0, sp=1, page_size=128)
+    bad = [torch.empty(*x.shape[:-1], 48, device=meta) for x in args[:3]]
+    for fn in (paged_decode.paged_decode_attention,
+               paged_prefill.paged_prefill_attention):
+        with pytest.raises(ValueError, match="not in the kernel's"):
+            fn(*bad, *args[3:], 0, sp=1, page_size=128)
