@@ -70,6 +70,26 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               every ring step) and then the backward (B3 in every ring
               step) explicitly; o and the gradients are held against plain
               full attention of the sequence and its autograd gradients
+  4b. overlap (right after ring) the ring's two issue orders at
+              h2o-danube-1.8b's full attention width (32q/8kv heads of 80,
+              seq 4096, bf16, zigzag) at P = 8, for StarTrail C = 2 in both
+              placements and the ring C = 1, at comm_chunks 1 and 2: the
+              pipelined forward's output and the gradients equal the
+              unpipelined ones bit for bit, B2 and B3 launch P*R times
+              each; ``obs.commlog.overlap_report`` of each gives the
+              structural fraction ((R-1)/R pipelined, 0 not) and the
+              timed one (the split-phase copies' time on the comm streams
+              under a kernel, ``torch.profiler``; unpipelined, every copy
+              runs on the compute stream and none on a comm stream), as
+              the host paces the run and queued behind a device sleep,
+              with the fwd+bwd device ms and wall time; then the train
+              step's loss and
+              every gradient at train_sp's depth, P = 8, under
+              ``pipeline_scan=False`` equal the pipelined ones bit for
+              bit; then ``autotune(overlap_frac=<the timed fraction>,
+              comm_chunk_grid=(1, 2))`` at 2 layers, whose plan file
+              reloads equal and trains one step through ``launch.train
+              --plan``
   4a. ragged_bwd  the kernel layer's public entries with per-row (B, S)
               positions: ``dispatch.block_fwd`` (B5), then
               ``dispatch.block_bwd`` (B7), on 4 rows of 1024 tokens at
@@ -172,14 +192,15 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               ``n_devices=8, c=2`` runs P = 8 ranks as ThreadMesh(c=2, r=2)
               threads on the one card (team gathers and two ring steps;
               the collectives carry the gradients), each rank holding its
-              shards under the 'default' sharding rules. Full width, 8
-              of 24 layers (``TRAIN_SP_LAYERS``), seq 4096, batch 1, zigzag,
+              shards under the 'default' sharding rules. Full width, 4
+              of 24 layers (``TRAIN_SP_LAYERS``, cut from 8 for the
+              script's time), seq 4096, batch 1, zigzag,
               ``remat='attn_out'``, bf16, 2 AdamW steps on one repeated
               batch (``TRAIN_SP_STEPS``, the script's time): the loss must
               fall, and the first step's loss and
               gradient norm agree with P = 1 on the same weights. Per step
-              B2 runs 8 ranks x 2 ring steps x 2 (recompute) x 8 layers =
-              256 times and B3 128 times; peak memory, the profiled
+              B2 runs 8 ranks x 2 ring steps x 2 (recompute) x 4 layers =
+              128 times and B3 64 times; peak memory, the profiled
               step's device ms and f32 adds beside the 8-layer step that
               stored every parameter whole. Before it, in f32 (the
               CUDA-core kernels), depth 2, seq 1024: the loss and every
@@ -501,7 +522,10 @@ Phases, each printing one JSON line (``{"phase": ...}``):
 Every JSON line carries ``seconds``: the wall time since the line before
 (or the phase's own, where the phase reports it).
 
-The paths are phases 4, 4a, 5, 5a, 7, 8a, 8b, 8c's five runs (roomy,
+The paths are phases 4, 4b's runs (overlap: each pipelined and
+unpipelined ring run; overlap_train: each train step's value and
+gradients; overlap_autotune: the search; overlap_autotune_plan: its
+plan's step), 4a, 5, 5a, 7, 8a, 8b, 8c's five runs (roomy,
 tier, tier-off, handoff, preempt), 9, 13, each scheme of 14, 15's search
 and its plan's step, 16's four runs, 17, 18's four in-process runs
 (gateway, gateway_disagg, frontend_ref, priority), 19's two steps
@@ -517,7 +541,8 @@ encdec_prefill_p4, encdec_legacy_p1, encdec_legacy_p4), 28's three
 measured step (dryrun) and 32's three (gpt3b_serve_p1, gpt3b_serve_p4,
 serve_page128):
 the launch counters are set to 0 just before each and read just after,
-and each must launch exactly the kernels it runs (B2 and B3 in the ring;
+and each must launch exactly the kernels it runs (B2 and B3 in the ring
+and in each of 4b's runs;
 B5 and B7 in ragged_bwd; B2 and B4 in the engine and in the sample
 phase's mixed run; B1 in the local
 prefill; B1, B2, B4 and B6 in the prefix phase; B2 and B5 in the legacy
@@ -2424,6 +2449,294 @@ def phase_ring(dev):
          grad_err_over_max=grad_err, grad_tol=RING_GRAD_TOL,
          launches=launches, seconds=seconds)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the pipelined ring, its overlap and the overlap-aware search
+# ---------------------------------------------------------------------------
+
+# h2o-danube-1.8b's attention at full width, P = 8: (name, scheme, C,
+# placement); each at comm_chunks 1 and 2, with the ring pipelined and not
+OVERLAP_ARRANGEMENTS = (("st_team_inner", "startrail", 2, "team_inner"),
+                        ("st_ring_inner", "startrail", 2, "ring_inner"),
+                        ("ring", "ring", 1, "team_inner"))
+OVERLAP_CHUNKS = (1, 2)
+# the search's size: the autotune phase's 2 layers; the analytical best
+# and worst, one timed step each after one warm-up (the script's time)
+OVERLAP_AUTOTUNE = {"top_k": 1, "steps": 1, "warmup": 1,
+                    "comm_chunk_grid": (1, 2)}
+
+
+def _ring_fwd_bwd(plan, q, k, v, do, dev):
+    """Every rank's explicit StarTrail forward and backward under
+    ``plan``'s arrangement, chunks and issue order (phase_ring's run):
+    [(o, dq, dk, dv)] in thread order, and the launches."""
+    import torch
+
+    from repro_torch.core import startrail as st
+
+    c, r, p, n = plan.c, plan.r, plan.sp_size, q.shape[1]
+    st_cfg = st.StarTrailConfig(seq_len=n, seq_scheme="zigzag", causal=True,
+                                block_impl="cuda",
+                                comm_chunks=plan.comm_chunks,
+                                pipeline=plan.pipeline_scan)
+
+    def rank_fn(comm):
+        gi, ji, ti = (comm.axis_index(a) for a in st_cfg.axes)
+        pos = st.shard_positions((gi * r + ji) * c + ti, n, p,
+                                 "zigzag").to(dev)
+        o, res = st.startrail_forward(
+            *(t[:, pos].contiguous() for t in (q, k, v)), st_cfg, comm)
+        return (o,) + tuple(st.startrail_backward(
+            res, o, do[:, pos].contiguous(), st_cfg, comm))
+
+    counts = reset_counts()
+    out = plan.build_mesh().run(rank_fn, timeout=300)
+    torch.cuda.synchronize()
+    return out, read_counts(counts)
+
+
+def phase_overlap(dev, smi):
+    """The ring's two issue orders at full width, and what the card hides.
+
+    1. For each of ``OVERLAP_ARRANGEMENTS`` at P = 8 (StarTrail C = 2 in
+       both placements, the ring C = 1) and comm_chunks 1 and 2:
+       h2o-danube-1.8b's attention (32q/8kv heads of 80, seq 4096, batch
+       1, bf16, zigzag, causal) forward and backward on every rank with
+       the pipelined order and the unpipelined one: the output and the
+       three gradients equal bit for bit, and each run launches B2 and B3
+       P*R times each and nothing else (phase_ring's count); then
+       ``obs.commlog.overlap_report`` of the plan in each order: the
+       structural fraction of the forward's block calls inside a
+       transfer's window ((R-1)/R pipelined, 0 not) and the timed one (the
+       split-phase copies' device time on the comm streams under a
+       kernel; unpipelined, every copy is synchronous, on the compute
+       stream, and none may appear on a comm stream), with the fwd+bwd
+       device ms and wall time, as the host paces the run and queued
+       behind a device sleep (the card paced).
+    2. One full-width h2o value-and-gradient of the train step at
+       train_sp's depth, P = 8 at (2, 2), under ``pipeline_scan=False``
+       and under the default pipelined order, from the same weights and
+       batch: the loss and every gradient leaf equal bit for bit.
+    3. ``autotune(overlap_frac=<the host-paced timed fraction of the
+       model's default arrangement, pipelined, whole transfers>,
+       comm_chunk_grid=(1, 2))``
+       at the autotune phase's 2 layers; the winner's plan file reloads
+       equal, records the fraction and trains one step through
+       ``launch.train --plan``."""
+    import dataclasses
+    import math
+    import pathlib
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.dist.comm import ThreadMesh
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.factory import build_model
+    from repro_torch.obs import commlog
+    from repro_torch.plan import ExecutionPlan, autotune, make_plan
+    from repro_torch.train import step as train_step
+
+    t_phase = time.perf_counter()
+    full = registry.get(ARCH)
+    shape = _train_shape(TRAIN_SEQ)
+    n = shape.seq_len
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, do = (torch.randn((1, n, h, full.head_dim_), generator=g,
+                               device=dev).bfloat16()
+                   for h in (full.num_heads, full.num_kv_heads,
+                             full.num_kv_heads, full.num_heads))
+    grid, launches = [], None
+    for name, scheme, c, placement in OVERLAP_ARRANGEMENTS:
+        for chunks in OVERLAP_CHUNKS:
+            plans = {pipe: make_plan(
+                full, shape, arch=ARCH, n_devices=ULYSSES_P, c=c,
+                scheme=scheme, placement=placement if c > 1 else None,
+                comm_chunks=chunks, pipeline_scan=pipe)
+                for pipe in (True, False)}
+            p, r = plans[True].sp_size, plans[True].r
+            runs = {pipe: _ring_fwd_bwd(plan, q, k, v, do, dev)
+                    for pipe, plan in plans.items()}
+            want = launches_of(B2=p * r, B3=p * r)
+            for pipe, (_, got) in runs.items():
+                check(got == want,
+                      f"overlap {name} chunks {chunks} pipeline {pipe}: "
+                      f"launches {got}, want {want} (every ring step of "
+                      f"every rank) and nothing else")
+            same = all(torch.equal(a, b)
+                       for ra, rb in zip(runs[True][0], runs[False][0])
+                       for a, b in zip(ra, rb))
+            check(same, f"overlap {name} chunks {chunks}: the pipelined "
+                  f"ring's output or gradients differ from the "
+                  f"unpipelined ring's")
+            if launches is None:
+                launches = runs[True][1]
+            del runs
+            reports = {}
+            for pipe, plan in plans.items():
+                rep = commlog.overlap_report(full, plan, batch=1, device=dev)
+                frac = rep["overlap_fraction"]
+                check(frac == ((r - 1) / r if pipe else 0.0)
+                      and rep["ranks_agree"],
+                      f"overlap {name} chunks {chunks} pipeline {pipe}: "
+                      f"structural fraction {frac}, want "
+                      f"{(r - 1) / r if pipe else 0.0}")
+                # pipelined, the ring's copies run on the comm streams;
+                # unpipelined, every transfer copies on the compute stream
+                timed, queued = rep["timed"], rep["timed_queued"]
+                check(all((t["copies"] > 0) == pipe
+                          and 0.0 <= t["timed_overlap_fraction"] <= 1.0
+                          for t in (timed, queued)),
+                      f"overlap {name} chunks {chunks} pipeline {pipe}: "
+                      f"timed {timed}, queued {queued}")
+                keep = ("timed_overlap_fraction", "device_busy_ms",
+                        "kernel_ms", "copy_ms", "copy_hidden_ms", "copies",
+                        "wall_s")
+                reports[pipe] = {
+                    "overlap_fraction": frac,
+                    "backward_overlap_fraction": rep["backward"][
+                        "overlap_fraction"],
+                    "permutes_total": rep["permutes_total"],
+                    "permutes_with_overlap_window": rep[
+                        "permutes_with_overlap_window"],
+                    "host_paced": {k: timed[k] for k in keep},
+                    "queued": dict({k: queued[k] for k in keep},
+                                   host_ahead=queued["host_ahead"])}
+            grid.append({"arrangement": name, "scheme": scheme, "C": c,
+                         "R": r, "placement": placement,
+                         "comm_chunks": chunks, "bit_equal": same,
+                         "pipelined": reports[True],
+                         "unpipelined": reports[False]})
+            free_device()
+    del q, k, v, do
+    default = make_plan(full, shape, arch=ARCH, n_devices=ULYSSES_P,
+                        comm_chunks=1)
+    measured_frac = next(
+        e["pipelined"]["host_paced"]["timed_overlap_fraction"] for e in grid
+        if (e["C"], e["placement"], e["comm_chunks"]) ==
+        (default.c, default.placement, 1))
+    grid_s = time.perf_counter() - t_phase
+
+    # 2. the train step's value and gradients in both orders
+    cfg = dataclasses.replace(full, num_layers=TRAIN_SP_LAYERS)
+    plan = make_plan(cfg, shape, arch=ARCH, n_devices=ULYSSES_P,
+                     c=TRAIN_SP_C, placement="team_inner", comm_chunks=1)
+    model = build_model(cfg, device=dev, seed=0)
+    batch = train_step.to_device(SyntheticLM(
+        cfg, shape, seed=0, seq_scheme=plan.seq_scheme,
+        sp_size=plan.sp_size).get_batch(0), dev)
+    vg, train_launches = {}, {}
+    t0 = time.perf_counter()
+    for pipe in (True, False):
+        run_cfg = dataclasses.replace(plan.run_config(), pipeline_scan=pipe)
+        fn = train_step.build_mesh_value_and_grad_fn(
+            model, run_cfg, shape, ThreadMesh(plan.c, plan.r),
+            timeout=TRAIN_SP_TIMEOUT)
+        counts = reset_counts()
+        vg[pipe] = fn(batch)
+        torch.cuda.synchronize()
+        train_launches[pipe] = read_counts(counts)
+    train_s = time.perf_counter() - t0
+    L = cfg.num_layers
+    want = _schemes_launches("startrail", plan, L)
+    check(all(v == want for v in train_launches.values()),
+          f"overlap train launches {train_launches}: want {want}")
+    names = [nm for nm, _ in model.named_parameters()]
+    differ = [nm for nm, a, b in zip(names, vg[True][1], vg[False][1])
+              if not torch.equal(a, b)]
+    loss = {pipe: float(vg[pipe][0]) for pipe in vg}
+    check(torch.equal(vg[True][0], vg[False][0]) and not differ
+          and math.isfinite(loss[True]),
+          f"overlap train: --no-pipeline loss {loss[False]} vs pipelined "
+          f"{loss[True]}, gradients differ in {differ}")
+    del vg, model, batch
+    free_device()
+
+    # 3. the overlap-aware search and its plan file
+    cfg = dataclasses.replace(full, num_layers=SCHEMES_LAYERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        counts = reset_counts()
+        t0 = time.perf_counter()
+        tuned = autotune.autotune(
+            cfg, shape, arch=ARCH, n_devices=ULYSSES_P,
+            top_k=OVERLAP_AUTOTUNE["top_k"], steps=OVERLAP_AUTOTUNE["steps"],
+            warmup=OVERLAP_AUTOTUNE["warmup"], overlap_frac=measured_frac,
+            comm_chunk_grid=OVERLAP_AUTOTUNE["comm_chunk_grid"],
+            out_dir=tmp, device=dev)
+        torch.cuda.synchronize()
+        search_s = time.perf_counter() - t0
+        search = read_counts(counts)
+        per_run = OVERLAP_AUTOTUNE["warmup"] + OVERLAP_AUTOTUNE["steps"]
+        want = launches_of()
+        for e in tuned["measured"]:
+            for kk, vv in _schemes_launches(e["plan"].scheme, e["plan"],
+                                            cfg.num_layers).items():
+                want[kk] += vv * per_run
+        check(search == want, f"overlap autotune launches {search}: want "
+              f"{want}")
+        # the analytical best and worst, each ring at both chunk counts
+        ranked = [e["arrangement"] for e in tuned["analytical"]]
+        pairs = sorted((a.key, n) for a in {ranked[0], ranked[-1]}
+                       for n in OVERLAP_AUTOTUNE["comm_chunk_grid"]
+                       if n == 1 or a.scheme != "ulysses")
+        got_pairs = sorted((e["arrangement"].key, e["comm_chunks"])
+                           for e in tuned["measured"])
+        check(got_pairs == pairs, f"overlap autotune measured {got_pairs}: "
+              f"want {pairs}")
+        winner = ExecutionPlan.load(tuned["path"])
+        filed = json.loads(pathlib.Path(tuned["path"]).read_text())
+        check(winner == tuned["plan"]
+              and filed["overlap_frac"] == measured_frac,
+              f"plan file {tuned['path']} reloads as {winner}, not "
+              f"{tuned['plan']}, or records overlap "
+              f"{filed.get('overlap_frac')} for {measured_frac}")
+        free_device()
+        counts = reset_counts()
+        t0 = time.perf_counter()
+        with _registry_depth(SCHEMES_LAYERS):
+            out = launch_train.main(["--plan", str(tuned["path"]),
+                                     "--steps", "1", "--device", dev.type])
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        trained = read_counts(counts)
+    want = _schemes_launches(winner.scheme, winner, SCHEMES_LAYERS)
+    check(out["step"] == 1 and math.isfinite(out["loss"])
+          and trained == want,
+          f"overlap launch.train --plan: step {out['step']} loss "
+          f"{out['loss']}, launches {trained}: want one finite step and "
+          f"{want}")
+    emit("overlap", model=ARCH, P=ULYSSES_P,
+         shape={"seq_len": n, "batch": 1, "heads": [full.num_heads,
+                                                    full.num_kv_heads],
+                "head_dim": full.head_dim_, "dtype": "bfloat16"},
+         grid=grid, grid_s=grid_s, launches=launches,
+         train={"layers": TRAIN_SP_LAYERS, "C": plan.c, "R": plan.r,
+                "loss": {"pipelined": loss[True],
+                         "unpipelined": loss[False]},
+                "leaves": len(names), "bit_equal": True,
+                "launches_per_order": {
+                    "pipelined": train_launches[True],
+                    "unpipelined": train_launches[False]},
+                "seconds": train_s},
+         autotune={"overlap_frac": measured_frac,
+                   "from": f"C={default.c} {default.placement} pipelined "
+                           f"comm_chunks 1", **OVERLAP_AUTOTUNE,
+                   "measured": [{"arrangement": e["arrangement"].key,
+                                 "comm_chunks": e["comm_chunks"],
+                                 "measured_s_per_step": e["measured_s"],
+                                 "analytical_s_per_layer": e[
+                                     "analytical_s"]}
+                                for e in tuned["measured"]],
+                   "winner": winner.to_dict(), "search_s": search_s,
+                   "launches": search,
+                   "plan_step": {"loss": out["loss"], "wall_s": plan_s,
+                                 "launches": trained}},
+         card=smi, seconds=time.perf_counter() - t_phase)
+    return {"overlap": launches, "overlap_train": train_launches[True],
+            "overlap_autotune": search, "overlap_autotune_plan": trained}
 
 
 # ---------------------------------------------------------------------------
@@ -4753,7 +5066,7 @@ def phase_resume(dev, smi):
 # ---------------------------------------------------------------------------
 
 # 8 of h2o's 24 layers for the script's time (PERF.md §4)
-TRAIN_SP_LAYERS, TRAIN_SP_STEPS = 8, 2
+TRAIN_SP_LAYERS, TRAIN_SP_STEPS = 4, 2
 TRAIN_SP_C, TRAIN_SP_R = 2, 2                  # P = C * C * R = 8 ranks
 # bf16 at P = 8 against P = 1 on the same weights and batch: the ranks sum
 # their bf16 MLP and vocab partials in another order and the ring merges
@@ -5177,7 +5490,7 @@ def phase_schemes(dev, smi):
 # phase 15: the §3.4 topology scheduler, measured
 # ---------------------------------------------------------------------------
 
-AUTOTUNE = {"top_k": 3, "steps": 2, "warmup": 1}
+AUTOTUNE = {"top_k": 3, "steps": 1, "warmup": 1}
 
 
 @contextlib.contextmanager
@@ -5203,7 +5516,7 @@ def phase_autotune(dev, smi):
     every legal arrangement at P = 8 under the H100 table
     (``roofline.hw``), then ``plan.autotune.autotune`` (top 3 plus the
     analytical worst: at P = 8 all four arrangements) times each on
-    ``trainer``'s step (warm-up 1, 2 timed steps, P = 8 ThreadMesh ranks on
+    ``trainer``'s step (warm-up 1, 1 timed step, P = 8 ThreadMesh ranks on
     the one card) at the schemes phase's size (h2o-danube-1.8b cut to 8
     layers, seq 4096, batch 1, bf16, ``attn_out``), every candidate from
     the same seeded weights. The winner's plan file must reload equal and
@@ -9090,6 +9403,8 @@ def main():
         phase_kernels_d256(dev, rows)
         free_device()
         by_path = {"ring": phase_ring(dev)}
+        free_device()
+        by_path.update(phase_overlap(dev, smi))
         free_device()
         by_path["ragged_bwd"] = phase_ragged_bwd(dev)
         free_device()

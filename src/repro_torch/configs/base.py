@@ -109,12 +109,11 @@ class RunConfig:
     """Parallelism + training hyper-config for one run, normally produced by
     ``repro_torch.plan.ExecutionPlan.run_config()``.
 
-    The JAX fields this port does not read yet are left out:
-    ``unroll_scans`` (no XLA cost analysis), ``pipeline_scan`` (the ring's
-    pipelined issue order waits for an asynchronous communicator,
-    ``core/startrail.py``) and the optimizer scalars, which live in
+    The JAX fields this port does not read are left out: ``unroll_scans``
+    (no XLA cost analysis) and the optimizer scalars, which live in
     ``optim.adamw.AdamWConfig``. ``sharding_rules`` names the rule set of
-    ``dist.sharding`` each rank stores its parameter shards under.
+    ``dist.sharding`` each rank stores its parameter shards under;
+    ``pipeline_scan`` the ring's issue order (``core.startrail``).
     """
     c: int = 1                           # StarTrail attention-parallel size
     # 'startrail' | 'ring' (C=1 startrail) | 'ulysses'
@@ -131,6 +130,9 @@ class RunConfig:
     # gradient compression: 'none' | 'int8' (optim/grad.py, applied by the
     # train step)
     grad_compression: str = "none"
+    # the ring's pipelined issue order: each transfer before the block
+    # kernel that does not need it (core/startrail.py); no value changes
+    pipeline_scan: bool = True
     # the ring's transfer sub-chunks (core/startrail.py); no value changes
     comm_chunks: int = 1
     # 'default' | 'fsdp' | 'tp' (dist/sharding.py)

@@ -27,24 +27,35 @@ identities; ``ThreadMesh`` for P > 1 in one process). Masks come from global
 token positions computed from the rank coordinates.
 
 ``comm_chunks = n`` (``StarTrailConfig``, the JAX knob) splits each ring
-transfer into n sequence sub-chunks. On a ``ThreadMesh`` that only splits
-synchronous exchanges, so values and the communicator's ledger bytes equal
-the unsplit ring's bit for bit.
+transfer into n sequence sub-chunks: n transfers of the same bytes, whose
+values equal the unsplit ring's bit for bit.
 
-Differences from the JAX module: the ring runs in compute-then-transfer
-order. The JAX ``pipeline`` order (step s+1's transfer issued before step
-s's block kernel) is not ported: on synchronous ``ThreadMesh`` exchanges it
-gives the same bits and bytes and only keeps a second K/V alive, so it
-waits for an asynchronous communicator (ROADMAP.md §A item 1). The forward
-makes R-1 ring transfers, not R: its last step does not rotate K/V back
-into placement order (the residuals keep the placement-ordered K/V from
-before the loop), and at C = 1 the placement permutation is the identity
-and moves nothing; the circulating pack's team index is computed from the
-step, not sent.
+``pipeline`` (the JAX knob, on by default) sets the ring's issue order.
+On, the forward starts step s+1's K/V transfer (``dist.comm``'s
+``ppermute_start``) before step s's block kernel and waits for it after,
+and the backward starts the (q, do, delta, lse) pack's transfer before the
+step's ``block_bwd`` and sends ``dq`` after it; on a CUDA card the copy
+runs on the rank's comm stream while the block kernel runs on its compute
+stream, which is the overlap the paper's ring is built for. Off, each step
+computes and then transfers. Both orders run the same kernels on the same
+inputs, and every kernel here is deterministic (``csrc/flash_fwd.cuh``,
+``csrc/flash_bwd.cuh``), so they give the same bits; the pipelined one
+keeps a second K/V (or pack) alive during the block kernel. The transfers
+sit in a ``ring_permute_issue`` scope and the block kernels in a
+``ring_block_compute`` one, the JAX scope names: each is a
+``torch.profiler`` range, and a ``ThreadMesh`` rank notes each scope and
+each block call in its issue log (``obs.commlog.overlap_report``).
+
+Differences from the JAX module: the forward makes R-1 ring transfers, not
+R: its last step does not rotate K/V back into placement order (the
+residuals keep the placement-ordered K/V from before the loop), and at
+C = 1 the placement permutation is the identity and moves nothing; the
+circulating pack's team index is computed from the step, not sent.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -53,6 +64,7 @@ import torch
 from repro_torch.core import topology as topo_lib
 from repro_torch.core.combine import NEG_INF
 from repro_torch.kernels import dispatch as kernels
+from repro_torch.obs.tracing import _trace_annotation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,7 +76,8 @@ class StarTrailConfig:
     window / prefix_len: the mask. block_impl: 'ref' | 'cuda'.
     block_skip: skip ring steps whose block is fully masked. comm_chunks:
     split each ring transfer into this many sequence sub-chunks (no value
-    changes).
+    changes). pipeline: issue each ring transfer before the block kernel
+    that does not need it (module doc; no value changes).
     """
 
     seq_len: int
@@ -77,6 +90,7 @@ class StarTrailConfig:
     block_impl: str = "ref"
     block_skip: bool = False
     comm_chunks: int = 1
+    pipeline: bool = True
 
 
 # ---------------------------------------------------------------------------
@@ -137,9 +151,33 @@ def fully_masked(cfg: StarTrailConfig, pos_q, pos_k) -> bool:
 # the per-rank forward and backward
 # ---------------------------------------------------------------------------
 
+class _RingTransfer:
+    """One ring transfer in flight, as ``cfg.comm_chunks`` sub-chunk
+    transfers along the sequence axis ``dim`` (``_chunked_ppermute``):
+    ``wait()`` returns the whole tensor."""
+
+    def __init__(self, x, cfg: StarTrailConfig, comm, perm, dim: int):
+        n = cfg.comm_chunks
+        if n > 1 and x.shape[dim] % n:
+            raise ValueError(
+                f"comm_chunks={n} must divide the permuted sequence "
+                f"axis (got length {x.shape[dim]})")
+        parts = x.split(x.shape[dim] // n, dim) if n > 1 else (x,)
+        self.dim = dim
+        self.handles = [comm.ppermute_start(part, cfg.axes, perm)
+                        for part in parts]
+
+    def wait(self):
+        # the parts go with the handles once they are joined
+        handles, self.handles = self.handles, None
+        if len(handles) == 1:
+            return handles[0].wait()
+        return torch.cat([h.wait() for h in handles], self.dim)
+
+
 def _ring_permute(x, cfg: StarTrailConfig, comm, perm, dim: int):
-    """One ring transfer of ``x``, as ``cfg.comm_chunks`` sub-chunk
-    transfers along its sequence axis ``dim`` (``_chunked_ppermute``)."""
+    """One synchronous ring transfer of ``x``, in ``cfg.comm_chunks``
+    sub-chunks (``_RingTransfer``'s values and bytes)."""
     n = cfg.comm_chunks
     if n <= 1:
         return comm.ppermute(x, cfg.axes, perm)
@@ -149,6 +187,32 @@ def _ring_permute(x, cfg: StarTrailConfig, comm, perm, dim: int):
             f"axis (got length {x.shape[dim]})")
     return torch.cat([comm.ppermute(part.contiguous(), cfg.axes, perm)
                       for part in x.split(x.shape[dim] // n, dim)], dim)
+
+
+def _to_device(pos_h, dev):
+    """Host positions on ``dev`` without a host sync: a blocking copy
+    from host memory synchronises the stream, so each ring step would wait
+    for every kernel queued before it and the ring's copies could never run
+    beside a block kernel. (CUDA stages a pageable source before the call
+    returns, so the host tensor may go at once.)"""
+    return pos_h.to(dev, non_blocking=True)
+
+
+def _note(comm, *event) -> None:
+    """Append ``event`` and the pass to the rank's issue log, where the
+    communicator keeps one (``dist.comm``)."""
+    log = getattr(comm, "issue_log", None)
+    if log is not None:
+        log.append(event + (comm.ledger.phase,))
+
+
+@contextlib.contextmanager
+def _ring_scope(name: str, comm):
+    """The JAX ``jax.named_scope(name)`` of the ring: a
+    ``torch.profiler`` range, noted in the issue log."""
+    _note(comm, "scope", name)
+    with _trace_annotation(name):
+        yield
 
 
 def _coords(cfg: StarTrailConfig, comm):
@@ -185,10 +249,11 @@ def startrail_forward(q, k, v, cfg: StarTrailConfig, comm):
     k0 = comm.ppermute(k_team, cfg.axes, perm)
     v0 = comm.ppermute(v_team, cfg.axes, perm)
 
-    # positions on the host (for the skip decision), once on the device
+    # positions on the host (for the skip decision), once on the device;
+    # every copy to the device is non-blocking (``_to_device``)
     own_team = gi * r + ji
     pos_q_h = team_positions(own_team, c, cfg.seq_len, p, cfg.seq_scheme)
-    pos_q = pos_q_h.to(dev)
+    pos_q = _to_device(pos_q_h, dev)
     ring_perm = tp.ring_permutation()
 
     # 3. concentric-ring steps, each folding its block into the accumulator
@@ -196,18 +261,33 @@ def startrail_forward(q, k, v, cfg: StarTrailConfig, comm):
     lse_acc = torch.full((B, Hq, c * S), NEG_INF, dtype=torch.float32,
                          device=dev)
     k_cur, v_cur = k0, v0
+
     for s in range(r):
         kv_team = ((ji + s) % r) * c + ti
         pos_k_h = team_positions(kv_team, c, cfg.seq_len, p, cfg.seq_scheme)
+        # pipelined: step s+1's K/V leave before step s's block kernel
+        nxt = None
+        if cfg.pipeline and s < r - 1:
+            with _ring_scope("ring_permute_issue", comm):
+                nxt = [_RingTransfer(t, cfg, comm, ring_perm, 1)
+                       for t in (k_cur, v_cur)]
         if not (cfg.block_skip and fully_masked(cfg, pos_q_h, pos_k_h)):
-            o_acc, lse_acc = kernels.block_fwd_merge(
-                q_team, k_cur, v_cur, o_acc, lse_acc, pos_q,
-                pos_k_h.to(dev), causal=cfg.causal, window=cfg.window,
-                scale=cfg.scale, prefix_len=cfg.prefix_len,
-                impl=cfg.block_impl)
-        if s < r - 1:
-            k_cur = _ring_permute(k_cur, cfg, comm, ring_perm, 1)
-            v_cur = _ring_permute(v_cur, cfg, comm, ring_perm, 1)
+            with _ring_scope("ring_block_compute", comm):
+                _note(comm, "block")
+                o_acc, lse_acc = kernels.block_fwd_merge(
+                    q_team, k_cur, v_cur, o_acc, lse_acc, pos_q,
+                    _to_device(pos_k_h, dev), causal=cfg.causal,
+                    window=cfg.window, scale=cfg.scale,
+                    prefix_len=cfg.prefix_len, impl=cfg.block_impl)
+        if s < r - 1 and nxt is None:
+            with _ring_scope("ring_permute_issue", comm):
+                k_cur = _ring_permute(k_cur, cfg, comm, ring_perm, 1)
+                v_cur = _ring_permute(v_cur, cfg, comm, ring_perm, 1)
+        elif s < r - 1:
+            # one at a time, as above: a trace's (``TraceComm``) live
+            # storages stay those of the synchronous order
+            k_cur = nxt[0].wait()
+            v_cur = nxt[1].wait()
 
     # 4. lse-combine + reduce-scatter (paper: ReduceScatter_combine)
     m = comm.pmax(lse_acc, t_ax)
@@ -244,7 +324,7 @@ def startrail_backward(res, o, do, cfg: StarTrailConfig, comm):
     kv_team_idx = ji * c + ti
     pos_k = team_positions(kv_team_idx, c, cfg.seq_len, p,
                            cfg.seq_scheme)
-    pos_k_d = pos_k.to(dev)
+    pos_k_d = _to_device(pos_k, dev)
     ring_perm = tp.ring_permutation()
 
     pack = dict(q=q_team, do=do_team, delta=delta_team, lse=lse_glob)
@@ -253,25 +333,38 @@ def startrail_backward(res, o, do, cfg: StarTrailConfig, comm):
     dq = torch.zeros((B, CS, Hq, D), dtype=torch.float32, device=dev)
     dk_acc = torch.zeros((B, CS, Hkv, D), dtype=torch.float32, device=dev)
     dv_acc = torch.zeros((B, CS, Hkv, D), dtype=torch.float32, device=dev)
+
     for s in range(r):
         # after s ring permutes this rank holds the pack of ring slot j + s
         team = gi * r + (ji + s) % r
         pos_q = team_positions(team, c, cfg.seq_len, p, cfg.seq_scheme)
+        # pipelined: the next step's inputs leave before this step's block
+        # kernel; dq, which the kernel makes, leaves after it
+        nxt = None
+        if cfg.pipeline and s < r - 1:
+            with _ring_scope("ring_permute_issue", comm):
+                nxt = {n: _RingTransfer(a, cfg, comm, ring_perm, seq_dim[n])
+                       for n, a in pack.items()}
         if not (cfg.block_skip and fully_masked(cfg, pos_q, pos_k)):
-            dq_c, dk_c, dv_c = kernels.block_bwd(
-                pack["q"], k0, v0, pack["do"], pack["lse"], pack["delta"],
-                pos_q.to(dev), pos_k_d, causal=cfg.causal,
-                window=cfg.window, scale=cfg.scale,
-                prefix_len=cfg.prefix_len, impl=cfg.block_impl)
-            dq = dq + dq_c
-            dk_acc = dk_acc + dk_c
-            dv_acc = dv_acc + dv_c
+            with _ring_scope("ring_block_compute", comm):
+                _note(comm, "block")
+                dq_c, dk_c, dv_c = kernels.block_bwd(
+                    pack["q"], k0, v0, pack["do"], pack["lse"],
+                    pack["delta"], _to_device(pos_q, dev), pos_k_d,
+                    causal=cfg.causal, window=cfg.window, scale=cfg.scale,
+                    prefix_len=cfg.prefix_len, impl=cfg.block_impl)
+                dq = dq + dq_c
+                dk_acc = dk_acc + dk_c
+                dv_acc = dv_acc + dv_c
         # dq makes the full tour home; the inputs are not needed after
         # the last step
-        dq = _ring_permute(dq, cfg, comm, ring_perm, 1)
-        if s < r - 1:
-            pack = {n: _ring_permute(a, cfg, comm, ring_perm, seq_dim[n])
-                    for n, a in pack.items()}
+        with _ring_scope("ring_permute_issue", comm):
+            dq = _ring_permute(dq, cfg, comm, ring_perm, 1)
+            if s < r - 1 and nxt is None:
+                pack = {n: _ring_permute(a, cfg, comm, ring_perm, seq_dim[n])
+                        for n, a in pack.items()}
+        if nxt is not None:
+            pack = {n: t.wait() for n, t in nxt.items()}
 
     dq_local = comm.psum_scatter(dq, t_ax, 1)
     inv = tp.inverse_placement_permutation()

@@ -10,6 +10,9 @@ The per-shard code (``core.startrail``, ``models.runtime``,
   ppermute(x, axes, perm)          (src, dst) pairs of linear ranks over
                                    ``axes``; a rank nobody sends to gets
                                    zeros (``jax.lax.ppermute``)
+  ppermute_start(x, axes, perm)    the same, split in two: it returns a
+    -> handle; handle.wait()       handle at once, and ``wait`` returns
+                                   the result (below)
   psum / pmax / pmin(x, axes)      elementwise reductions
   psum_scatter(x, axis, dim)       tiled reduce-scatter along ``dim``
   all_to_all(x, axes, split_axis, concat_axis)
@@ -79,6 +82,46 @@ JAX ``obs.commlog`` converts HLO result buffers, with n the group size:
 A group of one moves nothing and counts 0. The backward collectives of the
 autograd rules (and any caller under ``ledger.backward()``) count under
 ``'backward'``, the rest under ``'forward'``.
+
+The split-phase ppermute (``ppermute_start`` / ``wait``) is what lets the
+StarTrail ring issue step s+1's transfer before step s's block kernel and
+wait for it after (``core.startrail``, the JAX ``pipeline`` order).
+``ppermute`` is start-then-wait, so both give the same values, run the same
+signature check and identity shortcut and add the same ledger bytes; the
+synchronous one copies on the rank's current stream, since nothing runs
+between its start and its wait. The start is collective: every rank of
+the mesh publishes its tensor and meets the others at the barrier, as a
+synchronous collective does; only the copy is left in flight.
+
+  * On CUDA tensors the copy runs on the receiving rank's comm stream (one
+    ``torch.cuda.Stream`` per rank and device, made at its first transfer
+    and kept by the ``ThreadMesh``). The comm stream first waits on an
+    event the sender recorded on its current stream after it wrote ``x``,
+    and on one the receiver recorded after it allocated the result on its
+    own current stream, so the result stays in the compute stream's pool.
+    ``record_stream`` tells the caching allocator that the comm stream
+    uses both blocks, so a sender that frees ``x`` at once does not get its
+    block back under the copy. ``wait`` makes the rank's current stream
+    wait on the copy's event; the host never synchronises. Compute stays on
+    each rank's current stream (``kernels/paged_decode.py`` shares one
+    workspace per device on that). Every stream or event error raises: no
+    path falls back to a synchronous copy.
+  * On CPU tensors ``ppermute_start`` copies at once and ``wait`` returns
+    the copy.
+  * ``TraceComm`` defers the whole permute to ``wait``: the trace stands
+    for the JAX package's CPU compile, whose collective-permutes are
+    synchronous, so its log and its live storages are those of the
+    synchronous order.
+
+The pair has no autograd rule: ``ppermute_start`` raises on an input that
+needs a gradient. The StarTrail ring calls it inside
+``StarTrailAttention.forward``/``backward``, on tensors that need none.
+
+Each ``_RankComm`` keeps an ``issue_log`` for one ``run``: every permute's
+start and wait, and the block-kernel calls and ring scopes that
+``core.startrail`` notes, each with its pass (``obs.commlog.
+overlap_report`` reads the order). ``SingleComm`` and ``TraceComm`` keep
+none.
 
 The multi-process NCCL/gloo implementation, for ranks on several cards,
 waits for a cell with more than one card (ROADMAP.md, the main path).
@@ -159,6 +202,42 @@ def _is_identity(perm, n: int) -> bool:
             and sorted(s for s, _ in pairs) == list(range(n)))
 
 
+class _Deferred:
+    """The handle of a permute that runs at ``wait`` (``TraceComm``)."""
+
+    __slots__ = ("_fn", "_out")
+
+    def __init__(self, fn):
+        self._fn, self._out = fn, None
+
+    def wait(self):
+        if self._fn is not None:
+            self._out, self._fn = self._fn(), None
+        return self._out
+
+
+class _Transfer:
+    """A permute's handle: ``done`` is the event after its copy on the
+    comm stream (None when the result is already there), ``log`` the
+    rank's issue log, where ``wait`` notes ``key`` once (none without
+    one)."""
+
+    __slots__ = ("_out", "_done", "_log", "_key")
+
+    def __init__(self, out, done=None, log=None, key=None):
+        self._out, self._done, self._log, self._key = out, done, log, key
+
+    def wait(self):
+        if self._done is not None:
+            torch.cuda.current_stream(self._out.device).wait_event(
+                self._done)
+            self._done = None
+        if self._key is not None:
+            self._log.append(("wait", self._key[0], self._key[1]))
+            self._key = None
+        return self._out
+
+
 class SingleComm:
     """One rank: sizes 1, index 0, every collective the identity (and
     nothing on the wire: its ledger stays at 0)."""
@@ -182,6 +261,9 @@ class SingleComm:
     def ppermute(self, x, axes: Axes, perm):
         # one rank: the identity unless nothing is sent to it
         return x if (0, 0) in [tuple(p) for p in perm] else torch.zeros_like(x)
+
+    def ppermute_start(self, x, axes: Axes, perm):
+        return _Transfer(self.ppermute(x, axes, perm))
 
     def psum(self, x, axes: Axes):
         return x
@@ -229,6 +311,9 @@ class ThreadMesh:
         self._coords = [dict(zip(MESH_AXES, (d,) + sp_coords[q]))
                         for d in range(data) for q in range(self.sp_size)]
         self.ledgers = [CommLedger() for _ in range(self.size)]
+        # each rank's comm stream per CUDA device (module doc)
+        self.comm_streams: List[Dict[int, object]] = [
+            {} for _ in range(self.size)]
 
     def reset_ledgers(self) -> None:
         for ledger in self.ledgers:
@@ -286,6 +371,19 @@ class _RankComm:
         self._coords = mesh.coords(rank)
         self._groups: Dict[Tuple[str, ...], List[int]] = {}
         self.ledger = mesh.ledgers[rank]
+        self.issue_log: List[Tuple] = []
+        self._transfers = 0
+
+    def comm_stream(self, device):
+        """This rank's comm stream on CUDA ``device`` ('cuda' meaning the
+        current device), made once."""
+        index = torch.device(device).index
+        if index is None:
+            index = torch.cuda.current_device()
+        streams = self.mesh.comm_streams[self.rank]
+        if index not in streams:
+            streams[index] = torch.cuda.Stream(index)
+        return streams[index]
 
     def axis_size(self, axis: str) -> int:
         return self.mesh.shape[axis]
@@ -307,14 +405,16 @@ class _RankComm:
             self._groups[names] = [rank for _, rank in sorted(out)]
         return self._groups[names]
 
-    def _collective(self, op: str, x, axes: Axes, combine):
-        """Publish (signature, x), wait for every rank, check that they
-        all run this collective, combine this rank's group, and wait again
-        so no slot is overwritten before every rank has read it."""
+    def _collective(self, op: str, x, axes: Axes, combine, event=None):
+        """Publish (signature, x, event), wait for every rank, check that
+        they all run this collective, combine this rank's group, and wait
+        again so no slot is overwritten before every rank has read it.
+        ``combine(tensors, i, events)`` returns the result, or a tuple
+        whose first item is the result (returned as it is)."""
         names = _axes_tuple(axes)
         sig = (op, names, tuple(x.shape), x.dtype)
         group = self._group(names)
-        self._slots[self.rank] = (sig, x)
+        self._slots[self.rank] = (sig, x, event)
         self._barrier.wait()
         slots = self._slots
         for other in range(self.mesh.size):
@@ -324,19 +424,21 @@ class _RankComm:
                 raise RuntimeError(
                     f"ThreadMesh collective mismatch: rank {self.rank} runs "
                     f"{sig}, rank {other} runs {theirs}")
-        out = combine([slots[g][1] for g in group], group.index(self.rank))
+        res = combine([slots[g][1] for g in group], group.index(self.rank),
+                      [slots[g][2] for g in group])
         self._barrier.wait()
+        out = res[0] if isinstance(res, tuple) else res
         self.ledger.add(*_wire_bytes(op, out.numel() * out.element_size(),
                                     len(group)))
-        return out
+        return res
 
     # ---- the exchanges (no autograd: callers pass detached tensors) -------
     def _all_gather(self, x, axis: Axes, dim: int):
         return self._collective("all_gather", x, axis,
-                                lambda xs, i: torch.cat(xs, dim))
+                                lambda xs, i, _: torch.cat(xs, dim))
 
     def _psum(self, x, axes: Axes):
-        def add(xs, i):
+        def add(xs, i, _):
             out = xs[0].clone()
             for y in xs[1:]:
                 out += y
@@ -344,7 +446,7 @@ class _RankComm:
         return self._collective("psum", x, axes, add)
 
     def _psum_scatter(self, x, axis: Axes, dim: int):
-        def rs(xs, i):
+        def rs(xs, i, _):
             n = len(xs)
             parts = [y.chunk(n, dim)[i] for y in xs]
             out = parts[0].clone()
@@ -354,13 +456,61 @@ class _RankComm:
         return self._collective("psum_scatter", x, axis, rs)
 
     def _ppermute(self, x, axes: Axes, perm):
-        def perm_fn(xs, i):
+        """The synchronous permute: start-then-wait with nothing between,
+        so the copy runs on this rank's current stream."""
+        def perm_fn(xs, i, _):
             src = [s for s, d in perm if d == i]
             return xs[src[0]].clone() if src else torch.zeros_like(xs[i])
-        return self._collective("ppermute", x, axes, perm_fn)
+        out = self._collective("ppermute", x, axes, perm_fn)
+        self._log_pair()
+        return out
+
+    def _log_pair(self) -> None:
+        """A permute started and waited for at once, in the issue log."""
+        key = (self._transfers, self.ledger.phase)
+        self._transfers += 1
+        self.issue_log += [("start",) + key, ("wait",) + key]
+
+    def _ppermute_start(self, x, axes: Axes, perm) -> _Transfer:
+        """Publish ``x`` and leave this rank's copy in flight (module
+        doc); the start and the handle's wait go into ``issue_log``."""
+        cuda = x.device.type == "cuda"
+        sent = None
+        if cuda:
+            # the copy is a memcpy of a contiguous block, on the comm stream
+            x = x.contiguous()
+            sent = torch.cuda.Event()
+            sent.record(torch.cuda.current_stream(x.device))
+
+        def perm_fn(xs, i, events):
+            src = [s for s, d in perm if d == i]
+            if not src:
+                return torch.zeros_like(xs[i]), None
+            theirs = xs[src[0]]
+            if not cuda:
+                return theirs.clone(), None
+            out = torch.empty_like(theirs)     # in the compute stream's pool
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(out.device))
+            stream = self.comm_stream(out.device)
+            stream.wait_event(events[src[0]])
+            stream.wait_event(ready)
+            with torch.cuda.stream(stream):
+                out.copy_(theirs)
+            theirs.record_stream(stream)
+            out.record_stream(stream)
+            done = torch.cuda.Event()
+            done.record(stream)
+            return out, done
+
+        out, done = self._collective("ppermute", x, axes, perm_fn, sent)
+        key = (self._transfers, self.ledger.phase)
+        self._transfers += 1
+        self.issue_log.append(("start",) + key)
+        return _Transfer(out, done, self.issue_log, key)
 
     def _all_to_all(self, x, axes: Axes, split_axis: int, concat_axis: int):
-        def a2a(xs, i):
+        def a2a(xs, i, _):
             n = len(xs)
             if xs[0].shape[split_axis] % n:
                 raise ValueError(
@@ -376,7 +526,7 @@ class _RankComm:
                 f"{op} carries no gradient: detach its input (the JAX "
                 "stop_gradient) instead of dropping the gradient silently")
 
-        def red(xs, i):
+        def red(xs, i, _):
             out = xs[0]
             for y in xs[1:]:
                 out = pick(out, y)
@@ -405,10 +555,29 @@ class _RankComm:
 
     def ppermute(self, x, axes: Axes, perm):
         if _is_identity(perm, len(self._group(_axes_tuple(axes)))):
-            return x
+            return self._identity(x)
         if self._tracked(x):
             return _PPermute.apply(x, self, axes, perm)
         return self._ppermute(x.detach(), axes, perm)
+
+    def ppermute_start(self, x, axes: Axes, perm):
+        """``ppermute`` in two halves: the handle's ``wait()`` returns
+        the result (module doc). No gradient flows through the pair."""
+        if _is_identity(perm, len(self._group(_axes_tuple(axes)))):
+            return _Transfer(self._identity(x))
+        if self._tracked(x):
+            raise ValueError(
+                "ppermute_start carries no gradient: call it on a detached "
+                "tensor, or use ppermute, whose backward is the inverse "
+                "permutation")
+        return self._ppermute_start(x.detach(), axes, perm)
+
+    def _identity(self, x):
+        """A permute that moves nothing returns its input; the issue log
+        keeps it as a start and a wait, as XLA keeps it in the compiled
+        program."""
+        self._log_pair()
+        return x
 
     def all_to_all(self, x, axes: Axes, split_axis: int, concat_axis: int):
         if self._tracked(x):
@@ -548,6 +717,7 @@ class TraceComm(_RankComm):
         self._groups = {}
         self.ledger = CommLedger()
         self.log: List[Tuple[str, str, int, int, str, torch.dtype]] = []
+        self.issue_log = None
 
     def run(self, fn: Callable, timeout: float = 600.0) -> List:
         return [fn(self)]
@@ -594,6 +764,10 @@ class TraceComm(_RankComm):
                              self.ledger.phase, x.dtype))
             return x
         return super().ppermute(x, axes, perm)
+
+    def ppermute_start(self, x, axes: Axes, perm):
+        """The permute runs at ``wait`` (module doc)."""
+        return _Deferred(lambda: self.ppermute(x.contiguous(), axes, perm))
 
     def _ppermute(self, x, axes: Axes, perm):
         return self._result("ppermute", x, axes, x.shape)

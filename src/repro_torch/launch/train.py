@@ -33,7 +33,9 @@ the plan, and read back from a ``--plan`` file):
 
 ``--scheme`` picks the attention: 'startrail', 'ring' (C = 1) or 'ulysses'
 (all-to-all; P must divide the head counts); ``--comm-chunks`` splits each
-ring transfer into sub-chunks (no value changes). Knobs left unset
+ring transfer into sub-chunks and ``--no-pipeline`` issues each ring
+transfer after the block kernel instead of before it (neither changes a
+value; ``core.startrail``, the JAX launcher's flags). Knobs left unset
 (``--c``, ``--scheme``, ``--placement``, ``--comm-chunks``) are the
 analytical cost model's pick (``plan.make_plan``), as in the JAX launcher.
 
@@ -60,20 +62,13 @@ the loop's train/data, train/step and train/ckpt spans:
       --smoke --device cpu --devices 8 --data 4 --scheme ulysses --steps 3 \\
       --metrics-dump "$TMPDIR/m.prom" --trace-out "$TMPDIR/trace.json"
 
-The JAX launcher's other options raise ``NotImplementedError`` until their
-part is ported (ROADMAP.md).
+The JAX launcher's ``--multi-pod`` raises ``NotImplementedError`` until its
+part is ported (ROADMAP.md §A item 1).
 """
 
 import argparse
 
 from repro_torch.dist.sharding import RULES
-
-# JAX launcher options that raise, with the ROADMAP.md item that ports them
-_UNPORTED = {
-    "--multi-pod": "multi-pod meshes (§A item 1)",
-    "--no-pipeline": "an asynchronous communicator, where the ring's two "
-                     "issue orders can differ (§A item 1)",
-}
 
 
 def main(argv=None):
@@ -123,18 +118,18 @@ def main(argv=None):
                     help="train a persisted ExecutionPlan json")
     ap.add_argument("--autotune", action="store_true",
                     help="measure the analytical top-k and train the winner")
-    # the JAX launcher's other options, rejected until they are ported
+    ap.add_argument("--no-pipeline", action="store_true",
+                    help="issue each ring transfer after the block kernel "
+                         "(default: before it, pipelined)")
+    # the JAX launcher's last option, rejected until it is ported
     ap.add_argument("--multi-pod", action="store_true")
-    ap.add_argument("--no-pipeline", action="store_true")
     args = ap.parse_args(argv)
     if not args.plan and not args.arch:
         ap.error("--arch is required (unless --plan carries it)")
-    for flag, on in (("--multi-pod", args.multi_pod),
-                     ("--no-pipeline", args.no_pipeline)):
-        if on:
-            raise NotImplementedError(
-                f"repro_torch.launch.train {flag} is not ported yet: it "
-                f"needs {_UNPORTED[flag]} (ROADMAP.md)")
+    if args.multi_pod:
+        raise NotImplementedError(
+            "repro_torch.launch.train --multi-pod is not ported yet: it "
+            "needs multi-pod meshes (§A item 1) (ROADMAP.md)")
 
     import dataclasses
 
@@ -183,6 +178,7 @@ def main(argv=None):
                              placement=args.placement,
                              microbatches=args.microbatches,
                              comm_chunks=args.comm_chunks,
+                             pipeline_scan=not args.no_pipeline,
                              sharding_rules=args.rules)
         except ValueError as e:
             raise ValueError(
@@ -193,7 +189,7 @@ def main(argv=None):
           f"placement={plan.placement} seq={plan.seq_len} "
           f"batch={plan.global_batch} microbatches={plan.microbatches} "
           f"remat={plan.remat} block={plan.block_impl} "
-          f"comm_chunks={plan.comm_chunks} "
+          f"comm_chunks={plan.comm_chunks} pipeline={plan.pipeline_scan} "
           f"rules={plan.sharding_rules} device={device}")
 
     model = build_model(cfg, device=device, seed=args.seed)

@@ -27,6 +27,24 @@ out of the verdict.
 The wire dtype is the element size of the run's inputs (bf16: 2 bytes),
 for both sides; the combine's reduce-scatter is f32 on both.
 
+``overlap_report(cfg, plan)`` is the port of the JAX report of the same
+name: how much of the ring's transfers the block kernels can hide under
+the plan's issue order (``pipeline_scan``) and ring chunks. JAX reads it
+from the compiled HLO's schedule (``roofline.hlo.collective_overlap``:
+dot instructions inside a collective-permute's issue -> first-use window).
+The port has no compiler between the loop and the card: one fused block
+kernel (B2 forward, B3 backward) is one launch per ring step, and the
+order the loop issues them in is the schedule. So the port counts from
+each ``ThreadMesh`` rank's issue log (``dist.comm``): a "dot" is one
+block-kernel call, overlapped when it falls inside a permute's
+``ppermute_start`` -> ``wait`` window. The pipelined ring gives (R-1)/R
+of the forward's block calls a window, the unpipelined one none; JAX's
+count (XLA hoists the permutes in either order, two dots a block) is not
+the port's. On a CUDA card the report also times the run
+(``torch.profiler``): ``timed_overlap_fraction`` is the share of the
+permutes' copy time, on the ranks' comm streams, during which a kernel ran
+on another stream.
+
 ``CommLog`` is the trainer's face: it prices one train step's attention
 communication once at construction (analytical wire bytes x attention
 layers x 3, the JAX module's forward + backward convention) and ticks the
@@ -38,7 +56,8 @@ only, no device sync.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import time
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -190,6 +209,230 @@ def comm_report(cfg: ModelConfig, plan, *, batch: int = 1,
         "tolerance": tolerance,
         "within_tolerance": ok,
     }
+
+
+#: The ring's scopes (``core.startrail``, the JAX ``jax.named_scope``
+#: names): ``torch.profiler`` ranges, noted in a rank's issue log.
+RING_SCOPES = ("ring_permute_issue", "ring_block_compute")
+
+
+def ring_scope_counts(issue_log, phase: str = "forward") -> Dict[str, int]:
+    """How many times each ring scope was entered in one pass of a rank's
+    issue log (the port's count of the JAX module's HLO instructions
+    carrying each scope)."""
+    counts = dict.fromkeys(RING_SCOPES, 0)
+    for event in issue_log:
+        if event[0] == "scope" and event[-1] == phase:
+            counts[event[1]] += 1
+    return counts
+
+
+def issue_overlap(issue_log, phase: str = "forward") -> Dict[str, object]:
+    """``roofline.hlo.collective_overlap``'s counts on one pass of a
+    rank's issue log (module doc): every permute started (the identity
+    ones too, which XLA keeps), the block calls, and those inside at least
+    one started and not yet awaited permute."""
+    open_ids, windowed = set(), set()
+    dots = overlapped = permutes = 0
+    for event in issue_log:
+        if event[-1] != phase:
+            continue
+        if event[0] == "start":
+            permutes += 1
+            open_ids.add(event[1])
+        elif event[0] == "wait":
+            open_ids.discard(event[1])
+        elif event[0] == "block":
+            dots += 1
+            if open_ids:
+                overlapped += 1
+                windowed |= open_ids
+    return {"overlap_fraction": overlapped / dots if dots else 0.0,
+            "dots_total": dots, "dots_overlapped": overlapped,
+            "permutes_total": permutes,
+            "permutes_with_overlap_window": len(windowed)}
+
+
+def _union(intervals: Iterable[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    out: List[Tuple[int, int]] = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], e))
+        else:
+            out.append((s, e))
+    return out
+
+
+def _covered(s: int, e: int, union: List[Tuple[int, int]]) -> int:
+    return sum(max(0, min(e, b) - max(s, a)) for a, b in union)
+
+
+def timed_overlap(events) -> Dict[str, float]:
+    """The copies' share of device time under a kernel, from device
+    events ``(name, stream, start_ns, end_ns)``. The permutes' copies are
+    the device-to-device memcpys on streams that ran no kernel (the
+    ranks' comm streams, where ``dist.comm`` queues nothing else); the
+    kernels are every other event but memcpys, memsets and the device
+    sleep that holds a queued run; the device is busy during any event
+    but the sleep (the synchronous permutes' copies on the compute stream
+    among them)."""
+    kernels, copies, streams_with_kernels, busy = [], [], set(), []
+    for name, stream, s, e in events:
+        if "spin_kernel" in name:
+            continue            # ``torch.cuda._sleep``: the queued run's hold
+        busy.append((s, e))
+        if name.startswith("Memcpy DtoD"):
+            copies.append((stream, s, e))
+        elif not name.startswith(("Memcpy", "Memset")):
+            kernels.append((s, e))
+            streams_with_kernels.add(stream)
+    copies = [(s, e) for stream, s, e in copies
+              if stream not in streams_with_kernels]
+    under = _union(kernels)
+    copy_ns = sum(e - s for s, e in copies)
+    hidden_ns = sum(_covered(s, e, under) for s, e in copies)
+    return {"timed_overlap_fraction": hidden_ns / copy_ns if copy_ns
+            else 0.0,
+            "copies": len(copies), "copy_ms": copy_ns / 1e6,
+            "copy_hidden_ms": hidden_ns / 1e6,
+            "kernel_ms": sum(e - s for s, e in kernels) / 1e6,
+            "device_busy_ms": sum(e - s for s, e in _union(busy)) / 1e6}
+
+
+def _sleep_cycles_per_s(device) -> float:
+    """``torch.cuda._sleep``'s cycles per second on ``device``, from CUDA
+    events around one sleep."""
+    cycles = 10_000_000
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(torch.cuda.current_stream(device))
+    torch.cuda._sleep(cycles)
+    end.record(torch.cuda.current_stream(device))
+    end.synchronize()
+    return cycles / (start.elapsed_time(end) / 1e3)
+
+
+def _device_events(prof):
+    """(name, stream, start_ns, end_ns) of every device event of a
+    finished ``torch.profiler`` window (its raw events)."""
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+            yield (evt.name(), evt.device_resource_id(), evt.start_ns(),
+                   evt.start_ns() + evt.duration_ns())
+
+
+def overlap_report(cfg: ModelConfig, plan, *, batch: int = 1,
+                   seq_len: Optional[int] = None, registry=None,
+                   device=None, dtype: torch.dtype = torch.bfloat16
+                   ) -> Dict[str, object]:
+    """The comm/compute overlap of the plan's attention (module doc): one
+    attention layer's forward and backward (the plan's scheme, issue order
+    and ring chunks; causal; seeded random q, k, v, dO of ``dtype``) on a
+    ``ThreadMesh(plan.c, plan.r)`` on ``device`` (default: the CUDA card).
+
+    The JAX report's keys describe the forward, as the JAX island is one:
+    ``overlap_fraction``, ``dots_total``, ``dots_overlapped``,
+    ``permutes_total``, ``permutes_with_overlap_window`` (rank 0's issue
+    log, ``issue_overlap``), ``ring_scope_instructions``,
+    ``arrangement`` and ``shape``. ``backward`` holds the same counts for
+    the backward, ``ranks_agree`` whether every rank counted the same.
+    On CUDA the run is made twice in one ``torch.profiler`` window (call
+    it warm): as the host paces it (``timed``: ``timed_overlap_fraction``, forward
+    and backward, the copies' and kernels' device ms, the device's busy
+    ms and the run's ``wall_s``), then queued whole behind a device sleep
+    longer than the first run's wall time, so the card runs it back to
+    back as when the host keeps ahead (``timed_queued``, the same fields
+    and ``host_ahead``: whether the device was still busy when the last
+    rank had issued its work). On the CPU both are None (not measured).
+    With ``registry`` the
+    ``attention_overlap_fraction`` gauge gets ``overlap_fraction`` under
+    the JAX labels.
+    """
+    from repro_torch.core import startrail as st
+    from repro_torch.core import ulysses as ul
+    from repro_torch.dist.comm import ThreadMesh
+    from repro_torch.engine.engine import resolve_device
+
+    device = resolve_device(device)
+    n = seq_len or plan.seq_len
+    st_cfg = st.StarTrailConfig(
+        seq_len=n, seq_scheme=plan.seq_scheme, causal=True,
+        block_impl=plan.block_impl, comm_chunks=plan.comm_chunks,
+        pipeline=plan.pipeline_scan)
+    attention = (ul.ulysses_attention if plan.scheme == "ulysses"
+                 else st.startrail_attention)
+    s_local = n // plan.sp_size
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.num_kv_heads,
+             cfg.num_heads)
+    mesh = ThreadMesh(plan.c, plan.r, placement=plan.placement)
+
+    def rank_fn(comm):
+        g = torch.Generator(device=device).manual_seed(comm.rank)
+        q, k, v, do = (torch.randn((batch, s_local, h, cfg.head_dim_),
+                                   generator=g, device=device).to(dtype)
+                       for h in heads)
+        for t in (q, k, v):
+            t.requires_grad_()
+        attention(q, k, v, st_cfg, comm).backward(do)
+        return comm.issue_log
+
+    timed = queued = None
+    if device.type == "cuda":
+        name = torch.cuda.get_device_name(device)
+        cycles_per_s = _sleep_cycles_per_s(device)
+        # one profiler window: the host-paced run, then the queued one
+        # behind the only sleep of the window, its events told apart by
+        # the sleep's end
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            logs = mesh.run(rank_fn)
+            torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            torch.cuda._sleep(int(1.5 * wall * cycles_per_s))
+            mesh.run(rank_fn)
+            ahead = not torch.cuda.current_stream(device).query()
+            torch.cuda.synchronize(device)
+            wall_queued = time.perf_counter() - t0
+        events = list(_device_events(prof))
+        held = max(e for name_, _, _, e in events if "spin_kernel" in name_)
+        timed = dict(timed_overlap([e for e in events if e[3] <= held]),
+                     wall_s=wall, device=name)
+        queued = dict(timed_overlap([e for e in events if e[2] >= held]),
+                      wall_s=wall_queued, host_ahead=ahead, device=name)
+    else:
+        logs = mesh.run(rank_fn)
+    fwd = [issue_overlap(log, "forward") for log in logs]
+    bwd = [issue_overlap(log, "backward") for log in logs]
+    report = {
+        "ring_scope_instructions": ring_scope_counts(logs[0]),
+        "arrangement": {"scheme": plan.scheme, "c": plan.c, "r": plan.r,
+                        "sp": plan.sp_size, "placement": plan.placement,
+                        "seq_scheme": plan.seq_scheme,
+                        "pipeline_scan": plan.pipeline_scan,
+                        "comm_chunks": plan.comm_chunks},
+        "shape": {"batch": batch, "seq_len": n},
+        **fwd[0],
+        "backward": dict(bwd[0], ring_scope_instructions=ring_scope_counts(
+            logs[0], "backward")),
+        "ranks_agree": all(f == fwd[0] for f in fwd)
+        and all(b == bwd[0] for b in bwd),
+        "timed_overlap_fraction": (timed["timed_overlap_fraction"]
+                                   if timed else None),
+        "timed": timed,
+        "timed_queued": queued,
+    }
+    if registry is not None:
+        registry.gauge(
+            "attention_overlap_fraction",
+            "Share of the attention forward's block-kernel calls issued "
+            "inside a ring transfer's start->wait window (the port's "
+            "count of the JAX gauge's dot instructions)",
+        ).set(report["overlap_fraction"], scheme=plan.scheme, c=str(plan.c),
+              pipeline=str(plan.pipeline_scan),
+              comm_chunks=str(plan.comm_chunks))
+    return report
 
 
 class CommLog:

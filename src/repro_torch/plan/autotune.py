@@ -7,9 +7,9 @@ anchor) with short train steps and persists the measured winner to
 ``results/repro_torch/PLAN_<arch>_<shape>.json`` (beside, never over, the
 JAX package's ``results/PLAN_*.json``). The ranks of a plan run as the
 threads of a ``ThreadMesh`` on one device, the counterpart of the JAX
-search on its forced-host CPU mesh: on one card the ranks exchange
-synchronously, so the search ranks the host's and the kernels' time, not
-the wires'.
+search on its forced-host CPU mesh: on one card the ring's copies run
+device to device on the ranks' comm streams, so the search ranks the
+host's, the kernels' and the card's copies' time, not the wires'.
 
 Every candidate trains from the same weights (the model is built once,
 from its seed, and restored before each) with a fresh AdamW state; each
@@ -25,7 +25,7 @@ import json
 import pathlib
 import statistics
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.plan import cost
@@ -72,8 +72,12 @@ def measure_plan(model, plan: ExecutionPlan, *, steps: int = 3,
 
 
 def autotune(cfg: ModelConfig, shape: ShapeConfig, *, arch: str,
-             n_devices: int, data: int = 1, top_k: int = 3, steps: int = 3,
+             n_devices: int, data: int = 1, mesh_kind: str = "local",
+             top_k: int = 3, steps: int = 3,
              microbatches: Optional[int] = 1, out_dir=None, cluster=None,
+             arrangements: Optional[Sequence[cost.Arrangement]] = None,
+             overlap_frac: float = 1.0,
+             comm_chunk_grid: Sequence[int] = (1,),
              warmup: int = 1, device=None, seed: int = 0,
              ) -> Dict[str, object]:
     """Measure the analytical top-k (plus the analytical worst) and persist
@@ -81,8 +85,12 @@ def autotune(cfg: ModelConfig, shape: ShapeConfig, *, arch: str,
 
     Returns {"plan": ExecutionPlan, "measured": [...], "analytical": [...],
     "path": written json path}. The measured list is sorted fastest-first.
-    Each candidate moves whole ring transfers (``comm_chunks=1``), as the
-    JAX search does by default.
+    ``overlap_frac`` is the ranking's overlap model (pass the measured
+    fraction from ``obs.commlog.overlap_report``); ``arrangements`` limits
+    the ranking to those. Each candidate is measured once per entry of
+    ``comm_chunk_grid`` that is legal for it: Ulysses has no ring to chunk,
+    and a chunk count must divide the team sequence C*N/P. A plan of
+    ``mesh_kind='production'`` raises (``ExecutionPlan.check_runnable``).
     The model is built on ``device`` (default: the CUDA card, raising
     without one) from ``seed``.
     """
@@ -95,30 +103,44 @@ def autotune(cfg: ModelConfig, shape: ShapeConfig, *, arch: str,
     sp = n_devices // data
     ranking = cost.rank_arrangements(
         cfg, shape, sp, batch=max(shape.global_batch // data, 1),
-        cluster=cluster)
+        cluster=cluster, arrangements=arrangements,
+        overlap_frac=overlap_frac)
     cands = list(ranking[:top_k])
     if ranking[-1] not in cands:
         cands.append(ranking[-1])   # anchor: the analytical worst
 
+    runs = []                       # (ranking entry, chunks, plan)
+    for entry in cands:
+        arr: cost.Arrangement = entry["arrangement"]
+        for n_chunks in dict.fromkeys(comm_chunk_grid):
+            s_team = arr.c * shape.seq_len // sp
+            if arr.scheme == "ulysses" and n_chunks > 1:
+                continue            # no ring to chunk
+            if n_chunks > 1 and s_team % n_chunks:
+                continue
+            try:
+                plan = make_plan(
+                    cfg, shape, arch=arch, n_devices=n_devices, data=data,
+                    scheme=arr.scheme, c=arr.c,
+                    placement=arr.placement if arr.c > 1 else None,
+                    microbatches=microbatches, mesh_kind=mesh_kind,
+                    comm_chunks=n_chunks, overlap_frac=overlap_frac,
+                    cluster=cluster)
+            except ValueError:
+                continue
+            plan.check_runnable()   # before the model takes the card
+            runs.append((entry, n_chunks, plan))
+
     model = build_model(cfg, device=device, seed=seed)
     init = [t.detach().clone() for t in model.parameters()]
     measured: List[Dict[str, object]] = []
-    for entry in cands:
-        arr: cost.Arrangement = entry["arrangement"]
-        try:
-            plan = make_plan(
-                cfg, shape, arch=arch, n_devices=n_devices, data=data,
-                scheme=arr.scheme, c=arr.c,
-                placement=arr.placement if arr.c > 1 else None,
-                microbatches=microbatches, comm_chunks=1, cluster=cluster)
-        except ValueError:
-            continue
+    for entry, n_chunks, plan in runs:
         with torch.no_grad():
             for t, t0 in zip(model.parameters(), init):
                 t.copy_(t0)
         t = measure_plan(model, plan, steps=steps, warmup=warmup)
-        measured.append({"arrangement": arr, "plan": plan,
-                         "comm_chunks": plan.comm_chunks, "measured_s": t,
+        measured.append({"arrangement": entry["arrangement"], "plan": plan,
+                         "comm_chunks": n_chunks, "measured_s": t,
                          "analytical_s": entry["total_s"]})
         # the step, its optimizer state and mesh went out of scope: free
         # them before the next candidate builds its own
@@ -137,6 +159,7 @@ def autotune(cfg: ModelConfig, shape: ShapeConfig, *, arch: str,
                       "comm_chunks": e["comm_chunks"],
                       "measured_s": e["measured_s"],
                       "analytical_s": e["analytical_s"]} for e in measured],
+        "overlap_frac": overlap_frac,
         "analytical": [{"arrangement": e["arrangement"].key,
                         "total_s": e["total_s"],
                         "volumes": e["volumes"]} for e in ranking],

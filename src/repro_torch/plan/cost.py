@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import scheduler as sch
@@ -159,17 +159,22 @@ def _workload(cfg: ModelConfig, shape: ShapeConfig,
 
 def arrangement_time(cfg: ModelConfig, shape: ShapeConfig, sp: int,
                      arr: Arrangement, *, batch: Optional[int] = None,
-                     cluster: Optional[sch.ClusterModel] = None) -> float:
+                     cluster: Optional[sch.ClusterModel] = None,
+                     overlap_frac: float = 1.0,
+                     comm_chunks: int = 1) -> float:
     """Estimated seconds for one attention layer under ``arr``: the ring
-    schemes through ``core.scheduler.attention_step_cost`` (whole
-    transfers, overlap fraction 1.0), Ulysses as compute plus its
+    schemes through ``core.scheduler.attention_step_cost`` at
+    ``overlap_frac`` (the share of each ring transfer the block kernels
+    hide; pass the measured one from ``obs.commlog.overlap_report``) and
+    ``comm_chunks`` sub-chunks a transfer, Ulysses as compute plus its
     all-to-alls."""
     b = shape.global_batch if batch is None else batch
     w = _workload(cfg, shape, b)
     cl = cluster or sch.ClusterModel(sp_size=sp)
     if arr.scheme in ("ring", "startrail"):
-        return sch.attention_step_cost(w, cl, arr.c,
-                                       arr.placement)["total_s"]
+        return sch.attention_step_cost(
+            w, cl, arr.c, arr.placement, overlap_frac=overlap_frac,
+            comm_chunks=comm_chunks)["total_s"]
     # Ulysses: fully-local attention between two all-to-all pairs; the
     # all-to-alls cannot overlap with the attention itself.
     vols = comm_volumes(cfg, shape, sp, arr, batch=b,
@@ -184,17 +189,25 @@ def arrangement_time(cfg: ModelConfig, shape: ShapeConfig, sp: int,
 def rank_arrangements(cfg: ModelConfig, shape: ShapeConfig, sp: int, *,
                       batch: Optional[int] = None,
                       cluster: Optional[sch.ClusterModel] = None,
+                      arrangements: Optional[Sequence[Arrangement]] = None,
+                      overlap_frac: float = 1.0,
+                      comm_chunks: int = 1,
                       ) -> List[Dict[str, object]]:
-    """All legal arrangements priced and sorted fastest-first.
+    """All legal arrangements (or ``arrangements``) priced and sorted
+    fastest-first, the ring schemes at ``overlap_frac`` and
+    ``comm_chunks`` (``arrangement_time``).
 
     Each entry: {"arrangement": Arrangement, "total_s": float,
     "volumes": per-layer byte breakdown, "model_s": whole-model estimate}.
     """
+    cands = list(arrangements) if arrangements is not None \
+        else enumerate_arrangements(cfg, sp)
     n_attn = max(num_attention_layers(cfg), 1)
     out = []
-    for arr in enumerate_arrangements(cfg, sp):
+    for arr in cands:
         t = arrangement_time(cfg, shape, sp, arr, batch=batch,
-                             cluster=cluster)
+                             cluster=cluster, overlap_frac=overlap_frac,
+                             comm_chunks=comm_chunks)
         out.append({
             "arrangement": arr,
             "total_s": t,
@@ -207,22 +220,25 @@ def rank_arrangements(cfg: ModelConfig, shape: ShapeConfig, sp: int, *,
 
 def choose_comm_chunks(cfg: ModelConfig, shape: ShapeConfig, sp: int,
                        arr: Arrangement, *, batch: Optional[int] = None,
-                       cluster: Optional[sch.ClusterModel] = None) -> int:
+                       cluster: Optional[sch.ClusterModel] = None,
+                       overlap_frac: float = 1.0,
+                       grid: Sequence[int] = (1, 2, 4)) -> int:
     """Resolve the ring-transfer sub-chunk count for one arrangement.
 
-    Argmin of the overlap model over (1, 2, 4), constrained to chunk
-    counts that divide the per-device team sequence length (c * N / P, the
-    axis ``core.startrail._chunked_ppermute`` splits). Non-ring schemes have no transfers to
-    chunk -> 1.
+    Argmin of the overlap model at ``overlap_frac`` over ``grid``,
+    constrained to chunk counts that divide the per-device team sequence
+    length (c * N / P, the axis ``core.startrail._RingTransfer`` splits).
+    Non-ring schemes have no transfers to chunk -> 1.
     """
     if arr.scheme not in ("ring", "startrail"):
         return 1
     s_team = arr.c * shape.seq_len // sp
-    legal = tuple(n for n in (1, 2, 4) if s_team % n == 0) or (1,)
+    legal = tuple(n for n in grid if n >= 1 and s_team % n == 0) or (1,)
     b = shape.global_batch if batch is None else batch
     w = _workload(cfg, shape, b)
     cl = cluster or sch.ClusterModel(sp_size=sp)
-    return sch.choose_comm_chunks(w, cl, arr.c, arr.placement, grid=legal)
+    return sch.choose_comm_chunks(w, cl, arr.c, arr.placement,
+                                  overlap_frac=overlap_frac, grid=legal)
 
 
 # ---------------------------------------------------------------------------

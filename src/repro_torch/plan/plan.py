@@ -93,8 +93,8 @@ class ExecutionPlan:
     # rings, layers and chunk loops are Python loops, which a trace (and
     # the profiler) sees every iteration of
     unroll_scans: bool = False
-    # the JAX ring's issue order; both orders give the same bits on a
-    # ThreadMesh, whose collectives are synchronous
+    # the ring's issue order (core/startrail.py): each transfer before the
+    # block kernel that does not need it; both orders give the same bits
     pipeline_scan: bool = True
 
     @property
@@ -217,7 +217,7 @@ class ExecutionPlan:
             block_impl=self.block_impl, kernel_impl=self.kernel_impl,
             block_skip=self.block_skip, remat=self.remat,
             grad_compression=self.grad_compression,
-            comm_chunks=self.comm_chunks,
+            comm_chunks=self.comm_chunks, pipeline_scan=self.pipeline_scan,
             sharding_rules=self.sharding_rules, multi_pod=self.pod > 1)
 
     def build_mesh(self):
@@ -283,7 +283,8 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
               remat: str = "attn_out", grad_compression: str = "none",
               comm_chunks: Optional[int] = None,
               sharding_rules: str = "default", pod: int = 1,
-              mesh_kind: str = "local",
+              mesh_kind: str = "local", pipeline_scan: bool = True,
+              overlap_frac: float = 1.0,
               cluster: Optional[ClusterModel] = None
               ) -> ExecutionPlan:
     """Resolve one training run into a validated ExecutionPlan.
@@ -294,7 +295,11 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
     knobs left as None are the model's pick, an explicit illegal one
     raises (``scheme='ulysses'`` where the head counts do not divide P, a
     C with P % C^2 != 0). ``placement`` only filters C > 1. Unset
-    ``comm_chunks`` resolves through ``cost.choose_comm_chunks``.
+    ``comm_chunks`` resolves through ``cost.choose_comm_chunks`` at
+    ``overlap_frac``, the share of each ring transfer the block kernels
+    hide (the model's 1.0 by default; pass a measured one from
+    ``obs.commlog.overlap_report``). ``pipeline_scan`` is the ring's issue
+    order (``core.startrail``), on by default as in the JAX package.
     ``microbatches=None`` means 1, as on the JAX local
     mesh (a ``ThreadMesh`` is its counterpart), and on a production
     training plan ``cost.choose_microbatches``'s pick against the card's
@@ -309,8 +314,8 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
     ``sharding_rules`` to 'default'. ``pod`` and ``mesh_kind`` fill the
     JAX plan's mesh face: a plan with ``pod > 1`` or
     ``mesh_kind='production'`` is traced by ``launch.dryrun`` and refused
-    by the runnable paths (ROADMAP.md §A item 1). ``unroll_scans`` and
-    ``pipeline_scan`` keep the JAX defaults.
+    by the runnable paths (ROADMAP.md §A item 1). ``unroll_scans`` keeps
+    the JAX default.
     """
     dp = pod * data
     if n_devices % dp:
@@ -352,7 +357,8 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
                 cfg, shape, dp=dp, sp=sp, c=picked.c, remat=remat)
     if comm_chunks is None:
         comm_chunks = cost.choose_comm_chunks(
-            cfg, shape, sp, picked, batch=batch, cluster=cluster)
+            cfg, shape, sp, picked, batch=batch, cluster=cluster,
+            overlap_frac=overlap_frac)
     return ExecutionPlan(
         arch=arch or cfg.name, seq_len=shape.seq_len, n_devices=n_devices,
         data=data, c=picked.c,
@@ -364,7 +370,7 @@ def make_plan(cfg: ModelConfig, shape: ShapeConfig, *,
         scheme=picked.scheme, seq_scheme=seq_scheme, remat=remat,
         microbatches=microbatches, comm_chunks=comm_chunks,
         grad_compression=grad_compression, sharding_rules=sharding_rules,
-        pod=pod, mesh_kind=mesh_kind)
+        pod=pod, mesh_kind=mesh_kind, pipeline_scan=pipeline_scan)
 
 
 def make_serve_plan(cfg: ModelConfig, *, arch: Optional[str] = None,

@@ -50,12 +50,13 @@ quantises the global array).
 
 ``attention_scheme`` selects the runtime's attention: 'startrail' and
 'ring' (its C = 1 point) run ``core.startrail`` with the plan's
-``comm_chunks``; 'ulysses' runs ``core.ulysses`` on
-the layers whose head counts divide P.
+``comm_chunks`` and issue order (``pipeline_scan``); 'ulysses' runs
+``core.ulysses`` on the layers whose head counts divide P.
 
 Not ported yet, and raising with its ROADMAP.md item: ``multi_pod`` (§A
-item 1). Ranks on several cards wait for the multi-process communicator
-(the main path).
+item 1's NCCL half). Ranks on several cards wait for the multi-process
+communicator (the main path); the ring's pipelined issue order, item 1's
+overlap half, runs on one card's ``ThreadMesh`` (``pipeline_scan``).
 """
 
 from __future__ import annotations
@@ -102,6 +103,7 @@ def make_runtime(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
         block_skip=run_cfg.block_skip or (cfg.window is not None
                                           and scheme == "contiguous"),
         comm_chunks=run_cfg.comm_chunks,
+        pipeline=run_cfg.pipeline_scan,
     )
     comm = comm or SingleComm()
     # 'ring' is the C = 1 StarTrail config; 'ulysses' dispatches per layer

@@ -2071,3 +2071,135 @@ def test_dry_run_predicts_the_train_step(cuda_device):
     torch.cuda.synchronize()
     ratio = mem["peak_bytes_per_device"] / torch.cuda.max_memory_allocated()
     assert 0.5 <= ratio <= 2.0, ratio
+
+
+@pytest.mark.gpu
+def test_pipelined_ring_is_bitexact_on_the_card(cuda_device):
+    """``chip_smoke.py``'s ring shape (P = 8 as ``ThreadMesh(2, 2)``
+    threads, N = 2048, 32q/8kv heads of 80, bf16, causal, window 1024):
+    every rank's explicit forward and backward with the pipelined issue
+    order (the copies on the ranks' comm streams, each started before the
+    block kernel that does not need it) equal the unpipelined ones bit for
+    bit, and each order launches B2 and B3 once a ring step of a rank."""
+    from repro_torch.dist.comm import ThreadMesh
+
+    n, c, r = 2048, 2, 2
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    q, k, v, do = (torch.randn((1, n, h, 80), generator=g,
+                               device=cuda_device).bfloat16()
+                   for h in (32, 8, 8, 32))
+    out = {}
+    for pipeline in (True, False):
+        cfg = st_torch.StarTrailConfig(seq_len=n, window=1024,
+                                       block_impl="cuda", pipeline=pipeline)
+
+        def rank_fn(comm):
+            gi, ji, ti = (comm.axis_index(a) for a in cfg.axes)
+            pos = st_torch.shard_positions((gi * r + ji) * c + ti, n,
+                                           c * c * r, "zigzag")
+            pos = pos.to(cuda_device)
+            o, res = st_torch.startrail_forward(
+                *(t[:, pos].contiguous() for t in (q, k, v)), cfg, comm)
+            return (o,) + tuple(st_torch.startrail_backward(
+                res, o, do[:, pos].contiguous(), cfg, comm))
+
+        flash_attention.reset_launches()
+        out[pipeline] = ThreadMesh(c, r).run(rank_fn, timeout=300)
+        torch.cuda.synchronize()
+        assert flash_attention.LAUNCHES == {"B1": 0, "B2": 8 * r,
+                                            "B3": 8 * r}
+    for a, b in zip(out[True], out[False]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_ppermute_start_outlives_the_senders_tensor(cuda_device):
+    """The stream hazard the split-phase ppermute guards against: each
+    rank's comm stream is held ~25 ms by a device sleep, so its copy runs
+    late; meanwhile the sender drops its tensor (its slot taken by a second
+    transfer), allocates the same size and overwrites it on the compute
+    stream. The received values are still the sent ones: ``record_stream``
+    keeps the block from the allocator until the copy has run."""
+    from repro_torch.dist.comm import ThreadMesh
+
+    perm = [(0, 1), (1, 0)]
+
+    n = 1 << 20
+
+    def rank_fn(comm, hold):
+        stream = comm.comm_stream(cuda_device)
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(hold)
+        x = torch.full((n,), float(comm.rank + 1), device=cuda_device)
+        h = comm.ppermute_start(x, "sp_ring", perm)
+        h2 = comm.ppermute_start(torch.zeros(4, device=cuda_device),
+                                 "sp_ring", perm)
+        del x
+        # enough blocks of x's size that the allocator would hand x's out
+        ys = [torch.empty((n,), device=cuda_device).fill_(-7.0)
+              for _ in range(32)]
+        pending = not stream.query()
+        got = h.wait()
+        h2.wait()
+        return got.clone(), ys, pending
+
+    mesh = ThreadMesh(1, 2)
+    # a first round loads every kernel and caches the blocks: a first
+    # launch (lazy module loading) or a cudaMalloc waits for the device
+    # and would close the window the second round needs
+    mesh.run(lambda comm: rank_fn(comm, 0), timeout=60)
+    torch.cuda.synchronize()
+    res = mesh.run(lambda comm: rank_fn(comm, 100_000_000), timeout=60)
+    torch.cuda.synchronize()
+    for rank, (got, ys, pending) in enumerate(res):
+        assert pending, "the copy ran before the overwrites: no hazard made"
+        assert bool((got == float(2 - rank)).all()), rank
+        assert all(bool((y == -7.0).all()) for y in ys)
+
+
+@pytest.mark.gpu
+def test_overlap_report_times_the_copies_on_the_card(cuda_device):
+    """``overlap_report`` on the card (smoke h2o, P = 8 at (2, 2)): the
+    issue-log counts of the CPU run, and a timed fraction in [0, 1] from
+    the comm streams' device-to-device copies."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.obs import commlog
+    from repro_torch.plan import make_plan
+
+    cfg = dataclasses.replace(registry.get_smoke("h2o-danube-1.8b"),
+                              head_dim=32)
+    plan = make_plan(cfg, ShapeConfig("t", 256, 1, "train"), n_devices=8,
+                     c=2, comm_chunks=1)
+    rep = commlog.overlap_report(cfg, plan, device=cuda_device)
+    cpu = commlog.overlap_report(cfg, plan, device="cpu")
+    for key in ("overlap_fraction", "dots_total", "permutes_total",
+                "permutes_with_overlap_window", "backward"):
+        assert rep[key] == cpu[key], key
+    for timed in (rep["timed"], rep["timed_queued"]):
+        assert timed["copies"] > 0 and timed["copy_ms"] > 0
+        assert 0.0 <= timed["timed_overlap_fraction"] <= 1.0
+    assert rep["timed_queued"]["host_ahead"]
+    assert cpu["timed"] is None and cpu["timed_queued"] is None
+
+
+@pytest.mark.gpu
+def test_ring_issues_without_a_host_sync(cuda_device):
+    """The ring's forward and backward (P = 1 here) issue their work and
+    return while a device sleep queued before them still runs: no call on
+    the path waits for the device (a blocking copy of the positions would
+    synchronise the stream at every ring step, and the comm streams'
+    copies could never run beside a block kernel)."""
+    from repro_torch.dist.comm import SingleComm
+
+    cfg = st_torch.StarTrailConfig(seq_len=1024, block_impl="cuda")
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v, do = (torch.randn((1, 1024, h, 80), generator=g,
+                               device=cuda_device).bfloat16()
+                   for h in (8, 2, 2, 8))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(400_000_000)          # cycles, ~0.2 s
+    o, res = st_torch.startrail_forward(q, k, v, cfg, SingleComm())
+    st_torch.startrail_backward(res, o, do, cfg, SingleComm())
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()

@@ -435,9 +435,10 @@ def test_autotune_record_matches_jax(tmp_path, monkeypatch):
     rec = json.loads(got["path"].read_text())
     rec_j = json.loads(want["path"].read_text())
     assert got["path"] == plan_path(tmp_path / "port", ARCH, "smoke")
-    # JAX's record also holds the overlap fraction its search was given;
-    # the port's search has none to give (the model's 1.0)
-    assert sorted(rec) == sorted(set(rec_j) - {"overlap_frac"})
+    # both records hold the overlap fraction the search was given (the
+    # model's 1.0 here)
+    assert sorted(rec) == sorted(rec_j)
+    assert rec["overlap_frac"] == rec_j["overlap_frac"] == 1.0
     _same(rec["analytical"], rec_j["analytical"], "analytical")
     assert sorted(m["arrangement"] for m in rec["measured"]) == \
         sorted(m["arrangement"] for m in rec_j["measured"])
