@@ -207,6 +207,28 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               gradient leaf, assembled whole from the unique shards, at
               P = 8 and at 2 data replicas of P = 4, under each of the
               'default', 'fsdp' and 'tp' rules, against P = 1
+ 13a. train_procs  train_sp's model and shape (4 layers, seq 4096, batch
+              1, bf16, ``attn_out``) at (data, C, R) = (1, 2, 1) as four
+              rank processes over gloo on the one card
+              (``dist.procs.ProcessMesh``, a ``dist.comm.ProcessComm``
+              each, each rank holding its shards alone): the fresh model's
+              loss and every gradient leaf against the ThreadMesh at the
+              same plan, seed and kernels (rel L2 within 2e-3, the worst
+              leaf printed), ``TRAIN_SP_STEPS`` trainer steps (B2 4 ranks
+              x 2 x 4 layers = 32 and B3 16 a step, summed over the
+              ranks; the loss must fall) whose last is checkpointed by
+              rank 0 and restored on the ThreadMesh's whole storage, bit
+              for bit against the ranks' shards; one more step under
+              ``torch.profiler`` in every process and on the threads:
+              wall, the card's busy ms (the union of every process's
+              device intervals), the host<->device copies, gloo's host
+              time, the signature check's calls and host time (and as
+              many exchanges in lockstep), the ledger bytes (equal to the
+              ThreadMesh's). Then NCCL: with a card a rank (4 cards: this
+              plan; 2 or 3: the ring at P = 2) the first step again over
+              NCCL against the ThreadMesh; on one card a line saying it
+              was not run. ``python3 chip_smoke.py --only train_procs``
+              runs the build and this phase alone
  14. schemes  the paper's comparison at the train_sp width (2 layers, seq 4096,
               batch 1, bf16, ``attn_out``, P = 8 ranks on the card) through
               ``trainer.train`` with the obs registry and tracer, 2 steps
@@ -526,7 +548,7 @@ The paths are phases 4, 4b's runs (overlap: each pipelined and
 unpipelined ring run; overlap_train: each train step's value and
 gradients; overlap_autotune: the search; overlap_autotune_plan: its
 plan's step), 4a, 5, 5a, 7, 8a, 8b, 8c's five runs (roomy,
-tier, tier-off, handoff, preempt), 9, 13, each scheme of 14, 15's search
+tier, tier-off, handoff, preempt), 9, 13, 13a, each scheme of 14, 15's search
 and its plan's step, 16's four runs, 17, 18's four in-process runs
 (gateway, gateway_disagg, frontend_ref, priority), 19's two steps
 (rules_fsdp, rules_tp), 20's three runs (moe_serve_phi, moe_legacy,
@@ -548,7 +570,9 @@ phase's mixed run; B1 in the local
 prefill; B1, B2, B4 and B6 in the prefix phase; B2 and B5 in the legacy
 phase; B1, B2, B4 and B6 in the host tier's roomy and tier runs and its
 preempt run, B2 and B4 in its tier-off run and its handoff run (the
-prefill and the decode engine); B2 and B3 in the train loop, in train_sp and in the ring and
+prefill and the decode engine); B2 and B3 in the train loop, in train_sp,
+in train_procs (summed over its rank processes, each counting its own)
+and in the ring and
 StarTrail schemes and under the fsdp and tp rules; B1 and B3 under
 Ulysses; B1, B2 and B3 in the
 autotune search, whose candidates are all four arrangements; B2 and B4
@@ -5288,6 +5312,399 @@ def phase_train_sp(dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 13a: the same training with each rank a process (gloo; NCCL where
+# the machine has a card for every rank)
+# ---------------------------------------------------------------------------
+
+# (data, C, R) = (1, 2, 1): P = 4 rank processes on the one card
+TRAIN_PROCS_C, TRAIN_PROCS_R = 2, 1
+# a gradient leaf against the ThreadMesh's: ROADMAP's tolerance for a
+# gradient, rel L2 (the loss: absolute)
+TRAIN_PROCS_TOL = {"grad_rel_l2": 2e-3, "loss_abs": 1e-2}
+TRAIN_PROCS_TIMEOUT = 300                      # s, a spawned run's limit
+
+
+def _train_procs_plan(n_devices, c):
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.plan import make_plan
+
+    cfg = dataclasses.replace(registry.get(ARCH),
+                              num_layers=TRAIN_SP_LAYERS)
+    shape = _train_shape(TRAIN_SEQ)
+    plan = make_plan(cfg, shape, arch=ARCH, n_devices=n_devices, c=c,
+                     scheme="startrail" if c > 1 else "ring",
+                     placement="team_inner", comm_chunks=1)
+    return cfg, shape, plan
+
+
+def _rank_batch(cfg, shape, plan, dev):
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.train import step as train_step
+
+    data = RepeatBatch(SyntheticLM(cfg, shape, seed=0,
+                                   seq_scheme=plan.seq_scheme,
+                                   sp_size=plan.sp_size))
+    return data, train_step.to_device(data.get_batch(0), dev)
+
+
+def _procs_first_step(comm, cfg, shape, plan, model, batch):
+    """The fresh model's loss and its owned shards' reduced gradients (on
+    the host), with the ledger of that value_and_grad."""
+    from repro_torch.train import step as train_step
+
+    vg_fn, rt = train_step.build_value_and_grad_fn(
+        model, plan.run_config(), shape, comm)
+    comm.reset_ledgers()
+    loss, grads = vg_fn(train_step.shard_batch(batch, rt), owned_only=True)
+    owned = {i: g.cpu() for i, g in enumerate(grads) if g is not None}
+    return float(loss), owned, comm.ledger.snapshot()
+
+
+def _train_procs_rank(comm, cfg, plan, ckpt_dir, metrics_path):
+    """One rank process of train_procs (``phase_train_procs``): the whole
+    model drawn on the host from seed 0, this rank's shards kept on the
+    card; the fresh model's first value and gradients; the trainer's
+    ``TRAIN_SP_STEPS`` steps, checkpointing the last (counted launches);
+    then one more step under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.factory import build_model, rank_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    shape = plan.shape_config()
+    model = rank_model(build_model(cfg, device="cpu", seed=0), comm,
+                       plan.sharding_rules, dev)
+    data, batch = _rank_batch(cfg, shape, plan, dev)
+    setup_s = time.perf_counter() - t0
+    loss, owned, ledger_vg = _procs_first_step(comm, cfg, shape, plan,
+                                               model, batch)
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0,
+                             state_dtype=cfg.opt_dtype)
+    counts = reset_counts()
+    t0 = time.perf_counter()
+    trainer.train(model, plan, adam, trainer.TrainerConfig(
+        num_steps=TRAIN_SP_STEPS, ckpt_every=TRAIN_SP_STEPS,
+        ckpt_dir=ckpt_dir, log_every=TRAIN_SP_STEPS,
+        metrics_path=metrics_path if comm.rank == 0 else None),
+        data_source=data, device=dev, comm=comm)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = read_counts(counts)
+    params = list(model.parameters())
+    trained = {i: params[i].detach().cpu() for i in owned}
+    # one more step, profiled: device ms, wall, the signature check's cost
+    # and the step's ledger
+    step_fn, sh = plan.build_train_step(model, adam, comm)
+    opt = adamw.init_state(sh["params"], adam)
+    comm.reset_ledgers()
+    sig_s, sig_calls = comm.signature_s, comm.signature_calls
+    torch.cuda.synchronize()
+    comm.agree(0)                          # the ranks start the step together
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    sig_s = comm.signature_s - sig_s
+    sig_calls = comm.signature_calls - sig_calls
+    # the signature exchange alone, the ranks in lockstep: as many world
+    # all-gathers of one int64 as the step made signature checks
+    comm.agree(0)
+    t0 = time.perf_counter()
+    for _ in range(sig_calls):
+        comm.agree(0)
+    lockstep_s = time.perf_counter() - t0
+    return dict(
+        rank=comm.rank, loss=loss, grads=owned, blocks=model.held["blocks"],
+        ledger_vg=ledger_vg, ledger_step=comm.ledger.snapshot(),
+        launches=launches, trained=trained, setup_s=setup_s,
+        train_s=train_s, wall_s=wall, **_step_profile(prof),
+        signature_s=sig_s, signature_calls=sig_calls,
+        signature_lockstep_s=lockstep_s,
+        max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+
+
+def _step_profile(prof):
+    """A profiled step's device events as (start, end) ns intervals (one
+    host clock for every process), its device ms, the host<->device
+    copies' share of them, and the host ms in gloo's calls."""
+    import numpy as np
+    import torch
+
+    spans, device_ms, copy_ms, gloo = [], 0.0, 0.0, {}
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() == torch.autograd.DeviceType.CUDA:
+            spans.append((evt.start_ns(), evt.end_ns()))
+            device_ms += evt.duration_ns() / 1e6
+            if evt.name().startswith("Memcpy"):
+                copy_ms += evt.duration_ns() / 1e6
+        elif evt.name().startswith("gloo:"):
+            gloo[evt.name()] = (gloo.get(evt.name(), 0.0)
+                                + evt.duration_ns() / 1e6)
+    spans = np.asarray(spans, dtype=np.int64).reshape(-1, 2)
+    return dict(device_spans=spans, device_ms=device_ms, copy_ms=copy_ms,
+                gloo_host_ms=gloo)
+
+
+def _busy_ms(spans):
+    """The length of the union of (start, end) ns intervals, in ms: the
+    card's busy time, however many processes' kernels it ran."""
+    import numpy as np
+
+    spans = np.concatenate(spans) if spans else np.zeros((0, 2), np.int64)
+    busy, end = 0, None
+    for a, b in spans[np.argsort(spans[:, 0])]:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e6
+
+
+def _assemble_owned(results, shapes):
+    """Whole leaves (host) from every rank's owned shards."""
+    import torch
+
+    whole = [None] * len(shapes)
+    for res in results:
+        for i, g in res["grads"].items():
+            if whole[i] is None:
+                whole[i] = torch.empty(shapes[i], dtype=g.dtype)
+            whole[i][res["blocks"][i]] = g
+    check(all(w is not None for w in whole),
+          "train_procs: some gradient leaf has no owner")
+    return whole
+
+
+def _leaf_rel_l2(names, got, want):
+    """Each leaf's ||got - want|| / ||want|| in f64 (on the card)."""
+    import torch
+
+    out = {}
+    for n, a, b in zip(names, got, want):
+        b = b.double()
+        a = a.to(b.device).double()
+        out[n] = float(torch.linalg.vector_norm(a - b)
+                       / torch.linalg.vector_norm(b).clamp_min(1e-30))
+    return out
+
+
+def _thread_first_step(model, plan, shape, batch, mesh):
+    from repro_torch.train import step as train_step
+
+    mesh.reset_ledgers()
+    vg = train_step.build_mesh_value_and_grad_fn(
+        model, plan.run_config(), shape, mesh, timeout=TRAIN_SP_TIMEOUT)
+    loss, grads = vg(batch)
+    return float(loss), grads, [led.snapshot() for led in mesh.ledgers]
+
+
+def _procs_run(backend, cfg, plan, tmp):
+    """``_train_procs_rank`` on every rank process over ``backend``:
+    (each rank's result, rank 0's metrics records, the run's seconds,
+    the checkpoint's directory)."""
+    from repro_torch.dist.procs import ProcessMesh
+
+    ckpt = os.path.join(tmp, f"ckpt_{backend}")
+    metrics_path = os.path.join(tmp, f"metrics_{backend}.jsonl")
+    t0 = time.perf_counter()
+    got = ProcessMesh(plan.c, plan.r, plan.data, plan.placement,
+                      backend=backend, timeout=TRAIN_SP_TIMEOUT).run(
+        _train_procs_rank, cfg, plan, ckpt, metrics_path,
+        timeout=TRAIN_PROCS_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    with open(metrics_path) as f:
+        recs = [json.loads(line) for line in f]
+    return got, recs, seconds, ckpt
+
+
+def _threads_reference(cfg, shape, plan, dev, tmp):
+    """The ThreadMesh at the same plan, seed and kernels: the first
+    step's loss, gradients and ledgers; ``TRAIN_SP_STEPS`` trainer steps'
+    records; one more step profiled, with its ledgers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.dist.comm import ThreadMesh
+    from repro_torch.models.factory import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+
+    model = build_model(cfg, device="cpu", seed=0).to(dev)
+    data, batch = _rank_batch(cfg, shape, plan, dev)
+    out = {"names": [n for n, _ in model.named_parameters()],
+           "shapes": [tuple(q.shape) for q in model.parameters()]}
+    out["loss"], out["grads"], out["ledgers_vg"] = _thread_first_step(
+        model, plan, shape, batch, ThreadMesh(plan.c, plan.r, plan.data))
+    adam = adamw.AdamWConfig(learning_rate=1e-3, warmup_steps=0,
+                             state_dtype=cfg.opt_dtype)
+    path = os.path.join(tmp, "metrics_threads.jsonl")
+    t0 = time.perf_counter()
+    trainer.train(model, plan, adam, trainer.TrainerConfig(
+        num_steps=TRAIN_SP_STEPS, log_every=TRAIN_SP_STEPS,
+        metrics_path=path), data_source=data, device=dev)
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    with open(path) as f:
+        out["recs"] = [json.loads(line) for line in f]
+    step_fn, sh = plan.build_train_step(model, adam)
+    opt = adamw.init_state(sh["params"], adam)
+    sh["comm"].reset_ledgers()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(opt, batch)
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+    out["profile"] = _step_profile(prof)
+    out["ledgers_step"] = [led.snapshot() for led in sh["comm"].ledgers]
+    return out
+
+
+def _procs_checks(backend, cfg, plan, run, ref, smi, t_phase):
+    """Hold one backend's rank processes against the ThreadMesh and emit
+    their line; returns the launches summed over the ranks."""
+    import math
+
+    import torch
+
+    from repro_torch.models.factory import Model
+    from repro_torch.models.spec import DTYPES
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer
+
+    got, recs, procs_s, ckpt = run
+    name = "train_procs" if backend == "gloo" else "train_procs_nccl"
+    rel = _leaf_rel_l2(ref["names"], _assemble_owned(got, ref["shapes"]),
+                       ref["grads"])
+    worst = max(rel, key=rel.get)
+    loss_err = abs(got[0]["loss"] - ref["loss"])
+    check(rel[worst] <= TRAIN_PROCS_TOL["grad_rel_l2"]
+          and loss_err <= TRAIN_PROCS_TOL["loss_abs"],
+          f"{name} first step: loss {got[0]['loss']} vs threads "
+          f"{ref['loss']}, worst leaf {worst} rel L2 {rel[worst]}, beyond "
+          f"{TRAIN_PROCS_TOL}")
+    check([g["ledger_vg"] for g in got] == ref["ledgers_vg"]
+          and [g["ledger_step"] for g in got] == ref["ledgers_step"],
+          f"{name}: the ledgers of the first value and gradients or of a "
+          f"train step differ from the ThreadMesh's")
+    losses = [rec["loss"] for rec in recs]
+    check(len(losses) == TRAIN_SP_STEPS
+          and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0],
+          f"{name} losses {losses}: want {TRAIN_SP_STEPS} finite, falling "
+          f"over one repeated batch")
+    # the processes' checkpoint, restored on the ThreadMesh's storage
+    t0 = time.perf_counter()
+    whole = Model(cfg, lambda sp: torch.empty(
+        sp.shape, dtype=DTYPES[sp.dtype or cfg.param_dtype]))
+    params = list(whole.parameters())
+    step = trainer.restore_latest(ckpt, whole, ref["names"], adamw.init_state(
+        params, adamw.AdamWConfig(state_dtype=cfg.opt_dtype)))
+    restore_s = time.perf_counter() - t0
+    same = all(torch.equal(g["trained"][i], params[i][g["blocks"][i]])
+               for g in got for i in g["trained"])
+    check(step == TRAIN_SP_STEPS and same,
+          f"{name} checkpoint: step {step}, the restored leaves equal the "
+          f"ranks' trained shards: {same}")
+    launches = {k: sum(g["launches"][k] for g in got) for k in KERNELS}
+    p, L = plan.sp_size * plan.data, cfg.num_layers
+    per_step = launches_of(B2=p * plan.r * 2 * L, B3=p * plan.r * L)
+    want = {k: v * TRAIN_SP_STEPS for k, v in per_step.items()}
+    check(launches == want, f"{name} launches {launches}: want {want}")
+    wall = max(g["wall_s"] for g in got)
+    busy = _busy_ms([g["device_spans"] for g in got])
+    t_busy = _busy_ms([ref["profile"]["device_spans"]])
+    emit(name, run=True, model=cfg.name, layers=L,
+         shape={"seq_len": plan.seq_len, "batch": plan.global_batch},
+         plan={"data": plan.data, "C": plan.c, "R": plan.r,
+               "P_sp": plan.sp_size, "remat": plan.remat,
+               "rules": plan.sharding_rules},
+         backend=backend, ranks=p, cards=torch.cuda.device_count(),
+         first_step={"loss_procs": got[0]["loss"],
+                     "loss_threads": ref["loss"], "loss_abs_err": loss_err,
+                     "worst_leaf": worst, "worst_rel_l2": rel[worst],
+                     "bit_equal": all(v == 0.0 for v in rel.values()),
+                     "tol": TRAIN_PROCS_TOL},
+         losses={"procs": losses,
+                 "threads": [x["loss"] for x in ref["recs"]]},
+         step_s={"procs": [x["step_s"] for x in recs],
+                 "threads": [x["step_s"] for x in ref["recs"]]},
+         profiled_step={
+             "procs": {"wall_s": wall, "device_busy_ms": busy,
+                       "idle_share": 1 - busy / (1e3 * wall),
+                       "device_ms_by_rank": [g["device_ms"] for g in got],
+                       "copy_ms_by_rank": [g["copy_ms"] for g in got],
+                       "gloo_host_ms_rank0": got[0]["gloo_host_ms"]},
+             "threads": {"wall_s": ref["wall_s"], "device_busy_ms": t_busy,
+                         "idle_share": 1 - t_busy / (1e3 * ref["wall_s"]),
+                         "copy_ms": ref["profile"]["copy_ms"]}},
+         signature_check={
+             "calls_per_step": got[0]["signature_calls"],
+             "host_s_per_step_by_rank": [g["signature_s"] for g in got],
+             "lockstep_s_for_as_many_by_rank": [g["signature_lockstep_s"]
+                                                for g in got]},
+         ledger_bytes_equal=True, ledger_step_rank0=got[0]["ledger_step"],
+         checkpoint={"bit_equal": True, "restore_s": restore_s},
+         launches_per_step=per_step, launches=launches,
+         seconds_split={"procs_run": procs_s,
+                        "rank_setup": max(g["setup_s"] for g in got),
+                        "rank_train": max(g["train_s"] for g in got),
+                        "threads_train": ref["train_s"]},
+         max_memory_allocated_by_rank=[g["max_memory_allocated"]
+                                       for g in got],
+         phase_s=time.perf_counter() - t_phase, card=smi)
+    return launches
+
+
+def phase_train_procs(dev, smi):
+    """Phase 13a (module doc): train_sp's model and shape at (data, C, R) =
+    (1, 2, 1) as four rank processes, over gloo on the one card (and over
+    NCCL where the machine has a card for each rank), against the
+    ThreadMesh at the same plan, seed and kernels. Returns each backend's
+    launches."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    c, r = TRAIN_PROCS_C, TRAIN_PROCS_R
+    p = c * c * r
+    cfg, shape, plan = _train_procs_plan(p, c)
+    check((plan.sp_size, plan.data, plan.r, plan.remat)
+          == (p, 1, r, "attn_out"), f"train_procs plan {plan}")
+    cards = torch.cuda.device_count()
+    backends = ("gloo", "nccl") if cards >= p else ("gloo",)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {b: _procs_run(b, cfg, plan, tmp) for b in backends}
+        ref = _threads_reference(cfg, shape, plan, dev, tmp)
+        free_device()
+        for b in backends:
+            out[b] = _procs_checks(b, cfg, plan, runs[b], ref, smi, t_phase)
+            runs[b] = None
+    if "nccl" not in backends:
+        emit("train_procs_nccl", run=False, cards=cards,
+             reason=f"NCCL across rank processes was not run: this machine "
+                    f"has {cards} card(s), and NCCL takes one card for each "
+                    f"of the plan's {p} ranks (a stated gap, not a caught "
+                    f"failure)", card=smi)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 14: the paper's baselines and StarTrail's chunked ring
 # ---------------------------------------------------------------------------
 
@@ -9356,6 +9773,11 @@ def phase_gpt3b_serve(dev, smi):
             "serve_page128": l128}
 
 
+# phases that ``python3 chip_smoke.py --only <name>`` runs alone after the
+# build (development runs, and train_procs on a machine of several cards)
+ALONE = {"train_procs": phase_train_procs}
+
+
 def free_device():
     import gc
 
@@ -9394,6 +9816,12 @@ def main():
         info = _build.build_info()
         emit("build", seconds=info["seconds"], built=info["built"],
              ptxas=info["ptxas"], hw=hw_table(), card=smi)
+        if sys.argv[1:2] == ["--only"]:
+            # a development run of one phase (not the contract's run)
+            ALONE[sys.argv[2]](dev, smi)
+            print(f"seconds {time.perf_counter() - t_start:.1f}")
+            print(smi)
+            return 0
         rows = phase_kernels(dev)
         free_device()
         phase_kernels_ulysses(dev, rows)
@@ -9426,6 +9854,11 @@ def main():
         by_path["dryrun"] = phase_dryrun(dev, smi)
         free_device()
         by_path["train_sp"] = phase_train_sp(dev, smi)
+        free_device()
+        procs = phase_train_procs(dev, smi)
+        by_path["train_procs"] = procs["gloo"]
+        if "nccl" in procs:
+            by_path["train_procs_nccl"] = procs["nccl"]
         free_device()
         by_path.update(phase_schemes(dev, smi))
         free_device()

@@ -22,6 +22,12 @@ it is complete: a crashed writer's ``.tmp`` is invisible to
 caller's thread and returns a started writer thread doing the disk I/O; it
 re-raises a failure at ``join()``. Join it before the next save to the
 same directory (``train/trainer.py`` does).
+
+Rank processes (``dist.comm.ProcessComm``) hold shards, and a checkpoint
+holds whole leaves, so one written under any mesh restores under any
+other: ``gather_leaves`` sends each leaf's unique shards from their owners
+to rank 0, which writes them; a restoring rank reads the whole leaves and
+keeps its blocks. ``agreed_step`` makes every rank restore the same step.
 """
 
 from __future__ import annotations
@@ -204,3 +210,49 @@ def latest_step(ckpt_dir: Union[str, pathlib.Path]) -> Optional[int]:
     """Highest completed checkpoint step in ``ckpt_dir`` (None if empty)."""
     steps = completed_steps(ckpt_dir)
     return max(steps) if steps else None
+
+
+def gather_leaves(comm, tensors, names, layouts, shapes
+                  ) -> Optional[List[torch.Tensor]]:
+    """The whole leaves, on rank 0 as CPU tensors (None on the other
+    ranks), from the shards ``tensors`` (named ``names``, stored under
+    ``layouts``, of whole shapes ``shapes``) that every rank of the
+    ``ProcessComm`` ``comm`` holds: each unique shard crosses once, from
+    its owner (``dist.sharding.owns``; rank 0 owns every shard it
+    holds)."""
+    from repro_torch.dist import sharding
+
+    points = [sharding.MeshPoint(comm.shape, comm.coords(q))
+              for q in range(comm.size)]
+    out = [] if comm.rank == 0 else None
+    for name, t in zip(names, tensors):
+        owners = [q for q in range(1, comm.size)
+                  if sharding.owns(layouts[name], points[q])]
+        if comm.rank == 0:
+            whole = torch.empty(shapes[name], dtype=t.dtype)
+            blocks = [sharding.shard_slices(shapes[name], layouts[name],
+                                            points[q], name)
+                      for q in [0] + owners]
+            got = comm.send_recv([], [(q, torch.empty(
+                whole[b].shape, dtype=t.dtype, device=comm.wire_device))
+                for q, b in zip(owners, blocks[1:])])
+            for b, g in zip(blocks, [t] + got):
+                whole[b] = g.cpu()
+            out.append(whole)
+        elif comm.rank in owners:
+            comm.send_recv([(0, t)], [])
+    return out
+
+
+def agreed_step(comm, *ckpt_dirs) -> Optional[int]:
+    """``latest_common_step`` of ``ckpt_dirs`` as every rank of ``comm``
+    sees it; ranks that see different steps (a checkpoint directory not
+    shared by every rank) raise."""
+    last = latest_common_step(*ckpt_dirs)
+    seen = comm.agree(-1 if last is None else last)
+    if len(set(seen)) > 1:
+        raise RuntimeError(
+            f"ranks see different checkpoint steps {seen} in "
+            f"{[str(d) for d in ckpt_dirs]}: every rank must read the "
+            "directory rank 0 writes")
+    return last

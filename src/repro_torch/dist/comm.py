@@ -27,7 +27,7 @@ order of the tuple, major to minor; over the SP axes that is grp-major and
 team-minor, the order of ``Runtime.sp_rank`` and
 ``core.topology.StarTrailTopology.rank``: ``rank = (g*R + j)*C + t``.
 
-Three implementations:
+Four implementations:
 
   SingleComm        P = 1: every collective is the identity (the engine and
                     the trainer on one card); any axis has size 1.
@@ -43,6 +43,14 @@ Three implementations:
                     in a trace on the meta device (``launch.dryrun``):
                     each collective returns a meta tensor of the shape
                     the real one gives and logs the op (below).
+  ProcessComm(c, r, data)  this process's rank of a mesh whose ranks are
+                    processes (``dist.procs`` launches them, or
+                    ``torchrun``), over ``torch.distributed``: gloo on the
+                    CPU or for several ranks on one card, NCCL for one
+                    rank per card. The ``ThreadMesh``'s coordinates,
+                    autograd rules, signature check and ledger; its
+                    reductions add in the same order, so both give the
+                    same bits (the class doc).
 
 The ``ThreadMesh`` collectives are differentiable, as the JAX ones are
 under ``shard_map(check_vma=False)``: each is a ``torch.autograd.Function``
@@ -122,15 +130,14 @@ start and wait, and the block-kernel calls and ring scopes that
 ``core.startrail`` notes, each with its pass (``obs.commlog.
 overlap_report`` reads the order). ``SingleComm`` and ``TraceComm`` keep
 none.
-
-The multi-process NCCL/gloo implementation, for ranks on several cards,
-waits for a cell with more than one card (ROADMAP.md, the main path).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
+import time
 from typing import Callable, Dict, List, Sequence, Tuple, Union
 
 import numpy as np
@@ -157,6 +164,7 @@ class CommLedger:
 
     def __init__(self):
         self.phase = "forward"
+        self._counting = True
         self.reset()
 
     def reset(self) -> None:
@@ -164,8 +172,22 @@ class CommLedger:
         self.calls = {ph: dict.fromkeys(WIRE_KINDS, 0) for ph in PASSES}
 
     def add(self, kind: str, nbytes: int) -> None:
-        self.bytes[self.phase][kind] += nbytes
-        self.calls[self.phase][kind] += 1
+        if self._counting:
+            self.bytes[self.phase][kind] += nbytes
+            self.calls[self.phase][kind] += 1
+
+    @contextlib.contextmanager
+    def uncounted(self):
+        """Leave the block's collectives out: bookkeeping that a
+        ``ThreadMesh`` reads from shared memory instead of the wire (the
+        optimizer's norm and int8-scale tables of ``train.step`` on a
+        ``ProcessComm``), so the ledgers of both communicators stay
+        comparable."""
+        prev, self._counting = self._counting, False
+        try:
+            yield self
+        finally:
+            self._counting = prev
 
     @contextlib.contextmanager
     def backward(self):
@@ -281,6 +303,20 @@ class SingleComm:
         return x
 
 
+def mesh_coords(c: int, r: int, data: int = 1,
+                placement: str = "team_inner") -> List[Dict[str, int]]:
+    """Every rank's coordinate on every mesh axis, in rank order: rank
+    ``i`` is data replica ``i // P`` (P = c*c*r) and, within it, SP member
+    ``i % P`` at the (g, j, t) that ``dist.meshes.refine_grid`` gives it
+    under ``placement`` (``ThreadMesh`` and ``ProcessComm`` alike)."""
+    sp_size = c * c * r
+    grid = refine_grid(np.arange(sp_size), c, placement)
+    sp_coords = {int(grid[g, j, t]): (g, j, t)
+                 for g in range(c) for j in range(r) for t in range(c)}
+    return [dict(zip(MESH_AXES, (d,) + sp_coords[q]))
+            for d in range(data) for q in range(sp_size)]
+
+
 class ThreadMesh:
     """data*c*c*r ranks run as threads of one process (see module doc).
 
@@ -305,11 +341,7 @@ class ThreadMesh:
         self.size = data * self.sp_size
         self.shape = {DATA_AXIS: data, SP_AXES[0]: c, SP_AXES[1]: r,
                       SP_AXES[2]: c}
-        grid = refine_grid(np.arange(self.sp_size), c, placement)
-        sp_coords = {int(grid[g, j, t]): (g, j, t)
-                     for g in range(c) for j in range(r) for t in range(c)}
-        self._coords = [dict(zip(MESH_AXES, (d,) + sp_coords[q]))
-                        for d in range(data) for q in range(self.sp_size)]
+        self._coords = mesh_coords(c, r, data, placement)
         self.ledgers = [CommLedger() for _ in range(self.size)]
         # each rank's comm stream per CUDA device (module doc)
         self.comm_streams: List[Dict[int, object]] = [
@@ -789,3 +821,457 @@ class TraceComm(_RankComm):
                 f"{op} carries no gradient: detach its input (the JAX "
                 "stop_gradient) instead of dropping the gradient silently")
         return self._result(op, x, axes, x.shape)
+
+
+# ---------------------------------------------------------------------------
+# ranks as processes: torch.distributed (gloo, NCCL)
+# ---------------------------------------------------------------------------
+
+_OPS = ("all_gather", "psum", "psum_scatter", "ppermute", "all_to_all",
+        "pmax", "pmin")
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64,
+           torch.int64, torch.int32, torch.int16, torch.int8, torch.uint8,
+           torch.bool)
+_SIG_DIMS = 8                     # shape entries a signature carries
+_SIG_LEN = 4 + _SIG_DIMS          # op, axes, ndim, dtype, then the shape
+
+
+def _signature(op: str, names: Tuple[str, ...], x) -> List[int]:
+    """(op, axes, shape, dtype) of a collective as ``_SIG_LEN`` ints: the
+    axes in their order as base-5 digits (1 + their ``MESH_AXES`` index),
+    the shape padded with -1."""
+    if x.dim() > _SIG_DIMS or x.dtype not in _DTYPES:
+        raise ValueError(f"{op}: no signature for a {x.dim()}-d {x.dtype} "
+                         f"tensor (at most {_SIG_DIMS} dims of "
+                         f"{[str(d) for d in _DTYPES]})")
+    axes = sum((MESH_AXES.index(a) + 1) * 5 ** i for i, a in enumerate(names))
+    return ([_OPS.index(op), axes, x.dim(), _DTYPES.index(x.dtype)]
+            + list(x.shape) + [-1] * (_SIG_DIMS - x.dim()))
+
+
+def _describe(sig: Sequence[int]) -> Tuple:
+    """A signature back as (op, axes, shape, dtype), the ``ThreadMesh``'s
+    form of it."""
+    names, code = [], sig[1]
+    while code:
+        code, digit = divmod(code, 5)
+        names.append(MESH_AXES[digit - 1])
+    return (_OPS[sig[0]], tuple(names), tuple(sig[4:4 + sig[2]]),
+            _DTYPES[sig[3]])
+
+
+class _PendingTransfer:
+    """A permute's handle under NCCL: ``wait`` makes the current stream
+    wait on the transfer's work (no host sync) and notes ``key`` in the
+    issue log."""
+
+    __slots__ = ("_works", "_finish", "_log", "_key", "_out")
+
+    def __init__(self, works, finish, log, key):
+        self._works, self._finish, self._log, self._key = (works, finish,
+                                                           log, key)
+        self._out = None
+
+    def wait(self):
+        if self._finish is not None:
+            for work in self._works:
+                work.wait()
+            self._out, self._finish, self._works = self._finish(), None, ()
+            self._log.append(("wait", self._key[0], self._key[1]))
+        return self._out
+
+
+class ProcessComm(_RankComm):
+    """This process's rank of a mesh of ``data*c*c*r`` ranks, one process
+    each, over ``torch.distributed``: the interface, autograd rules and
+    ledger of a ``ThreadMesh`` rank (``_RankComm``), exchanging through the
+    backend the process group was initialised with (``dist.procs`` does
+    that). Rank ``dist.get_rank()`` has ``ThreadMesh``'s coordinates
+    (``mesh_coords``).
+
+    *Groups.* Every set of ranks that shares its coordinates off some
+    subset of the mesh axes gets a process group, made at construction by
+    every rank in one fixed order (``dist.new_group`` is collective).
+    Within a group, results are ordered by the linear order over the axes
+    named, whatever the group's own rank order.
+
+    *Values.* Every reduction adds (or takes the max of) the members'
+    contributions in the group's linear order, as the ``ThreadMesh`` does,
+    so results do not depend on the backend's algorithm and replicas hold
+    the same bits: ``psum`` is an all-to-all of equal chunks, each member
+    summing its chunk over the members in order, then an all-gather of the
+    sums (the wire bytes of a ring all-reduce); ``psum_scatter`` is the
+    all-to-all and the sum; ``pmax``/``pmin`` gather and pick. The other
+    collectives move bytes (``all_gather_into_tensor``,
+    ``all_to_all_single``, ``batch_isend_irecv`` with global peer ranks),
+    every tensor as its raw bytes, so any dtype crosses.
+
+    *Signatures.* Before each collective the group all-gathers its
+    members' (op, axes, shape, dtype); a mismatch raises on every member
+    before anything is exchanged. ``signature_s`` and ``signature_calls``
+    count the host time and calls this costs.
+
+    *Backends.* The caller names it; nothing switches backend on a fault.
+    ``nccl`` takes CUDA tensors where they are and raises at construction
+    when two ranks share a card (NCCL takes one rank per card). ``gloo``
+    runs on the CPU, and for several ranks on one card: each CUDA tensor is
+    copied into pinned host memory before the exchange and back after it.
+
+    *Split-phase permutes.* Under NCCL ``ppermute_start`` returns the work
+    handles, and ``wait`` makes the current stream wait on them (NCCL
+    copies on streams of its own: there is no ``comm_stream``). Under
+    gloo the exchange completes at the start (its ``wait`` returns the
+    result), so ``obs.commlog.overlap_report`` reads no timed overlap.
+    """
+
+    def __init__(self, c: int, r: int, data: int = 1,
+                 placement: str = "team_inner", timeout: float = 600.0):
+        import datetime
+
+        import torch.distributed as dist
+
+        if not dist.is_initialized():
+            raise RuntimeError("ProcessComm needs an initialised process "
+                               "group (dist.procs.ProcessMesh makes one)")
+        if min(c, r, data) < 1:
+            raise ValueError(f"need positive sizes, got c={c} r={r} "
+                             f"data={data}")
+        self.c, self.r, self.data = c, r, data
+        self.placement = placement
+        self.sp_size = c * c * r
+        self.size = data * self.sp_size
+        if dist.get_world_size() != self.size:
+            raise ValueError(f"mesh (data={data}, c={c}, r={r}) has "
+                             f"{self.size} ranks, the process group "
+                             f"{dist.get_world_size()}")
+        self.backend = dist.get_backend()
+        if self.backend not in ("gloo", "nccl"):
+            raise ValueError(f"backend must be gloo or nccl, got "
+                             f"{self.backend!r}")
+        self.rank = dist.get_rank()
+        self.shape = {DATA_AXIS: data, SP_AXES[0]: c, SP_AXES[1]: r,
+                      SP_AXES[2]: c}
+        self._all_coords = mesh_coords(c, r, data, placement)
+        self.mesh = self
+        self._coords = self.coords(self.rank)
+        self._groups: Dict[Tuple[str, ...], List[int]] = {}
+        self.ledger = CommLedger()
+        self.ledgers = [self.ledger]
+        self.issue_log: List[Tuple] = []
+        self._transfers = 0
+        self.signature_s, self.signature_calls = 0.0, 0
+        # the all-gather into one tensor, under its newer name where the
+        # installed torch has it
+        self._gather_into = getattr(dist, "all_gather_single",
+                                    dist.all_gather_into_tensor)
+        # where the backend takes tensors: the rank's card under NCCL
+        self.wire_device = (torch.device("cuda", torch.cuda.current_device())
+                            if self.backend == "nccl"
+                            else torch.device("cpu"))
+        if self.backend == "nccl":
+            self._one_rank_per_card(dist)
+        self._pgs = self._make_groups(
+            dist, datetime.timedelta(seconds=timeout))
+        if self.backend == "nccl":
+            dist.barrier(device_ids=[self.wire_device.index])
+        else:
+            dist.barrier()
+
+    def coords(self, rank: int) -> Dict[str, int]:
+        """Rank ``rank``'s coordinate on every mesh axis."""
+        return dict(self._all_coords[rank])
+
+    def reset_ledgers(self) -> None:
+        self.ledger.reset()
+
+    # ---- construction -----------------------------------------------------
+    def _one_rank_per_card(self, dist) -> None:
+        store = dist.distributed_c10d._get_default_store()
+        card = str(torch.cuda.get_device_properties(self.wire_device).uuid)
+        store.set(f"repro_torch/card/{self.rank}", card)
+        for other in range(self.size):
+            theirs = store.get(f"repro_torch/card/{other}").decode()
+            if other != self.rank and theirs == card:
+                raise RuntimeError(
+                    f"nccl: ranks {self.rank} and {other} share the card "
+                    f"{card}, and NCCL takes one rank per card; run several "
+                    "ranks on one card with backend='gloo'")
+
+    def _make_groups(self, dist, timeout) -> Dict[Tuple[int, ...], object]:
+        sets = set()
+        for k in range(1, len(MESH_AXES) + 1):
+            for names in itertools.combinations(MESH_AXES, k):
+                for co in self._all_coords:
+                    members = tuple(
+                        q for q, other in enumerate(self._all_coords)
+                        if all(other[a] == co[a] for a in MESH_AXES
+                               if a not in names))
+                    if len(members) > 1:
+                        sets.add(members)
+        pgs = {}
+        for members in sorted(sets, key=lambda m: (len(m), m)):
+            pg = (dist.group.WORLD if len(members) == self.size
+                  else dist.new_group(list(members), timeout=timeout))
+            if self.rank in members:
+                pgs[members] = pg
+        return pgs
+
+    # ---- wire helpers -----------------------------------------------------
+    def _layout(self, names: Tuple[str, ...]):
+        """(the group in linear order, its process group, the linear index
+        of each group rank, the group rank of each linear index)."""
+        grp = self._group(names)
+        ranked = sorted(grp)
+        lin = [grp.index(q) for q in ranked]
+        return grp, self._pgs.get(tuple(ranked)), lin, [
+            ranked.index(q) for q in grp]
+
+    def _wire(self, x) -> torch.Tensor:
+        """x's bytes, flat, where the backend takes them: in pinned host
+        memory for a CUDA tensor under gloo (the copy waits for x)."""
+        flat = x.contiguous().reshape(-1).view(torch.uint8)
+        if self.backend == "gloo" and flat.is_cuda:
+            host = torch.empty(flat.shape, dtype=torch.uint8,
+                               pin_memory=True)
+            host.copy_(flat)
+            return host
+        return flat
+
+    def _empty_wire(self, nbytes: int, like) -> torch.Tensor:
+        if self.backend == "gloo":
+            return torch.empty(nbytes, dtype=torch.uint8,
+                               pin_memory=like.is_cuda)
+        return torch.empty(nbytes, dtype=torch.uint8, device=like.device)
+
+    @staticmethod
+    def _unwire(buf, like) -> torch.Tensor:
+        """Bytes back as a flat tensor of ``like``'s dtype on its device."""
+        t = buf.view(like.dtype)
+        return t.to(like.device, non_blocking=True) \
+            if t.device != like.device else t
+
+    def _check(self, op: str, names: Tuple[str, ...], x, pg, grp) -> None:
+        """The group's members all run (op, axes, shape, dtype), or every
+        member raises."""
+        t0 = time.perf_counter()
+        sig = _signature(op, names, x)
+        mine = torch.tensor(sig, dtype=torch.int64, device=self.wire_device)
+        rows = torch.empty(len(grp) * _SIG_LEN, dtype=torch.int64,
+                           device=self.wire_device)
+        self._gather_into(rows, mine, group=pg)
+        rows = rows.view(len(grp), _SIG_LEN).tolist()
+        self.signature_s += time.perf_counter() - t0
+        self.signature_calls += 1
+        for other, row in zip(sorted(grp), rows):
+            if row != sig:
+                raise RuntimeError(
+                    f"ProcessComm collective mismatch: rank {self.rank} runs "
+                    f"{_describe(sig)}, rank {other} runs {_describe(row)}")
+
+    def _all_to_all_flat(self, flat, pg) -> torch.Tensor:
+        """Equal parts of ``flat``: part k to group rank k; returns the
+        parts received, part k from group rank k."""
+        import torch.distributed as dist
+
+        send = self._wire(flat)
+        recv = self._empty_wire(send.numel(), flat)
+        dist.all_to_all_single(recv, send, group=pg)
+        return self._unwire(recv, flat)
+
+    def _gather_flat(self, flat, pg, n: int) -> torch.Tensor:
+        """Every member's ``flat``, concatenated in group-rank order."""
+        send = self._wire(flat)
+        recv = self._empty_wire(n * send.numel(), flat)
+        self._gather_into(recv, send, group=pg)
+        return self._unwire(recv, flat)
+
+    def _count(self, op: str, out, n: int) -> None:
+        self.ledger.add(*_wire_bytes(op, out.numel() * out.element_size(),
+                                    n))
+
+    @staticmethod
+    def _ordered_sum(parts):
+        """parts[0] + parts[1] + ... in that order, as ``ThreadMesh``."""
+        out = parts[0].clone()
+        for p in parts[1:]:
+            out += p
+        return out
+
+    # ---- the exchanges (no autograd: callers pass detached tensors) -------
+    def _all_gather(self, x, axis: Axes, dim: int):
+        names = _axes_tuple(axis)
+        grp, pg, lin, _ = self._layout(names)
+        n = len(grp)
+        if n == 1:
+            out = torch.cat([x], dim)
+        else:
+            self._check("all_gather", names, x, pg, grp)
+            rows = self._gather_flat(x, pg, n).view(n, *x.shape)
+            xs = [None] * n
+            for k, row in enumerate(rows):
+                xs[lin[k]] = row
+            out = torch.cat(xs, dim)
+        self._count("all_gather", out, n)
+        return out
+
+    def _psum(self, x, axes: Axes):
+        names = _axes_tuple(axes)
+        grp, pg, _, at = self._layout(names)
+        n = len(grp)
+        if n == 1:
+            out = x.clone()
+        else:
+            self._check("psum", names, x, pg, grp)
+            flat = x.contiguous().reshape(-1)
+            m = flat.numel()
+            chunk = -(-m // n)
+            if chunk * n != m:
+                flat = torch.cat([flat, flat.new_zeros(chunk * n - m)])
+            parts = self._all_to_all_flat(flat, pg).view(n, chunk)
+            mine = self._ordered_sum([parts[at[j]] for j in range(n)])
+            out = self._gather_flat(mine, pg, n)[:m].view(x.shape)
+        self._count("psum", out, n)
+        return out
+
+    def _split_send(self, x, split_axis: int, n: int, lin):
+        """x cut in n along ``split_axis``, the part for linear member j
+        going to its group rank: (the flat send buffer, the part shape)."""
+        parts = x.chunk(n, split_axis)
+        return (torch.cat([parts[lin[k]].reshape(-1) for k in range(n)]),
+                parts[0].shape)
+
+    def _psum_scatter(self, x, axis: Axes, dim: int):
+        names = _axes_tuple(axis)
+        grp, pg, lin, at = self._layout(names)
+        n = len(grp)
+        if x.shape[dim] % n:
+            raise ValueError(f"psum_scatter: dim {dim} of length "
+                             f"{x.shape[dim]} does not divide over {n}")
+        if n == 1:
+            out = x.clone()
+        else:
+            self._check("psum_scatter", names, x, pg, grp)
+            send, part = self._split_send(x, dim, n, lin)
+            got = self._all_to_all_flat(send, pg).view(n, -1)
+            out = self._ordered_sum([got[at[j]] for j in range(n)]
+                                    ).view(part)
+        self._count("psum_scatter", out, n)
+        return out
+
+    def _all_to_all(self, x, axes: Axes, split_axis: int, concat_axis: int):
+        names = _axes_tuple(axes)
+        grp, pg, lin, at = self._layout(names)
+        n = len(grp)
+        if x.shape[split_axis] % n:
+            raise ValueError(
+                f"all_to_all: split axis {split_axis} of length "
+                f"{x.shape[split_axis]} does not divide over {n}")
+        if n == 1:
+            out = x.clone()
+        else:
+            self._check("all_to_all", names, x, pg, grp)
+            send, part = self._split_send(x, split_axis, n, lin)
+            got = self._all_to_all_flat(send, pg).view(n, -1)
+            out = torch.cat([got[at[j]].view(part) for j in range(n)],
+                            concat_axis)
+        self._count("all_to_all", out, n)
+        return out
+
+    def _extreme(self, op: str, x, axes: Axes, pick):
+        if self._tracked(x):
+            raise ValueError(
+                f"{op} carries no gradient: detach its input (the JAX "
+                "stop_gradient) instead of dropping the gradient silently")
+        names = _axes_tuple(axes)
+        grp, pg, _, at = self._layout(names)
+        n = len(grp)
+        if n == 1:
+            out = x.clone()
+        else:
+            self._check(op, names, x, pg, grp)
+            rows = self._gather_flat(x, pg, n).view(n, *x.shape)
+            out = rows[at[0]]
+            for j in range(1, n):
+                out = pick(out, rows[at[j]])
+            out = out.clone()
+        self._count(op, out, n)
+        return out
+
+    def _permute(self, x, axes: Axes, perm):
+        """Post this rank's send and receive of a permute: (the works,
+        a function giving the result once they are done)."""
+        import torch.distributed as dist
+
+        names = _axes_tuple(axes)
+        grp, pg, _, _ = self._layout(names)
+        n, i = len(grp), grp.index(self.rank)
+        if n > 1:
+            self._check("ppermute", names, x, pg, grp)
+        src = [s for s, d in perm if d == i]
+        ops, recv = [], None
+        if src and src[0] != i:
+            recv = self._empty_wire(x.numel() * x.element_size(), x)
+            ops.append(dist.P2POp(dist.irecv, recv, grp[src[0]]))
+        dsts = [d for s, d in perm if s == i and d != i]
+        if dsts:
+            send = self._wire(x)
+            ops += [dist.P2POp(dist.isend, send, grp[d]) for d in dsts]
+        works = dist.batch_isend_irecv(ops) if ops else []
+        self._count("ppermute", x, n)
+
+        def finish():
+            if not src:
+                return torch.zeros_like(x)
+            if src[0] == i:
+                return x.clone()
+            return self._unwire(recv, x).view(x.shape)
+        return works, finish
+
+    def _ppermute(self, x, axes: Axes, perm):
+        works, finish = self._permute(x, axes, perm)
+        for work in works:
+            work.wait()
+        self._log_pair()
+        return finish()
+
+    def _ppermute_start(self, x, axes: Axes, perm):
+        """Post the permute (module doc, and the class doc's split-phase
+        note); the start and the handle's wait go into ``issue_log``."""
+        works, finish = self._permute(x, axes, perm)
+        key = (self._transfers, self.ledger.phase)
+        self._transfers += 1
+        self.issue_log.append(("start",) + key)
+        if self.backend == "nccl":
+            return _PendingTransfer(works, finish, self.issue_log, key)
+        for work in works:
+            work.wait()
+        return _Transfer(finish(), None, self.issue_log, key)
+
+    # ---- off the ledger: checkpoint assembly, agreement -------------------
+    def send_recv(self, sends, recvs) -> List[torch.Tensor]:
+        """Point-to-point transfers that are not the model's collectives
+        (checkpoint assembly; not in the ledger): ``sends`` are (rank,
+        tensor) pairs, ``recvs`` (rank, like) pairs; returns a tensor
+        shaped, typed and placed like each ``like``."""
+        import torch.distributed as dist
+
+        ops, bufs = [], []
+        for src, like in recvs:
+            bufs.append(self._empty_wire(like.numel() * like.element_size(),
+                                         like))
+            ops.append(dist.P2POp(dist.irecv, bufs[-1], src))
+        for dst, t in sends:
+            ops.append(dist.P2POp(dist.isend, self._wire(t), dst))
+        for work in (dist.batch_isend_irecv(ops) if ops else []):
+            work.wait()
+        return [self._unwire(buf, like).view(like.shape)
+                for buf, (_, like) in zip(bufs, recvs)]
+
+    def agree(self, value: int) -> List[int]:
+        """Every rank's ``value``, in rank order (not in the ledger)."""
+        mine = torch.tensor([value], dtype=torch.int64,
+                            device=self.wire_device)
+        out = torch.empty(self.size, dtype=torch.int64,
+                          device=self.wire_device)
+        self._gather_into(out, mine)
+        return out.tolist()

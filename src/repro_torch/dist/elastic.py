@@ -1,6 +1,15 @@
-"""Straggler detection (the port's copy of ``StragglerDetector`` from
-``repro.dist.elastic``; ``plan_mesh`` waits for the multi-process
-communicator, ROADMAP.md §A).
+"""Elasticity (the port's copy of ``repro.dist.elastic``): plan the mesh
+over the ranks a job can start, and flag persistent stragglers.
+
+``plan_mesh`` answers "the job asked for a ``model`` axis of M over W
+ranks: what do we actually run?": keep the model axis at its target when
+the pool can host one replica (degrading it to the largest refinable size
+that fits when the pool is smaller), absorb the remainder by shrinking the
+``data`` axis, and strand the leftover ranks. The model axis must stay a
+StarTrail-refinable size (a multiple of ``min_model`` = 4, the smallest
+C = 2 ring), so a pool too small to host one model replica raises. The
+process launcher (``launch.train --backend gloo|nccl``, ``dist.procs``)
+fits its (data, model) split to the ranks it can start with it.
 
 ``StragglerDetector`` is the training-loop watermark: a step slower than
 ``threshold`` x the rolling median of recent steps counts toward a streak;
@@ -11,9 +20,46 @@ GC never fire it). The trainer surfaces the flag in its metrics.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import statistics
 import time
 from typing import Callable, Deque, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """A runnable (data, model) split of a pool of ranks."""
+
+    data: int
+    model: int
+    world: int             # ranks in the pool when planned
+
+    @property
+    def devices(self) -> int:
+        """Ranks actually used; ``world - devices`` are stranded."""
+        return self.data * self.model
+
+    @property
+    def stranded(self) -> int:
+        return self.world - self.devices
+
+
+def plan_mesh(world: int, *, model_axis_target: int,
+              min_model: int = 4) -> MeshPlan:
+    """Plan a ``(data, model)`` mesh over a pool of ``world`` ranks.
+
+    Keeps ``model`` at ``model_axis_target`` whenever the pool can host at
+    least one replica; otherwise degrades it to the largest multiple of
+    ``min_model`` that fits. Raises ``ValueError`` when the pool cannot
+    host ``min_model`` ranks."""
+    if world < 1:
+        raise ValueError(f"world must be positive, got {world}")
+    model = (min(model_axis_target, world) // min_model) * min_model
+    if model < min_model:
+        raise ValueError(
+            f"pool of {world} devices cannot host a model axis >= "
+            f"{min_model} (target {model_axis_target})")
+    return MeshPlan(data=world // model, model=model, world=world)
 
 
 class StragglerDetector:

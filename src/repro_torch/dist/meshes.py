@@ -16,9 +16,9 @@ two options (paper §3.4):
     ``j`` fastest-varying, presented as ``(g, j, t)``, so the ring permutes
     get the short hops.
 
-``dist.comm.ThreadMesh`` maps its threads to coordinates through
-``refine_grid``. Refining a device mesh of several cards
-(``refine_mesh``) waits for the multi-process communicator.
+``dist.comm.ThreadMesh`` maps its threads, and ``dist.comm.ProcessComm``
+its processes, to coordinates through ``refine_grid``. Refining a JAX
+device mesh (``refine_mesh``) is not ported (ROADMAP.md §A item 1 d).
 """
 
 from __future__ import annotations

@@ -16,7 +16,9 @@ dimension split over mesh axes ``(a, b, ...)`` is cut into
 its linear index over those axes (``shard_slices``). On one card the
 shards are views of the ``Model``'s whole tensors (``models.factory.
 shard_params``), so the ranks' shards together are exactly the whole leaf.
-At P = 1 every shard is the whole leaf.
+A rank process (``dist.comm.ProcessComm``) holds its shards alone, each an
+allocation of its own (``models.factory.rank_model``). At P = 1 every
+shard is the whole leaf.
 
 Two kinds of sharded storage coexist (see ``models/runtime.py:dense``):
 
@@ -171,3 +173,18 @@ def owns(layout: Layout, comm) -> bool:
     shard has exactly one owner."""
     skip = mentioned(layout)
     return all(comm.axis_index(a) == 0 for a in MESH_AXES if a not in skip)
+
+
+class MeshPoint:
+    """The rank at ``coords`` (axis -> index) of a mesh of axis sizes
+    ``shape``: what ``shard_slices`` and ``owns`` read of a communicator,
+    for any rank of the mesh, not only one's own."""
+
+    def __init__(self, shape: Dict[str, int], coords: Dict[str, int]):
+        self.shape, self.coords = shape, coords
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape[axis]
+
+    def axis_index(self, axis: str) -> int:
+        return self.coords[axis]

@@ -70,7 +70,8 @@ spans go to an ``obs.Tracer``: an async ``request`` span per request,
 Both are written on the thread that calls ``step()`` only; rank threads
 never touch them.
 
-Ranks on several cards are not ported (ROADMAP.md §A item 1).
+Serving on rank processes is not ported (ROADMAP.md §A item 1 a): the
+engine's ranks are one card's ``ThreadMesh`` threads.
 
 Dense prompts and chunks are prefilled at their own length, padded at the
 end to a multiple of ``P_sp * comm_chunks`` when P_sp > 1 so that every

@@ -274,7 +274,7 @@ def read_pages(shards: ShardPools, idx) -> Dict[str, torch.Tensor]:
     Returns {'k','v'} (L, B, ps, Hkv, hd) on the pools' device. Each page
     comes from data replica 0's rank of its shard. This direct access to
     every rank's pool is the one-process stand-in for the JAX function's
-    psum over the SP axes: ranks on several cards (ROADMAP.md §A item 1)
+    psum over the SP axes: ranks as processes (ROADMAP.md §A item 1 a)
     need a collective here. This is the device leg of the KV connector's
     spill and of the prefill -> decode handoff's export.
     """

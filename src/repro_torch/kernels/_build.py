@@ -9,11 +9,19 @@ a hash of the sources, headers and flags, and loads it. It runs at the
 first kernel launch, never at import: the CPU tests import every module and
 have no ``nvcc``. ``build_info()`` reports the build seconds and the
 ``-Xptxas -v`` register / shared-memory / spill summary of the build.
+
+Rank processes (``dist.procs``) reach their first kernel together, so the
+build is one process's: ``ensure_built`` takes an exclusive ``flock`` on
+``build/repro_torch/.lock``, looks for the library again under it, and
+builds into a temporary file that is renamed into place (the ptxas log
+first), so a process never loads a half-written library and nvcc runs
+once per source hash.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -97,6 +105,8 @@ def _ptxas_summary(log: str) -> List[str]:
 
 
 def _build(out: pathlib.Path) -> str:
+    """nvcc every source and link them into ``out``; returns the ptxas
+    log."""
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         procs = []
@@ -115,16 +125,46 @@ def _build(out: pathlib.Path) -> str:
                         other.kill()
                         other.wait()
                 raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
-        so_tmp = pathlib.Path(tmp) / out.name
         link = subprocess.run(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
-             "-o", str(so_tmp), *[str(pathlib.Path(tmp) / (s.stem + ".o"))
-                                  for s in _sources()]],
+             "-o", str(out), *[str(pathlib.Path(tmp) / (s.stem + ".o"))
+                               for s in _sources()]],
             capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
-        os.replace(so_tmp, out)       # atomic: a torn build is never loaded
     return "\n".join(logs)
+
+
+def _write_atomic(path: pathlib.Path, write) -> None:
+    """``write(tmp)`` into a temporary file beside ``path``, then rename it
+    over ``path``: a reader sees the old file or the whole new one."""
+    fd, tmp = tempfile.mkstemp(dir=path.parent, prefix=f".{path.name}.")
+    os.close(fd)
+    try:
+        write(pathlib.Path(tmp))
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
+
+
+def ensure_built(out: pathlib.Path, log_path: pathlib.Path,
+                 build=_build) -> bool:
+    """Make ``out`` and its ptxas log with ``build(path) -> log`` unless
+    ``out`` exists, under an exclusive lock on ``out``'s directory shared
+    by every process (module doc). Returns whether this call built it."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.parent / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)      # released when closed
+        if out.exists():
+            return False
+
+        def build_then_log(tmp: pathlib.Path) -> None:
+            log = build(tmp)
+            _write_atomic(log_path, lambda t: t.write_text(log))
+
+        _write_atomic(out, build_then_log)
+        return True
 
 
 _LIBRARY_LOCK = threading.Lock()
@@ -134,21 +174,18 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if this source hash has no
     library in ``build/repro_torch`` yet. The ranks of a ``ThreadMesh``
     reach their first kernel together: one of them builds, the others
-    wait for it."""
+    wait for it (and other processes wait on ``ensure_built``'s lock)."""
     with _LIBRARY_LOCK:
         return _library()
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     key = source_hash()
     out = BUILD_DIR / f"librepro_torch_{key}.so"
     log_path = BUILD_DIR / f"librepro_torch_{key}.ptxas.txt"
     t0 = time.perf_counter()
-    built = not out.exists()
-    if built:
-        log_path.write_text(_build(out))
+    built = ensure_built(out, log_path)
     _info.update(
         seconds=time.perf_counter() - t0, built=built, path=str(out),
         ptxas=_ptxas_summary(log_path.read_text())

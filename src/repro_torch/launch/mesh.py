@@ -1,10 +1,11 @@
 """Legal mesh shapes (the port's copy of ``refinable_grids`` from
 ``repro.launch.mesh``).
 
-The JAX package's production mesh (``make_production_mesh``: a (16, 16)
-data x model grid of cards) needs more than one card, so it waits for the
-multi-process communicator; the port's ranks are ``dist.comm.ThreadMesh``
-threads on one device.
+The port's ranks are ``dist.comm.ThreadMesh`` threads on one device, or
+processes with a ``dist.comm.ProcessComm`` each (``dist.procs``), whose
+(data, model) split ``dist.elastic.plan_mesh`` fits to the ranks there
+are. The JAX package's production mesh (``make_production_mesh``: a (16,
+16) data x model grid of cards) is not ported (ROADMAP.md §A item 1 d).
 """
 
 from __future__ import annotations

@@ -62,13 +62,88 @@ the loop's train/data, train/step and train/ckpt spans:
       --smoke --device cpu --devices 8 --data 4 --scheme ulysses --steps 3 \\
       --metrics-dump "$TMPDIR/m.prom" --trace-out "$TMPDIR/trace.json"
 
+``--backend gloo|nccl`` runs the ``--devices N`` ranks as processes
+(``dist.procs.ProcessMesh``: one ``dist.comm.ProcessComm`` each, the
+plan's arrangement) instead of threads (``--backend threads``, the
+default). Every rank builds the whole model on the host from ``--seed``
+and keeps its shards on its device (``factory.rank_model``), so its
+weights are those of ``--backend threads --device cpu``; rank 0 prints,
+writes ``--metrics``, ``--metrics-dump``, ``--trace-out`` and the
+checkpoints. ``dist.elastic.plan_mesh`` fits the requested (data, model)
+split to the ranks there are. gloo runs on the CPU, or several ranks on
+one card; nccl takes one card per rank:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-1.8b \\
+      --smoke --device cpu --backend gloo --devices 4 --steps 2
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch h2o-danube-1.8b --smoke --backend nccl --devices 4 --steps 2
+
+Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` set) each process joins as
+one rank, and the world size is ``WORLD_SIZE``.
+
 The JAX launcher's ``--multi-pod`` raises ``NotImplementedError`` until its
-part is ported (ROADMAP.md §A item 1).
+part is ported (ROADMAP.md §A item 1 b, the pod axis).
 """
 
 import argparse
+import os
 
 from repro_torch.dist.sharding import RULES
+
+
+def _train_rank(comm, plan, cfg, opts):
+    """One rank process of ``--backend gloo|nccl``: the model built on the
+    host from the seed, this rank's shards kept on its device, then the
+    trainer on this rank. Returns rank 0's last metrics (None elsewhere)."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.models.factory import build_model, rank_model
+    from repro_torch.train import trainer as trainer_lib
+
+    device = (torch.device("cpu") if opts["device"] == "cpu"
+              else torch.device("cuda", torch.cuda.current_device()))
+    model = rank_model(build_model(cfg, device="cpu", seed=opts["seed"]),
+                       comm, plan.sharding_rules, device)
+    lead = comm.rank == 0
+    registry = obs.Registry() if opts["metrics_dump"] and lead else None
+    tracer = (obs.Tracer(enabled=True, annotate=True)
+              if opts["trace_out"] and lead else None)
+    metrics = trainer_lib.train(
+        model, plan, _adam_cfg(cfg, opts), _trainer_cfg(opts), device=device,
+        tracer=tracer, registry=registry, comm=comm)
+    if lead:
+        _dump(opts, registry, tracer)
+    return metrics if lead else None
+
+
+def _adam_cfg(cfg, opts):
+    from repro_torch.optim import adamw
+
+    return adamw.AdamWConfig(learning_rate=opts["lr"], warmup_steps=5,
+                             decay_steps=max(opts["steps"], 10),
+                             state_dtype=cfg.opt_dtype)
+
+
+def _trainer_cfg(opts):
+    from repro_torch.train import trainer as trainer_lib
+
+    return trainer_lib.TrainerConfig(
+        num_steps=opts["steps"], log_every=5,
+        ckpt_every=max(opts["steps"] // 2, 1), ckpt_dir=opts["ckpt_dir"],
+        metrics_path=opts["metrics"], seed=opts["seed"])
+
+
+def _dump(opts, registry, tracer) -> None:
+    if opts["metrics_dump"]:
+        path = opts["metrics_dump"]
+        fmt = "json" if path.endswith(".json") else "prometheus"
+        registry.dump(path, fmt=fmt)
+        print(f"[train] metrics dump -> {path} ({fmt})")
+    if opts["trace_out"]:
+        tracer.dump(opts["trace_out"])
+        print(f"[train] trace ({len(tracer.events())} events) -> "
+              f"{opts['trace_out']}")
 
 
 def main(argv=None):
@@ -82,8 +157,13 @@ def main(argv=None):
                     help="default: the CUDA card (raises without one)")
     ap.add_argument("--c", type=int, default=None,
                     help="StarTrail C (default: cost-model pick)")
-    ap.add_argument("--devices", type=int, default=1,
-                    help="ranks, as ThreadMesh threads on the device")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="ranks (default: WORLD_SIZE under torchrun, else "
+                         "1), as --backend runs them")
+    ap.add_argument("--backend", default="threads",
+                    choices=["threads", "gloo", "nccl"],
+                    help="ranks as ThreadMesh threads on the device, or as "
+                         "processes over gloo or nccl")
     ap.add_argument("--data", type=int, default=1,
                     help="data-parallel replicas (divides --devices)")
     ap.add_argument("--placement", default=None,
@@ -129,21 +209,40 @@ def main(argv=None):
     if args.multi_pod:
         raise NotImplementedError(
             "repro_torch.launch.train --multi-pod is not ported yet: it "
-            "needs multi-pod meshes (§A item 1) (ROADMAP.md)")
+            "needs multi-pod meshes (§A item 1 b, the pod axis) "
+            "(ROADMAP.md)")
 
     import dataclasses
 
     from repro_torch.configs import registry
     from repro_torch.configs.base import SHAPES, ShapeConfig
+    from repro_torch.dist import procs
+    from repro_torch.dist.elastic import plan_mesh
     from repro_torch.engine.engine import resolve_device
     from repro_torch.launch.mesh import refinable_grids
     from repro_torch import obs
     from repro_torch.models.factory import build_model
-    from repro_torch.optim import adamw
     from repro_torch.plan import ExecutionPlan, make_plan
     from repro_torch.plan import autotune as autotune_lib
     from repro_torch.train import trainer as trainer_lib
 
+    processes = args.backend != "threads"
+    # under torchrun every process runs main(): rank 0 speaks for them
+    lead = not procs.joined() or os.environ["RANK"] == "0"
+    if args.devices is None:
+        args.devices = (int(os.environ["WORLD_SIZE"]) if procs.joined()
+                        and processes else 1)
+    if processes and not args.plan:
+        # fit the requested (data, model) split to the ranks there are
+        world = (int(os.environ["WORLD_SIZE"]) if procs.joined()
+                 else args.devices)
+        target = args.devices // args.data
+        fit = plan_mesh(world, model_axis_target=target,
+                        min_model=min(4, target))
+        if lead:
+            print(f"[train] plan_mesh: world={world} data={fit.data} "
+                  f"model={fit.model} stranded={fit.stranded}")
+        args.devices, args.data = fit.devices, fit.data
     device = resolve_device(args.device)
     get_cfg = registry.get_smoke if args.smoke else registry.get
     if args.plan:
@@ -184,38 +283,40 @@ def main(argv=None):
             raise ValueError(
                 f"{e}; legal (data, SP) grids with C = 2 for --devices "
                 f"{args.devices}: {refinable_grids(args.devices)}") from e
-    print(f"[train] plan: P_sp={plan.sp_size} scheme={plan.scheme} "
-          f"C={plan.c} R={plan.r} data={plan.data} "
-          f"placement={plan.placement} seq={plan.seq_len} "
-          f"batch={plan.global_batch} microbatches={plan.microbatches} "
-          f"remat={plan.remat} block={plan.block_impl} "
-          f"comm_chunks={plan.comm_chunks} pipeline={plan.pipeline_scan} "
-          f"rules={plan.sharding_rules} device={device}")
+    if lead:
+        print(f"[train] plan: P_sp={plan.sp_size} scheme={plan.scheme} "
+              f"C={plan.c} R={plan.r} data={plan.data} "
+              f"placement={plan.placement} seq={plan.seq_len} "
+              f"batch={plan.global_batch} "
+              f"microbatches={plan.microbatches} remat={plan.remat} "
+              f"block={plan.block_impl} comm_chunks={plan.comm_chunks} "
+              f"pipeline={plan.pipeline_scan} rules={plan.sharding_rules} "
+              f"device={device} backend={args.backend}")
 
-    model = build_model(cfg, device=device, seed=args.seed)
-    adam_cfg = adamw.AdamWConfig(learning_rate=args.lr, warmup_steps=5,
-                                 decay_steps=max(args.steps, 10),
-                                 state_dtype=cfg.opt_dtype)
-    tcfg = trainer_lib.TrainerConfig(num_steps=args.steps, log_every=5,
-                                     ckpt_every=max(args.steps // 2, 1),
-                                     ckpt_dir=args.ckpt_dir,
-                                     metrics_path=args.metrics,
-                                     seed=args.seed)
-    registry = obs.Registry() if args.metrics_dump else None
-    # annotate: each span is also a torch.profiler range
-    tracer = (obs.Tracer(enabled=True, annotate=True) if args.trace_out
-              else None)
-    metrics = trainer_lib.train(model, plan, adam_cfg, tcfg, device=device,
-                                tracer=tracer, registry=registry)
-    if args.metrics_dump:
-        fmt = "json" if args.metrics_dump.endswith(".json") else "prometheus"
-        registry.dump(args.metrics_dump, fmt=fmt)
-        print(f"[train] metrics dump -> {args.metrics_dump} ({fmt})")
-    if args.trace_out:
-        tracer.dump(args.trace_out)
-        print(f"[train] trace ({len(tracer.events())} events) -> "
-              f"{args.trace_out}")
-    print(f"[train] done: {metrics}")
+    opts = {k: getattr(args, k) for k in (
+        "device", "seed", "lr", "steps", "ckpt_dir", "metrics",
+        "metrics_dump", "trace_out")}
+    if processes:
+        plan.check_runnable()
+        if device.type == "cuda":
+            from repro_torch.kernels import _build
+
+            _build.library()       # one build, before the ranks load it
+        mesh = procs.ProcessMesh(plan.c, plan.r, plan.data, plan.placement,
+                                 backend=args.backend, device=args.device)
+        metrics = next(iter(mesh.run(_train_rank, plan, cfg, opts)), None)
+    else:
+        model = build_model(cfg, device=device, seed=args.seed)
+        registry = obs.Registry() if args.metrics_dump else None
+        # annotate: each span is also a torch.profiler range
+        tracer = (obs.Tracer(enabled=True, annotate=True) if args.trace_out
+                  else None)
+        metrics = trainer_lib.train(model, plan, _adam_cfg(cfg, opts),
+                                    _trainer_cfg(opts), device=device,
+                                    tracer=tracer, registry=registry)
+        _dump(opts, registry, tracer)
+    if lead:
+        print(f"[train] done: {metrics}")
     return metrics
 
 

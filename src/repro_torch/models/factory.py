@@ -22,9 +22,11 @@ comm, rules)`` gives one rank its parameter tree under a rule set of
 tensor (no copy), and with ``trainable=True`` a leaf of its own that
 requires a gradient, so autograd returns a shard-sized gradient. Blocks
 read only such a tree (or the ``Model`` itself, whose leaves are the
-shards of one rank). ``run_on_ranks`` runs a function on every rank of a
-``ThreadMesh`` (or on one card) with each rank's tree, built at its first
-call. Checkpoints keep whole leaves.
+shards of one rank). A rank process holds its shards alone:
+``rank_model`` copies them out of a whole ``Model`` (built on the host
+from the seed) into a ``Model`` of its own. ``run_on_ranks`` runs a
+function on every rank of a ``ThreadMesh`` (or on one card) with each
+rank's tree, built at its first call. Checkpoints keep whole leaves.
 """
 
 from __future__ import annotations
@@ -123,11 +125,61 @@ def shard_blocks(model: Model, comm, rules: str = "default"
                  ) -> List[Tuple[slice, ...]]:
     """The block of every parameter, in ``named_parameters`` order, that
     the rank of ``comm`` stores under ``rules``
-    (``dist.sharding.shard_slices``). Raises, naming the leaf, where a
-    sharded dim does not divide by its mesh axes."""
+    (``dist.sharding.shard_slices``), as a block of the whole leaf (also
+    for a ``rank_model``). Raises, naming the leaf, where a sharded dim
+    does not divide by its mesh axes."""
     layouts = model.partition(rules)
-    return [sharding.shard_slices(p.shape, layouts[n], comm, n)
-            for n, p in model.named_parameters()]
+    shapes = whole_shapes(model)
+    return [sharding.shard_slices(shapes[n], layouts[n], comm, n)
+            for n, _ in model.named_parameters()]
+
+
+def whole_shapes(model: Model) -> Dict[str, Tuple[int, ...]]:
+    """Every parameter's whole shape, by name (a ``rank_model`` holds
+    only its shards of them)."""
+    held = getattr(model, "held", None)
+    if held is not None:
+        return dict(held["shapes"])
+    return {n: tuple(p.shape) for n, p in model.named_parameters()}
+
+
+def rank_model(model: Model, comm, rules: str = "default",
+               device=None) -> Model:
+    """A ``Model`` that holds only the rank of ``comm``'s shards of
+    ``model``'s parameters under ``rules`` (``shard_blocks``), each a
+    contiguous allocation of its own on ``device`` (default: ``model``'s):
+    a rank process's storage (``dist.comm.ProcessComm``). ``shard_params``
+    of it on that rank returns its parameters themselves; ``held`` records
+    the whole shapes, the rules and the blocks."""
+    device = model.device if device is None else torch.device(device)
+    blocks = shard_blocks(model, comm, rules)
+    local = Model(model.cfg, lambda s: torch.empty(s.shape, device="meta"))
+    with torch.no_grad():
+        for (name, p), block in zip(model.named_parameters(), blocks):
+            owner, _, leaf = name.rpartition(".")
+            shard = p.detach()[block].to(device, copy=True).contiguous()
+            setattr(local.get_submodule(owner), leaf,
+                    nn.Parameter(shard, requires_grad=False))
+    local.held = {"shapes": whole_shapes(model), "rules": rules,
+                  "blocks": blocks}
+    return local
+
+
+def _local_blocks(model: Model, comm, rules: str
+                  ) -> List[Tuple[slice, ...]]:
+    """The rank of ``comm``'s block of each of ``model``'s tensors: its
+    ``shard_blocks``, or the whole tensor of a ``rank_model`` (which must
+    hold this rank's shards under ``rules``)."""
+    blocks = shard_blocks(model, comm, rules)
+    held = getattr(model, "held", None)
+    if held is None:
+        return blocks
+    if held["rules"] != rules or held["blocks"] != blocks:
+        raise ValueError(
+            f"this rank_model holds the shards of another rank or rule set "
+            f"({held['rules']!r}) than the rank of this comm under "
+            f"{rules!r}")
+    return [(slice(None),) * len(b) for b in blocks]
 
 
 def shard_params(model: Model, comm, rules: str = "default", *,
@@ -135,12 +187,12 @@ def shard_params(model: Model, comm, rules: str = "default", *,
     """The parameter tree of the rank of ``comm`` under ``rules``: every
     leaf a view of its block of the ``Model``'s tensor (``shard_blocks``;
     the whole tensor where no mesh axis of its layout has more than one
-    member). With ``trainable`` each view is a leaf that requires a
-    gradient; update the ``Model`` only under ``no_grad``, and build fresh
-    views for the next step."""
+    member, and every tensor of a ``rank_model``). With ``trainable`` each
+    view is a leaf that requires a gradient; update the ``Model`` only
+    under ``no_grad``, and build fresh views for the next step."""
     named = {}
     for (name, p), block in zip(model.named_parameters(),
-                                shard_blocks(model, comm, rules)):
+                                _local_blocks(model, comm, rules)):
         view = p.detach()[block]
         named[name] = view.requires_grad_() if trainable else view
     return RankParams(**_nest(model, "", named), named=named)

@@ -21,11 +21,10 @@ layer), or, with ``attention_impl='local'``, the JAX local mode's
 single-device attention: one ``dispatch.prefill`` over the rank's own
 tokens (kernel B1 on 'cuda'), exact only at P = 1.
 
-``batch_axes`` names the data-parallel axes: ``("data",)`` on a
-``ThreadMesh`` with more than one replica (``train.step.make_runtime``), so
-``psum_batch`` sums the loss's terms over replicas; ``()`` (the identity)
-with one replica. Replicas on several cards wait for the multi-process
-communicator (ROADMAP.md, the main path).
+``batch_axes`` names the data-parallel axes: ``("data",)`` on a mesh
+(a ``ThreadMesh``, or rank processes' ``ProcessComm``) with more than one
+replica (``train.step.make_runtime``), so ``psum_batch`` sums the loss's
+terms over replicas; ``()`` (the identity) with one replica.
 """
 
 from __future__ import annotations

@@ -7,11 +7,15 @@ in float32 and is cast once to the parameter dtype (and the state dtype).
 and order the decay differently. The update is written into the parameter
 and moment tensors in place, which saves holding a second copy of them
 (15 GB of f32 moments at full width); ``apply`` returns them for the JAX
-call shape. Under sharded storage (``train.step``) the step runs it over
-each unique parameter shard once: ``state_partition`` gives the moments
-of those shards, views of the moment tensors, the counterpart of the JAX
-``state_partition`` (moments shard-local), and ``global_norm`` over the
-unique shards is the norm of the whole gradients. The step counter is a
+call shape. Under sharded storage (``train.step``) on a ``ThreadMesh`` the
+step runs it over each unique parameter shard once: ``state_partition``
+gives the moments of those shards, views of the moment tensors, the
+counterpart of the JAX ``state_partition`` (moments shard-local), and
+``global_norm`` over the unique shards is the norm of the whole gradients.
+A rank process holds shard-sized moments of its own shards
+(``init_state`` of them) and passes ``apply`` the norm its mesh agreed on
+(``square_sums`` of its owned shards, summed over the mesh by
+``train.step``, then ``norm_of``). The step counter is a
 host integer and the scalars derived
 from it are float32 CPU tensors, so a step reads nothing back from the
 device.
@@ -78,21 +82,34 @@ def schedule(step: int, cfg: AdamWConfig) -> torch.Tensor:
     return cfg.learning_rate * warm * cos
 
 
+def square_sums(grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Each gradient's sum of squares, in f32."""
+    return [torch.sum(torch.square(g.float())) for g in grads]
+
+
+def norm_of(sums: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The l2 norm whose squared parts are ``sums``, added in order."""
+    return torch.sqrt(torch.sum(torch.stack(list(sums))))
+
+
 def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     """The l2 norm over every element of ``grads`` (whole leaves, or the
     unique shards of them: each element counted once)."""
-    leaves = [torch.sum(torch.square(g.float())) for g in grads]
-    return torch.sqrt(torch.sum(torch.stack(leaves)))
+    return norm_of(square_sums(grads))
 
 
 @torch.no_grad()
 def apply(params: List[torch.Tensor], grads: Sequence[torch.Tensor],
-          state: Dict, cfg: AdamWConfig
+          state: Dict, cfg: AdamWConfig,
+          gnorm: Optional[torch.Tensor] = None
           ) -> Tuple[List[torch.Tensor], Dict, Dict[str, torch.Tensor]]:
-    """One AdamW step, in place. Returns (params, state, metrics)."""
+    """One AdamW step, in place. Returns (params, state, metrics).
+    ``gnorm`` is the norm of the whole gradients where ``grads`` are not
+    all of them (a rank process's shards; default: ``global_norm``)."""
     step = state["step"] + 1
     lr = schedule(step, cfg)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.ones((), dtype=torch.float32, device=gnorm.device)
     if cfg.grad_clip is not None:
         scale = torch.minimum(scale, cfg.grad_clip / gnorm.clamp_min(1e-9))

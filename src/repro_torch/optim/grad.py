@@ -16,7 +16,7 @@ comparable.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,19 +46,31 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
+def shard_amax(grads: Sequence[torch.Tensor],
+               leaves: Sequence[int]) -> Dict[int, torch.Tensor]:
+    """Each leaf's max |value| over the shards of it in ``grads``
+    (``leaves[i]`` the leaf ``grads[i]`` is a shard of)."""
+    amax: Dict[int, torch.Tensor] = {}
+    for g, k in zip(grads, leaves):
+        m = g.float().abs().max()
+        amax[k] = m if k not in amax else torch.maximum(amax[k], m)
+    return amax
+
+
 def int8_roundtrip(grads: Sequence[torch.Tensor],
-                   leaves: Optional[Sequence[int]] = None
+                   leaves: Optional[Sequence[int]] = None,
+                   amax: Optional[Mapping[int, torch.Tensor]] = None
                    ) -> List[torch.Tensor]:
     """The compressed reduction's values (deterministic rounding), each in
     its gradient's dtype. ``leaves[i]`` names the leaf ``grads[i]`` is a
     shard of (default: every gradient a whole leaf): the scale of each
     leaf is taken over all of its shards, as the JAX round trip takes it
-    over the global array."""
+    over the global array; ``amax`` gives each leaf's max |value| where
+    ``grads`` do not hold all of its shards (a rank process's, taken as a
+    ``pmax`` over the mesh; default: ``shard_amax`` of ``grads``)."""
     leaves = range(len(grads)) if leaves is None else leaves
-    amax: dict = {}
-    for g, k in zip(grads, leaves):
-        m = g.float().abs().max()
-        amax[k] = m if k not in amax else torch.maximum(amax[k], m)
+    if amax is None:
+        amax = shard_amax(grads, leaves)
     out = []
     for g, k in zip(grads, leaves):
         q, s = quantize_int8(g, amax=amax[k])

@@ -53,10 +53,24 @@ quantises the global array).
 ``comm_chunks`` and issue order (``pipeline_scan``); 'ulysses' runs
 ``core.ulysses`` on the layers whose head counts divide P.
 
+Ranks as processes. With ``comm`` a ``dist.comm.ProcessComm`` the step
+runs this process's rank alone, on the ``models.factory.rank_model`` that
+holds its shards: ``shard_batch`` of the global batch, ``value_and_grad``
+over every shard it holds, then AdamW over those shards with shard-sized
+moments of their own (``adamw.init_state`` of the shards). Every rank
+holding a replica of a shard updates it, as the JAX step updates every
+device's replica: the mesh's reductions give the replicas the same bits,
+so they stay equal. The gradient norm and each leaf's int8 scale count
+every unique shard once, from its owner: each rank writes its owned
+shards' sums of squares (or max |value|) into a (rank, leaf) table, the
+mesh sums (maxes) it, and the norm adds the owners' entries leaf by leaf
+in rank order, the ``ThreadMesh`` step's order, so both give the same bits.
+These two tables are bookkeeping a ``ThreadMesh`` reads from shared
+memory, so they stay out of the ledger (``CommLedger.uncounted``).
+
 Not ported yet, and raising with its ROADMAP.md item: ``multi_pod`` (§A
-item 1's NCCL half). Ranks on several cards wait for the multi-process
-communicator (the main path); the ring's pipelined issue order, item 1's
-overlap half, runs on one card's ``ThreadMesh`` (``pipeline_scan``).
+item 1 b, the ``pod`` axis). The ring's pipelined issue order runs on
+either communicator (``pipeline_scan``).
 """
 
 from __future__ import annotations
@@ -68,7 +82,7 @@ import torch
 from repro_torch.configs.base import RunConfig, ShapeConfig
 from repro_torch.core.startrail import StarTrailConfig
 from repro_torch.dist import sharding
-from repro_torch.dist.comm import SingleComm, ThreadMesh
+from repro_torch.dist.comm import ProcessComm, SingleComm, ThreadMesh
 from repro_torch.dist.sharding import DATA_AXIS, MESH_AXES
 from repro_torch.models.factory import Model, shard_blocks, shard_params
 from repro_torch.models.runtime import Runtime
@@ -82,7 +96,8 @@ Shard = Tuple[int, Tuple[slice, ...], torch.Tensor]
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md §A item 1)")
+        f"{what} is not ported to repro_torch yet (ROADMAP.md §A item 1 b, "
+        "the pod axis)")
 
 
 def make_runtime(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
@@ -281,6 +296,8 @@ def build_train_step(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
     ``comm`` a ``ThreadMesh`` the step runs every rank on the global
     batch."""
     comm = comm or SingleComm()
+    if isinstance(comm, ProcessComm):
+        return _process_train_step(model, run_cfg, shape, adam_cfg, comm)
     grads_fn = _shard_grads_fn(model, run_cfg, shape, comm)
     names = [n for n, _ in model.named_parameters()]
     params = [p for _, p in model.named_parameters()]
@@ -299,6 +316,55 @@ def build_train_step(model: Model, run_cfg: RunConfig, shape: ShapeConfig,
         return opt_state, metrics
 
     return step, dict(params=params, names=names, comm=comm)
+
+
+def _process_train_step(model: Model, run_cfg: RunConfig,
+                        shape: ShapeConfig, adam_cfg: adamw.AdamWConfig,
+                        comm: ProcessComm):
+    """``build_train_step`` on one rank process (module doc): ``model`` is
+    its ``rank_model``, ``sh['params']`` its shards, ``sh['held']`` their
+    whole shapes, rules and blocks, ``sh['layouts']`` their layouts."""
+    rt = make_runtime(model, run_cfg, shape, comm)
+    vg_fn = _value_and_grad(model, run_cfg, rt)
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    layouts = model.partition(rt.rules)
+    # every unique shard as (leaf, owner), by leaf and then rank: the order
+    # in which the ThreadMesh step adds their norms
+    points = [sharding.MeshPoint(comm.shape, comm.coords(q))
+              for q in range(comm.size)]
+    owners = [(i, q) for i, n in enumerate(names) for q in range(comm.size)
+              if sharding.owns(layouts[n], points[q])]
+    mine = [i for i, q in owners if q == comm.rank]
+
+    def table(values, rows: int) -> torch.Tensor:
+        """(rows, leaves) f32 zeros with this rank's owned ``values`` in
+        its row (row 0 when ``rows`` is 1)."""
+        out = torch.zeros(rows, len(names), dtype=torch.float32,
+                          device=rt.device)
+        if mine:
+            out[comm.rank if rows > 1 else 0, mine] = torch.stack(values)
+        return out
+
+    def step(opt_state, batch):
+        loss, grads = vg_fn(shard_batch(batch, rt))
+        with torch.no_grad(), comm.ledger.uncounted():
+            if run_cfg.grad_compression == "int8":
+                amax = grad_lib.shard_amax([grads[i] for i in mine], mine)
+                amax = comm.pmax(table([amax[i] for i in mine], 1),
+                                 MESH_AXES)[0]
+                grads = grad_lib.int8_roundtrip(
+                    grads, amax={i: amax[i] for i in range(len(names))})
+            sums = comm.psum(table(adamw.square_sums(
+                [grads[i] for i in mine]), comm.size), MESH_AXES)
+            gnorm = adamw.norm_of([sums[q, i] for i, q in owners])
+        _, opt_state, metrics = adamw.apply(params, grads, opt_state,
+                                            adam_cfg, gnorm=gnorm)
+        metrics["loss"] = loss
+        return opt_state, metrics
+
+    return step, dict(params=params, names=names, comm=comm,
+                      held=model.held, layouts=layouts)
 
 
 def build_loss_fn(model: Model, run_cfg: RunConfig, shape: ShapeConfig,

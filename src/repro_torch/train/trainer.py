@@ -9,8 +9,13 @@ ranks as the threads of a ``ThreadMesh`` (``plan.build_mesh``) on that
 device: each step hands the global batch to every rank and updates each
 unique parameter shard once (``train.step``). The ``Model`` holds every
 parameter whole and the AdamW moments are whole tensors whose blocks are
-the unique shards' moments, so a checkpoint does not depend on the plan:
-one written under any mesh and sharding rules restores under any other.
+the unique shards' moments. Given a ``ProcessComm`` the loop runs one rank
+process on its ``rank_model``, whose parameters and moments are its shards
+(``dist.procs`` runs one loop per rank). A checkpoint holds whole leaves
+either way (a rank process's are assembled on rank 0,
+``checkpoint.gather_leaves``), so it does not depend on the plan: one
+written under any mesh, sharding rules or communicator restores under any
+other.
 
 Metrics stay on the device between log boundaries: converting a device
 scalar to ``float`` blocks the host on the step, so the loop buffers the
@@ -54,10 +59,11 @@ import torch
 
 from repro_torch.data.pipeline import Prefetcher, SyntheticLM
 from repro_torch.dist import checkpoint
+from repro_torch.dist.comm import ProcessComm
 from repro_torch.dist.elastic import StragglerDetector
 from repro_torch.engine.engine import resolve_device
 from repro_torch.models.factory import (Model, from_jax_tree, jax_tree,
-                                        load_jax_tree)
+                                        whole_shapes)
 from repro_torch.obs import NULL_TRACER, Registry, Tracer
 from repro_torch.obs.commlog import CommLog
 from repro_torch.optim import adamw
@@ -94,47 +100,96 @@ def opt_tree(opt: Dict, names: Sequence[str], cfg, device=None) -> Dict:
 
 
 def restore_latest(ckpt_dir, model: Model, names: Sequence[str],
-                   opt: Dict) -> Optional[int]:
+                   opt: Dict, comm=None) -> Optional[int]:
     """Load the newest step completed in both ``ckpt_dir`` (parameters)
     and ``ckpt_dir/opt`` into ``model`` and ``opt`` in place; returns the
-    step, or None when there is none."""
+    step, or None when there is none. On a rank process (``comm`` a
+    ``ProcessComm``, ``model`` its ``rank_model``) the ranks agree on the
+    step and each keeps its blocks of the whole leaves."""
     opt_dir = pathlib.Path(ckpt_dir) / "opt"
-    last = checkpoint.latest_common_step(ckpt_dir, opt_dir)
+    last = (checkpoint.agreed_step(comm, ckpt_dir, opt_dir)
+            if isinstance(comm, ProcessComm)
+            else checkpoint.latest_common_step(ckpt_dir, opt_dir))
     if last is None:
         return None
     cfg = model.cfg
-    load_jax_tree(model, checkpoint.restore(
-        ckpt_dir, last, jax_tree(dict(model.named_parameters()), cfg,
-                                 "meta")))
-    tree = checkpoint.restore(opt_dir, last, opt_tree(opt, names, cfg,
-                                                       "meta"))
+    shapes = whole_shapes(model)
+    held = getattr(model, "held", None)
+    blocks = (held["blocks"] if held is not None
+              else [(slice(None),) * len(shapes[n]) for n in names])
+    params = dict(model.named_parameters())
+    like = {n: torch.empty(shapes[n], dtype=params[n].dtype, device="meta")
+            for n in names}
+    rows = {"params": from_jax_tree(checkpoint.restore(
+        ckpt_dir, last, jax_tree(like, cfg, "meta")), names, cfg)}
+    tree = checkpoint.restore(opt_dir, last, opt_tree(
+        {"mu": [like[n].to(m.dtype) for n, m in zip(names, opt["mu"])],
+         "nu": [like[n].to(m.dtype) for n, m in zip(names, opt["nu"])],
+         "step": 0}, names, cfg, "meta"))
+    for key in ("mu", "nu"):
+        rows[key] = from_jax_tree(tree[key], names, cfg)
     with torch.no_grad():
-        for key in ("mu", "nu"):
-            rows = from_jax_tree(tree[key], names, cfg)
-            for name, dst in zip(names, opt[key]):
-                dst.copy_(rows[name])
+        for i, name in enumerate(names):
+            for key, dst in (("params", params[name]), ("mu", opt["mu"][i]),
+                             ("nu", opt["nu"][i])):
+                src = rows[key][name][blocks[i]]
+                if tuple(src.shape) != tuple(dst.shape):
+                    raise ValueError(f"{name}: checkpoint block "
+                                     f"{tuple(src.shape)} vs "
+                                     f"{tuple(dst.shape)}")
+                dst.copy_(src)
     opt["step"] = int(tree["step"])
     return last
+
+
+def _save(ckpt_dir, step: int, sh: Dict, opt: Dict, cfg) -> List:
+    """Start writing both trees of ``step`` (module doc); returns the
+    writer threads (none on a rank process other than rank 0, which
+    writes the whole leaves the ranks' shards assemble into)."""
+    names, comm = sh["names"], sh["comm"]
+    trees = {"params": sh["params"], "mu": opt["mu"], "nu": opt["nu"]}
+    if isinstance(comm, ProcessComm):
+        held = sh["held"]
+        layouts = sh["layouts"]
+        trees = {k: checkpoint.gather_leaves(comm, v, names, layouts,
+                                             held["shapes"])
+                 for k, v in trees.items()}
+        if comm.rank != 0:
+            return []
+    opt_host = {"mu": trees["mu"], "nu": trees["nu"], "step": opt["step"]}
+    return [
+        checkpoint.save(ckpt_dir, step, jax_tree(
+            dict(zip(names, trees["params"])), cfg, "cpu"), blocking=False),
+        checkpoint.save(pathlib.Path(ckpt_dir) / "opt", step, opt_tree(
+            opt_host, names, cfg, "cpu"), blocking=False),
+    ]
 
 
 def train(model: Model, plan: ExecutionPlan, adam_cfg: adamw.AdamWConfig,
           tcfg: TrainerConfig, data_source=None, device=None,
           tracer: Optional[Tracer] = None,
-          registry: Optional[Registry] = None) -> Dict:
+          registry: Optional[Registry] = None, comm=None) -> Dict:
     """Run the loop on ``device`` (default: the CUDA card, raising if there
     is none; the model must live there); returns the last step's metrics.
     ``data_source`` (default ``SyntheticLM`` of the plan's shape) has
     ``get_batch(step) -> {tokens, labels}`` of numpy arrays. Restores from
     ``tcfg.ckpt_dir`` if it holds a checkpoint (fault-tolerant restart).
     ``tracer`` spans the loop's phases; ``registry`` gets the comm-volume
-    counters (module doc). Both are off by default."""
+    counters (module doc). Both are off by default. ``comm`` (default: the
+    plan's ``ThreadMesh``, or one card) may be this process's
+    ``ProcessComm``, with ``model`` its ``rank_model``: the loop then runs
+    this rank, and only rank 0 prints, writes the metrics stream and the
+    checkpoints, and fills ``registry``."""
     tracer = tracer if tracer is not None else NULL_TRACER
     device = resolve_device(device)
     if model.device != device:
         raise ValueError(f"model lives on {model.device}, trainer on "
                          f"{device}")
     shape = plan.shape_config()
-    step_fn, sh = plan.build_train_step(model, adam_cfg)
+    step_fn, sh = plan.build_train_step(model, adam_cfg, comm)
+    lead = not isinstance(sh["comm"], ProcessComm) or sh["comm"].rank == 0
+    if not lead:
+        registry, tcfg = None, dataclasses.replace(tcfg, metrics_path=None)
     if data_source is None:
         data_source = SyntheticLM(model.cfg, shape, seed=tcfg.seed,
                                   seq_scheme=plan.seq_scheme,
@@ -145,10 +200,11 @@ def train(model: Model, plan: ExecutionPlan, adam_cfg: adamw.AdamWConfig,
         else None
     start = 0
     if tcfg.ckpt_dir:
-        last = restore_latest(tcfg.ckpt_dir, model, sh["names"], opt)
+        last = restore_latest(tcfg.ckpt_dir, model, sh["names"], opt, comm)
         if last is not None:
             start = last
-            print(f"[trainer] restored step {last}", flush=True)
+            if lead:
+                print(f"[trainer] restored step {last}", flush=True)
 
     prefetch = Prefetcher(data_source, start_step=start)
     detector = StragglerDetector()
@@ -211,20 +267,14 @@ def train(model: Model, plan: ExecutionPlan, adam_cfg: adamw.AdamWConfig,
                     # this thread before it returns, and a restart takes
                     # the newest step common to both trees, so a crash
                     # mid-write costs the torn step, never consistency
-                    pending_ckpt = [
-                        checkpoint.save(tcfg.ckpt_dir, step_i + 1, jax_tree(
-                            dict(zip(sh["names"], sh["params"])), model.cfg,
-                            "cpu"), blocking=False),
-                        checkpoint.save(pathlib.Path(tcfg.ckpt_dir) / "opt",
-                                        step_i + 1, opt_tree(
-                                            opt, sh["names"], model.cfg,
-                                            "cpu"), blocking=False),
-                    ]
+                    pending_ckpt = _save(tcfg.ckpt_dir, step_i + 1, sh, opt,
+                                         model.cfg)
                 phases["ckpt_s"] = time.perf_counter() - t3
             if ((step_i + 1) % tcfg.log_every == 0 or step_i == start
                     or ckpt_boundary or step_i + 1 == tcfg.num_steps):
                 m = flush_metrics()
-                if (step_i + 1) % tcfg.log_every == 0 or step_i == start:
+                if lead and ((step_i + 1) % tcfg.log_every == 0
+                             or step_i == start):
                     print(f"[trainer] step {step_i + 1} "
                           f"loss={m['loss']:.4f} "
                           f"gnorm={m['grad_norm']:.3f}", flush=True)
