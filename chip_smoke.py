@@ -229,6 +229,27 @@ Phases, each printing one JSON line (``{"phase": ...}``):
               NCCL against the ThreadMesh; on one card a line saying it
               was not run. ``python3 chip_smoke.py --only train_procs``
               runs the build and this phase alone
+ 13b. serve_procs  full-width h2o-danube-1.8b (``SERVE_PROCS``: 12 of
+              its 24 layers, for the script's time) served at (data, C, R) = (1, 2, 1) by
+              four rank processes over gloo on the one card, each drawing
+              the weights from seed 0 on the card and keeping its shards
+              (``factory.build_rank_model``), each an ``Engine`` of its own
+              over its ``ProcessComm`` fed the same requests step by step,
+              against the ThreadMesh engine at the same plan, seed and
+              kernels: 4 greedy requests of 256-1024 prompt tokens and a
+              sampled one (temperature, top-k, top-p) of 384, 8 new tokens
+              each, the 1024-token one joining once the rest have
+              prefilled (B2, B4); 2 prompts on a 512-token prefix through
+              the prefix cache in 256-token chunks (B2, B6, B1, B4); a
+              ``--legacy`` batch of 2 x 512 (B2, B5). Every stream equal
+              to the threads', the first-token hidden states bit-equal
+              (else reported within ``ENGINE_TOL``), every rank's ledger
+              equal to its thread's, each run's launches summed over the
+              processes equal to the threads'; the host walls of a decode
+              step and a prefill chunk on both, the signature check's
+              calls and host seconds. NCCL (a card a rank) where there are
+              four cards, else a line saying it was not run. ``--only
+              serve_procs`` runs the build and this phase alone
  14. schemes  the paper's comparison at the train_sp width (2 layers, seq 4096,
               batch 1, bf16, ``attn_out``, P = 8 ranks on the card) through
               ``trainer.train`` with the obs registry and tracer, 2 steps
@@ -575,7 +596,8 @@ in train_procs (summed over its rank processes, each counting its own)
 and in the ring and
 StarTrail schemes and under the fsdp and tp rules; B1 and B3 under
 Ulysses; B1, B2 and B3 in the
-autotune search, whose candidates are all four arrangements; B2 and B4
+autotune search, whose candidates are all four arrangements; B1, B2, B4, B5 and B6 in serve_procs (summed over its rank processes
+and its engine, prefix and ``--legacy`` runs); B2 and B4
 in dense_serve's P = 1, P = 8 and P = 8 sampled runs, B1, B2, B4 and B6
 in its prefix run; B2 and B3 in dense_train; B1, B2, B4 and B6 in the
 gateway, its prefill/decode pair and the priority run, B2 and B4 in the
@@ -5705,6 +5727,314 @@ def phase_train_procs(dev, smi):
 
 
 # ---------------------------------------------------------------------------
+# phase 13b: serving with ranks as processes
+# ---------------------------------------------------------------------------
+
+# the workload of serve_procs (module doc), at full width; "layers" None is
+# the full depth. 12 of 24 for the script's time (PERF.md §4): the phase
+# took 93 s at 24 layers on one H100 80GB HBM3 at 700 W
+SERVE_PROCS = {"layers": 12, "c": 2, "r": 1, "slots": 4, "page": 16,
+               "max_len": 2048, "pages_per_shard": 128, "new": 8,
+               # greedy prompts; the last joins once the rest have
+               # prefilled
+               "greedy": [256, 512, 768, 1024],
+               "sampled": {"prompt": 384, "temperature": 0.8, "top_k": 32,
+                           "top_p": 0.9, "seed": 7},
+               "prefix": 512, "tails": [256, 128], "chunk": 256,
+               "legacy": {"batch": 2, "prompt": 512}}
+SERVE_PROCS_TIMEOUT = 300                      # s, a spawned run's limit
+SERVE_PROCS_KERNELS = ("B1", "B2", "B4", "B5", "B6")
+
+
+def _serve_procs_cfg():
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    cfg = registry.get(ARCH)
+    layers = SERVE_PROCS["layers"]
+    return (cfg if layers is None
+            else dataclasses.replace(cfg, num_layers=layers))
+
+
+def _serve_procs_plan(cfg, prefix_cache=False):
+    from repro_torch.plan import make_serve_plan
+
+    c, r = SERVE_PROCS["c"], SERVE_PROCS["r"]
+    return make_serve_plan(cfg, arch=ARCH, n_devices=c * c * r, c=c,
+                           decode_batch=SERVE_PROCS["slots"],
+                           page_size=SERVE_PROCS["page"],
+                           max_len=SERVE_PROCS["max_len"],
+                           prefix_cache=prefix_cache)
+
+
+def _serve_procs_requests(vocab):
+    """(first, later) of the engine run and of the prefix run, and the
+    legacy batch's prompts (numpy), all drawn from one seed."""
+    import numpy as np
+
+    from repro_torch.engine import Request
+
+    sp = SERVE_PROCS
+    rng = np.random.default_rng(31)
+    greedy = [Request(f"g{i}", rng.integers(0, vocab, n).tolist(), sp["new"])
+              for i, n in enumerate(sp["greedy"])]
+    s = sp["sampled"]
+    sampled = Request("s0", rng.integers(0, vocab, s["prompt"]).tolist(),
+                      sp["new"], temperature=s["temperature"],
+                      top_k=s["top_k"], top_p=s["top_p"], seed=s["seed"])
+    shared = rng.integers(0, vocab, sp["prefix"]).tolist()
+    prefix = [Request(f"px{i}", shared + rng.integers(0, vocab, n).tolist(),
+                      sp["new"]) for i, n in enumerate(sp["tails"])]
+    lg = sp["legacy"]
+    legacy = rng.integers(0, vocab, (lg["batch"], lg["prompt"]))
+    return ((greedy[:2] + [sampled] + greedy[2:3], greedy[3:]),
+            (prefix[:1], prefix[1:]), legacy)
+
+
+def _serve_procs_drive(engine, first, later):
+    """Serve ``first``, then ``later`` once every earlier prefill has
+    completed, step by step: the streams, the first-token hidden states
+    (on the host, as the engine gives them), the run's wall, the median
+    wall of a step that only decodes, and the engine's counts and host
+    seconds a prefill chunk and a decode step."""
+    import torch
+
+    hidden = {}
+    engine.on_prefill = lambda uid, h: hidden.__setitem__(uid, h.cpu())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in first:
+        if engine.add_request(r) is not None:
+            raise RuntimeError(f"serve_procs: {r.uid} rejected")
+    pending, decode_ms = list(later), []
+    while not engine.idle() or pending:
+        if pending and engine.metrics.prefills >= len(first):
+            for r in pending:
+                if engine.add_request(r) is not None:
+                    raise RuntimeError(f"serve_procs: {r.uid} rejected")
+            pending = []
+        active = engine.scheduler.active()
+        pure = not engine.scheduler.queue and bool(active) \
+            and all(st.cache_len > 0 for st in active)
+        t1 = time.perf_counter()
+        engine.step()
+        if pure:
+            torch.cuda.synchronize()
+            decode_ms.append(1e3 * (time.perf_counter() - t1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    engine.on_prefill = None
+    m = engine.metrics
+    return dict(streams=engine.collect(), hidden=hidden, wall_s=wall,
+                decode_step_wall_ms_median=(statistics.median(decode_ms)
+                                            if decode_ms else None),
+                prefills=m.prefills, prefill_chunks=m.prefill_chunks,
+                decode_steps=m.decode_steps,
+                prefill_cached_tokens=m.prefill_tokens_cached,
+                prefill_s_per_chunk=m.prefill_wall_s / max(
+                    m.prefill_chunks, 1),
+                decode_s_per_step=m.decode_wall_s / max(m.decode_steps, 1))
+
+
+def _serve_procs_work(model, comm=None):
+    """The serve_procs workload on ``model``: the ThreadMesh engine's
+    (``comm`` None, the whole model) or this rank process's (its
+    ``ProcessComm`` and ``rank_model``). Each run's counts are set to 0
+    just before it and read just after; the engine run's ledgers (every
+    thread's, or this rank's) and, on a process, its signature checks'
+    calls and host seconds."""
+    import torch
+
+    from repro_torch.engine import Engine, EngineConfig, Request
+    from repro_torch.launch import serve as launch_serve
+
+    cfg, sp = model.cfg, SERVE_PROCS
+    (first, later), (pfirst, plater), legacy = _serve_procs_requests(
+        cfg.vocab_size)
+    plan = _serve_procs_plan(cfg)
+    eng_cfg = EngineConfig(pages_per_shard=sp["pages_per_shard"])
+    out = {}
+    engine = Engine(model, plan, eng_cfg, comm=comm)
+    # warm-up (cuBLAS handles, the allocator, gloo's first exchanges)
+    engine.add_request(Request("warm", first[0].tokens[:64], 2))
+    engine.run()
+    engine.reset()
+    ledgers = (engine.mesh.ledgers if comm is None else [comm.ledger])
+    for led in ledgers:
+        led.reset()
+    sig = (comm.signature_calls, comm.signature_s) if comm else (0, 0.0)
+    counts = reset_counts()
+    run = _serve_procs_drive(engine, first, later)
+    run["launches"] = read_counts(counts)
+    run["ledgers"] = [led.snapshot() for led in ledgers]
+    if comm is not None:
+        run["signature_calls"] = comm.signature_calls - sig[0]
+        run["signature_s"] = comm.signature_s - sig[1]
+    out["engine"] = run
+    del engine
+    engine = Engine(model, _serve_procs_plan(cfg, prefix_cache=True),
+                    EngineConfig(pages_per_shard=sp["pages_per_shard"],
+                                 prefill_chunk=sp["chunk"]), comm=comm)
+    counts = reset_counts()
+    run = _serve_procs_drive(engine, pfirst, plater)
+    run["launches"] = read_counts(counts)
+    out["prefix"] = run
+    del engine
+    tokens = torch.from_numpy(legacy).to(model.device)
+    torch.cuda.synchronize()
+    counts = reset_counts()
+    t0 = time.perf_counter()
+    toks = launch_serve.legacy_generate(model, plan, tokens, sp["new"],
+                                        comm=comm)
+    torch.cuda.synchronize()
+    out["legacy"] = {"streams": toks.cpu().tolist(),
+                     "wall_s": time.perf_counter() - t0,
+                     "launches": read_counts(counts)}
+    return out
+
+
+def _serve_procs_rank(comm, cfg):
+    """One rank process of serve_procs: the whole model drawn on its card
+    from seed 0 (the ThreadMesh's weights), its shards kept and the whole
+    freed (``factory.build_rank_model``), then ``_serve_procs_work``."""
+    import torch
+
+    from repro_torch.models.factory import build_rank_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model = build_rank_model(cfg, comm, _serve_procs_plan(cfg).sharding_rules,
+                             dev, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    held = sum(p.numel() for p in model.parameters())
+    comm.agree(0)                          # the ranks start together
+    out = _serve_procs_work(model, comm)
+    out.update(rank=comm.rank, setup_s=setup_s, params_held=held,
+               max_memory_allocated=torch.cuda.max_memory_allocated(dev))
+    return out
+
+
+def _serve_procs_checks(backend, cfg, got, ref, procs_s, smi, t_phase):
+    """Hold one backend's rank processes against the ThreadMesh engine and
+    emit their line; returns their launches summed over the ranks and the
+    runs."""
+    import torch
+
+    name = "serve_procs" if backend == "gloo" else "serve_procs_nccl"
+    runs = ("engine", "prefix", "legacy")
+    for run in runs:
+        for g in got:
+            check(g[run]["streams"] == ref[run]["streams"],
+                  f"{name} {run}: rank {g['rank']}'s streams "
+                  f"{g[run]['streams']} differ from the ThreadMesh's "
+                  f"{ref[run]['streams']}")
+    hidden, bit_equal = {}, True
+    for run in ("engine", "prefix"):
+        for uid, want in ref[run]["hidden"].items():
+            for g in got:
+                h = g[run]["hidden"][uid]
+                same = h.dtype == want.dtype and torch.equal(h, want)
+                bit_equal = bit_equal and same
+                if not same:
+                    # reported within ENGINE_TOL, and explained (PERF.md)
+                    hidden[f"{run}/{uid}/rank{g['rank']}"] = compare(
+                        (h.float(),), (want.float(),),
+                        f"{name} {run} {uid} hidden vs threads",
+                        names=("hidden",))["hidden"]
+    check([g["engine"]["ledgers"][0] for g in got]
+          == ref["engine"]["ledgers"],
+          f"{name}: the ranks' ledgers differ from the ThreadMesh's")
+    launches = {run: {k: sum(g[run]["launches"][k] for g in got)
+                      for k in KERNELS} for run in runs}
+    for run in runs:
+        check(launches[run] == ref[run]["launches"],
+              f"{name} {run} launches {launches[run]} (summed over the "
+              f"ranks): the ThreadMesh's {ref[run]['launches']}")
+    total = {k: sum(launches[run][k] for run in runs) for k in KERNELS}
+    check(all(total[k] > 0 for k in SERVE_PROCS_KERNELS),
+          f"{name} launches {total}: want every one of "
+          f"{SERVE_PROCS_KERNELS} launched")
+
+    def timing(src):
+        return {run: {k: src[run][k] for k in (
+            "wall_s", "decode_step_wall_ms_median", "prefill_s_per_chunk",
+            "decode_s_per_step") if k in src[run]} for run in runs}
+
+    e = ref["engine"]
+    emit(name, run=True, model=cfg.name, layers=cfg.num_layers,
+         plan={"data": 1, "C": SERVE_PROCS["c"], "R": SERVE_PROCS["r"],
+               "P_sp": SERVE_PROCS["c"] ** 2 * SERVE_PROCS["r"]},
+         backend=backend, ranks=len(got), cards=torch.cuda.device_count(),
+         workload={k: SERVE_PROCS[k] for k in (
+             "greedy", "sampled", "prefix", "tails", "chunk", "legacy",
+             "new", "slots", "page")},
+         streams_equal=True, hidden_bit_equal=bit_equal,
+         hidden_err_vs_threads=hidden, tol=ENGINE_TOL,
+         ledgers_equal=True, ledger_rank0=got[0]["engine"]["ledgers"][0],
+         counts={"prefills": e["prefills"], "decode_steps": e["decode_steps"],
+                 "prefix_chunks": ref["prefix"]["prefill_chunks"],
+                 "prefix_cached_tokens": ref["prefix"]
+                 ["prefill_cached_tokens"]},
+         launches_by_run=launches, launches=total,
+         timing={"procs_rank0": timing(got[0]), "threads": timing(ref)},
+         signature_check={
+             "calls_engine_run": got[0]["engine"]["signature_calls"],
+             "host_s_engine_run_by_rank": [g["engine"]["signature_s"]
+                                           for g in got]},
+         setup_s_by_rank=[g["setup_s"] for g in got],
+         params_held_by_rank=[g["params_held"] for g in got],
+         max_memory_allocated_by_rank=[g["max_memory_allocated"]
+                                       for g in got],
+         procs_run_s=procs_s, phase_s=time.perf_counter() - t_phase,
+         card=smi)
+    return total
+
+
+def phase_serve_procs(dev, smi):
+    """Phase 13b (module doc): full-width h2o-danube-1.8b served at (data,
+    C, R) = (1, 2, 1) by four rank processes over gloo on the one card
+    (and over NCCL, one rank a card, where the machine has four), each an
+    ``Engine`` of its own over its ``ProcessComm``, against the
+    ThreadMesh engine at the same plan, seed and kernels. Returns each
+    backend's launches."""
+    import torch
+
+    from repro_torch.dist.procs import ProcessMesh
+    from repro_torch.models.factory import build_model
+
+    t_phase = time.perf_counter()
+    cfg = _serve_procs_cfg()
+    c, r = SERVE_PROCS["c"], SERVE_PROCS["r"]
+    p = c * c * r
+    cards = torch.cuda.device_count()
+    backends = ("gloo", "nccl") if cards >= p else ("gloo",)
+    got = {}
+    for b in backends:
+        t0 = time.perf_counter()
+        got[b] = ProcessMesh(c, r, 1, backend=b,
+                             timeout=SERVE_PROCS_TIMEOUT).run(
+            _serve_procs_rank, cfg, timeout=SERVE_PROCS_TIMEOUT)
+        got[b] = (got[b], time.perf_counter() - t0)
+    model = build_model(cfg, device=dev, seed=0)
+    ref = _serve_procs_work(model)
+    del model
+    free_device()
+    out = {b: _serve_procs_checks(b, cfg, g, ref, s, smi, t_phase)
+           for b, (g, s) in got.items()}
+    if "nccl" not in backends:
+        emit("serve_procs_nccl", run=False, cards=cards,
+             reason=f"NCCL across rank processes was not run: this machine "
+                    f"has {cards} card(s), and NCCL takes one card for each "
+                    f"of the plan's {p} ranks (a stated gap, not a caught "
+                    f"failure)", card=smi)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 14: the paper's baselines and StarTrail's chunked ring
 # ---------------------------------------------------------------------------
 
@@ -9775,7 +10105,7 @@ def phase_gpt3b_serve(dev, smi):
 
 # phases that ``python3 chip_smoke.py --only <name>`` runs alone after the
 # build (development runs, and train_procs on a machine of several cards)
-ALONE = {"train_procs": phase_train_procs}
+ALONE = {"train_procs": phase_train_procs, "serve_procs": phase_serve_procs}
 
 
 def free_device():
@@ -9859,6 +10189,11 @@ def main():
         by_path["train_procs"] = procs["gloo"]
         if "nccl" in procs:
             by_path["train_procs_nccl"] = procs["nccl"]
+        free_device()
+        procs = phase_serve_procs(dev, smi)
+        by_path["serve_procs"] = procs["gloo"]
+        if "nccl" in procs:
+            by_path["serve_procs_nccl"] = procs["nccl"]
         free_device()
         by_path.update(phase_schemes(dev, smi))
         free_device()

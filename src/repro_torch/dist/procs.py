@@ -16,7 +16,7 @@ results in rank order. The ranks are processes:
   * **Joined.** Under ``torchrun`` (``RANK``, ``WORLD_SIZE``,
     ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT`` set) this process is
     one rank: ``run`` joins the group and returns ``[fn(comm, *args)]``,
-    this rank's result alone. A rank at or above the mesh's size is
+    this rank's result alone (a group it made is destroyed after ``fn``). A rank at or above the mesh's size is
     stranded (``dist.elastic.plan_mesh`` planned fewer ranks than were
     started): it joins nothing and returns ``[]``.
 
@@ -34,6 +34,11 @@ times out after the mesh's ``timeout`` seconds (the process groups'), and
 a run longer than ``run``'s ``timeout`` is terminated the same way and
 raises ``TimeoutError``. Every process a run starts has ended when ``run``
 returns or raises.
+
+``fit_mesh(devices, data)`` is the launchers' (``launch.train`` and
+``launch.serve`` with ``--backend gloo|nccl``) ``dist.elastic.plan_mesh``
+over the ranks there are: ``WORLD_SIZE`` under ``torchrun``, else the
+ranks asked for.
 
 This module and what its children import hold no JAX: the children import
 ``torch``, this package and ``fn``'s module.
@@ -54,6 +59,7 @@ from typing import Callable, List, Optional
 import torch
 
 from repro_torch.dist.comm import ProcessComm
+from repro_torch.dist.elastic import MeshPlan, plan_mesh
 
 BACKENDS = ("gloo", "nccl")
 
@@ -61,6 +67,18 @@ BACKENDS = ("gloo", "nccl")
 def joined() -> bool:
     """Whether this process was started as one rank (``torchrun``)."""
     return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def fit_mesh(devices: int, data: int = 1) -> MeshPlan:
+    """``plan_mesh`` of a launch that asked for ``devices`` ranks in
+    ``data`` replicas: over ``WORLD_SIZE`` ranks under ``torchrun`` (the
+    ranks it started), else over ``devices``, keeping the model axis at
+    ``devices // data`` where they fit. The launch runs ``devices`` ranks
+    in ``data`` replicas of the result; the rest are stranded."""
+    world = int(os.environ["WORLD_SIZE"]) if joined() else devices
+    target = max(devices // data, 1)
+    return plan_mesh(world, model_axis_target=target,
+                     min_model=min(4, target))
 
 
 def _rank_device(device: Optional[str], local_rank: int) -> torch.device:
@@ -199,12 +217,16 @@ class ProcessMesh:
                 f"nccl takes one rank per card: local rank {local_rank}, "
                 f"{torch.cuda.device_count()} cards on this host")
         device = _rank_device(self.device, local_rank)
-        if not dist.is_initialized():
+        made = not dist.is_initialized()
+        if made:
             _init(self.backend, rank, self.size, device, "env://",
                   self.timeout)
         comm = ProcessComm(self.c, self.r, self.data, self.placement,
                            timeout=self.timeout)
-        return [fn(comm, *args)]
+        out = [fn(comm, *args)]
+        if made:                   # as a spawned rank's, once fn is done
+            dist.destroy_process_group()
+        return out
 
     @staticmethod
     def _wait(procs, workdir: pathlib.Path,

@@ -56,10 +56,31 @@ gathers and sub-rings run in the prefill, B4's and B6's partials merge
 across ranks, and data replicas compute the same batch. Every rank
 samples (``engine.sampling``: vocab-parallel greedy, or temperature, top-k
 and top-p with gumbel noise keyed by the request's seed, the token's
-position and the rank); every rank's tokens must be equal, and the engine
-raises if they are not. A request's first token folds its key with
-``prompt_len``, a decode step's with ``cache_len + 1``, so a request's
-stream does not depend on its batch or on how its prompt was chunked.
+position and the rank); the ranks' tokens cross as an all-gather over the
+whole mesh each step, and every rank raises if one rank's differ. A
+request's first token folds its key with ``prompt_len``, a decode step's
+with ``cache_len + 1``, so a request's stream does not depend on its batch
+or on how its prompt was chunked.
+
+**Ranks as processes** (``comm`` a ``dist.comm.ProcessComm``,
+``dist.procs.ProcessMesh`` or ``torchrun`` launching them): SPMD, one
+``Engine`` in every rank process, each serving its own rank alone over its
+``ProcessComm`` with its own pool shard and only its parameter shards (the
+model is its ``models.factory.rank_model``). No process sees another
+rank's memory, so whatever one process read across ranks is a collective
+here: the first-token hidden state is rank 0's, all-gathered; the
+connector's page reads are ``paged_cache.read_pages_rank``'s psum over the
+SP axes and its writes ``write_pages_rank``'s owned pages. The host state
+(scheduler, prefix cache, the connector's host tier, metrics) is replicated:
+the scheduler reads no clock and no random source, so **every rank must be
+given the same requests (``add_request``, ``preempt``, ``add_prefilled``)
+before the same ``step()``**, and then takes the same decisions and runs
+the same collectives. A rank fed otherwise raises (the token check, or a
+collective signature mismatch) instead of hanging. These cross-rank reads
+are bookkeeping a ``ThreadMesh`` engine does in shared memory, so they stay
+out of the ledger (``CommLedger.uncounted``) and both communicators'
+ledgers count the same bytes. The caller chooses the lead rank that
+prints, dumps metrics and traces (``launch.serve --backend``: rank 0).
 
 Metrics live in an ``obs.Registry`` (``EngineMetrics``: the JAX engine's
 names and kinds, under the engine's ``labels``: the gateway's replicas
@@ -69,9 +90,6 @@ spans go to an ``obs.Tracer``: an async ``request`` span per request,
 ``engine/host_reload``, ``engine/handoff_inject`` and ``engine/decode``.
 Both are written on the thread that calls ``step()`` only; rank threads
 never touch them.
-
-Serving on rank processes is not ported (ROADMAP.md §A item 1 a): the
-engine's ranks are one card's ``ThreadMesh`` threads.
 
 Dense prompts and chunks are prefilled at their own length, padded at the
 end to a multiple of ``P_sp * comm_chunks`` when P_sp > 1 so that every
@@ -99,7 +117,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.dist.sharding import DATA_AXIS
+from repro_torch.dist.sharding import DATA_AXIS, MESH_AXES
 from repro_torch.engine import kv_connector, paged_cache, sampling
 from repro_torch.engine.scheduler import (Rejection, Request, Scheduler,
                                           SlotState, bucket_pow2)
@@ -253,7 +271,9 @@ class Engine:
     ``plan`` (``plan.make_serve_plan``) supplies the ranks (its
     ``ThreadMesh`` when it has more than one device), the arrangement, the
     decode slot count, the page size, the capacity, the prefix cache and
-    the kernel knobs; ``model`` the parameters and the device.
+    the kernel knobs; ``model`` the parameters and the device. With
+    ``comm`` a ``ProcessComm`` of the plan's mesh this engine is that rank
+    process's alone (module doc): ``model`` is its ``rank_model``.
     ``on_prefill``, when set, is called with ``(uid, hidden)`` as each
     prompt's prefill completes, where ``hidden`` is the (1, 1, D)
     next-token hidden state (rank 0's) its first token is sampled from.
@@ -266,7 +286,7 @@ class Engine:
                  eng: EngineConfig = EngineConfig(),
                  registry: Optional[obs.Registry] = None,
                  labels: Optional[Dict[str, str]] = None,
-                 tracer: Optional[obs.Tracer] = None):
+                 tracer: Optional[obs.Tracer] = None, comm=None):
         cfg = model.cfg
         ok, why = paged_cache.supported(cfg)
         if not ok:
@@ -293,10 +313,20 @@ class Engine:
         self.model, self.plan, self.eng, self.cfg = model, plan, eng, cfg
         self.device = model.device
         self.sp = plan.sp_size
-        self.mesh = plan.build_mesh()
-        # the rank runtime on one card; every rank's swaps in its comm
+        if comm is None:
+            self.mesh = plan.build_mesh()
+        else:
+            plan.check_runnable()
+            got = (comm.c, comm.r, comm.data, comm.placement)
+            want = (plan.c, plan.r, plan.data, plan.placement)
+            if got != want:
+                raise ValueError(f"the ProcessComm's (c, r, data, placement) "
+                                 f"{got} are not the plan's {want}")
+            self.mesh = None
+        # the rank runtime on one card or this process's rank; a
+        # ThreadMesh's ranks swap in their comms
         rt = train_step.make_runtime(model, plan.run_config(),
-                                     plan.shape_config())
+                                     plan.shape_config(), comm)
         self.rt = dataclasses.replace(
             rt, batch_axes=(), st_cfg=dataclasses.replace(
                 rt.st_cfg, seq_scheme="contiguous"))
@@ -323,20 +353,35 @@ class Engine:
         self._last_emit: Dict[str, float] = {}
         self._req_spans: Dict[str, Optional[str]] = {}
         self.ttft_s: Dict[str, float] = {}
-        # the pools of every rank holding each SP shard, data replica 0
-        # first: the host-link transfers' view (paged_cache.read_pages)
-        where = self._on_ranks(
-            lambda rt, *_: (rt.comm.axis_index(DATA_AXIS), rt.sp_rank()))
-        self._shards: List[List[Dict[str, torch.Tensor]]] = [
-            [] for _ in range(self.sp)]
-        for rank in sorted(range(n_ranks), key=lambda i: where[i]):
-            self._shards[where[rank][1]].append(self.pools[rank])
+        if comm is None:
+            # the pools of every rank holding each SP shard, data replica 0
+            # first: the host-link transfers' view (paged_cache.read_pages)
+            where = self._on_ranks(
+                lambda rt, *_: (rt.comm.axis_index(DATA_AXIS), rt.sp_rank()))
+            self._shards: List[List[Dict[str, torch.Tensor]]] = [
+                [] for _ in range(self.sp)]
+            for rank in sorted(range(n_ranks), key=lambda i: where[i]):
+                self._shards[where[rank][1]].append(self.pools[rank])
+
+            def read_fn(idx):
+                return paged_cache.read_pages(self._shards, idx)
+
+            def write_fn(idx, data):
+                paged_cache.write_pages(self._shards, idx, data)
+        else:
+            # a rank process holds its own pool: the pages cross by
+            # collectives (module doc)
+            def read_fn(idx):
+                return paged_cache.read_pages_rank(self.rt, self.pools[0],
+                                                   idx)
+
+            def write_fn(idx, data):
+                paged_cache.write_pages_rank(self.rt, self.pools[0], idx,
+                                             data)
         self._cost_memo: Dict[int, float] = {}
         self._spill_memo: Dict[int, bool] = {}
         self.connector = kv_connector.KVConnector(
-            read_fn=lambda idx: paged_cache.read_pages(self._shards, idx),
-            write_fn=lambda idx, data: paged_cache.write_pages(
-                self._shards, idx, data),
+            read_fn=read_fn, write_fn=write_fn,
             bucket=kv_connector.TRANSFER_BUCKET, page_size=eng.page_size,
             pages_per_shard=eng.pages_per_shard,
             page_bytes=sum(t[:, 0].numel() * t.element_size()
@@ -496,8 +541,9 @@ class Engine:
     def _on_ranks(self, fn, rt: Optional[Runtime] = None) -> List:
         """``fn(rank_rt, rank_pools, rank_params)`` on every rank under
         ``no_grad``, results in rank order (module doc;
-        ``models.factory.run_on_ranks``). ``rt`` (default the engine's) is
-        the template whose communicator each rank's replaces."""
+        ``models.factory.run_on_ranks``): one entry, this rank's, in a rank
+        process. ``rt`` (default the engine's) is the template whose
+        communicator each ``ThreadMesh`` rank's replaces."""
         return run_on_ranks(
             self.mesh, rt or self.rt, self.model, self._params,
             lambda rank_rt, rank, tree: fn(rank_rt, self.pools[rank], tree))
@@ -541,22 +587,37 @@ class Engine:
     def prefill_hidden(self, tokens: List[int], rt: Optional[Runtime] = None):
         """The next-token hidden state (1, 1, D) and the prefill K/V stacks
         (L, 1, len(tokens), Hkv, hd) of one prompt, under ``rt`` (default
-        the engine's runtime) on every rank; rank 0's hidden state, the
-        ranks' K/V slices of the first replica joined in sequence order."""
+        the engine's runtime) on every rank: rank 0's hidden state, the
+        ranks' K/V slices joined in sequence order (an all-gather over the
+        SP axes, off the ledger), on this rank (rank 0 of a
+        ``ThreadMesh``)."""
         padded = self._padded(tokens)
-        out = self._on_ranks(
-            lambda r, _, tree: self._prefill_rank(r, tree, padded,
-                                                  len(tokens)), rt)
-        ks, vs = zip(*(kv_cache.kv_stacks(c) for _, c in out[:self.sp]))
         n = len(tokens)
-        return out[0][0], (torch.cat(ks, 2)[:, :, :n],
-                           torch.cat(vs, 2)[:, :, :n])
+
+        def rank_fn(r, _, tree):
+            last, cache = self._prefill_rank(r, tree, padded, n)
+            with r.comm.ledger.uncounted():
+                kv = tuple(r.all_gather_model(t, axis=2)[:, :, :n]
+                           for t in kv_cache.kv_stacks(cache))
+            return self._rank0(r, last), kv
+
+        return self._on_ranks(rank_fn, rt)[0]
 
     @staticmethod
-    def _sampled(toks: List[torch.Tensor]) -> np.ndarray:
-        """Rank 0's tokens, on the host; raises if another rank's differ
-        (module doc)."""
-        every = torch.stack(toks).cpu().numpy()
+    def _rank0(rt, x: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``x`` on every rank: an all-gather over the whole mesh,
+        off the ledger (module doc)."""
+        with rt.comm.ledger.uncounted():
+            return rt.comm.all_gather(x[None], MESH_AXES, 0)[0]
+
+    @staticmethod
+    def _agreed(rt, toks: torch.Tensor) -> np.ndarray:
+        """This rank's sampled ``toks`` on the host, once every rank's
+        have been seen equal: an all-gather over the whole mesh, off the
+        ledger. Every rank raises if one rank's differ (module doc)."""
+        with rt.comm.ledger.uncounted():
+            every = rt.comm.all_gather(toks[None], MESH_AXES, 0)
+        every = every.cpu().numpy()
         if (every != every[0]).any():
             raise RuntimeError(f"the ranks sampled different tokens: {every}")
         return every[0]
@@ -625,18 +686,18 @@ class Engine:
                                           *kv_cache.kv_stacks(cache),
                                           table_row, end, ps)
             if not final:
-                return last, None
+                return None
             if sampled:
-                return last, sampling.sample(
-                    rt, tree.head, last, self.cfg, keys=keys,
-                    **params)[0]
-            return last, sampling.greedy(rt, tree.head, last,
-                                         self.cfg)[0]
+                tok = sampling.sample(rt, tree.head, last, self.cfg,
+                                      keys=keys, **params)[0]
+            else:
+                tok = sampling.greedy(rt, tree.head, last, self.cfg)[0]
+            return self._rank0(rt, last), self._agreed(rt, tok)
 
-        out = self._on_ranks(rank_fn)
+        out = self._on_ranks(rank_fn)[0]
         result = None
         if final:
-            result = (out[0][0], int(self._sampled([t for _, t in out])[0]))
+            result = (out[0], int(out[1][0]))
         st.prefill_pos = end
         m.prefill_tokens_computed += end - start
         m.prefill_chunks += 1
@@ -730,11 +791,10 @@ class Engine:
             device=self.device)
         tokens_d = self._tensor(tokens, torch.int64)
         cache_len_d = self._tensor(cache_len, torch.int32)
-        out = self._on_ranks(lambda rt, pools, tree: (
-            serve_step.lm_decode_step(
+        tok = self._on_ranks(lambda rt, pools, tree: self._agreed(
+            rt, serve_step.lm_decode_step(
                 rt, tree, pools, tokens_d, self.cfg, cache_len_d, paged,
-                sampling=samp)))
-        tok = self._sampled(out)
+                sampling=samp)))[0]
         self.metrics.decode_wall_s += time.monotonic() - t0
         return tok
 
@@ -870,17 +930,21 @@ def build_engine(arch: str, *, smoke: bool = True, c: Optional[int] = 1,
                  kernel: Optional[str] = None, block: Optional[str] = None,
                  plan=None, device=None,
                  registry: Optional[obs.Registry] = None,
-                 tracer: Optional[obs.Tracer] = None) -> Engine:
+                 tracer: Optional[obs.Tracer] = None, comm=None) -> Engine:
     """Build the engine on ``device`` (default: the CUDA card, raising if
     there is none) for ``plan``, or for a serve plan of ``data`` replicas
-    at SP degree 1 when none is given; a plan of SP degree > 1 runs its
-    ranks as ``ThreadMesh`` threads on that one device. ``model``
-    supplies the weights (e.g. ``factory.from_jax_params``); else they are
-    drawn from ``init_seed`` on the device. ``kernel`` / ``block`` pick the
+    at SP degree 1 when none is given. A plan of SP degree > 1 runs its
+    ranks as ``ThreadMesh`` threads on that one device, or, with ``comm``
+    a ``ProcessComm`` of the plan's mesh, this rank process's engine alone
+    (``Engine``; ``device`` then the rank's). ``model`` supplies the
+    weights (e.g. ``factory.from_jax_params``; a rank process's
+    ``factory.rank_model``); else they are drawn from ``init_seed`` on the
+    device, the weights of a one-process engine there, of which a rank
+    process keeps only its shards. ``kernel`` / ``block`` pick the
     paged-decode and ring-block implementations ('ref' | 'cuda');
     ``registry`` and ``tracer`` go to the ``Engine``."""
     from repro_torch.configs import registry as arch_registry
-    from repro_torch.models.factory import build_model
+    from repro_torch.models.factory import build_model, build_rank_model
     from repro_torch.plan import make_serve_plan
 
     device = resolve_device(device)
@@ -891,7 +955,10 @@ def build_engine(arch: str, *, smoke: bool = True, c: Optional[int] = 1,
             decode_batch=eng.max_slots, page_size=eng.page_size,
             max_len=eng.max_len, kernel_impl=kernel, block_impl=block)
     if model is None:
-        model = build_model(cfg, device=device, seed=init_seed)
+        model = (build_model(cfg, device=device, seed=init_seed)
+                 if comm is None else build_rank_model(
+                     cfg, comm, plan.sharding_rules, device, init_seed))
     elif model.device != device:
         raise ValueError(f"model lives on {model.device}, engine on {device}")
-    return Engine(model, plan, eng, registry=registry, tracer=tracer)
+    return Engine(model, plan, eng, registry=registry, tracer=tracer,
+                  comm=comm)

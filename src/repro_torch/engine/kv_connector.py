@@ -49,6 +49,23 @@ On a CPU pool (the tests) the host copies are plain tensors and nothing is
 asynchronous. A pinned allocation that fails raises: the connector never
 carries on with pageable memory.
 
+Ranks as processes
+------------------
+The connector's decisions read only what it is called with: which pages
+to spill, flush, reload, export or inject comes from the scheduler and the
+prefix cache, and the capacity and the cost model are constants, so they do
+not depend on the backend. An engine on rank processes
+(``engine.engine``'s module doc) gives every rank a connector of its own,
+called in the same order, whose ``read_fn`` is
+``paged_cache.read_pages_rank`` (a psum over the SP axes: every rank
+receives every page) and whose ``write_fn`` writes each rank's owned
+pages. So every rank's host tier holds the same pages, takes the same LRU
+and spill decisions and reloads the same bits as the one connector of a
+``ThreadMesh`` engine: a tier of B bytes takes B on every rank, P·B of a
+host that holds all P ranks. ``stats()`` is per rank, and every rank's
+equals the ``ThreadMesh`` engine's: nothing in it is summed over the
+ranks (``resident_bytes`` is one rank's copy).
+
 Pricing
 -------
 ``plan.cost.spill_decision`` compares the round-trip transfer bytes with

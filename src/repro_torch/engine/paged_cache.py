@@ -21,7 +21,12 @@ and the lengths (``PagedTables.write_targets`` once per decode step,
 ``block_targets`` once per prefill), so the per-layer writes are plain
 index calls and never wait on the device. ``read_pages`` / ``write_pages``
 move whole pages by global page id between the pools and the host KV tier
-(``engine.kv_connector``), on the thread that drives the engine.
+(``engine.kv_connector``), on the thread that drives the engine: it reads
+and writes every ``ThreadMesh`` rank's pool in place. A rank process holds
+its own pool alone, so there ``read_pages_rank`` / ``write_pages_rank``
+(the JAX functions' form) move them: a page lives whole in one SP shard's
+pool, the psum over the SP axes brings every page to every rank, and each
+rank writes the pages it owns out of the batch every rank holds.
 """
 
 from __future__ import annotations
@@ -272,11 +277,11 @@ def read_pages(shards: ShardPools, idx) -> Dict[str, torch.Tensor]:
       (the JAX connector's bucket padding) reads as zeros.
 
     Returns {'k','v'} (L, B, ps, Hkv, hd) on the pools' device. Each page
-    comes from data replica 0's rank of its shard. This direct access to
-    every rank's pool is the one-process stand-in for the JAX function's
-    psum over the SP axes: ranks as processes (ROADMAP.md §A item 1 a)
-    need a collective here. This is the device leg of the KV connector's
-    spill and of the prefill -> decode handoff's export.
+    comes from data replica 0's rank of its shard. The driving thread of a
+    ``ThreadMesh`` engine reads every rank's pool directly; rank processes
+    use ``read_pages_rank``, the JAX function's psum over the SP axes.
+    This is the device leg of the KV connector's spill and of the prefill
+    -> decode handoff's export.
     """
     idx = np.asarray(idx, np.int64)
     first = shards[0][0]
@@ -320,3 +325,56 @@ def write_pages(shards: ShardPools, idx, data: Dict[str, torch.Tensor]
             vals = t.to(first[n].dtype)
             for pools in replicas:
                 pools[n].index_copy_(1, local, vals)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s elements as integers of their width (a view)."""
+    return t.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def read_pages_rank(rt, pools: Dict[str, torch.Tensor], idx
+                    ) -> Dict[str, torch.Tensor]:
+    """``read_pages`` on one rank process (the JAX ``read_pages``): this
+    rank's pools {'k','v'} (L, pages_loc, ps, Hkv, hd) contribute the pages
+    its SP shard owns, zeros elsewhere, and a psum over the SP axes gives
+    every rank the whole batch (L, B, ps, Hkv, hd) on the pools' device;
+    -1 reads as zeros. Every rank of the mesh must call it with the same
+    ``idx``; each data replica sums its own ranks', which hold the same
+    pages. The pages are summed as the integers of their bits, so a page
+    plus the other shards' zeros is the owner's page bit for bit (a float
+    -0.0 stays -0.0). Off the ledger, as the ``ThreadMesh`` engine's
+    direct reads move nothing (the engine's module doc)."""
+    idx = np.asarray(idx, np.int64)
+    pages_loc = pools["k"].shape[1]
+    owned = _owned(idx, rt.sp_rank(), pages_loc, pools["k"].device)
+    out = {}
+    for n, t in pools.items():
+        mine = t.new_zeros((t.shape[0], len(idx)) + tuple(t.shape[2:]))
+        if owned is not None:
+            pos, local = owned
+            mine.index_copy_(1, pos, t.index_select(1, local))
+        with rt.comm.ledger.uncounted():
+            out[n] = rt.psum_model(_bits(mine)).view(t.dtype)
+    return out
+
+
+def write_pages_rank(rt, pools: Dict[str, torch.Tensor], idx,
+                     data: Dict[str, torch.Tensor]) -> None:
+    """``write_pages`` on one rank process (the JAX ``write_pages``), **in
+    place**: ``data`` {'k','v'} (L, B, ps, Hkv, hd), the same batch on every
+    rank (host or device), and this rank writes the entries whose page its
+    SP shard owns into its pools; -1 and out-of-range ids drop. Every data
+    replica's rank of a shard writes, so the replicas' pools stay equal.
+    No collective."""
+    idx = np.asarray(idx, np.int64)
+    pages_loc, dev = pools["k"].shape[1], pools["k"].device
+    owned = _owned(idx, rt.sp_rank(), pages_loc, dev)
+    if owned is None:
+        return
+    pos, local = owned
+    for n, t in data.items():
+        t = t.to(dev, non_blocking=True)
+        if len(pos) < len(idx):
+            t = t.index_select(1, pos)
+        pools[n].index_copy_(1, local, t.to(pools[n].dtype))

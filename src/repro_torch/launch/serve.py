@@ -42,7 +42,7 @@ random prompts of ``--prompt-len`` tokens, prefilled at the prompt length,
 the cache expanded to capacity (padded to a multiple of the SP degree),
 then ``--gen - 1`` decode steps against the contiguous cache (kernel B5
 once per rank, layer and step on the card). It runs on the plan's ranks
-(``--devices N``, one ``ThreadMesh`` thread each) and is the only path
+(``--devices N``, as ``--backend`` runs them) and is the only path
 that serves the xLSTM, hybrid, encoder-decoder and VLM families, which the
 engine refuses, as the JAX engine does. For the encoder-decoder
 (``--arch seamless-m4t-large-v2``) the batch also gets ``--prompt-len``
@@ -85,9 +85,10 @@ none; ``--device cpu`` runs the plain PyTorch versions of the kernels:
       --smoke --device cpu --legacy
 
 ``--devices N --data D --c C`` serves on N ranks: D data replicas of SP
-degree N / D (C * C * R), one ``ThreadMesh`` thread per rank on the one
-device, with the JAX launcher's meanings; with several gateway replicas
-or workers N is split evenly between them (default: one rank each).
+degree N / D (C * C * R), with the JAX launcher's meanings, one
+``ThreadMesh`` thread per rank on the one device by default (``--backend
+threads``); with several gateway replicas or workers N is split evenly
+between them (default: one rank each).
 ``--c`` unset lets the cost model pick C (C = 1 at P = 1). ``--save-plan
 FILE`` writes the resolved serve plan (``{"plans": [...]}`` for roles),
 ``--plan FILE`` serves a written one, the port's or the JAX launcher's
@@ -100,25 +101,55 @@ measured-vs-analytical wire bytes (``obs.commlog.comm_report``):
 
 The full-width model (drop ``--smoke``) draws seeded random weights on the
 card.
+
+``--backend gloo|nccl`` runs the N ranks as processes instead
+(``dist.procs.ProcessMesh``: spawned, one ``dist.comm.ProcessComm`` each,
+the plan's arrangement; or joined under ``torchrun``), in engine mode and
+under ``--legacy``. Every rank process draws the whole model from
+``--seed`` on its device, keeps only its shards
+(``factory.build_rank_model``) and serves its own rank with its own pool
+shard: an ``Engine`` in each process, fed the same requests step by step
+(``engine.engine``'s module doc), or the static batch's steps on its rank.
+The streams are ``--backend threads``' on the same device, and rank 0's
+are printed as ``--backend threads`` prints them; rank 0 writes
+``--metrics-dump`` and ``--trace-out``, and ``--comm-report`` gathers
+every rank's ledger of the island to it. ``dist.elastic.plan_mesh`` fits
+the (data, SP) split to the ranks there are (a rank it strands serves
+nothing). gloo runs on the CPU, or several ranks on one card; nccl takes
+one card per rank:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b \\
+      --smoke --device cpu --backend gloo --devices 4 --c 2
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \\
+      --arch h2o-danube-1.8b --smoke --backend nccl --c 2 --legacy
+
+The gateway (``--replicas > 1``, ``--roles``, ``--prefix-cache``) and the
+HTTP front end (``--http``, ``--workers``) serve on threads only: with
+``--backend gloo|nccl`` they raise ``NotImplementedError`` (ROADMAP.md §A
+item 1 a, its remaining half).
 """
 
 import argparse
 
 
-def legacy_start(model, plan, tokens, gen: int, frames=None, patches=None):
+def legacy_start(model, plan, tokens, gen: int, frames=None, patches=None,
+                 comm=None):
     """The static-batch path up to its first decode step, on the plan's
     ranks (one card, or its ``ThreadMesh``; the JAX ``_legacy_main``'s
-    steps): prefill ``tokens`` (B, prompt_len) at their own length and
-    copy each rank's cache into one of capacity ``prompt_len + gen``
+    steps), or on this rank process's rank when ``comm`` is its
+    ``ProcessComm`` (``model`` its ``rank_model``; every rank passes the
+    same inputs): prefill ``tokens`` (B, prompt_len) at their own length
+    and copy each rank's cache into one of capacity ``prompt_len + gen``
     padded to a multiple of the SP degree: the prompt's K/V at its
     positions, recurrent states as they are. Returns ``(first tokens (B,
     1), caches, decode)``, ``decode`` the step of
     ``serve.step.build_decode_step`` and ``caches`` every rank's cache, in
-    rank order. An encoder-decoder needs ``frames`` (B, S_enc, D): the
-    encoder prefills them, and the decoder's prompt goes through decode
-    steps (``_encdec_start``). A VLM takes ``patches`` (B, prompt_len, D):
-    the prompt's first ``int(prefix_len_frac * prompt_len)`` positions
-    are its image prefix (``serve.step.lm_prefill``)."""
+    rank order (this rank's alone in a rank process). An encoder-decoder
+    needs ``frames`` (B, S_enc, D): the encoder prefills them, and the
+    decoder's prompt goes through decode steps (``_encdec_start``). A VLM
+    takes ``patches`` (B, prompt_len, D): the prompt's first
+    ``int(prefix_len_frac * prompt_len)`` positions are its image prefix
+    (``serve.step.lm_prefill``)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.serve import kv_cache, step as serve_step
 
@@ -126,8 +157,9 @@ def legacy_start(model, plan, tokens, gen: int, frames=None, patches=None):
     sp = plan.sp_size
     capacity = -(-(prompt_len + gen) // sp) * sp    # pad to an SP multiple
     if model.cfg.encdec:
-        return _encdec_start(model, plan, tokens, frames, capacity)
-    run_cfg, mesh = plan.run_config(), plan.build_mesh()
+        return _encdec_start(model, plan, tokens, frames, capacity, comm)
+    run_cfg = plan.run_config()
+    mesh = comm if comm is not None else plan.build_mesh()
     prefill = serve_step.build_prefill_step(
         model, run_cfg, ShapeConfig("serve", prompt_len, B, "prefill"), mesh)
     tok, caches_p = prefill(tokens, patches)
@@ -136,16 +168,14 @@ def legacy_start(model, plan, tokens, gen: int, frames=None, patches=None):
     caches = [kv_cache.init_cache(model.cfg, decode.steps.rows,
                                   capacity // sp,
                                   model.device) for _ in caches_p]
-    for group in decode.steps.groups():
-        kv_cache.fill_from_prefill(
-            model.cfg, [caches[r] for r in group],
-            [caches_p[r] for r in group], prompt_len)
+    decode.steps.fill(caches, caches_p, prompt_len)
     return tok, caches, decode
 
 
-def encdec_caches(model, plan, frames, capacity: int):
-    """An encoder-decoder's serving state on the plan's ranks: ``frames``
-    (B, S_enc, D) through the encoder (``serve.step.build_prefill_step``),
+def encdec_caches(model, plan, frames, capacity: int, comm=None):
+    """An encoder-decoder's serving state on the plan's ranks (this rank
+    process's alone with ``comm``, as ``legacy_start``): ``frames`` (B,
+    S_enc, D) through the encoder (``serve.step.build_prefill_step``),
     and every rank's cache, in rank order, of ``capacity`` decoder
     positions (a multiple of the SP degree) holding its slice of the
     encoder output at the encoder's length. Returns ``(caches, decode)``,
@@ -157,7 +187,8 @@ def encdec_caches(model, plan, frames, capacity: int):
         raise ValueError(f"{model.cfg.name}: the encoder-decoder needs "
                          "frames (B, S_enc, D) for its encoder")
     B = frames.shape[0]
-    run_cfg, mesh = plan.run_config(), plan.build_mesh()
+    run_cfg = plan.run_config()
+    mesh = comm if comm is not None else plan.build_mesh()
     enc_outs = serve_step.build_prefill_step(
         model, run_cfg, ShapeConfig("serve", frames.shape[1], B, "prefill"),
         mesh)(frames)
@@ -173,14 +204,14 @@ def encdec_caches(model, plan, frames, capacity: int):
     return caches, decode
 
 
-def _encdec_start(model, plan, tokens, frames, capacity: int):
+def _encdec_start(model, plan, tokens, frames, capacity: int, comm=None):
     """``legacy_start`` of an encoder-decoder (the JAX package has no
     decoder prefill): ``encdec_caches``, then the decoder's prompt
     ``tokens`` one at a time through decode steps, token ``t`` at cache
     length ``t``; the last step's tokens are the first generated."""
     import torch
 
-    caches, decode = encdec_caches(model, plan, frames, capacity)
+    caches, decode = encdec_caches(model, plan, frames, capacity, comm)
     B, prompt_len = tokens.shape
     tok = None
     for t in range(prompt_len):
@@ -191,17 +222,18 @@ def _encdec_start(model, plan, tokens, frames, capacity: int):
 
 
 def legacy_generate(model, plan, tokens, gen: int, frames=None,
-                    patches=None):
+                    patches=None, comm=None):
     """Static-batch greedy generation: ``legacy_start``, then ``gen - 1``
     decode steps, each at the batch's true cache length. Returns the
-    (B, gen) generated tokens, int64. ``frames`` (B, S_enc, D): the
-    encoder's input of an encoder-decoder; ``patches`` (B, prompt_len,
-    D): a VLM's image prefix."""
+    (B, gen) generated tokens, int64 (every row, on every rank process
+    with ``comm``). ``frames`` (B, S_enc, D): the encoder's input of an
+    encoder-decoder; ``patches`` (B, prompt_len, D): a VLM's image
+    prefix."""
     import torch
 
     B, prompt_len = tokens.shape
     tok, caches, decode = legacy_start(model, plan, tokens, gen, frames,
-                                       patches)
+                                       patches, comm)
     generated = [tok]
     for i in range(gen - 1):
         cache_len = torch.full((B,), prompt_len + i, dtype=torch.int32,
@@ -211,15 +243,12 @@ def legacy_generate(model, plan, tokens, gen: int, frames=None,
     return torch.cat(generated, dim=1).long()
 
 
-def _legacy_main(args, plan, cfg, device):
+def _legacy_inputs(args, cfg, device):
+    """The static batch: seeded prompts, and an encoder-decoder's frames
+    or a VLM's patches, on ``device``."""
     import numpy as np
     import torch
 
-    from repro_torch.engine.engine import resolve_device
-    from repro_torch.models.factory import build_model
-
-    device = resolve_device(device)
-    model = build_model(cfg, device=device, seed=args.seed)
     rng = np.random.default_rng(args.seed + 1)
     tokens = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (args.batch, args.prompt_len))).to(device)
@@ -237,11 +266,28 @@ def _legacy_main(args, plan, cfg, device):
             frames = emb
         else:
             patches = emb.to(getattr(torch, cfg.param_dtype))
-    out = legacy_generate(model, plan, tokens, args.gen, frames, patches)
-    print(f"[serve --legacy] prompt {tuple(tokens.shape)} -> generated "
-          f"{tuple(out.shape)}:")
+    return tokens, frames, patches
+
+
+def _legacy_main(args, plan, cfg, device, comm=None):
+    """The static batch's streams (B, gen), on the plan's ranks, or on
+    this rank process's own rank with ``comm`` (its ``rank_model``)."""
+    from repro_torch.engine.engine import resolve_device
+    from repro_torch.models.factory import build_model, build_rank_model
+
+    device = resolve_device(device)
+    model = (build_model(cfg, device=device, seed=args.seed) if comm is None
+             else build_rank_model(cfg, comm, plan.sharding_rules, device,
+                                   args.seed))
+    tokens, frames, patches = _legacy_inputs(args, cfg, device)
+    return legacy_generate(model, plan, tokens, args.gen, frames, patches,
+                           comm)
+
+
+def _print_legacy(args, out) -> None:
+    print(f"[serve --legacy] prompt {(args.batch, args.prompt_len)} -> "
+          f"generated {tuple(out.shape)}:")
     print(out.cpu().numpy())
-    return out
 
 
 def _requests(args, vocab: int, shared=None):
@@ -281,24 +327,27 @@ def _engine_config(args):
                         prefill_chunk=args.prefill_chunk)
 
 
-def _engine_main(args, plan, device, registry=None, tracer=None):
+def _engine_main(args, plan, device, registry=None, tracer=None, comm=None):
+    """The canned workload through one engine (this rank process's, with
+    ``comm``): the streams and the engine's metrics."""
     from repro_torch.engine import build_engine
 
     engine = build_engine(
         plan.arch, smoke=args.smoke, plan=plan, init_seed=args.seed,
         device=device, eng=_engine_config(args), registry=registry,
-        tracer=tracer)
-    reqs = _requests(args, engine.cfg.vocab_size)
-    for r in reqs:
+        tracer=tracer, comm=comm)
+    for r in _requests(args, engine.cfg.vocab_size):
         rej = engine.add_request(r)
         if rej is not None:
             raise SystemExit(f"[serve] {r.uid} rejected: {rej.detail}")
-    out = engine.run()
-    for r in reqs:
+    return engine.run(), engine.metrics.to_dict()
+
+
+def _print_engine(args, cfg, out, metrics) -> None:
+    for r in _requests(args, cfg.vocab_size):
         print(f"[serve] {r.uid}: prompt_len={r.prompt_len} "
               f"-> {out[r.uid]}")
-    print(f"[serve] metrics: {_fmt(engine.metrics.to_dict())}")
-    return out
+    print(f"[serve] metrics: {_fmt(metrics)}")
 
 
 def _gateway_main(args, plan, cfg, device, registry=None, tracer=None,
@@ -402,12 +451,12 @@ def _frontend_main(args, plan, cfg, registry=None, tracer=None):
     return {}
 
 
-def _resolve_plan(args):
+def _resolve_plan(args, say=print):
     """``(plan, plans, cfg)``; ``plans`` is the per-role list of a
     disaggregated gateway (``--roles`` or a ``{"plans": [...]}`` file),
     else None. With several replicas (``--replicas``, ``--roles``, or
     ``--workers`` under ``--http``) ``--devices`` is split evenly between
-    them; 0 gives each one rank."""
+    them; 0 gives each one rank. ``say`` prints (the lead rank's)."""
     import json
 
     from repro_torch.configs import registry
@@ -421,12 +470,12 @@ def _resolve_plan(args):
             plans = [ExecutionPlan.from_dict(d) for d in rec["plans"]]
             for p in plans:
                 p.check_runnable()
-            print(f"[serve] loaded {len(plans)} role plans {args.plan}: "
-                  f"roles={[p.role for p in plans]}")
+            say(f"[serve] loaded {len(plans)} role plans {args.plan}: "
+                f"roles={[p.role for p in plans]}")
             return plans[0], plans, get_cfg(plans[0].arch)
         plan = ExecutionPlan.load(args.plan)
         plan.check_runnable()
-        print(f"[serve] loaded plan {args.plan}")
+        say(f"[serve] loaded plan {args.plan}")
         return plan, None, get_cfg(plan.arch)
     cfg = get_cfg(args.arch)
     roles = [r.strip() for r in (args.roles or "").split(",") if r.strip()]
@@ -452,9 +501,14 @@ def main(argv=None):
                     help="architecture id (optional with --plan)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--devices", type=int, default=0,
-                    help="ranks (ThreadMesh threads on the one device), "
-                         "split evenly over the gateway's replicas or the "
-                         "front end's workers (0: one rank each)")
+                    help="ranks, as --backend runs them, split evenly over "
+                         "the gateway's replicas or the front end's workers "
+                         "(0: one rank each; WORLD_SIZE under torchrun "
+                         "with --backend gloo|nccl)")
+    ap.add_argument("--backend", default="threads",
+                    choices=["threads", "gloo", "nccl"],
+                    help="ranks as ThreadMesh threads on the device, or as "
+                         "processes over gloo or nccl (engine and --legacy)")
     ap.add_argument("--data", type=int, default=1,
                     help="data-parallel replicas (divides --devices)")
     ap.add_argument("--c", type=int, default=None,
@@ -548,17 +602,36 @@ def main(argv=None):
         # replicas; the resolved plan is then per worker
         args.replicas = args.workers
 
-    plan, plans, cfg = _resolve_plan(args)
-    print(f"[serve] plan: P_sp={plan.sp_size} scheme={plan.scheme} "
-          f"C={plan.c} R={plan.r} data={plan.data} "
-          f"kernel={plan.kernel_impl} block={plan.block_impl} "
-          f"slots={plan.decode_batch} page={plan.page_size} "
-          f"capacity={plan.seq_len} "
-          f"replicas={len(plans) if plans else plan.replicas} "
-          f"roles={[p.role for p in plans] if plans else [plan.role]} "
-          f"prefix_cache={plan.prefix_cache} "
-          f"host_tier_bytes={plan.host_tier_bytes} device={args.device}")
-    if args.save_plan:
+    import os
+
+    from repro_torch.dist import procs
+
+    processes = args.backend != "threads"
+    # under torchrun every process runs main(): rank 0 speaks for them
+    lead = not processes or not procs.joined() or os.environ["RANK"] == "0"
+    say = print if lead else (lambda *a, **k: None)
+    if processes:
+        _refuse_on_processes(args)
+    if processes and not args.plan:
+        # fit the requested (data, SP) split to the ranks there are
+        fit = procs.fit_mesh(args.devices or (
+            int(os.environ["WORLD_SIZE"]) if procs.joined() else 1),
+            args.data)
+        say(f"[serve] plan_mesh: world={fit.world} data={fit.data} "
+            f"model={fit.model} stranded={fit.stranded}")
+        args.devices, args.data = fit.devices, fit.data
+    plan, plans, cfg = _resolve_plan(args, say)
+    say(f"[serve] plan: P_sp={plan.sp_size} scheme={plan.scheme} "
+        f"C={plan.c} R={plan.r} data={plan.data} "
+        f"kernel={plan.kernel_impl} block={plan.block_impl} "
+        f"slots={plan.decode_batch} page={plan.page_size} "
+        f"capacity={plan.seq_len} "
+        f"replicas={len(plans) if plans else plan.replicas} "
+        f"roles={[p.role for p in plans] if plans else [plan.role]} "
+        f"prefix_cache={plan.prefix_cache} "
+        f"host_tier_bytes={plan.host_tier_bytes} device={args.device} "
+        f"backend={args.backend}")
+    if args.save_plan and lead:
         if plans:
             import json
             import pathlib
@@ -570,10 +643,6 @@ def main(argv=None):
         else:
             path = plan.save(args.save_plan)
         print(f"[serve] plan saved -> {path}")
-    from repro_torch import obs
-
-    registry = obs.Registry()
-    tracer = obs.Tracer(enabled=bool(args.trace_out))
     if not args.legacy:
         from repro_torch.engine import paged_cache
 
@@ -582,6 +651,13 @@ def main(argv=None):
         if not ok:
             raise NotImplementedError(
                 f"repro_torch.launch.serve: {cfg.name}: {why}")
+    if processes:
+        _refuse_on_processes(args, plan, plans)
+        return _processes_main(args, plan, cfg, lead)
+    from repro_torch import obs
+
+    registry = obs.Registry()
+    tracer = obs.Tracer(enabled=bool(args.trace_out))
     if args.http:
         out = _frontend_main(args, plan, cfg, registry=registry,
                              tracer=tracer)
@@ -591,36 +667,136 @@ def main(argv=None):
                 "repro_torch.launch.serve --legacy serves one replica (on "
                 "any number of ranks); the gateway serves several")
         out = _legacy_main(args, plan, cfg, args.device)
+        _print_legacy(args, out)
     elif plans or plan.replicas > 1 or plan.prefix_cache:
         out = _gateway_main(args, plan, cfg, args.device, registry=registry,
                             tracer=tracer, plans=plans)
     else:
-        out = _engine_main(args, plan, args.device, registry=registry,
-                           tracer=tracer)
-    if args.metrics_dump:
-        fmt = "json" if args.metrics_dump.endswith(".json") else "prometheus"
-        registry.dump(args.metrics_dump, fmt=fmt)
-        print(f"[serve] metrics dump -> {args.metrics_dump} ({fmt})")
-    if args.trace_out:
-        tracer.dump(args.trace_out)
-        print(f"[serve] trace ({len(tracer.events())} events) -> "
-              f"{args.trace_out}")
+        out, metrics = _engine_main(args, plan, args.device,
+                                    registry=registry, tracer=tracer)
+        _print_engine(args, cfg, out, metrics)
+    for line in _write_dumps(args, registry, tracer):
+        print(line)
     if args.comm_report:
-        import json
-        import pathlib
-
         from repro_torch.engine.engine import resolve_device
         from repro_torch.obs import commlog
 
-        rep = commlog.comm_report(cfg, plan,
-                                  device=resolve_device(args.device))
-        path = pathlib.Path(args.comm_report)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        path.write_text(json.dumps(rep, indent=2))
-        ratios = {k: v["ratio"] for k, v in rep["per_collective"].items()}
-        print(f"[serve] comm report -> {path} "
-              f"within_tolerance={rep['within_tolerance']} ratios={ratios}")
+        _write_comm_report(args, commlog.comm_report(
+            cfg, plan, device=resolve_device(args.device)))
     return out
+
+
+def _write_dumps(args, registry, tracer):
+    """Write ``--metrics-dump`` and ``--trace-out``; the lines that say
+    so."""
+    lines = []
+    if args.metrics_dump:
+        fmt = "json" if args.metrics_dump.endswith(".json") else "prometheus"
+        registry.dump(args.metrics_dump, fmt=fmt)
+        lines.append(f"[serve] metrics dump -> {args.metrics_dump} ({fmt})")
+    if args.trace_out:
+        tracer.dump(args.trace_out)
+        lines.append(f"[serve] trace ({len(tracer.events())} events) -> "
+                     f"{args.trace_out}")
+    return lines
+
+
+def _write_comm_report(args, rep) -> None:
+    import json
+    import pathlib
+
+    path = pathlib.Path(args.comm_report)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(rep, indent=2))
+    ratios = {k: v["ratio"] for k, v in rep["per_collective"].items()}
+    print(f"[serve] comm report -> {path} "
+          f"within_tolerance={rep['within_tolerance']} ratios={ratios}")
+
+
+# the half of ROADMAP.md §A item 1 a that rank processes do not serve yet
+ON_THREADS_ONLY = (
+    "the gateway (--replicas > 1, --roles, --prefix-cache) and the HTTP "
+    "front end (--http, --workers) serve on ThreadMesh threads only: their "
+    "replicas as rank processes are not ported yet (ROADMAP.md §A item 1 a, "
+    "its remaining half: the gateway and front end on process replicas)")
+
+
+def _refuse_on_processes(args, plan=None, plans=None) -> None:
+    """Raise for what ``--backend gloo|nccl`` does not serve: the gateway
+    and the front end (the flags, or a plan file's replicas and roles)."""
+    gateway = (args.replicas > 1 or args.roles or plans
+               or (plan is not None and plan.replicas > 1)
+               or (args.prefix_cache and not args.legacy))
+    if gateway or args.http or args.workers:
+        raise NotImplementedError(
+            f"repro_torch.launch.serve --backend {args.backend}: "
+            f"{ON_THREADS_ONLY}")
+
+
+def _processes_main(args, plan, cfg, lead: bool):
+    """``--backend gloo|nccl``: the plan's ranks as processes, each running
+    ``_serve_rank``; the lead (the spawning process, or rank 0 under
+    ``torchrun``) prints rank 0's as ``--backend threads`` does. Returns
+    the streams."""
+    import torch
+
+    from repro_torch.dist import procs
+    from repro_torch.engine.engine import resolve_device
+
+    if resolve_device(args.device).type == "cuda":
+        from repro_torch.kernels import _build
+
+        _build.library()           # one build, before the ranks load it
+    mesh = procs.ProcessMesh(plan.c, plan.r, plan.data, plan.placement,
+                             backend=args.backend, device=args.device)
+    got = mesh.run(_serve_rank, plan, cfg, vars(args))
+    if not got:                    # a rank plan_mesh stranded
+        return {}
+    res = got[0]
+    out = (torch.tensor(res["out"], dtype=torch.int64) if args.legacy
+           else res["out"])
+    if lead:
+        if args.legacy:
+            _print_legacy(args, out)
+        else:
+            _print_engine(args, cfg, out, res["metrics"])
+        for line in res["dumps"]:
+            print(line)
+        if args.comm_report:
+            _write_comm_report(args, res["comm_report"])
+    return out
+
+
+def _serve_rank(comm, plan, cfg, opts):
+    """One rank process of ``--backend gloo|nccl`` (module doc): its own
+    shards of the model drawn from ``--seed`` on its device, its engine
+    (or the static batch's steps on its rank) fed the same requests as
+    every rank's, and ``--comm-report``'s island. Returns the streams and
+    the engine's metrics (lists and numbers: every rank's are the same);
+    rank 0 also writes the dumps, and returns their lines and the
+    report."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.obs import commlog
+
+    args = argparse.Namespace(**opts)
+    device = (torch.device("cpu") if args.device == "cpu"
+              else torch.device("cuda", torch.cuda.current_device()))
+    lead = comm.rank == 0
+    registry = obs.Registry()
+    tracer = obs.Tracer(enabled=bool(args.trace_out) and lead)
+    res = {}
+    if args.legacy:
+        res["out"] = _legacy_main(args, plan, cfg, device, comm).tolist()
+    else:
+        res["out"], res["metrics"] = _engine_main(
+            args, plan, device, registry=registry, tracer=tracer, comm=comm)
+    if args.comm_report:
+        res["comm_report"] = commlog.comm_report(cfg, plan, device=device,
+                                                 comm=comm)
+    res["dumps"] = _write_dumps(args, registry, tracer) if lead else []
+    return res
 
 
 if __name__ == "__main__":

@@ -217,7 +217,6 @@ def main(argv=None):
     from repro_torch.configs import registry
     from repro_torch.configs.base import SHAPES, ShapeConfig
     from repro_torch.dist import procs
-    from repro_torch.dist.elastic import plan_mesh
     from repro_torch.engine.engine import resolve_device
     from repro_torch.launch.mesh import refinable_grids
     from repro_torch import obs
@@ -234,13 +233,9 @@ def main(argv=None):
                         and processes else 1)
     if processes and not args.plan:
         # fit the requested (data, model) split to the ranks there are
-        world = (int(os.environ["WORLD_SIZE"]) if procs.joined()
-                 else args.devices)
-        target = args.devices // args.data
-        fit = plan_mesh(world, model_axis_target=target,
-                        min_model=min(4, target))
+        fit = procs.fit_mesh(args.devices, args.data)
         if lead:
-            print(f"[train] plan_mesh: world={world} data={fit.data} "
+            print(f"[train] plan_mesh: world={fit.world} data={fit.data} "
                   f"model={fit.model} stranded={fit.stranded}")
         args.devices, args.data = fit.devices, fit.data
     device = resolve_device(args.device)

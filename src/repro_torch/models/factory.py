@@ -24,9 +24,11 @@ requires a gradient, so autograd returns a shard-sized gradient. Blocks
 read only such a tree (or the ``Model`` itself, whose leaves are the
 shards of one rank). A rank process holds its shards alone:
 ``rank_model`` copies them out of a whole ``Model`` (built on the host
-from the seed) into a ``Model`` of its own. ``run_on_ranks`` runs a
-function on every rank of a ``ThreadMesh`` (or on one card) with each
-rank's tree, built at its first call. Checkpoints keep whole leaves.
+from the seed) into a ``Model`` of its own; ``build_rank_model`` draws
+the whole on the rank's device first and frees it. ``run_on_ranks`` runs
+a function on every rank of a ``ThreadMesh`` (or on one card, or on a rank
+process's own rank) with each rank's tree, built at its first call.
+Checkpoints keep whole leaves.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist import sharding
+from repro_torch.dist.comm import ProcessComm
 from repro_torch.models import encdec, spec, transformer
 
 
@@ -200,11 +203,22 @@ def shard_params(model: Model, comm, rules: str = "default", *,
 
 def run_on_ranks(mesh, rt, model: Model, trees: List, fn) -> List:
     """``fn(rank_rt, rank, tree)`` on every rank under ``no_grad``, the
-    results in rank order: one rank (index 0, ``rt`` itself) when ``mesh``
-    is None, else every thread of the ``ThreadMesh``, each with ``rt``'s
-    communicator replaced by its own. ``trees`` holds each rank's
-    ``shard_params`` tree under ``rt.rules`` (a list of one entry a rank,
-    None until the rank's first call, which builds it)."""
+    results in rank order: every thread of the ``ThreadMesh`` ``mesh``,
+    each with ``rt``'s communicator replaced by its own; or, when ``mesh``
+    is None, one rank (index 0, ``rt`` itself): a card's ``SingleComm``,
+    or this process's rank of a ``ProcessComm`` mesh, whose call returns
+    its own result alone (a list of one entry: another rank's result is
+    in another process, and crosses only by a collective inside ``fn``).
+    A rank process's ``model`` must be its ``rank_model``, so its tree is
+    the shards it holds. ``trees`` holds each rank's ``shard_params`` tree
+    under ``rt.rules`` (a list of one entry a rank, None until the rank's
+    first call, which builds it)."""
+    if (mesh is None and isinstance(rt.comm, ProcessComm)
+            and getattr(model, "held", None) is None):
+        raise ValueError("a rank process holds its own shards alone: give "
+                         "it factory.rank_model(model, comm, rules), not "
+                         "the whole model")
+
     def body(comm, rank):
         rank_rt = rt if comm is None else dataclasses.replace(rt, comm=comm)
         if trees[rank] is None:
@@ -238,6 +252,21 @@ def build_model(cfg: ModelConfig, device="cuda", seed: int = 0) -> Model:
     with torch.no_grad():
         return Model(cfg, lambda s: spec.init_leaf(s, gen, cfg.param_dtype,
                                                    device))
+
+
+def build_rank_model(cfg: ModelConfig, comm, rules: str = "default",
+                     device="cuda", seed: int = 0) -> Model:
+    """A rank process's model: the whole model drawn on ``device`` from
+    ``seed`` (``build_model``: the weights a one-process run draws there),
+    the rank of ``comm``'s shards kept under ``rules`` (``rank_model``),
+    and the whole freed before this returns."""
+    device = _on_device(device)
+    whole = build_model(cfg, device=device, seed=seed)
+    model = rank_model(whole, comm, rules, device)
+    del whole
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return model
 
 
 # an encoder-decoder tree's stacks, one row of each leaf a layer

@@ -62,7 +62,8 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.dist.comm import CommLedger
+from repro_torch.dist.comm import WIRE_KINDS, CommLedger
+from repro_torch.dist.sharding import MESH_AXES
 from repro_torch.plan import cost
 
 #: collective kind <- cost.comm_volumes components.
@@ -121,12 +122,16 @@ def island_wire_volumes(cfg: ModelConfig, plan, *, batch: int = 1,
 def measure_attention_island(cfg: ModelConfig, plan, *, batch: int = 1,
                              seq_len: Optional[int] = None,
                              dtype: torch.dtype = torch.bfloat16,
-                             device=None) -> Dict[str, object]:
+                             device=None, comm=None) -> Dict[str, object]:
     """One forward of one attention layer (the plan's scheme and ring
     chunks; random seeded q, k, v of ``dtype``) on a
     ``ThreadMesh(plan.c, plan.r)`` on ``device`` (default: the CUDA card),
-    read from every rank's ledger: per-device wire bytes by kind (the
-    largest over the ranks) and the calls of rank 0."""
+    or, with ``comm`` a ``ProcessComm`` of the plan's mesh, on every rank
+    process (each calls this; every data replica runs the island), read
+    from every rank's ledger: per-device wire bytes by kind (the largest
+    over the ranks) and the calls of rank 0. A rank process's ledger is
+    reset first, and the ranks' ledgers cross by an all-gather over the
+    mesh, off the ledger."""
     from repro_torch.core import startrail as st
     from repro_torch.core import ulysses as ul
     from repro_torch.dist.comm import ThreadMesh
@@ -151,28 +156,48 @@ def measure_attention_island(cfg: ModelConfig, plan, *, batch: int = 1,
             attention(q, k, v, st_cfg, comm)
         return comm.ledger
 
-    ledgers = ThreadMesh(plan.c, plan.r, placement=plan.placement).run(
-        rank_fn)
-    fwd = [ledger.bytes["forward"] for ledger in ledgers]
+    if comm is None:
+        ledgers = ThreadMesh(plan.c, plan.r, placement=plan.placement).run(
+            rank_fn)
+        fwd = [ledger.bytes["forward"] for ledger in ledgers]
+        calls0 = ledgers[0].calls["forward"]
+    else:
+        comm.reset_ledgers()
+        fwd, calls0 = _gathered_ledgers(rank_fn(comm), comm, device)
     return {
         "wire_bytes_by_kind": {kind: max(f[kind] for f in fwd)
                                for kind in KIND_FROM_COMPONENTS},
-        "count_by_kind": {k: v for k, v in ledgers[0].calls["forward"].items()
-                          if v},
+        "count_by_kind": {k: v for k, v in calls0.items() if v},
         "unmodelled_allreduce_bytes": max(f["all-reduce"] for f in fwd),
         "ranks_agree": all(f == fwd[0] for f in fwd),
     }
 
 
+def _gathered_ledgers(ledger, comm, device):
+    """Every rank's forward bytes by kind, in rank order, and rank 0's
+    forward calls, from this rank's ``ledger`` (an all-gather over the
+    mesh, off the ledger)."""
+    mine = torch.tensor([[ledger.bytes["forward"][k] for k in WIRE_KINDS]
+                         + [ledger.calls["forward"][k] for k in WIRE_KINDS]],
+                        dtype=torch.int64, device=device)
+    with ledger.uncounted():
+        rows = comm.all_gather(mine, MESH_AXES, 0).tolist()
+    n = len(WIRE_KINDS)
+    return ([dict(zip(WIRE_KINDS, row[:n])) for row in rows],
+            dict(zip(WIRE_KINDS, rows[0][n:])))
+
+
 def comm_report(cfg: ModelConfig, plan, *, batch: int = 1,
                 seq_len: Optional[int] = None, tolerance: float = 0.05,
-                dtype: torch.dtype = torch.bfloat16, device=None
-                ) -> Dict[str, object]:
+                dtype: torch.dtype = torch.bfloat16, device=None,
+                comm=None) -> Dict[str, object]:
     """Measured-vs-analytical per-collective report for one attention
-    layer's forward on the plan's arrangement. ``within_tolerance`` covers
-    every kind with non-zero analytical volume (and a measured kind with
-    none). Each kind's ``eqs_bytes`` is ``analytical_wire_volumes``, the
-    paper's closed form, beside the island's ``analytical_bytes``."""
+    layer's forward on the plan's arrangement (on a ``ThreadMesh``, or on
+    every rank process of ``comm``'s mesh: ``measure_attention_island``).
+    ``within_tolerance`` covers every kind with non-zero analytical
+    volume (and a measured kind with none). Each kind's ``eqs_bytes`` is
+    ``analytical_wire_volumes``, the paper's closed form, beside the
+    island's ``analytical_bytes``."""
     n = seq_len or plan.seq_len
     dtype_bytes = torch.empty((), dtype=dtype).element_size()
     analytical = island_wire_volumes(cfg, plan, batch=batch, seq_len=n,
@@ -180,7 +205,8 @@ def comm_report(cfg: ModelConfig, plan, *, batch: int = 1,
     eqs = analytical_wire_volumes(cfg, plan, batch=batch, seq_len=n,
                                   dtype_bytes=dtype_bytes)
     measured = measure_attention_island(cfg, plan, batch=batch, seq_len=n,
-                                        dtype=dtype, device=device)
+                                        dtype=dtype, device=device,
+                                        comm=comm)
     kinds = {}
     ok = True
     for kind, a in analytical.items():

@@ -127,27 +127,53 @@ def layer(cache: Cache, i: int) -> Dict[str, torch.Tensor]:
 
 
 def fill_from_prefill(cfg: ModelConfig, dst: Sequence[Cache],
-                      src: Sequence[Cache], prompt_len: int) -> None:
+                      src: Sequence[Cache], prompt_len: int,
+                      ranks: Optional[Sequence[int]] = None) -> None:
     """Copy the prefill caches ``src`` of one data replica's SP ranks, in
     SP rank order (each rank's slice of ``prompt_len`` positions), into
-    the capacity-sized caches ``dst`` of the same ranks, in place: the
-    prompt's K/V at positions ``0 .. prompt_len - 1`` of the capacity
-    layout, and each recurrent state as it is (JAX ``_legacy_main``'s
-    ``merge``)."""
+    the capacity-sized caches ``dst`` of the SP ranks ``ranks`` (default:
+    all of them, in order), in place: the prompt's K/V at positions
+    ``0 .. prompt_len - 1`` of the capacity layout, and each recurrent
+    state as it is (JAX ``_legacy_main``'s ``merge``)."""
+    ranks = range(len(dst)) if ranks is None else ranks
     for i, (mixer, _) in enumerate(transformer.layer_plan(cfg)):
         if mixer != "attn":
-            for d, s in zip(dst, src):
+            for j, d in zip(ranks, dst):
                 for n, t in layer(d, i).items():
-                    t.copy_(layer(s, i)[n])
+                    t.copy_(layer(src[j], i)[n])
             continue
         for n in ("k", "v"):
             full = torch.cat([layer(s, i)[n] for s in src], dim=1)
             s_cap = layer(dst[0], i)[n].shape[1]
-            for j, d in enumerate(dst):
+            for j, d in zip(ranks, dst):
                 lo = j * s_cap
                 m = max(0, min(s_cap, prompt_len - lo))
                 if m:
                     layer(d, i)[n][:, :m] = full[:, lo:lo + m]
+
+
+def gather_prefill(rt, cfg: ModelConfig, cache: Cache) -> List[Cache]:
+    """Every SP rank's prefill cache of this rank's data replica, in SP
+    rank order, from this rank's ``cache`` (a rank process's view for
+    ``fill_from_prefill``): each attention layer's K/V all-gathered over
+    the SP axes and cut back into the ranks' slices; a recurrent state is
+    this rank's in every entry (``fill_from_prefill`` copies each rank's
+    own)."""
+    p = rt.sp_size()
+    if isinstance(cache, dict):
+        parts = {n: rt.all_gather_model(t, axis=2).chunk(p, 2)
+                 for n, t in cache.items() if n in ("k", "v")}
+        return [dict(cache, **{n: parts[n][j] for n in parts})
+                for j in range(p)]
+    layers = []
+    for (mixer, _), c in zip(transformer.layer_plan(cfg), cache):
+        if mixer != "attn":
+            layers.append([c] * p)
+            continue
+        parts = {n: rt.all_gather_model(t, axis=1).chunk(p, 1)
+                 for n, t in c.items()}
+        layers.append([{n: parts[n][j] for n in parts} for j in range(p)])
+    return [[lay[j] for lay in layers] for j in range(p)]
 
 
 def write_token(rt, cache: Dict[str, torch.Tensor], k_new, v_new,

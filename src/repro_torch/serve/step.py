@@ -58,7 +58,8 @@ prefix caching and chunking for them. The per-rank functions take the
 ``Runtime`` (communicator + attention config) and the rank's parameter
 tree (``models.factory.shard_params`` under ``rt.rules``; at one rank the
 ``Model`` itself). ``build_prefill_step`` / ``build_decode_step`` run them
-on one card or on every rank of a ``ThreadMesh``.
+on one card, on every rank of a ``ThreadMesh``, or on a rank process's own
+rank of a ``ProcessComm`` mesh (its ``rank_model``; ``StaticSteps``).
 """
 
 from __future__ import annotations
@@ -78,6 +79,7 @@ from repro_torch.core.combine import combine_pair
 from repro_torch.engine import paged_cache
 from repro_torch.engine import sampling as sampling_lib
 from repro_torch.kernels import dispatch as kernels
+from repro_torch.dist.comm import ProcessComm
 from repro_torch.dist.sharding import DATA_AXIS
 from repro_torch.models import blocks, encdec, ssm, transformer
 from repro_torch.models.factory import run_on_ranks
@@ -457,29 +459,35 @@ def lm_prefill_paged(rt, params, tokens, cfg: ModelConfig, *, prompt_len: int,
 class StaticSteps:
     """The ranks of the static-batch steps of one ``shape``
     (``build_prefill_step`` / ``build_decode_step``): one card when
-    ``mesh`` is None, else every thread of the ``ThreadMesh``. Each rank
-    serves its data replica's rows (the batch splits over the replicas
-    when it divides, else every replica serves it all) and its contiguous
-    slice of the sequence, with its parameter tree under the plan's rules
-    (built at its first call). ``where`` gives each rank's (data replica,
-    SP rank)."""
+    ``mesh`` is None, every thread of a ``ThreadMesh``, or, when ``mesh``
+    is this process's ``ProcessComm``, its own rank alone (``comm``;
+    ``model`` its ``rank_model``): its results and ``where`` have one
+    entry, and ``gather`` and ``kv_cache.fill_from_prefill`` cross ranks
+    by collectives. Each rank serves its data replica's rows (the batch
+    splits over the replicas when it divides, else every replica serves
+    it all) and its contiguous slice of the sequence, with its parameter
+    tree under the plan's rules (built at its first call). ``where`` gives
+    each rank's (data replica, SP rank)."""
 
     def __init__(self, model, run_cfg: RunConfig, shape: ShapeConfig,
                  mesh=None):
         from repro_torch.train import step as train_step
 
-        self.model, self.mesh = model, mesh
+        self.comm = mesh if isinstance(mesh, ProcessComm) else None
+        self.model = model
+        self.mesh = None if self.comm is not None else mesh
         data = mesh.data if mesh is not None else 1
         # split the batch over the replicas when it divides, else every
         # replica serves every row (JAX ``batch_axes_for``)
         self.split = data > 1 and shape.global_batch % data == 0
         self.rows = shape.global_batch // data if self.split \
             else shape.global_batch
-        rt = train_step.make_runtime(model, run_cfg, shape)
+        rt = train_step.make_runtime(model, run_cfg, shape, self.comm)
         self.rt = dataclasses.replace(
             rt, batch_axes=(DATA_AXIS,) if self.split else (),
             st_cfg=dataclasses.replace(rt.st_cfg, seq_scheme="contiguous"))
-        self._trees = [None] * (mesh.size if mesh is not None else 1)
+        self._trees = [None] * (self.mesh.size if self.mesh is not None
+                                else 1)
         self.where = self.run(lambda rt, *_: (
             rt.comm.axis_index(DATA_AXIS), rt.sp_rank()))
 
@@ -505,9 +513,33 @@ class StaticSteps:
     def gather(self, outs):
         """The batch's rows of a per-rank output: each serving replica's
         SP rank 0's, in replica order (replica 0's alone when every
-        replica serves every row)."""
+        replica serves every row). A rank process's SP ranks hold the same
+        rows, and the replicas' rows cross by an all-gather over ``data``,
+        off the ledger (a ``ThreadMesh`` reads them from shared memory)."""
+        if self.comm is not None:
+            if not self.split:
+                return outs[0]
+            with self.comm.ledger.uncounted():
+                return self.comm.all_gather(outs[0], DATA_AXIS, 0)
         groups = self.groups() if self.split else self.groups()[:1]
         return torch.cat([outs[g[0]] for g in groups])
+
+    def fill(self, caches, caches_p, prompt_len: int) -> None:
+        """``kv_cache.fill_from_prefill`` of every data replica: the
+        prefill caches ``caches_p`` into the capacity caches ``caches``
+        (both per rank, in rank order). A rank process first gathers its
+        replica's prefill K/V over the SP axes, off the ledger."""
+        cfg = self.model.cfg
+        if self.comm is None:
+            for group in self.groups():
+                kv_cache.fill_from_prefill(
+                    cfg, [caches[r] for r in group],
+                    [caches_p[r] for r in group], prompt_len)
+            return
+        with self.comm.ledger.uncounted():
+            src = kv_cache.gather_prefill(self.rt, cfg, caches_p[0])
+        kv_cache.fill_from_prefill(cfg, caches, src, prompt_len,
+                                   ranks=[self.rt.sp_rank()])
 
 
 def build_prefill_step(model, run_cfg: RunConfig, shape: ShapeConfig,

@@ -1498,6 +1498,36 @@ def _small_serving_model(cuda_device):
 
 
 @pytest.mark.gpu
+def test_engine_on_two_gloo_rank_processes_on_card(cuda_device):
+    """Two gloo rank processes at (data, C, R) = (1, 1, 2) each serve an
+    engine of their own on the card, holding their shards of the weights
+    drawn from seed 0 there, through the CUDA kernels (B2 and B4 launched
+    in each process): their streams equal the ThreadMesh engine's at the
+    same plan and weights, a request joining mid-run."""
+    import torch_serve_procs_ranks as ranks
+    from repro_torch.dist.procs import ProcessMesh
+    from repro_torch.engine import Engine, EngineConfig, Request
+    from repro_torch.kernels import _build
+    from repro_torch.plan import make_serve_plan
+
+    model = _small_serving_model(cuda_device)
+    plan = make_serve_plan(model.cfg, arch="h2o-danube-1.8b", n_devices=2,
+                           c=1, decode_batch=2, page_size=16, max_len=256)
+    eng = EngineConfig(pages_per_shard=32)
+    rng = np.random.default_rng(1)
+    reqs = [Request(f"r{i}", rng.integers(0, 256, n).tolist(), 6)
+            for i, n in enumerate([40, 70, 25])]
+    want = ranks.observe(Engine(model, plan, eng), reqs, "joined")["streams"]
+    _build.library()               # one build, before the ranks load it
+    got = ProcessMesh(1, 2, backend="gloo", timeout=120).run(
+        ranks.serve_card, model.cfg, plan, eng, reqs, timeout=300)
+    assert len(got) == 2
+    for streams, launches in got:
+        assert streams == want
+        assert launches["B2"] > 0 and launches["B4"] > 0
+
+
+@pytest.mark.gpu
 def test_gateway_two_replicas_share_one_model_on_card(cuda_device):
     """Two unified replicas on the card share one ``Model``; each
     replica's streams equal a single engine's fed the same requests at the
